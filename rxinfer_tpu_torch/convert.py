@@ -29,6 +29,8 @@ _FAMILIES = {
     "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
     "MvNormalWeightedMeanPrecision": D.MvNormalWeightedMeanPrecision,
     "PointMass": D.PointMass,
+    "Categorical": D.Categorical,
+    "DirichletCollection": D.DirichletCollection,
 }
 
 _IGNORED_PLAN_FIELDS = ("chunk", "dyn_w", "dyn_q", "wlin")

@@ -1,5 +1,6 @@
-"""Distribution substrate of the PyTorch port (Gaussian families and
-PointMass; counterpart of ``rxinfer_tpu/dists``)."""
+"""Distribution substrate of the PyTorch port (Gaussian families,
+Categorical, DirichletCollection and PointMass; counterpart of
+``rxinfer_tpu/dists``)."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -26,9 +27,12 @@ from .gaussian import (  # noqa: F401
     pd_inverse,
     pd_logdet,
 )
+from .discrete import Categorical, DirichletCollection  # noqa: F401
 from .pointmass import PointMass, register_pointmass_products
 
 register_pointmass_products(
+    Categorical,
+    DirichletCollection,
     NormalMeanVariance,
     NormalMeanPrecision,
     NormalWeightedMeanPrecision,

@@ -1,0 +1,92 @@
+"""Discrete / simplex families (counterpart of ``rxinfer_tpu/dists/discrete.py``).
+
+Ported subset: ``Categorical`` (stored as logits; ``from_probs``, ``probs``,
+``log_probs``, ``mean``, ``var``, ``entropy``) and ``DirichletCollection``
+(``mean``, ``mean_log``, ``var``) with their closed-form products — what the
+HMM's discrete chain and its Dirichlet transition/emission groups need.
+``Dirichlet``, ``Multinomial``, sampling, log-densities and the
+Dirichlet-collection entropy arrive with the rest of the node library and
+free energy.
+
+Batch axes.  Every tensor may carry leading batch dimensions.  A
+``DirichletCollection`` is a collection of independent Dirichlets over the
+columns of a (K_out, K_in) matrix: its event is the trailing two axes and the
+simplex runs over K_out, axis -2.  (The JAX class reduces over axis 0, which
+is the outcome axis only because it runs under ``vmap`` without a batch axis;
+reducing over axis 0 here would normalise across the batch.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .base import Distribution, dist_dataclass, register_prod
+
+
+@dist_dataclass
+class Categorical(Distribution):
+    """Categorical over K classes, stored as logits (..., K)."""
+
+    logits: torch.Tensor
+
+    @property
+    def event_ndim(self) -> int:
+        return 1
+
+    @classmethod
+    def from_probs(cls, p):
+        return cls(torch.log(torch.clamp(p, min=1e-37)))
+
+    def probs(self):
+        return torch.softmax(self.logits, dim=-1)
+
+    def log_probs(self):
+        return torch.log_softmax(self.logits, dim=-1)
+
+    def mean(self):
+        return self.probs()
+
+    def var(self):
+        p = self.probs()
+        return p * (1.0 - p)
+
+    def entropy(self):
+        lp = self.log_probs()
+        return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+
+@register_prod(Categorical, Categorical)
+def _prod_categorical(x: Categorical, y: Categorical) -> Categorical:
+    return Categorical(x.logits + y.logits)
+
+
+@dist_dataclass
+class DirichletCollection(Distribution):
+    """Independent Dirichlets over the columns of a (K_out, K_in) matrix:
+    each alpha[..., :, j] is a Dirichlet over K_out outcomes, so the columns
+    of the mean sum to one (the HMM transition/emission prior)."""
+
+    alpha: torch.Tensor  # (..., K_out, K_in) — simplex over axis -2
+
+    @property
+    def event_ndim(self) -> int:
+        return 2
+
+    def mean(self):
+        a0 = torch.sum(self.alpha, dim=-2, keepdim=True)
+        return self.alpha / a0
+
+    def mean_log(self):
+        return torch.digamma(self.alpha) - torch.digamma(
+            torch.sum(self.alpha, dim=-2, keepdim=True))
+
+    def var(self):
+        a = self.alpha
+        a0 = torch.sum(a, dim=-2, keepdim=True)
+        m = a / a0
+        return m * (1.0 - m) / (a0 + 1.0)
+
+
+@register_prod(DirichletCollection, DirichletCollection)
+def _prod_dirichlet_collection(x: DirichletCollection, y: DirichletCollection):
+    return DirichletCollection(x.alpha + y.alpha - 1.0)

@@ -1,17 +1,29 @@
-"""Natural-parameter views of the Gaussian families (counterpart of
-``rxinfer_tpu/dists/natural.py``).
+"""Natural-parameter views: products, plate reductions and padding
+(counterpart of ``rxinfer_tpu/dists/natural.py``).
 
 For every family ``prod(d1, d2) == from_natural(to_natural(d1) +
 to_natural(d2))`` and the ZERO natural vector is the multiplicative identity.
-Ported subset: the ``gaussian`` and ``mv_gaussian`` families (the other
-conjugate families arrive with the rest of the node library), ``prod_all``
-and ``nat_div``.  ``NAT_EVENT_RANKS`` and the plate reductions arrive with
-the plain conjugate groups, their only users.
+Ported subset: the ``gaussian``, ``mv_gaussian``, ``categorical`` and
+``dirichlet_collection`` families (the other conjugate families arrive with
+free energy and the rest of the node library), ``prod_all``, ``nat_div``,
+``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.
+
+Batch axes.  The JAX package evaluates a plain group's messages per dataset
+under ``vmap``, so a message leaf there is (plate..., event...).  The port
+evaluates them over the whole batch at once: a leaf is (batch..., plate...,
+event...), and ``prod_reduce`` / ``pad_plate`` take ``batch_ndim``, the
+number of leading batch axes a batched leaf carries (0 gives the JAX
+package's behaviour).  A leaf may lack the batch axis (a message computed
+from constants only) and it may lack the plate axis (a message shared by
+every plate copy); ``NAT_EVENT_RANKS`` tells them apart.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .base import Distribution, ProductError
+from .discrete import Categorical, DirichletCollection
 from .gaussian import (
     AbstractMvNormal,
     AbstractNormal,
@@ -36,6 +48,18 @@ _TABLE = {
     "gaussian": (_gauss_to, lambda n: NormalWeightedMeanPrecision(n[0], n[1])),
     "mv_gaussian": (_mv_gauss_to,
                     lambda n: MvNormalWeightedMeanPrecision(n[0], n[1])),
+    "dirichlet_collection": (lambda d: (d.alpha - 1.0,),
+                             lambda n: DirichletCollection(n[0] + 1.0)),
+    "categorical": (lambda d: (d.logits,), lambda n: Categorical(n[0])),
+}
+
+# Event ranks of each family's natural-parameter leaves: they tell the batch
+# and plate axes from the event axes when reducing or padding message batches.
+NAT_EVENT_RANKS = {
+    "gaussian": (0, 0),
+    "mv_gaussian": (1, 2),
+    "dirichlet_collection": (2,),
+    "categorical": (1,),
 }
 
 
@@ -44,6 +68,10 @@ def family_key(d: Distribution) -> str:
         return "mv_gaussian"
     if isinstance(d, AbstractNormal):
         return "gaussian"
+    if isinstance(d, DirichletCollection):
+        return "dirichlet_collection"
+    if isinstance(d, Categorical):
+        return "categorical"
     raise TypeError(f"No natural-parameter view for {type(d).__name__}")
 
 
@@ -81,3 +109,49 @@ def nat_div(a: Distribution, b: Distribution) -> Distribution:
     key = family_key(a)
     na, nb = to_natural(a), to_natural(b)
     return from_natural(key, tuple(x - y for x, y in zip(na, nb)))
+
+
+def prod_reduce(d: Distribution, size: int, batch_ndim: int = 0) -> Distribution:
+    """Product of ``size`` plated messages (natural-parameter sum over the
+    plate axis, which follows the ``batch_ndim`` batch axes).
+
+    A leaf without a plate axis stands for ``size`` identical copies and
+    contributes ``size * leaf``; so does a leaf whose plate axis has length 1
+    (a message computed from inputs shared by every copy)."""
+    key = family_key(d)
+    out = []
+    for n, r in zip(to_natural(d), NAT_EVENT_RANKS[key]):
+        if n.ndim <= r + batch_ndim:
+            out.append(size * n)
+        elif n.shape[batch_ndim] == 1:
+            out.append(size * n.squeeze(batch_ndim))
+        else:
+            out.append(torch.sum(n, dim=batch_ndim))
+    return from_natural(key, tuple(out))
+
+
+def pad_plate(d: Distribution, lo: int, hi: int, total: int,
+              batch_ndim: int = 0) -> Distribution:
+    """Embed a message batch covering slots [lo, hi) into ``total`` slots,
+    padding with the multiplicative identity (zero natural parameters).  A
+    leaf without a plate axis is broadcast over [lo, hi) first; a leaf
+    without a batch axis stays unbatched (it broadcasts against batched
+    leaves)."""
+    key = family_key(d)
+    out = []
+    for n, r in zip(to_natural(d), NAT_EVENT_RANKS[key]):
+        lead = n.ndim - r
+        if lead <= batch_ndim:
+            n = n.unsqueeze(lead)          # insert the plate axis
+        ax = n.ndim - r - 1
+        shape = list(n.shape)
+        shape[ax] = hi - lo
+        n = n.expand(shape)
+        if lo != 0 or hi != total:
+            before = list(n.shape)
+            before[ax] = lo
+            after = list(n.shape)
+            after[ax] = total - hi
+            n = torch.cat([n.new_zeros(before), n, n.new_zeros(after)], dim=ax)
+        out.append(n)
+    return from_natural(key, tuple(out))

@@ -1,27 +1,38 @@
-"""Batched-program lowering onto the fused smoother kernels (counterpart of
+"""Batched-program lowering onto the fused kernels (counterpart of
 ``rxinfer_tpu/engine/batched.py``).
 
 ``batched_program`` / ``infer_batched`` run B independent datasets through
-one program.  A Gaussian chain block whose transition, prior and evidence
-parameters are compile-time constants (the static tier) lowers to:
+one program.  Per sweep, in the compiled sweep order:
 
-1. one einsum over the raw observations, xi[t] = E y[t] + c, with the
-   affine map (E, c) extracted once at plan time from the block's own
-   message rules and validated on the example dataset and a random probe;
-2. ``ops/fused_smoother.fused_batched_smoother``: the CUDA forward and
-   backward kernels on a CUDA device, their plain versions on the CPU.
+* A Gaussian chain block whose transition, prior and evidence parameters are
+  compile-time constants (the static tier) lowers to one einsum over the raw
+  observations, xi[t] = E y[t] + c, with the affine map (E, c) extracted once
+  at plan time from the block's own message rules and validated on the
+  example dataset and a random probe, then to
+  ``ops/fused_smoother.fused_batched_smoother``.  Plan-time evaluation (the
+  constants F, b, Q, W, m0, P0 and the map E, c) runs in float32 on the CPU
+  whatever the program's device.
+* A discrete chain block assembles its inputs over the batch
+  (``DiscreteChainBlock._inputs``) and runs
+  ``ops/fused_fb.fused_fb_batched(..., per_step_xi=True)``; its per-step pair
+  marginals become ``chain_cross`` (B, T-1, K, K) in [out, in] order.
+* A plain conjugate group multiplies its factors' messages over the batch
+  (``PlainGroup.update``).
 
-Plan-time evaluation (the constants F, b, Q, W, m0, P0 and the map E, c)
-runs in float32 on the CPU whatever the program's device.
+The fused kernels are the CUDA kernels on a CUDA device and their plain
+versions on the CPU.  A batch with missing observations (NaN) is zero-filled
+once per call and its factor copies masked; the Gaussian tier refuses such a
+batch (its constant W cannot express the masks), the discrete and plain
+paths take it.
 
-Ported subset: the static tier only — ``FusedGaussianPlan``, the static
-branches of ``_plan_fused_gaussian``, ``_extract_linear_evidence``,
-``_fused_gaussian_update``, ``build_plans``, ``chain_hbm_bytes_per_element``,
-``batch_chunk_size`` and ``make_batched_program`` without shared variables,
-free energy or quantized ingest.  A chain that is not eligible is not routed
-to a vmapped scan (that path is not ported): the program raises
-``NotImplementedError`` with the plan report's reason.  So does
-``options={"fused_kernels": False}``.
+Ported subset: ``FusedGaussianPlan``, the static branches of
+``_plan_fused_gaussian``, ``_extract_linear_evidence``,
+``_fused_gaussian_update``, ``_fused_discrete_update``, ``build_plans``,
+``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
+``make_batched_program`` without shared variables, free energy or quantized
+ingest.  A chain that is not eligible is not routed to a vmapped scan (that
+path is not ported): the program raises ``NotImplementedError`` with the plan
+report's reason.  So does ``options={"fused_kernels": False}``.
 """
 
 from __future__ import annotations
@@ -32,9 +43,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..dists import MvNormalMeanCovariance, NormalMeanVariance
+from ..dists import Categorical, MvNormalMeanCovariance, NormalMeanVariance
 from ..graph.ir import Const, Ref
-from .blocks import GaussianChainBlock
+from .blocks import (
+    BatchContext,
+    DiscreteChainBlock,
+    GaussianChainBlock,
+    factor_data_mask,
+)
 
 # Chain-moment budget of one batched program: three quarters of the H100's
 # 80 GB, as the JAX package kept 12 of a TPU v5e's 16 GB.  The per-element
@@ -249,15 +265,32 @@ def _fused_gaussian_update(block: GaussianChainBlock, plan: FusedGaussianPlan,
     return run_fused_plan(plan, data, batch, block.var.length, block.scalar)
 
 
+def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
+                           data: dict, chain_cross: dict, ctx: BatchContext):
+    """The discrete chain's marginal (B, T, K) and its per-step pair
+    marginals (B, T-1, K, K) from the forward-backward kernels."""
+    from ..ops.fused_fb import fused_fb_batched
+
+    lp, elog_a, le_t = block._inputs(state, data, chain_cross, ctx)
+    g, _, _, xis = fused_fb_batched(lp, elog_a, le_t, per_step_xi=True)
+    marg = Categorical(torch.log(torch.clamp(g.transpose(0, 1), min=1e-37)))
+    return marg, xis.transpose(0, 1)
+
+
 def chain_hbm_bytes_per_element(compiled) -> int:
     """Estimated device bytes ONE batch element's chain blocks stream
-    through the smoothing kernels (filtered + smoothed means/covs, cross,
-    xi payload; fp32 with 2x working-set headroom)."""
+    through the fused kernels (smoother: filtered + smoothed means/covs,
+    cross, xi payload; forward-backward: log-evidence, gammas and per-step
+    xis; fp32 with 2x working-set headroom)."""
     per_elem = 0
     for kind, block in compiled.blocks:
         if kind != "chain":
             continue
         t = block.var.length
+        if isinstance(block, DiscreteChainBlock):
+            k = block.k
+            per_elem += t * (2 * k + k * k) * 4 * 2
+            continue
         d = block.dim
         sym = d * (d + 1) // 2
         per_elem += t * (2 * d + 2 * sym + d * d + d) * 4 * 2
@@ -286,7 +319,11 @@ def batch_chunk_size(compiled, batch: int, budget_bytes: int):
 def build_plans(compiled, data0: dict, all_finite: bool = True,
                 device: Any = "cuda") -> dict:
     """Decide, per chain block, whether the fused kernel tier applies, and
-    record ``compiled._plan_report``."""
+    record ``compiled._plan_report``.  ``all_finite=False`` (the batch holds
+    missing observations) keeps Gaussian chains off the fused tier; discrete
+    chains stream their masked evidence and stay fused."""
+    from ..ops.fused_fb import MAX_STATES
+
     plans: dict[str, Any] = {}
     report: dict[str, dict] = {}
     compiled._plan_report = report
@@ -300,6 +337,18 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
                 "fused": False,
                 "reason": 'disabled via options={"fused_kernels": False}',
             }
+            continue
+        if isinstance(block, DiscreteChainBlock):
+            if block.k > MAX_STATES:
+                report[name] = {"fused": False, "reason": (
+                    f"{block.k} states > {MAX_STATES}: the CUDA "
+                    "forward-backward kernels keep each chain's K x K table "
+                    "in registers and are instantiated for "
+                    f"K <= {MAX_STATES}")}
+                continue
+            plans[name] = "discrete"
+            report[name] = {"fused": True, "kernel": "fused_fb",
+                            "route": route}
             continue
         if not all_finite:
             report[name] = {
@@ -326,7 +375,9 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     """Build the function (batched_data) -> (state, fe, history) where every
     data leaf and every state leaf carries a leading batch axis.  The data
     may be numpy arrays or tensors; they are moved to ``device`` as float32.
-    ``fe`` is an empty (0, B) tensor (free energy is not ported yet)."""
+    ``fe`` is an empty (0, B) tensor (free energy is not ported yet).  A
+    program built on finite data (``all_finite=True``) skips the NaN masks,
+    as the JAX package's fused tier does."""
     if free_energy:
         raise NotImplementedError(
             "free_energy=True is not ported to the PyTorch package yet.")
@@ -335,49 +386,57 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     plans = build_plans(compiled, data0, all_finite=all_finite, device=device)
     for kind, block in compiled.blocks:
         name = block.var.name
-        if name not in plans:
+        if kind == "chain" and name not in plans:
             raise NotImplementedError(
-                f"chain {name!r} does not lower to the fused smoother "
-                f"kernels: {compiled._plan_report[name]['reason']}. The "
-                "vmapped per-dataset path is not ported yet."
+                f"chain {name!r} does not lower to the fused kernels: "
+                f"{compiled._plan_report[name]['reason']}. The vmapped "
+                "per-dataset path is not ported yet."
             )
+    from ..dists import tree_map
 
-    def sweep(state, chain_cross, data, batch):
-        for _kind, block in compiled.blocks:
+    init0 = {name: tree_map(lambda a: a.to(device), d)
+             for name, d in compiled._init_state().items()}
+    consts: dict = {}   # model constants on the device, kept across calls
+
+    def sweep(state, chain_cross, data, ctx):
+        for kind, block in compiled.blocks:
             name = block.var.name
-            marg, cross = _fused_gaussian_update(block, plans[name], data,
-                                                 batch)
+            if kind == "plain":
+                state[name] = block.update(state, data, chain_cross, ctx)
+                continue
+            if plans[name] == "discrete":
+                marg, cross = _fused_discrete_update(block, state, data,
+                                                     chain_cross, ctx)
+            else:
+                marg, cross = _fused_gaussian_update(block, plans[name], data,
+                                                     ctx.batch)
             state[name] = marg
             chain_cross[name] = cross
         return state, chain_cross
-
-    def snapshot(st: dict) -> dict:
-        return {k: v for k, v in st.items() if not k.startswith("_msg:")}
 
     def program(data: dict):
         data = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                 for k, v in data.items()}
         data = compiled._with_derived(data)
         batch = next(iter(data.values())).shape[0]
-        state = {
-            name: _broadcast(d, batch, device)
-            for name, d in compiled._init_state().items()
-        }
+        masks = {}
+        if not all_finite:
+            for f in compiled.graph.factors:
+                m = factor_data_mask(f, data)
+                if m is not None:
+                    masks[f.id] = m
+            data = {k: torch.nan_to_num(v) for k, v in data.items()}
+        ctx = BatchContext(device, batch, consts, masks)
+        state = {name: tree_map(lambda a: a.expand((batch,) + tuple(a.shape)),
+                                d) for name, d in init0.items()}
         chain_cross: dict = {}
         history = []
         for _ in range(iterations):
             state, chain_cross = sweep(dict(state), dict(chain_cross), data,
-                                       batch)
+                                       ctx)
             if keep_each:
-                history.append(snapshot(state))
+                history.append(dict(state))
         fe = torch.zeros((0, batch), device=device)
         return state, fe, history
 
     return program
-
-
-def _broadcast(d, batch: int, device):
-    from ..dists import tree_map
-
-    return tree_map(
-        lambda a: a.to(device).expand((batch,) + tuple(a.shape)), d)

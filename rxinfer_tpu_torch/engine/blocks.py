@@ -1,15 +1,37 @@
 """Executable blocks of the compiled plan (counterpart of
 ``rxinfer_tpu/engine/blocks.py``).
 
-Ported subset: ``build_q``, ``resolve_iface``, ``in_cavity_cluster``,
-``_coverage`` and the plan-time methods of ``GaussianChainBlock``
-(``_prior_moments``, ``_transition_params``, ``_evidence_msg``,
-``_evidence``).  The batched program evaluates them once, on the CPU, to
-extract the fused plan's constants (engine/batched.py); the chain itself is
-then solved by the fused smoother kernels.  Not ported: ``PlainGroup``, the
-per-dataset chain solver (``GaussianChainBlock.update`` with the Kalman
-scans), the AR/GCV/discrete chain blocks, NaN-masked missing observations and
-EP damping of evidence messages.
+Two ways of evaluating rules, chosen by the ``ctx`` argument:
+
+* plan time (``ctx=None``): one dataset on the CPU, slots on axis 0.  The
+  batched program evaluates ``GaussianChainBlock``'s plan-time methods
+  (``_prior_moments``, ``_transition_params``, ``_evidence_msg``,
+  ``_evidence``) this way, once, to extract the fused plan's constants
+  (engine/batched.py); the chain itself is then solved by the fused smoother
+  kernels.
+* every sweep (``ctx`` a ``BatchContext``): the whole batch on the program's
+  device, batch on axis 0 and slots on axis 1.  A value that a plated factor
+  shares across its copies (a scalar group, an indexed slot, a whole data
+  array) gets a unit plate axis, so that batched rules broadcast.
+  ``PlainGroup.update`` and ``DiscreteChainBlock._inputs`` run this way, over
+  the batch rather than under a per-dataset ``vmap``.
+
+Ported: ``build_q`` (with the structured ``joint`` of a chain transition from
+``chain_cross``), ``resolve_iface``, ``factor_data_mask`` and
+``mask_message`` (NaN observations are zero-filled by the batched program
+and their factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
+``PlainGroup`` for the mean-field path (scalar groups plate-reduced, array
+groups padded over their slots) and ``DiscreteChainBlock``'s constructor and
+``_inputs``.  ``PlainGroup.finalize`` is the identity here: its two branches
+(the Wishart inverse-scale carrier and form constraints) belong to families
+and constraints that are not ported.  Not ported: the per-dataset chain
+solvers (``GaussianChainBlock.update`` with the Kalman scans,
+``DiscreteChainBlock.update`` with ``ops/discrete_chain.py``), the AR/GCV
+chain blocks, EP damping of evidence messages, and the ``PlainGroup``
+branches that ``engine/compile.py`` refuses when it builds a group: grid
+(nested-plate) factors, cavity (EP) message stores, required-message
+dependencies, mean-field splits, form and message-form constraints and
+function-form fallback messages.
 """
 
 from __future__ import annotations
@@ -24,14 +46,47 @@ from ..dists.gaussian import (
     as_mv_weighted_mean_precision,
     as_weighted_mean_precision,
 )
-from ..dists.natural import nat_div
+from ..dists.natural import (
+    NAT_EVENT_RANKS,
+    family_key,
+    from_natural,
+    nat_div,
+    pad_plate,
+    prod_all,
+    prod_reduce,
+    to_natural,
+)
 from ..graph.ir import Const, Factor, Ref
 from ..rules.registry import get_message_rule, get_node
 
 
+class BatchContext:
+    """What evaluating rules over the whole batch needs besides state and
+    data: the device, the batch size, the model constants already on the
+    device (``consts`` is kept by the program across calls, so a constant is
+    copied to the device once rather than on every sweep) and the per-factor
+    observation masks of a batch with missing values (factor id -> mask;
+    empty when every observation is finite)."""
+
+    def __init__(self, device, batch: int, consts: dict,
+                 masks: Optional[dict] = None):
+        self.device = torch.device(device)
+        self.batch = batch
+        self._consts = consts
+        self.masks = masks or {}
+
+    def const(self, c: Const) -> torch.Tensor:
+        hit = self._consts.get(id(c))
+        if hit is None:
+            hit = (c, torch.as_tensor(np.asarray(c.value, np.float32),
+                                      device=self.device))
+            self._consts[id(c)] = hit
+        return hit[1]
+
+
 def _coverage(f: Factor, ref: Ref):
     """Slot range of ``ref`` as used by factor ``f``: None (whole), an int
-    slot, or an (lo, hi) range over the variable's axis."""
+    slot, an (lo, hi) range over the variable's axis, or 'grid'."""
     if ref.idx is None:
         return None
     if isinstance(ref.idx, tuple):
@@ -49,9 +104,14 @@ def _device_of(data: dict) -> torch.device:
     return torch.device("cpu")
 
 
-def resolve_iface(value, f: Factor, state: dict, data: dict):
-    """Resolve an interface value to a (possibly batched) marginal."""
+def resolve_iface(value, f: Factor, state: dict, data: dict,
+                  ctx: Optional[BatchContext] = None):
+    """Resolve an interface value to a marginal: one dataset's (slots on
+    axis 0) at plan time, the whole batch's (slots on axis 1) under
+    ``ctx``."""
     if isinstance(value, Const):
+        if ctx is not None:
+            return PointMass(ctx.const(value))
         return PointMass(torch.as_tensor(np.asarray(value.value, np.float32),
                                          device=_device_of(data)))
     ref = value
@@ -59,34 +119,92 @@ def resolve_iface(value, f: Factor, state: dict, data: dict):
     if cov == "grid":
         raise NotImplementedError(
             "grid (nested-plate) interfaces are not ported yet.")
-    if ref.var.kind == "data":
-        arr = data[ref.var.name]
-        if cov is None:
-            return PointMass(arr)
-        if isinstance(cov, int):
-            return PointMass(arr[cov])
-        return PointMass(arr[cov[0]:cov[1]])
-    q = state[ref.var.name]
+    q = PointMass(data[ref.var.name]) if ref.var.kind == "data" \
+        else state[ref.var.name]
     if cov is None:
         return q
+    axis = 0 if ctx is None else 1
     if isinstance(cov, int):
-        return tree_map(lambda a: a[cov], q)
+        return tree_map(lambda a: a.select(axis, cov), q)
     lo, hi = cov
-    return tree_map(lambda a: a[lo:hi], q)
+    return tree_map(lambda a: a.narrow(axis, lo, hi - lo), q)
 
 
 def build_q(f: Factor, state: dict, data: dict,
-            exclude: Optional[str] = None) -> dict:
+            exclude: Optional[str] = None,
+            chain_cross: Optional[dict] = None,
+            ctx: Optional[BatchContext] = None) -> dict:
     """The rule-input marginal dict of factor ``f`` (all interfaces but
-    ``exclude``)."""
+    ``exclude``).  When ``f`` is a chain's transition and ``chain_cross``
+    holds that chain's pair statistics, they ride along as ``q["joint"]``
+    (the structured cluster marginal q(out, in))."""
     q = {}
     for name, v in f.all_interfaces().items():
         if name == exclude:
             continue
-        q[name] = resolve_iface(v, f, state, data)
+        x = resolve_iface(v, f, state, data, ctx)
+        if (ctx is not None and f.plate is not None and isinstance(v, Ref)
+                and not isinstance(_coverage(f, v), tuple)):
+            # shared by every plate copy: a unit plate axis after the batch
+            x = tree_map(lambda a: a.unsqueeze(1), x)
+        q[name] = x
     if f.meta is not None:
         q["_meta"] = {**f.meta, "_plated": f.plate is not None}
+    if chain_cross:
+        in_ref = f.interfaces.get("in")
+        if (isinstance(in_ref, Ref) and f.out.var is in_ref.var
+                and f.out.var.name in chain_cross):
+            q["joint"] = chain_cross[f.out.var.name]
     return q
+
+
+def factor_data_mask(f: Factor, data: dict):
+    """Per-copy observation mask of factor ``f`` over the batch (``data``
+    leaves carry the batch on axis 0): 1.0 where every data interface is
+    finite, 0.0 where any is NaN (missing).  Shape (B, P) for a plated
+    factor, (B,) otherwise; None when the factor touches no data."""
+    masks = []
+    for v in f.all_interfaces().values():
+        if not (isinstance(v, Ref) and v.var.kind == "data"):
+            continue
+        arr = data[v.var.name]
+        cov = _coverage(f, v)
+        if cov == "grid":
+            raise NotImplementedError(
+                "grid (nested-plate) interfaces are not ported yet.")
+        if isinstance(cov, tuple):
+            sl = arr[:, cov[0]:cov[1]]
+            finite = torch.isfinite(sl).reshape(
+                sl.shape[0], sl.shape[1], -1).all(-1)
+        else:
+            sl = arr if cov is None else arr[:, cov]
+            finite = torch.isfinite(sl).reshape(sl.shape[0], -1).all(-1)
+            if f.plate is not None:
+                finite = finite[:, None]
+        masks.append(finite)
+    if not masks:
+        return None
+    total = masks[0]
+    for m in masks[1:]:
+        total = total & m
+    return total.to(torch.float32)
+
+
+def mask_message(msg, mask):
+    """Zero the natural parameters of masked-out factor copies (zero natural
+    parameters are the multiplicative identity: a missing observation
+    contributes no evidence)."""
+    if mask is None:
+        return msg
+    key = family_key(msg)
+    out = []
+    for n, r in zip(to_natural(msg), NAT_EVENT_RANKS[key]):
+        lead = n.ndim - r
+        if 0 < lead < mask.ndim:   # batched leaf shared by every plate copy
+            n = n.reshape(n.shape[:lead] + (1,) * (mask.ndim - lead)
+                          + n.shape[lead:])
+        out.append(n * mask.reshape(mask.shape + (1,) * r))
+    return from_natural(key, tuple(out))
 
 
 def in_cavity_cluster(node_cls, iface: str) -> bool:
@@ -102,6 +220,38 @@ def in_cavity_cluster(node_cls, iface: str) -> bool:
         iface == c or (iface.startswith(c) and iface[len(c):].isdigit())
         for c in cluster
     )
+
+
+class PlainGroup:
+    """A non-chain random-variable group updated by conjugate VMP: q(v) is
+    the product of every adjacent factor's message to v (natural-parameter
+    sums), plate-reduced for a scalar group and padded over the slots for an
+    array group.  ``adjacency`` lists (factor, interface, rule) with the rule
+    resolved at compile time; ``engine/compile.py`` has already refused the
+    branches this port lacks."""
+
+    def __init__(self, var, adjacency: list):
+        self.var = var
+        self.adjacency = adjacency
+
+    def update(self, state: dict, data: dict, chain_cross: dict,
+               ctx: BatchContext):
+        msgs = []
+        length = self.var.length
+        for f, iface, rule in self.adjacency:
+            q = build_q(f, state, data, exclude=iface,
+                        chain_cross=chain_cross, ctx=ctx)
+            msg = mask_message(rule(q), ctx.masks.get(f.id))
+            if length is None:
+                if f.plate is not None:
+                    msg = prod_reduce(msg, f.plate.size, batch_ndim=1)
+            else:
+                ref = f.out if iface == "out" else f.interfaces[iface]
+                cov = _coverage(f, ref)
+                lo, hi = cov if isinstance(cov, tuple) else (cov, cov + 1)
+                msg = pad_plate(msg, lo, hi, length, batch_ndim=1)
+            msgs.append(msg)
+        return prod_all(msgs)
 
 
 def _place(total: int, lo: int, hi: int, x: torch.Tensor,
@@ -249,3 +399,61 @@ class GaussianChainBlock:
             xi = xi + _place(length, lo, hi, mxi, (d,))
             w = w + _place(length, lo, hi, mw, (d, d))
         return xi, w
+
+
+class DiscreteChainBlock:
+    """Exact discrete-chain block (HMM backbone): forward-backward given the
+    expected log-potentials of its neighbours (structured VMP).  The batched
+    program hands ``_inputs`` to the fused forward-backward kernels
+    (engine/batched.py); the per-dataset ``update`` is not ported."""
+
+    def __init__(self, var, k: int, prior: Factor, transition: Factor,
+                 evidence: list):
+        self.var = var
+        self.k = k
+        self.prior = prior
+        self.transition = transition
+        self.evidence = evidence  # (factor, chain-interface-name)
+
+    def _inputs(self, state: dict, data: dict, chain_cross: dict,
+                ctx: BatchContext):
+        """log_prior (B, K), E[log A] (B, K, K) in [out, in] order and
+        log-evidence (T, B, K) over the whole batch, each contiguous: the
+        layout the forward-backward kernels read."""
+        batch, k, length = ctx.batch, self.k, self.var.length
+        q = build_q(self.prior, state, data, exclude="out", ctx=ctx)
+        prior_msg = get_message_rule(self.prior.fform, "out")(q)
+        log_prior = prior_msg.logits.expand(batch, k).contiguous()
+
+        f = self.transition
+        mq = resolve_iface(f.interfaces["matrix"], f, state, data, ctx)
+        if isinstance(mq, PointMass):
+            elog_a = torch.log(torch.clamp(mq.point, min=1e-37))
+        else:
+            elog_a = mq.mean_log()
+        elog_a = elog_a.expand(batch, k, k).contiguous()
+
+        log_ev = None
+        for ef, iface in self.evidence:
+            rule = get_message_rule(ef.fform, iface)
+            eq = build_q(ef, state, data, exclude=iface,
+                         chain_cross=chain_cross, ctx=ctx)
+            logits = rule(eq).logits
+            mask = ctx.masks.get(ef.id)
+            if mask is not None:
+                logits = logits * mask[..., None]
+            ref = ef.out if iface == "out" else ef.interfaces[iface]
+            cov = _coverage(ef, ref)
+            if isinstance(cov, tuple):
+                lo, hi = cov
+            else:
+                lo, hi = cov, cov + 1
+                logits = logits.unsqueeze(-2)
+            term = logits.expand(batch, hi - lo, k).transpose(0, 1)
+            if lo > 0 or hi < length:
+                term = torch.cat([term.new_zeros((lo, batch, k)), term,
+                                  term.new_zeros((length - hi, batch, k))])
+            log_ev = term if log_ev is None else log_ev + term
+        if log_ev is None:
+            log_ev = torch.zeros((length, batch, k), device=ctx.device)
+        return log_prior, elog_a, log_ev.contiguous()

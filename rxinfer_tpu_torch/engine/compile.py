@@ -7,13 +7,19 @@ fforms, detect chain blocks, schedule the sweep, and build the batched
 program (engine/batched.py).
 
 Ported subset: ``contract_deltas``, ``normalize_transitions``,
-``detect_chains``, ``schedule_sweep`` and the parts of ``CompiledModel`` a
-model of Gaussian chains needs with ``constraints=None`` (``_init_state``,
-``plan_report``, ``_with_derived``, ``make_batched_program``).  Not ported
-yet (they raise ``NotImplementedError``): plain conjugate groups (any random
-variable that is not a Gaussian chain), AR/GCV/discrete chains, constraints,
-meta, tree-scheduled (auto-initialized) loopy models, the single-dataset
-program, free energy, streaming ticks and predictions.
+``detect_chains``, ``schedule_sweep`` and the parts of ``CompiledModel`` that
+models of Gaussian chains, discrete chains and plain conjugate groups need
+with ``constraints=None`` (block construction with compile-time rule
+resolution, ``_init_state``, ``plan_report``, ``_with_derived``,
+``make_batched_program``).  A plain group is built for every random
+variable that is not a chain, in a family the port has a natural-parameter
+view for (``gaussian``, ``mv_gaussian``, ``categorical``,
+``dirichlet_collection``).  Not ported yet (they raise
+``NotImplementedError``): plain groups of other families (``gamma``,
+``wishart``, ...), the plain-group branches listed in ``engine/blocks.py``,
+AR/GCV chains, constraints, meta, tree-scheduled (auto-initialized) loopy
+models, the single-dataset program, free energy, streaming ticks and
+predictions.
 """
 
 from __future__ import annotations
@@ -26,8 +32,16 @@ import numpy as np
 import torch
 
 from ..dists import tree_map
+from ..dists.natural import NAT_EVENT_RANKS
 from ..graph.ir import Const, Factor, ModelGraph, Ref, SymIndex
-from .blocks import GaussianChainBlock
+from ..rules.registry import get_message_rule, get_node
+from .blocks import (
+    DiscreteChainBlock,
+    GaussianChainBlock,
+    PlainGroup,
+    _coverage,
+    in_cavity_cluster,
+)
 from .shapes import resolve_groups
 
 _GAUSSIAN_TRANS = {
@@ -316,23 +330,84 @@ class CompiledModel:
         varmap = {v.name: v for v in graph.random_variables()}
         for name in self.sweep:
             spec = self.chains.get(name)
+            shape = self.infos[name].event_shape
             if spec is None:
-                raise NotImplementedError(
-                    f"random variable {name!r} is not a Gaussian chain: plain "
-                    "conjugate groups are not ported to the PyTorch package "
-                    "yet."
-                )
-            if spec.kind != "gaussian":
+                self.blocks.append(("plain", self._plain_group(varmap[name])))
+            elif spec.kind == "gaussian":
+                scalar = shape == ()
+                self.blocks.append(("chain", GaussianChainBlock(
+                    varmap[name], 1 if scalar else shape[0], scalar,
+                    spec.prior, spec.transition, spec.evidence)))
+            elif spec.kind == "discrete":
+                m = spec.transition.interfaces["matrix"]
+                if isinstance(m, Ref) and m.idx is not None:
+                    raise NotImplementedError(
+                        f"chain {name!r}: a transition matrix indexed per "
+                        "slot is not ported to the PyTorch package yet.")
+                self.blocks.append(("chain", DiscreteChainBlock(
+                    varmap[name], shape[0], spec.prior, spec.transition,
+                    spec.evidence)))
+            else:
                 raise NotImplementedError(
                     f"chain {name!r} is a {spec.kind} chain: only Gaussian "
-                    "chains are ported to the PyTorch package yet."
+                    "and discrete chains are ported to the PyTorch package "
+                    "yet."
                 )
-            shape = self.infos[name].event_shape
-            scalar = shape == ()
-            self.blocks.append(("chain", GaussianChainBlock(
-                varmap[name], 1 if scalar else shape[0], scalar, spec.prior,
-                spec.transition, spec.evidence)))
         self._plan_report: Optional[dict] = None
+
+    def _plain_group(self, var) -> PlainGroup:
+        """The conjugate group of a non-chain variable: every interface at
+        which a factor touches it, with that interface's rule.  Branches of
+        the JAX ``PlainGroup`` this port lacks raise here, at compile
+        time."""
+        family = self.infos[var.name].family
+        if family not in NAT_EVENT_RANKS:
+            raise NotImplementedError(
+                f"random variable {var.name!r} is a plain conjugate group of "
+                f"family {family!r}, which has no natural-parameter view in "
+                "the PyTorch package yet (ported: "
+                f"{sorted(NAT_EVENT_RANKS)}).")
+        adjacency = []
+        for f in self.graph.factors:
+            # no break: a factor touching the variable at several interfaces
+            # sends a message from each of them
+            for iface, v in f.all_interfaces().items():
+                if isinstance(v, Ref) and v.var is var:
+                    self._check_plain_edge(var, f, iface, v)
+                    adjacency.append(
+                        (f, iface, get_message_rule(f.fform, iface)))
+        return PlainGroup(var, adjacency)
+
+    @staticmethod
+    def _check_plain_edge(var, f, iface: str, ref: Ref) -> None:
+        where = f"plain group {var.name!r}, factor {f.fform} ({iface})"
+        if len(getattr(f, "plates", ())) >= 2:
+            raise NotImplementedError(
+                f"{where}: grid (nested-plate) factors are not ported yet.")
+        if f.dependencies is not None:
+            raise NotImplementedError(
+                f"{where}: required-message dependencies are not ported "
+                "yet.")
+        node_cls = get_node(f.fform)
+        if getattr(node_cls, "needs_self_marginal", False):
+            raise NotImplementedError(
+                f"{where}: rules that read their own marginal are not "
+                "ported yet.")
+        if in_cavity_cluster(node_cls, iface):
+            for name, v in f.all_interfaces().items():
+                if (name != iface and in_cavity_cluster(node_cls, name)
+                        and isinstance(v, Ref) and v.var.kind == "random"):
+                    raise NotImplementedError(
+                        f"{where}: its cavity cluster also holds the random "
+                        f"variable {v.var.name!r}, which needs the EP "
+                        "message store (cavity division); it is not ported "
+                        "yet.")
+        if var.is_array:
+            cov = _coverage(f, ref)
+            if cov is None or (isinstance(cov, int) and f.plate is not None):
+                raise NotImplementedError(
+                    f"{where}: an array group must be indexed by a plate "
+                    "symbol, or by one slot from an unplated factor.")
 
     def plan_report(self) -> dict:
         """Per-chain-block kernel-lowering report of the last batched
@@ -376,7 +451,7 @@ class CompiledModel:
                              all_finite: bool = True,
                              device: Any = "cuda"):
         """Batch-native program over B independent datasets whose chain
-        blocks run on the fused smoother kernels (engine/batched.py)."""
+        blocks run on the fused kernels (engine/batched.py)."""
         from .batched import make_batched_program
 
         return make_batched_program(

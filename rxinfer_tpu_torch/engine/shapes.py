@@ -3,8 +3,10 @@
 
 Event shapes and marginal families of every random variable are resolved
 statically from constant hyperparameters and data shapes.  Ported subset: the
-tables for the Gaussian node set of ``rules/nodes.py``; variables reached only
-through nodes that are not ported yet stay unresolved and raise.
+tables for the Gaussian and discrete node sets of ``rules/nodes.py`` and for
+``GammaShapeRate`` (whose groups the compiler then refuses by family);
+variables reached only through nodes that are not ported yet stay unresolved
+and raise.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ _OUT_FAMILY = {
     "MvNormalMeanPrecision": "mv_gaussian",
     "MvLinearGaussianCovariance": "mv_gaussian",
     "MvLinearGaussianPrecision": "mv_gaussian",
+    "GammaShapeRate": "gamma",
+    "Categorical": "categorical",
+    "DirichletCollection": "dirichlet_collection",
+    "DiscreteTransition": "categorical",
 }
 
 _INPUT_FAMILY = {
@@ -33,6 +39,9 @@ _INPUT_FAMILY = {
     ("MvLinearGaussianPrecision", "in"): "mv_gaussian",
     ("LinearGaussianCovariance", "in"): "gaussian",
     ("LinearGaussianPrecision", "in"): "gaussian",
+    ("NormalMeanPrecision", "prec"): "gamma",
+    ("DiscreteTransition", "in"): "categorical",
+    ("DiscreteTransition", "matrix"): "dirichlet_collection",
 }
 
 
@@ -69,8 +78,17 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
         return None
 
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
-              "LinearGaussianCovariance", "LinearGaussianPrecision"):
+              "LinearGaussianCovariance", "LinearGaussianPrecision",
+              "GammaShapeRate"):
         return ()
+    if ff == "Categorical":
+        s = shape_of("p")
+        return (s[-1],) if s else None
+    if ff == "DirichletCollection":
+        return shape_of("alpha")
+    if ff == "DiscreteTransition":
+        s = shape_of("matrix")
+        return (s[0],) if s else None
     if ff in ("MvNormalMeanCovariance", "MvNormalMeanPrecision"):
         s = shape_of("mean")
         if s:
@@ -95,6 +113,10 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
 def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
     """Event shape of a random *input* interface, where derivable."""
     ff = f.fform
+    if ff == "DiscreteTransition" and iface == "in":
+        m = f.interfaces.get("matrix")
+        if isinstance(m, Const):
+            return (_const_shape(m)[1],)
     if ff in ("MvLinearGaussianCovariance", "MvLinearGaussianPrecision") \
             and iface == "in":
         a = f.interfaces.get("A")
@@ -152,6 +174,7 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
     if missing:
         raise ValueError(
             f"Could not infer family/event-shape for variables: {missing}. "
-            "(The PyTorch port resolves the Gaussian node set only.)"
+            "(The PyTorch port resolves the Gaussian and discrete node sets "
+            "only.)"
         )
     return infos

@@ -1,11 +1,14 @@
 """Python ``@model`` DSL (counterpart of ``rxinfer_tpu/graph/dsl.py``).
 
-Ported subset, what the linear-Gaussian state-space model needs:
-``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their keyword
-aliases, data assignment ``y[t] = ...``, and ``numpy_array @ x[t]`` (or
-``a * x[t] + b``) folding into a LinearGaussian factor.  Model constants stay
-numpy arrays, as in the JAX package; numpy defers ``A @ x`` to
-``RVRef.__rmatmul__``.  Outside a trace ``Normal``/``MvNormal`` build
+Ported subset, what the linear-Gaussian state-space model and the HMM
+need: ``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
+keyword aliases, data assignment ``y[t] = ...``, ``numpy_array @ x[t]`` (or
+``a * x[t] + b``) folding into a LinearGaussian factor, ``Categorical``,
+``DirichletCollection``, ``Transition`` (alias ``DiscreteTransition``) and
+``Gamma`` (shape/rate; its plain groups are not ported yet and raise when the
+model is compiled).  Model constants stay numpy arrays, as in the JAX
+package; numpy defers ``A @ x`` to ``RVRef.__rmatmul__``.  Outside a trace
+``Normal``/``MvNormal``/``Categorical``/``DirichletCollection`` build
 distributions of torch tensors.
 
 Not ported yet (they raise ``NotImplementedError``): sums of random variables
@@ -338,7 +341,13 @@ def _direct_dist(fform: str, *args):
         "NormalMeanPrecision": D.NormalMeanPrecision,
         "MvNormalMeanCovariance": D.MvNormalMeanCovariance,
         "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
+        "Categorical": D.Categorical.from_probs,
+        "DirichletCollection": D.DirichletCollection,
     }
+    if fform not in table:
+        raise NotImplementedError(
+            f"{fform} distributions are not ported to the PyTorch package "
+            "yet.")
     return table[fform](*[torch.as_tensor(np.asarray(a, np.float32))
                           for a in args])
 
@@ -422,6 +431,46 @@ def Normal(**kwargs) -> RVRef:
 
 def MvNormal(**kwargs) -> RVRef:
     return _gaussian("MvNormal", dict(kwargs))
+
+
+def Gamma(shape=None, rate=None, scale=None, a=None, b=None) -> RVRef:
+    sh = shape if shape is not None else a
+    if rate is None and b is not None:
+        rate = b
+    if sh is None or (rate is None and scale is None):
+        raise TypeError("Gamma requires shape and rate (or scale).")
+    if scale is not None:
+        raise NotImplementedError(
+            "Gamma(shape=, scale=) is not ported to the PyTorch package yet.")
+    if _active() is None:
+        return _direct_dist("GammaShapeRate", sh, rate)
+    return _builder().emit(
+        "GammaShapeRate", {"shape": _as_interface(sh),
+                           "rate": _as_interface(rate)})
+
+
+def Categorical(p) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Categorical", p)
+    return _builder().emit("Categorical", {"p": _as_interface(p)})
+
+
+def DirichletCollection(alpha) -> RVRef:
+    if _active() is None:
+        return _direct_dist("DirichletCollection", alpha)
+    return _builder().emit("DirichletCollection",
+                           {"alpha": _as_interface(alpha)})
+
+
+def Transition(state_in, matrix) -> RVRef:
+    """Discrete transition: out ~ Categorical(P[:, state_in])."""
+    return _builder().emit(
+        "DiscreteTransition",
+        {"in": _as_interface(state_in), "matrix": _as_interface(matrix)},
+    )
+
+
+DiscreteTransition = Transition
 
 
 # -- @model decorator and generator -------------------------------------------------

@@ -3,10 +3,13 @@
 
 Ported subset: ``batched_program``, ``infer_batched``,
 ``BatchedInferenceResult``, ``KeepLast``/``KeepEach`` and
-``_extract_posteriors``, with the port's own program cache.  Both entry
-points run on ``"cuda"`` unless the caller passes another ``device``; with no
-device given and no CUDA device present they raise ``RuntimeError`` rather
-than carry on on the CPU.
+``_extract_posteriors``, with the port's own program cache.  Posteriors are
+whatever the blocks produce, every leaf with the batch axis first: Gaussian
+chains, ``Categorical`` chains, ``DirichletCollection`` and Gaussian plain
+groups; initializations of scalar groups are broadcast over the batch by
+the program.  Both entry points run on ``"cuda"`` unless the caller passes
+another ``device``; with no device given and no CUDA device present they
+raise ``RuntimeError`` rather than carry on on the CPU.
 
 Not ported yet (they raise ``NotImplementedError``): the single-dataset
 ``infer``, streaming, ``free_energy=True``, ``annotations``,
@@ -126,7 +129,7 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     (every leaf carrying a leading batch axis).  Returns ``(compiled_model,
     program)``; the program maps the batched data dict to ``(state,
     free_energy (0, B), history)``.  Eligible chain blocks run on the fused
-    smoother kernels (engine/batched.py)."""
+    kernels (engine/batched.py)."""
     device = _resolve_device(device)
     if shared or psum_axis is not None:
         raise NotImplementedError(
@@ -186,8 +189,10 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
     """Batched inference over B independent datasets.
 
     Every value in ``data`` carries a leading batch axis; the model is traced
-    once on the first element and its Gaussian chains run on the fused
-    smoother kernels.  Returns a ``BatchedInferenceResult`` that unpacks as
+    once on the first element, its Gaussian chains run on the fused smoother
+    kernels, its discrete chains on the fused forward-backward kernels and
+    its plain conjugate groups on natural-parameter message products over
+    the batch.  Returns a ``BatchedInferenceResult`` that unpacks as
     ``(posteriors, free_energy)``; every posterior's tensors carry the
     leading batch axis (lists per iteration under ``returnvars=KeepEach()``).
     A batch whose chain moments exceed ``options["hbm_budget_bytes"]`` runs

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,6 +127,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.rxt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
+
+
+def check_tensor(name: str, t, shape) -> None:
+    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``,
+    which is what every launcher takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on the CUDA device (got {t.device})")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 (got {t.dtype})")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

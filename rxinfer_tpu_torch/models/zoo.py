@@ -1,5 +1,6 @@
-"""Prebuilt models (counterpart of ``rxinfer_tpu/models/zoo.py``; only the
-linear-Gaussian state-space model is ported)."""
+"""Prebuilt models (counterpart of ``rxinfer_tpu/models/zoo.py``; the
+linear-Gaussian state-space model and the hidden Markov model are
+ported)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,22 @@ def lgssm(A, Q, B, R, m0, V0):
         return {"x": x}
 
     return lgssm
+
+
+def hmm(k: int, m: int):
+    """Hidden Markov model with Dirichlet-Categorical transitions/emissions."""
+
+    @rx.model
+    def hmm(y):
+        T = len(y)
+        A = rx.DirichletCollection(np.ones((k, k), dtype=np.float32))
+        B = rx.DirichletCollection(np.ones((m, k), dtype=np.float32))
+        s = rx.latent(T, name="s")
+        s[0] = rx.Categorical(np.ones(k, dtype=np.float32) / k)
+        for t in rx.plate(1, T):
+            s[t] = rx.Transition(s[t - 1], A)
+        for t in rx.plate(T):
+            y[t] = rx.Transition(s[t], B)
+        return {"A": A, "B": B, "s": s}
+
+    return hmm

@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import kernels
 from . import entrywise as ew
 
 # Largest chain state the CUDA kernels take.  Each thread keeps one chain's
@@ -188,8 +189,6 @@ def fused_backward_reference(mf, pf, f, b, q):
 # -- kernel launches ----------------------------------------------------------------
 
 def _library():
-    from .. import kernels
-
     lib = kernels.load("fused_smoother")
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
@@ -203,17 +202,6 @@ def _library():
         lib.rxt_fused_smoother_bwd.restype = ctypes.c_int
         lib._rxt_typed = True
     return lib
-
-
-def _check_cuda(name, t, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on the CUDA device (got {t.device})")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (got {t.dtype})")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _host_ptr(a: np.ndarray):
@@ -235,9 +223,9 @@ def fused_forward(m0, p0, xi, f, b, q, w):
     _check_dims(t_len, d)
     if xi.device.type == "cpu":
         return fused_forward_reference(m0, p0, xi, f, b, q, w)
-    _check_cuda("xi", xi, (t_len, bsz, d))
-    _check_cuda("m0", m0, (bsz, d))
-    _check_cuda("p0", p0, (bsz, d, d))
+    kernels.check_tensor("xi", xi, (t_len, bsz, d))
+    kernels.check_tensor("m0", m0, (bsz, d))
+    kernels.check_tensor("p0", p0, (bsz, d, d))
     fh, bh, qh, wh = _host_params(f, b, q, w, d)
     nsym = d * (d + 1) // 2
     mf = torch.empty((t_len, d, bsz), dtype=torch.float32, device=xi.device)
@@ -250,8 +238,6 @@ def fused_forward(m0, p0, xi, f, b, q, w):
         d, xi.data_ptr(), m0.data_ptr(), p0.data_ptr(), mf.data_ptr(),
         pf.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
         _host_ptr(qh), _host_ptr(wh), stream)
-    from .. import kernels
-
     kernels.check(lib, rc, "fused_smoother forward kernel")
     LAUNCHES["fused_smoother_fwd"] += 1
     return mf, pf
@@ -265,8 +251,8 @@ def fused_backward(mf, pf, f, b, q):
     if mf.device.type == "cpu":
         return fused_backward_reference(mf, pf, f, b, q)
     nsym = d * (d + 1) // 2
-    _check_cuda("mf", mf, (t_len, d, bsz))
-    _check_cuda("pf", pf, (t_len, nsym, bsz))
+    kernels.check_tensor("mf", mf, (t_len, d, bsz))
+    kernels.check_tensor("pf", pf, (t_len, nsym, bsz))
     fh, bh, qh, _ = _host_params(f, b, q, q, d)
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
@@ -280,8 +266,6 @@ def fused_backward(mf, pf, f, b, q):
         d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
         cross.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
         _host_ptr(qh), stream)
-    from .. import kernels
-
     kernels.check(lib, rc, "fused_smoother backward kernel")
     LAUNCHES["fused_smoother_bwd"] += 1
     return ms, ps, cross

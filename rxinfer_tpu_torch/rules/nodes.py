@@ -1,11 +1,15 @@
-"""Gaussian node rules (counterpart of ``rxinfer_tpu/rules/nodes.py``).
+"""Node rules (counterpart of ``rxinfer_tpu/rules/nodes.py``).
 
 Ported subset: the message rules of the nodes a linear-Gaussian chain is
 built from — ``NormalMeanVariance``/``NormalMeanPrecision``,
 ``MvNormalMeanCovariance``/``MvNormalMeanPrecision`` and the scalar and
-multivariate LinearGaussian pairs (out = A in + b + noise).  Average energies
-and the conjugate messages towards noise interfaces (Gamma / Wishart
-carriers) arrive with free energy and the rest of the node library.
+multivariate LinearGaussian pairs (out = A in + b + noise) — and those of an
+HMM: ``Categorical`` (towards ``out``), ``DirichletCollection`` (towards
+``out``) and ``DiscreteTransition`` (towards ``out``, ``in`` and
+``matrix``).  Average energies, the conjugate messages towards noise
+interfaces (Gamma / Wishart carriers), ``Dirichlet`` and the structured
+``message_to_out_structured`` arrive with free energy and the rest of the
+node library.
 
 Rules are batched: leading dimensions of every marginal broadcast, so a whole
 plate of messages is one tensor expression.
@@ -16,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..dists import (
+    Categorical,
+    DirichletCollection,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
     MvNormalWeightedMeanPrecision,
@@ -215,3 +221,67 @@ class LinearGaussianCovarianceNode(_LinearGaussianScalarBase):
 @node("LinearGaussianPrecision")
 class LinearGaussianPrecisionNode(_LinearGaussianScalarBase):
     interfaces = ("out", "in", "A", "b", "prec")
+
+
+# -- Categorical / DirichletCollection / discrete transitions -----------------------
+
+def _e_onehot(d):
+    """E[one-hot(out)] for Categorical-valued variables (or observed one-hot)."""
+    if isinstance(d, PointMass):
+        return d.point
+    return d.mean()
+
+
+def _e_log_simplex(d):
+    """E[log p] for simplex-valued variables (DirichletCollection or
+    PointMass)."""
+    if isinstance(d, PointMass):
+        return torch.log(torch.clamp(d.point, min=1e-37))
+    return d.mean_log()
+
+
+@node("Categorical")
+class CategoricalNode:
+    interfaces = ("out", "p")
+
+    @staticmethod
+    def message_to_out(q):
+        return Categorical(_e_log_simplex(q["p"]))
+
+
+@node("DirichletCollection")
+class DirichletCollectionNode:
+    interfaces = ("out", "alpha")
+
+    @staticmethod
+    def message_to_out(q):
+        return DirichletCollection(e_mean(q["alpha"]))
+
+
+@node("DiscreteTransition")
+class DiscreteTransitionNode:
+    """out ~ Categorical(P[:, in]): interfaces out, in, matrix, with
+    P[i, j] = p(out = i | in = j)."""
+
+    interfaces = ("out", "in", "matrix")
+
+    @classmethod
+    def message_to_out(cls, q):
+        return Categorical(torch.einsum(
+            "...ij,...j->...i", _e_log_simplex(q["matrix"]), _e_onehot(q["in"])))
+
+    @classmethod
+    def message_to_in(cls, q):
+        return Categorical(torch.einsum(
+            "...ij,...i->...j", _e_log_simplex(q["matrix"]),
+            _e_onehot(q["out"])))
+
+    @classmethod
+    def message_to_matrix(cls, q):
+        """Conjugate Dirichlet message; ``q["joint"]`` is the structured pair
+        marginal q(out, in) of a discrete chain, in [out, in] order."""
+        joint = q.get("joint")
+        if joint is None:
+            joint = (_e_onehot(q["out"])[..., :, None]
+                     * _e_onehot(q["in"])[..., None, :])
+        return DirichletCollection(1.0 + joint)

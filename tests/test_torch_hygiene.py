@@ -78,7 +78,7 @@ def test_kernel_build_flags():
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert "fused_smoother" in kernels.sources()
+    assert {"fused_smoother", "fused_fb"} <= set(kernels.sources())
     assert kernels.BUILD_DIR.relative_to(REPO).as_posix() + "/" in (
         REPO / ".gitignore").read_text().split()
 
