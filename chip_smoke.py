@@ -35,10 +35,30 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``infer_batched`` against ``batched_program`` on the same rows and those
    rows against the full batch (INFER_TOL), times the program and its
    stages with CUDA events, and profiles one program call as in phase 4.
-6. One JSON line listing every ported kernel with its launches on its path,
+6. Filter and quantization kernels vs plain versions on the card: the
+   streaming filter kernel K3 against ``fused_filter_reference`` at several
+   (B, T, d, dy) (RTOL/ATOL) and sampled chains against a float64 filter;
+   the quantize kernels K6/K7 against their plain versions (payload bytes
+   and scales must be EQUAL, a zero row included); the dequantize + product
+   kernel K8 on both payload types (DQ_TOL).
+7. Path A, continuous-batching filter at full width:
+   ``parallel.filtering.make_sharded_filtering(None, ..., fused=True)`` over
+   a (T, B, dy) stream of B=10,000 chains, T=200 steps, d=dy=4 with the
+   LGSSM constants.  One K3 launch per call; final state and sampled means
+   against the float64 filter (ORACLE_TOL); the call, K3 alone and the plain
+   ``filtering_scan`` timed; one call profiled.
+8. Path B, quantized ingest.  (i) The LGSSM program of phase 4 with
+   ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` at 1 and 10
+   iterations beside the float32 program: one K6 or K7 launch per call
+   whatever the iterations, posterior means within INT8_LEVEL / FP8_LEVEL of
+   the float32 run's and equal (DEQ_TOL) to the float32 program run on the
+   dequantized observations.  (ii) ``quantized_evidence`` and
+   ``quantized_evidence_fp8`` at 2^21 rows, dy=16 -> dx=4: one K6 or K7 and
+   one K8 launch per call, the result against the float32 product.
+9. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
-   program, ``torch.profiler``), bound and plain time.
+   path's call, ``torch.profiler``), bound and plain time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -101,7 +121,30 @@ FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
                    (16, 40, 1), (50, 1, 3), (50, 2, 3)]
 HMM_ROWS = (0, 1, 128, 255)
 
+# K8 against its plain version (same order of summation; the kernel may fuse
+# each multiply-add) and the quantized LGSSM program against the float32
+# program on the dequantized observations (the two evidence einsums read
+# different layouts and may sum in different orders).
+DQ_TOL = 1e-5
+DEQ_TOL = 1e-5
+# Posterior means on quantized observations against the float32 run, as a
+# share of max |mean|: the JAX package's engine-test levels.
+INT8_LEVEL, FP8_LEVEL = 0.05, 0.07
+
+FILTER_B, FILTER_T, FILTER_D = 10_000, 200, 4
+FILTER_CHECK_SHAPES = [(1000, 257, 4, 4), (37, 64, 2, 3), (64, 33, 8, 8),
+                       (16, 40, 1, 1), (50, 1, 3, 3)]
+QUANT_CHECK_SHAPES = [(4096, 10_000), (100_000, 16), (777, 6), (3, 1)]
+DEQUANT_CHECK_SHAPES = [(1 << 21, 16, 4), (1000, 3, 5)]
+QUANT_SHAPE = (MAIN_B * MAIN_D, MAIN_T)        # the engine's rows (B*F, T)
+INGEST_SHAPE = (1 << 21, 16, 4)                # rows, dy, dx
+QUANT_ITERATIONS = (1, 10)
+
 # kernel label -> the CUDA kernel's name, as the profiler reports it
+FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel"}
+QUANT_KERNEL_NAMES = {"quantize_rows": "quantize_kernel<.*Int8Payload",
+                      "quantize_rows_fp8": "quantize_kernel<.*Fp8Payload",
+                      "dequant_matmul": "dequant_matmul_kernel"}
 SMOOTHER_KERNEL_NAMES = {"fused_smoother_fwd": "fwd_kernel",
                          "fused_smoother_bwd": "bwd_kernel"}
 FB_KERNEL_NAMES = {"fused_fb_fwd": "fb_fwd_kernel",
@@ -565,17 +608,35 @@ def _hmm_diffs(got, want, rows) -> dict:
     return out
 
 
-def reset_launches() -> None:
-    from rxinfer_tpu_torch.ops import fused_fb, fused_smoother
+def _counted_modules():
+    from rxinfer_tpu_torch.ops import (
+        fused_fb,
+        fused_filter,
+        fused_smoother,
+        quantized,
+    )
 
-    fused_smoother.reset_launches()
-    fused_fb.reset_launches()
+    return fused_smoother, fused_fb, fused_filter, quantized
+
+
+def reset_launches() -> None:
+    for mod in _counted_modules():
+        mod.reset_launches()
 
 
 def read_launches() -> dict:
-    from rxinfer_tpu_torch.ops import fused_fb, fused_smoother
+    out: dict = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
-    return {**fused_smoother.LAUNCHES, **fused_fb.LAUNCHES}
+
+def expect_launches(launches: dict, **nonzero) -> None:
+    """Raise unless exactly the named kernels were launched, each the given
+    number of times, and no other kernel at all."""
+    want = {k: nonzero.get(k, 0) for k in launches}
+    if launches != want or set(nonzero) - set(launches):
+        raise AssertionError(f"expected launches {want}, got {launches}")
 
 
 def hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
@@ -610,10 +671,7 @@ def hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[hmm] launches in one program call: {launches}")
-    want = {"fused_smoother_fwd": 0, "fused_smoother_bwd": 0,
-            "fused_fb_fwd": iterations, "fused_fb_bwd": iterations}
-    if launches != want:
-        raise AssertionError(f"expected {want}, got {launches}")
+    expect_launches(launches, fused_fb_fwd=iterations, fused_fb_bwd=iterations)
 
     probs = state["s"].probs().cpu().numpy()
     conc = {n: state[n].alpha.cpu().numpy() for n in ("A", "B")}
@@ -697,7 +755,8 @@ def hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
 
 
 def _device_profile(fn, kernels: dict) -> dict:
-    """One ``fn()`` call under ``torch.profiler``.  ``busy_ms`` sums the
+    """One ``fn()`` call under ``torch.profiler``, after a warm-up call inside
+    the profiler that is not recorded.  ``busy_ms`` sums the
     device events (kernels, copies, sets) only: a CPU operator's device time
     repeats that of its kernels, so summing every event would count the
     torch operators twice.  For each entry of ``kernels`` (label -> CUDA
@@ -708,14 +767,19 @@ def _device_profile(fn, kernels: dict) -> dict:
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    # one warm-up step inside the profiler, discarded, then the recorded one:
+    # device events of the first launches after the profiler starts are lost
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     if not dev:
@@ -807,10 +871,8 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
         torch.cuda.synchronize()
     launches = read_launches()
     log(f"[main] launches in one program call: {launches}")
-    want = {"fused_smoother_fwd": 1, "fused_smoother_bwd": 1,
-            "fused_fb_fwd": 0, "fused_fb_bwd": 0}
-    if device.type == "cuda" and launches != want:
-        raise AssertionError(f"expected {want}, got {launches}")
+    if device.type == "cuda":
+        expect_launches(launches, fused_smoother_fwd=1, fused_smoother_bwd=1)
 
     post = state["x"]
     means = post.mu.cpu().numpy()
@@ -913,6 +975,489 @@ def time_plain(device, shape, reps: int) -> dict:
     }
 
 
+# -- slice 3: the streaming filter (K3) and the quantized payloads (K6-K8) --------
+
+def _bound(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
+    """Least time the card could take for K3 at (B, T, d, dy): observations
+    and initial state read once, means and final state written once, against
+    the operations of T chain-steps (the plain step run on counting
+    stand-ins)."""
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    nsym = d * (d + 1) // 2
+    nbytes = (t * dy * b + t * d * b + 2 * (d + nsym) * b) * 4
+    par = [[0.5] * d for _ in range(d)]
+    _OpCount.n = 0
+    ff.filter_step([_OpCount() for _ in range(d)],
+                   [[_OpCount() for _ in range(d)] for _ in range(d)],
+                   [_OpCount() for _ in range(dy)], par, par, par,
+                   [[0.5] * dy for _ in range(d)])
+    return _bound(nbytes, _OpCount.n * t * b)
+
+
+def quantize_bound(r: int, c: int) -> dict:
+    """K6 / K7 at (R, C): float32 in, one byte a value and one scale a row
+    out; per element an abs, a max, a division and the rounding (int8: with
+    its two clips)."""
+    return _bound(r * c * 4 + r * c + r * 4, 6 * r * c)
+
+
+def dequant_bound(r: int, dy: int, dx: int) -> dict:
+    """K8 at (R, dy, dx): payload, scales and W in, float32 (R, dx) out; dy
+    dequantizing multiplies and dy * dx multiply-adds a row."""
+    return _bound(r * (dy + 4 + dx * 4) + dy * dx * 4, r * (dy + 2 * dy * dx))
+
+
+def filter_float64(m0, p0, ys, f, q, h, r):
+    """Information-form Kalman filter in float64 numpy for a few chains, the
+    transition applied at every step: m0 (n, d), p0 (n, d, d), ys (T, n, dy).
+    Returns means (T, n, d) and the final (m, P)."""
+    f, q, h, r = (np.asarray(a, np.float64) for a in (f, q, h, r))
+    hr = h.T @ np.linalg.inv(r)
+    w = hr @ h
+    m = np.asarray(m0, np.float64)
+    p = np.asarray(p0, np.float64)
+    means = np.empty((ys.shape[0],) + m.shape)
+    for t in range(ys.shape[0]):
+        m = m @ f.T
+        p = f @ p @ f.T + q
+        lam = np.linalg.inv(p)
+        p = np.linalg.inv(lam + w)
+        m = np.einsum("nij,nj->ni", p, np.einsum("nij,nj->ni", lam, m)
+                      + np.asarray(ys[t], np.float64) @ hr.T)
+        means[t] = m
+    return means, m, p
+
+
+def _filter_system(d: int, dy: int, seed: int):
+    """A stable random system with a (dy, d) observation matrix."""
+    rng = np.random.default_rng(seed)
+    qm, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    f = (0.98 * qm).astype(np.float32)
+    q = (0.4 * np.eye(d)).astype(np.float32)
+    h = (1.2 * np.eye(dy, d) + 0.2 * rng.standard_normal((dy, d))).astype(
+        np.float32)
+    r = (0.8 * np.eye(dy) + 0.1 * np.ones((dy, dy))).astype(np.float32)
+    return f, q, h, r
+
+
+def _soa_state(m, p):
+    """(B, d), (B, d, d) -> the kernel's batch-minor (d, B), (nsym, B)."""
+    from rxinfer_tpu_torch.ops.fused_smoother import sym_fold
+
+    return m.t().contiguous(), sym_fold(p).contiguous()
+
+
+def check_filter_kernel(device, shapes, log=print) -> float:
+    """Phase 6 for K3: the wrapper against its plain version on the same
+    CUDA tensors, and chains of the first shape against the float64 filter.
+    Returns the max abs error against the plain version."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    worst = 0.0
+    before = ff.LAUNCHES["fused_filter"]
+    failures = []
+    for i, (bsz, t_len, d, dy) in enumerate(shapes):
+        f, q, h, r = _filter_system(d, dy, seed=300 + i)
+        w_obs, hr = ff.evidence_operators(h, r)
+        rng = np.random.default_rng(300 + i)
+        ys = torch.as_tensor(rng.standard_normal((t_len, dy, bsz)).astype(
+            np.float32), device=device)
+        m = torch.as_tensor(rng.standard_normal((bsz, d)).astype(np.float32),
+                            device=device)
+        p = torch.as_tensor(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                                            (bsz, d, d)).copy(), device=device)
+        m0, p0 = _soa_state(m, p)
+        got = ff.fused_filter(m0, p0, ys, f, q, hr, w_obs)
+        want = ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs)
+        torch.cuda.synchronize()
+        parts = []
+        for label, g, w in zip(("means", "final m", "final P"), got, want):
+            ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
+            worst = max(worst, ea)
+            parts.append(f"{label} abs {ea:.3g} rel {er:.3g}")
+            if not ok:
+                failures.append(f"(B,T,d,dy)=({bsz},{t_len},{d},{dy}) {label}:"
+                                f" abs {ea:.3g} rel {er:.3g}")
+        log(f"[check] K3 (B,T,d,dy)=({bsz},{t_len},{d},{dy}) "
+            + "; ".join(parts))
+        if i == 0:
+            idx = [0, 1, bsz // 2, bsz - 1]
+            o_means, o_m, _ = filter_float64(
+                m[idx].cpu().numpy(), p[idx].cpu().numpy(),
+                ys[:, :, idx].transpose(1, 2).cpu().numpy(), f, q, h, r)
+            err = max(
+                float(np.abs(got[0][:, :, idx].transpose(1, 2).cpu().numpy()
+                             - o_means).max()),
+                float(np.abs(got[1][:, idx].t().cpu().numpy() - o_m).max()))
+            log(f"[check] K3 vs float64 filter, chains {idx}: {err:.3g} "
+                f"(tol {ORACLE_TOL})")
+            if err > ORACLE_TOL:
+                failures.append(f"float64 filter: {err:.3g}")
+    if failures:
+        raise AssertionError("filter kernel disagrees beyond rtol=atol="
+                             f"{RTOL}: " + "; ".join(failures))
+    if ff.LAUNCHES["fused_filter"] - before != len(shapes):
+        raise AssertionError("fused_filter: launch counter did not rise once "
+                             "per checked shape")
+    return worst
+
+
+def _quant_rows(r: int, c: int, seed: int, device):
+    """Rows with scales spread over e^-3 .. e^3 and, where there is more
+    than one row, a zero row."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((r, c), generator=gen, device=device)
+    x = x * torch.exp(6.0 * torch.rand((r, 1), generator=gen, device=device)
+                      - 3.0)
+    if r > 1:
+        x[1] = 0.0
+    return x
+
+
+def check_quant_kernels(device, log=print) -> dict:
+    """Phase 6 for K6, K7, K8.  Quantize: payload bytes and scales equal to
+    the plain version's, the zero row all zeros.  Dequantize + product:
+    within DQ_TOL of the plain version on both payload types.  Returns
+    per-kernel max abs error (payloads decoded to float32)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import quantized as tq
+
+    worst = {k: 0.0 for k in tq.LAUNCHES}
+    before = dict(tq.LAUNCHES)
+    failures = []
+    pairs = (("quantize_rows", tq.quantize_rows, tq.quantize_rows_reference),
+             ("quantize_rows_fp8", tq.quantize_rows_fp8,
+              tq.quantize_rows_fp8_reference))
+    for i, (r, c) in enumerate(QUANT_CHECK_SHAPES):
+        x = _quant_rows(r, c, seed=400 + i, device=device)
+        parts = []
+        for name, fn, ref in pairs:
+            v, s = fn(x)
+            v_r, s_r = ref(x)
+            torch.cuda.synchronize()
+            n_bytes = int((v.view(torch.uint8) != v_r.view(torch.uint8)).sum())
+            n_scales = int((s != s_r).sum())
+            err = float((v.float() - v_r.float()).abs().max())
+            worst[name] = max(worst[name], err)
+            parts.append(f"{name}: {n_bytes} payload bytes and {n_scales} "
+                         f"scales differ, max |payload diff| {err:.3g}")
+            if n_bytes or n_scales:
+                failures.append(f"(R,C)=({r},{c}) {parts[-1]}")
+            if r > 1 and bool(v[1].view(torch.uint8).any()):
+                failures.append(f"(R,C)=({r},{c}) {name}: zero row not zero")
+        log(f"[check] K6/K7 (R,C)=({r},{c}) " + "; ".join(parts))
+    for i, (r, dy, dx) in enumerate(DEQUANT_CHECK_SHAPES):
+        x = _quant_rows(r, dy, seed=500 + i, device=device)
+        gen = torch.Generator(device=device).manual_seed(600 + i)
+        w = torch.randn((dy, dx), generator=gen, device=device)
+        parts = []
+        for name, fn, _ in pairs:
+            v, s = fn(x)
+            got = tq.dequant_matmul(v, s, w)
+            want = tq.dequant_matmul_reference(v, s, w)
+            torch.cuda.synchronize()
+            ea, er, ok = _max_err(got.cpu().numpy(), want.cpu().numpy(),
+                                  rtol=DQ_TOL, atol=DQ_TOL)
+            worst["dequant_matmul"] = max(worst["dequant_matmul"], ea)
+            parts.append(f"{v.dtype}: abs {ea:.3g} rel {er:.3g}")
+            if not ok:
+                failures.append(f"(R,dy,dx)=({r},{dy},{dx}) {parts[-1]}")
+        log(f"[check] K8 (R,dy,dx)=({r},{dy},{dx}) " + "; ".join(parts)
+            + f" (rtol=atol={DQ_TOL})")
+    if failures:
+        raise AssertionError("quantization kernels disagree with their plain "
+                             "versions: " + "; ".join(failures))
+    n_q, n_d = len(QUANT_CHECK_SHAPES), len(DEQUANT_CHECK_SHAPES)
+    rose = {k: tq.LAUNCHES[k] - before[k] for k in before}
+    if rose != {"quantize_rows": n_q + n_d, "quantize_rows_fp8": n_q + n_d,
+                "dequant_matmul": 2 * n_d}:
+        raise AssertionError(f"quantized launch counters rose by {rose}")
+    return worst
+
+
+def filter_path(device, b: int, t_len: int, d: int, reps: int,
+                log=print) -> dict:
+    """Phase 7, path A: the continuous-batching filter at (B, T, d)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+    from rxinfer_tpu_torch.parallel.filtering import (
+        FilterState,
+        filtering_scan,
+        make_sharded_filtering,
+    )
+
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    rng = np.random.default_rng(0)
+    ys_host = rng.standard_normal((t_len, b, d)).astype(np.float32)
+    ys = torch.as_tensor(ys_host, device=device)
+    state = FilterState(
+        torch.zeros((b, d), device=device),
+        torch.as_tensor(p0, device=device).expand((b, d, d)).contiguous())
+    fn = make_sharded_filtering(None, f, q, h, r, fused=True)
+
+    reset_launches()
+    final, means = fn(state, ys)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[filter] launches in one call: {launches}")
+    expect_launches(launches, fused_filter=1)
+    if tuple(means.shape) != (t_len, b, d) or tuple(final.m.shape) != (b, d) \
+            or tuple(final.p.shape) != (b, d, d):
+        raise AssertionError("filter outputs have the wrong shape")
+    if not all(bool(torch.isfinite(a).all())
+               for a in (means, final.m, final.p)):
+        raise AssertionError("non-finite filter outputs")
+
+    rows = sorted({0, 1, b // 2, b - 1})
+    o_means, o_m, o_p = filter_float64(
+        np.zeros((len(rows), d)), np.broadcast_to(p0, (len(rows), d, d)),
+        ys_host[:, rows], f, q, h, r)
+    errs = {
+        "means": float(np.abs(means[:, rows].cpu().numpy() - o_means).max()),
+        "final_m": float(np.abs(final.m[rows].cpu().numpy() - o_m).max()),
+        "final_p": float(np.abs(final.p[rows].cpu().numpy() - o_p).max()),
+    }
+    log(f"[filter] float64 filter, chains {rows}: {errs} (tol {ORACLE_TOL})")
+    if max(errs.values()) > ORACLE_TOL:
+        raise AssertionError(f"path A disagrees with the float64 filter: {errs}")
+
+    # the kernel against its plain version on the path's own inputs
+    w_obs, hr = ff.evidence_operators(h, r)
+    m_soa, p_soa = _soa_state(state.m, state.p)
+    ys_soa = ys.transpose(1, 2).contiguous()
+    got = ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
+    want = ff.fused_filter_reference(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
+    torch.cuda.synchronize()
+    kernel_err = 0.0
+    for label, g, w in zip(("means", "final m", "final P"), got, want):
+        ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
+        kernel_err = max(kernel_err, ea)
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version on "
+                                 f"path A's inputs, {label}: abs {ea:.3g}")
+    log(f"[filter] K3 vs plain version on the path's inputs: max abs "
+        f"{kernel_err:.3g} (rtol=atol={RTOL})")
+
+    out = {"errs": errs, "launches": launches, "kernel_err": kernel_err}
+    out["call_ms"] = _cuda_ms(lambda: fn(state, ys), reps)
+    out["updates_per_s"] = b * t_len / (out["call_ms"] / 1e3)
+    out["kernel_ms"] = _cuda_ms(
+        lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs),
+        reps, inner=20)
+    out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
+                                inner=20)
+    out["plain_kernel_ms"] = _cuda_ms(
+        lambda: ff.fused_filter_reference(m_soa, p_soa, ys_soa, f, q, hr,
+                                          w_obs), 2, warmup=1)
+    out["plain_scan_ms"] = _cuda_ms(
+        lambda: filtering_scan(state, ys, f, q, h, r), 2, warmup=1)
+    out["profile"] = _device_profile(lambda: fn(state, ys),
+                                     FILTER_KERNEL_NAMES)
+    busy = out["profile"]["busy_ms"]
+    log(f"[filter] call {out['call_ms']:.4f} ms ({out['updates_per_s']:.4g} "
+        f"chain-updates/s); alone: K3 {out['kernel_ms']:.4f} ms, observation "
+        f"layout copy {out['layout_ms']:.4f} ms; plain filtering_scan on the "
+        f"card {out['plain_scan_ms']:.1f} ms, K3's plain version "
+        f"{out['plain_kernel_ms']:.1f} ms; device busy {busy} ms per call, "
+        f"idle {_idle_share(out['call_ms'], busy)}; in the call "
+        f"{out['profile']['kernels']}")
+    return out
+
+
+def quantized_program_path(device, b: int, t_len: int, d: int, reps: int,
+                           log=print) -> dict:
+    """Phase 8 (i), path B: the LGSSM program on quantized observations."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine.batched import quantize_observations
+    from rxinfer_tpu_torch.models import zoo
+    from rxinfer_tpu_torch.ops import quantized as tq
+
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    model = zoo.lgssm(f, q, h, r, m0, p0)
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(rng.standard_normal((b, t_len, d), dtype=np.float32),
+                        device=device)
+    dtypes = {"int8": ("quantize_rows", INT8_LEVEL),
+              "float8_e4m3fn": ("quantize_rows_fp8", FP8_LEVEL)}
+    out: dict = {"launches": {}, "program_ms": {}, "errs": {}}
+
+    built: dict = {}
+
+    def program(iterations, obs_dtype=None):
+        key = (iterations, obs_dtype)
+        if key not in built:
+            opts = {"observation_dtype": obs_dtype} if obs_dtype else None
+            built[key] = rt.batched_program(
+                model, {"y": y}, iterations=iterations, free_energy=False,
+                options=opts, device=device)[1]
+        return built[key]
+
+    for iterations in QUANT_ITERATIONS:
+        n_reps = reps if iterations == 1 else max(3, reps // 2)
+        prog_f = program(iterations)
+        mu_f = prog_f({"y": y})[0]["x"].mu
+        scale = float(mu_f.abs().max())
+        out["program_ms"][("float32", iterations)] = _cuda_ms(
+            lambda: prog_f({"y": y}), n_reps)
+        for obs_dtype, (kname, level) in dtypes.items():
+            prog_q = program(iterations, obs_dtype)
+            reset_launches()
+            mu_q = prog_q({"y": y})[0]["x"].mu
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect_launches(launches, fused_smoother_fwd=iterations,
+                            fused_smoother_bwd=iterations, **{kname: 1})
+            out["launches"][(obs_dtype, iterations)] = launches
+            vals, scales = quantize_observations(y, obs_dtype)
+            y_hat = (vals.to(torch.float32) * scales).transpose(1, 2)
+            mu_hat = prog_f({"y": y_hat.contiguous()})[0]["x"].mu
+            torch.cuda.synchronize()
+            errs = {
+                "vs_float32_share": float((mu_q - mu_f).abs().max()) / scale,
+                "vs_float32_on_dequantized": float(
+                    (mu_q - mu_hat).abs().max()),
+            }
+            out["errs"][(obs_dtype, iterations)] = errs
+            if not bool(torch.isfinite(mu_q).all()) \
+                    or errs["vs_float32_share"] > level \
+                    or errs["vs_float32_on_dequantized"] > DEQ_TOL:
+                raise AssertionError(
+                    f"path B, {obs_dtype} at {iterations} iterations: {errs} "
+                    f"(levels {level} and {DEQ_TOL})")
+            out["program_ms"][(obs_dtype, iterations)] = _cuda_ms(
+                lambda: prog_q({"y": y}), n_reps)
+            del mu_q, mu_hat, y_hat, vals, scales
+        log(f"[quant] iterations={iterations}: program ms "
+            + ", ".join(f"{k} {out['program_ms'][(k, iterations)]:.3f}"
+                        for k in ("float32", *dtypes))
+            + "; launches "
+            + ", ".join(f"{k} {out['launches'][(k, iterations)][v[0]]} x {v[0]}"
+                        for k, v in dtypes.items())
+            + "; errors "
+            + ", ".join(f"{k} {out['errs'][(k, iterations)]}" for k in dtypes))
+
+    # stages alone at the engine's shapes: the quantize kernels on the rows
+    # (B*F, T), and the evidence einsum on the payload and on float32
+    rows = y.transpose(1, 2).reshape(b * d, t_len).contiguous()
+    ek = torch.as_tensor((h.T @ np.linalg.inv(r)).astype(np.float32),
+                         device=device)
+    out["einsum_ms"] = {"float32": _cuda_ms(
+        lambda: torch.einsum("if,btf->tbi", ek, y), reps)}
+    out["kernel_ms"], out["plain_ms"] = {}, {}
+    for obs_dtype, fn, ref in (
+            ("int8", tq.quantize_rows, tq.quantize_rows_reference),
+            ("float8_e4m3fn", tq.quantize_rows_fp8,
+             tq.quantize_rows_fp8_reference)):
+        kname = dtypes[obs_dtype][0]
+        out["kernel_ms"][kname] = _cuda_ms(lambda: fn(rows), reps, inner=20)
+        out["plain_ms"][kname] = _cuda_ms(lambda: ref(rows), reps)
+        vals, scales = quantize_observations(y, obs_dtype)
+        out["einsum_ms"][obs_dtype] = _cuda_ms(
+            lambda: torch.einsum("if,bft->tbi", ek,
+                                 vals.to(torch.float32) * scales), reps)
+    out["profile"] = {}
+    for obs_dtype in dtypes:
+        prog_q = program(QUANT_ITERATIONS[-1], obs_dtype)
+        out["profile"][obs_dtype] = _device_profile(
+            lambda: prog_q({"y": y}),
+            {**SMOOTHER_KERNEL_NAMES,
+             dtypes[obs_dtype][0]: QUANT_KERNEL_NAMES[dtypes[obs_dtype][0]]})
+    log(f"[quant] alone at rows {tuple(rows.shape)}: "
+        + ", ".join(f"{k} {v:.4f} ms (plain {out['plain_ms'][k]:.3f} ms)"
+                    for k, v in out["kernel_ms"].items())
+        + "; evidence einsum ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["einsum_ms"].items())
+        + f"; in the {QUANT_ITERATIONS[-1]}-iteration program "
+        + ", ".join(f"{k}: busy {v['busy_ms']} ms, {v['kernels']}"
+                    for k, v in out["profile"].items()))
+    return out
+
+
+def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
+    """Phase 8 (ii), path B: ``quantized_evidence`` and its fp8 form at
+    (R, dy, dx)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import quantized as tq
+
+    r, dy, dx = shape
+    rng = np.random.default_rng(2)
+    y = torch.as_tensor(
+        3.0 * rng.standard_normal((r, dy), dtype=np.float32), device=device)
+    w = torch.as_tensor(rng.standard_normal((dy, dx)).astype(np.float32),
+                        device=device)
+    exact = y @ w
+    scale = float(exact.abs().max())
+    nbytes = r * (dy + 4 + dx * 4)          # the JAX package's bench count
+    out: dict = {"launches": {}, "errs": {}, "call_ms": {}, "quantize_ms": {},
+                 "dequant_ms": {}, "dequant_plain_ms": {},
+                 "dequant_bytes_per_s": {}, "quantize_plain_ms": {}}
+    for label, fn, quant, ref, kname, level in (
+            ("int8", tq.quantized_evidence, tq.quantize_rows,
+             tq.quantize_rows_reference, "quantize_rows", INT8_LEVEL),
+            ("float8_e4m3fn", tq.quantized_evidence_fp8, tq.quantize_rows_fp8,
+             tq.quantize_rows_fp8_reference, "quantize_rows_fp8", FP8_LEVEL)):
+        reset_launches()
+        xi = fn(y, w)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, dequant_matmul=1, **{kname: 1})
+        out["launches"][label] = launches
+        err = float((xi - exact).abs().max()) / scale
+        out["errs"][label] = err
+        if tuple(xi.shape) != (r, dx) or not bool(torch.isfinite(xi).all()) \
+                or err > level:
+            raise AssertionError(f"quantized ingest, {label}: error share "
+                                 f"{err:.3g} (level {level})")
+        vals, scales = quant(y)
+        out["call_ms"][label] = _cuda_ms(lambda: fn(y, w), reps, inner=10)
+        out["quantize_ms"][label] = _cuda_ms(lambda: quant(y), reps, inner=20)
+        out["quantize_plain_ms"][label] = _cuda_ms(lambda: ref(y), reps)
+        out["dequant_ms"][label] = _cuda_ms(
+            lambda: tq.dequant_matmul(vals, scales, w), reps, inner=20)
+        out["dequant_plain_ms"][label] = _cuda_ms(
+            lambda: tq.dequant_matmul_reference(vals, scales, w), reps)
+        out["dequant_bytes_per_s"][label] = nbytes / (
+            out["dequant_ms"][label] / 1e3)
+        if label == "int8":
+            # yardstick only: the product alone, on the matrix already
+            # dequantized to float32
+            deq = vals.to(torch.float32) * scales
+            out["library_ms"] = _cuda_ms(lambda: torch.matmul(deq, w), reps,
+                                         inner=20)
+            del deq
+    out["profile"] = _device_profile(lambda: tq.quantized_evidence(y, w),
+                                     QUANT_KERNEL_NAMES)
+    log(f"[ingest] (R,dy,dx)={shape}: "
+        + "; ".join(
+            f"{k}: call {out['call_ms'][k]:.4f} ms, quantize "
+            f"{out['quantize_ms'][k]:.4f} ms (plain "
+            f"{out['quantize_plain_ms'][k]:.3f}), dequant+product "
+            f"{out['dequant_ms'][k]:.4f} ms (plain "
+            f"{out['dequant_plain_ms'][k]:.3f}) = "
+            f"{out['dequant_bytes_per_s'][k]:.4g} B/s, error share "
+            f"{out['errs'][k]:.3g}" for k in out["call_ms"])
+        + f"; float32 matmul on the dequantized matrix {out['library_ms']:.4f}"
+        f" ms; in the int8 call {out['profile']['kernels']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -982,6 +1527,35 @@ def main() -> int:
               f" plain {fb_plain[name]['plain_ms']:.2f} ms vs kernel "
               f"{fb_plain[name]['ms']:.4f} ms at (B,T,K)={hmm_shape}")
 
+    # 6. filter and quantization kernels vs plain versions
+    worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES)
+    worst.update(check_quant_kernels(device))
+
+    # 7. path A: the continuous-batching filter at full width
+    filt = filter_path(device, FILTER_B, FILTER_T, FILTER_D, reps=10)
+    filt_bound = filter_bound(FILTER_B, FILTER_T, FILTER_D, FILTER_D)
+
+    # 8. path B: quantized ingest, through the engine and through the
+    # evidence entry points
+    quant = quantized_program_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
+    ingest = quantized_ingest_path(device, INGEST_SHAPE, reps=10)
+    q_bound = quantize_bound(*QUANT_SHAPE)
+    q_ingest_bound = quantize_bound(*INGEST_SHAPE[:2])
+    dq_bound = dequant_bound(*INGEST_SHAPE)
+    print(f"[filter] fused_filter: {filt['kernel_ms']:.4f} ms, bound "
+          f"{filt_bound['bound_ms']:.4f} ms ({filt_bound['bound_by']}), "
+          f"roofline share "
+          f"{100 * filt_bound['bound_ms'] / filt['kernel_ms']:.2f}%")
+    for name in ("quantize_rows", "quantize_rows_fp8"):
+        print(f"[quant] {name}: {quant['kernel_ms'][name]:.4f} ms at rows "
+              f"{QUANT_SHAPE}, bound {q_bound['bound_ms']:.4f} ms "
+              f"({q_bound['bound_by']}), roofline share "
+              f"{100 * q_bound['bound_ms'] / quant['kernel_ms'][name]:.2f}%")
+    print(f"[ingest] dequant_matmul: {ingest['dequant_ms']['int8']:.4f} ms, "
+          f"bound {dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), "
+          f"roofline share "
+          f"{100 * dq_bound['bound_ms'] / ingest['dequant_ms']['int8']:.2f}%")
+
     for name, ms_key in (("fused_smoother_fwd", "fwd_ms"),
                          ("fused_smoother_bwd", "bwd_ms")):
         print(f"[main] {name}: {main[ms_key]:.4f} ms, bound "
@@ -990,7 +1564,7 @@ def main() -> int:
               f" plain {plain[name]['plain_ms']:.2f} ms vs kernel "
               f"{plain[name]['ms']:.4f} ms at (B,T,d)={PLAIN_SHAPE}")
 
-    # 6. the kernels line
+    # 9. the kernels line
     source = "rxinfer_tpu_torch/csrc/fused_smoother.cu"
     rows = []
     for name, replaces, ms_key in (
@@ -1036,6 +1610,72 @@ def main() -> int:
             "bytes": fbb[name]["bytes"], "ops": fbb[name]["ops"],
             "plain_shape_BTK": list(hmm_shape),
         })
+    rows.append({
+        "name": "fused_filter", "route": "cuda",
+        "source": "rxinfer_tpu_torch/csrc/fused_filter.cu",
+        "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "launches": filt["launches"]["fused_filter"],
+        "max_abs_err": max(worst["fused_filter"], filt["kernel_err"]),
+        "max_abs_err_on_path": filt["kernel_err"],
+        "ms": filt["kernel_ms"],
+        "ms_in_path": filt["profile"]["kernels"]["fused_filter"][
+            "ms_per_launch"],
+        "plain_ms": filt["plain_kernel_ms"],
+        "bound_ms": filt_bound["bound_ms"],
+        "bound_by": filt_bound["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a Kalman filter",
+        "shape_BTddy": [FILTER_B, FILTER_T, FILTER_D, FILTER_D],
+        "bytes": filt_bound["bytes"], "ops": filt_bound["ops"],
+    })
+    q_source = "rxinfer_tpu_torch/csrc/quantized.cu"
+    for name, replaces, label in (
+            ("quantize_rows", "rxinfer_tpu/ops/quantized.py:50", "int8"),
+            ("quantize_rows_fp8", "rxinfer_tpu/ops/quantized.py:153",
+             "float8_e4m3fn")):
+        it_last = QUANT_ITERATIONS[-1]
+        rows.append({
+            "name": name, "route": "cuda", "source": q_source,
+            "replaces": replaces,
+            "launches": quant["launches"][(label, it_last)][name],
+            "launches_in_ingest_call": ingest["launches"][label][name],
+            "max_abs_err": worst[name], "ms": quant["kernel_ms"][name],
+            "ms_in_path": quant["profile"][label]["kernels"][name][
+                "ms_per_launch"],
+            "plain_ms": quant["plain_ms"][name],
+            "bound_ms": q_bound["bound_ms"], "bound_by": q_bound["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a per-row "
+                            "scaled quantization",
+            "shape_RC": list(QUANT_SHAPE),
+            "bytes": q_bound["bytes"], "ops": q_bound["ops"],
+            "ingest_shape_RC": list(INGEST_SHAPE[:2]),
+            "ms_at_ingest_shape": ingest["quantize_ms"][label],
+            "plain_ms_at_ingest_shape": ingest["quantize_plain_ms"][label],
+            "bound_ms_at_ingest_shape": q_ingest_bound["bound_ms"],
+        })
+    rows.append({
+        "name": "dequant_matmul", "route": "cuda", "source": q_source,
+        "replaces": "rxinfer_tpu/ops/quantized.py:107",
+        "launches": ingest["launches"]["int8"]["dequant_matmul"],
+        "launches_in_fp8_call": ingest["launches"]["float8_e4m3fn"][
+            "dequant_matmul"],
+        "max_abs_err": worst["dequant_matmul"],
+        "ms": ingest["dequant_ms"]["int8"],
+        "ms_fp8": ingest["dequant_ms"]["float8_e4m3fn"],
+        "ms_in_path": ingest["profile"]["kernels"]["dequant_matmul"][
+            "ms_per_launch"],
+        "plain_ms": ingest["dequant_plain_ms"]["int8"],
+        "bound_ms": dq_bound["bound_ms"], "bound_by": dq_bound["bound_by"],
+        "library_ms": ingest["library_ms"],
+        "library_note": "torch.matmul on the matrix already dequantized to "
+                        "float32: the product alone",
+        "shape_Rdydx": list(INGEST_SHAPE),
+        "bytes": dq_bound["bytes"], "ops": dq_bound["ops"],
+        "bytes_per_s": ingest["dequant_bytes_per_s"]["int8"],
+    })
+    print(f"[filter] call_ms {filt['call_ms']:.4f} chain_updates_per_s "
+          f"{filt['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
+          f"d={FILTER_D})")
     print(f"[hmm] program_ms {hmm['program_ms']:.4f} updates_per_s "
           f"{hmm['updates_per_s']:.6g} (B={HMM_B}, T={HMM_T}, "
           f"iterations={HMM_IT})")

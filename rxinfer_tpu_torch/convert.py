@@ -9,6 +9,8 @@ numpy, without importing the JAX package.
 * ``dist_from_numpy(family, params)`` builds a port distribution from the
   class name of a JAX distribution and its numpy parameters, in field order
   or by field name.
+* ``filter_state_from_numpy(m, p)`` builds the ``FilterState`` of
+  ``parallel.filtering`` from the numpy fields of the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from . import dists as D
 from .engine.batched import FusedGaussianPlan
+from .parallel.filtering import FilterState
 
 _FAMILIES = {
     "NormalMeanVariance": D.NormalMeanVariance,
@@ -72,3 +75,16 @@ def dist_from_numpy(family: str, params, device="cpu") -> D.Distribution:
             f"{family} takes {field_names}, got {len(params)} parameters")
     return cls(*[torch.as_tensor(np.array(p, np.float32), device=device)
                  for p in params])
+
+
+def filter_state_from_numpy(m, p, device="cpu") -> FilterState:
+    """The port's filter state from means m (B, d) and covariances p
+    (B, d, d) given as numpy arrays."""
+    m = np.array(m, np.float32)
+    p = np.array(p, np.float32)
+    if m.ndim != 2 or p.shape != m.shape + m.shape[-1:]:
+        raise ValueError(
+            f"filter state takes m (B, d) and p (B, d, d); got {m.shape} and "
+            f"{p.shape}")
+    return FilterState(torch.as_tensor(m, device=device),
+                       torch.as_tensor(p, device=device))

@@ -25,19 +25,27 @@ once per call and its factor copies masked; the Gaussian tier refuses such a
 batch (its constant W cannot express the masks), the discrete and plain
 paths take it.
 
+With ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` a program
+quantizes, once per call, every observation array that feeds a fused
+Gaussian chain's evidence einsum (``ops/quantized.py``: one scale per chain
+and channel, taken over time), and every sweep's einsum reads the 1-byte
+payload and its scales instead of the float32 observations.
+
 Ported subset: ``FusedGaussianPlan``, the static branches of
 ``_plan_fused_gaussian``, ``_extract_linear_evidence``,
 ``_fused_gaussian_update``, ``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
-``make_batched_program`` without shared variables, free energy or quantized
-ingest.  A chain that is not eligible is not routed to a vmapped scan (that
-path is not ported): the program raises ``NotImplementedError`` with the plan
-report's reason.  So does ``options={"fused_kernels": False}``.
+``make_batched_program`` (with quantized observation ingest) without
+shared variables or free energy.  A chain that is not eligible is not routed
+to a vmapped scan (that path is not ported): the program raises
+``NotImplementedError`` with the plan report's reason.  So does
+``options={"fused_kernels": False}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import numpy as np
@@ -222,20 +230,46 @@ def _extract_linear_evidence(block: GaussianChainBlock, d0: dict,
         return None, None
 
 
+def quantize_observations(v, obs_dtype: str):
+    """The quantized payload of one observation array v (B, T, ...): the
+    quantization axis is TIME, one scale per (chain, channel), so the rows
+    handed to ``ops/quantized.py`` are (B * F, T).  Returns vals (B, F, T)
+    int8 or float8_e4m3fn and scales (B, F, 1) float32."""
+    from ..ops import quantized as qops
+
+    qfn = (qops.quantize_rows if obs_dtype == "int8"
+           else qops.quantize_rows_fp8)
+    b_sz, t_len = v.shape[0], v.shape[1]
+    feat = int(np.prod(v.shape[2:], dtype=np.int64)) or 1
+    rows = v.reshape(b_sz, t_len, feat).transpose(1, 2).reshape(
+        b_sz * feat, t_len).contiguous()
+    vals, scales = qfn(rows)
+    return vals.reshape(b_sz, feat, t_len), scales.reshape(b_sz, feat, 1)
+
+
 def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
-                   length: int, scalar: bool = False):
+                   length: int, scalar: bool = False, qpayload=None):
     """Evidence einsum + fused smoother for one static-tier plan.  ``data``
-    maps names to (B, T, ...) float32 tensors on the program's device.
-    Returns the chain posterior (batched over B) and ``chain_cross``
-    Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar chains: (B, T-1))."""
+    maps names to (B, T, ...) float32 tensors on the program's device;
+    ``qpayload`` maps the names whose observations were quantized to their
+    ``(vals (B, F, T), scales (B, F, 1))``, which the einsum then reads
+    instead.  Returns the chain posterior (batched over B) and
+    ``chain_cross`` Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar
+    chains: (B, T-1))."""
     from ..ops.fused_smoother import fused_batched_smoother
 
     dim = plan.A.shape[-1]
     xi_t = None
     for name, Ek in plan.E.items():
-        ek = torch.as_tensor(Ek, device=data[name].device)
-        flat = data[name].reshape(batch, length, -1)            # (B, T, feat)
-        term = torch.einsum("if,btf->tbi", ek, flat)
+        if qpayload is not None and name in qpayload:
+            vals, scales = qpayload[name]
+            ek = torch.as_tensor(Ek, device=vals.device)
+            term = torch.einsum("if,bft->tbi", ek,
+                                vals.to(torch.float32) * scales)
+        else:
+            ek = torch.as_tensor(Ek, device=data[name].device)
+            flat = data[name].reshape(batch, length, -1)        # (B, T, feat)
+            term = torch.einsum("if,btf->tbi", ek, flat)
         xi_t = term if xi_t is None else xi_t + term
     ref = next(iter(data.values()))
     if xi_t is None:
@@ -261,8 +295,9 @@ def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
 
 
 def _fused_gaussian_update(block: GaussianChainBlock, plan: FusedGaussianPlan,
-                           data: dict, batch: int):
-    return run_fused_plan(plan, data, batch, block.var.length, block.scalar)
+                           data: dict, batch: int, qpayload=None):
+    return run_fused_plan(plan, data, batch, block.var.length, block.scalar,
+                          qpayload)
 
 
 def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
@@ -392,13 +427,29 @@ def make_batched_program(compiled, data0: dict, iterations: int,
                 f"{compiled._plan_report[name]['reason']}. The vmapped "
                 "per-dataset path is not ported yet."
             )
+    # quantized observation ingest: the names that feed a fused Gaussian
+    # plan's evidence einsum
+    obs_dtype = compiled.observation_dtype
+    qnames: set = set()
+    if obs_dtype != "float32":
+        for plan in plans.values():
+            if isinstance(plan, FusedGaussianPlan):
+                qnames |= set(plan.E)
+        if not qnames and compiled.warn:
+            warnings.warn(
+                f'options={{"observation_dtype": "{obs_dtype}"}} has no '
+                "effect: no chain block lowered to the fused linear-evidence "
+                "plan (inspect compiled.plan_report()); observations stay "
+                "float32.",
+                stacklevel=2,
+            )
     from ..dists import tree_map
 
     init0 = {name: tree_map(lambda a: a.to(device), d)
              for name, d in compiled._init_state().items()}
     consts: dict = {}   # model constants on the device, kept across calls
 
-    def sweep(state, chain_cross, data, ctx):
+    def sweep(state, chain_cross, data, ctx, qpayload):
         for kind, block in compiled.blocks:
             name = block.var.name
             if kind == "plain":
@@ -409,7 +460,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
                                                      chain_cross, ctx)
             else:
                 marg, cross = _fused_gaussian_update(block, plans[name], data,
-                                                     ctx.batch)
+                                                     ctx.batch, qpayload)
             state[name] = marg
             chain_cross[name] = cross
         return state, chain_cross
@@ -426,6 +477,9 @@ def make_batched_program(compiled, data0: dict, iterations: int,
                 if m is not None:
                     masks[f.id] = m
             data = {k: torch.nan_to_num(v) for k, v in data.items()}
+        # once per call, not per sweep: every sweep re-reads the payload
+        qpayload = {name: quantize_observations(data[name], obs_dtype)
+                    for name in sorted(qnames)} or None
         ctx = BatchContext(device, batch, consts, masks)
         state = {name: tree_map(lambda a: a.expand((batch,) + tuple(a.shape)),
                                 d) for name, d in init0.items()}
@@ -433,7 +487,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
         history = []
         for _ in range(iterations):
             state, chain_cross = sweep(dict(state), dict(chain_cross), data,
-                                       ctx)
+                                       ctx, qpayload)
             if keep_each:
                 history.append(dict(state))
         fe = torch.zeros((0, batch), device=device)

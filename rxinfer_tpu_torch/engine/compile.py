@@ -313,13 +313,24 @@ class CompiledModel:
         # False would route chains to the vmapped scan path, which is not
         # ported: build_plans reports it and the batched program raises
         self.use_fused = options.get("fused_kernels", True)
-        for key, default in (("fused_moment_dtype", "float32"),
-                             ("observation_dtype", "float32")):
-            if options.get(key, default) != default:
-                raise NotImplementedError(
-                    f'options={{"{key}": {options[key]!r}}} is not ported to '
-                    "the PyTorch package yet (float32 only)."
-                )
+        if options.get("fused_moment_dtype", "float32") != "float32":
+            raise NotImplementedError(
+                'options={"fused_moment_dtype": '
+                f'{options["fused_moment_dtype"]!r}}} is not ported to the '
+                "PyTorch package yet (float32 only)."
+            )
+        self.warn = options.get("warn", True)
+        # "int8" / "float8_e4m3fn": a batched program quantizes its
+        # observations once per call, per (chain, channel) over time
+        # (ops/quantized.py), and the chain-evidence einsum of every sweep
+        # reads the 1-byte payload and its scales instead of the float32
+        # observations (engine/batched.py)
+        self.observation_dtype = options.get("observation_dtype", "float32")
+        if self.observation_dtype not in ("float32", "int8", "float8_e4m3fn"):
+            raise ValueError(
+                f"observation_dtype {self.observation_dtype!r} not supported;"
+                " choose 'float32', 'int8', or 'float8_e4m3fn'."
+            )
         for key in ("rulefallback", "matmul_precision"):
             if options.get(key) is not None:
                 raise NotImplementedError(

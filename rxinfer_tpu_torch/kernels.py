@@ -4,9 +4,11 @@ Every ``*.cu`` file under ``rxinfer_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface, which
 the op modules load with ``ctypes``.  Builds happen at first use, never at
 import, into ``rxinfer_tpu_torch/_build/`` (listed in ``.gitignore``); a
-library is keyed by the hash of its source and the flags, so an edited source
-is rebuilt and an unchanged one is reused.  ``-Xptxas -v`` output (registers,
-spills per instantiation) is kept beside each library.
+library is keyed by the hash of its source, of every ``csrc/`` header the
+source includes (directly or through another header) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+``-Xptxas -v`` output (registers, spills per instantiation) is kept beside
+each library.
 
 Flags: ``-O3`` without ``--use_fast_math``, so division and square roots stay
 IEEE like the plain PyTorch versions the kernels are held against.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,11 +60,40 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str, csrc: Path = CSRC) -> list[Path]:
+    """``csrc/<name>.cu`` followed by the ``csrc/`` headers it includes with
+    ``#include "..."``, directly or through another header, sorted by name.
+    System headers (``<...>``) belong to the toolkit and are not followed."""
+    seen: dict[Path, None] = {}
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen[path] = None
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / inc.decode()).resolve()
+            if header.is_file() and csrc.resolve() in header.parents:
+                todo.append(header)
+    first = csrc / f"{name}.cu"
+    return [first] + sorted(p for p in seen if p != first)
+
+
+def library_key(name: str, csrc: Path = CSRC) -> str:
+    """Hash of everything the library for ``csrc/<name>.cu`` is built from:
+    the source, the ``csrc/`` headers it includes, and the flags."""
+    digest = hashlib.sha256()
+    for path in source_files(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{library_key(name)}.so"
 
 
 def _start_build(name: str):
@@ -129,13 +161,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_tensor(name: str, t, shape) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``,
-    which is what every launcher takes."""
+def check_tensor(name: str, t, shape, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype`` (float32 unless the launcher takes a quantized payload)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must lie on the CUDA device (got {t.device})")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (got {t.dtype})")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():

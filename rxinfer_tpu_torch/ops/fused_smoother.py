@@ -32,6 +32,7 @@ per-chain W/Q tiles of the dynamic tier.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -63,21 +64,29 @@ def sym_idx(d: int) -> list:
     return [(i, j) for i in range(d) for j in range(i, d)]
 
 
+@functools.lru_cache(maxsize=None)
+def _sym_indices(d: int, device: torch.device):
+    """Index tensors on ``device``, built once per (d, device): the rows and
+    columns of the packed entries, and for each full-matrix entry (row-major)
+    its packed slot."""
+    rows, cols = zip(*sym_idx(d))
+    slot = {ij: k for k, ij in enumerate(sym_idx(d))}
+    full = [slot[(min(i, j), max(i, j))] for i in range(d) for j in range(d)]
+    return tuple(torch.tensor(a, dtype=torch.long, device=device)
+                 for a in (rows, cols, full))
+
+
 def sym_fold(p: torch.Tensor) -> torch.Tensor:
     """(..., B, d, d) symmetric -> (..., nsym, B) upper-triangle SoA."""
-    d = p.shape[-1]
-    rows, cols = zip(*sym_idx(d))
-    return p[..., list(rows), list(cols)].movedim(-1, -2)
+    rows, cols, _ = _sym_indices(p.shape[-1], p.device)
+    return p[..., rows, cols].movedim(-1, -2)
 
 
 def sym_unfold_t(x: torch.Tensor, d: int) -> torch.Tensor:
     """(T, nsym, B) -> (T, B, d, d): gather each full-matrix entry from its
     upper-triangle slot."""
-    full = torch.empty((d, d), dtype=torch.long)
-    for k, (i, j) in enumerate(sym_idx(d)):
-        full[i, j] = k
-        full[j, i] = k
-    gathered = x[:, full.reshape(-1).to(x.device), :]      # (T, d*d, B)
+    _, _, full = _sym_indices(d, x.device)
+    gathered = x[:, full, :]                                  # (T, d*d, B)
     return gathered.reshape(x.shape[0], d, d, x.shape[-1]).permute(0, 3, 1, 2)
 
 

@@ -1,0 +1,175 @@
+"""Quantized observation payloads: per-row int8 / fp8 (e4m3) quantization and
+the fused dequantize + small matrix product, each as a CUDA kernel with its
+plain PyTorch version (counterpart of ``rxinfer_tpu/ops/quantized.py``).
+
+A payload is ``(vals, scales)`` with ``x ~= float(vals) * scales``: vals
+(R, C) in one byte per element, scales (R, 1) float32, one scale per row.
+
+    int8: scale = max(absmax, 1e-12) / 127 ; vals = clip(round(x / scale), +-127)
+    fp8 : scale = max(absmax, 1e-12) / 448 ; vals = float8_e4m3fn(x / scale)
+
+Rounding is to nearest, ties to even, in both.  The evidence projection
+``xi = (float(vals) * scales) @ W`` of a (R, dy) payload against a (dy, dx)
+operator is the streaming-ingest message: ``quantized_evidence`` quantizes a
+batch of observations and projects it in two kernel launches.
+
+Kernels (``csrc/quantized.cu``): ``quantize_rows`` replaces
+``_quantize_kernel`` (quantized.py:50-56), ``quantize_rows_fp8`` replaces
+``_quantize_fp8_kernel`` (:153-158), ``dequant_matmul`` replaces
+``_dequant_matmul_kernel`` (:107-109).  Each wrapper takes its plain version
+when its tensors lie on the CPU and launches its kernel when they lie on a
+CUDA device; there is no fallback from a kernel to its plain version.
+``LAUNCHES`` counts kernel launches.  The kernels take any (R, C), so the
+row blocks and the zero-padded tail of the TPU wrappers have no counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+INT8_MAX = 127.0
+FP8_MAX = 448.0   # largest finite float8_e4m3fn
+
+# kernel launches on CUDA tensors (the plain versions on CPU tensors count none)
+LAUNCHES = {"quantize_rows": 0, "quantize_rows_fp8": 0, "dequant_matmul": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# -- plain PyTorch versions -----------------------------------------------------
+
+def _row_scale(x, qmax: float):
+    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    # the divisor is a tensor on x's device: on a CUDA device torch divides a
+    # tensor by a Python number as a multiplication by its reciprocal, which
+    # is not the IEEE quotient the CPU, the JAX package and the kernel give
+    return torch.clamp(absmax, min=1e-12) / absmax.new_full((), qmax)
+
+
+def quantize_rows_reference(x):
+    """Plain per-row symmetric int8 quantization: ``(vals int8, scales)``."""
+    scale = _row_scale(x, INT8_MAX)
+    q = torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def quantize_rows_fp8_reference(x):
+    """Plain per-row scaled fp8 (e4m3) quantization."""
+    scale = _row_scale(x, FP8_MAX)
+    return (x / scale).to(torch.float8_e4m3fn), scale
+
+
+def dequant_matmul_reference(vals, scales, w):
+    """Plain ``(float(vals) * scales) @ w``, summed in index order over dy
+    with every product and sum rounded on its own, as the kernel does."""
+    v = vals.to(torch.float32) * scales
+    acc = v[:, 0:1] * w[0]
+    for k in range(1, v.shape[1]):
+        acc = acc + v[:, k:k + 1] * w[k]
+    return acc
+
+
+# -- kernel launches ------------------------------------------------------------
+
+def _library():
+    lib = kernels.load("quantized")
+    if not getattr(lib, "_rxt_typed", False):
+        p = ctypes.c_void_p
+        lib.rxt_quantize_rows.argtypes = [
+            ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, p]
+        lib.rxt_quantize_rows.restype = ctypes.c_int
+        lib.rxt_dequant_matmul.argtypes = [
+            ctypes.c_int, p, p, p, p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, p]
+        lib.rxt_dequant_matmul.restype = ctypes.c_int
+        lib._rxt_typed = True
+    return lib
+
+
+def _quantize(x, name: str, dtype, reference):
+    if x.ndim != 2:
+        raise ValueError(f"{name} takes a (rows, columns) matrix, got "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return reference(x)
+    rows, cols = x.shape
+    kernels.check_tensor("x", x, (rows, cols))
+    vals = torch.empty((rows, cols), dtype=dtype, device=x.device)
+    scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return vals, scales
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.rxt_quantize_rows(
+        int(dtype == torch.float8_e4m3fn), x.data_ptr(), vals.data_ptr(),
+        scales.data_ptr(), rows, cols, stream)
+    kernels.check(lib, rc, f"{name} kernel")
+    LAUNCHES[name] += 1
+    return vals, scales
+
+
+def quantize_rows(x):
+    """K6 wrapper.  Per-row symmetric int8 quantization of x (R, C) float32:
+    ``(vals (R, C) int8, scales (R, 1) float32)``."""
+    return _quantize(x, "quantize_rows", torch.int8, quantize_rows_reference)
+
+
+def quantize_rows_fp8(x):
+    """K7 wrapper.  Per-row scaled fp8 quantization of x (R, C) float32:
+    ``(vals (R, C) float8_e4m3fn, scales (R, 1) float32)``."""
+    return _quantize(x, "quantize_rows_fp8", torch.float8_e4m3fn,
+                     quantize_rows_fp8_reference)
+
+
+def dequant_matmul(vals, scales, w):
+    """K8 wrapper.  ``xi = dequant(vals, scales) @ w`` in one kernel: vals
+    (R, dy) int8 or float8_e4m3fn, scales (R, 1) float32, w (dy, dx) float32
+    -> (R, dx) float32."""
+    if vals.dtype not in (torch.int8, torch.float8_e4m3fn):
+        raise TypeError(
+            f"vals must be int8 or float8_e4m3fn (got {vals.dtype})")
+    rows, dy = vals.shape
+    dx = w.shape[1]
+    if dy < 1:
+        raise ValueError("dequant_matmul needs at least one payload column")
+    if vals.device.type == "cpu":
+        return dequant_matmul_reference(vals, scales, w)
+    kernels.check_tensor("vals", vals, (rows, dy), dtype=vals.dtype)
+    kernels.check_tensor("scales", scales, (rows, 1))
+    kernels.check_tensor("w", w, (dy, dx))
+    if dy * dx * 4 > 48 * 1024:
+        raise ValueError(
+            f"w ({dy}, {dx}) does not fit the kernel's 48 KB of shared memory")
+    out = torch.empty((rows, dx), dtype=torch.float32, device=vals.device)
+    if rows == 0 or dx == 0:
+        return out
+    lib = _library()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = lib.rxt_dequant_matmul(
+        int(vals.dtype == torch.float8_e4m3fn), vals.data_ptr(),
+        scales.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dy, dx, stream)
+    kernels.check(lib, rc, "dequant_matmul kernel")
+    LAUNCHES["dequant_matmul"] += 1
+    return out
+
+
+def quantized_evidence(y, hr_t):
+    """Quantize a batch of observations y (R, dy) to int8 and project it to
+    information-form evidence ``xi = y_q @ hr_t``, hr_t = (R^-1 H) (dy, dx):
+    the streaming-ingest message."""
+    vals, scales = quantize_rows(y)
+    return dequant_matmul(vals, scales, hr_t)
+
+
+def quantized_evidence_fp8(y, hr_t):
+    """The fp8-payload evidence projection (same contract as
+    ``quantized_evidence``)."""
+    vals, scales = quantize_rows_fp8(y)
+    return dequant_matmul(vals, scales, hr_t)

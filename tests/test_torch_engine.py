@@ -224,7 +224,6 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
 @pytest.mark.parametrize("kwargs,match", [
     ({"options": {"fused_kernels": False}}, "fused_kernels"),
     ({"options": {"fused_moment_dtype": "bfloat16"}}, "fused_moment_dtype"),
-    ({"options": {"observation_dtype": "int8"}}, "observation_dtype"),
     ({"free_energy": True}, "free_energy"),
     ({"shared": ("x",)}, "shared"),
 ])

@@ -38,7 +38,9 @@ def test_port_never_imports_jax_or_the_jax_package(path):
 
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, rxinfer_tpu_torch, rxinfer_tpu_torch.convert, "
-            "rxinfer_tpu_torch.kernels, rxinfer_tpu_torch.models.zoo; "
+            "rxinfer_tpu_torch.kernels, rxinfer_tpu_torch.models.zoo, "
+            "rxinfer_tpu_torch.parallel.filtering, "
+            "rxinfer_tpu_torch.ops.quantized, rxinfer_tpu_torch.ops.kalman; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rxinfer_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -78,15 +80,63 @@ def test_kernel_build_flags():
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert {"fused_smoother", "fused_fb"} <= set(kernels.sources())
+    assert set(kernels.sources()) == {"fused_smoother", "fused_fb",
+                                      "fused_filter", "quantized"}
+    # every source under csrc/ is one that sources() builds, and every header
+    # there is reached from a source
+    assert {p.stem for p in kernels.CSRC.glob("*.cu")} == set(kernels.sources())
+    reached = {p for n in kernels.sources() for p in kernels.source_files(n)}
+    assert set(kernels.CSRC.iterdir()) == reached
     assert kernels.BUILD_DIR.relative_to(REPO).as_posix() + "/" in (
         REPO / ".gitignore").read_text().split()
+
+
+def test_library_key_covers_the_headers_a_source_includes(tmp_path):
+    """Editing a header shared by two sources rebuilds both: the key of a
+    library hashes its source and every csrc/ header the source includes."""
+    from rxinfer_tpu_torch import kernels
+
+    names = [p.name for p in kernels.source_files("fused_filter")]
+    assert names == ["fused_filter.cu", "smallmat.cuh"]
+    assert [p.name for p in kernels.source_files("fused_smoother")] == [
+        "fused_smoother.cu", "smallmat.cuh"]
+    assert [p.name for p in kernels.source_files("quantized")] == [
+        "quantized.cu"]
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, copy)
+    keys = {n: kernels.library_key(n, copy) for n in kernels.sources()}
+    assert keys == {n: kernels.library_key(n) for n in kernels.sources()}
+    header = copy / "smallmat.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    after = {n: kernels.library_key(n, copy) for n in kernels.sources()}
+    changed = {n for n in keys if after[n] != keys[n]}
+    assert changed == {"fused_filter", "fused_smoother"}
+    # a header included through another header counts too
+    (copy / "inner.cuh").write_text("// inner\n")
+    header.write_bytes(b'#include "inner.cuh"\n' + header.read_bytes())
+    nested = kernels.library_key("fused_filter", copy)
+    (copy / "inner.cuh").write_text("// inner, edited\n")
+    assert kernels.library_key("fused_filter", copy) != nested
+
+
+def test_check_tensor_takes_the_payload_dtypes():
+    from rxinfer_tpu_torch import kernels
+
+    import inspect
+
+    assert inspect.signature(kernels.check_tensor).parameters[
+        "dtype"].default is torch.float32
+    # the device is checked first: a CPU payload is refused before its type
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.check_tensor("vals", torch.zeros((2, 3), dtype=torch.int8),
+                             (2, 3), dtype=torch.int8)
 
 
 def test_package_is_packaged():
     text = (REPO / "pyproject.toml").read_text()
     assert '"rxinfer_tpu_torch*"' in text
-    assert "csrc/*.cu" in text
+    assert "csrc/*.cu" in text and "csrc/*.cuh" in text
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

@@ -1,0 +1,284 @@
+"""The PyTorch port's quantized payloads against the JAX package: the
+quantize wrappers, ``dequant_matmul`` and ``quantized_evidence*`` on the same
+seeded inputs (the JAX kernels interpret themselves off the TPU), and the
+engine's ``observation_dtype`` option through ``infer_batched`` in both
+packages.  Payloads are compared as integers (fp8 through its bytes) and
+are expected EQUAL: both sides divide in IEEE float32 and round to nearest
+even.
+
+On the CPU the port's wrappers take their plain versions; the CUDA kernels
+are held against the same plain versions on the card by the ``gpu``-marked
+test below and by ``chip_smoke.py``."""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rxinfer_tpu as jrx
+import rxinfer_tpu_torch as trx
+from rxinfer_tpu.ops import quantized as jq
+from rxinfer_tpu_torch.models import zoo
+from rxinfer_tpu_torch.ops import quantized as tq
+
+CPU = torch.device("cpu")
+TOL = dict(rtol=3e-4, atol=3e-4)   # the engine parity tests' tolerance
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rows(case):
+    rng = np.random.default_rng(11)
+    if case == "scaled":      # per-row scales spread over e^-3 .. e^3
+        x = rng.standard_normal((64, 8)) * np.exp(rng.uniform(-3, 3, (64, 1)))
+    elif case == "ragged":
+        x = rng.standard_normal((777, 6))
+    elif case == "wide":
+        x = 3.0 * rng.standard_normal((8, 1000))
+    elif case == "zero_row":
+        x = rng.standard_normal((5, 7))
+        x[2] = 0.0
+    elif case == "ties":      # x / scale lands exactly on .5 steps
+        x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 63.5],
+                      [448.0, 17.0, 19.0, 21.0, -17.0, 0.001, -0.001, 1e-4]])
+    return x.astype(np.float32)
+
+
+CASES = ["scaled", "ragged", "wide", "zero_row", "ties"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_quantize_rows_matches_jax(case):
+    x = _rows(case)
+    jv, js = jq.quantize_rows(jnp.asarray(x))
+    tv, ts = tq.quantize_rows(torch.as_tensor(x))
+    assert tv.dtype == torch.int8 and tuple(ts.shape) == (x.shape[0], 1)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if case == "zero_row":
+        assert not tv[2].any()
+        assert float(ts[2]) == pytest.approx(1e-12 / 127, rel=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_quantize_rows_fp8_matches_jax(case):
+    x = _rows(case)
+    jv, js = jq.quantize_rows_fp8(jnp.asarray(x))
+    tv, ts = tq.quantize_rows_fp8(torch.as_tensor(x))
+    assert tv.dtype == torch.float8_e4m3fn
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(tv.view(torch.uint8).numpy(),
+                                  np.asarray(jv).view(np.uint8))
+    if case == "zero_row":
+        assert not tv[2].view(torch.uint8).any()
+
+
+def test_reconstruction_error_is_at_the_payloads_resolution():
+    x = _rows("scaled")
+    t = torch.as_tensor(x)
+    absmax = np.abs(x).max(axis=1, keepdims=True)
+    v, s = tq.quantize_rows(t)
+    assert (np.abs((v.float() * s).numpy() - x) / absmax).max() < 1 / 127 + 1e-3
+    v, s = tq.quantize_rows_fp8(t)
+    assert (np.abs((v.float() * s).numpy() - x) / absmax).max() < 0.07
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["int8", "fp8"])
+@pytest.mark.parametrize("b,dy,dx", [(128, 8, 4), (1000, 3, 5), (7, 1, 1)])
+def test_dequant_matmul_matches_jax(fp8, b, dy, dx):
+    rng = np.random.default_rng(b + dy)
+    y = (2.0 * rng.standard_normal((b, dy))).astype(np.float32)
+    w = rng.standard_normal((dy, dx)).astype(np.float32)
+    jquant = jq.quantize_rows_fp8 if fp8 else jq.quantize_rows
+    tquant = tq.quantize_rows_fp8 if fp8 else tq.quantize_rows
+    jv, js = jquant(jnp.asarray(y))
+    tv, ts = tquant(torch.as_tensor(y))
+    jout = jq.dequant_matmul(jv, js, jnp.asarray(w))
+    tout = tq.dequant_matmul(tv, ts, torch.as_tensor(w))
+    assert tuple(tout.shape) == (b, dx) and tout.dtype == torch.float32
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["int8", "fp8"])
+def test_quantized_evidence_matches_jax(fp8):
+    rng = np.random.default_rng(2)
+    b, d = 256, 4
+    y = (3.0 * rng.standard_normal((b, d))).astype(np.float32)
+    hr_t = (1.3 * np.eye(d) + 0.1 * rng.standard_normal((d, d))).astype(
+        np.float32)
+    jfn = jq.quantized_evidence_fp8 if fp8 else jq.quantized_evidence
+    tfn = tq.quantized_evidence_fp8 if fp8 else tq.quantized_evidence
+    tout = tfn(torch.as_tensor(y), torch.as_tensor(hr_t))
+    np.testing.assert_allclose(tout.numpy(),
+                               np.asarray(jfn(jnp.asarray(y),
+                                              jnp.asarray(hr_t))),
+                               rtol=1e-5, atol=1e-5)
+    exact = y @ hr_t
+    assert np.abs(tout.numpy() - exact).max() < (0.07 if fp8 else 0.05) \
+        * np.abs(exact).max()
+
+
+def test_cpu_tensors_take_the_plain_versions_and_bad_inputs_raise():
+    x = torch.as_tensor(_rows("ragged"))
+    before = dict(tq.LAUNCHES)
+    v, s = tq.quantize_rows(x)
+    v_r, s_r = tq.quantize_rows_reference(x)
+    assert torch.equal(v, v_r) and torch.equal(s, s_r)
+    w = torch.ones((6, 2))
+    assert torch.equal(tq.dequant_matmul(v, s, w),
+                       tq.dequant_matmul_reference(v, s, w))
+    assert tq.LAUNCHES == before
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        tq.dequant_matmul(x, s, w)
+    with pytest.raises(ValueError, match="matrix"):
+        tq.quantize_rows(x[0])
+
+
+# -- through the engine -----------------------------------------------------------
+
+def _lgssm(rx, d=2):
+    """The LGSSM of the JAX package's quantized-engine test, in either
+    package."""
+    F = np.array([[0.99, -0.1], [0.1, 0.99]], np.float32)[:d, :d]
+    eye = np.eye(d, dtype=np.float32)
+
+    @rx.model
+    def m(y):
+        T_ = len(y)
+        x = rx.latent(T_, name="x")
+        x[0] = rx.MvNormal(mean=np.zeros(d, np.float32), cov=25.0 * eye)
+        for t in rx.plate(1, T_):
+            x[t] = rx.MvNormal(mean=F @ x[t - 1], cov=eye)
+        for t in rx.plate(T_):
+            y[t] = rx.MvNormal(mean=x[t], cov=eye)
+        return {"x": x}
+
+    return m
+
+
+def _observations(seed, B=8, T=64, d=2):
+    return (3.0 * np.random.default_rng(seed).standard_normal((B, T, d))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("obs_dtype,level", [("int8", 0.05),
+                                             ("float8_e4m3fn", 0.07)])
+def test_engine_observation_dtype_matches_jax(obs_dtype, level):
+    y = _observations(5)
+    opts = {"observation_dtype": obs_dtype}
+    jpost, _ = jrx.infer_batched(_lgssm(jrx), {"y": y}, iterations=2,
+                                 options=opts)
+    tpost, _ = trx.infer_batched(_lgssm(trx), {"y": y}, iterations=2,
+                                 options=opts, device=CPU)
+    np.testing.assert_allclose(tpost["x"].mu.numpy(),
+                               np.asarray(jpost["x"].mu), **TOL)
+    np.testing.assert_allclose(tpost["x"].sigma.numpy(),
+                               np.asarray(jpost["x"].sigma), **TOL)
+    # and close to the float32 run at the payload's resolution
+    fpost, _ = trx.infer_batched(_lgssm(trx), {"y": y}, iterations=2,
+                                 device=CPU)
+    mu_f = fpost["x"].mu
+    assert float((tpost["x"].mu - mu_f).abs().max()) \
+        < level * float(mu_f.abs().max())
+
+
+@pytest.mark.parametrize("obs_dtype", ["int8", "float8_e4m3fn"])
+def test_engine_on_quantized_observations_equals_float32_on_dequantized(
+        obs_dtype):
+    """Consistent inference on quantized observations: the quantized run on y
+    equals the float32 run on the dequantized observations (quantization
+    axis: time, one scale per chain and channel)."""
+    y = _observations(6)
+    B, T, d = y.shape
+    quant = tq.quantize_rows if obs_dtype == "int8" else tq.quantize_rows_fp8
+    rows = torch.as_tensor(y.transpose(0, 2, 1).reshape(B * d, T).copy())
+    vals, scales = quant(rows)
+    y_hat = (vals.float() * scales).reshape(B, d, T).transpose(1, 2).numpy()
+    pq, _ = trx.infer_batched(_lgssm(trx), {"y": y}, iterations=2, device=CPU,
+                              options={"observation_dtype": obs_dtype})
+    ph, _ = trx.infer_batched(_lgssm(trx), {"y": y_hat}, iterations=2,
+                              device=CPU)
+    np.testing.assert_allclose(pq["x"].mu.numpy(), ph["x"].mu.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_unknown_observation_dtype_raises():
+    with pytest.raises(ValueError, match="observation_dtype"):
+        trx.infer_batched(_lgssm(trx), {"y": _observations(7)}, device=CPU,
+                          options={"observation_dtype": "int4"})
+
+
+def test_observation_dtype_warns_without_a_fused_gaussian_plan():
+    rng = np.random.default_rng(8)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, size=(2, 12))]
+    init = {"A": trx.DirichletCollection(np.ones((3, 3), np.float32)),
+            "B": trx.DirichletCollection(np.float32(np.eye(3) * 5.0 + 1.0))}
+    kwargs = dict(iterations=2, initialization=init, device=CPU)
+    with pytest.warns(UserWarning, match="observation_dtype"):
+        post, _ = trx.infer_batched(
+            zoo.hmm(3, 3), {"y": y},
+            options={"observation_dtype": "int8"}, **kwargs)
+    plain, _ = trx.infer_batched(zoo.hmm(3, 3), {"y": y}, **kwargs)
+    assert torch.equal(post["s"].probs(), plain["s"].probs())
+    # "warn": False silences it
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        trx.infer_batched(zoo.hmm(3, 3), {"y": y}, **kwargs,
+                          options={"observation_dtype": "int8", "warn": False})
+
+
+def test_the_payload_is_built_once_per_call(monkeypatch):
+    calls = []
+    real = tq.quantize_rows
+
+    def counting(x):
+        calls.append(tuple(x.shape))
+        return real(x)
+
+    monkeypatch.setattr(tq, "quantize_rows", counting)
+    y = _observations(9, B=3, T=20)
+    _, prog = trx.batched_program(_lgssm(trx), {"y": y}, iterations=3,
+                                  options={"observation_dtype": "int8"},
+                                  device=CPU)
+    prog({"y": y})
+    assert calls == [(3 * 2, 20)]      # rows (B * F, T), one call for 3 sweeps
+    prog({"y": y})
+    assert len(calls) == 2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the quantize and dequantize kernels "
+                    "run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_kernels_match_plain_versions_on_the_card(cuda_device, case):
+    x = torch.as_tensor(_rows(case), device=cuda_device)
+    w = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (x.shape[1], 3)).astype(np.float32), device=cuda_device)
+    before = dict(tq.LAUNCHES)
+    for quant, ref in ((tq.quantize_rows, tq.quantize_rows_reference),
+                       (tq.quantize_rows_fp8, tq.quantize_rows_fp8_reference)):
+        v, s = quant(x)
+        v_r, s_r = ref(x)
+        assert torch.equal(s, s_r)
+        assert torch.equal(v.view(torch.uint8), v_r.view(torch.uint8))
+        torch.testing.assert_close(tq.dequant_matmul(v, s, w),
+                                   tq.dequant_matmul_reference(v, s, w),
+                                   rtol=1e-5, atol=1e-5)
+    assert tq.LAUNCHES == {"quantize_rows": before["quantize_rows"] + 1,
+                           "quantize_rows_fp8": before["quantize_rows_fp8"] + 1,
+                           "dequant_matmul": before["dequant_matmul"] + 2}
