@@ -13,7 +13,8 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
 3. Kernels vs plain versions on the card, on the same CUDA tensors at
    several shapes: the smoother kernels K1/K2 against
    ``fused_forward_reference`` / ``fused_backward_reference`` (RTOL/ATOL),
-   and the HMM forward-backward kernels K4/K5 (both ``per_step_xi``
+   at shapes that take one time block and shapes that take many (the most
+   the wrapper's rule gives, and a ragged last block), and the HMM forward-backward kernels K4/K5 (both ``per_step_xi``
    variants) against ``fb_forward_reference`` / ``fb_backward_reference``
    (FB_RTOL/FB_ATOL), plus sampled chains against a float64 numpy
    forward-backward (FB_ORACLE_TOL).
@@ -24,7 +25,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    sampled chains against a float64 numpy RTS smoother, runs
    ``infer_batched`` at a smaller batch, times the program and each stage
    with CUDA events, and profiles one program call (device busy time, idle
-   share, each kernel's device time).
+   share, each kernel's device time; the fold, carry and replay passes of
+   K1 and K2 apart).  Then K1 and K2 alone at that shape over several
+   numbers of time blocks, the wrapper's own among them, each held against
+   the one-block launch.
 5. HMM path at the JAX package's bench size: ``batched_program`` on
    ``zoo.hmm(3, 3)`` with B=256 chains, T=200 steps, 20 VMP iterations, y
    simulated from a numpy seed as ``bench.py`` does.  Checks that the chain
@@ -112,9 +116,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, 80 GB HBM3 (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 
 MAIN_B, MAIN_T, MAIN_D = 1024, 10_000, 4
+# (8, 1056, 4): the most time blocks the wrapper's rule gives at that T (33
+# of 32 steps); (40, 1001, 3): a ragged last block (30 of 33 steps and one of
+# 11); (12, 300, 5): several blocks at the largest d with a fold kernel.
 CHECK_SHAPES = [(1000, 257, 4), (37, 64, 1), (64, 100, 2), (96, 48, 3),
-                (64, 32, 8), (50, 1, 4), (50, 2, 4)]
+                (64, 32, 8), (50, 1, 4), (50, 2, 4), (8, 1056, 4),
+                (40, 1001, 3), (12, 300, 5)]
+BLOCKED_SHAPES = {(1000, 257, 4): 8, (8, 1056, 4): 33, (40, 1001, 3): 31,
+                  (12, 300, 5): 9}       # shape -> time blocks on 132 SMs
 PLAIN_SHAPE = CHECK_SHAPES[0]
+SWEEP_BLOCKS = (1, 8, 16, 32, 64, 128)
 
 HMM_B, HMM_T, HMM_IT, HMM_K = 256, 200, 20, 3
 FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
@@ -145,8 +156,12 @@ FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel"}
 QUANT_KERNEL_NAMES = {"quantize_rows": "quantize_kernel<.*Int8Payload",
                       "quantize_rows_fp8": "quantize_kernel<.*Fp8Payload",
                       "dequant_matmul": "dequant_matmul_kernel"}
-SMOOTHER_KERNEL_NAMES = {"fused_smoother_fwd": "fwd_kernel",
-                         "fused_smoother_bwd": "bwd_kernel"}
+# one wrapper call is up to three device kernels, the last always launched
+SMOOTHER_KERNEL_NAMES = {
+    "fused_smoother_fwd": ("fwd_fold_kernel", "fwd_carry_kernel",
+                           "fwd_replay_kernel"),
+    "fused_smoother_bwd": ("bwd_fold_kernel", "bwd_carry_kernel",
+                           "bwd_replay_kernel")}
 FB_KERNEL_NAMES = {"fused_fb_fwd": "fb_fwd_kernel",
                    "fused_fb_bwd": "fb_bwd_kernel"}
 
@@ -361,7 +376,14 @@ def check_kernels(device, shapes, log=print) -> dict:
     worst = {"fused_smoother_fwd": 0.0, "fused_smoother_bwd": 0.0}
     before = dict(fs.LAUNCHES)
     failures = []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else 0
     for i, (bsz, t_len, d) in enumerate(shapes):
+        blocks = fs.pick_blocks(bsz, t_len, d, sms) if sms else 1
+        want = BLOCKED_SHAPES.get((bsz, t_len, d), 1)
+        if sms == 132 and blocks != want:
+            raise AssertionError(f"(B,T,d)=({bsz},{t_len},{d}): the wrapper "
+                                 f"takes {blocks} time blocks, expected {want}")
         f, b, q, w = _smoother_params(d, seed=100 + i)
         rng = np.random.default_rng(i)
         xi = torch.as_tensor(rng.standard_normal((t_len, bsz, d)).astype(
@@ -390,7 +412,8 @@ def check_kernels(device, shapes, log=print) -> dict:
                 if not ok:
                     failures.append(f"(B,T,d)=({bsz},{t_len},{d}) {label}: "
                                     f"abs {ea:.3g} rel {er:.3g}")
-        log(f"[check] (B,T,d)=({bsz},{t_len},{d}) " + "; ".join(parts))
+        log(f"[check] (B,T,d)=({bsz},{t_len},{d}) blocks {blocks} "
+            + "; ".join(parts))
     if failures:
         raise AssertionError("kernel disagrees with its plain version beyond "
                              f"rtol=atol={RTOL}: " + "; ".join(failures))
@@ -760,9 +783,11 @@ def _device_profile(fn, kernels: dict) -> dict:
     device events (kernels, copies, sets) only: a CPU operator's device time
     repeats that of its kernels, so summing every event would count the
     torch operators twice.  For each entry of ``kernels`` (label -> CUDA
-    kernel name) it gives the launches and the device ms per launch.
-    Device numbers read "not measured" when the profiler records no device
-    event."""
+    kernel name, or the names of the device kernels that one wrapper call
+    launches, the last of them at every call) it gives the launches and the
+    device ms per launch, summed over the names, and for several names each
+    one's ms per launch under ``parts``.  Device numbers read "not measured"
+    when the profiler records no device event."""
     import re
 
     import torch
@@ -789,13 +814,20 @@ def _device_profile(fn, kernels: dict) -> dict:
                             for k in kernels}}
     out = {"busy_ms": sum(e.device_time_total for e in dev) / 1e3,
            "kernels": {}}
-    for label, name in kernels.items():
-        pat = re.compile(rf"(?<!\w){name}\b")
-        hits = [e.device_time_total for e in dev if pat.search(e.name)]
-        out["kernels"][label] = {
-            "launches": len(hits),
-            "ms_per_launch": sum(hits) / 1e3 / len(hits) if hits
-            else "not measured"}
+    for label, names in kernels.items():
+        names = (names,) if isinstance(names, str) else names
+        hits = {}
+        for name in names:
+            pat = re.compile(rf"(?<!\w){name}\b")
+            hits[name] = [e.device_time_total for e in dev
+                          if pat.search(e.name)]
+        calls = len(hits[names[-1]])
+        row = {"launches": calls,
+               "ms_per_launch": sum(map(sum, hits.values())) / 1e3 / calls
+               if calls else "not measured"}
+        if len(names) > 1 and calls:
+            row["parts"] = {n: sum(h) / 1e3 / calls for n, h in hits.items()}
+        out["kernels"][label] = row
     return out
 
 
@@ -934,6 +966,12 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
     out["profile"] = _device_profile(lambda: prog({"y": y}),
                                      SMOOTHER_KERNEL_NAMES)
     busy = out["profile"]["busy_ms"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out["blocks"] = fs.pick_blocks(b, t_len, d, sms)
+    slots = out["blocks"] if out["blocks"] > 1 else 0
+    out["scratch_bytes"] = {
+        "fused_smoother_fwd": 4 * slots * fs.forward_scratch_rows(d) * b,
+        "fused_smoother_bwd": 4 * slots * fs.backward_scratch_rows(d) * b}
     log(f"[main] program {out['program_ms']:.3f} ms/call "
         f"({out['updates_per_s']:.4g} updates/s); stages alone: einsum "
         f"{out['einsum_ms']:.3f} ms, K1 {out['fwd_ms']:.3f} ms, K2 "
@@ -941,6 +979,42 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
         f"; device busy {busy} ms per program call, idle "
         f"{_idle_share(out['program_ms'], busy)}; in the program "
         f"{out['profile']['kernels']}")
+    for label, k in (("K1", "fused_smoother_fwd"), ("K2", "fused_smoother_bwd")):
+        parts = out["profile"]["kernels"][k].get("parts", {})
+        log(f"[main] {label} in the program, {out['blocks']} time blocks of "
+            f"{-(-t_len // out['blocks'])} steps, scratch "
+            f"{out['scratch_bytes'][k]} bytes: " + (", ".join(
+                f"{n.split('_')[1]} {ms:.4f} ms" for n, ms in parts.items())
+                or "passes not measured"))
+
+    # K1 and K2 alone over several numbers of time blocks, each against the
+    # one-block launch (the recursion with one thread per chain)
+    out["sweep"] = {}
+    one = None
+    for blocks in sorted({*SWEEP_BLOCKS, out["blocks"]}):
+        blocks = len(fs.time_blocks(t_len, blocks))
+        if blocks > 1 and d > fs.FOLD_MAX_DIM:
+            continue
+        mf_s, pf_s = fs._forward_cuda(m0_t, p0_t, xi_t, f, zeros, q, w_obs,
+                                      blocks)
+        got = (mf_s, pf_s) + fs._backward_cuda(mf, pf, f, zeros, q, blocks)
+        one = one or got
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, one))
+        if not diff <= ATOL:
+            raise AssertionError(f"{blocks} time blocks differ from one "
+                                 f"block by {diff}")
+        out["sweep"][blocks] = {
+            "fwd_ms": _cuda_ms(lambda: fs._forward_cuda(
+                m0_t, p0_t, xi_t, f, zeros, q, w_obs, blocks), 5),
+            "bwd_ms": _cuda_ms(lambda: fs._backward_cuda(
+                mf, pf, f, zeros, q, blocks), 5),
+            "max_abs_diff_to_one_block": diff}
+        del got, mf_s, pf_s
+    log("[main] K1 / K2 alone by time blocks (ms; max |diff| to one block): "
+        + "; ".join(f"{k}: {v['fwd_ms']:.3f} / {v['bwd_ms']:.3f} "
+                    f"({v['max_abs_diff_to_one_block']:.3g})"
+                    for k, v in out["sweep"].items())
+        + f"; the wrapper takes {out['blocks']}")
     return out
 
 
@@ -1577,6 +1651,10 @@ def main() -> int:
             "replaces": replaces, "launches": main["launches"][name],
             "max_abs_err": worst[name], "ms": main[ms_key],
             "ms_in_path": main["profile"]["kernels"][name]["ms_per_launch"],
+            "ms_in_path_by_pass": main["profile"]["kernels"][name].get("parts"),
+            "blocks": main["blocks"],
+            "scratch_bytes": main["scratch_bytes"][name],
+            "ms_one_block": main["sweep"][1][ms_key],
             "plain_ms": plain[name]["plain_ms"],
             "bound_ms": bounds[name]["bound_ms"],
             "bound_by": bounds[name]["bound_by"], "library_ms": None,

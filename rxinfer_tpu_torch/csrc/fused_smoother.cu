@@ -1,21 +1,57 @@
 // Fused batched Kalman (RTS) smoother for Hopper (sm_90a): a forward
-// information-form filter kernel and a backward RTS kernel.
+// information-form filter (K1) and a backward RTS pass (K2), each as three
+// passes over blocks of time: fold, carry, replay.
 //
 // Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
-// rxinfer_tpu/ops/pallas_smoother.py (lines 76-136 and 139-203).  The
+// rxinfer_tpu/ops/pallas_smoother.py (lines 76-136 and 139-203).  The step
 // arithmetic is that of rxinfer_tpu_torch/ops/entrywise.py (sandwich_sym,
 // sym_inv_scaled: unpivoted Schur recursion split at k = d/2 with
 // mean-|diagonal| scaling), in the same order, on per-thread registers; the
 // device helpers live in smallmat.cuh, shared with fused_filter.cu.
 //
-// Design: one thread per chain, the whole time loop inside the kernel, the
-// chain state (d means + d(d+1)/2 covariance entries) in registers.  This
-// takes the place of the TPU's sequential time grid with VMEM-resident state.
+// What bounds the kernels on an H100: the latency of one step.  By bytes
+// both are HBM-bound on paper (at B=1024, T=10k, D=4 the forward pass must
+// move 0.74 GB and the backward 1.80 GB, for ~1.2 kFLOP per chain-step), but
+// a step is a dependent chain of about a thousand operations with IEEE
+// divisions at each level of the inverses, and with one thread per chain
+// 1,024 chains are 32 warps on a card with 528 warp schedulers: 8 of 132
+// SMs, one warp each, nothing to hide the chain behind.  That design took
+// 0.55 us (K1) and 0.64 us (K2) a step, 5.5 and 6.4 ms in all.
+//
+// Design: the batch cannot supply more threads, so the time axis does.  T is
+// cut into S blocks of L steps (the last one ragged) and a thread owns one
+// (chain, block) pair; blockIdx.y is the time block and threads are batch
+// minor, so every load and store stays coalesced.
+//   fold    B (S-1) threads.  Each composes the associative elements of its
+//           block (rxinfer_tpu/ops/kalman.py: the filtering elements
+//           (A, b, C, eta, J) of Sarkka and Garcia-Fernandez with offsets,
+//           the RTS elements (E, g, L)) into one composite, step by step,
+//           and stores it in the scratch tensor (S, rows, B).
+//   carry   B threads.  Each applies the S-1 composites in order (front to
+//           back for K1, back to front for K2) and leaves every block's
+//           entry state in the scratch.
+//   replay  B S threads.  Each runs the step recursion (fwd_step, bwd_step)
+//           over its block from the entry state and writes the moments.
+// Inside a block the result differs from the one-block recursion only
+// through the entry state.  With S = 1 the replay kernel alone runs, in its
+// BLOCKED = false instantiation: the one-thread-per-chain recursion with
+// the block arithmetic compiled out, which is what a batch that fills the
+// card by itself takes (at D = 8 it has no register to spare for more).
+// The wrapper picks S (ops/fused_smoother.py pick_blocks).
+// The fold re-reads xi (K1) or mf, pf (K2), and costs about 3 (K1) or 1.3
+// (K2) steps per step; the inputs of the next step are loaded before the
+// current step is computed in every pass, so no global load sits on the
+// dependency chain.
+//
 // D is a template parameter (1..8) so every matrix index is a compile-time
-// constant after unrolling and the arrays below live in registers.  F, b, Q
-// and W are shared by all chains and all steps: they are passed by value in
-// the kernel's parameter block (constant bank, uniform across threads).
-// The ragged batch edge is masked with b < B; there is no padding.
+// constant after unrolling and the arrays live in registers.  The fold and
+// carry kernels are instantiated for D <= kFoldMaxDim = 5: a fold thread
+// carries a whole composite (D*D + 2 D + D (D + 1) floats forward) beside
+// the inverse's temporaries, and from D = 6 up ptxas spills (K1 fold: 112
+// bytes at D = 6, 2,304 at D = 8).  For D in 6..8 the launchers take S = 1.
+// F, b, Q and W are shared by all chains and all steps: they are passed by
+// value in the kernel's parameter block (constant bank, uniform across
+// threads).  The ragged batch edge is masked with b < B; there is no padding.
 //
 // Layouts.  Inputs in the wrapper's contract layout: xi (T, B, D),
 // m0 (B, D), p0 (B, D, D).  Moments in struct-of-arrays layout, batch
@@ -24,15 +60,6 @@
 //   backward out: ms (T, D, B), ps (T, NS, B), cross (T-1, D*D, B)
 // pf/ps hold the upper triangle row by row ((0,0), (0,1), ..., (D-1,D-1));
 // cross[t] = G_t P_s[t+1] = Cov(x_t, x_{t+1}), row-major.
-//
-// Bound on the card: the bytes.  At B=1024, T=10k, D=4 the forward kernel
-// moves 0.74 GB and the backward 1.80 GB, for ~1.2 kFLOP per chain-step;
-// both are HBM-bound on paper.  With one thread per chain, B=1024 fills a
-// small fraction of the card's thread slots, so in practice each step's
-// latency (a dependent chain of ~1k FLOPs, two divisions per inverse level)
-// bounds the kernel, not bandwidth.  The next step's inputs are loaded
-// before the current step is computed so that no global load sits on the
-// serial dependency chain.
 
 #include <cuda_runtime.h>
 
@@ -52,20 +79,114 @@ struct Params {
   float W[D][D];
 };
 
+// Largest D for which the fold and carry kernels are instantiated: the
+// composites of both passes fit the register file without spills up to here
+// (see the -Xptxas -v report); above it the launchers take one block.
+constexpr int kFoldMaxDim = 5;
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ int64_t chain_index() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+template <int D>
+__device__ __forceinline__ void load_vec(const float* __restrict__ src,
+                                         size_t stride, float (&v)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) v[i] = src[i * stride];
+}
+
+template <int D>
+__device__ __forceinline__ void store_vec(float* __restrict__ dst,
+                                          size_t stride, const float (&v)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) dst[i * stride] = v[i];
+}
+
+template <int D>
+__device__ __forceinline__ void store_full(float* __restrict__ dst,
+                                           size_t stride,
+                                           const float (&a)[D][D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) dst[(i * D + j) * stride] = a[i][j];
+}
+
+// Rows of one time block's slot in the scratch tensor (S, ROWS, B): the
+// block's composite, then the state the carry pass hands to its replay.
+template <int D>
+struct FwdSlot {  // composite (A, b, C, eta, J); entry = filtered (m, P)
+  static constexpr int NS = D * (D + 1) / 2;
+  static constexpr int A = 0, BV = D * D, C = BV + D, ETA = C + NS,
+                       J = ETA + D, M = J + NS, P = M + D, ROWS = P + NS;
+};
+
+template <int D>
+struct BwdSlot {  // composite (E, g, L); entry = smoothed (m, P)
+  static constexpr int NS = D * (D + 1) / 2;
+  static constexpr int E = 0, G = D * D, L = G + D, M = L + NS, P = M + D,
+                       ROWS = P + NS;
+};
+
 // ---- K1: forward information-form filter ----------------------------------
 //   m_pred = F m + b ; P_pred = F P F^T + Q        (no transition at t = 0)
 //   L = P_pred^-1 ; P = (L + W)^-1 ; m = P (L m_pred + xi_t)
 template <int D>
-__global__ void fwd_kernel(const float* __restrict__ xi,
-                           const float* __restrict__ m0,
-                           const float* __restrict__ p0,
-                           float* __restrict__ mf, float* __restrict__ pf,
-                           int64_t T, int64_t B, const Params<D> prm) {
-  constexpr int NS = D * (D + 1) / 2;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__device__ __forceinline__ void fwd_step(bool first, const float (&xcur)[D],
+                                         float (&m)[D], float (&p)[D][D],
+                                         const Params<D>& prm) {
+  float m_pred[D], p_pred[D][D];
+  if (first) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      m_pred[i] = m[i];
+#pragma unroll
+      for (int j = 0; j < D; ++j) p_pred[i][j] = p[i][j];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float s = prm.F[i][0] * m[0];
+#pragma unroll
+      for (int j = 1; j < D; ++j) s += prm.F[i][j] * m[j];
+      m_pred[i] = s + prm.b[i];
+    }
+    sandwich_sym<D>(prm.F, p, prm.Q, p_pred);
+  }
+  float lam[D][D];
+  sym_inv_scaled<D>(p_pred, lam);
+  float w_post[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      w_post[i][j] = lam[i][j] + prm.W[i][j];
+      w_post[j][i] = w_post[i][j];
+    }
+  sym_inv_scaled<D>(w_post, p);
+  float h[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float s = lam[i][0] * m_pred[0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) s += lam[i][j] * m_pred[j];
+    h[i] = s + xcur[i];
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float s = p[i][0] * h[0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) s += p[i][j] * h[j];
+    m[i] = s;
+  }
+}
 
-  float m[D], p[D][D];
+template <int D>
+__device__ __forceinline__ void load_prior(const float* __restrict__ m0,
+                                           const float* __restrict__ p0,
+                                           int64_t b, float (&m)[D],
+                                           float (&p)[D][D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i) m[i] = m0[b * D + i];
 #pragma unroll
@@ -75,60 +196,49 @@ __global__ void fwd_kernel(const float* __restrict__ xi,
       p[i][j] = p0[(b * D + i) * D + j];
       p[j][i] = p[i][j];
     }
+}
+
+// Replay: the step loop over one time block [s L, min(T, (s+1) L)) from the
+// block's entry state: the prior for block 0, else the filtered (m, P) of
+// step s L - 1 that the carry pass left in the scratch.  BLOCKED = false is
+// the one-block launch, the whole filter with one thread per chain: the
+// block arithmetic and the scratch are compiled out, so a batch that fills
+// the card by itself runs the recursion and nothing else.
+template <int D, bool BLOCKED>
+__global__ void fwd_replay_kernel(
+    const float* __restrict__ xi, const float* __restrict__ m0,
+    const float* __restrict__ p0, const float* __restrict__ scratch,
+    float* __restrict__ mf, float* __restrict__ pf, int64_t T, int64_t B,
+    int64_t L, const Params<D> prm) {
+  constexpr int NS = D * (D + 1) / 2;
+  const int64_t b = chain_index();
+  if (b >= B) return;
+  int64_t t0 = 0, t1 = T;
+  if constexpr (BLOCKED) {
+    t0 = static_cast<int64_t>(blockIdx.y) * L;
+    t1 = t0 + L < T ? t0 + L : T;
+  }
+
+  float m[D], p[D][D];
+  if (!BLOCKED || t0 == 0) {
+    load_prior<D>(m0, p0, b, m, p);
+  } else {
+    using Slot = FwdSlot<D>;
+    const float* slot = scratch + blockIdx.y * Slot::ROWS * B + b;
+    load_vec<D>(slot + Slot::M * B, B, m);
+    load_packed<D>(slot + Slot::P * B, B, p);
+  }
 
   float xcur[D], xnext[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) xcur[k] = xi[b * D + k];
+  for (int k = 0; k < D; ++k) xcur[k] = xi[(t0 * B + b) * D + k];
 
-  for (int64_t t = 0; t < T; ++t) {
-    if (t + 1 < T) {
+  for (int64_t t = t0; t < t1; ++t) {
+    if (t + 1 < t1) {
 #pragma unroll
       for (int k = 0; k < D; ++k) xnext[k] = xi[((t + 1) * B + b) * D + k];
     }
-    float m_pred[D], p_pred[D][D];
-    if (t == 0) {
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        m_pred[i] = m[i];
-#pragma unroll
-        for (int j = 0; j < D; ++j) p_pred[i][j] = p[i][j];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        float s = prm.F[i][0] * m[0];
-#pragma unroll
-        for (int j = 1; j < D; ++j) s += prm.F[i][j] * m[j];
-        m_pred[i] = s + prm.b[i];
-      }
-      sandwich_sym<D>(prm.F, p, prm.Q, p_pred);
-    }
-    float lam[D][D];
-    sym_inv_scaled<D>(p_pred, lam);
-    float w_post[D][D];
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-#pragma unroll
-      for (int j = i; j < D; ++j) {
-        w_post[i][j] = lam[i][j] + prm.W[i][j];
-        w_post[j][i] = w_post[i][j];
-      }
-    sym_inv_scaled<D>(w_post, p);
-    float h[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float s = lam[i][0] * m_pred[0];
-#pragma unroll
-      for (int j = 1; j < D; ++j) s += lam[i][j] * m_pred[j];
-      h[i] = s + xcur[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float s = p[i][0] * h[0];
-#pragma unroll
-      for (int j = 1; j < D; ++j) s += p[i][j] * h[j];
-      m[i] = s;
-    }
+    fwd_step<D>(t == 0, xcur, m, p, prm);
 #pragma unroll
     for (int i = 0; i < D; ++i) mf[(t * D + i) * B + b] = m[i];
     store_packed<D>(pf + t * NS * B + b, B, p);
@@ -137,128 +247,404 @@ __global__ void fwd_kernel(const float* __restrict__ xi,
   }
 }
 
-// ---- K2: backward RTS pass --------------------------------------------------
-//   P_pred = F P_f F^T + Q ; G = P_f F^T P_pred^-1
-//   m_s = m_f + G (m_s' - F m_f - b) ; P_s = P_f + G (P_s' - P_pred) G^T
-//   cross_t = G P_s'                  (smoothed == filtered at t = T-1)
+// Fold: one thread composes the filtering elements (A, b, C, eta, J) of its
+// time block into one composite (rxinfer_tpu/ops/kalman.py
+// _make_filter_elements, _filter_compose).  Blocks 0 .. S-2 only (the last
+// block's composite has no reader), each L steps long.  F, b, Q, W are the
+// same at every step, so the step element's (A, C, J) and the constant parts
+// of its (b, eta) are computed once, before the loop:
+//   Minv = (I + Q W)^-1 ; A1 = Minv F ; C1 = sym(Minv Q) ;
+//   J1 = sym(F^T Minv^T W F) ; b_t = Minv b + C1 xi_t ;
+//   eta_t = A1^T (xi_t - W b)
+// Block 0 starts from the exact filtered state at t = 0, (0, m_f, P_f, 0, 0);
+// the others from the identity element (I, 0, 0, 0, 0).
 template <int D>
-__global__ void bwd_kernel(const float* __restrict__ mf,
-                           const float* __restrict__ pf,
-                           float* __restrict__ ms, float* __restrict__ ps,
-                           float* __restrict__ cross, int64_t T, int64_t B,
-                           const Params<D> prm) {
-  constexpr int NS = D * (D + 1) / 2;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+fwd_fold_kernel(const float* __restrict__ xi, const float* __restrict__ m0,
+                const float* __restrict__ p0, float* __restrict__ scratch,
+                int64_t B, int64_t L, const Params<D> prm) {
+  using Slot = FwdSlot<D>;
+  const int64_t b = chain_index();
   if (b >= B) return;
+  const int64_t s = blockIdx.y;
+  int64_t t0 = s * L;
+  const int64_t t1 = t0 + L;
 
-  float m_s[D], p_s[D][D];
+  float a1[D][D], c1[D][D], j1[D][D], bc[D], wb[D];
+  {
+    float qw[D][D], minv[D][D], cq[D][D], mtw[D][D], fmw[D][D];
+    mat_mul<D, D, D>(prm.Q, prm.W, qw);
 #pragma unroll
-  for (int i = 0; i < D; ++i) m_s[i] = mf[((T - 1) * D + i) * B + b];
-  load_packed<D>(pf + (T - 1) * NS * B + b, B, p_s);
+    for (int i = 0; i < D; ++i) qw[i][i] += 1.0f;
+    gen_inv_scaled<D>(qw, minv);
+    mat_mul<D, D, D>(minv, prm.F, a1);
+    mat_mul<D, D, D>(minv, prm.Q, cq);
 #pragma unroll
-  for (int i = 0; i < D; ++i) ms[((T - 1) * D + i) * B + b] = m_s[i];
-  store_packed<D>(ps + (T - 1) * NS * B + b, B, p_s);
-  if (T < 2) return;
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i; j < D; ++j) {
+        c1[i][j] = 0.5f * (cq[i][j] + cq[j][i]);
+        c1[j][i] = c1[i][j];
+      }
+    mat_t_mul<D>(minv, prm.W, mtw);   // Minv^T W
+    mat_t_mul<D>(prm.F, mtw, fmw);    // F^T Minv^T W
+    float jfull[D][D];
+    mat_mul<D, D, D>(fmw, prm.F, jfull);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i; j < D; ++j) {
+        j1[i][j] = 0.5f * (jfull[i][j] + jfull[j][i]);
+        j1[j][i] = j1[i][j];
+      }
+    mat_vec<D>(minv, prm.b, bc);
+    mat_vec<D>(prm.W, prm.b, wb);
+  }
 
-  float mcur[D], pcur[NS], mnext[D], pnext[NS];
+  float a[D][D], bv[D], c[D][D], eta[D], j[D][D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) mcur[i] = mf[((T - 2) * D + i) * B + b];
+  for (int i = 0; i < D; ++i) {
+    eta[i] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < NS; ++k) pcur[k] = pf[((T - 2) * NS + k) * B + b];
-
-  for (int64_t t = T - 2; t >= 0; --t) {
-    if (t > 0) {
+    for (int k = 0; k < D; ++k) j[i][k] = 0.0f;
+  }
+  if (s == 0) {
+    float x0[D];
 #pragma unroll
-      for (int i = 0; i < D; ++i) mnext[i] = mf[((t - 1) * D + i) * B + b];
+    for (int k = 0; k < D; ++k) x0[k] = xi[b * D + k];
+    load_prior<D>(m0, p0, b, bv, c);
+    fwd_step<D>(true, x0, bv, c, prm);
 #pragma unroll
-      for (int k = 0; k < NS; ++k) pnext[k] = pf[((t - 1) * NS + k) * B + b];
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int k = 0; k < D; ++k) a[i][k] = 0.0f;
+    t0 = 1;
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      bv[i] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        a[i][k] = i == k ? 1.0f : 0.0f;
+        c[i][k] = 0.0f;
+      }
     }
-    float m_f[D], p_f[D][D];
+  }
+
+  float xcur[D], xnext[D];
+  if (t0 < t1) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) m_f[i] = mcur[i];
+    for (int k = 0; k < D; ++k) xcur[k] = xi[(t0 * B + b) * D + k];
+  }
+  for (int64_t t = t0; t < t1; ++t) {
+    if (t + 1 < t1) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) xnext[k] = xi[((t + 1) * B + b) * D + k];
+    }
+    // the step's element: (a1, b_t, c1, eta_t, j1)
+    float b_t[D], eta_t[D], u[D];
+    mat_vec<D>(c1, xcur, b_t);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      b_t[i] += bc[i];
+      u[i] = xcur[i] - wb[i];
+    }
+    mat_t_vec<D>(a1, u, eta_t);
+
+    // composite (earlier) x element (later)
+    float mm[D][D], minv[D][D];
+    mat_mul<D, D, D>(c, j1, mm);
+#pragma unroll
+    for (int i = 0; i < D; ++i) mm[i][i] += 1.0f;
+    gen_inv_scaled<D>(mm, minv);          // (I + C J1)^-1
+
+    float v[D], mv[D], b_new[D];
+    mat_vec<D>(c, eta_t, v);
+#pragma unroll
+    for (int i = 0; i < D; ++i) v[i] += bv[i];
+    mat_vec<D>(minv, v, mv);
+    mat_vec<D>(a1, mv, b_new);
+
+    float w[D], mw[D], eta_new[D];
+    mat_vec<D>(j1, bv, w);
+#pragma unroll
+    for (int i = 0; i < D; ++i) w[i] = eta_t[i] - w[i];
+    mat_t_vec<D>(minv, w, mw);
+    mat_t_vec<D>(a, mw, eta_new);
+
+    float mtj[D][D], amj[D][D], j_new[D][D];
+    mat_t_mul<D>(minv, j1, mtj);          // (I + J1 C)^-1 J1
+    mat_t_mul<D>(a, mtj, amj);            // A^T (..)
+    mul_add_sym<D>(amj, a, j, j_new);     // A^T (..) A + J
+
+    float mc[D][D], amc[D][D], c_new[D][D];
+    mat_mul<D, D, D>(minv, c, mc);        // (I + C J1)^-1 C
+    mat_mul<D, D, D>(a1, mc, amc);
+    mul_t_add_sym<D>(amc, a1, c1, c_new); // A1 (..) A1^T + C1
+
+    float ma[D][D], a_new[D][D];
+    mat_mul<D, D, D>(minv, a, ma);
+    mat_mul<D, D, D>(a1, ma, a_new);
+
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      bv[i] = b_new[i] + b_t[i];
+      eta[i] += eta_new[i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        a[i][k] = a_new[i][k];
+        c[i][k] = c_new[i][k];
+        j[i][k] = j_new[i][k];
+      }
+      xcur[i] = xnext[i];
+    }
+  }
+
+  float* slot = scratch + s * Slot::ROWS * B + b;
+  store_full<D>(slot + Slot::A * B, B, a);
+  store_vec<D>(slot + Slot::BV * B, B, bv);
+  store_packed<D>(slot + Slot::C * B, B, c);
+  store_vec<D>(slot + Slot::ETA * B, B, eta);
+  store_packed<D>(slot + Slot::J * B, B, j);
+}
+
+// Carry: one thread per chain applies the composites front to back and
+// leaves in slot s + 1 the filtered (m, P) of step (s + 1) L - 1, the entry
+// state of block s + 1:  with (I + P J)^-1 = Minv,
+//   m' = A Minv (m + P eta) + b ;  P' = A Minv P A^T + C
+// The next composite is loaded before the current one is applied.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_carry_kernel(const float* __restrict__ m0, const float* __restrict__ p0,
+                 float* __restrict__ scratch, int64_t B, int64_t S) {
+  using Slot = FwdSlot<D>;
+  constexpr int NC = Slot::M;  // floats of a composite
+  const int64_t b = chain_index();
+  if (b >= B) return;
+  float m[D], p[D][D];
+  load_prior<D>(m0, p0, b, m, p);
+
+  float cur[NC], nxt[NC];
+#pragma unroll
+  for (int r = 0; r < NC; ++r) cur[r] = scratch[r * B + b];
+  for (int64_t s = 0; s + 1 < S; ++s) {
+    if (s + 2 < S) {
+#pragma unroll
+      for (int r = 0; r < NC; ++r)
+        nxt[r] = scratch[((s + 1) * Slot::ROWS + r) * B + b];
+    }
+    float a[D][D], bv[D], c[D][D], eta[D], j[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      bv[i] = cur[Slot::BV + i];
+      eta[i] = cur[Slot::ETA + i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) a[i][k] = cur[Slot::A + i * D + k];
+    }
     {
       int k = 0;
 #pragma unroll
       for (int i = 0; i < D; ++i)
 #pragma unroll
-        for (int j = i; j < D; ++j) {
-          p_f[i][j] = pcur[k];
-          p_f[j][i] = pcur[k];
+        for (int q = i; q < D; ++q) {
+          c[i][q] = cur[Slot::C + k];
+          c[q][i] = c[i][q];
+          j[i][q] = cur[Slot::J + k];
+          j[q][i] = j[i][q];
           ++k;
         }
     }
-    float p_pred[D][D];
-    sandwich_sym<D>(prm.F, p_f, prm.Q, p_pred);
-    float pft[D][D];  // P_f F^T
+    float mm[D][D], minv[D][D];
+    mat_mul<D, D, D>(p, j, mm);
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+    for (int i = 0; i < D; ++i) mm[i][i] += 1.0f;
+    gen_inv_scaled<D>(mm, minv);
+    float v[D], mv[D], m_new[D];
+    mat_vec<D>(p, eta, v);
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float s = p_f[i][0] * prm.F[j][0];
-#pragma unroll
-        for (int k = 1; k < D; ++k) s += p_f[i][k] * prm.F[j][k];
-        pft[i][j] = s;
-      }
-    float pinv[D][D];
-    sym_inv_scaled<D>(p_pred, pinv);
-    float g[D][D];
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float s = pft[i][0] * pinv[0][j];
-#pragma unroll
-        for (int k = 1; k < D; ++k) s += pft[i][k] * pinv[k][j];
-        g[i][j] = s;
-      }
-    float diff[D];
+    for (int i = 0; i < D; ++i) v[i] += m[i];
+    mat_vec<D>(minv, v, mv);
+    mat_vec<D>(a, mv, m_new);
+    float mp[D][D], amp[D][D], p_new[D][D];
+    mat_mul<D, D, D>(minv, p, mp);
+    mat_mul<D, D, D>(a, mp, amp);
+    mul_t_add_sym<D>(amp, a, c, p_new);
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      float s = prm.F[i][0] * m_f[0];
+      m[i] = m_new[i] + bv[i];
 #pragma unroll
-      for (int j = 1; j < D; ++j) s += prm.F[i][j] * m_f[j];
-      diff[i] = m_s[i] - (s + prm.b[i]);
+      for (int k = 0; k < D; ++k) p[i][k] = p_new[i][k];
     }
-    float m_new[D];
+    float* slot = scratch + (s + 1) * Slot::ROWS * B + b;
+    store_vec<D>(slot + Slot::M * B, B, m);
+    store_packed<D>(slot + Slot::P * B, B, p);
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float s = g[i][0] * diff[0];
+    for (int r = 0; r < NC; ++r) cur[r] = nxt[r];
+  }
+}
+
+// ---- K2: backward RTS pass --------------------------------------------------
+//   P_pred = F P_f F^T + Q ; G = P_f F^T P_pred^-1
+//   m_s = m_f + G (m_s' - F m_f - b) ; P_s = P_f + G (P_s' - P_pred) G^T
+//   cross_t = G P_s'                  (smoothed == filtered at t = T-1)
+
+template <int D>
+__device__ __forceinline__ void unpack_sym(
+    const float (&packed)[D * (D + 1) / 2], float (&p)[D][D]) {
+  int k = 0;
 #pragma unroll
-      for (int j = 1; j < D; ++j) s += g[i][j] * diff[j];
-      m_new[i] = m_f[i] + s;
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      p[i][j] = packed[k];
+      p[j][i] = packed[k];
+      ++k;
     }
-    float gd[D][D];  // G (P_s' - P_pred)
+}
+
+// P_pred, and the gain G = P_f F^T P_pred^-1 of one step.
+template <int D>
+__device__ __forceinline__ void rts_gain(const float (&p_f)[D][D],
+                                         const Params<D>& prm,
+                                         float (&p_pred)[D][D],
+                                         float (&g)[D][D]) {
+  sandwich_sym<D>(prm.F, p_f, prm.Q, p_pred);
+  float pft[D][D];  // P_f F^T
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float s = g[i][0] * (p_s[0][j] - p_pred[0][j]);
+    for (int j = 0; j < D; ++j) {
+      float s = p_f[i][0] * prm.F[j][0];
 #pragma unroll
-        for (int k = 1; k < D; ++k) s += g[i][k] * (p_s[k][j] - p_pred[k][j]);
-        gd[i][j] = s;
-      }
-    float* cr = cross + t * (D * D) * B + b;
+      for (int k = 1; k < D; ++k) s += p_f[i][k] * prm.F[j][k];
+      pft[i][j] = s;
+    }
+  float pinv[D][D];
+  sym_inv_scaled<D>(p_pred, pinv);
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float s = g[i][0] * p_s[0][j];
+    for (int j = 0; j < D; ++j) {
+      float s = pft[i][0] * pinv[0][j];
 #pragma unroll
-        for (int k = 1; k < D; ++k) s += g[i][k] * p_s[k][j];
-        cr[(i * D + j) * B] = s;
-      }
+      for (int k = 1; k < D; ++k) s += pft[i][k] * pinv[k][j];
+      g[i][j] = s;
+    }
+}
+
+// One RTS step: (m_s, P_s) of step t + 1 in, of step t out; cr points at
+// cross[t] for this chain.
+template <int D>
+__device__ __forceinline__ void bwd_step(
+    const float (&m_f)[D], const float (&pcur)[D * (D + 1) / 2],
+    float (&m_s)[D], float (&p_s)[D][D], float* __restrict__ cr, int64_t B,
+    const Params<D>& prm) {
+  float p_f[D][D];
+  unpack_sym<D>(pcur, p_f);
+  float p_pred[D][D], g[D][D];
+  rts_gain<D>(p_f, prm, p_pred, g);
+  float diff[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+  for (int i = 0; i < D; ++i) {
+    float s = prm.F[i][0] * m_f[0];
 #pragma unroll
-      for (int j = i; j < D; ++j) {
-        float s = gd[i][0] * g[j][0];
+    for (int j = 1; j < D; ++j) s += prm.F[i][j] * m_f[j];
+    diff[i] = m_s[i] - (s + prm.b[i]);
+  }
+  float m_new[D];
 #pragma unroll
-        for (int k = 1; k < D; ++k) s += gd[i][k] * g[j][k];
-        p_s[i][j] = p_f[i][j] + s;
-        p_s[j][i] = p_s[i][j];
-      }
+  for (int i = 0; i < D; ++i) {
+    float s = g[i][0] * diff[0];
 #pragma unroll
-    for (int i = 0; i < D; ++i) m_s[i] = m_new[i];
+    for (int j = 1; j < D; ++j) s += g[i][j] * diff[j];
+    m_new[i] = m_f[i] + s;
+  }
+  float gd[D][D];  // G (P_s' - P_pred)
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float s = g[i][0] * (p_s[0][j] - p_pred[0][j]);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += g[i][k] * (p_s[k][j] - p_pred[k][j]);
+      gd[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float s = g[i][0] * p_s[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += g[i][k] * p_s[k][j];
+      cr[(i * D + j) * B] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      float s = gd[i][0] * g[j][0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += gd[i][k] * g[j][k];
+      p_s[i][j] = p_f[i][j] + s;
+      p_s[j][i] = p_s[i][j];
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i) m_s[i] = m_new[i];
+}
+
+// Replay: the RTS step loop over one time block, from t1 - 1 down to t0,
+// starting from the smoothed (m, P) of step t1 that the carry pass left in
+// the scratch; the block that holds step T - 1 starts from the filtered
+// moments there.  BLOCKED = false is the one-block launch, the whole
+// backward pass with one thread per chain (see fwd_replay_kernel).
+template <int D, bool BLOCKED>
+__global__ void bwd_replay_kernel(
+    const float* __restrict__ mf, const float* __restrict__ pf,
+    const float* __restrict__ scratch, float* __restrict__ ms,
+    float* __restrict__ ps, float* __restrict__ cross, int64_t T, int64_t B,
+    int64_t L, const Params<D> prm) {
+  constexpr int NS = D * (D + 1) / 2;
+  const int64_t b = chain_index();
+  if (b >= B) return;
+  int64_t t0 = 0, t1 = T;
+  if constexpr (BLOCKED) {
+    t0 = static_cast<int64_t>(blockIdx.y) * L;
+    t1 = t0 + L < T ? t0 + L : T;
+  }
+
+  float m_s[D], p_s[D][D];
+  int64_t t_hi;  // the first step this thread smooths
+  if (!BLOCKED || t1 == T) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) m_s[i] = mf[((T - 1) * D + i) * B + b];
+    load_packed<D>(pf + (T - 1) * NS * B + b, B, p_s);
+#pragma unroll
+    for (int i = 0; i < D; ++i) ms[((T - 1) * D + i) * B + b] = m_s[i];
+    store_packed<D>(ps + (T - 1) * NS * B + b, B, p_s);
+    t_hi = T - 2;
+  } else {
+    using Slot = BwdSlot<D>;
+    const float* slot = scratch + blockIdx.y * Slot::ROWS * B + b;
+    load_vec<D>(slot + Slot::M * B, B, m_s);
+    load_packed<D>(slot + Slot::P * B, B, p_s);
+    t_hi = t1 - 1;
+  }
+  if (t_hi < t0) return;
+
+  float mcur[D], pcur[NS], mnext[D], pnext[NS];
+#pragma unroll
+  for (int i = 0; i < D; ++i) mcur[i] = mf[(t_hi * D + i) * B + b];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) pcur[k] = pf[(t_hi * NS + k) * B + b];
+
+  for (int64_t t = t_hi; t >= t0; --t) {
+    if (t > t0) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) mnext[i] = mf[((t - 1) * D + i) * B + b];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) pnext[k] = pf[((t - 1) * NS + k) * B + b];
+    }
+    bwd_step<D>(mcur, pcur, m_s, p_s, cross + t * (D * D) * B + b, B, prm);
 #pragma unroll
     for (int i = 0; i < D; ++i) ms[(t * D + i) * B + b] = m_s[i];
     store_packed<D>(ps + t * NS * B + b, B, p_s);
@@ -269,7 +655,180 @@ __global__ void bwd_kernel(const float* __restrict__ mf,
   }
 }
 
-constexpr int kThreads = 128;
+// Fold: one thread composes the RTS elements (E, g, L) of its time block,
+// last step first (rxinfer_tpu/ops/kalman.py _make_smoother_elements,
+// _smooth_compose).  Blocks 1 .. S-1 only (block 0's composite has no
+// reader).  Per step, from the filtered moments alone:
+//   E = G ; g = m_f - E (F m_f + b) ; L = P_f - E P_pred E^T
+// and composite <- (E_t E, E_t g + g_t, E_t L E_t^T + L_t): no inverse
+// beyond P_pred's.  The block that holds step T - 1 starts from that step's
+// element (0, m_f, P_f), the others from the identity (I, 0, 0).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_fold_kernel(const float* __restrict__ mf, const float* __restrict__ pf,
+                float* __restrict__ scratch, int64_t T, int64_t B, int64_t L,
+                const Params<D> prm) {
+  constexpr int NS = D * (D + 1) / 2;
+  using Slot = BwdSlot<D>;
+  const int64_t b = chain_index();
+  if (b >= B) return;
+  const int64_t s = static_cast<int64_t>(blockIdx.y) + 1;
+  const int64_t t0 = s * L;
+  const int64_t t1 = t0 + L < T ? t0 + L : T;
+
+  float e[D][D], gv[D], l[D][D];
+  int64_t t_hi;
+  if (t1 == T) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      gv[i] = mf[((T - 1) * D + i) * B + b];
+#pragma unroll
+      for (int k = 0; k < D; ++k) e[i][k] = 0.0f;
+    }
+    load_packed<D>(pf + (T - 1) * NS * B + b, B, l);
+    t_hi = T - 2;
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      gv[i] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        e[i][k] = i == k ? 1.0f : 0.0f;
+        l[i][k] = 0.0f;
+      }
+    }
+    t_hi = t1 - 1;
+  }
+
+  float mcur[D], pcur[NS], mnext[D], pnext[NS];
+  if (t_hi >= t0) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) mcur[i] = mf[(t_hi * D + i) * B + b];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) pcur[k] = pf[(t_hi * NS + k) * B + b];
+  }
+  for (int64_t t = t_hi; t >= t0; --t) {
+    if (t > t0) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) mnext[i] = mf[((t - 1) * D + i) * B + b];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) pnext[k] = pf[((t - 1) * NS + k) * B + b];
+    }
+    // the step's element (e_t, g_t, l_t)
+    float p_f[D][D];
+    unpack_sym<D>(pcur, p_f);
+    float p_pred[D][D], e_t[D][D];
+    rts_gain<D>(p_f, prm, p_pred, e_t);
+    float fm[D], efm[D], g_t[D];
+    mat_vec<D>(prm.F, mcur, fm);
+#pragma unroll
+    for (int i = 0; i < D; ++i) fm[i] += prm.b[i];
+    mat_vec<D>(e_t, fm, efm);
+#pragma unroll
+    for (int i = 0; i < D; ++i) g_t[i] = mcur[i] - efm[i];
+    float ep[D][D], epe[D][D], l_t[D][D], zero[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int k = 0; k < D; ++k) zero[i][k] = 0.0f;
+    mat_mul<D, D, D>(e_t, p_pred, ep);
+    mul_t_add_sym<D>(ep, e_t, zero, epe);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int k = 0; k < D; ++k) l_t[i][k] = p_f[i][k] - epe[i][k];
+
+    // element (earlier) applied to the composite (later)
+    float e_new[D][D], eg[D], el[D][D], l_new[D][D];
+    mat_mul<D, D, D>(e_t, e, e_new);
+    mat_vec<D>(e_t, gv, eg);
+    mat_mul<D, D, D>(e_t, l, el);
+    mul_t_add_sym<D>(el, e_t, l_t, l_new);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      gv[i] = eg[i] + g_t[i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        e[i][k] = e_new[i][k];
+        l[i][k] = l_new[i][k];
+      }
+      mcur[i] = mnext[i];
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k) pcur[k] = pnext[k];
+  }
+
+  float* slot = scratch + s * Slot::ROWS * B + b;
+  store_full<D>(slot + Slot::E * B, B, e);
+  store_vec<D>(slot + Slot::G * B, B, gv);
+  store_packed<D>(slot + Slot::L * B, B, l);
+}
+
+// Carry: one thread per chain applies the composites back to front and
+// leaves in slot s - 1 the smoothed (m, P) of step s L, the entry state of
+// block s - 1:  m' = E m + g ;  P' = E P E^T + L.  The last block's E is 0,
+// so the walk may start from any finite state.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_carry_kernel(float* __restrict__ scratch, int64_t B, int64_t S) {
+  using Slot = BwdSlot<D>;
+  constexpr int NC = Slot::M;
+  const int64_t b = chain_index();
+  if (b >= B) return;
+  float m[D], p[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    m[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) p[i][k] = 0.0f;
+  }
+  float cur[NC], nxt[NC];
+#pragma unroll
+  for (int r = 0; r < NC; ++r)
+    cur[r] = scratch[((S - 1) * Slot::ROWS + r) * B + b];
+  for (int64_t s = S - 1; s >= 1; --s) {
+    if (s >= 2) {
+#pragma unroll
+      for (int r = 0; r < NC; ++r)
+        nxt[r] = scratch[((s - 1) * Slot::ROWS + r) * B + b];
+    }
+    float e[D][D], gv[D], l[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      gv[i] = cur[Slot::G + i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) e[i][k] = cur[Slot::E + i * D + k];
+    }
+    {
+      int k = 0;
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int q = i; q < D; ++q) {
+          l[i][q] = cur[Slot::L + k];
+          l[q][i] = l[i][q];
+          ++k;
+        }
+    }
+    float em[D], ep[D][D], p_new[D][D];
+    mat_vec<D>(e, m, em);
+    mat_mul<D, D, D>(e, p, ep);
+    mul_t_add_sym<D>(ep, e, l, p_new);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      m[i] = em[i] + gv[i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) p[i][k] = p_new[i][k];
+    }
+    float* slot = scratch + (s - 1) * Slot::ROWS * B + b;
+    store_vec<D>(slot + Slot::M * B, B, m);
+    store_packed<D>(slot + Slot::P * B, B, p);
+#pragma unroll
+    for (int r = 0; r < NC; ++r) cur[r] = nxt[r];
+  }
+}
+
+// ---- launchers ------------------------------------------------------------------
 
 template <int D>
 Params<D> make_params(const float* F, const float* bvec, const float* Q,
@@ -286,67 +845,124 @@ Params<D> make_params(const float* F, const float* bvec, const float* Q,
   return prm;
 }
 
+inline dim3 chain_grid(int64_t B, int64_t blocks) {
+  return dim3(static_cast<unsigned>((B + kThreads - 1) / kThreads),
+              static_cast<unsigned>(blocks));
+}
+
+// L steps per time block, S = ceil(T / L) blocks.  S == 1: the one-block
+// replay kernel alone.  S > 1 needs D <= kFoldMaxDim and a scratch of
+// S * ROWS * B floats.
 template <int D>
 int launch_fwd(const float* xi, const float* m0, const float* p0, float* mf,
                float* pf, int64_t T, int64_t B, const float* F,
-               const float* bvec, const float* Q, const float* W,
-               cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  fwd_kernel<D><<<blocks, kThreads, 0, stream>>>(
-      xi, m0, p0, mf, pf, T, B, make_params<D>(F, bvec, Q, W));
-  return static_cast<int>(cudaGetLastError());
+               const float* bvec, const float* Q, const float* W, int64_t L,
+               int64_t S, float* scratch, cudaStream_t stream) {
+  const Params<D> prm = make_params<D>(F, bvec, Q, W);
+  if (S == 1) {
+    fwd_replay_kernel<D, false><<<chain_grid(B, 1), kThreads, 0, stream>>>(
+        xi, m0, p0, scratch, mf, pf, T, B, L, prm);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (D <= kFoldMaxDim) {
+    fwd_fold_kernel<D><<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
+        xi, m0, p0, scratch, B, L, prm);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fwd_carry_kernel<D><<<chain_grid(B, 1), kThreads, 0, stream>>>(
+        m0, p0, scratch, B, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fwd_replay_kernel<D, true><<<chain_grid(B, S), kThreads, 0, stream>>>(
+        xi, m0, p0, scratch, mf, pf, T, B, L, prm);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int D>
 int launch_bwd(const float* mf, const float* pf, float* ms, float* ps,
                float* cross, int64_t T, int64_t B, const float* F,
-               const float* bvec, const float* Q, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  bwd_kernel<D><<<blocks, kThreads, 0, stream>>>(
-      mf, pf, ms, ps, cross, T, B, make_params<D>(F, bvec, Q, Q));
-  return static_cast<int>(cudaGetLastError());
+               const float* bvec, const float* Q, int64_t L, int64_t S,
+               float* scratch, cudaStream_t stream) {
+  const Params<D> prm = make_params<D>(F, bvec, Q, Q);
+  if (S == 1) {
+    bwd_replay_kernel<D, false><<<chain_grid(B, 1), kThreads, 0, stream>>>(
+        mf, pf, scratch, ms, ps, cross, T, B, L, prm);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (D <= kFoldMaxDim) {
+    bwd_fold_kernel<D><<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
+        mf, pf, scratch, T, B, L, prm);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bwd_carry_kernel<D><<<chain_grid(B, 1), kThreads, 0, stream>>>(
+        scratch, B, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bwd_replay_kernel<D, true><<<chain_grid(B, S), kThreads, 0, stream>>>(
+        mf, pf, scratch, ms, ps, cross, T, B, L, prm);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool blocks_ok(int64_t T, int64_t L, int64_t S) {
+  return T >= 1 && L >= 1 && S >= 1 && (S - 1) * L < T && S * L >= T &&
+         S <= 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each launcher returns cudaGetLastError() after its launch (0 = success).
+// Each launcher returns the first CUDA error of its launches (0 = success).
+// The time axis is cut into S blocks of L steps (the last one ragged):
+// S = ceil(T / L).  scratch holds S * rows * B floats, rows = d*d + 3 d +
+// 3 nsym forward and d*d + 2 d + 2 nsym backward (FwdSlot, BwdSlot), and
+// may be null when S == 1.
 int rxt_fused_smoother_fwd(int d, const float* xi, const float* m0,
                            const float* p0, float* mf, float* pf, int64_t T,
                            int64_t B, const float* F, const float* bvec,
-                           const float* Q, const float* W, void* stream) {
+                           const float* Q, const float* W, int64_t L,
+                           int64_t S, float* scratch, void* stream) {
+  if (!blocks_ok(T, L, S)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RXT_FWD(D)                                                        \
+  case D:                                                                 \
+    return launch_fwd<D>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, L, S,   \
+                         scratch, s);
   switch (d) {
-    case 1: return launch_fwd<1>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 2: return launch_fwd<2>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 3: return launch_fwd<3>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 4: return launch_fwd<4>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 5: return launch_fwd<5>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 6: return launch_fwd<6>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 7: return launch_fwd<7>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
-    case 8: return launch_fwd<8>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, s);
+    RXT_FWD(1) RXT_FWD(2) RXT_FWD(3) RXT_FWD(4)
+    RXT_FWD(5) RXT_FWD(6) RXT_FWD(7) RXT_FWD(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef RXT_FWD
 }
 
 int rxt_fused_smoother_bwd(int d, const float* mf, const float* pf, float* ms,
                            float* ps, float* cross, int64_t T, int64_t B,
                            const float* F, const float* bvec, const float* Q,
+                           int64_t L, int64_t S, float* scratch,
                            void* stream) {
+  if (!blocks_ok(T, L, S)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RXT_BWD(D)                                                        \
+  case D:                                                                 \
+    return launch_bwd<D>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, L, S,   \
+                         scratch, s);
   switch (d) {
-    case 1: return launch_bwd<1>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 2: return launch_bwd<2>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 3: return launch_bwd<3>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 4: return launch_bwd<4>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 5: return launch_bwd<5>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 6: return launch_bwd<6>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 7: return launch_bwd<7>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
-    case 8: return launch_bwd<8>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, s);
+    RXT_BWD(1) RXT_BWD(2) RXT_BWD(3) RXT_BWD(4)
+    RXT_BWD(5) RXT_BWD(6) RXT_BWD(7) RXT_BWD(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef RXT_BWD
 }
+
+// Largest d with a fold and a carry kernel; above it only S == 1 launches.
+int rxt_fused_smoother_fold_max_dim() { return kFoldMaxDim; }
 
 const char* rxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

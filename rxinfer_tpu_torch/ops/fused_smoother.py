@@ -9,13 +9,31 @@ Backward (RTS with recomputed prediction; smoothed == filtered at T-1):
     m_s = m_f + G (m_s' - F m_f - b) ; P_s = P_f + G (P_s' - P_pred) G^T
     cross_t = G P_s'            [Cov(x_t, x_{t+1} | all evidence)]
 
-Kernels (``csrc/fused_smoother.cu``, one thread per chain, time loop inside):
+Kernels (``csrc/fused_smoother.cu``):
   * ``fused_forward``  replaces ``_fwd_kernel`` (pallas_smoother.py:76-136);
   * ``fused_backward`` replaces ``_bwd_kernel`` (pallas_smoother.py:139-203).
 Each wrapper takes its plain version when its tensors lie on the CPU and
-launches its kernel when they lie on a CUDA device (any other device raises);
-there is no fallback from the kernel to the plain version.  ``LAUNCHES``
-counts kernel launches.
+launches its kernels when they lie on a CUDA device (any other device
+raises); there is no fallback from the kernels to the plain version.
+``LAUNCHES`` counts wrapper calls that launched, one per call.
+
+What bounds the kernels on an H100 is the latency of one step, not bytes or
+operations: a step is a dependent chain of about a thousand operations, and
+one thread per chain leaves most of the card's 528 warp schedulers without
+a warp (1,024 chains are 32 warps).  The recursion is serial in time, so the
+wrappers cut time instead: S blocks of L = ceil(T / S) steps, one thread per
+(chain, block), in three passes.  *Fold* composes each block's associative
+elements (``ops/kalman.py``) into one composite; *carry*, one thread per
+chain, applies the S composites in order and leaves each block's entry
+state; *replay* runs the step loop above over each block from its entry
+state and writes the moments.  Inside a block the result differs from the
+one-block recursion only through the entry state.  S comes from
+``pick_blocks`` (B, T, d and the card's SM count), is 1 when the batch
+alone fills the card, T is short or d has no fold kernel
+(d > ``FOLD_MAX_DIM``), and at S = 1 the replay pass alone runs: the
+one-thread-per-chain recursion.  ``fused_forward_blocked_reference`` /
+``fused_backward_blocked_reference`` are the plain version of the three
+passes, with the number of blocks as an argument.
 
 Moments travel between the two kernels in struct-of-arrays layout, batch
 minor: means (T, d, B), upper-triangle covariances (T, nsym, B) in
@@ -39,16 +57,33 @@ import torch
 
 from .. import kernels
 from . import entrywise as ew
+from . import kalman
 
 # Largest chain state the CUDA kernels take.  Each thread keeps one chain's
 # state (d + d(d+1)/2 floats) and the Schur-inverse temporaries in registers;
-# the kernels are instantiated for d = 1..8, and at d = 8 the backward kernel
-# already needs 255 registers.  At d = 16 the state alone is 152 floats, so
-# d in (8, 16] needs another design (state in shared memory, or several
+# the replay kernels are instantiated for d = 1..8, and at d = 8 the backward
+# one already needs 255 registers.  At d = 16 the state alone is 152 floats,
+# so d in (8, 16] needs another design (state in shared memory, or several
 # threads per chain).
 MAX_DIM = 8
+# Largest d with a fold and a carry kernel (``kFoldMaxDim`` in the source).
+# A fold thread carries a whole composite, d*d + 2d + d(d+1) floats forward,
+# beside the general inverse's temporaries: up to d = 5 no fold or carry
+# kernel spills (K1's fold uses 168 registers at d = 4 and 255 at d = 5), at
+# d = 6 K1's fold spills 112 bytes and at d = 8 2,304 (ptxas, sm_90a).  Above
+# this d the wrappers launch one block.
+FOLD_MAX_DIM = 5
 
-# kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
+# The rule that picks the number of time blocks (``pick_blocks``).
+WARPS_PER_SCHEDULER = 4     # fill the card this deep: B * S threads
+SCHEDULERS_PER_SM = 4
+MIN_BLOCK_STEPS = 32        # a block is never shorter (but for the last one)
+MIN_BLOCKS = 8              # fold + replay cost ~2.3-4 steps per step: below
+                            # this many blocks one block is as fast
+MAX_BLOCKS = 128            # the carry pass is serial in S
+
+# wrapper calls that launched on CUDA tensors, one per call whatever the
+# number of passes (the plain version on CPU tensors counts none)
 LAUNCHES = {"fused_smoother_fwd": 0, "fused_smoother_bwd": 0}
 
 
@@ -150,15 +185,20 @@ def _unpack_entries(entries, d):
     return full
 
 
+def _entries(m, p):
+    """(B, d), (B, d, d) tensors -> the step functions' entry lists."""
+    d = m.shape[-1]
+    return [m[:, i] for i in range(d)], ew.sym_alias(
+        [[p[:, i, j] if i <= j else None for j in range(d)] for i in range(d)])
+
+
 def fused_forward_reference(m0, p0, xi, f, b, q, w):
     """Plain forward pass on (B,) entry tensors; returns mf (T, d, B) and
     pf (T, nsym, B).  Same recurrence and operation order as the kernel."""
     t_len, bsz, d = xi.shape
     f, b, q, w = _host_params(f, b, q, w, d)
     fe, be, qe, we = f.tolist(), b.tolist(), q.tolist(), w.tolist()
-    m = [m0[:, i] for i in range(d)]
-    p = ew.sym_alias([[p0[:, i, j] if i <= j else None for j in range(d)]
-                      for i in range(d)])
+    m, p = _entries(m0, p0)
     mf = torch.empty((t_len, d, bsz), dtype=xi.dtype, device=xi.device)
     pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=xi.dtype,
                      device=xi.device)
@@ -195,22 +235,192 @@ def fused_backward_reference(mf, pf, f, b, q):
     return ms, ps, cross
 
 
+# -- the time-blocked design: block rule and plain version -------------------------
+
+def time_blocks(t_len: int, blocks: int) -> list:
+    """[(t0, t1)) spans of the time axis cut into at most ``blocks`` blocks of
+    ceil(T / blocks) steps; the last one may be shorter."""
+    length = -(-t_len // max(1, min(blocks, t_len)))
+    return [(t0, min(t0 + length, t_len)) for t0 in range(0, t_len, length)]
+
+
+def pick_blocks(bsz: int, t_len: int, d: int, sm_count: int) -> int:
+    """Number of time blocks S the kernels take at (B, T, d) on a card with
+    ``sm_count`` SMs: enough that B * S threads fill every warp scheduler
+    ``WARPS_PER_SCHEDULER`` deep, at most ``MAX_BLOCKS``, no block shorter
+    than ``MIN_BLOCK_STEPS``; 1 when that leaves fewer than ``MIN_BLOCKS``
+    (the batch alone fills the card, or T is short) or d has no fold kernel.
+    The result is exact: cutting T into S blocks gives S non-empty blocks."""
+    if d > FOLD_MAX_DIM or bsz < 1:
+        return 1
+    threads = sm_count * SCHEDULERS_PER_SM * 32 * WARPS_PER_SCHEDULER
+    blocks = min(-(-threads // bsz), t_len // MIN_BLOCK_STEPS, MAX_BLOCKS)
+    if blocks < MIN_BLOCKS:
+        return 1
+    return len(time_blocks(t_len, blocks))
+
+
+def forward_scratch_rows(d: int) -> int:
+    """Rows of one block's slot in the forward scratch (S, rows, B): the
+    composite (A, b, C, eta, J) and the block's entry state (m, P)."""
+    return d * d + 3 * d + 3 * (d * (d + 1) // 2)
+
+
+def backward_scratch_rows(d: int) -> int:
+    """Rows of one block's slot in the backward scratch: the composite
+    (E, g, L) and the block's entry state (m, P)."""
+    return d * d + 2 * d + 2 * (d * (d + 1) // 2)
+
+
+def _shared(params, like):
+    return [torch.as_tensor(a, dtype=like.dtype, device=like.device)
+            for a in params]
+
+
+def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int):
+    """Plain version of the time-blocked forward pass: fold, carry and replay
+    over ``time_blocks(T, blocks)`` on tensors.  Same result layout as
+    ``fused_forward_reference``, to which it is equal at ``blocks`` = 1 and
+    equal up to the rounding of the carried entry states otherwise."""
+    t_len, bsz, d = xi.shape
+    fh, bh, qh, wh = _host_params(f, b, q, w, d)
+    fe, be, qe, we = fh.tolist(), bh.tolist(), qh.tolist(), wh.tolist()
+    ft, bt, qt, wt = _shared((fh, bh, qh, wh), xi)
+    spans = time_blocks(t_len, blocks)
+
+    # fold: one composite per block but the last, whose composite has no reader
+    composites = []
+    for s, (t0, t1) in enumerate(spans[:-1]):
+        if s == 0:
+            comp = kalman.filter_first_element(m0, p0, xi[0], wt)
+        else:
+            comp = kalman.filter_step_element(ft, bt, qt, xi[t0], wt)
+        for t in range(t0 + 1, t1):
+            comp = kalman.filter_compose(
+                comp, kalman.filter_step_element(ft, bt, qt, xi[t], wt))
+        composites.append(comp)
+
+    # carry: the filtered state just before each block (block 0: the prior;
+    # its composite has A = 0, so it forgets the state it is applied to)
+    entry = [(m0, p0)]
+    for comp in composites:
+        entry.append(kalman.filter_apply(*entry[-1], comp))
+
+    # replay: the step recursion inside each block
+    mf = torch.empty((t_len, d, bsz), dtype=xi.dtype, device=xi.device)
+    pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=xi.dtype,
+                     device=xi.device)
+    for (t0, t1), (m_in, p_in) in zip(spans, entry):
+        m, p = _entries(m_in, p_in)
+        for t in range(t0, t1):
+            xi_t = [xi[t, :, k] for k in range(d)]
+            m, p = forward_step(m, p, xi_t, fe, be, qe, we, first=t == 0)
+            mf[t] = torch.stack(m)
+            pf[t] = torch.stack([p[i][j] for i, j in sym_idx(d)])
+    return mf, pf
+
+
+def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int):
+    """Plain version of the time-blocked RTS pass; same result layout as
+    ``fused_backward_reference``."""
+    t_len, d, bsz = mf.shape
+    fh, bh, qh, _ = _host_params(f, b, q, q, d)
+    fe, be, qe = fh.tolist(), bh.tolist(), qh.tolist()
+    ft, bt, qt = _shared((fh, bh, qh), mf)
+    nsym = d * (d + 1) // 2
+    spans = time_blocks(t_len, blocks)
+    means = mf.permute(0, 2, 1)                               # (T, B, d)
+    covs = sym_unfold_t(pf, d)                                # (T, B, d, d)
+
+    def element(t):
+        if t == t_len - 1:
+            return kalman.smoother_last_element(means[t], covs[t])
+        return kalman.smoother_step_element(means[t], covs[t], ft, bt, qt)
+
+    # fold, last step first; block 0's composite has no reader
+    composites = {}
+    for s in range(1, len(spans)):
+        t0, t1 = spans[s]
+        comp = element(t1 - 1)
+        for t in range(t1 - 2, t0 - 1, -1):
+            comp = kalman.smooth_compose(comp, element(t))
+        composites[s] = comp
+
+    # carry, back to front: the smoothed state just after each block (the
+    # last block's composite has E = 0 and forgets the state it is applied to)
+    state = (torch.zeros_like(means[0]), torch.zeros_like(covs[0]))
+    entry = {}
+    for s in range(len(spans) - 1, 0, -1):
+        state = kalman.smooth_apply(*state, composites[s])
+        entry[s - 1] = state
+
+    # replay
+    ms = torch.empty_like(mf)
+    ps = torch.empty_like(pf)
+    cross = torch.empty((t_len - 1, d * d, bsz), dtype=mf.dtype,
+                        device=mf.device)
+    ms[t_len - 1] = mf[t_len - 1]
+    ps[t_len - 1] = pf[t_len - 1]
+    for s, (t0, t1) in enumerate(spans):
+        if t1 == t_len:
+            m_s, p_s = _entries(means[t_len - 1], covs[t_len - 1])
+            t_hi = t_len - 2
+        else:
+            m_s, p_s = _entries(*entry[s])
+            t_hi = t1 - 1
+        for t in range(t_hi, t0 - 1, -1):
+            m_f = [mf[t, i] for i in range(d)]
+            p_f = _unpack_entries([pf[t, k] for k in range(nsym)], d)
+            m_s, p_s, cr = backward_step(m_f, p_f, m_s, p_s, fe, be, qe)
+            cross[t] = torch.stack([cr[i][j] for i in range(d)
+                                    for j in range(d)])
+            ms[t] = torch.stack(m_s)
+            ps[t] = torch.stack([p_s[i][j] for i, j in sym_idx(d)])
+    return ms, ps, cross
+
+
 # -- kernel launches ----------------------------------------------------------------
 
 def _library():
     lib = kernels.load("fused_smoother")
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
+        i64 = ctypes.c_int64
         lib.rxt_fused_smoother_fwd.argtypes = [
-            ctypes.c_int, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
-            p, p, p, p, p]
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, i64, i64, p, p]
         lib.rxt_fused_smoother_fwd.restype = ctypes.c_int
         lib.rxt_fused_smoother_bwd.argtypes = [
-            ctypes.c_int, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
-            p, p, p, p]
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, i64, i64, p, p]
         lib.rxt_fused_smoother_bwd.restype = ctypes.c_int
+        lib.rxt_fused_smoother_fold_max_dim.restype = ctypes.c_int
+        if lib.rxt_fused_smoother_fold_max_dim() != FOLD_MAX_DIM:
+            raise RuntimeError(
+                "csrc/fused_smoother.cu folds up to d = "
+                f"{lib.rxt_fused_smoother_fold_max_dim()}, the wrapper "
+                f"expects {FOLD_MAX_DIM}")
         lib._rxt_typed = True
     return lib
+
+
+def _device_blocks(bsz, t_len, d, device) -> int:
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return pick_blocks(bsz, t_len, d, sm_count)
+
+
+def _block_scratch(blocks, rows, t_len, bsz, device):
+    """(block length, a fresh (blocks, rows, B) scratch tensor or None at one
+    block).  The caller holds the tensor until its kernels are queued; after
+    that the allocator hands the memory out again only to work queued later
+    on the same stream."""
+    length = -(-t_len // blocks)
+    if blocks == 1:
+        return length, None
+    return length, torch.empty((blocks, rows, bsz), dtype=torch.float32,
+                               device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _host_ptr(a: np.ndarray):
@@ -233,6 +443,14 @@ def fused_forward(m0, p0, xi, f, b, q, w):
     if xi.device.type == "cpu":
         return fused_forward_reference(m0, p0, xi, f, b, q, w)
     kernels.check_tensor("xi", xi, (t_len, bsz, d))
+    return _forward_cuda(m0, p0, xi, f, b, q, w,
+                         _device_blocks(bsz, t_len, d, xi.device))
+
+
+def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int):
+    """Launch K1 over ``blocks`` time blocks (fold, carry, replay; the replay
+    pass alone at 1).  ``blocks`` must be what ``time_blocks`` yields."""
+    t_len, bsz, d = xi.shape
     kernels.check_tensor("m0", m0, (bsz, d))
     kernels.check_tensor("p0", p0, (bsz, d, d))
     fh, bh, qh, wh = _host_params(f, b, q, w, d)
@@ -243,11 +461,13 @@ def fused_forward(m0, p0, xi, f, b, q, w):
         return mf, pf
     lib = _library()
     stream = torch.cuda.current_stream(xi.device).cuda_stream
+    length, scratch = _block_scratch(
+        blocks, forward_scratch_rows(d), t_len, bsz, xi.device)
     rc = lib.rxt_fused_smoother_fwd(
         d, xi.data_ptr(), m0.data_ptr(), p0.data_ptr(), mf.data_ptr(),
         pf.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
-        _host_ptr(qh), _host_ptr(wh), stream)
-    kernels.check(lib, rc, "fused_smoother forward kernel")
+        _host_ptr(qh), _host_ptr(wh), length, blocks, _ptr(scratch), stream)
+    kernels.check(lib, rc, "fused_smoother forward kernels")
     LAUNCHES["fused_smoother_fwd"] += 1
     return mf, pf
 
@@ -259,6 +479,13 @@ def fused_backward(mf, pf, f, b, q):
     _check_dims(t_len, d)
     if mf.device.type == "cpu":
         return fused_backward_reference(mf, pf, f, b, q)
+    return _backward_cuda(mf, pf, f, b, q,
+                          _device_blocks(bsz, t_len, d, mf.device))
+
+
+def _backward_cuda(mf, pf, f, b, q, blocks: int):
+    """Launch K2 over ``blocks`` time blocks (see ``_forward_cuda``)."""
+    t_len, d, bsz = mf.shape
     nsym = d * (d + 1) // 2
     kernels.check_tensor("mf", mf, (t_len, d, bsz))
     kernels.check_tensor("pf", pf, (t_len, nsym, bsz))
@@ -271,11 +498,13 @@ def fused_backward(mf, pf, f, b, q):
         return ms, ps, cross
     lib = _library()
     stream = torch.cuda.current_stream(mf.device).cuda_stream
+    length, scratch = _block_scratch(
+        blocks, backward_scratch_rows(d), t_len, bsz, mf.device)
     rc = lib.rxt_fused_smoother_bwd(
         d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
         cross.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
-        _host_ptr(qh), stream)
-    kernels.check(lib, rc, "fused_smoother backward kernel")
+        _host_ptr(qh), length, blocks, _ptr(scratch), stream)
+    kernels.check(lib, rc, "fused_smoother backward kernels")
     LAUNCHES["fused_smoother_bwd"] += 1
     return ms, ps, cross
 
