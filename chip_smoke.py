@@ -14,9 +14,12 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    several shapes: the smoother kernels K1/K2 against
    ``fused_forward_reference`` / ``fused_backward_reference`` (RTOL/ATOL),
    at shapes that take one time block and shapes that take many (the most
-   the wrapper's rule gives, and a ragged last block), and the HMM forward-backward kernels K4/K5 (both ``per_step_xi``
-   variants) against ``fb_forward_reference`` / ``fb_backward_reference``
-   (FB_RTOL/FB_ATOL), plus sampled chains against a float64 numpy
+   the wrapper's rule gives, and a ragged last block), and the HMM
+   forward-backward kernels K4/K5 (both ``per_step_xi`` variants) against
+   ``fb_forward_reference`` / ``fb_backward_reference`` at the wrapper's
+   marginal tile (FB_RTOL/FB_ATOL; shapes with one tile, many tiles, ragged
+   staged and marginal tiles, and a large batch), xi_sum bit-identical over
+   repeated calls, plus sampled chains against a float64 numpy
    forward-backward (FB_ORACLE_TOL).
 4. LGSSM path at full width: ``rxinfer_tpu_torch.batched_program`` on
    ``zoo.lgssm`` with B=1024 chains, T=10,000 steps, d=4 (the constants of
@@ -38,7 +41,9 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    inputs of the path's last sweep (FB_RTOL/FB_ATOL), checks
    ``infer_batched`` against ``batched_program`` on the same rows and those
    rows against the full batch (INFER_TOL), times the program and its
-   stages with CUDA events, and profiles one program call as in phase 4.
+   stages with CUDA events, and profiles one program call as in phase 4
+   (K5's beta, marginal and xi_sum passes apart).  Then K4 and K5 alone at
+   FB_ALONE_SHAPES, beside the SM clock sampled meanwhile.
 6. Filter and quantization kernels vs plain versions on the card: the
    streaming filter kernel K3 against ``fused_filter_reference`` at several
    (B, T, d, dy) (RTOL/ATOL) and sampled chains against a float64 filter;
@@ -128,8 +133,13 @@ PLAIN_SHAPE = CHECK_SHAPES[0]
 SWEEP_BLOCKS = (1, 8, 16, 32, 64, 128)
 
 HMM_B, HMM_T, HMM_IT, HMM_K = 256, 200, 20, 3
+# (40, 1001, 3): ragged last staged tile (1001 = 31 * 32 + 9) and many
+# marginal tiles; (8, 4099, 8): the most marginal tiles of the list, ragged;
+# (8448, 64, 3): a batch that takes one marginal tile per 16 steps
 FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
-                   (16, 40, 1), (50, 1, 3), (50, 2, 3)]
+                   (16, 40, 1), (50, 1, 3), (50, 2, 3), (40, 1001, 3),
+                   (8, 4099, 8), (8448, 64, 3)]
+FB_ALONE_SHAPES = [(256, 200, 3), (4096, 1000, 3), (64, 10_000, 8)]
 HMM_ROWS = (0, 1, 128, 255)
 
 # K8 against its plain version (same order of summation; the kernel may fuse
@@ -162,8 +172,9 @@ SMOOTHER_KERNEL_NAMES = {
                            "fwd_replay_kernel"),
     "fused_smoother_bwd": ("bwd_fold_kernel", "bwd_carry_kernel",
                            "bwd_replay_kernel")}
-FB_KERNEL_NAMES = {"fused_fb_fwd": "fb_fwd_kernel",
-                   "fused_fb_bwd": "fb_bwd_kernel"}
+FB_KERNEL_NAMES = {"fused_fb_fwd": ("fb_fwd_kernel",),
+                   "fused_fb_bwd": ("fb_beta_kernel", "fb_xisum_kernel",
+                                    "fb_marg_kernel")}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
@@ -509,14 +520,20 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
     failures = []
     for i, (bsz, t_len, k) in enumerate(shapes):
         lp, lt, le = _fb_inputs(bsz, t_len, k, seed=200 + i, device=device)
+        tile = ffb.device_tile(bsz, t_len, device)
         alphas, logz = ffb.fb_forward(lp, lt, le)
         alphas_r, logz_r = ffb.fb_forward_reference(lp, lt, le)
         g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
         g2, xs2, none = ffb.fb_backward(lt, le, alphas, per_step_xi=False)
-        g_r, xs_r, steps_r = ffb.fb_backward_reference(lt, le, alphas, True)
+        _, xs3, _ = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
+        g_r, xs_r, steps_r = ffb.fb_backward_reference(lt, le, alphas, True,
+                                                       tile=tile)
         torch.cuda.synchronize()
         if none is not None or tuple(steps.shape) != (t_len - 1, bsz, k, k):
             failures.append(f"(B,T,K)=({bsz},{t_len},{k}): xi_steps shape")
+        if not (torch.equal(xs, xs2) and torch.equal(xs, xs3)):
+            failures.append(f"(B,T,K)=({bsz},{t_len},{k}): xi_sum differs "
+                            "between calls on the same inputs")
         rows = {
             "fused_fb_fwd": [("alphas", alphas, alphas_r),
                              ("logz", logz, logz_r)],
@@ -535,7 +552,9 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
                 if not ok:
                     failures.append(f"(B,T,K)=({bsz},{t_len},{k}) {label}: "
                                     f"abs {ea:.3g}")
-        log(f"[check] (B,T,K)=({bsz},{t_len},{k}) max abs: " + "; ".join(parts))
+        log(f"[check] (B,T,K)=({bsz},{t_len},{k}) marginal tile {tile} "
+            f"({-(-t_len // tile)} tiles) max abs: " + "; ".join(parts)
+            + "; xi_sum bit-identical over 3 calls")
         if i == 0:
             idx = [0, 1, bsz // 2, bsz - 1]
             o_g, o_x, o_z = fb_float64(lp[idx].cpu().numpy(),
@@ -557,7 +576,7 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
                              + "; ".join(failures))
     if (ffb.LAUNCHES["fused_fb_fwd"] - before["fused_fb_fwd"] != len(shapes)
             or ffb.LAUNCHES["fused_fb_bwd"] - before["fused_fb_bwd"]
-            != 2 * len(shapes)):
+            != 3 * len(shapes)):
         raise AssertionError("fused_fb launch counters did not rise once per "
                              "kernel call")
     return worst
@@ -571,10 +590,12 @@ def check_fb_path_inputs(lp, lt, le, log=print) -> dict:
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
+    t_len, bsz, k = le.shape
     alphas, logz = ffb.fb_forward(lp, lt, le)
     alphas_r, logz_r = ffb.fb_forward_reference(lp, lt, le)
     g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
-    g_r, xs_r, steps_r = ffb.fb_backward_reference(lt, le, alphas, True)
+    g_r, xs_r, steps_r = ffb.fb_backward_reference(
+        lt, le, alphas, True, tile=ffb.device_tile(bsz, t_len, le.device))
     torch.cuda.synchronize()
     rows = {
         "fused_fb_fwd": [("alphas", alphas, alphas_r), ("logz", logz, logz_r)],
@@ -592,7 +613,6 @@ def check_fb_path_inputs(lp, lt, le, log=print) -> dict:
             parts.append(f"{label} {ea:.3g}")
             if not ok:
                 failures.append(f"{label}: abs {ea:.3g}")
-    t_len, bsz, k = le.shape
     log(f"[hmm] K4/K5 vs plain versions on the path's inputs, (B,T,K)="
         f"({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
         + f" (rtol=atol={FB_RTOL})")
@@ -831,6 +851,18 @@ def _device_profile(fn, kernels: dict) -> dict:
     return out
 
 
+def _cycles_per_step(ms, mhz: float, t_len: int):
+    """SM cycles a time step: ``ms`` at ``mhz`` over ``t_len`` steps."""
+    if not isinstance(ms, float) or mhz != mhz:
+        return "not measured"
+    return ms * mhz * 1e3 / t_len
+
+
+def _elapsed(what: str, t_start: float) -> None:
+    print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def _idle_share(program_ms: float, busy_ms) -> str:
     if not isinstance(busy_ms, float):
         return "not measured"
@@ -857,6 +889,75 @@ def time_fb_plain(device, shape, reps: int) -> dict:
                            reps * 5, inner=20),
         },
     }
+
+
+class SmClock:
+    """``nvidia-smi`` sampling the SM clock every 50 ms while the block runs;
+    ``mhz`` is the median sample (nan without one).  The process is stopped
+    on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate()
+        mhz = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
+        self.mhz = statistics.median(mhz) if mhz else float("nan")
+        return False
+
+
+def time_fb_alone(device, shapes, smi: str, log=print) -> dict:
+    """K4 and K5 (per-step xi on) alone at each (B, T, K), after half a
+    second of launches that brings the clock up: device ms per wrapper call
+    (``_device_profile`` over five calls of each; K5's passes summed) and
+    the cycles a step it gives at the SM clock sampled meanwhile, and under
+    ``wall_ms`` the ms between CUDA events over calls back to back, which
+    the wrapper's Python bounds when the kernels are shorter."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    out = {}
+    for shape in shapes:
+        bsz, t_len, k = shape
+        lp, lt, le = _fb_inputs(*shape, seed=7, device=device)
+        alphas, _ = ffb.fb_forward(lp, lt, le)
+        fwd = lambda: ffb.fb_forward(lp, lt, le)
+        bwd = lambda: ffb.fb_backward(lt, le, alphas, per_step_xi=True)
+        with SmClock() as clk:
+            end = time.perf_counter() + 0.5
+            while time.perf_counter() < end:
+                fwd()
+                bwd()
+            torch.cuda.synchronize()
+            wall = {"fused_fb_fwd": _cuda_ms(fwd, 9, inner=10),
+                    "fused_fb_bwd": _cuda_ms(bwd, 9, inner=10)}
+            prof = _device_profile(
+                lambda: [f() for f in (fwd,) * 5 + (bwd,) * 5],
+                FB_KERNEL_NAMES)["kernels"]
+        row = {n: prof[n]["ms_per_launch"] for n in wall}
+        row["wall_ms"] = wall
+        row["bwd_parts"] = prof["fused_fb_bwd"].get("parts")
+        row["sm_clock_mhz"] = clk.mhz
+        row["cycles_per_step"] = {
+            n: _cycles_per_step(row[n], clk.mhz, t_len) for n in wall}
+        row["tile"] = ffb.device_tile(bsz, t_len, device)
+        out[shape] = row
+        fmt = lambda x, f: format(x, f) if isinstance(x, float) else str(x)
+        cyc = lambda n: fmt(row["cycles_per_step"][n], ".0f")
+        log(f"[hmm] alone at (B,T,K)={shape}, device ms: K4 "
+            f"{fmt(row['fused_fb_fwd'], '.4f')} ({cyc('fused_fb_fwd')} cycles"
+            f" a step), K5 {fmt(row['fused_fb_bwd'], '.4f')} "
+            f"({cyc('fused_fb_bwd')} cycles a step, marginal tile "
+            f"{row['tile']}, passes "
+            f"{row['bwd_parts']}); between events K4 {wall['fused_fb_fwd']:.4f},"
+            f" K5 {wall['fused_fb_bwd']:.4f}; at {clk.mhz:.0f} MHz; {smi}")
+    return out
 
 
 def lgssm_constants(d: int):
@@ -1580,19 +1681,24 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     worst = check_kernels(device, CHECK_SHAPES)
+    _elapsed("K1/K2 checks", t_start)
     worst.update(check_fb_kernels(device, FB_CHECK_SHAPES))
+    _elapsed("K4/K5 checks", t_start)
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
     plain = time_plain(device, PLAIN_SHAPE, reps=3)
     bounds = kernel_bounds(MAIN_B, MAIN_T, MAIN_D)
     plain_bounds = kernel_bounds(*PLAIN_SHAPE)
+    _elapsed("LGSSM path", t_start)
 
     # 5. HMM path at the bench size
     hmm = hmm_path(device, HMM_B, HMM_T, HMM_IT, reps=10)
     hmm_shape = (HMM_B, HMM_T, HMM_K)
     fb_plain = time_fb_plain(device, hmm_shape, reps=3)
+    fb_alone = time_fb_alone(device, FB_ALONE_SHAPES, smi)
     fbb = fb_bounds(*hmm_shape)
+    _elapsed("HMM path", t_start)
     for name, ms_key in (("fused_fb_fwd", "fwd_ms"),
                          ("fused_fb_bwd", "bwd_ms")):
         print(f"[hmm] {name}: {hmm[ms_key]:.4f} ms, bound "
@@ -1604,10 +1710,12 @@ def main() -> int:
     # 6. filter and quantization kernels vs plain versions
     worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES)
     worst.update(check_quant_kernels(device))
+    _elapsed("K3, K6-K8 checks", t_start)
 
     # 7. path A: the continuous-batching filter at full width
     filt = filter_path(device, FILTER_B, FILTER_T, FILTER_D, reps=10)
     filt_bound = filter_bound(FILTER_B, FILTER_T, FILTER_D, FILTER_D)
+    _elapsed("path A", t_start)
 
     # 8. path B: quantized ingest, through the engine and through the
     # evidence entry points
@@ -1616,6 +1724,7 @@ def main() -> int:
     q_bound = quantize_bound(*QUANT_SHAPE)
     q_ingest_bound = quantize_bound(*INGEST_SHAPE[:2])
     dq_bound = dequant_bound(*INGEST_SHAPE)
+    _elapsed("path B", t_start)
     print(f"[filter] fused_filter: {filt['kernel_ms']:.4f} ms, bound "
           f"{filt_bound['bound_ms']:.4f} ms ({filt_bound['bound_by']}), "
           f"roofline share "
@@ -1667,6 +1776,15 @@ def main() -> int:
             "bound_ms_at_plain_shape": plain_bounds[name]["bound_ms"],
         })
     fb_source = "rxinfer_tpu_torch/csrc/fused_fb.cu"
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    main_alone = fb_alone[hmm_shape]
+    marg_tile = main_alone["tile"]
+    fb_tiles = {
+        "fused_fb_fwd": {"staged_steps": ffb.STAGED_STEPS},
+        "fused_fb_bwd": {"staged_steps": ffb.STAGED_STEPS,
+                         "marginal_steps": marg_tile,
+                         "marginal_tiles": -(-HMM_T // marg_tile)}}
     for name, replaces, ms_key in (
             ("fused_fb_fwd", "rxinfer_tpu/ops/pallas_discrete.py:48",
              "fwd_ms"),
@@ -1679,6 +1797,17 @@ def main() -> int:
             "max_abs_err_on_path": hmm["kernel_errs"][name],
             "ms": hmm[ms_key],
             "ms_in_path": hmm["profile"]["kernels"][name]["ms_per_launch"],
+            "ms_in_path_by_pass": hmm["profile"]["kernels"][name].get(
+                "parts"),
+            "tile": fb_tiles[name],
+            "cycles_per_step": _cycles_per_step(
+                hmm["profile"]["kernels"][name]["ms_per_launch"],
+                main_alone["sm_clock_mhz"], HMM_T),
+            "sm_clock_mhz": main_alone["sm_clock_mhz"],
+            "ms_alone": {"x".join(map(str, shp)): row[name]
+                         for shp, row in fb_alone.items()},
+            "ms_alone_wall": {"x".join(map(str, shp)): row["wall_ms"][name]
+                              for shp, row in fb_alone.items()},
             "plain_ms": fb_plain[name]["plain_ms"],
             "bound_ms": fbb[name]["bound_ms"],
             "bound_by": fbb[name]["bound_by"], "library_ms": None,
