@@ -48,8 +48,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    streaming filter kernel K3 against ``fused_filter_reference`` at several
    (B, T, d, dy) (RTOL/ATOL) and sampled chains against a float64 filter;
    the quantize kernels K6/K7 against their plain versions (payload bytes
-   and scales must be EQUAL, a zero row included); the dequantize + product
-   kernel K8 on both payload types (DQ_TOL).
+   and scales must be EQUAL, a zero row included) at QUANT_CHECK_SHAPES,
+   which take each of their layouts (``pick_quant_layout``: narrow, wide,
+   general) and a view that starts 4 bytes into its storage; the
+   dequantize + product kernel K8 on both payload types (DQ_TOL).
 7. Path A, continuous-batching filter at full width:
    ``parallel.filtering.make_sharded_filtering(None, ..., fused=True)`` over
    a (T, B, dy) stream of B=10,000 chains, T=200 steps, d=dy=4 with the
@@ -63,7 +65,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    the float32 run's and equal (DEQ_TOL) to the float32 program run on the
    dequantized observations.  (ii) ``quantized_evidence`` and
    ``quantized_evidence_fp8`` at 2^21 rows, dy=16 -> dx=4: one K6 or K7 and
-   one K8 launch per call, the result against the float32 product.
+   one K8 launch per call, the result against the float32 product.  Both
+   time K6/K7 alone with the layout their rows took, beside a device copy
+   of the same rows (``torch.empty_like(x).copy_(x)``) as a yardstick of
+   the bandwidth the card reaches.
 9. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
@@ -155,7 +160,15 @@ INT8_LEVEL, FP8_LEVEL = 0.05, 0.07
 FILTER_B, FILTER_T, FILTER_D = 10_000, 200, 4
 FILTER_CHECK_SHAPES = [(1000, 257, 4, 4), (37, 64, 2, 3), (64, 33, 8, 8),
                        (16, 40, 1, 1), (50, 1, 3, 3)]
-QUANT_CHECK_SHAPES = [(4096, 10_000), (100_000, 16), (777, 6), (3, 1)]
+# (R, C, start): rows of x from ``start`` floats into its storage.  Each of
+# the quantize kernels' layouts is taken (narrow with 4 row groups a thread
+# and with 1, narrow with a warp a row, wide, general), and the general one
+# for rows that are not 16-byte aligned: C % 4 != 0, past the wide layout's
+# register cap, or a contiguous view that starts 4 bytes into its storage.
+QUANT_CHECK_SHAPES = [(1 << 21, 16, 0), (100_001, 16, 0), (4096, 10_000, 0),
+                      (5, 16_388, 0), (1024, 1001, 0), (4096, 16, 1),
+                      (4096, 200, 0), (100_000, 16, 0), (777, 6, 0),
+                      (3, 1, 0)]
 DEQUANT_CHECK_SHAPES = [(1 << 21, 16, 4), (1000, 3, 5)]
 QUANT_SHAPE = (MAIN_B * MAIN_D, MAIN_T)        # the engine's rows (B*F, T)
 INGEST_SHAPE = (1 << 21, 16, 4)                # rows, dy, dx
@@ -163,8 +176,9 @@ QUANT_ITERATIONS = (1, 10)
 
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel"}
-QUANT_KERNEL_NAMES = {"quantize_rows": "quantize_kernel<.*Int8Payload",
-                      "quantize_rows_fp8": "quantize_kernel<.*Fp8Payload",
+QUANT_KERNEL_NAMES = {
+    "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
+    "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
                       "dequant_matmul": "dequant_matmul_kernel"}
 # one wrapper call is up to three device kernels, the last always launched
 SMOOTHER_KERNEL_NAMES = {
@@ -1120,7 +1134,10 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
 
 
 def time_plain(device, shape, reps: int) -> dict:
-    """Kernel and plain-version times at the same (B, T, d)."""
+    """Kernel and plain-version times at the same (B, T, d).  The plain
+    versions take 1.5-3.7 s a call (thousands of small launches) and ran at
+    other shapes in phase 3, so they are timed over ``reps`` calls without
+    a warm-up."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_smoother as fs
@@ -1137,13 +1154,13 @@ def time_plain(device, shape, reps: int) -> dict:
     return {
         "fused_smoother_fwd": {
             "plain_ms": _cuda_ms(lambda: fs.fused_forward_reference(
-                m0, p0, xi, f, b, q, w), reps, warmup=1),
+                m0, p0, xi, f, b, q, w), reps, warmup=0),
             "ms": _cuda_ms(lambda: fs.fused_forward(m0, p0, xi, f, b, q, w),
                            reps * 5, inner=20),
         },
         "fused_smoother_bwd": {
             "plain_ms": _cuda_ms(lambda: fs.fused_backward_reference(
-                mf, pf, f, b, q), reps, warmup=1),
+                mf, pf, f, b, q), reps, warmup=0),
             "ms": _cuda_ms(lambda: fs.fused_backward(mf, pf, f, b, q),
                            reps * 5, inner=20),
         },
@@ -1287,25 +1304,34 @@ def check_filter_kernel(device, shapes, log=print) -> float:
     return worst
 
 
-def _quant_rows(r: int, c: int, seed: int, device):
+def _quant_rows(r: int, c: int, seed: int, device, start: int = 0):
     """Rows with scales spread over e^-3 .. e^3 and, where there is more
-    than one row, a zero row."""
+    than one row, a zero row; a contiguous view ``start`` floats into its
+    storage."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((r, c), generator=gen, device=device)
-    x = x * torch.exp(6.0 * torch.rand((r, 1), generator=gen, device=device)
-                      - 3.0)
+    x = torch.randn((r * c + start,), generator=gen, device=device)
+    x = x[start:].view(r, c)
+    x.mul_(torch.exp(6.0 * torch.rand((r, 1), generator=gen, device=device)
+                     - 3.0))
     if r > 1:
         x[1] = 0.0
     return x
 
 
-def check_quant_kernels(device, log=print) -> dict:
+def _layout_name(layout) -> str:
+    return f"{layout.variant}(group={layout.group}, rows_per_thread=" \
+        f"{layout.rows_per_thread}, vecs={layout.vecs})"
+
+
+def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
     """Phase 6 for K6, K7, K8.  Quantize: payload bytes and scales equal to
-    the plain version's, the zero row all zeros.  Dequantize + product:
-    within DQ_TOL of the plain version on both payload types.  Returns
-    per-kernel max abs error (payloads decoded to float32)."""
+    the plain version's, the zero row all zeros, at every entry of
+    QUANT_CHECK_SHAPES, each of the kernels' layouts taken at least once.
+    Dequantize + product: within DQ_TOL of the plain version on both
+    payload types.  Returns per-kernel max abs error (payloads decoded to
+    float32) and the layout each (R, C, start) took."""
     import torch
 
     from rxinfer_tpu_torch.ops import quantized as tq
@@ -1316,11 +1342,13 @@ def check_quant_kernels(device, log=print) -> dict:
     pairs = (("quantize_rows", tq.quantize_rows, tq.quantize_rows_reference),
              ("quantize_rows_fp8", tq.quantize_rows_fp8,
               tq.quantize_rows_fp8_reference))
-    for i, (r, c) in enumerate(QUANT_CHECK_SHAPES):
-        x = _quant_rows(r, c, seed=400 + i, device=device)
+    layouts = {}
+    for i, (r, c, start) in enumerate(QUANT_CHECK_SHAPES):
+        x = _quant_rows(r, c, seed=400 + i, device=device, start=start)
         parts = []
         for name, fn, ref in pairs:
             v, s = fn(x)
+            layouts[(r, c, start)] = tq.device_quant_layout(x, v)
             v_r, s_r = ref(x)
             torch.cuda.synchronize()
             n_bytes = int((v.view(torch.uint8) != v_r.view(torch.uint8)).sum())
@@ -1333,7 +1361,20 @@ def check_quant_kernels(device, log=print) -> dict:
                 failures.append(f"(R,C)=({r},{c}) {parts[-1]}")
             if r > 1 and bool(v[1].view(torch.uint8).any()):
                 failures.append(f"(R,C)=({r},{c}) {name}: zero row not zero")
-        log(f"[check] K6/K7 (R,C)=({r},{c}) " + "; ".join(parts))
+        log(f"[check] K6/K7 (R,C)=({r},{c}) start {start}, "
+            f"{_layout_name(layouts[(r, c, start)])}: " + "; ".join(parts))
+        del x
+    taken = {(lay.variant, lay.rows_per_thread, min(lay.vecs, 2))
+             for lay in layouts.values() if lay.variant == "narrow"}
+    taken |= {(lay.variant,) for lay in layouts.values()
+              if lay.variant != "narrow"}
+    if not {("narrow", 1, 1), ("narrow", tq.NARROW_ROW_GROUPS, 1),
+            ("narrow", 1, 2), ("wide",), ("general",)} <= taken:
+        failures.append(f"the check shapes took only the layouts {taken}")
+    for (r, c, start), lay in layouts.items():
+        if start and lay.variant != "general":
+            failures.append(f"(R,C)=({r},{c}) {start} floats into its "
+                            f"storage took {lay}, not the general layout")
     for i, (r, dy, dx) in enumerate(DEQUANT_CHECK_SHAPES):
         x = _quant_rows(r, dy, seed=500 + i, device=device)
         gen = torch.Generator(device=device).manual_seed(600 + i)
@@ -1360,7 +1401,7 @@ def check_quant_kernels(device, log=print) -> dict:
     if rose != {"quantize_rows": n_q + n_d, "quantize_rows_fp8": n_q + n_d,
                 "dequant_matmul": 2 * n_d}:
         raise AssertionError(f"quantized launch counters rose by {rose}")
-    return worst
+    return worst, layouts
 
 
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
@@ -1435,11 +1476,13 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         reps, inner=20)
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
+    # the plain versions take 2-4 s a call (thousands of small launches):
+    # one call each, without a warm-up, keeps the script inside its time
     out["plain_kernel_ms"] = _cuda_ms(
         lambda: ff.fused_filter_reference(m_soa, p_soa, ys_soa, f, q, hr,
-                                          w_obs), 2, warmup=1)
+                                          w_obs), 1, warmup=0)
     out["plain_scan_ms"] = _cuda_ms(
-        lambda: filtering_scan(state, ys, f, q, h, r), 2, warmup=1)
+        lambda: filtering_scan(state, ys, f, q, h, r), 1, warmup=0)
     out["profile"] = _device_profile(lambda: fn(state, ys),
                                      FILTER_KERNEL_NAMES)
     busy = out["profile"]["busy_ms"]
@@ -1542,10 +1585,16 @@ def quantized_program_path(device, b: int, t_len: int, d: int, reps: int,
         kname = dtypes[obs_dtype][0]
         out["kernel_ms"][kname] = _cuda_ms(lambda: fn(rows), reps, inner=20)
         out["plain_ms"][kname] = _cuda_ms(lambda: ref(rows), reps)
+        out["layout"] = _layout_name(tq.device_quant_layout(rows,
+                                                            fn(rows)[0]))
         vals, scales = quantize_observations(y, obs_dtype)
         out["einsum_ms"][obs_dtype] = _cuda_ms(
             lambda: torch.einsum("if,bft->tbi", ek,
                                  vals.to(torch.float32) * scales), reps)
+    # yardstick only: a device copy of the same rows, read and write counted
+    out["copy_ms"] = _cuda_ms(lambda: torch.empty_like(rows).copy_(rows),
+                              reps, inner=20)
+    out["copy_bytes_per_s"] = 2 * rows.numel() * 4 / (out["copy_ms"] / 1e3)
     out["profile"] = {}
     for obs_dtype in dtypes:
         prog_q = program(QUANT_ITERATIONS[-1], obs_dtype)
@@ -1553,9 +1602,11 @@ def quantized_program_path(device, b: int, t_len: int, d: int, reps: int,
             lambda: prog_q({"y": y}),
             {**SMOOTHER_KERNEL_NAMES,
              dtypes[obs_dtype][0]: QUANT_KERNEL_NAMES[dtypes[obs_dtype][0]]})
-    log(f"[quant] alone at rows {tuple(rows.shape)}: "
+    log(f"[quant] alone at rows {tuple(rows.shape)}, {out['layout']}: "
         + ", ".join(f"{k} {v:.4f} ms (plain {out['plain_ms'][k]:.3f} ms)"
                     for k, v in out["kernel_ms"].items())
+        + f"; copy of the rows {out['copy_ms']:.4f} ms = "
+        f"{out['copy_bytes_per_s'] / 1e9:.0f} GB/s"
         + "; evidence einsum ms " + ", ".join(
             f"{k} {v:.3f}" for k, v in out["einsum_ms"].items())
         + f"; in the {QUANT_ITERATIONS[-1]}-iteration program "
@@ -1604,6 +1655,7 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
         out["call_ms"][label] = _cuda_ms(lambda: fn(y, w), reps, inner=10)
         out["quantize_ms"][label] = _cuda_ms(lambda: quant(y), reps, inner=20)
         out["quantize_plain_ms"][label] = _cuda_ms(lambda: ref(y), reps)
+        out["layout"] = _layout_name(tq.device_quant_layout(y, vals))
         out["dequant_ms"][label] = _cuda_ms(
             lambda: tq.dequant_matmul(vals, scales, w), reps, inner=20)
         out["dequant_plain_ms"][label] = _cuda_ms(
@@ -1617,8 +1669,18 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
             out["library_ms"] = _cuda_ms(lambda: torch.matmul(deq, w), reps,
                                          inner=20)
             del deq
-    out["profile"] = _device_profile(lambda: tq.quantized_evidence(y, w),
-                                     QUANT_KERNEL_NAMES)
+    # yardstick only: a device copy of the same rows, read and write counted
+    out["copy_ms"] = _cuda_ms(lambda: torch.empty_like(y).copy_(y), reps,
+                              inner=20)
+    out["copy_bytes_per_s"] = 2 * y.numel() * 4 / (out["copy_ms"] / 1e3)
+    # three calls a recorded step: the profiler can lose the device event
+    # of a step's first launch, and the per-launch time is over those found
+    out["profile"] = _device_profile(
+        lambda: [tq.quantized_evidence(y, w) for _ in range(3)],
+        QUANT_KERNEL_NAMES)
+    out["profile_fp8"] = _device_profile(
+        lambda: [tq.quantized_evidence_fp8(y, w) for _ in range(3)],
+        QUANT_KERNEL_NAMES)
     log(f"[ingest] (R,dy,dx)={shape}: "
         + "; ".join(
             f"{k}: call {out['call_ms'][k]:.4f} ms, quantize "
@@ -1629,7 +1691,10 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
             f"{out['dequant_bytes_per_s'][k]:.4g} B/s, error share "
             f"{out['errs'][k]:.3g}" for k in out["call_ms"])
         + f"; float32 matmul on the dequantized matrix {out['library_ms']:.4f}"
-        f" ms; in the int8 call {out['profile']['kernels']}")
+        f" ms; quantize layout {out['layout']}; copy of y "
+        f"{out['copy_ms']:.4f} ms = {out['copy_bytes_per_s'] / 1e9:.0f} GB/s"
+        f"; in three int8 calls {out['profile']['kernels']}, in three fp8 "
+        f"calls {out['profile_fp8']['kernels']}")
     return out
 
 
@@ -1687,7 +1752,7 @@ def main() -> int:
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
-    plain = time_plain(device, PLAIN_SHAPE, reps=3)
+    plain = time_plain(device, PLAIN_SHAPE, reps=1)
     bounds = kernel_bounds(MAIN_B, MAIN_T, MAIN_D)
     plain_bounds = kernel_bounds(*PLAIN_SHAPE)
     _elapsed("LGSSM path", t_start)
@@ -1709,7 +1774,8 @@ def main() -> int:
 
     # 6. filter and quantization kernels vs plain versions
     worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES)
-    worst.update(check_quant_kernels(device))
+    quant_worst, quant_layouts = check_quant_kernels(device)
+    worst.update(quant_worst)
     _elapsed("K3, K6-K8 checks", t_start)
 
     # 7. path A: the continuous-batching filter at full width
@@ -1729,11 +1795,17 @@ def main() -> int:
           f"{filt_bound['bound_ms']:.4f} ms ({filt_bound['bound_by']}), "
           f"roofline share "
           f"{100 * filt_bound['bound_ms'] / filt['kernel_ms']:.2f}%")
-    for name in ("quantize_rows", "quantize_rows_fp8"):
+    for name, label in (("quantize_rows", "int8"),
+                        ("quantize_rows_fp8", "float8_e4m3fn")):
         print(f"[quant] {name}: {quant['kernel_ms'][name]:.4f} ms at rows "
-              f"{QUANT_SHAPE}, bound {q_bound['bound_ms']:.4f} ms "
-              f"({q_bound['bound_by']}), roofline share "
-              f"{100 * q_bound['bound_ms'] / quant['kernel_ms'][name]:.2f}%")
+              f"{QUANT_SHAPE} ({quant['layout']}), bound "
+              f"{q_bound['bound_ms']:.4f} ms ({q_bound['bound_by']}), "
+              f"roofline share "
+              f"{100 * q_bound['bound_ms'] / quant['kernel_ms'][name]:.2f}%; "
+              f"{ingest['quantize_ms'][label]:.4f} ms at rows "
+              f"{INGEST_SHAPE[:2]} ({ingest['layout']}), bound "
+              f"{q_ingest_bound['bound_ms']:.4f} ms, roofline share "
+              f"{100 * q_ingest_bound['bound_ms'] / ingest['quantize_ms'][label]:.2f}%")
     print(f"[ingest] dequant_matmul: {ingest['dequant_ms']['int8']:.4f} ms, "
           f"bound {dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), "
           f"roofline share "
@@ -1857,8 +1929,21 @@ def main() -> int:
             "bytes": q_bound["bytes"], "ops": q_bound["ops"],
             "ingest_shape_RC": list(INGEST_SHAPE[:2]),
             "ms_at_ingest_shape": ingest["quantize_ms"][label],
+            "ms_in_path_at_ingest_shape": ingest[
+                "profile" if label == "int8" else "profile_fp8"]["kernels"][
+                name]["ms_per_launch"],
             "plain_ms_at_ingest_shape": ingest["quantize_plain_ms"][label],
             "bound_ms_at_ingest_shape": q_ingest_bound["bound_ms"],
+            "variant": quant["layout"],
+            "variant_at_ingest_shape": ingest["layout"],
+            "share_of_bound": q_bound["bound_ms"] / quant["kernel_ms"][name],
+            "share_of_bound_at_ingest_shape":
+                q_ingest_bound["bound_ms"] / ingest["quantize_ms"][label],
+            "variants_checked": {
+                "x".join(map(str, k)): _layout_name(v)
+                for k, v in quant_layouts.items()},
+            "copy_gb_per_s": quant["copy_bytes_per_s"] / 1e9,
+            "copy_gb_per_s_at_ingest_shape": ingest["copy_bytes_per_s"] / 1e9,
         })
     rows.append({
         "name": "dequant_matmul", "route": "cuda", "source": q_source,

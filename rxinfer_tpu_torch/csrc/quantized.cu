@@ -2,9 +2,9 @@
 // fp8 (e4m3) quantization, and the fused dequantize + small matrix product.
 //
 // Replaces the TPU kernels of rxinfer_tpu/ops/quantized.py:
-//   quantize_kernel<int8>   `_quantize_kernel`        (lines 50-56)
-//   quantize_kernel<fp8>    `_quantize_fp8_kernel`    (lines 153-158)
-//   dequant_matmul_kernel   `_dequant_matmul_kernel`  (lines 107-109)
+//   K6  quantize_*_kernel<Int8Payload>  `_quantize_kernel`        (line 50)
+//   K7  quantize_*_kernel<Fp8Payload>   `_quantize_fp8_kernel`    (line 153)
+//   K8  dequant_matmul_kernel           `_dequant_matmul_kernel`  (lines 107-109)
 // The arithmetic is that of the plain versions in
 // rxinfer_tpu_torch/ops/quantized.py.
 //
@@ -16,14 +16,39 @@
 // of cuda_fp8.h); x / scale is an IEEE division, never a multiplication by a
 // reciprocal, so payloads agree with the plain version at ties.  A zero row
 // gives scale = 1e-12 / M and a zero payload.  |x / scale| <= M by
-// construction, so the saturating conversion never saturates.
+// construction, so the saturating conversion never saturates.  A maximum is
+// exact in any order, so every reduction tree below gives the plain
+// version's scale bits.
 //
-// Design (quantize): a group of G lanes per row, G the power of two that
-// covers min(C, 32): a whole warp for a wide row, 32 / G rows per warp for a
-// narrow one.  Lanes stride the columns, the row maximum goes through
-// __shfl_xor_sync inside the group, and a second pass over the row writes
-// the payload.  Bound on the card: the bytes (4 in, 1 out per element);
-// the second pass re-reads the row, from L2 when it is still there.
+// K6 / K7 are bound by their bytes: (4 + 1) per element in and out, and 4
+// per row for the scale; a few operations an element are far below the
+// card's rate.  So each variant is built to read every row from device
+// memory once, in 16-byte loads, with enough loads in flight per SM to cover
+// the memory latency, and to write the payload in packed 4-byte stores.
+// The wrapper's rule (`pick_quant_layout`, ops/quantized.py) picks the
+// variant before the launch:
+//   narrow  (C % 4 == 0, 16-byte aligned rows, C <= 1024; the ingest rows
+//           (R, 16)): G lanes a row, V float4 a lane (C <= 128: G = C/4
+//           rounded up to a power of two, V = 1, 32/G rows a warp; up to
+//           1024: a warp a row, V = 2, 4 or 8).  Each thread takes U row
+//           groups of its warp's span (U = 4 where rows are plenty, V = 1)
+//           and starts all its loads before the first reduction; the row
+//           stays in registers between the maximum (log2 G shuffles) and
+//           the encode, and each lane stores four payload bytes as one
+//           32-bit word: at C = 16 a warp reads 512 contiguous bytes and
+//           writes 128 a row group.  Offsets inside a warp's span are
+//           32-bit; the span's base is one 64-bit product a warp.
+//   wide    (C % 4 == 0, aligned, 1024 < C <= 16384; the engine's rows
+//           (B*F, T)): one CTA of 256 threads a row, V float4 a thread held
+//           in registers, the maximum by warp shuffles and one shared-memory
+//           step across the 8 warps, then the encode from registers and
+//           packed 4-byte stores.  Each row is read from device memory once
+//           (the two-pass kernel reads it twice, and rows that outgrow the
+//           50 MB L2 come from HBM both times).
+//   general (any other rows: C % 4 != 0, misaligned views, C > 16384): a
+//           group of G lanes a row (G the power of two covering min(C, 32)),
+//           lanes striding the columns, and a second pass over the row for
+//           the payload, re-reading it (from L2 where it still is).
 //
 // Dequantize + product: out (R, dx) = (float(vals) * scales) @ W, W (dy, dx).
 // One thread per output element, W in shared memory, the payload
@@ -66,19 +91,135 @@ struct Fp8Payload {
 };
 
 constexpr int kThreads = 256;
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
 
-// ---- K6 / K7: per-row quantization -------------------------------------------
+// variants, as ops/quantized.py numbers them
+constexpr int kGeneral = 0;
+constexpr int kNarrow = 1;
+constexpr int kWide = 2;
+
+__device__ __forceinline__ float absmax4(float m, float4 v) {
+  return fmaxf(fmaxf(fmaxf(m, fabsf(v.x)), fmaxf(fabsf(v.y), fabsf(v.z))),
+               fabsf(v.w));
+}
+
+// the four payload bytes of x[0..3] / scale, x[0] in the lowest byte
 template <typename P>
-__global__ void quantize_kernel(const float* __restrict__ x,
-                                typename P::storage* __restrict__ vals,
-                                float* __restrict__ scales, int64_t R,
-                                int64_t C, int group) {
+__device__ __forceinline__ uint32_t encode4(float4 v, float scale) {
+  const uint32_t b0 = static_cast<uint8_t>(P::encode(v.x / scale));
+  const uint32_t b1 = static_cast<uint8_t>(P::encode(v.y / scale));
+  const uint32_t b2 = static_cast<uint8_t>(P::encode(v.z / scale));
+  const uint32_t b3 = static_cast<uint8_t>(P::encode(v.w / scale));
+  return b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+}
+
+// ---- K6 / K7, narrow rows: G lanes a row, V float4 a lane, U row groups ------
+// a thread.  Lane gl of a row takes the float4 gl, gl + G, ..., gl + (V-1) G.
+template <typename P, int G, int U, int V>
+__global__ void __launch_bounds__(kThreads)
+quantize_narrow_kernel(const float* __restrict__ x,
+                       typename P::storage* __restrict__ vals,
+                       float* __restrict__ scales, int64_t R, int C) {
+  constexpr int kRowsPerWarp = 32 / G;
+  constexpr int kSpan = U * kRowsPerWarp;           // rows a warp takes
   const int lane = threadIdx.x & 31;
   const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int rows_per_warp = 32 / group;
-  const int64_t row = warp * rows_per_warp + lane / group;
-  const int gl = lane % group;
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t row0 = warp * kSpan;
+  if (row0 >= R) return;                            // the whole warp
+  const int64_t left = R - row0;
+  const int rows = left < kSpan ? static_cast<int>(left) : kSpan;
+  const int gl = lane % G;                          // G is a power of two
+  const int sub = lane / G;
+  const float* xw = x + row0 * C;
+  uint8_t* vw = reinterpret_cast<uint8_t*>(vals) + row0 * C;
+
+  float4 v[U][V];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = u * kRowsPerWarp + sub;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int c = 4 * (gl + k * G);
+      v[u][k] = (c < C && r < rows)
+                    ? *reinterpret_cast<const float4*>(xw + r * C + c)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = u * kRowsPerWarp + sub;
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) amax = absmax4(amax, v[u][k]);
+#pragma unroll
+    for (int off = G >> 1; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (r < rows) {
+      const float scale = fmaxf(amax, 1e-12f) / P::kMax;
+      if (gl == 0) scales[row0 + r] = scale;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int c = 4 * (gl + k * G);
+        if (c < C)
+          *reinterpret_cast<uint32_t*>(vw + r * C + c) =
+              encode4<P>(v[u][k], scale);
+      }
+    }
+  }
+}
+
+// ---- K6 / K7, wide rows: a CTA a row, V float4 a thread ----------------------
+template <typename P, int V>
+__global__ void __launch_bounds__(kWideThreads)
+quantize_wide_kernel(const float* __restrict__ x,
+                     typename P::storage* __restrict__ vals,
+                     float* __restrict__ scales, int C) {
+  __shared__ float warp_max[kWideWarps];
+  const int64_t row = blockIdx.x;
+  const float4* xr = reinterpret_cast<const float4*>(x + row * C);
+  uint32_t* vr = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<uint8_t*>(vals) + row * C);
+  const int nv = C >> 2;
+
+  float4 v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = threadIdx.x + k * kWideThreads;
+    v[k] = i < nv ? xr[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) amax = absmax4(amax, v[k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) amax = fmaxf(amax, warp_max[w]);
+  const float scale = fmaxf(amax, 1e-12f) / P::kMax;
+  if (threadIdx.x == 0) scales[row] = scale;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = threadIdx.x + k * kWideThreads;
+    if (i < nv) vr[i] = encode4<P>(v[k], scale);
+  }
+}
+
+// ---- K6 / K7, any rows: G lanes a row, two passes ----------------------------
+template <typename P, int G>
+__global__ void __launch_bounds__(kThreads)
+quantize_general_kernel(const float* __restrict__ x,
+                        typename P::storage* __restrict__ vals,
+                        float* __restrict__ scales, int64_t R, int64_t C) {
+  constexpr int kRowsPerWarp = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t row = warp * kRowsPerWarp + lane / G;
+  const int gl = lane % G;
   // every lane of the warp takes part in the shuffles; lanes past the last
   // row read nothing and write nothing
   const bool live = row < R;
@@ -87,29 +228,110 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   float amax = 0.0f;
   if (live) {
 #pragma unroll 4
-    for (int64_t c = gl; c < C; c += group) amax = fmaxf(amax, fabsf(xr[c]));
+    for (int64_t c = gl; c < C; c += G) amax = fmaxf(amax, fabsf(xr[c]));
   }
-  for (int off = group >> 1; off > 0; off >>= 1)
+#pragma unroll
+  for (int off = G >> 1; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   if (!live) return;
   const float scale = fmaxf(amax, 1e-12f) / P::kMax;
   if (gl == 0) scales[row] = scale;
   typename P::storage* vr = vals + row * C;
 #pragma unroll 4
-  for (int64_t c = gl; c < C; c += group) vr[c] = P::encode(xr[c] / scale);
+  for (int64_t c = gl; c < C; c += G) vr[c] = P::encode(xr[c] / scale);
+}
+
+template <typename P, int G, int U, int V>
+int launch_narrow(const float* x, void* vals, float* scales, int64_t R,
+                  int64_t C, cudaStream_t stream) {
+  constexpr int64_t kRowsPerBlock = (kThreads / 32) * U * (32 / G);
+  const unsigned blocks =
+      static_cast<unsigned>((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  quantize_narrow_kernel<P, G, U, V><<<blocks, kThreads, 0, stream>>>(
+      x, static_cast<typename P::storage*>(vals), scales, R,
+      static_cast<int>(C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename P, int V>
+int launch_wide(const float* x, void* vals, float* scales, int64_t R,
+                int64_t C, cudaStream_t stream) {
+  quantize_wide_kernel<P, V><<<static_cast<unsigned>(R), kWideThreads, 0,
+                               stream>>>(
+      x, static_cast<typename P::storage*>(vals), scales,
+      static_cast<int>(C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename P, int G>
+int launch_general(const float* x, void* vals, float* scales, int64_t R,
+                   int64_t C, cudaStream_t stream) {
+  constexpr int64_t kRowsPerBlock = (kThreads / 32) * (32 / G);
+  const unsigned blocks =
+      static_cast<unsigned>((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  quantize_general_kernel<P, G><<<blocks, kThreads, 0, stream>>>(
+      x, static_cast<typename P::storage*>(vals), scales, R, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The variant's instance, or cudaErrorInvalidValue for a combination the
+// rule never picks (the wrapper raises on it).
+template <typename P, int U>
+int launch_narrow_g(int group, const float* x, void* vals, float* scales,
+                    int64_t R, int64_t C, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_narrow<P, 1, U, 1>(x, vals, scales, R, C, s);
+    case 2: return launch_narrow<P, 2, U, 1>(x, vals, scales, R, C, s);
+    case 4: return launch_narrow<P, 4, U, 1>(x, vals, scales, R, C, s);
+    case 8: return launch_narrow<P, 8, U, 1>(x, vals, scales, R, C, s);
+    case 16: return launch_narrow<P, 16, U, 1>(x, vals, scales, R, C, s);
+    case 32: return launch_narrow<P, 32, U, 1>(x, vals, scales, R, C, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename P>
-int launch_quantize(const float* x, void* vals, float* scales, int64_t R,
-                    int64_t C, cudaStream_t stream) {
-  int group = 1;
-  while (group < 32 && group < C) group <<= 1;
-  const int64_t rows_per_block = (kThreads / 32) * (32 / group);
-  const unsigned blocks =
-      static_cast<unsigned>((R + rows_per_block - 1) / rows_per_block);
-  quantize_kernel<P><<<blocks, kThreads, 0, stream>>>(
-      x, static_cast<typename P::storage*>(vals), scales, R, C, group);
-  return static_cast<int>(cudaGetLastError());
+int launch_quantize(int variant, int group, int rows_per_thread, int vecs,
+                    const float* x, void* vals, float* scales, int64_t R,
+                    int64_t C, cudaStream_t s) {
+  const bool vec_ok = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  if (variant == kNarrow) {
+    if (!vec_ok || C > 4 * group * vecs)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (vecs == 1 && rows_per_thread == 1)
+      return launch_narrow_g<P, 1>(group, x, vals, scales, R, C, s);
+    if (vecs == 1 && rows_per_thread == 4)
+      return launch_narrow_g<P, 4>(group, x, vals, scales, R, C, s);
+    if (group == 32 && rows_per_thread == 1) {   // a warp a row
+      switch (vecs) {
+        case 2: return launch_narrow<P, 32, 1, 2>(x, vals, scales, R, C, s);
+        case 4: return launch_narrow<P, 32, 1, 4>(x, vals, scales, R, C, s);
+        case 8: return launch_narrow<P, 32, 1, 8>(x, vals, scales, R, C, s);
+      }
+    }
+  } else if (variant == kWide) {
+    if (!vec_ok || C > 4 * kWideThreads * vecs || R > INT32_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (vecs) {
+      case 2: return launch_wide<P, 2>(x, vals, scales, R, C, s);
+      case 4: return launch_wide<P, 4>(x, vals, scales, R, C, s);
+      case 8: return launch_wide<P, 8>(x, vals, scales, R, C, s);
+      case 10: return launch_wide<P, 10>(x, vals, scales, R, C, s);
+      case 12: return launch_wide<P, 12>(x, vals, scales, R, C, s);
+      case 16: return launch_wide<P, 16>(x, vals, scales, R, C, s);
+    }
+  } else if (variant == kGeneral) {
+    switch (group) {
+      case 1: return launch_general<P, 1>(x, vals, scales, R, C, s);
+      case 2: return launch_general<P, 2>(x, vals, scales, R, C, s);
+      case 4: return launch_general<P, 4>(x, vals, scales, R, C, s);
+      case 8: return launch_general<P, 8>(x, vals, scales, R, C, s);
+      case 16: return launch_general<P, 16>(x, vals, scales, R, C, s);
+      case 32: return launch_general<P, 32>(x, vals, scales, R, C, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- K8: dequantize + product ----------------------------------------------------
@@ -159,11 +381,18 @@ extern "C" {
 
 // Each launcher returns cudaGetLastError() after its launch (0 = success).
 // `fp8` selects the payload type: 0 = int8, 1 = float8 e4m3 (as bytes).
-int rxt_quantize_rows(int fp8, const float* x, void* vals, float* scales,
+// `variant` (0 general, 1 narrow, 2 wide), `group` (lanes a row),
+// `rows_per_thread` (narrow: row groups a thread) and `vecs` (float4 a lane)
+// are the wrapper's layout (`pick_quant_layout`); a layout the kernels do
+// not take returns cudaErrorInvalidValue without a launch.
+int rxt_quantize_rows(int fp8, int variant, int group, int rows_per_thread,
+                      int vecs, const float* x, void* vals, float* scales,
                       int64_t R, int64_t C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fp8 ? launch_quantize<Fp8Payload>(x, vals, scales, R, C, s)
-             : launch_quantize<Int8Payload>(x, vals, scales, R, C, s);
+  return fp8 ? launch_quantize<Fp8Payload>(variant, group, rows_per_thread,
+                                           vecs, x, vals, scales, R, C, s)
+             : launch_quantize<Int8Payload>(variant, group, rows_per_thread,
+                                            vecs, x, vals, scales, R, C, s);
 }
 
 int rxt_dequant_matmul(int fp8, const void* vals, const float* scales,

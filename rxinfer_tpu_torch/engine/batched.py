@@ -142,7 +142,10 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict):
     length = block.var.length
     d0 = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in data0.items()}
     try:
-        a, bb, q = block._transition_params({}, d0, length)
+        # at T = 1 the chain applies no transition, so the (T-1)-row tables
+        # are empty; the constants come from the factor's Const interfaces
+        # all the same, so ask for one row
+        a, bb, q = block._transition_params({}, d0, max(length, 2))
         m0, p0 = block._prior_moments({}, d0)
         _, w = block._evidence({}, d0, length)
     except Exception as exc:  # noqa: BLE001 — any assembly failure: reason

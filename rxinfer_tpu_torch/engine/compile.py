@@ -239,8 +239,10 @@ def _read_deps(var, graph: ModelGraph, chains) -> set[str]:
 
 def schedule_sweep(graph, chains, init_names: set[str]) -> list[str]:
     """Greedy topological sweep order; initialized groups count as
-    available.  Deadlocked models raise (the JAX package's exact tree
-    schedule for deadlocked trees is not ported yet)."""
+    available.  A deadlock that blocks a chain is the caller's to break with
+    an initialization (``ValueError``, as in the JAX package); a chain-free
+    deadlock would take the JAX package's exact tree schedule, which is not
+    ported yet (``NotImplementedError``)."""
     remaining = list(graph.random_variables())
     available: set[str] = set(init_names)
     updated: set[str] = set()
@@ -257,6 +259,13 @@ def schedule_sweep(graph, chains, init_names: set[str]) -> list[str]:
         if not progressed:
             blocked = {v.name: sorted(deps_map[v.name] - updated - available)
                        for v in remaining}
+            if any(v.name in chains for v in remaining):
+                raise ValueError(
+                    "Model contains initialization cycles; provide "
+                    f"initialization for some of: {blocked}. (Reference "
+                    "equivalent: @initialization is required for "
+                    "variational iterations.)"
+                )
             raise NotImplementedError(
                 "Model contains initialization cycles "
                 f"({blocked}); tree schedules and loopy models are not "

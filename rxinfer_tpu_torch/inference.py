@@ -97,22 +97,23 @@ def _all_finite(data: dict) -> bool:
 
 class ProgramCache:
     """Compiled batched programs keyed by model, data shapes and settings;
-    a hit also needs value-equal initialization and options."""
+    a hit also needs value-equal bound hyperparameters, initialization and
+    options."""
 
     def __init__(self):
         self._entries: dict = {}
 
-    def get(self, sig, init, options):
+    def get(self, sig, values):
         hit = self._entries.get(sig)
         if hit is None:
             return None
-        compiled, prog, c_init, c_opts = hit
-        if _value_equal(c_init, init) and _value_equal(c_opts, options):
+        compiled, prog, c_values = hit
+        if _value_equal(c_values, values):
             return compiled, prog
         return None
 
-    def put(self, sig, init, options, compiled, prog):
-        self._entries[sig] = (compiled, prog, init, options)
+    def put(self, sig, values, compiled, prog):
+        self._entries[sig] = (compiled, prog, values)
 
 
 _PROGRAMS = ProgramCache()
@@ -141,9 +142,12 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), iterations, free_energy, keep_each,
            all_finite, str(device))
-    # constraints and meta are not ported (CompiledModel raises on them),
-    # so every cached program was built without them
-    cached = _PROGRAMS.get(sig, init_dists, options)
+    # the bound hyperparameters are traced into the program as constants,
+    # so a hit needs their values, not only their names; constraints and
+    # meta are not ported (CompiledModel raises on them), so every cached
+    # program was built without them
+    values = (dict(model.bound), init_dists, options)
+    cached = _PROGRAMS.get(sig, values)
     if cached is not None and constraints is None and not meta:
         return cached
     graph = model.trace(first)
@@ -152,7 +156,7 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     prog = compiled.make_batched_program(
         first, iterations, free_energy, keep_each=keep_each,
         all_finite=all_finite, device=device)
-    _PROGRAMS.put(sig, init_dists, options, compiled, prog)
+    _PROGRAMS.put(sig, values, compiled, prog)
     return compiled, prog
 
 

@@ -21,11 +21,21 @@ when its tensors lie on the CPU and launches its kernel when they lie on a
 CUDA device; there is no fallback from a kernel to its plain version.
 ``LAUNCHES`` counts kernel launches.  The kernels take any (R, C), so the
 row blocks and the zero-padded tail of the TPU wrappers have no counterpart.
+
+The quantize kernels come in three variants, and ``pick_quant_layout``
+picks one before the launch from the shape, the alignment of the tensors
+and the card's SM count: ``narrow`` (a warp or less a row, ``float4``
+loads; rows of at most ``NARROW_MAX_COLS`` columns), ``wide`` (a CTA a row
+held in registers; up to ``WIDE_MAX_COLS`` columns) and ``general`` (any
+rows, two passes).  Each computes the same function; a layout is never
+retried.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -33,6 +43,16 @@ from .. import kernels
 
 INT8_MAX = 127.0
 FP8_MAX = 448.0   # largest finite float8_e4m3fn
+
+# The quantize kernels' layouts (csrc/quantized.cu numbers the variants so).
+VARIANTS = {"general": 0, "narrow": 1, "wide": 2}
+NARROW_VECS = (1, 2, 4, 8)     # float4 a lane: the instances
+NARROW_MAX_COLS = 4 * 32 * NARROW_VECS[-1]   # a warp a row, 1024
+NARROW_ROW_GROUPS = 4          # row groups a thread when rows are plenty
+WARPS_PER_SM = 64              # resident warps an SM holds at most
+WIDE_THREADS = 256             # a CTA a row
+WIDE_VECS = (2, 4, 8, 10, 12, 16)   # float4 a thread: the instances
+WIDE_MAX_COLS = 4 * WIDE_THREADS * WIDE_VECS[-1]   # the register cap, 16384
 
 # kernel launches on CUDA tensors (the plain versions on CPU tensors count none)
 LAUNCHES = {"quantize_rows": 0, "quantize_rows_fp8": 0, "dequant_matmul": 0}
@@ -76,6 +96,80 @@ def dequant_matmul_reference(vals, scales, w):
     return acc
 
 
+# -- launch rule ----------------------------------------------------------------
+
+@dataclass(frozen=True)
+class QuantLayout:
+    """A quantize launch: the ``variant``, the lanes a row (``group``), the
+    rows a thread takes (``rows_per_thread``: row groups of its warp, for
+    ``narrow``) and the ``float4`` a lane holds of each (``vecs``; 0 for
+    ``general``, which holds none)."""
+
+    variant: str
+    group: int
+    rows_per_thread: int
+    vecs: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def pick_quant_layout(rows: int, cols: int, aligned: bool,
+                      sm_count: int) -> QuantLayout:
+    """The quantize kernels' layout for x (rows, cols) on a card with
+    ``sm_count`` SMs.  ``aligned``: cols % 4 == 0 and both x and the payload
+    start on 16 bytes, so that a lane may load a row's columns as
+    ``float4`` and store its payload bytes as one 32-bit word.
+
+    * ``narrow`` for aligned rows of at most 128 columns: cols / 4 lanes a
+      row, rounded up to a power of two, a float4 a lane; each thread takes
+      ``NARROW_ROW_GROUPS`` row groups when that still leaves every SM its
+      ``WARPS_PER_SM`` warps, else one.  Up to ``NARROW_MAX_COLS``: a warp
+      a row, the fewest ``NARROW_VECS`` float4 a lane that hold it.
+    * ``wide`` for aligned rows up to ``WIDE_MAX_COLS``: a CTA of
+      ``WIDE_THREADS`` a row, the fewest ``WIDE_VECS`` float4 a thread that
+      hold the row.
+    * ``general`` for the rest: the power of two covering min(cols, 32)
+      lanes a row, two passes."""
+    if aligned and cols <= 4 * 32:
+        group = _pow2_at_least(max(1, cols // 4))
+        row_groups = -(-rows // (32 // group))
+        deep = row_groups >= NARROW_ROW_GROUPS * sm_count * WARPS_PER_SM
+        return QuantLayout("narrow", group,
+                           NARROW_ROW_GROUPS if deep else 1, 1)
+    if aligned and cols <= NARROW_MAX_COLS:
+        need = -(-cols // (4 * 32))
+        return QuantLayout("narrow", 32, 1,
+                           min(v for v in NARROW_VECS if v >= need))
+    if aligned and cols <= WIDE_MAX_COLS:
+        need = -(-cols // (4 * WIDE_THREADS))
+        return QuantLayout("wide", WIDE_THREADS, 1,
+                           min(v for v in WIDE_VECS if v >= need))
+    return QuantLayout("general", _pow2_at_least(min(cols, 32)), 1, 0)
+
+
+def vector_aligned(x, vals) -> bool:
+    """Whether x (R, C) and its payload may be read and written a vector
+    at a time: C % 4 == 0 and both start on 16 bytes (a contiguous view
+    that starts inside its storage may not)."""
+    return (x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+            and vals.data_ptr() % 16 == 0)
+
+
+def device_quant_layout(x, vals) -> QuantLayout:
+    """The layout the quantize wrappers take for x and its payload ``vals``
+    on their CUDA device."""
+    rows, cols = x.shape
+    sm_count = torch.cuda.get_device_properties(
+        x.device).multi_processor_count
+    return pick_quant_layout(rows, cols, vector_aligned(x, vals), sm_count)
+
+
 # -- kernel launches ------------------------------------------------------------
 
 def _library():
@@ -83,6 +177,7 @@ def _library():
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
         lib.rxt_quantize_rows.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, p]
         lib.rxt_quantize_rows.restype = ctypes.c_int
         lib.rxt_dequant_matmul.argtypes = [
@@ -105,12 +200,15 @@ def _quantize(x, name: str, dtype, reference):
     scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows == 0:
         return vals, scales
+    layout = device_quant_layout(x, vals)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.rxt_quantize_rows(
-        int(dtype == torch.float8_e4m3fn), x.data_ptr(), vals.data_ptr(),
-        scales.data_ptr(), rows, cols, stream)
-    kernels.check(lib, rc, f"{name} kernel")
+        int(dtype == torch.float8_e4m3fn), VARIANTS[layout.variant],
+        layout.group, layout.rows_per_thread, layout.vecs, x.data_ptr(),
+        vals.data_ptr(), scales.data_ptr(), rows, cols, stream)
+    if rc:
+        kernels.check(lib, rc, f"{name} kernel, {layout}")
     LAUNCHES[name] += 1
     return vals, scales
 

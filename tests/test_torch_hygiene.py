@@ -14,8 +14,12 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+# the package, chip_smoke.py and the scripts that drive the port (the other
+# scripts belong to the JAX package)
 PORT_FILES = sorted((REPO / "rxinfer_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted(
+    p for p in (REPO / "scripts").glob("*.py")
+    if "rxinfer_tpu_torch" in p.read_text())
 
 
 def _imported_modules(path: Path) -> set:
