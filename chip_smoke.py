@@ -46,18 +46,23 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    FB_ALONE_SHAPES, beside the SM clock sampled meanwhile.
 6. Filter and quantization kernels vs plain versions on the card: the
    streaming filter kernel K3 against ``fused_filter_reference`` at several
-   (B, T, d, dy) (RTOL/ATOL) and sampled chains against a float64 filter;
-   the quantize kernels K6/K7 against their plain versions (payload bytes
-   and scales must be EQUAL, a zero row included) at QUANT_CHECK_SHAPES,
-   which take each of their layouts (``pick_quant_layout``: narrow, wide,
-   general) and a view that starts 4 bytes into its storage; the
-   dequantize + product kernel K8 on both payload types (DQ_TOL).
+   (B, T, d, dy) (RTOL/ATOL), a ragged last warp at path A's width
+   included, and sampled chains against a float64 filter; the quantize
+   kernels K6/K7 against their plain versions
+   (payload bytes and scales must be EQUAL, a zero row included) at
+   QUANT_CHECK_SHAPES, which take each of their layouts
+   (``pick_quant_layout``: narrow, wide, general) and a view that starts 4
+   bytes into its storage; the dequantize + product kernel K8 on both
+   payload types at DEQUANT_CHECK_SHAPES, which take each of its layouts
+   (``pick_dequant_layout``: vector, general) and a payload view that
+   starts 4 bytes into its storage (outputs must be EQUAL).
 7. Path A, continuous-batching filter at full width:
    ``parallel.filtering.make_sharded_filtering(None, ..., fused=True)`` over
    a (T, B, dy) stream of B=10,000 chains, T=200 steps, d=dy=4 with the
    LGSSM constants.  One K3 launch per call; final state and sampled means
-   against the float64 filter (ORACLE_TOL); the call, K3 alone and the plain
-   ``filtering_scan`` timed; one call profiled.
+   against the float64 filter (ORACLE_TOL); the call, K3 alone (beside
+   the SM clock) and the plain ``filtering_scan`` timed; one call
+   profiled (K3's cycles a step).
 8. Path B, quantized ingest.  (i) The LGSSM program of phase 4 with
    ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` at 1 and 10
    iterations beside the float32 program: one K6 or K7 launch per call
@@ -68,7 +73,8 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    one K8 launch per call, the result against the float32 product.  Both
    time K6/K7 alone with the layout their rows took, beside a device copy
    of the same rows (``torch.empty_like(x).copy_(x)``) as a yardstick of
-   the bandwidth the card reaches.
+   the bandwidth the card reaches; (ii) times K8 alone with its layout,
+   beside a device copy of its payload and of its output.
 9. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
@@ -147,19 +153,19 @@ FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
 FB_ALONE_SHAPES = [(256, 200, 3), (4096, 1000, 3), (64, 10_000, 8)]
 HMM_ROWS = (0, 1, 128, 255)
 
-# K8 against its plain version (same order of summation; the kernel may fuse
-# each multiply-add) and the quantized LGSSM program against the float32
-# program on the dequantized observations (the two evidence einsums read
-# different layouts and may sum in different orders).
-DQ_TOL = 1e-5
+# The quantized LGSSM program against the float32 program on the
+# dequantized observations (the two evidence einsums read different layouts
+# and may sum in different orders).  K8 is held EQUAL to its plain version:
+# both round every product and sum on its own, in the same order.
 DEQ_TOL = 1e-5
 # Posterior means on quantized observations against the float32 run, as a
 # share of max |mean|: the JAX package's engine-test levels.
 INT8_LEVEL, FP8_LEVEL = 0.05, 0.07
 
 FILTER_B, FILTER_T, FILTER_D = 10_000, 200, 4
-FILTER_CHECK_SHAPES = [(1000, 257, 4, 4), (37, 64, 2, 3), (64, 33, 8, 8),
-                       (16, 40, 1, 1), (50, 1, 3, 3)]
+# (10_001, 200, 4, 4) is path A's shape with a ragged last warp.
+FILTER_CHECK_SHAPES = [(1000, 257, 4, 4), (10_001, 200, 4, 4), (37, 64, 2, 3),
+                       (64, 33, 8, 8), (16, 40, 1, 1), (50, 1, 3, 3)]
 # (R, C, start): rows of x from ``start`` floats into its storage.  Each of
 # the quantize kernels' layouts is taken (narrow with 4 row groups a thread
 # and with 1, narrow with a warp a row, wide, general), and the general one
@@ -169,7 +175,13 @@ QUANT_CHECK_SHAPES = [(1 << 21, 16, 0), (100_001, 16, 0), (4096, 10_000, 0),
                       (5, 16_388, 0), (1024, 1001, 0), (4096, 16, 1),
                       (4096, 200, 0), (100_000, 16, 0), (777, 6, 0),
                       (3, 1, 0)]
-DEQUANT_CHECK_SHAPES = [(1 << 21, 16, 4), (1000, 3, 5)]
+# (R, dy, dx, start): a payload view ``start`` bytes into its storage.  Each
+# of K8's layouts is taken (``pick_dequant_layout``: vector with 4 rows a
+# thread and with 1; general for odd dy, rows of 8 bytes and the view that
+# starts off 16 bytes).
+DEQUANT_CHECK_SHAPES = [(1 << 21, 16, 4, 0), (100_001, 16, 4, 0),
+                        (4096, 32, 8, 0), (1000, 3, 5, 0), (65_536, 8, 3, 0),
+                        (5000, 16, 4, 4)]
 QUANT_SHAPE = (MAIN_B * MAIN_D, MAIN_T)        # the engine's rows (B*F, T)
 INGEST_SHAPE = (1 << 21, 16, 4)                # rows, dy, dx
 QUANT_ITERATIONS = (1, 10)
@@ -872,6 +884,11 @@ def _cycles_per_step(ms, mhz: float, t_len: int):
     return ms * mhz * 1e3 / t_len
 
 
+def _share(bound_ms: float, ms):
+    """``bound_ms`` over a measured ``ms``, or "not measured"."""
+    return bound_ms / ms if isinstance(ms, float) else "not measured"
+
+
 def _elapsed(what: str, t_start: float) -> None:
     print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1329,9 +1346,11 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
     """Phase 6 for K6, K7, K8.  Quantize: payload bytes and scales equal to
     the plain version's, the zero row all zeros, at every entry of
     QUANT_CHECK_SHAPES, each of the kernels' layouts taken at least once.
-    Dequantize + product: within DQ_TOL of the plain version on both
-    payload types.  Returns per-kernel max abs error (payloads decoded to
-    float32) and the layout each (R, C, start) took."""
+    Dequantize + product: EQUAL to the plain version on both payload types
+    at every entry of DEQUANT_CHECK_SHAPES, each of its layouts taken.
+    Returns per-kernel max abs error (payloads decoded to float32) and the
+    layout each shape took (``quantize``: (R, C, start), ``dequant``:
+    (R, dy, dx, start))."""
     import torch
 
     from rxinfer_tpu_torch.ops import quantized as tq
@@ -1375,24 +1394,42 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
         if start and lay.variant != "general":
             failures.append(f"(R,C)=({r},{c}) {start} floats into its "
                             f"storage took {lay}, not the general layout")
-    for i, (r, dy, dx) in enumerate(DEQUANT_CHECK_SHAPES):
+    dq_layouts = {}
+    for i, (r, dy, dx, start) in enumerate(DEQUANT_CHECK_SHAPES):
         x = _quant_rows(r, dy, seed=500 + i, device=device)
         gen = torch.Generator(device=device).manual_seed(600 + i)
         w = torch.randn((dy, dx), generator=gen, device=device)
         parts = []
         for name, fn, _ in pairs:
             v, s = fn(x)
+            if start:
+                store = torch.empty(r * dy + start, dtype=v.dtype,
+                                    device=device)
+                v = store[start:].view(r, dy).copy_(v)
             got = tq.dequant_matmul(v, s, w)
             want = tq.dequant_matmul_reference(v, s, w)
+            dq_layouts[(r, dy, dx, start)] = tq.device_dequant_layout(v, got)
             torch.cuda.synchronize()
-            ea, er, ok = _max_err(got.cpu().numpy(), want.cpu().numpy(),
-                                  rtol=DQ_TOL, atol=DQ_TOL)
+            n_diff = int((got.view(torch.int32)
+                          != want.view(torch.int32)).sum())
+            ea = float((got - want).abs().max())
             worst["dequant_matmul"] = max(worst["dequant_matmul"], ea)
-            parts.append(f"{v.dtype}: abs {ea:.3g} rel {er:.3g}")
-            if not ok:
+            parts.append(f"{v.dtype}: {n_diff} outputs differ, max abs "
+                         f"{ea:.3g}")
+            if n_diff:
                 failures.append(f"(R,dy,dx)=({r},{dy},{dx}) {parts[-1]}")
-        log(f"[check] K8 (R,dy,dx)=({r},{dy},{dx}) " + "; ".join(parts)
-            + f" (rtol=atol={DQ_TOL})")
+        log(f"[check] K8 (R,dy,dx)=({r},{dy},{dx}) start {start}, "
+            f"{dq_layouts[(r, dy, dx, start)]}: " + "; ".join(parts)
+            + " (must be EQUAL)")
+        del x
+    taken = {(lay.variant, lay.rows_per_thread)
+             for lay in dq_layouts.values()}
+    if not {("vector", 4), ("vector", 1), ("general", 1)} <= taken:
+        failures.append(f"the K8 check shapes took only the layouts {taken}")
+    for (r, dy, dx, start), lay in dq_layouts.items():
+        if start % 16 and lay.variant != "general":
+            failures.append(f"K8 (R,dy,dx)=({r},{dy},{dx}) {start} bytes into "
+                            f"its storage took {lay}, not the general layout")
     if failures:
         raise AssertionError("quantization kernels disagree with their plain "
                              "versions: " + "; ".join(failures))
@@ -1401,7 +1438,7 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
     if rose != {"quantize_rows": n_q + n_d, "quantize_rows_fp8": n_q + n_d,
                 "dequant_matmul": 2 * n_d}:
         raise AssertionError(f"quantized launch counters rose by {rose}")
-    return worst, layouts
+    return worst, {"quantize": layouts, "dequant": dq_layouts}
 
 
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
@@ -1471,9 +1508,13 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     out = {"errs": errs, "launches": launches, "kernel_err": kernel_err}
     out["call_ms"] = _cuda_ms(lambda: fn(state, ys), reps)
     out["updates_per_s"] = b * t_len / (out["call_ms"] / 1e3)
-    out["kernel_ms"] = _cuda_ms(
-        lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs),
-        reps, inner=20)
+    k3 = lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
+    with SmClock() as clk:
+        end = time.perf_counter() + 0.5     # launches that bring the clock up
+        while time.perf_counter() < end:
+            k3()
+        out["kernel_ms"] = _cuda_ms(k3, reps, inner=20)
+    out["sm_clock_mhz"] = clk.mhz
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
     # the plain versions take 2-4 s a call (thousands of small launches):
@@ -1486,8 +1527,13 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     out["profile"] = _device_profile(lambda: fn(state, ys),
                                      FILTER_KERNEL_NAMES)
     busy = out["profile"]["busy_ms"]
+    out["cycles_per_step"] = _cycles_per_step(
+        out["profile"]["kernels"]["fused_filter"]["ms_per_launch"],
+        out["sm_clock_mhz"], t_len)
     log(f"[filter] call {out['call_ms']:.4f} ms ({out['updates_per_s']:.4g} "
-        f"chain-updates/s); alone: K3 {out['kernel_ms']:.4f} ms, observation "
+        f"chain-updates/s); K3 {out['cycles_per_step']} cycles a step in "
+        f"the call at {out['sm_clock_mhz']:.0f} MHz; alone: K3 "
+        f"{out['kernel_ms']:.4f} ms, observation "
         f"layout copy {out['layout_ms']:.4f} ms; plain filtering_scan on the "
         f"card {out['plain_scan_ms']:.1f} ms, K3's plain version "
         f"{out['plain_kernel_ms']:.1f} ms; device busy {busy} ms per call, "
@@ -1633,7 +1679,8 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
     nbytes = r * (dy + 4 + dx * 4)          # the JAX package's bench count
     out: dict = {"launches": {}, "errs": {}, "call_ms": {}, "quantize_ms": {},
                  "dequant_ms": {}, "dequant_plain_ms": {},
-                 "dequant_bytes_per_s": {}, "quantize_plain_ms": {}}
+                 "dequant_bytes_per_s": {}, "quantize_plain_ms": {},
+                 "dequant_device_ms": {}}
     for label, fn, quant, ref, kname, level in (
             ("int8", tq.quantized_evidence, tq.quantize_rows,
              tq.quantize_rows_reference, "quantize_rows", INT8_LEVEL),
@@ -1658,10 +1705,19 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
         out["layout"] = _layout_name(tq.device_quant_layout(y, vals))
         out["dequant_ms"][label] = _cuda_ms(
             lambda: tq.dequant_matmul(vals, scales, w), reps, inner=20)
+        out["dequant_layout"] = str(tq.device_dequant_layout(vals, xi))
+        # the wrapper's Python takes about as long as the kernel, so the
+        # events above time the host: the device time of 20 launches
+        out["dequant_device_ms"][label] = _device_profile(
+            lambda: [tq.dequant_matmul(vals, scales, w) for _ in range(20)],
+            {"dequant_matmul": QUANT_KERNEL_NAMES["dequant_matmul"]})[
+            "kernels"]["dequant_matmul"]["ms_per_launch"]
         out["dequant_plain_ms"][label] = _cuda_ms(
             lambda: tq.dequant_matmul_reference(vals, scales, w), reps)
+        dq_ms = out["dequant_device_ms"][label]
         out["dequant_bytes_per_s"][label] = nbytes / (
-            out["dequant_ms"][label] / 1e3)
+            (dq_ms if isinstance(dq_ms, float) else out["dequant_ms"][label])
+            / 1e3)
         if label == "int8":
             # yardstick only: the product alone, on the matrix already
             # dequantized to float32
@@ -1673,6 +1729,13 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
     out["copy_ms"] = _cuda_ms(lambda: torch.empty_like(y).copy_(y), reps,
                               inner=20)
     out["copy_bytes_per_s"] = 2 * y.numel() * 4 / (out["copy_ms"] / 1e3)
+    # and of K8's payload and output
+    out["copy_payload_ms"] = _cuda_ms(
+        lambda: torch.empty_like(vals).copy_(vals), reps, inner=20)
+    out["copy_out_ms"] = _cuda_ms(lambda: torch.empty_like(xi).copy_(xi),
+                                  reps, inner=20)
+    out["copy_dequant_bytes_per_s"] = 2 * (vals.numel() + xi.numel() * 4) / (
+        (out["copy_payload_ms"] + out["copy_out_ms"]) / 1e3)
     # three calls a recorded step: the profiler can lose the device event
     # of a step's first launch, and the per-launch time is over those found
     out["profile"] = _device_profile(
@@ -1686,12 +1749,15 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
             f"{k}: call {out['call_ms'][k]:.4f} ms, quantize "
             f"{out['quantize_ms'][k]:.4f} ms (plain "
             f"{out['quantize_plain_ms'][k]:.3f}), dequant+product "
-            f"{out['dequant_ms'][k]:.4f} ms (plain "
+            f"{out['dequant_device_ms'][k]} ms device, "
+            f"{out['dequant_ms'][k]:.4f} between events (plain "
             f"{out['dequant_plain_ms'][k]:.3f}) = "
             f"{out['dequant_bytes_per_s'][k]:.4g} B/s, error share "
             f"{out['errs'][k]:.3g}" for k in out["call_ms"])
         + f"; float32 matmul on the dequantized matrix {out['library_ms']:.4f}"
-        f" ms; quantize layout {out['layout']}; copy of y "
+        f" ms; dequantize layout {out['dequant_layout']}; copy of the payload"
+        f" and of the output {out['copy_dequant_bytes_per_s'] / 1e9:.0f} "
+        f"GB/s; quantize layout {out['layout']}; copy of y "
         f"{out['copy_ms']:.4f} ms = {out['copy_bytes_per_s'] / 1e9:.0f} GB/s"
         f"; in three int8 calls {out['profile']['kernels']}, in three fp8 "
         f"calls {out['profile_fp8']['kernels']}")
@@ -1806,10 +1872,10 @@ def main() -> int:
               f"{INGEST_SHAPE[:2]} ({ingest['layout']}), bound "
               f"{q_ingest_bound['bound_ms']:.4f} ms, roofline share "
               f"{100 * q_ingest_bound['bound_ms'] / ingest['quantize_ms'][label]:.2f}%")
-    print(f"[ingest] dequant_matmul: {ingest['dequant_ms']['int8']:.4f} ms, "
-          f"bound {dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), "
-          f"roofline share "
-          f"{100 * dq_bound['bound_ms'] / ingest['dequant_ms']['int8']:.2f}%")
+    print(f"[ingest] dequant_matmul ({ingest['dequant_layout']}): "
+          f"{ingest['dequant_device_ms']['int8']} ms device, bound "
+          f"{dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), share of "
+          f"the bound {_share(dq_bound['bound_ms'], ingest['dequant_device_ms']['int8'])}")
 
     for name, ms_key in (("fused_smoother_fwd", "fwd_ms"),
                          ("fused_smoother_bwd", "bwd_ms")):
@@ -1905,6 +1971,9 @@ def main() -> int:
         "library_note": "no single PyTorch call computes a Kalman filter",
         "shape_BTddy": [FILTER_B, FILTER_T, FILTER_D, FILTER_D],
         "bytes": filt_bound["bytes"], "ops": filt_bound["ops"],
+        "cycles_per_step": filt["cycles_per_step"],
+        "sm_clock_mhz": filt["sm_clock_mhz"],
+        "share_of_bound": filt_bound["bound_ms"] / filt["kernel_ms"],
     })
     q_source = "rxinfer_tpu_torch/csrc/quantized.cu"
     for name, replaces, label in (
@@ -1941,7 +2010,7 @@ def main() -> int:
                 q_ingest_bound["bound_ms"] / ingest["quantize_ms"][label],
             "variants_checked": {
                 "x".join(map(str, k)): _layout_name(v)
-                for k, v in quant_layouts.items()},
+                for k, v in quant_layouts["quantize"].items()},
             "copy_gb_per_s": quant["copy_bytes_per_s"] / 1e9,
             "copy_gb_per_s_at_ingest_shape": ingest["copy_bytes_per_s"] / 1e9,
         })
@@ -1952,8 +2021,10 @@ def main() -> int:
         "launches_in_fp8_call": ingest["launches"]["float8_e4m3fn"][
             "dequant_matmul"],
         "max_abs_err": worst["dequant_matmul"],
-        "ms": ingest["dequant_ms"]["int8"],
-        "ms_fp8": ingest["dequant_ms"]["float8_e4m3fn"],
+        "ms": ingest["dequant_device_ms"]["int8"],
+        "ms_fp8": ingest["dequant_device_ms"]["float8_e4m3fn"],
+        "ms_events": ingest["dequant_ms"]["int8"],
+        "ms_events_fp8": ingest["dequant_ms"]["float8_e4m3fn"],
         "ms_in_path": ingest["profile"]["kernels"]["dequant_matmul"][
             "ms_per_launch"],
         "plain_ms": ingest["dequant_plain_ms"]["int8"],
@@ -1964,6 +2035,14 @@ def main() -> int:
         "shape_Rdydx": list(INGEST_SHAPE),
         "bytes": dq_bound["bytes"], "ops": dq_bound["ops"],
         "bytes_per_s": ingest["dequant_bytes_per_s"]["int8"],
+        "variant": ingest["dequant_layout"],
+        "share_of_bound": _share(dq_bound["bound_ms"],
+                                 ingest["dequant_device_ms"]["int8"]),
+        "share_of_bound_fp8": _share(
+            dq_bound["bound_ms"], ingest["dequant_device_ms"]["float8_e4m3fn"]),
+        "copy_gb_per_s": ingest["copy_dequant_bytes_per_s"] / 1e9,
+        "variants_checked": {"x".join(map(str, k)): str(v)
+                             for k, v in quant_layouts["dequant"].items()},
     })
     print(f"[filter] call_ms {filt['call_ms']:.4f} chain_updates_per_s "
           f"{filt['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "

@@ -32,12 +32,15 @@
 // pf (NS, B).
 //
 // Bound on the card: at B = 10,000, T = 200, D = DY = 4 the kernel moves
-// 65 MB (observations in, means out) for ~0.6 kFLOP per chain-step, so bytes
-// and operations bound it about equally on paper.  With one thread per chain
-// the batch fills ~313 warps, one per scheduler on part of the card, so in
-// practice the serial latency of a step bounds it.  The next step's
-// observation is loaded before the current step is computed so that no
-// global load sits on the dependency chain.
+// 65 MB (observations in, means out) for ~0.5 kFLOP per chain-step, so
+// bytes bound it on paper (0.019 ms).  In practice a step is serial: the
+// batch fills 313 warps, at most one a scheduler, and a lone warp's step
+// takes ~1,000 cycles of dependent work while the memory system answers
+// the observation loads issued one step ahead in about as long.  Taking out
+// either alone barely moves the time, and spreading a chain's step over
+// several lanes of a warp was slower at this batch (PERF.md, Findings).
+// The next step's observation is loaded before the current step is
+// computed so that no global load sits on the dependency chain.
 
 #include <cuda_runtime.h>
 

@@ -51,12 +51,18 @@
 //           the payload, re-reading it (from L2 where it still is).
 //
 // Dequantize + product: out (R, dx) = (float(vals) * scales) @ W, W (dy, dx).
-// One thread per output element, W in shared memory, the payload
-// dequantized in registers, float32 multiplies and adds in index order over
-// dy (each rounded on its own, as the plain version does), the store
-// coalesced.  The dx threads of a row read the same payload bytes
-// (served by L1).  Bound on the card: the bytes (dy + 4 in, 4 dx out per
-// row).
+// Bound on the card by its bytes: dy + 4 in and 4 dx out a row, 36 at the
+// ingest rows (2^21, 16) -> 4, against dy + 2 dy dx operations.  So, as
+// for K6 / K7, every payload row is read from device memory once, in
+// 16-byte loads where the rows allow, by a thread that takes U rows
+// (`pick_dequant_layout`, ops/quantized.py):
+//   vector  (dy % 16 == 0, dx % 4 == 0, payload and output 16-byte aligned;
+//           the ingest rows): 16-byte payload loads, float4 output stores,
+//           U = 4 where rows are plenty, so each thread has several loads
+//           in flight, else 1.
+//   general (any other rows: odd dy or dx, misaligned views): a thread a
+//           row, byte loads, scalar stores.
+// Row indices are 64-bit products and sums; no thread divides.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -334,45 +340,171 @@ int launch_quantize(int variant, int group, int rows_per_thread, int vecs,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---- K8: dequantize + product ----------------------------------------------------
-template <typename P>
-__global__ void dequant_matmul_kernel(
-    const typename P::storage* __restrict__ vals,
-    const float* __restrict__ scales, const float* __restrict__ w,
-    float* __restrict__ out, int64_t R, int dy, int dx) {
-  extern __shared__ float w_s[];
-  for (int i = threadIdx.x; i < dy * dx; i += blockDim.x) w_s[i] = w[i];
-  __syncthreads();
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= R * dx) return;
-  const int64_t r = idx / dx;
-  const int j = static_cast<int>(idx - r * dx);
-  const float s = scales[r];
-  const typename P::storage* vr = vals + r * dy;
-  // each product and each sum rounded on its own (no fused multiply-add), so
-  // the result equals the plain version's bit for bit; the kernel is bound
-  // by its bytes, so the unfused form costs no time
-  float acc = __fmul_rn(__fmul_rn(P::decode(vr[0]), s), w_s[j]);
-  for (int k = 1; k < dy; ++k)
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(P::decode(vr[k]), s),
-                                   w_s[k * dx + j]));
-  out[idx] = acc;
+// ---- K8: dequantize + product ---------------------------------------------
+//
+// A thread takes U rows of the payload, rows row0 + u * kThreads for
+// u < U, so the threads of a warp read neighbouring rows: at dy = 16 a warp
+// reads 512 contiguous payload bytes and 128 of scales, and writes 512 of
+// output, in one instruction each.  VEC reads each row's payload in 16-byte
+// loads and stores its outputs a float4 at a time; the general layout reads
+// bytes and stores scalars.  A row's scale is read once, and the dx outputs
+// of the row are formed in column chunks of 4 (dx = 4: one chunk, each
+// payload byte read once).  W is staged once a block in shared memory and
+// read as broadcasts, a float4 a chunk for VEC.  The product keeps the
+// plain version's rounding: q = float(v) * s rounded, then for each column
+// acc = q_0 w_0 and acc += q_k w_k in index order over k, every product and
+// sum rounded on its own (__fmul_rn / __fadd_rn), so the kernel equals
+// `dequant_matmul_reference` bit for bit.
+
+// the four payload values of a 32-bit word, byte 0 first
+__device__ __forceinline__ void decode4(Int8Payload, uint32_t word,
+                                        float (&q)[4]) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    q[b] = static_cast<float>(static_cast<int8_t>(word >> (8 * b)));
 }
 
-template <typename P>
-int launch_dequant_matmul(const void* vals, const float* scales,
-                          const float* w, float* out, int64_t R, int dy,
-                          int dx, cudaStream_t stream) {
+__device__ __forceinline__ void decode4(Fp8Payload, uint32_t word,
+                                        float (&q)[4]) {
+  // e4m3 pairs -> half2 -> float2, all exact
+  const __half2 lo = __half2(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(word & 0xffffu), __NV_E4M3));
+  const __half2 hi = __half2(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(word >> 16), __NV_E4M3));
+  const float2 a = __half22float2(lo);
+  const float2 b = __half22float2(hi);
+  q[0] = a.x; q[1] = a.y; q[2] = b.x; q[3] = b.y;
+}
+
+template <typename P, int U, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dequant_matmul_kernel(const uint8_t* __restrict__ vals,
+                      const float* __restrict__ scales,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int64_t R, int dy, int dx) {
+  constexpr int kChunk = VEC ? 16 : 1;     // payload bytes a load
+  constexpr int kWords = VEC ? 4 : 1;      // 32-bit words a load
+  constexpr int kPer = VEC ? 4 : 1;        // values a word holds
+  extern __shared__ float w_s[];
+  for (int i = threadIdx.x; i < dy * dx; i += kThreads) w_s[i] = w[i];
+  __syncthreads();
+  const int64_t row0 =
+      static_cast<int64_t>(blockIdx.x) * (kThreads * U) + threadIdx.x;
+  if (row0 >= R) return;
+  float s[U];
+  bool live[U];
+  const uint8_t* vr[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = row0 + u * kThreads;
+    live[u] = r < R;
+    s[u] = live[u] ? __ldg(scales + r) : 0.0f;
+    vr[u] = vals + (live[u] ? r : row0) * dy;
+  }
+  for (int c = 0; c < dx; c += 4) {
+    float acc[U][4] = {};
+    for (int k0 = 0; k0 < dy; k0 += kChunk) {
+      uint32_t ch[U][kWords];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if constexpr (VEC) {
+          const uint4 v = live[u] ? __ldg(reinterpret_cast<const uint4*>(
+                                        vr[u] + k0))
+                                  : make_uint4(0u, 0u, 0u, 0u);
+          ch[u][0] = v.x; ch[u][1] = v.y; ch[u][2] = v.z; ch[u][3] = v.w;
+        } else {
+          ch[u][0] = live[u] ? __ldg(vr[u] + k0) : 0u;
+        }
+      }
+#pragma unroll
+      for (int wi = 0; wi < kWords; ++wi) {
+        float q[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if constexpr (VEC)
+            decode4(P(), ch[u][wi], q[u]);
+          else
+            q[u][0] = P::decode(static_cast<typename P::storage>(ch[u][0]));
+        }
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) {
+          const int k = k0 + wi * kPer + b;
+          float wk[4];
+          if constexpr (VEC) {
+            const float4 v = *reinterpret_cast<const float4*>(w_s + k * dx + c);
+            wk[0] = v.x; wk[1] = v.y; wk[2] = v.z; wk[3] = v.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              wk[j] = c + j < dx ? w_s[k * dx + c + j] : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float qs = __fmul_rn(q[u][b], s[u]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float p = __fmul_rn(qs, wk[j]);
+              acc[u][j] = k == 0 ? p : __fadd_rn(acc[u][j], p);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!live[u]) continue;
+      float* o = out + (row0 + u * kThreads) * dx + c;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < dx) o[j] = acc[u][j];
+      }
+    }
+  }
+}
+
+// layouts, as ops/quantized.py numbers them
+constexpr int kDequantGeneral = 0;
+constexpr int kDequantVector = 1;
+constexpr size_t kDequantSmem = 48 * 1024;
+
+template <typename P, int U, bool VEC>
+int launch_dequant(const void* vals, const float* scales, const float* w,
+                   float* out, int64_t R, int dy, int dx, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(dy) * dx * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = R * dx;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  dequant_matmul_kernel<P><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const typename P::storage*>(vals), scales, w, out, R, dy,
-      dx);
+  const int64_t per_block = static_cast<int64_t>(kThreads) * U;
+  const unsigned blocks = static_cast<unsigned>((R + per_block - 1) / per_block);
+  dequant_matmul_kernel<P, U, VEC><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(vals), scales, w, out, R, dy, dx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layout's instance, or cudaErrorInvalidValue for a layout the kernel
+// does not take (the wrapper raises on it): the vector layout on rows that
+// are not whole 16-byte loads, dx % 4 != 0, or a payload or output that
+// does not start on 16 bytes; W past the 48 KB of shared memory.
+template <typename P>
+int launch_dequant_matmul(int variant, int rows_per_thread, const void* vals,
+                          const float* scales, const float* w, float* out,
+                          int64_t R, int dy, int dx, cudaStream_t s) {
+  if (static_cast<size_t>(dy) * dx * sizeof(float) > kDequantSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kDequantVector) {
+    if (dy % 16 != 0 || dx % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(vals) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (rows_per_thread == 4)
+      return launch_dequant<P, 4, true>(vals, scales, w, out, R, dy, dx, s);
+    if (rows_per_thread == 1)
+      return launch_dequant<P, 1, true>(vals, scales, w, out, R, dy, dx, s);
+  }
+  if (variant == kDequantGeneral && rows_per_thread == 1)
+    return launch_dequant<P, 1, false>(vals, scales, w, out, R, dy, dx, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -395,14 +527,18 @@ int rxt_quantize_rows(int fp8, int variant, int group, int rows_per_thread,
                                             vecs, x, vals, scales, R, C, s);
 }
 
-int rxt_dequant_matmul(int fp8, const void* vals, const float* scales,
-                       const float* w, float* out, int64_t R, int dy, int dx,
-                       void* stream) {
+// `variant` (0 general, 1 vector) and `rows_per_thread` (U = 4 or 1 for
+// vector, 1 for general) are the wrapper's layout (`pick_dequant_layout`).
+int rxt_dequant_matmul(int fp8, int variant, int rows_per_thread,
+                       const void* vals, const float* scales, const float* w,
+                       float* out, int64_t R, int dy, int dx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fp8 ? launch_dequant_matmul<Fp8Payload>(vals, scales, w, out, R, dy,
-                                                 dx, s)
-             : launch_dequant_matmul<Int8Payload>(vals, scales, w, out, R, dy,
-                                                  dx, s);
+  return fp8 ? launch_dequant_matmul<Fp8Payload>(
+                   variant, rows_per_thread, vals, scales, w, out, R, dy, dx,
+                   s)
+             : launch_dequant_matmul<Int8Payload>(
+                   variant, rows_per_thread, vals, scales, w, out, R, dy, dx,
+                   s);
 }
 
 const char* rxt_error_string(int code) {

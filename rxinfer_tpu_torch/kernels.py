@@ -17,6 +17,7 @@ IEEE like the plain PyTorch versions the kernels are held against.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -159,6 +160,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.rxt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once a device (the launch rules
+    take it at every wrapper call)."""
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def check_tensor(name: str, t, shape, dtype=torch.float32) -> None:

@@ -28,7 +28,10 @@ and the card's SM count: ``narrow`` (a warp or less a row, ``float4``
 loads; rows of at most ``NARROW_MAX_COLS`` columns), ``wide`` (a CTA a row
 held in registers; up to ``WIDE_MAX_COLS`` columns) and ``general`` (any
 rows, two passes).  Each computes the same function; a layout is never
-retried.
+retried.  The dequantize + product kernel takes a thread per payload row
+in one of two layouts that ``pick_dequant_layout`` picks the same way:
+``vector`` (16-byte payload loads, U rows a thread, ``float4`` stores) and
+``general`` (byte loads, scalar stores, any rows).
 """
 
 from __future__ import annotations
@@ -53,6 +56,11 @@ WARPS_PER_SM = 64              # resident warps an SM holds at most
 WIDE_THREADS = 256             # a CTA a row
 WIDE_VECS = (2, 4, 8, 10, 12, 16)   # float4 a thread: the instances
 WIDE_MAX_COLS = 4 * WIDE_THREADS * WIDE_VECS[-1]   # the register cap, 16384
+
+# The dequantize + product kernel's layouts (csrc/quantized.cu numbers them).
+DEQUANT_VARIANTS = {"general": 0, "vector": 1}
+DEQUANT_ROWS_PER_THREAD = 4        # rows a thread where rows are plenty
+DEQUANT_SMEM_BYTES = 48 * 1024      # W (dy, dx) float32 in shared memory
 
 # kernel launches on CUDA tensors (the plain versions on CPU tensors count none)
 LAUNCHES = {"quantize_rows": 0, "quantize_rows_fp8": 0, "dequant_matmul": 0}
@@ -153,6 +161,51 @@ def pick_quant_layout(rows: int, cols: int, aligned: bool,
     return QuantLayout("general", _pow2_at_least(min(cols, 32)), 1, 0)
 
 
+@dataclass(frozen=True)
+class DequantLayout:
+    """A dequantize + product launch: the ``variant`` and the payload rows
+    a thread takes (``rows_per_thread``)."""
+
+    variant: str
+    rows_per_thread: int
+
+
+@functools.lru_cache(maxsize=256)
+def pick_dequant_layout(rows: int, dy: int, dx: int, aligned: bool,
+                        sm_count: int) -> DequantLayout:
+    """The dequantize + product kernel's layout for a payload (rows, dy)
+    against W (dy, dx) on a card with ``sm_count`` SMs.  ``aligned``: the
+    payload and the output both start on 16 bytes (``dequant_aligned``).
+
+    * ``vector`` for aligned payloads with dy % 16 == 0 and dx % 4 == 0
+      (the ingest rows): each row read in 16-byte loads, the outputs
+      stored a ``float4`` at a time; each thread takes
+      ``DEQUANT_ROWS_PER_THREAD`` rows where that still leaves every SM
+      ``WARPS_PER_SM`` warps, else one.
+    * ``general`` for the rest: a thread a row, byte loads, scalar stores."""
+    if aligned and dy % 16 == 0 and dx % 4 == 0:
+        full = sm_count * WARPS_PER_SM * 32
+        deep = -(-rows // DEQUANT_ROWS_PER_THREAD) >= full
+        return DequantLayout("vector",
+                             DEQUANT_ROWS_PER_THREAD if deep else 1)
+    return DequantLayout("general", 1)
+
+
+def dequant_aligned(vals, out) -> bool:
+    """Whether the payload ``vals`` and the output ``out`` both start on 16
+    bytes (a contiguous view that starts inside its storage may not)."""
+    return vals.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
+def device_dequant_layout(vals, out) -> DequantLayout:
+    """The layout ``dequant_matmul`` takes for the payload ``vals`` (R, dy)
+    and its output ``out`` (R, dx) on their CUDA device."""
+    rows, dy = vals.shape
+    return pick_dequant_layout(rows, dy, out.shape[1],
+                               dequant_aligned(vals, out),
+                               kernels.sm_count(vals.device))
+
+
 def vector_aligned(x, vals) -> bool:
     """Whether x (R, C) and its payload may be read and written a vector
     at a time: C % 4 == 0 and both start on 16 bytes (a contiguous view
@@ -165,9 +218,8 @@ def device_quant_layout(x, vals) -> QuantLayout:
     """The layout the quantize wrappers take for x and its payload ``vals``
     on their CUDA device."""
     rows, cols = x.shape
-    sm_count = torch.cuda.get_device_properties(
-        x.device).multi_processor_count
-    return pick_quant_layout(rows, cols, vector_aligned(x, vals), sm_count)
+    return pick_quant_layout(rows, cols, vector_aligned(x, vals),
+                             kernels.sm_count(x.device))
 
 
 # -- kernel launches ------------------------------------------------------------
@@ -181,8 +233,8 @@ def _library():
             ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, p]
         lib.rxt_quantize_rows.restype = ctypes.c_int
         lib.rxt_dequant_matmul.argtypes = [
-            ctypes.c_int, p, p, p, p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
         lib.rxt_dequant_matmul.restype = ctypes.c_int
         lib._rxt_typed = True
     return lib
@@ -229,31 +281,42 @@ def quantize_rows_fp8(x):
 def dequant_matmul(vals, scales, w):
     """K8 wrapper.  ``xi = dequant(vals, scales) @ w`` in one kernel: vals
     (R, dy) int8 or float8_e4m3fn, scales (R, 1) float32, w (dy, dx) float32
-    -> (R, dx) float32."""
+    -> (R, dx) float32, equal bit for bit to ``dequant_matmul_reference``.
+    On a CUDA device the kernel takes ``device_dequant_layout``'s layout."""
     if vals.dtype not in (torch.int8, torch.float8_e4m3fn):
         raise TypeError(
             f"vals must be int8 or float8_e4m3fn (got {vals.dtype})")
-    rows, dy = vals.shape
-    dx = w.shape[1]
-    if dy < 1:
+    if vals.shape[1] < 1:
         raise ValueError("dequant_matmul needs at least one payload column")
     if vals.device.type == "cpu":
         return dequant_matmul_reference(vals, scales, w)
+    return _dequant_cuda(vals, scales, w)
+
+
+def _dequant_cuda(vals, scales, w, layout: DequantLayout | None = None):
+    """Launch K8 on CUDA tensors in ``layout`` (``device_dequant_layout``'s
+    when None); the launcher refuses a layout the tensors do not allow."""
+    rows, dy = vals.shape
+    dx = w.shape[1]
     kernels.check_tensor("vals", vals, (rows, dy), dtype=vals.dtype)
     kernels.check_tensor("scales", scales, (rows, 1))
     kernels.check_tensor("w", w, (dy, dx))
-    if dy * dx * 4 > 48 * 1024:
+    if dy * dx * 4 > DEQUANT_SMEM_BYTES:
         raise ValueError(
             f"w ({dy}, {dx}) does not fit the kernel's 48 KB of shared memory")
     out = torch.empty((rows, dx), dtype=torch.float32, device=vals.device)
     if rows == 0 or dx == 0:
         return out
+    if layout is None:
+        layout = device_dequant_layout(vals, out)
     lib = _library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = lib.rxt_dequant_matmul(
-        int(vals.dtype == torch.float8_e4m3fn), vals.data_ptr(),
-        scales.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dy, dx, stream)
-    kernels.check(lib, rc, "dequant_matmul kernel")
+        int(vals.dtype == torch.float8_e4m3fn),
+        DEQUANT_VARIANTS[layout.variant], layout.rows_per_thread,
+        vals.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
+        rows, dy, dx, stream)
+    kernels.check(lib, rc, f"dequant_matmul kernel, {layout}")
     LAUNCHES["dequant_matmul"] += 1
     return out
 

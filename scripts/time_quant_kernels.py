@@ -5,6 +5,7 @@ bandwidth the card reaches.
 
     python3 scripts/time_quant_kernels.py 2097152x16 4096x10000 4096x200
     python3 scripts/time_quant_kernels.py --ptxas --program 2097152x16
+    python3 scripts/time_quant_kernels.py --dequant 2097152x16x4 100001x16x4
 
 Run from the root of a checkout (the package is imported from the current
 directory, so two checkouts can be timed in turns inside one job on one
@@ -26,8 +27,16 @@ output.
 ``--program`` last times the LGSSM program that quantizes its observations
 once a call (``batched_program`` on ``zoo.lgssm``, B=1024, T=10,000, d=4,
 the JAX package's bench constants, 1 iteration) on float32, int8 and fp8
-observations, over CUDA events.  It checks nothing: ``chip_smoke.py`` holds
-the kernels against their plain versions.
+observations, over CUDA events.  ``--dequant`` times the dequantize +
+product kernel K8 instead, at each RxDYxDX: an int8 and an fp8 payload of
+such rows (made by the quantize wrappers) against a (DY, DX) W, device time
+and events as above, the share of its byte bound ((DY + 4 + 4 DX) bytes a
+row over 3.35 TB/s), the layout the wrapper's rule picked where the tree
+has one, and a device copy of the payload and of the (R, DX) output as
+GB/s (read and write counted); with ``--evidence`` also the calls
+``quantized_evidence`` and ``quantized_evidence_fp8`` on such rows (CUDA
+events).  It checks nothing: ``chip_smoke.py`` holds the kernels against
+their plain versions.
 """
 
 import os
@@ -139,6 +148,51 @@ def time_programs(dev, b=1024, t_len=10_000, d=4):
     return out
 
 
+def time_dequant(tq, dev, specs, evidence=False):
+    """K8 at each RxDYxDX, int8 and fp8 payloads."""
+    import torch
+
+    for spec in specs:
+        r, dy, dx = (int(x) for x in spec.split("x"))
+        rng = np.random.default_rng(7)
+        y = torch.as_tensor(
+            (rng.standard_normal((r, dy), dtype=np.float32)
+             * np.exp(rng.uniform(-3, 3, (r, 1))).astype(np.float32)),
+            device=dev)
+        w = torch.as_tensor(rng.standard_normal((dy, dx), dtype=np.float32),
+                            device=dev)
+        bound = (r * (dy + 4 + 4 * dx) + dy * dx * 4) / HBM_BYTES_PER_S * 1e3
+        parts = []
+        for label, quant in (("int8", tq.quantize_rows),
+                             ("fp8", tq.quantize_rows_fp8)):
+            vals, scales = quant(y)
+            k8 = lambda: tq.dequant_matmul(vals, scales, w)
+            end = time.perf_counter() + 0.5   # launches that bring the clock up
+            while time.perf_counter() < end:
+                k8()
+            torch.cuda.synchronize()
+            ev = _ms(k8)
+            dv = _device_ms(k8, "dequant")
+            pick = getattr(tq, "device_dequant_layout", None)
+            layout = pick(vals, k8()) if pick else None
+            parts.append(f"{label} device ms {dv:.4f} ({100 * bound / dv:.1f}%"
+                         f" of the {bound:.4f} ms bound), between events "
+                         f"{ev:.4f}, layout {layout}")
+        if evidence:
+            for label, fn in (("int8", tq.quantized_evidence),
+                              ("fp8", tq.quantized_evidence_fp8)):
+                parts.append(f"{label} evidence call "
+                             f"{_ms(lambda: fn(y, w), reps=9, inner=10):.4f}")
+        out = torch.empty((r, dx), device=dev)
+        tv = _device_ms(lambda: torch.empty_like(vals).copy_(vals))
+        to = _device_ms(lambda: torch.empty_like(out).copy_(out))
+        print(f"(R,dy,dx)=({r},{dy},{dx}): " + "; ".join(parts)
+              + f"; copy of the payload {tv:.4f} ms = "
+              f"{2 * r * dy / (tv * 1e-3) / 1e9:.0f} GB/s, of the output "
+              f"{to:.4f} ms = {2 * r * dx * 4 / (to * 1e-3) / 1e9:.0f} GB/s")
+        del y, vals, scales, out
+
+
 def main(argv) -> int:
     import torch
 
@@ -155,7 +209,10 @@ def main(argv) -> int:
     print(f"tree {os.getcwd()}; {smi}")
     program = "--program" in argv
     ptxas = "--ptxas" in argv
-    argv = [a for a in argv if a not in ("--program", "--ptxas")]
+    dequant = "--dequant" in argv
+    evidence = "--evidence" in argv
+    argv = [a for a in argv
+            if a not in ("--program", "--ptxas", "--dequant", "--evidence")]
     if ptxas:
         kernels.load("quantized")
         for line in kernels.ptxas_report("quantized").splitlines():
@@ -163,6 +220,9 @@ def main(argv) -> int:
                                        "smem")):
                 print(f"[ptxas] {line.strip()}")
     with ClockSampler() as clk:
+        if dequant:
+            time_dequant(tq, dev, argv, evidence)
+            argv = []
         for spec in argv:
             r, c = (int(x) for x in spec.split("x"))
             rng = np.random.default_rng(7)

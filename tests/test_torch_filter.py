@@ -88,7 +88,11 @@ def test_filtering_scan_matches_jax(b, d, t, dy):
     _assert_same((final, means), ref)
 
 
-@pytest.mark.parametrize("b,d,t,dy", CASES)
+# d and dy across {1, 2, 4, 8}
+WIDE_CASES = [(6, 8, 10, 8), (9, 1, 12, 2), (5, 2, 7, 8), (4, 8, 5, 1)]
+
+
+@pytest.mark.parametrize("b,d,t,dy", CASES + WIDE_CASES)
 def test_fused_filtering_scan_matches_jax_pallas(b, d, t, dy):
     m, p, ys, f, q, h, r = _setup(b, d, t, dy, seed=10 + b + t)
     ref = jax_fused_filtering_scan(*_jax_args(m, p, ys, f, q, h, r),
