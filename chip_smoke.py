@@ -20,7 +20,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    marginal tile (FB_RTOL/FB_ATOL; shapes with one tile, many tiles, ragged
    staged and marginal tiles, and a large batch), xi_sum bit-identical over
    repeated calls, plus sampled chains against a float64 numpy
-   forward-backward (FB_ORACLE_TOL).
+   forward-backward (FB_ORACLE_TOL).  The plain versions of K1/K2 are timed
+   by their one call at the first check shape.  The K4/K5 checks, and
+   phase 6's, run in a second process while this one checks K1/K2: the
+   plain versions are host-bound loops, seconds a call.
 4. LGSSM path at full width: ``rxinfer_tpu_torch.batched_program`` on
    ``zoo.lgssm`` with B=1024 chains, T=10,000 steps, d=4 (the constants of
    the JAX package's bench), y from a numpy seed.  Checks that the plan runs
@@ -29,9 +32,7 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``infer_batched`` at a smaller batch, times the program and each stage
    with CUDA events, and profiles one program call (device busy time, idle
    share, each kernel's device time; the fold, carry and replay passes of
-   K1 and K2 apart).  Then K1 and K2 alone at that shape over several
-   numbers of time blocks, the wrapper's own among them, each held against
-   the one-block launch.
+   K1 and K2 apart), at the wrapper's own number of time blocks.
 5. HMM path at the JAX package's bench size: ``batched_program`` on
    ``zoo.hmm(3, 3)`` with B=256 chains, T=200 steps, 20 VMP iterations, y
    simulated from a numpy seed as ``bench.py`` does.  Checks that the chain
@@ -43,13 +44,15 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    rows against the full batch (INFER_TOL), times the program and its
    stages with CUDA events, and profiles one program call as in phase 4
    (K5's beta, marginal and xi_sum passes apart).  Then K4 and K5 alone at
-   FB_ALONE_SHAPES, beside the SM clock sampled meanwhile.
-6. Filter and quantization kernels vs plain versions on the card: the
-   streaming filter kernel K3 against ``fused_filter_reference`` at several
-   (B, T, d, dy) (RTOL/ATOL), a ragged last warp at path A's width
-   included, and sampled chains against a float64 filter; the quantize
-   kernels K6/K7 against their plain versions
-   (payload bytes and scales must be EQUAL, a zero row included) at
+   the path's shape, beside the SM clock sampled meanwhile.  The plain
+   versions are timed by their one call on the path's inputs.
+6. (Run beside phase 3.) Filter and quantization kernels vs plain
+   versions on the card: the streaming filter kernel K3 against
+   ``fused_filter_reference`` at several (B, T, d, dy) (RTOL/ATOL), a
+   ragged last warp at path A's width included, and sampled chains
+   against a float64 filter; the quantize kernels K6/K7 against their
+   plain versions (payload bytes and scales must be EQUAL, a zero row
+   included) at
    QUANT_CHECK_SHAPES, which take each of their layouts
    (``pick_quant_layout``: narrow, wide, general) and a view that starts 4
    bytes into its storage; the dequantize + product kernel K8 on both
@@ -60,9 +63,9 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``parallel.filtering.make_sharded_filtering(None, ..., fused=True)`` over
    a (T, B, dy) stream of B=10,000 chains, T=200 steps, d=dy=4 with the
    LGSSM constants.  One K3 launch per call; final state and sampled means
-   against the float64 filter (ORACLE_TOL); the call, K3 alone (beside
-   the SM clock) and the plain ``filtering_scan`` timed; one call
-   profiled (K3's cycles a step).
+   against the float64 filter (ORACLE_TOL); the call and K3 alone (beside
+   the SM clock) timed, K3's plain version by its one call on the path's
+   inputs; one call profiled (K3's cycles a step).
 8. Path B, quantized ingest.  (i) The LGSSM program of phase 4 with
    ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` at 1 and 10
    iterations beside the float32 program: one K6 or K7 launch per call
@@ -75,7 +78,21 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    of the same rows (``torch.empty_like(x).copy_(x)``) as a yardstick of
    the bandwidth the card reaches; (ii) times K8 alone with its layout,
    beside a device copy of its payload and of its output.
-9. One JSON line listing every ported kernel with its launches on its path,
+9. The single-dataset ``infer`` and the unfused chain path, which launch
+   no kernel (every kernel module's launch count must stay at zero):
+   (a) ``infer`` on ``zoo.lgssm`` with one dataset of T=10,000, d=4 (the
+   JAX package's single-chain row): the float64 RTS (ORACLE_TOL), the
+   median of 5 calls (CUDA events), updates/s = 3 T / t, the device busy
+   and idle share of one profiled call; (b) ``infer`` on ``zoo.hmm(3, 3)``,
+   one dataset of T=200, 20 iterations, phase 5's initialization: the
+   float64 VMP (HMM_ORACLE_TOL) and its time; (c) phase 4's cell with
+   ``options={"fused_kernels": False}``: the plan report, the posteriors
+   against the fused program's (ORACLE_TOL), the median of 3 calls beside
+   the fused program's phase 4 time, and its peak device memory; (d) ``infer_batched`` on 64
+   LGSSM chains of T=10,000 with 10% of the steps NaN: the plan report and
+   sampled chains against the float64 RTS with no evidence at the missing
+   steps (ORACLE_TOL).
+10. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
    path's call, ``torch.profiler``), bound and plain time.
@@ -88,6 +105,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -141,7 +159,6 @@ CHECK_SHAPES = [(1000, 257, 4), (37, 64, 1), (64, 100, 2), (96, 48, 3),
 BLOCKED_SHAPES = {(1000, 257, 4): 8, (8, 1056, 4): 33, (40, 1001, 3): 31,
                   (12, 300, 5): 9}       # shape -> time blocks on 132 SMs
 PLAIN_SHAPE = CHECK_SHAPES[0]
-SWEEP_BLOCKS = (1, 8, 16, 32, 64, 128)
 
 HMM_B, HMM_T, HMM_IT, HMM_K = 256, 200, 20, 3
 # (40, 1001, 3): ragged last staged tile (1001 = 31 * 32 + 9) and many
@@ -150,8 +167,8 @@ HMM_B, HMM_T, HMM_IT, HMM_K = 256, 200, 20, 3
 FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
                    (16, 40, 1), (50, 1, 3), (50, 2, 3), (40, 1001, 3),
                    (8, 4099, 8), (8448, 64, 3)]
-FB_ALONE_SHAPES = [(256, 200, 3), (4096, 1000, 3), (64, 10_000, 8)]
 HMM_ROWS = (0, 1, 128, 255)
+NAN_B = 64          # phase 9 (d): chains of the NaN batch
 
 # The quantized LGSSM program against the float32 program on the
 # dequantized observations (the two evidence einsums read different layouts
@@ -224,6 +241,22 @@ def _cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _once_ms(fn):
+    """``fn()``'s result and its milliseconds, one call between CUDA events
+    after a synchronize: the time of a plain version that a check runs
+    anyway (thousands of small launches, seconds a call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 # -- exact operation counts of one chain-step ---------------------------------------
@@ -353,10 +386,12 @@ def fb_bounds(b: int, t: int, k: int) -> dict:
 
 def rts_float64(m0, p0, xi, f, b, q, w):
     """Information-form Kalman filter + RTS smoother in float64 numpy, for a
-    few chains at once (no transition at t = 0).  xi (T, n, d); returns
-    smoothed means (T, n, d) and covariances (T, n, d, d)."""
+    few chains at once (no transition at t = 0).  xi (T, n, d); w (d, d)
+    shared or (T, n, d, d) a step; returns smoothed means (T, n, d) and
+    covariances (T, n, d, d)."""
     t_len, n, d = xi.shape
     f, b, q, w = (np.asarray(a, np.float64) for a in (f, b, q, w))
+    w_at = (lambda t: w[t]) if w.ndim == 4 else (lambda t: w)
     mf = np.empty((t_len, n, d))
     pf = np.empty((t_len, n, d, d))
     m = np.asarray(m0, np.float64)
@@ -366,7 +401,7 @@ def rts_float64(m0, p0, xi, f, b, q, w):
             m = m @ f.T + b
             p = f @ p @ f.T + q
         lam = np.linalg.inv(p)
-        p = np.linalg.inv(lam + w)
+        p = np.linalg.inv(lam + w_at(t))
         m = np.einsum("nij,nj->ni", p,
                       np.einsum("nij,nj->ni", lam, m) + xi[t])
         mf[t], pf[t] = m, p
@@ -403,9 +438,11 @@ def _smoother_params(d: int, seed: int):
     return f, b, q, w
 
 
-def check_kernels(device, shapes, log=print) -> dict:
+def check_kernels(device, shapes, log=print) -> tuple[dict, dict]:
     """Phase 3: each kernel wrapper against its plain version on the same
-    inputs.  Returns per-kernel max abs error."""
+    CUDA tensors.  Returns per-kernel max abs error, and at the first shape
+    each plain version's time (its one call of the check) beside the
+    kernel's."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_smoother as fs
@@ -413,10 +450,9 @@ def check_kernels(device, shapes, log=print) -> dict:
     worst = {"fused_smoother_fwd": 0.0, "fused_smoother_bwd": 0.0}
     before = dict(fs.LAUNCHES)
     failures = []
-    sms = torch.cuda.get_device_properties(device).multi_processor_count \
-        if device.type == "cuda" else 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for i, (bsz, t_len, d) in enumerate(shapes):
-        blocks = fs.pick_blocks(bsz, t_len, d, sms) if sms else 1
+        blocks = fs.pick_blocks(bsz, t_len, d, sms)
         want = BLOCKED_SHAPES.get((bsz, t_len, d), 1)
         if sms == 132 and blocks != want:
             raise AssertionError(f"(B,T,d)=({bsz},{t_len},{d}): the wrapper "
@@ -430,11 +466,19 @@ def check_kernels(device, shapes, log=print) -> dict:
         p0 = torch.as_tensor(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
                                              (bsz, d, d)).copy(), device=device)
         mf, pf = fs.fused_forward(m0, p0, xi, f, b, q, w)
-        mf_r, pf_r = fs.fused_forward_reference(m0, p0, xi, f, b, q, w)
+        (mf_r, pf_r), fwd_plain_ms = _once_ms(
+            lambda: fs.fused_forward_reference(m0, p0, xi, f, b, q, w))
         ms, ps, cr = fs.fused_backward(mf, pf, f, b, q)
-        ms_r, ps_r, cr_r = fs.fused_backward_reference(mf, pf, f, b, q)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        (ms_r, ps_r, cr_r), bwd_plain_ms = _once_ms(
+            lambda: fs.fused_backward_reference(mf, pf, f, b, q))
+        torch.cuda.synchronize()
+        if i == 0:
+            # the plain versions' time at this shape; the kernels' at the
+            # same shape is taken after the launch count below
+            plain = {"fused_smoother_fwd": {"plain_ms": fwd_plain_ms},
+                     "fused_smoother_bwd": {"plain_ms": bwd_plain_ms}}
+            first = (lambda a=(m0, p0, xi, f, b, q, w): fs.fused_forward(*a),
+                     lambda a=(mf, pf, f, b, q): fs.fused_backward(*a))
         rows = {
             "fused_smoother_fwd": [("mf", mf, mf_r), ("pf", pf, pf_r)],
             "fused_smoother_bwd": [("ms", ms, ms_r), ("ps", ps, ps_r),
@@ -454,12 +498,13 @@ def check_kernels(device, shapes, log=print) -> dict:
     if failures:
         raise AssertionError("kernel disagrees with its plain version beyond "
                              f"rtol=atol={RTOL}: " + "; ".join(failures))
-    if device.type == "cuda":
-        for k in worst:
-            if fs.LAUNCHES[k] - before[k] != len(shapes):
-                raise AssertionError(f"{k}: launch counter did not rise once "
-                                     "per checked shape")
-    return worst
+    for k in worst:
+        if fs.LAUNCHES[k] - before[k] != len(shapes):
+            raise AssertionError(f"{k}: launch counter did not rise once "
+                                 "per checked shape")
+    for k, fn in zip(("fused_smoother_fwd", "fused_smoother_bwd"), first):
+        plain[k]["ms"] = _cuda_ms(fn, 5, inner=20)
+    return worst, plain
 
 
 def _lse64(x, axis):
@@ -608,20 +653,23 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
     return worst
 
 
-def check_fb_path_inputs(lp, lt, le, log=print) -> dict:
+def check_fb_path_inputs(lp, lt, le, log=print) -> tuple[dict, dict]:
     """K4/K5 against their plain versions on the inputs the HMM path hands
     them in its last sweep, at the path's own (B, T, K).  Returns per-kernel
-    max abs error."""
+    max abs error and the plain versions' ms (their one call here)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
     t_len, bsz, k = le.shape
     alphas, logz = ffb.fb_forward(lp, lt, le)
-    alphas_r, logz_r = ffb.fb_forward_reference(lp, lt, le)
+    (alphas_r, logz_r), fwd_plain_ms = _once_ms(
+        lambda: ffb.fb_forward_reference(lp, lt, le))
     g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
-    g_r, xs_r, steps_r = ffb.fb_backward_reference(
-        lt, le, alphas, True, tile=ffb.device_tile(bsz, t_len, le.device))
+    (g_r, xs_r, steps_r), bwd_plain_ms = _once_ms(
+        lambda: ffb.fb_backward_reference(
+            lt, le, alphas, True, tile=ffb.device_tile(bsz, t_len,
+                                                        le.device)))
     torch.cuda.synchronize()
     rows = {
         "fused_fb_fwd": [("alphas", alphas, alphas_r), ("logz", logz, logz_r)],
@@ -639,13 +687,15 @@ def check_fb_path_inputs(lp, lt, le, log=print) -> dict:
             parts.append(f"{label} {ea:.3g}")
             if not ok:
                 failures.append(f"{label}: abs {ea:.3g}")
+    plain = {"fused_fb_fwd": fwd_plain_ms, "fused_fb_bwd": bwd_plain_ms}
     log(f"[hmm] K4/K5 vs plain versions on the path's inputs, (B,T,K)="
         f"({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
-        + f" (rtol=atol={FB_RTOL})")
+        + f" (rtol=atol={FB_RTOL}); the plain versions' one call "
+        f"{fwd_plain_ms:.1f} / {bwd_plain_ms:.1f} ms")
     if failures:
         raise AssertionError("forward-backward kernels disagree on the HMM "
                              "path's inputs: " + "; ".join(failures))
-    return worst
+    return worst, plain
 
 
 def simulate_hmm(b: int, t_len: int, seed: int):
@@ -788,7 +838,8 @@ def hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
     groups = [blk for kind, blk in compiled.blocks if kind == "plain"]
     ctx = BatchContext(device, b, {})
     lp, elog_a, le_t = block._inputs(state, {"y": y}, {}, ctx)
-    out["kernel_errs"] = check_fb_path_inputs(lp, elog_a, le_t, log=log)
+    out["kernel_errs"], out["plain_ms"] = check_fb_path_inputs(
+        lp, elog_a, le_t, log=log)
 
     # -- timing: the program and each stage alone, on the last sweep's inputs
     out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
@@ -898,28 +949,6 @@ def _idle_share(program_ms: float, busy_ms) -> str:
     if not isinstance(busy_ms, float):
         return "not measured"
     return f"{100 * (1 - busy_ms / program_ms):.1f}%"
-
-
-def time_fb_plain(device, shape, reps: int) -> dict:
-    """K4/K5 kernel and plain-version times at the same (B, T, K)."""
-    from rxinfer_tpu_torch.ops import fused_fb as ffb
-
-    lp, lt, le = _fb_inputs(*shape, seed=7, device=device)
-    alphas, _ = ffb.fb_forward(lp, lt, le)
-    return {
-        "fused_fb_fwd": {
-            "plain_ms": _cuda_ms(lambda: ffb.fb_forward_reference(lp, lt, le),
-                                 reps, warmup=1),
-            "ms": _cuda_ms(lambda: ffb.fb_forward(lp, lt, le), reps * 5,
-                           inner=20),
-        },
-        "fused_fb_bwd": {
-            "plain_ms": _cuda_ms(lambda: ffb.fb_backward_reference(
-                lt, le, alphas, True), reps, warmup=1),
-            "ms": _cuda_ms(lambda: ffb.fb_backward(lt, le, alphas, True),
-                           reps * 5, inner=20),
-        },
-    }
 
 
 class SmClock:
@@ -1074,7 +1103,8 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
     if px.mu.shape != (b_small, t_len, d) or diff > 1e-4:
         raise AssertionError("infer_batched disagrees with batched_program")
 
-    out = {"errs": errs, "launches": launches}
+    # the unfused chain path (phase 9) runs the same model on the same data
+    out = {"errs": errs, "launches": launches, "model": model, "y": y}
     if device.type != "cuda":
         return out
 
@@ -1119,69 +1149,7 @@ def main_path(device, b: int, t_len: int, d: int, reps: int,
                 f"{n.split('_')[1]} {ms:.4f} ms" for n, ms in parts.items())
                 or "passes not measured"))
 
-    # K1 and K2 alone over several numbers of time blocks, each against the
-    # one-block launch (the recursion with one thread per chain)
-    out["sweep"] = {}
-    one = None
-    for blocks in sorted({*SWEEP_BLOCKS, out["blocks"]}):
-        blocks = len(fs.time_blocks(t_len, blocks))
-        if blocks > 1 and d > fs.FOLD_MAX_DIM:
-            continue
-        mf_s, pf_s = fs._forward_cuda(m0_t, p0_t, xi_t, f, zeros, q, w_obs,
-                                      blocks)
-        got = (mf_s, pf_s) + fs._backward_cuda(mf, pf, f, zeros, q, blocks)
-        one = one or got
-        diff = max(float((g - w).abs().max()) for g, w in zip(got, one))
-        if not diff <= ATOL:
-            raise AssertionError(f"{blocks} time blocks differ from one "
-                                 f"block by {diff}")
-        out["sweep"][blocks] = {
-            "fwd_ms": _cuda_ms(lambda: fs._forward_cuda(
-                m0_t, p0_t, xi_t, f, zeros, q, w_obs, blocks), 5),
-            "bwd_ms": _cuda_ms(lambda: fs._backward_cuda(
-                mf, pf, f, zeros, q, blocks), 5),
-            "max_abs_diff_to_one_block": diff}
-        del got, mf_s, pf_s
-    log("[main] K1 / K2 alone by time blocks (ms; max |diff| to one block): "
-        + "; ".join(f"{k}: {v['fwd_ms']:.3f} / {v['bwd_ms']:.3f} "
-                    f"({v['max_abs_diff_to_one_block']:.3g})"
-                    for k, v in out["sweep"].items())
-        + f"; the wrapper takes {out['blocks']}")
     return out
-
-
-def time_plain(device, shape, reps: int) -> dict:
-    """Kernel and plain-version times at the same (B, T, d).  The plain
-    versions take 1.5-3.7 s a call (thousands of small launches) and ran at
-    other shapes in phase 3, so they are timed over ``reps`` calls without
-    a warm-up."""
-    import torch
-
-    from rxinfer_tpu_torch.ops import fused_smoother as fs
-
-    bsz, t_len, d = shape
-    f, b, q, w = _smoother_params(d, seed=7)
-    rng = np.random.default_rng(7)
-    xi = torch.as_tensor(rng.standard_normal((t_len, bsz, d)).astype(
-        np.float32), device=device)
-    m0 = torch.zeros((bsz, d), device=device)
-    p0 = torch.as_tensor(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
-                                         (bsz, d, d)).copy(), device=device)
-    mf, pf = fs.fused_forward(m0, p0, xi, f, b, q, w)
-    return {
-        "fused_smoother_fwd": {
-            "plain_ms": _cuda_ms(lambda: fs.fused_forward_reference(
-                m0, p0, xi, f, b, q, w), reps, warmup=0),
-            "ms": _cuda_ms(lambda: fs.fused_forward(m0, p0, xi, f, b, q, w),
-                           reps * 5, inner=20),
-        },
-        "fused_smoother_bwd": {
-            "plain_ms": _cuda_ms(lambda: fs.fused_backward_reference(
-                mf, pf, f, b, q), reps, warmup=0),
-            "ms": _cuda_ms(lambda: fs.fused_backward(mf, pf, f, b, q),
-                           reps * 5, inner=20),
-        },
-    }
 
 
 # -- slice 3: the streaming filter (K3) and the quantized payloads (K6-K8) --------
@@ -1449,7 +1417,6 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     from rxinfer_tpu_torch.ops import fused_filter as ff
     from rxinfer_tpu_torch.parallel.filtering import (
         FilterState,
-        filtering_scan,
         make_sharded_filtering,
     )
 
@@ -1493,8 +1460,10 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     m_soa, p_soa = _soa_state(state.m, state.p)
     ys_soa = ys.transpose(1, 2).contiguous()
     got = ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
-    want = ff.fused_filter_reference(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
-    torch.cuda.synchronize()
+    # the plain version's one call (2-4 s: thousands of small launches) is
+    # its time as well
+    want, plain_kernel_ms = _once_ms(lambda: ff.fused_filter_reference(
+        m_soa, p_soa, ys_soa, f, q, hr, w_obs))
     kernel_err = 0.0
     for label, g, w in zip(("means", "final m", "final P"), got, want):
         ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
@@ -1505,7 +1474,8 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     log(f"[filter] K3 vs plain version on the path's inputs: max abs "
         f"{kernel_err:.3g} (rtol=atol={RTOL})")
 
-    out = {"errs": errs, "launches": launches, "kernel_err": kernel_err}
+    out = {"errs": errs, "launches": launches, "kernel_err": kernel_err,
+           "plain_kernel_ms": plain_kernel_ms}
     out["call_ms"] = _cuda_ms(lambda: fn(state, ys), reps)
     out["updates_per_s"] = b * t_len / (out["call_ms"] / 1e3)
     k3 = lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
@@ -1517,13 +1487,6 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     out["sm_clock_mhz"] = clk.mhz
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
-    # the plain versions take 2-4 s a call (thousands of small launches):
-    # one call each, without a warm-up, keeps the script inside its time
-    out["plain_kernel_ms"] = _cuda_ms(
-        lambda: ff.fused_filter_reference(m_soa, p_soa, ys_soa, f, q, hr,
-                                          w_obs), 1, warmup=0)
-    out["plain_scan_ms"] = _cuda_ms(
-        lambda: filtering_scan(state, ys, f, q, h, r), 1, warmup=0)
     out["profile"] = _device_profile(lambda: fn(state, ys),
                                      FILTER_KERNEL_NAMES)
     busy = out["profile"]["busy_ms"]
@@ -1534,8 +1497,7 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         f"chain-updates/s); K3 {out['cycles_per_step']} cycles a step in "
         f"the call at {out['sm_clock_mhz']:.0f} MHz; alone: K3 "
         f"{out['kernel_ms']:.4f} ms, observation "
-        f"layout copy {out['layout_ms']:.4f} ms; plain filtering_scan on the "
-        f"card {out['plain_scan_ms']:.1f} ms, K3's plain version "
+        f"layout copy {out['layout_ms']:.4f} ms; K3's plain version "
         f"{out['plain_kernel_ms']:.1f} ms; device busy {busy} ms per call, "
         f"idle {_idle_share(out['call_ms'], busy)}; in the call "
         f"{out['profile']['kernels']}")
@@ -1764,6 +1726,227 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
     return out
 
 
+# -- the single-dataset infer and the unfused chain path -------------------------
+
+def _lgssm_oracle(y_host, d, w_steps=None):
+    """Smoothed means (n, T, d) and covariances (n, T, d, d) of the LGSSM
+    with ``lgssm_constants`` for the chains y_host (n, T, d), float64;
+    ``w_steps`` (T, n) zeroes the evidence of the steps where it is 0."""
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    n, t_len, _ = y_host.shape
+    hinv = (h.T @ np.linalg.inv(r)).astype(np.float64)
+    xi = np.einsum("ij,ntj->tni", hinv, np.nan_to_num(y_host).astype(
+        np.float64))
+    w = hinv @ h
+    if w_steps is not None:
+        xi = xi * w_steps[..., None]
+        w = w_steps[..., None, None] * w
+    o_m, o_p = rts_float64(np.broadcast_to(m0, (n, d)),
+                           np.broadcast_to(p0, (n, d, d)), xi, f,
+                           np.zeros(d), q, w)
+    return np.moveaxis(o_m, 0, 1), np.moveaxis(o_p, 0, 1)
+
+
+def infer_lgssm_path(device, t_len: int, d: int, reps: int,
+                     log=print) -> dict:
+    """Phase 9 (a): ``rxinfer_tpu_torch.infer`` on one LGSSM dataset of T
+    steps (the JAX package's single-chain row): the associative-scan
+    smoother in torch, no kernel."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    model = zoo.lgssm(*lgssm_constants(d))
+    y_host = np.random.default_rng(1).standard_normal(
+        (t_len, d)).astype(np.float32)
+    y = torch.as_tensor(y_host, device=device)
+    call = lambda: rt.infer(model, data={"y": y}, device=device)
+    reset_launches()
+    res = call()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches)
+    post = res.posteriors["x"]
+    means, covs = post.mean().cpu().numpy(), post.cov().cpu().numpy()
+    if means.shape != (t_len, d) or covs.shape != (t_len, d, d) or not (
+            np.isfinite(means).all() and np.isfinite(covs).all()):
+        raise AssertionError("infer's LGSSM posterior has the wrong shape or "
+                             "is not finite")
+    o_m, o_p = _lgssm_oracle(y_host[None], d)
+    errs = {"means": float(np.abs(means - o_m[0]).max()),
+            "covs": float(np.abs(covs - o_p[0]).max())}
+    if max(errs.values()) > ORACLE_TOL:
+        raise AssertionError(f"infer disagrees with the float64 RTS: {errs}")
+    out = {"errs": errs, "launches": launches}
+    out["ms"] = _cuda_ms(call, reps)
+    out["updates_per_s"] = 3 * t_len / (out["ms"] / 1e3)
+    out["profile"] = _device_profile(call, {})
+    busy = out["profile"]["busy_ms"]
+    log(f"[infer] zoo.lgssm T={t_len} d={d}: {out['ms']:.3f} ms a call, "
+        f"{out['updates_per_s']:.6g} updates/s; float64 RTS max abs err "
+        f"means {errs['means']:.3g}, covs {errs['covs']:.3g} (tol "
+        f"{ORACLE_TOL}); kernel launches {launches}; device busy {busy} ms "
+        f"a call, idle {_idle_share(out['ms'], busy)}")
+    return out
+
+
+def infer_hmm_path(device, t_len: int, iterations: int, reps: int,
+                   log=print) -> dict:
+    """Phase 9 (b): ``infer`` on one dataset of the HMM path (phase 5's
+    initialization): the associative-scan forward-backward in torch."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    y_host = simulate_hmm(1, t_len, seed=3)
+    y = torch.as_tensor(y_host[0], device=device)
+    a0 = np.full((3, 3), 1.0, np.float32)
+    b0 = np.float32(np.eye(3) * 5.0 + 1.0)
+    init = {"A": rt.DirichletCollection(a0), "B": rt.DirichletCollection(b0)}
+    model = zoo.hmm(3, 3)
+    call = lambda: rt.infer(model, data={"y": y}, iterations=iterations,
+                            initialization=init, returnvars=rt.KeepLast(),
+                            device=device)
+    reset_launches()
+    post = call().posteriors
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches)
+    o_g, o_a, o_b = hmm_vmp_float64(y_host, a0, b0, iterations)
+    errs = {
+        "gammas": float(np.abs(post["s"].probs().cpu().numpy()
+                               - o_g[0]).max()),
+        "A_rel": float((np.abs(post["A"].alpha.cpu().numpy() - o_a[0])
+                        / o_a[0]).max()),
+        "B_rel": float((np.abs(post["B"].alpha.cpu().numpy() - o_b[0])
+                        / o_b[0]).max()),
+    }
+    if errs["gammas"] > HMM_ORACLE_TOL["gammas"] or max(
+            errs["A_rel"], errs["B_rel"]) > HMM_ORACLE_TOL["conc_rel"]:
+        raise AssertionError(f"infer disagrees with the float64 VMP: {errs}")
+    out = {"errs": errs, "launches": launches, "ms": _cuda_ms(call, reps)}
+    log(f"[infer] zoo.hmm(3, 3) T={t_len}, {iterations} iterations: "
+        f"{out['ms']:.3f} ms a call; float64 VMP {errs} (tol "
+        f"{HMM_ORACLE_TOL}); kernel launches {launches}")
+    return out
+
+
+def unfused_path(device, main: dict, reps: int, log=print) -> dict:
+    """Phase 9 (c): phase 4's LGSSM cell with ``fused_kernels=False``: the
+    batched scans in torch against the fused program on the same data; the
+    median of ``reps`` calls, the checked one among them."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    model, y = main["model"], main["y"]
+    b, t_len, d = y.shape
+    _, fused = rt.batched_program(model, {"y": y}, iterations=1,
+                                  free_energy=False, device=device)
+    compiled, prog = rt.batched_program(
+        model, {"y": y}, iterations=1, free_energy=False, device=device,
+        options={"fused_kernels": False})
+    report = compiled.plan_report()["x"]
+    if report.get("fused") is not False or "fused_kernels" not in report.get(
+            "reason", ""):
+        raise AssertionError(f"chain x is not on the unfused path: {report}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    reset_launches()
+    (state, _, _), first_ms = _once_ms(lambda: prog({"y": y}))
+    launches = read_launches()
+    expect_launches(launches)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    want, _, _ = fused({"y": y})
+    errs = {"means": float((state["x"].mu - want["x"].mu).abs().max()),
+            "covs": float((state["x"].sigma - want["x"].sigma).abs().max())}
+    if not max(errs.values()) <= ORACLE_TOL:
+        raise AssertionError(f"the unfused program disagrees with the fused "
+                             f"one: {errs}")
+    del state, want
+    out = {"errs": errs, "launches": launches, "peak_bytes": peak,
+           "bytes_per_step": peak / (b * t_len)}
+    # the checked call is one of the ``reps`` timed (1.7 s a call on an
+    # H100); the fused program's time is phase 4's, in this run
+    out["ms"] = statistics.median([first_ms] + [
+        _once_ms(lambda: prog({"y": y}))[1] for _ in range(reps - 1)])
+    out["fused_ms"] = main["program_ms"]
+    log(f"[unfused] LGSSM B={b} T={t_len} d={d}, fused_kernels=False: "
+        f"{out['ms']:.3f} ms a call against the fused program's "
+        f"{out['fused_ms']:.3f} ms ({out['ms'] / out['fused_ms']:.1f}x); "
+        f"max |diff| to the fused posteriors {errs} (tol {ORACLE_TOL}); "
+        f"peak {peak / 1e9:.2f} GB above the inputs "
+        f"({out['bytes_per_step']:.0f} bytes a chain-step); kernel launches "
+        f"{launches}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def nan_batch_path(device, b: int, t_len: int, d: int, log=print) -> dict:
+    """Phase 9 (d): ``infer_batched`` on B LGSSM chains with 10% of the
+    steps missing (NaN): the plan sends the chain to its scans, and sampled
+    chains match the float64 RTS with no evidence at the missing steps."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    model = zoo.lgssm(*lgssm_constants(d))
+    rng = np.random.default_rng(5)
+    y_host = rng.standard_normal((b, t_len, d)).astype(np.float32)
+    y_host[rng.random((b, t_len)) < 0.1] = np.nan
+    y = torch.as_tensor(y_host, device=device)
+    compiled, _ = rt.batched_program(model, {"y": y}, device=device)
+    report = compiled.plan_report()["x"]
+    if report.get("fused") is not False or "missing" not in report.get(
+            "reason", ""):
+        raise AssertionError(f"the NaN batch is not on the unfused path: "
+                             f"{report}")
+    reset_launches()
+    res, call_ms = _once_ms(lambda: rt.infer_batched(model, {"y": y},
+                                                     device=device))
+    launches = read_launches()
+    expect_launches(launches)
+    rows = [0, 1, b // 2, b - 1]
+    seen = np.isfinite(y_host[rows]).all(-1).T.astype(np.float64)  # (T, n)
+    o_m, o_p = _lgssm_oracle(y_host[rows], d, w_steps=seen)
+    post = res.posteriors["x"]
+    errs = {"means": float(np.abs(post.mu[rows].cpu().numpy() - o_m).max()),
+            "covs": float(np.abs(post.sigma[rows].cpu().numpy()
+                                 - o_p).max())}
+    if max(errs.values()) > ORACLE_TOL:
+        raise AssertionError(f"the NaN batch disagrees with the float64 RTS:"
+                             f" {errs}")
+    log(f"[nan] infer_batched B={b} T={t_len} d={d}, "
+        f"{100 * (1 - seen.mean()):.1f}% of the sampled steps missing: "
+        f"{call_ms:.1f} ms (one call); float64 RTS with W = 0 at the missing "
+        f"steps, chains {rows}: {errs} (tol {ORACLE_TOL}); kernel launches "
+        f"{launches}")
+    return {"errs": errs, "launches": launches, "ms": call_ms}
+
+
+def side_checks() -> tuple[list, dict, dict]:
+    """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
+    process beside the K1/K2 checks.  The plain versions the checks hold the
+    kernels against are host-bound Python loops (seconds a call), so the two
+    processes overlap about half of the script's checking time.  Returns the
+    log lines, each kernel's max error against its plain version and the
+    layouts K6-K8 took."""
+    import torch
+
+    device = torch.device("cuda")
+    lines: list = []
+    worst = check_fb_kernels(device, FB_CHECK_SHAPES, log=lines.append)
+    worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES,
+                                                log=lines.append)
+    quant_worst, layouts = check_quant_kernels(device, log=lines.append)
+    worst.update(quant_worst)
+    return lines, worst, layouts
+
+
 def main() -> int:
     try:
         import torch
@@ -1810,15 +1993,20 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas] {name}: {line.strip()}")
 
-    # 3. kernels vs plain versions
-    worst = check_kernels(device, CHECK_SHAPES)
-    _elapsed("K1/K2 checks", t_start)
-    worst.update(check_fb_kernels(device, FB_CHECK_SHAPES))
-    _elapsed("K4/K5 checks", t_start)
+    # 3. and 6. kernels vs plain versions: K1/K2 here, K3-K8 in a second
+    # process at the same time (a check that fails there raises here)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        side = pool.apply_async(side_checks)
+        worst, plain = check_kernels(device, CHECK_SHAPES)
+        _elapsed("K1/K2 checks", t_start)
+        side_lines, side_worst, quant_layouts = side.get()
+    for line in side_lines:
+        print(line)
+    worst.update(side_worst)
+    _elapsed("K3-K8 checks", t_start)
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
-    plain = time_plain(device, PLAIN_SHAPE, reps=1)
     bounds = kernel_bounds(MAIN_B, MAIN_T, MAIN_D)
     plain_bounds = kernel_bounds(*PLAIN_SHAPE)
     _elapsed("LGSSM path", t_start)
@@ -1826,8 +2014,7 @@ def main() -> int:
     # 5. HMM path at the bench size
     hmm = hmm_path(device, HMM_B, HMM_T, HMM_IT, reps=10)
     hmm_shape = (HMM_B, HMM_T, HMM_K)
-    fb_plain = time_fb_plain(device, hmm_shape, reps=3)
-    fb_alone = time_fb_alone(device, FB_ALONE_SHAPES, smi)
+    fb_alone = time_fb_alone(device, [hmm_shape], smi)
     fbb = fb_bounds(*hmm_shape)
     _elapsed("HMM path", t_start)
     for name, ms_key in (("fused_fb_fwd", "fwd_ms"),
@@ -1835,14 +2022,8 @@ def main() -> int:
         print(f"[hmm] {name}: {hmm[ms_key]:.4f} ms, bound "
               f"{fbb[name]['bound_ms']:.6f} ms ({fbb[name]['bound_by']}), "
               f"roofline share {100 * fbb[name]['bound_ms'] / hmm[ms_key]:.3f}%;"
-              f" plain {fb_plain[name]['plain_ms']:.2f} ms vs kernel "
-              f"{fb_plain[name]['ms']:.4f} ms at (B,T,K)={hmm_shape}")
-
-    # 6. filter and quantization kernels vs plain versions
-    worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES)
-    quant_worst, quant_layouts = check_quant_kernels(device)
-    worst.update(quant_worst)
-    _elapsed("K3, K6-K8 checks", t_start)
+              f" plain {hmm['plain_ms'][name]:.2f} ms (its one call on the "
+              f"path's inputs) at (B,T,K)={hmm_shape}")
 
     # 7. path A: the continuous-batching filter at full width
     filt = filter_path(device, FILTER_B, FILTER_T, FILTER_D, reps=10)
@@ -1857,6 +2038,14 @@ def main() -> int:
     q_ingest_bound = quantize_bound(*INGEST_SHAPE[:2])
     dq_bound = dequant_bound(*INGEST_SHAPE)
     _elapsed("path B", t_start)
+
+    # 9. the single-dataset infer and the unfused chain path: no kernel
+    inf = infer_lgssm_path(device, MAIN_T, MAIN_D, reps=5)
+    inf_hmm = infer_hmm_path(device, HMM_T, HMM_IT, reps=5)
+    unf = unfused_path(device, main, reps=3)
+    del main["y"]
+    nan_b = nan_batch_path(device, NAN_B, MAIN_T, MAIN_D)
+    _elapsed("infer and the unfused path", t_start)
     print(f"[filter] fused_filter: {filt['kernel_ms']:.4f} ms, bound "
           f"{filt_bound['bound_ms']:.4f} ms ({filt_bound['bound_by']}), "
           f"roofline share "
@@ -1885,7 +2074,7 @@ def main() -> int:
               f" plain {plain[name]['plain_ms']:.2f} ms vs kernel "
               f"{plain[name]['ms']:.4f} ms at (B,T,d)={PLAIN_SHAPE}")
 
-    # 9. the kernels line
+    # 10. the kernels line
     source = "rxinfer_tpu_torch/csrc/fused_smoother.cu"
     rows = []
     for name, replaces, ms_key in (
@@ -1901,7 +2090,6 @@ def main() -> int:
             "ms_in_path_by_pass": main["profile"]["kernels"][name].get("parts"),
             "blocks": main["blocks"],
             "scratch_bytes": main["scratch_bytes"][name],
-            "ms_one_block": main["sweep"][1][ms_key],
             "plain_ms": plain[name]["plain_ms"],
             "bound_ms": bounds[name]["bound_ms"],
             "bound_by": bounds[name]["bound_by"], "library_ms": None,
@@ -1946,7 +2134,7 @@ def main() -> int:
                          for shp, row in fb_alone.items()},
             "ms_alone_wall": {"x".join(map(str, shp)): row["wall_ms"][name]
                               for shp, row in fb_alone.items()},
-            "plain_ms": fb_plain[name]["plain_ms"],
+            "plain_ms": hmm["plain_ms"][name],
             "bound_ms": fbb[name]["bound_ms"],
             "bound_by": fbb[name]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes an HMM "
@@ -2050,6 +2238,11 @@ def main() -> int:
     print(f"[hmm] program_ms {hmm['program_ms']:.4f} updates_per_s "
           f"{hmm['updates_per_s']:.6g} (B={HMM_B}, T={HMM_T}, "
           f"iterations={HMM_IT})")
+    print(f"[infer] lgssm_ms {inf['ms']:.4f} updates_per_s "
+          f"{inf['updates_per_s']:.6g} (T={MAIN_T}, d={MAIN_D}); hmm_ms "
+          f"{inf_hmm['ms']:.4f} (T={HMM_T}, iterations={HMM_IT}); unfused "
+          f"program_ms {unf['ms']:.4f} against fused {unf['fused_ms']:.4f} "
+          f"(B={MAIN_B}); NaN batch ms {nan_b['ms']:.1f} (B={NAN_B})")
     print(f"[main] program_ms {main['program_ms']:.4f} updates_per_s "
           f"{main['updates_per_s']:.6g} (B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); "
           f"total run {time.perf_counter() - t_start:.1f} s")

@@ -1,12 +1,17 @@
 """rxinfer_tpu_torch — the PyTorch/CUDA port of ``rxinfer_tpu``.
 
-Slices 1 to 3 of the port.  A model written with ``@model``, ``latent``,
-``plate``, ``MvNormal``/``Normal``, ``Categorical``, ``DirichletCollection``
-and ``Transition`` runs through ``batched_program`` / ``infer_batched`` on
-an NVIDIA GPU: its Gaussian chains are solved by the hand-written CUDA
+A model written with ``@model``, ``latent``, ``plate``,
+``MvNormal``/``Normal``, ``Categorical``, ``DirichletCollection`` and
+``Transition`` runs through ``infer`` on one dataset, and through
+``batched_program`` / ``infer_batched`` over many, on an NVIDIA GPU.  In a
+batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
 forward-backward kernels of ``csrc/fused_fb.cu``, and its plain conjugate
-groups by natural-parameter message products;
+groups by natural-parameter message products; a chain the plan leaves off
+the kernels (``options={"fused_kernels": False}``, missing observations in
+a Gaussian batch, a state dimension or state count beyond the kernels') and
+every chain of ``infer`` runs the associative-scan smoother and
+forward-backward of ``ops/kalman.py`` / ``ops/discrete_chain.py`` in torch;
 ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` feeds the
 Gaussian chains from observations quantized by the kernels of
 ``csrc/quantized.cu`` (``ops/quantized.py``, which also holds the
@@ -43,8 +48,14 @@ from .graph.dsl import (  # noqa: F401
 )
 from .inference import (  # noqa: F401
     BatchedInferenceResult,
+    InferenceResult,
     KeepEach,
     KeepLast,
+    UnfactorizedData,
     batched_program,
+    getreturnval,
+    infer,
     infer_batched,
+    iserror,
+    issuccess,
 )

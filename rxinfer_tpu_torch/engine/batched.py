@@ -2,7 +2,8 @@
 ``rxinfer_tpu/engine/batched.py``).
 
 ``batched_program`` / ``infer_batched`` run B independent datasets through
-one program.  Per sweep, in the compiled sweep order:
+one program.  Per sweep, in the compiled sweep order
+(``CompiledModel._sweep_once``):
 
 * A Gaussian chain block whose transition, prior and evidence parameters are
   compile-time constants (the static tier) lowers to one einsum over the raw
@@ -16,14 +17,24 @@ one program.  Per sweep, in the compiled sweep order:
   (``DiscreteChainBlock._inputs``) and runs
   ``ops/fused_fb.fused_fb_batched(..., per_step_xi=True)``; its per-step pair
   marginals become ``chain_cross`` (B, T-1, K, K) in [out, in] order.
+* A chain the plan leaves off the kernels runs its block's batch-major
+  ``update`` instead: the associative-scan smoother or forward-backward of
+  ``ops/kalman.py`` / ``ops/discrete_chain.py`` over the whole batch (the
+  counterpart of the JAX package's vmapped chain step).  ``build_plans``
+  decides which, and ``compiled.plan_report()`` gives each chain's reason:
+  ``options={"fused_kernels": False}``, missing observations in a Gaussian
+  batch, a state dimension or state count beyond the kernels', parameters
+  that are not compile-time constants.  It is a decision of the plan only:
+  a kernel that fails to build or launch raises, and nothing reroutes its
+  chain.  One program may mix fused and unfused chains.
 * A plain conjugate group multiplies its factors' messages over the batch
   (``PlainGroup.update``).
 
 The fused kernels are the CUDA kernels on a CUDA device and their plain
 versions on the CPU.  A batch with missing observations (NaN) is zero-filled
-once per call and its factor copies masked; the Gaussian tier refuses such a
-batch (its constant W cannot express the masks), the discrete and plain
-paths take it.
+once per call and its factor copies masked; the Gaussian kernel tier
+refuses such a batch (its constant W cannot express the masks), the
+discrete kernels, the unfused chains and the plain groups take it.
 
 With ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` a program
 quantizes, once per call, every observation array that feeds a fused
@@ -35,11 +46,8 @@ Ported subset: ``FusedGaussianPlan``, the static branches of
 ``_plan_fused_gaussian``, ``_extract_linear_evidence``,
 ``_fused_gaussian_update``, ``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
-``make_batched_program`` (with quantized observation ingest) without
-shared variables or free energy.  A chain that is not eligible is not routed
-to a vmapped scan (that path is not ported): the program raises
-``NotImplementedError`` with the plan report's reason.  So does
-``options={"fused_kernels": False}``.
+``make_batched_program`` (with quantized observation ingest and the
+unfused chain path) without shared variables or free energy.
 """
 
 from __future__ import annotations
@@ -53,17 +61,17 @@ import torch
 
 from ..dists import Categorical, MvNormalMeanCovariance, NormalMeanVariance
 from ..graph.ir import Const, Ref
-from .blocks import (
-    BatchContext,
-    DiscreteChainBlock,
-    GaussianChainBlock,
-    factor_data_mask,
-)
+from .blocks import BatchContext, DiscreteChainBlock, GaussianChainBlock
 
 # Chain-moment budget of one batched program: three quarters of the H100's
 # 80 GB, as the JAX package kept 12 of a TPU v5e's 16 GB.  The per-element
 # estimate below already carries a 2x working-set headroom.
 DEFAULT_HBM_BUDGET = 60_000_000_000
+# Element-sizes of working set a step of an unfused chain holds at its peak
+# (see chain_hbm_bytes_per_element): the Gaussian scans at B=1024, T=10,000,
+# d=4 peaked at 865 bytes a chain-step on an H100 (chip_smoke.py, phase 9),
+# 3.9 element-sizes; 4 with the estimate's 2x headroom over it.
+UNFUSED_SCAN_FLOATS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,22 +324,34 @@ def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
 
 
 def chain_hbm_bytes_per_element(compiled) -> int:
-    """Estimated device bytes ONE batch element's chain blocks stream
-    through the fused kernels (smoother: filtered + smoothed means/covs,
-    cross, xi payload; forward-backward: log-evidence, gammas and per-step
-    xis; fp32 with 2x working-set headroom)."""
+    """Estimated device bytes ONE batch element's chain blocks hold at once
+    (fp32 with 2x working-set headroom).  A fused chain streams its moments
+    through the kernels (smoother: filtered + smoothed means/covs, cross, xi
+    payload; forward-backward: log-evidence, gammas and per-step xis).  A
+    chain the last plan left unfused (``compiled.plan_report()``) holds the
+    scan path's working set instead: its evidence, the associative elements
+    (filter (A, b, C, eta, J): 3d^2 + 2d floats a step) with the scan's
+    levels, its compose temporaries and its outputs, UNFUSED_SCAN_FLOATS
+    element-sizes in all; a discrete chain its K x K elements and the
+    K x K x K log-matmul temporaries of the scan's levels."""
+    report = compiled._plan_report or {}
     per_elem = 0
     for kind, block in compiled.blocks:
         if kind != "chain":
             continue
         t = block.var.length
+        fused = report.get(block.var.name, {}).get("fused", True)
         if isinstance(block, DiscreteChainBlock):
             k = block.k
-            per_elem += t * (2 * k + k * k) * 4 * 2
+            floats = (2 * k + k * k) if fused \
+                else UNFUSED_SCAN_FLOATS * k * k + 2 * k ** 3
+            per_elem += t * floats * 4 * 2
             continue
         d = block.dim
         sym = d * (d + 1) // 2
-        per_elem += t * (2 * d + 2 * sym + d * d + d) * 4 * 2
+        floats = (2 * d + 2 * sym + d * d + d) if fused \
+            else UNFUSED_SCAN_FLOATS * (3 * d * d + 2 * d)
+        per_elem += t * floats * 4 * 2
     return per_elem
 
 
@@ -404,6 +424,14 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
                             "route": route}
         else:
             report[name] = {"fused": False, "reason": reason}
+    unfused = {n: r["reason"] for n, r in report.items() if not r["fused"]}
+    if unfused and compiled.warn and compiled.use_fused:
+        details = "; ".join(f"{n}: {r}" for n, r in unfused.items())
+        warnings.warn(
+            "batched program: chain block(s) run off the fused kernels, on "
+            f"the batched scan path — {details}. Inspect "
+            "compiled.plan_report() for the full plan; silence with "
+            'options={"warn": False}.', stacklevel=3)
     return plans
 
 
@@ -414,22 +442,16 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     data leaf and every state leaf carries a leading batch axis.  The data
     may be numpy arrays or tensors; they are moved to ``device`` as float32.
     ``fe`` is an empty (0, B) tensor (free energy is not ported yet).  A
-    program built on finite data (``all_finite=True``) skips the NaN masks,
-    as the JAX package's fused tier does."""
+    chain in the plan runs on the fused kernels; every other chain runs its
+    block's batch-major update in the same sweep.  A program built on
+    finite data (``all_finite=True``) skips the NaN masks, as the JAX
+    package's fused tier does."""
     if free_energy:
         raise NotImplementedError(
             "free_energy=True is not ported to the PyTorch package yet.")
     device = torch.device(device)
     data0 = compiled._with_derived(data0)
     plans = build_plans(compiled, data0, all_finite=all_finite, device=device)
-    for kind, block in compiled.blocks:
-        name = block.var.name
-        if kind == "chain" and name not in plans:
-            raise NotImplementedError(
-                f"chain {name!r} does not lower to the fused kernels: "
-                f"{compiled._plan_report[name]['reason']}. The vmapped "
-                "per-dataset path is not ported yet."
-            )
     # quantized observation ingest: the names that feed a fused Gaussian
     # plan's evidence einsum
     obs_dtype = compiled.observation_dtype
@@ -446,54 +468,32 @@ def make_batched_program(compiled, data0: dict, iterations: int,
                 "float32.",
                 stacklevel=2,
             )
-    from ..dists import tree_map
-
-    init0 = {name: tree_map(lambda a: a.to(device), d)
-             for name, d in compiled._init_state().items()}
+    init = compiled._device_init(device)
     consts: dict = {}   # model constants on the device, kept across calls
+    blocks = {block.var.name: block for kind, block in compiled.blocks}
 
-    def sweep(state, chain_cross, data, ctx, qpayload):
-        for kind, block in compiled.blocks:
-            name = block.var.name
-            if kind == "plain":
-                state[name] = block.update(state, data, chain_cross, ctx)
-                continue
-            if plans[name] == "discrete":
-                marg, cross = _fused_discrete_update(block, state, data,
-                                                     chain_cross, ctx)
+    def fused_updates(qpayload) -> dict:
+        """The planned chains' updates, in the blocks' update signature."""
+        fused = {}
+        for name, plan in plans.items():
+            if plan == "discrete":
+                fused[name] = (lambda st, d, cc, ctx, _b=blocks[name]:
+                               _fused_discrete_update(_b, st, d, cc, ctx))
             else:
-                marg, cross = _fused_gaussian_update(block, plans[name], data,
-                                                     ctx.batch, qpayload)
-            state[name] = marg
-            chain_cross[name] = cross
-        return state, chain_cross
+                fused[name] = (lambda st, d, cc, ctx, _b=blocks[name],
+                               _p=plan: _fused_gaussian_update(
+                                   _b, _p, d, ctx.batch, qpayload))
+        return fused
 
     def program(data: dict):
-        data = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
-                for k, v in data.items()}
-        data = compiled._with_derived(data)
+        data, masks = compiled._device_data(data, all_finite, device)
         batch = next(iter(data.values())).shape[0]
-        masks = {}
-        if not all_finite:
-            for f in compiled.graph.factors:
-                m = factor_data_mask(f, data)
-                if m is not None:
-                    masks[f.id] = m
-            data = {k: torch.nan_to_num(v) for k, v in data.items()}
         # once per call, not per sweep: every sweep re-reads the payload
         qpayload = {name: quantize_observations(data[name], obs_dtype)
                     for name in sorted(qnames)} or None
         ctx = BatchContext(device, batch, consts, masks)
-        state = {name: tree_map(lambda a: a.expand((batch,) + tuple(a.shape)),
-                                d) for name, d in init0.items()}
-        chain_cross: dict = {}
-        history = []
-        for _ in range(iterations):
-            state, chain_cross = sweep(dict(state), dict(chain_cross), data,
-                                       ctx, qpayload)
-            if keep_each:
-                history.append(dict(state))
-        fe = torch.zeros((0, batch), device=device)
-        return state, fe, history
+        state, history = compiled._iterate(data, ctx, init, iterations,
+                                           keep_each, fused_updates(qpayload))
+        return state, torch.zeros((0, batch), device=device), history
 
     return program

@@ -13,25 +13,28 @@ Two ways of evaluating rules, chosen by the ``ctx`` argument:
   device, batch on axis 0 and slots on axis 1.  A value that a plated factor
   shares across its copies (a scalar group, an indexed slot, a whole data
   array) gets a unit plate axis, so that batched rules broadcast.
-  ``PlainGroup.update`` and ``DiscreteChainBlock._inputs`` run this way, over
-  the batch rather than under a per-dataset ``vmap``.
+  ``PlainGroup.update``, ``DiscreteChainBlock._inputs`` and both chain
+  blocks' ``update`` run this way, over the batch rather than under a
+  per-dataset ``vmap``; ``infer`` runs one dataset as a batch of one.
 
 Ported: ``build_q`` (with the structured ``joint`` of a chain transition from
 ``chain_cross``), ``resolve_iface``, ``factor_data_mask`` and
-``mask_message`` (NaN observations are zero-filled by the batched program
-and their factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
+``mask_message`` (NaN observations are zero-filled by the program and their
+factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
 ``PlainGroup`` for the mean-field path (scalar groups plate-reduced, array
-groups padded over their slots) and ``DiscreteChainBlock``'s constructor and
-``_inputs``.  ``PlainGroup.finalize`` is the identity here: its two branches
-(the Wishart inverse-scale carrier and form constraints) belong to families
-and constraints that are not ported.  Not ported: the per-dataset chain
-solvers (``GaussianChainBlock.update`` with the Kalman scans,
-``DiscreteChainBlock.update`` with ``ops/discrete_chain.py``), the AR/GCV
-chain blocks, EP damping of evidence messages, and the ``PlainGroup``
-branches that ``engine/compile.py`` refuses when it builds a group: grid
-(nested-plate) factors, cavity (EP) message stores, required-message
-dependencies, mean-field splits, form and message-form constraints and
-function-form fallback messages.
+groups padded over their slots), ``GaussianChainBlock`` (its ``update``
+with the Kalman scans of ``ops/kalman.py``) and ``DiscreteChainBlock`` (its
+``update`` with ``ops/discrete_chain.py``), each solving with the
+associative scans from 48 slots and the loops below.
+``PlainGroup.finalize`` is the identity here: its two branches (the Wishart
+inverse-scale carrier and form constraints) belong to families and
+constraints that are not ported.  Not ported: the ``time_mesh`` branch of
+``GaussianChainBlock.update`` (time sharding), the AR/GCV chain blocks, EP
+damping of evidence messages, and the ``PlainGroup`` branches that
+``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
+factors, cavity (EP) message stores, required-message dependencies,
+mean-field splits, form and message-form constraints and function-form
+fallback messages.
 """
 
 from __future__ import annotations
@@ -271,16 +274,22 @@ def _place(total: int, lo: int, hi: int, x: torch.Tensor,
 
 class GaussianChainBlock:
     """Gaussian chain: prior factor at slot 0, lag-1 linear-Gaussian
-    transition over a plate, Gaussian evidence factors attached to slots."""
+    transition over a plate, Gaussian evidence factors attached to slots.
+    ``update`` solves the chain exactly over the whole batch by Kalman
+    smoothing (``ops/kalman.py``): the associative-scan smoother when
+    ``use_parallel`` and the chain has 48 slots or more, the sequential one
+    below that."""
 
     def __init__(self, var, dim: int, scalar: bool, prior: Factor,
-                 transition: Factor, evidence: list):
+                 transition: Factor, evidence: list,
+                 use_parallel: bool = True):
         self.var = var
         self.dim = dim
         self.scalar = scalar
         self.prior = prior
         self.transition = transition
         self.evidence = evidence  # (factor, chain-interface-name)
+        self.use_parallel = use_parallel
 
     def _lift_vec(self, x):
         return x[..., None] if self.scalar else x
@@ -288,8 +297,8 @@ class GaussianChainBlock:
     def _lift_mat(self, x):
         return x[..., None, None] if self.scalar else x
 
-    def _prior_moments(self, state, data):
-        q = build_q(self.prior, state, data, exclude="out")
+    def _prior_moments(self, state, data, ctx=None):
+        q = build_q(self.prior, state, data, exclude="out", ctx=ctx)
         msg = get_message_rule(self.prior.fform, "out")(q)
         if self.scalar:
             m0 = self._lift_vec(msg.mean())
@@ -308,31 +317,39 @@ class GaussianChainBlock:
                 d, dtype=p0.dtype, device=p0.device))
         return m0, p0
 
-    def _transition_params(self, state, data, length):
+    def _transition_params(self, state, data, length, ctx=None):
+        """A, b, Q of the T-1 transitions, (..., T-1, d, d) and (..., T-1, d):
+        no leading axes when they are constants, the batch's under ``ctx``
+        when the noise is a random variable's marginal."""
         f = self.transition
-        dev = _device_of(data)
-        a = f.interfaces["A"].value if isinstance(f.interfaces.get("A"), Const) \
-            else np.eye(self.dim, dtype=np.float32)
-        a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        dev = _device_of(data) if ctx is None else ctx.device
+
+        def const(name, default):
+            v = f.interfaces.get(name)
+            if not isinstance(v, Const):
+                return torch.as_tensor(default, device=dev)
+            if ctx is not None:
+                return ctx.const(v)
+            return torch.as_tensor(np.asarray(v.value, np.float32),
+                                   device=dev)
+
+        a = const("A", np.eye(self.dim, dtype=np.float32))
         if self.scalar and a.ndim == 0:
             a = a[None, None]
-        b_val = f.interfaces.get("b")
-        b = torch.as_tensor(np.asarray(
-            b_val.value if isinstance(b_val, Const) else 0.0, np.float32),
-            device=dev)
+        b = const("b", np.float32(0.0))
         if self.scalar and b.ndim == 0:
             b = b[None]
         if not self.scalar and b.ndim == 0:
             b = torch.zeros((self.dim,), device=dev)
         if "cov" in f.interfaces or "var" in f.interfaces:
             noise = f.interfaces.get("cov", f.interfaces.get("var"))
-            nq = resolve_iface(noise, f, state, data)
+            nq = resolve_iface(noise, f, state, data, ctx)
             qv = nq.point if isinstance(nq, PointMass) else nq.mean()
             q_cov = self._lift_mat(qv)
         else:
             from ..rules.expectations import e_precision
 
-            nq = resolve_iface(f.interfaces["prec"], f, state, data)
+            nq = resolve_iface(f.interfaces["prec"], f, state, data, ctx)
             w = self._lift_mat(e_precision(nq))
             if not isinstance(nq, PointMass):
                 # float32 guard: a near-zero expected precision gives
@@ -341,19 +358,19 @@ class GaussianChainBlock:
                 w = w + 1e-4 * torch.eye(d, dtype=w.dtype, device=w.device)
             q_cov = pd_inverse(w)
         tm1 = length - 1
-        A = a.expand((tm1, self.dim, self.dim))
-        B = b.expand((tm1, self.dim))
-        Q = q_cov.expand((tm1, self.dim, self.dim))
-        return A, B, Q
+        steps = lambda x, ev: x.unsqueeze(-ev - 1).expand(
+            x.shape[:-ev] + (tm1,) + x.shape[-ev:])
+        return steps(a, 2), steps(b, 1), steps(q_cov, 2)
 
-    def _evidence_msg(self, f, iface, state, data):
+    def _evidence_msg(self, f, iface, state, data, ctx=None):
         """One evidence factor's Gaussian message to the chain as lifted
         information-form tensors ``(mxi, mw, coverage)``."""
         rule = get_message_rule(f.fform, iface)
         node_cls = get_node(f.fform)
         needs_self = (getattr(node_cls, "needs_self_marginal", False)
                       and self.var.name in state)
-        q = build_q(f, state, data, exclude=None if needs_self else iface)
+        q = build_q(f, state, data, exclude=None if needs_self else iface,
+                    ctx=ctx)
         if in_cavity_cluster(node_cls, iface):
             # EP cavity: same-cluster random neighbours are divided by this
             # factor's stored message (none on the static tier, where every
@@ -400,20 +417,93 @@ class GaussianChainBlock:
             w = w + _place(length, lo, hi, mw, (d, d))
         return xi, w
 
+    def _evidence_batch(self, state, data, ctx: BatchContext):
+        """The batch's evidence xi (B, T, d) and W (B, T, d, d), masked
+        where an observation is missing (zero natural parameters: no
+        evidence)."""
+        d, length = self.dim, self.var.length
+        xi = torch.zeros((ctx.batch, length, d), device=ctx.device)
+        w = torch.zeros((ctx.batch, length, d, d), device=ctx.device)
+        for f, iface in self.evidence:
+            mxi, mw, cov = self._evidence_msg(f, iface, state, data, ctx)
+            mask = ctx.masks.get(f.id)
+            if mask is not None:
+                mxi = mxi * mask.reshape(mask.shape + (1,))
+                mw = mw * mask.reshape(mask.shape + (1, 1))
+            if isinstance(cov, tuple):
+                slots = slice(*cov)
+            elif isinstance(cov, int):
+                slots = cov
+            else:
+                raise AssertionError("chain evidence must be indexed")
+            xi[:, slots] += mxi
+            w[:, slots] += mw
+        return xi, w
+
+    def update(self, state: dict, data: dict, chain_cross: dict,
+               ctx: BatchContext):
+        """The chain's marginal over the batch and its rule-ready pair
+        statistics Cov(out, in) (B, T-1, d, d) (scalar chains (B, T-1))."""
+        from ..dists import MvNormalMeanCovariance, NormalMeanVariance
+        from ..ops.kalman import (
+            ChainParams,
+            parallel_smoother,
+            sequential_smoother,
+        )
+
+        d, length = self.dim, self.var.length
+        m0, p0 = self._prior_moments(state, data, ctx)
+        a, b, q = self._transition_params(state, data, length, ctx)
+        xi, w = self._evidence_batch(state, data, ctx)
+        params = ChainParams(m0.expand(ctx.batch, d),
+                             p0.expand(ctx.batch, d, d), a, b, q, xi, w)
+        solver = (parallel_smoother if self.use_parallel and length >= 48
+                  else sequential_smoother)
+        res = solver(params)
+        if self.scalar:
+            return (NormalMeanVariance(res.means[..., 0], res.covs[..., 0, 0]),
+                    res.cross[..., 0, 0])
+        # engine convention: chain_cross stores Cov(out, in), the transpose
+        # of the smoother's Cov(x_t, x_{t+1})
+        return (MvNormalMeanCovariance(res.means, res.covs),
+                res.cross.transpose(-1, -2))
+
 
 class DiscreteChainBlock:
     """Exact discrete-chain block (HMM backbone): forward-backward given the
     expected log-potentials of its neighbours (structured VMP).  The batched
     program hands ``_inputs`` to the fused forward-backward kernels
-    (engine/batched.py); the per-dataset ``update`` is not ported."""
+    (engine/batched.py); ``update`` solves the chain over the batch with
+    ``ops/discrete_chain.py`` instead (the scan version when ``use_parallel``
+    and the chain has 48 slots or more)."""
 
     def __init__(self, var, k: int, prior: Factor, transition: Factor,
-                 evidence: list):
+                 evidence: list, use_parallel: bool = True):
         self.var = var
         self.k = k
         self.prior = prior
         self.transition = transition
         self.evidence = evidence  # (factor, chain-interface-name)
+        self.use_parallel = use_parallel
+
+    def update(self, state: dict, data: dict, chain_cross: dict,
+               ctx: BatchContext):
+        """The chain's marginal over the batch (B, T, K) and its pair
+        marginals (B, T-1, K, K) in [out, in] order."""
+        from ..dists import Categorical
+        from ..ops.discrete_chain import (
+            forward_backward,
+            parallel_forward_backward,
+        )
+
+        length, k = self.var.length, self.k
+        lp, elog_a, le_t = self._inputs(state, data, chain_cross, ctx)
+        log_trans = elog_a[:, None].expand(ctx.batch, length - 1, k, k)
+        solver = (parallel_forward_backward
+                  if self.use_parallel and length >= 48 else forward_backward)
+        res = solver(lp, log_trans, le_t.transpose(0, 1))
+        return (Categorical(torch.log(torch.clamp(res.gammas, min=1e-37))),
+                res.xis)
 
     def _inputs(self, state: dict, data: dict, chain_cross: dict,
                 ctx: BatchContext):

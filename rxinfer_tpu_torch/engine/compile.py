@@ -3,23 +3,25 @@
 
 Lowering pipeline, as in the JAX package: contract Gaussian means over
 anonymous deltas, fold plain-Gaussian lag transitions into LinearGaussian
-fforms, detect chain blocks, schedule the sweep, and build the batched
-program (engine/batched.py).
+fforms, detect chain blocks, schedule the sweep, and build the programs:
+the single-dataset program of ``infer`` (``make_program`` / ``run`` /
+``run_iterative``) and the batched program (engine/batched.py).
 
 Ported subset: ``contract_deltas``, ``normalize_transitions``,
 ``detect_chains``, ``schedule_sweep`` and the parts of ``CompiledModel`` that
 models of Gaussian chains, discrete chains and plain conjugate groups need
-with ``constraints=None`` (block construction with compile-time rule
-resolution, ``_init_state``, ``plan_report``, ``_with_derived``,
-``make_batched_program``).  A plain group is built for every random
-variable that is not a chain, in a family the port has a natural-parameter
-view for (``gaussian``, ``mv_gaussian``, ``categorical``,
-``dirichlet_collection``).  Not ported yet (they raise
+with ``constraints=None``: block construction with compile-time rule
+resolution, ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
+(``_sweep_once``, batch-major under a ``BatchContext``: one dataset is a
+batch of one), ``make_program``, ``run``, ``run_iterative`` (host loop with
+per-iteration callbacks), ``predict`` and ``make_batched_program``.  A plain
+group is built for every random variable that is not a chain, in a family
+the port has a natural-parameter view for (``gaussian``, ``mv_gaussian``,
+``categorical``, ``dirichlet_collection``).  Not ported yet (they raise
 ``NotImplementedError``): plain groups of other families (``gamma``,
 ``wishart``, ...), the plain-group branches listed in ``engine/blocks.py``,
 AR/GCV chains, constraints, meta, tree-scheduled (auto-initialized) loopy
-models, the single-dataset program, free energy, streaming ticks and
-predictions.
+models, free energy, streaming ticks and ``mu()`` outbound messages.
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ from ..dists.natural import NAT_EVENT_RANKS
 from ..graph.ir import Const, Factor, ModelGraph, Ref, SymIndex
 from ..rules.registry import get_message_rule, get_node
 from .blocks import (
+    BatchContext,
     DiscreteChainBlock,
     GaussianChainBlock,
     PlainGroup,
     _coverage,
+    build_q,
+    factor_data_mask,
     in_cavity_cluster,
 )
 from .shapes import resolve_groups
@@ -274,6 +279,20 @@ def schedule_sweep(graph, chains, init_names: set[str]) -> list[str]:
     return order
 
 
+def _all_finite(data: dict) -> bool:
+    """No floating-point leaf holds a NaN or an infinity."""
+    for v in data.values():
+        if isinstance(v, torch.Tensor):
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                return False
+        else:
+            a = np.asarray(v)
+            if (np.issubdtype(a.dtype, np.floating)
+                    and not np.all(np.isfinite(a))):
+                return False
+    return True
+
+
 class CompiledModel:
     """Compiled inference plan for one model x data-shape signature."""
 
@@ -319,8 +338,12 @@ class CompiledModel:
                 f"Unknown inference options {sorted(unknown)}; available: "
                 f"{sorted(_KNOWN_OPTIONS)}."
             )
-        # False would route chains to the vmapped scan path, which is not
-        # ported: build_plans reports it and the batched program raises
+        # chains solved by the scans of ops/kalman.py and
+        # ops/discrete_chain.py: the associative-scan versions from 48
+        # slots on unless this is False
+        self.use_parallel = options.get("parallel_scans", True)
+        # False keeps every chain of a batched program off the fused kernels:
+        # build_plans reports it and each block's batch-major update runs
         self.use_fused = options.get("fused_kernels", True)
         if options.get("fused_moment_dtype", "float32") != "float32":
             raise NotImplementedError(
@@ -357,7 +380,8 @@ class CompiledModel:
                 scalar = shape == ()
                 self.blocks.append(("chain", GaussianChainBlock(
                     varmap[name], 1 if scalar else shape[0], scalar,
-                    spec.prior, spec.transition, spec.evidence)))
+                    spec.prior, spec.transition, spec.evidence,
+                    self.use_parallel)))
             elif spec.kind == "discrete":
                 m = spec.transition.interfaces["matrix"]
                 if isinstance(m, Ref) and m.idx is not None:
@@ -366,7 +390,7 @@ class CompiledModel:
                         "slot is not ported to the PyTorch package yet.")
                 self.blocks.append(("chain", DiscreteChainBlock(
                     varmap[name], shape[0], spec.prior, spec.transition,
-                    spec.evidence)))
+                    spec.evidence, self.use_parallel)))
             else:
                 raise NotImplementedError(
                     f"chain {name!r} is a {spec.kind} chain: only Gaussian "
@@ -374,6 +398,7 @@ class CompiledModel:
                     "yet."
                 )
         self._plan_report: Optional[dict] = None
+        self._programs: dict = {}
 
     def _plain_group(self, var) -> PlainGroup:
         """The conjugate group of a non-chain variable: every interface at
@@ -431,11 +456,13 @@ class CompiledModel:
 
     def plan_report(self) -> dict:
         """Per-chain-block kernel-lowering report of the last batched
-        program: ``{var: {"fused": bool, "kernel": ... | "reason": ...}}``."""
+        program: ``{var: {"fused": bool, "kernel": ... | "reason": ...}}``.
+        The single-dataset program has no kernel tier to report."""
         if self._plan_report is None:
             raise ValueError(
                 "plan_report() is available after a batched program was "
-                "built (batched_program / infer_batched)."
+                "built (batched_program / infer_batched); the single-dataset "
+                "path does not lower to the fused kernel tier."
             )
         return dict(self._plan_report)
 
@@ -465,6 +492,148 @@ class CompiledModel:
             if name not in out:
                 out[name] = fn(out)
         return out
+
+    def _device_data(self, data: dict, all_finite: bool, device):
+        """The batch's data as float32 tensors on ``device`` (leading batch
+        axis on every leaf), with the folded data expressions, and the
+        per-factor observation masks.  Data that may hold missing values
+        (``all_finite=False``) is zero-filled once here and its factor copies
+        masked (``factor_data_mask``); finite data skips both passes."""
+        data = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                for k, v in data.items()}
+        data = self._with_derived(data)
+        masks = {}
+        if not all_finite:
+            for f in self.graph.factors:
+                m = factor_data_mask(f, data)
+                if m is not None:
+                    masks[f.id] = m
+            data = {k: torch.nan_to_num(v) for k, v in data.items()}
+        return data, masks
+
+    def _sweep_once(self, state: dict, chain_cross: dict, data: dict,
+                    ctx: BatchContext, fused: Optional[dict] = None):
+        """One VMP sweep in the compiled order over the batch.  A chain
+        whose name is in ``fused`` takes that update (the fused kernels of a
+        batched program's plan); every other chain runs its block's
+        batch-major ``update``.  ``chain_cross`` receives the rule-ready
+        pair statistics: Cov(out, in) for Gaussian chains, pair marginals
+        for discrete ones."""
+        fused = fused or {}
+        for kind, block in self.blocks:
+            name = block.var.name
+            if kind == "plain":
+                state[name] = block.update(state, data, chain_cross, ctx)
+                continue
+            update = fused.get(name, block.update)
+            state[name], chain_cross[name] = update(state, data, chain_cross,
+                                                    ctx)
+        return state, chain_cross
+
+    def _device_init(self, device) -> dict:
+        """The initial marginals on ``device``, without a batch axis."""
+        return {name: tree_map(lambda a: a.to(device), d)
+                for name, d in self._init_state().items()}
+
+    def _iterate(self, data: dict, ctx: BatchContext, init: dict,
+                 iterations: int, keep_each: bool,
+                 fused: Optional[dict] = None, registry=None):
+        """``iterations`` sweeps from ``init`` (``_device_init``) broadcast
+        over the batch.  Returns the final state and, under ``keep_each``,
+        the state after every sweep.  With a ``registry`` each sweep fires
+        ``before_iteration`` / ``after_iteration`` and a handler may stop
+        the loop (``event.stop_iteration``)."""
+        state = {name: tree_map(
+            lambda a: a.expand((ctx.batch,) + tuple(a.shape)), d)
+            for name, d in init.items()}
+        chain_cross: dict = {}
+        history = []
+        for i in range(iterations):
+            if registry is not None:
+                registry.invoke("before_iteration", iteration=i)
+            state, chain_cross = self._sweep_once(
+                dict(state), dict(chain_cross), data, ctx, fused)
+            if keep_each:
+                history.append(dict(state))
+            if registry is not None:
+                ev = registry.invoke("after_iteration", iteration=i,
+                                     free_energy=None)
+                if ev.stop_iteration:
+                    break
+        return state, history
+
+    def make_program(self, iterations: int, free_energy: bool,
+                     keep_each: bool, all_finite: bool = True,
+                     device: Any = "cuda", registry=None):
+        """The single-dataset program: data dict (no batch axis) ->
+        (state, fe, history), every chain solved by its block's update
+        (the scans of ops/kalman.py and ops/discrete_chain.py, never the
+        fused kernels) as a batch of one.  ``fe`` is an empty (0,) tensor:
+        free energy is not ported yet."""
+        if free_energy:
+            raise NotImplementedError(
+                "free_energy=True is not ported to the PyTorch package yet "
+                "(ROADMAP A2).")
+        device = torch.device(device)
+        init = self._device_init(device)
+        consts: dict = {}   # model constants on the device, kept across calls
+        unbatch = lambda st: {k: tree_map(lambda a: a[0], v)
+                              for k, v in st.items()}
+
+        def program(data: dict):
+            data, masks = self._device_data(
+                {k: np.asarray(v)[None] if not isinstance(v, torch.Tensor)
+                 else v[None] for k, v in data.items()}, all_finite, device)
+            ctx = BatchContext(device, 1, consts, masks)
+            state, history = self._iterate(data, ctx, init, iterations,
+                                           keep_each, registry=registry)
+            return (unbatch(state), torch.zeros((0,), device=device),
+                    [unbatch(h) for h in history])
+
+        return program
+
+    def run(self, data: dict, iterations: int = 1, free_energy: bool = False,
+            keep_each: bool = False, device: Any = "cuda"):
+        """Run the single-dataset program (built once per setting)."""
+        all_finite = _all_finite(data)
+        key = (iterations, free_energy, keep_each, all_finite, str(device))
+        if key not in self._programs:
+            self._programs[key] = self.make_program(
+                iterations, free_energy, keep_each, all_finite, device)
+        return self._programs[key](data)
+
+    def run_iterative(self, data: dict, iterations: int, free_energy: bool,
+                      registry, keep_each: bool = False,
+                      device: Any = "cuda"):
+        """Host-driven iterations firing the per-iteration callbacks of
+        ``registry``; an ``after_iteration`` handler may stop early."""
+        return self.make_program(iterations, free_energy, keep_each,
+                                 _all_finite(data), device, registry)(data)
+
+    def predict(self, state: dict, data: dict, varname: str,
+                ctx: BatchContext, structured: bool = False):
+        """Posterior-predictive distribution of a data variable's slots over
+        the batch: its defining factor's forward message under the
+        posterior marginals (``state`` and ``data`` batch-major, data
+        zero-filled where missing).  ``structured=True`` (data wrapped in
+        ``UnfactorizedData``) takes the node's ``message_to_out_structured``
+        where it has one, else the out rule, as the JAX package does."""
+        data = self._with_derived(data)
+        var = self.graph.data_vars[varname]
+        factors = [f for f in self.graph.factors if f.out.var is var]
+        if len(factors) != 1:
+            raise ValueError(
+                f"predictvars: data variable {varname} has {len(factors)} "
+                "defining factors; prediction needs exactly one."
+            )
+        f = factors[0]
+        rule = None
+        if structured:
+            rule = getattr(get_node(f.fform), "message_to_out_structured",
+                           None)
+        if rule is None:
+            rule = get_message_rule(f.fform, "out")
+        return rule(build_q(f, state, data, exclude="out", ctx=ctx))
 
     def make_batched_program(self, data0: dict, iterations: int,
                              free_energy: bool, keep_each: bool = False,

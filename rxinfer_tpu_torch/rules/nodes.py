@@ -6,10 +6,10 @@ built from — ``NormalMeanVariance``/``NormalMeanPrecision``,
 multivariate LinearGaussian pairs (out = A in + b + noise) — and those of an
 HMM: ``Categorical`` (towards ``out``), ``DirichletCollection`` (towards
 ``out``) and ``DiscreteTransition`` (towards ``out``, ``in`` and
-``matrix``).  Average energies, the conjugate messages towards noise
-interfaces (Gamma / Wishart carriers), ``Dirichlet`` and the structured
-``message_to_out_structured`` arrive with free energy and the rest of the
-node library.
+``matrix``, and the structured ``message_to_out_structured`` that
+predictions of ``UnfactorizedData`` take).  Average energies, the conjugate
+messages towards noise interfaces (Gamma / Wishart carriers) and
+``Dirichlet`` arrive with free energy and the rest of the node library.
 
 Rules are batched: leading dimensions of every marginal broadcast, so a whole
 plate of messages is one tensor expression.
@@ -275,6 +275,16 @@ class DiscreteTransitionNode:
         return Categorical(torch.einsum(
             "...ij,...i->...j", _e_log_simplex(q["matrix"]),
             _e_onehot(q["out"])))
+
+    @classmethod
+    def message_to_out_structured(cls, q):
+        """Structured (BP) prediction message, for data wrapped in
+        ``UnfactorizedData``: the out marginal of the joint q(out, in) ~
+        exp(E[log A][out, in]) q(in), log p(out) = logsumexp_in(E[log A] +
+        log q(in)), where the VMP message takes the geometric mean."""
+        logq_in = torch.log(torch.clamp(_e_onehot(q["in"]), min=1e-37))
+        return Categorical(torch.logsumexp(
+            _e_log_simplex(q["matrix"]) + logq_in[..., None, :], dim=-1))
 
     @classmethod
     def message_to_matrix(cls, q):

@@ -2,7 +2,10 @@
 graph parity after contraction, fused-plan parity against the JAX package's
 ``build_plans``, posterior and chain_cross parity against JAX
 ``batched_program``, ``infer_batched`` parity, the plan conversion helper,
-and the ``NotImplementedError`` boundary of this slice.  JAX runs as its own
+the unfused chain path (``fused_kernels=False``, missing observations, a
+state dimension beyond the kernels', a program mixing fused and unfused
+chains) against the JAX package, and the ``NotImplementedError`` boundary
+of the port.  JAX runs as its own
 tests run it on the CPU (Pallas in interpret mode); the port runs on the CPU
 with its kernels' plain versions."""
 
@@ -222,7 +225,6 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"options": {"fused_kernels": False}}, "fused_kernels"),
     ({"options": {"fused_moment_dtype": "bfloat16"}}, "fused_moment_dtype"),
     ({"free_energy": True}, "free_energy"),
     ({"shared": ("x",)}, "shared"),
@@ -235,20 +237,176 @@ def test_unported_options_raise(kwargs, match):
                             **kwargs)
 
 
+def _unfused_matches_jax(c, y, *, reason, iterations=1, **kwargs):
+    """The port's batched program against the JAX package's on the same
+    call, its chain reported off the kernels with ``reason``."""
+    _, jprog = jrx.batched_program(lgssm_source(jrx, *c), {"y": y},
+                                   iterations=iterations, **kwargs)
+    jstate, _, _ = jprog({"y": jnp.asarray(y)})
+    tcomp, tprog = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                       iterations=iterations, device=CPU,
+                                       **kwargs)
+    report = tcomp.plan_report()["x"]
+    assert report["fused"] is False and reason in report["reason"]
+    tstate, tfe, _ = tprog({"y": y})
+    np.testing.assert_allclose(tstate["x"].mu.numpy(),
+                               np.asarray(jstate["x"].mu), **TOL)
+    np.testing.assert_allclose(tstate["x"].sigma.numpy(),
+                               np.asarray(jstate["x"].sigma), **TOL)
+    assert tuple(tfe.shape) == (0, y.shape[0])
+    return tstate
+
+
+@pytest.mark.parametrize("t_len", [8, 60])
+def test_fused_kernels_off_matches_jax_and_the_fused_program(t_len):
+    """``options={"fused_kernels": False}`` runs the chain's scans (the
+    sequential smoother at 8 slots, the associative scan at 60)."""
+    c = constants(2)
+    y = observations(2, t_len, 2)
+    state = _unfused_matches_jax(c, y, reason="fused_kernels",
+                                 options={"fused_kernels": False})
+    _, fused = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                   device=CPU)
+    fstate, _, _ = fused({"y": y})
+    torch.testing.assert_close(state["x"].mu, fstate["x"].mu, **TOL)
+    torch.testing.assert_close(state["x"].sigma, fstate["x"].sigma, **TOL)
+
+
+@pytest.mark.parametrize("t_len", [20, 50])
+def test_scalar_chain_unfused_matches_jax(t_len):
+    y = observations(4, t_len, 1, seed=5)[..., 0]
+    y[1, 3] = np.nan
+    args = (0.9, 0.3, 1.2, 0.5)
+    opts = {"fused_kernels": False}
+    _, jprog = jrx.batched_program(scalar_source(jrx, *args), {"y": y},
+                                   options=opts)
+    jstate, _, _ = jprog({"y": jnp.asarray(y)})
+    _, tprog = trx.batched_program(scalar_source(trx, *args), {"y": y},
+                                   options=opts, device=CPU)
+    tstate, _, _ = tprog({"y": y})
+    assert type(tstate["x"]).__name__ == type(jstate["x"]).__name__
+    np.testing.assert_allclose(tstate["x"].mu.numpy(),
+                               np.asarray(jstate["x"].mu), **TOL)
+    np.testing.assert_allclose(tstate["x"].v.numpy(),
+                               np.asarray(jstate["x"].v), **TOL)
+    jres = jrx.infer(model=scalar_source(jrx, *args), data={"y": y[1]})
+    tres = trx.infer(scalar_source(trx, *args), data={"y": y[1]},
+                     device=CPU)
+    np.testing.assert_allclose(tres.posteriors["x"].v.numpy(),
+                               np.asarray(jres.posteriors["x"].v), **TOL)
+    np.testing.assert_allclose(tres.predictions["y"].mean().numpy(),
+                               np.asarray(jres.predictions["y"].mean()),
+                               **TOL)
+
+
 def test_unported_infer_batched_arguments_raise():
     c = constants(2)
     y = observations(2, 8, 2)
-    with pytest.raises(NotImplementedError, match="predictvars"):
-        trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU,
-                          predictvars={"y": None})
+    for name in ("annotations", "mesh"):
+        with pytest.raises(NotImplementedError, match=name):
+            trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU,
+                              **{name: object()})
 
 
-def test_state_dim_beyond_the_kernels_raises_with_the_reason():
+def test_infer_batched_predictvars_dict_matches_jax():
+    """The call that raised before the predictions were ported."""
+    c = constants(2)
+    y = observations(2, 8, 2)
+    jres = jrx.infer_batched(lgssm_source(jrx, *c), {"y": y},
+                             predictvars={"y": None})
+    tres = trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU,
+                             predictvars={"y": None})
+    got, want = tres.predictions["y"], jres.predictions["y"]
+    np.testing.assert_allclose(got.mean().numpy(), np.asarray(want.mean()),
+                               **TOL)
+    np.testing.assert_allclose(got.cov().numpy(), np.asarray(want.cov()),
+                               **TOL)
+
+
+def test_state_dim_beyond_the_kernels_runs_unfused_and_matches_jax():
     d = 10
     c = constants(d)
     y = observations(2, 6, d)
-    with pytest.raises(NotImplementedError, match="state dim 10 > 8"):
-        trx.batched_program(lgssm_source(trx, *c), {"y": y}, device=CPU)
+    _unfused_matches_jax(c, y, reason="state dim 10 > 8")
+
+
+@pytest.mark.parametrize("iterations", [1, 2])
+def test_missing_observations_run_unfused_and_match_jax(iterations):
+    c = constants(4, seed=2)
+    y = observations(3, 50, 4, seed=3)
+    y[np.random.default_rng(4).random((3, 50)) < 0.1] = np.nan
+    _unfused_matches_jax(c, y, reason="missing observations",
+                         iterations=iterations)
+    jpost, _ = jrx.infer_batched(lgssm_source(jrx, *c), {"y": y})
+    tpost, _ = trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU)
+    np.testing.assert_allclose(tpost["x"].mu.numpy(),
+                               np.asarray(jpost["x"].mu), **TOL)
+
+
+def test_one_program_mixes_fused_and_unfused_chains():
+    """Two independent chains, one within the kernels' state dims and one
+    beyond: the first runs fused, the second its scans, in one sweep."""
+    def source(rx, cs, cz):
+        @rx.model
+        def two_chains(y, v):
+            T = len(y)
+            x = rx.latent(T, name="x")
+            z = rx.latent(T, name="z")
+            x[0] = rx.MvNormal(mean=cs[4], cov=cs[5])
+            z[0] = rx.MvNormal(mean=cz[4], cov=cz[5])
+            for t in rx.plate(1, T):
+                x[t] = rx.MvNormal(mean=cs[0] @ x[t - 1], cov=cs[1])
+                z[t] = rx.MvNormal(mean=cz[0] @ z[t - 1], cov=cz[1])
+            for t in rx.plate(T):
+                y[t] = rx.MvNormal(mean=cs[2] @ x[t], cov=cs[3])
+                v[t] = rx.MvNormal(mean=cz[2] @ z[t], cov=cz[3])
+            return {"x": x, "z": z}
+
+        return two_chains
+
+    cs, cz = constants(2, seed=1), constants(10, seed=2)
+    data = {"y": observations(2, 12, 2, seed=5),
+            "v": observations(2, 12, 10, seed=6)}
+    _, jprog = jrx.batched_program(source(jrx, cs, cz), data)
+    jstate, _, _ = jprog({k: jnp.asarray(v) for k, v in data.items()})
+    tcomp, tprog = trx.batched_program(source(trx, cs, cz), data, device=CPU)
+    report = tcomp.plan_report()
+    assert report["x"]["fused"] is True and report["z"]["fused"] is False
+    tstate, _, _ = tprog(data)
+    for name in ("x", "z"):
+        np.testing.assert_allclose(tstate[name].mu.numpy(),
+                                   np.asarray(jstate[name].mu), **TOL)
+
+
+def test_a_kernel_failure_raises_and_is_not_rerouted(monkeypatch):
+    """The unfused path is a plan decision, never a fallback."""
+    def broken(*args, **kwargs):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(
+        "rxinfer_tpu_torch.ops.fused_smoother.fused_batched_smoother", broken)
+    c = constants(2)
+    y = observations(2, 8, 2)
+    comp, prog = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                     device=CPU)
+    assert comp.plan_report()["x"]["fused"] is True
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        prog({"y": y})
+
+
+def test_the_budget_counts_the_unfused_working_set():
+    c = constants(4)
+    y = observations(2, 30, 4)
+    fused, _ = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                   device=CPU)
+    unfused, _ = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                     device=CPU,
+                                     options={"fused_kernels": False})
+    per_fused = tbatched.chain_hbm_bytes_per_element(fused)
+    per_unfused = tbatched.chain_hbm_bytes_per_element(unfused)
+    assert per_fused == 30 * (2 * 4 + 2 * 10 + 16 + 4) * 4 * 2
+    assert per_unfused == 30 * tbatched.UNFUSED_SCAN_FLOATS * 56 * 4 * 2
+    assert tbatched.batch_chunk_size(unfused, 2, 1 * per_unfused) == 1
 
 
 def test_non_chain_variables_are_not_ported():

@@ -103,15 +103,36 @@ def test_fused_fb_cpu_tensors_take_the_plain_version():
 
 
 def test_more_than_eight_states_raise_with_the_reason():
+    """The kernels' own limit; a model with more states runs unfused
+    (``test_more_than_eight_states_run_unfused_and_match_jax``)."""
     lp, lt, le = (torch.as_tensor(a) for a in _fb_inputs(2, 4, 9, seed=2))
     with pytest.raises(NotImplementedError, match="K = 1..8"):
         ffb.fused_fb_batched(lp, lt, le)
-    y = np.eye(3, dtype=np.float32)[np.zeros((2, 5), np.int64)]
-    init = {"A": trx.DirichletCollection(np.ones((9, 9), np.float32)),
-            "B": trx.DirichletCollection(np.ones((3, 9), np.float32))}
-    with pytest.raises(NotImplementedError, match="9 states > 8"):
-        trx.batched_program(tzoo.hmm(9, 3), {"y": y}, initialization=init,
-                            device=CPU)
+
+
+@pytest.mark.parametrize("t_len", [5, 60])
+def test_more_than_eight_states_run_unfused_and_match_jax(t_len):
+    y = np.eye(3, dtype=np.float32)[
+        np.random.default_rng(t_len).integers(0, 3, (2, t_len))]
+    b0 = np.ones((3, 9), np.float32) + np.eye(3, 9, dtype=np.float32)
+    init = lambda rx: {"A": rx.DirichletCollection(np.ones((9, 9),
+                                                           np.float32)),
+                       "B": rx.DirichletCollection(b0)}
+    _, jprog = jrx.batched_program(jzoo.hmm(9, 3), {"y": y}, iterations=3,
+                                   initialization=init(jrx))
+    jstate, _, _ = jprog({"y": jnp.asarray(y)})
+    tcomp, tprog = trx.batched_program(tzoo.hmm(9, 3), {"y": y}, iterations=3,
+                                       initialization=init(trx), device=CPU)
+    report = tcomp.plan_report()["s"]
+    assert report["fused"] is False and "9 states > 8" in report["reason"]
+    before = dict(ffb.LAUNCHES)
+    tstate, _, _ = tprog({"y": y})
+    assert ffb.LAUNCHES == before
+    np.testing.assert_allclose(tstate["s"].probs().numpy(),
+                               np.asarray(jstate["s"].probs()), **S_TOL)
+    for n in ("A", "B"):
+        np.testing.assert_allclose(tstate[n].alpha.numpy(),
+                                   np.asarray(jstate[n].alpha), **CONC_TOL)
 
 
 # -- distributions, rules and plate reductions ------------------------------------
