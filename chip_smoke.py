@@ -21,9 +21,11 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    staged and marginal tiles, and a large batch), xi_sum bit-identical over
    repeated calls, plus sampled chains against a float64 numpy
    forward-backward (FB_ORACLE_TOL).  The plain versions of K1/K2 are timed
-   by their one call at the first check shape.  The K4/K5 checks, and
-   phase 6's, run in a second process while this one checks K1/K2: the
-   plain versions are host-bound loops, seconds a call.
+   by their one call on the card at the first check shape and run on the
+   host (CPU copies of the same inputs) at the others.  The K4/K5 checks,
+   and phase 6's, run in a second process while this one checks K1/K2 and
+   then phase 10 (a): the plain versions are host-bound loops, seconds a
+   call.
 4. LGSSM path at full width: ``rxinfer_tpu_torch.batched_program`` on
    ``zoo.lgssm`` with B=1024 chains, T=10,000 steps, d=4 (the constants of
    the JAX package's bench), y from a numpy seed.  Checks that the plan runs
@@ -92,7 +94,32 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    LGSSM chains of T=10,000 with 10% of the steps NaN: the plan report and
    sampled chains against the float64 RTS with no evidence at the missing
    steps (ORACLE_TOL).
-10. One JSON line listing every ported kernel with its launches on its path,
+10. The dynamic-precision tier: K1/K2 with per-chain W and/or Q (V1).
+   (a) (Run after phase 3's K1/K2 checks.) The per-chain kernels against
+   their plain versions (RTOL/ATOL) at DYN_CHECK_SHAPES, many time blocks
+   and one, d = 1 to 8: K1 with W per chain, Q per chain and both, K2 with
+   Q per chain (with W alone per chain K2 is the static one, as in the JAX
+   package); the plain versions on the host, the modes' chains side by
+   side in one call.
+   (b) ``lgssm_wtau`` (bench.py:291-312: the LGSSM with an unknown
+   observation precision Wr ~ Wishart(d + 1, I)) through
+   ``batched_program`` at B=1024, T=10,000, d=4, 2 iterations, y from a
+   numpy seed: the plan report (``dynamic == ["W"]``, ``w_linear``), exactly
+   2 per-chain K1 and 2 static K2 launches a call and no other,
+   sampled chains against a float64 mean-field VMP (means ORACLE_TOL, the
+   Wishart relative WISHART_REL_TOL), the median of 5 calls, updates/s =
+   2 * 3 T B / t (bench.py:312), the sweep's stages alone, the device
+   busy and idle share of one profiled call, and K1 with per-chain W
+   against its plain version (on the host) on the path's own inputs over
+   its first 2112 steps, which take the path's 66 time blocks (the plain
+   version's one call on the card over 64 steps is its time).  (c) The
+   same model at B=256, T=2048 against ``fused_kernels=False`` (max |mean|
+   difference within ORACLE_TOL), both timed.  (d) The W-and-Q model of
+   tests/engine/test_fused_dynamic.py at (64, 1056, 2), 33 time blocks:
+   per-chain W and Q launches, against its unfused program, one profiled
+   call, and K1 / K2 with per-chain W and Q against their plain versions
+   on the path's own inputs (their one call on the card is their time).
+11. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
    path's call, ``torch.profiler``), bound and plain time.
@@ -169,6 +196,29 @@ FB_CHECK_SHAPES = [(1000, 257, 3), (37, 64, 2), (64, 100, 5), (64, 33, 8),
                    (8, 4099, 8), (8448, 64, 3)]
 HMM_ROWS = (0, 1, 128, 255)
 NAN_B = 64          # phase 9 (d): chains of the NaN batch
+
+# Phase 10, the dynamic-precision tier.  lgssm_wtau at bench.py:306-312's
+# (B, T, d) and 2 iterations; at bench.py:314-330's (B, T) against the scan
+# path; the W-and-Q model at a small shape.
+WTAU_B, WTAU_T, WTAU_D, WTAU_IT = 1024, 10_000, 4, 2
+WTAU_SMALL = (256, 2048)
+WTAU_ROWS = (0, WTAU_B - 1)
+# the W-and-Q model at 33 time blocks (the per-chain K2's blocked kernels)
+WQ_SHAPE, WQ_IT = (64, 1056, 2), 3
+# (8, 1056, 4) and (40, 1001, 3): many time blocks, the second with a ragged
+# last one; (37, 64, 1) and (64, 32, 8): one block at the smallest and the
+# largest d
+DYN_CHECK_SHAPES = [(8, 1056, 4), (40, 1001, 3), (37, 64, 1), (64, 32, 8)]
+DYN_BLOCKED = {(8, 1056, 4): 33, (40, 1001, 3): 31}
+# K1 with per-chain W against its plain version on lgssm_wtau's own inputs:
+# all chains over the first 2112 steps, which the wrapper cuts into the
+# path's 66 time blocks (the plain version on the host takes 6-10 s);
+# the plain version's time is one call on the card over 64 steps
+DYN_PATH_STEPS = 2112
+DYN_PLAIN_STEPS = 64
+# The Wishart posterior against the float64 VMP, relative: nu and the scale
+# (whose entries are sums of 10,000 float32 terms)
+WISHART_REL_TOL = 1e-4
 
 # The quantized LGSSM program against the float32 program on the
 # dequantized observations (the two evidence einsums read different layouts
@@ -426,6 +476,17 @@ def _max_err(got, want, rtol=RTOL, atol=ATOL):
     return float(diff.max()), float((diff / np.maximum(np.abs(want), 1e-6)).max()), ok
 
 
+def _on_host(fn, *args):
+    """``fn`` on CPU copies of its tensor arguments: a plain version run by
+    the host's torch on the same inputs as a kernel on the card.  The plain
+    versions are loops of small operations, each a launch on the card
+    (about 12 us) and a few us on the CPU, so the checks take them there
+    and time them on the card once, at their first shape."""
+    import torch
+
+    return fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+
+
 def _smoother_params(d: int, seed: int):
     """A stable random system: F a scaled orthogonal matrix."""
     rng = np.random.default_rng(seed)
@@ -466,11 +527,18 @@ def check_kernels(device, shapes, log=print) -> tuple[dict, dict]:
         p0 = torch.as_tensor(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
                                              (bsz, d, d)).copy(), device=device)
         mf, pf = fs.fused_forward(m0, p0, xi, f, b, q, w)
-        (mf_r, pf_r), fwd_plain_ms = _once_ms(
-            lambda: fs.fused_forward_reference(m0, p0, xi, f, b, q, w))
         ms, ps, cr = fs.fused_backward(mf, pf, f, b, q)
-        (ms_r, ps_r, cr_r), bwd_plain_ms = _once_ms(
-            lambda: fs.fused_backward_reference(mf, pf, f, b, q))
+        if i == 0:
+            # the plain versions on the card: their one call is their time
+            (mf_r, pf_r), fwd_plain_ms = _once_ms(
+                lambda: fs.fused_forward_reference(m0, p0, xi, f, b, q, w))
+            (ms_r, ps_r, cr_r), bwd_plain_ms = _once_ms(
+                lambda: fs.fused_backward_reference(mf, pf, f, b, q))
+        else:
+            mf_r, pf_r = _on_host(fs.fused_forward_reference, m0, p0, xi, f,
+                                  b, q, w)
+            ms_r, ps_r, cr_r = _on_host(fs.fused_backward_reference, mf, pf,
+                                        f, b, q)
         torch.cuda.synchronize()
         if i == 0:
             # the plain versions' time at this shape; the kernels' at the
@@ -894,16 +962,24 @@ def _device_profile(fn, kernels: dict) -> dict:
     fn()
     torch.cuda.synchronize()
     # one warm-up step inside the profiler, discarded, then the recorded one:
-    # device events of the first launches after the profiler starts are lost
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
+    # device events of the first launches after the profiler starts are lost.
+    # A session that records no device event at all is run once more (seen
+    # once on an H100, after several sessions in one process).
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            break
+        print("[profile] no device event recorded; profiling once more",
+              flush=True)
     if not dev:
         return {"busy_ms": "not measured",
                 "kernels": {k: {"launches": "not measured",
@@ -1928,6 +2004,500 @@ def nan_batch_path(device, b: int, t_len: int, d: int, log=print) -> dict:
     return {"errs": errs, "launches": launches, "ms": call_ms}
 
 
+# -- slice 9: the dynamic-precision tier (K1/K2 with per-chain W and Q) ----------
+
+def _spd_batch(rng, n: int, d: int, scale: float) -> np.ndarray:
+    """n symmetric positive-definite (d, d) matrices around scale * I."""
+    a = 0.3 * rng.standard_normal((n, d, d))
+    return (scale * np.eye(d) + a @ np.swapaxes(a, -1, -2)).astype(np.float32)
+
+
+def dynamic_bounds(b: int, t: int, d: int) -> dict:
+    """K1/K2's bounds with a per-chain tile each (W for K1 on the path,
+    Q for K2): the static kernels' bytes and operations plus nsym B floats
+    read once."""
+    nsym = d * (d + 1) // 2
+    out = {}
+    for name, row in kernel_bounds(b, t, d).items():
+        nbytes = row["bytes"] + nsym * b * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = row["ops"] / FP32_FLOPS * 1e3
+        out[name + "_dyn"] = {
+            "bytes": nbytes, "ops": row["ops"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
+
+
+def check_dynamic_kernels(device, shapes, log=print) -> dict:
+    """Phase 10 (a): K1/K2 with per-chain W and/or Q against their plain
+    versions on the same inputs, at each (B, T, d) and in each mode: W per
+    chain, Q per chain, both.  K2 reads Q only, so its per-chain
+    instantiation runs in the two modes with Q per chain (with W alone
+    per chain the engine runs the static K2, checked in phase 3).  The
+    plain versions run once a shape on the host, the modes' chains side by
+    side (``_on_host``).  Returns each kernel's max abs error."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    worst = {"fused_smoother_fwd_dyn": 0.0, "fused_smoother_bwd_dyn": 0.0}
+    before = dict(fs.LAUNCHES)
+    failures = []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for i, (bsz, t_len, d) in enumerate(shapes):
+        blocks = fs.pick_blocks(bsz, t_len, d, sms)
+        want_blocks = DYN_BLOCKED.get((bsz, t_len, d), 1)
+        if sms == 132 and blocks != want_blocks:
+            raise AssertionError(f"(B,T,d)=({bsz},{t_len},{d}): the wrapper "
+                                 f"takes {blocks} time blocks, expected "
+                                 f"{want_blocks}")
+        f, b, q, w = _smoother_params(d, seed=500 + i)
+        rng = np.random.default_rng(500 + i)
+        dev = lambda a: torch.as_tensor(a, device=device)
+        xi = dev(rng.standard_normal((t_len, bsz, d)).astype(np.float32))
+        m0 = dev(rng.standard_normal((bsz, d)).astype(np.float32))
+        p0 = dev(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                                 (bsz, d, d)).copy())
+        wb = dev(_spd_batch(rng, bsz, d, 0.8))
+        qb = dev(_spd_batch(rng, bsz, d, 0.4))
+        wsh = dev(w).expand(bsz, d, d).contiguous()
+        qsh = dev(q).expand(bsz, d, d).contiguous()
+        # mode -> (shared W, shared Q, W per chain, Q per chain)
+        modes = {"W": (None, q, wb, None), "Q": (w, None, None, qb),
+                 "WQ": (None, None, wb, qb)}
+        fwd, bwd = {}, {}
+        for mode, (w_sh, q_sh, w_b, q_b) in modes.items():
+            fwd[mode] = fs.fused_forward(m0, p0, xi, f, b, q_sh, w_sh, w_b,
+                                         q_b)
+            if q_b is not None:
+                bwd[mode] = fs.fused_backward(*fwd[mode], f, b, None, q_b)
+        torch.cuda.synchronize()
+        cat = lambda got, k: torch.cat([v[k] for v in got.values()], dim=-1)
+        mf_r, pf_r = _on_host(
+            fs.fused_forward_reference, torch.cat([m0] * 3),
+            torch.cat([p0] * 3), torch.cat([xi] * 3, dim=1), f, b, None,
+            None, torch.cat([wb, wsh, wb]), torch.cat([qsh, qb, qb]))
+        ms_r, ps_r, cr_r = _on_host(
+            fs.fused_backward_reference, cat(fwd, 0)[..., bsz:],
+            cat(fwd, 1)[..., bsz:], f, b, None, torch.cat([qb, qb]))
+        rows = {
+            "fused_smoother_fwd_dyn": [("mf", cat(fwd, 0), mf_r),
+                                       ("pf", cat(fwd, 1), pf_r)],
+            "fused_smoother_bwd_dyn": [("ms", cat(bwd, 0), ms_r),
+                                       ("ps", cat(bwd, 1), ps_r),
+                                       ("cross", cat(bwd, 2), cr_r)],
+        }
+        parts = []
+        for kname, items in rows.items():
+            for label, g, want in items:
+                ea, er, ok = _max_err(g.cpu().numpy(), want.numpy())
+                worst[kname] = max(worst[kname], ea)
+                parts.append(f"{label} abs {ea:.3g} rel {er:.3g}")
+                if not ok:
+                    failures.append(f"(B,T,d)=({bsz},{t_len},{d}) {label}: "
+                                    f"abs {ea:.3g} rel {er:.3g}")
+        log(f"[dyn check] (B,T,d)=({bsz},{t_len},{d}) blocks {blocks}, K1 "
+            f"modes {list(fwd)}, K2 modes {list(bwd)}: " + "; ".join(parts))
+    if failures:
+        raise AssertionError("a per-chain W/Q kernel disagrees with its plain"
+                             f" version beyond rtol=atol={RTOL}: "
+                             + "; ".join(failures))
+    for k, modes_run in (("fused_smoother_fwd_dyn", 3),
+                         ("fused_smoother_bwd_dyn", 2)):
+        if fs.LAUNCHES[k] - before[k] != modes_run * len(shapes):
+            raise AssertionError(f"{k}: launch counter did not rise once per "
+                                 "checked shape and mode")
+    return worst
+
+
+def wtau_model(d: int):
+    """bench.py:291-304's ``lgssm_wtau``: the LGSSM of ``lgssm_constants``
+    with an unknown observation precision Wr ~ Wishart(d + 1, I), and its
+    initialization."""
+    import rxinfer_tpu_torch as rt
+
+    f, q, _, _, m0, p0 = lgssm_constants(d)
+    nu0 = float(d) + 1.0
+    eye = np.eye(d, dtype=np.float32)
+
+    @rt.model
+    def lgssm_wtau(y):
+        Tn = len(y)
+        Wr = rt.Wishart(nu0, eye)
+        x = rt.latent(Tn, name="x")
+        x[0] = rt.MvNormal(mean=m0, cov=p0)
+        for t in rt.plate(1, Tn):
+            x[t] = rt.MvNormal(mean=f @ x[t - 1], cov=q)
+        for t in rt.plate(Tn):
+            y[t] = rt.MvNormal(mean=x[t], precision=Wr)
+
+    return lgssm_wtau, {"Wr": rt.Wishart(nu0, eye)}
+
+
+def wtau_vmp_float64(y, d: int, iterations: int):
+    """Mean-field VMP of ``lgssm_wtau`` in float64 numpy for a few chains
+    y (n, T, d), in the port's sweep order (x, then Wr): the RTS smoother
+    with E[Wr] = nu S, then the Wishart update nu = nu0 + T,
+    S = (I + sum_t (y_t - m_t)(y_t - m_t)^T + P_t)^-1.  Returns the smoothed
+    means (n, T, d) and the Wishart (nu (n,), S (n, d, d))."""
+    f, q, _, _, m0, p0 = lgssm_constants(d)
+    y = np.asarray(y, np.float64)
+    n, t_len, _ = y.shape
+    nu0 = d + 1.0
+    nu = np.full(n, nu0)
+    s = np.broadcast_to(np.eye(d), (n, d, d)).copy()
+    for _ in range(iterations):
+        ew = nu[:, None, None] * s
+        xi = np.einsum("nij,ntj->tni", ew, y)
+        o_m, o_p = rts_float64(np.broadcast_to(m0, (n, d)),
+                               np.broadcast_to(p0, (n, d, d)), xi, f,
+                               np.zeros(d), q,
+                               np.broadcast_to(ew, (t_len, n, d, d)))
+        ms, ps = np.moveaxis(o_m, 0, 1), np.moveaxis(o_p, 0, 1)
+        diff = y - ms
+        scatter = (diff[..., :, None] * diff[..., None, :] + ps).sum(1)
+        nu = np.full(n, nu0 + t_len)
+        s = np.linalg.inv(np.eye(d) + scatter)
+    return ms, nu, s
+
+
+# the device kernels of each wrapper call in a profile of a dynamic program:
+# K1 with per-chain W and / or Q; K2 with per-chain Q (the W-and-Q model) or
+# the static K2 (lgssm_wtau, W alone per chain)
+DYN_NAMES = {"fused_smoother_fwd_dyn": SMOOTHER_KERNEL_NAMES[
+                 "fused_smoother_fwd"],
+             "fused_smoother_bwd_dyn": SMOOTHER_KERNEL_NAMES[
+                 "fused_smoother_bwd"]}
+WTAU_NAMES = {"fused_smoother_fwd_dyn": SMOOTHER_KERNEL_NAMES[
+                  "fused_smoother_fwd"],
+              "fused_smoother_bwd": SMOOTHER_KERNEL_NAMES[
+                  "fused_smoother_bwd"]}
+
+
+def wtau_path(device, b: int, t_len: int, d: int, iterations: int,
+              reps: int, log=print) -> dict:
+    """Phase 10 (b): ``lgssm_wtau`` through ``batched_program`` at (B, T, d)
+    as bench.py:306-312 builds it: the dynamic plan, its launches, sampled
+    chains against the float64 VMP, the time, the stages alone, one
+    profiled call, and K1 with per-chain W against its plain version on
+    the path's own inputs over its first DYN_PATH_STEPS steps, which the
+    wrapper cuts into as many time blocks as the whole path's (the
+    instantiations the path launches).  W alone is per chain here, so K2
+    is the static one."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine import batched as eb
+    from rxinfer_tpu_torch.engine.blocks import BatchContext
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    secs = {}
+    t0 = time.perf_counter()
+    model, init = wtau_model(d)
+    y_host = np.random.default_rng(11).standard_normal(
+        (b, t_len, d)).astype(np.float32)
+    y = torch.as_tensor(y_host, device=device)
+    compiled, prog = rt.batched_program(
+        model, {"y": y}, iterations=iterations, free_energy=False,
+        initialization=init, device=device)
+    secs["plan"] = time.perf_counter() - t0
+    report = compiled.plan_report()["x"]
+    log(f"[wtau] plan_report {report}")
+    route = "cuda" if device.type == "cuda" else "plain"
+    if report.get("dynamic") != ["W"] or report.get("w_linear") is not True \
+            or report.get("route") != route:
+        raise AssertionError(f"lgssm_wtau is not on the dynamic W-linear "
+                             f"{route} plan: {report}")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    state, _, _ = prog({"y": y})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    launches = read_launches()
+    log(f"[wtau] launches in one program call: {launches}")
+    expect_launches(launches, fused_smoother_fwd_dyn=iterations,
+                    fused_smoother_bwd=iterations)
+    post, wr = state["x"], state["Wr"]
+    means = post.mu.cpu().numpy()
+    if means.shape != (b, t_len, d) or tuple(wr.s.shape) != (b, d, d) \
+            or not (np.isfinite(means).all()
+                    and bool(torch.isfinite(post.sigma).all())
+                    and bool(torch.isfinite(wr.s).all())):
+        raise AssertionError("lgssm_wtau posteriors have the wrong shape or "
+                             "are not finite")
+    secs["first_call"] = time.perf_counter() - t0 - sum(secs.values())
+    rows = list(WTAU_ROWS)
+    o_m, o_nu, o_s = wtau_vmp_float64(y_host[rows], d, iterations)
+    secs["oracle"] = time.perf_counter() - t0 - sum(secs.values())
+    s_got = wr.s[rows].cpu().numpy().astype(np.float64)
+    errs = {"means": float(np.abs(means[rows] - o_m).max()),
+            "nu_rel": float(np.abs(wr.nu[rows].cpu().numpy() / o_nu
+                                   - 1).max()),
+            "scale_rel": float(np.abs(s_got - o_s).max()
+                               / np.abs(o_s).max())}
+    log(f"[wtau] float64 VMP, chains {rows}: {errs} (tol means "
+        f"{ORACLE_TOL}, Wishart relative {WISHART_REL_TOL})")
+    if errs["means"] > ORACLE_TOL or max(errs["nu_rel"],
+                                         errs["scale_rel"]) > WISHART_REL_TOL:
+        raise AssertionError(f"lgssm_wtau disagrees with the float64 VMP: "
+                             f"{errs}")
+    out = {"errs": errs, "launches": launches, "peak_bytes": peak}
+
+    # the sweep's stages alone, on the final state
+    plan = eb.build_plans(compiled, {"y": y_host[0]}, device=device)["x"]
+    block = next(blk for kind, blk in compiled.blocks if blk.var.name == "x")
+    group = next(blk for kind, blk in compiled.blocks
+                 if blk.var.name == "Wr")
+    ctx = BatchContext(device, b, {})
+    data = {"y": y}
+    xi_t, w_b, _ = eb.dynamic_inputs(block, plan, state, data, ctx)
+    xi_t = xi_t.contiguous()
+    m0 = torch.as_tensor(plan.m0, device=device).expand(b, d).contiguous()
+    p0 = torch.as_tensor(plan.p0, device=device).expand(b, d, d).contiguous()
+    k1 = lambda: fs.fused_forward(m0, p0, xi_t, plan.A, plan.b, plan.Q, None,
+                                  w_batch=w_b)
+    mf, pf = k1()
+    k2 = lambda: fs.fused_backward(mf, pf, plan.A, plan.b, plan.Q)
+    ms, ps, cr = k2()
+    cc = {"x": cr.reshape(t_len - 1, d, d, b).permute(3, 0, 2, 1)}
+    stages = {
+        "reclose": lambda: eb.dynamic_inputs(block, plan, state, data, ctx),
+        "fwd": k1, "bwd": k2,
+        "unpack": lambda: fs.sym_unfold_t(ps, d),
+        "wishart_group": lambda: group.update(state, data, cc, ctx),
+    }
+    out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
+    out["updates_per_s"] = iterations * 3 * t_len * b / (
+        out["program_ms"] / 1e3)
+    for name, fn in stages.items():
+        out[f"{name}_ms"] = _cuda_ms(fn, reps)
+    out["profile"] = _device_profile(lambda: prog({"y": y}), WTAU_NAMES)
+    secs["timing"] = time.perf_counter() - t0 - sum(secs.values())
+    busy = out["profile"]["busy_ms"]
+    log(f"[wtau] B={b} T={t_len} d={d}, {iterations} iterations: program "
+        f"{out['program_ms']:.3f} ms/call ({out['updates_per_s']:.4g} "
+        f"updates/s), peak {peak / 1e9:.2f} GB above the inputs; stages "
+        "alone (one sweep): " + ", ".join(
+            f"{n} {out[n + '_ms']:.3f} ms" for n in stages)
+        + f"; device busy {busy} ms per program call, idle "
+        f"{_idle_share(out['program_ms'], busy)}; in the program "
+        f"{out['profile']['kernels']}")
+
+    # K1 with per-chain W against its plain version on the path's inputs,
+    # all chains over the first DYN_PATH_STEPS steps, in as many time
+    # blocks as the path's; the plain version on the host, and once on the
+    # card at DYN_PLAIN_STEPS steps for its time
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out["blocks"] = fs.pick_blocks(b, t_len, d, sms)
+    n_t = DYN_PATH_STEPS
+    check_blocks = fs.pick_blocks(b, n_t, d, sms)
+    if check_blocks < 2 or check_blocks != out["blocks"]:
+        raise AssertionError(f"the check on the path's inputs takes "
+                             f"{check_blocks} time blocks, the path "
+                             f"{out['blocks']}")
+    xs = xi_t[:n_t].contiguous()
+    mf_k, pf_k = fs.fused_forward(m0, p0, xs, plan.A, plan.b, plan.Q, None,
+                                  w_batch=w_b)
+    torch.cuda.synchronize()
+    mf_r, pf_r = _on_host(fs.fused_forward_reference, m0, p0, xs, plan.A,
+                          plan.b, plan.Q, None, w_b)
+    worst = 0.0
+    for label, g, want in (("mf", mf_k, mf_r), ("pf", pf_k, pf_r)):
+        ea, _, ok = _max_err(g.cpu().numpy(), want.numpy())
+        worst = max(worst, ea)
+        if not ok:
+            raise AssertionError(f"K1 with per-chain W disagrees with its "
+                                 f"plain version on the path's inputs "
+                                 f"({label}): {ea}")
+    out["kernel_err"] = worst
+    out["check_shape"] = [b, n_t, d]
+    xs = xi_t[:DYN_PLAIN_STEPS].contiguous()
+    _, out["plain_ms"] = _once_ms(lambda: fs.fused_forward_reference(
+        m0, p0, xs, plan.A, plan.b, plan.Q, None, w_batch=w_b))
+    out["plain_shape"] = [b, DYN_PLAIN_STEPS, d]
+    log(f"[wtau] K1 with per-chain W vs its plain version on the path's "
+        f"inputs, (B,T,d)=({b},{n_t},{d}), {check_blocks} time blocks as "
+        f"the path: max abs {worst:.3g} (rtol=atol={RTOL}); the plain "
+        f"version's one call on the card at (B,T,d)=({b},{DYN_PLAIN_STEPS},"
+        f"{d}) {out['plain_ms']:.1f} ms")
+    # each kernel alone at the path's shape, on the path's tiles; K2 with
+    # per-chain Q (which this path does not run) on the shared Q as a tile
+    q_b = torch.as_tensor(plan.Q, device=device).expand(b, d, d).contiguous()
+    out["fwd_alone_ms"] = _cuda_ms(k1, reps)
+    out["bwd_alone_ms"] = _cuda_ms(k2, reps)
+    out["bwd_dyn_alone_ms"] = _cuda_ms(
+        lambda: fs.fused_backward(mf, pf, plan.A, plan.b, None, q_batch=q_b),
+        reps)
+    secs["path_check"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"[wtau] alone at (B,T,d)=({b},{t_len},{d}), {out['blocks']} time "
+        f"blocks: K1 with per-chain W {out['fwd_alone_ms']:.4f} ms, the "
+        f"static K2 {out['bwd_alone_ms']:.4f} ms, K2 with per-chain Q "
+        f"{out['bwd_dyn_alone_ms']:.4f} ms; seconds of the phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out
+
+
+def wtau_vs_scan(device, b: int, t_len: int, d: int, iterations: int,
+                 reps: int, log=print) -> dict:
+    """Phase 10 (c): ``lgssm_wtau`` at bench.py:314-330's (B, T): the
+    dynamic program against ``fused_kernels=False`` (max |mean| difference
+    within ORACLE_TOL), both timed."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    model, init = wtau_model(d)
+    y = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (b, t_len, d)).astype(np.float32), device=device)
+    kw = dict(iterations=iterations, free_energy=False, initialization=init,
+              device=device)
+    _, dyn = rt.batched_program(model, {"y": y}, **kw)
+    compiled, scan = rt.batched_program(
+        model, {"y": y}, options={"fused_kernels": False, "warn": False},
+        **kw)
+    if compiled.plan_report()["x"].get("fused") is not False:
+        raise AssertionError("the scan program's chain is on the kernels")
+    reset_launches()
+    st_dyn, _, _ = dyn({"y": y})
+    torch.cuda.synchronize()
+    expect_launches(read_launches(), fused_smoother_fwd_dyn=iterations,
+                    fused_smoother_bwd=iterations)
+    reset_launches()
+    st_scan, _, _ = scan({"y": y})
+    torch.cuda.synchronize()
+    expect_launches(read_launches())
+    diff = float((st_dyn["x"].mu - st_scan["x"].mu).abs().max())
+    if not diff <= ORACLE_TOL:
+        raise AssertionError(f"the dynamic program and the scan path differ "
+                             f"by {diff} on the means")
+    out = {"max_mean_diff": diff,
+           "dyn_ms": _cuda_ms(lambda: dyn({"y": y}), reps),
+           "scan_ms": statistics.median(
+               [_once_ms(lambda: scan({"y": y}))[1] for _ in range(reps)])}
+    log(f"[wtau] B={b} T={t_len}, {iterations} iterations: dynamic program "
+        f"{out['dyn_ms']:.3f} ms, fused_kernels=False {out['scan_ms']:.3f} ms"
+        f" ({out['scan_ms'] / out['dyn_ms']:.1f}x); max |mean diff| {diff:.3g}"
+        f" (tol {ORACLE_TOL})")
+    return out
+
+
+def wq_both_path(device, shape, iterations: int, log=print) -> dict:
+    """Phase 10 (d): tests/engine/test_fused_dynamic.py's
+    ``test_dyn_wq_mv_wishart_both`` model (W and Q random, d = 2) at
+    WQ_SHAPE: the dynamic plan (per-chain W and Q), its launches, x and
+    both Wishart means against the unfused program within rtol = atol =
+    1e-4, one profiled call, and K1 / K2 with per-chain W and Q against
+    their plain versions on the path's own inputs at its whole shape (the
+    plain versions' one call on the card is their time)."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine import batched as eb
+    from rxinfer_tpu_torch.engine.blocks import BatchContext
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    b, t_len, d = shape
+    a_mat = (0.9 * np.eye(d)).astype(np.float32)
+    nu0 = float(d) + 1.0
+    eye = np.eye(d, dtype=np.float32)
+    p0 = (10.0 * np.eye(d)).astype(np.float32)
+
+    @rt.model
+    def hier(y):
+        T = len(y)
+        Wq = rt.Wishart(nu0, eye)
+        Wr = rt.Wishart(nu0, eye)
+        x = rt.latent(T, name="x")
+        x[0] = rt.MvNormal(mean=np.zeros(d, np.float32), cov=p0)
+        for t in rt.plate(1, T):
+            x[t] = rt.MvNormal(mean=a_mat @ x[t - 1], precision=Wq)
+        for t in rt.plate(T):
+            y[t] = rt.MvNormal(mean=x[t], precision=Wr)
+
+    init = {"Wq": rt.Wishart(nu0, eye), "Wr": rt.Wishart(nu0, eye)}
+    rng = np.random.default_rng(3)
+    y_host = np.cumsum(rng.standard_normal((b, t_len, d)),
+                       axis=1).astype(np.float32)
+    y = torch.as_tensor(y_host, device=device)
+    kw = dict(iterations=iterations, free_energy=False, initialization=init,
+              device=device)
+    compiled, dyn = rt.batched_program(hier, {"y": y}, **kw)
+    report = compiled.plan_report()["x"]
+    route = "cuda" if device.type == "cuda" else "plain"
+    if report.get("dynamic") != ["W", "Q"] or report.get("route") != route:
+        raise AssertionError(f"the W-and-Q model is not on the dynamic "
+                             f"{route} plan: {report}")
+    _, scan = rt.batched_program(
+        hier, {"y": y}, options={"fused_kernels": False, "warn": False}, **kw)
+    reset_launches()
+    st, _, _ = dyn({"y": y})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches, fused_smoother_fwd_dyn=iterations,
+                    fused_smoother_bwd_dyn=iterations)
+    ref, _, _ = scan({"y": y})
+    errs = {}
+    for name in ("x", "Wq", "Wr"):
+        ea, _, ok = _max_err(st[name].mean().cpu().numpy(),
+                             ref[name].mean().cpu().numpy(), rtol=1e-4,
+                             atol=1e-4)
+        errs[name] = ea
+        if not ok:
+            raise AssertionError(f"the W-and-Q model's {name} differs from "
+                                 f"the unfused program: {ea}")
+    out = {"errs": errs, "launches": launches,
+           "profile": _device_profile(lambda: dyn({"y": y}), DYN_NAMES)}
+
+    # the kernels on the path's inputs at the final state
+    plan = eb.build_plans(compiled, {"y": y_host[0]}, device=device)["x"]
+    block = next(blk for kind, blk in compiled.blocks if blk.var.name == "x")
+    ctx = BatchContext(device, b, {})
+    xi_t, w_b, q_b = eb.dynamic_inputs(block, plan, st, {"y": y}, ctx)
+    xi_t = xi_t.contiguous()
+    m0 = torch.as_tensor(plan.m0, device=device).expand(b, d).contiguous()
+    p0 = torch.as_tensor(plan.p0, device=device).expand(b, d, d).contiguous()
+    out["blocks"] = fs.pick_blocks(
+        b, t_len, d, torch.cuda.get_device_properties(device)
+        .multi_processor_count)
+    if out["blocks"] < 2:
+        raise AssertionError(f"the W-and-Q path takes {out['blocks']} time "
+                             "block: its blocked kernels go unchecked")
+    mf, pf = fs.fused_forward(m0, p0, xi_t, plan.A, plan.b, None, None,
+                              w_batch=w_b, q_batch=q_b)
+    ms, ps, cr = fs.fused_backward(mf, pf, plan.A, plan.b, None, q_batch=q_b)
+    (mf_r, pf_r), fwd_plain = _once_ms(lambda: fs.fused_forward_reference(
+        m0, p0, xi_t, plan.A, plan.b, None, None, w_batch=w_b, q_batch=q_b))
+    (ms_r, ps_r, cr_r), bwd_plain = _once_ms(
+        lambda: fs.fused_backward_reference(mf, pf, plan.A, plan.b, None,
+                                            q_batch=q_b))
+    out["kernel_errs"] = {}
+    for kname, items in (
+            ("fused_smoother_fwd_dyn", ((mf, mf_r), (pf, pf_r))),
+            ("fused_smoother_bwd_dyn", ((ms, ms_r), (ps, ps_r), (cr, cr_r)))):
+        worst = 0.0
+        for g, want in items:
+            ea, _, ok = _max_err(g.cpu().numpy(), want.cpu().numpy())
+            worst = max(worst, ea)
+            if not ok:
+                raise AssertionError(f"{kname} disagrees with its plain "
+                                     f"version on the W-and-Q path's inputs: "
+                                     f"{ea}")
+        out["kernel_errs"][kname] = worst
+    out["plain_ms"] = {"fused_smoother_fwd_dyn": fwd_plain,
+                       "fused_smoother_bwd_dyn": bwd_plain}
+    log(f"[wq] W and Q random, (B,T,d)=({b},{t_len},{d}), {iterations} "
+        f"iterations: plan {report}; launches {launches}; max |diff| to the "
+        f"unfused program {errs} (rtol=atol=1e-4); in the program "
+        f"{out['profile']['kernels']}; K1 / K2 with per-chain W and Q vs "
+        f"their plain versions on the path's inputs, {out['blocks']} time "
+        f"blocks: {out['kernel_errs']} (rtol=atol={RTOL}), the plain "
+        f"versions' one call on the card {fwd_plain:.1f} / {bwd_plain:.1f} ms")
+    return out
+
+
 def side_checks() -> tuple[list, dict, dict]:
     """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
     process beside the K1/K2 checks.  The plain versions the checks hold the
@@ -1999,6 +2569,10 @@ def main() -> int:
         side = pool.apply_async(side_checks)
         worst, plain = check_kernels(device, CHECK_SHAPES)
         _elapsed("K1/K2 checks", t_start)
+        # 10 (a): K1/K2 with per-chain W and Q, in this process, which ends
+        # its checks first
+        worst.update(check_dynamic_kernels(device, DYN_CHECK_SHAPES))
+        _elapsed("dynamic K1/K2 checks", t_start)
         side_lines, side_worst, quant_layouts = side.get()
     for line in side_lines:
         print(line)
@@ -2046,6 +2620,28 @@ def main() -> int:
     del main["y"]
     nan_b = nan_batch_path(device, NAN_B, MAIN_T, MAIN_D)
     _elapsed("infer and the unfused path", t_start)
+
+    # 10. the dynamic-precision tier: (a) ran beside phase 3; (b) lgssm_wtau
+    # at full width, (c) at the scan path's shape against it, (d) W and Q
+    # both random
+    wtau = wtau_path(device, WTAU_B, WTAU_T, WTAU_D, WTAU_IT, reps=5)
+    wtau_scan = wtau_vs_scan(device, *WTAU_SMALL, WTAU_D, WTAU_IT, reps=3)
+    wq = wq_both_path(device, WQ_SHAPE, WQ_IT)
+    dyn_bounds = dynamic_bounds(WTAU_B, WTAU_T, WTAU_D)
+    _elapsed("the dynamic-precision tier", t_start)
+    dyn_plain = {
+        "fused_smoother_fwd_dyn": (wtau["plain_ms"], wtau["plain_shape"]),
+        "fused_smoother_bwd_dyn": (wq["plain_ms"]["fused_smoother_bwd_dyn"],
+                                   list(WQ_SHAPE))}
+    for name, ms_key in (("fused_smoother_fwd_dyn", "fwd_alone_ms"),
+                         ("fused_smoother_bwd_dyn", "bwd_dyn_alone_ms")):
+        print(f"[wtau] {name}: {wtau[ms_key]:.4f} ms at (B,T,d)="
+              f"{(WTAU_B, WTAU_T, WTAU_D)}, bound "
+              f"{dyn_bounds[name]['bound_ms']:.4f} ms "
+              f"({dyn_bounds[name]['bound_by']}), roofline share "
+              f"{100 * dyn_bounds[name]['bound_ms'] / wtau[ms_key]:.2f}%; "
+              f"plain {dyn_plain[name][0]:.1f} ms at (B,T,d)="
+              f"{tuple(dyn_plain[name][1])}")
     print(f"[filter] fused_filter: {filt['kernel_ms']:.4f} ms, bound "
           f"{filt_bound['bound_ms']:.4f} ms ({filt_bound['bound_by']}), "
           f"roofline share "
@@ -2074,7 +2670,7 @@ def main() -> int:
               f" plain {plain[name]['plain_ms']:.2f} ms vs kernel "
               f"{plain[name]['ms']:.4f} ms at (B,T,d)={PLAIN_SHAPE}")
 
-    # 10. the kernels line
+    # 11. the kernels line
     source = "rxinfer_tpu_torch/csrc/fused_smoother.cu"
     rows = []
     for name, replaces, ms_key in (
@@ -2101,6 +2697,11 @@ def main() -> int:
             "ms_at_plain_shape": plain[name]["ms"],
             "bound_ms_at_plain_shape": plain_bounds[name]["bound_ms"],
         })
+    # lgssm_wtau runs the static K2 (W alone is per chain)
+    rows[1]["launches_wtau_path"] = wtau["launches"]["fused_smoother_bwd"]
+    rows[1]["ms_in_wtau_path"] = wtau["profile"]["kernels"][
+        "fused_smoother_bwd"]["ms_per_launch"]
+    rows[1]["ms_alone_wtau_shape"] = wtau["bwd_alone_ms"]
     fb_source = "rxinfer_tpu_torch/csrc/fused_fb.cu"
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
@@ -2232,6 +2833,64 @@ def main() -> int:
         "variants_checked": {"x".join(map(str, k)): str(v)
                              for k, v in quant_layouts["dequant"].items()},
     })
+    # K1 with per-chain W: launched on lgssm_wtau (and, with Q per chain
+    # too, on the W-and-Q path); K2 with per-chain Q: launched on the
+    # W-and-Q path only.  "ms" is each alone at lgssm_wtau's shape, beside
+    # the bound there; "ms_in_path" is in the path that launches it.
+    wq_bounds = dynamic_bounds(*WQ_SHAPE)
+    dyn_rows = {
+        "fused_smoother_fwd_dyn": dict(
+            replaces="rxinfer_tpu/ops/pallas_smoother.py:76",
+            path="lgssm_wtau", per_chain="W",
+            launches=wtau["launches"]["fused_smoother_fwd_dyn"],
+            launches_wq_path=wq["launches"]["fused_smoother_fwd_dyn"],
+            max_abs_err=max(worst["fused_smoother_fwd_dyn"],
+                            wtau["kernel_err"],
+                            wq["kernel_errs"]["fused_smoother_fwd_dyn"]),
+            max_abs_err_on_path=wtau["kernel_err"],
+            check_on_path_BTd=wtau["check_shape"],
+            max_abs_err_on_wq_path=wq["kernel_errs"][
+                "fused_smoother_fwd_dyn"],
+            ms=wtau["fwd_alone_ms"],
+            ms_in_path=wtau["profile"]["kernels"]["fused_smoother_fwd_dyn"][
+                "ms_per_launch"],
+            ms_in_path_by_pass=wtau["profile"]["kernels"][
+                "fused_smoother_fwd_dyn"].get("parts"),
+            blocks=wtau["blocks"], path_shape_BTd=[WTAU_B, WTAU_T, WTAU_D]),
+        "fused_smoother_bwd_dyn": dict(
+            replaces="rxinfer_tpu/ops/pallas_smoother.py:139",
+            path="W-and-Q model", per_chain="Q",
+            launches=wq["launches"]["fused_smoother_bwd_dyn"],
+            max_abs_err=max(worst["fused_smoother_bwd_dyn"],
+                            wq["kernel_errs"]["fused_smoother_bwd_dyn"]),
+            max_abs_err_on_path=wq["kernel_errs"]["fused_smoother_bwd_dyn"],
+            check_on_path_BTd=list(WQ_SHAPE),
+            ms=wtau["bwd_dyn_alone_ms"],
+            ms_in_path=wq["profile"]["kernels"]["fused_smoother_bwd_dyn"][
+                "ms_per_launch"],
+            ms_in_path_by_pass=wq["profile"]["kernels"][
+                "fused_smoother_bwd_dyn"].get("parts"),
+            bound_ms_at_path_shape=wq_bounds["fused_smoother_bwd_dyn"][
+                "bound_ms"],
+            blocks=wq["blocks"], path_shape_BTd=list(WQ_SHAPE)),
+    }
+    for name, row in dyn_rows.items():
+        rows.append({
+            "name": name, "route": "cuda", "source": source, **row,
+            "plain_ms": dyn_plain[name][0],
+            "plain_shape_BTd": dyn_plain[name][1],
+            "bound_ms": dyn_bounds[name]["bound_ms"],
+            "bound_by": dyn_bounds[name]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a Kalman/RTS "
+                            "smoother",
+            "shape_BTd": [WTAU_B, WTAU_T, WTAU_D],
+            "bytes": dyn_bounds[name]["bytes"], "ops": dyn_bounds[name]["ops"],
+        })
+    print(f"[wtau] program_ms {wtau['program_ms']:.4f} updates_per_s "
+          f"{wtau['updates_per_s']:.6g} (B={WTAU_B}, T={WTAU_T}, d={WTAU_D}, "
+          f"iterations={WTAU_IT}); at B={WTAU_SMALL[0]} T={WTAU_SMALL[1]} "
+          f"dynamic {wtau_scan['dyn_ms']:.4f} ms against "
+          f"fused_kernels=False {wtau_scan['scan_ms']:.4f} ms")
     print(f"[filter] call_ms {filt['call_ms']:.4f} chain_updates_per_s "
           f"{filt['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
           f"d={FILTER_D})")

@@ -1,13 +1,15 @@
 """rxinfer_tpu_torch — the PyTorch/CUDA port of ``rxinfer_tpu``.
 
 A model written with ``@model``, ``latent``, ``plate``,
-``MvNormal``/``Normal``, ``Categorical``, ``DirichletCollection`` and
-``Transition`` runs through ``infer`` on one dataset, and through
+``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Categorical``,
+``DirichletCollection`` and ``Transition`` runs through ``infer`` on one dataset, and through
 ``batched_program`` / ``infer_batched`` over many, on an NVIDIA GPU.  In a
 batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
-forward-backward kernels of ``csrc/fused_fb.cu``, and its plain conjugate
-groups by natural-parameter message products; a chain the plan leaves off
+forward-backward kernels of ``csrc/fused_fb.cu`` — a Gaussian chain whose
+observation precision or process noise is a random ``Gamma`` / ``Wishart``
+variable too, with that precision re-closed per chain every sweep — and
+its plain conjugate groups by natural-parameter message products; a chain the plan leaves off
 the kernels (``options={"fused_kernels": False}``, missing observations in
 a Gaussian batch, a state dimension or state count beyond the kernels') and
 every chain of ``infer`` runs the associative-scan smoother and
@@ -26,6 +28,7 @@ The package imports torch and numpy only — never JAX nor ``rxinfer_tpu``.
 
 from . import rules  # noqa: F401  (registers the ported node rules)
 from .dists import (  # noqa: F401
+    GammaShapeRate,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
     MvNormalWeightedMeanPrecision,
@@ -33,6 +36,7 @@ from .dists import (  # noqa: F401
     NormalMeanVariance,
     NormalWeightedMeanPrecision,
     PointMass,
+    WishartInverseScale,
 )
 from .graph.dsl import (  # noqa: F401
     Categorical,
@@ -42,6 +46,7 @@ from .graph.dsl import (  # noqa: F401
     MvNormal,
     Normal,
     Transition,
+    Wishart,
     latent,
     model,
     plate,

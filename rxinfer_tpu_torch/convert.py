@@ -2,10 +2,11 @@
 numpy, without importing the JAX package.
 
 * ``fused_plan_from_numpy(fields)`` takes the numpy fields of a JAX
-  ``FusedGaussianPlan`` (A, b, Q, W, m0, p0, E, c; ``chunk`` and the
-  dynamic-tier fields are accepted and ignored — the CUDA kernels have no
-  time chunking) and returns the port's plan, which
-  ``engine.batched.run_fused_plan`` runs.
+  ``FusedGaussianPlan`` (A, b, Q, W, m0, p0, E, c and the dynamic tier's
+  dyn_w, dyn_q, wlin; ``chunk`` is accepted and ignored — the CUDA kernels
+  have no time chunking) and returns the port's plan, which
+  ``engine.batched._fused_gaussian_update`` runs (a dynamic plan with the
+  sweep's state).
 * ``dist_from_numpy(family, params)`` builds a port distribution from the
   class name of a JAX distribution and its numpy parameters, in field order
   or by field name.
@@ -25,6 +26,9 @@ from .engine.batched import FusedGaussianPlan
 from .parallel.filtering import FilterState
 
 _FAMILIES = {
+    "GammaShapeRate": D.GammaShapeRate,
+    "Wishart": D.Wishart,
+    "WishartInverseScale": D.WishartInverseScale,
     "NormalMeanVariance": D.NormalMeanVariance,
     "NormalMeanPrecision": D.NormalMeanPrecision,
     "NormalWeightedMeanPrecision": D.NormalWeightedMeanPrecision,
@@ -36,27 +40,33 @@ _FAMILIES = {
     "DirichletCollection": D.DirichletCollection,
 }
 
-_IGNORED_PLAN_FIELDS = ("chunk", "dyn_w", "dyn_q", "wlin")
+_IGNORED_PLAN_FIELDS = ("chunk",)
 
 
 def fused_plan_from_numpy(fields: dict) -> FusedGaussianPlan:
-    """The port's static-tier plan from a JAX plan's numpy fields."""
-    if fields.get("dyn_w") or fields.get("dyn_q") or fields.get("wlin"):
+    """The port's plan from a JAX plan's numpy fields, static or dynamic."""
+    dyn_w, dyn_q = bool(fields.get("dyn_w")), bool(fields.get("dyn_q"))
+    if fields.get("E") is None and not dyn_w:
         raise NotImplementedError(
-            "dynamic-tier plans (per-sweep W/Q) are not ported yet.")
-    if fields.get("E") is None:
-        raise NotImplementedError(
-            "plans without the linear-evidence map (vmapped rule path) are "
-            "not ported yet.")
+            "static plans without the linear-evidence map (vmapped rule "
+            "path) are not ported yet.")
     names = [f.name for f in dataclasses.fields(FusedGaussianPlan)]
     unknown = set(fields) - set(names) - set(_IGNORED_PLAN_FIELDS)
     if unknown:
         raise ValueError(f"unknown plan fields {sorted(unknown)}")
     f32 = lambda a: np.array(a, np.float32)  # a writable copy
+    opt = lambda a: None if a is None else f32(a)
+    arrays = lambda d: None if d is None else {k: f32(v) for k, v in d.items()}
+    wlin = fields.get("wlin")
+    if wlin is not None:
+        vname, scalar_v, e0, jt, c0, w0, dw = wlin
+        wlin = (str(vname), bool(scalar_v), arrays(e0), arrays(jt), f32(c0),
+                f32(w0), opt(dw))
     return FusedGaussianPlan(
-        A=f32(fields["A"]), b=f32(fields["b"]), Q=f32(fields["Q"]),
-        W=f32(fields["W"]), m0=f32(fields["m0"]), p0=f32(fields["p0"]),
-        E={k: f32(v) for k, v in fields["E"].items()}, c=f32(fields["c"]),
+        A=f32(fields["A"]), b=f32(fields["b"]), Q=opt(fields["Q"]),
+        W=opt(fields["W"]), m0=f32(fields["m0"]), p0=f32(fields["p0"]),
+        E=arrays(fields.get("E")), c=opt(fields.get("c")),
+        dyn_w=dyn_w, dyn_q=dyn_q, wlin=wlin,
     )
 
 

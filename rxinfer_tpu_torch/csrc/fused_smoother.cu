@@ -53,6 +53,23 @@
 // value in the kernel's parameter block (constant bank, uniform across
 // threads).  The ragged batch edge is masked with b < B; there is no padding.
 //
+// Per-chain W and Q (V1, the dynamic-precision tier).  The TPU kernels also
+// take W and/or Q as per-chain (nsym, S, L) tiles, re-closed every VMP sweep
+// when the evidence precision or the transition noise is bound to a random
+// variable (pallas_smoother.py:76-91, 139-145).  Here they are (NS, B)
+// sym-packed tiles, batch minor like every other operand.  A thread reads its
+// chain's NS entries of each once, at entry (coalesced along B), into its own
+// copy of Params, so the step bodies read prm.W / prm.Q as before and the
+// fold's per-block constants (Minv, A1, C1, J1) are the thread's own.  The
+// forward passes that read parameters (fold, replay) take W and/or Q this
+// way, the backward ones Q only; the carry passes read none.  The template
+// flags DYN_W / DYN_Q select this at compile time, so the static
+// instantiations run the same code as before.  Q in a tile is the transition
+// noise COVARIANCE, as everywhere in this file.  What the tiles cost: 2 NS
+// registers more a thread at most (72 at D = 8) and NS B floats read a tile
+// and a pass, 40 KB at B = 1024, D = 4.  The launchers pick the
+// instantiation from which tile pointers are null.
+//
 // Layouts.  Inputs in the wrapper's contract layout: xi (T, B, D),
 // m0 (B, D), p0 (B, D, D).  Moments in struct-of-arrays layout, batch
 // minor, so that neighbouring threads touch neighbouring addresses:
@@ -77,6 +94,12 @@ struct Params {
   float b[D];
   float Q[D][D];
   float W[D][D];
+};
+
+// The per-chain tiles of the dynamic tier, (NS, B) each; null when shared.
+struct DynTiles {
+  const float* w;
+  const float* q;
 };
 
 // Largest D for which the fold and carry kernels are instantiated: the
@@ -132,6 +155,18 @@ struct BwdSlot {  // composite (E, g, L); entry = smoothed (m, P)
 // ---- K1: forward information-form filter ----------------------------------
 //   m_pred = F m + b ; P_pred = F P F^T + Q        (no transition at t = 0)
 //   L = P_pred^-1 ; P = (L + W)^-1 ; m = P (L m_pred + xi_t)
+// Chain b's parameters: the shared ones, with W and/or Q replaced by the
+// chain's entries of its tile.
+template <int D, bool DYN_W, bool DYN_Q>
+__device__ __forceinline__ Params<D> chain_params(const Params<D>& shared,
+                                                  const DynTiles& dyn,
+                                                  int64_t b, int64_t B) {
+  Params<D> prm = shared;
+  if constexpr (DYN_W) load_packed<D>(dyn.w + b, B, prm.W);
+  if constexpr (DYN_Q) load_packed<D>(dyn.q + b, B, prm.Q);
+  return prm;
+}
+
 template <int D>
 __device__ __forceinline__ void fwd_step(bool first, const float (&xcur)[D],
                                          float (&m)[D], float (&p)[D][D],
@@ -204,15 +239,16 @@ __device__ __forceinline__ void load_prior(const float* __restrict__ m0,
 // the one-block launch, the whole filter with one thread per chain: the
 // block arithmetic and the scratch are compiled out, so a batch that fills
 // the card by itself runs the recursion and nothing else.
-template <int D, bool BLOCKED>
+template <int D, bool BLOCKED, bool DYN_W, bool DYN_Q>
 __global__ void fwd_replay_kernel(
     const float* __restrict__ xi, const float* __restrict__ m0,
     const float* __restrict__ p0, const float* __restrict__ scratch,
     float* __restrict__ mf, float* __restrict__ pf, int64_t T, int64_t B,
-    int64_t L, const Params<D> prm) {
+    int64_t L, const Params<D> shared, const DynTiles dyn) {
   constexpr int NS = D * (D + 1) / 2;
   const int64_t b = chain_index();
   if (b >= B) return;
+  const Params<D> prm = chain_params<D, DYN_W, DYN_Q>(shared, dyn, b, B);
   int64_t t0 = 0, t1 = T;
   if constexpr (BLOCKED) {
     t0 = static_cast<int64_t>(blockIdx.y) * L;
@@ -258,14 +294,16 @@ __global__ void fwd_replay_kernel(
 //   eta_t = A1^T (xi_t - W b)
 // Block 0 starts from the exact filtered state at t = 0, (0, m_f, P_f, 0, 0);
 // the others from the identity element (I, 0, 0, 0, 0).
-template <int D>
+template <int D, bool DYN_W, bool DYN_Q>
 __global__ void __launch_bounds__(kThreads)
 fwd_fold_kernel(const float* __restrict__ xi, const float* __restrict__ m0,
                 const float* __restrict__ p0, float* __restrict__ scratch,
-                int64_t B, int64_t L, const Params<D> prm) {
+                int64_t B, int64_t L, const Params<D> shared,
+                const DynTiles dyn) {
   using Slot = FwdSlot<D>;
   const int64_t b = chain_index();
   if (b >= B) return;
+  const Params<D> prm = chain_params<D, DYN_W, DYN_Q>(shared, dyn, b, B);
   const int64_t s = blockIdx.y;
   int64_t t0 = s * L;
   const int64_t t1 = t0 + L;
@@ -597,15 +635,16 @@ __device__ __forceinline__ void bwd_step(
 // the scratch; the block that holds step T - 1 starts from the filtered
 // moments there.  BLOCKED = false is the one-block launch, the whole
 // backward pass with one thread per chain (see fwd_replay_kernel).
-template <int D, bool BLOCKED>
+template <int D, bool BLOCKED, bool DYN_Q>
 __global__ void bwd_replay_kernel(
     const float* __restrict__ mf, const float* __restrict__ pf,
     const float* __restrict__ scratch, float* __restrict__ ms,
     float* __restrict__ ps, float* __restrict__ cross, int64_t T, int64_t B,
-    int64_t L, const Params<D> prm) {
+    int64_t L, const Params<D> shared, const DynTiles dyn) {
   constexpr int NS = D * (D + 1) / 2;
   const int64_t b = chain_index();
   if (b >= B) return;
+  const Params<D> prm = chain_params<D, false, DYN_Q>(shared, dyn, b, B);
   int64_t t0 = 0, t1 = T;
   if constexpr (BLOCKED) {
     t0 = static_cast<int64_t>(blockIdx.y) * L;
@@ -663,15 +702,16 @@ __global__ void bwd_replay_kernel(
 // and composite <- (E_t E, E_t g + g_t, E_t L E_t^T + L_t): no inverse
 // beyond P_pred's.  The block that holds step T - 1 starts from that step's
 // element (0, m_f, P_f), the others from the identity (I, 0, 0).
-template <int D>
+template <int D, bool DYN_Q>
 __global__ void __launch_bounds__(kThreads)
 bwd_fold_kernel(const float* __restrict__ mf, const float* __restrict__ pf,
                 float* __restrict__ scratch, int64_t T, int64_t B, int64_t L,
-                const Params<D> prm) {
+                const Params<D> shared, const DynTiles dyn) {
   constexpr int NS = D * (D + 1) / 2;
   using Slot = BwdSlot<D>;
   const int64_t b = chain_index();
   if (b >= B) return;
+  const Params<D> prm = chain_params<D, false, DYN_Q>(shared, dyn, b, B);
   const int64_t s = static_cast<int64_t>(blockIdx.y) + 1;
   const int64_t t0 = s * L;
   const int64_t t1 = t0 + L < T ? t0 + L : T;
@@ -852,57 +892,64 @@ inline dim3 chain_grid(int64_t B, int64_t blocks) {
 
 // L steps per time block, S = ceil(T / L) blocks.  S == 1: the one-block
 // replay kernel alone.  S > 1 needs D <= kFoldMaxDim and a scratch of
-// S * ROWS * B floats.
-template <int D>
+// S * ROWS * B floats.  The per-chain tiles of dyn are read by the
+// instantiations DYN_W / DYN_Q select.
+template <int D, bool DYN_W, bool DYN_Q>
 int launch_fwd(const float* xi, const float* m0, const float* p0, float* mf,
                float* pf, int64_t T, int64_t B, const float* F,
-               const float* bvec, const float* Q, const float* W, int64_t L,
-               int64_t S, float* scratch, cudaStream_t stream) {
+               const float* bvec, const float* Q, const float* W,
+               DynTiles dyn, int64_t L, int64_t S, float* scratch,
+               cudaStream_t stream) {
   const Params<D> prm = make_params<D>(F, bvec, Q, W);
   if (S == 1) {
-    fwd_replay_kernel<D, false><<<chain_grid(B, 1), kThreads, 0, stream>>>(
-        xi, m0, p0, scratch, mf, pf, T, B, L, prm);
+    fwd_replay_kernel<D, false, DYN_W, DYN_Q>
+        <<<chain_grid(B, 1), kThreads, 0, stream>>>(
+            xi, m0, p0, scratch, mf, pf, T, B, L, prm, dyn);
     return static_cast<int>(cudaGetLastError());
   }
   if constexpr (D <= kFoldMaxDim) {
-    fwd_fold_kernel<D><<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
-        xi, m0, p0, scratch, B, L, prm);
+    fwd_fold_kernel<D, DYN_W, DYN_Q>
+        <<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
+            xi, m0, p0, scratch, B, L, prm, dyn);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     fwd_carry_kernel<D><<<chain_grid(B, 1), kThreads, 0, stream>>>(
         m0, p0, scratch, B, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    fwd_replay_kernel<D, true><<<chain_grid(B, S), kThreads, 0, stream>>>(
-        xi, m0, p0, scratch, mf, pf, T, B, L, prm);
+    fwd_replay_kernel<D, true, DYN_W, DYN_Q>
+        <<<chain_grid(B, S), kThreads, 0, stream>>>(
+            xi, m0, p0, scratch, mf, pf, T, B, L, prm, dyn);
     return static_cast<int>(cudaGetLastError());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int D>
+template <int D, bool DYN_Q>
 int launch_bwd(const float* mf, const float* pf, float* ms, float* ps,
                float* cross, int64_t T, int64_t B, const float* F,
-               const float* bvec, const float* Q, int64_t L, int64_t S,
-               float* scratch, cudaStream_t stream) {
+               const float* bvec, const float* Q, DynTiles dyn, int64_t L,
+               int64_t S, float* scratch, cudaStream_t stream) {
   const Params<D> prm = make_params<D>(F, bvec, Q, Q);
   if (S == 1) {
-    bwd_replay_kernel<D, false><<<chain_grid(B, 1), kThreads, 0, stream>>>(
-        mf, pf, scratch, ms, ps, cross, T, B, L, prm);
+    bwd_replay_kernel<D, false, DYN_Q>
+        <<<chain_grid(B, 1), kThreads, 0, stream>>>(
+            mf, pf, scratch, ms, ps, cross, T, B, L, prm, dyn);
     return static_cast<int>(cudaGetLastError());
   }
   if constexpr (D <= kFoldMaxDim) {
-    bwd_fold_kernel<D><<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
-        mf, pf, scratch, T, B, L, prm);
+    bwd_fold_kernel<D, DYN_Q><<<chain_grid(B, S - 1), kThreads, 0, stream>>>(
+        mf, pf, scratch, T, B, L, prm, dyn);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     bwd_carry_kernel<D><<<chain_grid(B, 1), kThreads, 0, stream>>>(
         scratch, B, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    bwd_replay_kernel<D, true><<<chain_grid(B, S), kThreads, 0, stream>>>(
-        mf, pf, scratch, ms, ps, cross, T, B, L, prm);
+    bwd_replay_kernel<D, true, DYN_Q>
+        <<<chain_grid(B, S), kThreads, 0, stream>>>(
+            mf, pf, scratch, ms, ps, cross, T, B, L, prm, dyn);
     return static_cast<int>(cudaGetLastError());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -922,37 +969,51 @@ extern "C" {
 // The time axis is cut into S blocks of L steps (the last one ragged):
 // S = ceil(T / L).  scratch holds S * rows * B floats, rows = d*d + 3 d +
 // 3 nsym forward and d*d + 2 d + 2 nsym backward (FwdSlot, BwdSlot), and
-// may be null when S == 1.
+// may be null when S == 1.  wdyn / qdyn are the (nsym, B) per-chain tiles
+// of W / Q, or null where the parameter is shared; F, b, Q, W are read for
+// the parameters that are shared.  The backward pass reads Q only.
 int rxt_fused_smoother_fwd(int d, const float* xi, const float* m0,
                            const float* p0, float* mf, float* pf, int64_t T,
                            int64_t B, const float* F, const float* bvec,
-                           const float* Q, const float* W, int64_t L,
+                           const float* Q, const float* W,
+                           const float* wdyn, const float* qdyn, int64_t L,
                            int64_t S, float* scratch, void* stream) {
   if (!blocks_ok(T, L, S)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RXT_FWD(D)                                                        \
-  case D:                                                                 \
-    return launch_fwd<D>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, L, S,   \
-                         scratch, s);
+  const DynTiles dyn{wdyn, qdyn};
+#define RXT_FWD_AS(D, DW, DQ)                                               \
+  launch_fwd<D, DW, DQ>(xi, m0, p0, mf, pf, T, B, F, bvec, Q, W, dyn, L, S, \
+                        scratch, s)
+#define RXT_FWD(D)                                                          \
+  case D:                                                                   \
+    if (wdyn && qdyn) return RXT_FWD_AS(D, true, true);                     \
+    if (wdyn) return RXT_FWD_AS(D, true, false);                            \
+    if (qdyn) return RXT_FWD_AS(D, false, true);                            \
+    return RXT_FWD_AS(D, false, false);
   switch (d) {
     RXT_FWD(1) RXT_FWD(2) RXT_FWD(3) RXT_FWD(4)
     RXT_FWD(5) RXT_FWD(6) RXT_FWD(7) RXT_FWD(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RXT_FWD
+#undef RXT_FWD_AS
 }
 
 int rxt_fused_smoother_bwd(int d, const float* mf, const float* pf, float* ms,
                            float* ps, float* cross, int64_t T, int64_t B,
                            const float* F, const float* bvec, const float* Q,
-                           int64_t L, int64_t S, float* scratch,
-                           void* stream) {
+                           const float* qdyn, int64_t L, int64_t S,
+                           float* scratch, void* stream) {
   if (!blocks_ok(T, L, S)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RXT_BWD(D)                                                        \
-  case D:                                                                 \
-    return launch_bwd<D>(mf, pf, ms, ps, cross, T, B, F, bvec, Q, L, S,   \
-                         scratch, s);
+  const DynTiles dyn{nullptr, qdyn};
+#define RXT_BWD(D)                                                          \
+  case D:                                                                   \
+    if (qdyn)                                                               \
+      return launch_bwd<D, true>(mf, pf, ms, ps, cross, T, B, F, bvec, Q,   \
+                                 dyn, L, S, scratch, s);                    \
+    return launch_bwd<D, false>(mf, pf, ms, ps, cross, T, B, F, bvec, Q,    \
+                                dyn, L, S, scratch, s);
   switch (d) {
     RXT_BWD(1) RXT_BWD(2) RXT_BWD(3) RXT_BWD(4)
     RXT_BWD(5) RXT_BWD(6) RXT_BWD(7) RXT_BWD(8)

@@ -1,6 +1,6 @@
 """Distribution substrate of the PyTorch port (Gaussian families,
-Categorical, DirichletCollection and PointMass; counterpart of
-``rxinfer_tpu/dists``)."""
+Categorical, DirichletCollection, GammaShapeRate, Wishart and PointMass;
+counterpart of ``rxinfer_tpu/dists``)."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -28,7 +28,9 @@ from .gaussian import (  # noqa: F401
     pd_logdet,
 )
 from .discrete import Categorical, DirichletCollection  # noqa: F401
+from .matrix import Wishart, WishartInverseScale  # noqa: F401
 from .pointmass import PointMass, register_pointmass_products
+from .scalar_families import AbstractGamma, GammaShapeRate  # noqa: F401
 
 register_pointmass_products(
     Categorical,
@@ -39,4 +41,7 @@ register_pointmass_products(
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
     MvNormalWeightedMeanPrecision,
+    GammaShapeRate,
+    Wishart,
+    WishartInverseScale,
 )

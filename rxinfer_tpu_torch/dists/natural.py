@@ -3,10 +3,13 @@
 
 For every family ``prod(d1, d2) == from_natural(to_natural(d1) +
 to_natural(d2))`` and the ZERO natural vector is the multiplicative identity.
-Ported subset: the ``gaussian``, ``mv_gaussian``, ``categorical`` and
-``dirichlet_collection`` families (the other conjugate families arrive with
-free energy and the rest of the node library), ``prod_all``, ``nat_div``,
-``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.
+Ported subset: the ``gaussian``, ``mv_gaussian``, ``categorical``,
+``dirichlet_collection``, ``gamma`` and ``wishart`` families (the other
+conjugate families arrive with the rest of the node library), ``prod_all``,
+``nat_div``, ``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.  The
+``wishart`` view keeps the inverse-scale carrier: one observation's
+natural matrix is singular, so only an aggregated posterior is converted
+back to a ``Wishart`` (``WishartInverseScale.to_wishart``).
 
 Batch axes.  The JAX package evaluates a plain group's messages per dataset
 under ``vmap``, so a message leaf there is (plate..., event...).  The port
@@ -31,7 +34,10 @@ from .gaussian import (
     NormalWeightedMeanPrecision,
     as_mv_weighted_mean_precision,
     as_weighted_mean_precision,
+    pd_inverse,
 )
+from .matrix import Wishart, WishartInverseScale
+from .scalar_families import AbstractGamma, GammaShapeRate
 
 
 def _gauss_to(d):
@@ -51,6 +57,13 @@ _TABLE = {
     "dirichlet_collection": (lambda d: (d.alpha - 1.0,),
                              lambda n: DirichletCollection(n[0] + 1.0)),
     "categorical": (lambda d: (d.logits,), lambda n: Categorical(n[0])),
+    "gamma": (lambda d: (d.shape_rate()[0] - 1.0, d.shape_rate()[1]),
+              lambda n: GammaShapeRate(n[0] + 1.0, n[1])),
+    "wishart": (
+        lambda d: ((d.nu - d.s_inv.shape[-1] - 1.0, d.s_inv)
+                   if isinstance(d, WishartInverseScale)
+                   else (d.nu - d.s.shape[-1] - 1.0, pd_inverse(d.s))),
+        lambda n: WishartInverseScale(n[0] + n[1].shape[-1] + 1.0, n[1])),
 }
 
 # Event ranks of each family's natural-parameter leaves: they tell the batch
@@ -60,6 +73,8 @@ NAT_EVENT_RANKS = {
     "mv_gaussian": (1, 2),
     "dirichlet_collection": (2,),
     "categorical": (1,),
+    "gamma": (0, 0),
+    "wishart": (0, 2),
 }
 
 
@@ -72,6 +87,10 @@ def family_key(d: Distribution) -> str:
         return "dirichlet_collection"
     if isinstance(d, Categorical):
         return "categorical"
+    if isinstance(d, AbstractGamma):
+        return "gamma"
+    if isinstance(d, (Wishart, WishartInverseScale)):
+        return "wishart"
     raise TypeError(f"No natural-parameter view for {type(d).__name__}")
 
 
@@ -81,6 +100,14 @@ def to_natural(d: Distribution) -> tuple:
 
 def from_natural(key: str, nat) -> Distribution:
     return _TABLE[key][1](nat)
+
+
+def _wrap_gamma(d):
+    """A Gamma of any parametrization as ``GammaShapeRate`` (the natural
+    view reads (shape, rate))."""
+    if isinstance(d, AbstractGamma) and not isinstance(d, GammaShapeRate):
+        return GammaShapeRate(*d.shape_rate())
+    return d
 
 
 def prod_all(dists: list) -> Distribution:
@@ -97,7 +124,8 @@ def prod_all(dists: list) -> Distribution:
             f"Non-conjugate message product: families {sorted(set(keys))} "
             "meet on one variable."
         )
-    nats = [to_natural(d) for d in dists]
+    nats = [to_natural(_wrap_gamma(d) if keys[0] == "gamma" else d)
+            for d in dists]
     total = nats[0]
     for n in nats[1:]:
         total = tuple(a + b for a, b in zip(total, n))

@@ -13,6 +13,17 @@ one program.  Per sweep, in the compiled sweep order
   ``ops/fused_smoother.fused_batched_smoother``.  Plan-time evaluation (the
   constants F, b, Q, W, m0, P0 and the map E, c) runs in float32 on the CPU
   whatever the program's device.
+* The dynamic tier: a chain whose evidence precision W and/or transition
+  noise Q is bound to a random variable that is not the chain (an unknown
+  observation or process-noise precision, a ``Gamma`` / ``Wishart`` group)
+  re-closes them from the current state every sweep, per chain, and hands
+  them to the smoother kernels as per-chain (B, d, d) matrices
+  (``w_batch`` / ``q_batch``, the V1 kernels).  W and xi come from the
+  W-linear map when the probes at plan time validate it (one precision
+  variable: xi = (E0 + J^T E[v]_b) y + c0, W = W0 + J^T E[v]_b J), else
+  from the evidence rules over the batch; Q from the block's transition
+  rule with its float32 guard.  The plan report reads ``dynamic`` and, with
+  a dynamic W, ``w_linear`` and the probe's reason when it is False.
 * A discrete chain block assembles its inputs over the batch
   (``DiscreteChainBlock._inputs``) and runs
   ``ops/fused_fb.fused_fb_batched(..., per_step_xi=True)``; its per-step pair
@@ -42,17 +53,22 @@ Gaussian chain's evidence einsum (``ops/quantized.py``: one scale per chain
 and channel, taken over time), and every sweep's einsum reads the 1-byte
 payload and its scales instead of the float32 observations.
 
-Ported subset: ``FusedGaussianPlan``, the static branches of
-``_plan_fused_gaussian``, ``_extract_linear_evidence``,
-``_fused_gaussian_update``, ``_fused_discrete_update``, ``build_plans``,
+Ported subset: ``FusedGaussianPlan``, ``_plan_fused_gaussian`` (the static
+and dynamic tiers; d <= 8), ``_extract_linear_evidence``,
+``_extract_wlinear_evidence``, ``_fused_gaussian_update``,
+``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
 ``make_batched_program`` (with quantized observation ingest and the
-unfused chain path) without shared variables or free energy.
+unfused chain path) without shared variables or free energy.  Two guards
+the JAX planner lacks: a dynamic precision must be a single-copy variable,
+and the per-slot evidence signature of a dynamic W holds the values of the
+factors' constant interfaces (``_external_random``, ``_slot_signature``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import warnings
 from typing import Any
 
@@ -78,29 +94,66 @@ UNFUSED_SCAN_FLOATS = 4
 class FusedGaussianPlan:
     """Compile-time constants of an eligible Gaussian chain, shared across
     batch and time: transition A, b, Q; evidence precision W; prior m0, p0;
-    and the affine evidence map xi[t] = sum_k E[k] vec(data_k[t]) + c[t]."""
+    and the affine evidence map xi[t] = sum_k E[k] vec(data_k[t]) + c[t].
+
+    The dynamic tier: ``dyn_w`` / ``dyn_q`` mark an evidence precision /
+    transition noise bound to a random variable, re-closed every sweep and
+    per chain (``W`` / ``Q`` are then None, and ``E``, ``c`` too under
+    ``dyn_w``: xi depends on the state).  ``wlin`` is the W-linear map of a
+    dynamic W, (variable name, scalar_v, E0 dict, J^T dict, c0, W0, dW or
+    None), or None when the evidence rules are evaluated every sweep."""
 
     A: np.ndarray
     b: np.ndarray
-    Q: np.ndarray
-    W: np.ndarray
+    Q: Any             # (d, d) ndarray, or None when dyn_q
+    W: Any             # (d, d) ndarray, or None when dyn_w
     m0: np.ndarray
     p0: np.ndarray
-    E: dict            # data name -> (dim, feat) ndarray
-    c: np.ndarray      # (T, dim)
+    E: Any             # data name -> (dim, feat) ndarray; None when dyn_w
+    c: Any             # (T, dim); None when dyn_w
+    dyn_w: bool = False
+    dyn_q: bool = False
+    wlin: Any = None
 
 
-def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict):
+def _const_fingerprint(v: Const) -> tuple:
+    """Shape and a hash of the value of a constant interface."""
+    a = np.ascontiguousarray(np.asarray(v.value, np.float32))
+    return a.shape, hashlib.sha1(a.tobytes()).hexdigest()
+
+
+def _slot_signature(ef, iface: str, chain_ref) -> tuple:
+    """What an evidence factor contributes to a slot's W: its node, the
+    chain's interface, its random interfaces and the values of its constant
+    ones.  Two factors that differ only in a constant (a per-slot gain)
+    differ here, so slot uniformity is structural, not an accident of the
+    initial state."""
+    items = ef.all_interfaces().items()
+    return (ef.fform, iface,
+            tuple(sorted((n, v.var.name) for n, v in items
+                         if isinstance(v, Ref) and v.var.kind == "random"
+                         and v is not chain_ref)),
+            tuple(sorted((n, _const_fingerprint(v)) for n, v in items
+                         if isinstance(v, Const))))
+
+
+def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict,
+                         state0: dict | None = None):
     """``(FusedGaussianPlan, None)`` when the chain's parameters are
     compile-time constants (transition A/b/noise Const, prior Const, evidence
-    factors whose only non-Const input is the observed value), else
-    ``(None, reason)``.
+    factors whose only non-Const input is the observed value) or, in the
+    dynamic tier, an evidence precision / transition noise bound to a random
+    variable other than the chain, re-closed every sweep; else
+    ``(None, reason)``.  A dynamic-W plan without the W-linear map comes
+    with the probe's reason instead of None.  ``state0`` (the compiled
+    model's initial state) feeds the plan-time checks of a dynamic plan.
 
     Data-valued refs are admitted only at an evidence factor's ``out`` slot,
     where they feed xi but never W; the surviving W is evaluated on the
-    example dataset and verified time-invariant."""
+    example dataset (at the initial state) and verified time-invariant."""
     from ..ops.fused_smoother import MAX_DIM
     from ..rules.registry import get_node
+    from .blocks import _coverage, in_cavity_cluster
 
     if block.dim > MAX_DIM:
         return None, (
@@ -108,14 +161,29 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict):
             "keep the chain state in registers and are instantiated for "
             f"d <= {MAX_DIM}"
         )
+
+    def _external_random(v):
+        """A whole-variable reference to one random variable other than the
+        chain: one marginal a sweep, which the dynamic tier re-closes.  A
+        slot-indexed ref would make the precision time-varying, and a
+        reference to a whole array variable (several copies, a marginal a
+        slot) is not one precision either."""
+        return (isinstance(v, Ref) and v.var.kind == "random"
+                and v.idx is None and not v.var.is_array
+                and v.var.name != block.var.name)
+
+    dyn_w = dyn_q = False
+    dyn_ev: list = []   # (interface name, variable name) of dynamic evidence
     f = block.transition
     for name, v in f.interfaces.items():
         if name == "in" or isinstance(v, Const):
             continue
+        if name in ("prec", "cov", "var") and _external_random(v):
+            dyn_q = True   # unknown process noise: re-closed every sweep
+            continue
         return None, (
             f"transition interface {name!r} is not a compile-time constant "
-            "(random/data-valued transition parameters; the dynamic W/Q "
-            "tier is not ported yet)"
+            "(random/data-valued transition parameters)"
         )
     for name, v in block.prior.interfaces.items():
         if not isinstance(v, Const):
@@ -142,20 +210,70 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict):
                     "precision W batch-dependent, which the constant-W "
                     "kernel cannot express"
                 )
+            if _external_random(v):
+                # the dynamic tier re-assembles xi and W from the state every
+                # sweep; a cavity division over stored messages (another
+                # random interface in the factor's BP cluster) and damping
+                # blend against state the fused path does not carry
+                cav_random = any(
+                    n != iface and in_cavity_cluster(node_cls, n)
+                    and isinstance(vv, Ref) and vv.var.kind == "random"
+                    for n, vv in ef.all_interfaces().items())
+                if cav_random:
+                    return None, (
+                        f"evidence factor {ef.fform} interface {name!r} is "
+                        "random AND the factor's BP cluster holds another "
+                        "random interface (cavity division over stored "
+                        "messages); the dynamic kernel tier covers "
+                        "conjugate evidence only"
+                    )
+                if (ef.meta or {}).get("damping"):
+                    return None, (
+                        f"evidence factor {ef.fform} has EP damping meta; "
+                        "damped messages blend against stored state the "
+                        "fused path does not carry"
+                    )
+                dyn_w = True
+                dyn_ev.append((name, v.var.name))
+                continue
             return None, (
                 f"evidence factor {ef.fform} interface {name!r} is bound to "
-                "a random variable (the dynamic W tier is not ported yet)"
+                "a random variable with per-slot indexing, or to a variable "
+                "of several copies (time-varying evidence precision)"
             )
 
     length = block.var.length
+    if dyn_w:
+        # every slot must see the same evidence factors, random precisions
+        # and constants, else W would vary across slots once the precisions
+        # move away from their (uniform) initial state
+        per_slot: list = [[] for _ in range(length)]
+        for ef, iface in block.evidence:
+            chain_ref = ef.out if iface == "out" else ef.interfaces[iface]
+            sig = _slot_signature(ef, iface, chain_ref)
+            cov = _coverage(ef, chain_ref)
+            slots = (range(length) if cov is None or cov == "grid"
+                     else ([cov] if isinstance(cov, int)
+                           else range(cov[0], cov[1])))
+            for t in slots:
+                per_slot[t].append(sig)
+        canon = sorted(per_slot[0])
+        if any(sorted(p) != canon for p in per_slot[1:]):
+            return None, (
+                "evidence structure varies across time slots (different "
+                "factors, random precisions or constants per slot); the "
+                "dynamic kernel tier requires one shared per-sweep W"
+            )
+
+    state0 = dict(state0 or {}) if (dyn_w or dyn_q) else {}
     d0 = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in data0.items()}
     try:
         # at T = 1 the chain applies no transition, so the (T-1)-row tables
         # are empty; the constants come from the factor's Const interfaces
         # all the same, so ask for one row
-        a, bb, q = block._transition_params({}, d0, max(length, 2))
-        m0, p0 = block._prior_moments({}, d0)
-        _, w = block._evidence({}, d0, length)
+        a, bb, q = block._transition_params(state0, d0, max(length, 2))
+        m0, p0 = block._prior_moments(state0, d0)
+        _, w = block._evidence(state0, d0, length)
     except Exception as exc:  # noqa: BLE001 — any assembly failure: reason
         return None, (
             f"constant-parameter assembly failed ({type(exc).__name__}: "
@@ -167,33 +285,54 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict):
             "evidence precision W varies across time slots (unary slot "
             "evidence or partial coverage); the kernel requires one shared W"
         )
-    E, c = _extract_linear_evidence(block, d0, length)
-    if E is None:
-        return None, (
-            "the evidence information vector is not an affine, "
-            "time-invariant map of the observations (the vmapped rule path "
-            "is not ported yet)"
-        )
+    wlin = None
+    wlin_reason = None
+    if dyn_w:
+        vnames = {vn for _, vn in dyn_ev}
+        if len(vnames) != 1:
+            wlin_reason = (f"{len(vnames)} precision variables "
+                           f"{sorted(vnames)}: the W-linear map takes one")
+        elif any(n != "prec" for n, _ in dyn_ev):
+            wlin_reason = ("a random evidence interface other than 'prec' "
+                           f"({sorted({n for n, _ in dyn_ev})})")
+        else:
+            vname = next(iter(vnames))
+            res, wlin_reason = _extract_wlinear_evidence(
+                block, d0, length, state0, vname)
+            if res is not None:
+                wlin = (vname,) + res
+        E, c = None, None
+    else:
+        E, c = _extract_linear_evidence(block, d0, length)
+        if E is None:
+            return None, (
+                "the evidence information vector is not an affine, "
+                "time-invariant map of the observations (the vmapped rule "
+                "path is not ported yet)"
+            )
     plan = FusedGaussianPlan(
         A=np.asarray(a[0], np.float32), b=np.asarray(bb[0], np.float32),
-        Q=np.asarray(q[0], np.float32), W=np.asarray(w[0], np.float32),
+        Q=None if dyn_q else np.asarray(q[0], np.float32),
+        W=None if dyn_w else np.asarray(w[0], np.float32),
         m0=np.asarray(m0, np.float32), p0=np.asarray(p0, np.float32),
-        E=E, c=c,
+        E=E, c=c, dyn_w=dyn_w, dyn_q=dyn_q, wlin=wlin,
     )
-    return plan, None
+    return plan, wlin_reason
 
 
 def _extract_linear_evidence(block: GaussianChainBlock, d0: dict,
-                             length: int):
+                             length: int, state: dict | None = None):
     """Extract the evidence information vector as a per-slot AFFINE map of
     the data: xi[t] = sum_k E_k vec(data_k[t]) + c[t].  Columns come from
     ``torch.func.jvp`` with time-broadcast basis tangents; each column's time
     invariance and the affine map itself (on the example dataset and on a
     deterministic random probe) are verified.  Returns (None, None) on any
-    mismatch."""
+    mismatch.  ``state``: marginals the evidence rules read (the dynamic
+    tier's probe states); the map is extracted at that state."""
+    state = state or {}
 
     def xi_of(dd):
-        xi, _ = block._evidence({}, dd, length)
+        xi, _ = block._evidence(dict(state), dd, length)
         return xi
 
     try:
@@ -241,6 +380,131 @@ def _extract_linear_evidence(block: GaussianChainBlock, d0: dict,
         return None, None
 
 
+def _extract_wlinear_evidence(block: GaussianChainBlock, d0: dict,
+                              length: int, state0: dict, vname: str):
+    """The W-linear evidence map of a dynamic plan.  Conjugate Gaussian
+    evidence is linear in the precision value v (``y ~ Normal(H x,
+    prec=v)``: xi = H^T v y, W = H^T v H), and its VMP messages read q(v)
+    through E[v] only.  Probing the rules at point-mass precisions v in
+    {I, I + S, R2} recovers, per data stream k,
+
+        E_k(v) = E0_k + J_k^T v          c(v) = c0
+        W(v)   = W0 + sum_k J_k^T v J_k  (matrix v), W0 + v dW (scalar v)
+
+    and every equation is validated at an independent point and at the
+    initial state's own marginal (which proves the rules read q(v) through
+    E[v] alone).  Each sweep then costs one small per-chain product,
+    M_b = E0 + J^T E[v]_b, feeding the evidence einsum, instead of the
+    rules' (B, T, d, d) intermediates.  The probes run on the CPU in
+    float32, as the plan does.
+
+    Returns ``((scalar_v, E0, JT, c0, W0, dW or None), None)`` or
+    ``(None, reason)``."""
+    from ..dists import PointMass
+    from ..rules.expectations import e_precision
+
+    try:
+        return _wlinear_map(block, d0, length, state0, vname, PointMass,
+                            e_precision)
+    except Exception as exc:  # noqa: BLE001 — reported in the plan
+        return None, (f"the W-linear probe failed ({type(exc).__name__}: "
+                      f"{exc})")
+
+
+def _wlinear_map(block, d0, length, state0, vname, PointMass, e_precision):
+    v0 = e_precision(state0[vname]).numpy()
+    scalar_v = v0.ndim == 0
+    dv = 1 if scalar_v else v0.shape[-1]
+    if not scalar_v and v0.shape != (dv, dv):
+        return None, (f"E[{vname}] has shape {v0.shape}, neither a scalar "
+                      "nor one square matrix")
+    eye = np.float32(1.0) if scalar_v else np.eye(dv, dtype=np.float32)
+    rng = np.random.default_rng(3)
+    # probe points must be non-singular: some rules round-trip the message
+    # through a covariance.  Probe at I and I + S (S and I + S invertible by
+    # construction), validate at an independent SPD point R2.
+    if scalar_v:
+        ra, r2 = np.float32(1.7), np.float32(0.6)
+    else:
+        rm = 0.25 * rng.standard_normal((dv, dv)).astype(np.float32)
+        s_mat = rm @ rm.T + np.eye(dv, dtype=np.float32)
+        ra = eye + s_mat
+        rm2 = rng.standard_normal((dv, dv)).astype(np.float32)
+        r2 = rm2 @ rm2.T / dv + 0.5 * np.eye(dv, dtype=np.float32)
+
+    def probe(vval):
+        st = dict(state0)
+        st[vname] = PointMass(torch.as_tensor(vval, dtype=torch.float32))
+        e, c = _extract_linear_evidence(block, d0, length, state=st)
+        _, w = block._evidence(st, d0, length)
+        return e, c, w.numpy()[0]
+
+    e1, c1, w1 = probe(eye)
+    ea, ca, wa = probe(ra)
+    e2, c2, w2 = probe(r2)
+    if c1 is None or ca is None or c2 is None:
+        return None, ("the evidence is not an affine, time-invariant map of "
+                      "the observations at a probe precision")
+    ok = lambda a, b: np.allclose(a, b, rtol=1e-4, atol=1e-5)
+    if not (ok(ca, c1) and ok(c2, c1)):
+        return None, "the evidence's constant offset depends on the precision"
+    names = sorted(set(e1) | set(ea) | set(e2))
+    jt_all, e0_all = {}, {}
+    for k in names:
+        zero = 0.0 * np.asarray((e1.get(k) if k in e1 else ea.get(k, e2.get(k))))
+        k1, ka, k2 = (np.asarray(e.get(k, zero)) for e in (e1, ea, e2))
+        if not scalar_v and k1.shape[-1] != dv:
+            return None, (f"data {k!r} has {k1.shape[-1]} features, the "
+                          f"precision is {dv} x {dv}")
+        if scalar_v:
+            jt = (ka - k1) / (float(ra) - 1.0)
+            e0 = k1 - jt
+            k2_pred = e0 + float(r2) * jt
+        else:
+            jt = (ka - k1) @ np.linalg.inv(s_mat)      # E(I+S) - E(I) = J^T S
+            e0 = k1 - jt @ eye
+            k2_pred = e0 + jt @ r2
+        if not ok(k2, k2_pred):
+            return None, (f"the evidence map of {k!r} is not linear in the "
+                          "precision")
+        jt_all[k] = jt.astype(np.float32)
+        e0_all[k] = e0.astype(np.float32)
+    if scalar_v:
+        dw = (wa - w1) / (float(ra) - 1.0)
+        w0 = w1 - dw
+        if not ok(w2, w0 + float(r2) * dw):
+            return None, "the evidence precision is not linear in v"
+        extra = dw.astype(np.float32)
+    else:
+        lin = lambda v: sum((jt_all[k] @ v @ jt_all[k].T for k in names),
+                            np.zeros_like(w1))
+        w0 = w1 - lin(eye)
+        if not (ok(wa, w0 + lin(ra)) and ok(w2, w0 + lin(r2))):
+            return None, "the evidence precision is not J^T v J + W0"
+        extra = None
+    # the initial state's own marginal: the rules must read q(v) through
+    # E[v] only, or the fused path would drift from the scan path
+    es, cs = _extract_linear_evidence(block, d0, length, state=state0)
+    _, ws = block._evidence(dict(state0), d0, length)
+    ws = ws.numpy()[0]
+    if cs is None or not ok(cs, c1):
+        return None, ("at the initial state the evidence's offset differs "
+                      "from the probes'")
+    for k in names:
+        es_pred = (e0_all[k] + float(v0) * jt_all[k] if scalar_v
+                   else e0_all[k] + jt_all[k] @ v0)
+        if not ok((es or {}).get(k, e0_all[k]), es_pred):
+            return None, (f"at the initial state the evidence map of {k!r} "
+                          f"reads more of q({vname}) than its mean")
+    ws_pred = (w0 + float(v0) * extra if scalar_v
+               else w0 + sum(jt_all[k] @ v0 @ jt_all[k].T for k in names))
+    if not ok(ws, ws_pred):
+        return None, ("at the initial state the evidence precision reads "
+                      f"more of q({vname}) than its mean")
+    return (scalar_v, e0_all, jt_all, np.asarray(c1, np.float32),
+            np.asarray(w0, np.float32), extra), None
+
+
 def quantize_observations(v, obs_dtype: str):
     """The quantized payload of one observation array v (B, T, ...): the
     quantization axis is TIME, one scale per (chain, channel), so the rows
@@ -258,18 +522,10 @@ def quantize_observations(v, obs_dtype: str):
     return vals.reshape(b_sz, feat, t_len), scales.reshape(b_sz, feat, 1)
 
 
-def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
-                   length: int, scalar: bool = False, qpayload=None):
-    """Evidence einsum + fused smoother for one static-tier plan.  ``data``
-    maps names to (B, T, ...) float32 tensors on the program's device;
-    ``qpayload`` maps the names whose observations were quantized to their
-    ``(vals (B, F, T), scales (B, F, 1))``, which the einsum then reads
-    instead.  Returns the chain posterior (batched over B) and
-    ``chain_cross`` Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar
-    chains: (B, T-1))."""
-    from ..ops.fused_smoother import fused_batched_smoother
-
-    dim = plan.A.shape[-1]
+def _static_xi(plan: FusedGaussianPlan, data: dict, batch: int,
+               length: int, dim: int, qpayload=None):
+    """The static evidence einsum: xi (T, B, dim) from the observations (or
+    their quantized payload) through the plan's affine map (E, c)."""
     xi_t = None
     for name, Ek in plan.E.items():
         if qpayload is not None and name in qpayload:
@@ -287,13 +543,98 @@ def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
         xi_t = torch.zeros((length, batch, dim), device=ref.device)
     if np.any(plan.c):
         xi_t = xi_t + torch.as_tensor(plan.c, device=xi_t.device)[:, None, :]
+    return xi_t
+
+
+def _wlinear_inputs(plan: FusedGaussianPlan, state: dict, data: dict,
+                    batch: int, length: int, dim: int):
+    """xi (T, B, dim) and the per-chain W (B, dim, dim) of a dynamic plan
+    through its W-linear map: M_b = E0 + J^T E[v]_b feeds the evidence
+    einsum, W_b = W0 + J^T E[v]_b J (or W0 + E[v]_b dW for a scalar v)."""
+    from ..rules.expectations import e_precision
+
+    vname, scalar_v, e0d, jtd, c0, w0, dw = plan.wlin
+    vb = e_precision(state[vname])           # (B,) or (B, dv, dv)
+    dev = vb.device
+    xi_t = None
+    for name in sorted(e0d):
+        e0k = torch.as_tensor(e0d[name], device=dev)
+        jtk = torch.as_tensor(jtd[name], device=dev)
+        if scalar_v:
+            mb = e0k[None] + vb[:, None, None] * jtk[None]
+        else:
+            mb = e0k[None] + torch.einsum("iv,bvw->biw", jtk, vb)
+        flat = data[name].reshape(batch, length, -1)
+        term = torch.einsum("bif,btf->tbi", mb, flat)
+        xi_t = term if xi_t is None else xi_t + term
+    if xi_t is None:
+        xi_t = torch.zeros((length, batch, dim), device=dev)
+    if np.any(c0):
+        xi_t = xi_t + torch.as_tensor(c0, device=dev)[:, None, :]
+    if scalar_v:
+        w_b = (torch.as_tensor(w0, device=dev)[None]
+               + vb[:, None, None] * torch.as_tensor(dw, device=dev))
+    else:
+        w_b = torch.as_tensor(w0, device=dev)[None].expand(batch, dim, dim)
+        for k in sorted(jtd):
+            jtk = torch.as_tensor(jtd[k], device=dev)
+            w_b = w_b + torch.einsum("iv,bvw,jw->bij", jtk, vb, jtk)
+    return xi_t, w_b
+
+
+def dynamic_inputs(block: GaussianChainBlock, plan: FusedGaussianPlan,
+                   state: dict, data: dict, ctx: BatchContext):
+    """Re-close a dynamic plan's per-chain parameters from the current state
+    (the Gauss-Seidel point the scan path reads too): (xi (T, B, d) or None
+    when W is static, W (B, d, d) or None, Q (B, d, d) or None).  A dynamic
+    W comes with its xi: from the W-linear map, or from the evidence rules
+    over the batch (``_evidence_batch``, W of slot 0: the plan proved the
+    slots alike).  A dynamic Q is the transition noise covariance of the
+    block's rule, (E[W_q] + 1e-4 I)^-1."""
+    length, dim = block.var.length, block.dim
+    xi_t = w_b = q_b = None
+    if plan.dyn_w and plan.wlin is not None:
+        xi_t, w_b = _wlinear_inputs(plan, state, data, ctx.batch, length,
+                                    dim)
+    elif plan.dyn_w:
+        xi, w = block._evidence_batch(state, data, ctx)
+        xi_t, w_b = xi.transpose(0, 1), w[:, 0]
+    if plan.dyn_q:
+        _, _, q = block._transition_params(state, data, max(length, 2), ctx)
+        q_b = q[:, 0]
+    return xi_t, w_b, q_b
+
+
+def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
+                   length: int, scalar: bool = False, qpayload=None,
+                   dynamic=None):
+    """Evidence einsum + fused smoother for one plan.  ``data`` maps names
+    to (B, T, ...) float32 tensors on the program's device; ``qpayload``
+    maps the names whose observations were quantized to their
+    ``(vals (B, F, T), scales (B, F, 1))``, which the einsum then reads
+    instead.  A dynamic plan takes ``dynamic`` = (xi, W, Q) from
+    ``dynamic_inputs``.  Returns the chain posterior (batched over B) and
+    ``chain_cross`` Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar
+    chains: (B, T-1))."""
+    from ..ops.fused_smoother import fused_batched_smoother
+
+    dim = plan.A.shape[-1]
+    xi_t, w_b, q_b = dynamic if dynamic is not None else (None, None, None)
+    if (w_b is None) != (plan.W is not None) or \
+            (q_b is None) != (plan.Q is not None):
+        raise ValueError("a dynamic plan needs its per-chain W / Q "
+                         "(dynamic_inputs), a static one none")
+    if xi_t is None:
+        xi_t = _static_xi(plan, data, batch, length, dim, qpayload)
     xi_t = xi_t.contiguous()
     m0 = torch.as_tensor(plan.m0, device=xi_t.device).expand(
         (batch, dim)).contiguous()
     p0 = torch.as_tensor(plan.p0, device=xi_t.device).expand(
         (batch, dim, dim)).contiguous()
     means, covs, cross = fused_batched_smoother(
-        m0, p0, xi_t, plan.A, plan.b, plan.Q, plan.W)
+        m0, p0, xi_t, plan.A, plan.b, plan.Q, plan.W,
+        w_batch=None if w_b is None else w_b.contiguous(),
+        q_batch=None if q_b is None else q_b.contiguous())
     means_b = means.movedim(0, 1)                    # (B, T, dim)
     covs_b = covs.movedim(0, 1)
     cross_b = cross.movedim(0, 1)                    # (B, T-1, d, d)
@@ -306,9 +647,20 @@ def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
 
 
 def _fused_gaussian_update(block: GaussianChainBlock, plan: FusedGaussianPlan,
-                           data: dict, batch: int, qpayload=None):
+                           data: dict, batch: int, qpayload=None,
+                           state: dict | None = None,
+                           ctx: BatchContext | None = None):
+    """The planned chain's update in a sweep; a dynamic plan reads the
+    sweep's ``state`` (and the program's ``ctx``, made here when absent)."""
+    dynamic = None
+    if plan.dyn_w or plan.dyn_q:
+        if state is None:
+            raise ValueError("a dynamic fused plan needs the sweep state")
+        if ctx is None:
+            ctx = BatchContext(next(iter(data.values())).device, batch, {})
+        dynamic = dynamic_inputs(block, plan, state, data, ctx)
     return run_fused_plan(plan, data, batch, block.var.length, block.scalar,
-                          qpayload)
+                          qpayload, dynamic)
 
 
 def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
@@ -386,6 +738,7 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
     report: dict[str, dict] = {}
     compiled._plan_report = report
     route = "cuda" if torch.device(device).type == "cuda" else "plain"
+    state0 = None   # the initial state for dynamic plans' checks, built lazily
     for kind, block in compiled.blocks:
         if kind != "chain":
             continue
@@ -417,13 +770,23 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
                 ),
             }
             continue
-        plan, reason = _plan_fused_gaussian(block, data0)
+        if state0 is None:
+            state0 = compiled._init_state()
+        plan, note = _plan_fused_gaussian(block, data0, state0)
         if plan is not None:
             plans[name] = plan
             report[name] = {"fused": True, "kernel": "fused_smoother",
                             "route": route}
+            dyn = [k for k, on in (("W", plan.dyn_w), ("Q", plan.dyn_q))
+                   if on]
+            if dyn:
+                report[name]["dynamic"] = dyn
+            if plan.dyn_w:
+                report[name]["w_linear"] = plan.wlin is not None
+                if plan.wlin is None:
+                    report[name]["w_linear_reason"] = note
         else:
-            report[name] = {"fused": False, "reason": reason}
+            report[name] = {"fused": False, "reason": note}
     unfused = {n: r["reason"] for n, r in report.items() if not r["fused"]}
     if unfused and compiled.warn and compiled.use_fused:
         details = "; ".join(f"{n}: {r}" for n, r in unfused.items())
@@ -459,7 +822,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     if obs_dtype != "float32":
         for plan in plans.values():
             if isinstance(plan, FusedGaussianPlan):
-                qnames |= set(plan.E)
+                qnames |= set(plan.E or {})
         if not qnames and compiled.warn:
             warnings.warn(
                 f'options={{"observation_dtype": "{obs_dtype}"}} has no '
@@ -482,7 +845,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
             else:
                 fused[name] = (lambda st, d, cc, ctx, _b=blocks[name],
                                _p=plan: _fused_gaussian_update(
-                                   _b, _p, d, ctx.batch, qpayload))
+                                   _b, _p, d, ctx.batch, qpayload, st, ctx))
         return fused
 
     def program(data: dict):

@@ -26,9 +26,10 @@ groups padded over their slots), ``GaussianChainBlock`` (its ``update``
 with the Kalman scans of ``ops/kalman.py``) and ``DiscreteChainBlock`` (its
 ``update`` with ``ops/discrete_chain.py``), each solving with the
 associative scans from 48 slots and the loops below.
-``PlainGroup.finalize`` is the identity here: its two branches (the Wishart
-inverse-scale carrier and form constraints) belong to families and
-constraints that are not ported.  Not ported: the ``time_mesh`` branch of
+``PlainGroup.update`` ends with ``PlainGroup.finalize``'s family
+conversion: a product in the Wishart inverse-scale carrier becomes a
+``Wishart`` (form constraints, its other branch, are not ported).  Not
+ported: the ``time_mesh`` branch of
 ``GaussianChainBlock.update`` (time sharding), the AR/GCV chain blocks, EP
 damping of evidence messages, and the ``PlainGroup`` branches that
 ``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
@@ -44,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dists import PointMass, pd_inverse, tree_map
+from ..dists import PointMass, WishartInverseScale, pd_inverse, tree_map
 from ..dists.gaussian import (
     as_mv_weighted_mean_precision,
     as_weighted_mean_precision,
@@ -254,7 +255,10 @@ class PlainGroup:
                 lo, hi = cov if isinstance(cov, tuple) else (cov, cov + 1)
                 msg = pad_plate(msg, lo, hi, length, batch_ndim=1)
             msgs.append(msg)
-        return prod_all(msgs)
+        q = prod_all(msgs)
+        if isinstance(q, WishartInverseScale):
+            q = q.to_wishart()
+        return q
 
 
 def _place(total: int, lo: int, hi: int, x: torch.Tensor,

@@ -17,9 +17,10 @@ batch of one), ``make_program``, ``run``, ``run_iterative`` (host loop with
 per-iteration callbacks), ``predict`` and ``make_batched_program``.  A plain
 group is built for every random variable that is not a chain, in a family
 the port has a natural-parameter view for (``gaussian``, ``mv_gaussian``,
-``categorical``, ``dirichlet_collection``).  Not ported yet (they raise
-``NotImplementedError``): plain groups of other families (``gamma``,
-``wishart``, ...), the plain-group branches listed in ``engine/blocks.py``,
+``categorical``, ``dirichlet_collection``, ``gamma``, ``wishart``).  Not
+ported yet (they raise ``NotImplementedError``): plain groups of other
+families (``inverse_gamma``, ``beta``, ...), the plain-group branches listed
+in ``engine/blocks.py``,
 AR/GCV chains, constraints, meta, tree-scheduled (auto-initialized) loopy
 models, free energy, streaming ticks and ``mu()`` outbound messages.
 """

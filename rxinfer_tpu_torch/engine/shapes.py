@@ -3,10 +3,11 @@
 
 Event shapes and marginal families of every random variable are resolved
 statically from constant hyperparameters and data shapes.  Ported subset: the
-tables for the Gaussian and discrete node sets of ``rules/nodes.py`` and for
-``GammaShapeRate`` (whose groups the compiler then refuses by family);
-variables reached only through nodes that are not ported yet stay unresolved
-and raise.
+tables for the node set of ``rules/nodes.py``: the Gaussian and discrete
+nodes and the precision priors ``GammaShapeRate`` and ``Wishart``, with a
+random precision input resolved to a ``gamma`` (scalar) or ``wishart``
+(d x d) group; variables reached only through nodes that are not ported yet
+stay unresolved and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ _OUT_FAMILY = {
     "MvLinearGaussianCovariance": "mv_gaussian",
     "MvLinearGaussianPrecision": "mv_gaussian",
     "GammaShapeRate": "gamma",
+    "Wishart": "wishart",
     "Categorical": "categorical",
     "DirichletCollection": "dirichlet_collection",
     "DiscreteTransition": "categorical",
@@ -40,6 +42,9 @@ _INPUT_FAMILY = {
     ("LinearGaussianCovariance", "in"): "gaussian",
     ("LinearGaussianPrecision", "in"): "gaussian",
     ("NormalMeanPrecision", "prec"): "gamma",
+    ("MvNormalMeanPrecision", "prec"): "wishart",
+    ("MvLinearGaussianPrecision", "prec"): "wishart",
+    ("LinearGaussianPrecision", "prec"): "gamma",
     ("DiscreteTransition", "in"): "categorical",
     ("DiscreteTransition", "matrix"): "dirichlet_collection",
 }
@@ -86,6 +91,8 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
         return (s[-1],) if s else None
     if ff == "DirichletCollection":
         return shape_of("alpha")
+    if ff == "Wishart":
+        return shape_of("S")
     if ff == "DiscreteTransition":
         s = shape_of("matrix")
         return (s[0],) if s else None
@@ -163,6 +170,10 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
                             tuple(f.out.var.event_shape or ())
                             if f.out.var.kind == "data" else None)
                         s = infer_input_shape(f, name, out_shape)
+                        if s is None and fam == "gamma":
+                            s = ()
+                        if s is None and fam == "wishart" and out_shape:
+                            s = (out_shape[-1], out_shape[-1])
                         if s is not None:
                             gi.event_shape = s
                             changed = True

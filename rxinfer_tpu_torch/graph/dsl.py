@@ -343,6 +343,8 @@ def _direct_dist(fform: str, *args):
         "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
         "Categorical": D.Categorical.from_probs,
         "DirichletCollection": D.DirichletCollection,
+        "GammaShapeRate": D.GammaShapeRate,
+        "Wishart": D.Wishart,
     }
     if fform not in table:
         raise NotImplementedError(
@@ -447,6 +449,16 @@ def Gamma(shape=None, rate=None, scale=None, a=None, b=None) -> RVRef:
     return _builder().emit(
         "GammaShapeRate", {"shape": _as_interface(sh),
                            "rate": _as_interface(rate)})
+
+
+def Wishart(nu, S) -> RVRef:
+    """Wishart(nu, S) prior of a precision matrix; E = nu S.  Outside a
+    model it returns the ``Wishart`` distribution (for
+    ``initialization=``)."""
+    if _active() is None:
+        return _direct_dist("Wishart", nu, S)
+    return _builder().emit("Wishart", {"nu": _as_interface(nu),
+                                       "S": _as_interface(S)})
 
 
 def Categorical(p) -> RVRef:

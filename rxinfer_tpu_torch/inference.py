@@ -10,8 +10,8 @@ defaults, callbacks, ``benchmark=``, ``trace=`` and ``showprogress=``),
 chain with the scans of ``ops/kalman.py`` / ``ops/discrete_chain.py``, never
 with the fused kernels, as the JAX package does.  Posteriors are whatever
 the blocks produce (batched: every leaf with the batch axis first): Gaussian
-chains, ``Categorical`` chains, ``DirichletCollection`` and Gaussian plain
-groups.  Every entry point runs on ``"cuda"`` unless the caller passes
+chains, ``Categorical`` chains, ``DirichletCollection``, Gaussian,
+``GammaShapeRate`` and ``Wishart`` plain groups.  Every entry point runs on ``"cuda"`` unless the caller passes
 another ``device``; with no device given and no CUDA device present it
 raises ``RuntimeError`` rather than carry on on the CPU.
 

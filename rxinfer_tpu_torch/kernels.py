@@ -11,7 +11,11 @@ edited source or header is rebuilt and an unchanged one is reused.
 each library.
 
 Flags: ``-O3`` without ``--use_fast_math``, so division and square roots stay
-IEEE like the plain PyTorch versions the kernels are held against.
+IEEE like the plain PyTorch versions the kernels are held against;
+``-split-compile=0`` runs the optimizer over a source's instantiations on
+every core (``fused_smoother.cu``, with its per-chain W/Q instantiations:
+60.5 s as one process, 25.4 s split, on an 8-core H100 host;
+``scripts/time_builds.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

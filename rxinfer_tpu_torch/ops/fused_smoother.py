@@ -42,9 +42,19 @@ keeps the JAX wrapper's contract: m0 (B, d), p0 (B, d, d), xi (T, B, d) ->
 means (T, B, d), covs (T, B, d, d), cross (T-1, B, d, d).  Unlike the JAX
 wrapper it accepts T = 1 (cross is then (0, B, d, d)).
 
-Ported subset: the static-parameter tier (F, b, Q, W shared by every chain
-and step) in float32.  Not ported: bf16 moments (``moment_dtype``) and the
-per-chain W/Q tiles of the dynamic tier.
+Per-chain W and Q (V1, the dynamic-precision tier of the TPU kernels).
+``w_batch`` / ``q_batch`` (B, d, d) replace the shared W / Q: the evidence
+precision and the transition noise COVARIANCE of each chain, re-closed
+every VMP sweep when they are bound to a random variable.  The kernels read
+them as (nsym, B) sym-packed tiles (upper triangle: the plain versions read
+the same entries), one read a thread, and the backward pass reads Q only.
+Launches of the per-chain instantiations count under
+``fused_smoother_fwd_dyn`` / ``fused_smoother_bwd_dyn``; the launchers pick
+them from which tiles are given.  With W alone per chain the backward pass
+is the static one (it reads Q only), as in the JAX package.
+
+Ported subset: float32, shared or per-chain W and Q.  Not ported: bf16
+moments (``moment_dtype``, ROADMAP V2).
 """
 
 from __future__ import annotations
@@ -83,8 +93,10 @@ MIN_BLOCKS = 8              # fold + replay cost ~2.3-4 steps per step: below
 MAX_BLOCKS = 128            # the carry pass is serial in S
 
 # wrapper calls that launched on CUDA tensors, one per call whatever the
-# number of passes (the plain version on CPU tensors counts none)
-LAUNCHES = {"fused_smoother_fwd": 0, "fused_smoother_bwd": 0}
+# number of passes (the plain version on CPU tensors counts none); the
+# ``_dyn`` keys count the launches of the per-chain W/Q instantiations
+LAUNCHES = {"fused_smoother_fwd": 0, "fused_smoother_bwd": 0,
+            "fused_smoother_fwd_dyn": 0, "fused_smoother_bwd_dyn": 0}
 
 
 def reset_launches() -> None:
@@ -126,9 +138,12 @@ def sym_unfold_t(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _host_params(f, b, q, w, d):
-    cast = lambda a: np.ascontiguousarray(
-        np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a,
-                   dtype=np.float32))
+    """The shared parameters as float32 numpy; Q or W may be None (given
+    per chain instead), and is then zeros."""
+    cast = lambda a: np.zeros((d, d), np.float32) if a is None else \
+        np.ascontiguousarray(np.asarray(
+            a.detach().cpu() if isinstance(a, torch.Tensor) else a,
+            dtype=np.float32))
     f, b, q, w = cast(f), cast(b), cast(q), cast(w)
     if f.shape != (d, d) or q.shape != (d, d) or w.shape != (d, d) \
             or b.shape != (d,):
@@ -136,6 +151,29 @@ def _host_params(f, b, q, w, d):
             f"smoother parameters must be F, Q, W ({d}, {d}) and b ({d},); got "
             f"{f.shape}, {q.shape}, {w.shape}, {b.shape}")
     return f, b, q, w
+
+
+def _check_per_chain(name, x, shared, bsz, d):
+    """A per-chain parameter is (B, d, d) and replaces a shared one."""
+    if x is None:
+        if shared is None:
+            raise ValueError(f"{name}: give the shared matrix or the "
+                             "per-chain one")
+        return
+    if tuple(x.shape) != (bsz, d, d):
+        raise ValueError(f"{name}_batch has shape {tuple(x.shape)}, "
+                         f"expected {(bsz, d, d)}")
+
+
+def _param_entries(shared_entries, per_chain):
+    """Entry lists of a parameter: the shared matrix's floats, or the
+    per-chain (B, d, d) tensor's upper-triangle entries, aliased below the
+    diagonal (the kernels read the sym-packed upper triangle)."""
+    if per_chain is None:
+        return shared_entries
+    d = per_chain.shape[-1]
+    return ew.sym_alias([[per_chain[:, i, j] if i <= j else None
+                          for j in range(d)] for i in range(d)])
 
 
 # -- plain PyTorch versions -------------------------------------------------------
@@ -192,12 +230,18 @@ def _entries(m, p):
         [[p[:, i, j] if i <= j else None for j in range(d)] for i in range(d)])
 
 
-def fused_forward_reference(m0, p0, xi, f, b, q, w):
+def fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch=None,
+                            q_batch=None):
     """Plain forward pass on (B,) entry tensors; returns mf (T, d, B) and
-    pf (T, nsym, B).  Same recurrence and operation order as the kernel."""
+    pf (T, nsym, B).  Same recurrence and operation order as the kernel.
+    ``w_batch`` / ``q_batch`` (B, d, d) replace W / Q per chain."""
     t_len, bsz, d = xi.shape
+    _check_per_chain("w", w_batch, w, bsz, d)
+    _check_per_chain("q", q_batch, q, bsz, d)
     f, b, q, w = _host_params(f, b, q, w, d)
-    fe, be, qe, we = f.tolist(), b.tolist(), q.tolist(), w.tolist()
+    fe, be = f.tolist(), b.tolist()
+    qe = _param_entries(q.tolist(), q_batch)
+    we = _param_entries(w.tolist(), w_batch)
     m, p = _entries(m0, p0)
     mf = torch.empty((t_len, d, bsz), dtype=xi.dtype, device=xi.device)
     pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=xi.dtype,
@@ -210,12 +254,15 @@ def fused_forward_reference(m0, p0, xi, f, b, q, w):
     return mf, pf
 
 
-def fused_backward_reference(mf, pf, f, b, q):
+def fused_backward_reference(mf, pf, f, b, q, q_batch=None):
     """Plain RTS pass over the filtered SoA streams; returns ms (T, d, B),
-    ps (T, nsym, B) and cross (T-1, d*d, B)."""
+    ps (T, nsym, B) and cross (T-1, d*d, B).  ``q_batch`` (B, d, d)
+    replaces Q per chain."""
     t_len, d, bsz = mf.shape
-    f, b, q, _ = _host_params(f, b, q, q, d)
-    fe, be, qe = f.tolist(), b.tolist(), q.tolist()
+    _check_per_chain("q", q_batch, q, bsz, d)
+    f, b, q, _ = _host_params(f, b, q, None, d)
+    fe, be = f.tolist(), b.tolist()
+    qe = _param_entries(q.tolist(), q_batch)
     nsym = d * (d + 1) // 2
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
@@ -277,15 +324,31 @@ def _shared(params, like):
             for a in params]
 
 
-def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int):
+def _sym_upper(x):
+    """A (B, d, d) per-chain parameter as the kernels read it: its upper
+    triangle, mirrored."""
+    return torch.triu(x) + torch.triu(x, 1).transpose(-1, -2)
+
+
+def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int,
+                                    w_batch=None, q_batch=None):
     """Plain version of the time-blocked forward pass: fold, carry and replay
     over ``time_blocks(T, blocks)`` on tensors.  Same result layout as
     ``fused_forward_reference``, to which it is equal at ``blocks`` = 1 and
-    equal up to the rounding of the carried entry states otherwise."""
+    equal up to the rounding of the carried entry states otherwise.
+    ``w_batch`` / ``q_batch`` (B, d, d) replace W / Q per chain."""
     t_len, bsz, d = xi.shape
+    _check_per_chain("w", w_batch, w, bsz, d)
+    _check_per_chain("q", q_batch, q, bsz, d)
     fh, bh, qh, wh = _host_params(f, b, q, w, d)
-    fe, be, qe, we = fh.tolist(), bh.tolist(), qh.tolist(), wh.tolist()
+    fe, be = fh.tolist(), bh.tolist()
+    qe = _param_entries(qh.tolist(), q_batch)
+    we = _param_entries(wh.tolist(), w_batch)
     ft, bt, qt, wt = _shared((fh, bh, qh, wh), xi)
+    if q_batch is not None:
+        qt = _sym_upper(q_batch)
+    if w_batch is not None:
+        wt = _sym_upper(w_batch)
     spans = time_blocks(t_len, blocks)
 
     # fold: one composite per block but the last, whose composite has no reader
@@ -320,13 +383,19 @@ def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int):
     return mf, pf
 
 
-def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int):
+def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int,
+                                     q_batch=None):
     """Plain version of the time-blocked RTS pass; same result layout as
-    ``fused_backward_reference``."""
+    ``fused_backward_reference``.  ``q_batch`` (B, d, d) replaces Q per
+    chain."""
     t_len, d, bsz = mf.shape
-    fh, bh, qh, _ = _host_params(f, b, q, q, d)
-    fe, be, qe = fh.tolist(), bh.tolist(), qh.tolist()
+    _check_per_chain("q", q_batch, q, bsz, d)
+    fh, bh, qh, _ = _host_params(f, b, q, None, d)
+    fe, be = fh.tolist(), bh.tolist()
+    qe = _param_entries(qh.tolist(), q_batch)
     ft, bt, qt = _shared((fh, bh, qh), mf)
+    if q_batch is not None:
+        qt = _sym_upper(q_batch)
     nsym = d * (d + 1) // 2
     spans = time_blocks(t_len, blocks)
     means = mf.permute(0, 2, 1)                               # (T, B, d)
@@ -387,10 +456,11 @@ def _library():
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
         lib.rxt_fused_smoother_fwd.argtypes = [
-            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, i64, i64, p, p]
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, p, p, i64, i64,
+            p, p]
         lib.rxt_fused_smoother_fwd.restype = ctypes.c_int
         lib.rxt_fused_smoother_bwd.argtypes = [
-            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, i64, i64, p, p]
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, i64, i64, p, p]
         lib.rxt_fused_smoother_bwd.restype = ctypes.c_int
         lib.rxt_fused_smoother_fold_max_dim.restype = ctypes.c_int
         if lib.rxt_fused_smoother_fold_max_dim() != FOLD_MAX_DIM:
@@ -436,23 +506,43 @@ def _check_dims(t_len, d):
             f"d = 1..{MAX_DIM}")
 
 
-def fused_forward(m0, p0, xi, f, b, q, w):
-    """K1 wrapper: filtered moments mf (T, d, B), pf (T, nsym, B)."""
+def _tile(name, x, bsz, d):
+    """A per-chain (B, d, d) parameter as the kernels' (nsym, B) tile, or
+    None."""
+    if x is None:
+        return None
+    kernels.check_tensor(f"{name}_batch", x, (bsz, d, d))
+    tile = sym_fold(x).contiguous()
+    kernels.check_tensor(f"{name}_batch tile", tile, (d * (d + 1) // 2, bsz))
+    return tile
+
+
+def fused_forward(m0, p0, xi, f, b, q, w, w_batch=None, q_batch=None):
+    """K1 wrapper: filtered moments mf (T, d, B), pf (T, nsym, B).
+    ``w_batch`` / ``q_batch`` (B, d, d) give W / Q per chain (pass ``w`` /
+    ``q`` as None beside them)."""
     t_len, bsz, d = xi.shape
     _check_dims(t_len, d)
     if xi.device.type == "cpu":
-        return fused_forward_reference(m0, p0, xi, f, b, q, w)
+        return fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch,
+                                       q_batch)
     kernels.check_tensor("xi", xi, (t_len, bsz, d))
     return _forward_cuda(m0, p0, xi, f, b, q, w,
-                         _device_blocks(bsz, t_len, d, xi.device))
+                         _device_blocks(bsz, t_len, d, xi.device), w_batch,
+                         q_batch)
 
 
-def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int):
+def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int, w_batch=None,
+                  q_batch=None):
     """Launch K1 over ``blocks`` time blocks (fold, carry, replay; the replay
     pass alone at 1).  ``blocks`` must be what ``time_blocks`` yields."""
     t_len, bsz, d = xi.shape
     kernels.check_tensor("m0", m0, (bsz, d))
     kernels.check_tensor("p0", p0, (bsz, d, d))
+    _check_per_chain("w", w_batch, w, bsz, d)
+    _check_per_chain("q", q_batch, q, bsz, d)
+    w_tile = _tile("w", w_batch, bsz, d)
+    q_tile = _tile("q", q_batch, bsz, d)
     fh, bh, qh, wh = _host_params(f, b, q, w, d)
     nsym = d * (d + 1) // 2
     mf = torch.empty((t_len, d, bsz), dtype=torch.float32, device=xi.device)
@@ -466,30 +556,35 @@ def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int):
     rc = lib.rxt_fused_smoother_fwd(
         d, xi.data_ptr(), m0.data_ptr(), p0.data_ptr(), mf.data_ptr(),
         pf.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
-        _host_ptr(qh), _host_ptr(wh), length, blocks, _ptr(scratch), stream)
+        _host_ptr(qh), _host_ptr(wh), _ptr(w_tile), _ptr(q_tile), length,
+        blocks, _ptr(scratch), stream)
     kernels.check(lib, rc, "fused_smoother forward kernels")
-    LAUNCHES["fused_smoother_fwd"] += 1
+    dyn = w_tile is not None or q_tile is not None
+    LAUNCHES["fused_smoother_fwd_dyn" if dyn else "fused_smoother_fwd"] += 1
     return mf, pf
 
 
-def fused_backward(mf, pf, f, b, q):
+def fused_backward(mf, pf, f, b, q, q_batch=None):
     """K2 wrapper: smoothed ms (T, d, B), ps (T, nsym, B), cross
-    (T-1, d*d, B) from the forward kernel's streams."""
+    (T-1, d*d, B) from the forward kernel's streams.  ``q_batch`` (B, d, d)
+    gives Q per chain (pass ``q`` as None beside it)."""
     t_len, d, bsz = mf.shape
     _check_dims(t_len, d)
     if mf.device.type == "cpu":
-        return fused_backward_reference(mf, pf, f, b, q)
+        return fused_backward_reference(mf, pf, f, b, q, q_batch)
     return _backward_cuda(mf, pf, f, b, q,
-                          _device_blocks(bsz, t_len, d, mf.device))
+                          _device_blocks(bsz, t_len, d, mf.device), q_batch)
 
 
-def _backward_cuda(mf, pf, f, b, q, blocks: int):
+def _backward_cuda(mf, pf, f, b, q, blocks: int, q_batch=None):
     """Launch K2 over ``blocks`` time blocks (see ``_forward_cuda``)."""
     t_len, d, bsz = mf.shape
     nsym = d * (d + 1) // 2
     kernels.check_tensor("mf", mf, (t_len, d, bsz))
     kernels.check_tensor("pf", pf, (t_len, nsym, bsz))
-    fh, bh, qh, _ = _host_params(f, b, q, q, d)
+    _check_per_chain("q", q_batch, q, bsz, d)
+    q_tile = _tile("q", q_batch, bsz, d)
+    fh, bh, qh, _ = _host_params(f, b, q, None, d)
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
     cross = torch.empty((t_len - 1, d * d, bsz), dtype=torch.float32,
@@ -503,9 +598,10 @@ def _backward_cuda(mf, pf, f, b, q, blocks: int):
     rc = lib.rxt_fused_smoother_bwd(
         d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
         cross.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
-        _host_ptr(qh), length, blocks, _ptr(scratch), stream)
+        _host_ptr(qh), _ptr(q_tile), length, blocks, _ptr(scratch), stream)
     kernels.check(lib, rc, "fused_smoother backward kernels")
-    LAUNCHES["fused_smoother_bwd"] += 1
+    LAUNCHES["fused_smoother_bwd_dyn" if q_tile is not None
+             else "fused_smoother_bwd"] += 1
     return ms, ps, cross
 
 
@@ -518,21 +614,26 @@ def _unpack(ms, ps, cross, d):
     return means, covs, crossm
 
 
-def fused_batched_smoother(m0, p0, xi, f, b, q, w):
+def fused_batched_smoother(m0, p0, xi, f, b, q, w, w_batch=None,
+                           q_batch=None):
     """Batch-axis smoother: m0 (B, d), p0 (B, d, d), xi (T, B, d); F, Q, W
-    (d, d) and b (d,) shared.  Returns smoothed means (T, B, d), covs
-    (T, B, d, d), cross (T-1, B, d, d) = Cov(x_t, x_{t+1}).  CUDA tensors go
-    through the two kernels; CPU tensors through their plain versions."""
+    (d, d) and b (d,) shared, or W / Q per chain as ``w_batch`` /
+    ``q_batch`` (B, d, d) (with ``w`` / ``q`` None beside them).  Returns
+    smoothed means (T, B, d), covs (T, B, d, d), cross (T-1, B, d, d) =
+    Cov(x_t, x_{t+1}).  CUDA tensors go through the two kernels; CPU tensors
+    through their plain versions."""
     d = xi.shape[-1]
-    mf, pf = fused_forward(m0, p0, xi, f, b, q, w)
-    ms, ps, cross = fused_backward(mf, pf, f, b, q)
+    mf, pf = fused_forward(m0, p0, xi, f, b, q, w, w_batch, q_batch)
+    ms, ps, cross = fused_backward(mf, pf, f, b, q, q_batch)
     return _unpack(ms, ps, cross, d)
 
 
-def fused_batched_smoother_reference(m0, p0, xi, f, b, q, w):
+def fused_batched_smoother_reference(m0, p0, xi, f, b, q, w, w_batch=None,
+                                     q_batch=None):
     """The plain version of ``fused_batched_smoother`` on any device (the
     card-side yardstick the kernels are held against)."""
     d = xi.shape[-1]
-    mf, pf = fused_forward_reference(m0, p0, xi, f, b, q, w)
-    ms, ps, cross = fused_backward_reference(mf, pf, f, b, q)
+    mf, pf = fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch,
+                                     q_batch)
+    ms, ps, cross = fused_backward_reference(mf, pf, f, b, q, q_batch)
     return _unpack(ms, ps, cross, d)

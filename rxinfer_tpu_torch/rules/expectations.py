@@ -1,16 +1,17 @@
 """Sufficient-statistic expectations shared by the message rules
 (counterpart of ``rxinfer_tpu/rules/expectations.py``).
 
-Ported subset: ``e_mean``, ``e_var``, ``e_cov`` and ``e_precision`` over the
-Gaussian families and PointMass.  The Wishart/Gamma expectations arrive with
-the rest of the node library.
+Ported subset: ``e_mean``, ``e_var``, ``e_cov``, ``e_sq`` and
+``e_precision`` over the Gaussian families, ``GammaShapeRate``, ``Wishart``
+(and its inverse-scale carrier) and PointMass.  The log-expectations
+(``e_log``, ``e_logdet``) arrive with free energy.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..dists import Distribution, PointMass
+from ..dists import Distribution, PointMass, Wishart
 
 
 def e_mean(d: Distribution):
@@ -32,8 +33,17 @@ def e_cov(d: Distribution):
     return d.cov()
 
 
+def e_sq(d: Distribution):
+    """E[x^2] (scalar support)."""
+    m = d.mean()
+    return e_var(d) + m * m
+
+
 def e_precision(d: Distribution):
-    """E[W] for a precision-valued interface (PointMass in this slice)."""
+    """E[W] for a precision-valued interface (Gamma, Wishart or
+    PointMass)."""
     if isinstance(d, PointMass):
         return d.point
+    if isinstance(d, Wishart):
+        return d.nu[..., None, None] * d.s
     return d.mean()

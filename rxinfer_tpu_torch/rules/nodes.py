@@ -3,13 +3,17 @@
 Ported subset: the message rules of the nodes a linear-Gaussian chain is
 built from — ``NormalMeanVariance``/``NormalMeanPrecision``,
 ``MvNormalMeanCovariance``/``MvNormalMeanPrecision`` and the scalar and
-multivariate LinearGaussian pairs (out = A in + b + noise) — and those of an
-HMM: ``Categorical`` (towards ``out``), ``DirichletCollection`` (towards
-``out``) and ``DiscreteTransition`` (towards ``out``, ``in`` and
-``matrix``, and the structured ``message_to_out_structured`` that
-predictions of ``UnfactorizedData`` take).  Average energies, the conjugate
-messages towards noise interfaces (Gamma / Wishart carriers) and
-``Dirichlet`` arrive with free energy and the rest of the node library.
+multivariate LinearGaussian pairs (out = A in + b + noise), with the
+conjugate messages towards a random precision (``message_to_prec``: a
+``GammaShapeRate`` for a scalar, a ``WishartInverseScale`` for a matrix) —
+the priors of such a precision (``GammaShapeRate`` and ``Wishart``, towards
+``out``), and those of an HMM: ``Categorical`` (towards ``out``),
+``DirichletCollection`` (towards ``out``) and ``DiscreteTransition``
+(towards ``out``, ``in`` and ``matrix``, and the structured
+``message_to_out_structured`` that predictions of ``UnfactorizedData``
+take).  Average energies, the messages towards variance / covariance
+interfaces (InverseGamma / InverseWishart carriers) and ``Dirichlet``
+arrive with free energy and the rest of the node library.
 
 Rules are batched: leading dimensions of every marginal broadcast, so a whole
 plate of messages is one tensor expression.
@@ -22,6 +26,7 @@ import torch
 from ..dists import (
     Categorical,
     DirichletCollection,
+    GammaShapeRate,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
     MvNormalWeightedMeanPrecision,
@@ -29,9 +34,11 @@ from ..dists import (
     NormalMeanVariance,
     NormalWeightedMeanPrecision,
     PointMass,
+    Wishart,
+    WishartInverseScale,
     pd_inverse,
 )
-from .expectations import e_cov, e_mean, e_precision, e_var
+from .expectations import e_cov, e_mean, e_precision, e_sq, e_var
 from .registry import node
 
 
@@ -84,8 +91,23 @@ class NormalMeanPrecisionNode:
     def vmp_message_to_mean(q):
         return NormalMeanPrecision(e_mean(q["out"]), e_precision(q["prec"]))
 
+    @staticmethod
+    def message_to_prec(q):
+        """Conjugate Gamma message: proportional to w^{1/2} exp(-w C / 2),
+        C = E[(out - mean)^2]."""
+        c = e_sq(q["out"]) - 2.0 * e_mean(q["out"]) * e_mean(q["mean"]) \
+            + e_sq(q["mean"])
+        return GammaShapeRate(torch.full_like(c, 1.5), 0.5 * c)
+
 
 # -- multivariate Gaussian nodes ---------------------------------------------------
+
+def _mv_centered_second_moment(q):
+    """E[(x - mu)(x - mu)^T] under independent q(x), q(mu)."""
+    diff = e_mean(q["out"]) - e_mean(q["mean"])
+    return (e_cov(q["out"]) + e_cov(q["mean"])
+            + diff[..., None] * diff[..., None, :])
+
 
 @node("MvNormalMeanCovariance")
 class MvNormalMeanCovarianceNode:
@@ -136,6 +158,17 @@ class MvNormalMeanPrecisionNode:
     def vmp_message_to_mean(q):
         return MvNormalMeanPrecision(e_mean(q["out"]), e_precision(q["prec"]))
 
+    @staticmethod
+    def message_to_prec(q):
+        """Conjugate Wishart message, proportional to |W|^{1/2}
+        exp(-tr(W C) / 2), in inverse-scale form (C is singular for one
+        observation)."""
+        c = _mv_centered_second_moment(q)
+        d = c.shape[-1]
+        return WishartInverseScale(
+            torch.full(c.shape[:-2], float(d) + 2.0, dtype=c.dtype,
+                       device=c.device), c)
+
 
 # -- linear-Gaussian nodes: out = A @ in + b + noise --------------------------------
 
@@ -175,6 +208,24 @@ class _MvLinearGaussianBase:
         xi = torch.einsum("...ik,...k->...i", at_sinv, m_out - b)
         return MvNormalWeightedMeanPrecision(xi, w)
 
+    @staticmethod
+    def _centered_second_moment(q):
+        """E[(out - A in - b)(out - A in - b)^T]; ``q["joint"]``, the cross
+        covariance Cov(out, in) of a chain (..., d_out, d_in), enters when
+        present."""
+        a = q["A"].point
+        b = q["b"].point
+        m_out, m_in = e_mean(q["out"]), e_mean(q["in"])
+        diff = m_out - torch.einsum("...ij,...j->...i", a, m_in) - b
+        c = (e_cov(q["out"])
+             + torch.einsum("...ij,...jk,...lk->...il", a, e_cov(q["in"]), a)
+             + diff[..., None] * diff[..., None, :])
+        joint = q.get("joint")
+        if joint is not None:
+            cross = torch.einsum("...ij,...kj->...ik", joint, a)
+            c = c - cross - cross.transpose(-1, -2)
+        return c
+
 
 @node("MvLinearGaussianCovariance")
 class MvLinearGaussianCovarianceNode(_MvLinearGaussianBase):
@@ -184,6 +235,14 @@ class MvLinearGaussianCovarianceNode(_MvLinearGaussianBase):
 @node("MvLinearGaussianPrecision")
 class MvLinearGaussianPrecisionNode(_MvLinearGaussianBase):
     interfaces = ("out", "in", "A", "b", "prec")
+
+    @staticmethod
+    def message_to_prec(q):
+        c = _MvLinearGaussianBase._centered_second_moment(q)
+        d = c.shape[-1]
+        return WishartInverseScale(
+            torch.full(c.shape[:-2], float(d) + 2.0, dtype=c.dtype,
+                       device=c.device), c)
 
 
 class _LinearGaussianScalarBase:
@@ -212,6 +271,18 @@ class _LinearGaussianScalarBase:
         xi = a * (e_mean(q["out"]) - b) / s
         return NormalWeightedMeanPrecision(xi, w)
 
+    @classmethod
+    def _c2(cls, q):
+        """E[(out - a in - b)^2]; ``q["joint"]``, a chain's Cov(out, in),
+        enters when present."""
+        a, b = q["A"].point, q["b"].point
+        diff = e_mean(q["out"]) - a * e_mean(q["in"]) - b
+        c = e_var(q["out"]) + a * a * e_var(q["in"]) + diff * diff
+        joint = q.get("joint")
+        if joint is not None:
+            c = c - 2.0 * a * joint
+        return c
+
 
 @node("LinearGaussianCovariance")
 class LinearGaussianCovarianceNode(_LinearGaussianScalarBase):
@@ -221,6 +292,33 @@ class LinearGaussianCovarianceNode(_LinearGaussianScalarBase):
 @node("LinearGaussianPrecision")
 class LinearGaussianPrecisionNode(_LinearGaussianScalarBase):
     interfaces = ("out", "in", "A", "b", "prec")
+
+    @classmethod
+    def message_to_prec(cls, q):
+        c2 = cls._c2(q)
+        return GammaShapeRate(torch.full_like(c2, 1.5), 0.5 * c2)
+
+
+# -- precision priors ---------------------------------------------------------------
+
+@node("GammaShapeRate")
+class GammaShapeRateNode:
+    interfaces = ("out", "shape", "rate")
+
+    @staticmethod
+    def message_to_out(q):
+        return GammaShapeRate(e_mean(q["shape"]), e_precision(q["rate"]))
+
+
+@node("Wishart")
+class WishartNode:
+    interfaces = ("out", "nu", "S")
+
+    @staticmethod
+    def message_to_out(q):
+        s = q["S"]
+        return Wishart(e_mean(q["nu"]),
+                       s.point if isinstance(s, PointMass) else e_mean(s))
 
 
 # -- Categorical / DirichletCollection / discrete transitions -----------------------

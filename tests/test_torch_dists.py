@@ -161,4 +161,4 @@ def test_dist_from_numpy_takes_jax_fields():
         {"mu": np.asarray(j.mu), "sigma": np.asarray(j.sigma)})
     np.testing.assert_array_equal(t.sigma.numpy(), sigma)
     with pytest.raises(NotImplementedError):
-        convert.dist_from_numpy("Wishart", [1.0, np.eye(2)])
+        convert.dist_from_numpy("InverseWishart", [1.0, np.eye(2)])
