@@ -122,7 +122,26 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
 11. One JSON line listing every ported kernel with its launches on its path,
    error against its plain version, time (alone, CUDA events over launches
    back to back; ``ms_in_path``: device time per launch inside the
-   path's call, ``torch.profiler``), bound and plain time.
+   path's call, ``torch.profiler``), bound and plain time, and its
+   launches on phase 12's paths (``launches_fe_paths``).
+12. (Before the JSON line.) The Bethe free energy, ``free_energy=True``, on
+   the paths above, each program timed beside the same program without
+   it: (a) phase 4's LGSSM cell: one K1 and one K2 launch a call, FE ==
+   -log Z (float64 prediction-error filter) on sampled chains
+   (FE_LOGZ_TOL), the FE stage alone and the peak device memory with and
+   without FE; (b) phase 5's HMM cell: 20 K4 and 20 K5 launches, the FE of
+   every sweep against a float64 structured VMP's Bethe FE on sampled
+   chains (FE_HMM_TOL) and non-increasing (FE_MONOTONE_TOL); (c)
+   ``lgssm_wtau`` at phase 10 (c)'s shape: the fused FE against
+   ``fused_kernels=False``'s (FE_PATH_TOL); (d) phase 8 (i)'s cell on int8
+   / fp8 observations: one K6 / K7 launch, FE against the float32
+   program's on the dequantized observations (FE_PATH_TOL); (e) BASELINE
+   config 2: ``zoo.beta_bernoulli(2, 7)`` over 4096 datasets of 5000 flips
+   against the closed form (FE_BB_TOL), row 0 (3743 successes) against the
+   reference's 2828.0533343622483 (FE_REF_TOL), and
+   ``zoo.gaussian_unknown_mean_precision()`` over 4096 datasets of 1000
+   points, 10 iterations, against a float64 mean-field VMP's FE
+   (FE_GAUSS_TOL).  Results on ``[fe]`` lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -132,6 +151,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -2498,6 +2518,433 @@ def wq_both_path(device, shape, iterations: int, log=print) -> dict:
     return out
 
 
+# -- slice 10: the Bethe free energy ----------------------------------------------------
+
+# Phase 12.  FE against its float64 references, relative.  (a) the LGSSM
+# cell: FE == -log Z (the float64 prediction-error filter); (b) the HMM cell
+# against the float64 structured VMP's Bethe FE, and its non-increase from
+# sweep to sweep; (c) lgssm_wtau's fused FE against fused_kernels=False's;
+# (d) the quantized programs' FE against the float32 program's on the
+# dequantized observations; (e) the Gaussian with unknown mean and precision
+# against the float64 mean-field VMP.  Every row of (e)'s Beta-Bernoulli
+# against the closed form at FE_BB_TOL and row 0 against the reference's
+# scalar at its own rtol.
+FE_LOGZ_TOL = 1e-5
+FE_HMM_TOL = 1e-4
+FE_MONOTONE_TOL = 1e-5
+FE_PATH_TOL = 1e-5
+FE_BB_TOL = 1e-5
+FE_REF_TOL = 1e-6
+FE_GAUSS_TOL = 1e-5
+FE_REF = 2828.0533343622483          # beta_bernoulli_tests.jl:55
+FE_ROWS = (0, 1, MAIN_B // 2, MAIN_B - 1)
+BB_B, BB_N = 4096, 5000              # (e): Beta-Bernoulli datasets, flips
+GAUSS_B, GAUSS_N, GAUSS_IT = 4096, 1000, 10
+
+
+def lgssm_minus_log_z(y, f, q, h, r, m0, p0):
+    """-log p(y) of the LGSSM for a few chains y (n, T, dy) in float64: the
+    Kalman filter's prediction-error decomposition (bench.py:719-746)."""
+    f, q, h, r = (np.asarray(a, np.float64) for a in (f, q, h, r))
+    y = np.asarray(y, np.float64)
+    n, t_len, dy = y.shape
+    m = np.broadcast_to(np.asarray(m0, np.float64), (n, len(m0))).copy()
+    p = np.broadcast_to(np.asarray(p0, np.float64), (n,) + p0.shape).copy()
+    nll = np.zeros(n)
+    for t in range(t_len):
+        if t:
+            m = m @ f.T
+            p = f @ p @ f.T + q
+        s = h @ p @ h.T + r
+        s_inv = np.linalg.inv(s)
+        e = y[:, t] - m @ h.T
+        nll += 0.5 * (dy * np.log(2 * np.pi) + np.linalg.slogdet(s)[1]
+                      + np.einsum("ni,nij,nj->n", e, s_inv, e))
+        k = p @ h.T @ s_inv
+        m = m + np.einsum("nij,nj->ni", k, e)
+        p = p - k @ h @ p
+    return nll
+
+
+def _lgamma64(x):
+    return np.vectorize(math.lgamma)(np.asarray(x, np.float64))
+
+
+def _dirichlet_collection_entropy64(a):
+    """Sum over the columns (simplex axis -2) of their Dirichlet entropies,
+    (n,) for a (n, K, K')."""
+    a0 = a.sum(-2)
+    k = a.shape[-2]
+    per_col = (_lgamma64(a).sum(-2) - _lgamma64(a0)
+               + (a0 - k) * digamma64(a0)
+               - ((a - 1.0) * digamma64(a)).sum(-2))
+    return per_col.sum(-1)
+
+
+def hmm_vmp_fe_float64(y, a0, b0, iterations):
+    """The float64 structured VMP of ``hmm_vmp_float64`` with its Bethe
+    free energy after each sweep (sweep s, A, B, as the port's): the
+    transition and emission average energies under E[log A], E[log B], the
+    uniform initial state's and the flat Dirichlet priors', minus the
+    chain's entropy sum_t H(xi_t) - sum_interior H(gamma_t) and the two
+    Dirichlet entropies.  Returns the FE (iterations, n)."""
+    y = np.asarray(y, np.float64)
+    n, t_len, m = y.shape
+    k = a0.shape[-1]
+    ca = np.broadcast_to(np.asarray(a0, np.float64), (n, k, k)).copy()
+    cb = np.broadcast_to(np.asarray(b0, np.float64), (n, m, k)).copy()
+    lp = np.full((n, k), np.log(np.float32(1.0 / k)), np.float64)
+    # the flat priors' energies: -log of Dir(1, ..., 1) per column
+    prior_ae = -k * (math.lgamma(k) + math.lgamma(m))
+    fes = []
+    for _ in range(iterations):
+        elog_a = digamma64(ca) - digamma64(ca.sum(-2, keepdims=True))
+        elog_b = digamma64(cb) - digamma64(cb.sum(-2, keepdims=True))
+        le = np.einsum("nij,nti->tnj", elog_b, y)
+        g, xi, _ = fb_float64(lp, elog_a, le)            # (T, n, K), xis
+        ca = 1.0 + xi.sum(0)
+        cb = 1.0 + np.einsum("nti,tnj->nij", y, g)
+        elog_a = digamma64(ca) - digamma64(ca.sum(-2, keepdims=True))
+        elog_b = digamma64(cb) - digamma64(cb.sum(-2, keepdims=True))
+        ae = (-np.einsum("tnij,nij->n", xi, elog_a)
+              - np.einsum("nti,tnj,nij->n", y, g, elog_b)
+              - np.einsum("nk,nk->n", g[0], lp) + prior_ae)
+        h_xi = -np.sum(xi * np.log(np.maximum(xi, 1e-300)), (0, 2, 3))
+        h_g = -np.sum(g * np.log(np.maximum(g, 1e-300)), -1)   # (T, n)
+        fes.append(ae - (h_xi - h_g[1:-1].sum(0))
+                   - _dirichlet_collection_entropy64(ca)
+                   - _dirichlet_collection_entropy64(cb))
+    return np.stack(fes)
+
+
+def gauss_vmp_fe_float64(y, iterations, m0=0.0, v0=100.0, a0=0.01,
+                         b0=0.01):
+    """Mean-field VMP of ``zoo.gaussian_unknown_mean_precision`` in float64
+    for every row of y (B, n), sweep mu then tau, tau starting at
+    Gamma(1, 1), with its free energy after each sweep: (iterations, B)."""
+    y = np.asarray(y, np.float64)
+    n = y.shape[1]
+    a, b = np.ones(len(y)), np.ones(len(y))
+    s1, s2 = y.sum(1), (y * y).sum(1)
+    fes = []
+    for _ in range(iterations):
+        et = a / b
+        w = 1.0 / v0 + n * et
+        mu = (m0 / v0 + et * s1) / w
+        v = 1.0 / w
+        sq = s2 - 2.0 * mu * s1 + n * (mu * mu + v)
+        a, b = a0 + 0.5 * n, b0 + 0.5 * sq
+        et, elt = a / b, digamma64(a) - np.log(b)
+        ae_mu = 0.5 * (np.log(2 * np.pi * v0) + ((mu - m0) ** 2 + v) / v0)
+        ae_tau = -((a0 - 1.0) * elt - b0 * et + a0 * np.log(b0)
+                   - math.lgamma(a0))
+        ae_y = 0.5 * (n * np.log(2 * np.pi) - n * elt + et * sq)
+        h_mu = 0.5 * np.log(2 * np.pi * np.e * v)
+        h_tau = a - np.log(b) + _lgamma64(a) + (1.0 - a) * digamma64(a)
+        fes.append(ae_mu + ae_tau + ae_y - h_mu - h_tau)
+    return np.stack(fes)
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _peak_call(device, fn):
+    """``fn()``'s result and the device memory it peaked at above what was
+    allocated before it (the inputs and everything held), bytes."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(device) - base
+
+
+def _with_and_without_fe(device, model, data, reps, **kw):
+    """Phase 12's pair of one cell: the program with free energy, the same
+    program without it, and each one's time (median of ``reps`` calls):
+    (compiled, program, program without FE, times)."""
+    import rxinfer_tpu_torch as rt
+
+    compiled, prog = rt.batched_program(model, data, free_energy=True,
+                                        device=device, **kw)
+    _, plain = rt.batched_program(model, data, free_energy=False,
+                                  device=device, **kw)
+    return compiled, prog, plain, {
+        "fe_program_ms": _cuda_ms(lambda: prog(data), reps),
+        "program_ms": _cuda_ms(lambda: plain(data), reps)}
+
+
+def fe_lgssm_path(device, b: int, t_len: int, d: int, reps: int,
+                  log=print) -> dict:
+    """Phase 12 (a): phase 4's LGSSM cell with ``free_energy=True``: one K1
+    and one K2 launch a call, FE == -log Z on FE_ROWS, the program beside
+    the same program without FE, the FE stage alone (on the call's
+    marginals and K2's cross) and the peak device memory of each."""
+    import torch
+
+    from rxinfer_tpu_torch.engine import batched as eb
+    from rxinfer_tpu_torch.engine.blocks import BatchContext
+    from rxinfer_tpu_torch.models import zoo
+
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    model = zoo.lgssm(f, q, h, r, m0, p0)
+    y_host = np.random.default_rng(0).standard_normal((b, t_len, d),
+                                                      dtype=np.float32)
+    y = torch.as_tensor(y_host, device=device)
+    data = {"y": y}
+    compiled, prog, plain, out = _with_and_without_fe(device, model, data,
+                                                      reps)
+    reset_launches()
+    (state, fe, _), peak = _peak_call(device, lambda: prog(data))
+    launches = read_launches()
+    expect_launches(launches, fused_smoother_fwd=1, fused_smoother_bwd=1)
+    fe = fe.cpu().numpy()
+    if fe.shape != (1, b) or not np.isfinite(fe).all():
+        raise AssertionError(f"LGSSM FE of shape {fe.shape}, finite "
+                             f"{np.isfinite(fe).all()}")
+    rows = list(FE_ROWS)
+    want = lgssm_minus_log_z(y_host[rows], f, q, h, r, m0, p0)
+    err = _rel(fe[0, rows], want)
+    log(f"[fe] (a) LGSSM B={b} T={t_len} d={d}: launches {launches}; FE "
+        f"rows {rows} {fe[0, rows].tolist()} against -log Z "
+        f"{want.tolist()}: max rel err {err:.3g} (tol {FE_LOGZ_TOL})")
+    if not err <= FE_LOGZ_TOL:
+        raise AssertionError(f"LGSSM FE != -log Z: {err}")
+    _, peak_plain = _peak_call(device, lambda: plain(data))
+    # the FE stage alone, on this call's marginals and K2's cross
+    plan = eb.build_plans(compiled, {"y": y_host[0]}, device=device)["x"]
+    block = next(blk for _, blk in compiled.blocks)
+    marg, cross = eb._fused_gaussian_update(block, plan, data, b)
+    ctx = BatchContext(device, b, {})
+    stage = lambda: compiled._free_energy({"x": marg}, {"x": cross}, data,
+                                          ctx)
+    fe_alone = stage().cpu().numpy()
+    out.update({
+        "launches": launches, "rel_err": err, "peak_bytes": peak,
+        "peak_bytes_without_fe": peak_plain,
+        "fe_stage_ms": _cuda_ms(stage, reps),
+        "stage_vs_program": float(np.abs(fe_alone - fe[0]).max())})
+    log(f"[fe] (a) program with FE {out['fe_program_ms']:.3f} ms, without "
+        f"{out['program_ms']:.3f} ms; the FE stage alone "
+        f"{out['fe_stage_ms']:.3f} ms; peak {peak / 1e9:.2f} GB above the "
+        f"inputs ({peak_plain / 1e9:.2f} GB without FE)")
+    del state, marg, cross
+    torch.cuda.empty_cache()
+    return out
+
+
+def fe_hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
+                log=print) -> dict:
+    """Phase 12 (b): phase 5's HMM cell with ``free_energy=True``: 20 K4 and
+    20 K5 launches a call, FE after every sweep against the float64
+    structured VMP's on HMM_ROWS, its non-increase, the program beside the
+    same program without FE."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    y_host = simulate_hmm(b, t_len, seed=0)
+    y = torch.as_tensor(y_host, device=device)
+    a0 = np.full((3, 3), 1.0, np.float32)
+    b0 = np.float32(np.eye(3) * 5.0 + 1.0)
+    init = {"A": rt.DirichletCollection(a0), "B": rt.DirichletCollection(b0)}
+    data = {"y": y}
+    _, prog, _, out = _with_and_without_fe(
+        device, zoo.hmm(3, 3), data, reps, iterations=iterations,
+        initialization=init)
+    reset_launches()
+    _, fe, _ = prog(data)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches, fused_fb_fwd=iterations,
+                    fused_fb_bwd=iterations)
+    fe = fe.cpu().numpy()
+    rows = list(HMM_ROWS)
+    want = hmm_vmp_fe_float64(y_host[rows], a0, b0, iterations)
+    err = _rel(fe[:, rows], want)
+    rise = float(np.max(np.diff(fe, axis=0) / np.abs(fe[1:])))
+    log(f"[fe] (b) HMM B={b} T={t_len}, {iterations} iterations: launches "
+        f"{launches}; FE rows {rows} first/last sweep "
+        f"{fe[0, rows].tolist()} / {fe[-1, rows].tolist()}; against the "
+        f"float64 structured VMP max rel err {err:.3g} (tol {FE_HMM_TOL}); "
+        f"largest rise from a sweep to the next {rise:.3g} relative (tol "
+        f"{FE_MONOTONE_TOL}); program with FE {out['fe_program_ms']:.3f} ms,"
+        f" without {out['program_ms']:.3f} ms")
+    if not np.isfinite(fe).all() or not err <= FE_HMM_TOL \
+            or not rise <= FE_MONOTONE_TOL:
+        raise AssertionError(f"HMM FE: finite {np.isfinite(fe).all()}, "
+                             f"err {err}, rise {rise}")
+    out.update({"launches": launches, "rel_err": err, "max_rise": rise})
+    return out
+
+
+def fe_wtau_path(device, b: int, t_len: int, d: int, iterations: int,
+                 reps: int, log=print) -> dict:
+    """Phase 12 (c): ``lgssm_wtau`` at phase 10 (c)'s (B, T) with
+    ``free_energy=True``: the fused program's FE (per-chain-W K1, static K2)
+    against ``fused_kernels=False``'s on the same data."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    model, init = wtau_model(d)
+    y = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (b, t_len, d)).astype(np.float32), device=device)
+    data = {"y": y}
+    _, prog, _, out = _with_and_without_fe(
+        device, model, data, reps, iterations=iterations,
+        initialization=init)
+    _, scan = rt.batched_program(
+        model, data, iterations=iterations, free_energy=True,
+        initialization=init, options={"fused_kernels": False, "warn": False},
+        device=device)
+    reset_launches()
+    fe = prog(data)[1]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches, fused_smoother_fwd_dyn=iterations,
+                    fused_smoother_bwd=iterations)
+    fe_scan = scan(data)[1]
+    err = _rel(fe.cpu().numpy(), fe_scan.cpu().numpy())
+    log(f"[fe] (c) lgssm_wtau B={b} T={t_len} d={d}, {iterations} "
+        f"iterations: launches {launches}; FE against fused_kernels=False "
+        f"max rel err {err:.3g} (tol {FE_PATH_TOL}); program with FE "
+        f"{out['fe_program_ms']:.3f} ms, without {out['program_ms']:.3f} ms")
+    if not bool(torch.isfinite(fe).all()) or not err <= FE_PATH_TOL:
+        raise AssertionError(f"lgssm_wtau FE differs from the scan path's: "
+                             f"{err}")
+    out.update({"launches": launches, "rel_err": err})
+    return out
+
+
+def fe_quant_path(device, b: int, t_len: int, d: int, reps: int,
+                  log=print) -> dict:
+    """Phase 12 (d): phase 8 (i)'s LGSSM cell on int8 / float8_e4m3fn
+    observations with ``free_energy=True``, 1 iteration: one K6 or K7
+    launch a call; FE against the float32 program's on the dequantized
+    observations."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine.batched import quantize_observations
+    from rxinfer_tpu_torch.models import zoo
+
+    model = zoo.lgssm(*lgssm_constants(d))
+    y = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (b, t_len, d), dtype=np.float32), device=device)
+    _, prog_f = rt.batched_program(model, {"y": y}, free_energy=True,
+                                   device=device)
+    out: dict = {"launches": {}, "rel_err": {}, "fe_program_ms": {},
+                 "program_ms": {}}
+    for obs_dtype, kname in (("int8", "quantize_rows"),
+                             ("float8_e4m3fn", "quantize_rows_fp8")):
+        _, prog, _, times = _with_and_without_fe(
+            device, model, {"y": y}, reps,
+            options={"observation_dtype": obs_dtype})
+        reset_launches()
+        fe = prog({"y": y})[1]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, fused_smoother_fwd=1, fused_smoother_bwd=1,
+                        **{kname: 1})
+        vals, scales = quantize_observations(y, obs_dtype)
+        y_hat = (vals.to(torch.float32) * scales).transpose(1, 2).contiguous()
+        fe_hat = prog_f({"y": y_hat})[1]
+        err = _rel(fe.cpu().numpy(), fe_hat.cpu().numpy())
+        out["launches"][obs_dtype] = launches
+        out["rel_err"][obs_dtype] = err
+        out["fe_program_ms"][obs_dtype] = times["fe_program_ms"]
+        out["program_ms"][obs_dtype] = times["program_ms"]
+        log(f"[fe] (d) {obs_dtype} B={b} T={t_len} d={d}: launches "
+            f"{launches}; FE against the float32 program's on the "
+            f"dequantized observations max rel err {err:.3g} (tol "
+            f"{FE_PATH_TOL}); program with FE {times['fe_program_ms']:.3f} "
+            f"ms, without {times['program_ms']:.3f} ms")
+        if not bool(torch.isfinite(fe).all()) or not err <= FE_PATH_TOL:
+            raise AssertionError(f"{obs_dtype} FE differs from the float32 "
+                                 f"FE on the dequantized data: {err}")
+        del vals, scales, y_hat, fe, fe_hat
+    torch.cuda.empty_cache()
+    return out
+
+
+def fe_config2_path(device, reps: int, log=print) -> dict:
+    """Phase 12 (e): BASELINE config 2 through ``infer_batched``.
+    ``zoo.beta_bernoulli(2.0, 7.0)`` over BB_B datasets of BB_N flips (row 0
+    holds the reference's 3743 successes): every row's FE against the
+    closed form -(betaln(2 + h, 7 + n - h) - betaln(2, 7)) in float64, row 0
+    against the reference's scalar.  ``zoo.gaussian_unknown_mean_precision``
+    over GAUSS_B datasets of GAUSS_N points, GAUSS_IT iterations, tau
+    initialized at Gamma(1, 1): the FE after every sweep against the
+    float64 mean-field VMP's.  Both timed beside the programs without FE."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    rng = np.random.default_rng(42)
+    flips = (rng.random((BB_B, BB_N)) < rng.uniform(0.2, 0.9, (BB_B, 1)))
+    flips[0] = rng.permutation(np.arange(BB_N) < 3743)
+    y = torch.as_tensor(flips.astype(np.float32), device=device)
+    res = rt.infer_batched(zoo.beta_bernoulli(2.0, 7.0), {"y": y},
+                           free_energy=True, device=device)
+    fe = res.free_energy[-1].cpu().numpy()
+    h = flips.sum(1).astype(np.float64)
+    closed = -np.array([math.lgamma(2.0 + hi) + math.lgamma(7.0 + BB_N - hi)
+                        - math.lgamma(9.0 + BB_N) for hi in h]) + (
+        math.lgamma(2.0) + math.lgamma(7.0) - math.lgamma(9.0))
+    out = {"bb_rel_err": _rel(fe, closed),
+           "bb_ref_rel_err": abs(float(fe[0]) / FE_REF - 1.0),
+           "bb_row0": float(fe[0])}
+    *_, times = _with_and_without_fe(device, zoo.beta_bernoulli(2.0, 7.0),
+                                     {"y": y}, reps)
+    out["bb_fe_program_ms"] = times["fe_program_ms"]
+    out["bb_program_ms"] = times["program_ms"]
+    log(f"[fe] (e) beta_bernoulli(2, 7) B={BB_B} n={BB_N}: FE against the "
+        f"closed form max rel err {out['bb_rel_err']:.3g} (tol {FE_BB_TOL});"
+        f" row 0 (3743 / 5000) {out['bb_row0']!r} against {FE_REF!r}, rel "
+        f"err {out['bb_ref_rel_err']:.3g} (tol {FE_REF_TOL}); program with "
+        f"FE {times['fe_program_ms']:.3f} ms, without "
+        f"{times['program_ms']:.3f} ms")
+    if not out["bb_rel_err"] <= FE_BB_TOL \
+            or not out["bb_ref_rel_err"] <= FE_REF_TOL:
+        raise AssertionError(f"Beta-Bernoulli FE: {out}")
+
+    loc = rng.normal(0.0, 2.0, (GAUSS_B, 1))
+    scale = rng.uniform(0.5, 2.0, (GAUSS_B, 1))
+    yg_host = (loc + scale * rng.standard_normal((GAUSS_B, GAUSS_N))).astype(
+        np.float32)
+    yg = torch.as_tensor(yg_host, device=device)
+    init = {"tau": rt.Gamma(1.0, 1.0)}
+    model = zoo.gaussian_unknown_mean_precision()
+    res = rt.infer_batched(model, {"y": yg}, iterations=GAUSS_IT,
+                           free_energy=True, initialization=init,
+                           device=device)
+    fe = res.free_energy.cpu().numpy()
+    want = gauss_vmp_fe_float64(yg_host, GAUSS_IT)
+    out["gauss_rel_err"] = _rel(fe, want)
+    *_, times = _with_and_without_fe(device, model, {"y": yg}, reps,
+                                     iterations=GAUSS_IT,
+                                     initialization=init)
+    out["gauss_fe_program_ms"] = times["fe_program_ms"]
+    out["gauss_program_ms"] = times["program_ms"]
+    log(f"[fe] (e) gaussian_unknown_mean_precision B={GAUSS_B} "
+        f"n={GAUSS_N}, {GAUSS_IT} iterations: FE against the float64 VMP max"
+        f" rel err {out['gauss_rel_err']:.3g} (tol {FE_GAUSS_TOL}); program "
+        f"with FE {times['fe_program_ms']:.3f} ms, without "
+        f"{times['program_ms']:.3f} ms")
+    if not out["gauss_rel_err"] <= FE_GAUSS_TOL:
+        raise AssertionError(f"Gaussian FE against the float64 VMP: "
+                             f"{out['gauss_rel_err']}")
+    return out
+
+
 def side_checks() -> tuple[list, dict, dict]:
     """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
     process beside the K1/K2 checks.  The plain versions the checks hold the
@@ -2629,6 +3076,32 @@ def main() -> int:
     wq = wq_both_path(device, WQ_SHAPE, WQ_IT)
     dyn_bounds = dynamic_bounds(WTAU_B, WTAU_T, WTAU_D)
     _elapsed("the dynamic-precision tier", t_start)
+
+    # 12. the Bethe free energy on the paths above: (a) the LGSSM cell, (b)
+    # the HMM cell, (c) lgssm_wtau at (c)'s shape, (d) quantized ingest, (e)
+    # config 2
+    fe_a = fe_lgssm_path(device, MAIN_B, MAIN_T, MAIN_D, reps=5)
+    fe_b = fe_hmm_path(device, HMM_B, HMM_T, HMM_IT, reps=5)
+    fe_c = fe_wtau_path(device, *WTAU_SMALL, WTAU_D, WTAU_IT, reps=3)
+    fe_d = fe_quant_path(device, MAIN_B, MAIN_T, MAIN_D, reps=5)
+    fe_e = fe_config2_path(device, reps=5)
+    _elapsed("the free energy", t_start)
+    fe_launches = {
+        "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
+        "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
+                               "lgssm_wtau": WTAU_IT},
+        "fused_smoother_fwd_dyn": {"lgssm_wtau": WTAU_IT},
+        "fused_fb_fwd": {"hmm": HMM_IT}, "fused_fb_bwd": {"hmm": HMM_IT},
+        "quantize_rows": {"int8": 1}, "quantize_rows_fp8": {"float8_e4m3fn": 1},
+    }
+    # the counts each phase 12 path read (expect_launches held them)
+    fe_read = {"lgssm": fe_a["launches"], "hmm": fe_b["launches"],
+               "lgssm_wtau": fe_c["launches"], **fe_d["launches"]}
+    for name, per_path in fe_launches.items():
+        for path, n in per_path.items():
+            if fe_read[path][name] != n:
+                raise AssertionError(f"{name} on the FE path {path}: "
+                                     f"{fe_read[path][name]} launches")
     dyn_plain = {
         "fused_smoother_fwd_dyn": (wtau["plain_ms"], wtau["plain_shape"]),
         "fused_smoother_bwd_dyn": (wq["plain_ms"]["fused_smoother_bwd_dyn"],
@@ -2905,6 +3378,24 @@ def main() -> int:
     print(f"[main] program_ms {main['program_ms']:.4f} updates_per_s "
           f"{main['updates_per_s']:.6g} (B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); "
           f"total run {time.perf_counter() - t_start:.1f} s")
+    for row in rows:
+        row["launches_fe_paths"] = fe_launches.get(row["name"], {})
+    print(f"[fe] (a) lgssm program_ms with FE {fe_a['fe_program_ms']:.4f} "
+          f"without {fe_a['program_ms']:.4f} fe_stage_ms "
+          f"{fe_a['fe_stage_ms']:.4f} peak_gb {fe_a['peak_bytes'] / 1e9:.3f}"
+          f" (without FE {fe_a['peak_bytes_without_fe'] / 1e9:.3f}) rel_err "
+          f"{fe_a['rel_err']:.3g}; (b) hmm with {fe_b['fe_program_ms']:.4f} "
+          f"without {fe_b['program_ms']:.4f} rel_err {fe_b['rel_err']:.3g}; "
+          f"(c) lgssm_wtau with {fe_c['fe_program_ms']:.4f} without "
+          f"{fe_c['program_ms']:.4f} rel_err {fe_c['rel_err']:.3g}; (d) "
+          + ", ".join(f"{k} with {fe_d['fe_program_ms'][k]:.4f} without "
+                      f"{fe_d['program_ms'][k]:.4f} rel_err "
+                      f"{fe_d['rel_err'][k]:.3g}" for k in fe_d["rel_err"])
+          + f"; (e) beta_bernoulli with {fe_e['bb_fe_program_ms']:.4f} "
+          f"without {fe_e['bb_program_ms']:.4f} row0 {fe_e['bb_row0']!r}, "
+          f"gaussian with {fe_e['gauss_fe_program_ms']:.4f} without "
+          f"{fe_e['gauss_program_ms']:.4f} rel_err "
+          f"{fe_e['gauss_rel_err']:.3g}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

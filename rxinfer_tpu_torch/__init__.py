@@ -1,9 +1,11 @@
 """rxinfer_tpu_torch — the PyTorch/CUDA port of ``rxinfer_tpu``.
 
 A model written with ``@model``, ``latent``, ``plate``,
-``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Categorical``,
-``DirichletCollection`` and ``Transition`` runs through ``infer`` on one dataset, and through
-``batched_program`` / ``infer_batched`` over many, on an NVIDIA GPU.  In a
+``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Beta``, ``Bernoulli``,
+``Categorical``, ``DirichletCollection`` and ``Transition`` runs through
+``infer`` on one dataset, and through ``batched_program`` /
+``infer_batched`` over many, on an NVIDIA GPU; ``free_energy=True``
+returns the Bethe free energy after every sweep (``engine/bethe.py``).  In a
 batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
 forward-backward kernels of ``csrc/fused_fb.cu`` — a Gaussian chain whose
@@ -28,6 +30,7 @@ The package imports torch and numpy only — never JAX nor ``rxinfer_tpu``.
 
 from . import rules  # noqa: F401  (registers the ported node rules)
 from .dists import (  # noqa: F401
+    BernoulliLogits,
     GammaShapeRate,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
@@ -39,6 +42,8 @@ from .dists import (  # noqa: F401
     WishartInverseScale,
 )
 from .graph.dsl import (  # noqa: F401
+    Bernoulli,
+    Beta,
     Categorical,
     DirichletCollection,
     DiscreteTransition,

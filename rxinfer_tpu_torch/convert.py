@@ -26,6 +26,8 @@ from .engine.batched import FusedGaussianPlan
 from .parallel.filtering import FilterState
 
 _FAMILIES = {
+    "Beta": D.Beta,
+    "Bernoulli": D.Bernoulli,
     "GammaShapeRate": D.GammaShapeRate,
     "Wishart": D.Wishart,
     "WishartInverseScale": D.WishartInverseScale,

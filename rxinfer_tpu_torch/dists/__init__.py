@@ -1,6 +1,6 @@
-"""Distribution substrate of the PyTorch port (Gaussian families,
-Categorical, DirichletCollection, GammaShapeRate, Wishart and PointMass;
-counterpart of ``rxinfer_tpu/dists``)."""
+"""Distribution substrate of the PyTorch port (Gaussian families, Beta,
+Bernoulli, Categorical, DirichletCollection, GammaShapeRate, Wishart and
+PointMass; counterpart of ``rxinfer_tpu/dists``)."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -30,9 +30,18 @@ from .gaussian import (  # noqa: F401
 from .discrete import Categorical, DirichletCollection  # noqa: F401
 from .matrix import Wishart, WishartInverseScale  # noqa: F401
 from .pointmass import PointMass, register_pointmass_products
-from .scalar_families import AbstractGamma, GammaShapeRate  # noqa: F401
+from .scalar_families import (  # noqa: F401
+    AbstractGamma,
+    Bernoulli,
+    BernoulliLogits,
+    Beta,
+    GammaShapeRate,
+)
 
 register_pointmass_products(
+    Beta,
+    Bernoulli,
+    BernoulliLogits,
     Categorical,
     DirichletCollection,
     NormalMeanVariance,

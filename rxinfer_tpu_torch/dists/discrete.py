@@ -2,11 +2,10 @@
 
 Ported subset: ``Categorical`` (stored as logits; ``from_probs``, ``probs``,
 ``log_probs``, ``mean``, ``var``, ``entropy``) and ``DirichletCollection``
-(``mean``, ``mean_log``, ``var``) with their closed-form products — what the
-HMM's discrete chain and its Dirichlet transition/emission groups need.
-``Dirichlet``, ``Multinomial``, sampling, log-densities and the
-Dirichlet-collection entropy arrive with the rest of the node library and
-free energy.
+(``mean``, ``mean_log``, ``var`` and ``entropy``, summed over the columns)
+with their closed-form products — what the HMM's discrete chain and its
+Dirichlet transition/emission groups need.  ``Dirichlet``, ``Multinomial``,
+sampling and log-densities arrive with the rest of the node library.
 
 Batch axes.  Every tensor may carry leading batch dimensions.  A
 ``DirichletCollection`` is a collection of independent Dirichlets over the
@@ -85,6 +84,16 @@ class DirichletCollection(Distribution):
         a0 = torch.sum(a, dim=-2, keepdim=True)
         m = a / a0
         return m * (1.0 - m) / (a0 + 1.0)
+
+    def entropy(self):
+        """Sum of the columns' Dirichlet entropies: shape (...,)."""
+        a = self.alpha
+        a0 = torch.sum(a, dim=-2)
+        k = a.shape[-2]
+        lb = torch.sum(torch.lgamma(a), dim=-2) - torch.lgamma(a0)
+        per_col = (lb + (a0 - k) * torch.digamma(a0)
+                   - torch.sum((a - 1.0) * torch.digamma(a), dim=-2))
+        return torch.sum(per_col, dim=-1)
 
 
 @register_prod(DirichletCollection, DirichletCollection)

@@ -2,10 +2,10 @@
 ``rxinfer_tpu/dists/gaussian.py``).
 
 Ported subset: the scalar and multivariate mean-variance / mean-precision /
-weighted-mean-precision parametrizations, ``pd_inverse``/``pd_logdet`` and the
-natural-form conversions.  Not ported: the scale-precision family,
-``JointGaussian``, sampling, entropies and log-densities (no consumer on the
-batched smoothing path).
+weighted-mean-precision parametrizations with their entropies (whose
+log-determinants are one batched ``torch.linalg.slogdet``),
+``pd_inverse``/``pd_logdet`` and the natural-form conversions.  Not ported:
+the scale-precision family, ``JointGaussian``, sampling and log-densities.
 
 The compute form of message products is the information form: the product is
 ``(xi1 + xi2, W1 + W2)``.  Every tensor may carry leading batch dimensions.
@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 
 from .base import TINY, HUGE, Distribution, dist_dataclass, register_prod
+
+_LOG2PI = 1.8378770664093453  # log(2*pi)
 
 
 def _symmetrize(m):
@@ -43,9 +45,21 @@ def pd_logdet(m):
     return 2.0 * torch.sum(torch.log(torch.diagonal(c, dim1=-2, dim2=-1)), dim=-1)
 
 
+def batched_logdet(m):
+    """log|det m| of a batch of positive-definite matrices in one batched
+    pivoted-LU call (``torch.linalg.slogdet``).  The entropies read it: over
+    millions of small matrices (a chain's marginals) it is one library
+    call, where ``small_logdet``'s Schur recursion takes many tiny cuBLAS
+    products."""
+    return torch.linalg.slogdet(m)[1]
+
+
 # -- scalar Gaussians ---------------------------------------------------------
 
 class AbstractNormal(Distribution):
+    def entropy(self):
+        return 0.5 * (_LOG2PI + 1.0) + 0.5 * torch.log(self.var())
+
     def precision(self):
         return 1.0 / self.var()
 
@@ -145,6 +159,11 @@ class AbstractMvNormal(Distribution):
     def var(self):
         return torch.diagonal(self.cov(), dim1=-2, dim2=-1)
 
+    def entropy(self):
+        cov = self.cov()
+        d = cov.shape[-1]
+        return 0.5 * d * (_LOG2PI + 1.0) + 0.5 * batched_logdet(cov)
+
 
 @dist_dataclass
 class MvNormalMeanCovariance(AbstractMvNormal):
@@ -168,6 +187,10 @@ class MvNormalMeanPrecision(AbstractMvNormal):
 
     def cov(self):
         return pd_inverse(self.w)
+
+    def entropy(self):
+        d = self.w.shape[-1]
+        return 0.5 * d * (_LOG2PI + 1.0) - 0.5 * batched_logdet(self.w)
 
     def precision(self):
         return self.w
@@ -197,6 +220,10 @@ class MvNormalWeightedMeanPrecision(AbstractMvNormal):
 
     def cov(self):
         return pd_inverse(self.w)
+
+    def entropy(self):
+        d = self.w.shape[-1]
+        return 0.5 * d * (_LOG2PI + 1.0) - 0.5 * batched_logdet(self.w)
 
     def precision(self):
         return self.w

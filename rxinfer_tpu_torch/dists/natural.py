@@ -3,8 +3,8 @@
 
 For every family ``prod(d1, d2) == from_natural(to_natural(d1) +
 to_natural(d2))`` and the ZERO natural vector is the multiplicative identity.
-Ported subset: the ``gaussian``, ``mv_gaussian``, ``categorical``,
-``dirichlet_collection``, ``gamma`` and ``wishart`` families (the other
+Ported subset: the ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
+``categorical``, ``dirichlet_collection``, ``gamma`` and ``wishart`` families (the other
 conjugate families arrive with the rest of the node library), ``prod_all``,
 ``nat_div``, ``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.  The
 ``wishart`` view keeps the inverse-scale carrier: one observation's
@@ -37,7 +37,13 @@ from .gaussian import (
     pd_inverse,
 )
 from .matrix import Wishart, WishartInverseScale
-from .scalar_families import AbstractGamma, GammaShapeRate
+from .scalar_families import (
+    AbstractGamma,
+    Bernoulli,
+    BernoulliLogits,
+    Beta,
+    GammaShapeRate,
+)
 
 
 def _gauss_to(d):
@@ -54,6 +60,11 @@ _TABLE = {
     "gaussian": (_gauss_to, lambda n: NormalWeightedMeanPrecision(n[0], n[1])),
     "mv_gaussian": (_mv_gauss_to,
                     lambda n: MvNormalWeightedMeanPrecision(n[0], n[1])),
+    "beta": (lambda d: (d.a - 1.0, d.b - 1.0),
+             lambda n: Beta(n[0] + 1.0, n[1] + 1.0)),
+    "bernoulli": (lambda d: ((d.logit,) if isinstance(d, BernoulliLogits)
+                             else (torch.log(d.p) - torch.log1p(-d.p),)),
+                  lambda n: BernoulliLogits(n[0])),
     "dirichlet_collection": (lambda d: (d.alpha - 1.0,),
                              lambda n: DirichletCollection(n[0] + 1.0)),
     "categorical": (lambda d: (d.logits,), lambda n: Categorical(n[0])),
@@ -71,6 +82,8 @@ _TABLE = {
 NAT_EVENT_RANKS = {
     "gaussian": (0, 0),
     "mv_gaussian": (1, 2),
+    "beta": (0, 0),
+    "bernoulli": (0,),
     "dirichlet_collection": (2,),
     "categorical": (1,),
     "gamma": (0, 0),
@@ -83,6 +96,10 @@ def family_key(d: Distribution) -> str:
         return "mv_gaussian"
     if isinstance(d, AbstractNormal):
         return "gaussian"
+    if isinstance(d, Beta):
+        return "beta"
+    if isinstance(d, (Bernoulli, BernoulliLogits)):
+        return "bernoulli"
     if isinstance(d, DirichletCollection):
         return "dirichlet_collection"
     if isinstance(d, Categorical):

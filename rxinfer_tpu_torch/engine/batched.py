@@ -53,13 +53,21 @@ Gaussian chain's evidence einsum (``ops/quantized.py``: one scale per chain
 and channel, taken over time), and every sweep's einsum reads the 1-byte
 payload and its scales instead of the float32 observations.
 
+With ``free_energy=True`` the program computes the Bethe free energy of
+every dataset after every sweep (``CompiledModel._free_energy``, batch-major)
+from the marginals and the pair statistics the chains returned: K2's cross
+for a fused Gaussian chain, K5's per-step pair marginals for a fused discrete
+one.  Under quantized ingest the free-energy terms read the dequantized
+observations, ``vals * scales`` in the observation's layout, so that they see
+what the evidence saw; without free energy that copy is not made.
+
 Ported subset: ``FusedGaussianPlan``, ``_plan_fused_gaussian`` (the static
 and dynamic tiers; d <= 8), ``_extract_linear_evidence``,
 ``_extract_wlinear_evidence``, ``_fused_gaussian_update``,
 ``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
-``make_batched_program`` (with quantized observation ingest and the
-unfused chain path) without shared variables or free energy.  Two guards
+``make_batched_program`` (with quantized observation ingest, the unfused
+chain path and free energy) without shared variables (ROADMAP A7).  Two guards
 the JAX planner lacks: a dynamic precision must be a single-copy variable,
 and the per-slot evidence signature of a dynamic W holds the values of the
 factors' constant interfaces (``_external_random``, ``_slot_signature``).
@@ -88,6 +96,13 @@ DEFAULT_HBM_BUDGET = 60_000_000_000
 # d=4 peaked at 865 bytes a chain-step on an H100 (chip_smoke.py, phase 9),
 # 3.9 element-sizes; 4 with the estimate's 2x headroom over it.
 UNFUSED_SCAN_FLOATS = 4
+# Joint-sizes (2d x 2d floats) of working set a step of a Gaussian chain's
+# free energy adds at its peak (see chain_hbm_bytes_per_element): the pair
+# entropy's joint and the log-determinant's column-major copy of it.  The
+# LGSSM at B=1024, T=10,000, d=4 peaked at 8.07 GB above its inputs with
+# free energy and 2.62 GB without on an H100 (chip_smoke.py, phase 12 (a)):
+# 2.1 joint-sizes a chain-step more.
+FE_PAIR_FLOATS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -675,7 +690,7 @@ def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
     return marg, xis.transpose(0, 1)
 
 
-def chain_hbm_bytes_per_element(compiled) -> int:
+def chain_hbm_bytes_per_element(compiled, free_energy: bool = False) -> int:
     """Estimated device bytes ONE batch element's chain blocks hold at once
     (fp32 with 2x working-set headroom).  A fused chain streams its moments
     through the kernels (smoother: filtered + smoothed means/covs, cross, xi
@@ -685,7 +700,10 @@ def chain_hbm_bytes_per_element(compiled) -> int:
     (filter (A, b, C, eta, J): 3d^2 + 2d floats a step) with the scan's
     levels, its compose temporaries and its outputs, UNFUSED_SCAN_FLOATS
     element-sizes in all; a discrete chain its K x K elements and the
-    K x K x K log-matmul temporaries of the scan's levels."""
+    K x K x K log-matmul temporaries of the scan's levels.  With
+    ``free_energy`` a Gaussian chain adds the pair entropy's working set,
+    FE_PAIR_FLOATS joint-sizes (2d x 2d) a step, and a discrete chain one
+    K x K temporary a step (the JAX version counts no free energy)."""
     report = compiled._plan_report or {}
     per_elem = 0
     for kind, block in compiled.blocks:
@@ -697,20 +715,25 @@ def chain_hbm_bytes_per_element(compiled) -> int:
             k = block.k
             floats = (2 * k + k * k) if fused \
                 else UNFUSED_SCAN_FLOATS * k * k + 2 * k ** 3
+            if free_energy:
+                floats += k * k
             per_elem += t * floats * 4 * 2
             continue
         d = block.dim
         sym = d * (d + 1) // 2
         floats = (2 * d + 2 * sym + d * d + d) if fused \
             else UNFUSED_SCAN_FLOATS * (3 * d * d + 2 * d)
+        if free_energy:
+            floats += FE_PAIR_FLOATS * 4 * d * d
         per_elem += t * floats * 4 * 2
     return per_elem
 
 
-def batch_chunk_size(compiled, batch: int, budget_bytes: int):
+def batch_chunk_size(compiled, batch: int, budget_bytes: int,
+                     free_energy: bool = False):
     """Largest batch chunk that fits the budget (None = no chunking
     needed).  Raises when even one element exceeds it."""
-    per_elem = chain_hbm_bytes_per_element(compiled)
+    per_elem = chain_hbm_bytes_per_element(compiled, free_energy)
     if per_elem == 0 or per_elem * batch <= budget_bytes:
         return None
     c = int(budget_bytes // per_elem)
@@ -804,14 +827,15 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     """Build the function (batched_data) -> (state, fe, history) where every
     data leaf and every state leaf carries a leading batch axis.  The data
     may be numpy arrays or tensors; they are moved to ``device`` as float32.
-    ``fe`` is an empty (0, B) tensor (free energy is not ported yet).  A
+    ``fe`` is the free energy of every dataset after every sweep,
+    (iterations, B), with ``free_energy`` (else an empty (0, B) tensor).  A
     chain in the plan runs on the fused kernels; every other chain runs its
     block's batch-major update in the same sweep.  A program built on
     finite data (``all_finite=True``) skips the NaN masks, as the JAX
     package's fused tier does."""
     if free_energy:
-        raise NotImplementedError(
-            "free_energy=True is not ported to the PyTorch package yet.")
+        # built now, so that an unported branch raises before a sweep
+        _ = compiled.fe_factors
     device = torch.device(device)
     data0 = compiled._with_derived(data0)
     plans = build_plans(compiled, data0, all_finite=all_finite, device=device)
@@ -854,9 +878,17 @@ def make_batched_program(compiled, data0: dict, iterations: int,
         # once per call, not per sweep: every sweep re-reads the payload
         qpayload = {name: quantize_observations(data[name], obs_dtype)
                     for name in sorted(qnames)} or None
+        if free_energy and qpayload is not None:
+            # the free-energy terms must see the observations the evidence
+            # saw: the dequantized payload in the observation's layout
+            data = dict(data)
+            for name, (vals, scales) in qpayload.items():
+                data[name] = (vals.to(torch.float32) * scales).transpose(
+                    1, 2).reshape(data[name].shape)
         ctx = BatchContext(device, batch, consts, masks)
-        state, history = compiled._iterate(data, ctx, init, iterations,
-                                           keep_each, fused_updates(qpayload))
-        return state, torch.zeros((0, batch), device=device), history
+        state, history, fe = compiled._iterate(
+            data, ctx, init, iterations, keep_each, fused_updates(qpayload),
+            free_energy=free_energy)
+        return state, fe, history
 
     return program

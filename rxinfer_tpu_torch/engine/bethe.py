@@ -1,0 +1,270 @@
+"""Bethe free-energy assembly (counterpart of ``rxinfer_tpu/engine/bethe.py``).
+
+    FE = sum_a E_{q_a}[-log f_a]  -  sum_a H[q_a]  +  sum_i (d_i - 1) H[q_i]
+
+* q_a is the factor's local joint: the structured pair marginal of a chain
+  transition (the Gaussian cross-covariance Cov(out, in), the discrete pair
+  marginals), the product of its marginals otherwise (mean field).
+* Observed and constant interfaces are point masses: their infinite
+  entropies cancel between factor and variable, so they are left out and
+  only finite terms are summed.
+* A missing observation (NaN) removes its likelihood copy: the copy's
+  average energy is masked, and its entropy terms cancel against the
+  variable's degree.
+* On a tree at the BP fixed point FE equals -log Z.
+
+Every term is evaluated over the whole batch at once (batch axis first, as
+the blocks' updates are), not per dataset under a ``vmap``: a factor's
+``FactorFE`` returns one value per batch element, (B,).
+
+Ported: ``slot_degrees`` (an empty plate contributes no degree; the JAX
+version divides by its size and raises ``ZeroDivisionError``),
+``gaussian_pair_entropy``, ``discrete_pair_entropy``, ``FactorFE`` with the
+mean-field branch (average energy minus the entropies of its random
+interfaces, the missing-data mask, the copy accounting of plated factors)
+and the chain-transition branch (Gaussian scalar and vector chains,
+``DiscreteTransition``), and ``variable_entropy_term``.
+
+One deliberate difference: a chain transition's local entropy is its pair
+entropy plus, per copy, the entropies of its other random interfaces (a
+random transition matrix, a random process-noise precision), as the
+mean-field branch counts a shared interface.  The JAX version subtracts the
+pair entropy alone, so on such a chain (``zoo.hmm``: the matrix A) its free
+energy is off by (T - 1) H[q(A)] and can fall below zero on discrete data;
+the port's equals the float64 structured-VMP free energy.  The JAX package's
+other branches read the cavity message stores (``_msg:`` keys) or nodes the
+port lacks: the structured pair of a Gaussian factor between two random
+variables, the affine custom-transition pair, structured single-step GCV
+and deterministic nodes' ``bethe_term``.  A factor that could take one of
+them raises ``NotImplementedError`` naming ROADMAP A6 when its evaluator is
+built, rather than fall back to the mean-field bound.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..dists import PointMass
+from ..dists.gaussian import batched_logdet
+from ..graph.ir import ModelGraph, Ref
+from ..rules.registry import get_average_energy, get_node
+from .blocks import BatchContext, _coverage, build_q, in_cavity_cluster
+
+_LOG2PIE = 2.837877066409345  # log(2*pi*e)
+
+# Gaussian factors whose (out, mean) pair the JAX package treats as one
+# cluster when both are random (``gaussian_pair_fe``)
+_GAUSS_PAIR = {"NormalMeanVariance", "NormalMeanPrecision",
+               "MvNormalMeanCovariance", "MvNormalMeanPrecision"}
+
+
+def _n_copies(f) -> int:
+    """Number of factor copies a (possibly nested-) plated factor stands
+    for."""
+    plates = getattr(f, "plates", ()) or ((f.plate,) if f.plate else ())
+    n = 1
+    for p in plates:
+        n *= p.size
+    return n
+
+
+def slot_degrees(graph: ModelGraph, var) -> np.ndarray:
+    """Static per-slot degree of a random variable: the factor copies that
+    touch each slot.  An empty plate (``plate(1, 1)``, the transition of a
+    one-step chain) has no copies and adds nothing."""
+    n = var.length if var.is_array else 1
+    deg = np.zeros(n, dtype=np.int64)
+    for f in graph.factors:
+        for v in f.all_interfaces().values():
+            if not (isinstance(v, Ref) and v.var is var):
+                continue
+            cov = _coverage(f, v)
+            copies = _n_copies(f)
+            if cov == "grid":
+                deg[0] += 1
+            elif cov is None:
+                deg[0] += copies
+            elif isinstance(cov, int):
+                deg[cov] += 1
+            else:
+                # per slot: the copies over a nested factor's other plate
+                # axes all touch it (1 for a single-plate factor)
+                size = v.idx.plate.size
+                per_slot = copies // size if size else 0
+                deg[cov[0]:cov[1]] += per_slot
+    return deg
+
+
+def gaussian_pair_entropy(covs_out, covs_in, cross_out_in, scalar: bool):
+    """Entropy of the joint Gaussian (out, in) of each pair: covariances
+    (..., d, d) and Cov(out, in) (..., d, d), or (...,) each for a scalar
+    chain."""
+    if scalar:
+        det = covs_out * covs_in - cross_out_in ** 2
+        return _LOG2PIE + 0.5 * torch.log(det)
+    d = covs_out.shape[-1]
+    lead = torch.broadcast_shapes(covs_out.shape[:-2], covs_in.shape[:-2],
+                                  cross_out_in.shape[:-2])
+    joint = covs_out.new_empty(lead + (2 * d, 2 * d))
+    joint[..., :d, :d] = covs_out
+    joint[..., :d, d:] = cross_out_in
+    joint[..., d:, :d] = cross_out_in.transpose(-1, -2)
+    joint[..., d:, d:] = covs_in
+    return d * _LOG2PIE + 0.5 * batched_logdet(joint)
+
+
+def discrete_pair_entropy(xis):
+    """Entropy of each pair marginal q(out, in) (..., K, K): -sum xi log xi."""
+    return -torch.sum(xis * torch.log(torch.clamp(xis, min=1e-37)),
+                      dim=(-2, -1))
+
+
+def _per_element(x, batch: int):
+    """Sum of a term over every axis but the leading batch axis: (B,).  A
+    term without the batch axis (computed from constants only) is the same
+    for every element."""
+    if x.ndim == 0:
+        return x.expand(batch)
+    return x.reshape(x.shape[0], -1).sum(dim=1)
+
+
+def _unported_branch(f, what: str):
+    return NotImplementedError(
+        f"free_energy=True: factor {f.fform} ({f.id}) takes the JAX "
+        f"package's {what}, which reads the cavity message stores (or nodes) "
+        "the PyTorch package does not have yet (ROADMAP A6).")
+
+
+class FactorFE:
+    """One factor's free-energy contribution over the batch, (B,): its
+    average energy minus its local entropy.  Built once per compiled
+    model."""
+
+    def __init__(self, factor, is_chain_transition: bool,
+                 chain_scalar: bool):
+        f = self.factor = factor
+        self.is_chain_transition = is_chain_transition
+        self.chain_scalar = chain_scalar
+        node_cls = get_node(f.fform)
+        if getattr(node_cls, "bethe_term", None) is not None:
+            raise _unported_branch(f, "deterministic-node bethe_term")
+        if len(getattr(f, "plates", ())) >= 2:
+            raise _unported_branch(f, "grid (nested-plate) accounting")
+        self.energy_fn = get_average_energy(f.fform)
+        in_ref = f.interfaces.get("in")
+        if (not is_chain_transition and f.plate is not None
+                and isinstance(in_ref, Ref) and f.out.var.kind == "random"
+                and f.out.var is in_ref.var
+                and in_cavity_cluster(node_cls, "out")
+                and in_cavity_cluster(node_cls, "in")):
+            raise _unported_branch(f, "affine custom-transition pair")
+        mean_ref = f.interfaces.get("mean")
+        if (not is_chain_transition and f.plate is None
+                and f.out.var.kind == "random" and f.fform in _GAUSS_PAIR
+                and isinstance(mean_ref, Ref)
+                and mean_ref.var.kind == "random"):
+            # the JAX package takes the exact (out, mean) pair here whenever
+            # both cavity messages are stored; the port keeps no such store
+            # and cannot tell, so it refuses rather than take the bound
+            raise _unported_branch(f, "structured (out, mean) pair")
+
+    def __call__(self, state: dict, data: dict, chain_cross: dict,
+                 ctx: BatchContext, entropies: dict | None = None):
+        """``entropies`` (``variable_entropies``) holds each random
+        variable's entropy per slot, computed once for every term of one
+        evaluation; a marginal not in it is evaluated here."""
+        f = self.factor
+        batch = ctx.batch
+        n_copies = _n_copies(f)
+        q = build_q(f, state, data, chain_cross=chain_cross, ctx=ctx)
+        ae = self.energy_fn(q)
+        # a missing observation removes its copy: its entropy terms cancel
+        # against the variable's degree, so masking the energy is exact
+        mask = ctx.masks.get(f.id)
+        if mask is not None:
+            ae = ae * mask
+        if f.plate is not None and n_copies > 1 and ae.ndim >= 2 \
+                and ae.shape[1] == 1:
+            # every interface shared by the copies: one energy stands for
+            # plate.size copies
+            ae = ae * n_copies
+        total = _per_element(ae, batch)
+
+        h = 0.0
+        paired = ()
+        if self.is_chain_transition:
+            # the structured pair q(out, in) of each step
+            cross = chain_cross[f.out.var.name]
+            q_out, q_in = q["out"], q["in"]
+            if f.fform == "DiscreteTransition":
+                hp = discrete_pair_entropy(cross)
+            elif self.chain_scalar:
+                hp = gaussian_pair_entropy(q_out.var(), q_in.var(), cross,
+                                           scalar=True)
+            else:
+                hp = gaussian_pair_entropy(q_out.cov(), q_in.cov(), cross,
+                                           scalar=False)
+            h = _per_element(hp, batch)
+            paired = ("out", "in")
+        for name, v in f.all_interfaces().items():
+            qv = q.get(name)
+            if name in paired or qv is None or isinstance(qv, PointMass):
+                continue
+            if isinstance(v, Ref) and v.var.kind == "random":
+                # a chain transition's random matrix or noise precision too:
+                # the JAX package leaves it out, so its FE of such a chain
+                # misses (copies) x H of that marginal
+                cov = _coverage(f, v)
+                hv = (_slots(entropies[v.var.name], cov)
+                      if entropies and v.var.name in entropies
+                      else qv.entropy())
+                # a plated factor's shared interface: one copy per slot
+                if f.plate is not None and cov is None:
+                    hv = hv * n_copies
+                h = h + _per_element(hv, batch)
+        return total - h
+
+
+def _slots(h, cov):
+    """The slots ``cov`` (``_coverage``) of a variable's per-slot entropy
+    (B, slots) (or (B,) for a single-copy variable), as ``build_q`` takes
+    them of its marginal."""
+    if cov is None:
+        return h
+    if isinstance(cov, int):
+        return h.select(1, cov)
+    return h.narrow(1, cov[0], cov[1] - cov[0])
+
+
+def variable_entropies(graph: ModelGraph, state: dict) -> dict:
+    """Each random variable's entropy per slot over the batch; a point-mass
+    marginal has none."""
+    return {var.name: state[var.name].entropy()
+            for var in graph.random_variables()
+            if not isinstance(state[var.name], PointMass)}
+
+
+def variable_entropy_term(graph: ModelGraph, state: dict, degrees: dict,
+                          batch: int, entropies: dict | None = None):
+    """sum_i (d_i - 1) H[q_i] over the random variables (per slot), (B,).
+    Point-mass marginals contribute nothing: their -inf entropies cancel
+    against the factors' terms.  ``degrees`` maps each variable to its slot
+    degrees (``slot_degrees``; an array variable's may already be a tensor
+    on the state's device); ``entropies`` (``variable_entropies``) saves
+    evaluating them here."""
+    if entropies is None:
+        entropies = variable_entropies(graph, state)
+    total = 0.0
+    for var in graph.random_variables():
+        if var.name not in entropies:
+            continue
+        h = entropies[var.name]
+        deg = degrees[var.name]
+        if var.is_array:
+            w = torch.as_tensor(deg, dtype=h.dtype, device=h.device) - 1.0
+            term = _per_element(w * h, batch)
+        else:
+            term = (float(deg[0]) - 1.0) * _per_element(h, batch)
+        total = total + term
+    return total

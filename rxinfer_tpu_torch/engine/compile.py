@@ -13,16 +13,19 @@ models of Gaussian chains, discrete chains and plain conjugate groups need
 with ``constraints=None``: block construction with compile-time rule
 resolution, ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
 (``_sweep_once``, batch-major under a ``BatchContext``: one dataset is a
-batch of one), ``make_program``, ``run``, ``run_iterative`` (host loop with
-per-iteration callbacks), ``predict`` and ``make_batched_program``.  A plain
-group is built for every random variable that is not a chain, in a family
-the port has a natural-parameter view for (``gaussian``, ``mv_gaussian``,
-``categorical``, ``dirichlet_collection``, ``gamma``, ``wishart``).  Not
-ported yet (they raise ``NotImplementedError``): plain groups of other
-families (``inverse_gamma``, ``beta``, ...), the plain-group branches listed
-in ``engine/blocks.py``,
-AR/GCV chains, constraints, meta, tree-scheduled (auto-initialized) loopy
-models, free energy, streaming ticks and ``mu()`` outbound messages.
+batch of one), the Bethe free energy after each sweep (``degrees``,
+``fe_factors``, ``_free_energy``; ``options={"check_objective": True}``
+stops a host-driven run at a non-finite value), ``make_program``, ``run``,
+``run_iterative`` (host loop with per-iteration callbacks), ``predict`` and
+``make_batched_program``.  A plain group is built for every random variable
+that is not a chain, in a family the port has a natural-parameter view for
+(``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``, ``categorical``,
+``dirichlet_collection``, ``gamma``, ``wishart``).  Not ported yet (they
+raise ``NotImplementedError``): plain groups of other families
+(``inverse_gamma``, ...), the plain-group branches listed in
+``engine/blocks.py``, AR/GCV chains, constraints, meta, tree-scheduled
+(auto-initialized) loopy models, streaming ticks and ``mu()`` outbound
+messages.
 """
 
 from __future__ import annotations
@@ -38,6 +41,12 @@ from ..dists import tree_map
 from ..dists.natural import NAT_EVENT_RANKS
 from ..graph.ir import Const, Factor, ModelGraph, Ref, SymIndex
 from ..rules.registry import get_message_rule, get_node
+from .bethe import (
+    FactorFE,
+    slot_degrees,
+    variable_entropies,
+    variable_entropy_term,
+)
 from .blocks import (
     BatchContext,
     DiscreteChainBlock,
@@ -353,6 +362,8 @@ class CompiledModel:
                 "PyTorch package yet (float32 only)."
             )
         self.warn = options.get("warn", True)
+        # a host-driven run (callbacks) stops at a non-finite free energy
+        self.check_objective = options.get("check_objective", False)
         # "int8" / "float8_e4m3fn": a batched program quantizes its
         # observations once per call, per (chain, channel) over time
         # (ops/quantized.py), and the chain-evidence einsum of every sweep
@@ -398,8 +409,55 @@ class CompiledModel:
                     "and discrete chains are ported to the PyTorch package "
                     "yet."
                 )
+        # free-energy plan: the degrees now (static), the factor evaluators
+        # when free_energy=True first asks for them
+        self._chain_factor_ids = {id(spec.transition)
+                                  for spec in self.chains.values()}
+        self.degrees = {v.name: slot_degrees(graph, v)
+                        for v in graph.random_variables()}
+        self._fe_factors = None
+        self._fe_degrees: dict = {}
         self._plan_report: Optional[dict] = None
         self._programs: dict = {}
+
+    @property
+    def fe_factors(self) -> list:
+        if self._fe_factors is None:
+            self._fe_factors = [
+                FactorFE(
+                    f,
+                    is_chain_transition=id(f) in self._chain_factor_ids,
+                    chain_scalar=(f.out.var.kind == "random"
+                                  and f.out.var.name in self.chains
+                                  and self.infos[f.out.var.name].event_shape
+                                  == ()),
+                )
+                for f in self.graph.factors
+            ]
+        return self._fe_factors
+
+    def _free_energy(self, state: dict, chain_cross: dict, data: dict,
+                     ctx: BatchContext):
+        """The Bethe free energy of the batch at ``state``, (B,): the
+        variables' entropy term, then each factor's, in the graph's order
+        (``data`` zero-filled where missing, ``ctx.masks`` its masks)."""
+        data = self._with_derived(data)
+        degrees = self._fe_degrees.get(ctx.device)
+        if degrees is None:
+            # an array variable's degrees on the device once, not a host
+            # copy per sweep
+            degrees = self._fe_degrees[ctx.device] = {
+                v.name: (torch.as_tensor(self.degrees[v.name],
+                                         dtype=torch.float32,
+                                         device=ctx.device)
+                         if v.is_array else self.degrees[v.name])
+                for v in self.graph.random_variables()}
+        entropies = variable_entropies(self.graph, state)
+        total = variable_entropy_term(self.graph, state, degrees, ctx.batch,
+                                      entropies)
+        for ffe in self.fe_factors:
+            total = total + ffe(state, data, chain_cross, ctx, entropies)
+        return total
 
     def _plain_group(self, var) -> PlainGroup:
         """The conjugate group of a non-chain variable: every interface at
@@ -538,30 +596,49 @@ class CompiledModel:
 
     def _iterate(self, data: dict, ctx: BatchContext, init: dict,
                  iterations: int, keep_each: bool,
-                 fused: Optional[dict] = None, registry=None):
+                 fused: Optional[dict] = None, registry=None,
+                 free_energy: bool = False):
         """``iterations`` sweeps from ``init`` (``_device_init``) broadcast
-        over the batch.  Returns the final state and, under ``keep_each``,
-        the state after every sweep.  With a ``registry`` each sweep fires
-        ``before_iteration`` / ``after_iteration`` and a handler may stop
-        the loop (``event.stop_iteration``)."""
+        over the batch.  Returns the final state, under ``keep_each`` the
+        state after every sweep, and with ``free_energy`` the free energy
+        after every sweep, (iterations, B) (else (0, B)).  With a
+        ``registry`` each sweep fires ``before_iteration`` /
+        ``after_iteration`` (with the free energy of a batch of one, or
+        None) and a handler may stop the loop (``event.stop_iteration``);
+        ``check_objective`` then raises at a non-finite free energy."""
         state = {name: tree_map(
             lambda a: a.expand((ctx.batch,) + tuple(a.shape)), d)
             for name, d in init.items()}
         chain_cross: dict = {}
         history = []
+        fes = []
         for i in range(iterations):
             if registry is not None:
                 registry.invoke("before_iteration", iteration=i)
             state, chain_cross = self._sweep_once(
                 dict(state), dict(chain_cross), data, ctx, fused)
+            if free_energy:
+                fes.append(self._free_energy(state, chain_cross, data, ctx))
             if keep_each:
                 history.append(dict(state))
             if registry is not None:
+                fe_host = (float(fes[-1][0]) if free_energy
+                           and ctx.batch == 1 else None)
+                if (free_energy and self.check_objective
+                        and not bool(torch.isfinite(fes[-1]).all())):
+                    raise FloatingPointError(
+                        f"Bethe free energy became non-finite at iteration "
+                        f"{i} ({fes[-1].tolist()}). Reference diagnostic: "
+                        "ObjectiveDiagnosticCheckNaNs/Infs "
+                        "(src/score/diagnostics.jl) — check the model "
+                        "parametrization and initialization.")
                 ev = registry.invoke("after_iteration", iteration=i,
-                                     free_energy=None)
+                                     free_energy=fe_host)
                 if ev.stop_iteration:
                     break
-        return state, history
+        fe = (torch.stack(fes) if fes
+              else torch.zeros((0, ctx.batch), device=ctx.device))
+        return state, history, fe
 
     def make_program(self, iterations: int, free_energy: bool,
                      keep_each: bool, all_finite: bool = True,
@@ -569,12 +646,12 @@ class CompiledModel:
         """The single-dataset program: data dict (no batch axis) ->
         (state, fe, history), every chain solved by its block's update
         (the scans of ops/kalman.py and ops/discrete_chain.py, never the
-        fused kernels) as a batch of one.  ``fe`` is an empty (0,) tensor:
-        free energy is not ported yet."""
+        fused kernels) as a batch of one.  ``fe`` is the free energy after
+        each sweep, (iterations,) (an empty (0,) tensor without
+        ``free_energy``)."""
         if free_energy:
-            raise NotImplementedError(
-                "free_energy=True is not ported to the PyTorch package yet "
-                "(ROADMAP A2).")
+            # built now, so that an unported branch raises before a sweep
+            _ = self.fe_factors
         device = torch.device(device)
         init = self._device_init(device)
         consts: dict = {}   # model constants on the device, kept across calls
@@ -586,10 +663,10 @@ class CompiledModel:
                 {k: np.asarray(v)[None] if not isinstance(v, torch.Tensor)
                  else v[None] for k, v in data.items()}, all_finite, device)
             ctx = BatchContext(device, 1, consts, masks)
-            state, history = self._iterate(data, ctx, init, iterations,
-                                           keep_each, registry=registry)
-            return (unbatch(state), torch.zeros((0,), device=device),
-                    [unbatch(h) for h in history])
+            state, history, fe = self._iterate(
+                data, ctx, init, iterations, keep_each, registry=registry,
+                free_energy=free_energy)
+            return unbatch(state), fe[:, 0], [unbatch(h) for h in history]
 
         return program
 

@@ -4,9 +4,10 @@
 Event shapes and marginal families of every random variable are resolved
 statically from constant hyperparameters and data shapes.  Ported subset: the
 tables for the node set of ``rules/nodes.py``: the Gaussian and discrete
-nodes and the precision priors ``GammaShapeRate`` and ``Wishart``, with a
-random precision input resolved to a ``gamma`` (scalar) or ``wishart``
-(d x d) group; variables reached only through nodes that are not ported yet
+nodes, ``Beta`` / ``Bernoulli`` (a random ``p`` is a ``beta`` group) and
+the precision priors ``GammaShapeRate`` and ``Wishart``, with a random
+precision input resolved to a ``gamma`` (scalar) or ``wishart`` (d x d)
+group; variables reached only through nodes that are not ported yet
 stay unresolved and raise.
 """
 
@@ -25,6 +26,8 @@ _OUT_FAMILY = {
     "MvNormalMeanPrecision": "mv_gaussian",
     "MvLinearGaussianCovariance": "mv_gaussian",
     "MvLinearGaussianPrecision": "mv_gaussian",
+    "Beta": "beta",
+    "Bernoulli": "bernoulli",
     "GammaShapeRate": "gamma",
     "Wishart": "wishart",
     "Categorical": "categorical",
@@ -47,6 +50,7 @@ _INPUT_FAMILY = {
     ("LinearGaussianPrecision", "prec"): "gamma",
     ("DiscreteTransition", "in"): "categorical",
     ("DiscreteTransition", "matrix"): "dirichlet_collection",
+    ("Bernoulli", "p"): "beta",
 }
 
 
@@ -84,7 +88,7 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
 
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
               "LinearGaussianCovariance", "LinearGaussianPrecision",
-              "GammaShapeRate"):
+              "GammaShapeRate", "Beta", "Bernoulli"):
         return ()
     if ff == "Categorical":
         s = shape_of("p")
@@ -170,7 +174,8 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
                             tuple(f.out.var.event_shape or ())
                             if f.out.var.kind == "data" else None)
                         s = infer_input_shape(f, name, out_shape)
-                        if s is None and fam == "gamma":
+                        if s is None and fam in ("gamma", "beta",
+                                                 "bernoulli"):
                             s = ()
                         if s is None and fam == "wishart" and out_shape:
                             s = (out_shape[-1], out_shape[-1])

@@ -1,20 +1,22 @@
 """Python ``@model`` DSL (counterpart of ``rxinfer_tpu/graph/dsl.py``).
 
 Ported subset, what the linear-Gaussian state-space model and the HMM
-need: ``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
+need, and the conjugate models of the Beta-Bernoulli and Gaussian families:
+``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
 keyword aliases, data assignment ``y[t] = ...``, ``numpy_array @ x[t]`` (or
 ``a * x[t] + b``) folding into a LinearGaussian factor, ``Categorical``,
-``DirichletCollection``, ``Transition`` (alias ``DiscreteTransition``) and
-``Gamma`` (shape/rate; its plain groups are not ported yet and raise when the
-model is compiled).  Model constants stay numpy arrays, as in the JAX
-package; numpy defers ``A @ x`` to ``RVRef.__rmatmul__``.  Outside a trace
-``Normal``/``MvNormal``/``Categorical``/``DirichletCollection`` build
-distributions of torch tensors.
+``DirichletCollection``, ``Transition`` (alias ``DiscreteTransition``),
+``Gamma`` (shape/rate), ``Wishart``, ``Beta`` and ``Bernoulli``.  Model
+constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
+to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
+distributions of torch tensors, and such a distribution object used inside
+a trace becomes a prior factor of its own (one per object, as the JAX
+package's ``_lift_dist`` does).
 
 Not ported yet (they raise ``NotImplementedError``): sums of random variables
 (GaussianSum / LinComb nodes), dot products, the scale-precision family,
-distribution objects used as priors, submodel scopes, ``where`` blocks, grid
-latents, folded data arithmetic and the rest of the node vocabulary.
+submodel scopes, ``where`` blocks, grid latents, folded data arithmetic and
+the rest of the node vocabulary.
 """
 
 from __future__ import annotations
@@ -317,9 +319,9 @@ def _as_interface(v) -> Any:
     if isinstance(v, PointMass):
         return Const(np.asarray(v.point.detach().cpu()))
     if isinstance(v, Distribution):
-        raise NotImplementedError(
-            "distribution objects as priors inside @model are not ported to "
-            "the PyTorch package yet.")
+        # a distribution object where a random variable is expected: a prior
+        # factor of its own, one per object
+        return _lift_dist(v).ref
     arr = np.asarray(v)
     if arr.dtype == object:
         raise TypeError(
@@ -341,6 +343,8 @@ def _direct_dist(fform: str, *args):
         "NormalMeanPrecision": D.NormalMeanPrecision,
         "MvNormalMeanCovariance": D.MvNormalMeanCovariance,
         "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
+        "Beta": D.Beta,
+        "Bernoulli": D.Bernoulli,
         "Categorical": D.Categorical.from_probs,
         "DirichletCollection": D.DirichletCollection,
         "GammaShapeRate": D.GammaShapeRate,
@@ -352,6 +356,50 @@ def _direct_dist(fform: str, *args):
             "yet.")
     return table[fform](*[torch.as_tensor(np.asarray(a, np.float32))
                           for a in args])
+
+
+def _lift_dist(d) -> RVRef:
+    """The prior factor of a distribution object used inside a trace: its
+    parameters become the factor's constants.  One random variable per
+    object (memoized by identity), emitted outside the active plates, as a
+    ``theta ~ prior`` above the loop."""
+    from .. import dists as D
+
+    b = _builder()
+    memo = b.__dict__.setdefault("_dist_lift_memo", {})
+    hit = memo.get(id(d))
+    if hit is not None:
+        return hit[1]
+
+    def c(t):
+        return np.asarray(t.detach().cpu(), np.float32)
+
+    table = {
+        D.NormalMeanVariance: lambda: Normal(mean=c(d.mu), var=c(d.v)),
+        D.NormalMeanPrecision: lambda: Normal(mean=c(d.mu), precision=c(d.w)),
+        D.MvNormalMeanCovariance: lambda: MvNormal(mean=c(d.mu),
+                                                   cov=c(d.sigma)),
+        D.MvNormalMeanPrecision: lambda: MvNormal(mean=c(d.mu),
+                                                  precision=c(d.w)),
+        D.Beta: lambda: Beta(c(d.a), c(d.b)),
+        D.Bernoulli: lambda: Bernoulli(c(d.p)),
+        D.GammaShapeRate: lambda: Gamma(shape=c(d.a), rate=c(d.b)),
+        D.Categorical: lambda: Categorical(c(d.probs())),
+        D.DirichletCollection: lambda: DirichletCollection(c(d.alpha)),
+        D.Wishart: lambda: Wishart(c(d.nu), c(d.s)),
+    }
+    ctor = table.get(type(d))
+    if ctor is None:
+        raise NotImplementedError(
+            f"`{type(d).__name__}` as a prior inside @model is not ported to "
+            "the PyTorch package yet.")
+    saved, b.plate_stack = b.plate_stack, []
+    try:
+        ref = ctor()
+    finally:
+        b.plate_stack = saved
+    memo[id(d)] = (d, ref)  # keeps d alive, so its id stays unique
+    return ref
 
 
 def _gaussian(kind_scalar: str, kwargs: dict) -> RVRef:
@@ -459,6 +507,19 @@ def Wishart(nu, S) -> RVRef:
         return _direct_dist("Wishart", nu, S)
     return _builder().emit("Wishart", {"nu": _as_interface(nu),
                                        "S": _as_interface(S)})
+
+
+def Beta(a, b) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Beta", a, b)
+    return _builder().emit("Beta", {"a": _as_interface(a),
+                                    "b": _as_interface(b)})
+
+
+def Bernoulli(p) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Bernoulli", p)
+    return _builder().emit("Bernoulli", {"p": _as_interface(p)})
 
 
 def Categorical(p) -> RVRef:

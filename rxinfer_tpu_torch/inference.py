@@ -6,18 +6,23 @@ Ported: ``infer`` in batch mode (one dataset; ``InferenceResult``,
 defaults, callbacks, ``benchmark=``, ``trace=`` and ``showprogress=``),
 ``batched_program``, ``infer_batched`` (with ``predictvars``),
 ``BatchedInferenceResult``, ``KeepLast`` / ``KeepEach`` and
-``_extract_posteriors``, with the port's own caches.  ``infer`` solves every
-chain with the scans of ``ops/kalman.py`` / ``ops/discrete_chain.py``, never
-with the fused kernels, as the JAX package does.  Posteriors are whatever
-the blocks produce (batched: every leaf with the batch axis first): Gaussian
-chains, ``Categorical`` chains, ``DirichletCollection``, Gaussian,
-``GammaShapeRate`` and ``Wishart`` plain groups.  Every entry point runs on ``"cuda"`` unless the caller passes
-another ``device``; with no device given and no CUDA device present it
-raises ``RuntimeError`` rather than carry on on the CPU.
+``_extract_posteriors``, with the port's own caches, and ``free_energy=True``
+on all three entry points: the Bethe free energy after every sweep,
+(iterations,) for ``infer`` and (iterations, B) for the batched ones, with
+``infer(free_energy_diagnostics=)`` (``diagnostics.py``).  ``infer`` solves
+every chain with the scans of ``ops/kalman.py`` / ``ops/discrete_chain.py``,
+never with the fused kernels, as the JAX package does.  Posteriors are
+whatever the blocks produce (batched: every leaf with the batch axis
+first): Gaussian chains, ``Categorical`` chains, ``DirichletCollection``,
+Gaussian, ``Beta``, ``GammaShapeRate`` and ``Wishart`` plain groups.  Every
+entry point runs on ``"cuda"`` unless the caller passes another ``device``;
+with no device given and no CUDA device present it raises ``RuntimeError``
+rather than carry on on the CPU.
 
 Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): streaming (``datastream`` / ``autoupdates``), ``free_energy=True``,
-``annotations``, ``constraints``, ``meta``, a ``postprocess`` strategy,
+item): streaming (``datastream`` / ``autoupdates``), ``annotations`` and
+mixture models (whose free energy the JAX package composes from exact
+mixture evidences), ``constraints``, ``meta``, a ``postprocess`` strategy,
 ``shared=`` and ``mesh=``.
 """
 
@@ -74,8 +79,8 @@ def iserror(result) -> bool:
 
 
 class InferenceResult:
-    """Posteriors, free energy (None until free energy is ported), the
-    compiled model and the wall time of one ``infer`` call."""
+    """Posteriors, the free-energy trace (None without ``free_energy=True``),
+    the compiled model and the wall time of one ``infer`` call."""
 
     def __init__(self, posteriors, free_energy, model, elapsed_s):
         self.posteriors = posteriors
@@ -175,8 +180,9 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     """Compile (and cache) the batch-native inference program for ``data``
     (every leaf carrying a leading batch axis).  Returns ``(compiled_model,
     program)``; the program maps the batched data dict to ``(state,
-    free_energy (0, B), history)``.  Eligible chain blocks run on the fused
-    kernels (engine/batched.py)."""
+    free_energy, history)``, the free energy (iterations, B) with
+    ``free_energy=True`` and (0, B) without.  Eligible chain blocks run on
+    the fused kernels (engine/batched.py)."""
     device = _resolve_device(device)
     if shared or psum_axis is not None:
         raise NotImplementedError(
@@ -207,9 +213,9 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
 
 
 _UNPORTED_INFER = (
-    ("datastream", "A5"), ("autoupdates", "A5"), ("free_energy", "A2"),
-    ("annotations", "A2/A4"), ("mesh", "A7"), ("constraints", "A6"),
-    ("meta", "A6"), ("postprocess", "A6"),
+    ("datastream", "A5"), ("autoupdates", "A5"), ("annotations", "A4"),
+    ("mesh", "A7"), ("constraints", "A6"), ("meta", "A6"),
+    ("postprocess", "A6"),
 )
 
 
@@ -236,7 +242,8 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
           autoupdates: Any = None, initialization: Optional[dict] = None,
           constraints: Any = None, meta: Any = None,
           options: Optional[dict] = None, iterations: Optional[int] = None,
-          free_energy: bool = False, predictvars: Any = None,
+          free_energy: bool = False, free_energy_diagnostics: Any = "default",
+          predictvars: Any = None,
           returnvars: Any = None, keephistory: int = 0,
           historyvars: Any = None, showprogress: bool = False,
           callbacks: Optional[dict] = None, benchmark: bool = False,
@@ -253,8 +260,10 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
     ``iterations`` is given and ``KeepLast()`` otherwise; a dict selects
     variables (unknown names warn).  ``predictvars`` defaults to every data
     entry holding NaN (missing) values; a list keeps final-state
-    predictions.  ``catch_exception=True`` returns a result carrying
-    ``error`` and ``traceback`` instead of raising."""
+    predictions.  ``free_energy=True`` returns the Bethe free energy after
+    every sweep, checked by ``free_energy_diagnostics`` (NaN and Inf by
+    default; ``None`` checks nothing).  ``catch_exception=True`` returns a
+    result carrying ``error`` and ``traceback`` instead of raising."""
     device = _resolve_device(device)
     if data is None and datastream is None and autoupdates is None:
         raise ValueError(
@@ -274,6 +283,7 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
         autoupdates=autoupdates, initialization=initialization,
         constraints=constraints, meta=meta, options=options,
         iterations=iterations, free_energy=free_energy,
+        free_energy_diagnostics=free_energy_diagnostics,
         predictvars=predictvars, returnvars=returnvars,
         showprogress=showprogress, callbacks=callbacks,
         benchmark=benchmark, trace=trace, annotations=annotations,
@@ -295,8 +305,8 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
 
 
 def _infer(warn_opt: bool, model, data, initialization, options, iterations,
-           predictvars, returnvars, showprogress, callbacks, benchmark,
-           trace, device, **unported):
+           free_energy, free_energy_diagnostics, predictvars, returnvars,
+           showprogress, callbacks, benchmark, trace, device, **unported):
     for name, item in _UNPORTED_INFER:
         val = unported[name]
         if val is not None and val is not False and not (
@@ -386,13 +396,24 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
 
     registry.invoke("before_inference")
     if registry.empty:
-        state, _, history = compiled.run(data, iterations=iterations,
-                                         keep_each=keep_each, device=device)
+        state, fe, history = compiled.run(
+            data, iterations=iterations, free_energy=free_energy,
+            keep_each=keep_each, device=device)
     else:
-        state, _, history = compiled.run_iterative(
-            data, iterations=iterations, free_energy=False,
+        state, fe, history = compiled.run_iterative(
+            data, iterations=iterations, free_energy=free_energy,
             registry=registry, keep_each=keep_each, device=device)
     registry.invoke("after_inference")
+    if free_energy:
+        from .diagnostics import (
+            DefaultObjectiveDiagnosticChecks,
+            apply_fe_diagnostics,
+        )
+
+        apply_fe_diagnostics(
+            DefaultObjectiveDiagnosticChecks
+            if free_energy_diagnostics == "default"
+            else free_energy_diagnostics, fe)
 
     posteriors = _extract_posteriors(compiled, state)
     predictions = {}
@@ -440,8 +461,8 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
                    and isinstance(p, list) else p)
             for name, p in posteriors.items() if name in rv_dict
         }
-    result = InferenceResult(posteriors, None, compiled,
-                             time.perf_counter() - t0)
+    result = InferenceResult(posteriors, fe if free_energy else None,
+                             compiled, time.perf_counter() - t0)
     result.predictions = predictions
     result.benchmark = bench_cb
     result.trace = trace_cb
@@ -477,7 +498,8 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
                   options: Optional[dict] = None, returnvars: Any = None,
                   predictvars: Any = None, annotations: Any = None,
                   mesh: Any = None, mesh_axis: str = "dp",
-                  shared: Any = (), device: Any = None):
+                  shared: Any = (), device: Any = None,
+                  free_energy_diagnostics: Any = None):
     """Batched inference over B independent datasets.
 
     Every value in ``data`` carries a leading batch axis; the model is traced
@@ -491,11 +513,14 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
     leading batch axis (lists per iteration under ``returnvars=KeepEach()``);
     ``predictvars`` (names of data variables) gives each one's
     posterior-predictive distribution over the batch from the final state,
-    under ``.predictions``.  A batch whose chain moments exceed
-    ``options["hbm_budget_bytes"]`` runs as sequential chunks of one
-    program."""
+    under ``.predictions``.  ``free_energy=True`` gives every dataset's
+    Bethe free energy after every sweep, (iterations, B), checked by
+    ``free_energy_diagnostics`` when given (the JAX package checks none
+    here, so nothing by default).  A batch whose chain moments (and free
+    energy's working set) exceed ``options["hbm_budget_bytes"]`` runs as
+    sequential chunks of one program."""
     device = _resolve_device(device)
-    for name, val, item in (("annotations", annotations, "A2/A4"),
+    for name, val, item in (("annotations", annotations, "A4"),
                             ("mesh", mesh, "A7")):
         if val:
             raise NotImplementedError(
@@ -512,7 +537,7 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
 
     batch = int(np.shape(next(iter(data.values())))[0])
     budget = (options or {}).get("hbm_budget_bytes") or DEFAULT_HBM_BUDGET
-    chunk = batch_chunk_size(compiled, batch, budget)
+    chunk = batch_chunk_size(compiled, batch, budget, free_energy)
     if chunk is None:
         state, fe, history = prog(data)
     else:
@@ -564,6 +589,10 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
         ctx = BatchContext(device, batch, {}, masks)
         for name in predictvars:
             predictions[name] = compiled.predict(state, data_dev, name, ctx)
+    if free_energy:
+        from .diagnostics import apply_fe_diagnostics
+
+        apply_fe_diagnostics(free_energy_diagnostics, fe)
     return BatchedInferenceResult(posteriors, fe if free_energy else None,
                                   predictions)
 

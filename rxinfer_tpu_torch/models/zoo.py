@@ -1,5 +1,6 @@
 """Prebuilt models (counterpart of ``rxinfer_tpu/models/zoo.py``; the
-linear-Gaussian state-space model and the hidden Markov model are
+Beta-Bernoulli model, the linear-Gaussian state-space model, the Gaussian
+with unknown mean and precision and the hidden Markov model are
 ported)."""
 
 from __future__ import annotations
@@ -7,6 +8,17 @@ from __future__ import annotations
 import numpy as np
 
 from ..graph import dsl as rx
+
+
+def beta_bernoulli(a: float = 1.0, b: float = 1.0):
+    @rx.model
+    def beta_bernoulli(y):
+        theta = rx.Beta(a, b)
+        for i in rx.plate(len(y)):
+            y[i] = rx.Bernoulli(theta)
+        return {"theta": theta}
+
+    return beta_bernoulli
 
 
 def lgssm(A, Q, B, R, m0, V0):
@@ -26,6 +38,18 @@ def lgssm(A, Q, B, R, m0, V0):
         return {"x": x}
 
     return lgssm
+
+
+def gaussian_unknown_mean_precision(m0=0.0, v0=100.0, a0=0.01, b0=0.01):
+    @rx.model
+    def gauss(y):
+        mu = rx.Normal(mean=m0, var=v0)
+        tau = rx.Gamma(shape=a0, rate=b0)
+        for i in rx.plate(len(y)):
+            y[i] = rx.Normal(mean=mu, precision=tau)
+        return {"mu": mu, "tau": tau}
+
+    return gauss
 
 
 def hmm(k: int, m: int):

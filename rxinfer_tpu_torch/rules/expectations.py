@@ -3,15 +3,18 @@
 
 Ported subset: ``e_mean``, ``e_var``, ``e_cov``, ``e_sq`` and
 ``e_precision`` over the Gaussian families, ``GammaShapeRate``, ``Wishart``
-(and its inverse-scale carrier) and PointMass.  The log-expectations
-(``e_log``, ``e_logdet``) arrive with free energy.
+(and its inverse-scale carrier) and PointMass, and the log-expectations the
+average energies read: ``e_log`` and ``e_mirrorlog`` (Beta, Gamma,
+DirichletCollection, PointMass), ``e_log_precision`` (Gamma, PointMass) and
+``e_logdet`` (Wishart, PointMass).  The InverseWishart branches arrive with
+that family.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..dists import Distribution, PointMass, Wishart
+from ..dists import Distribution, PointMass, Wishart, pd_logdet
 
 
 def e_mean(d: Distribution):
@@ -47,3 +50,33 @@ def e_precision(d: Distribution):
     if isinstance(d, Wishart):
         return d.nu[..., None, None] * d.s
     return d.mean()
+
+
+def e_log(d: Distribution):
+    """E[log x] (Gamma / Beta / DirichletCollection / PointMass support)."""
+    if isinstance(d, PointMass):
+        return torch.log(d.point)
+    return d.mean_log()
+
+
+def e_mirrorlog(d: Distribution):
+    """E[log(1 - x)] (Beta / PointMass support)."""
+    if isinstance(d, PointMass):
+        return torch.log(1.0 - d.point)
+    return d.mean_mirrorlog()
+
+
+def e_logdet(d: Distribution):
+    """E[log|X|] for a matrix-valued X (Wishart / PointMass)."""
+    if isinstance(d, PointMass):
+        return pd_logdet(d.point)
+    if isinstance(d, Wishart):
+        return d.mean_logdet()
+    raise TypeError(f"E[log|X|] undefined for {type(d).__name__}")
+
+
+def e_log_precision(d: Distribution):
+    """E[log w] for a scalar precision (Gamma / PointMass)."""
+    if isinstance(d, PointMass):
+        return torch.log(d.point)
+    return d.mean_log()

@@ -11,9 +11,13 @@ the priors of such a precision (``GammaShapeRate`` and ``Wishart``, towards
 ``DirichletCollection`` (towards ``out``) and ``DiscreteTransition``
 (towards ``out``, ``in`` and ``matrix``, and the structured
 ``message_to_out_structured`` that predictions of ``UnfactorizedData``
-take).  Average energies, the messages towards variance / covariance
-interfaces (InverseGamma / InverseWishart carriers) and ``Dirichlet``
-arrive with free energy and the rest of the node library.
+take), and the Beta-Bernoulli pair: ``Beta`` (towards ``out``) and
+``Bernoulli`` (towards ``out`` and ``p``).  Every one of these nodes has its
+``average_energy(q)``, E_q[-log f] per factor copy, which free energy
+reads; a chain transition's reads the structured pair statistics
+``q["joint"]``.  The messages towards variance / covariance interfaces
+(InverseGamma / InverseWishart carriers) and ``Dirichlet`` arrive with the
+rest of the node library.
 
 Rules are batched: leading dimensions of every marginal broadcast, so a whole
 plate of messages is one tensor expression.
@@ -24,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..dists import (
+    Bernoulli,
+    Beta,
     Categorical,
     DirichletCollection,
     GammaShapeRate,
@@ -37,9 +43,31 @@ from ..dists import (
     Wishart,
     WishartInverseScale,
     pd_inverse,
+    pd_logdet,
 )
-from .expectations import e_cov, e_mean, e_precision, e_sq, e_var
+from ..dists.matrix import _mv_gammaln
+from ..dists.scalar_families import betaln
+from .expectations import (
+    e_cov,
+    e_log,
+    e_log_precision,
+    e_logdet,
+    e_mean,
+    e_mirrorlog,
+    e_precision,
+    e_sq,
+    e_var,
+)
 from .registry import node
+
+_LOG2PI = 1.8378770664093453
+_LOG2 = 0.6931471805599453
+
+
+def _scalar_c(q):
+    """E[(out - mean)^2] under independent q(out), q(mean)."""
+    return (e_sq(q["out"]) - 2.0 * e_mean(q["out"]) * e_mean(q["mean"])
+            + e_sq(q["mean"]))
 
 
 # -- scalar Gaussian nodes -------------------------------------------------------
@@ -66,6 +94,11 @@ class NormalMeanVarianceNode:
     @staticmethod
     def vmp_message_to_mean(q):
         return NormalMeanVariance(e_mean(q["out"]), e_mean(q["var"]))
+
+    @staticmethod
+    def average_energy(q):
+        v = q["var"].point   # the port has no random-variance family
+        return 0.5 * (_LOG2PI + torch.log(v) + _scalar_c(q) * (1.0 / v))
 
 
 @node("NormalMeanPrecision")
@@ -95,9 +128,14 @@ class NormalMeanPrecisionNode:
     def message_to_prec(q):
         """Conjugate Gamma message: proportional to w^{1/2} exp(-w C / 2),
         C = E[(out - mean)^2]."""
-        c = e_sq(q["out"]) - 2.0 * e_mean(q["out"]) * e_mean(q["mean"]) \
-            + e_sq(q["mean"])
+        c = _scalar_c(q)
         return GammaShapeRate(torch.full_like(c, 1.5), 0.5 * c)
+
+    @staticmethod
+    def average_energy(q):
+        w = e_precision(q["prec"])
+        elogw = e_log_precision(q["prec"])
+        return 0.5 * (_LOG2PI - elogw + w * _scalar_c(q))
 
 
 # -- multivariate Gaussian nodes ---------------------------------------------------
@@ -131,6 +169,14 @@ class MvNormalMeanCovarianceNode:
     @staticmethod
     def vmp_message_to_mean(q):
         return MvNormalMeanCovariance(e_mean(q["out"]), e_mean(q["cov"]))
+
+    @staticmethod
+    def average_energy(q):
+        cov = q["cov"].point   # the port has no random-covariance family
+        c = _mv_centered_second_moment(q)
+        d = c.shape[-1]
+        return 0.5 * (d * _LOG2PI + pd_logdet(cov)
+                      + torch.einsum("...ij,...ji->...", pd_inverse(cov), c))
 
 
 @node("MvNormalMeanPrecision")
@@ -169,6 +215,15 @@ class MvNormalMeanPrecisionNode:
             torch.full(c.shape[:-2], float(d) + 2.0, dtype=c.dtype,
                        device=c.device), c)
 
+    @staticmethod
+    def average_energy(q):
+        w = e_precision(q["prec"])
+        elogdet = e_logdet(q["prec"])
+        c = _mv_centered_second_moment(q)
+        d = c.shape[-1]
+        return 0.5 * (d * _LOG2PI - elogdet
+                      + torch.einsum("...ij,...ji->...", w, c))
+
 
 # -- linear-Gaussian nodes: out = A @ in + b + noise --------------------------------
 
@@ -180,6 +235,14 @@ def _lg_noise_cov(q):
         return noise.mean()
     w = e_precision(q["prec"])
     return pd_inverse(w) if w.ndim >= 2 else 1.0 / w
+
+
+def _lg_noise_prec(q):
+    if "prec" in q:
+        return e_precision(q["prec"])
+    v = q["cov"]
+    v = v.point if isinstance(v, PointMass) else v.mean()
+    return pd_inverse(v) if v.ndim >= 2 else 1.0 / v
 
 
 class _MvLinearGaussianBase:
@@ -225,6 +288,18 @@ class _MvLinearGaussianBase:
             cross = torch.einsum("...ij,...kj->...ik", joint, a)
             c = c - cross - cross.transpose(-1, -2)
         return c
+
+    @classmethod
+    def average_energy(cls, q):
+        c = cls._centered_second_moment(q)
+        d = c.shape[-1]
+        w = _lg_noise_prec(q)
+        if "prec" in q and not isinstance(q["prec"], PointMass):
+            elogdet = e_logdet(q["prec"])
+        else:
+            elogdet = -pd_logdet(_lg_noise_cov(q))
+        return 0.5 * (d * _LOG2PI - elogdet
+                      + torch.einsum("...ij,...ji->...", w, c))
 
 
 @node("MvLinearGaussianCovariance")
@@ -283,6 +358,17 @@ class _LinearGaussianScalarBase:
             c = c - 2.0 * a * joint
         return c
 
+    @classmethod
+    def average_energy(cls, q):
+        if "prec" in q and not isinstance(q["prec"], PointMass):
+            elogw = e_log_precision(q["prec"])
+            w = e_precision(q["prec"])
+        else:
+            v = cls._noise_var(q)
+            elogw = -torch.log(v)
+            w = 1.0 / v
+        return 0.5 * (_LOG2PI - elogw + w * cls._c2(q))
+
 
 @node("LinearGaussianCovariance")
 class LinearGaussianCovarianceNode(_LinearGaussianScalarBase):
@@ -299,6 +385,44 @@ class LinearGaussianPrecisionNode(_LinearGaussianScalarBase):
         return GammaShapeRate(torch.full_like(c2, 1.5), 0.5 * c2)
 
 
+# -- Beta / Bernoulli ---------------------------------------------------------------
+
+@node("Beta")
+class BetaNode:
+    interfaces = ("out", "a", "b")
+
+    @staticmethod
+    def message_to_out(q):
+        return Beta(e_mean(q["a"]), e_mean(q["b"]))
+
+    @staticmethod
+    def average_energy(q):
+        a, b = e_mean(q["a"]), e_mean(q["b"])
+        return (betaln(a, b) - (a - 1.0) * e_log(q["out"])
+                - (b - 1.0) * e_mirrorlog(q["out"]))
+
+
+@node("Bernoulli")
+class BernoulliNode:
+    interfaces = ("out", "p")
+
+    @staticmethod
+    def message_to_out(q):
+        logit = e_log(q["p"]) - e_mirrorlog(q["p"])
+        return Bernoulli(torch.clamp(1.0 / (1.0 + torch.exp(-logit)),
+                                     1e-12, 1 - 1e-12))
+
+    @staticmethod
+    def message_to_p(q):
+        y = e_mean(q["out"])
+        return Beta(1.0 + y, 2.0 - y)
+
+    @staticmethod
+    def average_energy(q):
+        y = e_mean(q["out"])
+        return -(y * e_log(q["p"]) + (1.0 - y) * e_mirrorlog(q["p"]))
+
+
 # -- precision priors ---------------------------------------------------------------
 
 @node("GammaShapeRate")
@@ -308,6 +432,13 @@ class GammaShapeRateNode:
     @staticmethod
     def message_to_out(q):
         return GammaShapeRate(e_mean(q["shape"]), e_precision(q["rate"]))
+
+    @staticmethod
+    def average_energy(q):
+        a = e_mean(q["shape"])
+        return -((a - 1.0) * e_log(q["out"])
+                 - e_mean(q["rate"]) * e_mean(q["out"])
+                 + a * e_log(q["rate"]) - torch.lgamma(a))
 
 
 @node("Wishart")
@@ -319,6 +450,18 @@ class WishartNode:
         s = q["S"]
         return Wishart(e_mean(q["nu"]),
                        s.point if isinstance(s, PointMass) else e_mean(s))
+
+    @staticmethod
+    def average_energy(q):
+        nu = e_mean(q["nu"])
+        s = q["S"].point if isinstance(q["S"], PointMass) else e_mean(q["S"])
+        d = s.shape[-1]
+        e_x = e_precision(q["out"])
+        return -(0.5 * (nu - d - 1.0) * e_logdet(q["out"])
+                 - 0.5 * torch.einsum("...ij,...ji->...", pd_inverse(s), e_x)
+                 - 0.5 * nu * d * _LOG2
+                 - 0.5 * nu * pd_logdet(s)
+                 - _mv_gammaln(d, 0.5 * nu))
 
 
 # -- Categorical / DirichletCollection / discrete transitions -----------------------
@@ -346,6 +489,10 @@ class CategoricalNode:
     def message_to_out(q):
         return Categorical(_e_log_simplex(q["p"]))
 
+    @staticmethod
+    def average_energy(q):
+        return -torch.sum(_e_onehot(q["out"]) * _e_log_simplex(q["p"]), dim=-1)
+
 
 @node("DirichletCollection")
 class DirichletCollectionNode:
@@ -354,6 +501,16 @@ class DirichletCollectionNode:
     @staticmethod
     def message_to_out(q):
         return DirichletCollection(e_mean(q["alpha"]))
+
+    @staticmethod
+    def average_energy(q):
+        """Summed over the collection's columns (simplex axis -2)."""
+        a = e_mean(q["alpha"])
+        lb = (torch.sum(torch.lgamma(a), dim=-2)
+              - torch.lgamma(torch.sum(a, dim=-2)))
+        return (torch.sum(lb, dim=-1)
+                + torch.sum(-(a - 1.0) * _e_log_simplex(q["out"]),
+                            dim=(-2, -1)))
 
 
 @node("DiscreteTransition")
@@ -388,8 +545,17 @@ class DiscreteTransitionNode:
     def message_to_matrix(cls, q):
         """Conjugate Dirichlet message; ``q["joint"]`` is the structured pair
         marginal q(out, in) of a discrete chain, in [out, in] order."""
+        return DirichletCollection(1.0 + cls._joint(q))
+
+    @staticmethod
+    def _joint(q):
         joint = q.get("joint")
         if joint is None:
             joint = (_e_onehot(q["out"])[..., :, None]
                      * _e_onehot(q["in"])[..., None, :])
-        return DirichletCollection(1.0 + joint)
+        return joint
+
+    @classmethod
+    def average_energy(cls, q):
+        return -torch.sum(cls._joint(q) * _e_log_simplex(q["matrix"]),
+                          dim=(-2, -1))

@@ -6,9 +6,9 @@ to marginals, PointMass for observed values and constants) and optional
 mean-field ``vmp_message_to_<iface>`` variants.  Lookups happen when a program
 is built, never per call.
 
-Ported subset: ``node``, ``get_node``, ``get_message_rule``, ``has_node`` and
-``RuleNotFoundError``.  Not ported: ``trace_messages``, ``call_rule``,
-average-energy lookups and ``NodeFunctionRuleFallback``.
+Ported subset: ``node``, ``get_node``, ``get_message_rule``,
+``get_average_energy``, ``has_node`` and ``RuleNotFoundError``.  Not
+ported: ``trace_messages``, ``call_rule`` and ``NodeFunctionRuleFallback``.
 """
 
 from __future__ import annotations
@@ -41,6 +41,16 @@ def get_node(fform: str):
             f"No node definition registered for '{fform}' in the PyTorch "
             f"port. Registered: {sorted(_NODES)}."
         ) from None
+
+
+def get_average_energy(fform: str) -> Callable:
+    """The node's ``average_energy(q)``, E_q[-log f] per factor copy."""
+    fn = getattr(get_node(fform), "average_energy", None)
+    if fn is None:
+        raise RuleNotFoundError(
+            f"Node '{fform}' defines no average_energy — free_energy=True is "
+            "not supported for models containing it.")
+    return fn
 
 
 def has_node(fform: str) -> bool:

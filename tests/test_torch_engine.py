@@ -226,7 +226,7 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"options": {"fused_moment_dtype": "bfloat16"}}, "fused_moment_dtype"),
-    ({"free_energy": True}, "free_energy"),
+    ({"options": {"matmul_precision": "highest"}}, "matmul_precision"),
     ({"shared": ("x",)}, "shared"),
 ])
 def test_unported_options_raise(kwargs, match):
@@ -235,6 +235,24 @@ def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         trx.batched_program(lgssm_source(trx, *c), {"y": y}, device=CPU,
                             **kwargs)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_batched_free_energy_matches_jax(d):
+    """``free_energy=True`` (refused until the free energy was ported): the
+    (iterations, B) trace against the JAX package's on the same call."""
+    c = constants(d, seed=d)
+    y = observations(3, 30, d, seed=5)
+    _, jprog = jrx.batched_program(lgssm_source(jrx, *c), {"y": y},
+                                   iterations=2, free_energy=True)
+    _, jfe, _ = jprog({"y": jnp.asarray(y)})
+    _, tprog = trx.batched_program(lgssm_source(trx, *c), {"y": y},
+                                   iterations=2, free_energy=True,
+                                   device=CPU)
+    _, tfe, _ = tprog({"y": y})
+    assert tuple(tfe.shape) == (2, 3)
+    np.testing.assert_allclose(tfe.numpy(), np.asarray(jfe), rtol=1e-5,
+                               atol=1e-3)
 
 
 def _unfused_matches_jax(c, y, *, reason, iterations=1, **kwargs):

@@ -244,8 +244,8 @@ def test_programs_are_cached_by_shape_and_bound_values():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"free_energy": True}, "A2"),
-    ({"annotations": object()}, "A2/A4"),
+    ({"autoupdates": object()}, "A5"),
+    ({"annotations": object()}, "A4"),
     ({"datastream": object()}, "A5"),
     ({"mesh": object()}, "A7"),
     ({"constraints": object()}, "A6"),
@@ -257,6 +257,22 @@ def test_unported_infer_arguments_raise_with_their_roadmap_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trx.infer(tzoo.lgssm(*c), data={"y": lgssm_data(6, seed=0)},
                   device=CPU, **kwargs)
+
+
+def test_infer_free_energy_matches_jax():
+    """``free_energy=True`` (refused until the free energy was ported): the
+    trace and ``log_evidence`` against JAX ``infer`` on the same data."""
+    c = lgssm_constants()
+    y = lgssm_data(24, seed=3)
+    jres = jrx.infer(jzoo.lgssm(*c), data={"y": y}, iterations=2,
+                     free_energy=True)
+    tres = trx.infer(tzoo.lgssm(*c), data={"y": y}, iterations=2,
+                     free_energy=True, device=CPU)
+    np.testing.assert_allclose(tres.free_energy.numpy(),
+                               np.asarray(jres.free_energy), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(float(tres.log_evidence),
+                               float(jres.log_evidence), rtol=1e-5)
 
 
 def test_infer_needs_a_device_without_cuda(monkeypatch):
