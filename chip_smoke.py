@@ -89,7 +89,7 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    one dataset of T=200, 20 iterations, phase 5's initialization: the
    float64 VMP (HMM_ORACLE_TOL) and its time; (c) phase 4's cell with
    ``options={"fused_kernels": False}``: the plan report, the posteriors
-   against the fused program's (ORACLE_TOL), the median of 3 calls beside
+   against the fused program's (ORACLE_TOL), its checked call's time beside
    the fused program's phase 4 time, and its peak device memory; (d) ``infer_batched`` on 64
    LGSSM chains of T=10,000 with 10% of the steps NaN: the plan report and
    sampled chains against the float64 RTS with no evidence at the missing
@@ -142,6 +142,29 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``zoo.gaussian_unknown_mean_precision()`` over 4096 datasets of 1000
    points, 10 iterations, against a float64 mean-field VMP's FE
    (FE_GAUSS_TOL).  Results on ``[fe]`` lines.
+13. (Before the JSON line.) BASELINE config 4, the Gaussian mixture of
+   bench.py:487-508: ``zoo.gmm(2, [-2, 2])`` through ``batched_program`` on
+   1000 datasets of 200 points, 20 iterations, that row's initialization,
+   with and without ``free_energy=True``: no kernel launch; sampled rows
+   against a float64 mean-field VMP in the port's group order (GMM_TOL:
+   the posterior parameters of m0, m1, w0, w1 and pi, z's probabilities and
+   the FE of every sweep) and the FE non-increasing (FE_MONOTONE_TOL);
+   each program's median of 10 calls, updates/s = B * iterations * (N + 5)
+   / t (bench.py:508), the device busy and idle share of one profiled call
+   without FE, peak memory.  ``[gmm]`` lines.
+14. BASELINE config 5's engine (bench.py:401-485): the tick model and
+   autoupdates of bench.py:446-460 with ``batched=True`` on 10,000 chains
+   x 200 ticks, d = dy = 4, y from a numpy seed staged on the card: (a)
+   ``run_offline`` through the fused stream plan (which must engage), (b)
+   the generic tick (``returnvars="x"``), (c) ``start(datastream)`` over
+   20 ticks of chain 0, one stream.  No kernel launch; (a) and (b) against
+   a float64 filter with the plan's tick order (posterior, then
+   prediction) on sampled chains and against each other, (c) against (a)'s
+   first ticks and its events in the reference order (STREAM_TOL); (a) and
+   (b) per ``run_offline`` call ((a) the median of 10, (b) of 3), updates/s
+   = B * T / t (bench.py:473, 485), device busy and idle share (from a
+   call over the first STREAM_PROFILE_T ticks), peak memory; path A's K3
+   call (phase 7) beside them for scale.  ``[stream]`` lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -2945,6 +2968,375 @@ def fe_config2_path(device, reps: int, log=print) -> dict:
     return out
 
 
+# -- slice 11: the Gaussian mixture (config 4) and the streaming engine -------------
+
+# Phase 13: bench.py:487-508's GMM cell.  Its float32 program against a
+# float64 mean-field VMP in the port's group order: the posterior
+# parameters of m_i, w_i and pi relative, z's probabilities absolute, the
+# free energy of every sweep relative.  Float32 against float64 over 20
+# sweeps lands at ~1e-6 relative on the parameters and ~1e-6 on the FE
+# (PERF.md, Findings), an order or two under the limits.
+GMM_B, GMM_N, GMM_IT, GMM_LOCS = 1000, 200, 20, (-2.0, 2.0)
+GMM_ROWS = (0, 1, GMM_B // 2, GMM_B - 1)
+GMM_TOL = {"param_rel": 1e-4, "z": 1e-4, "fe_rel": 1e-5}
+# Phase 14: bench.py:401-485's streaming cell, 10,000 chains x 200 ticks,
+# d = dy = 4; (c) drives STREAM_ONLINE_T ticks of chain 0 through on_next.
+# The fused stream plan and the generic tick against a float64 filter with
+# the plan's tick order (absolute, as ORACLE_TOL), against each other and
+# (c) against (a).
+STREAM_B, STREAM_T, STREAM_D = 10_000, 200, 4
+STREAM_ROWS = (0, 1, STREAM_B // 2, STREAM_B - 1)
+STREAM_ONLINE_T = 20
+STREAM_TOL = 1e-4
+# (b)'s time is the median of its checked call and two more (1.1-1.4 s a
+# call on an H100); the device busy share of (a) and (b) is read from a
+# profiled call over the first STREAM_PROFILE_T ticks (every tick does the
+# same work): a profile of a whole call holds 10^4-10^5 events, seconds of
+# the profiler's own processing
+STREAM_PROFILE_T = 20
+# the reference engine's events of a datastream of n ticks with keephistory
+# (the JAX engine's order; tests/test_torch_streaming.py holds the port's
+# against it on the CPU)
+_TICK_EVENTS = ["on_new_data", "before_iteration", "before_auto_update",
+                "after_auto_update", "before_data_update",
+                "on_marginal_update", "after_data_update", "after_iteration",
+                "before_history_save", "after_history_save", "on_tick"]
+
+
+def stream_events(n: int) -> list:
+    return (["before_autostart", "before_start", "after_start",
+             "before_model_creation", "after_model_creation"]
+            + _TICK_EVENTS * n + ["on_complete", "after_autostart"])
+
+
+def gmm_data(b: int, n: int, seed: int) -> np.ndarray:
+    """bench.py:489-492's generator: 40% of the points from N(4, 0.5^2),
+    the rest from N(-1, 0.7^2)."""
+    rng = np.random.default_rng(seed)
+    comp = rng.uniform(size=(b, n)) < 0.4
+    return np.where(comp, 4.0 + 0.5 * rng.standard_normal((b, n)),
+                    -1.0 + 0.7 * rng.standard_normal((b, n))).astype(
+        np.float32)
+
+
+def gmm_vmp_fe_float64(y, iterations, locs=GMM_LOCS, mean_var=100.0,
+                       a0=0.01, b0=0.01):
+    """Mean-field VMP of ``zoo.gmm(k, locs)`` in float64 for the rows of y
+    (n, N), in the port's group order (z, pi, then m_i and w_i in turn),
+    from bench.py:493-499's initialization (m_i ~ N(locs_i, 10), w_i ~
+    Gamma(1, 1), pi ~ Dir(1)).  Returns the final parameters and the Bethe
+    free energy after each sweep, (iterations, n): sum of the factors'
+    average energies minus every variable's entropy."""
+    y = np.asarray(y, np.float64)
+    n, npts = y.shape
+    k = len(locs)
+    locs = np.asarray(locs, np.float64)
+    mu = np.broadcast_to(locs, (n, k)).copy()
+    v = np.full((n, k), 10.0)
+    a = np.ones((n, k))
+    b = np.ones((n, k))
+    alpha = np.ones((n, k))
+    lg = _lgamma64
+    fes = []
+    for _ in range(iterations):
+        # z: E[log pi] and each component's expected log-likelihood
+        elog_pi = digamma64(alpha) - digamma64(alpha.sum(-1, keepdims=True))
+        c = (y[:, :, None] ** 2 - 2.0 * y[:, :, None] * mu[:, None]
+             + (mu ** 2 + v)[:, None])
+        ew, elw = a / b, digamma64(a) - np.log(b)
+        logits = elog_pi[:, None] - 0.5 * (math.log(2 * math.pi)
+                                           - elw[:, None] + ew[:, None] * c)
+        logits -= logits.max(-1, keepdims=True)
+        r = np.exp(logits)
+        r /= r.sum(-1, keepdims=True)
+        alpha = 1.0 + r.sum(1)
+        for i in range(k):
+            ri = r[:, :, i]
+            w = 1.0 / mean_var + (a[:, i] / b[:, i]) * ri.sum(1)
+            xi = locs[i] / mean_var + (a[:, i] / b[:, i]) * (ri * y).sum(1)
+            mu[:, i], v[:, i] = xi / w, 1.0 / w
+            ci = y ** 2 - 2.0 * y * mu[:, i:i + 1] + (mu[:, i] ** 2
+                                                      + v[:, i])[:, None]
+            a[:, i] = a0 + 0.5 * ri.sum(1)
+            b[:, i] = b0 + 0.5 * (ri * ci).sum(1)
+        elog_pi = digamma64(alpha) - digamma64(alpha.sum(-1, keepdims=True))
+        ew, elw = a / b, digamma64(a) - np.log(b)
+        c = (y[:, :, None] ** 2 - 2.0 * y[:, :, None] * mu[:, None]
+             + (mu ** 2 + v)[:, None])
+        ae = (0.5 * (math.log(2 * math.pi * mean_var)
+                     + ((mu - locs) ** 2 + v) / mean_var).sum(-1)
+              - ((a0 - 1.0) * elw - b0 * ew + a0 * math.log(b0)
+                 - math.lgamma(a0)).sum(-1)
+              - (r * elog_pi[:, None]).sum((1, 2))
+              + (r * 0.5 * (math.log(2 * math.pi) - elw[:, None]
+                            + ew[:, None] * c)).sum((1, 2)))
+        a_sum = alpha.sum(-1)
+        h_pi = (lg(alpha).sum(-1) - lg(a_sum) + (a_sum - k) * digamma64(a_sum)
+                - ((alpha - 1.0) * digamma64(alpha)).sum(-1))
+        h_m = 0.5 * np.log(2 * np.pi * np.e * v).sum(-1)
+        h_w = (a - np.log(b) + lg(a) + (1.0 - a) * digamma64(a)).sum(-1)
+        h_z = -(r * np.log(np.maximum(r, 1e-300))).sum((1, 2))
+        fes.append(ae - h_pi - h_m - h_w - h_z)
+    return {"mu": mu, "v": v, "a": a, "b": b, "alpha": alpha, "r": r,
+            "fe": np.stack(fes)}
+
+
+def gmm_path(device, reps: int, log=print) -> dict:
+    """Phase 13: ``zoo.gmm(2, [-2, 2])`` through ``batched_program`` at
+    bench.py:487-508's cell, with and without the free energy: no kernel
+    launch, sampled rows against the float64 VMP (GMM_TOL), the free energy
+    not increasing, the median of ``reps`` calls of each program,
+    updates/s = B * iterations * (N + 5) / t (bench.py:508), the device busy
+    and idle share of one profiled call without FE and the peak device
+    memory."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    y_host = gmm_data(GMM_B, GMM_N, seed=0)
+    y = torch.as_tensor(y_host, device=device)
+    t = lambda v: torch.tensor(v, dtype=torch.float32)
+    init = {"pi": rt.Dirichlet(np.ones(2, np.float32))}
+    for i, loc in enumerate(GMM_LOCS):
+        init[f"m{i}"] = rt.NormalMeanVariance(t(loc), t(10.0))
+        init[f"w{i}"] = rt.GammaShapeRate(t(1.0), t(1.0))
+    model = zoo.gmm(2, list(GMM_LOCS))
+    progs = {}
+    for fe_on in (False, True):
+        compiled, progs[fe_on] = rt.batched_program(
+            model, {"y": y}, iterations=GMM_IT, free_energy=fe_on,
+            initialization=init, device=device)
+    if compiled.sweep != ["z", "pi", "m0", "w0", "m1", "w1"]:
+        raise AssertionError(f"GMM sweep order {compiled.sweep} is not the "
+                             "float64 VMP's")
+    out = {}
+    for fe_on, prog in progs.items():
+        reset_launches()
+        (state, fe, _), peak = _peak_call(device, lambda: prog({"y": y}))
+        out["launches"] = read_launches()
+        expect_launches(out["launches"])
+        out["peak_bytes" + ("_fe" if fe_on else "")] = peak
+    rows = list(GMM_ROWS)
+    want = gmm_vmp_fe_float64(y_host[rows], GMM_IT)
+    got = {
+        "mu": np.stack([state[f"m{i}"].mean()[rows].cpu().numpy()
+                        for i in range(2)], -1),
+        "v": np.stack([state[f"m{i}"].var()[rows].cpu().numpy()
+                       for i in range(2)], -1),
+        "a": np.stack([state[f"w{i}"].a[rows].cpu().numpy()
+                       for i in range(2)], -1),
+        "b": np.stack([state[f"w{i}"].b[rows].cpu().numpy()
+                       for i in range(2)], -1),
+        "alpha": state["pi"].alpha[rows].cpu().numpy(),
+    }
+    errs = {k: _rel(got[k], want[k]) for k in got}
+    errs["z"] = float(np.abs(state["z"].mean()[rows].cpu().numpy()
+                             - want["r"]).max())
+    fe_all = fe.cpu().numpy()
+    errs["fe"] = _rel(fe_all[:, rows], want["fe"])
+    rise = float(np.max(np.diff(fe_all, axis=0) / np.abs(fe_all[:-1])))
+    log(f"[gmm] B={GMM_B} N={GMM_N} {GMM_IT} iterations, rows {rows} "
+        f"against the float64 VMP: max rel err " + ", ".join(
+            f"{k} {errs[k]:.3g}" for k in ("mu", "v", "a", "b", "alpha"))
+        + f" (tol {GMM_TOL['param_rel']}); z abs {errs['z']:.3g} (tol "
+        f"{GMM_TOL['z']}); FE rel {errs['fe']:.3g} (tol {GMM_TOL['fe_rel']})"
+        f"; largest rise of the FE from a sweep to the next {rise:.3g} "
+        f"relative (tol {FE_MONOTONE_TOL}); launches {out['launches']}")
+    bad = [k for k in ("mu", "v", "a", "b", "alpha")
+           if not errs[k] <= GMM_TOL["param_rel"]]
+    if (bad or not errs["z"] <= GMM_TOL["z"]
+            or not errs["fe"] <= GMM_TOL["fe_rel"]
+            or not np.isfinite(fe_all).all() or not rise <= FE_MONOTONE_TOL):
+        raise AssertionError(f"GMM against the float64 VMP: {errs}, rise "
+                             f"{rise}")
+    out["errs"] = errs
+    if device.type != "cuda":
+        return out
+    for fe_on, key in ((False, "program_ms"), (True, "fe_program_ms")):
+        out[key] = _cuda_ms(lambda: progs[fe_on]({"y": y}), reps)
+        out[key.replace("program_ms", "updates_per_s")] = (
+            GMM_B * GMM_IT * (GMM_N + 5) / (out[key] / 1e3))
+    out["busy_ms"] = _device_profile(lambda: progs[False]({"y": y}),
+                                     {})["busy_ms"]
+    log(f"[gmm] program {out['program_ms']:.3f} ms/call "
+        f"({out['updates_per_s']:.4g} updates/s), device busy "
+        f"{out['busy_ms']} ms, idle {_idle_share(out['program_ms'], out['busy_ms'])}"
+        f", peak {out['peak_bytes'] / 1e6:.1f} MB; with FE "
+        f"{out['fe_program_ms']:.3f} ms/call ({out['fe_updates_per_s']:.4g} "
+        f"updates/s), peak {out['peak_bytes_fe'] / 1e6:.1f} MB")
+    return out
+
+
+def stream_filter_float64(pm, pc, ys, f, q, r):
+    """The fused stream plan's recursion in float64 for a few streams:
+    each tick the posterior of x given y_t under the prior (pm, pc) with
+    y ~ N(x, R), then the prediction pm = F m, pc = F P F^T + Q.  pm (n, d),
+    pc (n, d, d), ys (T, n, d); returns the posterior means and
+    covariances, (T, n, d) and (T, n, d, d)."""
+    f, q, r = (np.asarray(a, np.float64) for a in (f, q, r))
+    w_obs = np.linalg.inv(r)
+    m = np.asarray(pm, np.float64)
+    p = np.asarray(pc, np.float64)
+    means = np.empty(ys.shape, np.float64)
+    covs = np.empty(ys.shape + ys.shape[-1:], np.float64)
+    for t in range(ys.shape[0]):
+        lam = np.linalg.inv(p)
+        p = np.linalg.inv(lam + w_obs)
+        m = np.einsum("nij,nj->ni", p, np.einsum("nij,nj->ni", lam, m)
+                      + np.asarray(ys[t], np.float64) @ w_obs.T)
+        means[t], covs[t] = m, p
+        m = m @ f.T
+        p = f @ p @ f.T + q
+    return means, covs
+
+
+def _stream_tick_model(r):
+    """bench.py:446-449's tick: x ~ N(pm, pc), y ~ N(x, R)."""
+    import rxinfer_tpu_torch as rt
+
+    @rt.model
+    def stream_tick(y, pm, pc):
+        x = rt.MvNormal(mean=pm, cov=pc)
+        y.observe(rt.MvNormal(mean=x, cov=r))
+        return {"x": x}
+
+    return stream_tick
+
+
+def _stream_autoupdates(f, q, p0, b, device):
+    """bench.py:451-460's autoupdates (the prediction), in torch on the
+    engine's device; ``b`` streams, or one stream when None."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    ft = torch.as_tensor(f, device=device)
+    qt = torch.as_tensor(q, device=device)
+    d = f.shape[0]
+    lead = () if b is None else (b,)
+    return rt.autoupdates(
+        initial={"pm": np.zeros(lead + (d,), np.float32),
+                 "pc": np.broadcast_to(p0, lead + (d, d)).copy()},
+        pm=lambda qq: qq["x"].mean() @ ft.T,
+        pc=lambda qq: ft @ qq["x"].cov() @ ft.T + qt)
+
+
+def stream_path(device, reps: int, path_a_ms=None, log=print) -> dict:
+    """Phase 14: the streaming engine on config 5's cell (STREAM_B chains x
+    STREAM_T ticks, d = dy = 4, bench.py:401-485's system).  (a)
+    ``run_offline`` through the fused stream plan (it must engage); (b) the
+    generic tick (``returnvars="x"``); (c) ``start(datastream)`` over
+    STREAM_ONLINE_T ticks of chain 0.  No kernel may launch.  (a) and (b)
+    against the float64 filter on sampled chains and against each other,
+    (c) against (a) and its events in the reference order (STREAM_TOL).
+    (a) and (b) timed per ``run_offline`` call (median of ``reps``),
+    updates/s = B T / t (bench.py:473, 485), with the device busy and idle
+    share of one profiled call and the peak device memory."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    f, q, _, r, _, p0 = lgssm_constants(STREAM_D)
+    rng = np.random.default_rng(0)
+    ys_host = rng.standard_normal((STREAM_T, STREAM_B, STREAM_D)).astype(
+        np.float32)
+    ys = torch.as_tensor(ys_host, device=device)
+    obs = {"y": ys}
+    rows = list(STREAM_ROWS)
+    o_m, o_p = stream_filter_float64(
+        np.zeros((len(rows), STREAM_D)),
+        np.broadcast_to(p0, (len(rows), STREAM_D, STREAM_D)),
+        ys_host[:, rows], f, q, r)
+    out = {}
+    engines = {}
+    posts = {}
+    for label, kw in (("a", {}), ("b", {"returnvars": "x"})):
+        eng = engines[label] = rt.infer(
+            model=_stream_tick_model(r), datastream=None,
+            autoupdates=_stream_autoupdates(f, q, p0, STREAM_B, device),
+            batched=True, device=device, **kw)
+        reset_launches()
+        t0 = time.perf_counter()
+        (post, fes), peak = _peak_call(device, lambda: eng.run_offline(obs))
+        out[f"first_ms_{label}"] = (time.perf_counter() - t0) * 1e3
+        out[f"launches_{label}"] = read_launches()
+        expect_launches(out[f"launches_{label}"])
+        out[f"peak_bytes_{label}"] = peak
+        post = posts[label] = post["x"]
+        if tuple(post.mean().shape) != (STREAM_T, STREAM_B, STREAM_D) \
+                or tuple(fes.shape) != (STREAM_T, STREAM_B, 0):
+            raise AssertionError(f"({label}) shapes {tuple(post.mean().shape)}"
+                                 f", {tuple(fes.shape)}")
+        err = max(
+            float(np.abs(post.mean()[:, rows].cpu().numpy() - o_m).max()),
+            float(np.abs(post.cov()[:, rows].cpu().numpy() - o_p).max()))
+        out[f"oracle_err_{label}"] = err
+        log(f"[stream] ({label}) plan {'engaged' if eng._stream_plan else 'off'}"
+            f"; chains {rows} against the float64 filter: max abs err "
+            f"{err:.3g} (tol {STREAM_TOL}); launches "
+            f"{out[f'launches_{label}']}")
+        if not err <= STREAM_TOL:
+            raise AssertionError(f"({label}) against the float64 filter: "
+                                 f"{err}")
+    if not engines["a"]._stream_plan or engines["b"]._stream_plan:
+        raise AssertionError("the fused stream plan did not engage on (a), "
+                             "or engaged on (b)")
+    out["a_vs_b"] = max(
+        float((posts["a"].mean() - posts["b"].mean()).abs().max()),
+        float((posts["a"].cov() - posts["b"].cov()).abs().max()))
+    # (c): one stream through on_next, its events and posteriors
+    eng_c = rt.infer(
+        model=_stream_tick_model(r), autoupdates=_stream_autoupdates(
+            f, q, p0, None, device), keephistory=STREAM_ONLINE_T,
+        datastream=[{"y": ys[k, 0]} for k in range(STREAM_ONLINE_T)],
+        device=device)
+    names = [e.name for e in eng_c.events]
+    out["events_ok"] = names == stream_events(STREAM_ONLINE_T)
+    got_m = torch.stack([h["x"].mean() for h in eng_c.history])
+    got_p = torch.stack([h["x"].cov() for h in eng_c.history])
+    out["c_vs_a"] = max(
+        float((got_m - posts["a"].mean()[:STREAM_ONLINE_T, 0]).abs().max()),
+        float((got_p - posts["a"].cov()[:STREAM_ONLINE_T, 0]).abs().max()))
+    log(f"[stream] (a) against (b): max abs {out['a_vs_b']:.3g}; (c) "
+        f"{STREAM_ONLINE_T} ticks of chain 0 through on_next against (a): "
+        f"{out['c_vs_a']:.3g} (tol {STREAM_TOL}); (c)'s {len(names)} events "
+        f"in the reference order: {out['events_ok']}")
+    if not (out["a_vs_b"] <= STREAM_TOL and out["c_vs_a"] <= STREAM_TOL
+            and out["events_ok"]):
+        raise AssertionError(f"streaming paths disagree: {out}; events "
+                             f"{names}")
+    if device.type != "cuda":
+        return out
+    eng_a, eng_b = engines["a"], engines["b"]
+    out["ms_a"] = _cuda_ms(lambda: eng_a.run_offline(obs), reps)
+    out["ms_b"] = statistics.median([out["first_ms_b"]] + [
+        _once_ms(lambda: eng_b.run_offline(obs))[1] for _ in range(2)])
+    head = {"y": ys[:STREAM_PROFILE_T]}
+    for label, eng in (("a", eng_a), ("b", eng_b)):
+        head_ms = _cuda_ms(lambda: eng.run_offline(head), 3, warmup=1)
+        busy = _device_profile(lambda: eng.run_offline(head), {})["busy_ms"]
+        out[f"busy_ms_{label}"] = (busy * out[f"ms_{label}"] / head_ms
+                                   if isinstance(busy, float) else busy)
+        out[f"updates_per_s_{label}"] = STREAM_B * STREAM_T / (
+            out[f"ms_{label}"] / 1e3)
+    t0 = time.perf_counter()
+    eng_c.start([{"y": ys[k, 0]} for k in range(STREAM_ONLINE_T)])
+    out["on_next_ms"] = (time.perf_counter() - t0) * 1e3 / STREAM_ONLINE_T
+    log(f"[stream] (a) fused plan {out['ms_a']:.3f} ms per run_offline "
+        f"({out['updates_per_s_a']:.4g} updates/s), busy {out['busy_ms_a']} "
+        f"ms, idle {_idle_share(out['ms_a'], out['busy_ms_a'])}, peak "
+        f"{out['peak_bytes_a'] / 1e6:.1f} MB; (b) generic tick "
+        f"{out['ms_b']:.3f} ms ({out['updates_per_s_b']:.4g} updates/s), "
+        f"busy {out['busy_ms_b']} ms, idle "
+        f"{_idle_share(out['ms_b'], out['busy_ms_b'])}, peak "
+        f"{out['peak_bytes_b'] / 1e6:.1f} MB (busy: each one's share over "
+        f"a {STREAM_PROFILE_T}-tick call); (c) on_next "
+        f"{out['on_next_ms']:.3f} ms a tick (host clock); for scale, path "
+        f"A's K3 call (phase 7) {path_a_ms} ms")
+    return out
+
+
 def side_checks() -> tuple[list, dict, dict]:
     """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
     process beside the K1/K2 checks.  The plain versions the checks hold the
@@ -3063,7 +3455,7 @@ def main() -> int:
     # 9. the single-dataset infer and the unfused chain path: no kernel
     inf = infer_lgssm_path(device, MAIN_T, MAIN_D, reps=5)
     inf_hmm = infer_hmm_path(device, HMM_T, HMM_IT, reps=5)
-    unf = unfused_path(device, main, reps=3)
+    unf = unfused_path(device, main, reps=1)
     del main["y"]
     nan_b = nan_batch_path(device, NAN_B, MAIN_T, MAIN_D)
     _elapsed("infer and the unfused path", t_start)
@@ -3086,6 +3478,13 @@ def main() -> int:
     fe_d = fe_quant_path(device, MAIN_B, MAIN_T, MAIN_D, reps=5)
     fe_e = fe_config2_path(device, reps=5)
     _elapsed("the free energy", t_start)
+
+    # 13. the GMM (config 4) and 14. the streaming engine (config 5): plain
+    # groups and torch code, no kernel
+    gmm = gmm_path(device, reps=10)
+    _elapsed("the GMM", t_start)
+    stream = stream_path(device, reps=10, path_a_ms=round(filt["call_ms"], 4))
+    _elapsed("the streaming engine", t_start)
     fe_launches = {
         "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
         "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
@@ -3380,6 +3779,19 @@ def main() -> int:
           f"total run {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches_fe_paths"] = fe_launches.get(row["name"], {})
+        row["launches_gmm_stream_paths"] = {
+            "gmm": gmm["launches"].get(row["name"], 0),
+            "stream_fused": stream["launches_a"].get(row["name"], 0),
+            "stream_generic": stream["launches_b"].get(row["name"], 0)}
+    print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
+          f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
+          f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "
+          f"iterations={GMM_IT})")
+    print(f"[stream] fused_plan_ms {stream['ms_a']:.4f} updates_per_s "
+          f"{stream['updates_per_s_a']:.6g} generic_ms {stream['ms_b']:.4f} "
+          f"updates_per_s {stream['updates_per_s_b']:.6g} on_next_ms "
+          f"{stream['on_next_ms']:.3f} (B={STREAM_B}, T={STREAM_T}, "
+          f"d={STREAM_D}); path A's K3 call {filt['call_ms']:.4f}")
     print(f"[fe] (a) lgssm program_ms with FE {fe_a['fe_program_ms']:.4f} "
           f"without {fe_a['program_ms']:.4f} fe_stage_ms "
           f"{fe_a['fe_stage_ms']:.4f} peak_gb {fe_a['peak_bytes'] / 1e9:.3f}"

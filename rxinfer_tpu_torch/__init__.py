@@ -2,9 +2,11 @@
 
 A model written with ``@model``, ``latent``, ``plate``,
 ``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Beta``, ``Bernoulli``,
-``Categorical``, ``DirichletCollection`` and ``Transition`` runs through
-``infer`` on one dataset, and through ``batched_program`` /
-``infer_batched`` over many, on an NVIDIA GPU; ``free_energy=True``
+``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition`` and
+``NormalMixture`` runs through ``infer`` on one dataset, through
+``batched_program`` / ``infer_batched`` over many, and through
+``infer(autoupdates=...)``, the streaming engine, on one stream or many, on
+an NVIDIA GPU; ``free_energy=True``
 returns the Bethe free energy after every sweep (``engine/bethe.py``).  In a
 batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
@@ -45,16 +47,23 @@ from .graph.dsl import (  # noqa: F401
     Bernoulli,
     Beta,
     Categorical,
+    Dirichlet,
     DirichletCollection,
     DiscreteTransition,
     Gamma,
     MvNormal,
     Normal,
+    NormalMixture,
     Transition,
     Wishart,
     latent,
     model,
     plate,
+)
+from .inference_streaming import (  # noqa: F401
+    RxInferenceEngine,
+    RxInferenceEvent,
+    autoupdates,
 )
 from .inference import (  # noqa: F401
     BatchedInferenceResult,

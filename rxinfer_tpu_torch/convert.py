@@ -39,6 +39,7 @@ _FAMILIES = {
     "MvNormalWeightedMeanPrecision": D.MvNormalWeightedMeanPrecision,
     "PointMass": D.PointMass,
     "Categorical": D.Categorical,
+    "Dirichlet": D.Dirichlet,
     "DirichletCollection": D.DirichletCollection,
 }
 

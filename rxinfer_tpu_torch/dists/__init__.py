@@ -1,6 +1,6 @@
 """Distribution substrate of the PyTorch port (Gaussian families, Beta,
-Bernoulli, Categorical, DirichletCollection, GammaShapeRate, Wishart and
-PointMass; counterpart of ``rxinfer_tpu/dists``)."""
+Bernoulli, Categorical, Dirichlet, DirichletCollection, GammaShapeRate,
+Wishart and PointMass; counterpart of ``rxinfer_tpu/dists``)."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -27,7 +27,7 @@ from .gaussian import (  # noqa: F401
     pd_inverse,
     pd_logdet,
 )
-from .discrete import Categorical, DirichletCollection  # noqa: F401
+from .discrete import Categorical, Dirichlet, DirichletCollection  # noqa: F401
 from .matrix import Wishart, WishartInverseScale  # noqa: F401
 from .pointmass import PointMass, register_pointmass_products
 from .scalar_families import (  # noqa: F401
@@ -43,6 +43,7 @@ register_pointmass_products(
     Bernoulli,
     BernoulliLogits,
     Categorical,
+    Dirichlet,
     DirichletCollection,
     NormalMeanVariance,
     NormalMeanPrecision,

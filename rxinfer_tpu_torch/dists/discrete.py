@@ -1,11 +1,13 @@
 """Discrete / simplex families (counterpart of ``rxinfer_tpu/dists/discrete.py``).
 
 Ported subset: ``Categorical`` (stored as logits; ``from_probs``, ``probs``,
-``log_probs``, ``mean``, ``var``, ``entropy``) and ``DirichletCollection``
+``log_probs``, ``mean``, ``var``, ``entropy``), ``Dirichlet`` (``mean``,
+``var``, ``mean_log``, ``entropy``, ``vague``) and ``DirichletCollection``
 (``mean``, ``mean_log``, ``var`` and ``entropy``, summed over the columns)
 with their closed-form products — what the HMM's discrete chain and its
-Dirichlet transition/emission groups need.  ``Dirichlet``, ``Multinomial``,
-sampling and log-densities arrive with the rest of the node library.
+Dirichlet transition/emission groups need, and the mixture weights of a
+Gaussian mixture.  ``Multinomial``, sampling and log-densities arrive with
+the rest of the node library.
 
 Batch axes.  Every tensor may carry leading batch dimensions.  A
 ``DirichletCollection`` is a collection of independent Dirichlets over the
@@ -57,6 +59,47 @@ class Categorical(Distribution):
 @register_prod(Categorical, Categorical)
 def _prod_categorical(x: Categorical, y: Categorical) -> Categorical:
     return Categorical(x.logits + y.logits)
+
+
+@dist_dataclass
+class Dirichlet(Distribution):
+    """Dirichlet(alpha) over the (K-1)-simplex; alpha (..., K)."""
+
+    alpha: torch.Tensor
+
+    @property
+    def event_ndim(self) -> int:
+        return 1
+
+    def mean(self):
+        return self.alpha / torch.sum(self.alpha, dim=-1, keepdim=True)
+
+    def var(self):
+        a0 = torch.sum(self.alpha, dim=-1, keepdim=True)
+        m = self.alpha / a0
+        return m * (1.0 - m) / (a0 + 1.0)
+
+    def mean_log(self):
+        """E[log p_k] = digamma(alpha_k) - digamma(alpha_0)."""
+        return torch.digamma(self.alpha) - torch.digamma(
+            torch.sum(self.alpha, dim=-1, keepdim=True))
+
+    def entropy(self):
+        a = self.alpha
+        a0 = torch.sum(a, dim=-1)
+        k = a.shape[-1]
+        lb = torch.sum(torch.lgamma(a), dim=-1) - torch.lgamma(a0)
+        return (lb + (a0 - k) * torch.digamma(a0)
+                - torch.sum((a - 1.0) * torch.digamma(a), dim=-1))
+
+    @classmethod
+    def vague(cls, k: int, dtype=torch.float32):
+        return cls(torch.ones((k,), dtype=dtype))
+
+
+@register_prod(Dirichlet, Dirichlet)
+def _prod_dirichlet(x: Dirichlet, y: Dirichlet) -> Dirichlet:
+    return Dirichlet(x.alpha + y.alpha - 1.0)
 
 
 @dist_dataclass

@@ -4,7 +4,8 @@
 For every family ``prod(d1, d2) == from_natural(to_natural(d1) +
 to_natural(d2))`` and the ZERO natural vector is the multiplicative identity.
 Ported subset: the ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
-``categorical``, ``dirichlet_collection``, ``gamma`` and ``wishart`` families (the other
+``categorical``, ``dirichlet``, ``dirichlet_collection``, ``gamma`` and
+``wishart`` families (the other
 conjugate families arrive with the rest of the node library), ``prod_all``,
 ``nat_div``, ``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.  The
 ``wishart`` view keeps the inverse-scale carrier: one observation's
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .base import Distribution, ProductError
-from .discrete import Categorical, DirichletCollection
+from .discrete import Categorical, Dirichlet, DirichletCollection
 from .gaussian import (
     AbstractMvNormal,
     AbstractNormal,
@@ -65,6 +66,8 @@ _TABLE = {
     "bernoulli": (lambda d: ((d.logit,) if isinstance(d, BernoulliLogits)
                              else (torch.log(d.p) - torch.log1p(-d.p),)),
                   lambda n: BernoulliLogits(n[0])),
+    "dirichlet": (lambda d: (d.alpha - 1.0,),
+                  lambda n: Dirichlet(n[0] + 1.0)),
     "dirichlet_collection": (lambda d: (d.alpha - 1.0,),
                              lambda n: DirichletCollection(n[0] + 1.0)),
     "categorical": (lambda d: (d.logits,), lambda n: Categorical(n[0])),
@@ -84,6 +87,7 @@ NAT_EVENT_RANKS = {
     "mv_gaussian": (1, 2),
     "beta": (0, 0),
     "bernoulli": (0,),
+    "dirichlet": (1,),
     "dirichlet_collection": (2,),
     "categorical": (1,),
     "gamma": (0, 0),
@@ -100,6 +104,8 @@ def family_key(d: Distribution) -> str:
         return "beta"
     if isinstance(d, (Bernoulli, BernoulliLogits)):
         return "bernoulli"
+    if isinstance(d, Dirichlet):
+        return "dirichlet"
     if isinstance(d, DirichletCollection):
         return "dirichlet_collection"
     if isinstance(d, Categorical):

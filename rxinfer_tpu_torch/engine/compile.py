@@ -16,16 +16,20 @@ resolution, ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
 batch of one), the Bethe free energy after each sweep (``degrees``,
 ``fe_factors``, ``_free_energy``; ``options={"check_objective": True}``
 stops a host-driven run at a non-finite value), ``make_program``, ``run``,
-``run_iterative`` (host loop with per-iteration callbacks), ``predict`` and
-``make_batched_program``.  A plain group is built for every random variable
-that is not a chain, in a family the port has a natural-parameter view for
-(``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``, ``categorical``,
+``run_iterative`` (host loop with per-iteration callbacks), ``predict``,
+``make_batched_program`` and the streaming engine's tick surface
+(``make_tick_program``, ``run_tick``, ``make_sweep_fn``: ticks over a batch
+of streams, warm-started from the previous tick's state and pair
+statistics, the initialization read at the first tick only; and
+``variable_outbound_message``, the mu(x) of two-argument autoupdates).  A
+plain group is built for every random variable that is not a chain, in a
+family the port has a natural-parameter view for (``gaussian``,
+``mv_gaussian``, ``beta``, ``bernoulli``, ``categorical``, ``dirichlet``,
 ``dirichlet_collection``, ``gamma``, ``wishart``).  Not ported yet (they
 raise ``NotImplementedError``): plain groups of other families
 (``inverse_gamma``, ...), the plain-group branches listed in
 ``engine/blocks.py``, AR/GCV chains, constraints, meta, tree-scheduled
-(auto-initialized) loopy models, streaming ticks and ``mu()`` outbound
-messages.
+(auto-initialized) loopy models.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from .blocks import (
     build_q,
     factor_data_mask,
     in_cavity_cluster,
+    mask_message,
 )
 from .shapes import resolve_groups
 
@@ -594,6 +599,12 @@ class CompiledModel:
         return {name: tree_map(lambda a: a.to(device), d)
                 for name, d in self._init_state().items()}
 
+    @staticmethod
+    def _broadcast_init(init: dict, batch: int) -> dict:
+        """``init`` (``_device_init``) broadcast over a batch."""
+        return {name: tree_map(lambda a: a.expand((batch,) + tuple(a.shape)),
+                               d) for name, d in init.items()}
+
     def _iterate(self, data: dict, ctx: BatchContext, init: dict,
                  iterations: int, keep_each: bool,
                  fused: Optional[dict] = None, registry=None,
@@ -606,10 +617,19 @@ class CompiledModel:
         ``after_iteration`` (with the free energy of a batch of one, or
         None) and a handler may stop the loop (``event.stop_iteration``);
         ``check_objective`` then raises at a non-finite free energy."""
-        state = {name: tree_map(
-            lambda a: a.expand((ctx.batch,) + tuple(a.shape)), d)
-            for name, d in init.items()}
-        chain_cross: dict = {}
+        state, _, history, fe = self._sweeps(
+            self._broadcast_init(init, ctx.batch), {}, data, ctx, iterations,
+            keep_each, fused, registry, free_energy)
+        return state, history, fe
+
+    def _sweeps(self, state: dict, chain_cross: dict, data: dict,
+                ctx: BatchContext, iterations: int, keep_each: bool,
+                fused: Optional[dict] = None, registry=None,
+                free_energy: bool = False):
+        """``iterations`` sweeps from ``state`` and ``chain_cross`` (a
+        streaming tick warm-starts from the previous tick's): the final
+        state and pair statistics, the per-sweep history and the free
+        energy (see ``_iterate``)."""
         history = []
         fes = []
         for i in range(iterations):
@@ -638,7 +658,7 @@ class CompiledModel:
                     break
         fe = (torch.stack(fes) if fes
               else torch.zeros((0, ctx.batch), device=ctx.device))
-        return state, history, fe
+        return state, chain_cross, history, fe
 
     def make_program(self, iterations: int, free_energy: bool,
                      keep_each: bool, all_finite: bool = True,
@@ -712,6 +732,168 @@ class CompiledModel:
         if rule is None:
             rule = get_message_rule(f.fform, "out")
         return rule(build_q(f, state, data, exclude="out", ctx=ctx))
+
+    # -- streaming ticks -------------------------------------------------------
+
+    def _tick_context(self, data: dict, all_finite: bool, device,
+                      consts: dict):
+        """A tick's device data (leading batch axis on every leaf) and its
+        ``BatchContext``."""
+        data, masks = self._device_data(data, all_finite, device)
+        batch = next(iter(data.values())).shape[0]
+        return data, BatchContext(device, batch, consts, masks)
+
+    def make_tick_program(self, iterations: int, free_energy: bool,
+                          keep_each: bool, cold: bool, device: Any = "cuda",
+                          all_finite: bool = True):
+        """Streaming-tick program over a batch of streams (every data leaf,
+        the autoupdated arguments included, with a leading batch axis) with
+        persistent marginals: the engine's marginals keep their latest
+        values across observations, only the autoupdated priors change.
+
+        ``cold=True``: ``program(data)`` runs ``iterations`` sweeps from the
+        initialization (the first tick).  ``cold=False``:
+        ``program(data, state, chain_cross)`` runs them warm-started from
+        the previous tick's state and pair statistics.  Both return
+        ``(state, fe, history, chain_cross)``, ``fe`` (iterations, B) with
+        ``free_energy`` (else (0, B))."""
+        if free_energy:
+            _ = self.fe_factors
+        device = torch.device(device)
+        init = self._device_init(device)
+        consts: dict = {}
+
+        def run(data, state, chain_cross):
+            data, ctx = self._tick_context(data, all_finite, device, consts)
+            if state is None:
+                state = self._broadcast_init(init, ctx.batch)
+            state, chain_cross, history, fe = self._sweeps(
+                dict(state), dict(chain_cross or {}), data, ctx, iterations,
+                keep_each, free_energy=free_energy)
+            return state, fe, history, chain_cross
+
+        if cold:
+            return lambda data: run(data, None, None)
+        return lambda data, state, chain_cross: run(data, state, chain_cross)
+
+    def run_tick(self, data: dict, iterations: int, free_energy: bool,
+                 keep_each: bool = False, carry=None, device: Any = "cuda",
+                 all_finite: bool = True):
+        """One streaming tick; ``carry`` is the previous tick's ``(state,
+        chain_cross)`` or None for a cold start.  Returns ``(state, fe,
+        history, carry')``; the programs are built once per setting."""
+        cold = carry is None
+        key = ("tick", cold, iterations, free_energy, keep_each, str(device),
+               all_finite)
+        if key not in self._programs:
+            self._programs[key] = self.make_tick_program(
+                iterations, free_energy, keep_each, cold, device, all_finite)
+        prog = self._programs[key]
+        state, fe, history, cross = (prog(data) if cold
+                                     else prog(data, *carry))
+        return state, fe, history, (state, cross)
+
+    def make_sweep_fn(self, free_energy: bool, device: Any = "cuda",
+                      all_finite: bool = True):
+        """One VMP sweep as a carry function, ``fn((state, chain_cross),
+        data) -> ((state, chain_cross), fe)`` with ``fe`` (B,) (an empty
+        tensor without ``free_energy``): the host loop of a streaming tick
+        with per-iteration events."""
+        if free_energy:
+            _ = self.fe_factors
+        device = torch.device(device)
+        consts: dict = {}
+
+        def fn(carry, data):
+            data, ctx = self._tick_context(data, all_finite, device, consts)
+            state, chain_cross = self._sweep_once(
+                dict(carry[0]), dict(carry[1]), data, ctx)
+            fe = (self._free_energy(state, chain_cross, data, ctx)
+                  if free_energy else torch.zeros((0,), device=device))
+            return (state, chain_cross), fe
+
+        return fn
+
+    def variable_outbound_message(self, state: dict, data: dict,
+                                  varname: str, ctx: BatchContext):
+        """mu(x) over the batch: the outbound message from variable x along
+        its last edge, the marginal divided by the message of the factor
+        attached last (``data`` as ``_device_data`` gives it).
+
+        A chain variable returns the per-slot outbound message: the
+        marginal divided by the last evidence factor's message at every
+        slot (the plate DSL folds a loop into one factor, so the last edge
+        is the last evidence factor in graph order; for the usual
+        state-space form this is the observation likelihood, and mu(x) is
+        the smoothed state with its own observation left out)."""
+        from ..dists.natural import nat_div
+
+        for kind, block in self.blocks:
+            if block.var.name != varname:
+                continue
+            if kind == "plain":
+                f, iface, rule = block.adjacency[-1]
+                q = build_q(f, state, data, exclude=iface, ctx=ctx)
+                msg = mask_message(rule(q), ctx.masks.get(f.id))
+                return nat_div(state[varname], msg)
+            return self._chain_outbound_message(block, state, data, ctx)
+        raise ValueError(
+            f"mu({varname}): the model has no random variable named "
+            f"{varname!r}.")
+
+    def _chain_outbound_message(self, block, state: dict, data: dict,
+                                ctx: BatchContext):
+        """Per-slot mu of a chain block: marginal / last evidence message."""
+        from ..dists import (
+            Categorical,
+            MvNormalWeightedMeanPrecision,
+            NormalWeightedMeanPrecision,
+        )
+        from ..dists.gaussian import (
+            as_mv_weighted_mean_precision,
+            as_weighted_mean_precision,
+        )
+
+        spec = self.chains[block.var.name]
+        order = {id(f): i for i, f in enumerate(self.graph.factors)}
+        if not spec.evidence:
+            raise NotImplementedError(
+                f"mu({block.var.name}): the chain has no evidence factors; "
+                "its last edge is the transition, whose outbound is the "
+                "filtered forward message — use the filtering model form "
+                "instead (reference performance-tips.md:36-38).")
+        f, iface = max(spec.evidence, key=lambda fi: order[id(fi[0])])
+        if order[id(spec.transition)] > order[id(f)] or (
+                order[id(spec.prior)] > order[id(f)]):
+            raise NotImplementedError(
+                f"mu({block.var.name}): the chain's last-created factor is "
+                "its prior/transition; per-edge messages toward transitions "
+                "are not exposed (write the observation plate last, or use "
+                "q() arguments).")
+        ref = f.out if iface == "out" else f.interfaces[iface]
+        if _coverage(f, ref) != (0, block.var.length):
+            raise NotImplementedError(
+                f"mu({block.var.name}): the last evidence factor covers "
+                f"slots {_coverage(f, ref)}, not the full chain; "
+                "partial-coverage mu is not supported.")
+        marg = state[block.var.name]
+        mask = ctx.masks.get(f.id)
+        if isinstance(block, DiscreteChainBlock):
+            q = build_q(f, state, data, exclude=iface, ctx=ctx)
+            logits = get_message_rule(f.fform, iface)(q).logits
+            if mask is not None:
+                logits = logits * mask[..., None]
+            return Categorical(marg.logits - logits)
+        mxi, mw, _ = block._evidence_msg(f, iface, state, data, ctx)
+        if mask is not None:
+            mxi = mxi * mask[..., None]
+            mw = mw * mask[..., None, None]
+        if block.scalar:
+            nat = as_weighted_mean_precision(marg)
+            return NormalWeightedMeanPrecision(nat.xi - mxi[..., 0],
+                                               nat.w - mw[..., 0, 0])
+        nat = as_mv_weighted_mean_precision(marg)
+        return MvNormalWeightedMeanPrecision(nat.xi - mxi, nat.w - mw)
 
     def make_batched_program(self, data0: dict, iterations: int,
                              free_energy: bool, keep_each: bool = False,

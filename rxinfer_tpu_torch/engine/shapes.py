@@ -4,10 +4,13 @@
 Event shapes and marginal families of every random variable are resolved
 statically from constant hyperparameters and data shapes.  Ported subset: the
 tables for the node set of ``rules/nodes.py``: the Gaussian and discrete
-nodes, ``Beta`` / ``Bernoulli`` (a random ``p`` is a ``beta`` group) and
+nodes, ``Beta`` / ``Bernoulli`` (a random ``p`` is a ``beta`` group),
 the precision priors ``GammaShapeRate`` and ``Wishart``, with a random
 precision input resolved to a ``gamma`` (scalar) or ``wishart`` (d x d)
-group; variables reached only through nodes that are not ported yet
+group, and the Gaussian mixture: ``Dirichlet`` (a random ``Categorical``
+``p`` is a ``dirichlet`` group) and ``NormalMixture`` / ``MvNormalMixture``
+(``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
+wishart); variables reached only through nodes that are not ported yet
 stay unresolved and raise.
 """
 
@@ -31,8 +34,11 @@ _OUT_FAMILY = {
     "GammaShapeRate": "gamma",
     "Wishart": "wishart",
     "Categorical": "categorical",
+    "Dirichlet": "dirichlet",
     "DirichletCollection": "dirichlet_collection",
     "DiscreteTransition": "categorical",
+    "NormalMixture": "gaussian",
+    "MvNormalMixture": "mv_gaussian",
 }
 
 _INPUT_FAMILY = {
@@ -51,7 +57,27 @@ _INPUT_FAMILY = {
     ("DiscreteTransition", "in"): "categorical",
     ("DiscreteTransition", "matrix"): "dirichlet_collection",
     ("Bernoulli", "p"): "beta",
+    ("Categorical", "p"): "dirichlet",
+    ("Dirichlet", "alpha"): None,
+    ("NormalMixture", "switch"): "categorical",
+    ("MvNormalMixture", "switch"): "categorical",
 }
+
+# a mixture's component interfaces carry their index (mean0, prec1, ...)
+_COMPONENT_FAMILY = {
+    "NormalMixture": {"mean": "gaussian", "prec": "gamma"},
+    "MvNormalMixture": {"mean": "mv_gaussian", "prec": "wishart"},
+}
+
+
+def input_family(f: Factor, iface: str) -> str | None:
+    """Family of a random variable at interface ``iface`` of ``f``."""
+    comps = _COMPONENT_FAMILY.get(f.fform)
+    if comps is not None:
+        for prefix, fam in comps.items():
+            if iface.startswith(prefix):
+                return fam
+    return _INPUT_FAMILY.get((f.fform, iface))
 
 
 class GroupInfo:
@@ -88,12 +114,23 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
 
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
               "LinearGaussianCovariance", "LinearGaussianPrecision",
-              "GammaShapeRate", "Beta", "Bernoulli"):
+              "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture"):
         return ()
+    if ff == "MvNormalMixture":
+        for key in f.interfaces:
+            if key.startswith("mean"):
+                s = shape_of(key)
+                if s:
+                    return s
+            if key.startswith("prec"):
+                s = shape_of(key)
+                if s:
+                    return (s[-1],)
+        return None
     if ff == "Categorical":
         s = shape_of("p")
         return (s[-1],) if s else None
-    if ff == "DirichletCollection":
+    if ff in ("Dirichlet", "DirichletCollection"):
         return shape_of("alpha")
     if ff == "Wishart":
         return shape_of("S")
@@ -140,6 +177,14 @@ def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
         return out_shape
     if ff in ("NormalMeanVariance", "NormalMeanPrecision") and iface == "mean":
         return ()
+    if ff == "MvNormalMixture":
+        if iface.startswith("mean"):
+            return out_shape
+        if iface.startswith("prec") and out_shape:
+            return (out_shape[-1], out_shape[-1])
+        if iface == "switch":
+            k = (f.meta or {}).get("K")
+            return (int(k),) if k else None
     return None
 
 
@@ -164,7 +209,7 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
             for name, v in f.interfaces.items():
                 if isinstance(v, Ref) and v.var.kind == "random":
                     gi = infos[v.var.name]
-                    fam = _INPUT_FAMILY.get((f.fform, name))
+                    fam = input_family(f, name)
                     if gi.family is None and fam is not None:
                         gi.family = fam
                         changed = True

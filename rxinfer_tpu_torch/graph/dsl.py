@@ -3,10 +3,13 @@
 Ported subset, what the linear-Gaussian state-space model and the HMM
 need, and the conjugate models of the Beta-Bernoulli and Gaussian families:
 ``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
-keyword aliases, data assignment ``y[t] = ...``, ``numpy_array @ x[t]`` (or
-``a * x[t] + b``) folding into a LinearGaussian factor, ``Categorical``,
-``DirichletCollection``, ``Transition`` (alias ``DiscreteTransition``),
-``Gamma`` (shape/rate), ``Wishart``, ``Beta`` and ``Bernoulli``.  Model
+keyword aliases, data assignment ``y[t] = ...`` and ``y.observe(...)`` (a
+whole data variable, as a streaming tick observes), ``numpy_array @ x[t]``
+(or ``a * x[t] + b``) folding into a LinearGaussian factor,
+``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``
+(alias ``DiscreteTransition``), ``Gamma`` (shape/rate), ``Wishart``,
+``Beta``, ``Bernoulli`` and ``NormalMixture`` (the multivariate mixture
+when the component means are vectors).  Model
 constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
 to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
 distributions of torch tensors, and such a distribution object used inside
@@ -194,6 +197,10 @@ class DataArray:
             raise TypeError("y[t] = ... expects a node constructor call.")
         _builder().rebind(value.ref, Ref(self._var, self._norm_idx(key)))
 
+    def observe(self, value: RVRef):
+        """Observe the whole data variable: ``y.observe(Normal(...))``."""
+        _builder().rebind(value.ref, Ref(self._var, None))
+
 
 def latent(length, name: Optional[str] = None):
     """Declare an array of latent variables."""
@@ -346,6 +353,7 @@ def _direct_dist(fform: str, *args):
         "Beta": D.Beta,
         "Bernoulli": D.Bernoulli,
         "Categorical": D.Categorical.from_probs,
+        "Dirichlet": D.Dirichlet,
         "DirichletCollection": D.DirichletCollection,
         "GammaShapeRate": D.GammaShapeRate,
         "Wishart": D.Wishart,
@@ -385,6 +393,7 @@ def _lift_dist(d) -> RVRef:
         D.Bernoulli: lambda: Bernoulli(c(d.p)),
         D.GammaShapeRate: lambda: Gamma(shape=c(d.a), rate=c(d.b)),
         D.Categorical: lambda: Categorical(c(d.probs())),
+        D.Dirichlet: lambda: Dirichlet(c(d.alpha)),
         D.DirichletCollection: lambda: DirichletCollection(c(d.alpha)),
         D.Wishart: lambda: Wishart(c(d.nu), c(d.s)),
     }
@@ -528,6 +537,12 @@ def Categorical(p) -> RVRef:
     return _builder().emit("Categorical", {"p": _as_interface(p)})
 
 
+def Dirichlet(alpha) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Dirichlet", alpha)
+    return _builder().emit("Dirichlet", {"alpha": _as_interface(alpha)})
+
+
 def DirichletCollection(alpha) -> RVRef:
     if _active() is None:
         return _direct_dist("DirichletCollection", alpha)
@@ -544,6 +559,31 @@ def Transition(state_in, matrix) -> RVRef:
 
 
 DiscreteTransition = Transition
+
+
+def _is_mv_component(v) -> bool:
+    """A mixture component mean is vector-valued: a random variable defined
+    by a multivariate node, or a constant of rank >= 1."""
+    if isinstance(v, RVRef):
+        for f in _builder().graph.factors:
+            if f.out.var is v.ref.var:
+                return f.fform.startswith("Mv")
+        return False
+    return np.ndim(np.asarray(v)) >= 1
+
+
+def NormalMixture(switch, means, precisions) -> RVRef:
+    """Gaussian mixture likelihood: interfaces ``switch``, ``mean0..``,
+    ``prec0..``; the multivariate node (MvNormal means, Wishart precisions)
+    when the component means are vectors."""
+    mv = any(_is_mv_component(m) for m in means)
+    interfaces = {"switch": _as_interface(switch)}
+    for i, m in enumerate(means):
+        interfaces[f"mean{i}"] = _as_interface(m)
+    for i, p in enumerate(precisions):
+        interfaces[f"prec{i}"] = _as_interface(p)
+    return _builder().emit("MvNormalMixture" if mv else "NormalMixture",
+                           interfaces, meta={"K": len(means)})
 
 
 # -- @model decorator and generator -------------------------------------------------

@@ -19,10 +19,13 @@ entry point runs on ``"cuda"`` unless the caller passes another ``device``;
 with no device given and no CUDA device present it raises ``RuntimeError``
 rather than carry on on the CPU.
 
+``infer(datastream=, autoupdates=)`` returns the streaming engine
+(``inference_streaming.py``), as the JAX package's does.
+
 Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): streaming (``datastream`` / ``autoupdates``), ``annotations`` and
-mixture models (whose free energy the JAX package composes from exact
-mixture evidences), ``constraints``, ``meta``, a ``postprocess`` strategy,
+item): ``annotations`` and generic ``Mixture`` models (whose free energy the
+JAX package composes from exact mixture evidences), ``constraints``,
+``meta``, a ``postprocess`` strategy, a ``session`` other than the default,
 ``shared=`` and ``mesh=``.
 """
 
@@ -213,9 +216,8 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
 
 
 _UNPORTED_INFER = (
-    ("datastream", "A5"), ("autoupdates", "A5"), ("annotations", "A4"),
-    ("mesh", "A7"), ("constraints", "A6"), ("meta", "A6"),
-    ("postprocess", "A6"),
+    ("annotations", "A4"), ("mesh", "A7"), ("constraints", "A6"),
+    ("meta", "A6"), ("postprocess", "A6"),
 )
 
 
@@ -249,7 +251,8 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
           callbacks: Optional[dict] = None, benchmark: bool = False,
           trace: bool = False, catch_exception: bool = False,
           annotations: Any = None, postprocess: Any = None,
-          mesh: Any = None, device: Any = None):
+          session: Any = "default", uselock: Any = False,
+          mesh: Any = None, batched: bool = False, device: Any = None):
     """Inference on one dataset (batch mode): trace the model on the data's
     shapes, compile the schedule once per shape and setting, run
     ``iterations`` sweeps and return an ``InferenceResult``.  Every chain is
@@ -263,9 +266,38 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
     predictions.  ``free_energy=True`` returns the Bethe free energy after
     every sweep, checked by ``free_energy_diagnostics`` (NaN and Inf by
     default; ``None`` checks nothing).  ``catch_exception=True`` returns a
-    result carrying ``error`` and ``traceback`` instead of raising."""
+    result carrying ``error`` and ``traceback`` instead of raising.
+
+    With ``autoupdates`` (or a ``datastream``) it is streaming inference
+    instead: it returns the ``RxInferenceEngine`` of
+    ``inference_streaming.py``, which has run ``datastream`` to its end when
+    one is given (``batched=True``: B streams in lockstep, every
+    observation and autoupdated value with a leading batch axis)."""
     device = _resolve_device(device)
-    if data is None and datastream is None and autoupdates is None:
+    if autoupdates is not None or datastream is not None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "infer(mesh=...) is not ported to the PyTorch package yet "
+                "(ROADMAP A7b).")
+        from .inference_streaming import streaming_infer
+
+        return streaming_infer(
+            model=model, datastream=datastream, autoupdates=autoupdates,
+            initialization=initialization, iterations=iterations or 1,
+            free_energy=free_energy,
+            free_energy_diagnostics=free_energy_diagnostics,
+            keephistory=keephistory, options=options, uselock=uselock,
+            constraints=constraints, meta=meta, callbacks=callbacks,
+            returnvars=returnvars, historyvars=historyvars,
+            annotations=annotations, postprocess=postprocess,
+            benchmark=benchmark, trace=trace,
+            catch_exception=catch_exception, session=session,
+            batched=batched, device=device)
+    if session not in ("default", None):
+        raise NotImplementedError(
+            "infer(session=...) is not ported to the PyTorch package yet "
+            "(ROADMAP A6).")
+    if data is None:
         raise ValueError(
             "Batch inference requires data= (or use datastream=).")
     if data is not None and not isinstance(data, dict):
@@ -279,8 +311,7 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
             "ignored in batch mode. Use returnvars=KeepEach() for "
             "per-iteration posteriors.", stacklevel=2)
     kwargs = dict(
-        model=model, data=data, datastream=datastream,
-        autoupdates=autoupdates, initialization=initialization,
+        model=model, data=data, initialization=initialization,
         constraints=constraints, meta=meta, options=options,
         iterations=iterations, free_energy=free_energy,
         free_energy_diagnostics=free_energy_diagnostics,

@@ -1,7 +1,7 @@
 """Prebuilt models (counterpart of ``rxinfer_tpu/models/zoo.py``; the
-Beta-Bernoulli model, the linear-Gaussian state-space model, the Gaussian
-with unknown mean and precision and the hidden Markov model are
-ported)."""
+Beta-Bernoulli model, the linear-Gaussian state-space model, the one-step
+Kalman filter of the streaming engine, the Gaussian with unknown mean and
+precision, the Gaussian mixture and the hidden Markov model are ported)."""
 
 from __future__ import annotations
 
@@ -40,6 +40,40 @@ def lgssm(A, Q, B, R, m0, V0):
     return lgssm
 
 
+def kalman_filter_step(A, Q, B, R):
+    """One-step streaming model and its autoupdates (the filtering form):
+    ``step`` observes y under the prior N(pm, pc); ``make_autoupdates(m0,
+    V0)`` predicts the next prior, pm = A m, pc = A V A^T + Q.  The
+    mappings receive the posteriors as torch tensors on the engine's
+    device."""
+    import torch
+
+    from ..inference_streaming import autoupdates as _au
+
+    A, Q, B, R = map(np.asarray, (A, Q, B, R))
+
+    @rx.model
+    def step(y, pm, pc):
+        x = rx.MvNormal(mean=pm, cov=pc)
+        y.observe(rx.MvNormal(mean=B @ x, cov=R))
+        return {"x": x}
+
+    def make_autoupdates(m0, V0):
+        def t(a, like):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=like.device)
+
+        return _au(
+            initial={"pm": np.asarray(m0, np.float32),
+                     "pc": np.asarray(V0, np.float32)},
+            pm=lambda q: q["x"].mean() @ t(A, q["x"].mean()).T,
+            pc=lambda q: (t(A, q["x"].cov()) @ q["x"].cov()
+                          @ t(A, q["x"].cov()).T + t(Q, q["x"].cov())),
+        )
+
+    return step, make_autoupdates
+
+
 def gaussian_unknown_mean_precision(m0=0.0, v0=100.0, a0=0.01, b0=0.01):
     @rx.model
     def gauss(y):
@@ -50,6 +84,28 @@ def gaussian_unknown_mean_precision(m0=0.0, v0=100.0, a0=0.01, b0=0.01):
         return {"mu": mu, "tau": tau}
 
     return gauss
+
+
+def gmm(k: int, mean_locs, mean_var: float = 100.0):
+    """Univariate Gaussian mixture with k components."""
+
+    @rx.model
+    def gmm(y):
+        n = len(y)
+        pi = rx.Dirichlet(np.ones(k, dtype=np.float32))
+        ms, ws = [], []
+        for i in range(k):
+            ms.append(rx.Normal(mean=float(mean_locs[i]), var=mean_var))
+            ws.append(rx.Gamma(shape=0.01, rate=0.01))
+        z = rx.latent(n, name="z")
+        for i in rx.plate(n):
+            z[i] = rx.Categorical(pi)
+            y[i] = rx.NormalMixture(z[i], tuple(ms), tuple(ws))
+        return {"pi": pi, "z": z,
+                **{f"m{i}": ms[i] for i in range(k)},
+                **{f"w{i}": ws[i] for i in range(k)}}
+
+    return gmm
 
 
 def hmm(k: int, m: int):

@@ -11,13 +11,16 @@ the priors of such a precision (``GammaShapeRate`` and ``Wishart``, towards
 ``DirichletCollection`` (towards ``out``) and ``DiscreteTransition``
 (towards ``out``, ``in`` and ``matrix``, and the structured
 ``message_to_out_structured`` that predictions of ``UnfactorizedData``
-take), and the Beta-Bernoulli pair: ``Beta`` (towards ``out``) and
-``Bernoulli`` (towards ``out`` and ``p``).  Every one of these nodes has its
+take), the Beta-Bernoulli pair: ``Beta`` (towards ``out``) and
+``Bernoulli`` (towards ``out`` and ``p``), and the Gaussian mixture:
+``Categorical`` towards ``p``, ``Dirichlet`` (towards ``out``) and
+``NormalMixture`` / ``MvNormalMixture`` (towards ``out``, ``switch`` and
+each component's ``mean{i}`` / ``prec{i}``).  Every one of these nodes has its
 ``average_energy(q)``, E_q[-log f] per factor copy, which free energy
 reads; a chain transition's reads the structured pair statistics
 ``q["joint"]``.  The messages towards variance / covariance interfaces
-(InverseGamma / InverseWishart carriers) and ``Dirichlet`` arrive with the
-rest of the node library.
+(InverseGamma / InverseWishart carriers) arrive with the rest of the node
+library.
 
 Rules are batched: leading dimensions of every marginal broadcast, so a whole
 plate of messages is one tensor expression.
@@ -31,6 +34,7 @@ from ..dists import (
     Bernoulli,
     Beta,
     Categorical,
+    Dirichlet,
     DirichletCollection,
     GammaShapeRate,
     MvNormalMeanCovariance,
@@ -474,8 +478,8 @@ def _e_onehot(d):
 
 
 def _e_log_simplex(d):
-    """E[log p] for simplex-valued variables (DirichletCollection or
-    PointMass)."""
+    """E[log p] for simplex-valued variables (Dirichlet, DirichletCollection
+    or PointMass)."""
     if isinstance(d, PointMass):
         return torch.log(torch.clamp(d.point, min=1e-37))
     return d.mean_log()
@@ -490,8 +494,28 @@ class CategoricalNode:
         return Categorical(_e_log_simplex(q["p"]))
 
     @staticmethod
+    def message_to_p(q):
+        return Dirichlet(1.0 + _e_onehot(q["out"]))
+
+    @staticmethod
     def average_energy(q):
         return -torch.sum(_e_onehot(q["out"]) * _e_log_simplex(q["p"]), dim=-1)
+
+
+@node("Dirichlet")
+class DirichletNode:
+    interfaces = ("out", "alpha")
+
+    @staticmethod
+    def message_to_out(q):
+        return Dirichlet(e_mean(q["alpha"]))
+
+    @staticmethod
+    def average_energy(q):
+        a = e_mean(q["alpha"])
+        lb = torch.sum(torch.lgamma(a), dim=-1) - torch.lgamma(
+            torch.sum(a, dim=-1))
+        return lb - torch.sum((a - 1.0) * _e_log_simplex(q["out"]), dim=-1)
 
 
 @node("DirichletCollection")
@@ -559,3 +583,140 @@ class DiscreteTransitionNode:
     def average_energy(cls, q):
         return -torch.sum(cls._joint(q) * _e_log_simplex(q["matrix"]),
                           dim=(-2, -1))
+
+
+# -- mixtures -------------------------------------------------------------------------
+
+class _ComponentRules(type):
+    """Resolves a mixture's per-component interface rules by name:
+    ``message_to_mean{i}`` / ``message_to_prec{i}`` are the class's
+    ``_message_to_mean_i(q, i)`` / ``_message_to_prec_i(q, i)`` (the
+    interfaces are ``mean0..meanK-1``, ``prec0..precK-1``)."""
+
+    def __getattr__(cls, name):
+        for iface in ("mean", "prec"):
+            prefix = f"message_to_{iface}"
+            tail = name[len(prefix):]
+            if name.startswith(prefix) and tail.isdigit():
+                rule = getattr(cls, f"_message_to_{iface}_i")
+                return lambda q, _i=int(tail): rule(q, _i)
+        raise AttributeError(name)
+
+
+def _n_components(q) -> int:
+    return sum(1 for key in q if key.startswith("mean"))
+
+
+def _component_c(q, i: int):
+    """E[(out - mean_i)^2] under independent q(out), q(mean_i)."""
+    return (e_sq(q["out"]) - 2.0 * e_mean(q["out"]) * e_mean(q[f"mean{i}"])
+            + e_sq(q[f"mean{i}"]))
+
+
+@node("NormalMixture")
+class NormalMixtureNode(metaclass=_ComponentRules):
+    """out ~ prod_k N(out; mean_k, prec_k^-1)^{s_k}: interfaces out,
+    switch, mean0..meanK-1, prec0..precK-1 (Gaussian means, Gamma
+    precisions)."""
+
+    @staticmethod
+    def message_to_out(q):
+        r = _e_onehot(q["switch"])
+        k = _n_components(q)
+        w = sum(r[..., i] * e_precision(q[f"prec{i}"]) for i in range(k))
+        xi = sum(r[..., i] * e_precision(q[f"prec{i}"])
+                 * e_mean(q[f"mean{i}"]) for i in range(k))
+        return NormalWeightedMeanPrecision(xi, w)
+
+    @staticmethod
+    def message_to_switch(q):
+        logits = [-0.5 * (_LOG2PI - e_log_precision(q[f"prec{i}"])
+                          + e_precision(q[f"prec{i}"]) * _component_c(q, i))
+                  for i in range(_n_components(q))]
+        return Categorical(torch.stack(logits, dim=-1))
+
+    @staticmethod
+    def _message_to_mean_i(q, i: int):
+        r = _e_onehot(q["switch"])[..., i]
+        w = e_precision(q[f"prec{i}"])
+        return NormalWeightedMeanPrecision(r * w * e_mean(q["out"]), r * w)
+
+    @staticmethod
+    def _message_to_prec_i(q, i: int):
+        r = _e_onehot(q["switch"])[..., i]
+        return GammaShapeRate(1.0 + 0.5 * r, 0.5 * r * _component_c(q, i))
+
+    @staticmethod
+    def average_energy(q):
+        r = _e_onehot(q["switch"])
+        total = 0.0
+        for i in range(_n_components(q)):
+            total = total + r[..., i] * 0.5 * (
+                _LOG2PI - e_log_precision(q[f"prec{i}"])
+                + e_precision(q[f"prec{i}"]) * _component_c(q, i))
+        return total
+
+
+def _mv_component_c(q, i: int):
+    """E[(out - m_i)(out - m_i)^T] under independent q(out), q(m_i)."""
+    mx, mi = e_mean(q["out"]), e_mean(q[f"mean{i}"])
+    xx = e_cov(q["out"]) + mx[..., :, None] * mx[..., None, :]
+    mm = e_cov(q[f"mean{i}"]) + mi[..., :, None] * mi[..., None, :]
+    cross = mx[..., :, None] * mi[..., None, :]
+    return xx - cross - cross.transpose(-1, -2) + mm
+
+
+def _mv_component_energy(q, i: int, d: int):
+    tr = torch.einsum("...ij,...ji->...", e_precision(q[f"prec{i}"]),
+                      _mv_component_c(q, i))
+    return 0.5 * (d * _LOG2PI - e_logdet(q[f"prec{i}"]) + tr)
+
+
+@node("MvNormalMixture")
+class MvNormalMixtureNode(metaclass=_ComponentRules):
+    """The multivariate mixture likelihood: MvNormal component means and
+    Wishart component precisions."""
+
+    @staticmethod
+    def message_to_out(q):
+        r = _e_onehot(q["switch"])
+        k = _n_components(q)
+        w = sum(r[..., i, None, None] * e_precision(q[f"prec{i}"])
+                for i in range(k))
+        xi = sum(r[..., i, None] * torch.einsum(
+            "...ij,...j->...i", e_precision(q[f"prec{i}"]),
+            e_mean(q[f"mean{i}"])) for i in range(k))
+        return MvNormalWeightedMeanPrecision(xi, w)
+
+    @staticmethod
+    def message_to_switch(q):
+        d = e_mean(q["out"]).shape[-1]
+        return Categorical(torch.stack(
+            [-_mv_component_energy(q, i, d) for i in range(_n_components(q))],
+            dim=-1))
+
+    @staticmethod
+    def _message_to_mean_i(q, i: int):
+        r = _e_onehot(q["switch"])[..., i]
+        w = e_precision(q[f"prec{i}"])
+        xi = torch.einsum("...ij,...j->...i", w, e_mean(q["out"]))
+        return MvNormalWeightedMeanPrecision(r[..., None] * xi,
+                                             r[..., None, None] * w)
+
+    @staticmethod
+    def _message_to_prec_i(q, i: int):
+        """|W|^{r/2} exp(-r tr(C_i W) / 2) in the inverse-scale carrier
+        (improper for r < 1; aggregated in natural form)."""
+        r = _e_onehot(q["switch"])[..., i]
+        c = _mv_component_c(q, i)
+        return WishartInverseScale(r + c.shape[-1] + 1.0,
+                                   r[..., None, None] * c)
+
+    @staticmethod
+    def average_energy(q):
+        r = _e_onehot(q["switch"])
+        d = e_mean(q["out"]).shape[-1]
+        total = 0.0
+        for i in range(_n_components(q)):
+            total = total + r[..., i] * _mv_component_energy(q, i, d)
+        return total

@@ -4,7 +4,9 @@ of ``rxinfer_tpu/utils/callbacks.py``).
 Event names mirror the reference's typed events; ``infer`` fires
 before/after_model_creation, before/after_inference and
 before/after_iteration (an ``after_iteration`` handler may stop the
-iterations).  Ported: ``EVENT_NAMES``, ``Event``, ``CallbackRegistry``,
+iterations); the streaming engine fires ``ENGINE_EVENTS``, the reference
+engine's events.  Ported: ``EVENT_NAMES``, ``ENGINE_EVENTS``, ``Event``,
+``CallbackRegistry``,
 ``BenchmarkCallbacks`` and ``TraceCallbacks``.  Not ported: the profiler
 context, the TensorBoard export and ``StopEarlyIterationStrategy``, which
 reads the free energy (not ported yet).
@@ -32,6 +34,17 @@ EVENT_NAMES = (
     "on_marginal_update",
     "before_autostart",
     "after_autostart",
+)
+
+# the streaming engine's events (reference src/inference/streaming.jl:847-866)
+ENGINE_EVENTS = (
+    "on_new_data", "before_iteration", "before_auto_update",
+    "after_auto_update", "before_data_update", "on_marginal_update",
+    "after_data_update", "after_iteration", "before_history_save",
+    "after_history_save", "on_tick", "on_error", "on_complete",
+    "before_autostart", "after_autostart", "before_start", "after_start",
+    "before_stop", "after_stop", "before_model_creation",
+    "after_model_creation",
 )
 
 

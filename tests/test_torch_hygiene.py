@@ -44,7 +44,9 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, rxinfer_tpu_torch, rxinfer_tpu_torch.convert, "
             "rxinfer_tpu_torch.kernels, rxinfer_tpu_torch.models.zoo, "
             "rxinfer_tpu_torch.parallel.filtering, "
-            "rxinfer_tpu_torch.ops.quantized, rxinfer_tpu_torch.ops.kalman; "
+            "rxinfer_tpu_torch.ops.quantized, rxinfer_tpu_torch.ops.kalman, "
+            "rxinfer_tpu_torch.inference_streaming, "
+            "rxinfer_tpu_torch.engine.stream_plan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rxinfer_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

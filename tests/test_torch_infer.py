@@ -243,10 +243,16 @@ def test_programs_are_cached_by_shape_and_bound_values():
     assert set(trx.getreturnval(first)) == {"x"}
 
 
+def _streaming(**kwargs):
+    """Arguments that route ``infer`` to the streaming engine."""
+    return {"autoupdates": trx.autoupdates(initial={"pm": 0.0},
+                                           pm=lambda q: 0.0), **kwargs}
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"autoupdates": object()}, "A5"),
+    (_streaming(mesh=object()), "A7b"),
     ({"annotations": object()}, "A4"),
-    ({"datastream": object()}, "A5"),
+    (_streaming(session=object()), "A6"),
     ({"mesh": object()}, "A7"),
     ({"constraints": object()}, "A6"),
     ({"meta": {"MvNormalMeanCovariance": {}}}, "A6"),
