@@ -166,6 +166,31 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    call over the first STREAM_PROFILE_T ticks), peak memory; path A's K3
    call (phase 7) beside them for scale.  ``[stream]`` lines.
 
+15. K1/K2 at state dims 9..16 (the wide kernels of
+   ``csrc/fused_smoother_wide.cu``, V3) and with bf16 moments (V2).  (a)
+   (The wide checks and the bf16 checks each in a process of their own
+   beside phase 3.) The wide kernels against their
+   plain version at WIDE_CHECK_SHAPES (d = 9, 12, 16; static and per-chain
+   W and Q; float32 and bf16 moments; RTOL/ATOL, bf16 moments BF16_RTOL /
+   BF16_ATOL), and the bf16 register kernels' fold, carry and replay
+   passes against the plain version of the same passes at every
+   CHECK_SHAPES shape and, with W and Q per chain, at BF16_DYN_SHAPES;
+   each launch counted under its key.  (b) bench.py:612-622's d16 fused
+   row: ``gen16`` through ``batched_program`` at B=1024, T=2048, d=16, one
+   iteration: exactly one wide K1 and one wide K2 launch a call, sampled
+   chains against bench.py:650-670's float64 RTS (ORACLE_TOL), the fused
+   program against ``fused_kernels=False`` at D16_SMALL (ORACLE_TOL), the
+   median of 10 calls, updates/s = 3 T B / t (bench.py:622), K1 and K2
+   alone and in one profiled call, peak memory.  (c) bench.py:240-251's
+   bf16 row: phase 4's cell with ``options={"fused_moment_dtype":
+   "bfloat16"}``: exactly one bf16 K1 and one bf16 K2 launch a call, the
+   posteriors and the smoother's outputs against the float32 program's at
+   the JAX package's tolerances (BF16_ROW_TOL), both programs timed in
+   turns, each kernel alone and in one profiled call.  ``[wide check]``,
+   ``[bf16 check]``, ``[d16]`` and ``[bf16]`` lines; four more rows in the
+   ``kernels`` line (the wide K1 / K2, the bf16 K1 / K2), each with the
+   errors of its checked variants.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
 prints no result.
@@ -403,16 +428,17 @@ def ops_per_step(d: int) -> tuple[int, int]:
     return n_fwd, _OpCount.n
 
 
-def kernel_bounds(b: int, t: int, d: int) -> dict:
+def kernel_bounds(b: int, t: int, d: int, moment_bytes: int = 4) -> dict:
     """Least time (ms) the card could take for K1 and K2 at (B, T, d): each
     input read once and each output written once over the HBM rate, against
-    the operations over the float32 rate."""
+    the operations over the float32 rate.  ``moment_bytes``: the packed
+    covariances' and the cross's entry size (2 for bf16 moments)."""
     nsym = d * (d + 1) // 2
-    f4 = 4
+    f4, mb = 4, moment_bytes
     fwd_bytes = (t * b * d + b * d + b * d * d) * f4 \
-        + t * (d + nsym) * b * f4
-    bwd_bytes = t * (d + nsym) * b * f4 \
-        + (t * (d + nsym) + (t - 1) * d * d) * b * f4
+        + t * (d * f4 + nsym * mb) * b
+    bwd_bytes = t * (d * f4 + nsym * mb) * b \
+        + (t * (d * f4 + nsym * mb) + (t - 1) * d * d * mb) * b
     n_fwd, n_bwd = ops_per_step(d)
     out = {}
     for name, nbytes, ops in (("fused_smoother_fwd", fwd_bytes, n_fwd * t * b),
@@ -3337,6 +3363,415 @@ def stream_path(device, reps: int, path_a_ms=None, log=print) -> dict:
     return out
 
 
+# -- slice 12: K1/K2 at d 9..16 (the wide kernels, V3) and bf16 moments (V2) --------
+
+# Phase 15 (b): bench.py:612-622's d16 fused row; sampled chains against
+# bench.py:650-670's float64 RTS, and the fused program against
+# ``fused_kernels=False`` at a small shape.
+D16_B, D16_T, D16_D = 1024, 2048, 16
+D16_SMALL = (8, 256)
+# (B, T, d, mode) of the wide kernels' checks: d = 16 at the row's batch and
+# at B = 1024 with W and Q per chain, the smallest wide d with a ragged last
+# block of chains (37 = 4 * 8 + 5), d = 12 with W and Q per chain, and bf16
+# moments with shared and with per-chain precisions.  Short chains: the
+# plain version issues about 10^4 torch operations a step at d = 16.
+WIDE_CHECK_SHAPES = [(1024, 4, 16, ""), (37, 16, 9, ""), (64, 8, 12, "WQ"),
+                     (1024, 4, 16, "WQ"), (64, 8, 16, "bf16"),
+                     (40, 6, 10, "WQ bf16")]
+WIDE_PLAIN_SHAPE = WIDE_CHECK_SHAPES[0][:3]
+# The bf16 register kernels at every CHECK_SHAPES shape (one time block and
+# many) and, with W and Q per chain, at one shape of 8 blocks, against the
+# plain version of the same passes (``fused_*_blocked_reference`` at the
+# wrapper's number of blocks).
+BF16_DYN_SHAPES = [(40, 257, 3)]
+# bf16 moments against their bf16 plain version: two bf16 ulps relative.
+# Both sides round float32 values that differ in their last bits (fused
+# multiply-adds, and for the wide kernels Gauss-Jordan against the Schur
+# recursion), so an entry near a rounding boundary lands one bf16 ulp
+# (2^-8 to 2^-7 relative) away, and K2 carries such a flip of pf into its
+# outputs; measured on an H100: 7.63e-3 relative at most.  The float32
+# means are held at RTOL / ATOL.
+BF16_RTOL, BF16_ATOL = 1.6e-2, 3e-4
+# Phase 15 (c): the bf16 program against the float32 one at the JAX
+# package's own tolerances (tests/parallel/test_pallas_smoother.py:82-85):
+# means 3e-2 absolute, covariances 3e-2 (relative and absolute), cross 5e-2.
+BF16_ROW_TOL = {"means": 3e-2, "covs": 3e-2, "cross": 5e-2}
+WIDE_KERNEL_NAMES = {"fused_smoother_fwd_wide": "wide_fwd_kernel",
+                     "fused_smoother_bwd_wide": "wide_bwd_kernel"}
+BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
+                         "fused_smoother_fwd"],
+                     "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
+                         "fused_smoother_bwd"]}
+
+
+def _check_rows(rows: dict, worst: dict, failures: list, where: str,
+                bf16: bool) -> list:
+    """Hold each (label, got, want) of ``rows`` (launch key -> items)
+    against its plain version: RTOL / ATOL, the bf16 moments at BF16_RTOL /
+    BF16_ATOL.  Updates ``worst`` and ``failures``; returns the log parts."""
+    parts = []
+    for kname, items in rows.items():
+        for label, got, want in items:
+            moment = bf16 and label in ("pf", "ps", "cross")
+            tol = (BF16_RTOL, BF16_ATOL) if moment else (RTOL, ATOL)
+            ea, er, ok = _max_err(got.float().cpu().numpy(),
+                                  want.float().cpu().numpy(), *tol)
+            worst[kname] = max(worst.get(kname, 0.0), ea)
+            parts.append(f"{label} abs {ea:.3g} rel {er:.3g}")
+            if not ok:
+                failures.append(f"{where} {label}: abs {ea:.3g} rel {er:.3g}"
+                                f" (rtol {tol[0]}, atol {tol[1]})")
+    return parts
+
+
+def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
+    """Phase 15 (a): each (B, T, d, dyn, moment dtype) of ``cases``
+    through the wrappers (W and Q per chain with ``dyn``) against the plain
+    version of the same passes on the same inputs: the blocked plain
+    version at the wrapper's number of time blocks, the step-by-step one at
+    one block (always so for the wide kernels).  K2 takes K1's own mf, pf.
+    Each wrapper call must count once under its launch key.  The plain
+    versions run on the host but at the first case, where their one call on
+    the card is their time, beside the kernels'.  Returns each launch key's
+    max abs error and those times."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    worst: dict = {}
+    failures: list = []
+    plain: dict = {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for i, (bsz, t_len, d, dyn, md) in enumerate(cases):
+        bf16 = md == torch.bfloat16
+        blocks = fs.pick_blocks(bsz, t_len, d, sms)
+        f, b, q, w = _smoother_params(d, seed=1200 + i)
+        rng = np.random.default_rng(1200 + i)
+        dev = lambda a: torch.as_tensor(a, device=device)
+        xi = dev(rng.standard_normal((t_len, bsz, d)).astype(np.float32))
+        m0 = dev(rng.standard_normal((bsz, d)).astype(np.float32))
+        p0 = dev(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                                 (bsz, d, d)).copy())
+        wb = dev(_spd_batch(rng, bsz, d, 0.8)) if dyn else None
+        qb = dev(_spd_batch(rng, bsz, d, 0.4)) if dyn else None
+        w_sh, q_sh = (None, None) if dyn else (w, q)
+        keys = [fs.launch_key(dr, d, dyn, bf16) for dr in ("fwd", "bwd")]
+        before = dict(fs.LAUNCHES)
+        mf, pf = fs.fused_forward(m0, p0, xi, f, b, q_sh, w_sh, wb, qb,
+                                  moment_dtype=md)
+        ms, ps, cr = fs.fused_backward(mf, pf, f, b, q_sh, qb)
+        torch.cuda.synchronize()
+        for k in keys:
+            if fs.LAUNCHES[k] - before[k] != 1:
+                raise AssertionError(f"{k} did not count one launch at "
+                                     f"(B,T,d)=({bsz},{t_len},{d})")
+        if blocks > 1:
+            ref_f = lambda *a: fs.fused_forward_blocked_reference(
+                *a[:7], blocks, *a[7:])
+            ref_b = lambda *a: fs.fused_backward_blocked_reference(
+                *a[:5], blocks, *a[5:])
+        else:
+            ref_f, ref_b = fs.fused_forward_reference, \
+                fs.fused_backward_reference
+        args_f = (m0, p0, xi, f, b, q_sh, w_sh, wb, qb, md)
+        args_b = (mf, pf, f, b, q_sh, qb)
+        if i == 0:
+            (mf_r, pf_r), fwd_plain_ms = _once_ms(lambda: ref_f(*args_f))
+            (ms_r, ps_r, cr_r), bwd_plain_ms = _once_ms(
+                lambda: ref_b(*args_b))
+            plain = {keys[0]: {"plain_ms": fwd_plain_ms, "ms": _cuda_ms(
+                         lambda: fs.fused_forward(*args_f[:9],
+                                                  moment_dtype=md), 5, inner=20)},
+                     keys[1]: {"plain_ms": bwd_plain_ms, "ms": _cuda_ms(
+                         lambda: fs.fused_backward(*args_b), 5, inner=20)}}
+        else:
+            mf_r, pf_r = _on_host(ref_f, *args_f)
+            ms_r, ps_r, cr_r = _on_host(ref_b, *args_b)
+        rows = {keys[0]: [("mf", mf, mf_r), ("pf", pf, pf_r)],
+                keys[1]: [("ms", ms, ms_r), ("ps", ps, ps_r),
+                          ("cross", cr, cr_r)]}
+        where = (f"(B,T,d)=({bsz},{t_len},{d}) {'WQ' if dyn else 'static'}"
+                 f" {'bf16' if bf16 else 'float32'} blocks {blocks}")
+        parts = _check_rows(rows, worst, failures, where, bf16)
+        log(f"[{'wide' if d > fs.REG_MAX_DIM else 'bf16'} check] {where}: "
+            + "; ".join(parts))
+    if failures:
+        raise AssertionError("a kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    return worst, plain
+
+
+def slice12_checks(which: str) -> tuple[list, dict, dict]:
+    """Phase 15 (a)'s ``"wide"`` or ``"bf16"`` kernel checks in a process
+    of their own, beside phase 3's (their plain versions are host loops).
+    Returns the log lines, each launch key's max error and the plain
+    versions' times."""
+    import torch
+
+    bf16 = torch.bfloat16
+    # the bf16 checks of the longest CHECK_SHAPES go with the wide ones, so
+    # that the two processes end together
+    late = CHECK_SHAPES[-3:-1]
+    if which == "wide":
+        cases = [(bsz, t, d, "WQ" in mode,
+                  bf16 if "bf16" in mode else torch.float32)
+                 for bsz, t, d, mode in WIDE_CHECK_SHAPES] + \
+            [(bsz, t, d, False, bf16) for bsz, t, d in late]
+    else:
+        cases = [(bsz, t, d, False, bf16) for bsz, t, d in CHECK_SHAPES
+                 if (bsz, t, d) not in late] + \
+            [(bsz, t, d, True, bf16) for bsz, t, d in BF16_DYN_SHAPES]
+    lines: list = []
+    worst, plain = check_slice12_kernels(torch.device("cuda"), cases,
+                                         log=lines.append)
+    return lines, worst, plain
+
+
+def rts_cov_float64(f, q, h, r, m0, p0, y):
+    """bench.py:650-670's float64 RTS smoother in covariance form, one
+    chain: y (T, dy); returns smoothed means (T, d) and covariances
+    (T, d, d)."""
+    f, q, h, r = (np.asarray(a, np.float64) for a in (f, q, h, r))
+    mf, pf = [], []
+    m, p = np.asarray(m0, np.float64), np.asarray(p0, np.float64)
+    for t in range(y.shape[0]):
+        if t > 0:
+            m = f @ m
+            p = f @ p @ f.T + q
+        s_t = h @ p @ h.T + r
+        k = p @ h.T @ np.linalg.inv(s_t)
+        m = m + k @ (y[t].astype(np.float64) - h @ m)
+        p = p - k @ h @ p
+        mf.append(m)
+        pf.append(p)
+    ms, ps = list(mf), list(pf)
+    for t in range(y.shape[0] - 2, -1, -1):
+        ppred = f @ pf[t] @ f.T + q
+        g = pf[t] @ f.T @ np.linalg.inv(ppred)
+        ms[t] = mf[t] + g @ (ms[t + 1] - f @ mf[t])
+        ps[t] = pf[t] + g @ (ps[t + 1] - ppred) @ g.T
+    return np.stack(ms), np.stack(ps)
+
+
+def d16_path(device, b: int, t_len: int, d: int, reps: int,
+             log=print) -> dict:
+    """Phase 15 (b): bench.py:612-622's d16 fused row through
+    ``batched_program``: ``gen16`` (bench.py:590-597: F = kron(I8, rot),
+    Q = R = I, H = 1.3 I, m0 = 0, P0 = 25 I) at (B, T) = (1024, 2048), one
+    iteration, y from a numpy seed.  Exactly one wide K1 and one wide K2
+    launch a call and no other; sampled chains against the float64 RTS
+    (ORACLE_TOL); the fused program against ``fused_kernels=False`` at
+    D16_SMALL (ORACLE_TOL, no kernel launched there); the program's median
+    of ``reps`` calls, updates/s = 3 T B / t (bench.py:622), K1 and K2
+    alone and in the program (one profiled call), peak memory."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    model = zoo.lgssm(f, q, h, r, m0, p0)
+    rng = np.random.default_rng(16)
+    y_host = rng.standard_normal((b, t_len, d), dtype=np.float32)
+    y = torch.as_tensor(y_host, device=device)
+    compiled, prog = rt.batched_program(model, {"y": y}, iterations=1,
+                                        device=device)
+    report = compiled.plan_report()
+    log(f"[d16] plan_report {report}")
+    if report.get("x", {}).get("fused") is not True:
+        raise AssertionError("the d16 chain is not on the fused path")
+    reset_launches()
+    (state, _, _), peak = _peak_call(device, lambda: prog({"y": y}))
+    launches = read_launches()
+    log(f"[d16] launches in one program call: {launches}; peak "
+        f"{peak / 1e9:.3f} GB above the inputs")
+    expect_launches(launches, fused_smoother_fwd_wide=1,
+                    fused_smoother_bwd_wide=1)
+    means = state["x"].mu.cpu().numpy()
+    covs = state["x"].sigma.cpu().numpy()
+    if means.shape != (b, t_len, d) or covs.shape != (b, t_len, d, d) \
+            or not (np.isfinite(means).all() and np.isfinite(covs).all()):
+        raise AssertionError(f"d16 posterior shapes {means.shape}, "
+                             f"{covs.shape} or non-finite values")
+    errs = {"means": 0.0, "covs": 0.0}
+    rows = sorted({0, 1, b // 2, b - 1})
+    for row in rows:
+        om, op = rts_cov_float64(f, q, h, r, m0, p0, y_host[row])
+        errs["means"] = max(errs["means"], float(np.abs(means[row] - om).max()))
+        errs["covs"] = max(errs["covs"], float(np.abs(covs[row] - op).max()))
+    log(f"[d16] float64 RTS (bench.py:650-670), chains {rows}: max abs "
+        f"err means {errs['means']:.3g}, covs {errs['covs']:.3g} (tol "
+        f"{ORACLE_TOL})")
+    if max(errs.values()) > ORACLE_TOL:
+        raise AssertionError(f"the d16 row disagrees with the float64 RTS: "
+                             f"{errs}")
+
+    # the fused program against the scan path on the same rows
+    bs, ts = D16_SMALL
+    ys = y[:bs, :ts].contiguous()
+    _, fprog = rt.batched_program(model, {"y": ys}, iterations=1,
+                                  device=device)
+    ucomp, uprog = rt.batched_program(
+        model, {"y": ys}, iterations=1, device=device,
+        options={"fused_kernels": False, "warn": False})
+    fs_state, _, _ = fprog({"y": ys})
+    reset_launches()
+    us_state, _, _ = uprog({"y": ys})
+    torch.cuda.synchronize()
+    expect_launches(read_launches())
+    unf = {"means": float((fs_state["x"].mu - us_state["x"].mu).abs().max()),
+           "covs": float((fs_state["x"].sigma
+                          - us_state["x"].sigma).abs().max())}
+    log(f"[d16] fused against fused_kernels=False at (B,T)={D16_SMALL}: max "
+        f"abs diff means {unf['means']:.3g}, covs {unf['covs']:.3g} (tol "
+        f"{ORACLE_TOL}; no kernel launched by the scan path)")
+    if max(unf.values()) > ORACLE_TOL:
+        raise AssertionError(f"d16 fused and unfused programs disagree: {unf}")
+
+    out = {"launches": launches, "errs": errs, "unfused_diff": unf,
+           "peak_bytes": peak}
+    out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
+    out["updates_per_s"] = 3 * t_len * b / (out["program_ms"] / 1e3)
+    w_obs = (h.T @ np.linalg.inv(r) @ h).astype(np.float32)
+    ek = torch.as_tensor((h.T @ np.linalg.inv(r)).astype(np.float32),
+                         device=device)
+    xi_t = torch.einsum("if,btf->tbi", ek, y).contiguous()
+    m0_t = torch.as_tensor(m0, device=device).expand((b, d)).contiguous()
+    p0_t = torch.as_tensor(p0, device=device).expand((b, d, d)).contiguous()
+    zeros = np.zeros(d, np.float32)
+    mf, pf = fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs)
+    out["fwd_ms"] = _cuda_ms(
+        lambda: fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs), reps)
+    out["bwd_ms"] = _cuda_ms(lambda: fs.fused_backward(mf, pf, f, zeros, q),
+                             reps)
+    out["profile"] = _device_profile(lambda: prog({"y": y}),
+                                     WIDE_KERNEL_NAMES)
+    busy = out["profile"]["busy_ms"]
+    log(f"[d16] program {out['program_ms']:.3f} ms/call "
+        f"({out['updates_per_s']:.4g} updates/s); K1 alone "
+        f"{out['fwd_ms']:.3f} ms, K2 alone {out['bwd_ms']:.3f} ms; device "
+        f"busy {busy} ms per call, idle "
+        f"{_idle_share(out['program_ms'], busy)}; in the program "
+        f"{out['profile']['kernels']}")
+    return out
+
+
+def bf16_path(device, b: int, t_len: int, d: int, reps: int,
+              log=print) -> dict:
+    """Phase 15 (c): bench.py:240-251's row, phase 4's LGSSM cell with
+    ``options={"fused_moment_dtype": "bfloat16"}``, beside the same run's
+    float32 program: exactly one bf16 K1 and one bf16 K2 launch a call and
+    no other; the posteriors, and the smoother's means, covariances and
+    cross on the path's inputs, against the float32 ones (BF16_ROW_TOL);
+    both programs' median of ``reps`` calls in turns, updates/s, each
+    kernel alone and in the program (one profiled call)."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    f, q, h, r, m0, p0 = lgssm_constants(d)
+    model = zoo.lgssm(f, q, h, r, m0, p0)
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(rng.standard_normal((b, t_len, d), dtype=np.float32),
+                        device=device)
+    _, prog32 = rt.batched_program(model, {"y": y}, iterations=1,
+                                   device=device)
+    comp16, prog16 = rt.batched_program(
+        model, {"y": y}, iterations=1, device=device,
+        options={"fused_moment_dtype": "bfloat16"})
+    if comp16.plan_report()["x"].get("fused") is not True:
+        raise AssertionError("the bf16 chain is not on the fused path")
+    state32, _, _ = prog32({"y": y})
+    reset_launches()
+    state16, _, _ = prog16({"y": y})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[bf16] launches in one program call: {launches}")
+    expect_launches(launches, fused_smoother_fwd_bf16=1,
+                    fused_smoother_bwd_bf16=1)
+
+    # the smoother on the path's inputs, bf16 against float32
+    hinv = (h.T @ np.linalg.inv(r)).astype(np.float32)
+    w_obs = (hinv @ h).astype(np.float32)
+    xi_t = torch.einsum("if,btf->tbi", torch.as_tensor(hinv, device=device),
+                        y).contiguous()
+    m0_t = torch.as_tensor(m0, device=device).expand((b, d)).contiguous()
+    p0_t = torch.as_tensor(p0, device=device).expand((b, d, d)).contiguous()
+    zeros = np.zeros(d, np.float32)
+    got = fs.fused_batched_smoother(m0_t, p0_t, xi_t, f, zeros, q, w_obs,
+                                    moment_dtype=torch.bfloat16)
+    want = fs.fused_batched_smoother(m0_t, p0_t, xi_t, f, zeros, q, w_obs)
+    errs = {}
+    for name, g, wnt in zip(("means", "covs", "cross"), got, want):
+        if g.dtype != torch.float32:
+            raise AssertionError(f"bf16 {name} returned as {g.dtype}")
+        errs[name] = float((g - wnt).abs().max())
+    errs["posterior_means"] = float((state16["x"].mu
+                                     - state32["x"].mu).abs().max())
+    errs["posterior_covs"] = float((state16["x"].sigma
+                                    - state32["x"].sigma).abs().max())
+    covs_rel = float(((got[1] - want[1]).abs()
+                      / (BF16_ROW_TOL["covs"]
+                         * (1 + want[1].abs()))).max())
+    log(f"[bf16] against the float32 program: max abs diff " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; covariances at {covs_rel:.3g} of the rtol=atol="
+        f"{BF16_ROW_TOL['covs']} allowance (tolerances {BF16_ROW_TOL}, "
+        "tests/parallel/test_pallas_smoother.py:82-85)")
+    for name, tol in (("means", "means"), ("posterior_means", "means"),
+                      ("cross", "cross")):
+        if errs[name] > BF16_ROW_TOL[tol]:
+            raise AssertionError(f"bf16 {name} off by {errs[name]}")
+    if covs_rel > 1.0 or errs["posterior_covs"] > BF16_ROW_TOL["covs"] * (
+            1 + float(state32["x"].sigma.abs().max())):
+        raise AssertionError("bf16 covariances beyond rtol=atol=3e-2")
+
+    out = {"launches": launches, "errs": errs}
+    # the two programs in turns: float32, bf16, bf16, float32
+    t32a = _cuda_ms(lambda: prog32({"y": y}), reps)
+    t16a = _cuda_ms(lambda: prog16({"y": y}), reps)
+    t16b = _cuda_ms(lambda: prog16({"y": y}), reps)
+    t32b = _cuda_ms(lambda: prog32({"y": y}), reps)
+    out["program_ms"] = statistics.median([t16a, t16b])
+    out["program_ms_fp32"] = statistics.median([t32a, t32b])
+    out["program_ms_runs"] = [t32a, t16a, t16b, t32b]
+    out["updates_per_s"] = 3 * t_len * b / (out["program_ms"] / 1e3)
+    out["updates_per_s_fp32"] = 3 * t_len * b / (out["program_ms_fp32"] / 1e3)
+    mf, pf = fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs,
+                              moment_dtype=torch.bfloat16)
+    out["fwd_ms"] = _cuda_ms(lambda: fs.fused_forward(
+        m0_t, p0_t, xi_t, f, zeros, q, w_obs, moment_dtype=torch.bfloat16),
+        reps)
+    out["bwd_ms"] = _cuda_ms(lambda: fs.fused_backward(mf, pf, f, zeros, q),
+                             reps)
+    out["profile"] = _device_profile(lambda: prog16({"y": y}),
+                                     BF16_KERNEL_NAMES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out["blocks"] = fs.pick_blocks(b, t_len, d, sms)
+    busy = out["profile"]["busy_ms"]
+    log(f"[bf16] program {out['program_ms']:.3f} ms/call "
+        f"({out['updates_per_s']:.4g} updates/s) against float32 "
+        f"{out['program_ms_fp32']:.3f} ms ({out['updates_per_s_fp32']:.4g});"
+        f" in turns {[round(x, 4) for x in out['program_ms_runs']]}; K1 "
+        f"alone {out['fwd_ms']:.4f} ms, K2 alone {out['bwd_ms']:.4f} ms; "
+        f"device busy {busy} ms, idle {_idle_share(out['program_ms'], busy)};"
+        f" in the program {out['profile']['kernels']}")
+    return out
+
+
+def _start_checker() -> None:
+    """A check process's start-up, run while the main process builds the
+    kernels: the port's imports and the card's context."""
+    import torch
+
+    import rxinfer_tpu_torch  # noqa: F401
+
+    torch.cuda.init()
+
+
 def side_checks() -> tuple[list, dict, dict]:
     """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
     process beside the K1/K2 checks.  The plain versions the checks hold the
@@ -3392,20 +3827,25 @@ def main() -> int:
         raise AssertionError("TF32 matmuls are enabled; the port must not "
                              "enable them")
 
-    # 2. build
-    t0 = time.perf_counter()
-    libs = kernels.build_all()
-    print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        for line in kernels.ptxas_report(name).splitlines():
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill")):
-                print(f"[ptxas] {name}: {line.strip()}")
-
     # 3. and 6. kernels vs plain versions: K1/K2 here, K3-K8 in a second
-    # process at the same time (a check that fails there raises here)
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    # process at the same time (a check that fails there raises here);
+    # 15 (a): the wide and the bf16 kernels' checks, a process each.  The
+    # three processes start (imports, the card's context) during the build.
+    with multiprocessing.get_context("spawn").Pool(
+            3, initializer=_start_checker) as pool:
+        # 2. build
+        t0 = time.perf_counter()
+        libs = kernels.build_all()
+        print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        for name in libs:
+            for line in kernels.ptxas_report(name).splitlines():
+                if any(k in line for k in ("Compiling entry", "registers",
+                                           "spill")):
+                    print(f"[ptxas] {name}: {line.strip()}")
+
         side = pool.apply_async(side_checks)
+        side12 = {w: pool.apply_async(slice12_checks, (w,))
+                  for w in ("wide", "bf16")}
         worst, plain = check_kernels(device, CHECK_SHAPES)
         _elapsed("K1/K2 checks", t_start)
         # 10 (a): K1/K2 with per-chain W and Q, in this process, which ends
@@ -3413,10 +3853,16 @@ def main() -> int:
         worst.update(check_dynamic_kernels(device, DYN_CHECK_SHAPES))
         _elapsed("dynamic K1/K2 checks", t_start)
         side_lines, side_worst, quant_layouts = side.get()
-    for line in side_lines:
+        _elapsed("K3-K8 checks", t_start)
+        s12_lines, s12_worst, s12_plain = side12["wide"].get()
+        bf16_lines, bf16_worst, bf16_plain = side12["bf16"].get()
+    for line in side_lines + s12_lines + bf16_lines:
         print(line)
     worst.update(side_worst)
-    _elapsed("K3-K8 checks", t_start)
+    s12_worst.update(bf16_worst)
+    s12_plain.update(bf16_plain)
+    worst.update(s12_worst)
+    _elapsed("wide and bf16 K1/K2 checks", t_start)
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
@@ -3485,6 +3931,14 @@ def main() -> int:
     _elapsed("the GMM", t_start)
     stream = stream_path(device, reps=10, path_a_ms=round(filt["call_ms"], 4))
     _elapsed("the streaming engine", t_start)
+
+    # 15. (b) bench.py's d16 fused row on the wide kernels; (c) its bf16
+    # row on the bf16 kernels, beside the float32 program
+    d16 = d16_path(device, D16_B, D16_T, D16_D, reps=10)
+    d16_bounds = kernel_bounds(D16_B, D16_T, D16_D)
+    bf16 = bf16_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
+    bf16_bounds = kernel_bounds(MAIN_B, MAIN_T, MAIN_D, moment_bytes=2)
+    _elapsed("the d16 and bf16 rows", t_start)
     fe_launches = {
         "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
         "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
@@ -3777,6 +4231,74 @@ def main() -> int:
     print(f"[main] program_ms {main['program_ms']:.4f} updates_per_s "
           f"{main['updates_per_s']:.6g} (B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); "
           f"total run {time.perf_counter() - t_start:.1f} s")
+    # the wide kernels (d16 row) and the bf16 register kernels (bf16 row);
+    # their other instantiations (per-chain W / Q, bf16 wide) are checked
+    # in 15 (a) and listed with their errors under "variants_checked"
+    slice12 = (
+        ("fused_smoother_fwd_wide", "rxinfer_tpu/ops/pallas_smoother.py:76",
+         "rxinfer_tpu_torch/csrc/fused_smoother_wide.cu", d16, d16_bounds,
+         "fused_smoother_fwd", "fwd_ms", [D16_B, D16_T, D16_D]),
+        ("fused_smoother_bwd_wide", "rxinfer_tpu/ops/pallas_smoother.py:139",
+         "rxinfer_tpu_torch/csrc/fused_smoother_wide.cu", d16, d16_bounds,
+         "fused_smoother_bwd", "bwd_ms", [D16_B, D16_T, D16_D]),
+        ("fused_smoother_fwd_bf16", "rxinfer_tpu/ops/pallas_smoother.py:76",
+         "rxinfer_tpu_torch/csrc/fused_smoother_bf16.cu", bf16, bf16_bounds,
+         "fused_smoother_fwd", "fwd_ms", [MAIN_B, MAIN_T, MAIN_D]),
+        ("fused_smoother_bwd_bf16", "rxinfer_tpu/ops/pallas_smoother.py:139",
+         "rxinfer_tpu_torch/csrc/fused_smoother_bf16.cu", bf16, bf16_bounds,
+         "fused_smoother_bwd", "bwd_ms", [MAIN_B, MAIN_T, MAIN_D]),
+    )
+    for name, replaces, src, path, bnds, bkey, ms_key, shape in slice12:
+        direction = "_fwd" if "_fwd" in name else "_bwd"
+        wide = "_wide" in name
+        variants = {k: v for k, v in s12_worst.items()
+                    if direction in k and ("_wide" in k) == wide
+                    and (wide or "_bf16" in k)}
+        prof = path["profile"]["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": path["launches"][name],
+            "max_abs_err": s12_worst[name], "ms": path[ms_key],
+            "ms_in_path": prof["ms_per_launch"],
+            "ms_in_path_by_pass": prof.get("parts"),
+            "plain_ms": s12_plain[name]["plain_ms"],
+            "plain_shape_BTd": list(WIDE_PLAIN_SHAPE) if "_wide" in name
+            else list(CHECK_SHAPES[0]),
+            "bound_ms": bnds[bkey]["bound_ms"],
+            "bound_by": bnds[bkey]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a Kalman/RTS "
+                            "smoother",
+            "shape_BTd": shape, "bytes": bnds[bkey]["bytes"],
+            "ops": bnds[bkey]["ops"],
+            "ms_at_plain_shape": s12_plain[name]["ms"],
+            "variants_checked": variants,
+        })
+    for name in ("fused_smoother_fwd_bf16", "fused_smoother_bwd_bf16"):
+        f32 = "fused_smoother_fwd" if "fwd" in name else "fused_smoother_bwd"
+        ms_key = "fwd_ms" if "fwd" in name else "bwd_ms"
+        print(f"[bf16] {name}: {bf16[ms_key]:.4f} ms alone, in the program "
+              f"{bf16['profile']['kernels'][name]['ms_per_launch']} ms at "
+              f"(B,T,d)={(MAIN_B, MAIN_T, MAIN_D)}, bound "
+              f"{bf16_bounds[f32]['bound_ms']:.4f} ms "
+              f"({bf16_bounds[f32]['bound_by']}); float32 {main[ms_key]:.4f}"
+              f" ms against its bound {bounds[f32]['bound_ms']:.4f}; {smi}")
+    for name in ("fused_smoother_fwd_wide", "fused_smoother_bwd_wide"):
+        f32 = "fused_smoother_fwd" if "fwd" in name else "fused_smoother_bwd"
+        ms = d16["fwd_ms" if "fwd" in name else "bwd_ms"]
+        print(f"[d16] {name}: {ms:.4f} ms alone, in the program "
+              f"{d16['profile']['kernels'][name]['ms_per_launch']} ms, bound "
+              f"{d16_bounds[f32]['bound_ms']:.4f} ms "
+              f"({d16_bounds[f32]['bound_by']}), roofline share "
+              f"{100 * d16_bounds[f32]['bound_ms'] / ms:.2f}% at (B,T,d)="
+              f"{(D16_B, D16_T, D16_D)}; {smi}")
+    print(f"[d16] program_ms {d16['program_ms']:.4f} updates_per_s "
+          f"{d16['updates_per_s']:.6g} (B={D16_B}, T={D16_T}, d={D16_D}), "
+          f"peak {d16['peak_bytes'] / 1e9:.3f} GB; {smi}")
+    print(f"[bf16] program_ms {bf16['program_ms']:.4f} updates_per_s "
+          f"{bf16['updates_per_s']:.6g} against float32 "
+          f"{bf16['program_ms_fp32']:.4f} ({bf16['updates_per_s_fp32']:.6g}) "
+          f"(B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); {smi}")
+
     for row in rows:
         row["launches_fe_paths"] = fe_launches.get(row["name"], {})
         row["launches_gmm_stream_paths"] = {

@@ -1,6 +1,7 @@
 // Per-thread small-matrix helpers shared by the chain kernels
-// (fused_smoother.cu, fused_filter.cu): the device-side counterpart of
-// rxinfer_tpu_torch/ops/entrywise.py, same operations in the same order.
+// (fused_smoother.cuh, fused_filter.cu): the device-side counterpart of
+// rxinfer_tpu_torch/ops/entrywise.py, same operations in the same order;
+// and the moments' float32 / bf16 conversions (also fused_smoother_wide.cu).
 //
 // Every matrix is a float[N][N] with N a template parameter, so after
 // unrolling each index is a compile-time constant and the arrays live in
@@ -11,6 +12,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stddef.h>
 
 namespace rxt {
@@ -396,8 +398,26 @@ __device__ __forceinline__ void sandwich_sym(const float (&f)[D][D],
     }
 }
 
-template <int D>
-__device__ __forceinline__ void load_packed(const float* __restrict__ src,
+// Moment storage: float32, or bf16 rounded to nearest even (as torch and
+// JAX cast); the packed loads and stores below convert through these.
+__device__ __forceinline__ float moment_in(float x) { return x; }
+__device__ __forceinline__ float moment_in(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T moment_out(float x);
+
+template <>
+__device__ __forceinline__ float moment_out<float>(float x) { return x; }
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 moment_out<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void load_packed(const T* __restrict__ src,
                                             size_t stride,
                                             float (&p)[D][D]) {
   int k = 0;
@@ -405,14 +425,14 @@ __device__ __forceinline__ void load_packed(const float* __restrict__ src,
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = i; j < D; ++j) {
-      p[i][j] = src[k * stride];
+      p[i][j] = moment_in(src[k * stride]);
       p[j][i] = p[i][j];
       ++k;
     }
 }
 
-template <int D>
-__device__ __forceinline__ void store_packed(float* __restrict__ dst,
+template <int D, typename T>
+__device__ __forceinline__ void store_packed(T* __restrict__ dst,
                                              size_t stride,
                                              const float (&p)[D][D]) {
   int k = 0;
@@ -420,7 +440,7 @@ __device__ __forceinline__ void store_packed(float* __restrict__ dst,
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = i; j < D; ++j) {
-      dst[k * stride] = p[i][j];
+      dst[k * stride] = moment_out<T>(p[i][j]);
       ++k;
     }
 }

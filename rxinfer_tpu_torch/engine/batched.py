@@ -61,8 +61,16 @@ one.  Under quantized ingest the free-energy terms read the dequantized
 observations, ``vals * scales`` in the observation's layout, so that they see
 what the evidence saw; without free energy that copy is not made.
 
+State dims up to 16 run on the kernels (the register kernels to d = 8, the
+wide ones above), behind the JAX planner's gate on the moment streams'
+device bytes for d > 8 (``fused_moment_bytes``); d > 16 runs on the scans.
+``options={"fused_moment_dtype": "bfloat16"}`` stores the covariances and
+the cross between the two kernels in bf16 (``run_fused_plan``); the
+posteriors, the chain cross and the free energy read them upcast to
+float32, as the JAX package's do.
+
 Ported subset: ``FusedGaussianPlan``, ``_plan_fused_gaussian`` (the static
-and dynamic tiers; d <= 8), ``_extract_linear_evidence``,
+and dynamic tiers; d <= 16), ``_extract_linear_evidence``,
 ``_extract_wlinear_evidence``, ``_fused_gaussian_update``,
 ``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
@@ -152,8 +160,23 @@ def _slot_signature(ef, iface: str, chain_ref) -> tuple:
                          if isinstance(v, Const))))
 
 
+def fused_moment_bytes(d: int, t_len: int, batch: int,
+                       moment_dtype: str = "float32") -> int:
+    """Device bytes of a fused chain's moment streams, with the JAX
+    planner's 2x headroom (``rxinfer_tpu/engine/batched.py:130-133``) in the
+    port's own layout (no lane padding): filtered and smoothed means in
+    float32, filtered and smoothed packed covariances and the cross in
+    ``moment_dtype``."""
+    nsym = d * (d + 1) // 2
+    msize = torch.finfo(getattr(torch, moment_dtype)).bits // 8
+    return t_len * (2 * d * 4 + (2 * nsym + d * d) * msize) * batch * 2
+
+
 def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict,
-                         state0: dict | None = None):
+                         state0: dict | None = None,
+                         batch_hint: int | None = None,
+                         hbm_budget: int | None = None,
+                         moment_dtype: str = "float32"):
     """``(FusedGaussianPlan, None)`` when the chain's parameters are
     compile-time constants (transition A/b/noise Const, prior Const, evidence
     factors whose only non-Const input is the observed value) or, in the
@@ -165,17 +188,34 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict,
 
     Data-valued refs are admitted only at an evidence factor's ``out`` slot,
     where they feed xi but never W; the surviving W is evaluated on the
-    example dataset (at the initial state) and verified time-invariant."""
-    from ..ops.fused_smoother import MAX_DIM
+    example dataset (at the initial state) and verified time-invariant.
+
+    A state dim above ``MAX_DIM`` (16) is refused with the JAX planner's
+    reason; one in (``REG_MAX_DIM``, ``MAX_DIM``] (the wide kernels) must
+    keep its moment streams (``fused_moment_bytes`` at ``batch_hint``
+    chains, 1024 without one, as in the JAX planner) within ``hbm_budget``
+    (``DEFAULT_HBM_BUDGET`` without one)."""
+    from ..ops.fused_smoother import MAX_DIM, REG_MAX_DIM
     from ..rules.registry import get_node
     from .blocks import _coverage, in_cavity_cluster
 
     if block.dim > MAX_DIM:
         return None, (
-            f"state dim {block.dim} > {MAX_DIM}: the CUDA smoother kernels "
-            "keep the chain state in registers and are instantiated for "
-            f"d <= {MAX_DIM}"
+            f"state dim {block.dim} > {MAX_DIM}: beyond the closed-form "
+            "Schur inverse tier; the batched scan path applies"
         )
+    if block.dim > REG_MAX_DIM:
+        budget = hbm_budget or DEFAULT_HBM_BUDGET
+        lanes = batch_hint or 1024
+        nbytes = fused_moment_bytes(block.dim, block.var.length, lanes,
+                                    moment_dtype)
+        if nbytes > budget:
+            return None, (
+                f"state dim {block.dim}: the fused kernel's moment streams "
+                f"(~{nbytes / 1e9:.1f} GB at T={block.var.length}, {lanes} "
+                f"chains) exceed the device-memory budget "
+                f"({budget / 1e9:.1f} GB); batched scan path"
+            )
 
     def _external_random(v):
         """A whole-variable reference to one random variable other than the
@@ -622,15 +662,17 @@ def dynamic_inputs(block: GaussianChainBlock, plan: FusedGaussianPlan,
 
 def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
                    length: int, scalar: bool = False, qpayload=None,
-                   dynamic=None):
+                   dynamic=None, moment_dtype: str = "float32"):
     """Evidence einsum + fused smoother for one plan.  ``data`` maps names
     to (B, T, ...) float32 tensors on the program's device; ``qpayload``
     maps the names whose observations were quantized to their
     ``(vals (B, F, T), scales (B, F, 1))``, which the einsum then reads
     instead.  A dynamic plan takes ``dynamic`` = (xi, W, Q) from
-    ``dynamic_inputs``.  Returns the chain posterior (batched over B) and
-    ``chain_cross`` Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar
-    chains: (B, T-1))."""
+    ``dynamic_inputs``.  ``moment_dtype`` ("float32" or "bfloat16") is what
+    the kernels store the covariances and the cross in between them.
+    Returns the chain posterior (batched over B) and ``chain_cross``
+    Cov(x_{t+1}, x_t) of shape (B, T-1, d, d) (scalar chains: (B, T-1)),
+    float32 either way."""
     from ..ops.fused_smoother import fused_batched_smoother
 
     dim = plan.A.shape[-1]
@@ -649,7 +691,8 @@ def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
     means, covs, cross = fused_batched_smoother(
         m0, p0, xi_t, plan.A, plan.b, plan.Q, plan.W,
         w_batch=None if w_b is None else w_b.contiguous(),
-        q_batch=None if q_b is None else q_b.contiguous())
+        q_batch=None if q_b is None else q_b.contiguous(),
+        moment_dtype=getattr(torch, moment_dtype))
     means_b = means.movedim(0, 1)                    # (B, T, dim)
     covs_b = covs.movedim(0, 1)
     cross_b = cross.movedim(0, 1)                    # (B, T-1, d, d)
@@ -664,7 +707,8 @@ def run_fused_plan(plan: FusedGaussianPlan, data: dict, batch: int,
 def _fused_gaussian_update(block: GaussianChainBlock, plan: FusedGaussianPlan,
                            data: dict, batch: int, qpayload=None,
                            state: dict | None = None,
-                           ctx: BatchContext | None = None):
+                           ctx: BatchContext | None = None,
+                           moment_dtype: str = "float32"):
     """The planned chain's update in a sweep; a dynamic plan reads the
     sweep's ``state`` (and the program's ``ctx``, made here when absent)."""
     dynamic = None
@@ -675,7 +719,7 @@ def _fused_gaussian_update(block: GaussianChainBlock, plan: FusedGaussianPlan,
             ctx = BatchContext(next(iter(data.values())).device, batch, {})
         dynamic = dynamic_inputs(block, plan, state, data, ctx)
     return run_fused_plan(plan, data, batch, block.var.length, block.scalar,
-                          qpayload, dynamic)
+                          qpayload, dynamic, moment_dtype)
 
 
 def _fused_discrete_update(block: DiscreteChainBlock, state: dict,
@@ -750,11 +794,12 @@ def batch_chunk_size(compiled, batch: int, budget_bytes: int,
 
 
 def build_plans(compiled, data0: dict, all_finite: bool = True,
-                device: Any = "cuda") -> dict:
+                device: Any = "cuda", batch_hint: int | None = None) -> dict:
     """Decide, per chain block, whether the fused kernel tier applies, and
     record ``compiled._plan_report``.  ``all_finite=False`` (the batch holds
     missing observations) keeps Gaussian chains off the fused tier; discrete
-    chains stream their masked evidence and stay fused."""
+    chains stream their masked evidence and stay fused.  ``batch_hint``
+    (the program's batch) sizes the device-memory gate of d > 8."""
     from ..ops.fused_fb import MAX_STATES
 
     plans: dict[str, Any] = {}
@@ -795,7 +840,10 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
             continue
         if state0 is None:
             state0 = compiled._init_state()
-        plan, note = _plan_fused_gaussian(block, data0, state0)
+        plan, note = _plan_fused_gaussian(
+            block, data0, state0, batch_hint=batch_hint,
+            hbm_budget=getattr(compiled, "hbm_budget", None),
+            moment_dtype=getattr(compiled, "fused_moment_dtype", "float32"))
         if plan is not None:
             plans[name] = plan
             report[name] = {"fused": True, "kernel": "fused_smoother",
@@ -823,7 +871,8 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
 
 def make_batched_program(compiled, data0: dict, iterations: int,
                          free_energy: bool, keep_each: bool = False,
-                         all_finite: bool = True, device: Any = "cuda"):
+                         all_finite: bool = True, device: Any = "cuda",
+                         batch_hint: int | None = None):
     """Build the function (batched_data) -> (state, fe, history) where every
     data leaf and every state leaf carries a leading batch axis.  The data
     may be numpy arrays or tensors; they are moved to ``device`` as float32.
@@ -832,13 +881,16 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     chain in the plan runs on the fused kernels; every other chain runs its
     block's batch-major update in the same sweep.  A program built on
     finite data (``all_finite=True``) skips the NaN masks, as the JAX
-    package's fused tier does."""
+    package's fused tier does.  ``batch_hint``: the batch the program will
+    see, for the planner's device-memory gate (``build_plans``)."""
     if free_energy:
         # built now, so that an unported branch raises before a sweep
         _ = compiled.fe_factors
     device = torch.device(device)
     data0 = compiled._with_derived(data0)
-    plans = build_plans(compiled, data0, all_finite=all_finite, device=device)
+    plans = build_plans(compiled, data0, all_finite=all_finite, device=device,
+                        batch_hint=batch_hint)
+    moment_dtype = getattr(compiled, "fused_moment_dtype", "float32")
     # quantized observation ingest: the names that feed a fused Gaussian
     # plan's evidence einsum
     obs_dtype = compiled.observation_dtype
@@ -869,7 +921,8 @@ def make_batched_program(compiled, data0: dict, iterations: int,
             else:
                 fused[name] = (lambda st, d, cc, ctx, _b=blocks[name],
                                _p=plan: _fused_gaussian_update(
-                                   _b, _p, d, ctx.batch, qpayload, st, ctx))
+                                   _b, _p, d, ctx.batch, qpayload, st, ctx,
+                                   moment_dtype))
         return fused
 
     def program(data: dict):

@@ -360,12 +360,17 @@ class CompiledModel:
         # False keeps every chain of a batched program off the fused kernels:
         # build_plans reports it and each block's batch-major update runs
         self.use_fused = options.get("fused_kernels", True)
-        if options.get("fused_moment_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                'options={"fused_moment_dtype": '
-                f'{options["fused_moment_dtype"]!r}}} is not ported to the '
-                "PyTorch package yet (float32 only)."
-            )
+        # "bfloat16": the smoother kernels store the covariances and the
+        # cross between their two passes in bf16 (ops/fused_smoother.py)
+        self.fused_moment_dtype = options.get("fused_moment_dtype",
+                                              "float32")
+        if self.fused_moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"fused_moment_dtype {self.fused_moment_dtype!r} not "
+                "supported; choose 'float32' or 'bfloat16'.")
+        # device-memory budget of a batched program's chain moments (None:
+        # engine/batched.py DEFAULT_HBM_BUDGET)
+        self.hbm_budget = options.get("hbm_budget_bytes")
         self.warn = options.get("warn", True)
         # a host-driven run (callbacks) stops at a non-finite free energy
         self.check_objective = options.get("check_objective", False)
@@ -898,11 +903,13 @@ class CompiledModel:
     def make_batched_program(self, data0: dict, iterations: int,
                              free_energy: bool, keep_each: bool = False,
                              all_finite: bool = True,
-                             device: Any = "cuda"):
+                             device: Any = "cuda",
+                             batch_hint: Optional[int] = None):
         """Batch-native program over B independent datasets whose chain
-        blocks run on the fused kernels (engine/batched.py)."""
+        blocks run on the fused kernels (engine/batched.py); ``batch_hint``
+        is the batch it will see (the planner's memory gate)."""
         from .batched import make_batched_program
 
         return make_batched_program(
             self, data0, iterations, free_energy, keep_each=keep_each,
-            all_finite=all_finite, device=device)
+            all_finite=all_finite, device=device, batch_hint=batch_hint)

@@ -210,7 +210,8 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
                              constraints=constraints, meta=meta)
     prog = compiled.make_batched_program(
         first, iterations, free_energy, keep_each=keep_each,
-        all_finite=all_finite, device=device)
+        all_finite=all_finite, device=device,
+        batch_hint=int(np.shape(next(iter(data.values())))[0]))
     _PROGRAMS.put(sig, values, compiled, prog)
     return compiled, prog
 

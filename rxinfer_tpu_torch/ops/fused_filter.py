@@ -43,7 +43,6 @@ import torch
 from .. import kernels
 from . import entrywise as ew
 from .fused_smoother import (
-    MAX_DIM,
     _host_ptr,
     _unpack_entries,
     sym_fold,
@@ -51,7 +50,10 @@ from .fused_smoother import (
     sym_unfold_t,
 )
 
-# Largest observation dimension the CUDA kernel is instantiated for.
+# Largest state and observation dimensions the CUDA kernel is instantiated
+# for (a chain's state in one thread's registers, as in the smoother's
+# register kernels).
+MAX_DIM = 8
 MAX_OBS_DIM = 8
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)

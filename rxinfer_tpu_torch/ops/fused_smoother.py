@@ -9,7 +9,8 @@ Backward (RTS with recomputed prediction; smoothed == filtered at T-1):
     m_s = m_f + G (m_s' - F m_f - b) ; P_s = P_f + G (P_s' - P_pred) G^T
     cross_t = G P_s'            [Cov(x_t, x_{t+1} | all evidence)]
 
-Kernels (``csrc/fused_smoother.cu``):
+Kernels (``csrc/fused_smoother.cuh``, built by ``fused_smoother.cu`` for
+float32 moments and ``fused_smoother_bf16.cu`` for bf16 ones):
   * ``fused_forward``  replaces ``_fwd_kernel`` (pallas_smoother.py:76-136);
   * ``fused_backward`` replaces ``_bwd_kernel`` (pallas_smoother.py:139-203).
 Each wrapper takes its plain version when its tensors lie on the CPU and
@@ -53,8 +54,26 @@ Launches of the per-chain instantiations count under
 them from which tiles are given.  With W alone per chain the backward pass
 is the static one (it reads Q only), as in the JAX package.
 
-Ported subset: float32, shared or per-chain W and Q.  Not ported: bf16
-moments (``moment_dtype``, ROADMAP V2).
+State dims 9..16 (V3).  The replay kernels keep a chain's state in one
+thread's registers and are instantiated for d <= ``REG_MAX_DIM``; for d in
+(``REG_MAX_DIM``, ``MAX_DIM``] the wrappers launch the wide kernels of
+``csrc/fused_smoother_wide.cu`` instead (a chain a 16-lane group, one time
+block, shared or per-chain W / Q), counted under the ``_wide`` keys.  Their
+plain version is the same d-generic one (``forward_step``,
+``backward_step``); the wide kernels invert by Gauss-Jordan, the plain
+version by the Schur recursion, so the two agree to rounding, not bit for
+bit.
+
+bf16 moments (V2, ``moment_dtype=torch.bfloat16``).  The packed filtered
+and smoothed covariances and the cross are stored in bf16, rounded to
+nearest even where the JAX kernels round (``pallas_smoother.py:127, 194,
+196``): K1 carries its state in float32 and stores pf rounded; K2 reads pf
+rounded and upcast, carries the smoothed state in float32 and stores ps and
+cross rounded; at T-1 the smoothed moment is the rounded filtered one.
+Means and arithmetic stay float32, and ``fused_batched_smoother`` returns
+float32 covariances and cross, as the JAX wrapper does.  Launches count
+under the ``_bf16`` keys.  Every wrapper call counts under one key of
+``LAUNCHES``: ``launch_key(direction, d, dyn, bf16)``.
 """
 
 from __future__ import annotations
@@ -69,13 +88,18 @@ from .. import kernels
 from . import entrywise as ew
 from . import kalman
 
-# Largest chain state the CUDA kernels take.  Each thread keeps one chain's
-# state (d + d(d+1)/2 floats) and the Schur-inverse temporaries in registers;
-# the replay kernels are instantiated for d = 1..8, and at d = 8 the backward
-# one already needs 255 registers.  At d = 16 the state alone is 152 floats,
-# so d in (8, 16] needs another design (state in shared memory, or several
-# threads per chain).
-MAX_DIM = 8
+# Largest chain state of the register kernels (``csrc/fused_smoother.cuh``).
+# Each thread keeps one chain's state (d + d(d+1)/2 floats) and the
+# Schur-inverse temporaries in registers; the replay kernels are
+# instantiated for d = 1..8, and at d = 8 the backward one already needs 255
+# registers.  At d = 16 the state alone is 152 floats, so d in (8, 16] runs
+# on the wide kernels (``csrc/fused_smoother_wide.cu``: a chain a 16-lane
+# group, a row of each matrix a lane).
+REG_MAX_DIM = 8
+# Largest chain state any smoother kernel takes: the JAX tier's (d <= 16).
+MAX_DIM = 16
+# Storage types of the packed covariances and the cross.
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 # Largest d with a fold and a carry kernel (``kFoldMaxDim`` in the source).
 # A fold thread carries a whole composite, d*d + 2d + d(d+1) floats forward,
 # beside the general inverse's temporaries: up to d = 5 no fold or carry
@@ -92,11 +116,21 @@ MIN_BLOCKS = 8              # fold + replay cost ~2.3-4 steps per step: below
                             # this many blocks one block is as fast
 MAX_BLOCKS = 128            # the carry pass is serial in S
 
+
+def launch_key(direction: str, d: int, dyn: bool, bf16: bool) -> str:
+    """The ``LAUNCHES`` key of a wrapper call: ``fused_smoother_<fwd|bwd>``,
+    then ``_wide`` for the wide kernels (d > ``REG_MAX_DIM``), ``_dyn`` for
+    per-chain W / Q, ``_bf16`` for bf16 moments."""
+    return (f"fused_smoother_{direction}" + ("_wide" if d > REG_MAX_DIM else "")
+            + ("_dyn" if dyn else "") + ("_bf16" if bf16 else ""))
+
+
 # wrapper calls that launched on CUDA tensors, one per call whatever the
-# number of passes (the plain version on CPU tensors counts none); the
-# ``_dyn`` keys count the launches of the per-chain W/Q instantiations
-LAUNCHES = {"fused_smoother_fwd": 0, "fused_smoother_bwd": 0,
-            "fused_smoother_fwd_dyn": 0, "fused_smoother_bwd_dyn": 0}
+# number of passes (the plain version on CPU tensors counts none), under
+# the key of the instantiation that ran (``launch_key``)
+LAUNCHES = {launch_key(direction, d, dyn, bf16): 0
+            for d in (REG_MAX_DIM, MAX_DIM) for direction in ("fwd", "bwd")
+            for dyn in (False, True) for bf16 in (False, True)}
 
 
 def reset_launches() -> None:
@@ -130,10 +164,11 @@ def sym_fold(p: torch.Tensor) -> torch.Tensor:
 
 
 def sym_unfold_t(x: torch.Tensor, d: int) -> torch.Tensor:
-    """(T, nsym, B) -> (T, B, d, d): gather each full-matrix entry from its
-    upper-triangle slot."""
+    """(T, nsym, B) -> (T, B, d, d) float32: gather each full-matrix entry
+    from its upper-triangle slot (bf16 moments upcast, as the JAX wrapper
+    returns them)."""
     _, _, full = _sym_indices(d, x.device)
-    gathered = x[:, full, :]                                  # (T, d*d, B)
+    gathered = x[:, full, :].float()                          # (T, d*d, B)
     return gathered.reshape(x.shape[0], d, d, x.shape[-1]).permute(0, 3, 1, 2)
 
 
@@ -223,6 +258,25 @@ def _unpack_entries(entries, d):
     return full
 
 
+def check_moment_dtype(moment_dtype) -> torch.dtype:
+    """``moment_dtype`` (None: float32) if the kernels store moments in it,
+    else raise."""
+    md = torch.float32 if moment_dtype is None else moment_dtype
+    if md not in MOMENT_DTYPES:
+        raise ValueError(f"moment_dtype {moment_dtype!r}: the smoother "
+                         "stores its moments in torch.float32 or "
+                         "torch.bfloat16")
+    return md
+
+
+def _pf_moment_dtype(pf, moment_dtype) -> torch.dtype:
+    """K2's moment dtype: pf's, which ``moment_dtype`` may restate."""
+    md = check_moment_dtype(pf.dtype)
+    if moment_dtype is not None and check_moment_dtype(moment_dtype) != md:
+        raise ValueError(f"pf is {pf.dtype}, moment_dtype {moment_dtype}")
+    return md
+
+
 def _entries(m, p):
     """(B, d), (B, d, d) tensors -> the step functions' entry lists."""
     d = m.shape[-1]
@@ -231,11 +285,14 @@ def _entries(m, p):
 
 
 def fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch=None,
-                            q_batch=None):
+                            q_batch=None, moment_dtype=None):
     """Plain forward pass on (B,) entry tensors; returns mf (T, d, B) and
-    pf (T, nsym, B).  Same recurrence and operation order as the kernel.
-    ``w_batch`` / ``q_batch`` (B, d, d) replace W / Q per chain."""
+    pf (T, nsym, B) in ``moment_dtype`` (float32 by default; the state is
+    carried in float32 and rounded as it is stored).  Same recurrence and
+    operation order as the register kernels.  ``w_batch`` / ``q_batch``
+    (B, d, d) replace W / Q per chain."""
     t_len, bsz, d = xi.shape
+    md = check_moment_dtype(moment_dtype)
     _check_per_chain("w", w_batch, w, bsz, d)
     _check_per_chain("q", q_batch, q, bsz, d)
     f, b, q, w = _host_params(f, b, q, w, d)
@@ -244,7 +301,7 @@ def fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch=None,
     we = _param_entries(w.tolist(), w_batch)
     m, p = _entries(m0, p0)
     mf = torch.empty((t_len, d, bsz), dtype=xi.dtype, device=xi.device)
-    pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=xi.dtype,
+    pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=md,
                      device=xi.device)
     for t in range(t_len):
         xi_t = [xi[t, :, k] for k in range(d)]
@@ -254,27 +311,31 @@ def fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch=None,
     return mf, pf
 
 
-def fused_backward_reference(mf, pf, f, b, q, q_batch=None):
+def fused_backward_reference(mf, pf, f, b, q, q_batch=None,
+                             moment_dtype=None):
     """Plain RTS pass over the filtered SoA streams; returns ms (T, d, B),
-    ps (T, nsym, B) and cross (T-1, d*d, B).  ``q_batch`` (B, d, d)
+    ps (T, nsym, B) and cross (T-1, d*d, B), ps and cross in pf's dtype
+    (``moment_dtype`` may restate it): pf is read upcast, the smoothed state
+    carried in float32 and rounded as it is stored.  ``q_batch`` (B, d, d)
     replaces Q per chain."""
     t_len, d, bsz = mf.shape
+    md = _pf_moment_dtype(pf, moment_dtype)
     _check_per_chain("q", q_batch, q, bsz, d)
     f, b, q, _ = _host_params(f, b, q, None, d)
     fe, be = f.tolist(), b.tolist()
     qe = _param_entries(q.tolist(), q_batch)
     nsym = d * (d + 1) // 2
+    pf32 = pf.float()
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
-    cross = torch.empty((t_len - 1, d * d, bsz), dtype=mf.dtype,
-                        device=mf.device)
+    cross = torch.empty((t_len - 1, d * d, bsz), dtype=md, device=mf.device)
     ms[t_len - 1] = mf[t_len - 1]
     ps[t_len - 1] = pf[t_len - 1]
     m_s = [mf[t_len - 1, i] for i in range(d)]
-    p_s = _unpack_entries([pf[t_len - 1, k] for k in range(nsym)], d)
+    p_s = _unpack_entries([pf32[t_len - 1, k] for k in range(nsym)], d)
     for t in range(t_len - 2, -1, -1):
         m_f = [mf[t, i] for i in range(d)]
-        p_f = _unpack_entries([pf[t, k] for k in range(nsym)], d)
+        p_f = _unpack_entries([pf32[t, k] for k in range(nsym)], d)
         m_s, p_s, cr = backward_step(m_f, p_f, m_s, p_s, fe, be, qe)
         cross[t] = torch.stack([cr[i][j] for i in range(d) for j in range(d)])
         ms[t] = torch.stack(m_s)
@@ -331,13 +392,16 @@ def _sym_upper(x):
 
 
 def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int,
-                                    w_batch=None, q_batch=None):
+                                    w_batch=None, q_batch=None,
+                                    moment_dtype=None):
     """Plain version of the time-blocked forward pass: fold, carry and replay
     over ``time_blocks(T, blocks)`` on tensors.  Same result layout as
     ``fused_forward_reference``, to which it is equal at ``blocks`` = 1 and
-    equal up to the rounding of the carried entry states otherwise.
-    ``w_batch`` / ``q_batch`` (B, d, d) replace W / Q per chain."""
+    equal up to the rounding of the carried entry states otherwise (the
+    carried states are float32 whatever ``moment_dtype``).  ``w_batch`` /
+    ``q_batch`` (B, d, d) replace W / Q per chain."""
     t_len, bsz, d = xi.shape
+    md = check_moment_dtype(moment_dtype)
     _check_per_chain("w", w_batch, w, bsz, d)
     _check_per_chain("q", q_batch, q, bsz, d)
     fh, bh, qh, wh = _host_params(f, b, q, w, d)
@@ -371,7 +435,7 @@ def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int,
 
     # replay: the step recursion inside each block
     mf = torch.empty((t_len, d, bsz), dtype=xi.dtype, device=xi.device)
-    pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=xi.dtype,
+    pf = torch.empty((t_len, d * (d + 1) // 2, bsz), dtype=md,
                      device=xi.device)
     for (t0, t1), (m_in, p_in) in zip(spans, entry):
         m, p = _entries(m_in, p_in)
@@ -384,11 +448,13 @@ def fused_forward_blocked_reference(m0, p0, xi, f, b, q, w, blocks: int,
 
 
 def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int,
-                                     q_batch=None):
-    """Plain version of the time-blocked RTS pass; same result layout as
-    ``fused_backward_reference``.  ``q_batch`` (B, d, d) replaces Q per
-    chain."""
+                                     q_batch=None, moment_dtype=None):
+    """Plain version of the time-blocked RTS pass; same result layout and
+    moment dtype as ``fused_backward_reference``.  The fold and the replay
+    both read pf upcast, so a blocked run holds the inputs of one block.
+    ``q_batch`` (B, d, d) replaces Q per chain."""
     t_len, d, bsz = mf.shape
+    md = _pf_moment_dtype(pf, moment_dtype)
     _check_per_chain("q", q_batch, q, bsz, d)
     fh, bh, qh, _ = _host_params(f, b, q, None, d)
     fe, be = fh.tolist(), bh.tolist()
@@ -426,10 +492,10 @@ def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int,
     # replay
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
-    cross = torch.empty((t_len - 1, d * d, bsz), dtype=mf.dtype,
-                        device=mf.device)
+    cross = torch.empty((t_len - 1, d * d, bsz), dtype=md, device=mf.device)
     ms[t_len - 1] = mf[t_len - 1]
     ps[t_len - 1] = pf[t_len - 1]
+    pf32 = pf.float()
     for s, (t0, t1) in enumerate(spans):
         if t1 == t_len:
             m_s, p_s = _entries(means[t_len - 1], covs[t_len - 1])
@@ -439,7 +505,7 @@ def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int,
             t_hi = t1 - 1
         for t in range(t_hi, t0 - 1, -1):
             m_f = [mf[t, i] for i in range(d)]
-            p_f = _unpack_entries([pf[t, k] for k in range(nsym)], d)
+            p_f = _unpack_entries([pf32[t, k] for k in range(nsym)], d)
             m_s, p_s, cr = backward_step(m_f, p_f, m_s, p_s, fe, be, qe)
             cross[t] = torch.stack([cr[i][j] for i in range(d)
                                     for j in range(d)])
@@ -450,8 +516,12 @@ def fused_backward_blocked_reference(mf, pf, f, b, q, blocks: int,
 
 # -- kernel launches ----------------------------------------------------------------
 
-def _library():
-    lib = kernels.load("fused_smoother")
+def _library(bf16: bool = False):
+    """The register kernels' library for float32 moments
+    (``csrc/fused_smoother.cu``) or bf16 ones (``fused_smoother_bf16.cu``):
+    the same kernels (``fused_smoother.cuh``), one storage type each."""
+    name = "fused_smoother_bf16" if bf16 else "fused_smoother"
+    lib = kernels.load(name)
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
@@ -463,11 +533,39 @@ def _library():
             ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, i64, i64, p, p]
         lib.rxt_fused_smoother_bwd.restype = ctypes.c_int
         lib.rxt_fused_smoother_fold_max_dim.restype = ctypes.c_int
+        lib.rxt_fused_smoother_moment_bytes.restype = ctypes.c_int
         if lib.rxt_fused_smoother_fold_max_dim() != FOLD_MAX_DIM:
             raise RuntimeError(
-                "csrc/fused_smoother.cu folds up to d = "
+                f"csrc/{name}.cu folds up to d = "
                 f"{lib.rxt_fused_smoother_fold_max_dim()}, the wrapper "
                 f"expects {FOLD_MAX_DIM}")
+        if lib.rxt_fused_smoother_moment_bytes() != (2 if bf16 else 4):
+            raise RuntimeError(f"csrc/{name}.cu stores moments of "
+                               f"{lib.rxt_fused_smoother_moment_bytes()} "
+                               "bytes")
+        lib._rxt_typed = True
+    return lib
+
+
+def _wide_library():
+    lib = kernels.load("fused_smoother_wide")
+    if not getattr(lib, "_rxt_typed", False):
+        p = ctypes.c_void_p
+        i64 = ctypes.c_int64
+        lib.rxt_wide_smoother_fwd.argtypes = [
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, p, p,
+            ctypes.c_int, p]
+        lib.rxt_wide_smoother_fwd.restype = ctypes.c_int
+        lib.rxt_wide_smoother_bwd.argtypes = [
+            ctypes.c_int, p, p, p, p, p, i64, i64, p, p, p, p, ctypes.c_int,
+            p]
+        lib.rxt_wide_smoother_bwd.restype = ctypes.c_int
+        lib.rxt_wide_smoother_max_dim.restype = ctypes.c_int
+        if lib.rxt_wide_smoother_max_dim() != MAX_DIM:
+            raise RuntimeError(
+                "csrc/fused_smoother_wide.cu takes d up to "
+                f"{lib.rxt_wide_smoother_max_dim()}, the wrapper expects "
+                f"{MAX_DIM}")
         lib._rxt_typed = True
     return lib
 
@@ -502,8 +600,8 @@ def _check_dims(t_len, d):
         raise ValueError("the smoother needs at least one time step")
     if not 1 <= d <= MAX_DIM:
         raise ValueError(
-            f"state dim {d}: the CUDA smoother kernels are instantiated for "
-            f"d = 1..{MAX_DIM}")
+            f"state dim {d}: the CUDA smoother kernels take d = 1..{MAX_DIM} "
+            f"(the register kernels 1..{REG_MAX_DIM}, the wide ones above)")
 
 
 def _tile(name, x, bsz, d):
@@ -517,25 +615,30 @@ def _tile(name, x, bsz, d):
     return tile
 
 
-def fused_forward(m0, p0, xi, f, b, q, w, w_batch=None, q_batch=None):
-    """K1 wrapper: filtered moments mf (T, d, B), pf (T, nsym, B).
-    ``w_batch`` / ``q_batch`` (B, d, d) give W / Q per chain (pass ``w`` /
-    ``q`` as None beside them)."""
+def fused_forward(m0, p0, xi, f, b, q, w, w_batch=None, q_batch=None,
+                  moment_dtype=None):
+    """K1 wrapper: filtered moments mf (T, d, B), pf (T, nsym, B) in
+    ``moment_dtype`` (float32 or bfloat16; None: float32).  ``w_batch`` /
+    ``q_batch`` (B, d, d) give W / Q per chain (pass ``w`` / ``q`` as None
+    beside them).  d <= ``REG_MAX_DIM`` launches the register kernels, d up
+    to ``MAX_DIM`` the wide ones."""
     t_len, bsz, d = xi.shape
     _check_dims(t_len, d)
+    md = check_moment_dtype(moment_dtype)
     if xi.device.type == "cpu":
         return fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch,
-                                       q_batch)
+                                       q_batch, md)
     kernels.check_tensor("xi", xi, (t_len, bsz, d))
+    if d > REG_MAX_DIM:
+        return _forward_wide(m0, p0, xi, f, b, q, w, w_batch, q_batch, md)
     return _forward_cuda(m0, p0, xi, f, b, q, w,
                          _device_blocks(bsz, t_len, d, xi.device), w_batch,
-                         q_batch)
+                         q_batch, md)
 
 
-def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int, w_batch=None,
-                  q_batch=None):
-    """Launch K1 over ``blocks`` time blocks (fold, carry, replay; the replay
-    pass alone at 1).  ``blocks`` must be what ``time_blocks`` yields."""
+def _forward_outputs(m0, p0, xi, f, b, q, w, w_batch, q_batch, md):
+    """Checked inputs of a K1 launch: the per-chain tiles, the shared
+    parameters on the host and the empty outputs mf, pf."""
     t_len, bsz, d = xi.shape
     kernels.check_tensor("m0", m0, (bsz, d))
     kernels.check_tensor("p0", p0, (bsz, d, d))
@@ -543,13 +646,26 @@ def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int, w_batch=None,
     _check_per_chain("q", q_batch, q, bsz, d)
     w_tile = _tile("w", w_batch, bsz, d)
     q_tile = _tile("q", q_batch, bsz, d)
-    fh, bh, qh, wh = _host_params(f, b, q, w, d)
+    params = _host_params(f, b, q, w, d)
     nsym = d * (d + 1) // 2
     mf = torch.empty((t_len, d, bsz), dtype=torch.float32, device=xi.device)
-    pf = torch.empty((t_len, nsym, bsz), dtype=torch.float32, device=xi.device)
+    pf = torch.empty((t_len, nsym, bsz), dtype=md, device=xi.device)
+    return w_tile, q_tile, params, mf, pf
+
+
+def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int, w_batch=None,
+                  q_batch=None, moment_dtype=None):
+    """Launch K1's register kernels over ``blocks`` time blocks (fold,
+    carry, replay; the replay pass alone at 1).  ``blocks`` must be what
+    ``time_blocks`` yields."""
+    t_len, bsz, d = xi.shape
+    md = check_moment_dtype(moment_dtype)
+    w_tile, q_tile, (fh, bh, qh, wh), mf, pf = _forward_outputs(
+        m0, p0, xi, f, b, q, w, w_batch, q_batch, md)
     if bsz == 0:
         return mf, pf
-    lib = _library()
+    bf16 = md == torch.bfloat16
+    lib = _library(bf16)
     stream = torch.cuda.current_stream(xi.device).cuda_stream
     length, scratch = _block_scratch(
         blocks, forward_scratch_rows(d), t_len, bsz, xi.device)
@@ -560,38 +676,76 @@ def _forward_cuda(m0, p0, xi, f, b, q, w, blocks: int, w_batch=None,
         blocks, _ptr(scratch), stream)
     kernels.check(lib, rc, "fused_smoother forward kernels")
     dyn = w_tile is not None or q_tile is not None
-    LAUNCHES["fused_smoother_fwd_dyn" if dyn else "fused_smoother_fwd"] += 1
+    LAUNCHES[launch_key("fwd", d, dyn, bf16)] += 1
     return mf, pf
 
 
-def fused_backward(mf, pf, f, b, q, q_batch=None):
+def _forward_wide(m0, p0, xi, f, b, q, w, w_batch=None, q_batch=None,
+                  moment_dtype=None):
+    """Launch K1's wide kernel (d up to ``MAX_DIM``, one time block)."""
+    t_len, bsz, d = xi.shape
+    md = check_moment_dtype(moment_dtype)
+    w_tile, q_tile, (fh, bh, qh, wh), mf, pf = _forward_outputs(
+        m0, p0, xi, f, b, q, w, w_batch, q_batch, md)
+    if bsz == 0:
+        return mf, pf
+    lib = _wide_library()
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    bf16 = md == torch.bfloat16
+    rc = lib.rxt_wide_smoother_fwd(
+        d, xi.data_ptr(), m0.data_ptr(), p0.data_ptr(), mf.data_ptr(),
+        pf.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
+        _host_ptr(qh), _host_ptr(wh), _ptr(w_tile), _ptr(q_tile), int(bf16),
+        stream)
+    kernels.check(lib, rc, "fused_smoother wide forward kernel")
+    dyn = w_tile is not None or q_tile is not None
+    LAUNCHES[launch_key("fwd", d, dyn, bf16)] += 1
+    return mf, pf
+
+
+def fused_backward(mf, pf, f, b, q, q_batch=None, moment_dtype=None):
     """K2 wrapper: smoothed ms (T, d, B), ps (T, nsym, B), cross
-    (T-1, d*d, B) from the forward kernel's streams.  ``q_batch`` (B, d, d)
-    gives Q per chain (pass ``q`` as None beside it)."""
+    (T-1, d*d, B) from the forward kernel's streams, ps and cross in pf's
+    dtype (``moment_dtype`` may restate it).  ``q_batch`` (B, d, d) gives Q
+    per chain (pass ``q`` as None beside it)."""
     t_len, d, bsz = mf.shape
     _check_dims(t_len, d)
+    md = _pf_moment_dtype(pf, moment_dtype)
     if mf.device.type == "cpu":
-        return fused_backward_reference(mf, pf, f, b, q, q_batch)
+        return fused_backward_reference(mf, pf, f, b, q, q_batch, md)
+    if d > REG_MAX_DIM:
+        return _backward_wide(mf, pf, f, b, q, q_batch)
     return _backward_cuda(mf, pf, f, b, q,
                           _device_blocks(bsz, t_len, d, mf.device), q_batch)
 
 
-def _backward_cuda(mf, pf, f, b, q, blocks: int, q_batch=None):
-    """Launch K2 over ``blocks`` time blocks (see ``_forward_cuda``)."""
+def _backward_outputs(mf, pf, f, b, q, q_batch):
+    """Checked inputs of a K2 launch: the per-chain Q tile, the shared
+    parameters on the host and the empty outputs ms, ps, cross."""
     t_len, d, bsz = mf.shape
     nsym = d * (d + 1) // 2
+    md = _pf_moment_dtype(pf, None)
     kernels.check_tensor("mf", mf, (t_len, d, bsz))
-    kernels.check_tensor("pf", pf, (t_len, nsym, bsz))
+    kernels.check_tensor("pf", pf, (t_len, nsym, bsz), dtype=md)
     _check_per_chain("q", q_batch, q, bsz, d)
     q_tile = _tile("q", q_batch, bsz, d)
-    fh, bh, qh, _ = _host_params(f, b, q, None, d)
+    params = _host_params(f, b, q, None, d)
     ms = torch.empty_like(mf)
     ps = torch.empty_like(pf)
-    cross = torch.empty((t_len - 1, d * d, bsz), dtype=torch.float32,
-                        device=mf.device)
+    cross = torch.empty((t_len - 1, d * d, bsz), dtype=md, device=mf.device)
+    return q_tile, params, ms, ps, cross
+
+
+def _backward_cuda(mf, pf, f, b, q, blocks: int, q_batch=None):
+    """Launch K2's register kernels over ``blocks`` time blocks (see
+    ``_forward_cuda``); the moment dtype is pf's."""
+    t_len, d, bsz = mf.shape
+    q_tile, (fh, bh, qh, _), ms, ps, cross = _backward_outputs(
+        mf, pf, f, b, q, q_batch)
     if bsz == 0:
         return ms, ps, cross
-    lib = _library()
+    bf16 = pf.dtype == torch.bfloat16
+    lib = _library(bf16)
     stream = torch.cuda.current_stream(mf.device).cuda_stream
     length, scratch = _block_scratch(
         blocks, backward_scratch_rows(d), t_len, bsz, mf.device)
@@ -600,40 +754,63 @@ def _backward_cuda(mf, pf, f, b, q, blocks: int, q_batch=None):
         cross.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
         _host_ptr(qh), _ptr(q_tile), length, blocks, _ptr(scratch), stream)
     kernels.check(lib, rc, "fused_smoother backward kernels")
-    LAUNCHES["fused_smoother_bwd_dyn" if q_tile is not None
-             else "fused_smoother_bwd"] += 1
+    LAUNCHES[launch_key("bwd", d, q_tile is not None, bf16)] += 1
+    return ms, ps, cross
+
+
+def _backward_wide(mf, pf, f, b, q, q_batch=None):
+    """Launch K2's wide kernel (d up to ``MAX_DIM``, one time block)."""
+    t_len, d, bsz = mf.shape
+    q_tile, (fh, bh, qh, _), ms, ps, cross = _backward_outputs(
+        mf, pf, f, b, q, q_batch)
+    if bsz == 0:
+        return ms, ps, cross
+    lib = _wide_library()
+    stream = torch.cuda.current_stream(mf.device).cuda_stream
+    bf16 = pf.dtype == torch.bfloat16
+    rc = lib.rxt_wide_smoother_bwd(
+        d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
+        cross.data_ptr(), t_len, bsz, _host_ptr(fh), _host_ptr(bh),
+        _host_ptr(qh), _ptr(q_tile), int(bf16), stream)
+    kernels.check(lib, rc, "fused_smoother wide backward kernel")
+    LAUNCHES[launch_key("bwd", d, q_tile is not None, bf16)] += 1
     return ms, ps, cross
 
 
 def _unpack(ms, ps, cross, d):
-    """SoA streams -> contract layout (views except the covariance gather)."""
+    """SoA streams -> contract layout, float32 (views of float32 streams
+    except the covariance gather; bf16 streams upcast)."""
     t_len = ms.shape[0]
     means = ms.permute(0, 2, 1)                               # (T, B, d)
     covs = sym_unfold_t(ps, d)                                # (T, B, d, d)
-    crossm = cross.reshape(t_len - 1, d, d, cross.shape[-1]).permute(0, 3, 1, 2)
+    crossm = cross.float().reshape(t_len - 1, d, d, cross.shape[-1]).permute(
+        0, 3, 1, 2)
     return means, covs, crossm
 
 
 def fused_batched_smoother(m0, p0, xi, f, b, q, w, w_batch=None,
-                           q_batch=None):
+                           q_batch=None, moment_dtype=None):
     """Batch-axis smoother: m0 (B, d), p0 (B, d, d), xi (T, B, d); F, Q, W
     (d, d) and b (d,) shared, or W / Q per chain as ``w_batch`` /
     ``q_batch`` (B, d, d) (with ``w`` / ``q`` None beside them).  Returns
     smoothed means (T, B, d), covs (T, B, d, d), cross (T-1, B, d, d) =
-    Cov(x_t, x_{t+1}).  CUDA tensors go through the two kernels; CPU tensors
+    Cov(x_t, x_{t+1}), all float32; ``moment_dtype`` (float32 or bfloat16)
+    is what the kernels store the covariances and the cross in between.
+    CUDA tensors go through the kernels (d <= ``MAX_DIM``); CPU tensors
     through their plain versions."""
     d = xi.shape[-1]
-    mf, pf = fused_forward(m0, p0, xi, f, b, q, w, w_batch, q_batch)
+    mf, pf = fused_forward(m0, p0, xi, f, b, q, w, w_batch, q_batch,
+                           moment_dtype)
     ms, ps, cross = fused_backward(mf, pf, f, b, q, q_batch)
     return _unpack(ms, ps, cross, d)
 
 
 def fused_batched_smoother_reference(m0, p0, xi, f, b, q, w, w_batch=None,
-                                     q_batch=None):
+                                     q_batch=None, moment_dtype=None):
     """The plain version of ``fused_batched_smoother`` on any device (the
     card-side yardstick the kernels are held against)."""
     d = xi.shape[-1]
     mf, pf = fused_forward_reference(m0, p0, xi, f, b, q, w, w_batch,
-                                     q_batch)
+                                     q_batch, moment_dtype)
     ms, ps, cross = fused_backward_reference(mf, pf, f, b, q, q_batch)
     return _unpack(ms, ps, cross, d)

@@ -2,6 +2,7 @@
 """Time the port's smoother kernels K1 and K2 alone at given shapes.
 
     python3 scripts/time_smoother_kernels.py 1024x10000x4 4096x200x8
+    python3 scripts/time_smoother_kernels.py --bf16 1024x10000x4 1024x2048x16
     python3 scripts/time_smoother_kernels.py --blocks 1,8,16,32,64,128 1024x10000x4
 
 Run from the root of a checkout (the package is imported from the current
@@ -9,7 +10,8 @@ directory, so two checkouts can be timed in turns inside one job on one
 card).  Needs a CUDA device and ``nvcc``.  For each BxTxd it prints the
 median milliseconds of ``fused_forward`` and of ``fused_backward`` over
 CUDA events (random stable system, seed 7) and the card's name and power
-limit.  ``--blocks`` times both kernels at each given number of time
+limit; d in 9..16 takes the wide kernels.  ``--bf16`` times the bf16-moment
+instantiations as well, beside the float32 ones.  ``--blocks`` times both kernels at each given number of time
 blocks instead of the wrapper's own (``pick_blocks``), with each launch's
 max |difference| to the launch with the fewest blocks of the list.  It checks nothing:
 ``chip_smoke.py`` holds the kernels against their plain versions.
@@ -58,6 +60,10 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"tree {os.getcwd()}; {smi}")
     sweep = None
+    dtypes = [torch.float32]
+    if argv and argv[0] == "--bf16":
+        dtypes.append(torch.bfloat16)
+        argv = argv[1:]
     if argv and argv[0] == "--blocks":
         sweep = sorted(int(x) for x in argv[1].split(","))
         argv = argv[2:]
@@ -75,9 +81,14 @@ def main(argv) -> int:
         p0 = (9.0 * torch.eye(d, device=dev)).expand(b, d, d).contiguous()
         mf, pf = fs.fused_forward(m0, p0, xi, f, bias, q, w)
         if sweep is None:
-            fwd = _ms(lambda: fs.fused_forward(m0, p0, xi, f, bias, q, w))
-            bwd = _ms(lambda: fs.fused_backward(mf, pf, f, bias, q))
-            print(f"(B,T,d)=({b},{t},{d}): K1 {fwd:.4f} ms, K2 {bwd:.4f} ms")
+            for md in dtypes:
+                mf, pf = fs.fused_forward(m0, p0, xi, f, bias, q, w,
+                                          moment_dtype=md)
+                fwd = _ms(lambda: fs.fused_forward(m0, p0, xi, f, bias, q, w,
+                                                   moment_dtype=md))
+                bwd = _ms(lambda: fs.fused_backward(mf, pf, f, bias, q))
+                print(f"(B,T,d)=({b},{t},{d}) moments {md}: K1 {fwd:.4f} ms, "
+                      f"K2 {bwd:.4f} ms")
             continue
         one = None
         for blocks in sweep:

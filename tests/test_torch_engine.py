@@ -224,15 +224,17 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
     assert tuple(cross.shape) == (3, 20, d, d)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"options": {"fused_moment_dtype": "bfloat16"}}, "fused_moment_dtype"),
-    ({"options": {"matmul_precision": "highest"}}, "matmul_precision"),
-    ({"shared": ("x",)}, "shared"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"options": {"fused_moment_dtype": "float16"}}, ValueError,
+     "'float32' or 'bfloat16'"),
+    ({"options": {"matmul_precision": "highest"}}, NotImplementedError,
+     "matmul_precision"),
+    ({"shared": ("x",)}, NotImplementedError, "shared"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, error, match):
     c = constants(2)
     y = observations(2, 8, 2)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         trx.batched_program(lgssm_source(trx, *c), {"y": y}, device=CPU,
                             **kwargs)
 
@@ -341,11 +343,16 @@ def test_infer_batched_predictvars_dict_matches_jax():
                                **TOL)
 
 
+def _cut(c, d):
+    """The constants of a d-dim chain from those of a wider one."""
+    return tuple(a[:d, :d] if a.ndim == 2 else a[:d] for a in c)
+
+
 def test_state_dim_beyond_the_kernels_runs_unfused_and_matches_jax():
-    d = 10
-    c = constants(d)
+    d = 17
+    c = _cut(constants(18), d)
     y = observations(2, 6, d)
-    _unfused_matches_jax(c, y, reason="state dim 10 > 8")
+    _unfused_matches_jax(c, y, reason="state dim 17 > 16")
 
 
 @pytest.mark.parametrize("iterations", [1, 2])
@@ -382,9 +389,9 @@ def test_one_program_mixes_fused_and_unfused_chains():
 
         return two_chains
 
-    cs, cz = constants(2, seed=1), constants(10, seed=2)
+    cs, cz = constants(2, seed=1), _cut(constants(18, seed=2), 17)
     data = {"y": observations(2, 12, 2, seed=5),
-            "v": observations(2, 12, 10, seed=6)}
+            "v": observations(2, 12, 17, seed=6)}
     _, jprog = jrx.batched_program(source(jrx, cs, cz), data)
     jstate, _, _ = jprog({k: jnp.asarray(v) for k, v in data.items()})
     tcomp, tprog = trx.batched_program(source(trx, cs, cz), data, device=CPU)

@@ -86,7 +86,8 @@ def test_kernel_build_flags():
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert set(kernels.sources()) == {"fused_smoother", "fused_fb",
+    assert set(kernels.sources()) == {"fused_smoother", "fused_smoother_bf16",
+                                      "fused_smoother_wide", "fused_fb",
                                       "fused_filter", "quantized"}
     # every source under csrc/ is one that sources() builds, and every header
     # there is reached from a source
@@ -105,7 +106,9 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
     names = [p.name for p in kernels.source_files("fused_filter")]
     assert names == ["fused_filter.cu", "smallmat.cuh"]
     assert [p.name for p in kernels.source_files("fused_smoother")] == [
-        "fused_smoother.cu", "smallmat.cuh"]
+        "fused_smoother.cu", "fused_smoother.cuh", "smallmat.cuh"]
+    assert [p.name for p in kernels.source_files("fused_smoother_bf16")] == [
+        "fused_smoother_bf16.cu", "fused_smoother.cuh", "smallmat.cuh"]
     assert [p.name for p in kernels.source_files("quantized")] == [
         "quantized.cu"]
 
@@ -117,7 +120,8 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
     header.write_bytes(header.read_bytes() + b"// edited\n")
     after = {n: kernels.library_key(n, copy) for n in kernels.sources()}
     changed = {n for n in keys if after[n] != keys[n]}
-    assert changed == {"fused_filter", "fused_smoother"}
+    assert changed == {"fused_filter", "fused_smoother",
+                       "fused_smoother_bf16", "fused_smoother_wide"}
     # a header included through another header counts too
     (copy / "inner.cuh").write_text("// inner\n")
     header.write_bytes(b'#include "inner.cuh"\n' + header.read_bytes())

@@ -132,8 +132,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unsupported_dims_raise():
-    m0, p0, xi, f, bvec, q, w = _params(2, 9, 3, seed=7)
-    with pytest.raises(ValueError, match="d = 1..8"):
+    m0, p0, xi, f, bvec, q, w = _params(2, 17, 3, seed=7)
+    with pytest.raises(ValueError, match="d = 1..16"):
         fs.fused_forward(torch.as_tensor(m0), torch.as_tensor(p0),
                          torch.as_tensor(xi), f, bvec, q, w)
     with pytest.raises(ValueError, match="parameters"):
