@@ -22,10 +22,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    repeated calls, plus sampled chains against a float64 numpy
    forward-backward (FB_ORACLE_TOL).  The plain versions of K1/K2 are timed
    by their one call on the card at the first check shape and run on the
-   host (CPU copies of the same inputs) at the others.  The K4/K5 checks,
-   and phase 6's, run in a second process while this one checks K1/K2 and
-   then phase 10 (a): the plain versions are host-bound loops, seconds a
-   call.
+   host (CPU copies of the same inputs) at the others.  The K4/K5 checks
+   and phase 6's run in a second process, phase 10 (a)'s in a third, while
+   this one checks K1/K2: the plain versions are host-bound loops, seconds
+   a call.  Each check process prints when it ended (``[time]``).
 4. LGSSM path at full width: ``rxinfer_tpu_torch.batched_program`` on
    ``zoo.lgssm`` with B=1024 chains, T=10,000 steps, d=4 (the constants of
    the JAX package's bench), y from a numpy seed.  Checks that the plan runs
@@ -95,8 +95,8 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    sampled chains against the float64 RTS with no evidence at the missing
    steps (ORACLE_TOL).
 10. The dynamic-precision tier: K1/K2 with per-chain W and/or Q (V1).
-   (a) (Run after phase 3's K1/K2 checks.) The per-chain kernels against
-   their plain versions (RTOL/ATOL) at DYN_CHECK_SHAPES, many time blocks
+   (a) (In a process of its own beside phase 3.) The per-chain kernels
+   against their plain versions (RTOL/ATOL) at DYN_CHECK_SHAPES, many time blocks
    and one, d = 1 to 8: K1 with W per chain, Q per chain and both, K2 with
    Q per chain (with W alone per chain K2 is the static one, as in the JAX
    package); the plain versions on the host, the modes' chains side by
@@ -190,6 +190,26 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``[bf16 check]``, ``[d16]`` and ``[bf16]`` lines; four more rows in the
    ``kernels`` line (the wide K1 / K2, the bf16 K1 / K2), each with the
    errors of its checked variants.
+16. K4/K5 above eight states (``csrc/fused_fb_wide.cu``, V4) and K3 at d
+   9..16 or dy > 8 (``csrc/fused_filter_wide.cu``, V5).  (a) and (c) (in a
+   fourth process beside phase 3): the wide K4/K5 against their plain
+   versions at FB_WIDE_CHECK_SHAPES (K = 9 to 240: registers, a table in
+   shared memory and one read from device memory; both ``per_step_xi``
+   variants; FB_RTOL/FB_ATOL; xi_sum bit-identical over calls; sampled
+   chains against the float64 forward-backward), the wide K3 at
+   FILTER_WIDE_CHECK_SHAPES (RTOL/ATOL; sampled chains against the float64
+   filter).  (b) ``zoo.hmm(16, 8)`` through ``batched_program`` at B=1024,
+   T=1000, 20 iterations: the plan fused on the CUDA route, exactly 20 wide
+   K4 and 20 wide K5 launches a call and no other, sampled chains against
+   the float64 VMP (HMM_ORACLE_TOL), the wide K4/K5 against their plain
+   versions on the last sweep's inputs, one call with ``free_energy=True``
+   against the float64 structured VMP's FE (FE_HMM_TOL), the median of 5
+   calls, updates/s = B * iterations * (T + 2), one profiled call and each
+   kernel alone.  (d) path A at d = dy = 16 (phase 7's B and T, ``gen16``'s
+   constants): one wide K3 launch, the float64 filter (ORACLE_TOL), K3
+   against its plain version over the first 4 steps (that call is the plain
+   version's time), the call and K3 alone.  ``[hmm16]`` and ``[filter16]``
+   lines; three more rows in the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -322,7 +342,8 @@ INGEST_SHAPE = (1 << 21, 16, 4)                # rows, dy, dx
 QUANT_ITERATIONS = (1, 10)
 
 # kernel label -> the CUDA kernel's name, as the profiler reports it
-FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel"}
+FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
+                       "fused_filter_wide": "wide_filter_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
     "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
@@ -336,6 +357,10 @@ SMOOTHER_KERNEL_NAMES = {
 FB_KERNEL_NAMES = {"fused_fb_fwd": ("fb_fwd_kernel",),
                    "fused_fb_bwd": ("fb_beta_kernel", "fb_xisum_kernel",
                                     "fb_marg_kernel")}
+FB_WIDE_KERNEL_NAMES = {"fused_fb_fwd_wide": ("fb_wide_fwd_kernel",),
+                        "fused_fb_bwd_wide": ("fb_wide_beta_kernel",
+                                              "fb_xisum_kernel",
+                                              "fb_wide_marg_kernel")}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
@@ -545,6 +570,18 @@ def _max_err(got, want, rtol=RTOL, atol=ATOL):
     return float(diff.max()), float((diff / np.maximum(np.abs(want), 1e-6)).max()), ok
 
 
+def _max_err_device(got, want, rtol, atol):
+    """``_max_err`` on the tensors' own device (float32: the difference of
+    two values within a factor of two of each other is exact), for outputs
+    of a gigabyte that the host would copy and widen to float64 first."""
+    if got.numel() == 0:
+        return 0.0, 0.0, True
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    rel = float((diff / want.abs().clamp_min(1e-6)).max())
+    return float(diff.max()), rel, ok
+
+
 def _on_host(fn, *args):
     """``fn`` on CPU copies of its tensor arguments: a plain version run by
     the host's torch on the same inputs as a kernel on the card.  The plain
@@ -714,21 +751,29 @@ def _fb_inputs(b, t, k, seed, device):
         2.0 * rng.standard_normal((t, b, k))))
 
 
-def check_fb_kernels(device, shapes, log=print) -> dict:
-    """Phase 3 for K4/K5: each kernel wrapper against its plain version on
-    the same CUDA tensors (K5 with and without the per-step xi stream), and
-    a few chains of the first shape against the float64 oracle.  Returns
-    per-kernel max abs error against the plain versions."""
+def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
+    """Phase 3 for K4/K5 (and phase 16 (a) for the wide kernels, K > 8):
+    each kernel wrapper against its plain version on the same CUDA tensors
+    (K5 with and without the per-step xi stream), and a few chains of the
+    first shape against the float64 oracle.  Each wrapper call must count
+    under its launch key.  Returns per-launch-key max abs error against the
+    plain versions, and under ``"bit_equal"`` whether every output equalled
+    the plain version's bits."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
-    worst = {"fused_fb_fwd": 0.0, "fused_fb_bwd": 0.0}
+    worst = {}
+    bit_equal = True
     before = dict(ffb.LAUNCHES)
+    want_launches = {key: 0 for key in ffb.LAUNCHES}
     failures = []
     for i, (bsz, t_len, k) in enumerate(shapes):
-        lp, lt, le = _fb_inputs(bsz, t_len, k, seed=200 + i, device=device)
-        tile = ffb.device_tile(bsz, t_len, device)
+        keys = {d: ffb.launch_key(d, k) for d in ("fwd", "bwd")}
+        want_launches[keys["fwd"]] += 1
+        want_launches[keys["bwd"]] += 3
+        lp, lt, le = _fb_inputs(bsz, t_len, k, seed=seed + i, device=device)
+        tile = ffb.device_tile(bsz, t_len, device, k)
         alphas, logz = ffb.fb_forward(lp, lt, le)
         alphas_r, logz_r = ffb.fb_forward_reference(lp, lt, le)
         g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
@@ -743,26 +788,35 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
             failures.append(f"(B,T,K)=({bsz},{t_len},{k}): xi_sum differs "
                             "between calls on the same inputs")
         rows = {
-            "fused_fb_fwd": [("alphas", alphas, alphas_r),
-                             ("logz", logz, logz_r)],
-            "fused_fb_bwd": [("gammas", g, g_r), ("xi_sum", xs, xs_r),
-                             ("xi_steps", steps, steps_r),
-                             ("gammas(no steps)", g2, g_r),
-                             ("xi_sum(no steps)", xs2, xs_r)],
+            keys["fwd"]: [("alphas", alphas, alphas_r),
+                          ("logz", logz, logz_r)],
+            keys["bwd"]: [("gammas", g, g_r), ("xi_sum", xs, xs_r),
+                          ("xi_steps", steps, steps_r),
+                          ("gammas(no steps)", g2, g_r),
+                          ("xi_sum(no steps)", xs2, xs_r)],
         }
         parts = []
         for kname, items in rows.items():
             for label, got, want in items:
                 ea, _, ok = _max_err(got.cpu().numpy(), want.cpu().numpy(),
                                      rtol=FB_RTOL, atol=FB_ATOL)
-                worst[kname] = max(worst[kname], ea)
+                worst[kname] = max(worst.get(kname, 0.0), ea)
+                bit_equal = bit_equal and torch.equal(got, want)
                 parts.append(f"{label} {ea:.3g}")
                 if not ok:
                     failures.append(f"(B,T,K)=({bsz},{t_len},{k}) {label}: "
                                     f"abs {ea:.3g}")
+        plan = ""
+        if k > ffb.REG_MAX_STATES:
+            serial = ffb.wide_serial_plan(k, device)
+            plan = f"; serial passes {serial}"
+            if k == FB_DEVICE_TABLE_K and any(
+                    p["table"] != "device" for p in serial.values()):
+                failures.append(f"K={k}: the table should be read from "
+                                f"device memory, plan {serial}")
         log(f"[check] (B,T,K)=({bsz},{t_len},{k}) marginal tile {tile} "
             f"({-(-t_len // tile)} tiles) max abs: " + "; ".join(parts)
-            + "; xi_sum bit-identical over 3 calls")
+            + f"; xi_sum bit-identical over 3 calls{plan}")
         if i == 0:
             idx = [0, 1, bsz // 2, bsz - 1]
             o_g, o_x, o_z = fb_float64(lp[idx].cpu().numpy(),
@@ -782,15 +836,16 @@ def check_fb_kernels(device, shapes, log=print) -> dict:
     if failures:
         raise AssertionError("forward-backward kernels disagree: "
                              + "; ".join(failures))
-    if (ffb.LAUNCHES["fused_fb_fwd"] - before["fused_fb_fwd"] != len(shapes)
-            or ffb.LAUNCHES["fused_fb_bwd"] - before["fused_fb_bwd"]
-            != 3 * len(shapes)):
-        raise AssertionError("fused_fb launch counters did not rise once per "
-                             "kernel call")
+    rose = {key: ffb.LAUNCHES[key] - before[key] for key in before}
+    if rose != want_launches:
+        raise AssertionError(f"fused_fb launch counters rose {rose}, "
+                             f"expected {want_launches}")
+    worst["bit_equal"] = bit_equal
     return worst
 
 
-def check_fb_path_inputs(lp, lt, le, log=print) -> tuple[dict, dict]:
+def check_fb_path_inputs(lp, lt, le, log=print,
+                         tag: str = "hmm") -> tuple[dict, dict]:
     """K4/K5 against their plain versions on the inputs the HMM path hands
     them in its last sweep, at the path's own (B, T, K).  Returns per-kernel
     max abs error and the plain versions' ms (their one call here)."""
@@ -799,6 +854,7 @@ def check_fb_path_inputs(lp, lt, le, log=print) -> tuple[dict, dict]:
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
     t_len, bsz, k = le.shape
+    fwd, bwd = ffb.launch_key("fwd", k), ffb.launch_key("bwd", k)
     alphas, logz = ffb.fb_forward(lp, lt, le)
     (alphas_r, logz_r), fwd_plain_ms = _once_ms(
         lambda: ffb.fb_forward_reference(lp, lt, le))
@@ -806,26 +862,25 @@ def check_fb_path_inputs(lp, lt, le, log=print) -> tuple[dict, dict]:
     (g_r, xs_r, steps_r), bwd_plain_ms = _once_ms(
         lambda: ffb.fb_backward_reference(
             lt, le, alphas, True, tile=ffb.device_tile(bsz, t_len,
-                                                        le.device)))
+                                                        le.device, k)))
     torch.cuda.synchronize()
     rows = {
-        "fused_fb_fwd": [("alphas", alphas, alphas_r), ("logz", logz, logz_r)],
-        "fused_fb_bwd": [("gammas", g, g_r), ("xi_sum", xs, xs_r),
-                         ("xi_steps", steps, steps_r)],
+        fwd: [("alphas", alphas, alphas_r), ("logz", logz, logz_r)],
+        bwd: [("gammas", g, g_r), ("xi_sum", xs, xs_r),
+              ("xi_steps", steps, steps_r)],
     }
     worst = {}
     parts, failures = [], []
     for kname, items in rows.items():
         worst[kname] = 0.0
         for label, got, want in items:
-            ea, _, ok = _max_err(got.cpu().numpy(), want.cpu().numpy(),
-                                 rtol=FB_RTOL, atol=FB_ATOL)
+            ea, _, ok = _max_err_device(got, want, rtol=FB_RTOL, atol=FB_ATOL)
             worst[kname] = max(worst[kname], ea)
             parts.append(f"{label} {ea:.3g}")
             if not ok:
                 failures.append(f"{label}: abs {ea:.3g}")
-    plain = {"fused_fb_fwd": fwd_plain_ms, "fused_fb_bwd": bwd_plain_ms}
-    log(f"[hmm] K4/K5 vs plain versions on the path's inputs, (B,T,K)="
+    plain = {fwd: fwd_plain_ms, bwd: bwd_plain_ms}
+    log(f"[{tag}] K4/K5 vs plain versions on the path's inputs, (B,T,K)="
         f"({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
         + f" (rtol=atol={FB_RTOL}); the plain versions' one call "
         f"{fwd_plain_ms:.1f} / {bwd_plain_ms:.1f} ms")
@@ -1011,7 +1066,7 @@ def hmm_path(device, b: int, t_len: int, iterations: int, reps: int,
     return out
 
 
-def _device_profile(fn, kernels: dict) -> dict:
+def _device_profile(fn, kernels: dict, top: int = 0) -> dict:
     """One ``fn()`` call under ``torch.profiler``, after a warm-up call inside
     the profiler that is not recorded.  ``busy_ms`` sums the
     device events (kernels, copies, sets) only: a CPU operator's device time
@@ -1020,8 +1075,10 @@ def _device_profile(fn, kernels: dict) -> dict:
     kernel name, or the names of the device kernels that one wrapper call
     launches, the last of them at every call) it gives the launches and the
     device ms per launch, summed over the names, and for several names each
-    one's ms per launch under ``parts``.  Device numbers read "not measured"
-    when the profiler records no device event."""
+    one's ms per launch under ``parts``.  With ``top``, ``top`` lists that
+    many device kernels with the most device ms in the call, each [name,
+    launches, ms].  Device numbers read "not measured" when the profiler
+    records no device event."""
     import re
 
     import torch
@@ -1070,6 +1127,13 @@ def _device_profile(fn, kernels: dict) -> dict:
         if len(names) > 1 and calls:
             row["parts"] = {n: sum(h) / 1e3 / calls for n, h in hits.items()}
         out["kernels"][label] = row
+    if top:
+        by_name: dict = {}
+        for e in dev:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+        out["top"] = [[name[:80], n, ms] for name, (n, ms) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])[:top]]
     return out
 
 
@@ -1151,7 +1215,7 @@ def time_fb_alone(device, shapes, smi: str, log=print) -> dict:
         row["sm_clock_mhz"] = clk.mhz
         row["cycles_per_step"] = {
             n: _cycles_per_step(row[n], clk.mhz, t_len) for n in wall}
-        row["tile"] = ffb.device_tile(bsz, t_len, device)
+        row["tile"] = ffb.device_tile(bsz, t_len, device, k)
         out[shape] = row
         fmt = lambda x, f: format(x, f) if isinstance(x, float) else str(x)
         cyc = lambda n: fmt(row["cycles_per_step"][n], ".0f")
@@ -1377,21 +1441,27 @@ def _soa_state(m, p):
     return m.t().contiguous(), sym_fold(p).contiguous()
 
 
-def check_filter_kernel(device, shapes, log=print) -> float:
-    """Phase 6 for K3: the wrapper against its plain version on the same
-    CUDA tensors, and chains of the first shape against the float64 filter.
-    Returns the max abs error against the plain version."""
+def check_filter_kernel(device, shapes, log=print, seed: int = 300) -> dict:
+    """Phase 6 for K3 (and phase 16 (c) for the wide K3): the wrapper
+    against its plain version on the same inputs (the plain version on CPU
+    copies of them), and chains of the first shape against the float64
+    filter.  Each call must count under its launch key (``fused_filter``
+    for d, dy <= 8, else ``fused_filter_wide``).  Returns each launch key's
+    max abs error against the plain version."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
 
-    worst = 0.0
-    before = ff.LAUNCHES["fused_filter"]
+    worst = {}
+    before = dict(ff.LAUNCHES)
+    want_launches = {key: 0 for key in ff.LAUNCHES}
     failures = []
     for i, (bsz, t_len, d, dy) in enumerate(shapes):
-        f, q, h, r = _filter_system(d, dy, seed=300 + i)
+        key = ff.launch_key(d, dy)
+        want_launches[key] += 1
+        f, q, h, r = _filter_system(d, dy, seed=seed + i)
         w_obs, hr = ff.evidence_operators(h, r)
-        rng = np.random.default_rng(300 + i)
+        rng = np.random.default_rng(seed + i)
         ys = torch.as_tensor(rng.standard_normal((t_len, dy, bsz)).astype(
             np.float32), device=device)
         m = torch.as_tensor(rng.standard_normal((bsz, d)).astype(np.float32),
@@ -1400,17 +1470,18 @@ def check_filter_kernel(device, shapes, log=print) -> float:
                                             (bsz, d, d)).copy(), device=device)
         m0, p0 = _soa_state(m, p)
         got = ff.fused_filter(m0, p0, ys, f, q, hr, w_obs)
-        want = ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs)
+        want = _on_host(ff.fused_filter_reference, m0, p0, ys, f, q, hr,
+                        w_obs)
         torch.cuda.synchronize()
         parts = []
         for label, g, w in zip(("means", "final m", "final P"), got, want):
             ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
-            worst = max(worst, ea)
+            worst[key] = max(worst.get(key, 0.0), ea)
             parts.append(f"{label} abs {ea:.3g} rel {er:.3g}")
             if not ok:
                 failures.append(f"(B,T,d,dy)=({bsz},{t_len},{d},{dy}) {label}:"
                                 f" abs {ea:.3g} rel {er:.3g}")
-        log(f"[check] K3 (B,T,d,dy)=({bsz},{t_len},{d},{dy}) "
+        log(f"[check] K3 {key} (B,T,d,dy)=({bsz},{t_len},{d},{dy}) "
             + "; ".join(parts))
         if i == 0:
             idx = [0, 1, bsz // 2, bsz - 1]
@@ -1428,9 +1499,10 @@ def check_filter_kernel(device, shapes, log=print) -> float:
     if failures:
         raise AssertionError("filter kernel disagrees beyond rtol=atol="
                              f"{RTOL}: " + "; ".join(failures))
-    if ff.LAUNCHES["fused_filter"] - before != len(shapes):
-        raise AssertionError("fused_filter: launch counter did not rise once "
-                             "per checked shape")
+    rose = {key: ff.LAUNCHES[key] - before[key] for key in before}
+    if rose != want_launches:
+        raise AssertionError(f"fused_filter launch counters rose {rose}, "
+                             f"expected {want_launches}")
     return worst
 
 
@@ -1555,8 +1627,13 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
 
 
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
-                log=print) -> dict:
-    """Phase 7, path A: the continuous-batching filter at (B, T, d)."""
+                log=print, plain_steps: int | None = None,
+                tag: str = "filter") -> dict:
+    """Phase 7, path A: the continuous-batching filter at (B, T, d), d = dy
+    (phase 16 (d) at d = 16, on the wide K3).  The kernel is held against
+    its plain version on the path's own inputs, over the first
+    ``plain_steps`` steps when given (the plain step at d = 16 is ~10^4
+    small launches), and that one call of the plain version is its time."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -1573,13 +1650,14 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         torch.zeros((b, d), device=device),
         torch.as_tensor(p0, device=device).expand((b, d, d)).contiguous())
     fn = make_sharded_filtering(None, f, q, h, r, fused=True)
+    key = ff.launch_key(d, d)
 
     reset_launches()
     final, means = fn(state, ys)
     torch.cuda.synchronize()
     launches = read_launches()
-    log(f"[filter] launches in one call: {launches}")
-    expect_launches(launches, fused_filter=1)
+    log(f"[{tag}] launches in one call: {launches}")
+    expect_launches(launches, **{key: 1})
     if tuple(means.shape) != (t_len, b, d) or tuple(final.m.shape) != (b, d) \
             or tuple(final.p.shape) != (b, d, d):
         raise AssertionError("filter outputs have the wrong shape")
@@ -1596,7 +1674,7 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         "final_m": float(np.abs(final.m[rows].cpu().numpy() - o_m).max()),
         "final_p": float(np.abs(final.p[rows].cpu().numpy() - o_p).max()),
     }
-    log(f"[filter] float64 filter, chains {rows}: {errs} (tol {ORACLE_TOL})")
+    log(f"[{tag}] float64 filter, chains {rows}: {errs} (tol {ORACLE_TOL})")
     if max(errs.values()) > ORACLE_TOL:
         raise AssertionError(f"path A disagrees with the float64 filter: {errs}")
 
@@ -1604,11 +1682,12 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     w_obs, hr = ff.evidence_operators(h, r)
     m_soa, p_soa = _soa_state(state.m, state.p)
     ys_soa = ys.transpose(1, 2).contiguous()
-    got = ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
+    ys_plain = ys_soa[:plain_steps].contiguous() if plain_steps else ys_soa
+    got = ff.fused_filter(m_soa, p_soa, ys_plain, f, q, hr, w_obs)
     # the plain version's one call (2-4 s: thousands of small launches) is
     # its time as well
     want, plain_kernel_ms = _once_ms(lambda: ff.fused_filter_reference(
-        m_soa, p_soa, ys_soa, f, q, hr, w_obs))
+        m_soa, p_soa, ys_plain, f, q, hr, w_obs))
     kernel_err = 0.0
     for label, g, w in zip(("means", "final m", "final P"), got, want):
         ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
@@ -1616,11 +1695,13 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         if not ok:
             raise AssertionError(f"K3 disagrees with its plain version on "
                                  f"path A's inputs, {label}: abs {ea:.3g}")
-    log(f"[filter] K3 vs plain version on the path's inputs: max abs "
-        f"{kernel_err:.3g} (rtol=atol={RTOL})")
+    log(f"[{tag}] K3 vs plain version on the path's inputs over "
+        f"{ys_plain.shape[0]} steps: max abs {kernel_err:.3g} (rtol=atol="
+        f"{RTOL})")
 
     out = {"errs": errs, "launches": launches, "kernel_err": kernel_err,
-           "plain_kernel_ms": plain_kernel_ms}
+           "plain_kernel_ms": plain_kernel_ms,
+           "plain_steps": int(ys_plain.shape[0])}
     out["call_ms"] = _cuda_ms(lambda: fn(state, ys), reps)
     out["updates_per_s"] = b * t_len / (out["call_ms"] / 1e3)
     k3 = lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
@@ -1633,12 +1714,12 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
     out["profile"] = _device_profile(lambda: fn(state, ys),
-                                     FILTER_KERNEL_NAMES)
+                                     {key: FILTER_KERNEL_NAMES[key]})
     busy = out["profile"]["busy_ms"]
     out["cycles_per_step"] = _cycles_per_step(
-        out["profile"]["kernels"]["fused_filter"]["ms_per_launch"],
+        out["profile"]["kernels"][key]["ms_per_launch"],
         out["sm_clock_mhz"], t_len)
-    log(f"[filter] call {out['call_ms']:.4f} ms ({out['updates_per_s']:.4g} "
+    log(f"[{tag}] call {out['call_ms']:.4f} ms ({out['updates_per_s']:.4g} "
         f"chain-updates/s); K3 {out['cycles_per_step']} cycles a step in "
         f"the call at {out['sm_clock_mhz']:.0f} MHz; alone: K3 "
         f"{out['kernel_ms']:.4f} ms, observation "
@@ -2630,13 +2711,15 @@ def _dirichlet_collection_entropy64(a):
     return per_col.sum(-1)
 
 
-def hmm_vmp_fe_float64(y, a0, b0, iterations):
+def hmm_vmp_fe_float64(y, a0, b0, iterations, with_state: bool = False):
     """The float64 structured VMP of ``hmm_vmp_float64`` with its Bethe
     free energy after each sweep (sweep s, A, B, as the port's): the
     transition and emission average energies under E[log A], E[log B], the
     uniform initial state's and the flat Dirichlet priors', minus the
     chain's entropy sum_t H(xi_t) - sum_interior H(gamma_t) and the two
-    Dirichlet entropies.  Returns the FE (iterations, n)."""
+    Dirichlet entropies.  Returns the FE (iterations, n) and, with
+    ``with_state``, ``hmm_vmp_float64``'s gammas and concentrations after
+    the last sweep."""
     y = np.asarray(y, np.float64)
     n, t_len, m = y.shape
     k = a0.shape[-1]
@@ -2663,6 +2746,8 @@ def hmm_vmp_fe_float64(y, a0, b0, iterations):
         fes.append(ae - (h_xi - h_g[1:-1].sum(0))
                    - _dirichlet_collection_entropy64(ca)
                    - _dirichlet_collection_entropy64(cb))
+    if with_state:
+        return np.stack(fes), (np.moveaxis(g, 0, 1), ca, cb)
     return np.stack(fes)
 
 
@@ -3398,6 +3483,30 @@ BF16_RTOL, BF16_ATOL = 1.6e-2, 3e-4
 BF16_ROW_TOL = {"means": 3e-2, "covs": 3e-2, "cross": 5e-2}
 WIDE_KERNEL_NAMES = {"fused_smoother_fwd_wide": "wide_fwd_kernel",
                      "fused_smoother_bwd_wide": "wide_bwd_kernel"}
+
+# Phase 16 (a): the wide K4/K5 at (B, T, K): (37, 1001, 9) the smallest wide
+# K, ragged staged and marginal tiles, B mod 4 chains a CTA; (8, 4099, 16)
+# the most marginal tiles; (33, 97, 32) a full warp of states; (5, 33, 33)
+# one state past it (lane 0 takes two); (3, 17, 64) the table in shared
+# memory; (2, 9, 240) past it: 240 rows of 241 floats do not fit an H100
+# block's 227 KB beside the ring, so both passes read the table from device
+# memory (FB_DEVICE_TABLE_K, held by the check).
+FB_WIDE_CHECK_SHAPES = [(37, 1001, 9), (8, 4099, 16), (33, 97, 32),
+                        (5, 33, 33), (3, 17, 64), (2, 9, 240)]
+FB_DEVICE_TABLE_K = 240
+# Phase 16 (b): a 16-state HMM through batched_program at the path's full
+# width; per-step xi is 999 * 1024 * 256 floats (1.05 GB) a sweep.
+HMM16_B, HMM16_T, HMM16_IT, HMM16_K, HMM16_M = 1024, 1000, 20, 16, 8
+# Phase 16 (c): the wide K3 at (B, T, d, dy): d = 9 with one observation and
+# a ragged last block of chains (37 = 4 * 8 + 5); d = 12, dy = 9; d = 4 with
+# twelve observations (the register kernel's d, padded work); dy = 40 (two
+# staged chunks of observations); d = dy = 16 over 8448 chains.
+FILTER_WIDE_CHECK_SHAPES = [(37, 65, 9, 1), (100, 33, 12, 9), (40, 20, 4, 12),
+                            (33, 9, 16, 40), (8448, 17, 16, 16)]
+# Phase 16 (d): path A at d = dy = 16 (B, T as phase 7); the plain version
+# over its first steps only (about 10^4 small launches a step).
+FILTER16_D = 16
+FILTER16_PLAIN_STEPS = 4
 BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
                          "fused_smoother_fwd"],
                      "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
@@ -3501,7 +3610,7 @@ def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
     return worst, plain
 
 
-def slice12_checks(which: str) -> tuple[list, dict, dict]:
+def slice12_checks(which: str, wall0: float) -> tuple[list, dict, dict]:
     """Phase 15 (a)'s ``"wide"`` or ``"bf16"`` kernel checks in a process
     of their own, beside phase 3's (their plain versions are host loops).
     Returns the log lines, each launch key's max error and the plain
@@ -3524,6 +3633,7 @@ def slice12_checks(which: str) -> tuple[list, dict, dict]:
     lines: list = []
     worst, plain = check_slice12_kernels(torch.device("cuda"), cases,
                                          log=lines.append)
+    _ended(lines, f"{which} K1/K2 checks", wall0)
     return lines, worst, plain
 
 
@@ -3762,6 +3872,212 @@ def bf16_path(device, b: int, t_len: int, d: int, reps: int,
     return out
 
 
+# -- slice 13: K4/K5 above eight states (V4), K3 at d 9..16 or dy > 8 (V5) ----------
+
+def hmm_k_emission(k: int, m: int) -> np.ndarray:
+    """Emission probabilities (m, K) of the K-state cell: state s emits
+    category s % m with 0.5, a second one, (s % m + 1 + 2 (s // m)) % m,
+    that tells s from s + m, with 0.3, and any category with 0.2 / m.  With
+    two states a category (s and s + m alike) the VMP is ill-conditioned:
+    the float32 plain version drifts 1.2e-4 relative from the float64 VMP
+    over 20 sweeps on the CPU as well, and the float64 VMP moves 1e-5 for a
+    1e-7 change of its input; with this one the drift is 4.4e-5
+    (``scripts/hmm16_conditioning.py``)."""
+    e = np.full((m, k), 0.2 / m)
+    for s in range(k):
+        e[s % m, s] += 0.5
+        e[(s % m + 1 + 2 * (s // m)) % m, s] += 0.3
+    return e
+
+
+def simulate_hmm_k(b: int, t_len: int, k: int, m: int, seed: int):
+    """One-hot observations of ``simulate_hmm``'s kind for K states and m
+    categories, every chain at once: a sticky chain (it stays with
+    probability 0.9, else jumps to a uniform state) emitting by
+    ``hmm_k_emission``."""
+    rng = np.random.default_rng(seed)
+    cum = np.cumsum(hmm_k_emission(k, m), axis=0)          # (m, K)
+    s = rng.integers(k, size=b)
+    ys = np.empty((b, t_len), np.int64)
+    for t in range(t_len):
+        s = np.where(rng.random(b) < 0.1, rng.integers(k, size=b), s)
+        u = rng.random(b)
+        ys[:, t] = np.minimum((u[None, :] > cum[:, s]).sum(0), m - 1)
+    return np.eye(m, dtype=np.float32)[ys]
+
+
+def hmm_k_init(k: int, m: int):
+    """Initial concentrations of A (flat, K x K) and B (m x K: 1 + 10 times
+    the emission probabilities)."""
+    a0 = np.ones((k, k), np.float32)
+    b0 = (1.0 + 10.0 * hmm_k_emission(k, m)).astype(np.float32)
+    return a0, b0
+
+
+def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
+               reps: int, smi: str, log=print) -> dict:
+    """Phase 16 (b): ``zoo.hmm(k, m)`` through ``batched_program`` at (B, T)
+    with ``iterations`` sweeps, y from ``simulate_hmm_k``: the plan fused on
+    the CUDA route, exactly ``iterations`` wide K4 and K5 launches a call
+    and no other kernel, sampled chains against the float64 VMP
+    (HMM_ORACLE_TOL), the wide K4/K5 against their plain versions on the
+    last sweep's inputs (FB_RTOL / FB_ATOL), one call with
+    ``free_energy=True`` against the float64 structured VMP's Bethe FE
+    (FE_HMM_TOL; the port counts the matrix entropy per transition, C6);
+    the program's median of ``reps`` calls, updates/s = B * iterations *
+    (T + 2) (bench.py:536), one profiled call (device busy, idle share,
+    each pass's ms), and K4 / K5 alone on the last sweep's inputs (CUDA
+    events, beside the SM clock sampled meanwhile)."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine.blocks import BatchContext
+    from rxinfer_tpu_torch.models import zoo
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    marks = [("start", time.perf_counter())]
+    mark = lambda what: marks.append((what, time.perf_counter()))
+    y_host = simulate_hmm_k(b, t_len, k, m, seed=16)
+    y = torch.as_tensor(y_host, device=device)
+    a0, b0 = hmm_k_init(k, m)
+    init = {"A": rt.DirichletCollection(a0), "B": rt.DirichletCollection(b0)}
+    model = zoo.hmm(k, m)
+    compiled, prog = rt.batched_program(
+        model, {"y": y}, iterations=iterations, free_energy=False,
+        initialization=init, device=device)
+    report = compiled.plan_report()
+    mark("data and plan")
+    log(f"[hmm16] plan_report {report}")
+    if report.get("s") != {"fused": True, "kernel": "fused_fb",
+                           "route": "cuda"}:
+        raise AssertionError("the 16-state chain is not on the CUDA "
+                             "forward-backward kernels")
+    reset_launches()
+    (state, _, _), peak = _peak_call(device, lambda: prog({"y": y}))
+    launches = read_launches()
+    log(f"[hmm16] launches in one program call: {launches}; peak "
+        f"{peak / 1e9:.3f} GB above the inputs")
+    expect_launches(launches, fused_fb_fwd_wide=iterations,
+                    fused_fb_bwd_wide=iterations)
+    probs = state["s"].probs().cpu().numpy()
+    conc = {n: state[n].alpha.cpu().numpy() for n in ("A", "B")}
+    if probs.shape != (b, t_len, k) or not np.isfinite(probs).all() or \
+            any(not np.isfinite(c).all() for c in conc.values()):
+        raise AssertionError("16-state HMM posteriors have the wrong shape or"
+                             " are not finite")
+    mark("checked call")
+    rows = sorted({0, 1, b // 2, b - 1})
+    # one float64 VMP pass: the posteriors here, its FE below
+    fe_want, (o_g, o_a, o_b) = hmm_vmp_fe_float64(
+        y_host[rows], a0, b0, iterations, with_state=True)
+    mark("float64 VMP")
+    errs = {
+        "gammas": float(np.abs(probs[rows] - o_g).max()),
+        "A_rel": float((np.abs(conc["A"][rows] - o_a) / o_a).max()),
+        "B_rel": float((np.abs(conc["B"][rows] - o_b) / o_b).max()),
+    }
+    log(f"[hmm16] float64 VMP, chains {rows}: {errs} (tol {HMM_ORACLE_TOL})")
+    if errs["gammas"] > HMM_ORACLE_TOL["gammas"] or max(
+            errs["A_rel"], errs["B_rel"]) > HMM_ORACLE_TOL["conc_rel"]:
+        raise AssertionError(f"the 16-state HMM disagrees with the float64 "
+                             f"VMP: {errs}")
+    out = {"errs": errs, "launches": launches, "peak_bytes": peak}
+    block = next(blk for kind, blk in compiled.blocks if blk.var.name == "s")
+    lp, elog_a, le_t = block._inputs(state, {"y": y}, {},
+                                     BatchContext(device, b, {}))
+    out["kernel_errs"], out["plain_ms"] = check_fb_path_inputs(
+        lp, elog_a, le_t, log=log, tag="hmm16")
+    mark("K4/K5 against the plain versions")
+
+    # the free energy: one call, against the float64 structured VMP's
+    _, fe_prog = rt.batched_program(
+        model, {"y": y}, iterations=iterations, free_energy=True,
+        initialization=init, device=device)
+    reset_launches()
+    _, fe, _ = fe_prog({"y": y})
+    torch.cuda.synchronize()
+    out["fe_launches"] = read_launches()
+    expect_launches(out["fe_launches"], fused_fb_fwd_wide=iterations,
+                    fused_fb_bwd_wide=iterations)
+    fe = fe.cpu().numpy()
+    out["fe_rel_err"] = _rel(fe[:, rows], fe_want)
+    log(f"[hmm16] FE with free_energy=True, rows {rows} last sweep "
+        f"{fe[-1, rows].tolist()}: against the float64 structured VMP max "
+        f"rel err {out['fe_rel_err']:.3g} (tol {FE_HMM_TOL})")
+    if not np.isfinite(fe).all() or not out["fe_rel_err"] <= FE_HMM_TOL:
+        raise AssertionError(f"16-state HMM FE: {out['fe_rel_err']}")
+    mark("free energy")
+
+    # the program, then K4 and K5 alone on the last sweep's inputs, while
+    # the SM clock is sampled (the program's calls bring the clock up)
+    alphas, _ = ffb.fb_forward(lp, elog_a, le_t)
+    fwd = lambda: ffb.fb_forward(lp, elog_a, le_t)
+    bwd = lambda: ffb.fb_backward(elog_a, le_t, alphas, per_step_xi=True)
+    with SmClock() as clk:
+        out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
+        out["alone_ms"] = {"fused_fb_fwd_wide": _cuda_ms(fwd, 5, inner=3),
+                           "fused_fb_bwd_wide": _cuda_ms(bwd, 5, inner=3)}
+    out["sm_clock_mhz"] = clk.mhz
+    out["updates_per_s"] = b * iterations * (t_len + 2) / (
+        out["program_ms"] / 1e3)
+    out["profile"] = _device_profile(lambda: prog({"y": y}),
+                                     FB_WIDE_KERNEL_NAMES, top=8)
+    out["cycles_per_step"] = {
+        n: _cycles_per_step(row["ms_per_launch"], clk.mhz, t_len)
+        for n, row in out["profile"]["kernels"].items()}
+    out["tile"] = ffb.device_tile(b, t_len, device, k)
+    mark("timing and profile")
+    busy = out["profile"]["busy_ms"]
+    log(f"[hmm16] program {out['program_ms']:.3f} ms/call "
+        f"({out['updates_per_s']:.4g} updates/s); device busy {busy} ms per "
+        f"call, idle {_idle_share(out['program_ms'], busy)}; in the program "
+        f"{out['profile']['kernels']} ({out['cycles_per_step']} cycles a "
+        f"step at {clk.mhz:.0f} MHz); top device kernels [name, launches, "
+        f"ms] {out['profile'].get('top')}; alone (events) {out['alone_ms']}; "
+        f"seconds: " + ", ".join(f"{what} {t - t0:.1f}" for (_, t0), (what, t)
+                                 in zip(marks, marks[1:])) + f"; {smi}")
+    return out
+
+
+def slice13_checks(wall0: float) -> tuple[list, dict, bool]:
+    """Phase 16 (a) and (c) in a process of their own beside phase 3's: the
+    wide K4/K5 at FB_WIDE_CHECK_SHAPES (both ``per_step_xi`` variants,
+    xi_sum bit-identical over calls, sampled chains of the first shape
+    against the float64 oracle) and the wide K3 at FILTER_WIDE_CHECK_SHAPES
+    (sampled chains of the first against the float64 filter).  Returns the
+    log lines, each launch key's max error and whether every K4/K5 output
+    equalled its plain version's bits."""
+    import torch
+
+    device = torch.device("cuda")
+    lines: list = []
+    worst = check_fb_kernels(device, FB_WIDE_CHECK_SHAPES, log=lines.append,
+                             seed=1600)
+    bit_equal = worst.pop("bit_equal")
+    worst.update(check_filter_kernel(device, FILTER_WIDE_CHECK_SHAPES,
+                                     log=lines.append, seed=1650))
+    _ended(lines, "wide K3-K5 checks", wall0)
+    return lines, worst, bit_equal
+
+
+def _ended(lines: list, what: str, wall0: float) -> None:
+    """A check process's ``[time]`` line: when it ended, in seconds since
+    the main process's start (``wall0``, its ``time.time()`` then)."""
+    lines.append(f"[time] {what} done at {time.time() - wall0:.1f} s (its "
+                 "own process)")
+
+
+def dynamic_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 10 (a) in a process of its own beside phase 3's."""
+    import torch
+
+    lines: list = []
+    worst = check_dynamic_kernels(torch.device("cuda"), DYN_CHECK_SHAPES,
+                                  log=lines.append)
+    _ended(lines, "dynamic K1/K2 checks", wall0)
+    return lines, worst
+
+
 def _start_checker() -> None:
     """A check process's start-up, run while the main process builds the
     kernels: the port's imports and the card's context."""
@@ -3772,7 +4088,7 @@ def _start_checker() -> None:
     torch.cuda.init()
 
 
-def side_checks() -> tuple[list, dict, dict]:
+def side_checks(wall0: float) -> tuple[list, dict, dict]:
     """Phase 3's K4/K5 checks and phase 6's K3, K6-K8 checks, in a second
     process beside the K1/K2 checks.  The plain versions the checks hold the
     kernels against are host-bound Python loops (seconds a call), so the two
@@ -3784,10 +4100,12 @@ def side_checks() -> tuple[list, dict, dict]:
     device = torch.device("cuda")
     lines: list = []
     worst = check_fb_kernels(device, FB_CHECK_SHAPES, log=lines.append)
-    worst["fused_filter"] = check_filter_kernel(device, FILTER_CHECK_SHAPES,
-                                                log=lines.append)
+    del worst["bit_equal"]
+    worst.update(check_filter_kernel(device, FILTER_CHECK_SHAPES,
+                                     log=lines.append))
     quant_worst, layouts = check_quant_kernels(device, log=lines.append)
     worst.update(quant_worst)
+    _ended(lines, "K3-K8 checks", wall0)
     return lines, worst, layouts
 
 
@@ -3809,6 +4127,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    wall0 = time.time()
     device = torch.device("cuda")
 
     # 1. environment
@@ -3829,10 +4148,12 @@ def main() -> int:
 
     # 3. and 6. kernels vs plain versions: K1/K2 here, K3-K8 in a second
     # process at the same time (a check that fails there raises here);
-    # 15 (a): the wide and the bf16 kernels' checks, a process each.  The
-    # three processes start (imports, the card's context) during the build.
+    # 10 (a): the per-chain K1/K2, a third; 15 (a): the wide and the bf16
+    # kernels' checks, a process each; 16 (a) and (c): the wide K4/K5 and
+    # K3, a sixth.  The five processes start (imports, the card's context)
+    # during the build.
     with multiprocessing.get_context("spawn").Pool(
-            3, initializer=_start_checker) as pool:
+            5, initializer=_start_checker) as pool:
         # 2. build
         t0 = time.perf_counter()
         libs = kernels.build_all()
@@ -3843,26 +4164,28 @@ def main() -> int:
                                            "spill")):
                     print(f"[ptxas] {name}: {line.strip()}")
 
-        side = pool.apply_async(side_checks)
-        side12 = {w: pool.apply_async(slice12_checks, (w,))
+        side = pool.apply_async(side_checks, (wall0,))
+        side_dyn = pool.apply_async(dynamic_checks, (wall0,))
+        side12 = {w: pool.apply_async(slice12_checks, (w, wall0))
                   for w in ("wide", "bf16")}
+        side13 = pool.apply_async(slice13_checks, (wall0,))
         worst, plain = check_kernels(device, CHECK_SHAPES)
         _elapsed("K1/K2 checks", t_start)
-        # 10 (a): K1/K2 with per-chain W and Q, in this process, which ends
-        # its checks first
-        worst.update(check_dynamic_kernels(device, DYN_CHECK_SHAPES))
-        _elapsed("dynamic K1/K2 checks", t_start)
+        dyn_lines, dyn_worst = side_dyn.get()
         side_lines, side_worst, quant_layouts = side.get()
-        _elapsed("K3-K8 checks", t_start)
         s12_lines, s12_worst, s12_plain = side12["wide"].get()
         bf16_lines, bf16_worst, bf16_plain = side12["bf16"].get()
-    for line in side_lines + s12_lines + bf16_lines:
+        s13_lines, s13_worst, s13_bit_equal = side13.get()
+    for line in (dyn_lines + side_lines + s12_lines + bf16_lines
+                 + s13_lines):
         print(line)
+    worst.update(dyn_worst)
+    worst.update(s13_worst)
     worst.update(side_worst)
     s12_worst.update(bf16_worst)
     s12_plain.update(bf16_plain)
     worst.update(s12_worst)
-    _elapsed("wide and bf16 K1/K2 checks", t_start)
+    _elapsed("wide and bf16 K1/K2, wide K3-K5 checks", t_start)
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
@@ -3939,17 +4262,31 @@ def main() -> int:
     bf16 = bf16_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
     bf16_bounds = kernel_bounds(MAIN_B, MAIN_T, MAIN_D, moment_bytes=2)
     _elapsed("the d16 and bf16 rows", t_start)
+
+    # 16. (b) the 16-state HMM on the wide K4/K5; (d) path A at d = 16 on
+    # the wide K3
+    hmm16 = hmm16_path(device, HMM16_B, HMM16_T, HMM16_K, HMM16_M, HMM16_IT,
+                       reps=5, smi=smi)
+    hmm16_bounds = fb_bounds(HMM16_B, HMM16_T, HMM16_K)
+    _elapsed("the 16-state HMM", t_start)
+    filt16 = filter_path(device, FILTER_B, FILTER_T, FILTER16_D, reps=5,
+                         plain_steps=FILTER16_PLAIN_STEPS, tag="filter16")
+    filt16_bound = filter_bound(FILTER_B, FILTER_T, FILTER16_D, FILTER16_D)
+    _elapsed("the 16-state HMM and path A at d = 16", t_start)
     fe_launches = {
         "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
         "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
                                "lgssm_wtau": WTAU_IT},
         "fused_smoother_fwd_dyn": {"lgssm_wtau": WTAU_IT},
         "fused_fb_fwd": {"hmm": HMM_IT}, "fused_fb_bwd": {"hmm": HMM_IT},
+        "fused_fb_fwd_wide": {"hmm16": HMM16_IT},
+        "fused_fb_bwd_wide": {"hmm16": HMM16_IT},
         "quantize_rows": {"int8": 1}, "quantize_rows_fp8": {"float8_e4m3fn": 1},
     }
     # the counts each phase 12 path read (expect_launches held them)
     fe_read = {"lgssm": fe_a["launches"], "hmm": fe_b["launches"],
-               "lgssm_wtau": fe_c["launches"], **fe_d["launches"]}
+               "lgssm_wtau": fe_c["launches"], "hmm16": hmm16["fe_launches"],
+               **fe_d["launches"]}
     for name, per_path in fe_launches.items():
         for path, n in per_path.items():
             if fe_read[path][name] != n:
@@ -4298,6 +4635,88 @@ def main() -> int:
           f"{bf16['updates_per_s']:.6g} against float32 "
           f"{bf16['program_ms_fp32']:.4f} ({bf16['updates_per_s_fp32']:.6g}) "
           f"(B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); {smi}")
+
+    # the wide K4/K5 (16-state HMM) and the wide K3 (path A at d = 16); their
+    # other shapes are checked in 16 (a) / (c)
+    hmm16_shape = (HMM16_B, HMM16_T, HMM16_K)
+    tile16 = hmm16["tile"]
+    for name, replaces, bkey in (
+            ("fused_fb_fwd_wide", "rxinfer_tpu/ops/pallas_discrete.py:48",
+             "fused_fb_fwd"),
+            ("fused_fb_bwd_wide", "rxinfer_tpu/ops/pallas_discrete.py:87",
+             "fused_fb_bwd")):
+        prof = hmm16["profile"]["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "rxinfer_tpu_torch/csrc/fused_fb_wide.cu",
+            "replaces": replaces, "launches": hmm16["launches"][name],
+            "max_abs_err": max(worst[name], hmm16["kernel_errs"][name]),
+            "max_abs_err_on_path": hmm16["kernel_errs"][name],
+            "bit_equal_to_plain_at_checked_shapes": s13_bit_equal,
+            "ms": hmm16["alone_ms"][name],
+            "ms_in_path": prof["ms_per_launch"],
+            "ms_in_path_by_pass": prof.get("parts"),
+            "cycles_per_step": hmm16["cycles_per_step"][name],
+            "sm_clock_mhz": hmm16["sm_clock_mhz"],
+            "tile": {"marginal_steps": tile16,
+                     "marginal_tiles": -(-HMM16_T // tile16)},
+            "serial_plan": ffb.wide_serial_plan(HMM16_K, device),
+            "plain_ms": hmm16["plain_ms"][name],
+            "plain_shape_BTK": list(hmm16_shape),
+            "bound_ms": hmm16_bounds[bkey]["bound_ms"],
+            "bound_by": hmm16_bounds[bkey]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes an HMM "
+                            "forward-backward",
+            "shape_BTK": list(hmm16_shape),
+            "bytes": hmm16_bounds[bkey]["bytes"],
+            "ops": hmm16_bounds[bkey]["ops"],
+            "shapes_checked": ["x".join(map(str, s))
+                               for s in FB_WIDE_CHECK_SHAPES],
+        })
+        print(f"[hmm16] {name}: {hmm16['alone_ms'][name]:.4f} ms "
+              f"alone, in the program {prof['ms_per_launch']} ms (passes "
+              f"{prof.get('parts')}), bound "
+              f"{hmm16_bounds[bkey]['bound_ms']:.6f} ms "
+              f"({hmm16_bounds[bkey]['bound_by']}); plain "
+              f"{hmm16['plain_ms'][name]:.1f} ms at (B,T,K)={hmm16_shape}; "
+              f"{smi}")
+    rows.append({
+        "name": "fused_filter_wide", "route": "cuda",
+        "source": "rxinfer_tpu_torch/csrc/fused_filter_wide.cu",
+        "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "launches": filt16["launches"]["fused_filter_wide"],
+        "max_abs_err": max(worst["fused_filter_wide"], filt16["kernel_err"]),
+        "max_abs_err_on_path": filt16["kernel_err"],
+        "ms": filt16["kernel_ms"],
+        "ms_in_path": filt16["profile"]["kernels"]["fused_filter_wide"][
+            "ms_per_launch"],
+        "plain_ms": filt16["plain_kernel_ms"],
+        "plain_shape_BTddy": [FILTER_B, filt16["plain_steps"], FILTER16_D,
+                              FILTER16_D],
+        "bound_ms": filt16_bound["bound_ms"],
+        "bound_by": filt16_bound["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a Kalman filter",
+        "shape_BTddy": [FILTER_B, FILTER_T, FILTER16_D, FILTER16_D],
+        "bytes": filt16_bound["bytes"], "ops": filt16_bound["ops"],
+        "cycles_per_step": filt16["cycles_per_step"],
+        "sm_clock_mhz": filt16["sm_clock_mhz"],
+        "share_of_bound": filt16_bound["bound_ms"] / filt16["kernel_ms"],
+        "shapes_checked": ["x".join(map(str, s))
+                           for s in FILTER_WIDE_CHECK_SHAPES],
+    })
+    print(f"[filter16] fused_filter_wide: {filt16['kernel_ms']:.4f} ms alone,"
+          f" in the call {rows[-1]['ms_in_path']} ms, bound "
+          f"{filt16_bound['bound_ms']:.4f} ms ({filt16_bound['bound_by']}), "
+          f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; plain "
+          f"{filt16['plain_kernel_ms']:.1f} ms over {filt16['plain_steps']} "
+          f"steps; {smi}")
+    print(f"[hmm16] program_ms {hmm16['program_ms']:.4f} updates_per_s "
+          f"{hmm16['updates_per_s']:.6g} (B={HMM16_B}, T={HMM16_T}, "
+          f"K={HMM16_K}, iterations={HMM16_IT}), peak "
+          f"{hmm16['peak_bytes'] / 1e9:.3f} GB; {smi}")
+    print(f"[filter16] call_ms {filt16['call_ms']:.4f} chain_updates_per_s "
+          f"{filt16['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
+          f"d=dy={FILTER16_D}); {smi}")
 
     for row in rows:
         row["launches_fe_paths"] = fe_launches.get(row["name"], {})

@@ -10,12 +10,13 @@ an NVIDIA GPU; ``free_energy=True``
 returns the Bethe free energy after every sweep (``engine/bethe.py``).  In a
 batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
-forward-backward kernels of ``csrc/fused_fb.cu`` — a Gaussian chain whose
+forward-backward kernels of ``csrc/fused_fb.cu`` (``csrc/fused_fb_wide.cu``
+above 8 states) — a Gaussian chain whose
 observation precision or process noise is a random ``Gamma`` / ``Wishart``
 variable too, with that precision re-closed per chain every sweep — and
 its plain conjugate groups by natural-parameter message products; a chain the plan leaves off
 the kernels (``options={"fused_kernels": False}``, missing observations in
-a Gaussian batch, a state dimension or state count beyond the kernels') and
+a Gaussian batch, a state dimension beyond the kernels') and
 every chain of ``infer`` runs the associative-scan smoother and
 forward-backward of ``ops/kalman.py`` / ``ops/discrete_chain.py`` in torch;
 ``options={"observation_dtype": "int8" | "float8_e4m3fn"}`` feeds the
@@ -23,7 +24,8 @@ Gaussian chains from observations quantized by the kernels of
 ``csrc/quantized.cu`` (``ops/quantized.py``, which also holds the
 ``quantized_evidence`` ingest entry points).  ``parallel.filtering`` filters
 a stream of observations over many parallel chains, continuous batching, in
-the kernel of ``csrc/fused_filter.cu``.  Every kernel is built with ``nvcc``
+the kernels of ``csrc/fused_filter.cu`` (``csrc/fused_filter_wide.cu`` for a
+state dimension of 9 to 16 or more than 8 observations).  Every kernel is built with ``nvcc``
 at first use.  Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 

@@ -64,17 +64,17 @@
 //   * xi_sum: the partials are summed in tile order by a third kernel (with
 //     one tile the marginal pass writes xi_sum itself).  No atomics: the
 //     same inputs give the same bits on every run.
+//
+// The log-sum-exp, the cp.async copies and the xi_sum kernel sit in
+// fused_fb.cuh, shared with fused_fb_wide.cu (K >= 9, a chain a warp).
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
-namespace {
+#include "fused_fb.cuh"
 
-constexpr int kWarp = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kTileSteps = 32;  // steps of a staged time tile
-constexpr int kStages = 3;      // tiles in the shared-memory ring
+namespace {
 
 // lanes per chain in the serial passes: the least power of two >= K
 template <int K>
@@ -94,18 +94,6 @@ __host__ __device__ constexpr size_t ring_bytes() {
 static_assert(ring_bytes<8>() <= 48 * 1024 && ring_bytes<3>() <= 48 * 1024,
               "the ring stays within the default dynamic shared memory");
 
-// log-sum-exp of N terms in the TPU kernel's order.
-template <int N>
-__device__ __forceinline__ float lse(const float (&t)[N]) {
-  float m = t[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i) m = fmaxf(m, t[i]);
-  float s = expf(t[0] - m);
-#pragma unroll
-  for (int i = 1; i < N; ++i) s += expf(t[i] - m);
-  return m + logf(s);
-}
-
 // The K values of a chain, one per lane (lane i of the chain's P holds
 // value i), gathered into every lane of the chain.
 template <int K>
@@ -116,24 +104,6 @@ __device__ __forceinline__ void gather(float mine, float (&all)[K]) {
 }
 
 // ---- the evidence ring of the serial passes ---------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's most recent groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The CTA's chains' rows of log_evidence, staged tile by tile in time order
 // (FORWARD: from t = 0; else from t = T-1).  Tile i covers steps [t0, t1);
@@ -477,21 +447,6 @@ __global__ void __launch_bounds__(128)
   for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < K; ++j) pout[i * K + j] = acc[i][j];
-}
-
-// ---- K5 (c): xi_sum from the partials, summed in tile order ----------------
-__global__ void __launch_bounds__(256)
-    fb_xisum_kernel(const float* __restrict__ part, float* __restrict__ xi_sum,
-                    int64_t tiles, int64_t n) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float acc = 0.0f;
-  for (int64_t s = 0; s < tiles; ++s) acc += part[s * n + idx];
-  xi_sum[idx] = acc;
-}
-
-unsigned grid_for(int64_t n, int per_block) {
-  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
 template <int K>

@@ -34,8 +34,9 @@ one program.  Per sweep, in the compiled sweep order
   counterpart of the JAX package's vmapped chain step).  ``build_plans``
   decides which, and ``compiled.plan_report()`` gives each chain's reason:
   ``options={"fused_kernels": False}``, missing observations in a Gaussian
-  batch, a state dimension or state count beyond the kernels', parameters
-  that are not compile-time constants.  It is a decision of the plan only:
+  batch, a state dimension beyond the kernels' (a discrete chain of any
+  state count is fused, as in the JAX planner), parameters that are not
+  compile-time constants.  It is a decision of the plan only:
   a kernel that fails to build or launch raises, and nothing reroutes its
   chain.  One program may mix fused and unfused chains.
 * A plain conjugate group multiplies its factors' messages over the batch
@@ -800,8 +801,6 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
     missing observations) keeps Gaussian chains off the fused tier; discrete
     chains stream their masked evidence and stay fused.  ``batch_hint``
     (the program's batch) sizes the device-memory gate of d > 8."""
-    from ..ops.fused_fb import MAX_STATES
-
     plans: dict[str, Any] = {}
     report: dict[str, dict] = {}
     compiled._plan_report = report
@@ -818,13 +817,6 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
             }
             continue
         if isinstance(block, DiscreteChainBlock):
-            if block.k > MAX_STATES:
-                report[name] = {"fused": False, "reason": (
-                    f"{block.k} states > {MAX_STATES}: the CUDA "
-                    "forward-backward kernels keep each chain's K x K table "
-                    "in registers and are instantiated for "
-                    f"K <= {MAX_STATES}")}
-                continue
             plans[name] = "discrete"
             report[name] = {"fused": True, "kernel": "fused_fb",
                             "route": route}

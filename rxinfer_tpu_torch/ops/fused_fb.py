@@ -8,18 +8,23 @@ log-potentials (the inner solver of structured VMP on an HMM).  Convention:
 max-normalised each step (gammas and xis are shift-invariant); the forward
 shifts accumulate into logZ.
 
-Kernels (``csrc/fused_fb.cu``):
+Kernels (``csrc/fused_fb.cu`` for K <= ``REG_MAX_STATES``,
+``csrc/fused_fb_wide.cu`` above):
   * ``fb_forward``  replaces ``_fb_fwd_kernel`` (pallas_discrete.py:48-84):
     one device kernel, the forward recursion;
   * ``fb_backward`` replaces ``_fb_bwd_kernel`` (pallas_discrete.py:87-167):
     the beta recursion, then the marginals in parallel over (time tile,
     chain), then, with more than one tile, xi_sum from the per-tile partials
-    in tile order (``pick_tile`` sets the tile).
-Each wrapper takes its plain version when its tensors lie on the CPU and
-launches its kernels when they lie on a CUDA device (any other device
-raises); there is no fallback from a kernel to a plain version.
+    in tile order (``pick_tile`` sets the tile; ``pick_tile_wide`` for the
+    wide kernels, whose marginal pass runs a warp a tile and chain).
+The register kernels keep a chain's states on up to 8 lanes; the wide ones
+run a chain on a warp and take any K the tensors' memory allows, as the JAX
+kernels do.  Each wrapper takes its plain version when its tensors lie on
+the CPU and launches its kernels when they lie on a CUDA device (any other
+device raises); there is no fallback from a kernel to a plain version.
 ``LAUNCHES`` counts wrapper calls that launched, one per call whatever the
-number of device kernels.
+number of device kernels, under ``fused_fb_{fwd,bwd}`` for the register
+kernels and ``fused_fb_{fwd,bwd}_wide`` for the wide ones.
 
 ``fused_fb_batched`` keeps the JAX wrapper's contract: log_prior (B, K),
 log_trans (B, K, K), log_evidence (T, B, K) -> gammas (T, B, K), xi_sum
@@ -35,12 +40,12 @@ import torch
 
 from .. import kernels
 
-# Largest state count the CUDA kernels take.  A lane of the serial passes
-# keeps a row (or column) of its chain's K x K table and the alpha/beta
-# vector in registers, a thread of the marginal pass the whole table and the
-# K x K xi partial; the kernels are instantiated for K = 1..8.  Larger K
-# needs the table in shared memory (ROADMAP B2).
-MAX_STATES = 8
+# Largest state count of the register kernels (``csrc/fused_fb.cu``).  A
+# lane of their serial passes keeps a row (or column) of its chain's K x K
+# table and the alpha/beta vector in registers, a thread of the marginal
+# pass the whole table and the K x K xi partial; they are instantiated for
+# K = 1..8.  Larger K launches the wide kernels (``csrc/fused_fb_wide.cu``).
+REG_MAX_STATES = 8
 # Steps of a time tile that the serial passes stage in shared memory
 # (``kTileSteps`` in the source; the numbers do not depend on it).
 STAGED_STEPS = 32
@@ -52,7 +57,14 @@ MIN_TILE_STEPS = 4                 # a partial per tile costs K*K floats a chain
 
 # wrapper calls that launched on CUDA tensors (the plain version on CPU
 # tensors counts none)
-LAUNCHES = {"fused_fb_fwd": 0, "fused_fb_bwd": 0}
+LAUNCHES = {"fused_fb_fwd": 0, "fused_fb_bwd": 0, "fused_fb_fwd_wide": 0,
+            "fused_fb_bwd_wide": 0}
+
+
+def launch_key(direction: str, k: int) -> str:
+    """The ``LAUNCHES`` key of a ``direction`` ("fwd" / "bwd") wrapper call
+    at K states."""
+    return f"fused_fb_{direction}" + ("_wide" if k > REG_MAX_STATES else "")
 
 
 def reset_launches() -> None:
@@ -66,9 +78,11 @@ def reset_launches() -> None:
 # with the same arithmetic), in the kernels' operation order, so the same
 # code serves the plain versions and an exact operation count.  An entry may
 # be a (B,) tensor (one step) or a (T, B) one (all steps at once: the table's
-# (B,) entries broadcast).  ``beta_step`` alone works on (B, K) tensors: the
-# plain beta recursion is its only caller, and ``backward_step`` counts the
-# same operations.
+# (B,) entries broadcast).  The plain versions themselves run every state
+# at once on (B, K) tensors (``alpha_step``, ``beta_step``, ``_softmax_last``,
+# ``_xi_from_logits``), each entry in the entry lists' order, so that their
+# operation count does not grow with K^2 per step; ``forward_step`` and
+# ``backward_step`` count the same operations.
 
 def _lse(terms):
     """log-sum-exp: running maximum, then exp sums in index order."""
@@ -100,6 +114,38 @@ def _softmax(logits):
     e = [torch.exp(x - m) for x in logits]
     total = _sum(e)
     return [x / total for x in e]
+
+
+def alpha_step(alpha, le_t, log_trans, first: bool):
+    """Max-normalised alpha_t (B, K) and its shift (B,) from alpha_{t-1}
+    (B, K) (or the log prior at t = 0); every state at once, each entry in
+    ``forward_step``'s order."""
+    k = log_trans.shape[-1]
+    if first:
+        a_new = alpha + le_t
+    else:
+        a_new = _lse([log_trans[:, :, j] + alpha[:, j, None]
+                      for j in range(k)]) + le_t
+    m = _max([a_new[:, i] for i in range(k)])
+    return a_new - m[:, None], m
+
+
+def _softmax_last(logits):
+    """``_softmax`` over the last axis of a tensor, entry by entry in its
+    order (the maximum is exact in any order)."""
+    k = logits.shape[-1]
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return e / _sum([e[..., i] for i in range(k)])[..., None]
+
+
+def _xi_from_logits(x):
+    """``xi_from_scores`` on x[..., i, j] = alpha_t[j] + s[i][j]: exps
+    against the maximum over (i, j), divided by the row sums (each in j
+    order) summed in row order."""
+    k = x.shape[-1]
+    e = torch.exp(x - x.amax((-2, -1), keepdim=True))
+    rows = _sum([e[..., j] for j in range(k)])
+    return e / _sum([rows[..., i] for i in range(k)])[..., None, None]
 
 
 def forward_step(alpha, le_t, lt, first: bool):
@@ -172,32 +218,48 @@ def _stack_table(rows):
 
 def fb_forward_reference(log_prior, log_trans, log_evidence):
     """Plain forward pass: alphas (T, B, K) max-normalised and logZ (B,).
-    Same recurrence and operation order as the kernel."""
+    Same recurrence and operation order as the kernels."""
     t_len, _, k = log_evidence.shape
-    lt = _entries(log_trans)
-    alpha = [log_prior[:, i] for i in range(k)]
+    alpha = log_prior
     cum = torch.zeros_like(log_prior[:, 0])
     alphas = torch.empty_like(log_evidence)
     for t in range(t_len):
-        alpha, m = forward_step(alpha, [log_evidence[t, :, i] for i in range(k)],
-                                lt, first=t == 0)
+        alpha, m = alpha_step(alpha, log_evidence[t], log_trans,
+                              first=t == 0)
         cum = cum + m
-        alphas[t] = torch.stack(alpha, dim=-1)
-    m = _max(alpha)
-    logz = cum + m + torch.log(_sum([torch.exp(a - m) for a in alpha]))
+        alphas[t] = alpha
+    last = [alpha[:, i] for i in range(k)]
+    m = _max(last)
+    logz = cum + m + torch.log(_sum([torch.exp(a - m) for a in last]))
     return alphas, logz
 
 
 # -- K5's marginal tiles --------------------------------------------------------------
+
+def _tile_for(slots: int, bsz: int, t_len: int) -> int:
+    """T // n for the n tiles that give B * n (tile, chain) pairs ``slots``
+    of them, but at least ``MIN_TILE_STEPS`` and at most T."""
+    wanted = -(-slots // max(bsz, 1))
+    return max(1, min(t_len, max(MIN_TILE_STEPS, t_len // wanted)))
+
 
 def pick_tile(bsz: int, t_len: int, sm_count: int) -> int:
     """Steps per tile of K5's marginal pass at (B, T) on a card with
     ``sm_count`` SMs: T // n for the n tiles that let B * n threads fill
     every warp scheduler ``MARGINAL_WARPS_PER_SCHEDULER`` deep, but at least
     ``MIN_TILE_STEPS`` and at most T."""
-    threads = sm_count * SCHEDULERS_PER_SM * 32 * MARGINAL_WARPS_PER_SCHEDULER
-    wanted = -(-threads // max(bsz, 1))
-    return max(1, min(t_len, max(MIN_TILE_STEPS, t_len // wanted)))
+    return _tile_for(
+        sm_count * SCHEDULERS_PER_SM * 32 * MARGINAL_WARPS_PER_SCHEDULER,
+        bsz, t_len)
+
+
+def pick_tile_wide(bsz: int, t_len: int, sm_count: int) -> int:
+    """``pick_tile`` for the wide kernels' marginal pass, which runs a warp,
+    not a thread, a (tile, chain): the tiles that let B * n warps fill every
+    scheduler ``MARGINAL_WARPS_PER_SCHEDULER`` deep."""
+    return _tile_for(
+        sm_count * SCHEDULERS_PER_SM * MARGINAL_WARPS_PER_SCHEDULER,
+        bsz, t_len)
 
 
 def _tile_xi_sum(xi_steps, t_len: int, tile: int):
@@ -234,15 +296,12 @@ def fb_backward_reference(log_trans, log_evidence, alphas,
     xi_sum (B, K, K) summed in tiles of ``tile`` steps (one tile when None)
     as the marginal and xi_sum passes sum it.  Returns gammas, xi_sum and,
     with ``per_step_xi``, xi_steps (T-1, B, K, K) (else None)."""
-    t_len, _, k = log_evidence.shape
+    t_len = log_evidence.shape[0]
     betas = beta_pass_reference(log_trans, log_evidence)
-    al = [alphas[..., i] for i in range(k)]
-    be = [betas[..., i] for i in range(k)]
-    gammas = torch.stack(_softmax([a + b for a, b in zip(al, be)]), dim=-1)
-    s = _scores([b[1:] for b in be],
-                [log_evidence[1:, :, i] for i in range(k)],
-                _entries(log_trans))
-    xi_steps = _stack_table(xi_from_scores([a[:-1] for a in al], s))
+    gammas = _softmax_last(alphas + betas)
+    # x[t, b, i, j] = alpha_t[j] + ((logA[i][j] + le_{t+1}[i]) + beta_{t+1}[i])
+    scores = log_trans + log_evidence[1:, ..., None] + betas[1:, ..., None]
+    xi_steps = _xi_from_logits(alphas[:-1, :, None, :] + scores)
     xi_sum = _tile_xi_sum(xi_steps, t_len, tile or t_len)
     return gammas, xi_sum, xi_steps if per_step_xi else None
 
@@ -275,35 +334,58 @@ def _fb_backward_stepwise(log_trans, log_evidence, alphas,
 
 # -- kernel launches ----------------------------------------------------------------
 
-def _library():
-    lib = kernels.load("fused_fb")
+def _library(wide: bool):
+    lib = kernels.load("fused_fb_wide" if wide else "fused_fb")
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
-        lib.rxt_fb_fwd.argtypes = [ctypes.c_int, p, p, p, p, p, i64, i64, p]
-        lib.rxt_fb_fwd.restype = ctypes.c_int
-        lib.rxt_fb_bwd.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p,
-                                   p, p, p, i64, i64, i64, i64, p]
-        lib.rxt_fb_bwd.restype = ctypes.c_int
-        lib.rxt_fb_staged_steps.restype = ctypes.c_int
-        if lib.rxt_fb_staged_steps() != STAGED_STEPS:
-            raise RuntimeError(
-                "csrc/fused_fb.cu stages "
-                f"{lib.rxt_fb_staged_steps()} steps a tile, the wrapper "
-                f"expects {STAGED_STEPS}")
+        fwd = lib.rxt_fb_wide_fwd if wide else lib.rxt_fb_fwd
+        bwd = lib.rxt_fb_wide_bwd if wide else lib.rxt_fb_bwd
+        fwd.argtypes = [ctypes.c_int, p, p, p, p, p, i64, i64, p]
+        fwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p,
+                        i64, i64, i64, i64, p]
+        bwd.restype = ctypes.c_int
+        if wide:
+            pi = ctypes.POINTER(ctypes.c_int)
+            lib.rxt_fb_wide_serial_plan.argtypes = [ctypes.c_int,
+                                                    ctypes.c_int, pi, pi]
+            lib.rxt_fb_wide_serial_plan.restype = ctypes.c_int
+        else:
+            lib.rxt_fb_staged_steps.restype = ctypes.c_int
+            if lib.rxt_fb_staged_steps() != STAGED_STEPS:
+                raise RuntimeError(
+                    "csrc/fused_fb.cu stages "
+                    f"{lib.rxt_fb_staged_steps()} steps a tile, the wrapper "
+                    f"expects {STAGED_STEPS}")
         lib._rxt_typed = True
     return lib
+
+
+def wide_serial_plan(k: int, device) -> dict:
+    """How the wide kernels' serial passes run at K states on ``device``:
+    for the forward (``fwd``) and the beta (``beta``) recursion, the steps of
+    a staged evidence tile and whether the K x K table sits in shared memory
+    (K > 32) or is read from device memory."""
+    lib = _library(wide=True)
+    out = {}
+    with torch.cuda.device(device):
+        for name, pass_ in (("fwd", 0), ("beta", 1)):
+            ts, table = ctypes.c_int(), ctypes.c_int()
+            rc = lib.rxt_fb_wide_serial_plan(k, pass_, ctypes.byref(ts),
+                                             ctypes.byref(table))
+            kernels.check(lib, rc, f"fused_fb_wide plan at K={k}")
+            out[name] = {"staged_steps": ts.value,
+                         "table": "shared" if table.value else
+                         ("device" if k > 32 else "registers")}
+    return out
 
 
 def _check_dims(t_len, k):
     if t_len < 1:
         raise ValueError("forward-backward needs at least one time step")
-    if not 1 <= k <= MAX_STATES:
-        raise NotImplementedError(
-            f"{k} states: the CUDA forward-backward kernels keep each chain's "
-            f"K x K table and xi accumulators in registers and are "
-            f"instantiated for K = 1..{MAX_STATES}; larger K needs the table "
-            "in shared memory, which is not written yet")
+    if k < 1:
+        raise ValueError("forward-backward needs at least one state")
 
 
 def fb_forward(log_prior, log_trans, log_evidence):
@@ -319,20 +401,22 @@ def fb_forward(log_prior, log_trans, log_evidence):
     logz = torch.empty((bsz,), dtype=torch.float32, device=log_evidence.device)
     if bsz == 0:
         return alphas, logz
-    lib = _library()
+    wide = k > REG_MAX_STATES
+    lib = _library(wide)
     stream = torch.cuda.current_stream(log_evidence.device).cuda_stream
-    rc = lib.rxt_fb_fwd(k, log_prior.data_ptr(), log_trans.data_ptr(),
-                        log_evidence.data_ptr(), alphas.data_ptr(),
-                        logz.data_ptr(), t_len, bsz, stream)
+    launch = lib.rxt_fb_wide_fwd if wide else lib.rxt_fb_fwd
+    rc = launch(k, log_prior.data_ptr(), log_trans.data_ptr(),
+                log_evidence.data_ptr(), alphas.data_ptr(), logz.data_ptr(),
+                t_len, bsz, stream)
     kernels.check(lib, rc, "fused_fb forward kernel")
-    LAUNCHES["fused_fb_fwd"] += 1
+    LAUNCHES[launch_key("fwd", k)] += 1
     return alphas, logz
 
 
-def device_tile(bsz: int, t_len: int, device) -> int:
-    """The marginal tile ``fb_backward`` takes at (B, T) on ``device``."""
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    return pick_tile(bsz, t_len, sm_count)
+def device_tile(bsz: int, t_len: int, device, k: int) -> int:
+    """The marginal tile ``fb_backward`` takes at (B, T, K) on ``device``."""
+    rule = pick_tile_wide if k > REG_MAX_STATES else pick_tile
+    return rule(bsz, t_len, kernels.sm_count(device))
 
 
 def fb_backward(log_trans, log_evidence, alphas, per_step_xi: bool = False):
@@ -353,23 +437,24 @@ def fb_backward(log_trans, log_evidence, alphas, per_step_xi: bool = False):
                             device=dev) if per_step_xi else None)
     if bsz == 0:
         return gammas, xi_sum, xi_steps
-    tile = device_tile(bsz, t_len, dev)
+    tile = device_tile(bsz, t_len, dev, k)
     tiles = -(-t_len // tile)
     # scratch: held until the kernels are queued; the allocator then hands
     # the memory out again only to work queued later on the same stream
     betas = torch.empty_like(alphas)
     part = (torch.empty((tiles, bsz, k, k), dtype=torch.float32, device=dev)
             if tiles > 1 else xi_sum)
-    lib = _library()
+    wide = k > REG_MAX_STATES
+    lib = _library(wide)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rxt_fb_bwd(k, int(per_step_xi), log_trans.data_ptr(),
-                        log_evidence.data_ptr(), alphas.data_ptr(),
-                        betas.data_ptr(), gammas.data_ptr(), part.data_ptr(),
-                        xi_sum.data_ptr(),
-                        xi_steps.data_ptr() if per_step_xi else None,
-                        t_len, bsz, tile, tiles, stream)
+    launch = lib.rxt_fb_wide_bwd if wide else lib.rxt_fb_bwd
+    rc = launch(k, int(per_step_xi), log_trans.data_ptr(),
+                log_evidence.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                gammas.data_ptr(), part.data_ptr(), xi_sum.data_ptr(),
+                xi_steps.data_ptr() if per_step_xi else None, t_len, bsz,
+                tile, tiles, stream)
     kernels.check(lib, rc, "fused_fb backward kernels")
-    LAUNCHES["fused_fb_bwd"] += 1
+    LAUNCHES[launch_key("bwd", k)] += 1
     return gammas, xi_sum, xi_steps
 
 

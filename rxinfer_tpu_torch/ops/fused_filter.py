@@ -14,12 +14,18 @@ step.  The filter emits the posterior mean of every step and the final
 (m, P), which is the state a continuous-batching caller feeds to its next
 call.
 
-Kernel (``csrc/fused_filter.cu``, one thread per chain, time loop inside):
-``fused_filter`` replaces ``_filter_kernel`` (pallas_filter.py:84-144) and its
-launch ``fused_filter_soa``.  The wrapper takes the plain version when its
-tensors lie on the CPU and launches the kernel when they lie on a CUDA
-device; there is no fallback from the kernel to the plain version.
-``LAUNCHES`` counts kernel launches.
+Kernels (the time loop inside): ``fused_filter`` replaces ``_filter_kernel``
+(pallas_filter.py:84-144) and its launch ``fused_filter_soa``, which unroll
+any d and dy.  d <= ``REG_MAX_DIM`` with dy <= ``REG_MAX_OBS_DIM`` launches
+``filter_kernel<D, DY>`` of ``csrc/fused_filter.cu`` (one thread a chain,
+the state in registers); any other d <= ``MAX_DIM``, at any dy, launches
+``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on 16
+lanes, the state padded to 16, the wide smoother's step); d > ``MAX_DIM``
+raises (ROADMAP V6).  The wrapper takes the plain version when its tensors
+lie on the CPU and launches a kernel when they lie on a CUDA device; there
+is no fallback from a kernel to the plain version.  ``LAUNCHES`` counts
+kernel launches, ``fused_filter`` for the register kernel and
+``fused_filter_wide`` for the wide one.
 
 Layout of the kernel and its plain version: struct of arrays, batch minor —
 ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle in ``sym_idx`` order;
@@ -50,14 +56,23 @@ from .fused_smoother import (
     sym_unfold_t,
 )
 
-# Largest state and observation dimensions the CUDA kernel is instantiated
-# for (a chain's state in one thread's registers, as in the smoother's
-# register kernels).
-MAX_DIM = 8
-MAX_OBS_DIM = 8
+# Largest state and observation dimensions the register kernel is
+# instantiated for (a chain's state in one thread's registers, as in the
+# smoother's register kernels).
+REG_MAX_DIM = 8
+REG_MAX_OBS_DIM = 8
+# Largest state dimension of the wide kernel (its padded width); it takes
+# any observation dimension.
+MAX_DIM = 16
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
-LAUNCHES = {"fused_filter": 0}
+LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0}
+
+
+def launch_key(d: int, dy: int) -> str:
+    """The ``LAUNCHES`` key of a ``fused_filter`` call at (d, dy)."""
+    reg = d <= REG_MAX_DIM and dy <= REG_MAX_OBS_DIM
+    return "fused_filter" if reg else "fused_filter_wide"
 
 
 def reset_launches() -> None:
@@ -117,14 +132,27 @@ def fused_filter_reference(m0, p0, ys, f, q, hr, w):
 
 # -- kernel launch --------------------------------------------------------------
 
-def _library():
-    lib = kernels.load("fused_filter")
+def _library(wide: bool):
+    lib = kernels.load("fused_filter_wide" if wide else "fused_filter")
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
-        lib.rxt_fused_filter.argtypes = [
-            ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int64,
-            ctypes.c_int64, p, p, p, p, p]
-        lib.rxt_fused_filter.restype = ctypes.c_int
+        i64 = ctypes.c_int64
+        if wide:
+            lib.rxt_wide_filter.argtypes = [
+                ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, p,
+                p, p, p]
+            lib.rxt_wide_filter.restype = ctypes.c_int
+            lib.rxt_wide_filter_max_dim.restype = ctypes.c_int
+            if lib.rxt_wide_filter_max_dim() != MAX_DIM:
+                raise RuntimeError(
+                    "csrc/fused_filter_wide.cu takes d up to "
+                    f"{lib.rxt_wide_filter_max_dim()}, the wrapper expects "
+                    f"{MAX_DIM}")
+        else:
+            lib.rxt_fused_filter.argtypes = [
+                ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, i64, i64, p, p,
+                p, p, p]
+            lib.rxt_fused_filter.restype = ctypes.c_int
         lib._rxt_typed = True
     return lib
 
@@ -137,10 +165,11 @@ def fused_filter(m0, p0, ys, f, q, hr, w):
     d = m0.shape[0]
     if t_len < 1:
         raise ValueError("the filter needs at least one time step")
-    if not 1 <= d <= MAX_DIM or not 1 <= dy <= MAX_OBS_DIM:
+    if not 1 <= d <= MAX_DIM or dy < 1:
         raise ValueError(
-            f"state dim {d}, observation dim {dy}: the CUDA filter kernel is "
-            f"instantiated for d = 1..{MAX_DIM} and dy = 1..{MAX_OBS_DIM}")
+            f"state dim {d}, observation dim {dy}: the CUDA filter kernels "
+            f"take d = 1..{MAX_DIM} and any dy >= 1; d > {MAX_DIM} needs a "
+            "chain over a whole warp, which is not written yet (ROADMAP V6)")
     if ys.device.type == "cpu":
         return fused_filter_reference(m0, p0, ys, f, q, hr, w)
     nsym = d * (d + 1) // 2
@@ -153,14 +182,26 @@ def fused_filter(m0, p0, ys, f, q, hr, w):
     pf = torch.empty((nsym, bsz), dtype=torch.float32, device=ys.device)
     if bsz == 0:
         return means, mf, pf
-    lib = _library()
+    key = launch_key(d, dy)
+    lib = _library(key == "fused_filter_wide")
     stream = torch.cuda.current_stream(ys.device).cuda_stream
-    rc = lib.rxt_fused_filter(
-        d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(), means.data_ptr(),
-        mf.data_ptr(), pf.data_ptr(), t_len, bsz, _host_ptr(fh),
-        _host_ptr(qh), _host_ptr(wh), _host_ptr(hrh), stream)
-    kernels.check(lib, rc, "fused_filter kernel")
-    LAUNCHES["fused_filter"] += 1
+    if key == "fused_filter":
+        rc = lib.rxt_fused_filter(
+            d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            means.data_ptr(), mf.data_ptr(), pf.data_ptr(), t_len, bsz,
+            _host_ptr(fh), _host_ptr(qh), _host_ptr(wh), _host_ptr(hrh),
+            stream)
+    else:
+        # HR^T (dy, d) on the device (lane r of a chain reads column r),
+        # copied from pinned memory without a host synchronisation
+        hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T)).pin_memory().to(
+            ys.device, non_blocking=True)
+        rc = lib.rxt_wide_filter(
+            d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            hr_t.data_ptr(), means.data_ptr(), mf.data_ptr(), pf.data_ptr(),
+            t_len, bsz, _host_ptr(fh), _host_ptr(qh), _host_ptr(wh), stream)
+    kernels.check(lib, rc, f"{key} kernel")
+    LAUNCHES[key] += 1
     return means, mf, pf
 
 

@@ -89,9 +89,10 @@ def make_sharded_filtering(mesh: Any, f_mat, q_cov, h, r, axis_name="batch",
     state and the observations may be numpy arrays or tensors; they are moved
     to the device as float32.
 
-    ``fused=True`` runs the whole stream in the CUDA filter kernel
-    (ops/fused_filter.py) on a CUDA device, and in the kernel's plain version
-    with ``device="cpu"``; ``fused=False`` runs ``filtering_scan``.
+    ``fused=True`` runs the whole stream in a CUDA filter kernel
+    (ops/fused_filter.py: state dims up to 16 at any observation dim) on a
+    CUDA device, and in the kernels' plain version with ``device="cpu"``;
+    ``fused=False`` runs ``filtering_scan``.
 
     ``mesh=None`` means the one device.  Sharding the batch axis over a mesh
     of devices is not ported yet and raises ``NotImplementedError``.  The JAX

@@ -5,8 +5,10 @@
     python3 scripts/fb_step_variants.py 256x200x3 4096x1000x3 64x10000x8
 
 Run from the root of a checkout; needs a CUDA device and ``nvcc``.  Each
-variant is the source with one textual change, built side by side under
-``rxinfer_tpu_torch/_build/variants/`` with the package's nvcc flags:
+variant is the source (with its header ``fused_fb.cuh``, which holds the
+log-sum-exp) with one textual change, built side by side under
+``rxinfer_tpu_torch/_build/variants/<variant>/`` with the package's nvcc
+flags:
 
   * ``base``: the source as it is;
   * ``fast``: ``__expf`` / ``__logf`` in the log-sum-exp (fast math);
@@ -53,7 +55,7 @@ def _sub(src: str, seg: tuple[str, str], pairs) -> str:
     return src[:a] + body + src[b:]
 
 
-LSE = ("__device__ __forceinline__ float lse(", "// The K values of a chain")
+LSE = ("__device__ __forceinline__ float lse(", "// ---- the evidence ring")
 GATHER = ("__device__ __forceinline__ void gather(", "// ---- the evidence ring")
 FWD = ("fb_fwd_kernel(const float*", "// ---- K5 (a)")
 EDITS = {
@@ -74,18 +76,21 @@ VARIANTS = ("base", "fast", "noshfl", "noring", "nostore", "floor")
 def build(root: Path) -> dict:
     from rxinfer_tpu_torch import kernels
 
-    src = (kernels.CSRC / "fused_fb.cu").read_text()
-    root.mkdir(parents=True, exist_ok=True)
+    files = {n: (kernels.CSRC / n).read_text()
+             for n in ("fused_fb.cu", "fused_fb.cuh")}
     procs = {}
     for name in VARIANTS:
-        text = src
+        texts = dict(files)
         for seg, pairs in EDITS.get(name, []):
-            text = _sub(text, seg, pairs)
-        cu = root / f"fused_fb_{name}.cu"
-        cu.write_text(text)
-        lib = root / f"fused_fb_{name}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
-               "-o", str(lib), str(cu)]
+            fname = "fused_fb.cuh" if seg is LSE else "fused_fb.cu"
+            texts[fname] = _sub(texts[fname], seg, pairs)
+        vdir = root / name
+        vdir.mkdir(parents=True, exist_ok=True)
+        for fname, text in texts.items():
+            (vdir / fname).write_text(text)
+        lib = vdir / "fused_fb.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib),
+               str(vdir / "fused_fb.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     libs = {}

@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Rehearse the wide forward-backward and filter kernels on the CPU, with no
+card and no ``nvcc``: build ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``
+and ``csrc/fused_filter_wide.cu`` with ``g++`` against a stub CUDA runtime
+and hold them against their plain versions.
+
+    python3 scripts/rehearse_kernels_cpu.py [--out DIR]
+
+Run from the root of a checkout.  The stub runs each CTA's threads as
+``std::thread``s and the CTAs one after another; ``__syncwarp`` and
+``__syncthreads`` are barriers, a shuffle writes a slot, waits and reads
+its source lane's; ``__shared__`` arrays become ``static`` ones, dynamic
+shared memory a per-CTA buffer filled with NaN (a read before a write
+shows); ``cp.async`` is a plain copy and its commit / wait do nothing; the
+launches are rewritten into loops over the grid.  It finds indexing,
+masking and algebra faults (ragged edges, the ring's slots, the table's
+placement, the staged observations); it says nothing about registers,
+races the barriers hide, or speed.  The K > 32 passes are run again with a
+small shared-memory limit, so that the table goes to device memory and the
+ring's tile shrinks.  A minute or two with four cores (the libraries in
+``--out``, a temporary directory by default).
+"""
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, os.getcwd())
+
+CUDA_RUNTIME = r"""// Stub CUDA runtime for a CPU rehearsal: each CTA's threads run as
+// std::threads, CTAs one after another; warp primitives through barriers.
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#include <math.h>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __align__(n) alignas(n)
+
+struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1) : x(a) {} };
+typedef void* cudaStream_t;
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+struct RxtCta {
+  int nthreads;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::unique_ptr<std::barrier<>> cta_bar;
+  std::vector<float> slots;
+  std::vector<char> dyn;
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local RxtCta* rxt_cta = nullptr;
+inline thread_local void* rxt_dyn_smem = nullptr;
+inline int rxt_smem_optin = 232448;
+
+inline void __syncthreads() { rxt_cta->cta_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  rxt_cta->warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
+inline float rxt_exchange(float v, int src) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* s = rxt_cta->slots.data() + 32 * w;
+  s[lane] = v;
+  __syncwarp();
+  const float r = s[src];
+  __syncwarp();
+  return r;
+}
+inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  return rxt_exchange(v, (lane & ~(width - 1)) + (src % width));
+}
+inline float __shfl_xor_sync(unsigned, float v, int mask, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  int src = lane ^ mask;
+  if ((src & ~(width - 1)) != (lane & ~(width - 1))) src = lane;
+  return rxt_exchange(v, src);
+}
+
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "stub error"; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = rxt_smem_optin; return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int bytes) {
+  return bytes <= rxt_smem_optin ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class F>
+void rxt_launch(dim3 grid, dim3 block, size_t smem, F fn) {
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    RxtCta cta;
+    cta.nthreads = block.x;
+    const int warps = (block.x + 31) / 32;
+    for (int w = 0; w < warps; ++w) {
+      const int n = (w + 1) * 32 <= (int)block.x ? 32 : block.x - w * 32;
+      cta.warp_bar.emplace_back(std::make_unique<std::barrier<>>(n));
+    }
+    cta.cta_bar = std::make_unique<std::barrier<>>(block.x);
+    cta.slots.assign(32 * warps, 0.0f);
+    cta.dyn.assign(smem + 64, 0);
+    // poison the dynamic shared memory: reads before writes show up as NaN
+    float nanv = std::nanf("");
+    for (size_t i = 0; i + 4 <= smem; i += 4) memcpy(cta.dyn.data() + i, &nanv, 4);
+    std::vector<std::thread> ts;
+    for (unsigned tx = 0; tx < block.x; ++tx) {
+      ts.emplace_back([&, tx, bx]() {
+        threadIdx = dim3(tx); blockIdx = dim3(bx); blockDim = block; gridDim = grid;
+        rxt_cta = &cta; rxt_dyn_smem = cta.dyn.data();
+        fn();
+        // a thread that leaves early drops out of its barriers
+        rxt_cta->warp_bar[tx / 32]->arrive_and_drop();
+        rxt_cta->cta_bar->arrive_and_drop();
+      });
+    }
+    for (auto& t : ts) t.join();
+  }
+}
+"""
+
+CUDA_BF16 = r"""#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t v; };
+inline float __bfloat162float(__nv_bfloat16 h) { uint32_t u = uint32_t(h.v) << 16; float f; memcpy(&f, &u, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16(float f) { uint32_t u; memcpy(&u, &f, 4); uint32_t r = u + 0x7fff + ((u >> 16) & 1); return {uint16_t(r >> 16)}; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
+"""
+
+LAUNCH_CFG = """#pragma once
+#include <cuda_runtime.h>
+template <class F>
+void rxt_launch_cfg(dim3 g, dim3 b, size_t s, cudaStream_t, F fn) {
+  rxt_launch(g, b, s, fn);
+}
+"""
+
+LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<(.*?)>>>\(([^;]*)\);",
+                    re.S)
+
+
+def rewrite(text: str) -> str:
+    """A CUDA source as the stub runtime builds it."""
+    text = LAUNCH.sub(lambda m: f"rxt_launch_cfg({m.group(2)}, [&]() "
+                      f"{{ {m.group(1)}({m.group(3)}); }});", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];",
+                  r"float* \1 = (float*)rxt_dyn_smem;", text)
+    text = text.replace("__shared__ __align__(16) float", "static float")
+    text = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global.*?\);',
+                  "*dst = *src;", text, flags=re.S)
+    text = re.sub(r'asm volatile\("cp\.async\.(?:commit|wait)_group.*?\);', "",
+                  text, flags=re.S)
+    return text.replace(
+        "static_cast<unsigned>(__cvta_generic_to_shared(p))", "0u")
+
+
+def build(out: Path, names) -> dict:
+    from rxinfer_tpu_torch import kernels
+
+    src = out / "src"
+    src.mkdir(parents=True, exist_ok=True)
+    for p in list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh")):
+        (src / p.name).write_text(rewrite(p.read_text()))
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    (out / "cuda_bf16.h").write_text(CUDA_BF16)
+    (out / "rxt_launch.h").write_text(LAUNCH_CFG)
+    procs = {}
+    for n in names:
+        cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+               "-fPIC", "-w", "-pthread", "-include", "cuda_runtime.h",
+               "-include", str(out / "rxt_launch.h"), "-I", str(out), "-I",
+               str(src), "-x", "c++", "-o", str(out / f"lib{n}.so"),
+               str(src / f"{n}.cu")]
+        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"g++ failed for {n}:\n{log[:4000]}")
+        libs[n] = ctypes.CDLL(str(out / f"lib{n}.so"))
+    return libs
+
+
+def _err(got, want) -> float:
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_fb(lib, wide: bool, b, t, k, tile, smem=None, seed=0) -> bool:
+    """One (B, T, K) through the launchers against the plain versions
+    (both per-step variants, xi_sum at ``tile``)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fwd = lib.rxt_fb_wide_fwd if wide else lib.rxt_fb_fwd
+    bwd = lib.rxt_fb_wide_bwd if wide else lib.rxt_fb_bwd
+    fwd.argtypes = [ci, vp, vp, vp, vp, vp, i64, i64, vp]
+    bwd.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64,
+                    i64, vp]
+    if smem is not None:
+        ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
+    rng = np.random.default_rng(seed)
+    lp, lt, le = (torch.as_tensor(a.astype(np.float32)) for a in (
+        rng.standard_normal((b, k)), 2 * rng.standard_normal((b, k, k)),
+        2 * rng.standard_normal((t, b, k))))
+    nan = float("nan")
+    alphas, logz = torch.full_like(le, nan), torch.full((b,), nan)
+    assert fwd(k, lp.data_ptr(), lt.data_ptr(), le.data_ptr(),
+               alphas.data_ptr(), logz.data_ptr(), t, b, None) == 0
+    a_r, z_r = ffb.fb_forward_reference(lp, lt, le)
+    errs = {"alphas": _err(alphas, a_r), "logz": _err(logz, z_r)}
+    tiles = -(-t // tile)
+    g_r, x_r, s_r = ffb.fb_backward_reference(lt, le, alphas, True, tile=tile)
+    for steps in (1, 0):
+        gammas, xi_sum = torch.full_like(le, nan), torch.full((b, k, k), nan)
+        part = torch.full((tiles, b, k, k), nan) if tiles > 1 else xi_sum
+        xis = torch.full((t - 1, b, k, k), nan) if steps else None
+        betas = torch.empty_like(le)
+        assert bwd(k, steps, lt.data_ptr(), le.data_ptr(), alphas.data_ptr(),
+                   betas.data_ptr(), gammas.data_ptr(),
+                   part.data_ptr(), xi_sum.data_ptr(),
+                   xis.data_ptr() if steps else None, t, b, tile, tiles,
+                   None) == 0
+        sfx = "" if steps else "(no steps)"
+        errs["gammas" + sfx] = _err(gammas, g_r)
+        errs["xi_sum" + sfx] = _err(xi_sum, x_r)
+        if steps:
+            errs["xi_steps"] = _err(xis, s_r)
+    ok = all(e <= 2e-5 for e in errs.values())
+    print(f"{'wide ' if wide else ''}K4/K5 (B,T,K)=({b},{t},{k}) tile {tile}"
+          f"{'' if smem is None else f' shared memory {smem} B'}: "
+          + ", ".join(f"{n} {e:.2g}" for n, e in errs.items())
+          + ("" if ok else "  FAIL"), flush=True)
+    return ok
+
+
+def check_filter(lib, b, t, d, dy, seed=0) -> bool:
+    """One (B, T, d, dy) through the wide filter's launcher against the
+    plain version."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+    from rxinfer_tpu_torch.ops.fused_smoother import _host_ptr, sym_fold
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.rxt_wide_filter.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, i64,
+                                    i64, vp, vp, vp, vp]
+    rng = np.random.default_rng(seed)
+    qm, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    f = (0.98 * qm).astype(np.float32)
+    q = (0.4 * np.eye(d)).astype(np.float32)
+    h = (1.2 * np.eye(dy, d) + 0.2 * rng.standard_normal((dy, d))).astype(
+        np.float32)
+    r = (0.8 * np.eye(dy) + 0.1 * np.ones((dy, dy))).astype(np.float32)
+    w_obs, hr = ff.evidence_operators(h, r)
+    ys = torch.as_tensor(rng.standard_normal((t, dy, b)).astype(np.float32))
+    m0 = torch.as_tensor(rng.standard_normal((d, b)).astype(np.float32))
+    p0 = sym_fold(torch.as_tensor(np.broadcast_to(
+        9 * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
+    fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
+    hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T))
+    nan = float("nan")
+    out = (torch.full((t, d, b), nan), torch.full((d, b), nan),
+           torch.full((d * (d + 1) // 2, b), nan))
+    assert lib.rxt_wide_filter(d, dy, ys.data_ptr(), m0.data_ptr(),
+                               p0.data_ptr(), hr_t.data_ptr(),
+                               *(o.data_ptr() for o in out), t, b,
+                               _host_ptr(fh), _host_ptr(qh), _host_ptr(wh),
+                               None) == 0
+    want = ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs)
+    errs = [_err(g, w) for g, w in zip(out, want)]
+    ok = max(errs) <= 3e-4
+    print(f"wide K3 (B,T,d,dy)=({b},{t},{d},{dy}): means {errs[0]:.2g}, "
+          f"final m {errs[1]:.2g}, final P {errs[2]:.2g}"
+          + ("" if ok else "  FAIL"), flush=True)
+    return ok
+
+
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+    import torch
+
+    torch.set_num_threads(1)
+    out = Path(args.out or tempfile.mkdtemp(prefix="rehearse_"))
+    libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide"])
+    print(f"built with g++ into {out}", flush=True)
+    ok = True
+    for b, t, k, tile in [(5, 37, 9, 4), (6, 70, 16, 70), (3, 33, 16, 8),
+                          (5, 40, 32, 4), (2, 11, 33, 4), (3, 17, 64, 4),
+                          (1, 1, 12, 1), (2, 2, 40, 1)]:
+        ok &= check_fb(libs["fused_fb_wide"], True, b, t, k, tile)
+    ok &= check_fb(libs["fused_fb_wide"], True, 3, 17, 64, 4, smem=20_000)
+    ok &= check_fb(libs["fused_fb_wide"], True, 2, 9, 40, 3, smem=4000)
+    for b, t, k, tile in [(5, 70, 3, 4), (9, 40, 8, 40), (3, 33, 1, 4)]:
+        ok &= check_fb(libs["fused_fb"], False, b, t, k, tile)
+    for b, t, d, dy in [(11, 9, 9, 1), (9, 6, 12, 9), (10, 5, 4, 12),
+                        (9, 4, 16, 40), (17, 5, 16, 16), (3, 3, 1, 70),
+                        (5, 1, 16, 33)]:
+        ok &= check_filter(libs["fused_filter_wide"], b, t, d, dy)
+    print("all within tolerance" if ok else "FAILURES")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

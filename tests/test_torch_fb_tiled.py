@@ -185,7 +185,7 @@ def test_tiled_kernels_match_plain_version_on_the_card(cuda_device, b, t, k):
     alphas, _ = ffb.fb_forward(lp, lt, le)
     got = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
     want = ffb.fb_backward_reference(
-        lt, le, alphas, True, tile=ffb.device_tile(b, t, cuda_device))
+        lt, le, alphas, True, tile=ffb.device_tile(b, t, cuda_device, k))
     again = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
     torch.cuda.synchronize()
     for g, w in zip(got, want):

@@ -198,9 +198,9 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unsupported_dims_raise():
-    m, p, ys, f, q, h, r = _setup(2, 9, 3, seed=8)
+    m, p, ys, f, q, h, r = _setup(2, 17, 3, seed=8)
     state = convert.filter_state_from_numpy(m, p)
-    with pytest.raises(ValueError, match="d = 1..8"):
+    with pytest.raises(ValueError, match="d = 1..16.*ROADMAP V6"):
         ff.fused_filtering_scan(state, torch.as_tensor(ys), f, q, h, r)
     m, p, ys, f, q, h, r = _setup(2, 2, 3, seed=8)
     state = convert.filter_state_from_numpy(m, p)

@@ -103,28 +103,44 @@ def test_fused_fb_cpu_tensors_take_the_plain_version():
 
 
 def test_more_than_eight_states_raise_with_the_reason():
-    """The kernels' own limit; a model with more states runs unfused
-    (``test_more_than_eight_states_run_unfused_and_match_jax``)."""
-    lp, lt, le = (torch.as_tensor(a) for a in _fb_inputs(2, 4, 9, seed=2))
-    with pytest.raises(NotImplementedError, match="K = 1..8"):
-        ffb.fused_fb_batched(lp, lt, le)
+    """More than eight states take the wide kernels' route, with no state
+    limit: on CPU tensors their plain version, which matches the JAX scan
+    solver at K = 9; what still raises, with its reason, is a tensor on a
+    device that is neither the CPU nor a CUDA card."""
+    lp, lt, le = _fb_inputs(2, 4, 9, seed=2)
+    gammas, _, logz = ffb.fused_fb_batched(*(torch.as_tensor(a)
+                                             for a in (lp, lt, le)))
+    for i in range(2):
+        res = forward_backward(jnp.asarray(lp[i]),
+                               jnp.asarray(np.broadcast_to(lt[i], (3, 9, 9))),
+                               jnp.asarray(le[:, i]))
+        np.testing.assert_allclose(gammas[:, i].numpy(),
+                                   np.asarray(res.gammas), **FB_TOL)
+        np.testing.assert_allclose(float(logz[i]), float(res.logZ), **FB_TOL)
+    meta = [torch.as_tensor(a).to("meta") for a in (lp, lt, le)]
+    with pytest.raises(ValueError, match="must lie on the CUDA device"):
+        ffb.fused_fb_batched(*meta)
 
 
 @pytest.mark.parametrize("t_len", [5, 60])
 def test_more_than_eight_states_run_unfused_and_match_jax(t_len):
+    """A chain of nine states is planned onto the forward-backward kernels,
+    as the JAX planner plans it (the wide kernels on the card, their plain
+    versions here), and matches the JAX package's fused program."""
     y = np.eye(3, dtype=np.float32)[
         np.random.default_rng(t_len).integers(0, 3, (2, t_len))]
     b0 = np.ones((3, 9), np.float32) + np.eye(3, 9, dtype=np.float32)
     init = lambda rx: {"A": rx.DirichletCollection(np.ones((9, 9),
                                                            np.float32)),
                        "B": rx.DirichletCollection(b0)}
-    _, jprog = jrx.batched_program(jzoo.hmm(9, 3), {"y": y}, iterations=3,
-                                   initialization=init(jrx))
+    jcomp, jprog = jrx.batched_program(jzoo.hmm(9, 3), {"y": y}, iterations=3,
+                                       initialization=init(jrx))
     jstate, _, _ = jprog({"y": jnp.asarray(y)})
     tcomp, tprog = trx.batched_program(tzoo.hmm(9, 3), {"y": y}, iterations=3,
                                        initialization=init(trx), device=CPU)
-    report = tcomp.plan_report()["s"]
-    assert report["fused"] is False and "9 states > 8" in report["reason"]
+    assert jcomp.plan_report()["s"]["fused"] is True
+    assert tcomp.plan_report()["s"] == {"fused": True, "kernel": "fused_fb",
+                                        "route": "plain"}
     before = dict(ffb.LAUNCHES)
     tstate, _, _ = tprog({"y": y})
     assert ffb.LAUNCHES == before

@@ -88,7 +88,8 @@ def test_kernel_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert set(kernels.sources()) == {"fused_smoother", "fused_smoother_bf16",
                                       "fused_smoother_wide", "fused_fb",
-                                      "fused_filter", "quantized"}
+                                      "fused_fb_wide", "fused_filter",
+                                      "fused_filter_wide", "quantized"}
     # every source under csrc/ is one that sources() builds, and every header
     # there is reached from a source
     assert {p.stem for p in kernels.CSRC.glob("*.cu")} == set(kernels.sources())
