@@ -211,6 +211,20 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    version's time), the call and K3 alone.  ``[hmm16]`` and ``[filter16]``
    lines; three more rows in the ``kernels`` line.
 
+17. K3 above d = 16 (``csrc/fused_filter_warp.cu``, V6: a chain a warp).
+   (a) (In a seventh process beside phase 3.) The warp K3 against its plain
+   version at FILTER_WARP_CHECK_SHAPES (d = 17 with a ragged block, d = 32
+   with two observation chunks, d = 33, d = 64; RTOL/ATOL; sampled chains
+   of the first against the float64 filter) and at FILTER_WARP_TIER_SHAPES
+   (d = 100: F, Q, W in device memory; d = 176: each chain's matrices in a
+   device scratch) against the float64 filter on every chain (RTOL/ATOL),
+   each shape one ``fused_filter_warp`` launch.  (b) Path A at d = dy = 32
+   (phase 7's B and T, ``lgssm_constants(32)``): one warp K3 launch, the
+   float64 filter (ORACLE_TOL), K3 against its plain version over the first
+   2 steps (that call is the plain version's time), the call and K3 alone,
+   cycles a step, one profiled call.  ``[filter32]`` lines; one more row in
+   the ``kernels`` line, with the kernel's ``ptxas`` lines and its plans.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
 prints no result.
@@ -343,7 +357,8 @@ QUANT_ITERATIONS = (1, 10)
 
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
-                       "fused_filter_wide": "wide_filter_kernel"}
+                       "fused_filter_wide": "wide_filter_kernel",
+                       "fused_filter_warp": "warp_filter_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
     "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
@@ -1628,12 +1643,17 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
 
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
                 log=print, plain_steps: int | None = None,
-                tag: str = "filter") -> dict:
+                tag: str = "filter", inner: int = 20,
+                warm_sync: bool = False) -> dict:
     """Phase 7, path A: the continuous-batching filter at (B, T, d), d = dy
-    (phase 16 (d) at d = 16, on the wide K3).  The kernel is held against
-    its plain version on the path's own inputs, over the first
-    ``plain_steps`` steps when given (the plain step at d = 16 is ~10^4
-    small launches), and that one call of the plain version is its time."""
+    (phase 16 (d) at d = 16, on the wide K3; phase 17 (b) at d = 32, on the
+    warp K3).  The kernel is held against its plain version on the path's
+    own inputs, over the first ``plain_steps`` steps when given (the plain
+    step at d = 16 is ~10^4 small launches), and that one call of the plain
+    version is its time.  K3 alone is timed over ``inner`` launches back to
+    back a round; ``warm_sync`` waits for each launch that brings the clock
+    up (a kernel of tens of ms: half a second of launches enqueued without
+    waiting runs for tens of seconds)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -1709,7 +1729,9 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         end = time.perf_counter() + 0.5     # launches that bring the clock up
         while time.perf_counter() < end:
             k3()
-        out["kernel_ms"] = _cuda_ms(k3, reps, inner=20)
+            if warm_sync:
+                torch.cuda.synchronize()
+        out["kernel_ms"] = _cuda_ms(k3, reps, inner=inner)
     out["sm_clock_mhz"] = clk.mhz
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
@@ -3507,6 +3529,24 @@ FILTER_WIDE_CHECK_SHAPES = [(37, 65, 9, 1), (100, 33, 12, 9), (40, 20, 4, 12),
 # over its first steps only (about 10^4 small launches a step).
 FILTER16_D = 16
 FILTER16_PLAIN_STEPS = 4
+# Phase 17 (a): the warp K3 (d > 16) at (B, T, d, dy) against its plain
+# version: d = 17 with one observation and a ragged last block of chains
+# (37 = 4 * 8 + 5); d = 32 with dy = 40 (two staged chunks); d = 33 (two
+# columns a lane); d = 64 (four chains a block).  Short chains: the plain
+# step at d = 64 is about 10^6 small torch operations.
+FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 32, 40), (10, 3, 33, 5),
+                            (5, 2, 64, 8)]
+# ... and the tiers past them, against the float64 filter (the plain step is
+# minutes there): d = 100 reads F, Q and W from device memory, d = 176 keeps
+# each chain's matrices in a device-memory scratch (``warp_plan`` on an
+# H100; the check holds the tiers it expects).
+FILTER_WARP_TIER_SHAPES = [(3, 3, 100, 7, ("device", "shared")),
+                           (2, 2, 176, 3, ("device", "device"))]
+# Phase 17 (b): path A at d = dy = 32 (B, T as phase 7); the plain version
+# over its first steps only, the kernel alone timed a launch at a time
+# (about 0.1 s a call).
+FILTER32_D = 32
+FILTER32_PLAIN_STEPS = 2
 BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
                          "fused_smoother_fwd"],
                      "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
@@ -4060,6 +4100,84 @@ def slice13_checks(wall0: float) -> tuple[list, dict, bool]:
     return lines, worst, bit_equal
 
 
+def check_warp_tiers(device, shapes, log=print, seed: int = 1750) -> dict:
+    """Phase 17 (a) past the shared parameters: the warp K3 at each (B, T,
+    d, dy, tier) against the float64 filter on every chain (RTOL / ATOL),
+    the plan's (params, chain matrices) placement held to ``tier``, one
+    ``fused_filter_warp`` launch a shape.  Returns the max abs error and
+    the plans."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    worst, plans, failures = 0.0, {}, []
+    for i, (bsz, t_len, d, dy, tier) in enumerate(shapes):
+        plan = ff.device_warp_plan(d, device)
+        plans[f"{bsz}x{t_len}x{d}x{dy}"] = plan
+        if (plan["params"], plan["chain_matrices"]) != tier:
+            failures.append(f"d = {d} planned {plan}, expected {tier}")
+        f, q, h, r = _filter_system(d, dy, seed=seed + i)
+        w_obs, hr = ff.evidence_operators(h, r)
+        rng = np.random.default_rng(seed + i)
+        ys = rng.standard_normal((t_len, dy, bsz)).astype(np.float32)
+        m = rng.standard_normal((bsz, d)).astype(np.float32)
+        p = np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                            (bsz, d, d)).copy()
+        m0, p0 = _soa_state(torch.as_tensor(m, device=device),
+                            torch.as_tensor(p, device=device))
+        before = ff.LAUNCHES["fused_filter_warp"]
+        means, mf, pf = ff.fused_filter(
+            m0, p0, torch.as_tensor(ys, device=device), f, q, hr, w_obs)
+        torch.cuda.synchronize()
+        if ff.LAUNCHES["fused_filter_warp"] != before + 1:
+            failures.append(f"d = {d}: no fused_filter_warp launch counted")
+        o_means, o_m, o_p = filter_float64(m, p, ys.transpose(0, 2, 1), f, q,
+                                           h, r)
+        errs = {}
+        for label, got, want in (
+                ("means", means.transpose(1, 2).cpu().numpy(), o_means),
+                ("final m", mf.t().cpu().numpy(), o_m),
+                ("final P", _unfold_host(pf, d), o_p)):
+            ea, er, ok = _max_err(got, want)
+            errs[label] = ea
+            worst = max(worst, ea)
+            if not ok:
+                failures.append(f"d = {d} {label}: abs {ea:.3g} rel {er:.3g}")
+        log(f"[check] K3 fused_filter_warp (B,T,d,dy)=({bsz},{t_len},{d},"
+            f"{dy}) params {plan['params']}, chain matrices "
+            f"{plan['chain_matrices']}, {plan['chains_per_block']} chains a "
+            f"block, against the float64 filter: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if failures:
+        raise AssertionError("warp filter tiers: " + "; ".join(failures))
+    return {"max_abs_err": worst, "plans": plans}
+
+
+def _unfold_host(pf, d: int) -> np.ndarray:
+    """A packed (nsym, B) covariance on the card as (B, d, d) on the host."""
+    from rxinfer_tpu_torch.ops.fused_smoother import sym_unfold_t
+
+    return sym_unfold_t(pf[None], d)[0].cpu().numpy()
+
+
+def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
+    """Phase 17 (a) in a process of its own beside phase 3's: the warp K3 at
+    FILTER_WARP_CHECK_SHAPES against its plain version (sampled chains of
+    the first against the float64 filter) and at FILTER_WARP_TIER_SHAPES
+    against the float64 filter.  Returns the log lines, the launch key's
+    max error and the tier checks' errors and plans."""
+    import torch
+
+    device = torch.device("cuda")
+    lines: list = []
+    worst = check_filter_kernel(device, FILTER_WARP_CHECK_SHAPES,
+                                log=lines.append, seed=1700)
+    tiers = check_warp_tiers(device, FILTER_WARP_TIER_SHAPES,
+                             log=lines.append)
+    _ended(lines, "warp K3 checks", wall0)
+    return lines, worst, tiers
+
+
 def _ended(lines: list, what: str, wall0: float) -> None:
     """A check process's ``[time]`` line: when it ended, in seconds since
     the main process's start (``wall0``, its ``time.time()`` then)."""
@@ -4150,10 +4268,10 @@ def main() -> int:
     # process at the same time (a check that fails there raises here);
     # 10 (a): the per-chain K1/K2, a third; 15 (a): the wide and the bf16
     # kernels' checks, a process each; 16 (a) and (c): the wide K4/K5 and
-    # K3, a sixth.  The five processes start (imports, the card's context)
-    # during the build.
+    # K3, a sixth; 17 (a): the warp K3, a seventh.  The six processes start
+    # (imports, the card's context) during the build.
     with multiprocessing.get_context("spawn").Pool(
-            5, initializer=_start_checker) as pool:
+            6, initializer=_start_checker) as pool:
         # 2. build
         t0 = time.perf_counter()
         libs = kernels.build_all()
@@ -4169,6 +4287,7 @@ def main() -> int:
         side12 = {w: pool.apply_async(slice12_checks, (w, wall0))
                   for w in ("wide", "bf16")}
         side13 = pool.apply_async(slice13_checks, (wall0,))
+        side14 = pool.apply_async(slice14_checks, (wall0,))
         worst, plain = check_kernels(device, CHECK_SHAPES)
         _elapsed("K1/K2 checks", t_start)
         dyn_lines, dyn_worst = side_dyn.get()
@@ -4176,16 +4295,18 @@ def main() -> int:
         s12_lines, s12_worst, s12_plain = side12["wide"].get()
         bf16_lines, bf16_worst, bf16_plain = side12["bf16"].get()
         s13_lines, s13_worst, s13_bit_equal = side13.get()
+        s14_lines, s14_worst, s14_tiers = side14.get()
     for line in (dyn_lines + side_lines + s12_lines + bf16_lines
-                 + s13_lines):
+                 + s13_lines + s14_lines):
         print(line)
     worst.update(dyn_worst)
     worst.update(s13_worst)
+    worst.update(s14_worst)
     worst.update(side_worst)
     s12_worst.update(bf16_worst)
     s12_plain.update(bf16_plain)
     worst.update(s12_worst)
-    _elapsed("wide and bf16 K1/K2, wide K3-K5 checks", t_start)
+    _elapsed("wide and bf16 K1/K2, wide K3-K5, warp K3 checks", t_start)
 
     # 4. LGSSM path at full width
     main = main_path(device, MAIN_B, MAIN_T, MAIN_D, reps=10)
@@ -4273,6 +4394,13 @@ def main() -> int:
                          plain_steps=FILTER16_PLAIN_STEPS, tag="filter16")
     filt16_bound = filter_bound(FILTER_B, FILTER_T, FILTER16_D, FILTER16_D)
     _elapsed("the 16-state HMM and path A at d = 16", t_start)
+
+    # 17. (b) path A at d = 32 on the warp K3
+    filt32 = filter_path(device, FILTER_B, FILTER_T, FILTER32_D, reps=3,
+                         plain_steps=FILTER32_PLAIN_STEPS, tag="filter32",
+                         inner=1, warm_sync=True)
+    filt32_bound = filter_bound(FILTER_B, FILTER_T, FILTER32_D, FILTER32_D)
+    _elapsed("path A at d = 32", t_start)
     fe_launches = {
         "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
         "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
@@ -4710,6 +4838,52 @@ def main() -> int:
           f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; plain "
           f"{filt16['plain_kernel_ms']:.1f} ms over {filt16['plain_steps']} "
           f"steps; {smi}")
+    # the warp K3 (path A at d = 32); its other shapes and tiers are checked
+    # in 17 (a)
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    warp_ptxas = [line.strip() for line in kernels.ptxas_report(
+        "fused_filter_warp").splitlines() if any(
+        k in line for k in ("Compiling entry", "registers", "spill"))]
+    rows.append({
+        "name": "fused_filter_warp", "route": "cuda",
+        "source": "rxinfer_tpu_torch/csrc/fused_filter_warp.cu",
+        "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "launches": filt32["launches"]["fused_filter_warp"],
+        "max_abs_err": max(worst["fused_filter_warp"], filt32["kernel_err"],
+                           s14_tiers["max_abs_err"]),
+        "max_abs_err_on_path": filt32["kernel_err"],
+        "max_abs_err_vs_float64_in_device_tiers": s14_tiers["max_abs_err"],
+        "ms": filt32["kernel_ms"],
+        "ms_in_path": filt32["profile"]["kernels"]["fused_filter_warp"][
+            "ms_per_launch"],
+        "plain_ms": filt32["plain_kernel_ms"],
+        "plain_shape_BTddy": [FILTER_B, filt32["plain_steps"], FILTER32_D,
+                              FILTER32_D],
+        "bound_ms": filt32_bound["bound_ms"],
+        "bound_by": filt32_bound["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a Kalman filter",
+        "shape_BTddy": [FILTER_B, FILTER_T, FILTER32_D, FILTER32_D],
+        "bytes": filt32_bound["bytes"], "ops": filt32_bound["ops"],
+        "cycles_per_step": filt32["cycles_per_step"],
+        "sm_clock_mhz": filt32["sm_clock_mhz"],
+        "share_of_bound": filt32_bound["bound_ms"] / filt32["kernel_ms"],
+        "plan": ff.device_warp_plan(FILTER32_D, device),
+        "plans_device_tiers": s14_tiers["plans"],
+        "shapes_checked": ["x".join(map(str, s))
+                           for s in FILTER_WARP_CHECK_SHAPES]
+        + ["x".join(map(str, s[:4])) for s in FILTER_WARP_TIER_SHAPES],
+        "ptxas": warp_ptxas,
+    })
+    print(f"[filter32] fused_filter_warp: {filt32['kernel_ms']:.4f} ms alone,"
+          f" in the call {rows[-1]['ms_in_path']} ms, bound "
+          f"{filt32_bound['bound_ms']:.4f} ms ({filt32_bound['bound_by']}), "
+          f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; plain "
+          f"{filt32['plain_kernel_ms']:.1f} ms over {filt32['plain_steps']} "
+          f"steps; {smi}")
+    print(f"[filter32] call_ms {filt32['call_ms']:.4f} chain_updates_per_s "
+          f"{filt32['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
+          f"d=dy={FILTER32_D}); {smi}")
     print(f"[hmm16] program_ms {hmm16['program_ms']:.4f} updates_per_s "
           f"{hmm16['updates_per_s']:.6g} (B={HMM16_B}, T={HMM16_T}, "
           f"K={HMM16_K}, iterations={HMM16_IT}), peak "

@@ -18,14 +18,17 @@ Kernels (the time loop inside): ``fused_filter`` replaces ``_filter_kernel``
 (pallas_filter.py:84-144) and its launch ``fused_filter_soa``, which unroll
 any d and dy.  d <= ``REG_MAX_DIM`` with dy <= ``REG_MAX_OBS_DIM`` launches
 ``filter_kernel<D, DY>`` of ``csrc/fused_filter.cu`` (one thread a chain,
-the state in registers); any other d <= ``MAX_DIM``, at any dy, launches
-``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on 16
-lanes, the state padded to 16, the wide smoother's step); d > ``MAX_DIM``
-raises (ROADMAP V6).  The wrapper takes the plain version when its tensors
-lie on the CPU and launches a kernel when they lie on a CUDA device; there
-is no fallback from a kernel to the plain version.  ``LAUNCHES`` counts
-kernel launches, ``fused_filter`` for the register kernel and
-``fused_filter_wide`` for the wide one.
+the state in registers); any other d <= ``WIDE_MAX_DIM``, at any dy,
+launches ``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on
+16 lanes, the state padded to 16, the wide smoother's step); any larger d,
+at any dy, launches ``warp_filter_kernel`` of ``csrc/fused_filter_warp.cu``
+(a chain on a warp, its matrices in shared memory or, past what a block
+holds, in a device-memory scratch; ``warp_plan`` picks the tier).  The
+wrapper takes the plain version when its tensors lie on the CPU and launches
+a kernel when they lie on a CUDA device; there is no fallback from a kernel
+to the plain version.  ``LAUNCHES`` counts kernel launches under
+``launch_key``: ``fused_filter``, ``fused_filter_wide`` and
+``fused_filter_warp``.
 
 Layout of the kernel and its plain version: struct of arrays, batch minor —
 ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle in ``sym_idx`` order;
@@ -42,6 +45,7 @@ wrapper have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -62,17 +66,65 @@ from .fused_smoother import (
 REG_MAX_DIM = 8
 REG_MAX_OBS_DIM = 8
 # Largest state dimension of the wide kernel (its padded width); it takes
-# any observation dimension.
-MAX_DIM = 16
+# any observation dimension.  Larger d go to the warp kernel, which takes
+# any d and dy.
+WIDE_MAX_DIM = 16
+# The warp kernel: lanes a chain, at most this many chains (warps) a block,
+# observations staged this many at a time.
+WARP_LANES = 32
+WARP_MAX_CHAINS = 8
+WARP_Y_CHUNK = 32
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
-LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0}
+LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0, "fused_filter_warp": 0}
 
 
 def launch_key(d: int, dy: int) -> str:
     """The ``LAUNCHES`` key of a ``fused_filter`` call at (d, dy)."""
-    reg = d <= REG_MAX_DIM and dy <= REG_MAX_OBS_DIM
-    return "fused_filter" if reg else "fused_filter_wide"
+    if d <= REG_MAX_DIM and dy <= REG_MAX_OBS_DIM:
+        return "fused_filter"
+    return "fused_filter_wide" if d <= WIDE_MAX_DIM else "fused_filter_warp"
+
+
+def warp_plan(d: int, smem_limit: int) -> dict:
+    """How ``warp_filter_kernel`` runs at state dim ``d`` on a device whose
+    blocks may take ``smem_limit`` bytes of shared memory (232,448 on an
+    H100): a chain a warp, each lane ``columns_per_lane`` of its matrices'
+    columns; the matrices padded to ``padded_dim`` (a multiple of 8) with
+    rows ``stride`` floats apart (+4: whole float4s, column reads over 8
+    banks).  F, F^T, Q and W (``params``) sit in shared memory while they fit
+    beside one chain, else they are read from device memory; a chain's two
+    matrices (``chain_matrices``) sit in shared memory while one chain fits,
+    else in a device-memory scratch.  ``chains_per_block`` is as many chains
+    as fit, at most ``WARP_MAX_CHAINS``; ``smem_bytes`` what a block takes
+    (``rxt_warp_filter_smem_bytes`` computes the same).  The inverses hold a
+    lane's column in registers (``inverse_columns``) when it has one column
+    of at most 32 rows and the parameters are shared, else they sweep the
+    matrix where it lies."""
+    dp = -(-d // 8) * 8
+    stride = dp + 4
+    mat = dp * stride * 4
+    vec = (4 * dp + WARP_Y_CHUNK) * 4
+    params, chain = 4 * mat, 2 * mat + vec
+    if params + chain <= smem_limit:
+        where_params, where_chain = "shared", "shared"
+        chains = (smem_limit - params) // chain
+    elif chain <= smem_limit:
+        where_params, where_chain = "device", "shared"
+        chains = smem_limit // chain
+    else:
+        where_params, where_chain = "device", "device"
+        chains = smem_limit // vec
+    chains = min(WARP_MAX_CHAINS, chains)
+    smem = (params if where_params == "shared" else 0) + chains * (
+        chain if where_chain == "shared" else vec)
+    reg = dp <= WARP_LANES and where_params == "shared"
+    return {"lanes_per_chain": WARP_LANES,
+            "columns_per_lane": -(-d // WARP_LANES), "padded_dim": dp,
+            "stride": stride, "chains_per_block": chains,
+            "params": where_params, "chain_matrices": where_chain,
+            "inverse_columns": "registers" if reg else "memory",
+            "smem_bytes": smem}
 
 
 def reset_launches() -> None:
@@ -132,22 +184,31 @@ def fused_filter_reference(m0, p0, ys, f, q, hr, w):
 
 # -- kernel launch --------------------------------------------------------------
 
-def _library(wide: bool):
-    lib = kernels.load("fused_filter_wide" if wide else "fused_filter")
+def _library(key: str):
+    lib = kernels.load(key)
     if not getattr(lib, "_rxt_typed", False):
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
-        if wide:
+        ci = ctypes.c_int
+        if key == "fused_filter_warp":
+            lib.rxt_warp_filter.argtypes = [
+                ci, ci, p, p, p, p, p, p, p, p, p, i64, i64, ci, ci, ci, ci,
+                ci, ci, p]
+            lib.rxt_warp_filter.restype = ci
+            lib.rxt_warp_filter_smem_bytes.argtypes = [ci] * 5
+            lib.rxt_warp_filter_smem_bytes.restype = i64
+            lib.rxt_warp_filter_smem_optin.restype = ci
+        elif key == "fused_filter_wide":
             lib.rxt_wide_filter.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, p,
                 p, p, p]
             lib.rxt_wide_filter.restype = ctypes.c_int
             lib.rxt_wide_filter_max_dim.restype = ctypes.c_int
-            if lib.rxt_wide_filter_max_dim() != MAX_DIM:
+            if lib.rxt_wide_filter_max_dim() != WIDE_MAX_DIM:
                 raise RuntimeError(
                     "csrc/fused_filter_wide.cu takes d up to "
                     f"{lib.rxt_wide_filter_max_dim()}, the wrapper expects "
-                    f"{MAX_DIM}")
+                    f"{WIDE_MAX_DIM}")
         else:
             lib.rxt_fused_filter.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, i64, i64, p, p,
@@ -155,6 +216,60 @@ def _library(wide: bool):
             lib.rxt_fused_filter.restype = ctypes.c_int
         lib._rxt_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    lib = _library("fused_filter_warp")
+    with torch.cuda.device(index):
+        return lib.rxt_warp_filter_smem_optin()
+
+
+def device_warp_plan(d: int, device) -> dict:
+    """``warp_plan`` at state dim ``d`` with the shared-memory limit of the
+    CUDA ``device``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return warp_plan(d, _smem_optin(index))
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, copied from pinned memory without a host
+    synchronisation."""
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+        device, non_blocking=True)
+
+
+def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
+    """``warp_filter_kernel`` on the plan of ``device_warp_plan``: F, F^T, Q
+    and W as one padded (4, dp, stride) device tensor, HR^T (dy, d) on the
+    device, and the chains' scratch when their matrices sit in device
+    memory."""
+    t_len, dy, bsz = ys.shape
+    d = m0.shape[0]
+    plan = device_warp_plan(d, ys.device)
+    dp, stride, chains = (plan["padded_dim"], plan["stride"],
+                          plan["chains_per_block"])
+    ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
+    if lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs) \
+            != plan["smem_bytes"]:
+        raise RuntimeError("csrc/fused_filter_warp.cu and warp_plan disagree "
+                           f"on the shared bytes of {plan}")
+    prm = np.zeros((4, dp, stride), np.float32)
+    for k, a in enumerate((fh, fh.T, qh, wh)):
+        prm[k, :d, :d] = a
+    params = _to_device(prm, ys.device)
+    hr_t = _to_device(hrh.T, ys.device)
+    scratch = None if cs else torch.empty(
+        (-(-bsz // chains) * chains * 2 * dp * stride,), dtype=torch.float32,
+        device=ys.device)
+    return lib.rxt_warp_filter(
+        d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(), hr_t.data_ptr(),
+        params.data_ptr(), means.data_ptr(), mf.data_ptr(), pf.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), t_len, bsz, dp,
+        stride, chains, ps, cs, plan["inverse_columns"] == "registers",
+        stream)
 
 
 def fused_filter(m0, p0, ys, f, q, hr, w):
@@ -165,11 +280,9 @@ def fused_filter(m0, p0, ys, f, q, hr, w):
     d = m0.shape[0]
     if t_len < 1:
         raise ValueError("the filter needs at least one time step")
-    if not 1 <= d <= MAX_DIM or dy < 1:
-        raise ValueError(
-            f"state dim {d}, observation dim {dy}: the CUDA filter kernels "
-            f"take d = 1..{MAX_DIM} and any dy >= 1; d > {MAX_DIM} needs a "
-            "chain over a whole warp, which is not written yet (ROADMAP V6)")
+    if d < 1 or dy < 1:
+        raise ValueError(f"state dim {d}, observation dim {dy}: the filter "
+                         "takes d >= 1 and dy >= 1")
     if ys.device.type == "cpu":
         return fused_filter_reference(m0, p0, ys, f, q, hr, w)
     nsym = d * (d + 1) // 2
@@ -183,19 +296,20 @@ def fused_filter(m0, p0, ys, f, q, hr, w):
     if bsz == 0:
         return means, mf, pf
     key = launch_key(d, dy)
-    lib = _library(key == "fused_filter_wide")
+    lib = _library(key)
     stream = torch.cuda.current_stream(ys.device).cuda_stream
-    if key == "fused_filter":
+    if key == "fused_filter_warp":
+        rc = _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf,
+                          stream)
+    elif key == "fused_filter":
         rc = lib.rxt_fused_filter(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             means.data_ptr(), mf.data_ptr(), pf.data_ptr(), t_len, bsz,
             _host_ptr(fh), _host_ptr(qh), _host_ptr(wh), _host_ptr(hrh),
             stream)
     else:
-        # HR^T (dy, d) on the device (lane r of a chain reads column r),
-        # copied from pinned memory without a host synchronisation
-        hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T)).pin_memory().to(
-            ys.device, non_blocking=True)
+        # HR^T (dy, d) on the device (lane r of a chain reads column r)
+        hr_t = _to_device(hrh.T, ys.device)
         rc = lib.rxt_wide_filter(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), means.data_ptr(), mf.data_ptr(), pf.data_ptr(),

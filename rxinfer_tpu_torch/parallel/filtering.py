@@ -90,8 +90,9 @@ def make_sharded_filtering(mesh: Any, f_mat, q_cov, h, r, axis_name="batch",
     to the device as float32.
 
     ``fused=True`` runs the whole stream in a CUDA filter kernel
-    (ops/fused_filter.py: state dims up to 16 at any observation dim) on a
-    CUDA device, and in the kernels' plain version with ``device="cpu"``;
+    (ops/fused_filter.py: any state and observation dim, d > 16 on the warp
+    kernel) on a CUDA device, and in the kernels' plain version with
+    ``device="cpu"``;
     ``fused=False`` runs ``filtering_scan``.
 
     ``mesh=None`` means the one device.  Sharding the batch axis over a mesh

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Rehearse the wide forward-backward and filter kernels on the CPU, with no
-card and no ``nvcc``: build ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``
-and ``csrc/fused_filter_wide.cu`` with ``g++`` against a stub CUDA runtime
-and hold them against their plain versions.
+card and no ``nvcc``: build ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``,
+``csrc/fused_filter_wide.cu`` and ``csrc/fused_filter_warp.cu`` with ``g++``
+against a stub CUDA runtime and hold them against their plain versions.
 
     python3 scripts/rehearse_kernels_cpu.py [--out DIR]
 
@@ -17,7 +17,10 @@ masking and algebra faults (ragged edges, the ring's slots, the table's
 placement, the staged observations); it says nothing about registers,
 races the barriers hide, or speed.  The K > 32 passes are run again with a
 small shared-memory limit, so that the table goes to device memory and the
-ring's tile shrinks.  A minute or two with four cores (the libraries in
+ring's tile shrinks; the warp filter runs each of its tiers (parameters
+and chain matrices in shared memory, parameters in device memory, both in
+device memory), forced at small d by a small limit, and at a d past the
+last tier against a float64 filter.  A minute or two with four cores (the libraries in
 ``--out``, a temporary directory by default).
 """
 
@@ -304,6 +307,119 @@ def check_filter(lib, b, t, d, dy, seed=0) -> bool:
     return ok
 
 
+def _filter_inputs(b, t, d, dy, seed):
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+    from rxinfer_tpu_torch.ops.fused_smoother import sym_fold
+
+    rng = np.random.default_rng(seed)
+    qm, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    f = (0.98 * qm).astype(np.float32)
+    q = (0.4 * np.eye(d)).astype(np.float32)
+    h = (1.2 * np.eye(dy, d) + 0.2 * rng.standard_normal((dy, d))).astype(
+        np.float32)
+    r = (0.8 * np.eye(dy) + 0.1 * np.ones((dy, dy))).astype(np.float32)
+    w_obs, hr = ff.evidence_operators(h, r)
+    ys = torch.as_tensor(rng.standard_normal((t, dy, b)).astype(np.float32))
+    m0 = torch.as_tensor(rng.standard_normal((d, b)).astype(np.float32))
+    p0 = sym_fold(torch.as_tensor(np.broadcast_to(
+        9 * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
+    return (f, q, h, r, w_obs, hr), (m0, p0, ys)
+
+
+def _filter64(m0, p0, ys, f, q, h, r):
+    """Means (T, d, B), final m (d, B) and packed P (nsym, B) of the
+    information-form filter in float64, batch-minor as the kernel's."""
+    import torch
+
+    from rxinfer_tpu_torch.ops.fused_smoother import sym_idx
+
+    f, q, h, r = (np.asarray(a, np.float64) for a in (f, q, h, r))
+    hr = h.T @ np.linalg.inv(r)
+    w = hr @ h
+    d = f.shape[0]
+    m = m0.numpy().T.astype(np.float64)
+    iu = sym_idx(d)
+    p = np.zeros((m.shape[0], d, d))
+    for k, (i, j) in enumerate(iu):
+        p[:, i, j] = p[:, j, i] = p0[k].numpy()
+    means = []
+    for yt in ys.numpy().astype(np.float64):
+        m = m @ f.T
+        p = f @ p @ f.T + q
+        lam = np.linalg.inv(p)
+        p = np.linalg.inv(lam + w)
+        m = np.einsum("nij,nj->ni", p, np.einsum("nij,nj->ni", lam, m)
+                      + yt.T @ hr.T)
+        means.append(m.T)
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    return (as_t(np.stack(means)), as_t(m.T),
+            as_t(np.stack([p[:, i, j] for i, j in iu])))
+
+
+def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
+                      seed=0) -> bool:
+    """One (B, T, d, dy) through the warp filter's launcher on the plan
+    ``warp_plan(d, smem)`` (the stub's shared-memory limit set to
+    ``smem``) against the plain version, or the float64 filter."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+    from rxinfer_tpu_torch.ops.fused_smoother import _host_ptr  # noqa: F401
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.rxt_warp_filter.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
+                                    vp, i64, i64, ci, ci, ci, ci, ci, ci, vp]
+    lib.rxt_warp_filter_smem_bytes.argtypes = [ci] * 5
+    lib.rxt_warp_filter_smem_bytes.restype = i64
+    ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
+    (f, q, h, r, w_obs, hr), (m0, p0, ys) = _filter_inputs(b, t, d, dy, seed)
+    plan = ff.warp_plan(d, smem)
+    dp, stride, chains = (plan["padded_dim"], plan["stride"],
+                          plan["chains_per_block"])
+    ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
+    assert lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs) == \
+        plan["smem_bytes"], plan
+    fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
+    prm = np.zeros((4, dp, stride), np.float32)
+    for k, a in enumerate((fh, fh.T, qh, wh)):
+        prm[k, :d, :d] = a
+    prm = torch.from_numpy(prm)
+    hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T))
+    nan = float("nan")
+
+    def run(reg):
+        out = (torch.full((t, d, b), nan), torch.full((d, b), nan),
+               torch.full((d * (d + 1) // 2, b), nan))
+        scratch = None if cs else torch.full(
+            (-(-b // chains) * chains * 2 * dp * stride,), nan)
+        assert lib.rxt_warp_filter(
+            d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
+            None if scratch is None else scratch.data_ptr(), t, b, dp,
+            stride, chains, ps, cs, reg, None) == 0
+        return out
+
+    reg = plan["inverse_columns"] == "registers"
+    out = run(reg)
+    # the inverses with a column in registers give the sweep in memory's bits
+    same = not reg or all(torch.equal(a, c) for a, c in zip(out, run(False)))
+    want = (_filter64(m0, p0, ys, f, q, h, r) if oracle else
+            ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs))
+    errs = [_err(g.double(), w.double()) for g, w in zip(out, want)]
+    ok = max(errs) <= 3e-4 and same
+    print(f"warp K3 (B,T,d,dy)=({b},{t},{d},{dy}) params {plan['params']}, "
+          f"chain matrices {plan['chain_matrices']}, inverse columns in "
+          f"{plan['inverse_columns']}, {chains} chains a "
+          f"block, against the {'float64 filter' if oracle else 'plain version'}"
+          f": means {errs[0]:.2g}, final m {errs[1]:.2g}, final P "
+          f"{errs[2]:.2g}" + ("; equal to the inverses in memory" if reg
+                              and same else "") + ("" if ok else "  FAIL"),
+          flush=True)
+    return ok
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None)
@@ -312,7 +428,8 @@ def main(argv) -> int:
 
     torch.set_num_threads(1)
     out = Path(args.out or tempfile.mkdtemp(prefix="rehearse_"))
-    libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide"])
+    libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide",
+                       "fused_filter_warp"])
     print(f"built with g++ into {out}", flush=True)
     ok = True
     for b, t, k, tile in [(5, 37, 9, 4), (6, 70, 16, 70), (3, 33, 16, 8),
@@ -327,6 +444,15 @@ def main(argv) -> int:
                         (9, 4, 16, 40), (17, 5, 16, 16), (3, 3, 1, 70),
                         (5, 1, 16, 33)]:
         ok &= check_filter(libs["fused_filter_wide"], b, t, d, dy)
+    warp = libs["fused_filter_warp"]
+    for b, t, d, dy in [(11, 4, 17, 1), (9, 3, 32, 40), (5, 3, 33, 5),
+                        (3, 2, 40, 33), (2, 1, 64, 8)]:
+        ok &= check_warp_filter(warp, b, t, d, dy)
+    # the tiers past the shared parameters, forced by a small limit, and
+    # the device-memory scratch at its own d
+    ok &= check_warp_filter(warp, 9, 3, 20, 3, smem=10_000)
+    ok &= check_warp_filter(warp, 5, 3, 33, 5, smem=2_000)
+    ok &= check_warp_filter(warp, 2, 2, 168, 3, oracle=True)
     print("all within tolerance" if ok else "FAILURES")
     return 0 if ok else 1
 

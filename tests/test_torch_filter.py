@@ -198,10 +198,16 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unsupported_dims_raise():
-    m, p, ys, f, q, h, r = _setup(2, 17, 3, seed=8)
-    state = convert.filter_state_from_numpy(m, p)
-    with pytest.raises(ValueError, match="d = 1..16.*ROADMAP V6"):
-        ff.fused_filtering_scan(state, torch.as_tensor(ys), f, q, h, r)
+    # every d >= 1 and dy >= 1 runs (d > 16 on the warp kernel); an empty
+    # state or observation is refused
+    with pytest.raises(ValueError, match="d >= 1 and dy >= 1"):
+        ff.fused_filter(torch.zeros((0, 2)), torch.zeros((0, 2)),
+                        torch.zeros((3, 1, 2)), np.zeros((0, 0)),
+                        np.zeros((0, 0)), np.zeros((0, 1)), np.zeros((0, 0)))
+    with pytest.raises(ValueError, match="d >= 1 and dy >= 1"):
+        ff.fused_filter(torch.zeros((2, 2)), torch.zeros((3, 2)),
+                        torch.zeros((3, 0, 2)), np.eye(2), np.eye(2),
+                        np.zeros((2, 0)), np.eye(2))
     m, p, ys, f, q, h, r = _setup(2, 2, 3, seed=8)
     state = convert.filter_state_from_numpy(m, p)
     with pytest.raises(ValueError, match="parameters"):

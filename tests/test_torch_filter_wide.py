@@ -117,14 +117,16 @@ def test_launch_key_routes_past_the_register_kernel(d, dy, key):
     assert ff.launch_key(d, dy) == key
 
 
-def test_seventeen_dims_raise_naming_the_missing_variant():
-    m0 = torch.zeros((17, 2))
-    p0 = torch.zeros((17 * 18 // 2, 2))
-    ys = torch.zeros((3, 2, 2))
-    eye = np.eye(17, dtype=np.float32)
-    with pytest.raises(ValueError, match="ROADMAP V6"):
-        ff.fused_filter(m0, p0, ys, eye, eye, np.ones((17, 2), np.float32),
-                        eye)
+def test_seventeen_dims_run_past_the_wide_kernel_and_match_jax():
+    """One state dim past the wide kernel: routed to the warp kernel's key,
+    and on the CPU its plain version matches the JAX ``filtering_scan``."""
+    assert ff.launch_key(17, 2) == "fused_filter_warp"
+    m, p, ys, f, q, h, r = _setup(2, 17, 3, 2, seed=17)
+    ref = jax_filtering_scan(*_jax_args(m, p, ys, f, q, h, r))
+    state = convert.filter_state_from_numpy(m, p)
+    port = ff.fused_filtering_scan(state, torch.as_tensor(ys), f, q, h, r)
+    assert tuple(port[1].shape) == (3, 2, 17)
+    _assert_same(port, ref)
 
 
 @pytest.fixture

@@ -89,7 +89,8 @@ def test_kernel_build_flags():
     assert set(kernels.sources()) == {"fused_smoother", "fused_smoother_bf16",
                                       "fused_smoother_wide", "fused_fb",
                                       "fused_fb_wide", "fused_filter",
-                                      "fused_filter_wide", "quantized"}
+                                      "fused_filter_wide", "fused_filter_warp",
+                                      "quantized"}
     # every source under csrc/ is one that sources() builds, and every header
     # there is reached from a source
     assert {p.stem for p in kernels.CSRC.glob("*.cu")} == set(kernels.sources())
@@ -112,6 +113,8 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
         "fused_smoother_bf16.cu", "fused_smoother.cuh", "smallmat.cuh"]
     assert [p.name for p in kernels.source_files("quantized")] == [
         "quantized.cu"]
+    assert [p.name for p in kernels.source_files("fused_filter_warp")] == [
+        "fused_filter_warp.cu"]
 
     copy = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, copy)
