@@ -190,26 +190,34 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    ``[bf16 check]``, ``[d16]`` and ``[bf16]`` lines; four more rows in the
    ``kernels`` line (the wide K1 / K2, the bf16 K1 / K2), each with the
    errors of its checked variants.
-16. K4/K5 above eight states (``csrc/fused_fb_wide.cu``, V4) and K3 at d
-   9..16 or dy > 8 (``csrc/fused_filter_wide.cu``, V5).  (a) and (c) (in a
-   fourth process beside phase 3): the wide K4/K5 against their plain
-   versions at FB_WIDE_CHECK_SHAPES (K = 9 to 240: registers, a table in
-   shared memory and one read from device memory; both ``per_step_xi``
-   variants; FB_RTOL/FB_ATOL; xi_sum bit-identical over calls; sampled
-   chains against the float64 forward-backward), the wide K3 at
-   FILTER_WIDE_CHECK_SHAPES (RTOL/ATOL; sampled chains against the float64
-   filter).  (b) ``zoo.hmm(16, 8)`` through ``batched_program`` at B=1024,
-   T=1000, 20 iterations: the plan fused on the CUDA route, exactly 20 wide
-   K4 and 20 wide K5 launches a call and no other, sampled chains against
-   the float64 VMP (HMM_ORACLE_TOL), the wide K4/K5 against their plain
-   versions on the last sweep's inputs, one call with ``free_energy=True``
-   against the float64 structured VMP's FE (FE_HMM_TOL), the median of 5
-   calls, updates/s = B * iterations * (T + 2), one profiled call and each
-   kernel alone.  (d) path A at d = dy = 16 (phase 7's B and T, ``gen16``'s
-   constants): one wide K3 launch, the float64 filter (ORACLE_TOL), K3
-   against its plain version over the first 4 steps (that call is the plain
-   version's time), the call and K3 alone.  ``[hmm16]`` and ``[filter16]``
-   lines; three more rows in the ``kernels`` line.
+16. K4/K5 above eight states (``csrc/fused_fb_wide.cu``, V4, redesigned
+   for K <= 16: ``fused_fb_batched`` there is the serial launch of both
+   recursions, ``fb_serial_wide``, then the marginal launch,
+   ``fb_marginals_wide``) and K3 at d 9..16 or dy > 8
+   (``csrc/fused_filter_wide.cu``, V5).  (a) and (c) (in a fourth process
+   beside phase 3): the wide K4/K5 wrappers and the two calls against their
+   plain versions at FB_WIDE_CHECK_SHAPES (K = 9 to 240: the half-warp
+   design, registers, a table in shared memory and one read from device
+   memory; both ``per_step_xi`` variants; FB_RTOL/FB_ATOL; xi_sum
+   bit-identical over calls; the serial launch equal bit for bit to each
+   recursion launched alone; sampled chains against the float64
+   forward-backward), the wide K3 at FILTER_WIDE_CHECK_SHAPES (RTOL/ATOL;
+   sampled chains against the float64 filter).  (b) ``zoo.hmm(16, 8)``
+   through ``batched_program`` at B=1024, T=1000, 20 iterations: the plan
+   fused on the CUDA route, exactly 20 serial and 20 marginal launches a
+   call and no other, sampled chains against the float64 VMP
+   (HMM_ORACLE_TOL), the two calls against their plain versions on the
+   last sweep's inputs, one call with ``free_energy=True`` against the
+   float64 structured VMP's FE (FE_HMM_TOL), the median of 5 calls,
+   updates/s = B * iterations * (T + 2), one profiled call (each pass's
+   device ms in the program), each call, each recursion and each wrapper
+   alone (cycles a step), the marginal tile and occupancy.  (d) path A at
+   d = dy = 16 (phase 7's B and T, ``gen16``'s constants): one wide K3
+   launch, the float64 filter (ORACLE_TOL), K3 against its plain version
+   over the first 4 steps (that call is the plain version's time), the
+   call and K3 alone.  ``[hmm16]`` and ``[filter16]`` lines; three more
+   rows in the ``kernels`` line (the serial and marginal launches, with
+   their ``ptxas`` lines, and the wide K3).
 
 17. K3 above d = 16 (``csrc/fused_filter_warp.cu``, V6: a chain a warp).
    (a) (In a seventh process beside phase 3.) The warp K3 against its plain
@@ -372,10 +380,11 @@ SMOOTHER_KERNEL_NAMES = {
 FB_KERNEL_NAMES = {"fused_fb_fwd": ("fb_fwd_kernel",),
                    "fused_fb_bwd": ("fb_beta_kernel", "fb_xisum_kernel",
                                     "fb_marg_kernel")}
-FB_WIDE_KERNEL_NAMES = {"fused_fb_fwd_wide": ("fb_wide_fwd_kernel",),
-                        "fused_fb_bwd_wide": ("fb_wide_beta_kernel",
-                                              "fb_xisum_kernel",
-                                              "fb_wide_marg_kernel")}
+# the two calls of fused_fb_batched above eight states: the serial launch
+# (both recursions), the marginal kernel (K <= 16) and xi_sum's
+FB_WIDE_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
+                        "fused_fb_marg_wide": ("fb_xisum_kernel",
+                                               "fb_wide_marg_half_kernel")}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
@@ -517,6 +526,48 @@ def fb_ops(b: int, t: int, k: int) -> tuple[int, int]:
     bstep = count(ffb.backward_step, ent(), ent(), ent(), mat()) + k * k
     n_bwd = (last + (t - 1) * bstep) * b
     return n_fwd, n_bwd
+
+
+def fb_wide_bounds(b: int, t: int, k: int) -> dict:
+    """Least time (ms) the card could take for the two calls of
+    ``fused_fb_batched`` above eight states at (B, T, K), per-step xi on:
+    ``fused_fb_serial_wide`` (log_prior, the table and the evidence read,
+    alphas, logZ and betas written; the forward recursion's and the beta
+    recursion's operations) and ``fused_fb_marg_wide`` (the table, evidence,
+    alphas and betas read, gammas, the per-step xi and xi_sum written; the
+    scores, gamma's softmax, xi's and xi_sum's operations)."""
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    ent = lambda: [_OpCount() for _ in range(k)]
+    mat = lambda: [[_OpCount() for _ in range(k)] for _ in range(k)]
+
+    def count(fn, *args):
+        _OpCount.n = 0
+        fn(*args)
+        return _OpCount.n
+
+    n_fwd, _ = fb_ops(b, t, k)
+    scores = count(ffb._scores, ent(), ent(), mat())
+    beta = count(ffb._beta_from_scores, mat())
+    gamma = count(ffb._softmax, ent()) + k          # alpha + beta first
+    xi = count(ffb.xi_from_scores, ent(), mat()) + k * k   # + xi_sum
+    f4 = 4
+    work = {
+        "fused_fb_serial_wide": (
+            (b * k + b * k * k + 3 * t * b * k + b) * f4,
+            n_fwd + b * (t - 1) * (scores + beta)),
+        "fused_fb_marg_wide": (
+            (2 * b * k * k + 4 * t * b * k + (t - 1) * b * k * k) * f4,
+            b * (t * gamma + (t - 1) * (scores + xi))),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        out[name] = {"bytes": nbytes, "ops": ops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
 
 
 def fb_bounds(b: int, t: int, k: int) -> dict:
@@ -770,10 +821,14 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
     """Phase 3 for K4/K5 (and phase 16 (a) for the wide kernels, K > 8):
     each kernel wrapper against its plain version on the same CUDA tensors
     (K5 with and without the per-step xi stream), and a few chains of the
-    first shape against the float64 oracle.  Each wrapper call must count
-    under its launch key.  Returns per-launch-key max abs error against the
-    plain versions, and under ``"bit_equal"`` whether every output equalled
-    the plain version's bits."""
+    first shape against the float64 oracle.  Above eight states also the
+    two calls of ``fused_fb_batched``: ``fb_serial_wide`` (both recursions
+    in one launch; its alphas and betas must equal those of the forward and
+    the beta recursion launched alone, bit for bit) and
+    ``fb_marginals_wide`` (xi_sum bit-identical over three calls).  Each
+    wrapper call must count under its launch key.  Returns per-launch-key
+    max abs error against the plain versions, and under ``"bit_equal"``
+    whether every output equalled the plain version's bits."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
@@ -784,7 +839,9 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
     want_launches = {key: 0 for key in ffb.LAUNCHES}
     failures = []
     for i, (bsz, t_len, k) in enumerate(shapes):
-        keys = {d: ffb.launch_key(d, k) for d in ("fwd", "bwd")}
+        wide = k > ffb.REG_MAX_STATES
+        keys = {d: ffb.launch_key(d, k) for d in
+                ("fwd", "bwd") + (("serial", "marg") if wide else ())}
         want_launches[keys["fwd"]] += 1
         want_launches[keys["bwd"]] += 3
         lp, lt, le = _fb_inputs(bsz, t_len, k, seed=seed + i, device=device)
@@ -794,8 +851,16 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
         g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
         g2, xs2, none = ffb.fb_backward(lt, le, alphas, per_step_xi=False)
         _, xs3, _ = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
-        g_r, xs_r, steps_r = ffb.fb_backward_reference(lt, le, alphas, True,
-                                                       tile=tile)
+        betas_r = ffb.beta_pass_reference(lt, le)
+        g_r, xs_r, steps_r = ffb.marginals_reference(lt, le, alphas, betas_r,
+                                                     True, tile=tile)
+        if wide:
+            want_launches[keys["serial"]] += 1
+            want_launches[keys["marg"]] += 3
+            a_w, z_w, betas = ffb.fb_serial_wide(lp, lt, le)
+            gw, xw, sw = ffb.fb_marginals_wide(lt, le, a_w, betas, True)
+            gw2, xw2, _ = ffb.fb_marginals_wide(lt, le, a_w, betas, False)
+            xw3 = ffb.fb_marginals_wide(lt, le, a_w, betas, True)[1]
         torch.cuda.synchronize()
         if none is not None or tuple(steps.shape) != (t_len - 1, bsz, k, k):
             failures.append(f"(B,T,K)=({bsz},{t_len},{k}): xi_steps shape")
@@ -810,6 +875,32 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
                           ("gammas(no steps)", g2, g_r),
                           ("xi_sum(no steps)", xs2, xs_r)],
         }
+        plan = ""
+        if wide:
+            rows[keys["serial"]] = [("alphas(serial)", a_w, alphas_r),
+                                    ("logz(serial)", z_w, logz_r),
+                                    ("betas(serial)", betas, betas_r)]
+            rows[keys["marg"]] = [("gammas(marg)", gw, g_r),
+                                  ("xi_sum(marg)", xw, xs_r),
+                                  ("xi_steps(marg)", sw, steps_r),
+                                  ("gammas(marg, no steps)", gw2, g_r),
+                                  ("xi_sum(marg, no steps)", xw2, xs_r)]
+            if not (torch.equal(xw, xw2) and torch.equal(xw, xw3)):
+                failures.append(f"(B,T,K)=({bsz},{t_len},{k}): the marginal "
+                                "call's xi_sum differs between calls")
+            # one launch of both recursions gives each one's bits alone
+            alone = all(torch.equal(x, y) for x, y in (
+                (a_w, alphas), (z_w, logz), (gw, g), (xw, xs), (sw, steps)))
+            if not alone:
+                failures.append(f"(B,T,K)=({bsz},{t_len},{k}): the serial "
+                                "launch of both recursions differs from "
+                                "each recursion launched alone")
+            serial = ffb.wide_serial_plan(k, device)
+            plan = (f"; the serial launch equals each recursion alone bit "
+                    f"for bit; serial plan {serial}")
+            if k == FB_DEVICE_TABLE_K and serial["table"] != "device":
+                failures.append(f"K={k}: the table should be read from "
+                                f"device memory, plan {serial}")
         parts = []
         for kname, items in rows.items():
             for label, got, want in items:
@@ -821,14 +912,6 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
                 if not ok:
                     failures.append(f"(B,T,K)=({bsz},{t_len},{k}) {label}: "
                                     f"abs {ea:.3g}")
-        plan = ""
-        if k > ffb.REG_MAX_STATES:
-            serial = ffb.wide_serial_plan(k, device)
-            plan = f"; serial passes {serial}"
-            if k == FB_DEVICE_TABLE_K and any(
-                    p["table"] != "device" for p in serial.values()):
-                failures.append(f"K={k}: the table should be read from "
-                                f"device memory, plan {serial}")
         log(f"[check] (B,T,K)=({bsz},{t_len},{k}) marginal tile {tile} "
             f"({-(-t_len // tile)} tiles) max abs: " + "; ".join(parts)
             + f"; xi_sum bit-identical over 3 calls{plan}")
@@ -862,27 +945,44 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
 def check_fb_path_inputs(lp, lt, le, log=print,
                          tag: str = "hmm") -> tuple[dict, dict]:
     """K4/K5 against their plain versions on the inputs the HMM path hands
-    them in its last sweep, at the path's own (B, T, K).  Returns per-kernel
-    max abs error and the plain versions' ms (their one call here)."""
+    them in its last sweep, at the path's own (B, T, K): above eight states
+    the two calls the path makes (``fb_serial_wide``, ``fb_marginals_wide``,
+    under their launch keys), else ``fb_forward`` / ``fb_backward``.
+    Returns per-launch-key max abs error and the plain versions' ms (their
+    one call here)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
     t_len, bsz, k = le.shape
-    fwd, bwd = ffb.launch_key("fwd", k), ffb.launch_key("bwd", k)
-    alphas, logz = ffb.fb_forward(lp, lt, le)
-    (alphas_r, logz_r), fwd_plain_ms = _once_ms(
-        lambda: ffb.fb_forward_reference(lp, lt, le))
-    g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
-    (g_r, xs_r, steps_r), bwd_plain_ms = _once_ms(
-        lambda: ffb.fb_backward_reference(
-            lt, le, alphas, True, tile=ffb.device_tile(bsz, t_len,
-                                                        le.device, k)))
+    tile = ffb.device_tile(bsz, t_len, le.device, k)
+    if k > ffb.REG_MAX_STATES:
+        first, second = ffb.launch_key("serial", k), ffb.launch_key("marg", k)
+        alphas, logz, betas = ffb.fb_serial_wide(lp, lt, le)
+        (alphas_r, logz_r, betas_r), first_ms = _once_ms(
+            lambda: ffb.fb_forward_reference(lp, lt, le)
+            + (ffb.beta_pass_reference(lt, le),))
+        g, xs, steps = ffb.fb_marginals_wide(lt, le, alphas, betas, True)
+        (g_r, xs_r, steps_r), second_ms = _once_ms(
+            lambda: ffb.marginals_reference(lt, le, alphas, betas, True,
+                                            tile=tile))
+        first_rows = [("alphas", alphas, alphas_r), ("logz", logz, logz_r),
+                      ("betas", betas, betas_r)]
+    else:
+        first, second = ffb.launch_key("fwd", k), ffb.launch_key("bwd", k)
+        alphas, logz = ffb.fb_forward(lp, lt, le)
+        (alphas_r, logz_r), first_ms = _once_ms(
+            lambda: ffb.fb_forward_reference(lp, lt, le))
+        g, xs, steps = ffb.fb_backward(lt, le, alphas, per_step_xi=True)
+        (g_r, xs_r, steps_r), second_ms = _once_ms(
+            lambda: ffb.fb_backward_reference(lt, le, alphas, True,
+                                              tile=tile))
+        first_rows = [("alphas", alphas, alphas_r), ("logz", logz, logz_r)]
     torch.cuda.synchronize()
     rows = {
-        fwd: [("alphas", alphas, alphas_r), ("logz", logz, logz_r)],
-        bwd: [("gammas", g, g_r), ("xi_sum", xs, xs_r),
-              ("xi_steps", steps, steps_r)],
+        first: first_rows,
+        second: [("gammas", g, g_r), ("xi_sum", xs, xs_r),
+                 ("xi_steps", steps, steps_r)],
     }
     worst = {}
     parts, failures = [], []
@@ -894,11 +994,11 @@ def check_fb_path_inputs(lp, lt, le, log=print,
             parts.append(f"{label} {ea:.3g}")
             if not ok:
                 failures.append(f"{label}: abs {ea:.3g}")
-    plain = {fwd: fwd_plain_ms, bwd: bwd_plain_ms}
-    log(f"[{tag}] K4/K5 vs plain versions on the path's inputs, (B,T,K)="
-        f"({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
+    plain = {first: first_ms, second: second_ms}
+    log(f"[{tag}] {first} / {second} vs plain versions on the path's "
+        f"inputs, (B,T,K)=({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
         + f" (rtol=atol={FB_RTOL}); the plain versions' one call "
-        f"{fwd_plain_ms:.1f} / {bwd_plain_ms:.1f} ms")
+        f"{first_ms:.1f} / {second_ms:.1f} ms")
     if failures:
         raise AssertionError("forward-backward kernels disagree on the HMM "
                              "path's inputs: " + "; ".join(failures))
@@ -3958,16 +4058,18 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
                reps: int, smi: str, log=print) -> dict:
     """Phase 16 (b): ``zoo.hmm(k, m)`` through ``batched_program`` at (B, T)
     with ``iterations`` sweeps, y from ``simulate_hmm_k``: the plan fused on
-    the CUDA route, exactly ``iterations`` wide K4 and K5 launches a call
-    and no other kernel, sampled chains against the float64 VMP
-    (HMM_ORACLE_TOL), the wide K4/K5 against their plain versions on the
-    last sweep's inputs (FB_RTOL / FB_ATOL), one call with
-    ``free_energy=True`` against the float64 structured VMP's Bethe FE
-    (FE_HMM_TOL; the port counts the matrix entropy per transition, C6);
-    the program's median of ``reps`` calls, updates/s = B * iterations *
-    (T + 2) (bench.py:536), one profiled call (device busy, idle share,
-    each pass's ms), and K4 / K5 alone on the last sweep's inputs (CUDA
-    events, beside the SM clock sampled meanwhile)."""
+    the CUDA route, exactly ``iterations`` serial launches (both
+    recursions) and ``iterations`` marginal launches a call and no other
+    kernel, sampled chains against the float64 VMP (HMM_ORACLE_TOL), the
+    two calls against their plain versions on the last sweep's inputs
+    (FB_RTOL / FB_ATOL), one call with ``free_energy=True`` against the
+    float64 structured VMP's Bethe FE (FE_HMM_TOL; the port counts the
+    matrix entropy per transition, C6); the program's median of ``reps``
+    calls, updates/s = B * iterations * (T + 2) (bench.py:536), one
+    profiled call (device busy, idle share, each pass's ms), and on the
+    last sweep's inputs each call alone, each recursion alone and the
+    wrappers ``fb_forward`` / ``fb_backward`` (CUDA events, beside the SM
+    clock sampled meanwhile)."""
     import torch
 
     import rxinfer_tpu_torch as rt
@@ -3997,8 +4099,8 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     launches = read_launches()
     log(f"[hmm16] launches in one program call: {launches}; peak "
         f"{peak / 1e9:.3f} GB above the inputs")
-    expect_launches(launches, fused_fb_fwd_wide=iterations,
-                    fused_fb_bwd_wide=iterations)
+    expect_launches(launches, fused_fb_serial_wide=iterations,
+                    fused_fb_marg_wide=iterations)
     probs = state["s"].probs().cpu().numpy()
     conc = {n: state[n].alpha.cpu().numpy() for n in ("A", "B")}
     if probs.shape != (b, t_len, k) or not np.isfinite(probs).all() or \
@@ -4027,7 +4129,7 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
                                      BatchContext(device, b, {}))
     out["kernel_errs"], out["plain_ms"] = check_fb_path_inputs(
         lp, elog_a, le_t, log=log, tag="hmm16")
-    mark("K4/K5 against the plain versions")
+    mark("the two calls against the plain versions")
 
     # the free energy: one call, against the float64 structured VMP's
     _, fe_prog = rt.batched_program(
@@ -4037,8 +4139,8 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     _, fe, _ = fe_prog({"y": y})
     torch.cuda.synchronize()
     out["fe_launches"] = read_launches()
-    expect_launches(out["fe_launches"], fused_fb_fwd_wide=iterations,
-                    fused_fb_bwd_wide=iterations)
+    expect_launches(out["fe_launches"], fused_fb_serial_wide=iterations,
+                    fused_fb_marg_wide=iterations)
     fe = fe.cpu().numpy()
     out["fe_rel_err"] = _rel(fe[:, rows], fe_want)
     log(f"[hmm16] FE with free_energy=True, rows {rows} last sweep "
@@ -4048,16 +4150,30 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         raise AssertionError(f"16-state HMM FE: {out['fe_rel_err']}")
     mark("free energy")
 
-    # the program, then K4 and K5 alone on the last sweep's inputs, while
+    # the program, then each call alone on the last sweep's inputs, while
     # the SM clock is sampled (the program's calls bring the clock up)
-    alphas, _ = ffb.fb_forward(lp, elog_a, le_t)
-    fwd = lambda: ffb.fb_forward(lp, elog_a, le_t)
-    bwd = lambda: ffb.fb_backward(elog_a, le_t, alphas, per_step_xi=True)
+    alphas, _, betas = ffb.fb_serial_wide(lp, elog_a, le_t)
+    alone = {
+        "fused_fb_serial_wide": lambda: ffb.fb_serial_wide(lp, elog_a, le_t),
+        "fused_fb_marg_wide": lambda: ffb.fb_marginals_wide(
+            elog_a, le_t, alphas, betas, per_step_xi=True),
+        # the beta recursion on its own launch of the serial kernel (the
+        # forward one alone is fb_forward's launch)
+        "beta_alone": lambda: ffb._serial_cuda(None, elog_a, le_t,
+                                               forward=False, beta=True),
+        "fused_fb_fwd_wide": lambda: ffb.fb_forward(lp, elog_a, le_t),
+        "fused_fb_bwd_wide": lambda: ffb.fb_backward(
+            elog_a, le_t, alphas, per_step_xi=True),
+    }
     with SmClock() as clk:
         out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
-        out["alone_ms"] = {"fused_fb_fwd_wide": _cuda_ms(fwd, 5, inner=3),
-                           "fused_fb_bwd_wide": _cuda_ms(bwd, 5, inner=3)}
+        out["alone_ms"] = {n: _cuda_ms(fn, 5, inner=3)
+                           for n, fn in alone.items()}
     out["sm_clock_mhz"] = clk.mhz
+    out["alone_cycles_per_step"] = {
+        n: _cycles_per_step(ms, clk.mhz, t_len)
+        for n, ms in out["alone_ms"].items()}
+    out["marginal_warps_per_sm"] = ffb.wide_marginal_warps_per_sm(device)
     out["updates_per_s"] = b * iterations * (t_len + 2) / (
         out["program_ms"] / 1e3)
     out["profile"] = _device_profile(lambda: prog({"y": y}),
@@ -4073,7 +4189,11 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         f"call, idle {_idle_share(out['program_ms'], busy)}; in the program "
         f"{out['profile']['kernels']} ({out['cycles_per_step']} cycles a "
         f"step at {clk.mhz:.0f} MHz); top device kernels [name, launches, "
-        f"ms] {out['profile'].get('top')}; alone (events) {out['alone_ms']}; "
+        f"ms] {out['profile'].get('top')}; alone (events) {out['alone_ms']} "
+        f"({out['alone_cycles_per_step']} cycles a step); marginal tile "
+        f"{out['tile']} ({-(-t_len // out['tile'])} tiles), "
+        f"{out['marginal_warps_per_sm']} marginal warps an SM by occupancy "
+        f"(the tile rule takes {ffb.MARGINAL_WARPS_PER_SM}); "
         f"seconds: " + ", ".join(f"{what} {t - t0:.1f}" for (_, t0), (what, t)
                                  in zip(marks, marks[1:])) + f"; {smi}")
     return out
@@ -4388,7 +4508,7 @@ def main() -> int:
     # the wide K3
     hmm16 = hmm16_path(device, HMM16_B, HMM16_T, HMM16_K, HMM16_M, HMM16_IT,
                        reps=5, smi=smi)
-    hmm16_bounds = fb_bounds(HMM16_B, HMM16_T, HMM16_K)
+    hmm16_bounds = fb_wide_bounds(HMM16_B, HMM16_T, HMM16_K)
     _elapsed("the 16-state HMM", t_start)
     filt16 = filter_path(device, FILTER_B, FILTER_T, FILTER16_D, reps=5,
                          plain_steps=FILTER16_PLAIN_STEPS, tag="filter16")
@@ -4407,8 +4527,8 @@ def main() -> int:
                                "lgssm_wtau": WTAU_IT},
         "fused_smoother_fwd_dyn": {"lgssm_wtau": WTAU_IT},
         "fused_fb_fwd": {"hmm": HMM_IT}, "fused_fb_bwd": {"hmm": HMM_IT},
-        "fused_fb_fwd_wide": {"hmm16": HMM16_IT},
-        "fused_fb_bwd_wide": {"hmm16": HMM16_IT},
+        "fused_fb_serial_wide": {"hmm16": HMM16_IT},
+        "fused_fb_marg_wide": {"hmm16": HMM16_IT},
         "quantize_rows": {"int8": 1}, "quantize_rows_fp8": {"float8_e4m3fn": 1},
     }
     # the counts each phase 12 path read (expect_launches held them)
@@ -4764,48 +4884,71 @@ def main() -> int:
           f"{bf16['program_ms_fp32']:.4f} ({bf16['updates_per_s_fp32']:.6g}) "
           f"(B={MAIN_B}, T={MAIN_T}, d={MAIN_D}); {smi}")
 
-    # the wide K4/K5 (16-state HMM) and the wide K3 (path A at d = 16); their
-    # other shapes are checked in 16 (a) / (c)
+    # the wide K4/K5 (16-state HMM: the serial launch of both recursions and
+    # the marginal launch) and the wide K3 (path A at d = 16); their other
+    # shapes are checked in 16 (a) / (c)
     hmm16_shape = (HMM16_B, HMM16_T, HMM16_K)
     tile16 = hmm16["tile"]
-    for name, replaces, bkey in (
-            ("fused_fb_fwd_wide", "rxinfer_tpu/ops/pallas_discrete.py:48",
-             "fused_fb_fwd"),
-            ("fused_fb_bwd_wide", "rxinfer_tpu/ops/pallas_discrete.py:87",
-             "fused_fb_bwd")):
+    fb_wide_ptxas = [line.strip() for line in kernels.ptxas_report(
+        "fused_fb_wide").splitlines() if any(
+        k in line for k in ("Compiling entry", "registers", "spill"))]
+    for name, replaces, variant, earlier in (
+            ("fused_fb_serial_wide", "rxinfer_tpu/ops/pallas_discrete.py:48",
+             "fb_wide_serial_kernel<16>: K4 and K5's beta recursion in one "
+             "launch, a forward and a beta warp a chain side by side, each "
+             "log-sum-exp split over the half-warps",
+             {"fused_fb_fwd_wide": "fb_wide_fwd_kernel<16>, a launch of "
+              "its own",
+              "fused_fb_bwd_wide (beta)": "fb_wide_beta_kernel<16>, a "
+              "launch of its own"}),
+            ("fused_fb_marg_wide", "rxinfer_tpu/ops/pallas_discrete.py:87",
+             "fb_wide_marg_half_kernel + fb_xisum_kernel: K5's marginals, a "
+             "half-warp a (tile, chain), shuffle sums, 16-byte stores",
+             {"fused_fb_bwd_wide (marginals)": "fb_wide_marg_kernel<16>, "
+              "a warp a (tile, chain)"})):
         prof = hmm16["profile"]["kernels"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "rxinfer_tpu_torch/csrc/fused_fb_wide.cu",
-            "replaces": replaces, "launches": hmm16["launches"][name],
+            "replaces": replaces, "variant": variant,
+            "earlier_variant": earlier,
+            "launches": hmm16["launches"][name],
             "max_abs_err": max(worst[name], hmm16["kernel_errs"][name]),
             "max_abs_err_on_path": hmm16["kernel_errs"][name],
             "bit_equal_to_plain_at_checked_shapes": s13_bit_equal,
             "ms": hmm16["alone_ms"][name],
             "ms_in_path": prof["ms_per_launch"],
             "ms_in_path_by_pass": prof.get("parts"),
+            "ms_alone_by_pass": {
+                "forward": hmm16["alone_ms"]["fused_fb_fwd_wide"],
+                "beta": hmm16["alone_ms"]["beta_alone"]}
+            if name == "fused_fb_serial_wide" else None,
+            "ms_wrappers_alone": {n: hmm16["alone_ms"][n] for n in (
+                "fused_fb_fwd_wide", "fused_fb_bwd_wide")},
             "cycles_per_step": hmm16["cycles_per_step"][name],
             "sm_clock_mhz": hmm16["sm_clock_mhz"],
             "tile": {"marginal_steps": tile16,
-                     "marginal_tiles": -(-HMM16_T // tile16)},
+                     "marginal_tiles": -(-HMM16_T // tile16),
+                     "marginal_warps_per_sm": hmm16["marginal_warps_per_sm"]},
             "serial_plan": ffb.wide_serial_plan(HMM16_K, device),
+            "ptxas": fb_wide_ptxas,
             "plain_ms": hmm16["plain_ms"][name],
             "plain_shape_BTK": list(hmm16_shape),
-            "bound_ms": hmm16_bounds[bkey]["bound_ms"],
-            "bound_by": hmm16_bounds[bkey]["bound_by"], "library_ms": None,
+            "bound_ms": hmm16_bounds[name]["bound_ms"],
+            "bound_by": hmm16_bounds[name]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes an HMM "
                             "forward-backward",
             "shape_BTK": list(hmm16_shape),
-            "bytes": hmm16_bounds[bkey]["bytes"],
-            "ops": hmm16_bounds[bkey]["ops"],
+            "bytes": hmm16_bounds[name]["bytes"],
+            "ops": hmm16_bounds[name]["ops"],
             "shapes_checked": ["x".join(map(str, s))
                                for s in FB_WIDE_CHECK_SHAPES],
         })
         print(f"[hmm16] {name}: {hmm16['alone_ms'][name]:.4f} ms "
               f"alone, in the program {prof['ms_per_launch']} ms (passes "
               f"{prof.get('parts')}), bound "
-              f"{hmm16_bounds[bkey]['bound_ms']:.6f} ms "
-              f"({hmm16_bounds[bkey]['bound_by']}); plain "
+              f"{hmm16_bounds[name]['bound_ms']:.6f} ms "
+              f"({hmm16_bounds[name]['bound_by']}); plain "
               f"{hmm16['plain_ms'][name]:.1f} ms at (B,T,K)={hmm16_shape}; "
               f"{smi}")
     rows.append({

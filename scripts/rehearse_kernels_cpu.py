@@ -114,6 +114,11 @@ template <class T>
 inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int bytes) {
   return bytes <= rxt_smem_optin ? cudaSuccess : cudaErrorInvalidValue;
 }
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*,
+                                                                 int, size_t) {
+  *n = 0; return cudaErrorInvalidValue;  // no occupancy without a card
+}
 
 template <class F>
 void rxt_launch(dim3 grid, dim3 block, size_t smem, F fn) {
@@ -215,25 +220,90 @@ def _err(got, want) -> float:
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def check_fb(lib, wide: bool, b, t, k, tile, smem=None, seed=0) -> bool:
-    """One (B, T, K) through the launchers against the plain versions
-    (both per-step variants, xi_sum at ``tile``)."""
+def _fb_inputs(b, t, k, seed):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(a.astype(np.float32)) for a in (
+        rng.standard_normal((b, k)), 2 * rng.standard_normal((b, k, k)),
+        2 * rng.standard_normal((t, b, k))))
+
+
+def check_fb_wide(lib, b, t, k, tile, smem=None, seed=0) -> bool:
+    """One (B, T, K) through the wide launchers against the plain versions:
+    the serial kernel with both recursions (and each alone, which must give
+    the same bits), then the marginal kernel on its alphas and betas with
+    and without the per-step xi (xi_sum at ``tile``)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fwd = lib.rxt_fb_wide_fwd if wide else lib.rxt_fb_fwd
-    bwd = lib.rxt_fb_wide_bwd if wide else lib.rxt_fb_bwd
+    lib.rxt_fb_wide_serial.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, i64,
+                                       i64, vp]
+    lib.rxt_fb_wide_marg.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
+                                     i64, i64, i64, i64, vp]
+    ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem or 232_448
+    lp, lt, le = _fb_inputs(b, t, k, seed)
+    nan = float("nan")
+
+    def serial(roles):
+        alphas, logz = torch.full_like(le, nan), torch.full((b,), nan)
+        betas = torch.full_like(le, nan)
+        assert lib.rxt_fb_wide_serial(
+            k, roles, lp.data_ptr(), lt.data_ptr(), le.data_ptr(),
+            alphas.data_ptr(), logz.data_ptr(), betas.data_ptr(), t, b,
+            None) == 0
+        return alphas, logz, betas
+
+    alphas, logz, betas = serial(3)
+    a1, z1, _ = serial(1)
+    _, _, b2 = serial(2)
+    alone = (torch.equal(alphas, a1) and torch.equal(logz, z1)
+             and torch.equal(betas, b2))
+    a_r, z_r = ffb.fb_forward_reference(lp, lt, le)
+    errs = {"alphas": _err(alphas, a_r), "logz": _err(logz, z_r),
+            "betas": _err(betas, ffb.beta_pass_reference(lt, le))}
+    tiles = -(-t // tile)
+    g_r, x_r, s_r = ffb.marginals_reference(lt, le, alphas, betas, True,
+                                            tile=tile)
+    for steps in (1, 0):
+        gammas, xi_sum = torch.full_like(le, nan), torch.full((b, k, k), nan)
+        part = torch.full((tiles, b, k, k), nan) if tiles > 1 else xi_sum
+        xis = torch.full((t - 1, b, k, k), nan) if steps else None
+        assert lib.rxt_fb_wide_marg(
+            k, steps, lt.data_ptr(), le.data_ptr(), alphas.data_ptr(),
+            betas.data_ptr(), gammas.data_ptr(), part.data_ptr(),
+            xi_sum.data_ptr(), xis.data_ptr() if steps else None, t, b, tile,
+            tiles, None) == 0
+        sfx = "" if steps else "(no steps)"
+        errs["gammas" + sfx] = _err(gammas, g_r)
+        errs["xi_sum" + sfx] = _err(xi_sum, x_r)
+        if steps:
+            errs["xi_steps"] = _err(xis, s_r)
+    ok = alone and all(e <= 2e-5 for e in errs.values())
+    print(f"wide K4/K5 (B,T,K)=({b},{t},{k}) tile {tile}"
+          f"{'' if smem is None else f' shared memory {smem} B'}: "
+          + ", ".join(f"{n} {e:.2g}" for n, e in errs.items())
+          + ("; each recursion alone gives the same bits" if alone else
+             "; a recursion alone differs")
+          + ("" if ok else "  FAIL"), flush=True)
+    return ok
+
+
+def check_fb(lib, b, t, k, tile, seed=0) -> bool:
+    """One (B, T, K) through the register kernels' launchers against the
+    plain versions (both per-step variants, xi_sum at ``tile``)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_fb as ffb
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fwd, bwd = lib.rxt_fb_fwd, lib.rxt_fb_bwd
     fwd.argtypes = [ci, vp, vp, vp, vp, vp, i64, i64, vp]
     bwd.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64,
                     i64, vp]
-    if smem is not None:
-        ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
-    rng = np.random.default_rng(seed)
-    lp, lt, le = (torch.as_tensor(a.astype(np.float32)) for a in (
-        rng.standard_normal((b, k)), 2 * rng.standard_normal((b, k, k)),
-        2 * rng.standard_normal((t, b, k))))
+    lp, lt, le = _fb_inputs(b, t, k, seed)
     nan = float("nan")
     alphas, logz = torch.full_like(le, nan), torch.full((b,), nan)
     assert fwd(k, lp.data_ptr(), lt.data_ptr(), le.data_ptr(),
@@ -258,8 +328,7 @@ def check_fb(lib, wide: bool, b, t, k, tile, smem=None, seed=0) -> bool:
         if steps:
             errs["xi_steps"] = _err(xis, s_r)
     ok = all(e <= 2e-5 for e in errs.values())
-    print(f"{'wide ' if wide else ''}K4/K5 (B,T,K)=({b},{t},{k}) tile {tile}"
-          f"{'' if smem is None else f' shared memory {smem} B'}: "
+    print(f"K4/K5 (B,T,K)=({b},{t},{k}) tile {tile}: "
           + ", ".join(f"{n} {e:.2g}" for n, e in errs.items())
           + ("" if ok else "  FAIL"), flush=True)
     return ok
@@ -432,14 +501,21 @@ def main(argv) -> int:
                        "fused_filter_warp"])
     print(f"built with g++ into {out}", flush=True)
     ok = True
+    # K = 9..16 on the half-warp design (odd B: a warp's two halves on two
+    # tiles; ragged tiles; K = 16 the float4 stores; T past three staged
+    # tiles: the ring refilled, its last tile short), then 32, 33, 64 (T
+    # past three tiles at 32 and 33 too)
     for b, t, k, tile in [(5, 37, 9, 4), (6, 70, 16, 70), (3, 33, 16, 8),
-                          (5, 40, 32, 4), (2, 11, 33, 4), (3, 17, 64, 4),
-                          (1, 1, 12, 1), (2, 2, 40, 1)]:
-        ok &= check_fb(libs["fused_fb_wide"], True, b, t, k, tile)
-    ok &= check_fb(libs["fused_fb_wide"], True, 3, 17, 64, 4, smem=20_000)
-    ok &= check_fb(libs["fused_fb_wide"], True, 2, 9, 40, 3, smem=4000)
+                          (7, 45, 16, 6), (3, 20, 13, 3), (3, 150, 16, 8),
+                          (2, 131, 11, 5), (5, 40, 32, 4), (2, 130, 32, 8),
+                          (2, 100, 33, 8),
+                          (2, 11, 33, 4), (3, 17, 64, 4), (1, 1, 12, 1),
+                          (1, 2, 16, 1), (2, 2, 40, 1)]:
+        ok &= check_fb_wide(libs["fused_fb_wide"], b, t, k, tile)
+    ok &= check_fb_wide(libs["fused_fb_wide"], 3, 17, 64, 4, smem=20_000)
+    ok &= check_fb_wide(libs["fused_fb_wide"], 2, 9, 40, 3, smem=4000)
     for b, t, k, tile in [(5, 70, 3, 4), (9, 40, 8, 40), (3, 33, 1, 4)]:
-        ok &= check_fb(libs["fused_fb"], False, b, t, k, tile)
+        ok &= check_fb(libs["fused_fb"], b, t, k, tile)
     for b, t, d, dy in [(11, 9, 9, 1), (9, 6, 12, 9), (10, 5, 4, 12),
                         (9, 4, 16, 40), (17, 5, 16, 16), (3, 3, 1, 70),
                         (5, 1, 16, 33)]:

@@ -2,7 +2,7 @@
 """Time the port's batched programs on their main cells in the tree it runs
 from.
 
-    python3 scripts/time_programs.py [--reps 20]
+    python3 scripts/time_programs.py [--reps 20] [--hmm16]
 
 Run from the root of a checkout (the package is imported from the current
 directory, so two checkouts can be timed in turns inside one job on one
@@ -10,9 +10,11 @@ card: ``cd parent && python3 ../scripts/time_programs.py``).  Needs a CUDA
 device and ``nvcc``.  It times, CUDA events, median of ``--reps`` calls
 after a warm-up, with the inputs of ``chip_smoke.py``: the LGSSM program
 (``zoo.lgssm``, B=1024, T=10,000, d=4, one iteration) and the HMM program
-(``zoo.hmm(3, 3)``, B=256, T=200, 20 iterations), and prints each beside
-the card's name and power limit.  It checks nothing: ``chip_smoke.py``
-holds both programs against their float64 oracles.
+(``zoo.hmm(3, 3)``, B=256, T=200, 20 iterations), and with ``--hmm16``
+the 16-state HMM program (``zoo.hmm(16, 8)``, B=1024, T=1000, 20
+iterations, phase 16 (b)'s data), and prints each beside the card's name
+and power limit.  It checks nothing: ``chip_smoke.py`` holds the programs
+against their float64 oracles.
 """
 
 import argparse
@@ -50,6 +52,7 @@ def main() -> int:
         return 2
     parser = argparse.ArgumentParser()
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--hmm16", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, os.getcwd())
     import rxinfer_tpu_torch as rt
@@ -72,6 +75,19 @@ def main() -> int:
     print(f"tree {os.getcwd()}: LGSSM program "
           f"{_ms(lambda: lgssm({'y': y}), args.reps):.4f} ms, HMM program "
           f"{_ms(lambda: hmm({'y': yh}), args.reps):.4f} ms; {smi}")
+    if args.hmm16:
+        from chip_smoke import hmm_k_init, simulate_hmm_k
+
+        y16 = torch.as_tensor(simulate_hmm_k(1024, 1000, 16, 8, seed=16),
+                              device=dev)
+        a0, b0 = hmm_k_init(16, 8)
+        _, hmm16 = rt.batched_program(
+            zoo.hmm(16, 8), {"y": y16}, iterations=20,
+            initialization={"A": rt.DirichletCollection(a0),
+                            "B": rt.DirichletCollection(b0)}, device=dev)
+        ms = _ms(lambda: hmm16({"y": y16}), max(3, args.reps // 4))
+        print(f"tree {os.getcwd()}: 16-state HMM program {ms:.4f} ms "
+              f"({1024 * 20 * 1002 / (ms / 1e3):.6g} updates/s); {smi}")
     return 0
 
 

@@ -3,8 +3,9 @@ chain of K > 8 states launches the wide kernels of
 ``csrc/fused_fb_wide.cu``; on the CPU their plain versions run, which this
 file holds against the JAX package: its Pallas kernels in interpret mode at
 K = 9 (the trace grows with K^2, so one case), its scan solver
-(``rxinfer_tpu/ops/discrete_chain.py`` ``forward_backward``) at K = 16, 33
-and 64, and its ``batched_program`` on ``zoo.hmm(9, 3)`` and
+(``rxinfer_tpu/ops/discrete_chain.py`` ``forward_backward``) at K = 12, 16
+(the half-warp order of sums), 33 and 64, and its ``batched_program`` on
+``zoo.hmm(9, 3)`` and
 ``zoo.hmm(16, 4)``, whose plans fuse the chain as the JAX planner does.
 The rule that picks the wide marginal pass's tile is pinned, and the
 ``gpu``-marked tests hold the wide kernels against their plain versions on
@@ -74,10 +75,11 @@ def test_plain_fb_at_nine_states_matches_the_jax_kernels():
                                    err_msg=name, **FB_TOL)
 
 
-@pytest.mark.parametrize("k", [16, 33, 64])
+@pytest.mark.parametrize("k", [12, 16, 33, 64])
 def test_plain_fb_matches_the_jax_scan_solver(k):
-    """At K = 16, 33 and 64 (past one warp's lanes, and a table of 64 x 64)
-    against the JAX package's scan forward-backward, chain by chain."""
+    """At K = 12 and 16 (the half-warp order of sums), 33 and 64 (past one
+    warp's lanes, and a table of 64 x 64) against the JAX package's scan
+    forward-backward, chain by chain."""
     b, t = 3, 12
     lp, lt, le = _inputs(b, t, k, seed=k)
     gammas, xi_sum, logz, xis = ffb.fused_fb_batched(*_torch(lp, lt, le),
@@ -135,17 +137,19 @@ def test_launch_keys_split_at_eight_states():
     assert ffb.launch_key("fwd", 8) == "fused_fb_fwd"
     assert ffb.launch_key("bwd", 9) == "fused_fb_bwd_wide"
     assert set(ffb.LAUNCHES) == {"fused_fb_fwd", "fused_fb_bwd",
-                                 "fused_fb_fwd_wide", "fused_fb_bwd_wide"}
+                                 "fused_fb_fwd_wide", "fused_fb_bwd_wide",
+                                 "fused_fb_serial_wide", "fused_fb_marg_wide"}
 
 
 # -- the wide marginal pass's tile --------------------------------------------------
 
-@pytest.mark.parametrize("b,t,want", [(1024, 1000, 500), (8, 4099, 31),
-                                      (37, 1001, 34), (33, 97, 4),
-                                      (3, 17, 4), (2, 9, 4), (2000, 50, 50)])
+@pytest.mark.parametrize("b,t,want", [(1024, 1000, 200), (8, 4099, 7),
+                                      (37, 1001, 8), (33, 97, 4),
+                                      (3, 17, 4), (2, 9, 4), (2000, 50, 25)])
 def test_pick_tile_wide_at_the_checked_shapes(b, t, want):
-    """A warp a (tile, chain): the tiles that let B * n warps fill 132 SMs'
-    schedulers two deep, at least MIN_TILE_STEPS steps a tile."""
+    """A half-warp a (tile, chain): ceil(T / n) for the most tiles n whose
+    B * n half-warps 132 SMs hold at once at 20 warps an SM, at least
+    MIN_TILE_STEPS steps a tile."""
     assert ffb.pick_tile_wide(b, t, H100_SMS) == want
 
 
@@ -154,8 +158,10 @@ def test_pick_tile_wide_at_the_checked_shapes(b, t, want):
 def test_pick_tile_wide_fills_the_card_in_warps(b, t):
     tile = ffb.pick_tile_wide(b, t, H100_SMS)
     assert min(t, ffb.MIN_TILE_STEPS) <= tile <= t
-    warps = H100_SMS * ffb.SCHEDULERS_PER_SM * ffb.MARGINAL_WARPS_PER_SCHEDULER
-    assert b * -(-t // tile) >= warps or tile == min(t, ffb.MIN_TILE_STEPS)
+    units = H100_SMS * ffb.MARGINAL_WARPS_PER_SM * 2   # two a warp
+    # the card at least half full, all in one wave
+    assert b * -(-t // tile) * 2 > units or tile == min(t, ffb.MIN_TILE_STEPS)
+    assert b * -(-t // tile) <= max(units, b)
     # a thread a (tile, chain) asks for 32 times the pairs: tiles as short
     assert ffb.pick_tile(b, t, H100_SMS) <= tile
 
