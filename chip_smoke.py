@@ -59,8 +59,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    (``pick_quant_layout``: narrow, wide, general) and a view that starts 4
    bytes into its storage; the dequantize + product kernel K8 on both
    payload types at DEQUANT_CHECK_SHAPES, which take each of its layouts
-   (``pick_dequant_layout``: vector, general) and a payload view that
-   starts 4 bytes into its storage (outputs must be EQUAL).
+   (``pick_dequant_layout``: vector, general), a payload view that
+   starts 4 bytes into its storage, and W of 64 KB, 200 KB (whole in
+   shared memory) and 240 KB (row tiles, ``dequant_tiles``); outputs must
+   be EQUAL.
 7. Path A, continuous-batching filter at full width:
    ``parallel.filtering.make_sharded_filtering(None, ..., fused=True)`` over
    a (T, B, dy) stream of B=10,000 chains, T=200 steps, d=dy=4 with the
@@ -219,19 +221,23 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    rows in the ``kernels`` line (the serial and marginal launches, with
    their ``ptxas`` lines, and the wide K3).
 
-17. K3 above d = 16 (``csrc/fused_filter_warp.cu``, V6: a chain a warp).
-   (a) (In a seventh process beside phase 3.) The warp K3 against its plain
-   version at FILTER_WARP_CHECK_SHAPES (d = 17 with a ragged block, d = 32
-   with two observation chunks, d = 33, d = 64; RTOL/ATOL; sampled chains
-   of the first against the float64 filter) and at FILTER_WARP_TIER_SHAPES
+17. K3 above d = 16 (``csrc/fused_filter_warp.cu``, V6: a chain a warp;
+   to d = 32 the tensor-core tier, past it the sweep tiers).
+   (a) (In a seventh process beside phase 3.) Each check shape's d on the
+   tier ``warp_plan`` should give it, and the warp K3 against its plain
+   version at FILTER_WARP_CHECK_SHAPES (d = 17 with a ragged block, d = 24,
+   d = 32 with two observation chunks, d = 33, d = 64; RTOL/ATOL; sampled
+   chains of the first against the float64 filter) and at FILTER_WARP_TIER_SHAPES
    (d = 100: F, Q, W in device memory; d = 176: each chain's matrices in a
    device scratch) against the float64 filter on every chain (RTOL/ATOL),
    each shape one ``fused_filter_warp`` launch.  (b) Path A at d = dy = 32
    (phase 7's B and T, ``lgssm_constants(32)``): one warp K3 launch, the
    float64 filter (ORACLE_TOL), K3 against its plain version over the first
    2 steps (that call is the plain version's time), the call and K3 alone,
-   cycles a step, one profiled call.  ``[filter32]`` lines; one more row in
-   the ``kernels`` line, with the kernel's ``ptxas`` lines and its plans.
+   cycles a step, one profiled call; the tensor-core tier's warps an SM and
+   its ``ptxas`` lines (it must not spill).  ``[filter32]`` lines; one more
+   row in the ``kernels`` line, with the kernel's ``ptxas`` lines, its plans
+   and the tier each checked d took.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -285,6 +291,9 @@ INFER_TOL = 1e-5
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, 80 GB HBM3 (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 on the tensor cores (dense)
+# a float32-accurate product in 3xTF32 is three TF32 products
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 MAIN_B, MAIN_T, MAIN_D = 1024, 10_000, 4
 # (8, 1056, 4): the most time blocks the wrapper's rule gives at that T (33
@@ -355,10 +364,12 @@ QUANT_CHECK_SHAPES = [(1 << 21, 16, 0), (100_001, 16, 0), (4096, 10_000, 0),
 # (R, dy, dx, start): a payload view ``start`` bytes into its storage.  Each
 # of K8's layouts is taken (``pick_dequant_layout``: vector with 4 rows a
 # thread and with 1; general for odd dy, rows of 8 bytes and the view that
-# starts off 16 bytes).
+# starts off 16 bytes), and W whole past 48 KB (64 KB and 200 KB) and in
+# row tiles past the opt-in limit (240 KB; ``dequant_tiles``).
 DEQUANT_CHECK_SHAPES = [(1 << 21, 16, 4, 0), (100_001, 16, 4, 0),
                         (4096, 32, 8, 0), (1000, 3, 5, 0), (65_536, 8, 3, 0),
-                        (5000, 16, 4, 4)]
+                        (5000, 16, 4, 4), (4096, 128, 128, 0),
+                        (2048, 400, 128, 0), (1000, 20_000, 3, 0)]
 QUANT_SHAPE = (MAIN_B * MAIN_D, MAIN_T)        # the engine's rows (B*F, T)
 INGEST_SHAPE = (1 << 21, 16, 4)                # rows, dy, dx
 QUANT_ITERATIONS = (1, 10)
@@ -366,7 +377,7 @@ QUANT_ITERATIONS = (1, 10)
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
                        "fused_filter_wide": "wide_filter_kernel",
-                       "fused_filter_warp": "warp_filter_kernel"}
+                       "fused_filter_warp": "warp_filter(?:_tc)?_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
     "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
@@ -1192,8 +1203,9 @@ def _device_profile(fn, kernels: dict, top: int = 0) -> dict:
     device ms per launch, summed over the names, and for several names each
     one's ms per launch under ``parts``.  With ``top``, ``top`` lists that
     many device kernels with the most device ms in the call, each [name,
-    launches, ms].  Device numbers read "not measured" when the profiler
-    records no device event."""
+    launches, ms].  Every entry of ``kernels`` must be launched by each
+    call.  Device numbers read "not measured" when the profiler records
+    no device event."""
     import re
 
     import torch
@@ -1204,8 +1216,11 @@ def _device_profile(fn, kernels: dict, top: int = 0) -> dict:
     torch.cuda.synchronize()
     # one warm-up step inside the profiler, discarded, then the recorded one:
     # device events of the first launches after the profiler starts are lost.
-    # A session that records no device event at all is run once more (seen
-    # once on an H100, after several sessions in one process).
+    # A session that records no device event at all, or none of a kernel
+    # that every call launches, is run once more (both seen on an H100,
+    # after several sessions in one process).
+    last = [re.compile(rf"(?<!\w){v if isinstance(v, str) else v[-1]}\b")
+            for v in kernels.values()]
     for attempt in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -1217,10 +1232,10 @@ def _device_profile(fn, kernels: dict, top: int = 0) -> dict:
                 prof.step()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-        if dev:
+        if dev and all(any(pat.search(e.name) for e in dev) for pat in last):
             break
-        print("[profile] no device event recorded; profiling once more",
-              flush=True)
+        print("[profile] a kernel's device events were not recorded; "
+              "profiling once more", flush=True)
     if not dev:
         return {"busy_ms": "not measured",
                 "kernels": {k: {"launches": "not measured",
@@ -1485,22 +1500,59 @@ def _bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _count_ops(fn) -> int:
+    _OpCount.n = 0
+    fn()
+    return _OpCount.n
+
+
+def _schur_product_ops(n: int, levels: int) -> int:
+    """Operations of the plain ``sym_inv``'s block products (X = A^-1 B, the
+    Schur complement, X S^-1 and the top-left block) at size n and the
+    ``levels - 1`` levels below it: the inverse's count less those of its
+    two half-size inverses."""
+    from rxinfer_tpu_torch.ops import entrywise as ew
+
+    if levels == 0 or n <= 2:
+        return 0
+    sym = lambda k: _count_ops(lambda: ew.sym_inv(
+        [[_OpCount() for _ in range(k)] for _ in range(k)]))
+    k = n // 2
+    return (sym(n) - sym(k) - sym(n - k) + _schur_product_ops(k, levels - 1)
+            + _schur_product_ops(n - k, levels - 1))
+
+
 def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
     """Least time the card could take for K3 at (B, T, d, dy): observations
     and initial state read once, means and final state written once, against
     the operations of T chain-steps (the plain step run on counting
-    stand-ins)."""
+    stand-ins) at the float32 rate.  At the warp K3's tensor-core tier (16 <
+    d <= 32) the operations its products run on the tensor cores (F P F^T +
+    Q, and both inverses' block products at the top two levels of the Schur
+    recursion) are priced at the 3xTF32 rate instead, the rest (leaves,
+    scaling, vectors) at the float32 rate, the two times added."""
+    from rxinfer_tpu_torch.ops import entrywise as ew
     from rxinfer_tpu_torch.ops import fused_filter as ff
 
     nsym = d * (d + 1) // 2
     nbytes = (t * dy * b + t * d * b + 2 * (d + nsym) * b) * 4
     par = [[0.5] * d for _ in range(d)]
-    _OpCount.n = 0
-    ff.filter_step([_OpCount() for _ in range(d)],
-                   [[_OpCount() for _ in range(d)] for _ in range(d)],
-                   [_OpCount() for _ in range(dy)], par, par, par,
-                   [[0.5] * dy for _ in range(d)])
-    return _bound(nbytes, _OpCount.n * t * b)
+    ops = _count_ops(lambda: ff.filter_step(
+        [_OpCount() for _ in range(d)],
+        [[_OpCount() for _ in range(d)] for _ in range(d)],
+        [_OpCount() for _ in range(dy)], par, par, par,
+        [[0.5] * dy for _ in range(d)]))
+    tc_ops = 0
+    if ff.WIDE_MAX_DIM < d <= ff.TC_DIM:
+        tc_ops = _count_ops(lambda: ew.sandwich_sym(
+            par, [[_OpCount() for _ in range(d)] for _ in range(d)], par)) \
+            + 2 * _schur_product_ops(d, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((ops - tc_ops) / FP32_FLOPS + tc_ops / TF32X3_FLOPS) * t * b * 1e3
+    return {"bytes": nbytes, "ops": ops * t * b,
+            "ops_tensor_cores": tc_ops * t * b,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def quantize_bound(r: int, c: int) -> dict:
@@ -1694,7 +1746,7 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
         if start and lay.variant != "general":
             failures.append(f"(R,C)=({r},{c}) {start} floats into its "
                             f"storage took {lay}, not the general layout")
-    dq_layouts = {}
+    dq_layouts, dq_tiles = {}, {}
     for i, (r, dy, dx, start) in enumerate(DEQUANT_CHECK_SHAPES):
         x = _quant_rows(r, dy, seed=500 + i, device=device)
         gen = torch.Generator(device=device).manual_seed(600 + i)
@@ -1709,6 +1761,8 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
             got = tq.dequant_matmul(v, s, w)
             want = tq.dequant_matmul_reference(v, s, w)
             dq_layouts[(r, dy, dx, start)] = tq.device_dequant_layout(v, got)
+            dq_tiles[(r, dy, dx, start)] = tq.device_dequant_tiles(dy, dx,
+                                                                   device)
             torch.cuda.synchronize()
             n_diff = int((got.view(torch.int32)
                           != want.view(torch.int32)).sum())
@@ -1719,13 +1773,19 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
             if n_diff:
                 failures.append(f"(R,dy,dx)=({r},{dy},{dx}) {parts[-1]}")
         log(f"[check] K8 (R,dy,dx)=({r},{dy},{dx}) start {start}, "
-            f"{dq_layouts[(r, dy, dx, start)]}: " + "; ".join(parts)
+            f"{dq_layouts[(r, dy, dx, start)]}, W tiles "
+            f"{dq_tiles[(r, dy, dx, start)]}: " + "; ".join(parts)
             + " (must be EQUAL)")
         del x
     taken = {(lay.variant, lay.rows_per_thread)
              for lay in dq_layouts.values()}
     if not {("vector", 4), ("vector", 1), ("general", 1)} <= taken:
         failures.append(f"the K8 check shapes took only the layouts {taken}")
+    whole = [k for k, t in dq_tiles.items() if t == k[1:3]]
+    if not (any(dy * dx * 4 > 48 * 1024 for _, dy, dx, _ in whole)
+            and len(whole) < len(dq_tiles)):
+        failures.append(f"the K8 check shapes took only the W tiles "
+                        f"{dq_tiles}")
     for (r, dy, dx, start), lay in dq_layouts.items():
         if start % 16 and lay.variant != "general":
             failures.append(f"K8 (R,dy,dx)=({r},{dy},{dx}) {start} bytes into "
@@ -1738,7 +1798,8 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
     if rose != {"quantize_rows": n_q + n_d, "quantize_rows_fp8": n_q + n_d,
                 "dequant_matmul": 2 * n_d}:
         raise AssertionError(f"quantized launch counters rose by {rose}")
-    return worst, {"quantize": layouts, "dequant": dq_layouts}
+    return worst, {"quantize": layouts, "dequant": dq_layouts,
+                   "dequant_tiles": dq_tiles}
 
 
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
@@ -2050,10 +2111,12 @@ def quantized_ingest_path(device, shape, reps: int, log=print) -> dict:
     # of a step's first launch, and the per-launch time is over those found
     out["profile"] = _device_profile(
         lambda: [tq.quantized_evidence(y, w) for _ in range(3)],
-        QUANT_KERNEL_NAMES)
+        {k: QUANT_KERNEL_NAMES[k] for k in ("quantize_rows",
+                                           "dequant_matmul")})
     out["profile_fp8"] = _device_profile(
         lambda: [tq.quantized_evidence_fp8(y, w) for _ in range(3)],
-        QUANT_KERNEL_NAMES)
+        {k: QUANT_KERNEL_NAMES[k] for k in ("quantize_rows_fp8",
+                                           "dequant_matmul")})
     log(f"[ingest] (R,dy,dx)={shape}: "
         + "; ".join(
             f"{k}: call {out['call_ms'][k]:.4f} ms, quantize "
@@ -3630,12 +3693,13 @@ FILTER_WIDE_CHECK_SHAPES = [(37, 65, 9, 1), (100, 33, 12, 9), (40, 20, 4, 12),
 FILTER16_D = 16
 FILTER16_PLAIN_STEPS = 4
 # Phase 17 (a): the warp K3 (d > 16) at (B, T, d, dy) against its plain
-# version: d = 17 with one observation and a ragged last block of chains
-# (37 = 4 * 8 + 5); d = 32 with dy = 40 (two staged chunks); d = 33 (two
-# columns a lane); d = 64 (four chains a block).  Short chains: the plain
-# step at d = 64 is about 10^6 small torch operations.
-FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 32, 40), (10, 3, 33, 5),
-                            (5, 2, 64, 8)]
+# version: on the tensor-core tier d = 17 with one observation and a ragged
+# last block of chains (37 = 4 * 8 + 5), d = 24 with fewer observations than
+# states, d = 32 with dy = 40 (two staged chunks); on the sweep tiers d = 33
+# (two columns a lane), d = 64 (four chains a block).  Short chains: the
+# plain step at d = 64 is about 10^6 small torch operations.
+FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 24, 12), (33, 4, 32, 40),
+                            (10, 3, 33, 5), (5, 2, 64, 8)]
 # ... and the tiers past them, against the float64 filter (the plain step is
 # minutes there): d = 100 reads F, Q and W from device memory, d = 176 keeps
 # each chain's matrices in a device-memory scratch (``warp_plan`` on an
@@ -4273,6 +4337,28 @@ def check_warp_tiers(device, shapes, log=print, seed: int = 1750) -> dict:
     return {"max_abs_err": worst, "plans": plans}
 
 
+def tensor_tier_ptxas(lines: list) -> list:
+    """The ``ptxas`` lines of the warp K3's tensor-core tier among its
+    library's (``Compiling entry``, registers, spills); raises if it spills
+    or is missing."""
+    import re
+
+    out, inside = [], False
+    for line in lines:
+        if "Compiling entry" in line:
+            inside = "warp_filter_tc_kernel" in line
+        elif inside:
+            out.append(line)
+    spills = [line for line in out if any(
+        int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                   line))]
+    if not out or spills:
+        raise AssertionError("the warp K3's tensor-core tier "
+                             + ("spills: " + "; ".join(spills) if out else
+                                "has no ptxas lines"))
+    return out
+
+
 def _unfold_host(pf, d: int) -> np.ndarray:
     """A packed (nsym, B) covariance on the card as (B, d, d) on the host."""
     from rxinfer_tpu_torch.ops.fused_smoother import sym_unfold_t
@@ -4283,17 +4369,28 @@ def _unfold_host(pf, d: int) -> np.ndarray:
 def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
     """Phase 17 (a) in a process of its own beside phase 3's: the warp K3 at
     FILTER_WARP_CHECK_SHAPES against its plain version (sampled chains of
-    the first against the float64 filter) and at FILTER_WARP_TIER_SHAPES
-    against the float64 filter.  Returns the log lines, the launch key's
-    max error and the tier checks' errors and plans."""
+    the first against the float64 filter), each d on its tier, and at
+    FILTER_WARP_TIER_SHAPES against the float64 filter.  Returns the log
+    lines, the launch key's max error and the tier checks' errors and plans
+    (``by_d``: the tier each check shape's d took)."""
     import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
 
     device = torch.device("cuda")
     lines: list = []
+    taken = {d: ff.device_warp_plan(d, device)["tier"]
+             for _, _, d, _ in FILTER_WARP_CHECK_SHAPES}
+    if taken != {d: "tensor_cores" if d <= ff.TC_DIM else "sweep"
+                 for d in taken}:
+        raise AssertionError(f"the warp K3's check shapes took the tiers "
+                             f"{taken}")
+    lines.append(f"[check] K3 fused_filter_warp tiers by d: {taken}")
     worst = check_filter_kernel(device, FILTER_WARP_CHECK_SHAPES,
                                 log=lines.append, seed=1700)
     tiers = check_warp_tiers(device, FILTER_WARP_TIER_SHAPES,
                              log=lines.append)
+    tiers["by_d"] = taken
     _ended(lines, "warp K3 checks", wall0)
     return lines, worst, tiers
 
@@ -4743,6 +4840,8 @@ def main() -> int:
         "copy_gb_per_s": ingest["copy_dequant_bytes_per_s"] / 1e9,
         "variants_checked": {"x".join(map(str, k)): str(v)
                              for k, v in quant_layouts["dequant"].items()},
+        "w_tiles_checked": {"x".join(map(str, k)): list(v) for k, v in
+                            quant_layouts["dequant_tiles"].items()},
     })
     # K1 with per-chain W: launched on lgssm_wtau (and, with Q per chain
     # too, on the W-and-Q path); K2 with per-chain Q: launched on the
@@ -4988,6 +5087,11 @@ def main() -> int:
     warp_ptxas = [line.strip() for line in kernels.ptxas_report(
         "fused_filter_warp").splitlines() if any(
         k in line for k in ("Compiling entry", "registers", "spill"))]
+    tc_ptxas = tensor_tier_ptxas(warp_ptxas)
+    tc_warps = 8 * ff._library("fused_filter_warp") \
+        .rxt_warp_filter_tc_blocks_per_sm(FILTER32_D, ff.WARP_MAX_CHAINS)
+    print(f"[filter32] tensor-core tier: {tc_warps} warps an SM; ptxas: "
+          + " | ".join(tc_ptxas))
     rows.append({
         "name": "fused_filter_warp", "route": "cuda",
         "source": "rxinfer_tpu_torch/csrc/fused_filter_warp.cu",
@@ -5008,10 +5112,16 @@ def main() -> int:
         "library_note": "no single PyTorch call computes a Kalman filter",
         "shape_BTddy": [FILTER_B, FILTER_T, FILTER32_D, FILTER32_D],
         "bytes": filt32_bound["bytes"], "ops": filt32_bound["ops"],
+        "ops_tensor_cores": filt32_bound["ops_tensor_cores"],
+        "bound_rates": "ops_tensor_cores at 3xTF32 (495e12 / 3 op/s), the "
+                       "other ops at 67e12 op/s, bytes at 3.35e12 B/s",
         "cycles_per_step": filt32["cycles_per_step"],
         "sm_clock_mhz": filt32["sm_clock_mhz"],
         "share_of_bound": filt32_bound["bound_ms"] / filt32["kernel_ms"],
         "plan": ff.device_warp_plan(FILTER32_D, device),
+        "tier_by_d": s14_tiers["by_d"],
+        "warps_per_sm": tc_warps,
+        "ptxas_tensor_core_tier": tc_ptxas,
         "plans_device_tiers": s14_tiers["plans"],
         "shapes_checked": ["x".join(map(str, s))
                            for s in FILTER_WARP_CHECK_SHAPES]

@@ -14,12 +14,19 @@
 // ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle row by row; out
 // means (T, d, B), mf (d, B), pf (nsym, B).
 //
-// Design: a chain on a whole warp.  Its two d x d matrices (P and a work
-// matrix) live in memory, not in registers: rows at a padded stride S
-// (the dim padded to dp, a multiple of 8, and S = dp + 4, so a row is whole
-// float4s and a column read spreads over 8 banks), the padding zero.  Lane
-// l owns columns l, l + 32, ... (ceil(d / 32) of them; the matrices of the
-// step are symmetric, so a column is a row).  A product C = A B has lane l
+// Two tiers, a chain on a whole warp in both; the host-side rule that
+// picks the tier and the chains a block is ops/fused_filter.py `warp_plan`.
+// To d = 32 the tensor-core tier (namespace tc below): the chain's two
+// matrices in registers, their products and the inverses' Schur blocks on
+// the tensor cores in 3xTF32.  Past d = 32 the sweep tiers, described
+// here.
+//
+// The sweep tiers: a chain's two d x d matrices (P and a work matrix) live
+// in memory, not in registers: rows at a padded stride S (the dim padded
+// to dp, a multiple of 8, and S = dp + 4, so a row is whole float4s and a
+// column read spreads over 8 banks), the padding zero.  Lane l owns columns
+// l, l + 32, ... (ceil(d / 32) of them; the matrices of the step are
+// symmetric, so a column is a row).  A product C = A B has lane l
 // accumulate column j of C for 8 rows at a time: A's rows are read as
 // float4 broadcasts, B's row k as 32 neighbouring floats (no bank
 // conflict); a symmetric product computes the upper triangle and writes
@@ -28,35 +35,33 @@
 // sym_inv_scaled_rows: scale by the mean |diagonal|, d unpivoted pivots in
 // series, the upper triangle kept and mirrored), column by column: the
 // pivot's column is copied to a vector first, then each lane updates its
-// own columns with the pivot row's entry of that column.  While a lane has
-// one column of at most 32 rows (d <= 32) and the parameters are shared,
-// the inverses hold that column in registers instead and the pivot's lane
-// stores its column for the others to read (same arithmetic, same bits).
-// The plain version inverts by a Schur recursion, so the two differ in
-// rounding only.
+// own columns with the pivot row's entry of that column.  The plain
+// version inverts by a Schur recursion, so the two differ in rounding only.
 // F, F^T, Q and W, shared by every chain, come from one device tensor (4
 // padded matrices); they are copied to the block's shared memory while they
 // fit beside one chain, else read from device memory through L1.  A
 // chain's two matrices sit in shared memory while one chain fits a block,
 // else in a device-memory scratch (a slot a warp), so no d has a cap.  The
-// host-side rule that picks the tier and the chains a block is
-// ops/fused_filter.py `warp_plan`; the launcher recomputes the shared bytes
-// from it (rxt_warp_filter_smem_bytes) and refuses more than the device's
-// opt-in limit.  The evidence is formed here as in fused_filter_wide.cu:
-// lane l sums xi_j = HR[j][0] y[0] + HR[j][1] y[1] + ... in k order,
-// reading HR's row j as column j of HR^T (dy, d) from device memory, the
-// step's observations staged in shared memory kYChunk at a time: dy has no
-// cap.
+// launcher recomputes the shared bytes from the plan
+// (rxt_warp_filter_smem_bytes) and refuses more than the device's opt-in
+// limit.  The evidence is formed here, in both tiers, as in
+// fused_filter_wide.cu: lane l sums xi_j = HR[j][0] y[0] + HR[j][1] y[1] +
+// ... in k order, reading HR's row j as column j of HR^T (dy, d) from device
+// memory, the step's observations staged in shared memory kYChunk at a
+// time: dy has no cap.
 //
-// What bounds it: at path A's (B, T, d, dy) = (10,000, 200, 32, 32) the
+// What bounds them: at path A's (B, T, d, dy) = (10,000, 200, 32, 32) the
 // operations of the plain step (3.49e11, counted on stand-ins) take 5.21 ms
-// at the float32 rate and the bytes (0.557 GB) 0.17 ms, so on paper the
-// operations.  This kernel is bound by its shared-memory instructions
-// instead: the sweep in memory loads and stores an entry for each
-// multiply-add (with the column in registers, two instructions for four),
-// the products load 0.375 words a multiply-add, and a warp of one chain
-// has one dependent chain of d pivots.  Tensor cores for the d^3 products,
-// and registers for the inverses past d = 32, are later work (ROADMAP).
+// at the float32 rate, or 2.38 ms with the 91% of them that the
+// tensor-core tier runs as products at the 3xTF32 rate (495 / 3 TFLOP/s),
+// and the bytes (0.557 GB) 0.17 ms, so on paper the operations.  A sweep
+// tier is bound by its shared-memory instructions
+// instead: the sweep loads and stores an entry for each multiply-add, the
+// products load 0.375 words a multiply-add, and a warp of one chain has
+// one dependent chain of d pivots (51.98 ms at that shape on an H100).
+// The tensor-core tier is bound by its instructions' issue and latency at
+// 16 warps an SM (128 registers a thread): the splits of the operands into
+// TF32 parts, the leaves' pivots and the 3xTF32 products (14.2 ms).
 //
 // A chain index past B runs on the last chain's inputs and stores nothing,
 // so every lane reaches every __syncwarp.
@@ -237,62 +242,13 @@ __device__ __forceinline__ void sym_inv_scaled(float* m, float* v, int d,
   mirror_upper(m, d, s, lane);
 }
 
-// sym_inv_scaled with a lane's column in registers, for dp <= 32 (a column
-// a lane): the same arithmetic in the same order, so the same bits.  At
-// each pivot k lane k stores its column to `v` (dp floats) and every lane
-// reads it back as float4 broadcasts: two shared-memory instructions for
-// four rows, where the sweep in memory loads and stores each entry.  The
-// pivots are unrolled so that a column's entries stay registers.
-__device__ __forceinline__ void sym_inv_scaled_reg(float* m, float* v, int d,
-                                                   int dp, int s, int lane) {
-  const float inv_s = inverse_scale(m, d, s, lane);
-  const bool col = lane < d;
-  float a[kLanes];
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i)
-    a[i] = col && i < d ? m[i * s + lane] * inv_s : 0.0f;
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) {
-    if (k >= d) break;
-    __syncwarp();  // every lane is done with the last pivot's column
-    if (lane == k) {
-#pragma unroll
-      for (int q = 0; q < kLanes / 4; ++q)
-        if (4 * q < dp)
-          reinterpret_cast<float4*>(v)[q] =
-              make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-    }
-    __syncwarp();
-    const float p = 1.0f / v[k];
-    const bool pc = lane == k;
-    const float qj = a[k] * p;
-#pragma unroll
-    for (int q = 0; q < kLanes / 4; ++q) {
-      if (4 * q >= dp) break;
-      const float4 fv = reinterpret_cast<const float4*>(v)[q];
-      const float f[4] = {fv.x, fv.y, fv.z, fv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = 4 * q + u;
-        a[i] = i == k ? (pc ? p : qj)
-                      : (pc ? -f[u] * p : fmaf(-f[u], qj, a[i]));
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i)
-    if (col && i <= lane) m[i * s + lane] = a[i] * inv_s;
-  mirror_upper(m, d, s, lane);
-}
-
 // Floats of the per-chain vectors: m, m_pred, h, a pivot column, the
 // observation chunk.
 __host__ __device__ constexpr int vec_floats(int dp) {
   return 4 * dp + kYChunk;
 }
 
-// REG_INVERSE: the inverses with a lane's column in registers (dp <= 32).
-template <bool PARAMS_SHARED, bool CHAIN_SHARED, bool REG_INVERSE>
+template <bool PARAMS_SHARED, bool CHAIN_SHARED>
 __global__ void __launch_bounds__(kMaxChains * kLanes)
 warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
                    const float* __restrict__ p0,
@@ -361,10 +317,7 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
     mat_mul<true, true>(xm, ft, q, pm, d, d4, s, lane);
     __syncwarp();
     // L = P_pred^-1 in place ; X = L + W (upper, mirrored)
-    if (REG_INVERSE)
-      sym_inv_scaled_reg(pm, cv, d, dp, s, lane);
-    else
-      sym_inv_scaled(pm, cv, d, s, lane);
+    sym_inv_scaled(pm, cv, d, s, lane);
     for (int j = lane; j < d; j += kLanes) {
       for (int i0 = 0; i0 <= j; i0 += kRowBlock) {
         float lam[kRowBlock], wo[kRowBlock];
@@ -403,10 +356,7 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
     __syncwarp();
 
     // P = (L + W)^-1 ; m = P h
-    if (REG_INVERSE)
-      sym_inv_scaled_reg(xm, cv, d, dp, s, lane);
-    else
-      sym_inv_scaled(xm, cv, d, s, lane);
+    sym_inv_scaled(xm, cv, d, s, lane);
     for (int j = lane; j < d; j += kLanes) {
       const float m = col_dot(xm, hv, d4, s, j);
       mv[j] = m;
@@ -426,6 +376,620 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
   }
 }
 
+// ---- The tensor-core tier: 16 < d <= 32 -----------------------------------
+//
+// The same step on a chain a warp, with the state padded to 32 and both of
+// the chain's matrices in registers, in the accumulator layout of
+// mma.sync.m16n8k8 (struct Mat below): lane (g, t) = (lane / 4, lane % 4)
+// holds rows g, g + 8, g + 16, g + 24 and columns 2t, 2t + 1, 2t + 8, ... .
+// * Products on the tensor cores, float32-accurate: every operand is split
+//   into a TF32 high part (rounded to nearest as cvt.rna does) and a low
+//   part (the float32 rest, of which the tensor cores read the top 19
+//   bits), and three TF32 products are summed (lo hi + hi lo + hi hi,
+//   "3xTF32").  A plain TF32 product keeps about three decimal digits and
+//   is not used.
+// * No fragment changes layout.  mma's A operand holds (row g, k = t) and
+//   (row g, k = t + 4), where the accumulator holds columns 2t and 2t + 1:
+//   read with k permuted within each 8 (k = t -> column 2t, t + 4 -> 2t + 1)
+//   an accumulator is an A operand as it stands.  The B operand of C = A N^T
+//   with that permutation is N's rows 8n + g at columns 2t, 2t + 1: again
+//   N's accumulator registers.  So every product is written C = A N^T with
+//   A and N in accumulator layout (blk_mul, mul8, row_block_*), and a
+//   symmetric N is its own transpose.
+// * Both inverses are the plain version's Schur recursion split at 16
+//   (ops/entrywise.py sym_inv, scaled by the mean |diagonal| as
+//   sym_inv_scaled): A^-1 on the leaf; X = A^-1 B and Z = B^T A^-1 (which
+//   is X^T, formed so that no block is transposed); S = D - Z B; S^-1 on
+//   the leaf; Y = X S^-1 and Y^T = S^-1 X^T; TL = A^-1 + Y X^T.  Six 16 x 16
+//   x 16 products on the tensor cores.  Each 16 x 16 inverse is the same
+//   recursion split at 8, its four 8 x 8 x 8 products two a m16n8k8 (the
+//   8-row halves of mma's A carry two products that share B); the 8 x 8
+//   leaves are the Gauss-Jordan sweep of the sweep tiers, their pivots'
+//   rows and columns exchanged by shuffles.  The upper-right block of an
+//   input is never read: its transpose B^T is.
+// * The padding: Q's padded diagonal is 1 in shared memory, so the padded
+//   block of every matrix of the step is the identity, and the products
+//   keep the real and padded parts apart exactly (zeros times finite
+//   numbers); the scale is the mean over the d real diagonal entries.
+// * F (split into its TF32 parts, and F^T in float32 for m_pred = F m), Q
+//   and W sit in shared memory once a block, at a row stride of 40 floats:
+//   a quad's float2 loads of rows g, columns 2t, 2t + 1 take all 32 banks
+//   of a half-warp.  A chain's vectors (m, m_pred, h, the observation
+//   chunk) sit in shared memory, and one 16 x 16 block of P_pred while F P
+//   is formed (predict_cov); xi = HR y is formed as in the sweep tiers.
+// A step at d = 32 is 360 mma.sync (96 + 72 for F P F^T, 2 x 72 for the
+// inverses' 16 x 16 products, 4 x 12 for the 8 x 8 ones) and eight leaves
+// of 8 pivots.  To d = 24 a second instance pads the state to 24 for the
+// products: the last 8-column tile of every operand is then zero padding
+// or the padding's identity, so its products are not formed (201
+// mma.sync a step) and the padded half of D is inverted as a diagonal (six
+// leaves).  F P is formed a 16-row block at a time, and only the three
+// blocks of F P F^T + Q the inverse reads, so that a thread stays within
+// 128 registers without spilling.
+
+namespace tc {
+
+constexpr int kDim = 32;
+constexpr int kS = 40;                 // a shared matrix's row stride
+constexpr int kMat = kDim * kS;
+// a chain's m, m_pred, h, observation chunk, and a block of P_pred (8
+// floats a lane) while the next block row of F P is formed
+constexpr int kVec = 3 * kDim + kYChunk + 8 * kLanes;
+constexpr int kMinBlocks = 2;          // blocks an SM (__launch_bounds__)
+
+// A 32 x 32 matrix in mma.m16n8k8's accumulator layout: 16 x 16 blocks
+// [bi][bj], each two 16 x 8 tiles [nj] of four registers [r]; entry r of
+// tile nj of block (bi, bj) sits at row 16 bi + g + 8 (r / 2), column
+// 16 bj + 8 nj + 2 t + r % 2.
+struct Mat {
+  float b[2][2][2][4];
+};
+using Blk = float[2][4];
+
+// x rounded to TF32: to nearest on the 13 dropped bits, ties away from zero,
+// by an add and a mask (cvt.rna.tf32.f32's bits for finite x, at half its
+// instructions).  A NaN may come out as -0 or an infinity, but its low part
+// below is NaN, and every product takes the low parts, so a NaN operand
+// still gives a NaN product.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi rounded to TF32, lo the exact float32 rest, of which
+// the tensor cores read the top 19 bits (|lo| <= 2^-11 |x|, so hi + lo
+// carries x to 21 bits)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b, one m16n8k8 TF32 product
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32, the small products first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// The A operand of k tile kk from an accumulator-layout block row: (row g,
+// k = t) is column 2t, (row g, k = t + 4) column 2t + 1.
+__device__ __forceinline__ void a_frag(const float (&tile)[4], bool neg,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float sg = neg ? -1.0f : 1.0f;
+  split(sg * tile[0], hi[0], lo[0]);
+  split(sg * tile[2], hi[1], lo[1]);
+  split(sg * tile[1], hi[2], lo[2]);
+  split(sg * tile[3], hi[3], lo[3]);
+}
+
+// c = (ADD ? c : 0) + (NEG ? -1 : 1) a n^T over 16 x 16 blocks, a k tile
+// of operands split at a time.  c is written last, so it may alias a or n.
+// NJ, KK: the output column tiles and k tiles formed (2, or 1 where the
+// second is zero padding by construction: then c's second tile is 0, or
+// kept with ADD).
+template <bool ADD, bool NEG, int NJ = 2, int KK = 2>
+__device__ __forceinline__ void blk_mul(Blk& c, const Blk& a, const Blk& n) {
+  float acc[2][4];
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nj][r] = ADD ? c[nj][r] : 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    uint32_t ah[4], al[4], nh[4], nl[4];
+    a_frag(a[kk], NEG, ah, al);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(n[kk][r], nh[r], nl[r]);
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) {
+      // B: n's rows 8 nj + g (registers 2 nj, 2 nj + 1) at k tile kk
+      const uint32_t bh[2] = {nh[2 * nj], nh[2 * nj + 1]};
+      const uint32_t bl[2] = {nl[2 * nj], nl[2 * nj + 1]};
+      mma3(acc[nj], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[nj][r] = acc[nj][r];
+}
+
+// x = F_i m^T, the 16-row block i of F m^T: F's TF32 parts from shared
+// memory (rows 16 i + g, + 8 at columns 8 ki + 2t, + 1: float2 loads), m
+// in registers.  x[bj][nj] is the tile at columns 16 bj + 8 nj.  Column
+// and k tiles at or past DP are zero padding (F's columns, m's identity
+// block against F's zero columns) and are not formed.
+template <int I, int DP>
+__device__ __forceinline__ void row_block_fmt(float (&x)[2][2][4],
+                                              const float* fh,
+                                              const float* fl, const Mat& m,
+                                              int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[j][nj][r] = 0.0f;
+#pragma unroll
+  for (int ki = 0; ki < DP / 8; ++ki) {
+    const int o = (16 * I + g) * kS + 8 * ki + 2 * t;
+    const float2 h0 = *reinterpret_cast<const float2*>(fh + o);
+    const float2 h1 = *reinterpret_cast<const float2*>(fh + o + 8 * kS);
+    const float2 l0 = *reinterpret_cast<const float2*>(fl + o);
+    const float2 l1 = *reinterpret_cast<const float2*>(fl + o + 8 * kS);
+    const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                            __float_as_uint(h0.y), __float_as_uint(h1.y)};
+    const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                            __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+    for (int ni = 0; ni < DP / 8; ++ni) {
+      // B: m's rows 8 ni + g at k tile ki
+      uint32_t bh[2], bl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split(m.b[ni >> 1][ki >> 1][ki & 1][2 * (ni & 1) + e], bh[e], bl[e]);
+      mma3(x[ni >> 1][ni & 1], ah, al, bh, bl);
+    }
+  }
+}
+
+// c = x F_j^T + Q over NB column blocks j = 0 .. NB - 1 of block row I: x a
+// 16-row block in registers, F's TF32 parts and Q from shared memory.
+// Column and k tiles at or past DP are padding: c keeps Q's there.
+template <int I, int NB, int DP>
+__device__ __forceinline__ void row_block_xft(float (&c)[NB][2][4],
+                                              const float (&x)[2][2][4],
+                                              const float* fh,
+                                              const float* fl,
+                                              const float* q, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            q + (16 * I + g + 8 * h) * kS + 16 * j + 8 * nj + 2 * t);
+        c[j][nj][2 * h] = v.x;
+        c[j][nj][2 * h + 1] = v.y;
+      }
+#pragma unroll
+  for (int ki = 0; ki < DP / 8; ++ki) {
+    uint32_t ah[4], al[4];
+    a_frag(x[ki >> 1][ki & 1], false, ah, al);
+#pragma unroll
+    for (int ni = 0; ni < 2 * NB && ni < DP / 8; ++ni) {
+      // B: F's rows 8 ni + g at k tile ki
+      const int o = (8 * ni + g) * kS + 8 * ki + 2 * t;
+      const float2 vh = *reinterpret_cast<const float2*>(fh + o);
+      const float2 vl = *reinterpret_cast<const float2*>(fl + o);
+      const uint32_t bh[2] = {__float_as_uint(vh.x), __float_as_uint(vh.y)};
+      const uint32_t bl[2] = {__float_as_uint(vl.x), __float_as_uint(vl.y)};
+      mma3(c[ni >> 1][ni & 1], ah, al, bh, bl);
+    }
+  }
+}
+
+// In place: P = F P F^T + Q, a 16-row block of F P at a time, so that P
+// and one block row of F P are live at once.  Only the blocks the inverse
+// reads are formed: (0, 0) from the first block row, (1, 0) and (1, 1) from
+// the second; the upper-right block keeps P's (the inverse reads its
+// transpose).  Block (0, 0) waits in the chain's shared `park` (8 floats a
+// lane, i-major) while the second block row is formed.
+template <int DP>
+__device__ __forceinline__ void predict_cov(Mat& pm, const float* fh,
+                                            const float* fl, const float* q,
+                                            float* park, int g, int t,
+                                            int lane) {
+  float x[2][2][4];
+  {
+    float top[1][2][4];
+    row_block_fmt<0, DP>(x, fh, fl, pm, g, t);
+    row_block_xft<0, 1, DP>(top, x, fh, fl, q, g, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) park[i * kLanes + lane] = top[0][i >> 2][i & 3];
+  }
+  row_block_fmt<1, DP>(x, fh, fl, pm, g, t);
+  row_block_xft<1, 2, DP>(pm.b[1], x, fh, fl, q, g, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pm.b[0][0][i >> 2][i & 3] = park[i * kLanes + lane];
+}
+
+// In place: the inverse of an 8 x 8 block, two registers a lane (row g,
+// columns 2t and 2t + 1), by the unpivoted Gauss-Jordan sweep of the sweep
+// tiers, its pivot's row and column fetched by shuffles from the lanes
+// that hold them.  The pivot's reciprocal is the hardware's (about 1 ulp;
+// an IEEE division is a range test and a call a pivot), and every entry's
+// update is selected, not branched to.
+__device__ __forceinline__ void leaf8(float& x0, float& x1, int g, int t,
+                                      int lane) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int kt = k >> 1, ke = k & 1;
+    const float f = __shfl_sync(kFull, ke ? x1 : x0, (lane & ~3) | kt);
+    const float r0 = __shfl_sync(kFull, x0, 4 * k + t);   // M[k][2t]
+    const float r1 = __shfl_sync(kFull, x1, 4 * k + t);   // M[k][2t + 1]
+    const float p =
+        __fdividef(1.0f, __shfl_sync(kFull, ke ? x1 : x0, 4 * k + kt));
+    const bool rowk = g == k;
+    const bool ck0 = t == kt && ke == 0, ck1 = t == kt && ke == 1;
+    const float q0 = r0 * p, q1 = r1 * p, fp = -f * p;
+    const float u0 = fmaf(-f, q0, x0), u1 = fmaf(-f, q1, x1);
+    const float row0 = ck0 ? p : q0, row1 = ck1 ? p : q1;
+    const float col0 = ck0 ? fp : u0, col1 = ck1 ? fp : u1;
+    x0 = rowk ? row0 : col0;
+    x1 = rowk ? row1 : col1;
+  }
+}
+
+// [c0 c1; c2 c3] += [a0 a1; a2 a3] [n0 n1]^T over 8 x 8 blocks of two
+// registers a lane (row g, columns 2t, 2t + 1): one m16n8k8 product in
+// 3xTF32, the top block rows 0-7 of mma's A and D, the bottom rows 8-15.
+// TOP / BOT: whether that half of A is a block (else zero, and its part of
+// D is not used).
+template <bool TOP, bool BOT>
+__device__ __forceinline__ void mul8(float& c0, float& c1, float& c2,
+                                     float& c3, float a0, float a1, float a2,
+                                     float a3, float n0, float n1) {
+  uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
+  if (TOP) {
+    split(a0, ah[0], al[0]);
+    split(a1, ah[2], al[2]);
+  }
+  if (BOT) {
+    split(a2, ah[1], al[1]);
+    split(a3, ah[3], al[3]);
+  }
+  uint32_t bh[2], bl[2];
+  split(n0, bh[0], bl[0]);
+  split(n1, bh[1], bl[1]);
+  float acc[4] = {c0, c1, c2, c3};
+  mma3(acc, ah, al, bh, bl);
+  c0 = acc[0];
+  c1 = acc[1];
+  c2 = acc[2];
+  c3 = acc[3];
+}
+
+// In place: the inverse of a symmetric 16 x 16 block by the Schur blocks at
+// 8 (sym_inv's recursion one level down) with 8-pivot leaves.  Its tile 0
+// (columns 0-7) holds A in registers 0, 1 and B^T in 2, 3; tile 1 holds B
+// and D.  A^-1; Z = B^T A^-1; then X = A^-1 B and S = D - Z B in one
+// product (the two share B); S^-1; Y = X S^-1; then TL = A^-1 + Y X^T and
+// Y^T = S^-1 X^T in one product (the two share X).  B is never read.
+// PAD: D is the padding's diagonal and B zero, so the inverse is A^-1 and
+// D's reciprocal diagonal (lane (g, t) holds a diagonal entry of D where
+// g = 2t + e).
+template <bool PAD>
+__device__ __forceinline__ void inv16(Blk& m, int g, int t, int lane) {
+  if (PAD) {
+    leaf8(m[0][0], m[0][1], g, t, lane);
+    if (g == 2 * t) m[1][2] = __fdividef(1.0f, m[1][2]);
+    if (g == 2 * t + 1) m[1][3] = __fdividef(1.0f, m[1][3]);
+    return;
+  }
+  float u0 = 0.0f, u1 = 0.0f;                       // an unused half
+  leaf8(m[0][0], m[0][1], g, t, lane);              // A^-1
+  float z0 = 0.0f, z1 = 0.0f;                       // Z = B^T A^-1
+  mul8<false, true>(u0, u1, z0, z1, 0.0f, 0.0f, m[0][2], m[0][3], m[0][0],
+                    m[0][1]);
+  float x0 = 0.0f, x1 = 0.0f;                       // X ; S = D - Z B
+  mul8<true, true>(x0, x1, m[1][2], m[1][3], m[0][0], m[0][1], -z0, -z1,
+                   m[0][2], m[0][3]);
+  leaf8(m[1][2], m[1][3], g, t, lane);              // S^-1
+  float y0 = 0.0f, y1 = 0.0f;                       // Y = X S^-1
+  mul8<true, false>(y0, y1, u0, u1, x0, x1, 0.0f, 0.0f, m[1][2], m[1][3]);
+  float w0 = 0.0f, w1 = 0.0f;                       // TL ; Y^T
+  mul8<true, true>(m[0][0], m[0][1], w0, w1, y0, y1, m[1][2], m[1][3], x0,
+                   x1);
+  m[1][0] = -y0;
+  m[1][1] = -y1;
+  m[0][2] = -w0;
+  m[0][3] = -w1;
+}
+
+// 1 / the mean |diagonal| over the d real entries (1 for a zero diagonal),
+// the same on every lane: lane (g, g / 2) holds entries 16 b + 8 h + g.
+// (A register is picked by a select: an index that differs between lanes
+// would put the matrix in local memory.)
+__device__ __forceinline__ float inverse_scale(const Mat& m, int d, int g,
+                                               int t) {
+  float sum = 0.0f;
+  if (t == (g >> 1)) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* tile = m.b[b][b][h];
+        const float v = g & 1 ? tile[2 * h + 1] : tile[2 * h];
+        if (16 * b + 8 * h + g < d) sum += fabsf(v);
+      }
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2) sum += __shfl_xor_sync(kFull, sum, o);
+  float scale = sum / static_cast<float>(d);
+  scale = scale > 0.0f ? scale : 1.0f;
+  return 1.0f / scale;
+}
+
+// In place: the inverse of the symmetric m (identity past d), scaled as
+// sym_inv_scaled, by the Schur blocks at 16.  DP = 24: rows and columns
+// 24-31 are padding (the second tile of B^T's rows and of D's columns is
+// zero or the identity's), so the products skip those tiles and D's
+// inverse its padded half.
+template <int DP>
+__device__ __forceinline__ void sym_inv_scaled(Mat& m, int d, int g, int t,
+                                               int lane) {
+  constexpr int P = DP == 32 ? 2 : 1;   // live tiles of the second block
+  const float inv_s = inverse_scale(m, d, g, t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) m.b[i][j][nj][r] *= inv_s;
+  Blk& a = m.b[0][0];
+  Blk& bu = m.b[0][1];
+  Blk& bt = m.b[1][0];
+  Blk& dd = m.b[1][1];
+  inv16<false>(a, g, t, lane);                 // A^-1
+  Blk x, z;
+  blk_mul<false, false, P>(x, a, bt);          // X = A^-1 B
+  blk_mul<false, false>(z, bt, a);             // Z = B^T A^-1
+  blk_mul<true, true, P>(dd, z, bt);           // S = D - Z B
+  inv16<DP != 32>(dd, g, t, lane);             // S^-1
+  blk_mul<false, false, P, P>(bu, x, dd);      // Y = X S^-1
+  blk_mul<false, false, 2, P>(bt, dd, x);      // Y^T = S^-1 X^T
+  blk_mul<true, false, 2, P>(a, bu, x);        // TL = A^-1 + Y X^T
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[nj][r] *= inv_s;
+      dd[nj][r] *= inv_s;
+      bu[nj][r] *= -inv_s;
+      bt[nj][r] *= -inv_s;
+    }
+}
+
+// Row 16 (t / 2) + 8 (t % 2) + g of m v (v: 32 floats, zero past d, so
+// columns past DP are not read), the quad's partial sums joined by
+// shuffles.
+template <int DP>
+__device__ __forceinline__ float mat_vec_row(const Mat& m, const float* v,
+                                             int g, int t) {
+  float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      if (16 * j + 8 * nj >= DP) continue;
+      const float2 vv =
+          *reinterpret_cast<const float2*>(v + 16 * j + 8 * nj + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[i][h] = fmaf(m.b[i][j][nj][2 * h], vv.x, s[i][h]);
+          s[i][h] = fmaf(m.b[i][j][nj][2 * h + 1], vv.y, s[i][h]);
+        }
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[i][h] += __shfl_xor_sync(kFull, s[i][h], 1);
+      s[i][h] += __shfl_xor_sync(kFull, s[i][h], 2);
+    }
+  return t == 0 ? s[0][0] : t == 1 ? s[0][1] : t == 2 ? s[1][0] : s[1][1];
+}
+
+__host__ __device__ constexpr int smem_floats(int chains) {
+  return 5 * kMat + chains * kVec;
+}
+
+// params: the (4, 32, s_in) F, F^T, Q, W of the sweep tiers, zero past d.
+// DP: the state padded to 24 (d <= 24) or 32 for the products.
+template <int DP>
+__global__ void __launch_bounds__(kMaxChains * kLanes, kMinBlocks)
+warp_filter_tc_kernel(const float* __restrict__ ys,
+                      const float* __restrict__ m0,
+                      const float* __restrict__ p0,
+                      const float* __restrict__ hr_t,
+                      const float* __restrict__ params,
+                      float* __restrict__ means, float* __restrict__ mf,
+                      float* __restrict__ pf, int64_t T, int64_t B, int d,
+                      int dy, int s_in, int chains) {
+  extern __shared__ __align__(16) float smem[];
+  float* ft = smem;             // F^T, float32
+  float* fh = smem + kMat;      // F's TF32 high part
+  float* fl = smem + 2 * kMat;  // F's TF32 low part
+  float* q = smem + 3 * kMat;   // Q, its padded diagonal 1
+  float* w = smem + 4 * kMat;   // W
+  const int wg = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t b_raw = static_cast<int64_t>(blockIdx.x) * chains + wg;
+  const bool valid = b_raw < B;
+  const int64_t b = valid ? b_raw : B - 1;
+  const int mat_in = kDim * s_in;
+  for (int i = threadIdx.x; i < kDim * kDim; i += blockDim.x) {
+    const int r = i / kDim, c = i % kDim;
+    const float fv = params[r * s_in + c];
+    uint32_t hi, lo;
+    split(fv, hi, lo);
+    fh[r * kS + c] = __uint_as_float(hi);
+    fl[r * kS + c] = __uint_as_float(lo);
+    ft[r * kS + c] = params[mat_in + r * s_in + c];
+    q[r * kS + c] = params[2 * mat_in + r * s_in + c] +
+                    (r == c && r >= d ? 1.0f : 0.0f);
+    w[r * kS + c] = params[3 * mat_in + r * s_in + c];
+  }
+  float* mv = smem + 5 * kMat + wg * kVec;
+  float* mp = mv + kDim;
+  float* hv = mp + kDim;
+  float* y_s = hv + kDim;
+  float* park = y_s + kYChunk;
+  for (int i = lane; i < kVec; i += kLanes) mv[i] = 0.0f;
+  __syncwarp();
+  if (lane < d) mv[lane] = m0[lane * B + b];
+  // the state handed in; identity past d
+  Mat pm;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 16 * i + g + 8 * (r >> 1);
+          const int col = 16 * j + 8 * nj + 2 * t + (r & 1);
+          pm.b[i][j][nj][r] =
+              row < d && col < d
+                  ? p0[(row <= col ? sym_slot(row, col, d)
+                                   : sym_slot(col, row, d)) * B + b]
+                  : (row == col ? 1.0f : 0.0f);
+        }
+  __syncthreads();  // the parameters and the vectors are in place
+  const int d4 = (d + 3) & ~3;
+  const int my_row = 16 * (t >> 1) + 8 * (t & 1) + g;
+
+  for (int64_t step = 0; step < T; ++step) {
+    const float* yt = ys + step * dy * B + b;
+    float y_next = lane < dy ? yt[lane * B] : 0.0f;
+
+    // m_pred = F m ; P_pred = (F P) F^T + Q ; L = P_pred^-1
+    if (lane < d) mp[lane] = col_dot(ft, mv, d4, kS, lane);
+    predict_cov<DP>(pm, fh, fl, q, park, g, t, lane);
+    sym_inv_scaled<DP>(pm, d, g, t, lane);
+
+    // xi_j = sum_k HR[j][k] y_t[k], k in order, a chunk at a time (into h)
+    for (int c = 0; c < dy; c += kYChunk) {
+      if (c > 0) y_next = c + lane < dy ? yt[(c + lane) * B] : 0.0f;
+      __syncwarp();  // the chain is done with the last chunk
+      y_s[lane] = y_next;
+      __syncwarp();
+      const int n = dy - c < kYChunk ? dy - c : kYChunk;
+      if (lane < d) {
+        const float* hr = hr_t + static_cast<int64_t>(c) * d + lane;
+        float xi = c > 0 ? hv[lane] : 0.0f;
+        for (int k = 0; k < n; ++k, hr += d)
+          xi = c + k == 0 ? *hr * y_s[k] : fmaf(*hr, y_s[k], xi);
+        hv[lane] = xi;
+      }
+    }
+    __syncwarp();  // m_pred and xi are in place
+    // h = L m_pred + xi (a row a lane) ; L + W
+    const float h_row = mat_vec_row<DP>(pm, mp, g, t) + hv[my_row];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                w + (16 * i + g + 8 * h) * kS + 16 * j + 8 * nj + 2 * t);
+            pm.b[i][j][nj][2 * h] += v.x;
+            pm.b[i][j][nj][2 * h + 1] += v.y;
+          }
+    __syncwarp();  // every lane has read its xi
+    hv[my_row] = h_row;
+    // P = (L + W)^-1 ; m = P h
+    sym_inv_scaled<DP>(pm, d, g, t, lane);
+    __syncwarp();  // h is in place
+    const float m_row = mat_vec_row<DP>(pm, hv, g, t);
+    mv[my_row] = m_row;
+    if (valid && my_row < d) means[(step * d + my_row) * B + b] = m_row;
+    __syncwarp();
+  }
+
+  if (valid) {
+    if (lane < d) mf[lane * B + b] = mv[lane];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = 16 * i + g + 8 * (r >> 1);
+            const int col = 16 * j + 8 * nj + 2 * t + (r & 1);
+            if (row <= col && col < d)
+              pf[sym_slot(row, col, d) * B + b] = pm.b[i][j][nj][r];
+          }
+  }
+}
+
+// The state's padding for the products: 24 to d = 24, else 32.
+constexpr int padded(int d) { return d <= 24 ? 24 : kDim; }
+
+template <int DP>
+int launch(const float* ys, const float* m0, const float* p0,
+           const float* hr_t, const float* params, float* means, float* mf,
+           float* pf, int64_t T, int64_t B, int d, int dy, int s_in,
+           int chains, cudaStream_t stream) {
+  const int bytes = 4 * smem_floats(chains);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        warp_filter_tc_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const unsigned blocks = static_cast<unsigned>((B + chains - 1) / chains);
+  warp_filter_tc_kernel<DP><<<blocks, chains * kLanes, bytes, stream>>>(
+      ys, m0, p0, hr_t, params, means, mf, pf, T, B, d, dy, s_in, chains);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int blocks_per_sm(int chains) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, warp_filter_tc_kernel<DP>, chains * kLanes,
+          4 * smem_floats(chains)) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace tc
+
 int64_t smem_bytes(int dp, int s, int chains, bool params_shared,
                    bool chain_shared) {
   const int64_t mat = static_cast<int64_t>(dp) * s;
@@ -440,20 +1004,20 @@ int smem_optin() {
   return bytes;
 }
 
-template <bool PS, bool CS, bool RI>
+template <bool PS, bool CS>
 int launch(const float* ys, const float* m0, const float* p0,
            const float* hr_t, const float* params, float* means, float* mf,
            float* pf, float* scratch, int64_t T, int64_t B, int d, int dy,
            int dp, int s, int chains, int64_t bytes, cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        warp_filter_kernel<PS, CS, RI>,
+        warp_filter_kernel<PS, CS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   const unsigned blocks = static_cast<unsigned>((B + chains - 1) / chains);
-  warp_filter_kernel<PS, CS, RI><<<blocks, chains * kLanes, bytes, stream>>>(
+  warp_filter_kernel<PS, CS><<<blocks, chains * kLanes, bytes, stream>>>(
       ys, m0, p0, hr_t, params, means, mf, pf, scratch, T, B, d, dy, dp, s,
       chains);
   return static_cast<int>(cudaGetLastError());
@@ -477,38 +1041,59 @@ int rxt_warp_filter_smem_optin() { return smem_optin(); }
 // params the device (4, dp, s) F, F^T, Q, W, zero past d; hr_t the device
 // (dy, d) HR^T, row-major; scratch, when the chain matrices are not shared,
 // a device buffer of ceil(B / chains) * chains * 2 * dp * s floats; the
-// rest device pointers.  dp a multiple of 8 >= d, s a multiple of 4 > dp;
-// reg_inverse only with the parameters shared and dp <= 32.
+// rest device pointers.  dp a multiple of 8 >= d, s a multiple of 4 > dp.
 int rxt_warp_filter(int d, int dy, const float* ys, const float* m0,
                     const float* p0, const float* hr_t, const float* params,
                     float* means, float* mf, float* pf, float* scratch,
                     int64_t T, int64_t B, int dp, int s, int chains,
-                    int params_shared, int chain_shared, int reg_inverse,
-                    void* stream) {
+                    int params_shared, int chain_shared, void* stream) {
   if (d < 1 || dy < 1 || T < 1 || B < 1 || dp < d || dp % 8 != 0 ||
       s % 4 != 0 || s <= dp || chains < 1 || chains > kMaxChains ||
-      (params_shared && !chain_shared) || (!chain_shared && !scratch) ||
-      (reg_inverse && (!params_shared || dp > kLanes)))
+      (params_shared && !chain_shared) || (!chain_shared && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t bytes =
       smem_bytes(dp, s, chains, params_shared != 0, chain_shared != 0);
   if (bytes > smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (reg_inverse)
-    return launch<true, true, true>(ys, m0, p0, hr_t, params, means, mf, pf,
-                                    scratch, T, B, d, dy, dp, s, chains,
-                                    bytes, st);
   if (params_shared)
-    return launch<true, true, false>(ys, m0, p0, hr_t, params, means, mf, pf,
-                                     scratch, T, B, d, dy, dp, s, chains,
-                                     bytes, st);
+    return launch<true, true>(ys, m0, p0, hr_t, params, means, mf, pf,
+                              scratch, T, B, d, dy, dp, s, chains, bytes, st);
   if (chain_shared)
-    return launch<false, true, false>(ys, m0, p0, hr_t, params, means, mf,
-                                      pf, scratch, T, B, d, dy, dp, s, chains,
-                                      bytes, st);
-  return launch<false, false, false>(ys, m0, p0, hr_t, params, means, mf, pf,
-                                     scratch, T, B, d, dy, dp, s, chains,
-                                     bytes, st);
+    return launch<false, true>(ys, m0, p0, hr_t, params, means, mf, pf,
+                               scratch, T, B, d, dy, dp, s, chains, bytes,
+                               st);
+  return launch<false, false>(ys, m0, p0, hr_t, params, means, mf, pf,
+                              scratch, T, B, d, dy, dp, s, chains, bytes, st);
+}
+
+// The tensor-core tier (16 < d <= 32 on the plan; it takes any d <= 32):
+// its shared bytes for `chains` chains a block, and its launch.  params is
+// the sweep tiers' device (4, 32, s_in) F, F^T, Q, W, zero past d.
+int64_t rxt_warp_filter_tc_smem_bytes(int chains) {
+  return 4 * static_cast<int64_t>(tc::smem_floats(chains));
+}
+
+// Blocks of `chains` chains an SM holds at state dim d (registers, shared
+// memory), or -1.
+int rxt_warp_filter_tc_blocks_per_sm(int d, int chains) {
+  return tc::padded(d) == 24 ? tc::blocks_per_sm<24>(chains)
+                             : tc::blocks_per_sm<tc::kDim>(chains);
+}
+
+int rxt_warp_filter_tc(int d, int dy, const float* ys, const float* m0,
+                       const float* p0, const float* hr_t,
+                       const float* params, float* means, float* mf,
+                       float* pf, int64_t T, int64_t B, int s_in, int chains,
+                       void* stream) {
+  if (d < 1 || d > tc::kDim || dy < 1 || T < 1 || B < 1 ||
+      s_in < tc::kDim || s_in % 4 != 0 || chains < 1 || chains > kMaxChains)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc::padded(d) == 24)
+    return tc::launch<24>(ys, m0, p0, hr_t, params, means, mf, pf, T, B, d,
+                          dy, s_in, chains, st);
+  return tc::launch<tc::kDim>(ys, m0, p0, hr_t, params, means, mf, pf, T, B,
+                              d, dy, s_in, chains, st);
 }
 
 const char* rxt_error_string(int code) {

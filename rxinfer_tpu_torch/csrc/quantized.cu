@@ -62,7 +62,16 @@
 //           in flight, else 1.
 //   general (any other rows: odd dy or dx, misaligned views): a thread a
 //           row, byte loads, scalar stores.
-// Row indices are 64-bit products and sums; no thread divides.
+// W sits in a block's shared memory whole while it fits the device's opt-in
+// limit (232,448 bytes on an H100; above 48 KB the launcher opts in), as
+// the TPU kernel holds it whole in VMEM.  A larger W is staged in tiles
+// (dequant_matmul_tiled_kernel): each block takes four output columns and
+// walks dy in row tiles of as many rows as fit, its sums carried across
+// them; the column tiles of one block of rows are neighbouring blocks, so
+// they read its payload from L2, not each from device memory.  The
+// host-side rule is ops/quantized.py `dequant_tiles`; the launcher computes
+// the same and refuses another plan.  Row indices are 64-bit products and
+// sums; no thread divides but the tiled kernel's block index, once.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -466,31 +475,181 @@ dequant_matmul_kernel(const uint8_t* __restrict__ vals,
   }
 }
 
+// W in tiles: the rows of dequant_matmul_kernel's layout against output
+// columns c .. c + 3 (the column tile is blockIdx.x % ceil(dx / 4), the
+// block of rows blockIdx.x / ceil(dx / 4)), with dy walked in tiles of kt rows
+// (a multiple of 16, so the vector layout's loads stay whole).  Each tile
+// is staged in shared memory as kt rows of four floats (zero past dx) and
+// read as float4 broadcasts; a thread's four sums per row are carried
+// across the tiles, so every product and sum is rounded as in
+// dequant_matmul_kernel and the plain version, in the same k order.  Rows
+// past R run on row 0's payload and store nothing: every thread reaches
+// every barrier.
+constexpr int kTileCols = 4;
+
+template <typename P, int U, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dequant_matmul_tiled_kernel(const uint8_t* __restrict__ vals,
+                            const float* __restrict__ scales,
+                            const float* __restrict__ w,
+                            float* __restrict__ out, int64_t R, int dy,
+                            int dx, int kt) {
+  constexpr int kChunk = VEC ? 16 : 1;
+  constexpr int kWords = VEC ? 4 : 1;
+  constexpr int kPer = VEC ? 4 : 1;
+  extern __shared__ float w_s[];
+  const int ncol = (dx + kTileCols - 1) / kTileCols;
+  const int c = static_cast<int>(blockIdx.x % ncol) * kTileCols;
+  const int64_t row0 =
+      static_cast<int64_t>(blockIdx.x / ncol) * (kThreads * U) + threadIdx.x;
+  float s[U];
+  bool live[U];
+  const uint8_t* vr[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = row0 + u * kThreads;
+    live[u] = r < R;
+    s[u] = live[u] ? __ldg(scales + r) : 0.0f;
+    vr[u] = vals + (live[u] ? r : 0) * dy;
+  }
+  float acc[U][kTileCols] = {};
+  for (int t0 = 0; t0 < dy; t0 += kt) {
+    const int n = dy - t0 < kt ? dy - t0 : kt;
+    __syncthreads();  // the block is done with the last tile
+    for (int i = threadIdx.x; i < n * kTileCols; i += kThreads) {
+      const int k = i / kTileCols, j = i % kTileCols;
+      w_s[i] = c + j < dx ? w[static_cast<int64_t>(t0 + k) * dx + c + j]
+                          : 0.0f;
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < n; k0 += kChunk) {
+      uint32_t ch[U][kWords];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if constexpr (VEC) {
+          const uint4 v = live[u] ? __ldg(reinterpret_cast<const uint4*>(
+                                        vr[u] + t0 + k0))
+                                  : make_uint4(0u, 0u, 0u, 0u);
+          ch[u][0] = v.x; ch[u][1] = v.y; ch[u][2] = v.z; ch[u][3] = v.w;
+        } else {
+          ch[u][0] = live[u] ? __ldg(vr[u] + t0 + k0) : 0u;
+        }
+      }
+#pragma unroll
+      for (int wi = 0; wi < kWords; ++wi) {
+        float q[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if constexpr (VEC)
+            decode4(P(), ch[u][wi], q[u]);
+          else
+            q[u][0] = P::decode(static_cast<typename P::storage>(ch[u][0]));
+        }
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) {
+          const int k = k0 + wi * kPer + b;
+          const float4 v =
+              *reinterpret_cast<const float4*>(w_s + k * kTileCols);
+          const float wk[kTileCols] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float qs = __fmul_rn(q[u][b], s[u]);
+#pragma unroll
+            for (int j = 0; j < kTileCols; ++j) {
+              const float p = __fmul_rn(qs, wk[j]);
+              acc[u][j] = t0 + k == 0 ? p : __fadd_rn(acc[u][j], p);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!live[u]) continue;
+    float* o = out + (row0 + u * kThreads) * dx + c;
+    if constexpr (VEC) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kTileCols; ++j)
+        if (c + j < dx) o[j] = acc[u][j];
+    }
+  }
+}
+
 // layouts, as ops/quantized.py numbers them
 constexpr int kDequantGeneral = 0;
 constexpr int kDequantVector = 1;
-constexpr size_t kDequantSmem = 48 * 1024;
+constexpr int kTileRowAlign = 16;
+
+int dequant_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// ops/quantized.py dequant_tiles: W whole while it fits `limit` bytes, else
+// row tiles of four columns.
+void dequant_tiles(int dy, int dx, int limit, int* kt, int* ct) {
+  if (static_cast<int64_t>(dy) * dx * 4 <= limit) {
+    *kt = dy;
+    *ct = dx;
+    return;
+  }
+  int rows = limit / (4 * kTileCols);
+  rows -= rows % kTileRowAlign;
+  *kt = dy < rows ? dy : rows;
+  *ct = kTileCols;
+}
+
+template <class K>
+int opt_in(K* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
 
 template <typename P, int U, bool VEC>
 int launch_dequant(const void* vals, const float* scales, const float* w,
-                   float* out, int64_t R, int dy, int dx, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(dy) * dx * sizeof(float);
+                   float* out, int64_t R, int dy, int dx, int kt, int ct,
+                   cudaStream_t stream) {
   const int64_t per_block = static_cast<int64_t>(kThreads) * U;
-  const unsigned blocks = static_cast<unsigned>((R + per_block - 1) / per_block);
-  dequant_matmul_kernel<P, U, VEC><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(vals), scales, w, out, R, dy, dx);
+  const int64_t row_blocks = (R + per_block - 1) / per_block;
+  const size_t smem = static_cast<size_t>(kt) * ct * sizeof(float);
+  if (kt == dy && ct == dx) {  // W whole
+    if (const int rc = opt_in(dequant_matmul_kernel<P, U, VEC>, smem)) return rc;
+    const unsigned blocks = static_cast<unsigned>(row_blocks);
+    dequant_matmul_kernel<P, U, VEC><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const uint8_t*>(vals), scales, w, out, R, dy, dx);
+  } else {
+    if (const int rc = opt_in(dequant_matmul_tiled_kernel<P, U, VEC>, smem))
+      return rc;
+    const int64_t all = row_blocks * ((dx + kTileCols - 1) / kTileCols);
+    if (all > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(all);
+    dequant_matmul_tiled_kernel<P, U, VEC><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const uint8_t*>(vals), scales, w, out, R, dy, dx, kt);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The layout's instance, or cudaErrorInvalidValue for a layout the kernel
 // does not take (the wrapper raises on it): the vector layout on rows that
 // are not whole 16-byte loads, dx % 4 != 0, or a payload or output that
-// does not start on 16 bytes; W past the 48 KB of shared memory.
+// does not start on 16 bytes; W tiles other than dequant_tiles' at the
+// device's limit; more blocks than a grid holds.
 template <typename P>
-int launch_dequant_matmul(int variant, int rows_per_thread, const void* vals,
-                          const float* scales, const float* w, float* out,
-                          int64_t R, int dy, int dx, cudaStream_t s) {
-  if (static_cast<size_t>(dy) * dx * sizeof(float) > kDequantSmem)
+int launch_dequant_matmul(int variant, int rows_per_thread, int kt, int ct,
+                          const void* vals, const float* scales,
+                          const float* w, float* out, int64_t R, int dy,
+                          int dx, cudaStream_t s) {
+  int want_kt = 0, want_ct = 0;
+  dequant_tiles(dy, dx, dequant_smem_optin(), &want_kt, &want_ct);
+  if (kt != want_kt || ct != want_ct || kt < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == kDequantVector) {
     if (dy % 16 != 0 || dx % 4 != 0 ||
@@ -498,12 +657,15 @@ int launch_dequant_matmul(int variant, int rows_per_thread, const void* vals,
         reinterpret_cast<uintptr_t>(out) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     if (rows_per_thread == 4)
-      return launch_dequant<P, 4, true>(vals, scales, w, out, R, dy, dx, s);
+      return launch_dequant<P, 4, true>(vals, scales, w, out, R, dy, dx, kt,
+                                        ct, s);
     if (rows_per_thread == 1)
-      return launch_dequant<P, 1, true>(vals, scales, w, out, R, dy, dx, s);
+      return launch_dequant<P, 1, true>(vals, scales, w, out, R, dy, dx, kt,
+                                        ct, s);
   }
   if (variant == kDequantGeneral && rows_per_thread == 1)
-    return launch_dequant<P, 1, false>(vals, scales, w, out, R, dy, dx, s);
+    return launch_dequant<P, 1, false>(vals, scales, w, out, R, dy, dx, kt, ct,
+                                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -528,18 +690,23 @@ int rxt_quantize_rows(int fp8, int variant, int group, int rows_per_thread,
 }
 
 // `variant` (0 general, 1 vector) and `rows_per_thread` (U = 4 or 1 for
-// vector, 1 for general) are the wrapper's layout (`pick_dequant_layout`).
+// vector, 1 for general) are the wrapper's layout (`pick_dequant_layout`),
+// (`row_tile`, `col_tile`) its W tiles (`dequant_tiles`).
 int rxt_dequant_matmul(int fp8, int variant, int rows_per_thread,
-                       const void* vals, const float* scales, const float* w,
-                       float* out, int64_t R, int dy, int dx, void* stream) {
+                       int row_tile, int col_tile, const void* vals,
+                       const float* scales, const float* w, float* out,
+                       int64_t R, int dy, int dx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return fp8 ? launch_dequant_matmul<Fp8Payload>(
-                   variant, rows_per_thread, vals, scales, w, out, R, dy, dx,
-                   s)
+                   variant, rows_per_thread, row_tile, col_tile, vals, scales,
+                   w, out, R, dy, dx, s)
              : launch_dequant_matmul<Int8Payload>(
-                   variant, rows_per_thread, vals, scales, w, out, R, dy, dx,
-                   s);
+                   variant, rows_per_thread, row_tile, col_tile, vals, scales,
+                   w, out, R, dy, dx, s);
 }
+
+// The current device's opt-in limit of shared bytes a block.
+int rxt_dequant_smem_optin() { return dequant_smem_optin(); }
 
 const char* rxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -21,9 +21,12 @@ any d and dy.  d <= ``REG_MAX_DIM`` with dy <= ``REG_MAX_OBS_DIM`` launches
 the state in registers); any other d <= ``WIDE_MAX_DIM``, at any dy,
 launches ``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on
 16 lanes, the state padded to 16, the wide smoother's step); any larger d,
-at any dy, launches ``warp_filter_kernel`` of ``csrc/fused_filter_warp.cu``
-(a chain on a warp, its matrices in shared memory or, past what a block
-holds, in a device-memory scratch; ``warp_plan`` picks the tier).  The
+at any dy, launches a kernel of ``csrc/fused_filter_warp.cu`` (a chain on
+a warp; ``warp_plan`` picks the tier): to d = 32 ``warp_filter_tc_kernel``
+(the matrices in registers, the products and the Schur blocks of the
+inverses on the tensor cores in 3xTF32), past it ``warp_filter_kernel``
+(the matrices in shared memory or, past what a block holds, in a
+device-memory scratch).  The
 wrapper takes the plain version when its tensors lie on the CPU and launches
 a kernel when they lie on a CUDA device; there is no fallback from a kernel
 to the plain version.  ``LAUNCHES`` counts kernel launches under
@@ -74,6 +77,18 @@ WIDE_MAX_DIM = 16
 WARP_LANES = 32
 WARP_MAX_CHAINS = 8
 WARP_Y_CHUNK = 32
+# The warp kernel's tensor-core tier, d up to TC_DIM: the state padded to
+# TC_DIM, F (float32 and its two TF32 parts), Q and W in shared memory at
+# rows TC_STRIDE floats apart, each chain's m, m_pred, h, observation chunk
+# and a parked 16 x 16 block (TC_VEC_FLOATS) beside them; at most
+# TC_MAX_REGISTERS a thread (its launch bounds: TC_MIN_BLOCKS blocks of
+# WARP_MAX_CHAINS warps an SM).
+TC_DIM = 32
+TC_SMALL_DIM = 24      # to this d the products are formed to 24, not 32
+TC_STRIDE = 40
+TC_VEC_FLOATS = 3 * TC_DIM + WARP_Y_CHUNK + 8 * WARP_LANES
+TC_MIN_BLOCKS = 2
+TC_MAX_REGISTERS = 65_536 // (TC_MIN_BLOCKS * WARP_MAX_CHAINS * WARP_LANES)
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
 LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0, "fused_filter_warp": 0}
@@ -87,9 +102,32 @@ def launch_key(d: int, dy: int) -> str:
 
 
 def warp_plan(d: int, smem_limit: int) -> dict:
-    """How ``warp_filter_kernel`` runs at state dim ``d`` on a device whose
+    """How the warp kernels run at state dim ``d`` (> 16) on a device whose
     blocks may take ``smem_limit`` bytes of shared memory (232,448 on an
-    H100): a chain a warp, each lane ``columns_per_lane`` of its matrices'
+    H100).  To d = ``TC_DIM`` the tensor-core tier (``tier``
+    "tensor_cores", ``warp_filter_tc_kernel``): a chain a warp, its two
+    matrices padded to 32 and held in registers in ``mma``'s accumulator
+    layout (``chain_matrices`` "registers"), their products formed to
+    ``tensor_dim`` (24 to d = 24, else 32: the tiles past it are padding),
+    F, Q and W in shared memory (``smem_bytes``, within any sm_90 block's
+    limit), at most ``max_registers`` a thread, so ``warps_per_sm`` warps
+    an SM or more.  Past it, ``sweep_warp_plan``'s tiers."""
+    if d > TC_DIM:
+        return sweep_warp_plan(d, smem_limit)
+    return {"tier": "tensor_cores", "lanes_per_chain": WARP_LANES,
+            "columns_per_lane": 1, "padded_dim": TC_DIM,
+            "stride": TC_DIM + 4, "chains_per_block": WARP_MAX_CHAINS,
+            "params": "shared", "chain_matrices": "registers",
+            "tensor_dim": TC_SMALL_DIM if d <= TC_SMALL_DIM else TC_DIM,
+            "smem_bytes": 4 * (5 * TC_DIM * TC_STRIDE
+                               + WARP_MAX_CHAINS * TC_VEC_FLOATS),
+            "max_registers": TC_MAX_REGISTERS,
+            "warps_per_sm": TC_MIN_BLOCKS * WARP_MAX_CHAINS}
+
+
+def sweep_warp_plan(d: int, smem_limit: int) -> dict:
+    """How ``warp_filter_kernel`` (``tier`` "sweep") runs at state dim
+    ``d``: a chain a warp, each lane ``columns_per_lane`` of its matrices'
     columns; the matrices padded to ``padded_dim`` (a multiple of 8) with
     rows ``stride`` floats apart (+4: whole float4s, column reads over 8
     banks).  F, F^T, Q and W (``params``) sit in shared memory while they fit
@@ -97,10 +135,8 @@ def warp_plan(d: int, smem_limit: int) -> dict:
     matrices (``chain_matrices``) sit in shared memory while one chain fits,
     else in a device-memory scratch.  ``chains_per_block`` is as many chains
     as fit, at most ``WARP_MAX_CHAINS``; ``smem_bytes`` what a block takes
-    (``rxt_warp_filter_smem_bytes`` computes the same).  The inverses hold a
-    lane's column in registers (``inverse_columns``) when it has one column
-    of at most 32 rows and the parameters are shared, else they sweep the
-    matrix where it lies."""
+    (``rxt_warp_filter_smem_bytes`` computes the same).  The inverses sweep
+    the matrix where it lies."""
     dp = -(-d // 8) * 8
     stride = dp + 4
     mat = dp * stride * 4
@@ -118,12 +154,10 @@ def warp_plan(d: int, smem_limit: int) -> dict:
     chains = min(WARP_MAX_CHAINS, chains)
     smem = (params if where_params == "shared" else 0) + chains * (
         chain if where_chain == "shared" else vec)
-    reg = dp <= WARP_LANES and where_params == "shared"
-    return {"lanes_per_chain": WARP_LANES,
+    return {"tier": "sweep", "lanes_per_chain": WARP_LANES,
             "columns_per_lane": -(-d // WARP_LANES), "padded_dim": dp,
             "stride": stride, "chains_per_block": chains,
             "params": where_params, "chain_matrices": where_chain,
-            "inverse_columns": "registers" if reg else "memory",
             "smem_bytes": smem}
 
 
@@ -193,11 +227,18 @@ def _library(key: str):
         if key == "fused_filter_warp":
             lib.rxt_warp_filter.argtypes = [
                 ci, ci, p, p, p, p, p, p, p, p, p, i64, i64, ci, ci, ci, ci,
-                ci, ci, p]
+                ci, p]
             lib.rxt_warp_filter.restype = ci
             lib.rxt_warp_filter_smem_bytes.argtypes = [ci] * 5
             lib.rxt_warp_filter_smem_bytes.restype = i64
             lib.rxt_warp_filter_smem_optin.restype = ci
+            lib.rxt_warp_filter_tc.argtypes = [
+                ci, ci, p, p, p, p, p, p, p, p, i64, i64, ci, ci, p]
+            lib.rxt_warp_filter_tc.restype = ci
+            lib.rxt_warp_filter_tc_smem_bytes.argtypes = [ci]
+            lib.rxt_warp_filter_tc_smem_bytes.restype = i64
+            lib.rxt_warp_filter_tc_blocks_per_sm.argtypes = [ci, ci]
+            lib.rxt_warp_filter_tc_blocks_per_sm.restype = ci
         elif key == "fused_filter_wide":
             lib.rxt_wide_filter.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, p,
@@ -242,18 +283,19 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
-    """``warp_filter_kernel`` on the plan of ``device_warp_plan``: F, F^T, Q
-    and W as one padded (4, dp, stride) device tensor, HR^T (dy, d) on the
-    device, and the chains' scratch when their matrices sit in device
-    memory."""
+    """A warp kernel on the plan of ``device_warp_plan``: F, F^T, Q and W as
+    one padded (4, dp, stride) device tensor, HR^T (dy, d) on the device,
+    and the chains' scratch when their matrices sit in device memory."""
     t_len, dy, bsz = ys.shape
     d = m0.shape[0]
     plan = device_warp_plan(d, ys.device)
     dp, stride, chains = (plan["padded_dim"], plan["stride"],
                           plan["chains_per_block"])
+    tc = plan["tier"] == "tensor_cores"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
-    if lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs) \
-            != plan["smem_bytes"]:
+    smem = (lib.rxt_warp_filter_tc_smem_bytes(chains) if tc else
+            lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs))
+    if smem != plan["smem_bytes"]:
         raise RuntimeError("csrc/fused_filter_warp.cu and warp_plan disagree "
                            f"on the shared bytes of {plan}")
     prm = np.zeros((4, dp, stride), np.float32)
@@ -261,6 +303,11 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
         prm[k, :d, :d] = a
     params = _to_device(prm, ys.device)
     hr_t = _to_device(hrh.T, ys.device)
+    if tc:
+        return lib.rxt_warp_filter_tc(
+            d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            hr_t.data_ptr(), params.data_ptr(), means.data_ptr(),
+            mf.data_ptr(), pf.data_ptr(), t_len, bsz, stride, chains, stream)
     scratch = None if cs else torch.empty(
         (-(-bsz // chains) * chains * 2 * dp * stride,), dtype=torch.float32,
         device=ys.device)
@@ -268,8 +315,7 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
         d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(), hr_t.data_ptr(),
         params.data_ptr(), means.data_ptr(), mf.data_ptr(), pf.data_ptr(),
         None if scratch is None else scratch.data_ptr(), t_len, bsz, dp,
-        stride, chains, ps, cs, plan["inverse_columns"] == "registers",
-        stream)
+        stride, chains, ps, cs, stream)
 
 
 def fused_filter(m0, p0, ys, f, q, hr, w):

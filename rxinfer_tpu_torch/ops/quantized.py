@@ -31,7 +31,10 @@ rows, two passes).  Each computes the same function; a layout is never
 retried.  The dequantize + product kernel takes a thread per payload row
 in one of two layouts that ``pick_dequant_layout`` picks the same way:
 ``vector`` (16-byte payload loads, U rows a thread, ``float4`` stores) and
-``general`` (byte loads, scalar stores, any rows).
+``general`` (byte loads, scalar stores, any rows).  W sits in a block's
+shared memory whole while it fits the device's opt-in limit, else in tiles
+of rows by ``DEQUANT_TILE_COLS`` columns (``dequant_tiles``), so it takes
+any W.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ WIDE_MAX_COLS = 4 * WIDE_THREADS * WIDE_VECS[-1]   # the register cap, 16384
 # The dequantize + product kernel's layouts (csrc/quantized.cu numbers them).
 DEQUANT_VARIANTS = {"general": 0, "vector": 1}
 DEQUANT_ROWS_PER_THREAD = 4        # rows a thread where rows are plenty
-DEQUANT_SMEM_BYTES = 48 * 1024      # W (dy, dx) float32 in shared memory
+DEQUANT_TILE_COLS = 4              # W's columns a block takes past the limit
+DEQUANT_TILE_ROW_ALIGN = 16        # a row tile is whole 16-byte payload loads
 
 # kernel launches on CUDA tensors (the plain versions on CPU tensors count none)
 LAUNCHES = {"quantize_rows": 0, "quantize_rows_fp8": 0, "dequant_matmul": 0}
@@ -191,6 +195,24 @@ def pick_dequant_layout(rows: int, dy: int, dx: int, aligned: bool,
     return DequantLayout("general", 1)
 
 
+@functools.lru_cache(maxsize=256)
+def dequant_tiles(dy: int, dx: int, smem_limit: int) -> tuple[int, int]:
+    """``(row_tile, col_tile)``: the part of W (dy, dx) float32 that a block
+    of the dequantize + product kernel stages in shared memory on a device
+    whose blocks may take ``smem_limit`` bytes (232,448 on an H100).  W
+    whole, ``(dy, dx)``, while it fits; else each block takes
+    ``DEQUANT_TILE_COLS`` output columns (the column tiles of one block of
+    rows are neighbouring blocks, so they share its payload in L2) and walks dy
+    in row tiles of as many rows as fit, a multiple of
+    ``DEQUANT_TILE_ROW_ALIGN``, its sums carried across them in k order
+    (csrc/quantized.cu computes the same and refuses another plan)."""
+    if dy * dx * 4 <= smem_limit:
+        return dy, dx
+    rows = smem_limit // (4 * DEQUANT_TILE_COLS)
+    rows -= rows % DEQUANT_TILE_ROW_ALIGN
+    return min(dy, rows), DEQUANT_TILE_COLS
+
+
 def dequant_aligned(vals, out) -> bool:
     """Whether the payload ``vals`` and the output ``out`` both start on 16
     bytes (a contiguous view that starts inside its storage may not)."""
@@ -233,11 +255,29 @@ def _library():
             ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, p]
         lib.rxt_quantize_rows.restype = ctypes.c_int
         lib.rxt_dequant_matmul.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, p, p, p, p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, p]
         lib.rxt_dequant_matmul.restype = ctypes.c_int
+        lib.rxt_dequant_smem_optin.restype = ctypes.c_int
         lib._rxt_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    lib = _library()
+    with torch.cuda.device(index):
+        return lib.rxt_dequant_smem_optin()
+
+
+def device_dequant_tiles(dy: int, dx: int, device) -> tuple[int, int]:
+    """``dequant_tiles`` with the shared-memory limit of the CUDA
+    ``device``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return dequant_tiles(dy, dx, _smem_optin(index))
 
 
 def _quantize(x, name: str, dtype, reference):
@@ -301,22 +341,20 @@ def _dequant_cuda(vals, scales, w, layout: DequantLayout | None = None):
     kernels.check_tensor("vals", vals, (rows, dy), dtype=vals.dtype)
     kernels.check_tensor("scales", scales, (rows, 1))
     kernels.check_tensor("w", w, (dy, dx))
-    if dy * dx * 4 > DEQUANT_SMEM_BYTES:
-        raise ValueError(
-            f"w ({dy}, {dx}) does not fit the kernel's 48 KB of shared memory")
     out = torch.empty((rows, dx), dtype=torch.float32, device=vals.device)
     if rows == 0 or dx == 0:
         return out
     if layout is None:
         layout = device_dequant_layout(vals, out)
+    tiles = device_dequant_tiles(dy, dx, vals.device)
     lib = _library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = lib.rxt_dequant_matmul(
         int(vals.dtype == torch.float8_e4m3fn),
-        DEQUANT_VARIANTS[layout.variant], layout.rows_per_thread,
+        DEQUANT_VARIANTS[layout.variant], layout.rows_per_thread, *tiles,
         vals.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
         rows, dy, dx, stream)
-    kernels.check(lib, rc, f"dequant_matmul kernel, {layout}")
+    kernels.check(lib, rc, f"dequant_matmul kernel, {layout}, W tiles {tiles}")
     LAUNCHES["dequant_matmul"] += 1
     return out
 

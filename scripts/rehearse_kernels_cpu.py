@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Rehearse the wide forward-backward and filter kernels on the CPU, with no
-card and no ``nvcc``: build ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``,
-``csrc/fused_filter_wide.cu`` and ``csrc/fused_filter_warp.cu`` with ``g++``
-against a stub CUDA runtime and hold them against their plain versions.
+"""Rehearse the wide forward-backward, filter and dequantize + product
+kernels on the CPU, with no card and no ``nvcc``: build
+``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``, ``csrc/fused_filter_wide.cu``,
+``csrc/fused_filter_warp.cu`` and ``csrc/quantized.cu`` with ``g++`` against
+a stub CUDA runtime and hold them against their plain versions.
 
     python3 scripts/rehearse_kernels_cpu.py [--out DIR]
 
 Run from the root of a checkout.  The stub runs each CTA's threads as
 ``std::thread``s and the CTAs one after another; ``__syncwarp`` and
 ``__syncthreads`` are barriers, a shuffle writes a slot, waits and reads
-its source lane's; ``__shared__`` arrays become ``static`` ones, dynamic
+its source lane's, and ``mma.sync`` (TF32 m16n8k8) exchanges each lane's
+fragments the same way; ``__shared__`` arrays become ``static`` ones, dynamic
 shared memory a per-CTA buffer filled with NaN (a read before a write
 shows); ``cp.async`` is a plain copy and its commit / wait do nothing; the
 launches are rewritten into loops over the grid.  It finds indexing,
@@ -17,11 +19,14 @@ masking and algebra faults (ragged edges, the ring's slots, the table's
 placement, the staged observations); it says nothing about registers,
 races the barriers hide, or speed.  The K > 32 passes are run again with a
 small shared-memory limit, so that the table goes to device memory and the
-ring's tile shrinks; the warp filter runs each of its tiers (parameters
-and chain matrices in shared memory, parameters in device memory, both in
-device memory), forced at small d by a small limit, and at a d past the
-last tier against a float64 filter.  A minute or two with four cores (the libraries in
-``--out``, a temporary directory by default).
+ring's tile shrinks; the warp filter runs each of its tiers (the
+tensor-core tier at d 17-32, a vague prior included; the sweep with
+parameters and chain matrices in shared memory, parameters in device
+memory, both in device memory), forced at small d by a small limit, and
+at a d past the last tier against a float64 filter; K8 runs with W whole
+and in row tiles (forced by a small limit) on both payloads, bit for bit.
+A minute or two with four cores (the libraries in ``--out``, a temporary
+directory by default).
 """
 
 import argparse
@@ -60,9 +65,26 @@ CUDA_RUNTIME = r"""// Stub CUDA runtime for a CPU rehearsal: each CTA's threads 
 #define __grid_constant__
 #define __align__(n) alignas(n)
 
-struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1) : x(a) {} };
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 typedef void* cudaStream_t;
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+// __ldg of a 16-byte value aborts off 16 bytes, as the card faults
+template <class T> inline T __ldg(const T* p) {
+  if (sizeof(T) == 16 && reinterpret_cast<uintptr_t>(p) % 16) abort();
+  return *p;
+}
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fdividef(float a, float b) { return a / b; }
+inline int __float2int_rn(float x) { return static_cast<int>(rintf(x)); }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
@@ -73,6 +95,7 @@ struct RxtCta {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::unique_ptr<std::barrier<>> cta_bar;
   std::vector<float> slots;
+  std::vector<uint32_t> mma_slots;
   std::vector<char> dyn;
 };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -104,6 +127,40 @@ inline float __shfl_xor_sync(unsigned, float v, int mask, int width = 32) {
   return rxt_exchange(v, src);
 }
 
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+// mma.sync.m16n8k8 .tf32: each lane writes its fragments (a0..a3, b0, b1)
+// to a slot, the warp waits, each lane forms its four accumulator entries
+// from the fragments' layouts (A (row g, k t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); B (k t, n g), (t + 4, g); D (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)), operands cut to TF32 as the tensor cores
+// read them.
+inline void rxt_mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                         const uint32_t (&b)[2]) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* s = rxt_cta->mma_slots.data() + 256 * w;
+  for (int i = 0; i < 4; ++i) s[8 * lane + i] = a[i];
+  s[8 * lane + 4] = b[0];
+  s[8 * lane + 5] = b[1];
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+  float r[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float acc = 0.0f;
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t av =
+          s[8 * (4 * (row & 7) + (k & 3)) + (row >> 3) + 2 * (k >> 2)];
+      const uint32_t bv = s[8 * (4 * col + (k & 3)) + 4 + (k >> 2)];
+      acc += __uint_as_float(av & 0xffffe000u) *
+             __uint_as_float(bv & 0xffffe000u);
+    }
+    r[i] = acc;
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) d[i] += r[i];
+}
+
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "stub error"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
@@ -122,6 +179,7 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*,
 
 template <class F>
 void rxt_launch(dim3 grid, dim3 block, size_t smem, F fn) {
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     RxtCta cta;
     cta.nthreads = block.x;
@@ -132,14 +190,16 @@ void rxt_launch(dim3 grid, dim3 block, size_t smem, F fn) {
     }
     cta.cta_bar = std::make_unique<std::barrier<>>(block.x);
     cta.slots.assign(32 * warps, 0.0f);
+    cta.mma_slots.assign(256 * warps, 0u);
     cta.dyn.assign(smem + 64, 0);
     // poison the dynamic shared memory: reads before writes show up as NaN
     float nanv = std::nanf("");
     for (size_t i = 0; i + 4 <= smem; i += 4) memcpy(cta.dyn.data() + i, &nanv, 4);
     std::vector<std::thread> ts;
     for (unsigned tx = 0; tx < block.x; ++tx) {
-      ts.emplace_back([&, tx, bx]() {
-        threadIdx = dim3(tx); blockIdx = dim3(bx); blockDim = block; gridDim = grid;
+      ts.emplace_back([&, tx, bx, by]() {
+        threadIdx = dim3(tx, 0, 0); blockIdx = dim3(bx, by, 0);
+        blockDim = block; gridDim = grid;
         rxt_cta = &cta; rxt_dyn_smem = cta.dyn.data();
         fn();
         // a thread that leaves early drops out of its barriers
@@ -161,6 +221,49 @@ inline __nv_bfloat16 __float2bfloat16(float f) { uint32_t u; memcpy(&u, &f, 4); 
 inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 """
 
+# e4m3 through a table (ties to the even code, saturating), half as float:
+# exact for every e4m3 value
+CUDA_FP16 = r"""#pragma once
+struct __half_raw { float x; };
+struct __half2_raw { float x, y; };
+struct __half { float v; __half(__half_raw r) : v(r.x) {} };
+struct __half2 { float x, y; __half2(__half2_raw r) : x(r.x), y(r.y) {} };
+inline float2 __half22float2(__half2 h) { return {h.x, h.y}; }
+inline float __half2float(__half h) { return h.v; }
+"""
+
+CUDA_FP8 = r"""#pragma once
+#include <cmath>
+#include <cstdint>
+typedef unsigned short __nv_fp8x2_storage_t;
+typedef unsigned char __nv_fp8_storage_t;
+enum __nv_fp8_interpretation_t { __NV_E4M3, __NV_E5M2 };
+enum __nv_saturation_t { __NV_NOSAT, __NV_SATFINITE };
+inline float rxt_e4m3(unsigned c) {
+  const int e = (c >> 3) & 15, m = c & 7;
+  const float v = e ? std::ldexp(1.0f + m / 8.0f, e - 7) : std::ldexp(m / 8.0f, -6);
+  return c & 0x80 ? -v : v;
+}
+inline __half_raw __nv_cvt_fp8_to_halfraw(__nv_fp8_storage_t c,
+                                          __nv_fp8_interpretation_t) {
+  return {rxt_e4m3(c)};
+}
+inline __half2_raw __nv_cvt_fp8x2_to_halfraw2(__nv_fp8x2_storage_t c,
+                                              __nv_fp8_interpretation_t) {
+  return {rxt_e4m3(c & 0xff), rxt_e4m3(c >> 8)};
+}
+inline __nv_fp8_storage_t __nv_cvt_float_to_fp8(float x, __nv_saturation_t,
+                                                __nv_fp8_interpretation_t) {
+  unsigned best = 0;
+  float err = INFINITY;
+  for (unsigned c = 0; c < 0x7f; ++c) {
+    const float e = std::fabs(std::fabs(x) - rxt_e4m3(c));
+    if (e < err || (e == err && (c & 1) == 0)) { best = c; err = e; }
+  }
+  return static_cast<__nv_fp8_storage_t>(best | (std::signbit(x) ? 0x80 : 0));
+}
+"""
+
 LAUNCH_CFG = """#pragma once
 #include <cuda_runtime.h>
 template <class F>
@@ -179,11 +282,14 @@ def rewrite(text: str) -> str:
                       f"{{ {m.group(1)}({m.group(3)}); }});", text)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];",
                   r"float* \1 = (float*)rxt_dyn_smem;", text)
-    text = text.replace("__shared__ __align__(16) float", "static float")
+    text = re.sub(r"__shared__ (?:__align__\(16\) )?float", "static float",
+                  text)
     text = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global.*?\);',
                   "*dst = *src;", text, flags=re.S)
     text = re.sub(r'asm volatile\("cp\.async\.(?:commit|wait)_group.*?\);', "",
                   text, flags=re.S)
+    text = re.sub(r'asm\("mma\.sync\.aligned\.m16n8k8\.row\.col\.f32\.tf32.*?\);',
+                  "rxt_mma_tf32(d, a, b);", text, flags=re.S)
     return text.replace(
         "static_cast<unsigned>(__cvta_generic_to_shared(p))", "0u")
 
@@ -197,6 +303,8 @@ def build(out: Path, names) -> dict:
         (src / p.name).write_text(rewrite(p.read_text()))
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME)
     (out / "cuda_bf16.h").write_text(CUDA_BF16)
+    (out / "cuda_fp16.h").write_text(CUDA_FP16)
+    (out / "cuda_fp8.h").write_text(CUDA_FP8)
     (out / "rxt_launch.h").write_text(LAUNCH_CFG)
     procs = {}
     for n in names:
@@ -376,7 +484,7 @@ def check_filter(lib, b, t, d, dy, seed=0) -> bool:
     return ok
 
 
-def _filter_inputs(b, t, d, dy, seed):
+def _filter_inputs(b, t, d, dy, seed, p0_scale=9.0):
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -393,7 +501,7 @@ def _filter_inputs(b, t, d, dy, seed):
     ys = torch.as_tensor(rng.standard_normal((t, dy, b)).astype(np.float32))
     m0 = torch.as_tensor(rng.standard_normal((d, b)).astype(np.float32))
     p0 = sym_fold(torch.as_tensor(np.broadcast_to(
-        9 * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
+        p0_scale * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
     return (f, q, h, r, w_obs, hr), (m0, p0, ys)
 
 
@@ -428,27 +536,34 @@ def _filter64(m0, p0, ys, f, q, h, r):
 
 
 def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
-                      seed=0) -> bool:
-    """One (B, T, d, dy) through the warp filter's launcher on the plan
-    ``warp_plan(d, smem)`` (the stub's shared-memory limit set to
-    ``smem``) against the plain version, or the float64 filter."""
+                      seed=0, sweep=False, p0_scale=9.0) -> bool:
+    """One (B, T, d, dy) through the warp filter's launchers on the plan
+    ``warp_plan(d, smem)`` (``sweep_warp_plan`` with ``sweep``; the stub's
+    shared-memory limit set to ``smem``) against the plain version, or the
+    float64 filter."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
-    from rxinfer_tpu_torch.ops.fused_smoother import _host_ptr  # noqa: F401
 
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.rxt_warp_filter.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
-                                    vp, i64, i64, ci, ci, ci, ci, ci, ci, vp]
+                                    vp, i64, i64, ci, ci, ci, ci, ci, vp]
     lib.rxt_warp_filter_smem_bytes.argtypes = [ci] * 5
     lib.rxt_warp_filter_smem_bytes.restype = i64
+    lib.rxt_warp_filter_tc.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       i64, i64, ci, ci, vp]
+    lib.rxt_warp_filter_tc_smem_bytes.argtypes = [ci]
+    lib.rxt_warp_filter_tc_smem_bytes.restype = i64
     ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
-    (f, q, h, r, w_obs, hr), (m0, p0, ys) = _filter_inputs(b, t, d, dy, seed)
-    plan = ff.warp_plan(d, smem)
+    (f, q, h, r, w_obs, hr), (m0, p0, ys) = _filter_inputs(
+        b, t, d, dy, seed, p0_scale)
+    plan = (ff.sweep_warp_plan if sweep else ff.warp_plan)(d, smem)
     dp, stride, chains = (plan["padded_dim"], plan["stride"],
                           plan["chains_per_block"])
+    tc = plan["tier"] == "tensor_cores"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
-    assert lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs) == \
+    assert (lib.rxt_warp_filter_tc_smem_bytes(chains) if tc else
+            lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs)) == \
         plan["smem_bytes"], plan
     fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
     prm = np.zeros((4, dp, stride), np.float32)
@@ -458,33 +573,79 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
     hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T))
     nan = float("nan")
 
-    def run(reg):
+    def run():
         out = (torch.full((t, d, b), nan), torch.full((d, b), nan),
                torch.full((d * (d + 1) // 2, b), nan))
+        if tc:
+            assert lib.rxt_warp_filter_tc(
+                d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+                hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
+                t, b, stride, chains, None) == 0
+            return out
         scratch = None if cs else torch.full(
             (-(-b // chains) * chains * 2 * dp * stride,), nan)
         assert lib.rxt_warp_filter(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
             None if scratch is None else scratch.data_ptr(), t, b, dp,
-            stride, chains, ps, cs, reg, None) == 0
+            stride, chains, ps, cs, None) == 0
         return out
 
-    reg = plan["inverse_columns"] == "registers"
-    out = run(reg)
-    # the inverses with a column in registers give the sweep in memory's bits
-    same = not reg or all(torch.equal(a, c) for a, c in zip(out, run(False)))
+    out = run()
     want = (_filter64(m0, p0, ys, f, q, h, r) if oracle else
             ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs))
     errs = [_err(g.double(), w.double()) for g, w in zip(out, want)]
-    ok = max(errs) <= 3e-4 and same
-    print(f"warp K3 (B,T,d,dy)=({b},{t},{d},{dy}) params {plan['params']}, "
-          f"chain matrices {plan['chain_matrices']}, inverse columns in "
-          f"{plan['inverse_columns']}, {chains} chains a "
+    ok = max(errs) <= 3e-4
+    print(f"warp K3 (B,T,d,dy)=({b},{t},{d},{dy}) {plan['tier']} tier, "
+          f"P0 = {p0_scale:g} I, params {plan['params']}, "
+          f"chain matrices {plan['chain_matrices']}, {chains} chains a "
           f"block, against the {'float64 filter' if oracle else 'plain version'}"
           f": means {errs[0]:.2g}, final m {errs[1]:.2g}, final P "
-          f"{errs[2]:.2g}" + ("; equal to the inverses in memory" if reg
-                              and same else "") + ("" if ok else "  FAIL"),
+          f"{errs[2]:.2g}" + ("" if ok else "  FAIL"), flush=True)
+    return ok
+
+
+def check_dequant(lib, rows, dy, dx, smem, fp8=False, variant="general",
+                  rows_per_thread=1) -> bool:
+    """K8 through its launcher on the tiles ``dequant_tiles(dy, dx, smem)``
+    (the stub's shared-memory limit set to ``smem``) against the plain
+    version, bit for bit; the launcher must refuse other tiles."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import quantized as tq
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.rxt_dequant_matmul.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp,
+                                       i64, ci, ci, vp]
+    ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
+    rng = np.random.default_rng(rows + dy + dx)
+    x = torch.as_tensor((rng.standard_normal((rows, dy))
+                         * np.exp(rng.uniform(-3, 3, (rows, 1)))).astype(
+                             np.float32))
+    vals, scales = (tq.quantize_rows_fp8_reference if fp8
+                    else tq.quantize_rows_reference)(x)
+    w = torch.as_tensor(rng.standard_normal((dy, dx)).astype(np.float32))
+    tiles = tq.dequant_tiles(dy, dx, smem)
+
+    def run(kt, ct):
+        out = torch.full((rows, dx), float("nan"))
+        rc = lib.rxt_dequant_matmul(
+            int(fp8), tq.DEQUANT_VARIANTS[variant], rows_per_thread, kt, ct,
+            vals.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
+            rows, dy, dx, None)
+        return rc, out
+
+    rc, out = run(*tiles)
+    equal = rc == 0 and torch.equal(
+        out.view(torch.int32),
+        tq.dequant_matmul_reference(vals, scales, w).view(torch.int32))
+    refused = run(tiles[0] + 16, tiles[1])[0] != 0 and run(0, 4)[0] != 0
+    ok = equal and refused
+    print(f"K8 (R,dy,dx)=({rows},{dy},{dx}) {'fp8' if fp8 else 'int8'} "
+          f"{variant} U={rows_per_thread}, shared memory {smem} B: W tiles "
+          f"{tiles}, " + ("equal to the plain version" if equal else
+                          "DIFFERS") + ("" if refused else ", other tiles "
+                                        "taken") + ("" if ok else "  FAIL"),
           flush=True)
     return ok
 
@@ -498,7 +659,7 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     out = Path(args.out or tempfile.mkdtemp(prefix="rehearse_"))
     libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide",
-                       "fused_filter_warp"])
+                       "fused_filter_warp", "quantized"])
     print(f"built with g++ into {out}", flush=True)
     ok = True
     # K = 9..16 on the half-warp design (odd B: a warp's two halves on two
@@ -521,14 +682,38 @@ def main(argv) -> int:
                         (5, 1, 16, 33)]:
         ok &= check_filter(libs["fused_filter_wide"], b, t, d, dy)
     warp = libs["fused_filter_warp"]
-    for b, t, d, dy in [(11, 4, 17, 1), (9, 3, 32, 40), (5, 3, 33, 5),
-                        (3, 2, 40, 33), (2, 1, 64, 8)]:
+    # d 17-32 on the tensor-core tier (padded to 24: a ragged block at 17,
+    # 20, 24; padded to 32: 25, two observation chunks at 32; a vague P0 on
+    # each), then the sweep tiers: the same d on the sweep, and past 32
+    for b, t, d, dy in [(11, 4, 17, 1), (7, 3, 20, 5), (9, 3, 24, 24),
+                        (9, 3, 25, 25), (9, 3, 32, 40)]:
+        ok &= check_warp_filter(warp, b, t, d, dy)
+    ok &= check_warp_filter(warp, 5, 3, 24, 30, oracle=True, p0_scale=1e6)
+    ok &= check_warp_filter(warp, 5, 3, 29, 29, p0_scale=1e6)
+    ok &= check_warp_filter(warp, 5, 3, 32, 40, oracle=True, p0_scale=1e6)
+    for b, t, d, dy in [(11, 4, 17, 1), (9, 3, 32, 40)]:
+        ok &= check_warp_filter(warp, b, t, d, dy, sweep=True)
+    for b, t, d, dy in [(5, 3, 33, 5), (3, 2, 40, 33), (2, 1, 64, 8)]:
         ok &= check_warp_filter(warp, b, t, d, dy)
     # the tiers past the shared parameters, forced by a small limit, and
     # the device-memory scratch at its own d
-    ok &= check_warp_filter(warp, 9, 3, 20, 3, smem=10_000)
+    ok &= check_warp_filter(warp, 9, 3, 20, 3, smem=10_000, sweep=True)
     ok &= check_warp_filter(warp, 5, 3, 33, 5, smem=2_000)
     ok &= check_warp_filter(warp, 2, 2, 168, 3, oracle=True)
+    # K8: W whole, whole past the default 48 KB, and in row tiles (forced by
+    # a small limit; the last tile short; column tiles past dx; four rows a
+    # thread), on both payloads
+    for fp8 in (False, True):
+        for rows, dy, dx, smem, variant, u in [
+                (300, 16, 4, 232_448, "vector", 1),
+                (2100, 32, 8, 232_448, "vector", 4),
+                (257, 40, 9, 232_448, "general", 1),
+                (700, 64, 4, 512, "vector", 1),
+                (2100, 48, 8, 256, "vector", 4),
+                (300, 37, 5, 300, "general", 1),
+                (600, 16, 12, 256, "vector", 1)]:
+            ok &= check_dequant(libs["quantized"], rows, dy, dx, smem, fp8,
+                                variant, u)
     print("all within tolerance" if ok else "FAILURES")
     return 0 if ok else 1
 

@@ -17,7 +17,8 @@ second of launches that brings the clock up), the cycles a step at the SM
 clock that ``nvidia-smi`` sampled meanwhile, the share of the bound the
 device time reaches (``chip_smoke.filter_bound``: observations and state
 read once, means and state written once over 3.35 TB/s, against the step's
-float32 operations over 67 TFLOP/s).  The card's name and power limit
+float32 operations over 67 TFLOP/s; at 16 < d <= 32 its products over the
+3xTF32 rate, 495 / 3 TFLOP/s).  The card's name and power limit
 head the output.  ``--ptxas`` first prints the ``-Xptxas -v`` lines of
 ``csrc/fused_filter.cu`` for the instances of the shapes timed.
 ``--path`` last times path A's call, ``make_sharded_filtering(None, ...,

@@ -30,13 +30,14 @@ the JAX package's bench constants, 1 iteration) on float32, int8 and fp8
 observations, over CUDA events.  ``--dequant`` times the dequantize +
 product kernel K8 instead, at each RxDYxDX: an int8 and an fp8 payload of
 such rows (made by the quantize wrappers) against a (DY, DX) W, device time
-and events as above, the share of its byte bound ((DY + 4 + 4 DX) bytes a
-row over 3.35 TB/s), the layout the wrapper's rule picked where the tree
-has one, and a device copy of the payload and of the (R, DX) output as
-GB/s (read and write counted); with ``--evidence`` also the calls
-``quantized_evidence`` and ``quantized_evidence_fp8`` on such rows (CUDA
-events).  It checks nothing: ``chip_smoke.py`` holds the kernels against
-their plain versions.
+and events as above, the share of its bound (the larger of (DY + 4 + 4 DX)
+bytes a row over 3.35 TB/s and DY + 2 DY DX operations a row over 67
+TFLOP/s, as ``chip_smoke.dequant_bound``), the layout and the W tiles the
+wrapper's rules picked where the tree has them, and a device copy of the
+payload and of the (R, DX) output as GB/s (read and write counted); with
+``--evidence`` also the calls ``quantized_evidence`` and
+``quantized_evidence_fp8`` on such rows (CUDA events).  It checks nothing:
+``chip_smoke.py`` holds the kernels against their plain versions.
 """
 
 import os
@@ -50,6 +51,7 @@ import numpy as np
 sys.path.insert(0, os.getcwd())
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, 80 GB HBM3 (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 
 
 def _ms(fn, reps=9, inner=20):
@@ -161,7 +163,10 @@ def time_dequant(tq, dev, specs, evidence=False):
             device=dev)
         w = torch.as_tensor(rng.standard_normal((dy, dx), dtype=np.float32),
                             device=dev)
-        bound = (r * (dy + 4 + 4 * dx) + dy * dx * 4) / HBM_BYTES_PER_S * 1e3
+        bound = max((r * (dy + 4 + 4 * dx) + dy * dx * 4) / HBM_BYTES_PER_S,
+                    r * (dy + 2 * dy * dx) / FP32_FLOPS) * 1e3
+        tiles = getattr(tq, "device_dequant_tiles", None)
+        tiles = tiles(dy, dx, dev) if tiles else None
         parts = []
         for label, quant in (("int8", tq.quantize_rows),
                              ("fp8", tq.quantize_rows_fp8)):
@@ -177,7 +182,7 @@ def time_dequant(tq, dev, specs, evidence=False):
             layout = pick(vals, k8()) if pick else None
             parts.append(f"{label} device ms {dv:.4f} ({100 * bound / dv:.1f}%"
                          f" of the {bound:.4f} ms bound), between events "
-                         f"{ev:.4f}, layout {layout}")
+                         f"{ev:.4f}, layout {layout}, W tiles {tiles}")
         if evidence:
             for label, fn in (("int8", tq.quantized_evidence),
                               ("fp8", tq.quantized_evidence_fp8)):

@@ -124,6 +124,11 @@ def test_launch_key_routes_by_state_dim(d, dy, key):
 @pytest.mark.parametrize("d", [17, 32, 33, 64, 96, 97, 160, 161, 300])
 def test_warp_plan_fits_an_h100_block(d):
     plan = ff.warp_plan(d, H100_SMEM)
+    assert plan["smem_bytes"] <= H100_SMEM
+    # to d = 32 the tensor-core tier (tests/test_torch_filter_tensor.py);
+    # the sweep tiers' plan below still holds at those d
+    assert plan["tier"] == ("tensor_cores" if d <= 32 else "sweep")
+    plan = ff.sweep_warp_plan(d, H100_SMEM)
     dp, stride = plan["padded_dim"], plan["stride"]
     assert dp % 8 == 0 and d <= dp < d + 8
     # whole float4 rows; a column read spreads over 8 banks
@@ -136,8 +141,6 @@ def test_warp_plan_fits_an_h100_block(d):
     # d = 160; past that both are read from device memory
     assert plan["params"] == ("shared" if d <= 96 else "device")
     assert plan["chain_matrices"] == ("shared" if d <= 160 else "device")
-    # one column of at most 32 rows a lane: the inverses keep it in registers
-    assert plan["inverse_columns"] == ("registers" if d <= 32 else "memory")
 
 
 def test_warp_plan_bytes_and_tiers_follow_the_limit():
@@ -147,15 +150,15 @@ def test_warp_plan_bytes_and_tiers_follow_the_limit():
     d = 20
     mat = 24 * 28 * 4
     vec = (4 * 24 + ff.WARP_Y_CHUNK) * 4
-    full = ff.warp_plan(d, H100_SMEM)
+    # an H100 takes the tensor-core tier at d = 20, the sweep's plan below
+    assert ff.warp_plan(d, H100_SMEM)["tier"] == "tensor_cores"
+    full = ff.sweep_warp_plan(d, H100_SMEM)
     assert full["chains_per_block"] == 8
     assert full["smem_bytes"] == 4 * mat + 8 * (2 * mat + vec)
-    assert full["inverse_columns"] == "registers"
-    mid = ff.warp_plan(d, 4 * mat + 2 * mat + vec - 1)
+    mid = ff.sweep_warp_plan(d, 4 * mat + 2 * mat + vec - 1)
     assert (mid["params"], mid["chain_matrices"]) == ("device", "shared")
-    assert mid["inverse_columns"] == "memory"
     assert mid["smem_bytes"] == mid["chains_per_block"] * (2 * mat + vec)
-    low = ff.warp_plan(d, 2 * mat + vec - 1)
+    low = ff.sweep_warp_plan(d, 2 * mat + vec - 1)
     assert (low["params"], low["chain_matrices"]) == ("device", "device")
     assert low["smem_bytes"] == low["chains_per_block"] * vec
     assert 1 <= low["chains_per_block"] <= 8

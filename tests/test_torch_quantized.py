@@ -121,6 +121,33 @@ def test_dequant_matmul_matches_jax(fp8, b, dy, dx):
 
 
 @pytest.mark.parametrize("fp8", [False, True], ids=["int8", "fp8"])
+@pytest.mark.parametrize("b,dy,dx", [(64, 128, 128), (8, 20_000, 3)])
+def test_dequant_matmul_at_large_w_matches_jax(fp8, b, dy, dx):
+    """W of 64 KB, which the kernel holds whole once it opts in to more than
+    48 KB of shared memory, and of 240 KB, past an H100 block's 232,448
+    bytes, which it stages in row tiles.  The plain version sums over dy in
+    index order, the JAX one by ``jnp.dot``: the two may differ by the
+    float32 rounding of two sums of dy terms, at most 2 dy 2^-24 times the
+    sum of the terms' magnitudes."""
+    rng = np.random.default_rng(dy + dx)
+    y = (2.0 * rng.standard_normal((b, dy))).astype(np.float32)
+    w = rng.standard_normal((dy, dx)).astype(np.float32)
+    jquant = jq.quantize_rows_fp8 if fp8 else jq.quantize_rows
+    tquant = tq.quantize_rows_fp8 if fp8 else tq.quantize_rows
+    jv, js = jquant(jnp.asarray(y))
+    tv, ts = tquant(torch.as_tensor(y))
+    jout = np.asarray(jq.dequant_matmul(jv, js, jnp.asarray(w)))
+    tout = tq.dequant_matmul(tv, ts, torch.as_tensor(w)).numpy()
+    assert tout.shape == (b, dx)
+    mags = np.abs(tv.double().numpy() * ts.double().numpy()) @ np.abs(w)
+    np.testing.assert_array_less(np.abs(tout - jout),
+                                 2 * dy * 2.0 ** -24 * mags + 1e-30)
+    exact = (tv.double() * ts.double()).numpy() @ w.astype(np.float64)
+    np.testing.assert_array_less(np.abs(tout - exact),
+                                 dy * 2.0 ** -24 * mags + 1e-30)
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["int8", "fp8"])
 def test_quantized_evidence_matches_jax(fp8):
     rng = np.random.default_rng(2)
     b, d = 256, 4
@@ -363,9 +390,6 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, case):
     x = torch.as_tensor(_rows(case), device=cuda_device)
     w = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (x.shape[1], 3)).astype(np.float32), device=cuda_device)
-    # K8 holds W in 48 KB of shared memory: the rows past the wide
-    # layout's cap check the quantize kernels alone
-    with_product = w.numel() * 4 <= 48 * 1024
     before = dict(tq.LAUNCHES)
     for quant, ref in ((tq.quantize_rows, tq.quantize_rows_reference),
                        (tq.quantize_rows_fp8, tq.quantize_rows_fp8_reference)):
@@ -373,10 +397,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, case):
         v_r, s_r = ref(x)
         assert torch.equal(s, s_r)
         assert torch.equal(v.view(torch.uint8), v_r.view(torch.uint8))
-        if with_product:
-            assert torch.equal(tq.dequant_matmul(v, s, w),
-                               tq.dequant_matmul_reference(v, s, w))
+        assert torch.equal(tq.dequant_matmul(v, s, w),
+                           tq.dequant_matmul_reference(v, s, w))
     assert tq.LAUNCHES == {"quantize_rows": before["quantize_rows"] + 1,
                            "quantize_rows_fp8": before["quantize_rows_fp8"] + 1,
-                           "dequant_matmul": before["dequant_matmul"]
-                           + 2 * with_product}
+                           "dequant_matmul": before["dequant_matmul"] + 2}
