@@ -173,8 +173,9 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    (The wide checks and the bf16 checks each in a process of their own
    beside phase 3.) The wide kernels against their
    plain version at WIDE_CHECK_SHAPES (d = 9, 12, 16; static and per-chain
-   W and Q; float32 and bf16 moments; RTOL/ATOL, bf16 moments BF16_RTOL /
-   BF16_ATOL), and the bf16 register kernels' fold, carry and replay
+   W and Q; float32 and bf16 moments; an ill-conditioned case at d = 16,
+   P0 = 1e6 I; RTOL/ATOL, bf16 moments BF16_RTOL / BF16_ATOL), and the bf16
+   register kernels' fold, carry and replay
    passes against the plain version of the same passes at every
    CHECK_SHAPES shape and, with W and Q per chain, at BF16_DYN_SHAPES;
    each launch counted under its key.  (b) bench.py:612-622's d16 fused
@@ -183,7 +184,10 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    chains against bench.py:650-670's float64 RTS (ORACLE_TOL), the fused
    program against ``fused_kernels=False`` at D16_SMALL (ORACLE_TOL), the
    median of 10 calls, updates/s = 3 T B / t (bench.py:622), K1 and K2
-   alone and in one profiled call, peak memory.  (c) bench.py:240-251's
+   alone and in one profiled call, each with its cycles a step at the
+   sampled SM clock, its bound with the tensor cores' products at 3xTF32
+   and at float32 only, its warps an SM and chains a warp, peak memory.
+   (c) bench.py:240-251's
    bf16 row: phase 4's cell with ``options={"fused_moment_dtype":
    "bfloat16"}``: exactly one bf16 K1 and one bf16 K2 launch a call, the
    posteriors and the smoother's outputs against the float32 program's at
@@ -488,11 +492,39 @@ def ops_per_step(d: int) -> tuple[int, int]:
     return n_fwd, _OpCount.n
 
 
+def wide_tc_ops(d: int) -> tuple[int, int]:
+    """Operations of one forward and one backward chain-step that the wide
+    K1 / K2 (8 < d <= 16, ``csrc/fused_smoother_wide.cu``) run on the
+    tensor cores, counted on the plain step's pieces: K1 F P F^T + Q and its
+    two inverses' top-level Schur block products; K2 F P_f F^T + Q, P_f F^T,
+    its inverse's top-level block products, the gain, G (P_s' - P_pred),
+    the new covariance's upper triangle and the cross."""
+    from rxinfer_tpu_torch.ops import entrywise as ew
+
+    par = [[0.5] * d for _ in range(d)]
+    mat = lambda: [[_OpCount() for _ in range(d)] for _ in range(d)]
+    sandwich = _count_ops(lambda: ew.sandwich_sym(par, mat(), par))
+    product = _count_ops(lambda: ew.mat_mul(mat(), mat()))
+    top = _schur_product_ops(d, 1)
+    nsym = d * (d + 1) // 2
+    upper = _count_ops(lambda: [
+        _OpCount() + sum(_OpCount() * _OpCount() for _ in range(d))
+        for _ in range(nsym)])
+    return (sandwich + 2 * top,
+            sandwich + product + top + 2 * product + upper + product)
+
+
 def kernel_bounds(b: int, t: int, d: int, moment_bytes: int = 4) -> dict:
     """Least time (ms) the card could take for K1 and K2 at (B, T, d): each
     input read once and each output written once over the HBM rate, against
-    the operations over the float32 rate.  ``moment_bytes``: the packed
+    the operations over the float32 rate.  At the wide tier (8 < d <= 16)
+    the operations the wide kernels run on the tensor cores (``wide_tc_ops``)
+    are priced at the 3xTF32 rate instead, the rest at the float32 rate,
+    the two times added (``bound_ms``); ``bound_ms_fp32`` prices every
+    operation at the float32 rate.  ``moment_bytes``: the packed
     covariances' and the cross's entry size (2 for bf16 moments)."""
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
     nsym = d * (d + 1) // 2
     f4, mb = 4, moment_bytes
     fwd_bytes = (t * b * d + b * d + b * d * d) * f4 \
@@ -500,16 +532,21 @@ def kernel_bounds(b: int, t: int, d: int, moment_bytes: int = 4) -> dict:
     bwd_bytes = t * (d * f4 + nsym * mb) * b \
         + (t * (d * f4 + nsym * mb) + (t - 1) * d * d * mb) * b
     n_fwd, n_bwd = ops_per_step(d)
+    tc_fwd, tc_bwd = wide_tc_ops(d) if fs.REG_MAX_DIM < d <= fs.MAX_DIM \
+        else (0, 0)
     out = {}
-    for name, nbytes, ops in (("fused_smoother_fwd", fwd_bytes, n_fwd * t * b),
-                              ("fused_smoother_bwd", bwd_bytes,
-                               n_bwd * (t - 1) * b)):
+    for name, nbytes, ops, tc in (
+            ("fused_smoother_fwd", fwd_bytes, n_fwd * t * b, tc_fwd * t * b),
+            ("fused_smoother_bwd", bwd_bytes, n_bwd * (t - 1) * b,
+             tc_bwd * (t - 1) * b)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
+        t_ops = ((ops - tc) / FP32_FLOPS + tc / TF32X3_FLOPS) * 1e3
+        t_fp32 = ops / FP32_FLOPS * 1e3
         out[name] = {
-            "bytes": nbytes, "ops": ops,
+            "bytes": nbytes, "ops": ops, "ops_tensor_cores": tc,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_fp32": max(t_bytes, t_fp32),
         }
     return out
 
@@ -3642,12 +3679,17 @@ D16_B, D16_T, D16_D = 1024, 2048, 16
 D16_SMALL = (8, 256)
 # (B, T, d, mode) of the wide kernels' checks: d = 16 at the row's batch and
 # at B = 1024 with W and Q per chain, the smallest wide d with a ragged last
-# block of chains (37 = 4 * 8 + 5), d = 12 with W and Q per chain, and bf16
-# moments with shared and with per-chain precisions.  Short chains: the
-# plain version issues about 10^4 torch operations a step at d = 16.
+# block of chains (37 = 4 * 8 + 5), d = 12 with W and Q per chain, bf16
+# moments with shared and with per-chain precisions, and an ill-conditioned
+# case: d = 16, W and Q per chain, P0 = 1e6 I ("vague"), where one plain
+# TF32 product loses three digits (tests/test_torch_smoother_wide_tc.py).
+# Short chains: the plain version issues about 10^4 torch operations a step
+# at d = 16.
 WIDE_CHECK_SHAPES = [(1024, 4, 16, ""), (37, 16, 9, ""), (64, 8, 12, "WQ"),
                      (1024, 4, 16, "WQ"), (64, 8, 16, "bf16"),
-                     (40, 6, 10, "WQ bf16")]
+                     (40, 6, 10, "WQ bf16"), (45, 5, 16, "WQ vague")]
+# P0's scale in the checks, and in the "vague" case
+CHECK_P0_SCALE, VAGUE_P0_SCALE = 9.0, 1e6
 WIDE_PLAIN_SHAPE = WIDE_CHECK_SHAPES[0][:3]
 # The bf16 register kernels at every CHECK_SHAPES shape (one time block and
 # many) and, with W and Q per chain, at one shape of 8 blocks, against the
@@ -3666,8 +3708,8 @@ BF16_RTOL, BF16_ATOL = 1.6e-2, 3e-4
 # package's own tolerances (tests/parallel/test_pallas_smoother.py:82-85):
 # means 3e-2 absolute, covariances 3e-2 (relative and absolute), cross 5e-2.
 BF16_ROW_TOL = {"means": 3e-2, "covs": 3e-2, "cross": 5e-2}
-WIDE_KERNEL_NAMES = {"fused_smoother_fwd_wide": "wide_fwd_kernel",
-                     "fused_smoother_bwd_wide": "wide_bwd_kernel"}
+WIDE_KERNEL_NAMES = {"fused_smoother_fwd_wide": "wide_fwd_tc_kernel",
+                     "fused_smoother_bwd_wide": "wide_bwd_ring_kernel"}
 
 # Phase 16 (a): the wide K4/K5 at (B, T, K): (37, 1001, 9) the smallest wide
 # K, ragged staged and marginal tiles, B mod 4 chains a CTA; (8, 4099, 16)
@@ -3755,15 +3797,16 @@ def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
     failures: list = []
     plain: dict = {}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for i, (bsz, t_len, d, dyn, md) in enumerate(cases):
+    for i, (bsz, t_len, d, dyn, md, *scale) in enumerate(cases):
         bf16 = md == torch.bfloat16
+        p0_scale = scale[0] if scale else CHECK_P0_SCALE
         blocks = fs.pick_blocks(bsz, t_len, d, sms)
         f, b, q, w = _smoother_params(d, seed=1200 + i)
         rng = np.random.default_rng(1200 + i)
         dev = lambda a: torch.as_tensor(a, device=device)
         xi = dev(rng.standard_normal((t_len, bsz, d)).astype(np.float32))
         m0 = dev(rng.standard_normal((bsz, d)).astype(np.float32))
-        p0 = dev(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+        p0 = dev(np.broadcast_to(p0_scale * np.eye(d, dtype=np.float32),
                                  (bsz, d, d)).copy())
         wb = dev(_spd_batch(rng, bsz, d, 0.8)) if dyn else None
         qb = dev(_spd_batch(rng, bsz, d, 0.4)) if dyn else None
@@ -3804,7 +3847,8 @@ def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
                 keys[1]: [("ms", ms, ms_r), ("ps", ps, ps_r),
                           ("cross", cr, cr_r)]}
         where = (f"(B,T,d)=({bsz},{t_len},{d}) {'WQ' if dyn else 'static'}"
-                 f" {'bf16' if bf16 else 'float32'} blocks {blocks}")
+                 f" {'bf16' if bf16 else 'float32'} P0 = {p0_scale:g} I "
+                 f"blocks {blocks}")
         parts = _check_rows(rows, worst, failures, where, bf16)
         log(f"[{'wide' if d > fs.REG_MAX_DIM else 'bf16'} check] {where}: "
             + "; ".join(parts))
@@ -3812,6 +3856,17 @@ def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
         raise AssertionError("a kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return worst, plain
+
+
+def wide_check_cases() -> list:
+    """Phase 15 (a)'s cases of the wide kernels: WIDE_CHECK_SHAPES as
+    ``check_slice12_kernels`` takes them."""
+    import torch
+
+    return [(bsz, t, d, "WQ" in mode,
+             torch.bfloat16 if "bf16" in mode else torch.float32,
+             VAGUE_P0_SCALE if "vague" in mode else CHECK_P0_SCALE)
+            for bsz, t, d, mode in WIDE_CHECK_SHAPES]
 
 
 def slice12_checks(which: str, wall0: float) -> tuple[list, dict, dict]:
@@ -3826,9 +3881,7 @@ def slice12_checks(which: str, wall0: float) -> tuple[list, dict, dict]:
     # that the two processes end together
     late = CHECK_SHAPES[-3:-1]
     if which == "wide":
-        cases = [(bsz, t, d, "WQ" in mode,
-                  bf16 if "bf16" in mode else torch.float32)
-                 for bsz, t, d, mode in WIDE_CHECK_SHAPES] + \
+        cases = wide_check_cases() + \
             [(bsz, t, d, False, bf16) for bsz, t, d in late]
     else:
         cases = [(bsz, t, d, False, bf16) for bsz, t, d in CHECK_SHAPES
@@ -3955,19 +4008,33 @@ def d16_path(device, b: int, t_len: int, d: int, reps: int,
     p0_t = torch.as_tensor(p0, device=device).expand((b, d, d)).contiguous()
     zeros = np.zeros(d, np.float32)
     mf, pf = fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs)
-    out["fwd_ms"] = _cuda_ms(
-        lambda: fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs), reps)
-    out["bwd_ms"] = _cuda_ms(lambda: fs.fused_backward(mf, pf, f, zeros, q),
-                             reps)
+    with SmClock() as clk:
+        out["fwd_ms"] = _cuda_ms(
+            lambda: fs.fused_forward(m0_t, p0_t, xi_t, f, zeros, q, w_obs),
+            reps)
+        out["bwd_ms"] = _cuda_ms(
+            lambda: fs.fused_backward(mf, pf, f, zeros, q), reps)
+    out["sm_clock_mhz"] = clk.mhz
     out["profile"] = _device_profile(lambda: prog({"y": y}),
                                      WIDE_KERNEL_NAMES)
+    out["shape"] = fs.wide_kernel_shape(device)
+    steps = {"fused_smoother_fwd_wide": t_len,
+             "fused_smoother_bwd_wide": t_len - 1}
+    out["cycles_per_step"] = {
+        k: {"alone": _cycles_per_step(out["fwd_ms" if "fwd" in k else
+                                          "bwd_ms"], clk.mhz, n),
+            "in_program": _cycles_per_step(
+                out["profile"]["kernels"][k]["ms_per_launch"], clk.mhz, n)}
+        for k, n in steps.items()}
     busy = out["profile"]["busy_ms"]
     log(f"[d16] program {out['program_ms']:.3f} ms/call "
         f"({out['updates_per_s']:.4g} updates/s); K1 alone "
         f"{out['fwd_ms']:.3f} ms, K2 alone {out['bwd_ms']:.3f} ms; device "
         f"busy {busy} ms per call, idle "
         f"{_idle_share(out['program_ms'], busy)}; in the program "
-        f"{out['profile']['kernels']}")
+        f"{out['profile']['kernels']}; cycles a step at "
+        f"{clk.mhz:.0f} MHz {out['cycles_per_step']}; the kernels' shape "
+        f"{out['shape']}")
     return out
 
 
@@ -4957,6 +5024,14 @@ def main() -> int:
             "ms_at_plain_shape": s12_plain[name]["ms"],
             "variants_checked": variants,
         })
+        if wide:
+            rows[-1].update({
+                "device_kernel": WIDE_KERNEL_NAMES[name],
+                "bound_ms_fp32": bnds[bkey]["bound_ms_fp32"],
+                "ops_tensor_cores": bnds[bkey]["ops_tensor_cores"],
+                "cycles_per_step": path["cycles_per_step"][name],
+                "sm_clock_mhz": path["sm_clock_mhz"],
+                "kernel_shape": path["shape"]})
     for name in ("fused_smoother_fwd_bf16", "fused_smoother_bwd_bf16"):
         f32 = "fused_smoother_fwd" if "fwd" in name else "fused_smoother_bwd"
         ms_key = "fwd_ms" if "fwd" in name else "bwd_ms"
@@ -4966,14 +5041,29 @@ def main() -> int:
               f"{bf16_bounds[f32]['bound_ms']:.4f} ms "
               f"({bf16_bounds[f32]['bound_by']}); float32 {main[ms_key]:.4f}"
               f" ms against its bound {bounds[f32]['bound_ms']:.4f}; {smi}")
+    shape16 = d16["shape"]
     for name in ("fused_smoother_fwd_wide", "fused_smoother_bwd_wide"):
         f32 = "fused_smoother_fwd" if "fwd" in name else "fused_smoother_bwd"
         ms = d16["fwd_ms" if "fwd" in name else "bwd_ms"]
-        print(f"[d16] {name}: {ms:.4f} ms alone, in the program "
-              f"{d16['profile']['kernels'][name]['ms_per_launch']} ms, bound "
-              f"{d16_bounds[f32]['bound_ms']:.4f} ms "
-              f"({d16_bounds[f32]['bound_by']}), roofline share "
-              f"{100 * d16_bounds[f32]['bound_ms'] / ms:.2f}% at (B,T,d)="
+        bnd = d16_bounds[f32]
+        warps = shape16["fwd_warps_per_sm" if "fwd" in name
+                        else "bwd_warps_per_sm"]
+        layout = (f"{shape16['fwd_chains_per_warp']} chain(s) a warp"
+                  if "fwd" in name else
+                  f"a chain a consumer warp and {shape16['bwd_producers']} "
+                  f"producer warp(s) of {shape16['bwd_steps_per_round']} "
+                  "step(s) a round")
+        print(f"[d16] {WIDE_KERNEL_NAMES[name]} ({name}): {ms:.4f} ms alone,"
+              f" in the program "
+              f"{d16['profile']['kernels'][name]['ms_per_launch']} ms; "
+              f"cycles a step {d16['cycles_per_step'][name]} at "
+              f"{d16['sm_clock_mhz']:.0f} MHz; bound {bnd['bound_ms']:.4f} ms"
+              f" ({bnd['bound_by']}; the tensor cores' "
+              f"{bnd['ops_tensor_cores']} operations at 3xTF32), "
+              f"{bnd['bound_ms_fp32']:.4f} ms at float32 only; roofline "
+              f"share {100 * bnd['bound_ms'] / ms:.2f}% "
+              f"({100 * bnd['bound_ms_fp32'] / ms:.2f}% at float32); "
+              f"{warps} warps an SM, {layout}; at (B,T,d)="
               f"{(D16_B, D16_T, D16_D)}; {smi}")
     print(f"[d16] program_ms {d16['program_ms']:.4f} updates_per_s "
           f"{d16['updates_per_s']:.6g} (B={D16_B}, T={D16_T}, d={D16_D}), "

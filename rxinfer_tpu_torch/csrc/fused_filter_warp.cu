@@ -70,6 +70,8 @@
 
 #include <stdint.h>
 
+#include "tc16.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;
@@ -425,7 +427,9 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
 // mma.sync a step) and the padded half of D is inverted as a diagonal (six
 // leaves).  F P is formed a 16-row block at a time, and only the three
 // blocks of F P F^T + Q the inverse reads, so that a thread stays within
-// 128 registers without spilling.
+// 128 registers without spilling.  The 16 x 16 primitives (the 3xTF32
+// split and products, blk_mul, the leaves, inv16) sit in tc16.cuh, shared
+// with the wide K1/K2 of fused_smoother_wide.cu.
 
 namespace tc {
 
@@ -444,86 +448,6 @@ constexpr int kMinBlocks = 2;          // blocks an SM (__launch_bounds__)
 struct Mat {
   float b[2][2][2][4];
 };
-using Blk = float[2][4];
-
-// x rounded to TF32: to nearest on the 13 dropped bits, ties away from zero,
-// by an add and a mask (cvt.rna.tf32.f32's bits for finite x, at half its
-// instructions).  A NaN may come out as -0 or an infinity, but its low part
-// below is NaN, and every product takes the low parts, so a NaN operand
-// still gives a NaN product.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo: hi rounded to TF32, lo the exact float32 rest, of which
-// the tensor cores read the top 19 bits (|lo| <= 2^-11 |x|, so hi + lo
-// carries x to 21 bits)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b, one m16n8k8 TF32 product
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32, the small products first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// The A operand of k tile kk from an accumulator-layout block row: (row g,
-// k = t) is column 2t, (row g, k = t + 4) column 2t + 1.
-__device__ __forceinline__ void a_frag(const float (&tile)[4], bool neg,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float sg = neg ? -1.0f : 1.0f;
-  split(sg * tile[0], hi[0], lo[0]);
-  split(sg * tile[2], hi[1], lo[1]);
-  split(sg * tile[1], hi[2], lo[2]);
-  split(sg * tile[3], hi[3], lo[3]);
-}
-
-// c = (ADD ? c : 0) + (NEG ? -1 : 1) a n^T over 16 x 16 blocks, a k tile
-// of operands split at a time.  c is written last, so it may alias a or n.
-// NJ, KK: the output column tiles and k tiles formed (2, or 1 where the
-// second is zero padding by construction: then c's second tile is 0, or
-// kept with ADD).
-template <bool ADD, bool NEG, int NJ = 2, int KK = 2>
-__device__ __forceinline__ void blk_mul(Blk& c, const Blk& a, const Blk& n) {
-  float acc[2][4];
-#pragma unroll
-  for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nj][r] = ADD ? c[nj][r] : 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    uint32_t ah[4], al[4], nh[4], nl[4];
-    a_frag(a[kk], NEG, ah, al);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split(n[kk][r], nh[r], nl[r]);
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj) {
-      // B: n's rows 8 nj + g (registers 2 nj, 2 nj + 1) at k tile kk
-      const uint32_t bh[2] = {nh[2 * nj], nh[2 * nj + 1]};
-      const uint32_t bl[2] = {nl[2 * nj], nl[2 * nj + 1]};
-      mma3(acc[nj], ah, al, bh, bl);
-    }
-  }
-#pragma unroll
-  for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[nj][r] = acc[nj][r];
-}
 
 // x = F_i m^T, the 16-row block i of F m^T: F's TF32 parts from shared
 // memory (rows 16 i + g, + 8 at columns 8 ki + 2t, + 1: float2 loads), m
@@ -624,99 +548,6 @@ __device__ __forceinline__ void predict_cov(Mat& pm, const float* fh,
   row_block_xft<1, 2, DP>(pm.b[1], x, fh, fl, q, g, t);
 #pragma unroll
   for (int i = 0; i < 8; ++i) pm.b[0][0][i >> 2][i & 3] = park[i * kLanes + lane];
-}
-
-// In place: the inverse of an 8 x 8 block, two registers a lane (row g,
-// columns 2t and 2t + 1), by the unpivoted Gauss-Jordan sweep of the sweep
-// tiers, its pivot's row and column fetched by shuffles from the lanes
-// that hold them.  The pivot's reciprocal is the hardware's (about 1 ulp;
-// an IEEE division is a range test and a call a pivot), and every entry's
-// update is selected, not branched to.
-__device__ __forceinline__ void leaf8(float& x0, float& x1, int g, int t,
-                                      int lane) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int kt = k >> 1, ke = k & 1;
-    const float f = __shfl_sync(kFull, ke ? x1 : x0, (lane & ~3) | kt);
-    const float r0 = __shfl_sync(kFull, x0, 4 * k + t);   // M[k][2t]
-    const float r1 = __shfl_sync(kFull, x1, 4 * k + t);   // M[k][2t + 1]
-    const float p =
-        __fdividef(1.0f, __shfl_sync(kFull, ke ? x1 : x0, 4 * k + kt));
-    const bool rowk = g == k;
-    const bool ck0 = t == kt && ke == 0, ck1 = t == kt && ke == 1;
-    const float q0 = r0 * p, q1 = r1 * p, fp = -f * p;
-    const float u0 = fmaf(-f, q0, x0), u1 = fmaf(-f, q1, x1);
-    const float row0 = ck0 ? p : q0, row1 = ck1 ? p : q1;
-    const float col0 = ck0 ? fp : u0, col1 = ck1 ? fp : u1;
-    x0 = rowk ? row0 : col0;
-    x1 = rowk ? row1 : col1;
-  }
-}
-
-// [c0 c1; c2 c3] += [a0 a1; a2 a3] [n0 n1]^T over 8 x 8 blocks of two
-// registers a lane (row g, columns 2t, 2t + 1): one m16n8k8 product in
-// 3xTF32, the top block rows 0-7 of mma's A and D, the bottom rows 8-15.
-// TOP / BOT: whether that half of A is a block (else zero, and its part of
-// D is not used).
-template <bool TOP, bool BOT>
-__device__ __forceinline__ void mul8(float& c0, float& c1, float& c2,
-                                     float& c3, float a0, float a1, float a2,
-                                     float a3, float n0, float n1) {
-  uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
-  if (TOP) {
-    split(a0, ah[0], al[0]);
-    split(a1, ah[2], al[2]);
-  }
-  if (BOT) {
-    split(a2, ah[1], al[1]);
-    split(a3, ah[3], al[3]);
-  }
-  uint32_t bh[2], bl[2];
-  split(n0, bh[0], bl[0]);
-  split(n1, bh[1], bl[1]);
-  float acc[4] = {c0, c1, c2, c3};
-  mma3(acc, ah, al, bh, bl);
-  c0 = acc[0];
-  c1 = acc[1];
-  c2 = acc[2];
-  c3 = acc[3];
-}
-
-// In place: the inverse of a symmetric 16 x 16 block by the Schur blocks at
-// 8 (sym_inv's recursion one level down) with 8-pivot leaves.  Its tile 0
-// (columns 0-7) holds A in registers 0, 1 and B^T in 2, 3; tile 1 holds B
-// and D.  A^-1; Z = B^T A^-1; then X = A^-1 B and S = D - Z B in one
-// product (the two share B); S^-1; Y = X S^-1; then TL = A^-1 + Y X^T and
-// Y^T = S^-1 X^T in one product (the two share X).  B is never read.
-// PAD: D is the padding's diagonal and B zero, so the inverse is A^-1 and
-// D's reciprocal diagonal (lane (g, t) holds a diagonal entry of D where
-// g = 2t + e).
-template <bool PAD>
-__device__ __forceinline__ void inv16(Blk& m, int g, int t, int lane) {
-  if (PAD) {
-    leaf8(m[0][0], m[0][1], g, t, lane);
-    if (g == 2 * t) m[1][2] = __fdividef(1.0f, m[1][2]);
-    if (g == 2 * t + 1) m[1][3] = __fdividef(1.0f, m[1][3]);
-    return;
-  }
-  float u0 = 0.0f, u1 = 0.0f;                       // an unused half
-  leaf8(m[0][0], m[0][1], g, t, lane);              // A^-1
-  float z0 = 0.0f, z1 = 0.0f;                       // Z = B^T A^-1
-  mul8<false, true>(u0, u1, z0, z1, 0.0f, 0.0f, m[0][2], m[0][3], m[0][0],
-                    m[0][1]);
-  float x0 = 0.0f, x1 = 0.0f;                       // X ; S = D - Z B
-  mul8<true, true>(x0, x1, m[1][2], m[1][3], m[0][0], m[0][1], -z0, -z1,
-                   m[0][2], m[0][3]);
-  leaf8(m[1][2], m[1][3], g, t, lane);              // S^-1
-  float y0 = 0.0f, y1 = 0.0f;                       // Y = X S^-1
-  mul8<true, false>(y0, y1, u0, u1, x0, x1, 0.0f, 0.0f, m[1][2], m[1][3]);
-  float w0 = 0.0f, w1 = 0.0f;                       // TL ; Y^T
-  mul8<true, true>(m[0][0], m[0][1], w0, w1, y0, y1, m[1][2], m[1][3], x0,
-                   x1);
-  m[1][0] = -y0;
-  m[1][1] = -y1;
-  m[0][2] = -w0;
-  m[0][3] = -w1;
 }
 
 // 1 / the mean |diagonal| over the d real entries (1 for a zero diagonal),

@@ -13,11 +13,12 @@
 // ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle row by row; out
 // means (T, d, B), mf (d, B), pf (nsym, B).
 //
-// Design: the step of the wide K1 (fused_smoother_wide.cu) through the row
-// algebra both include (wide_rows.cuh): a chain is a group of 16 lanes, two
-// chains a warp, lane r holds row r of every matrix of the step, the state
-// padded to 16 with an exact identity block (F and W padded with zeros, Q
-// and P with the identity), so one kernel serves every d <= 16; products
+// Design: the wide K1's former step (fused_smoother_wide.cu, before it
+// moved to the tensor cores) through the row algebra of wide_rows.cuh: a
+// chain is a group of 16 lanes, two chains a warp, lane r holds row r of
+// every matrix of the step, the state padded to 16 with an exact identity
+// block (F and W padded with zeros, Q and P with the identity), so one
+// kernel serves every d <= 16; products
 // against rows broadcast from shared memory, mirrors of upper triangles
 // through shared memory, scaled Gauss-Jordan inverses with the pivot row
 // shuffled.  The plain version inverts by a Schur recursion, so the two
@@ -30,8 +31,8 @@
 // The first chunk is loaded at the step's start and lands while the step's
 // inverses run.
 //
-// What bounds it: the latency of a step, as for the wide K1 (a dependent
-// chain of row products, mirrors and two 16-pivot sweeps).  At path A's
+// What bounds it: the latency of a step, as for the former wide K1 (a
+// dependent chain of row products, mirrors and two 16-pivot sweeps).  At path A's
 // (B, T, d, dy) = (10,000, 200, 16, 16) the bytes are 0.27 GB (ys in, means
 // out), 0.08 ms at the HBM rate, and the operations of the plain step
 // (4.6e10, counted on stand-ins) 0.69 ms at the float32 rate, which bound it

@@ -16,55 +16,90 @@
 // (T, d, B), pf, ps (T, nsym, B) upper triangle row by row, cross
 // (T-1, d*d, B) row-major.
 //
-// Why another design: one thread a chain keeps d + d(d+1)/2 state floats
-// and the inverses' temporaries in registers; at d = 8 that already takes
-// 255 registers and spills, and at d = 16 the state alone is 152 floats.
-// Here a chain is a group of 16 lanes, two chains a warp: lane r holds row
-// r of every matrix of the step (P, P_pred, the inverses, the gain) in 16
-// registers, and the state is padded to 16 (F, b and W with zeros, Q and
-// P with the identity, so the padding stays an exact identity block and
-// rows >= d do no harm); d is a runtime argument.  Products take the other
-// factor's rows from shared memory as 16-byte broadcast loads (rows of 20
-// floats, so a lane's row store is free of bank conflicts); symmetric
-// results are mirrored from their upper triangle through shared memory,
-// as the plain version aliases them; inverses are an unpivoted Gauss-Jordan
-// sweep on the matrix scaled by its mean |diagonal| (sym_inv_scaled's
-// scaling), the pivot row broadcast by shuffles.  F sits in the block's
-// shared memory, each chain's Q and W rows (shared or its own, V1) in the
-// chain's: rows read once a step cost no registers, which the products'
-// 16-float rows need (ptxas, sm_90a).  The JAX kernel and the
-// plain version invert by a Schur recursion split at d / 2: the same
-// inverse in exact arithmetic, so the two differ in rounding only.
+// The design: a chain's 16 x 16 matrices (the state padded to 16 with an
+// exact identity block: F, b and W with zeros, Q and P with the identity;
+// d is a runtime argument) sit in registers in mma.sync.m16n8k8's
+// accumulator layout, eight floats a lane (tc16.cuh, shared with the warp
+// K3's tensor-core tier).  Every 16 x 16 product runs on the tensor cores in
+// 3xTF32 as C = A N^T; each symmetric inverse is scaled by its mean
+// |diagonal| (sym_inv_scaled's scale) and inverted by the Schur blocks at 8
+// with Gauss-Jordan leaves of 8 by shuffles and the hardware reciprocal.
+// The plain version inverts by the Schur recursion split at d / 2, so the
+// two differ in rounding only.  F's TF32 parts and F^T sit in the block's
+// shared memory; the chain's vectors in shared memory.  The moments'
+// storage type M is float or bf16 (V2).  A block's chains are neighbours
+// in B, so each step's moments are staged in shared memory and written (K2:
+// and read) by the whole block a row of neighbouring chains at a time, one
+// sector a row, where a chain a warp would touch a sector a word (that
+// alone held K2 at 11.7 ms).
 //
-// What bounds it: the latency of a step.  A step is a dependent chain of
-// 16 x 16 row products (two forward, seven backward), shared-memory
-// mirrors and 16-pivot sweeps (two forward, one backward), and B = 1024
-// chains are 512 warps, about one a warp scheduler, so nothing hides that
-// chain.  By the work alone K1 at (B, T, d) = (1024, 2048, 16) needs
-// 0.71 ms at the card's float32 rate (by bytes 1.41 GB, 0.42 ms) and K2
-// 1.69 ms (4.70 GB, 1.40 ms).  One time block, no fold or carry (the JAX
-// tier's chunk = 1).  Per-chain W / Q (V1) are read once, each lane its
-// row, at entry; the moments' storage type M is float or bf16 (V2, as in
-// fused_smoother.cu).  A chain index past B runs on the last chain's
-// inputs and stores nothing, so every lane reaches every shuffle and
-// __syncwarp.  The row algebra (products, mirrors, the inverse, the padded
-// tile rows) sits in wide_rows.cuh, shared with fused_filter_wide.cu.
+// K1, wide_fwd_tc_kernel<M>: a chain a warp, eight warps a block, Q and W
+// (shared, or the chain's own: V1) in registers, kFwdStaged = 4 steps'
+// moments staged between the block's barriers (a barrier a step held the
+// warps of a scheduler in phase, stalling together).  Its step is serial:
+// two products and two inverses on the chain's critical path, the mean
+// beside them; the inverses' leaves swept two pivots at a time
+// (tc16.cuh leaf8_pairs: half the dependent steps).  K3's filter step is
+// this step with xi = HR y formed from the observations in place of xi
+// given; the wide K3 (fused_filter_wide.cu) still runs it on the 16-lane
+// rows of wide_rows.cuh.
+//
+// K2, wide_bwd_ring_kernel<M>: the gain is taken off the serial chain.
+// P_pred,t, G_t and F m_f,t + b read only K1's outputs at step t, so
+// kProducers = 2 producer warps a chain compute them a step each a round, a
+// round ahead, into a ring of slots in shared memory; the chain's consumer
+// warp runs only what reads the smoothed step after it: D = P_s' - P_pred,
+// G D, P_f + (G D) G^T, the mean's mat-vec and the cross G P_s' (three
+// products a step).  Its inverse sweeps its leaves a pivot at a time (tc16.cuh
+// leaf8: the pairs gained nothing off the serial chain).  A block is eight
+// chains; its warps meet at one __syncthreads a round.  The slots are G,
+// P_pred and P_f lane by lane, then m_f and F m_f + b: 800 floats.  Q sits
+// in the chain's shared memory, read by the producers.
+//
+// What bounds them, at (B, T, d) = (1024, 2048, 16) on an H100: 1,024
+// chains are 1,024 warps in K1, two a scheduler, and its step is a chain
+// of dependent latencies (a shuffle 26 cycles, mma.sync 24, the reciprocal
+// 42, an IEEE division 80: scripts/wide_smoother_variants.py); K2 holds 24
+// warps an SM and issues about 1,600 instructions a chain-step, half of them
+// integer, so it is bound by issue.  By the work alone K1 needs 0.71 ms at
+// the float32 rate and K2 1.69 (by bytes 0.42 and 1.40 ms); with the
+// products and the Schur blocks priced at the 3xTF32 rate
+// (chip_smoke.kernel_bounds) the bytes bound both.  One time block, no fold
+// or carry (the JAX tier's chunk = 1).  A chain index past B runs on the
+// last chain's inputs and stores nothing, so every lane reaches every
+// shuffle and barrier.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 #include "smallmat.cuh"
-#include "wide_rows.cuh"
+#include "tc16.cuh"
 
 namespace {
 
 using rxt::moment_in;
 using rxt::moment_out;
+using tc::Blk;
 
-constexpr int kChains = 8;              // chains a block: 4 warps
-constexpr int kThreads = kChains * kW;
+constexpr int kW = 16;                  // the padded state dim
+constexpr int kLanes = 32;
+constexpr int kS = 24;                  // floats a shared row: a quad's float2
+                                        // loads of rows g fill 32 banks
+constexpr int kFMat = kW * kS;
+constexpr int kWarps = 8;               // K1: warps a block; K2: chains a block
+constexpr int kFwdStaged = 4;           // K1: steps staged between barriers
+constexpr int kProducers = 2;           // K2: producer warps a chain, and
+                                        // steps a round (one each)
+
+// K2's slot: G, P_pred, P_f (register r of tile nj at (4 nj + r) * 32 +
+// lane), m_f, F m_f + b.
+constexpr int kSlotG = 0;
+constexpr int kSlotPP = 8 * kLanes;
+constexpr int kSlotPF = 16 * kLanes;
+constexpr int kSlotMF = 24 * kLanes;
+constexpr int kSlotFMB = kSlotMF + kW;
+constexpr int kSlot = kSlotFMB + kW;
 
 // The shared parameters padded to 16: F, b, W with zeros, Q with the
 // identity on the padded diagonal.  Read in place (__grid_constant__).
@@ -75,277 +110,691 @@ struct WideParams {
   float W[kW * kW];
 };
 
+// Slot of entry (i, j), i <= j < d, in the packed upper triangle.
+__device__ __forceinline__ int sym_slot(int i, int j, int d) {
+  return i * (2 * d - i + 1) / 2 + (j - i);
+}
+
+// Row and column of register r of tile nj at lane (g, t).
+__device__ __forceinline__ int frag_row(int g, int r) { return g + 8 * (r >> 1); }
+__device__ __forceinline__ int frag_col(int t, int nj, int r) {
+  return 8 * nj + 2 * t + (r & 1);
+}
+
+// F^T in float32 (for F v) and F's TF32 parts (for the products) into the
+// block's shared memory.
+__device__ __forceinline__ void load_f(float* ft, float* fh, float* fl,
+                                       const WideParams& prm) {
+  for (int i = threadIdx.x; i < kW * kW; i += blockDim.x) {
+    const int r = i / kW, c = i % kW;
+    const float fv = prm.F[i];
+    uint32_t hi, lo;
+    tc::split(fv, hi, lo);
+    fh[r * kS + c] = __uint_as_float(hi);
+    fl[r * kS + c] = __uint_as_float(lo);
+    ft[c * kS + r] = fv;
+  }
+}
+
+// A padded 16 x 16 row-major matrix of the parameters.
+__device__ __forceinline__ void load_dense(Blk& m, const float* src, int g,
+                                           int t) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      m[nj][r] = src[frag_row(g, r) * kW + frag_col(t, nj, r)];
+}
+
+// A symmetric matrix from a packed upper triangle, entry k at src[k B]
+// (src at the chain's column), `pad` on the padded diagonal.
+template <typename T>
+__device__ __forceinline__ void load_sym(Blk& m, const T* __restrict__ src,
+                                         int64_t B, int d, int g, int t,
+                                         float pad) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      if (row < d && col < d) {
+        const int k = row <= col ? sym_slot(row, col, d) : sym_slot(col, row, d);
+        m[nj][r] = moment_in(src[static_cast<int64_t>(k) * B]);
+      } else {
+        m[nj][r] = row == col ? pad : 0.0f;
+      }
+    }
+}
+
+// The upper triangle of the real block, entry k at dst[k B].
+template <typename M>
+__device__ __forceinline__ void store_upper(const Blk& m, M* __restrict__ dst,
+                                            int64_t B, int d, int g, int t) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      if (row <= col && col < d)
+        dst[static_cast<int64_t>(sym_slot(row, col, d)) * B] =
+            moment_out<M>(m[nj][r]);
+    }
+}
+
+// c = F m^T (= F m for a symmetric m): F's TF32 parts from shared memory as
+// the A operand (rows g, g + 8 at columns 8 ki + 2t, + 1: float2 loads).
+__device__ __forceinline__ void mul_f_m(Blk& c, const float* fh,
+                                        const float* fl, const Blk& m, int g,
+                                        int t) {
+  float acc[2][4];
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nj][r] = 0.0f;
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki) {
+    const int o = g * kS + 8 * ki + 2 * t;
+    const float2 h0 = *reinterpret_cast<const float2*>(fh + o);
+    const float2 h1 = *reinterpret_cast<const float2*>(fh + o + 8 * kS);
+    const float2 l0 = *reinterpret_cast<const float2*>(fl + o);
+    const float2 l1 = *reinterpret_cast<const float2*>(fl + o + 8 * kS);
+    const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                            __float_as_uint(h0.y), __float_as_uint(h1.y)};
+    const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                            __float_as_uint(l0.y), __float_as_uint(l1.y)};
+    uint32_t nh[4], nl[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tc::split(m[ki][r], nh[r], nl[r]);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      // B: m's rows 8 nj + g at k tile ki
+      const uint32_t bh[2] = {nh[2 * nj], nh[2 * nj + 1]};
+      const uint32_t bl[2] = {nl[2 * nj], nl[2 * nj + 1]};
+      tc::mma3(acc[nj], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[nj][r] = acc[nj][r];
+}
+
+// c = (ADD ? c : 0) + a F^T: F's TF32 parts from shared memory as the B
+// operand (F's rows 8 ni + g at k tile ki).  c must not alias a.
+template <bool ADD>
+__device__ __forceinline__ void mul_a_ft(Blk& c, const Blk& a,
+                                         const float* fh, const float* fl,
+                                         int g, int t) {
+  float acc[2][4];
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nj][r] = ADD ? c[nj][r] : 0.0f;
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki) {
+    uint32_t ah[4], al[4];
+    tc::a_frag(a[ki], false, ah, al);
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int o = (8 * ni + g) * kS + 8 * ki + 2 * t;
+      const float2 vh = *reinterpret_cast<const float2*>(fh + o);
+      const float2 vl = *reinterpret_cast<const float2*>(fl + o);
+      const uint32_t bh[2] = {__float_as_uint(vh.x), __float_as_uint(vh.y)};
+      const uint32_t bl[2] = {__float_as_uint(vl.x), __float_as_uint(vl.y)};
+      tc::mma3(acc[ni], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[nj][r] = acc[nj][r];
+}
+
+// Rows g and g + 8 of m v (v: 16 floats in shared memory, zero past d),
+// the quad's partial sums joined by shuffles: every lane of the quad holds
+// both.
+__device__ __forceinline__ void mat_vec(const Blk& m, const float* v, int t,
+                                        float (&out)[2]) {
+  float s[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) {
+    const float2 vv = *reinterpret_cast<const float2*>(v + 8 * nj + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] = fmaf(m[nj][2 * h], vv.x, s[h]);
+      s[h] = fmaf(m[nj][2 * h + 1], vv.y, s[h]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(tc::kFull, s[h], 1);
+    s[h] += __shfl_xor_sync(tc::kFull, s[h], 2);
+    out[h] = s[h];
+  }
+}
+
+// (F v)[r] + bias for lane r < 16: F^T's column r against v (shared).
+__device__ __forceinline__ float f_row_dot(const float* ft, const float* v,
+                                           int r) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc = fmaf(ft[k * kS + r], v[k], acc);
+  return acc;
+}
+
+// In place: the inverse of the symmetric m (identity past d), scaled by
+// 1 / the mean |diagonal| of its d real rows (1 for a zero diagonal) on the
+// way in and out, as sym_inv_scaled (its d / sum a rounding of the plain
+// version's 1 / (sum / d)).  Lane (g, g / 2) holds the diagonal
+// entries (g, g) and (g + 8, g + 8).  (A register is picked by a select: an
+// index that differs between lanes would put the matrix in local memory.)
+template <bool PAIRS>
+__device__ __forceinline__ void sym_inv_scaled(Blk& m, int d, int g, int t,
+                                               int lane) {
+  float sum = 0.0f;
+  if (t == (g >> 1)) {
+    const float top = g & 1 ? m[0][1] : m[0][0];
+    const float bot = g & 1 ? m[1][3] : m[1][2];
+    if (g < d) sum = fabsf(top);
+    if (g + 8 < d) sum += fabsf(bot);
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2)
+    sum += __shfl_xor_sync(tc::kFull, sum, o);
+  // 1 / (sum / d) as d / sum, one IEEE division
+  const float inv_s = sum > 0.0f ? static_cast<float>(d) / sum : 1.0f;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[nj][r] *= inv_s;
+  tc::inv16<false, PAIRS>(m, g, t, lane);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[nj][r] *= inv_s;
+}
+
+// Staged rows: a block's chains are neighbours in B, so the moments of one
+// step are rows of the block's chains, one row a packed entry.  A step's
+// rows are staged in shared memory (a float a chain, and one more, so that
+// a warp's column of rows spreads over the banks) and moved by the whole
+// block a row of neighbouring words at a time: one sector a row of eight
+// chains, where a chain a warp would touch a sector a word.
+constexpr int kFwdRows = kW * (kW + 1) / 2 + kW;          // pf, mf
+constexpr int kBwdInRows = kW * (kW + 1) / 2 + kW;        // pf, mf
+constexpr int kBwdOutRows = kW * (kW + 1) / 2 + kW * kW + kW;  // ps, cross, ms
+constexpr int kSW = kWarps + 1;               // a staged row's floats (K2)
+
+// Where stage_upper puts this lane's entries (-1: not stored), once a
+// kernel (K1): out[off[4 nj + r]] takes register r of tile nj.
+__device__ __forceinline__ void upper_offsets(int (&off)[8], int s, int d,
+                                              int g, int t) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      off[4 * nj + r] = row <= col && col < d ? sym_slot(row, col, d) * s : -1;
+    }
+}
+
+// The upper triangle of the real block into a staged step: entry k of the
+// chain at column j at out[k s].
+__device__ __forceinline__ void stage_upper(const Blk& m, float* out, int s,
+                                            int d, int g, int t) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      if (row <= col && col < d) out[sym_slot(row, col, d) * s] = m[nj][r];
+    }
+}
+
+// A symmetric matrix from a staged step's packed upper triangle (entry k
+// at in[k s]), the identity past d.
+__device__ __forceinline__ void gather_sym(Blk& m, const float* in, int s,
+                                           int d, int g, int t) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      if (row < d && col < d) {
+        const int k = row <= col ? sym_slot(row, col, d) : sym_slot(col, row, d);
+        m[nj][r] = in[k * s];
+      } else {
+        m[nj][r] = row == col ? 1.0f : 0.0f;
+      }
+    }
+}
+
 // ---- K1: forward filter -------------------------------------------------------
 
+// K1's staged step to the moments: pf's rows then mf's, the block's NCB
+// chains from b0 (those past B skipped), by every thread of the block:
+// thread i takes column i % NCB of rows i / NCB, i / NCB + NT / NCB, ...
+template <typename M, int NCB, int NT>
+__device__ __forceinline__ void flush_fwd(const float* st, float* __restrict__ mf,
+                                          M* __restrict__ pf, int64_t step,
+                                          int64_t B, int64_t b0, int d,
+                                          int nsym) {
+  constexpr int RS = NT / NCB;
+  const int j = threadIdx.x % NCB, r0 = threadIdx.x / NCB;
+  const int64_t b = b0 + j;
+  if (b >= B) return;
+  M* dst = pf + step * nsym * B + b;
+  for (int row = r0; row < nsym; row += RS)
+    dst[row * B] = moment_out<M>(st[row * (NCB + 1) + j]);
+  if (r0 < d) mf[(step * d + r0) * B + b] = st[(nsym + r0) * (NCB + 1) + j];
+}
+
+// K1's shared floats: F's parts, each chain's m, m_pred and h, two groups
+// of kFwdStaged staged steps.
+constexpr int kFwdSW = kWarps + 1;                  // a staged row's floats
+constexpr int kFwdFloats =
+    3 * kFMat + kWarps * 3 * kW + 2 * kFwdStaged * kFwdRows * kFwdSW;
+
+// kFwdStaged steps are staged between the block's barriers: a group's
+// moments are written out by the block during the next group's first step.
 template <typename M>
-__global__ void __launch_bounds__(kThreads)
-wide_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ m0,
-                const float* __restrict__ p0, float* __restrict__ mf,
-                M* __restrict__ pf, int64_t T, int64_t B, int d,
-                const __grid_constant__ WideParams prm,
-                const float* __restrict__ wdyn,
-                const float* __restrict__ qdyn) {
-  __shared__ __align__(16) float f_s[kMat];
-  // per chain: P's rows, a staging matrix, Q's and W's rows, two vectors
-  // (+16 floats so the two chains of a warp sit 16 banks apart)
-  constexpr int kChainFloats = 4 * kMat + 2 * kW + 16;
-  __shared__ __align__(16) float chain_s[kChains * kChainFloats];
-
-  const int g = threadIdx.x / kW;            // chain within the block
-  const int r = threadIdx.x % kW;            // this lane's row
-  const int64_t b_raw = static_cast<int64_t>(blockIdx.x) * kChains + g;
-  const bool valid = b_raw < B;
-  const int64_t b = valid ? b_raw : B - 1;
-  float* p_s = chain_s + g * kChainFloats;
-  float* x_s = p_s + kMat;
-  float* q_s = x_s + kMat;
-  float* w_s = q_s + kMat;
-  float* v0 = w_s + kMat;
-  float* v1 = v0 + kW;
-
-  for (int i = threadIdx.x; i < kW * kW; i += kThreads)
-    f_s[(i / kW) * kStride + i % kW] = prm.F[i];
-  {
-    // this chain's Q and W (the shared ones, or its rows of the tiles),
-    // kept in shared memory: rows are read once a step, registers are
-    // the scarce resource
-    float row[kW];
-    if (qdyn) {
-      tile_row(qdyn, b, B, r, d, true, row);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kW; ++j) row[j] = prm.Q[r * kW + j];
-    }
-    store_row(q_s, r, row);
-    if (wdyn) {
-      tile_row(wdyn, b, B, r, d, false, row);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kW; ++j) row[j] = prm.W[r * kW + j];
-    }
-    store_row(w_s, r, row);
-  }
-  const float b_r = prm.b[r];
+__global__ void __launch_bounds__(kWarps * kLanes, 2)
+wide_fwd_tc_kernel(const float* __restrict__ xi, const float* __restrict__ m0,
+                   const float* __restrict__ p0, float* __restrict__ mf,
+                   M* __restrict__ pf, int64_t T, int64_t B, int d,
+                   const __grid_constant__ WideParams prm,
+                   const float* __restrict__ wdyn,
+                   const float* __restrict__ qdyn) {
+  constexpr int S = kFwdStaged;
+  constexpr int SW = kFwdSW;
+  constexpr int kStep = kFwdRows * SW;      // a staged step's floats
+  extern __shared__ __align__(16) float smem[];
+  float* f_s = smem;
+  float* v_s = f_s + 3 * kFMat;             // per chain: m, m_pred, h
+  float* out_s = v_s + kWarps * 3 * kW;     // two groups of S steps
+  float* ft = f_s;
+  float* fh = f_s + kFMat;
+  float* fl = fh + kFMat;
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int g = lane >> 2, t = lane & 3;
+  load_f(ft, fh, fl, prm);
   const int nsym = d * (d + 1) / 2;
-  const int slot0 = r < d ? sym_slot(r, r, d) - r : 0;   // slot of (r, j): + j
+  const int my_row = g + 8 * (t & 1);   // the row of m v this lane keeps
+  const bool writer = t < 2;
+  const float b_r = lane < kW ? prm.b[lane] : 0.0f;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kWarps;
+  int up[8];
+  upper_offsets(up, SW, d, g, t);
 
-  // the prior, upper triangle mirrored; the padding an identity block
-  float m = r < d ? m0[b * d + r] : 0.0f;
-  float p_row[kW];
+  const int64_t b_raw = b0 + warp;
+  const int64_t b = b_raw < B ? b_raw : B - 1;
+  float* mv = v_s + warp * 3 * kW;
+  float* mp = mv + kW;
+  float* hv = mp + kW;
+  Blk p, q, w;
+  if (lane < kW) mv[lane] = lane < d ? m0[b * d + lane] : 0.0f;
+  if (qdyn)
+    load_sym(q, qdyn + b, B, d, g, t, 1.0f);
+  else
+    load_dense(q, prm.Q, g, t);
+  if (wdyn)
+    load_sym(w, wdyn + b, B, d, g, t, 0.0f);
+  else
+    load_dense(w, prm.W, g, t);
+  // the prior, read from its upper triangle; the padding an identity block
 #pragma unroll
-  for (int j = 0; j < kW; ++j) {
-    if (r < d && j < d)
-      p_row[j] = r <= j ? p0[(b * d + r) * d + j] : p0[(b * d + j) * d + r];
-    else
-      p_row[j] = j == r ? 1.0f : 0.0f;
-  }
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      const int lo = row < col ? row : col, hi = row < col ? col : row;
+      p[nj][r] = row < d && col < d ? p0[(b * d + lo) * d + hi]
+                                    : (row == col ? 1.0f : 0.0f);
+    }
+  float x_cur = lane < d ? xi[b * d + lane] : 0.0f;
   __syncthreads();
 
-  float x_cur = r < d ? xi[b * d + r] : 0.0f;
-  for (int64_t t = 0; t < T; ++t) {
-    float x_next = 0.0f;
-    if (t + 1 < T && r < d) x_next = xi[((t + 1) * B + b) * d + r];
-    float m_pred, pp[kW];
-    if (t == 0) {
-      m_pred = m;
+  for (int64_t step = 0; step < T; ++step) {
+    const float x_next =
+        step + 1 < T && lane < d ? xi[((step + 1) * B + b) * d + lane] : 0.0f;
+    // the last group's moments out, while this one is formed
+    const int64_t grp = step / S;
+    const int sl = static_cast<int>(step - grp * S);
+    if (sl == 0 && step > 0)
+      for (int u = 0; u < S; ++u)
+        flush_fwd<M, kWarps, kWarps * kLanes>(
+            out_s + (((grp - 1) & 1) * S + u) * kStep, mf, pf,
+            step - S + u, B, b0, d, nsym);
+    float* st = out_s + ((grp & 1) * S + sl) * kStep;
+    if (step > 0) {
+      // m_pred = F m + b ; P_pred = (F P) F^T + Q
+      if (lane < kW) mp[lane] = f_row_dot(ft, mv, lane) + b_r;
+      Blk x;
+      mul_f_m(x, fh, fl, p, g, t);
 #pragma unroll
-      for (int j = 0; j < kW; ++j) pp[j] = p_row[j];
-    } else {
-      // v0 holds m, p_s P's rows (stored at the end of the last step)
-      float fp[kW], row[kW];
-      load_row(f_s, r, row);
-      m_pred = row_dot(row, v0) + b_r;
-      row_mul(row, p_s, fp);                     // (F P)[r]
-      row_mul_t(fp, f_s, pp);                    // (F P F^T)[r]
-      load_row(q_s, r, row);
+      for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
-      for (int j = 0; j < kW; ++j) pp[j] += row[j];
-      mirror_upper(pp, x_s, r);
+        for (int r = 0; r < 4; ++r) p[nj][r] = q[nj][r];
+      mul_a_ft<true>(p, x, fh, fl, g, t);
+    } else if (lane < kW) {
+      mp[lane] = mv[lane];
     }
-    float lam[kW];
-    sym_inv_scaled_rows(pp, lam, r, d);
-    mirror_upper(lam, x_s, r);
-    float w_post[kW];
-    load_row(w_s, r, w_post);
+    // L = P_pred^-1
+    sym_inv_scaled<true>(p, d, g, t, lane);
+    __syncwarp();  // m_pred is in place
+    // h = L m_pred + xi_t (a row a lane) ; L + W
+    {
+      float s[2];
+      mat_vec(p, mp, t, s);
+      const float x_row = __shfl_sync(tc::kFull, x_cur, my_row);
+      const float h_row = (t & 1 ? s[1] : s[0]) + x_row;
 #pragma unroll
-    for (int j = 0; j < kW; ++j) w_post[j] += lam[j];
-    sym_inv_scaled_rows(w_post, p_row, r, d);
-    mirror_upper(p_row, x_s, r);
-    // h = L m_pred + xi_t ; m = P h
-    v1[r] = m_pred;
-    __syncwarp();
-    const float h = row_dot(lam, v1) + x_cur;
-    v0[r] = h;
-    __syncwarp();
-    m = row_dot(p_row, v0);
-    __syncwarp();
-    v0[r] = m;
-    store_row(p_s, r, p_row);
-    __syncwarp();
-    if (valid && r < d) {
-      mf[(t * d + r) * B + b] = m;
-      M* dst = pf + t * nsym * B + b;
+      for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
-      for (int j = 0; j < kW; ++j)
-        if (j >= r && j < d) dst[(slot0 + j) * B] = moment_out<M>(p_row[j]);
+        for (int r = 0; r < 4; ++r) p[nj][r] += w[nj][r];
+      if (writer) hv[my_row] = h_row;
     }
-    x_cur = x_next;
+    // P = (L + W)^-1 ; m = P h
+    sym_inv_scaled<true>(p, d, g, t, lane);
+    __syncwarp();  // h is in place
+    {
+      float s[2];
+      mat_vec(p, hv, t, s);
+      const float m_row = t & 1 ? s[1] : s[0];
+      if (writer) {
+        mv[my_row] = m_row;
+        if (my_row < d) st[(nsym + my_row) * SW + warp] = m_row;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (up[i] >= 0) st[up[i] + warp] = p[i >> 2][i & 3];
+      x_cur = x_next;
+    }
+    if (sl == S - 1 || step == T - 1)
+      __syncthreads();  // m and the staged group are in place
+    else
+      __syncwarp();     // m is in place
   }
+  const int64_t last = (T - 1) / S;
+  for (int64_t u = last * S; u < T; ++u)
+    flush_fwd<M, kWarps, kWarps * kLanes>(
+        out_s + ((last & 1) * S + (u - last * S)) * kStep, mf, pf, u, B, b0,
+        d, nsym);
 }
 
 // ---- K2: backward RTS pass ------------------------------------------------------
 
-template <typename M>
-__device__ __forceinline__ void load_pf_row(const M* __restrict__ pf_t,
-                                            int64_t b, int64_t B, int r,
-                                            int d, float (&row)[kW]) {
+__device__ __forceinline__ void put(float* s, const Blk& m, int lane) {
 #pragma unroll
-  for (int j = 0; j < kW; ++j) {
-    if (r < d && j < d) {
-      const int k = r <= j ? sym_slot(r, j, d) : sym_slot(j, r, d);
-      row[j] = moment_in(pf_t[static_cast<int64_t>(k) * B + b]);
-    } else {
-      row[j] = j == r ? 1.0f : 0.0f;
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[(4 * nj + r) * kLanes + lane] = m[nj][r];
+}
+
+__device__ __forceinline__ void get(Blk& m, const float* s, int lane) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[nj][r] = s[(4 * nj + r) * kLanes + lane];
+}
+
+// The producer of one step: into its slot what its backward step needs
+// that does not read the smoothed moments: P_pred = F P_f F^T + Q,
+// G = P_f F^T P_pred^-1, P_f, m_f and F m_f + b.  Q's fragment is read
+// from the chain's shared copy (q_s, lane by lane).
+__device__ __forceinline__ void produce(float* slot, const Blk& pfm, float mfl,
+                                        const float* ft, const float* fh,
+                                        const float* fl, const float* q_s,
+                                        float b_r, int d, int g, int t,
+                                        int lane) {
+  Blk pp, pft;
+  {
+    Blk x;
+    mul_f_m(x, fh, fl, pfm, g, t);                 // F P_f
+    get(pp, q_s, lane);
+    mul_a_ft<true>(pp, x, fh, fl, g, t);           // F P_f F^T + Q
+    mul_a_ft<false>(pft, pfm, fh, fl, g, t);       // P_f F^T
+  }
+  put(slot + kSlotPP, pp, lane);
+  put(slot + kSlotPF, pfm, lane);
+  if (lane < kW) slot[kSlotMF + lane] = mfl;
+  sym_inv_scaled<false>(pp, d, g, t, lane);
+  tc::blk_mul<false, false>(pft, pft, pp);
+  __syncwarp();  // m_f is in place
+  put(slot + kSlotG, pft, lane);
+  if (lane < kW) slot[kSlotFMB + lane] = f_row_dot(ft, slot + kSlotMF, lane) + b_r;
+}
+
+// The consumer of one step, from its slot: what reads the smoothed step
+// after it.  ps and msv (m_s', 16 floats in shared memory, zero past d)
+// carry the smoothed moments from step tt + 1 to tt; dv is a 16-float
+// scratch vector.  Returns the cross G P_s' in cr and this lane's row of
+// m_s (rows g, g + 8 by t & 1).
+__device__ __forceinline__ float consume(const float* slot, Blk& ps,
+                                         Blk& cr, float* msv, float* dv,
+                                         int g, int t, int lane) {
+  Blk gm, dm, pm;
+  get(gm, slot + kSlotG, lane);
+  get(dm, slot + kSlotPP, lane);
+  get(pm, slot + kSlotPF, lane);
+  if (lane < kW) dv[lane] = msv[lane] - slot[kSlotFMB + lane];
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dm[nj][r] = ps[nj][r] - dm[nj][r];  // D
+  tc::blk_mul<false, false>(cr, gm, ps);              // G P_s' = Cov(x_t, x_t+1)
+  tc::blk_mul<false, false>(dm, gm, dm);              // G D
+  tc::blk_mul<true, false>(pm, dm, gm);               // P_f + (G D) G^T
+  __syncwarp();  // dv is in place
+  // m_s = m_f + G (m_s' - F m_f - b)
+  float s[2];
+  mat_vec(gm, dv, t, s);
+  const int my_row = g + 8 * (t & 1);
+  const float m_row = slot[kSlotMF + my_row] + (t & 1 ? s[1] : s[0]);
+  __syncwarp();  // every lane has read msv and dv
+  if (t < 2) msv[my_row] = m_row;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ps[nj][r] = pm[nj][r];
+  __syncwarp();  // m_s is in place
+  return m_row;
+}
+
+// A backward step's outputs into its staged rows (ps, cross, ms; entry k
+// at out[k s]).
+__device__ __forceinline__ void stage_bwd(float* out, int s, const Blk& ps,
+                                          const Blk& cr, float m_row, int d,
+                                          int nsym, int g, int t) {
+  stage_upper(ps, out, s, d, g, t);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = frag_row(g, r), col = frag_col(t, nj, r);
+      if (row < d && col < d) out[(nsym + row * d + col) * s] = cr[nj][r];
     }
+  const int my_row = g + 8 * (t & 1);
+  if (t < 2 && my_row < d) out[(nsym + d * d + my_row) * s] = m_row;
+}
+
+// Step T - 1: smoothed == filtered (the stored moments, rounded as stored).
+template <typename M>
+__device__ __forceinline__ void last_step(Blk& ps, float* msv,
+                                          const float* __restrict__ mf,
+                                          const M* __restrict__ pf,
+                                          float* __restrict__ ms,
+                                          M* __restrict__ ps_out, int64_t T,
+                                          int64_t B, int64_t b, int d,
+                                          int nsym, bool valid, int g, int t,
+                                          int lane) {
+  load_sym(ps, pf + (T - 1) * nsym * B + b, B, d, g, t, 1.0f);
+  const float m_last = lane < d ? mf[((T - 1) * d + lane) * B + b] : 0.0f;
+  if (lane < kW) msv[lane] = m_last;
+  if (valid) {
+    if (lane < d) ms[((T - 1) * d + lane) * B + b] = m_last;
+    store_upper<M>(ps, ps_out + (T - 1) * nsym * B + b, B, d, g, t);
   }
 }
 
-template <typename M>
-__global__ void __launch_bounds__(kThreads)
-wide_bwd_kernel(const float* __restrict__ mf, const M* __restrict__ pf,
-                float* __restrict__ ms, M* __restrict__ ps,
-                M* __restrict__ cross, int64_t T, int64_t B, int d,
-                const __grid_constant__ WideParams prm,
-                const float* __restrict__ qdyn) {
-  __shared__ __align__(16) float f_s[kMat];
-  // per chain: P_f's rows, P_s's rows, a staging matrix, Q's rows, two
-  // vectors
-  constexpr int kChainFloats = 4 * kMat + 2 * kW + 16;
-  __shared__ __align__(16) float chain_s[kChains * kChainFloats];
+// K2's shared floats: F's parts, each chain's ring, vectors and Q, two
+// rounds of staged inputs and two of staged outputs.
+constexpr int kRound = kProducers;             // steps a round
+constexpr int kBwdFloats =
+    3 * kFMat + kWarps * (2 * kRound * kSlot + 2 * kW + 8 * kLanes) +
+    2 * kRound * (kBwdInRows + kBwdOutRows) * kSW;
 
-  const int g = threadIdx.x / kW;
-  const int r = threadIdx.x % kW;
-  const int64_t b_raw = static_cast<int64_t>(blockIdx.x) * kChains + g;
+// Eight chains a block: warps 0-7 the chains' consumers, then kProducers
+// producers a chain (warp 8 + 8 p + chain).  A round is kProducers steps
+// (counted from T - 2 down), step p of it producer p's.  Round i: K1's
+// outputs of round i + 1 are loaded into registers by every thread, a row
+// of eight chains at a time; the producers fill round i's slots from its
+// staged inputs while the consumers take round i - 1's slots and stage its
+// outputs; the outputs of round i - 2 are written out, a row at a time;
+// then the loaded inputs are staged, and the block meets at one
+// __syncthreads.
+template <typename M>
+__global__ void __launch_bounds__(kWarps * (kProducers + 1) * kLanes, 1)
+wide_bwd_ring_kernel(const float* __restrict__ mf, const M* __restrict__ pf,
+                     float* __restrict__ ms, M* __restrict__ ps,
+                     M* __restrict__ cross, int64_t T, int64_t B, int d,
+                     const __grid_constant__ WideParams prm,
+                     const float* __restrict__ qdyn) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = kRound;
+  constexpr int NT = kWarps * (kProducers + 1) * kLanes;
+  // a thread's column (chain) and rows of the staged rounds: rows r0,
+  // r0 + RS, ...; KP of pf's and one of mf's a step
+  constexpr int RS = NT / kWarps;
+  constexpr int KP = (kW * (kW + 1) / 2 + RS - 1) / RS;
+  static_assert(RS >= kW, "a pass over the rows covers m's");
+  float* ft = smem;
+  float* fh = ft + kFMat;
+  float* fl = fh + kFMat;
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int g = lane >> 2, t = lane & 3;
+  const bool consumer = warp < kWarps;
+  const int chain = warp % kWarps;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kWarps;
+  const int64_t b_raw = b0 + chain;
   const bool valid = b_raw < B;
   const int64_t b = valid ? b_raw : B - 1;
-  float* pf_s = chain_s + g * kChainFloats;
-  float* ps_s = pf_s + kMat;
-  float* x_s = ps_s + kMat;
-  float* q_s = x_s + kMat;
-  float* v0 = q_s + kMat;
-  float* v1 = v0 + kW;
-
-  for (int i = threadIdx.x; i < kW * kW; i += kThreads)
-    f_s[(i / kW) * kStride + i % kW] = prm.F[i];
-  {
-    float row[kW];
-    if (qdyn) {
-      tile_row(qdyn, b, B, r, d, true, row);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kW; ++j) row[j] = prm.Q[r * kW + j];
-    }
-    store_row(q_s, r, row);
-  }
-  const float b_r = prm.b[r];
+  constexpr int kChainFloats = 2 * R * kSlot + 2 * kW + 8 * kLanes;
+  float* ring = smem + 3 * kFMat + chain * kChainFloats;
+  float* msv = ring + 2 * R * kSlot;
+  float* dv = msv + kW;
+  float* q_s = dv + kW;
+  float* in_s = smem + 3 * kFMat + kWarps * kChainFloats;
+  float* out_s = in_s + 2 * R * kBwdInRows * kSW;
+  load_f(ft, fh, fl, prm);
   const int nsym = d * (d + 1) / 2;
-  const int slot0 = r < d ? sym_slot(r, r, d) - r : 0;
-
-  // step T - 1: smoothed == filtered (the stored moments, rounded as stored)
-  float m_s = r < d ? mf[((T - 1) * d + r) * B + b] : 0.0f;
-  float s_row[kW];
-  load_pf_row(pf + (T - 1) * nsym * B, b, B, r, d, s_row);
-  if (valid && r < d) {
-    ms[((T - 1) * d + r) * B + b] = m_s;
-    M* dst = ps + (T - 1) * nsym * B + b;
-#pragma unroll
-    for (int j = 0; j < kW; ++j)
-      if (j >= r && j < d) dst[(slot0 + j) * B] = moment_out<M>(s_row[j]);
+  const float b_r = lane < kW ? prm.b[lane] : 0.0f;
+  if (consumer) {
+    // the chain's Q for its producers
+    Blk q;
+    if (qdyn)
+      load_sym(q, qdyn + b, B, d, g, t, 1.0f);
+    else
+      load_dense(q, prm.Q, g, t);
+    put(q_s, q, lane);
   }
-  store_row(ps_s, r, s_row);
-  __syncthreads();
-  if (T < 2) return;
+  const int64_t n = T - 1;                    // steps T - 2 down to 0
+  const int64_t rounds = (n + R - 1) / R;
 
-  float m_cur = r < d ? mf[((T - 2) * d + r) * B + b] : 0.0f;
-  float f_cur[kW];
-  load_pf_row(pf + (T - 2) * nsym * B, b, B, r, d, f_cur);
-  for (int64_t t = T - 2; t >= 0; --t) {
-    float m_next = 0.0f, f_next[kW] = {};
-    if (t > 0) {
-      if (r < d) m_next = mf[((t - 1) * d + r) * B + b];
-      load_pf_row(pf + (t - 1) * nsym * B, b, B, r, d, f_next);
+  const int col = threadIdx.x % kWarps, r0 = threadIdx.x / kWarps;
+  const int64_t bb = b0 + col < B ? b0 + col : B - 1;
+  // K1's outputs of a round's steps (pf's rows, then mf's) into registers,
+  // a row of the block's chains at a time; those past B read the last
+  // chain's
+  auto load_round = [&](int64_t round, float (&pre)[R][KP + 1]) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t s = round * R + j;
+      const int64_t tt = s < n ? n - 1 - s : 0;
+      const M* src = pf + tt * nsym * B + bb;
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int row = r0 + k * RS;
+        pre[j][k] = row < nsym ? moment_in(src[row * B]) : 0.0f;
+      }
+      pre[j][KP] = r0 < d ? mf[(tt * d + r0) * B + bb] : 0.0f;
     }
-    store_row(pf_s, r, f_cur);
-    v0[r] = m_cur;
-    __syncwarp();
-    // P_pred = F P_f F^T + Q ; P_f F^T
-    float fp[kW], pp[kW], pft[kW], row[kW];
-    load_row(f_s, r, row);
-    const float fm = row_dot(row, v0);           // (F m_f)[r]
-    row_mul(row, pf_s, fp);
-    row_mul_t(fp, f_s, pp);
-    load_row(q_s, r, row);
+  };
+  auto stage_round = [&](int buf, const float (&pre)[R][KP + 1]) {
 #pragma unroll
-    for (int j = 0; j < kW; ++j) pp[j] += row[j];
-    mirror_upper(pp, x_s, r);
-    row_mul_t(f_cur, f_s, pft);
-    // G = P_f F^T P_pred^-1
-    float pinv[kW];
-    sym_inv_scaled_rows(pp, pinv, r, d);
-    mirror_upper(pinv, x_s, r);
-    __syncwarp();
-    store_row(x_s, r, pinv);
-    __syncwarp();
-    float gain[kW];
-    row_mul(pft, x_s, gain);
-    // m_s = m_f + G (m_s' - F m_f - b)
-    const float diff = m_s - (fm + b_r);
-    float dmat[kW];
+    for (int j = 0; j < R; ++j) {
+      float* dst = in_s + (buf * R + j) * kBwdInRows * kSW + col;
 #pragma unroll
-    for (int j = 0; j < kW; ++j) dmat[j] = s_row[j] - pp[j];
-    __syncwarp();
-    v1[r] = diff;
-    store_row(x_s, r, dmat);
-    __syncwarp();
-    const float m_new = m_cur + row_dot(gain, v1);
-    float gd[kW];
-    row_mul(gain, x_s, gd);                    // G (P_s' - P_pred)
-    __syncwarp();
-    store_row(x_s, r, gain);
-    __syncwarp();
-    float s_new[kW];
-    row_mul_t(gd, x_s, s_new);                 // G (P_s' - P_pred) G^T
-#pragma unroll
-    for (int j = 0; j < kW; ++j) s_new[j] += f_cur[j];
-    {
-      // the cross last, stored at once: fewer rows live at a time
-      float cr[kW];
-      row_mul(gain, ps_s, cr);                 // G P_s' = Cov(x_t, x_t+1)
-      if (valid && r < d) {
-        M* cdst = cross + t * (d * d) * B + b;
-#pragma unroll
-        for (int j = 0; j < kW; ++j)
-          if (j < d) cdst[(r * d + j) * B] = moment_out<M>(cr[j]);
+      for (int k = 0; k < KP; ++k) {
+        const int row = r0 + k * RS;
+        if (row < nsym) dst[row * kSW] = pre[j][k];
+      }
+      if (r0 < d) dst[(nsym + r0) * kSW] = pre[j][KP];
+    }
+  };
+  // a round's staged outputs to ps, cross, ms, a row of chains at a time
+  auto flush_round = [&](int64_t round) {
+    if (b0 + col >= B) return;
+    for (int j = 0; j < R; ++j) {
+      const int64_t s = round * R + j;
+      if (s >= n) break;
+      const int64_t tt = n - 1 - s;
+      const float* st = out_s + ((round & 1) * R + j) * kBwdOutRows * kSW + col;
+      M* dps = ps + tt * nsym * B + bb;
+      for (int row = r0; row < nsym; row += RS)
+        dps[row * B] = moment_out<M>(st[row * kSW]);
+      M* dcr = cross + tt * (d * d) * B + bb;
+      for (int row = r0; row < d * d; row += RS)
+        dcr[row * B] = moment_out<M>(st[(nsym + row) * kSW]);
+      if (r0 < d) ms[(tt * d + r0) * B + bb] = st[(nsym + d * d + r0) * kSW];
+    }
+  };
+
+  Blk psm;
+  if (consumer)
+    last_step<M>(psm, msv, mf, pf, ms, ps, T, B, b, d, nsym, valid, g, t,
+                 lane);
+  {
+    float pre[R][KP + 1];
+    load_round(0, pre);
+    stage_round(0, pre);
+  }
+  __syncthreads();
+
+  for (int64_t i = 0; i <= rounds + 1; ++i) {
+    const int64_t r = i - 1;                  // the round the consumers take
+    float pre[R][KP + 1];
+    if (i + 1 < rounds) load_round(i + 1, pre);
+    if (r >= 1 && r - 1 < rounds) flush_round(r - 1);
+    // (this shape of the producers' branch holds ptxas at 40 bytes spilled;
+    // the round's pointers folded into the call spilled 60 and took 10%
+    // longer)
+    if (i < rounds) {
+      const float* in_round = in_s + (i & 1) * R * kBwdInRows * kSW + chain;
+      float* ring_round = ring + (i & 1) * R * kSlot;
+      if (!consumer) {
+        const int j = warp / kWarps - 1;      // this producer's step
+        const float* in = in_round + j * kBwdInRows * kSW;
+        Blk pfm;
+        gather_sym(pfm, in, kSW, d, g, t);
+        const float mfl = lane < d ? in[(nsym + lane) * kSW] : 0.0f;
+        produce(ring_round + j * kSlot, pfm, mfl, ft, fh, fl, q_s, b_r, d, g,
+                t, lane);
       }
     }
-    mirror_upper(s_new, x_s, r);
-    if (valid && r < d) {
-      ms[(t * d + r) * B + b] = m_new;
-      M* dst = ps + t * nsym * B + b;
-#pragma unroll
-      for (int j = 0; j < kW; ++j)
-        if (j >= r && j < d) dst[(slot0 + j) * B] = moment_out<M>(s_new[j]);
+    if (consumer && r >= 0 && r < rounds) {
+      float* st = out_s + (r & 1) * R * kBwdOutRows * kSW + chain;
+      for (int j = 0; j < R; ++j) {
+        if (r * R + j >= n) break;
+        Blk cr;
+        const float m_row = consume(ring + ((r & 1) * R + j) * kSlot, psm, cr,
+                                    msv, dv, g, t, lane);
+        stage_bwd(st + j * kBwdOutRows * kSW, kSW, psm, cr, m_row, d, nsym,
+                  g, t);
+      }
     }
-    m_s = m_new;
-#pragma unroll
-    for (int j = 0; j < kW; ++j) {
-      s_row[j] = s_new[j];
-      f_cur[j] = f_next[j];
-    }
-    m_cur = m_next;
-    __syncwarp();
-    store_row(ps_s, r, s_row);
-    __syncwarp();
+    if (i + 1 < rounds) stage_round((i + 1) & 1, pre);
+    __syncthreads();
   }
 }
 
@@ -364,8 +813,45 @@ WideParams make_params(int d, const float* F, const float* bvec,
   return prm;
 }
 
-inline unsigned chain_blocks(int64_t B) {
-  return static_cast<unsigned>((B + kChains - 1) / kChains);
+constexpr int kFwdSmemBytes = 4 * kFwdFloats;
+static_assert(kFwdSmemBytes <= 232448,
+              "K1's staged steps exceed an H100 block's 227 KB");
+
+template <typename M>
+int launch_fwd(const float* xi, const float* m0, const float* p0, float* mf,
+               M* pf, int64_t T, int64_t B, int d, const WideParams& prm,
+               const float* wdyn, const float* qdyn, cudaStream_t s) {
+  auto kernel = wide_fwd_tc_kernel<M>;
+  if (kFwdSmemBytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmemBytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
+  kernel<<<blocks, kWarps * kLanes, kFwdSmemBytes, s>>>(
+      xi, m0, p0, mf, pf, T, B, d, prm, wdyn, qdyn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBwdThreads = kWarps * (kProducers + 1) * kLanes;
+constexpr int kBwdSmemBytes = 4 * kBwdFloats;
+static_assert(kBwdSmemBytes <= 232448,
+              "K2's ring and staged rounds exceed an H100 block's 227 KB");
+
+template <typename M>
+int launch_bwd(const float* mf, const M* pf, float* ms, M* ps, M* cross,
+               int64_t T, int64_t B, int d, const WideParams& prm,
+               const float* qdyn, cudaStream_t s) {
+  auto kernel = wide_bwd_ring_kernel<M>;
+  if (kBwdSmemBytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
+  kernel<<<blocks, kBwdThreads, kBwdSmemBytes, s>>>(mf, pf, ms, ps, cross, T,
+                                                    B, d, prm, qdyn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -387,13 +873,11 @@ int rxt_wide_smoother_fwd(int d, const float* xi, const float* m0,
   const WideParams prm = make_params(d, F, bvec, Q, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    wide_fwd_kernel<__nv_bfloat16><<<chain_blocks(B), kThreads, 0, s>>>(
-        xi, m0, p0, mf, static_cast<__nv_bfloat16*>(pf), T, B, d, prm, wdyn,
-        qdyn);
-  else
-    wide_fwd_kernel<float><<<chain_blocks(B), kThreads, 0, s>>>(
-        xi, m0, p0, mf, static_cast<float*>(pf), T, B, d, prm, wdyn, qdyn);
-  return static_cast<int>(cudaGetLastError());
+    return launch_fwd<__nv_bfloat16>(xi, m0, p0, mf,
+                                     static_cast<__nv_bfloat16*>(pf), T, B, d,
+                                     prm, wdyn, qdyn, s);
+  return launch_fwd<float>(xi, m0, p0, mf, static_cast<float*>(pf), T, B, d,
+                           prm, wdyn, qdyn, s);
 }
 
 int rxt_wide_smoother_bwd(int d, const float* mf, const void* pf, float* ms,
@@ -405,19 +889,51 @@ int rxt_wide_smoother_bwd(int d, const float* mf, const void* pf, float* ms,
   const WideParams prm = make_params(d, F, bvec, Q, Q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    wide_bwd_kernel<__nv_bfloat16><<<chain_blocks(B), kThreads, 0, s>>>(
+    return launch_bwd<__nv_bfloat16>(
         mf, static_cast<const __nv_bfloat16*>(pf), ms,
         static_cast<__nv_bfloat16*>(ps), static_cast<__nv_bfloat16*>(cross),
-        T, B, d, prm, qdyn);
-  else
-    wide_bwd_kernel<float><<<chain_blocks(B), kThreads, 0, s>>>(
-        mf, static_cast<const float*>(pf), ms, static_cast<float*>(ps),
-        static_cast<float*>(cross), T, B, d, prm, qdyn);
-  return static_cast<int>(cudaGetLastError());
+        T, B, d, prm, qdyn, s);
+  return launch_bwd<float>(mf, static_cast<const float*>(pf), ms,
+                           static_cast<float*>(ps), static_cast<float*>(cross),
+                           T, B, d, prm, qdyn, s);
 }
 
 // The widest state the kernels take (the padded dim).
 int rxt_wide_smoother_max_dim() { return kW; }
+
+// The kernels' shape: K1's chains a warp and warps a block; K2's producer
+// warps a chain, steps a producer takes a round, chains a block, threads a
+// block and shared bytes a block.
+void rxt_wide_smoother_shape(int* out) {
+  out[0] = 1;
+  out[1] = kWarps;
+  out[2] = kProducers;
+  out[3] = 1;
+  out[4] = kWarps;
+  out[5] = kBwdThreads;
+  out[6] = kBwdSmemBytes;
+}
+
+// Blocks an SM holds of K1 (bwd = 0) or K2 (bwd = 1), or -1.
+int rxt_wide_smoother_blocks_per_sm(int bwd, int bf16) {
+  int n = 0;
+  cudaError_t rc;
+  if (bwd)
+    rc = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, wide_bwd_ring_kernel<__nv_bfloat16>, kBwdThreads,
+                    kBwdSmemBytes)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, wide_bwd_ring_kernel<float>, kBwdThreads,
+                    kBwdSmemBytes);
+  else
+    rc = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, wide_fwd_tc_kernel<__nv_bfloat16>, kWarps * kLanes,
+                    kFwdSmemBytes)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, wide_fwd_tc_kernel<float>, kWarps * kLanes,
+                    kFwdSmemBytes);
+  return rc == cudaSuccess ? n : -1;
+}
 
 const char* rxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,9 +1,10 @@
-// The 16-lane row algebra of the wide kernels: a chain on a group of 16
-// lanes, lane r holding row r of every 16 x 16 matrix of its step, the
-// state padded to 16 with an exact identity block.  Shared by
-// fused_smoother_wide.cu (K1/K2 at d 9..16) and fused_filter_wide.cu (K3
-// at d 9..16 or dy > 8): row products against matrices in shared memory,
-// the mirror of an upper triangle, and the scaled Gauss-Jordan inverse.
+// The 16-lane row algebra of the wide K3 (fused_filter_wide.cu, d 9..16 or
+// dy > 8): a chain on a group of 16 lanes, lane r holding row r of every
+// 16 x 16 matrix of its step, the state padded to 16 with an exact
+// identity block: row products against matrices in shared memory, the
+// mirror of an upper triangle, and the scaled Gauss-Jordan inverse.  The
+// wide K1/K2 (fused_smoother_wide.cu) ran on it until they moved to the
+// tensor-core step of tc16.cuh.
 
 #pragma once
 

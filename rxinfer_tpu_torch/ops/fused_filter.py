@@ -20,7 +20,8 @@ any d and dy.  d <= ``REG_MAX_DIM`` with dy <= ``REG_MAX_OBS_DIM`` launches
 ``filter_kernel<D, DY>`` of ``csrc/fused_filter.cu`` (one thread a chain,
 the state in registers); any other d <= ``WIDE_MAX_DIM``, at any dy,
 launches ``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on
-16 lanes, the state padded to 16, the wide smoother's step); any larger d,
+16 lanes, the state padded to 16, the row step of ``csrc/wide_rows.cuh``);
+any larger d,
 at any dy, launches a kernel of ``csrc/fused_filter_warp.cu`` (a chain on
 a warp; ``warp_plan`` picks the tier): to d = 32 ``warp_filter_tc_kernel``
 (the matrices in registers, the products and the Schur blocks of the

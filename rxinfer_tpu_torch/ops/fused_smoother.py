@@ -57,12 +57,15 @@ is the static one (it reads Q only), as in the JAX package.
 State dims 9..16 (V3).  The replay kernels keep a chain's state in one
 thread's registers and are instantiated for d <= ``REG_MAX_DIM``; for d in
 (``REG_MAX_DIM``, ``MAX_DIM``] the wrappers launch the wide kernels of
-``csrc/fused_smoother_wide.cu`` instead (a chain a 16-lane group, one time
-block, shared or per-chain W / Q), counted under the ``_wide`` keys.  Their
-plain version is the same d-generic one (``forward_step``,
-``backward_step``); the wide kernels invert by Gauss-Jordan, the plain
-version by the Schur recursion, so the two agree to rounding, not bit for
-bit.
+``csrc/fused_smoother_wide.cu`` instead (one time block, shared or
+per-chain W / Q), counted under the ``_wide`` keys: K1 a chain a warp, its
+16 x 16 matrices in ``mma.sync``'s accumulator layout; K2 a consumer warp
+a chain beside producer warps that form the gain ahead of it.  Their plain
+version is the same d-generic one (``forward_step``, ``backward_step``);
+the wide kernels multiply in 3xTF32 on the tensor cores and invert by the
+Schur blocks at 8 with Gauss-Jordan leaves, the plain version by the Schur
+recursion split at d / 2, so the two agree to rounding, not bit for bit.
+``wide_kernel_shape`` reads their shape as built on the card.
 
 bf16 moments (V2, ``moment_dtype=torch.bfloat16``).  The packed filtered
 and smoothed covariances and the cross are stored in bf16, rounded to
@@ -93,8 +96,8 @@ from . import kalman
 # Schur-inverse temporaries in registers; the replay kernels are
 # instantiated for d = 1..8, and at d = 8 the backward one already needs 255
 # registers.  At d = 16 the state alone is 152 floats, so d in (8, 16] runs
-# on the wide kernels (``csrc/fused_smoother_wide.cu``: a chain a 16-lane
-# group, a row of each matrix a lane).
+# on the wide kernels (``csrc/fused_smoother_wide.cu``: a chain a warp, its
+# 16 x 16 matrices eight registers a lane).
 REG_MAX_DIM = 8
 # Largest chain state any smoother kernel takes: the JAX tier's (d <= 16).
 MAX_DIM = 16
@@ -561,6 +564,9 @@ def _wide_library():
             p]
         lib.rxt_wide_smoother_bwd.restype = ctypes.c_int
         lib.rxt_wide_smoother_max_dim.restype = ctypes.c_int
+        lib.rxt_wide_smoother_shape.argtypes = [p]
+        lib.rxt_wide_smoother_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.rxt_wide_smoother_blocks_per_sm.restype = ctypes.c_int
         if lib.rxt_wide_smoother_max_dim() != MAX_DIM:
             raise RuntimeError(
                 "csrc/fused_smoother_wide.cu takes d up to "
@@ -568,6 +574,26 @@ def _wide_library():
                 f"{MAX_DIM}")
         lib._rxt_typed = True
     return lib
+
+
+def wide_kernel_shape(device) -> dict:
+    """The wide kernels' shape as built (card only): K1's chains a warp and
+    warps a block; K2's producer warps a chain, steps a producer takes a
+    round, chains a block, threads and shared bytes a block; and the warps
+    an SM holds of each by occupancy (float32 moments)."""
+    lib = _wide_library()
+    vals = (ctypes.c_int * 7)()
+    lib.rxt_wide_smoother_shape(vals)
+    keys = ("fwd_chains_per_warp", "fwd_warps_per_block", "bwd_producers",
+            "bwd_steps_per_round", "bwd_chains_per_block",
+            "bwd_threads_per_block", "bwd_smem_bytes")
+    out = dict(zip(keys, vals))
+    with torch.cuda.device(device):
+        out["fwd_warps_per_sm"] = lib.rxt_wide_smoother_blocks_per_sm(
+            0, 0) * out["fwd_warps_per_block"]
+        out["bwd_warps_per_sm"] = lib.rxt_wide_smoother_blocks_per_sm(
+            1, 0) * out["bwd_threads_per_block"] // 32
+    return out
 
 
 def _device_blocks(bsz, t_len, d, device) -> int:

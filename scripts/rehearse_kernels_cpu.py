@@ -2,8 +2,9 @@
 """Rehearse the wide forward-backward, filter and dequantize + product
 kernels on the CPU, with no card and no ``nvcc``: build
 ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``, ``csrc/fused_filter_wide.cu``,
-``csrc/fused_filter_warp.cu`` and ``csrc/quantized.cu`` with ``g++`` against
-a stub CUDA runtime and hold them against their plain versions.
+``csrc/fused_filter_warp.cu``, ``csrc/fused_smoother_wide.cu`` and
+``csrc/quantized.cu`` with ``g++`` against a stub CUDA runtime and hold them
+against their plain versions.
 
     python3 scripts/rehearse_kernels_cpu.py [--out DIR]
 
@@ -23,8 +24,11 @@ ring's tile shrinks; the warp filter runs each of its tiers (the
 tensor-core tier at d 17-32, a vague prior included; the sweep with
 parameters and chain matrices in shared memory, parameters in device
 memory, both in device memory), forced at small d by a small limit, and
-at a d past the last tier against a float64 filter; K8 runs with W whole
-and in row tiles (forced by a small limit) on both payloads, bit for bit.
+at a d past the last tier against a float64 filter; the wide K1/K2 run at
+d 9-16 (a ragged block of chains, T = 1 and 2 and a ragged last round, W
+and Q per chain, bf16 moments, a vague prior), K2 on K1's own outputs; K8
+runs with W whole and in row tiles (forced by a small limit) on both
+payloads, bit for bit.
 A minute or two with four cores (the libraries in ``--out``, a temporary
 directory by default).
 """
@@ -605,6 +609,76 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
     return ok
 
 
+def check_smoother_wide(lib, b, t, d, dyn=False, bf16=False, p0_scale=9.0,
+                        seed=0) -> bool:
+    """The wide K1 and K2 launchers at (B, T, d) (W and Q per chain with
+    ``dyn``, bf16 moments with ``bf16``; K2 on K1's own outputs) against
+    the plain versions on the same inputs."""
+    import torch
+
+    from chip_smoke import _smoother_params, _spd_batch
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.rxt_wide_smoother_fwd.argtypes = [ci, vp, vp, vp, vp, vp, i64, i64,
+                                          vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.rxt_wide_smoother_bwd.argtypes = [ci, vp, vp, vp, vp, vp, i64, i64,
+                                          vp, vp, vp, vp, ci, vp]
+    # the card's limit (K2's ring takes more than 48 KB a block)
+    ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = 232_448
+    f, bv, q, w = _smoother_params(d, seed=seed)
+    rng = np.random.default_rng(seed)
+    xi = torch.as_tensor(rng.standard_normal((t, b, d)).astype(np.float32))
+    m0 = torch.as_tensor(rng.standard_normal((b, d)).astype(np.float32))
+    p0 = torch.as_tensor(np.broadcast_to(
+        p0_scale * np.eye(d, dtype=np.float32), (b, d, d)).copy())
+    wb = torch.as_tensor(_spd_batch(rng, b, d, 0.8)) if dyn else None
+    qb = torch.as_tensor(_spd_batch(rng, b, d, 0.4)) if dyn else None
+    q_sh, w_sh = (None, None) if dyn else (q, w)
+    md = torch.bfloat16 if bf16 else torch.float32
+    fh, bh, qh, wh = fs._host_params(f, bv, q_sh, w_sh, d)
+    tile = lambda x: None if x is None else fs.sym_fold(x).contiguous()
+    w_tile, q_tile = tile(wb), tile(qb)
+    nsym = d * (d + 1) // 2
+    nan = float("nan")
+    mf = torch.full((t, d, b), nan)
+    pf = torch.full((t, nsym, b), nan).to(md)
+    assert lib.rxt_wide_smoother_fwd(
+        d, xi.data_ptr(), m0.data_ptr(), p0.data_ptr(), mf.data_ptr(),
+        pf.data_ptr(), t, b, fs._host_ptr(fh), fs._host_ptr(bh),
+        fs._host_ptr(qh), fs._host_ptr(wh), fs._ptr(w_tile), fs._ptr(q_tile),
+        int(bf16), None) == 0
+    ms, ps = torch.full_like(mf, nan), torch.full_like(pf, nan)
+    cross = torch.full((t - 1, d * d, b), nan).to(md)
+    assert lib.rxt_wide_smoother_bwd(
+        d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
+        cross.data_ptr(), t, b, fs._host_ptr(fh), fs._host_ptr(bh),
+        fs._host_ptr(qh), fs._ptr(q_tile), int(bf16), None) == 0
+    mf_r, pf_r = fs.fused_forward_reference(m0, p0, xi, f, bv, q_sh, w_sh,
+                                            wb, qb, md)
+    ms_r, ps_r, cr_r = fs.fused_backward_reference(mf, pf, f, bv, q_sh, qb)
+    got = {"mf": mf, "pf": pf, "ms": ms, "ps": ps, "cross": cross}
+    want = {"mf": mf_r, "pf": pf_r, "ms": ms_r, "ps": ps_r, "cross": cr_r}
+    ok, parts = True, []
+    for k, g in got.items():
+        wt = want[k]
+        g, wt = g.double(), wt.double()
+        err = _err(g, wt)
+        moment = bf16 and k in ("pf", "ps", "cross")
+        # bf16 moments: chip_smoke's BF16_RTOL / BF16_ATOL, else 3e-4
+        rtol, atol = (1.6e-2, 3e-4) if moment else (3e-4, 3e-4)
+        good = bool(torch.isfinite(g).all()) and bool(
+            ((g - wt).abs() <= atol + rtol * wt.abs()).all())
+        ok &= good
+        parts.append(f"{k} {err:.2g}" + ("" if good else " FAIL"))
+    print(f"wide K1/K2 (B,T,d)=({b},{t},{d}) "
+          f"{'W, Q per chain' if dyn else 'static'} "
+          f"{'bf16' if bf16 else 'float32'}, P0 = {p0_scale:g} I, against "
+          "the plain versions: " + ", ".join(parts)
+          + ("" if ok else "  FAIL"), flush=True)
+    return ok
+
+
 def check_dequant(lib, rows, dy, dx, smem, fp8=False, variant="general",
                   rows_per_thread=1) -> bool:
     """K8 through its launcher on the tiles ``dequant_tiles(dy, dx, smem)``
@@ -659,7 +733,8 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     out = Path(args.out or tempfile.mkdtemp(prefix="rehearse_"))
     libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide",
-                       "fused_filter_warp", "quantized"])
+                       "fused_filter_warp", "quantized",
+                       "fused_smoother_wide"])
     print(f"built with g++ into {out}", flush=True)
     ok = True
     # K = 9..16 on the half-warp design (odd B: a warp's two halves on two
@@ -677,6 +752,19 @@ def main(argv) -> int:
     ok &= check_fb_wide(libs["fused_fb_wide"], 2, 9, 40, 3, smem=4000)
     for b, t, k, tile in [(5, 70, 3, 4), (9, 40, 8, 40), (3, 33, 1, 4)]:
         ok &= check_fb(libs["fused_fb"], b, t, k, tile)
+    # the wide K1/K2 (d 9-16): a ragged block of chains (11 = 8 + 3), T = 1,
+    # 2 and a ragged last round; W and Q per chain; bf16 moments; a vague
+    # prior
+    for b, t, d, dyn, bf16, p0s in [(11, 6, 16, False, False, 9.0),
+                                    (9, 5, 9, False, False, 9.0),
+                                    (3, 1, 12, False, False, 9.0),
+                                    (3, 2, 13, True, False, 9.0),
+                                    (10, 7, 12, True, False, 9.0),
+                                    (9, 4, 16, False, True, 9.0),
+                                    (5, 5, 10, True, True, 9.0),
+                                    (9, 4, 16, True, False, 1e6)]:
+        ok &= check_smoother_wide(libs["fused_smoother_wide"], b, t, d, dyn,
+                                  bf16, p0s, seed=b + t + d)
     for b, t, d, dy in [(11, 9, 9, 1), (9, 6, 12, 9), (10, 5, 4, 12),
                         (9, 4, 16, 40), (17, 5, 16, 16), (3, 3, 1, 70),
                         (5, 1, 16, 33)]:

@@ -114,7 +114,9 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
     assert [p.name for p in kernels.source_files("quantized")] == [
         "quantized.cu"]
     assert [p.name for p in kernels.source_files("fused_filter_warp")] == [
-        "fused_filter_warp.cu"]
+        "fused_filter_warp.cu", "tc16.cuh"]
+    assert [p.name for p in kernels.source_files("fused_smoother_wide")] == [
+        "fused_smoother_wide.cu", "smallmat.cuh", "tc16.cuh"]
 
     copy = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, copy)
