@@ -207,8 +207,9 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    memory; both ``per_step_xi`` variants; FB_RTOL/FB_ATOL; xi_sum
    bit-identical over calls; the serial launch equal bit for bit to each
    recursion launched alone; sampled chains against the float64
-   forward-backward), the wide K3 at FILTER_WIDE_CHECK_SHAPES (RTOL/ATOL;
-   sampled chains against the float64 filter).  (b) ``zoo.hmm(16, 8)``
+   forward-backward), the wide K3 at FILTER_WIDE_CHECK_SHAPES (RTOL/ATOL,
+   a vague prior among them; sampled chains against the float64 filter).
+   (b) ``zoo.hmm(16, 8)``
    through ``batched_program`` at B=1024, T=1000, 20 iterations: the plan
    fused on the CUDA route, exactly 20 serial and 20 marginal launches a
    call and no other, sampled chains against the float64 VMP
@@ -223,7 +224,8 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    over the first 4 steps (that call is the plain version's time), the
    call and K3 alone.  ``[hmm16]`` and ``[filter16]`` lines; three more
    rows in the ``kernels`` line (the serial and marginal launches, with
-   their ``ptxas`` lines, and the wide K3).
+   their ``ptxas`` lines, and the wide K3 with both bounds, its registers,
+   spills and warps an SM).
 
 17. K3 above d = 16 (``csrc/fused_filter_warp.cu``, V6: a chain a warp;
    to d = 32 the tensor-core tier, past it the sweep tiers).
@@ -254,6 +256,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -380,7 +383,7 @@ QUANT_ITERATIONS = (1, 10)
 
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
-                       "fused_filter_wide": "wide_filter_kernel",
+                       "fused_filter_wide": "wide_filter_tc_kernel",
                        "fused_filter_warp": "warp_filter(?:_tc)?_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
@@ -1563,11 +1566,15 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
     """Least time the card could take for K3 at (B, T, d, dy): observations
     and initial state read once, means and final state written once, against
     the operations of T chain-steps (the plain step run on counting
-    stand-ins) at the float32 rate.  At the warp K3's tensor-core tier (16 <
-    d <= 32) the operations its products run on the tensor cores (F P F^T +
-    Q, and both inverses' block products at the top two levels of the Schur
-    recursion) are priced at the 3xTF32 rate instead, the rest (leaves,
-    scaling, vectors) at the float32 rate, the two times added."""
+    stand-ins) at the float32 rate.  Where a tier runs products on the
+    tensor cores, those operations are priced at the 3xTF32 rate instead,
+    the rest (leaves, scaling, vectors, the evidence) at the float32 rate,
+    the two times added (``bound_ms``): at the wide K3 (``launch_key``
+    "fused_filter_wide": 8 < d <= 16, or d <= 8 with dy > 8) F P F^T + Q,
+    both inverses' block products at the top level of the Schur recursion
+    and the evidence xi = HR y; at the warp K3's tensor-core tier (16 < d <=
+    32) F P F^T + Q and the inverses' block products at the top two levels.
+    ``bound_ms_fp32`` prices every operation at the float32 rate."""
     from rxinfer_tpu_torch.ops import entrywise as ew
     from rxinfer_tpu_torch.ops import fused_filter as ff
 
@@ -1579,17 +1586,27 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
         [[_OpCount() for _ in range(d)] for _ in range(d)],
         [_OpCount() for _ in range(dy)], par, par, par,
         [[0.5] * dy for _ in range(d)]))
+    levels = 0
+    if ff.launch_key(d, dy) == "fused_filter_wide":
+        levels = 1
+    elif ff.WIDE_MAX_DIM < d <= ff.TC_DIM:
+        levels = 2
     tc_ops = 0
-    if ff.WIDE_MAX_DIM < d <= ff.TC_DIM:
+    if levels:
         tc_ops = _count_ops(lambda: ew.sandwich_sym(
             par, [[_OpCount() for _ in range(d)] for _ in range(d)], par)) \
-            + 2 * _schur_product_ops(d, 2)
+            + 2 * _schur_product_ops(d, levels)
+    if levels == 1:
+        tc_ops += _count_ops(lambda: ew.mat_vec(
+            [[0.5] * dy for _ in range(d)], [_OpCount() for _ in range(dy)]))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ((ops - tc_ops) / FP32_FLOPS + tc_ops / TF32X3_FLOPS) * t * b * 1e3
+    t_fp32 = ops / FP32_FLOPS * t * b * 1e3
     return {"bytes": nbytes, "ops": ops * t * b,
             "ops_tensor_cores": tc_ops * t * b,
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_fp32": max(t_bytes, t_fp32)}
 
 
 def quantize_bound(r: int, c: int) -> dict:
@@ -1650,8 +1667,9 @@ def check_filter_kernel(device, shapes, log=print, seed: int = 300) -> dict:
     against its plain version on the same inputs (the plain version on CPU
     copies of them), and chains of the first shape against the float64
     filter.  Each call must count under its launch key (``fused_filter``
-    for d, dy <= 8, else ``fused_filter_wide``).  Returns each launch key's
-    max abs error against the plain version."""
+    for d, dy <= 8, else ``fused_filter_wide``).  A shape is (B, T, d, dy)
+    and, optionally, the prior's scale (P0 = scale I; 9 without it).
+    Returns each launch key's max abs error against the plain version."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -1660,7 +1678,8 @@ def check_filter_kernel(device, shapes, log=print, seed: int = 300) -> dict:
     before = dict(ff.LAUNCHES)
     want_launches = {key: 0 for key in ff.LAUNCHES}
     failures = []
-    for i, (bsz, t_len, d, dy) in enumerate(shapes):
+    for i, (bsz, t_len, d, dy, *scale) in enumerate(shapes):
+        p0_scale = scale[0] if scale else 9.0
         key = ff.launch_key(d, dy)
         want_launches[key] += 1
         f, q, h, r = _filter_system(d, dy, seed=seed + i)
@@ -1670,8 +1689,9 @@ def check_filter_kernel(device, shapes, log=print, seed: int = 300) -> dict:
             np.float32), device=device)
         m = torch.as_tensor(rng.standard_normal((bsz, d)).astype(np.float32),
                             device=device)
-        p = torch.as_tensor(np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
-                                            (bsz, d, d)).copy(), device=device)
+        p = torch.as_tensor(np.broadcast_to(
+            p0_scale * np.eye(d, dtype=np.float32), (bsz, d, d)).copy(),
+            device=device)
         m0, p0 = _soa_state(m, p)
         got = ff.fused_filter(m0, p0, ys, f, q, hr, w_obs)
         want = _on_host(ff.fused_filter_reference, m0, p0, ys, f, q, hr,
@@ -1683,10 +1703,11 @@ def check_filter_kernel(device, shapes, log=print, seed: int = 300) -> dict:
             worst[key] = max(worst.get(key, 0.0), ea)
             parts.append(f"{label} abs {ea:.3g} rel {er:.3g}")
             if not ok:
-                failures.append(f"(B,T,d,dy)=({bsz},{t_len},{d},{dy}) {label}:"
+                failures.append(f"(B,T,d,dy)=({bsz},{t_len},{d},{dy}) "
+                                f"P0={p0_scale:g} I {label}:"
                                 f" abs {ea:.3g} rel {er:.3g}")
         log(f"[check] K3 {key} (B,T,d,dy)=({bsz},{t_len},{d},{dy}) "
-            + "; ".join(parts))
+            f"P0={p0_scale:g} I: " + "; ".join(parts))
         if i == 0:
             idx = [0, 1, bsz // 2, bsz - 1]
             o_means, o_m, _ = filter_float64(
@@ -3726,10 +3747,16 @@ FB_DEVICE_TABLE_K = 240
 HMM16_B, HMM16_T, HMM16_IT, HMM16_K, HMM16_M = 1024, 1000, 20, 16, 8
 # Phase 16 (c): the wide K3 at (B, T, d, dy): d = 9 with one observation and
 # a ragged last block of chains (37 = 4 * 8 + 5); d = 12, dy = 9; d = 4 with
-# twelve observations (the register kernel's d, padded work); dy = 40 (two
-# staged chunks of observations); d = dy = 16 over 8448 chains.
+# twelve observations (the register kernel's d, padded work); dy = 40 (five
+# k tiles of the evidence's product); d = dy = 16 over 8448 chains; d = 16
+# with one observation over 65 steps, where the two inverses a step amplify
+# any asymmetry of P (a kernel that does not keep P symmetric drifts); and
+# a vague prior (P0 = 1e6 I, the fifth entry; 9 I elsewhere) at dy = 40,
+# where W is well conditioned and one TF32 product in place of 3xTF32 loses
+# digits.
 FILTER_WIDE_CHECK_SHAPES = [(37, 65, 9, 1), (100, 33, 12, 9), (40, 20, 4, 12),
-                            (33, 9, 16, 40), (8448, 17, 16, 16)]
+                            (33, 9, 16, 40), (8448, 17, 16, 16),
+                            (37, 65, 16, 1), (33, 9, 16, 40, 1e6)]
 # Phase 16 (d): path A at d = dy = 16 (B, T as phase 7); the plain version
 # over its first steps only (about 10^4 small launches a step).
 FILTER16_D = 16
@@ -5140,10 +5167,33 @@ def main() -> int:
               f"({hmm16_bounds[name]['bound_by']}); plain "
               f"{hmm16['plain_ms'][name]:.1f} ms at (B,T,K)={hmm16_shape}; "
               f"{smi}")
+    # the wide K3 (path A at d = 16); its other shapes are checked in 16 (c)
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    wide_ptxas = [line.strip() for line in kernels.ptxas_report(
+        "fused_filter_wide").splitlines() if any(
+        k in line for k in ("Compiling entry", "registers", "spill"))]
+    regs = re.search(r"Used (\d+) registers", " ".join(wide_ptxas))
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                        " ".join(wide_ptxas))
+    wide_shape = ff.wide_filter_shape(device)
+    print(f"[filter16] wide K3: {wide_shape['warps_per_sm']} warps an SM, "
+          f"{wide_shape}; ptxas: " + " | ".join(wide_ptxas))
     rows.append({
         "name": "fused_filter_wide", "route": "cuda",
         "source": "rxinfer_tpu_torch/csrc/fused_filter_wide.cu",
         "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "variant": "wide_filter_tc_kernel: a chain a warp on the wide K1's "
+                   "tensor-core step (csrc/wide_step.cuh: 3xTF32 products, "
+                   "Schur inverses at 8, leaves by "
+                   + ("pivot pairs" if wide_shape["pivot_pairs"] else
+                      "single pivots")
+                   + "); the evidence XI = HR Y of the block's eight chains "
+                   "one m16n8k8 tile a step in 3xTF32, the means staged and "
+                   "written a row of eight chains at a time, "
+                   f"{wide_shape['staged_steps']} steps between barriers",
+        "earlier_variant": "wide_filter_kernel (a chain on 16 lanes, the "
+                           "row step of wide_rows.cuh)",
         "launches": filt16["launches"]["fused_filter_wide"],
         "max_abs_err": max(worst["fused_filter_wide"], filt16["kernel_err"]),
         "max_abs_err_on_path": filt16["kernel_err"],
@@ -5154,26 +5204,34 @@ def main() -> int:
         "plain_shape_BTddy": [FILTER_B, filt16["plain_steps"], FILTER16_D,
                               FILTER16_D],
         "bound_ms": filt16_bound["bound_ms"],
-        "bound_by": filt16_bound["bound_by"], "library_ms": None,
+        "bound_by": filt16_bound["bound_by"],
+        "bound_ms_fp32": filt16_bound["bound_ms_fp32"], "library_ms": None,
         "library_note": "no single PyTorch call computes a Kalman filter",
         "shape_BTddy": [FILTER_B, FILTER_T, FILTER16_D, FILTER16_D],
         "bytes": filt16_bound["bytes"], "ops": filt16_bound["ops"],
+        "ops_tensor_cores": filt16_bound["ops_tensor_cores"],
+        "bound_rates": "ops_tensor_cores at 3xTF32 (495e12 / 3 op/s), the "
+                       "other ops at 67e12 op/s, bytes at 3.35e12 B/s",
         "cycles_per_step": filt16["cycles_per_step"],
         "sm_clock_mhz": filt16["sm_clock_mhz"],
         "share_of_bound": filt16_bound["bound_ms"] / filt16["kernel_ms"],
+        "registers": int(regs.group(1)) if regs else None,
+        "spill_bytes": max(map(int, spills)) if spills else None,
+        "warps_per_sm": wide_shape["warps_per_sm"],
+        "kernel_shape": wide_shape,
+        "ptxas": wide_ptxas,
         "shapes_checked": ["x".join(map(str, s))
                            for s in FILTER_WIDE_CHECK_SHAPES],
     })
     print(f"[filter16] fused_filter_wide: {filt16['kernel_ms']:.4f} ms alone,"
           f" in the call {rows[-1]['ms_in_path']} ms, bound "
-          f"{filt16_bound['bound_ms']:.4f} ms ({filt16_bound['bound_by']}), "
+          f"{filt16_bound['bound_ms']:.4f} ms ({filt16_bound['bound_by']}; "
+          f"float32 only {filt16_bound['bound_ms_fp32']:.4f}), "
           f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; plain "
           f"{filt16['plain_kernel_ms']:.1f} ms over {filt16['plain_steps']} "
           f"steps; {smi}")
     # the warp K3 (path A at d = 32); its other shapes and tiers are checked
     # in 17 (a)
-    from rxinfer_tpu_torch.ops import fused_filter as ff
-
     warp_ptxas = [line.strip() for line in kernels.ptxas_report(
         "fused_filter_warp").splitlines() if any(
         k in line for k in ("Compiling entry", "registers", "spill"))]
@@ -5198,7 +5256,8 @@ def main() -> int:
         "plain_shape_BTddy": [FILTER_B, filt32["plain_steps"], FILTER32_D,
                               FILTER32_D],
         "bound_ms": filt32_bound["bound_ms"],
-        "bound_by": filt32_bound["bound_by"], "library_ms": None,
+        "bound_by": filt32_bound["bound_by"],
+        "bound_ms_fp32": filt32_bound["bound_ms_fp32"], "library_ms": None,
         "library_note": "no single PyTorch call computes a Kalman filter",
         "shape_BTddy": [FILTER_B, FILTER_T, FILTER32_D, FILTER32_D],
         "bytes": filt32_bound["bytes"], "ops": filt32_bound["ops"],

@@ -31,8 +31,7 @@
 // float4 broadcasts, B's row k as 32 neighbouring floats (no bank
 // conflict); a symmetric product computes the upper triangle and writes
 // each entry to (i, j) and (j, i).  The inverses are the scaled
-// Gauss-Jordan sweep of the wide kernels (wide_rows.cuh
-// sym_inv_scaled_rows: scale by the mean |diagonal|, d unpivoted pivots in
+// Gauss-Jordan sweep (scale by the mean |diagonal|, d unpivoted pivots in
 // series, the upper triangle kept and mirrored), column by column: the
 // pivot's column is copied to a vector first, then each lane updates its
 // own columns with the pivot row's entry of that column.  The plain

@@ -13,46 +13,63 @@
 // ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle row by row; out
 // means (T, d, B), mf (d, B), pf (nsym, B).
 //
-// Design: the wide K1's former step (fused_smoother_wide.cu, before it
-// moved to the tensor cores) through the row algebra of wide_rows.cuh: a
-// chain is a group of 16 lanes, two chains a warp, lane r holds row r of
-// every matrix of the step, the state padded to 16 with an exact identity
-// block (F and W padded with zeros, Q and P with the identity), so one
-// kernel serves every d <= 16; products
-// against rows broadcast from shared memory, mirrors of upper triangles
-// through shared memory, scaled Gauss-Jordan inverses with the pivot row
-// shuffled.  The plain version inverts by a Schur recursion, so the two
-// differ in rounding only.  F, Q and W, shared by every chain, sit in the
-// block's shared memory.  The evidence is formed here: lane r sums
-// xi_r = HR[r][0] y[0] + HR[r][1] y[1] + ... in k order (ew.mat_vec's),
-// reading HR's row r as column r of HR^T (dy, d) from device memory
-// through L1 (lanes on neighbouring addresses), and the step's observations
-// from the chain's shared memory, staged kYChunk at a time: dy has no cap.
-// The first chunk is loaded at the step's start and lands while the step's
-// inverses run.
+// Design: the wide K1's step (fused_smoother_wide.cu, wide_fwd_tc_kernel)
+// on the helpers both kernels take from wide_step.cuh.  A chain is a warp;
+// the state is padded to 16 with an exact identity block (F and W padded
+// with zeros, Q and P with the identity), so one kernel serves every
+// d <= 16; P sits in registers in mma.sync.m16n8k8's accumulator layout;
+// F P F^T + Q runs on the tensor cores in 3xTF32 (F's TF32 parts in the
+// block's shared memory), and L = P_pred^-1 and P = (L + W)^-1 are each
+// the inverse scaled by the mean |diagonal|, by the Schur blocks at 8 with
+// Gauss-Jordan leaves of 8 (swept a pivot at a time unless kPairs); the
+// mean is formed beside them from vectors in shared memory.  The plain
+// version inverts by the Schur recursion split at d / 2 and keeps one
+// triangle of each symmetric matrix, so P's lower triangle is set to the
+// mirror of its upper after each step's second inverse (wide_step.cuh
+// mirror_upper: the two inverses a step would otherwise amplify the
+// rounding that sets the triangles apart, and with few observations the
+// means drift without bound); the two then differ in rounding only.
 //
-// What bounds it: the latency of a step, as for the former wide K1 (a
-// dependent chain of row products, mirrors and two 16-pivot sweeps).  At path A's
-// (B, T, d, dy) = (10,000, 200, 16, 16) the bytes are 0.27 GB (ys in, means
-// out), 0.08 ms at the HBM rate, and the operations of the plain step
-// (4.6e10, counted on stand-ins) 0.69 ms at the float32 rate, which bound it
-// on paper; 5,000 warps of two chains keep every scheduler about nine warps
-// deep, so there the issue rate and not one warp's latency is the limit.
-// A chain index past B runs on the last chain's inputs and stores nothing,
-// so every lane reaches every shuffle and __syncwarp.  (d <= 8 with dy > 8
-// runs here too, doing the padded 16-wide work.)
+// The evidence is formed here, for the block's eight chains at once: the
+// xi of one step is XI = HR Y, 16 states by 8 chains, exactly one m16n8k8
+// tile, run on the tensor cores in 3xTF32 a k tile of eight observations
+// at a time (dy has no cap).  A block's chains are neighbours in B, so a
+// k tile's observations are read a row of eight chains, a sector, at a
+// time (a chain a warp reading ys[(t dy + k) B + b] would touch a sector a
+// word).  Warp u of the block forms step u of the next group of kStaged
+// steps at the start of a group, into shared memory, which the chains read
+// after the block's barrier at the group's end; the group's means are
+// staged in shared memory the same way and written out a row of eight
+// chains at a time during the next group.  The block's warps meet once a
+// group.
+//
+// What bounds it: at path A's (B, T, d, dy) = (10,000, 200, 16, 16) the
+// bytes are 0.27 GB (ys in, means out), 0.08 ms at the HBM rate; the
+// operations of the plain step, 0.69 ms at the float32 rate, or 0.36 ms
+// with F P F^T + Q, both inverses' top-level Schur block products and the
+// evidence at the 3xTF32 rate (chip_smoke.filter_bound).  10,000 chains are
+// 10,000 warps, kMinBlocks blocks of eight resident an SM: the issue of the
+// step's instructions, not one warp's latency chain, is the limit (the two
+// inverses issue most of them).  A chain index past B runs on the last
+// chain's inputs and stores nothing, so every lane reaches every shuffle
+// and barrier.  (d <= 8 with dy > 8 runs here too, doing the padded
+// 16-wide work.)
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
-#include "wide_rows.cuh"
+#include "wide_step.cuh"
 
 namespace {
 
-constexpr int kChains = 8;  // chains a block: 4 warps
-constexpr int kThreads = kChains * kW;
-constexpr int kYChunk = 2 * kW;  // observations staged at a time
+constexpr int kWarps = 8;           // chains a block, a chain a warp
+constexpr int kThreads = kWarps * kLanes;
+constexpr int kMinBlocks = 3;       // blocks an SM: 80 registers a thread
+constexpr int kStaged = 8;          // steps staged between the block's barriers
+constexpr bool kPairs = false;      // the inverses' leaves by pivot pairs
+constexpr int kSW = kWarps + 1;     // a staged row's floats
+constexpr int kStep = kW * kSW;     // a staged step's 16 rows
 
 // F, Q and W padded to 16: F and W with zeros, Q with the identity on the
 // padded diagonal.  Read in place (__grid_constant__).
@@ -62,112 +79,173 @@ struct FilterParams {
   float W[kW * kW];
 };
 
-__global__ void __launch_bounds__(kThreads)
-wide_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
-                   const float* __restrict__ p0,
-                   const float* __restrict__ hr_t, float* __restrict__ means,
-                   float* __restrict__ mf, float* __restrict__ pf, int64_t T,
-                   int64_t B, int d, int dy,
-                   const __grid_constant__ FilterParams prm) {
-  __shared__ __align__(16) float f_s[kMat];
-  __shared__ __align__(16) float q_s[kMat];
-  __shared__ __align__(16) float w_s[kMat];
-  // per chain: P's rows, a staging matrix, two vectors, an observation chunk
-  // (+16 floats so the two chains of a warp sit 16 banks apart)
-  constexpr int kChainFloats = 2 * kMat + 2 * kW + kYChunk + 16;
-  __shared__ __align__(16) float chain_s[kChains * kChainFloats];
+// The block's shared floats: F's parts, each chain's m, m_pred and h, two
+// groups of staged evidence and two of staged means.
+constexpr int kFloats = 3 * kFMat + kWarps * 3 * kW + 4 * kStaged * kStep;
+constexpr int kSmemBytes = 4 * kFloats;
+static_assert(kSmemBytes <= 48 * 1024,
+              "a block's shared memory within the default 48 KB");
 
-  const int g = threadIdx.x / kW;  // chain within the block
-  const int r = threadIdx.x % kW;  // this lane's row
-  const int64_t b_raw = static_cast<int64_t>(blockIdx.x) * kChains + g;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+wide_filter_tc_kernel(const float* __restrict__ ys,
+                      const float* __restrict__ m0,
+                      const float* __restrict__ p0,
+                      const float* __restrict__ hr_t,
+                      float* __restrict__ means, float* __restrict__ mf,
+                      float* __restrict__ pf, int64_t T, int64_t B, int d,
+                      int dy, const __grid_constant__ FilterParams prm) {
+  constexpr int S = kStaged;
+  extern __shared__ __align__(16) float smem[];
+  float* ft = smem;
+  float* fh = ft + kFMat;
+  float* fl = fh + kFMat;
+  float* v_s = fl + kFMat;                  // per chain: m, m_pred, h
+  float* xi_s = v_s + kWarps * 3 * kW;      // two groups of S steps
+  float* out_s = xi_s + 2 * S * kStep;      // two groups of S steps
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int g = lane >> 2, t = lane & 3;
+  load_f(ft, fh, fl, prm.F);
+  const int my_row = g + 8 * (t & 1);   // the row of m v this lane keeps
+  const bool writer = t < 2;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kWarps;
+  const int64_t b_raw = b0 + warp;
   const bool valid = b_raw < B;
   const int64_t b = valid ? b_raw : B - 1;
-  float* p_s = chain_s + g * kChainFloats;
-  float* x_s = p_s + kMat;
-  float* v0 = x_s + kMat;
-  float* v1 = v0 + kW;
-  float* y_s = v1 + kW;
+  float* mv = v_s + warp * 3 * kW;
+  float* mp = mv + kW;
+  float* hv = mp + kW;
 
-  for (int i = threadIdx.x; i < kW * kW; i += kThreads) {
-    const int at = (i / kW) * kStride + i % kW;
-    f_s[at] = prm.F[i];
-    q_s[at] = prm.Q[i];
-    w_s[at] = prm.W[i];
-  }
-  const int slot0 = r < d ? sym_slot(r, r, d) - r : 0;  // slot of (r, j): + j
+  // XI = HR Y of step s for the block's chains into its staged rows (row
+  // r, column chain): lane (g, t) holds HR's rows g, g + 8 and chain g's
+  // observations at k = t, t + 4 of a k tile, and gets XI's rows g, g + 8
+  // at chains 2t, 2t + 1.  Chains past B read the last chain's
+  // observations; steps past T are not formed.
+  const int64_t bg = b0 + g < B ? b0 + g : B - 1;
+  auto evidence = [&](int64_t s, float* dst) {
+    if (s >= T) return;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* yt = ys + s * dy * B + bg;
+    for (int k0 = 0; k0 < dy; k0 += 8) {
+      const int k1 = k0 + t, k2 = k1 + 4;
+      const float a[4] = {
+          k1 < dy && g < d ? hr_t[k1 * d + g] : 0.0f,
+          k1 < dy && g + 8 < d ? hr_t[k1 * d + g + 8] : 0.0f,
+          k2 < dy && g < d ? hr_t[k2 * d + g] : 0.0f,
+          k2 < dy && g + 8 < d ? hr_t[k2 * d + g + 8] : 0.0f};
+      const float y1 = k1 < dy ? yt[k1 * B] : 0.0f;
+      const float y2 = k2 < dy ? yt[k2 * B] : 0.0f;
+      uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tc::split(a[i], ah[i], al[i]);
+      tc::split(y1, bh[0], bl[0]);
+      tc::split(y2, bh[1], bl[1]);
+      tc::mma3(acc, ah, al, bh, bl);
+    }
+    dst[g * kSW + 2 * t] = acc[0];
+    dst[g * kSW + 2 * t + 1] = acc[1];
+    dst[(g + 8) * kSW + 2 * t] = acc[2];
+    dst[(g + 8) * kSW + 2 * t + 1] = acc[3];
+  };
+  // a group's staged means out, a row of the block's chains at a time
+  const int col = threadIdx.x % kWarps, row = threadIdx.x / kWarps;
+  auto flush_group = [&](int64_t grp) {
+    if (b0 + col >= B || row >= d) return;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      const int64_t s = grp * S + u;
+      if (s < T)
+        means[(s * d + row) * B + b0 + col] =
+            out_s[((grp & 1) * S + u) * kStep + row * kSW + col];
+    }
+  };
 
-  // the state handed in: the posterior of the step before the stream
-  float m = r < d ? m0[r * B + b] : 0.0f;
-  float p_row[kW];
-  tile_row(p0, b, B, r, d, true, p_row);
-  v0[r] = m;
-  store_row(p_s, r, p_row);
+  // the state handed in: the posterior of the step before the stream, read
+  // from its upper triangle; the padding an identity block
+  if (lane < kW) mv[lane] = lane < d ? m0[lane * B + b] : 0.0f;
+  Blk p, q, w;
+  load_dense(q, prm.Q, g, t);
+  load_dense(w, prm.W, g, t);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = frag_row(g, r), j = frag_col(t, nj, r);
+      const int lo = i < j ? i : j, hi = i < j ? j : i;
+      p[nj][r] = i < d && j < d ? p0[sym_slot(lo, hi, d) * B + b]
+                                : (i == j ? 1.0f : 0.0f);
+    }
+  for (int u = warp; u < S; u += kWarps) evidence(u, xi_s + u * kStep);
   __syncthreads();
 
-  for (int64_t t = 0; t < T; ++t) {
-    // observations r and r + 16 of the first chunk, used after the inverses
-    const float* yt = ys + t * dy * B + b;
-    float y_lo = r < dy ? yt[r * B] : 0.0f;
-    float y_hi = r + kW < dy ? yt[(r + kW) * B] : 0.0f;
-
-    // m_pred = F m ; P_pred = F P F^T + Q (v0 holds m, p_s P's rows)
-    float fp[kW], pp[kW], row[kW];
-    load_row(f_s, r, row);
-    const float m_pred = row_dot(row, v0);
-    row_mul(row, p_s, fp);                       // (F P)[r]
-    row_mul_t(fp, f_s, pp);                      // (F P F^T)[r]
-    load_row(q_s, r, row);
+  for (int64_t step = 0; step < T; ++step) {
+    const int64_t grp = step / S;
+    const int sl = static_cast<int>(step - grp * S);
+    if (sl == 0) {
+      // the last group's means out and the next group's evidence in, while
+      // this one is formed
+      if (step > 0) flush_group(grp - 1);
+      for (int u = warp; u < S; u += kWarps)
+        evidence((grp + 1) * S + u,
+                 xi_s + (((grp + 1) & 1) * S + u) * kStep);
+    }
+    const float* xst = xi_s + ((grp & 1) * S + sl) * kStep + warp;
+    float* st = out_s + ((grp & 1) * S + sl) * kStep + warp;
+    // m_pred = F m ; P_pred = (F P) F^T + Q
+    if (lane < kW) mp[lane] = f_row_dot(ft, mv, lane);
+    {
+      Blk x;
+      mul_f_m(x, fh, fl, p, g, t);
 #pragma unroll
-    for (int j = 0; j < kW; ++j) pp[j] += row[j];
-    mirror_upper(pp, x_s, r);
-    float lam[kW];
-    sym_inv_scaled_rows(pp, lam, r, d);
-    mirror_upper(lam, x_s, r);
-    float w_post[kW];
-    load_row(w_s, r, w_post);
+      for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
-    for (int j = 0; j < kW; ++j) w_post[j] += lam[j];
-    sym_inv_scaled_rows(w_post, p_row, r, d);
-    mirror_upper(p_row, x_s, r);
-
-    // xi_r = sum_k HR[r][k] y_t[k], k in order, a chunk at a time
-    float xi = 0.0f;
-    for (int c = 0; c < dy; c += kYChunk) {
-      if (c > 0) {
-        y_lo = c + r < dy ? yt[(c + r) * B] : 0.0f;
-        y_hi = c + r + kW < dy ? yt[(c + r + kW) * B] : 0.0f;
-      }
-      __syncwarp();  // the chain is done with the last chunk
-      y_s[r] = y_lo;
-      y_s[r + kW] = y_hi;
-      __syncwarp();
-      const int n = dy - c < kYChunk ? dy - c : kYChunk;
-      if (r < d) {
-        const float* hr = hr_t + static_cast<int64_t>(c) * d + r;
-        for (int k = 0; k < n; ++k, hr += d)
-          xi = c + k == 0 ? *hr * y_s[k] : fmaf(*hr, y_s[k], xi);
+        for (int r = 0; r < 4; ++r) p[nj][r] = q[nj][r];
+      mul_a_ft<true>(p, x, fh, fl, g, t);
+    }
+    // L = P_pred^-1
+    sym_inv_scaled<kPairs>(p, d, g, t, lane);
+    __syncwarp();  // m_pred is in place
+    // h = L m_pred + xi (a row a lane) ; L + W
+    {
+      float s[2];
+      mat_vec(p, mp, t, s);
+      const float x_row = my_row < d ? xst[my_row * kSW] : 0.0f;
+      const float h_row = (t & 1 ? s[1] : s[0]) + x_row;
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) p[nj][r] += w[nj][r];
+      if (writer) hv[my_row] = h_row;
+    }
+    // P = (L + W)^-1, its lower triangle the mirror of its upper ; m = P h
+    sym_inv_scaled<kPairs>(p, d, g, t, lane);
+    mirror_upper(p, g, t);
+    __syncwarp();  // h is in place
+    {
+      float s[2];
+      mat_vec(p, hv, t, s);
+      const float m_row = t & 1 ? s[1] : s[0];
+      if (writer) {
+        mv[my_row] = m_row;
+        if (my_row < d) st[my_row * kSW] = m_row;
       }
     }
-
-    // h = L m_pred + xi ; m = P h
-    v1[r] = m_pred;
-    __syncwarp();
-    const float h = row_dot(lam, v1) + xi;
-    v0[r] = h;
-    __syncwarp();
-    m = row_dot(p_row, v0);
-    __syncwarp();
-    v0[r] = m;
-    store_row(p_s, r, p_row);
-    __syncwarp();
-    if (valid && r < d) means[(t * d + r) * B + b] = m;
+    if (sl == S - 1 || step == T - 1) {
+      __syncthreads();  // m, the staged means and evidence are in place
+    } else {
+      __syncwarp();     // m is in place
+    }
   }
+  flush_group((T - 1) / S);
 
-  if (valid && r < d) {
-    mf[r * B + b] = m;
+  if (valid) {
+    if (lane < d) mf[lane * B + b] = mv[lane];
 #pragma unroll
-    for (int j = 0; j < kW; ++j)
-      if (j >= r && j < d) pf[(slot0 + j) * B + b] = p_row[j];
+    for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = frag_row(g, r), j = frag_col(t, nj, r);
+        if (i <= j && j < d) pf[sym_slot(i, j, d) * B + b] = p[nj][r];
+      }
   }
 }
 
@@ -200,15 +278,33 @@ int rxt_wide_filter(int d, int dy, const float* ys, const float* m0,
   if (d < 1 || d > kW || dy < 1 || T < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const FilterParams prm = make_params(d, F, Q, W);
-  const unsigned blocks = static_cast<unsigned>((B + kChains - 1) / kChains);
-  wide_filter_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
+  wide_filter_tc_kernel<<<blocks, kThreads, kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
       ys, m0, p0, hr_t, means, mf, pf, T, B, d, dy, prm);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The widest state the kernel takes (the padded dim).
 int rxt_wide_filter_max_dim() { return kW; }
+
+// The kernel's shape: chains a block (a chain a warp), steps staged
+// between the block's barriers, whether the leaves sweep pivot pairs,
+// shared bytes a block.
+void rxt_wide_filter_shape(int* out) {
+  out[0] = kWarps;
+  out[1] = kStaged;
+  out[2] = kPairs ? 1 : 0;
+  out[3] = kSmemBytes;
+}
+
+// Blocks an SM holds of the kernel, or -1.
+int rxt_wide_filter_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, wide_filter_tc_kernel, kThreads, kSmemBytes);
+  return rc == cudaSuccess ? n : -1;
+}
 
 const char* rxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -19,10 +19,13 @@ Kernels (the time loop inside): ``fused_filter`` replaces ``_filter_kernel``
 any d and dy.  d <= ``REG_MAX_DIM`` with dy <= ``REG_MAX_OBS_DIM`` launches
 ``filter_kernel<D, DY>`` of ``csrc/fused_filter.cu`` (one thread a chain,
 the state in registers); any other d <= ``WIDE_MAX_DIM``, at any dy,
-launches ``wide_filter_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain on
-16 lanes, the state padded to 16, the row step of ``csrc/wide_rows.cuh``);
-any larger d,
-at any dy, launches a kernel of ``csrc/fused_filter_warp.cu`` (a chain on
+launches ``wide_filter_tc_kernel`` of ``csrc/fused_filter_wide.cu`` (a chain
+a warp, the state padded to 16, the wide smoother's tensor-core step of
+``csrc/wide_step.cuh``, the evidence of the block's eight chains one
+tensor-core tile a step, the means staged in shared memory and written a
+row of the block's chains at a time; ``wide_filter_shape``); any
+larger d, at any dy, launches a kernel of ``csrc/fused_filter_warp.cu`` (a
+chain on
 a warp; ``warp_plan`` picks the tier): to d = 32 ``warp_filter_tc_kernel``
 (the matrices in registers, the products and the Schur blocks of the
 inverses on the tensor cores in 3xTF32), past it ``warp_filter_kernel``
@@ -274,6 +277,22 @@ def device_warp_plan(d: int, device) -> dict:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return warp_plan(d, _smem_optin(index))
+
+
+def wide_filter_shape(device) -> dict:
+    """The wide kernel's shape as built (card only): chains a block (a
+    chain a warp), steps staged between the block's barriers, whether the
+    inverses' leaves sweep pivot pairs, shared bytes a block, and the warps
+    an SM holds by occupancy."""
+    lib = _library("fused_filter_wide")
+    vals = (ctypes.c_int * 4)()
+    lib.rxt_wide_filter_shape(vals)
+    out = dict(zip(("chains_per_block", "staged_steps", "pivot_pairs",
+                    "smem_bytes"), vals))
+    with torch.cuda.device(torch.device(device)):
+        out["warps_per_sm"] = lib.rxt_wide_filter_blocks_per_sm() \
+            * out["chains_per_block"]
+    return out
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:

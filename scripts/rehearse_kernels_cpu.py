@@ -20,7 +20,9 @@ masking and algebra faults (ragged edges, the ring's slots, the table's
 placement, the staged observations); it says nothing about registers,
 races the barriers hide, or speed.  The K > 32 passes are run again with a
 small shared-memory limit, so that the table goes to device memory and the
-ring's tile shrinks; the warp filter runs each of its tiers (the
+ring's tile shrinks; the wide filter runs at d 9-16 and at d <= 8 with
+dy > 8 (ragged blocks of chains, a staged group and a ragged last one, a
+vague prior); the warp filter runs each of its tiers (the
 tensor-core tier at d 17-32, a vague prior included; the sweep with
 parameters and chain matrices in shared memory, parameters in device
 memory, both in device memory), forced at small d by a small limit, and
@@ -446,9 +448,9 @@ def check_fb(lib, b, t, k, tile, seed=0) -> bool:
     return ok
 
 
-def check_filter(lib, b, t, d, dy, seed=0) -> bool:
+def check_filter(lib, b, t, d, dy, seed=0, p0_scale=9.0) -> bool:
     """One (B, T, d, dy) through the wide filter's launcher against the
-    plain version."""
+    plain version, P0 = ``p0_scale`` I."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -468,7 +470,7 @@ def check_filter(lib, b, t, d, dy, seed=0) -> bool:
     ys = torch.as_tensor(rng.standard_normal((t, dy, b)).astype(np.float32))
     m0 = torch.as_tensor(rng.standard_normal((d, b)).astype(np.float32))
     p0 = sym_fold(torch.as_tensor(np.broadcast_to(
-        9 * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
+        p0_scale * np.eye(d, dtype=np.float32), (b, d, d)).copy())).contiguous()
     fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
     hr_t = torch.from_numpy(np.ascontiguousarray(hrh.T))
     nan = float("nan")
@@ -482,7 +484,8 @@ def check_filter(lib, b, t, d, dy, seed=0) -> bool:
     want = ff.fused_filter_reference(m0, p0, ys, f, q, hr, w_obs)
     errs = [_err(g, w) for g, w in zip(out, want)]
     ok = max(errs) <= 3e-4
-    print(f"wide K3 (B,T,d,dy)=({b},{t},{d},{dy}): means {errs[0]:.2g}, "
+    print(f"wide K3 (B,T,d,dy)=({b},{t},{d},{dy}), P0 = {p0_scale:g} I: "
+          f"means {errs[0]:.2g}, "
           f"final m {errs[1]:.2g}, final P {errs[2]:.2g}"
           + ("" if ok else "  FAIL"), flush=True)
     return ok
@@ -765,10 +768,21 @@ def main(argv) -> int:
                                     (9, 4, 16, True, False, 1e6)]:
         ok &= check_smoother_wide(libs["fused_smoother_wide"], b, t, d, dyn,
                                   bf16, p0s, seed=b + t + d)
-    for b, t, d, dy in [(11, 9, 9, 1), (9, 6, 12, 9), (10, 5, 4, 12),
-                        (9, 4, 16, 40), (17, 5, 16, 16), (3, 3, 1, 70),
-                        (5, 1, 16, 33)]:
+    # the wide K3: d = 9, 12, 16 at dy = 1, 9, 16, 40 (past one k tile of
+    # the evidence's product, and a ragged last one), d = 4 at dy = 12, d = 1
+    # at dy = 70; ragged blocks of chains (11, 17: one and two blocks of
+    # eight and a few), T past a staged group (17 = 2 x 8 + 1) and T = 1; one
+    # observation of 16 states over 40 steps (P kept symmetric); a vague
+    # prior
+    for b, t, d, dy in [(11, 9, 9, 1), (9, 6, 9, 9), (5, 3, 9, 16),
+                        (5, 3, 9, 40), (3, 4, 12, 1), (9, 6, 12, 9),
+                        (5, 3, 12, 16), (5, 3, 12, 40), (3, 4, 16, 1),
+                        (5, 3, 16, 9), (17, 17, 16, 16), (9, 4, 16, 40),
+                        (10, 5, 4, 12), (3, 3, 1, 70), (5, 1, 16, 33),
+                        (3, 40, 16, 1)]:
         ok &= check_filter(libs["fused_filter_wide"], b, t, d, dy)
+    ok &= check_filter(libs["fused_filter_wide"], 9, 4, 16, 40,
+                       p0_scale=1e6)
     warp = libs["fused_filter_warp"]
     # d 17-32 on the tensor-core tier (padded to 24: a ragged block at 17,
     # 20, 24; padded to 32: 25, two observation chunks at 32; a vague P0 on

@@ -310,14 +310,18 @@ def test_filter_bound_prices_the_tiers_products_at_3xtf32(d):
     """``chip_smoke.filter_bound``: at the tensor-core tier (16 < d <= 32),
     F P F^T + Q and both inverses' block products at the top two levels
     (the operations the tier runs on the tensor cores) at 495 / 3 TFLOP/s,
-    the rest at 67; elsewhere every operation at 67."""
+    the rest at 67; at d = 16 (the wide K3 on the tensor cores) the same at
+    the top level and the evidence HR y; past 32 every operation at 67."""
     import chip_smoke as cs
 
     b, t = 10_000, 200
     bnd = cs.filter_bound(b, t, d, d)
     nsym = d * (d + 1) // 2
     sandwich = d * d * (2 * d - 1) + nsym * 2 * d
-    want_tc = sandwich + 2 * _block_product_ops(d, 2) if 16 < d <= 32 else 0
+    levels = 2 if 16 < d <= 32 else 1 if d == 16 else 0
+    want_tc = sandwich + 2 * _block_product_ops(d, levels) if levels else 0
+    if levels == 1:
+        want_tc += d * (2 * d - 1)
     assert bnd["ops_tensor_cores"] == want_tc * t * b
     want_ms = ((bnd["ops"] - bnd["ops_tensor_cores"]) / 67e12
                + bnd["ops_tensor_cores"] / (495e12 / 3)) * 1e3

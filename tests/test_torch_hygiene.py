@@ -116,7 +116,9 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
     assert [p.name for p in kernels.source_files("fused_filter_warp")] == [
         "fused_filter_warp.cu", "tc16.cuh"]
     assert [p.name for p in kernels.source_files("fused_smoother_wide")] == [
-        "fused_smoother_wide.cu", "smallmat.cuh", "tc16.cuh"]
+        "fused_smoother_wide.cu", "smallmat.cuh", "tc16.cuh", "wide_step.cuh"]
+    assert [p.name for p in kernels.source_files("fused_filter_wide")] == [
+        "fused_filter_wide.cu", "tc16.cuh", "wide_step.cuh"]
 
     copy = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, copy)
