@@ -243,7 +243,31 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    cycles a step, one profiled call; the tensor-core tier's warps an SM and
    its ``ptxas`` lines (it must not spill).  ``[filter32]`` lines; one more
    row in the ``kernels`` line, with the kernel's ``ptxas`` lines, its plans
-   and the tier each checked d took.
+   and the tier each checked d took.  Phases 15 (a) and 17 (a) also hold
+   the wide K1 and K2 (d = 16, a rank-one W) and the warp K3's tensor-core
+   tier (d = 17, 24, 32) on chains with one observation over ONE_OBS_T
+   steps against the float64 RTS / filter at ORACLE_TOL (ROADMAP C7: a
+   kernel that does not keep P symmetric drifts to NaN there).
+18. ``shared=`` pooling and the generic mixture.  (a) Phase 10 (b)'s
+   ``lgssm_wtau`` cell with ``shared=("Wr",)``: the plan report
+   (``dynamic == ["W"]``), exactly 2 per-chain K1 and 2 K2 launches a call,
+   the pooled Wishart (nu = nu0 + B T in every row) and sampled chains
+   against a float64 pooled mean-field VMP over all chains (run in an
+   eighth process beside phase 3; means ORACLE_TOL, the Wishart relative
+   WISHART_REL_TOL), the median of 5 calls, updates/s = 2 * 3 T B / t,
+   phase 10 (b)'s unpooled call beside it, one profiled call.  (b) The same
+   through ``infer_batched`` beyond a device budget of 4 chunks of 256:
+   each chunk's launches, against (a) at SHARED_CHUNK_TOL relative, timed.
+   (c) The pooled process-noise model (``hier``, d = 2) at (1024, 2048)
+   with ``free_energy=True``: per-chain Q launches, the pooled FE
+   (iterations,) non-increasing; at (64, 256) against the port's own
+   program on the CPU (its eighth process) at HIER_TOL relative.  (d) A
+   generic two-component ``Mixture`` over 1000 datasets with
+   ``annotations=LogScaleAnnotations()`` and ``free_energy=True``: each
+   dataset's log-scale and -FE against its float64 closed-form evidence
+   (MIX_TOL), timed once.  ``[shared]``, ``[hier]`` and ``[mixture]`` lines;
+   every row of the ``kernels`` line gets its launches on these paths
+   (``launches_shared_paths``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -645,11 +669,12 @@ def fb_bounds(b: int, t: int, k: int) -> dict:
 
 # -- the float64 oracles --------------------------------------------------------------
 
-def rts_float64(m0, p0, xi, f, b, q, w):
+def rts_float64(m0, p0, xi, f, b, q, w, filtered: bool = False):
     """Information-form Kalman filter + RTS smoother in float64 numpy, for a
     few chains at once (no transition at t = 0).  xi (T, n, d); w (d, d)
     shared or (T, n, d, d) a step; returns smoothed means (T, n, d) and
-    covariances (T, n, d, d)."""
+    covariances (T, n, d, d), and with ``filtered`` the filtered ones
+    before them."""
     t_len, n, d = xi.shape
     f, b, q, w = (np.asarray(a, np.float64) for a in (f, b, q, w))
     w_at = (lambda t: w[t]) if w.ndim == 4 else (lambda t: w)
@@ -673,7 +698,7 @@ def rts_float64(m0, p0, xi, f, b, q, w):
         g = pf[t] @ f.T @ np.linalg.inv(p_pred)
         ms[t] = mf[t] + np.einsum("nij,nj->ni", g, ms[t + 1] - (mf[t] @ f.T + b))
         ps[t] = pf[t] + g @ (ps[t + 1] - p_pred) @ np.swapaxes(g, -1, -2)
-    return ms, ps
+    return (mf, pf, ms, ps) if filtered else (ms, ps)
 
 
 def _max_err(got, want, rtol=RTOL, atol=ATOL):
@@ -3780,6 +3805,15 @@ FILTER_WARP_TIER_SHAPES = [(3, 3, 100, 7, ("device", "shared")),
 # (about 0.1 s a call).
 FILTER32_D = 32
 FILTER32_PLAIN_STEPS = 2
+# Phases 15 (a) and 17 (a), ROADMAP C7: chains with one observation a step
+# over ONE_OBS_T steps, where the two inverses of a filter step amplify any
+# gap between P's two triangles (a kernel that does not keep P symmetric
+# drifts to NaN), against the float64 filter / RTS on every chain at
+# ORACLE_TOL: the wide K1 and K2 at d = 16 with a rank-one W, the warp K3's
+# tensor-core tier at each ONE_OBS_WARP_D.
+ONE_OBS_T, ONE_OBS_B = 200, 37
+ONE_OBS_WIDE_D = 16
+ONE_OBS_WARP_D = (17, 24, 32)
 BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
                          "fused_smoother_fwd"],
                      "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
@@ -3885,6 +3919,120 @@ def check_slice12_kernels(device, cases, log=print) -> tuple[dict, dict]:
     return worst, plain
 
 
+def one_observation_system(d: int, b: int, t_len: int, seed: int = 5):
+    """A smoother's chains with one observation of d states a step: F a
+    scaled orthogonal matrix, Q = 0.4 I, W = h^T h / 0.9 of rank one (h
+    mostly the first state), P0 = 9 I.  Returns m0 (B, d), p0 (B, d, d),
+    xi (T, B, d), F, b (zero), Q, W, float32."""
+    rng = np.random.default_rng(seed)
+    qm, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    f = (0.98 * qm).astype(np.float32)
+    q = (0.4 * np.eye(d)).astype(np.float32)
+    h = (1.2 * np.eye(1, d) + 0.2 * rng.standard_normal((1, d))).astype(
+        np.float32)
+    w = (h.T @ h / 0.9).astype(np.float32)
+    xi = (rng.standard_normal((t_len, b, 1)) @ h / 0.9).astype(np.float32)
+    m0 = rng.standard_normal((b, d)).astype(np.float32)
+    p0 = np.broadcast_to(9 * np.eye(d, dtype=np.float32), (b, d, d)).copy()
+    return m0, p0, xi, f, np.zeros(d, np.float32), q, w
+
+
+def check_one_observation_smoother(device, log=print) -> float:
+    """Phase 15 (a), ROADMAP C7: the wide K1 and K2 at d = ONE_OBS_WIDE_D
+    over ONE_OBS_T steps of one observation (``one_observation_system``),
+    every chain's filtered and smoothed means and covariances against the
+    float64 filter and RTS at ORACLE_TOL, each wrapper counting one launch.
+    Returns the max abs error."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    d, bsz, t_len = ONE_OBS_WIDE_D, ONE_OBS_B, ONE_OBS_T
+    m0, p0, xi, f, b, q, w = one_observation_system(d, bsz, t_len)
+    dev = lambda a: torch.as_tensor(a, device=device)
+    keys = [fs.launch_key(dr, d, False, False) for dr in ("fwd", "bwd")]
+    before = {k: fs.LAUNCHES[k] for k in keys}
+    mf, pf = fs.fused_forward(dev(m0), dev(p0), dev(xi), f, b, q, w)
+    ms, ps, _ = fs.fused_backward(mf, pf, f, b, q)
+    torch.cuda.synchronize()
+    if any(fs.LAUNCHES[k] != before[k] + 1 for k in keys):
+        raise AssertionError(f"{keys} did not count one launch each")
+    o_mf, o_pf, o_ms, o_ps = rts_float64(m0, p0, xi, f, b, q, w,
+                                         filtered=True)
+    unfold = lambda x: fs.sym_unfold_t(x, d).cpu().numpy()
+    errs, bad = {}, []
+    for label, got, want in (
+            ("K1 means", mf.transpose(1, 2).cpu().numpy(), o_mf),
+            ("K1 covariances", unfold(pf), o_pf),
+            ("K2 means", ms.transpose(1, 2).cpu().numpy(), o_ms),
+            ("K2 covariances", unfold(ps), o_ps)):
+        err = float(np.abs(got - want).max()) if np.isfinite(got).all() \
+            else float("inf")
+        errs[label] = err
+        if not err <= ORACLE_TOL:
+            bad.append(f"{label} {err:.3g}")
+    log(f"[wide check] one observation of d = {d}, (B,T) = ({bsz},{t_len}), "
+        f"rank-one W, against the float64 filter and RTS: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {ORACLE_TOL})")
+    if bad:
+        raise AssertionError("the wide K1/K2 leave the float64 RTS on one "
+                             "observation: " + "; ".join(bad))
+    return max(errs.values())
+
+
+def check_one_observation_filter(device, log=print) -> float:
+    """Phase 17 (a), ROADMAP C7: the warp K3's tensor-core tier at each
+    ONE_OBS_WARP_D with one observation over ONE_OBS_T steps
+    (``_filter_system``, P0 = 9 I), every chain's means and final moments
+    against the float64 filter at ORACLE_TOL, one ``fused_filter_warp``
+    launch a d.  Returns the max abs error."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    worst, bad = 0.0, []
+    for d in ONE_OBS_WARP_D:
+        f, q, h, r = _filter_system(d, 1, seed=d + 1)
+        w_obs, hr = ff.evidence_operators(h, r)
+        rng = np.random.default_rng(d)
+        ys = rng.standard_normal((ONE_OBS_T, 1, ONE_OBS_B)).astype(
+            np.float32)
+        m = rng.standard_normal((ONE_OBS_B, d)).astype(np.float32)
+        p = np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                            (ONE_OBS_B, d, d)).copy()
+        m0, p0 = _soa_state(torch.as_tensor(m, device=device),
+                            torch.as_tensor(p, device=device))
+        before = ff.LAUNCHES["fused_filter_warp"]
+        means, mf, pf = ff.fused_filter(
+            m0, p0, torch.as_tensor(ys, device=device), f, q, hr, w_obs)
+        torch.cuda.synchronize()
+        if ff.LAUNCHES["fused_filter_warp"] != before + 1:
+            bad.append(f"d = {d}: no fused_filter_warp launch counted")
+        o_means, o_m, o_p = filter_float64(m, p, ys.transpose(0, 2, 1), f, q,
+                                           h, r)
+        errs = {}
+        for label, got, want in (
+                ("means", means.transpose(1, 2).cpu().numpy(), o_means),
+                ("final m", mf.t().cpu().numpy(), o_m),
+                ("final P", _unfold_host(pf, d), o_p)):
+            err = float(np.abs(got - want).max()) \
+                if np.isfinite(got).all() else float("inf")
+            errs[label] = err
+            worst = max(worst, err)
+            if not err <= ORACLE_TOL:
+                bad.append(f"d = {d} {label} {err:.3g}")
+        log(f"[check] K3 fused_filter_warp one observation of d = {d}, "
+            f"(B,T) = ({ONE_OBS_B},{ONE_OBS_T}), against the float64 filter:"
+            f" " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol {ORACLE_TOL})")
+    if bad:
+        raise AssertionError("the warp K3's tensor-core tier leaves the "
+                             "float64 filter on one observation: "
+                             + "; ".join(bad))
+    return worst
+
+
 def wide_check_cases() -> list:
     """Phase 15 (a)'s cases of the wide kernels: WIDE_CHECK_SHAPES as
     ``check_slice12_kernels`` takes them."""
@@ -3917,6 +4065,9 @@ def slice12_checks(which: str, wall0: float) -> tuple[list, dict, dict]:
     lines: list = []
     worst, plain = check_slice12_kernels(torch.device("cuda"), cases,
                                          log=lines.append)
+    if which == "wide":
+        worst["one_observation"] = check_one_observation_smoother(
+            torch.device("cuda"), log=lines.append)
     _ended(lines, f"{which} K1/K2 checks", wall0)
     return lines, worst, plain
 
@@ -4485,6 +4636,8 @@ def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
     tiers = check_warp_tiers(device, FILTER_WARP_TIER_SHAPES,
                              log=lines.append)
     tiers["by_d"] = taken
+    tiers["one_observation"] = check_one_observation_filter(
+        device, log=lines.append)
     _ended(lines, "warp K3 checks", wall0)
     return lines, worst, tiers
 
@@ -4505,6 +4658,354 @@ def dynamic_checks(wall0: float) -> tuple[list, dict]:
                                   log=lines.append)
     _ended(lines, "dynamic K1/K2 checks", wall0)
     return lines, worst
+
+
+# Phase 18, ``shared=`` pooling (ROADMAP A7a) and generic mixtures (A4b):
+# (a) phase 10 (b)'s ``lgssm_wtau`` cell with its observation precision
+# pooled over every chain (one sensor-noise level learned jointly over a
+# fleet of trackers), against a float64 pooled VMP over all chains (in the
+# check process ``shared_checks``, beside phase 3), sampled chains at
+# SHARED_ROWS; (b) the same beyond a device budget set so that it runs
+# SHARED_CHUNKS sequential chunks, against (a) at SHARED_CHUNK_TOL relative;
+# (c) the pooled process-noise model (``tests/parallel/
+# test_infer_batched_shared.py``'s ``hier``, d = 2) at HIER_SHAPE with its
+# free energy, and at HIER_SMALL against the port's own program on the CPU
+# at HIER_TOL relative; (d) the generic two-component ``Mixture`` over
+# MIX_B datasets with log-scale annotations and its free energy, against
+# each dataset's float64 closed-form evidence at MIX_TOL.
+SHARED_ROWS = (0, 1, WTAU_B // 2, WTAU_B - 1)
+SHARED_CHUNKS = 4
+SHARED_CHUNK_TOL = 1e-5
+HIER_SHAPE, HIER_SMALL, HIER_IT, HIER_D = (1024, 2048), (64, 256), 3, 2
+HIER_ROWS = (0, 1, 63)
+HIER_TOL = 1e-4
+MIX_B, MIX_N, MIX_IT, MIX_TOL = 1000, 20, 3, 1e-4
+
+
+def pooled_wtau_vmp_float64(b: int, t_len: int, d: int, iterations: int,
+                            rows) -> tuple:
+    """Mean-field VMP of ``lgssm_wtau`` with Wr POOLED over all b chains,
+    float64 numpy (the pooled update needs every chain): the RTS smoother of
+    every chain with E[Wr] = nu S, then nu = nu0 + b T, S = (I + sum over
+    chains and steps of (y - m)(y - m)^T + P)^-1.  The chains share F, Q,
+    P0 and E[Wr], so their covariances are one recursion, ``rts_float64``'s
+    on one chain; the means of all chains follow it vectorized over the
+    batch.  y is phase 10 (b)'s (seed 11).  Returns the smoothed means of
+    ``rows`` (len(rows), T, d), nu and S."""
+    f, q, _, _, m0, p0 = lgssm_constants(d)
+    f, q, m0, p0 = (np.asarray(a, np.float64) for a in (f, q, m0, p0))
+    y = np.random.default_rng(11).standard_normal((b, t_len, d))
+    y = y.astype(np.float32).astype(np.float64)
+    nu0 = d + 1.0
+    nu, s = nu0, np.eye(d)
+    mf = np.empty((t_len, b, d))
+    for _ in range(iterations):
+        ew = nu * s
+        _, pf, _, ps = rts_float64(m0[None], p0[None], np.zeros((t_len, 1, d)),
+                                   f, np.zeros(d), q, ew, filtered=True)
+        pf, ps = pf[:, 0], ps[:, 0]
+        xi = y @ ew.T
+        m = np.broadcast_to(m0, (b, d))
+        for t in range(t_len):
+            p_pred = f @ pf[t - 1] @ f.T + q if t else p0
+            pred = m @ f.T if t else m
+            m = (pred @ np.linalg.inv(p_pred).T + xi[:, t]) @ pf[t].T
+            mf[t] = m
+        ms = mf.copy()
+        for t in range(t_len - 2, -1, -1):
+            g = pf[t] @ f.T @ np.linalg.inv(f @ pf[t] @ f.T + q)
+            ms[t] = mf[t] + (ms[t + 1] - mf[t] @ f.T) @ g.T
+        diff = y - np.moveaxis(ms, 0, 1)
+        scatter = np.einsum("bti,btj->ij", diff, diff) + b * ps.sum(0)
+        nu = nu0 + b * t_len
+        s = np.linalg.inv(np.eye(d) + scatter)
+    return np.moveaxis(ms, 0, 1)[list(rows)], nu, s
+
+
+def hier_model(d: int = HIER_D):
+    """``tests/parallel/test_infer_batched_shared.py``'s ``hier``: an LGSSM
+    whose process-noise precision W ~ Wishart(d + 1, I), and its
+    initialization."""
+    import rxinfer_tpu_torch as rt
+
+    a = (0.9 * np.eye(d)).astype(np.float32)
+    r = (0.09 * np.eye(d)).astype(np.float32)
+    nu0 = float(d) + 1.0
+    eye = np.eye(d, dtype=np.float32)
+
+    @rt.model
+    def hier(y):
+        Tn = len(y)
+        W = rt.Wishart(nu0, eye)
+        x = rt.latent(Tn, name="x")
+        x[0] = rt.MvNormal(mean=np.zeros(d, np.float32), cov=10.0 * eye)
+        for t in rt.plate(1, Tn):
+            x[t] = rt.MvNormal(mean=a @ x[t - 1], precision=W)
+        for t in rt.plate(Tn):
+            y[t] = rt.MvNormal(mean=x[t], cov=r)
+
+    return hier, {"W": rt.Wishart(nu0, eye)}
+
+
+def hier_data(b: int, t_len: int, d: int = HIER_D, seed: int = 2):
+    """b chains of ``hier``'s system (W = [[2, .3], [.3, 1.5]]), simulated
+    over the batch at once, float32."""
+    rng = np.random.default_rng(seed)
+    w_true = np.array([[2.0, 0.3], [0.3, 1.5]])
+    chol = np.linalg.cholesky(np.linalg.inv(w_true))
+    x = np.zeros((b, d))
+    ys = np.empty((b, t_len, d), np.float32)
+    for t in range(t_len):
+        x = 0.9 * x + rng.standard_normal((b, d)) @ chol.T
+        ys[:, t] = x + 0.3 * rng.standard_normal((b, d))
+    return ys
+
+
+def _pooled_run(model, init, data, iterations, device, **kw):
+    """``infer_batched(shared=)`` of a model's one shared group with the
+    free energy: (posteriors, free energy)."""
+    import rxinfer_tpu_torch as rt
+
+    res = rt.infer_batched(model, data, iterations=iterations,
+                           initialization=init, shared=(next(iter(init)),),
+                           free_energy=True, device=device, **kw)
+    return res.posteriors, res.free_energy
+
+
+def shared_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 18's host work in a process of its own beside phase 3's: (a)'s
+    float64 pooled VMP over every chain, and (c)'s program at HIER_SMALL on
+    the CPU (the port's plain versions)."""
+    import torch
+
+    lines: list = []
+    t0 = time.perf_counter()
+    o_m, o_nu, o_s = pooled_wtau_vmp_float64(WTAU_B, WTAU_T, WTAU_D, WTAU_IT,
+                                             SHARED_ROWS)
+    lines.append(f"[shared check] float64 pooled VMP over {WTAU_B} chains "
+                 f"in {time.perf_counter() - t0:.1f} s")
+    torch.set_num_threads(1)
+    model, init = hier_model()
+    posts, fe = _pooled_run(model, init,
+                            {"y": hier_data(*HIER_SMALL)}, HIER_IT,
+                            torch.device("cpu"))
+    out = {"wtau": (o_m, o_nu, o_s),
+           "hier_cpu": {"fe": fe.numpy(), "w_s": posts["W"].s[0].numpy(),
+                        "w_nu": float(posts["W"].nu[0]),
+                        "means": posts["x"].mean()[list(HIER_ROWS)].numpy()}}
+    _ended(lines, "phase 18 host checks", wall0)
+    return lines, out
+
+
+def shared_wtau_path(device, host: dict, reps: int, wtau_ms: float,
+                     log=print) -> dict:
+    """Phase 18 (a) and (b): ``lgssm_wtau`` at phase 10 (b)'s cell with Wr
+    pooled: the plan, exactly WTAU_IT per-chain K1 and static K2 launches a
+    call, the pooled Wishart (nu = nu0 + B T in every row) and sampled
+    chains against the float64 pooled VMP (``host``), the time, one
+    profiled call; then the chunked program (SHARED_CHUNKS chunks) against
+    it, timed."""
+    import warnings
+
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.engine.batched import chain_hbm_bytes_per_element
+
+    b, t_len, d, it = WTAU_B, WTAU_T, WTAU_D, WTAU_IT
+    model, init = wtau_model(d)
+    y = torch.as_tensor(np.random.default_rng(11).standard_normal(
+        (b, t_len, d)).astype(np.float32), device=device)
+    compiled, prog = rt.batched_program(model, {"y": y}, iterations=it,
+                                        initialization=init,
+                                        shared=("Wr",), device=device)
+    report = compiled.plan_report()["x"]
+    log(f"[shared] plan_report {report}")
+    if report.get("dynamic") != ["W"]:
+        raise AssertionError(f"pooled lgssm_wtau is not on the dynamic W "
+                             f"plan: {report}")
+    reset_launches()
+    state, _, _ = prog({"y": y})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[shared] launches in one program call: {launches}")
+    expect_launches(launches, fused_smoother_fwd_dyn=it,
+                    fused_smoother_bwd=it)
+    wr, means = state["Wr"], state["x"].mu
+    nu = wr.nu.cpu().numpy()
+    if not (np.all(nu == nu[0]) and nu[0] == d + 1.0 + b * t_len) \
+            or not bool(torch.isfinite(means).all()):
+        raise AssertionError(f"the pooled Wishart's nu {nu[:4]} is not "
+                             f"nu0 + B T = {d + 1.0 + b * t_len} in every "
+                             "row, or the means are not finite")
+    o_m, o_nu, o_s = host["wtau"]
+    rows = list(SHARED_ROWS)
+    s_got = wr.s.cpu().numpy().astype(np.float64)
+    errs = {"means": float(np.abs(means[rows].cpu().numpy() - o_m).max()),
+            "nu_rel": abs(float(nu[0]) / o_nu - 1.0),
+            "scale_rel": float(np.abs(s_got - o_s).max() / np.abs(o_s).max())}
+    log(f"[shared] float64 pooled VMP, chains {rows}: {errs} (tol means "
+        f"{ORACLE_TOL}, Wishart relative {WISHART_REL_TOL})")
+    if errs["means"] > ORACLE_TOL or max(errs["nu_rel"],
+                                         errs["scale_rel"]) > WISHART_REL_TOL:
+        raise AssertionError(f"pooled lgssm_wtau disagrees with the float64 "
+                             f"pooled VMP: {errs}")
+    out = {"errs": errs, "launches": launches}
+    out["program_ms"] = _cuda_ms(lambda: prog({"y": y}), reps)
+    out["updates_per_s"] = it * 3 * t_len * b / (out["program_ms"] / 1e3)
+    out["profile"] = _device_profile(lambda: prog({"y": y}), WTAU_NAMES)
+    busy = out["profile"]["busy_ms"]
+    log(f"[shared] B={b} T={t_len} d={d}, {it} iterations, Wr pooled: "
+        f"program {out['program_ms']:.3f} ms/call "
+        f"({out['updates_per_s']:.4g} updates/s; unpooled, phase 10 (b): "
+        f"{wtau_ms:.3f} ms); device busy {busy} ms per call, idle "
+        f"{_idle_share(out['program_ms'], busy)}; in the program "
+        f"{out['profile']['kernels']}")
+
+    # (b) the chunked pooled program: a budget of SHARED_CHUNKS chunks
+    per_elem = chain_hbm_bytes_per_element(compiled)
+    budget = per_elem * (b // SHARED_CHUNKS)
+    run = lambda: rt.infer_batched(
+        model, {"y": y}, iterations=it, initialization=init, shared=("Wr",),
+        options={"hbm_budget_bytes": budget}, device=device)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = run()
+    torch.cuda.synchronize()
+    out["chunked_launches"] = read_launches()
+    if not any(f"chunks of {b // SHARED_CHUNKS}" in str(w.message)
+               for w in caught):
+        raise AssertionError("the chunked pooled program did not run in "
+                             f"chunks of {b // SHARED_CHUNKS}")
+    # each chunk's chains every sweep, and once more for the final state
+    expect_launches(out["chunked_launches"],
+                    fused_smoother_fwd_dyn=SHARED_CHUNKS * (it + 1),
+                    fused_smoother_bwd=SHARED_CHUNKS * (it + 1))
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+    out["chunked_rel"] = {
+        "means": rel(res.posteriors["x"].mu, means),
+        "wishart_s": rel(res.posteriors["Wr"].s, wr.s),
+        "wishart_nu": rel(res.posteriors["Wr"].nu, wr.nu)}
+    if max(out["chunked_rel"].values()) > SHARED_CHUNK_TOL:
+        raise AssertionError(f"the chunked pooled program disagrees with the "
+                             f"unchunked one: {out['chunked_rel']}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        # the chunked program is built at the first call and kept
+        out["chunked_ms"] = statistics.median(
+            [_once_ms(run)[1] for _ in range(3)])
+    log(f"[shared] chunked, {SHARED_CHUNKS} chunks of {b // SHARED_CHUNKS} "
+        f"(budget {budget} bytes): {out['chunked_ms']:.3f} ms/call, launches "
+        f"{out['chunked_launches']}; against the unchunked program, relative:"
+        f" {out['chunked_rel']} (tol {SHARED_CHUNK_TOL})")
+    return out
+
+
+def shared_hier_path(device, host: dict, reps: int, log=print) -> dict:
+    """Phase 18 (c): the pooled process-noise model at HIER_SHAPE with its
+    free energy (per-chain Q on K1 and K2; the pooled FE (iterations,),
+    non-increasing), and at HIER_SMALL against the port's own program on
+    the CPU (``host``): FE, the pooled W and sampled chains at HIER_TOL
+    relative."""
+    import torch
+
+    model, init = hier_model()
+    data = {"y": torch.as_tensor(hier_data(*HIER_SHAPE), device=device)}
+    reset_launches()
+    posts, fe = _pooled_run(model, init, data, HIER_IT, device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[hier] launches in one call: {launches}")
+    expect_launches(launches, fused_smoother_fwd_dyn=HIER_IT,
+                    fused_smoother_bwd_dyn=HIER_IT)
+    fe_h = fe.cpu().numpy()
+    if fe_h.shape != (HIER_IT,) or not np.isfinite(fe_h).all() or not (
+            np.diff(fe_h) <= FE_MONOTONE_TOL * np.abs(fe_h[:-1])).all():
+        raise AssertionError(f"the pooled free energy {fe_h} is not a "
+                             "finite non-increasing (iterations,) trace")
+    nu = posts["W"].nu.cpu().numpy()
+    b, t_len = HIER_SHAPE
+    if not (np.all(nu == nu[0]) and nu[0] == HIER_D + 1.0 + b * (t_len - 1)):
+        raise AssertionError(f"the pooled W's nu {nu[:4]} is not nu0 + "
+                             "B (T - 1) in every row")
+    out = {"launches": launches, "fe": fe_h.tolist(),
+           "ms": _cuda_ms(lambda: _pooled_run(model, init, data, HIER_IT,
+                                              device), reps)}
+    small = {"y": torch.as_tensor(hier_data(*HIER_SMALL), device=device)}
+    posts, fe = _pooled_run(model, init, small, HIER_IT, device)
+    cpu = host["hier_cpu"]
+    rel = lambda g, w: float(np.abs(g - w).max() / np.abs(w).max())
+    out["vs_cpu_rel"] = {
+        "fe": rel(fe.cpu().numpy(), cpu["fe"]),
+        "w_s": rel(posts["W"].s[0].cpu().numpy(), cpu["w_s"]),
+        "w_nu": rel(np.float64(posts["W"].nu[0].item()), cpu["w_nu"]),
+        "means": rel(posts["x"].mean()[list(HIER_ROWS)].cpu().numpy(),
+                     cpu["means"])}
+    log(f"[hier] (B,T)={HIER_SHAPE}, d={HIER_D}, {HIER_IT} iterations, W "
+        f"pooled, free energy {fe_h.tolist()}: {out['ms']:.3f} ms/call; at "
+        f"(B,T)={HIER_SMALL} against the port's program on the CPU, "
+        f"relative: {out['vs_cpu_rel']} (tol {HIER_TOL})")
+    if max(out["vs_cpu_rel"].values()) > HIER_TOL:
+        raise AssertionError(f"the pooled process-noise model on the card "
+                             f"disagrees with the CPU: {out['vs_cpu_rel']}")
+    return out
+
+
+def mixture_path(device, log=print) -> dict:
+    """Phase 18 (d): the generic two-component ``Mixture`` of
+    ``tests/models/test_generic_mixture.py`` (theta ~ Mixture(selector,
+    (Beta(4, 8), Beta(8, 4))), MIX_N Bernoulli observations) over MIX_B
+    datasets through ``infer_batched(annotations=LogScaleAnnotations(),
+    free_energy=True)``: each dataset's log-scale of theta and -FE against
+    its float64 closed-form log-evidence at MIX_TOL; no kernel (plain
+    groups); timed once."""
+    import torch
+    from scipy.special import betaln
+
+    import rxinfer_tpu_torch as rt
+
+    n = MIX_N
+
+    @rt.model
+    def mix(y):
+        selector = rt.Categorical(np.array([0.5, 0.5], np.float32))
+        in1 = rt.Beta(4.0, 8.0)
+        in2 = rt.Beta(8.0, 4.0)
+        theta = rt.Mixture(selector, (in1, in2))
+        for i in rt.plate(n):
+            y[i] = rt.Bernoulli(theta)
+
+    beta = lambda a, b: rt.dists.Beta(torch.tensor(a), torch.tensor(b))
+    init = {"in1": beta(4.0, 8.0), "in2": beta(8.0, 4.0),
+            "theta": beta(1.0, 1.0)}
+    rng = np.random.default_rng(23)
+    p = rng.uniform(0.1, 0.9, size=(MIX_B, 1))
+    ys = (rng.uniform(size=(MIX_B, n)) < p).astype(np.float32)
+    run = lambda: rt.infer_batched(
+        mix, {"y": ys}, iterations=MIX_IT, initialization=init,
+        annotations=rt.LogScaleAnnotations(), free_energy=True,
+        device=device)
+    reset_launches()
+    res = run()
+    expect_launches(read_launches())
+    ms = _once_ms(run)[1]
+    s = ys.sum(1).astype(np.float64)
+    lz = lambda a, b: betaln(a + s, b + n - s) - betaln(a, b)
+    exact = np.logaddexp(np.log(0.5) + lz(4.0, 8.0),
+                         np.log(0.5) + lz(8.0, 4.0))
+    errs = {"log_scale": float(np.abs(rt.getlogscale(
+                res.posteriors["theta"]).cpu().numpy() - exact).max()),
+            "minus_fe": float(np.abs(-res.free_energy[-1].cpu().numpy()
+                                     - exact).max())}
+    log(f"[mixture] B={MIX_B} datasets of {n} observations, {MIX_IT} "
+        f"iterations with annotations and the free energy: {ms:.1f} ms (one "
+        f"call); against the float64 closed-form log-evidence: {errs} (tol "
+        f"{MIX_TOL})")
+    if max(errs.values()) > MIX_TOL:
+        raise AssertionError(f"the mixture's evidence disagrees with the "
+                             f"closed form: {errs}")
+    return {"ms": ms, "errs": errs}
 
 
 def _start_checker() -> None:
@@ -4579,10 +5080,11 @@ def main() -> int:
     # process at the same time (a check that fails there raises here);
     # 10 (a): the per-chain K1/K2, a third; 15 (a): the wide and the bf16
     # kernels' checks, a process each; 16 (a) and (c): the wide K4/K5 and
-    # K3, a sixth; 17 (a): the warp K3, a seventh.  The six processes start
+    # K3, a sixth; 17 (a): the warp K3, a seventh; 18: the float64 pooled
+    # VMP and the CPU program, an eighth.  The seven processes start
     # (imports, the card's context) during the build.
     with multiprocessing.get_context("spawn").Pool(
-            6, initializer=_start_checker) as pool:
+            7, initializer=_start_checker) as pool:
         # 2. build
         t0 = time.perf_counter()
         libs = kernels.build_all()
@@ -4599,6 +5101,7 @@ def main() -> int:
                   for w in ("wide", "bf16")}
         side13 = pool.apply_async(slice13_checks, (wall0,))
         side14 = pool.apply_async(slice14_checks, (wall0,))
+        side18 = pool.apply_async(shared_checks, (wall0,))
         worst, plain = check_kernels(device, CHECK_SHAPES)
         _elapsed("K1/K2 checks", t_start)
         dyn_lines, dyn_worst = side_dyn.get()
@@ -4607,8 +5110,9 @@ def main() -> int:
         bf16_lines, bf16_worst, bf16_plain = side12["bf16"].get()
         s13_lines, s13_worst, s13_bit_equal = side13.get()
         s14_lines, s14_worst, s14_tiers = side14.get()
+        s18_lines, shared_host = side18.get()
     for line in (dyn_lines + side_lines + s12_lines + bf16_lines
-                 + s13_lines + s14_lines):
+                 + s13_lines + s14_lines + s18_lines):
         print(line)
     worst.update(dyn_worst)
     worst.update(s13_worst)
@@ -4712,6 +5216,17 @@ def main() -> int:
                          inner=1, warm_sync=True)
     filt32_bound = filter_bound(FILTER_B, FILTER_T, FILTER32_D, FILTER32_D)
     _elapsed("path A at d = 32", t_start)
+
+    # 18. shared= pooling: (a) lgssm_wtau pooled, (b) chunked, (c) the
+    # pooled process-noise model; (d) the generic mixture's evidence
+    shared = shared_wtau_path(device, shared_host, reps=5,
+                              wtau_ms=wtau["program_ms"])
+    hier = shared_hier_path(device, shared_host, reps=3)
+    mixture = mixture_path(device)
+    _elapsed("shared= pooling and the generic mixture", t_start)
+    shared_launches = {"wtau_pooled": shared["launches"],
+                       "wtau_pooled_chunked": shared["chunked_launches"],
+                       "hier_pooled": hier["launches"]}
     fe_launches = {
         "fused_smoother_fwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1},
         "fused_smoother_bwd": {"lgssm": 1, "int8": 1, "float8_e4m3fn": 1,
@@ -5026,6 +5541,9 @@ def main() -> int:
          "rxinfer_tpu_torch/csrc/fused_smoother_bf16.cu", bf16, bf16_bounds,
          "fused_smoother_bwd", "bwd_ms", [MAIN_B, MAIN_T, MAIN_D]),
     )
+    smoother_wide_ptxas = [line.strip() for line in kernels.ptxas_report(
+        "fused_smoother_wide").splitlines() if any(
+        k in line for k in ("Compiling entry", "registers", "spill"))]
     for name, replaces, src, path, bnds, bkey, ms_key, shape in slice12:
         direction = "_fwd" if "_fwd" in name else "_bwd"
         wide = "_wide" in name
@@ -5054,11 +5572,16 @@ def main() -> int:
         if wide:
             rows[-1].update({
                 "device_kernel": WIDE_KERNEL_NAMES[name],
+                "max_abs_err_one_observation_vs_float64":
+                    s12_worst["one_observation"],
+                "one_observation_BTd": [ONE_OBS_B, ONE_OBS_T,
+                                        ONE_OBS_WIDE_D],
                 "bound_ms_fp32": bnds[bkey]["bound_ms_fp32"],
                 "ops_tensor_cores": bnds[bkey]["ops_tensor_cores"],
                 "cycles_per_step": path["cycles_per_step"][name],
                 "sm_clock_mhz": path["sm_clock_mhz"],
-                "kernel_shape": path["shape"]})
+                "kernel_shape": path["shape"],
+                "ptxas": smoother_wide_ptxas})
     for name in ("fused_smoother_fwd_bf16", "fused_smoother_bwd_bf16"):
         f32 = "fused_smoother_fwd" if "fwd" in name else "fused_smoother_bwd"
         ms_key = "fwd_ms" if "fwd" in name else "bwd_ms"
@@ -5249,6 +5772,9 @@ def main() -> int:
                            s14_tiers["max_abs_err"]),
         "max_abs_err_on_path": filt32["kernel_err"],
         "max_abs_err_vs_float64_in_device_tiers": s14_tiers["max_abs_err"],
+        "max_abs_err_one_observation_vs_float64":
+            s14_tiers["one_observation"],
+        "one_observation_BT_d": [ONE_OBS_B, ONE_OBS_T, list(ONE_OBS_WARP_D)],
         "ms": filt32["kernel_ms"],
         "ms_in_path": filt32["profile"]["kernels"]["fused_filter_warp"][
             "ms_per_launch"],
@@ -5296,6 +5822,9 @@ def main() -> int:
 
     for row in rows:
         row["launches_fe_paths"] = fe_launches.get(row["name"], {})
+        row["launches_shared_paths"] = {
+            path: counts.get(row["name"], 0)
+            for path, counts in shared_launches.items()}
         row["launches_gmm_stream_paths"] = {
             "gmm": gmm["launches"].get(row["name"], 0),
             "stream_fused": stream["launches_a"].get(row["name"], 0),
@@ -5325,6 +5854,15 @@ def main() -> int:
           f"gaussian with {fe_e['gauss_fe_program_ms']:.4f} without "
           f"{fe_e['gauss_program_ms']:.4f} rel_err "
           f"{fe_e['gauss_rel_err']:.3g}")
+    print(f"[shared] (a) program_ms {shared['program_ms']:.4f} "
+          f"updates_per_s {shared['updates_per_s']:.6g} (B={WTAU_B}, "
+          f"T={WTAU_T}, d={WTAU_D}, iterations={WTAU_IT}; unpooled "
+          f"{wtau['program_ms']:.4f}); (b) chunked_ms "
+          f"{shared['chunked_ms']:.4f} ({SHARED_CHUNKS} chunks); (c) hier_ms "
+          f"{hier['ms']:.4f} (B,T={HIER_SHAPE}, d={HIER_D}, "
+          f"iterations={HIER_IT}); {smi}")
+    print(f"[mixture] (d) ms {mixture['ms']:.1f} (B={MIX_B}, N={MIX_N}, "
+          f"iterations={MIX_IT}) errs {mixture['errs']}; {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

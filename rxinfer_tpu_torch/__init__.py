@@ -53,6 +53,8 @@ from .graph.dsl import (  # noqa: F401
     DirichletCollection,
     DiscreteTransition,
     Gamma,
+    GammaMixture,
+    Mixture,
     MvNormal,
     Normal,
     NormalMixture,
@@ -66,6 +68,15 @@ from .inference_streaming import (  # noqa: F401
     RxInferenceEngine,
     RxInferenceEvent,
     autoupdates,
+)
+from .postprocess import (  # noqa: F401
+    LogScaleAnnotations,
+    Marginal,
+    NoopPostprocess,
+    UnpackMarginalPostprocess,
+    getannotations,
+    getdata,
+    getlogscale,
 )
 from .inference import (  # noqa: F401
     BatchedInferenceResult,

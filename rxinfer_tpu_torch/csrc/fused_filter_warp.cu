@@ -401,8 +401,16 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
 //   (ops/entrywise.py sym_inv, scaled by the mean |diagonal| as
 //   sym_inv_scaled): A^-1 on the leaf; X = A^-1 B and Z = B^T A^-1 (which
 //   is X^T, formed so that no block is transposed); S = D - Z B; S^-1 on
-//   the leaf; Y = X S^-1 and Y^T = S^-1 X^T; TL = A^-1 + Y X^T.  Six 16 x 16
-//   x 16 products on the tensor cores.  Each 16 x 16 inverse is the same
+//   the leaf; Y = X S^-1; TL = A^-1 + Y X^T; the lower-left block -Y^T the
+//   transpose of the upper-right -Y by shuffles (tc16.cuh transpose), not a
+//   product of its own, so the two are exact mirrors.  Five 16 x 16 x 16
+//   products on the tensor cores.  After the second inverse the two
+//   diagonal blocks' lower triangles become the mirror of their upper
+//   (tc16.cuh mirror_upper), so P is the symmetric matrix of its upper
+//   triangle each step, as the plain version keeps it: the Schur blocks
+//   leave the triangles apart by rounding, and two inverses a step amplify
+//   that on chains with few observations (one observation of 24 states
+//   reached NaN).  Each 16 x 16 inverse is the same
 //   recursion split at 8, its four 8 x 8 x 8 products two a m16n8k8 (the
 //   8-row halves of mma's A carry two products that share B); the 8 x 8
 //   leaves are the Gauss-Jordan sweep of the sweep tiers, their pivots'
@@ -418,11 +426,11 @@ warp_filter_kernel(const float* __restrict__ ys, const float* __restrict__ m0,
 //   of a half-warp.  A chain's vectors (m, m_pred, h, the observation
 //   chunk) sit in shared memory, and one 16 x 16 block of P_pred while F P
 //   is formed (predict_cov); xi = HR y is formed as in the sweep tiers.
-// A step at d = 32 is 360 mma.sync (96 + 72 for F P F^T, 2 x 72 for the
+// A step at d = 32 is 336 mma.sync (96 + 72 for F P F^T, 2 x 60 for the
 // inverses' 16 x 16 products, 4 x 12 for the 8 x 8 ones) and eight leaves
 // of 8 pivots.  To d = 24 a second instance pads the state to 24 for the
 // products: the last 8-column tile of every operand is then zero padding
-// or the padding's identity, so its products are not formed (201
+// or the padding's identity, so its products are not formed (189
 // mma.sync a step) and the padded half of D is inverted as a diagonal (six
 // leaves).  F P is formed a 16-row block at a time, and only the three
 // blocks of F P F^T + Q the inverse reads, so that a thread stays within
@@ -602,7 +610,6 @@ __device__ __forceinline__ void sym_inv_scaled(Mat& m, int d, int g, int t,
   blk_mul<true, true, P>(dd, z, bt);           // S = D - Z B
   inv16<DP != 32>(dd, g, t, lane);             // S^-1
   blk_mul<false, false, P, P>(bu, x, dd);      // Y = X S^-1
-  blk_mul<false, false, 2, P>(bt, dd, x);      // Y^T = S^-1 X^T
   blk_mul<true, false, 2, P>(a, bu, x);        // TL = A^-1 + Y X^T
 #pragma unroll
   for (int nj = 0; nj < 2; ++nj)
@@ -611,8 +618,8 @@ __device__ __forceinline__ void sym_inv_scaled(Mat& m, int d, int g, int t,
       a[nj][r] *= inv_s;
       dd[nj][r] *= inv_s;
       bu[nj][r] *= -inv_s;
-      bt[nj][r] *= -inv_s;
     }
+  transpose<P>(bt, bu, g, t);                  // -Y^T, exactly
 }
 
 // Row 16 (t / 2) + 8 (t % 2) + g of m v (v: 32 floats, zero past d, so
@@ -760,8 +767,10 @@ warp_filter_tc_kernel(const float* __restrict__ ys,
           }
     __syncwarp();  // every lane has read its xi
     hv[my_row] = h_row;
-    // P = (L + W)^-1 ; m = P h
+    // P = (L + W)^-1, its lower triangle the mirror of its upper ; m = P h
     sym_inv_scaled<DP>(pm, d, g, t, lane);
+    mirror_upper(pm.b[0][0], g, t);
+    mirror_upper(pm.b[1][1], g, t);
     __syncwarp();  // h is in place
     const float m_row = mat_vec_row<DP>(pm, hv, g, t);
     mv[my_row] = m_row;

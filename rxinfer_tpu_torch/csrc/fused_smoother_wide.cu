@@ -40,7 +40,12 @@
 // warps of a scheduler in phase, stalling together).  Its step is serial:
 // two products and two inverses on the chain's critical path, the mean
 // beside them; the inverses' leaves swept two pivots at a time
-// (tc16.cuh leaf8_pairs: half the dependent steps).  The wide K3's filter
+// (tc16.cuh leaf8_pairs: half the dependent steps).  After the second
+// inverse P's lower triangle becomes the mirror of its upper (tc16.cuh
+// mirror_upper), as the wide K3 does: the Schur blocks leave the two
+// triangles apart by rounding and two inverses a step amplify that (a
+// rank-one W of 16 states reached NaN); K2 reads the stored upper
+// triangle.  The wide K3's filter
 // step (fused_filter_wide.cu) is this step with the transition at every
 // step, no bias, and xi = HR y formed from the observations in place of xi
 // given.
@@ -320,8 +325,9 @@ wide_fwd_tc_kernel(const float* __restrict__ xi, const float* __restrict__ m0,
         for (int r = 0; r < 4; ++r) p[nj][r] += w[nj][r];
       if (writer) hv[my_row] = h_row;
     }
-    // P = (L + W)^-1 ; m = P h
+    // P = (L + W)^-1, its lower triangle the mirror of its upper ; m = P h
     sym_inv_scaled<true>(p, d, g, t, lane);
+    mirror_upper(p, g, t);
     __syncwarp();  // h is in place
     {
       float s[2];

@@ -4,7 +4,8 @@
 // row g + 8 (r / 2), column 8 nj + 2 t + r % 2.  Products in 3xTF32 as
 // C = A N^T (an accumulator is an A operand with k permuted within each 8),
 // the 16 x 16 symmetric inverse by the Schur blocks at 8 with Gauss-Jordan
-// leaves of 8 by shuffles.  Shared by fused_filter_warp.cu (the warp K3's
+// leaves of 8 by shuffles; a symmetric block's mirror and a block's
+// transpose by shuffles.  Shared by fused_filter_warp.cu (the warp K3's
 // tensor-core tier, d 17-32, which runs them on the blocks of a 32 x 32
 // matrix) and fused_smoother_wide.cu (the wide K1/K2, d 9-16, one block).
 
@@ -247,6 +248,61 @@ __device__ __forceinline__ void inv16(Blk& m, int g, int t, int lane) {
   m[1][1] = -y1;
   m[0][2] = -w0;
   m[0][3] = -w1;
+}
+
+// In place: the entries of the symmetric m below its diagonal replaced by
+// the mirror of those above, as the plain version keeps a symmetric matrix
+// (its upper triangle).  The Schur inverse leaves its blocks' two triangles
+// apart by rounding; a filter's recursion through two inverses a step can
+// amplify what sets them apart (one observation of 16 states: the means
+// drift without bound), and a P mirrored each step keeps them a step's
+// rounding apart.  Lane (g, t) takes entry (2t + e, g) of each 8 x 8 block
+// from lane 4 (2t + e) + g / 2, register g % 2 there (both shuffled, one
+// selected: a lane's two readers want different registers).
+__device__ __forceinline__ void mirror_upper(Blk& m, int g, int t) {
+  const bool odd = g & 1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int src = 4 * (2 * t + e) + (g >> 1);
+    const float tr0 = __shfl_sync(kFull, m[1][0], src);
+    const float tr1 = __shfl_sync(kFull, m[1][1], src);
+    const float tl0 = __shfl_sync(kFull, m[0][0], src);
+    const float tl1 = __shfl_sync(kFull, m[0][1], src);
+    const float br0 = __shfl_sync(kFull, m[1][2], src);
+    const float br1 = __shfl_sync(kFull, m[1][3], src);
+    m[0][2 + e] = odd ? tr1 : tr0;               // rows 8-15, columns 0-7
+    if (g > 2 * t + e) {                         // below the blocks' diagonal
+      m[0][e] = odd ? tl1 : tl0;
+      m[1][2 + e] = odd ? br1 : br0;
+    }
+  }
+}
+
+// dst = src^T over 16 x 16 blocks (dst must not alias src), by shuffles:
+// lane (g, t) takes entry (8 nj + 2t + e, g + 8 h) of src, register
+// 2 nj + g % 2 of tile h at lane 4 (2t + e) + g / 2 (both shuffled, one
+// selected, as mirror_upper).  NT: src's live column tiles (1 where its
+// second is zero padding: dst's rows 8-15 are then zero).
+template <int NT = 2>
+__device__ __forceinline__ void transpose(Blk& dst, const Blk& src, int g,
+                                          int t) {
+  const bool odd = g & 1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int lane_src = 4 * (2 * t + e) + (g >> 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        if (h < NT) {
+          const float v0 = __shfl_sync(kFull, src[h][2 * nj], lane_src);
+          const float v1 = __shfl_sync(kFull, src[h][2 * nj + 1], lane_src);
+          dst[nj][2 * h + e] = odd ? v1 : v0;
+        } else {
+          dst[nj][2 * h + e] = 0.0f;
+        }
+      }
+  }
 }
 
 }  // namespace tc

@@ -19,6 +19,7 @@
 namespace {
 
 using tc::Blk;
+using tc::mirror_upper;
 
 constexpr int kW = 16;                  // the padded state dim
 constexpr int kLanes = 32;
@@ -193,34 +194,6 @@ __device__ __forceinline__ void sym_inv_scaled(Blk& m, int d, int g, int t,
   for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
     for (int r = 0; r < 4; ++r) m[nj][r] *= inv_s;
-}
-
-// In place: the entries of the symmetric m below its diagonal replaced by
-// the mirror of those above, as the plain version keeps a symmetric matrix
-// (its upper triangle).  The Schur inverse leaves its blocks' two triangles
-// apart by rounding; a filter's recursion through two inverses a step can
-// amplify what sets them apart (one observation of 16 states: the means
-// drift without bound), and a P mirrored each step keeps them a step's
-// rounding apart.  Lane (g, t) takes entry (2t + e, g) of each 8 x 8 block
-// from lane 4 (2t + e) + g / 2, register g % 2 there (both shuffled, one
-// selected: a lane's two readers want different registers).
-__device__ __forceinline__ void mirror_upper(Blk& m, int g, int t) {
-  const bool odd = g & 1;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int src = 4 * (2 * t + e) + (g >> 1);
-    const float tr0 = __shfl_sync(tc::kFull, m[1][0], src);
-    const float tr1 = __shfl_sync(tc::kFull, m[1][1], src);
-    const float tl0 = __shfl_sync(tc::kFull, m[0][0], src);
-    const float tl1 = __shfl_sync(tc::kFull, m[0][1], src);
-    const float br0 = __shfl_sync(tc::kFull, m[1][2], src);
-    const float br1 = __shfl_sync(tc::kFull, m[1][3], src);
-    m[0][2 + e] = odd ? tr1 : tr0;               // rows 8-15, columns 0-7
-    if (g > 2 * t + e) {                         // below the blocks' diagonal
-      m[0][e] = odd ? tl1 : tl0;
-      m[1][2 + e] = odd ? br1 : br0;
-    }
-  }
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 """Distribution substrate of the PyTorch port (Gaussian families, Beta,
 Bernoulli, Categorical, Dirichlet, DirichletCollection, GammaShapeRate,
-Wishart and PointMass; counterpart of ``rxinfer_tpu/dists``)."""
+Wishart, MixtureDist and PointMass; counterpart of ``rxinfer_tpu/dists``)."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -29,6 +29,7 @@ from .gaussian import (  # noqa: F401
 )
 from .discrete import Categorical, Dirichlet, DirichletCollection  # noqa: F401
 from .matrix import Wishart, WishartInverseScale  # noqa: F401
+from .mixture import MixtureDist  # noqa: F401
 from .pointmass import PointMass, register_pointmass_products
 from .scalar_families import (  # noqa: F401
     AbstractGamma,

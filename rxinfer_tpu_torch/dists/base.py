@@ -27,10 +27,14 @@ def dist_dataclass(cls):
 
 def tree_map(fn, d):
     """Apply ``fn`` to every tensor field of a distribution (or the tensor
-    itself), returning a distribution of the same family."""
+    itself), returning a distribution of the same family; a field holding a
+    tuple of distributions (a mixture's components) is mapped through."""
     if isinstance(d, torch.Tensor):
         return fn(d)
-    return type(d)(*[fn(getattr(d, f.name)) for f in dataclasses.fields(d)])
+    if isinstance(d, tuple):
+        return tuple(tree_map(fn, x) for x in d)
+    return type(d)(*[tree_map(fn, getattr(d, f.name))
+                     for f in dataclasses.fields(d)])
 
 
 def tree_leaves(d) -> list:

@@ -7,7 +7,9 @@ Ported subset: the ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
 ``categorical``, ``dirichlet``, ``dirichlet_collection``, ``gamma`` and
 ``wishart`` families (the other
 conjugate families arrive with the rest of the node library), ``prod_all``,
-``nat_div``, ``prod_reduce``, ``pad_plate`` and ``NAT_EVENT_RANKS``.  The
+``nat_div``, ``prod_reduce``, ``pad_plate``, ``NAT_EVENT_RANKS``, and for
+the generic ``Mixture`` ``log_partition``, ``logpdf``, the mixture products
+and divisions and ``coerce_message_family``.  The
 ``wishart`` view keeps the inverse-scale carrier: one observation's
 natural matrix is singular, so only an aggregated posterior is converted
 back to a ``Wishart`` (``WishartInverseScale.to_wishart``).
@@ -23,6 +25,8 @@ every plate copy); ``NAT_EVENT_RANKS`` tells them apart.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -133,14 +137,134 @@ def _wrap_gamma(d):
     return d
 
 
+def log_partition(family: str, nat: tuple):
+    """A(eta) of a unit-base-measure family (over leading axes): the
+    evidence of a product of normalized densities is A(sum eta) -
+    sum A(eta_i).  Read by the log-scale pass (``engine/logscale.py``) and
+    by mixture products."""
+    if family == "gaussian":
+        xi, w = nat
+        return 0.5 * xi * xi / w + 0.5 * torch.log(2.0 * math.pi / w)
+    if family == "mv_gaussian":
+        xi, w = nat
+        d = xi.shape[-1]
+        sol = torch.linalg.solve(w, xi.unsqueeze(-1)).squeeze(-1)
+        return (0.5 * torch.einsum("...i,...i->...", xi, sol)
+                + 0.5 * (d * math.log(2.0 * math.pi)
+                         - torch.linalg.slogdet(w)[1]))
+    if family == "beta":
+        a, b = nat[0] + 1.0, nat[1] + 1.0
+        return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+    if family == "gamma":
+        return torch.lgamma(nat[0] + 1.0) - (nat[0] + 1.0) * torch.log(nat[1])
+    if family == "dirichlet":
+        alpha = nat[0] + 1.0
+        return torch.lgamma(alpha).sum(-1) - torch.lgamma(alpha.sum(-1))
+    if family == "bernoulli":
+        return torch.nn.functional.softplus(nat[0])
+    if family == "categorical":
+        return torch.logsumexp(nat[0], dim=-1)
+    raise NotImplementedError(
+        f"log_partition for family {family!r} is not available.")
+
+
+def logpdf(d: Distribution, x):
+    """log density of ``d`` at ``x``: <eta, T(x)> - A(eta) for the
+    unit-base-measure families of ``log_partition`` (a mixture by its
+    components; a Categorical's or Bernoulli's x may be its probabilities,
+    a soft one-hot)."""
+    if hasattr(d, "components"):
+        return d.logpdf(x)
+    key = family_key(d)
+    nat = to_natural(_wrap_gamma(d) if key == "gamma" else d)
+    x = torch.as_tensor(x, dtype=nat[0].dtype, device=nat[0].device)
+    if key == "gaussian":
+        stat = nat[0] * x - 0.5 * nat[1] * x * x
+    elif key == "mv_gaussian":
+        stat = (torch.einsum("...i,...i->...", nat[0], x)
+                - 0.5 * torch.einsum("...i,...ij,...j->...", x, nat[1], x))
+    elif key == "beta":
+        stat = nat[0] * torch.log(x) + nat[1] * torch.log1p(-x)
+    elif key == "gamma":
+        stat = nat[0] * torch.log(x) - nat[1] * x
+    elif key == "dirichlet":
+        stat = (nat[0] * torch.log(x)).sum(-1)
+    elif key == "bernoulli":
+        stat = nat[0] * x
+    elif key == "categorical":
+        stat = (nat[0] * x).sum(-1)
+    else:
+        raise NotImplementedError(f"logpdf for family {key!r}")
+    return stat - log_partition(key, nat)
+
+
+def _prod_mixture(mix, rest: list) -> Distribution:
+    """A mixture message times same-family messages: the natural sum
+    distributed over the components, each re-weighted by its evidence
+    log w'_k = log w_k + A(eta_k + eta_rest) - A(eta_k) (the shared
+    -A(eta_rest) cancels when normalized), so that the weights equal the
+    switch's posterior."""
+    from .mixture import MixtureDist
+
+    if not rest:
+        return mix
+    fam = family_key(mix.components[0])
+    plain = prod_all(rest)
+    if family_key(plain) != fam:
+        raise ProductError(
+            f"Mixture message with {fam!r} components meets a "
+            f"{family_key(plain)!r} message on one variable.")
+    eta_rest = to_natural(plain)
+    lw0 = torch.log_softmax(mix.log_weights, dim=-1)
+    comps, lws = [], []
+    for i, c in enumerate(mix.components):
+        eta_k = to_natural(c)
+        eta = tuple(a + b for a, b in zip(eta_k, eta_rest))
+        comps.append(from_natural(fam, eta))
+        lws.append(lw0[..., i] + log_partition(fam, eta)
+                   - log_partition(fam, eta_k))
+    return MixtureDist(torch.log_softmax(torch.stack(lws, dim=-1), dim=-1),
+                       tuple(comps))
+
+
+def coerce_message_family(d, family):
+    """A two-class Categorical message as a Bernoulli (log-odds) where the
+    receiving group is Bernoulli, and the converse, so that a generic
+    ``Mixture`` meets either switch prior; otherwise ``d`` unchanged."""
+    try:
+        key = family_key(d)
+    except TypeError:
+        return d
+    if family is None or key == family:
+        return d
+    if key == "categorical" and family == "bernoulli" \
+            and d.logits.shape[-1] == 2:
+        return BernoulliLogits(d.logits[..., 1] - d.logits[..., 0])
+    if key == "bernoulli" and family == "categorical":
+        logit = to_natural(d)[0]
+        return Categorical(torch.stack([torch.zeros_like(logit), logit], -1))
+    return d
+
+
 def prod_all(dists: list) -> Distribution:
     """Product of same-family messages via natural-parameter addition; a
-    point-mass message collapses the product."""
+    point-mass message collapses the product, and one mixture message
+    distributes it over its components (``_prod_mixture``)."""
+    from .mixture import MixtureDist
     from .pointmass import PointMass
 
     points = [d for d in dists if isinstance(d, PointMass)]
     if points:
         return points[0]
+    mixtures = [d for d in dists if isinstance(d, MixtureDist)]
+    if mixtures:
+        if len(mixtures) > 1:
+            raise ProductError(
+                "Product of two mixture messages on one variable is not "
+                "supported (K² component blow-up); restructure the model so "
+                "at most one Mixture node feeds each variable.")
+        return _prod_mixture(mixtures[0], [d for d in dists
+                                           if not isinstance(d, MixtureDist)])
     keys = [family_key(d) for d in dists]
     if any(k != keys[0] for k in keys):
         raise ProductError(
@@ -156,7 +280,21 @@ def prod_all(dists: list) -> Distribution:
 
 
 def nat_div(a: Distribution, b: Distribution) -> Distribution:
-    """a / b by natural-parameter subtraction (the cavity of EP updates)."""
+    """a / b by natural-parameter subtraction (the cavity of EP updates).
+    A mixture marginal over the mixture message that formed it: every
+    component is (the message's component + the same rest), so component
+    0's difference is that rest."""
+    from .mixture import MixtureDist
+
+    if isinstance(a, MixtureDist) and isinstance(b, MixtureDist):
+        fam = family_key(a.components[0])
+        na, nb = to_natural(a.components[0]), to_natural(b.components[0])
+        return from_natural(fam, tuple(x - y for x, y in zip(na, nb)))
+    if isinstance(a, MixtureDist) or isinstance(b, MixtureDist):
+        raise TypeError(
+            "Cavity division between a mixture and a plain distribution is "
+            "undefined; initialize mixture-output variables with a plain "
+            "(single-family) distribution so messages stay paired.")
     key = family_key(a)
     na, nb = to_natural(a), to_natural(b)
     return from_natural(key, tuple(x - y for x, y in zip(na, nb)))

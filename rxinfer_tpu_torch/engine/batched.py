@@ -76,7 +76,10 @@ and dynamic tiers; d <= 16), ``_extract_linear_evidence``,
 ``_fused_discrete_update``, ``build_plans``,
 ``chain_hbm_bytes_per_element``, ``batch_chunk_size`` and
 ``make_batched_program`` (with quantized observation ingest, the unfused
-chain path and free energy) without shared variables (ROADMAP A7).  Two guards
+chain path, free energy and ``shared=`` pooling on one device: the
+partition, validation, pooled update and free-energy correction of
+``rxinfer_tpu/engine/batched.py`` and ``make_chunked_shared_program``;
+``psum_axis`` waits for ROADMAP A7b).  Two guards
 the JAX planner lacks: a dynamic precision must be a single-copy variable,
 and the per-slot evidence signature of a dynamic W holds the values of the
 factors' constant interfaces (``_external_random``, ``_slot_signature``).
@@ -92,9 +95,28 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..dists import Categorical, MvNormalMeanCovariance, NormalMeanVariance
+from ..dists import (
+    Categorical,
+    MvNormalMeanCovariance,
+    NormalMeanVariance,
+    tree_leaves,
+    tree_map,
+)
+from ..dists.natural import (
+    NAT_EVENT_RANKS,
+    family_key,
+    from_natural,
+    prod_all,
+    prod_reduce,
+    to_natural,
+)
 from ..graph.ir import Const, Ref
-from .blocks import BatchContext, DiscreteChainBlock, GaussianChainBlock
+from .blocks import (
+    BatchContext,
+    DiscreteChainBlock,
+    GaussianChainBlock,
+    PlainGroup,
+)
 
 # Chain-moment budget of one batched program: three quarters of the H100's
 # 80 GB, as the JAX package kept 12 of a TPU v5e's 16 GB.  The per-element
@@ -861,10 +883,152 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
     return plans
 
 
+def _partition_shared_adjacency(block, shared: set):
+    """Split a shared plain group's adjacency into REPLICATED factors
+    (touching only constants and shared variables: their message is the
+    same for every dataset and counts ONCE in the pooled product, e.g. the
+    shared variable's prior) and PER-DATASET factors (touching data or
+    latents that are not shared: their messages are summed over the batch
+    in natural parameters)."""
+    rep, per_ds = [], []
+    for entry in block.adjacency:
+        replicated = all(
+            not isinstance(v, Ref)
+            or (v.var.kind == "random" and v.var.name in shared)
+            for v in entry[0].all_interfaces().values())
+        (rep if replicated else per_ds).append(entry)
+    return rep, per_ds
+
+
+def shared_groups(compiled, shared: tuple) -> dict:
+    """The pooled groups of ``shared=``: each name -> (group, its
+    per-dataset part, its replicated part, the number of replicated
+    factors), validated as the JAX package validates them (its check of a
+    projection form constraint has nothing to check here: the port refuses
+    ``constraints=`` when it compiles the model, ROADMAP A6)."""
+    plain = {b.var.name: b for k, b in compiled.blocks if k == "plain"}
+    shared_set = set(shared)
+    groups = {}
+    for nm in shared:
+        if nm not in plain:
+            kinds = {b.var.name: k for k, b in compiled.blocks}
+            raise ValueError(
+                f"shared={shared!r}: {nm!r} is "
+                f"{'a ' + kinds[nm] + ' block' if nm in kinds else 'unknown'}"
+                " — shared aggregation covers non-chain (conjugate "
+                "parameter) variables.")
+        blk = plain[nm]
+        rep_adj, pd_adj = _partition_shared_adjacency(blk, shared_set)
+        plated_rep = [e[0] for e in rep_adj if e[0].plate is not None]
+        if plated_rep:
+            # a plated replicated factor adds plate-many edges to the shared
+            # variable's Bethe degree; the pooled correction counts one
+            # energy and one entropy share per adjacency entry
+            raise NotImplementedError(
+                f"shared variable {nm!r} has plated replicated factor(s) "
+                f"{[f.fform for f in plated_rep]}; the pooled-FE correction "
+                "assumes unplated priors — unroll the plate or move the "
+                "factor's data-bearing interfaces into the batch.")
+        if not pd_adj:
+            raise ValueError(
+                f"shared variable {nm!r} has no per-dataset factors; sharing "
+                "it is a no-op.")
+        groups[nm] = (blk, PlainGroup(blk.var, pd_adj, blk.family),
+                      PlainGroup(blk.var, rep_adj, blk.family), len(rep_adj))
+    return groups
+
+
+def _first_element(state: dict, data: dict, chain_cross: dict,
+                   ctx: BatchContext):
+    """The batch's first dataset as a batch of one, with its context."""
+    one = lambda d: {k: tree_map(lambda a: a[:1], v) for k, v in d.items()}
+    return (one(state), one(data), one(chain_cross),
+            BatchContext(ctx.device, 1, ctx._consts))
+
+
+def _broadcast(q, batch: int):
+    """A pooled posterior (no batch axis) as every dataset's."""
+    return tree_map(lambda a: a.expand((batch,) + tuple(a.shape)), q)
+
+
+def pooled_posterior(group: tuple, nat_total: tuple, key: str,
+                     state: dict, data: dict, chain_cross: dict,
+                     ctx: BatchContext):
+    """A shared group's pooled q over the batch: the per-dataset messages'
+    natural parameters summed over every dataset (``nat_total``, family
+    ``key``) times the replicated factors' message, counted once (read at
+    the first dataset), finalized and broadcast to (B, ...)."""
+    blk, _, blk_rep, _ = group
+    msgs = [from_natural(key, nat_total)]
+    if blk_rep.adjacency:
+        st1, d1, cc1, ctx1 = _first_element(state, data, chain_cross, ctx)
+        msgs.append(prod_reduce(
+            blk_rep.update(st1, d1, cc1, ctx1, raw_product=True), 1))
+    return _broadcast(blk.finalize(prod_all(msgs)), ctx.batch)
+
+
+def shared_update(group: tuple, state: dict, data: dict, chain_cross: dict,
+                  ctx: BatchContext):
+    """The pooled update of one shared group in a sweep (the plain-group
+    entry of the sweep's update mapping): the per-dataset messages' product
+    of every dataset, unfinalized, reduced over the batch."""
+    carrier = group[1].update(state, data, chain_cross, ctx,
+                              raw_product=True)
+    total = prod_reduce(carrier, ctx.batch)
+    return pooled_posterior(group, to_natural(total), family_key(total),
+                            state, data, chain_cross, ctx)
+
+
+def shared_fe_correction(compiled, groups: dict, state: dict, data: dict,
+                         chain_cross: dict, ctx: BatchContext):
+    """The per-dataset free energies count each shared variable's
+    replicated factors (its prior) once PER DATASET, and one entropy share
+    per replicated factor beyond the first; the pooled model counts them
+    once.  With the shared variable's pooled degree B k + r, from Bethe
+    FE = sum AE_a - sum H_a + sum (d_i - 1) H_i:
+        sum_b fe_b - FE_pooled = (B - 1) sum_v [sum_{a in rep(v)} FFE_a
+                                                + (r_v - 1) H(q_v)]."""
+    st1, d1, cc1, ctx1 = _first_element(state, data, chain_cross, ctx)
+    ffe_by_id = {ffe.factor.id: ffe for ffe in compiled.fe_factors}
+    corr = torch.zeros((), device=ctx.device)
+    for nm, (_, _, blk_rep, r) in groups.items():
+        for entry in blk_rep.adjacency:
+            corr = corr + ffe_by_id[entry[0].id](st1, d1, cc1, ctx1)[0]
+        if r != 1:   # r == 0 (no replicated prior) contributes -H
+            corr = corr + (r - 1) * st1[nm].entropy().sum()
+    return corr
+
+
+def concat_rows(parts: list):
+    """Tensors or distributions of several chunks of a batch, joined along
+    the batch axis."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, dim=0)
+    cols = list(zip(*[tree_leaves(p) for p in parts]))
+    return type(first)(*[torch.cat(list(c), dim=0) for c in cols])
+
+
+def _plan_updates(plans: dict, blocks: dict, qpayload,
+                  moment_dtype: str) -> dict:
+    """The planned chains' updates, in the blocks' update signature."""
+    fused = {}
+    for name, plan in plans.items():
+        if plan == "discrete":
+            fused[name] = (lambda st, d, cc, ctx, _b=blocks[name]:
+                           _fused_discrete_update(_b, st, d, cc, ctx))
+        else:
+            fused[name] = (lambda st, d, cc, ctx, _b=blocks[name], _p=plan:
+                           _fused_gaussian_update(_b, _p, d, ctx.batch,
+                                                  qpayload, st, ctx,
+                                                  moment_dtype))
+    return fused
+
+
 def make_batched_program(compiled, data0: dict, iterations: int,
                          free_energy: bool, keep_each: bool = False,
                          all_finite: bool = True, device: Any = "cuda",
-                         batch_hint: int | None = None):
+                         batch_hint: int | None = None, shared: tuple = ()):
     """Build the function (batched_data) -> (state, fe, history) where every
     data leaf and every state leaf carries a leading batch axis.  The data
     may be numpy arrays or tensors; they are moved to ``device`` as float32.
@@ -874,7 +1038,13 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     block's batch-major update in the same sweep.  A program built on
     finite data (``all_finite=True``) skips the NaN masks, as the JAX
     package's fused tier does.  ``batch_hint``: the batch the program will
-    see, for the planner's device-memory gate (``build_plans``)."""
+    see, for the planner's device-memory gate (``build_plans``).
+
+    ``shared``: names of plain groups whose posterior is POOLED over the
+    batch: each sweep their per-dataset messages are summed over the batch
+    in natural parameters and their replicated factors (the prior) counted
+    once (``shared_update``), and ``fe`` is the pooled model's Bethe free
+    energy, (iterations,)."""
     if free_energy:
         # built now, so that an unported branch raises before a sweep
         _ = compiled.fe_factors
@@ -882,6 +1052,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     data0 = compiled._with_derived(data0)
     plans = build_plans(compiled, data0, all_finite=all_finite, device=device,
                         batch_hint=batch_hint)
+    groups = shared_groups(compiled, tuple(shared)) if shared else {}
     moment_dtype = getattr(compiled, "fused_moment_dtype", "float32")
     # quantized observation ingest: the names that feed a fused Gaussian
     # plan's evidence einsum
@@ -903,19 +1074,14 @@ def make_batched_program(compiled, data0: dict, iterations: int,
     consts: dict = {}   # model constants on the device, kept across calls
     blocks = {block.var.name: block for kind, block in compiled.blocks}
 
-    def fused_updates(qpayload) -> dict:
-        """The planned chains' updates, in the blocks' update signature."""
-        fused = {}
-        for name, plan in plans.items():
-            if plan == "discrete":
-                fused[name] = (lambda st, d, cc, ctx, _b=blocks[name]:
-                               _fused_discrete_update(_b, st, d, cc, ctx))
-            else:
-                fused[name] = (lambda st, d, cc, ctx, _b=blocks[name],
-                               _p=plan: _fused_gaussian_update(
-                                   _b, _p, d, ctx.batch, qpayload, st, ctx,
-                                   moment_dtype))
-        return fused
+    pooled = {nm: (lambda st, d, cc, ctx, _g=group:
+                   shared_update(_g, st, d, cc, ctx))
+              for nm, group in groups.items()}
+
+    def pooled_fe(state, chain_cross, data, ctx):
+        fe_b = compiled._free_energy(state, chain_cross, data, ctx)
+        return fe_b.sum() - (ctx.batch - 1.0) * shared_fe_correction(
+            compiled, groups, state, data, chain_cross, ctx)
 
     def program(data: dict):
         data, masks = compiled._device_data(data, all_finite, device)
@@ -931,9 +1097,142 @@ def make_batched_program(compiled, data0: dict, iterations: int,
                 data[name] = (vals.to(torch.float32) * scales).transpose(
                     1, 2).reshape(data[name].shape)
         ctx = BatchContext(device, batch, consts, masks)
+        updates = _plan_updates(plans, blocks, qpayload, moment_dtype)
+        updates.update(pooled)
         state, history, fe = compiled._iterate(
-            data, ctx, init, iterations, keep_each, fused_updates(qpayload),
-            free_energy=free_energy)
+            data, ctx, init, iterations, keep_each, updates,
+            free_energy=free_energy, fe_fn=pooled_fe if groups else None)
         return state, fe, history
+
+    return program
+
+
+def make_chunked_shared_program(compiled, data0: dict, iterations: int,
+                                free_energy: bool, shared: tuple, chunk: int,
+                                all_finite: bool = True,
+                                device: Any = "cuda"):
+    """Pooled (``shared=``) inference when the batch exceeds the chain
+    moments' device budget: the batch runs as sequential chunks of
+    ``chunk`` datasets, and the shared groups' per-dataset natural
+    parameters are ACCUMULATED over the chunks (additive, as they are over
+    the batch).  Per sweep: every chunk recomputes its chains at the current
+    shared posterior and adds its datasets' natural parameters; then each
+    shared posterior updates once from the total and the replicated prior,
+    the unchunked sweep's order (chains come before shared parameters in the
+    sweep).  The free energy is the unchunked ``pooled_fe``'s: chains at the
+    pre-update shared posterior, its entropy at the post-update one, the
+    pooled correction once.  Exact for the supported topology, validated
+    here: every block but the shared groups is a chain that reads only data,
+    constants and shared variables, so a chain's moments carry nothing from
+    one sweep to the next and are not kept between chunks.  Returns
+    (batched data) -> (state, fe (iterations,) or (0,), [])."""
+    device = torch.device(device)
+    data0 = compiled._with_derived(data0)
+    plans = build_plans(compiled, data0, all_finite=all_finite,
+                        device=device, batch_hint=chunk)
+    shared_set = set(shared)
+    for kind, block in compiled.blocks:
+        name = block.var.name
+        if kind == "plain" and name in shared_set:
+            continue
+        if kind != "chain":
+            raise ValueError(
+                f"infer_batched(shared=..., chunked): non-shared {kind} "
+                f"block {name!r} — chunked pooled aggregation supports the "
+                "hierarchical topology (per-dataset chains + shared "
+                "parameters only). Shard over devices with mesh=, or raise "
+                "options={'hbm_budget_bytes': ...}.")
+        for f in [block.prior, block.transition] + [
+                e[0] for e in block.evidence]:
+            for v in f.all_interfaces().values():
+                if (isinstance(v, Ref) and v.var.kind == "random"
+                        and v.var.name != name
+                        and v.var.name not in shared_set):
+                    raise ValueError(
+                        f"infer_batched(shared=..., chunked): chain {name!r}"
+                        f" references non-shared random variable "
+                        f"{v.var.name!r}; chunked pooled aggregation needs "
+                        "chains that close over data/constants/shared "
+                        "variables.")
+    groups = shared_groups(compiled, tuple(shared))
+    blocks = {block.var.name: block for _, block in compiled.blocks}
+    updates = _plan_updates(plans, blocks, None,
+                            getattr(compiled, "fused_moment_dtype",
+                                    "float32"))
+    init = compiled._device_init(device)
+    consts: dict = {}
+
+    def chain_pass(shared_q: dict, data: dict, ctx: BatchContext):
+        state = compiled._broadcast_init(init, ctx.batch)
+        state.update(shared_q)
+        chain_cross: dict = {}
+        for kind, block in compiled.blocks:
+            name = block.var.name
+            if kind == "chain":
+                state[name], chain_cross[name] = updates.get(
+                    name, block.update)(state, data, chain_cross, ctx)
+        return state, chain_cross
+
+    def rows_natural(carrier, n: int) -> tuple:
+        """The natural parameters of a chunk's first n datasets, summed (a
+        leaf without the batch axis stands for each of them)."""
+        ranks = NAT_EVENT_RANKS[family_key(carrier)]
+        return tuple(a[:n].sum(0) if a.ndim > r else n * a
+                     for a, r in zip(to_natural(carrier), ranks))
+
+    def program(full_data: dict):
+        batch = int(np.shape(next(iter(full_data.values())))[0])
+        chunks = []
+        for i in range(-(-batch // chunk)):
+            sl = {k: torch.as_tensor(v[i * chunk:(i + 1) * chunk],
+                                     dtype=torch.float32, device=device)
+                  for k, v in full_data.items()}
+            n = next(iter(sl.values())).shape[0]
+            if n < chunk:   # the last chunk edge-padded to the chunk's shape
+                sl = {k: torch.cat([v, v[-1:].expand(
+                    (chunk - n,) + tuple(v.shape[1:]))]) for k, v in
+                    sl.items()}
+            d, masks = compiled._device_data(sl, all_finite, device)
+            chunks.append((d, BatchContext(device, chunk, consts, masks), n))
+        shared_q = {nm: _broadcast(init[nm], chunk) for nm in groups}
+        fes = []
+        for _ in range(iterations):
+            prev = shared_q
+            totals: dict = {}
+            for d, ctx, n in chunks:
+                state, chain_cross = chain_pass(prev, d, ctx)
+                for nm, group in groups.items():
+                    carrier = group[1].update(state, d, chain_cross, ctx,
+                                              raw_product=True)
+                    part = rows_natural(carrier, n)
+                    key = family_key(carrier)
+                    totals[nm] = (key, part if nm not in totals else tuple(
+                        a + b for a, b in zip(totals[nm][1], part)))
+            d0, ctx0, _ = chunks[0]
+            seed = compiled._broadcast_init(init, chunk)
+            seed.update(prev)
+            shared_q = {nm: pooled_posterior(groups[nm], nat, key, seed, d0,
+                                             {}, ctx0)
+                        for nm, (key, nat) in totals.items()}
+            if free_energy:
+                fe_sum = torch.zeros((), device=device)
+                for d, ctx, n in chunks:
+                    state, chain_cross = chain_pass(prev, d, ctx)
+                    state.update(shared_q)
+                    fe_sum = fe_sum + compiled._free_energy(
+                        state, chain_cross, d, ctx)[:n].sum()
+                seed = compiled._broadcast_init(init, chunk)
+                seed.update(shared_q)
+                fes.append(fe_sum - (batch - 1.0) * shared_fe_correction(
+                    compiled, groups, seed, d0, {}, ctx0))
+        parts = []
+        for d, ctx, n in chunks:
+            state, _ = chain_pass(prev, d, ctx)
+            state.update(shared_q)
+            parts.append({k: tree_map(lambda a: a[:n], v)
+                          for k, v in state.items()})
+        state = {k: concat_rows([p[k] for p in parts]) for k in parts[0]}
+        fe = torch.stack(fes) if fes else torch.zeros((0,), device=device)
+        return state, fe, []
 
     return program

@@ -28,12 +28,14 @@ with the Kalman scans of ``ops/kalman.py``) and ``DiscreteChainBlock`` (its
 associative scans from 48 slots and the loops below.
 ``PlainGroup.update`` ends with ``PlainGroup.finalize``'s family
 conversion: a product in the Wishart inverse-scale carrier becomes a
-``Wishart`` (form constraints, its other branch, are not ported).  Not
-ported: the ``time_mesh`` branch of
-``GaussianChainBlock.update`` (time sharding), the AR/GCV chain blocks, EP
-damping of evidence messages, and the ``PlainGroup`` branches that
+``Wishart`` (form constraints, its other branch, are not ported); with
+``raw_product`` it returns the product before it, for pooled ``shared=``
+sums.  The cavity (EP) message store is ported for the generic ``Mixture``
+node alone (``CAVITY_STORE_NODES``).  Not ported: the ``time_mesh`` branch
+of ``GaussianChainBlock.update`` (time sharding), the AR/GCV chain blocks,
+EP damping of evidence messages, and the ``PlainGroup`` branches that
 ``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
-factors, cavity (EP) message stores, required-message dependencies,
+factors, the other nodes' cavity stores, required-message dependencies,
 mean-field splits, form and message-form constraints and function-form
 fallback messages.
 """
@@ -52,6 +54,7 @@ from ..dists.gaussian import (
 )
 from ..dists.natural import (
     NAT_EVENT_RANKS,
+    coerce_message_family,
     family_key,
     from_natural,
     nat_div,
@@ -226,26 +229,60 @@ def in_cavity_cluster(node_cls, iface: str) -> bool:
     )
 
 
+# Nodes whose cavity (EP) messages the port stores: the generic Mixture's
+# rules read the inbound messages on its other edges.  Every other node's
+# cavity cluster is refused at compile time (ROADMAP A6).
+CAVITY_STORE_NODES = frozenset({"Mixture"})
+
+
 class PlainGroup:
     """A non-chain random-variable group updated by conjugate VMP: q(v) is
     the product of every adjacent factor's message to v (natural-parameter
     sums), plate-reduced for a scalar group and padded over the slots for an
     array group.  ``adjacency`` lists (factor, interface, rule) with the rule
     resolved at compile time; ``engine/compile.py`` has already refused the
-    branches this port lacks."""
+    branches this port lacks.  A factor of ``CAVITY_STORE_NODES`` sees, on
+    its other random edges, the marginal divided by its last message there
+    (kept in the state under ``_msg:<factor id>:<interface>``), and its
+    messages are coerced to the group's ``family`` (a two-class Categorical
+    to a Bernoulli)."""
 
-    def __init__(self, var, adjacency: list):
+    def __init__(self, var, adjacency: list, family=None):
         self.var = var
         self.adjacency = adjacency
+        self.family = family
+
+    @staticmethod
+    def finalize(q):
+        """The family conversion of a message product (split out of
+        ``update`` so that pooled ``shared=`` aggregation can sum the
+        products over the batch before it): a product in the Wishart
+        inverse-scale carrier becomes a ``Wishart``."""
+        if isinstance(q, WishartInverseScale):
+            q = q.to_wishart()
+        return q
 
     def update(self, state: dict, data: dict, chain_cross: dict,
-               ctx: BatchContext):
+               ctx: BatchContext, raw_product: bool = False):
+        """q(v) over the batch; with ``raw_product`` the product of the
+        messages before ``finalize`` (a conjugate carrier such as the
+        Wishart inverse-scale one, summed over the batch before it is
+        normalized)."""
         msgs = []
         length = self.var.length
         for f, iface, rule in self.adjacency:
             q = build_q(f, state, data, exclude=iface,
                         chain_cross=chain_cross, ctx=ctx)
-            msg = mask_message(rule(q), ctx.masks.get(f.id))
+            cavity = f.fform in CAVITY_STORE_NODES
+            if cavity:
+                for name, v in f.all_interfaces().items():
+                    key = f"_msg:{f.id}:{name}"
+                    if name != iface and key in state and name in q:
+                        q[name] = nat_div(q[name], state[key])
+            msg = mask_message(coerce_message_family(rule(q), self.family),
+                               ctx.masks.get(f.id))
+            if cavity:
+                state[f"_msg:{f.id}:{iface}"] = msg
             if length is None:
                 if f.plate is not None:
                     msg = prod_reduce(msg, f.plate.size, batch_ndim=1)
@@ -256,9 +293,7 @@ class PlainGroup:
                 msg = pad_plate(msg, lo, hi, length, batch_ndim=1)
             msgs.append(msg)
         q = prod_all(msgs)
-        if isinstance(q, WishartInverseScale):
-            q = q.to_wishart()
-        return q
+        return q if raw_product else self.finalize(q)
 
 
 def _place(total: int, lo: int, hi: int, x: torch.Tensor,

@@ -52,6 +52,7 @@ from .bethe import (
     variable_entropy_term,
 )
 from .blocks import (
+    CAVITY_STORE_NODES,
     BatchContext,
     DiscreteChainBlock,
     GaussianChainBlock,
@@ -490,7 +491,7 @@ class CompiledModel:
                     self._check_plain_edge(var, f, iface, v)
                     adjacency.append(
                         (f, iface, get_message_rule(f.fform, iface)))
-        return PlainGroup(var, adjacency)
+        return PlainGroup(var, adjacency, family)
 
     @staticmethod
     def _check_plain_edge(var, f, iface: str, ref: Ref) -> None:
@@ -507,7 +508,8 @@ class CompiledModel:
             raise NotImplementedError(
                 f"{where}: rules that read their own marginal are not "
                 "ported yet.")
-        if in_cavity_cluster(node_cls, iface):
+        if in_cavity_cluster(node_cls, iface) \
+                and f.fform not in CAVITY_STORE_NODES:
             for name, v in f.all_interfaces().items():
                 if (name != iface and in_cavity_cluster(node_cls, name)
                         and isinstance(v, Ref) and v.var.kind == "random"):
@@ -582,19 +584,20 @@ class CompiledModel:
 
     def _sweep_once(self, state: dict, chain_cross: dict, data: dict,
                     ctx: BatchContext, fused: Optional[dict] = None):
-        """One VMP sweep in the compiled order over the batch.  A chain
-        whose name is in ``fused`` takes that update (the fused kernels of a
-        batched program's plan); every other chain runs its block's
-        batch-major ``update``.  ``chain_cross`` receives the rule-ready
+        """One VMP sweep in the compiled order over the batch.  A block
+        whose name is in ``fused`` takes that update (a chain: the fused
+        kernels of a batched program's plan; a plain group: the pooled
+        ``shared=`` update); every other block runs its batch-major
+        ``update``.  ``chain_cross`` receives the rule-ready
         pair statistics: Cov(out, in) for Gaussian chains, pair marginals
         for discrete ones."""
         fused = fused or {}
         for kind, block in self.blocks:
             name = block.var.name
-            if kind == "plain":
-                state[name] = block.update(state, data, chain_cross, ctx)
-                continue
             update = fused.get(name, block.update)
+            if kind == "plain":
+                state[name] = update(state, data, chain_cross, ctx)
+                continue
             state[name], chain_cross[name] = update(state, data, chain_cross,
                                                     ctx)
         return state, chain_cross
@@ -613,24 +616,26 @@ class CompiledModel:
     def _iterate(self, data: dict, ctx: BatchContext, init: dict,
                  iterations: int, keep_each: bool,
                  fused: Optional[dict] = None, registry=None,
-                 free_energy: bool = False):
+                 free_energy: bool = False, fe_fn=None):
         """``iterations`` sweeps from ``init`` (``_device_init``) broadcast
         over the batch.  Returns the final state, under ``keep_each`` the
         state after every sweep, and with ``free_energy`` the free energy
-        after every sweep, (iterations, B) (else (0, B)).  With a
+        after every sweep, (iterations, B) (else (0, B)); ``fe_fn`` (same
+        arguments as ``_free_energy``) replaces the per-dataset free energy
+        (the pooled one of ``shared=``: (iterations,)).  With a
         ``registry`` each sweep fires ``before_iteration`` /
         ``after_iteration`` (with the free energy of a batch of one, or
         None) and a handler may stop the loop (``event.stop_iteration``);
         ``check_objective`` then raises at a non-finite free energy."""
         state, _, history, fe = self._sweeps(
             self._broadcast_init(init, ctx.batch), {}, data, ctx, iterations,
-            keep_each, fused, registry, free_energy)
+            keep_each, fused, registry, free_energy, fe_fn)
         return state, history, fe
 
     def _sweeps(self, state: dict, chain_cross: dict, data: dict,
                 ctx: BatchContext, iterations: int, keep_each: bool,
                 fused: Optional[dict] = None, registry=None,
-                free_energy: bool = False):
+                free_energy: bool = False, fe_fn=None):
         """``iterations`` sweeps from ``state`` and ``chain_cross`` (a
         streaming tick warm-starts from the previous tick's): the final
         state and pair statistics, the per-sweep history and the free
@@ -643,7 +648,8 @@ class CompiledModel:
             state, chain_cross = self._sweep_once(
                 dict(state), dict(chain_cross), data, ctx, fused)
             if free_energy:
-                fes.append(self._free_energy(state, chain_cross, data, ctx))
+                fes.append((fe_fn or self._free_energy)(state, chain_cross,
+                                                        data, ctx))
             if keep_each:
                 history.append(dict(state))
             if registry is not None:
@@ -904,12 +910,15 @@ class CompiledModel:
                              free_energy: bool, keep_each: bool = False,
                              all_finite: bool = True,
                              device: Any = "cuda",
-                             batch_hint: Optional[int] = None):
+                             batch_hint: Optional[int] = None,
+                             shared: tuple = ()):
         """Batch-native program over B independent datasets whose chain
         blocks run on the fused kernels (engine/batched.py); ``batch_hint``
-        is the batch it will see (the planner's memory gate)."""
+        is the batch it will see (the planner's memory gate), ``shared``
+        the plain groups pooled over it."""
         from .batched import make_batched_program
 
         return make_batched_program(
             self, data0, iterations, free_energy, keep_each=keep_each,
-            all_finite=all_finite, device=device, batch_hint=batch_hint)
+            all_finite=all_finite, device=device, batch_hint=batch_hint,
+            shared=shared)

@@ -10,7 +10,10 @@ precision input resolved to a ``gamma`` (scalar) or ``wishart`` (d x d)
 group, and the Gaussian mixture: ``Dirichlet`` (a random ``Categorical``
 ``p`` is a ``dirichlet`` group) and ``NormalMixture`` / ``MvNormalMixture``
 (``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
-wishart); variables reached only through nodes that are not ported yet
+wishart), ``GammaMixture`` (``switch`` categorical, ``shape{i}`` and
+``rate{i}`` gamma) and the generic ``Mixture`` (``switch`` categorical, the
+out and the components of the family their other factors give); variables
+reached only through nodes that are not ported yet
 stay unresolved and raise.
 """
 
@@ -39,6 +42,7 @@ _OUT_FAMILY = {
     "DiscreteTransition": "categorical",
     "NormalMixture": "gaussian",
     "MvNormalMixture": "mv_gaussian",
+    "GammaMixture": "gamma",
 }
 
 _INPUT_FAMILY = {
@@ -61,12 +65,15 @@ _INPUT_FAMILY = {
     ("Dirichlet", "alpha"): None,
     ("NormalMixture", "switch"): "categorical",
     ("MvNormalMixture", "switch"): "categorical",
+    ("GammaMixture", "switch"): "categorical",
+    ("Mixture", "switch"): "categorical",
 }
 
 # a mixture's component interfaces carry their index (mean0, prec1, ...)
 _COMPONENT_FAMILY = {
     "NormalMixture": {"mean": "gaussian", "prec": "gamma"},
     "MvNormalMixture": {"mean": "mv_gaussian", "prec": "wishart"},
+    "GammaMixture": {"shape": "gamma", "rate": "gamma"},
 }
 
 
@@ -114,7 +121,8 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
 
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
               "LinearGaussianCovariance", "LinearGaussianPrecision",
-              "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture"):
+              "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture",
+              "GammaMixture"):
         return ()
     if ff == "MvNormalMixture":
         for key in f.interfaces:

@@ -586,6 +586,29 @@ def NormalMixture(switch, means, precisions) -> RVRef:
                            interfaces, meta={"K": len(means)})
 
 
+def GammaMixture(switch, shapes, rates) -> RVRef:
+    """Gamma mixture: out ~ prod_k Gamma(out; shape_k, rate_k)^{s_k};
+    interfaces ``switch``, ``shape0..``, ``rate0..``."""
+    interfaces = {"switch": _as_interface(switch)}
+    for i, a in enumerate(shapes):
+        interfaces[f"shape{i}"] = _as_interface(a)
+    for i, b in enumerate(rates):
+        interfaces[f"rate{i}"] = _as_interface(b)
+    return _builder().emit("GammaMixture", interfaces,
+                           meta={"K": len(shapes)})
+
+
+def Mixture(switch, components) -> RVRef:
+    """Generic mixture: out is the component the switch selects
+    (interfaces ``switch``, ``comp0..``; ``rules/special.py``
+    ``MixtureNode``)."""
+    interfaces = {"switch": _as_interface(switch)}
+    for i, c in enumerate(components):
+        interfaces[f"comp{i}"] = _as_interface(c)
+    return _builder().emit("Mixture", interfaces,
+                           meta={"K": len(components)})
+
+
 # -- @model decorator and generator -------------------------------------------------
 
 class ModelGenerator:

@@ -22,11 +22,16 @@ rather than carry on on the CPU.
 ``infer(datastream=, autoupdates=)`` returns the streaming engine
 (``inference_streaming.py``), as the JAX package's does.
 
+``annotations=LogScaleAnnotations()`` and ``postprocess=`` on ``infer`` and
+``infer_batched`` (``engine/logscale.py``, ``postprocess.py``), with the free
+energy of a generic ``Mixture`` model composed from exact mixture evidences
+(``_mixture_fe_plan``); ``batched_program`` / ``infer_batched(shared=)``
+pool plain groups over the batch on one device (``engine/batched.py``),
+chunked beyond the device budget.
+
 Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): ``annotations`` and generic ``Mixture`` models (whose free energy the
-JAX package composes from exact mixture evidences), ``constraints``,
-``meta``, a ``postprocess`` strategy, a ``session`` other than the default,
-``shared=`` and ``mesh=``.
+item): ``constraints``, ``meta``, a ``session`` other than the default
+(A6), ``mesh=`` and ``psum_axis`` (A7b).
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .dists import PointMass
 from .engine.blocks import BatchContext
 from .engine.compile import CompiledModel, _all_finite
+from .graph.ir import Ref
 
 
 class UnfactorizedData:
@@ -185,18 +192,23 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     program)``; the program maps the batched data dict to ``(state,
     free_energy, history)``, the free energy (iterations, B) with
     ``free_energy=True`` and (0, B) without.  Eligible chain blocks run on
-    the fused kernels (engine/batched.py)."""
+    the fused kernels (engine/batched.py).  ``shared``: plain groups pooled
+    over the batch (``make_batched_program``); the free energy is then the
+    pooled model's, (iterations,).  ``psum_axis`` (the pooled sum over a
+    device mesh) is not ported."""
     device = _resolve_device(device)
-    if shared or psum_axis is not None:
+    if psum_axis is not None:
         raise NotImplementedError(
-            "shared= aggregation is not ported to the PyTorch package yet.")
+            "batched_program(psum_axis=...): shared= pooling over a device "
+            "mesh is not ported to the PyTorch package yet (ROADMAP A7b).")
+    shared = (shared,) if isinstance(shared, str) else tuple(shared)
     iterations = iterations or 1
     init_dists = dict(initialization or {})
     first = {k: _first_element(v) for k, v in data.items()}
     all_finite = _all_finite(data)
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), iterations, free_energy, keep_each,
-           all_finite, str(device))
+           all_finite, tuple(sorted(shared)), str(device))
     # the bound hyperparameters are traced into the program as constants,
     # so a hit needs their values, not only their names; constraints and
     # meta are not ported (CompiledModel raises on them), so every cached
@@ -211,14 +223,14 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     prog = compiled.make_batched_program(
         first, iterations, free_energy, keep_each=keep_each,
         all_finite=all_finite, device=device,
-        batch_hint=int(np.shape(next(iter(data.values())))[0]))
+        batch_hint=int(np.shape(next(iter(data.values())))[0]),
+        shared=shared)
     _PROGRAMS.put(sig, values, compiled, prog)
     return compiled, prog
 
 
 _UNPORTED_INFER = (
-    ("annotations", "A4"), ("mesh", "A7"), ("constraints", "A6"),
-    ("meta", "A6"), ("postprocess", "A6"),
+    ("mesh", "A7b"), ("constraints", "A6"), ("meta", "A6"),
 )
 
 
@@ -338,7 +350,8 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
 
 def _infer(warn_opt: bool, model, data, initialization, options, iterations,
            free_energy, free_energy_diagnostics, predictvars, returnvars,
-           showprogress, callbacks, benchmark, trace, device, **unported):
+           showprogress, callbacks, benchmark, trace, device, annotations,
+           postprocess, **unported):
     for name, item in _UNPORTED_INFER:
         val = unported[name]
         if val is not None and val is not False and not (
@@ -426,16 +439,33 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
     keep_each = rv_keep_each or any(
         isinstance(v, KeepEach) for v in predictvars.values())
 
+    # annotations read -FE as every non-mixture variable's log-scale; a
+    # generic Mixture has no average energy, so its model's free energy is
+    # composed from exact mixture evidences (checked here, before a sweep)
+    has_mixture = any(f.fform == "Mixture" for f in compiled.graph.factors)
+    mixture_plan = (_mixture_fe_plan(compiled) if has_mixture and free_energy
+                    else None)
+    need_fe = (free_energy and mixture_plan is None) or (
+        annotations is not None and not has_mixture)
     registry.invoke("before_inference")
     if registry.empty:
         state, fe, history = compiled.run(
-            data, iterations=iterations, free_energy=free_energy,
+            data, iterations=iterations, free_energy=need_fe,
             keep_each=keep_each, device=device)
     else:
         state, fe, history = compiled.run_iterative(
-            data, iterations=iterations, free_energy=free_energy,
+            data, iterations=iterations, free_energy=need_fe,
             registry=registry, keep_each=keep_each, device=device)
     registry.invoke("after_inference")
+    if annotations is not None or mixture_plan is not None:
+        data_b, masks = compiled._device_data(
+            {k: _batch_of_one(torch.as_tensor(v)) for k, v in data.items()},
+            _all_finite(data), device)
+        ctx_b = BatchContext(device, 1, {}, masks)
+        state_b = {k: _batch_of_one(v) for k, v in state.items()}
+    if mixture_plan is not None:
+        fe = _composed_mixture_fe(compiled, mixture_plan, state_b, data_b,
+                                  ctx_b)[:, 0]
     if free_energy:
         from .diagnostics import (
             DefaultObjectiveDiagnosticChecks,
@@ -493,6 +523,37 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
                    and isinstance(p, list) else p)
             for name, p in posteriors.items() if name in rv_dict
         }
+    from .postprocess import (
+        Marginal,
+        default_postprocess,
+        inference_postprocess,
+    )
+
+    strategy = postprocess if postprocess is not None \
+        else default_postprocess(annotations)
+    scales = {}
+    if annotations is not None:
+        from .engine.logscale import compute_logscales
+
+        fe_last = fe[-1:] if need_fe and fe.numel() else None
+        scales = {k: None if v is None else v[0] for k, v in
+                  compute_logscales(compiled, state_b, data_b, ctx_b,
+                                    fe_last).items()}
+
+    def _wrap(d, it, name):
+        if annotations is None:
+            return d
+        s = scales.get(name) if it in (-1, iterations - 1) else (
+            -fe[it] if need_fe else None)
+        # no scale (no free energy, not next to a mixture): a Marginal
+        # without annotations, so that getlogscale says why
+        return Marginal(d, {"log_scale": s} if s is not None else {})
+
+    posteriors = {
+        name: ([inference_postprocess(strategy, _wrap(d, i, name))
+                for i, d in enumerate(p)] if isinstance(p, list)
+               else inference_postprocess(strategy, _wrap(p, -1, name)))
+        for name, p in posteriors.items()}
     result = InferenceResult(posteriors, fe if free_energy else None,
                              compiled, time.perf_counter() - t0)
     result.predictions = predictions
@@ -513,14 +574,134 @@ def _slice_rows(x, n: int):
     return tree_map(lambda a: a[:n], x)
 
 
-def _concat_rows(parts: list):
-    from .dists import tree_leaves
 
-    first = parts[0]
-    if isinstance(first, torch.Tensor):
-        return torch.cat(parts, dim=0)
-    cols = list(zip(*[tree_leaves(p) for p in parts]))
-    return type(first)(*[torch.cat(list(c), dim=0) for c in cols])
+
+def _mixture_fe_plan(compiled) -> dict:
+    """The free energy of a generic-Mixture model, decomposed when the
+    program is planned: each Mixture factor's neighbourhood {out, switch,
+    comps} must close over constants and data (no variable shared by two
+    Mixture factors; every other factor next to a mixture variable touches
+    that one random variable only).  Then Z factorizes into the mixtures'
+    evidences times the rest, and FE = sum_mix(-log Z_mix) + the Bethe FE
+    of the rest.  Raises ``NotImplementedError`` otherwise, before any
+    sweep."""
+    g = compiled.graph
+    mix_fs = [f for f in g.factors if f.fform == "Mixture"]
+    owner: dict = {}
+    for mf in mix_fs:
+        names = [mf.out.var.name, mf.interfaces["switch"].var.name] + [
+            mf.interfaces[f"comp{i}"].var.name for i in range(mf.meta["K"])]
+        for nm in names:
+            if nm in owner and owner[nm] is not mf:
+                raise NotImplementedError(
+                    f"free_energy=True: variable {nm!r} is shared by two "
+                    "Mixture factors; the exact-evidence decomposition "
+                    "needs disjoint mixture neighborhoods. Use "
+                    "annotations=LogScaleAnnotations() or free_energy=False.")
+            owner[nm] = mf
+    plain_factors = []
+    for f in g.factors:
+        if f.fform == "Mixture":
+            continue
+        rand = {v.var.name for v in f.all_interfaces().values()
+                if isinstance(v, Ref) and v.var.kind == "random"}
+        touched = sorted(rand & set(owner))
+        if not touched:
+            plain_factors.append(f)
+            continue
+        others = sorted(rand - set(owner))
+        if others or len(touched) > 1:
+            raise NotImplementedError(
+                f"free_energy=True on this Mixture model: factor {f.fform!r} "
+                f"connects mixture variable(s) {touched} to "
+                f"{others or 'each other'} — the exact-evidence "
+                "decomposition needs each mixture neighborhood to close "
+                "over constants/data. Use annotations=LogScaleAnnotations() "
+                "for per-component evidence, or free_energy=False.")
+    plain_vars = {v.name for v in g.random_variables()
+                  if v.name not in owner and not v.name.startswith("_")}
+    return {"mix_fs": mix_fs, "plain_factors": plain_factors,
+            "plain_vars": plain_vars}
+
+
+def _composed_mixture_fe(compiled, plan: dict, state: dict, data: dict,
+                         ctx: BatchContext):
+    """FE = Bethe FE of the plain factors and variables - sum_mix log Z_mix
+    at the final state, (1, B) (``data`` on the device, ``ctx`` its
+    context).  A plain chain's pair statistics come from one more sweep from
+    the fixed point (a no-op for a converged run)."""
+    from .engine.bethe import FactorFE, variable_entropy_term
+    from .engine.logscale import compute_logscales
+
+    plain_vars = plan["plain_vars"]
+    plain_fes = [
+        FactorFE(f, is_chain_transition=id(f) in compiled._chain_factor_ids,
+                 chain_scalar=(f.out.var.kind == "random"
+                               and f.out.var.name in compiled.chains
+                               and compiled.infos[f.out.var.name].event_shape
+                               == ()))
+        for f in plan["plain_factors"]]
+    chain_cross: dict = {}
+    if any(nm in compiled.chains for nm in plain_vars):
+        state, chain_cross = compiled._sweep_once(dict(state), chain_cross,
+                                                  data, ctx)
+    entropies = {nm: state[nm].entropy() for nm in plain_vars
+                 if not isinstance(state[nm], PointMass)}
+    total = variable_entropy_term(compiled.graph, state, compiled.degrees,
+                                  ctx.batch, entropies)
+    for ffe in plain_fes:
+        total = total + ffe(state, data, chain_cross, ctx, entropies)
+    scales = compute_logscales(compiled, state, data, ctx)
+    for mf in plan["mix_fs"]:
+        scale = scales.get(mf.out.var.name)
+        if scale is None:
+            raise NotImplementedError(
+                "free_energy=True on this Mixture model: the exact-evidence "
+                "logscale analysis does not support its inbound structure "
+                "(see the warning above). Use "
+                "annotations=LogScaleAnnotations() for per-component "
+                "evidence, or free_energy=False.")
+        total = total - scale
+    return torch.as_tensor(total, dtype=torch.float32,
+                           device=ctx.device).expand(ctx.batch)[None]
+
+
+def _annotate_batched(compiled, state: dict, data_dev: dict, ctx, fe,
+                      need_fe: bool, shared: tuple, posteriors: dict,
+                      annotations, postprocess) -> dict:
+    """``infer_batched``'s annotations and postprocess: every final
+    posterior a ``Marginal`` with its (B,) log-scale (under ``shared=`` the
+    pooled model's one evidence, -FE), then the strategy."""
+    from .postprocess import (
+        Marginal,
+        default_postprocess,
+        inference_postprocess,
+    )
+
+    strategy = postprocess if postprocess is not None \
+        else default_postprocess(annotations)
+    scales = {}
+    if annotations is not None:
+        from .engine.logscale import compute_logscales
+
+        fe_row = fe[-1] if need_fe and fe.numel() else None
+        if shared and fe_row is not None:
+            scales = {name: -fe_row for name in posteriors}
+        else:
+            scales = compute_logscales(compiled, state, data_dev, ctx,
+                                       fe_row)
+
+    def wrap(d, name):
+        if annotations is None:
+            return d
+        s = scales.get(name)
+        return Marginal(d, {"log_scale": s} if s is not None else {})
+
+    return {name: ([inference_postprocess(strategy, wrap(d, name)
+                                          if i == len(p) - 1 else d)
+                    for i, d in enumerate(p)] if isinstance(p, list)
+                   else inference_postprocess(strategy, wrap(p, name)))
+            for name, p in posteriors.items()}
 
 
 def infer_batched(model, data: dict, iterations: Optional[int] = None,
@@ -531,7 +712,8 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
                   predictvars: Any = None, annotations: Any = None,
                   mesh: Any = None, mesh_axis: str = "dp",
                   shared: Any = (), device: Any = None,
-                  free_energy_diagnostics: Any = None):
+                  free_energy_diagnostics: Any = None,
+                  postprocess: Any = None):
     """Batched inference over B independent datasets.
 
     Every value in ``data`` carries a leading batch axis; the model is traced
@@ -550,28 +732,79 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
     ``free_energy_diagnostics`` when given (the JAX package checks none
     here, so nothing by default).  A batch whose chain moments (and free
     energy's working set) exceed ``options["hbm_budget_bytes"]`` runs as
-    sequential chunks of one program."""
+    sequential chunks of one program.
+
+    ``shared=("tau",)``: the named plain groups are POOLED over the batch,
+    one posterior (broadcast over the batch axis) in place of B: their
+    per-dataset messages are summed over the batch in natural parameters
+    each sweep, their replicated factors (the prior) counted once, and the
+    free energy is the pooled model's, (iterations,).  Beyond the budget the
+    pooled sum accumulates over sequential chunks
+    (``make_chunked_shared_program``; not with ``KeepEach``).
+
+    ``annotations=LogScaleAnnotations()``: every final posterior becomes a
+    ``Marginal`` carrying its (B,) log-scale (``engine/logscale.py``): -FE
+    per dataset, exact per-component evidences next to a generic
+    ``Mixture``, the pooled scalar -FE under ``shared=``.  ``postprocess``
+    (``postprocess.py``) then maps every posterior; by default it unpacks
+    the annotations unless they were asked for."""
     device = _resolve_device(device)
-    for name, val, item in (("annotations", annotations, "A4"),
-                            ("mesh", mesh, "A7")):
-        if val:
-            raise NotImplementedError(
-                f"infer_batched({name}=...) is not ported to the PyTorch "
-                f"package yet (ROADMAP {item}).")
+    if mesh:
+        raise NotImplementedError(
+            "infer_batched(mesh=...) is not ported to the PyTorch package "
+            "yet (ROADMAP A7b).")
     del mesh_axis
     keep_each = isinstance(returnvars, KeepEach)
     shared = (shared,) if isinstance(shared, str) else tuple(shared)
-    compiled, prog = batched_program(
-        model, data, iterations=iterations, free_energy=free_energy,
-        initialization=initialization, constraints=constraints, meta=meta,
-        options=options, keep_each=keep_each, shared=shared, device=device)
-    from .engine.batched import DEFAULT_HBM_BUDGET, batch_chunk_size
+    kw = dict(iterations=iterations, initialization=initialization,
+              constraints=constraints, meta=meta, options=options,
+              keep_each=keep_each, device=device)
+    compiled, prog = batched_program(model, data, free_energy=free_energy,
+                                     shared=shared, **kw)
+    # annotations read -FE as every non-mixture posterior's log-scale; a
+    # generic-Mixture model's free energy is composed from exact evidences
+    has_mixture = any(f.fform == "Mixture" for f in compiled.graph.factors)
+    mixture_plan = (_mixture_fe_plan(compiled) if has_mixture and free_energy
+                    else None)
+    need_fe = (free_energy and mixture_plan is None) or (
+        annotations is not None and not has_mixture)
+    if need_fe != free_energy:
+        compiled, prog = batched_program(model, data, free_energy=need_fe,
+                                         shared=shared, **kw)
+    from .engine.batched import (
+        DEFAULT_HBM_BUDGET,
+        batch_chunk_size,
+        concat_rows,
+        make_chunked_shared_program,
+    )
 
     batch = int(np.shape(next(iter(data.values())))[0])
     budget = (options or {}).get("hbm_budget_bytes") or DEFAULT_HBM_BUDGET
-    chunk = batch_chunk_size(compiled, batch, budget, free_energy)
+    chunk = batch_chunk_size(compiled, batch, budget, need_fe)
     if chunk is None:
         state, fe, history = prog(data)
+    elif shared:
+        # the pooled update is additive in natural parameters, so it
+        # accumulates over sequential chunks
+        if keep_each:
+            raise NotImplementedError(
+                "infer_batched(shared=..., returnvars=KeepEach()) beyond the "
+                "HBM budget: per-iteration history of chunked pooled runs is "
+                "not kept. Use KeepLast or raise "
+                "options={'hbm_budget_bytes': ...}.")
+        warnings.warn(
+            f"infer_batched(shared=...): batch {batch} exceeds the "
+            f"chain-moment budget ({budget / 1e9:.1f} GB); pooled "
+            f"aggregation runs in sequential chunks of {chunk} with "
+            "cross-chunk natural-parameter accumulation.", stacklevel=2)
+        key = ("chunked_shared", shared, chunk, iterations or 1, need_fe,
+               _all_finite(data), str(device))
+        if key not in compiled._programs:
+            compiled._programs[key] = make_chunked_shared_program(
+                compiled, {k: _first_element(v) for k, v in data.items()},
+                iterations or 1, need_fe, shared, chunk,
+                all_finite=key[5], device=device)
+        state, fe, history = compiled._programs[key](data)
     else:
         # chain moments exceed the budget: run sequential chunks of one
         # program (the last chunk edge-padded to keep its shape)
@@ -582,10 +815,8 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
             f"of {chunk}.", stacklevel=2)
         rows = lambda v, lo, hi: v[lo:hi]
         chunk0 = {k: rows(v, 0, chunk) for k, v in data.items()}
-        compiled, prog = batched_program(
-            model, chunk0, iterations=iterations, free_energy=free_energy,
-            initialization=initialization, constraints=constraints,
-            meta=meta, options=options, keep_each=keep_each, device=device)
+        compiled, prog = batched_program(model, chunk0, free_energy=need_fe,
+                                         **kw)
         states, fes, hists = [], [], []
         for i in range(nch):
             sl = {k: torch.as_tensor(rows(v, i * chunk, (i + 1) * chunk),
@@ -600,10 +831,10 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
             fes.append(f[:, :n])
             hists.append([{k: _slice_rows(v, n) for k, v in hj.items()}
                           for hj in h])
-        state = {k: _concat_rows([s[k] for s in states]) for k in states[0]}
+        state = {k: concat_rows([s[k] for s in states]) for k in states[0]}
         fe = torch.cat(fes, dim=1)
         history = [
-            {k: _concat_rows([hp[j][k] for hp in hists]) for k in hists[0][j]}
+            {k: concat_rows([hp[j][k] for hp in hists]) for k in hists[0][j]}
             for j in range(len(hists[0]))
         ]
     posteriors = _extract_posteriors(compiled, state)
@@ -612,13 +843,22 @@ def infer_batched(model, data: dict, iterations: Optional[int] = None,
             name: [_extract_posteriors(compiled, h)[name] for h in history]
             for name in posteriors
         }
-    predictions = {}
-    if predictvars:
-        # the final state's forward messages, over the batch, on the data
-        # zero-filled where it is missing
+    if annotations is not None or postprocess is not None or predictvars \
+            or mixture_plan is not None:
+        # the data on the device, zero-filled where it is missing
         data_dev, masks = compiled._device_data(data, _all_finite(data),
                                                 device)
         ctx = BatchContext(device, batch, {}, masks)
+    if mixture_plan is not None:
+        fe = _composed_mixture_fe(compiled, mixture_plan, state, data_dev,
+                                  ctx)
+    if annotations is not None or postprocess is not None:
+        posteriors = _annotate_batched(compiled, state, data_dev, ctx, fe,
+                                       need_fe, shared, posteriors,
+                                       annotations, postprocess)
+    predictions = {}
+    if predictvars:
+        # the final state's forward messages over the batch
         for name in predictvars:
             predictions[name] = compiled.predict(state, data_dev, name, ctx)
     if free_energy:

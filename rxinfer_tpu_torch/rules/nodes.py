@@ -588,13 +588,15 @@ class DiscreteTransitionNode:
 # -- mixtures -------------------------------------------------------------------------
 
 class _ComponentRules(type):
-    """Resolves a mixture's per-component interface rules by name:
-    ``message_to_mean{i}`` / ``message_to_prec{i}`` are the class's
-    ``_message_to_mean_i(q, i)`` / ``_message_to_prec_i(q, i)`` (the
-    interfaces are ``mean0..meanK-1``, ``prec0..precK-1``)."""
+    """Resolves a mixture's per-component interface rules by name: for each
+    prefix of the class's ``_indexed`` (``mean``, ``prec`` by default),
+    ``message_to_<prefix>{i}`` is the class's ``_message_to_<prefix>_i(q,
+    i)`` (the interfaces are ``mean0..meanK-1``, ``prec0..precK-1``)."""
 
     def __getattr__(cls, name):
-        for iface in ("mean", "prec"):
+        indexed = next((c.__dict__["_indexed"] for c in cls.__mro__
+                        if "_indexed" in c.__dict__), ("mean", "prec"))
+        for iface in indexed:
             prefix = f"message_to_{iface}"
             tail = name[len(prefix):]
             if name.startswith(prefix) and tail.isdigit():

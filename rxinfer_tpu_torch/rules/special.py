@@ -1,0 +1,146 @@
+"""The generic ``Mixture`` and the ``GammaMixture`` nodes (counterpart of
+the two in ``rxinfer_tpu/rules/special.py``; its other nodes, Probit among
+them, wait for ROADMAP A6)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..dists import Bernoulli, BernoulliLogits, Categorical, GammaShapeRate
+from ..dists.mixture import MixtureDist
+from ..dists.natural import family_key, from_natural, log_partition, to_natural
+from .expectations import e_log, e_mean
+from .nodes import _ComponentRules
+from .registry import node
+
+
+@node("GammaMixture")
+class GammaMixtureNode(metaclass=_ComponentRules):
+    """out ~ prod_k Gamma(out; a_k, b_k)^{s_k}: interfaces out, switch,
+    shape0..shapeK-1, rate0..rateK-1 (mean-field VMP)."""
+
+    _indexed = ("rate",)
+
+    @staticmethod
+    def _k(q):
+        return sum(1 for key in q if key.startswith("shape"))
+
+    @classmethod
+    def message_to_out(cls, q):
+        r = q["switch"].mean()
+        k = cls._k(q)
+        shape = sum(r[..., i] * (e_mean(q[f"shape{i}"]) - 1.0)
+                    for i in range(k)) + 1.0
+        rate = sum(r[..., i] * e_mean(q[f"rate{i}"]) for i in range(k))
+        return GammaShapeRate(shape, rate)
+
+    @classmethod
+    def message_to_switch(cls, q):
+        logits = []
+        for i in range(cls._k(q)):
+            a = e_mean(q[f"shape{i}"])
+            logits.append((a - 1.0) * e_log(q["out"])
+                          - e_mean(q[f"rate{i}"]) * e_mean(q["out"])
+                          + a * e_log(q[f"rate{i}"]) - torch.lgamma(a))
+        return Categorical(torch.stack(logits, dim=-1))
+
+    @staticmethod
+    def _message_to_rate_i(q, i: int):
+        r = q["switch"].mean()[..., i]
+        a = e_mean(q[f"shape{i}"])
+        return GammaShapeRate(r * a + 1.0, r * e_mean(q["out"]))
+
+    @classmethod
+    def average_energy(cls, q):
+        r = q["switch"].mean()
+        total = 0.0
+        for i in range(cls._k(q)):
+            a = e_mean(q[f"shape{i}"])
+            total = total + r[..., i] * (
+                -(a - 1.0) * e_log(q["out"])
+                + e_mean(q[f"rate{i}"]) * e_mean(q["out"])
+                - a * e_log(q[f"rate{i}"]) + torch.lgamma(a))
+        return total
+
+
+@node("Mixture")
+class MixtureNode(metaclass=_ComponentRules):
+    """Generic family-agnostic mixture: out = comp_{switch}.  A
+    belief-propagation node (``uses_cavity``: each rule sees the inbound
+    MESSAGES on its other edges, the marginal divided by this node's last
+    message there, ``engine/blocks.py`` ``PlainGroup.update``):
+
+      to out    -- ``MixtureDist(the switch message's weights, the
+                   components' messages)``: its product with the likelihood
+                   distributes over the components, so q(out) is a mixture
+                   whose component k is the model with component k alone and
+                   whose weights are the switch's posterior;
+      to comp_k -- the out edge's message (q(comp_k) = prior_k x m_out);
+      to switch -- each component's log-evidence A(eta_k + eta_out) -
+                   A(eta_k).
+
+    No average energy: evidence and Bayes factors come from
+    ``LogScaleAnnotations`` (``engine/logscale.py``), and ``free_energy=True``
+    from its exact evidence (``inference._composed_mixture_fe``)."""
+
+    uses_cavity = True
+    _indexed = ("comp",)
+
+    @staticmethod
+    def _k(q):
+        return sum(1 for key in q if key.startswith("comp"))
+
+    @staticmethod
+    def _switch_logw(d):
+        """Normalized (K,) log-weights of a Categorical or Bernoulli switch
+        message (a Bernoulli as [log(1 - p), log p])."""
+        if isinstance(d, (Bernoulli, BernoulliLogits)):
+            logit = to_natural(d)[0]
+            sp = torch.nn.functional.softplus
+            return torch.stack([-sp(logit), -sp(-logit)], dim=-1)
+        return torch.log_softmax(d.logits, dim=-1)
+
+    @staticmethod
+    def _require_plain(d, edge):
+        if isinstance(d, MixtureDist):
+            raise TypeError(
+                f"Mixture node: the {edge} edge carries a mixture-valued "
+                "message where a plain conjugate message is required; "
+                "initialize the mixture output with a plain (single-family) "
+                "distribution.")
+        # the natural carrier: one class for a message whatever it came as
+        return from_natural(family_key(d), to_natural(d))
+
+    @classmethod
+    def message_to_out(cls, q):
+        comps = tuple(cls._require_plain(q[f"comp{i}"], f"comp{i}")
+                      for i in range(cls._k(q)))
+        return MixtureDist(cls._switch_logw(q["switch"]), comps)
+
+    @classmethod
+    def message_to_switch(cls, q):
+        out = cls._require_plain(q["out"], "out")
+        fam = family_key(out)
+        eta_out = to_natural(out)
+        logits = []
+        for i in range(cls._k(q)):
+            eta_k = to_natural(q[f"comp{i}"])
+            eta = tuple(a + b for a, b in zip(eta_k, eta_out))
+            logits.append(log_partition(fam, eta) - log_partition(fam, eta_k))
+        # a Categorical carrier, coerced to a Bernoulli where the switch
+        # group is one (natural.coerce_message_family)
+        return Categorical(torch.stack(logits, dim=-1))
+
+    @classmethod
+    def _message_to_comp_i(cls, q, i: int):
+        del i   # every component receives the out edge's message
+        return cls._require_plain(q["out"], "out")
+
+    @staticmethod
+    def average_energy(q):
+        raise NotImplementedError(
+            "free_energy=True is not supported with the generic Mixture node "
+            "— it is a belief-propagation selection factor with no average "
+            "energy (reference parity: mixture models use "
+            "annotations=LogScaleAnnotations() for evidence / Bayes factors; "
+            "VMP mixtures use NormalMixture/GammaMixture instead).")

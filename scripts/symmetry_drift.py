@@ -9,12 +9,14 @@ blocks of ``csrc/tc16.cuh`` leave a matrix's two triangles apart by
 rounding; where the filter's two inverses a step amplify that (few
 observations of many states), the means drift without bound unless the
 recursion keeps its covariance symmetric.  The wide K3 mirrors P's upper
-triangle each step (``wide_step.cuh`` ``mirror_upper``).  Cases: the wide
-K3 at d = 16 and 12, the warp K3's tensor-core tier at d = 24 and 32 (each
-with one observation, ``chip_smoke._filter_system``, P0 = 9 I) and the
-wide K1 (the smoother's forward pass) at d = 16 with a rank-one W (F a
-scaled orthogonal matrix, Q = 0.4 I, P0 = 9 I).  Each line: the max abs
-difference of the means from the float64 filter over T steps (default 40).
+triangle each step (``tc16.cuh`` ``mirror_upper``), and so, since
+ROADMAP C7's repair, do the wide K1 and the warp K3's tensor-core tier.
+Cases: the wide K3 at d = 16 and 12, the warp K3's tensor-core tier at
+d = 24 and 32 (each with one observation, ``chip_smoke._filter_system``,
+P0 = 9 I), and the wide K1 and K2 (the smoother's two passes) at d = 16
+with a rank-one W (``chip_smoke.one_observation_system``).  Each line: the
+max abs difference of the means from the float64 filter (K2: RTS) over T
+steps (default 40).
 
 Without ``--card`` the sources are built with ``g++`` against the stub
 runtime of ``scripts/rehearse_kernels_cpu.py`` (``mma.sync`` emulated; 3
@@ -35,42 +37,11 @@ sys.path.insert(0, os.getcwd())
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def forward64(m0, p0, xi, f, q, w):
-    """The information-form forward filter in float64 (no transition at the
-    first step, no bias): means (T, n, d)."""
-    m = np.asarray(m0, np.float64)
-    p = np.asarray(p0, np.float64)
-    out = []
-    for t in range(xi.shape[0]):
-        if t:
-            m = m @ f.T
-            p = f @ p @ f.T + q
-        lam = np.linalg.inv(p)
-        p = np.linalg.inv(lam + w)
-        m = np.einsum("nij,nj->ni", p, np.einsum("nij,nj->ni", lam, m)
-                      + xi[t])
-        out.append(m)
-    return np.stack(out)
-
-
-def k1_system(d, b, t_len, seed=5):
-    rng = np.random.default_rng(seed)
-    qm, _ = np.linalg.qr(rng.standard_normal((d, d)))
-    f = (0.98 * qm).astype(np.float32)
-    q = (0.4 * np.eye(d)).astype(np.float32)
-    h = (1.2 * np.eye(1, d) + 0.2 * rng.standard_normal((1, d))).astype(
-        np.float32)
-    w = (h.T @ h / 0.9).astype(np.float32)
-    xi = (rng.standard_normal((t_len, b, 1)) @ h / 0.9).astype(np.float32)
-    m0 = rng.standard_normal((b, d)).astype(np.float32)
-    p0 = np.broadcast_to(9 * np.eye(d, dtype=np.float32), (b, d, d)).copy()
-    return m0, p0, xi, f, q, w
-
-
 def main(argv) -> int:
     import torch
 
-    from chip_smoke import _filter_system, filter_float64
+    from chip_smoke import (_filter_system, filter_float64,
+                            one_observation_system, rts_float64)
     from rxinfer_tpu_torch.ops import fused_filter as ff
     from rxinfer_tpu_torch.ops import fused_smoother as fs
 
@@ -117,21 +88,24 @@ def main(argv) -> int:
         print(f"{key} d={d} dy={dy}: means vs float64 {err.max():.3g} "
               f"(first 5 steps {err[:5].max():.3g})", flush=True)
     for d in (16,):
-        m0, p0, xi, f, q, w = k1_system(d, b, t_len)
-        bvec = np.zeros(d, np.float32)
-        o_means = forward64(m0, p0, xi, f.astype(np.float64),
-                            q.astype(np.float64), w.astype(np.float64))
+        m0, p0, xi, f, bvec, q, w = one_observation_system(d, b, t_len)
+        o_mf, _, o_ms, _ = rts_float64(m0, p0, xi, f, bvec, q, w,
+                                       filtered=True)
         as_t = lambda a: torch.as_tensor(a, device=dev)
         if args.card:
-            mf, _ = fs.fused_forward(as_t(m0), as_t(p0), as_t(xi), f, bvec,
-                                     q, w)
+            mf, pf = fs.fused_forward(as_t(m0), as_t(p0), as_t(xi), f, bvec,
+                                      q, w)
+            ms = fs.fused_backward(mf, pf, f, bvec, q)[0]
         else:
-            mf = _stub_k1(libs["fused_smoother_wide"], m0, p0, xi, f, bvec,
-                          q, w)
-        err = np.abs(mf.cpu().numpy().transpose(0, 2, 1) - o_means)
-        print(f"fused_smoother_fwd_wide d={d}, rank-one W: means vs float64 "
-              f"{err.max():.3g} (first 5 steps {err[:5].max():.3g})",
-              flush=True)
+            mf, pf = _stub_k1(libs["fused_smoother_wide"], m0, p0, xi, f,
+                              bvec, q, w)
+            ms = _stub_k2(libs["fused_smoother_wide"], mf, pf, f, bvec, q)
+        for name, got, want in (("fwd", mf, o_mf), ("bwd", ms, o_ms)):
+            err = np.abs(got.cpu().numpy().transpose(0, 2, 1) - want)
+            print(f"fused_smoother_{name}_wide d={d}, rank-one W: means vs "
+                  f"float64 {'filter' if name == 'fwd' else 'RTS'} "
+                  f"{err.max():.3g} (first 5 steps {err[:5].max():.3g})",
+                  flush=True)
     return 0
 
 
@@ -196,7 +170,29 @@ def _stub_k1(lib, m0, p0, xi, f, bvec, q, w):
         fs._host_ptr(qh), fs._host_ptr(wh), None, None, 0, None)
     if rc:
         raise RuntimeError(f"wide K1: launcher returned {rc}")
-    return mf
+    return mf, pf
+
+
+def _stub_k2(lib, mf, pf, f, bvec, q):
+    """The wide K2 built on the stub, on K1's outputs: means (T, d, B)."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_smoother as fs
+
+    t_len, d, b = mf.shape
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.rxt_wide_smoother_bwd.argtypes = [ci] + [vp] * 5 + [i64, i64] \
+        + [vp] * 4 + [ci, vp]
+    fh, bh, qh, _ = fs._host_params(f, bvec, q, None, d)
+    ms, ps = torch.empty_like(mf), torch.empty_like(pf)
+    cross = torch.empty((t_len - 1, d * d, b))
+    rc = lib.rxt_wide_smoother_bwd(
+        d, mf.data_ptr(), pf.data_ptr(), ms.data_ptr(), ps.data_ptr(),
+        cross.data_ptr(), t_len, b, fs._host_ptr(fh), fs._host_ptr(bh),
+        fs._host_ptr(qh), None, 0, None)
+    if rc:
+        raise RuntimeError(f"wide K2: launcher returned {rc}")
+    return ms
 
 
 if __name__ == "__main__":

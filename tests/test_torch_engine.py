@@ -229,7 +229,9 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
      "'float32' or 'bfloat16'"),
     ({"options": {"matmul_precision": "highest"}}, NotImplementedError,
      "matmul_precision"),
-    ({"shared": ("x",)}, NotImplementedError, "shared"),
+    # shared= itself runs since A7a (tests/test_torch_shared.py); its sum
+    # over a device mesh does not
+    ({"shared": ("x",), "psum_axis": "dp"}, NotImplementedError, "shared"),
 ])
 def test_unported_options_raise(kwargs, error, match):
     c = constants(2)
@@ -320,12 +322,13 @@ def test_scalar_chain_unfused_matches_jax(t_len):
 
 
 def test_unported_infer_batched_arguments_raise():
+    """``mesh=`` (ROADMAP A7b) still raises; ``annotations=`` runs since A4b
+    (``tests/test_torch_mixture.py``)."""
     c = constants(2)
     y = observations(2, 8, 2)
-    for name in ("annotations", "mesh"):
-        with pytest.raises(NotImplementedError, match=name):
-            trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU,
-                              **{name: object()})
+    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP A7b"):
+        trx.infer_batched(lgssm_source(trx, *c), {"y": y}, device=CPU,
+                          mesh=object())
 
 
 def test_infer_batched_predictvars_dict_matches_jax():

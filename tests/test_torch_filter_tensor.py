@@ -101,10 +101,12 @@ def gauss_jordan(m):
     return m
 
 
-def schur_blocks(m, leaf, three=True):
+def schur_blocks(m, leaf, three=True, yt_product=True):
     """The inverse of the symmetric (B, 2n, 2n) m by the Schur blocks at n
     (``leaf`` inverts the n x n blocks), in the kernel's order: X, Z and S,
-    then Y, Y^T and TL (its upper-right block never read)."""
+    then Y, Y^T and TL (its upper-right block never read).  Y^T is the
+    product S^-1 X^T, or with ``yt_product=False`` the transpose of Y (the
+    warp tier's top level, ``tc16.cuh`` ``transpose``)."""
     n = m.shape[-1] // 2
     a, bt, dd = m[:, :n, :n], m[:, n:, :n], m[:, n:, n:]
     ai = leaf(a)
@@ -112,25 +114,42 @@ def schur_blocks(m, leaf, three=True):
     z = mma3(bt, ai, three=three)                  # B^T A^-1
     si = leaf(mma3(-z, bt, acc=dd, three=three))   # (D - Z B)^-1
     y = mma3(x, si, three=three)                   # X S^-1
-    yt = mma3(si, x, three=three)                  # S^-1 X^T
+    yt = mma3(si, x, three=three) if yt_product \
+        else y.transpose(-1, -2)                   # S^-1 X^T, or Y^T
     tl = mma3(y, x, acc=ai, three=three)           # A^-1 + Y X^T
     return torch.cat([torch.cat([tl, -y], -1), torch.cat([-yt, si], -1)], -2)
 
 
-def schur_inverse(m, d, three=True):
+def schur_inverse(m, d, three=True, mirror=True):
     """The inverse of the padded (B, 32, 32) m, scaled by the mean
     |diagonal| of its d real entries, by the Schur blocks at 16 and, inside
-    each 16 x 16 inverse, at 8, with Gauss-Jordan leaves of 8."""
+    each 16 x 16 inverse, at 8, with Gauss-Jordan leaves of 8.  The
+    lower-left block is the transpose of the upper-right (``mirror``, as
+    the kernel forms it) or its own product (``mirror=False``)."""
     diag = torch.diagonal(m, dim1=-2, dim2=-1)[:, :d].abs().sum(-1) / d
     inv_s = 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag))
     m = m * inv_s[:, None, None]
     inv16 = lambda b: schur_blocks(b, gauss_jordan, three)
-    return schur_blocks(m, inv16, three) * inv_s[:, None, None]
+    return schur_blocks(m, inv16, three, yt_product=not mirror) \
+        * inv_s[:, None, None]
 
 
-def emulate_filter(m0, p0, ys, f, q, hr, w, three=True):
+def mirror_upper(p):
+    """The symmetric matrix of p's upper triangle (``tc16.cuh``
+    ``mirror_upper``, and what a kernel stores of P)."""
+    up = torch.triu(p)
+    return up + up.transpose(-1, -2) - torch.diag_embed(
+        torch.diagonal(p, dim1=-2, dim2=-1))
+
+
+def emulate_filter(m0, p0, ys, f, q, hr, w, three=True, mirror=True):
     """The tier's step over (B, d) m0, (B, d, d) p0, (T, B, dy) ys:
-    returns means (T, B, d), final m, final P, all float32."""
+    returns means (T, B, d), final m, final P, all float32.  With
+    ``mirror`` (the kernel) each inverse's lower-left block is the
+    transpose of its upper-right and P's lower triangle the mirror of its
+    upper after each step's second inverse; ``mirror=False`` keeps both
+    triangles as the Schur blocks leave them (the tier before ROADMAP C7's
+    repair)."""
     d = f.shape[0]
     pad = lambda a: torch.nn.functional.pad(
         torch.as_tensor(a, dtype=torch.float32), (0, PAD - d, 0, PAD - d))
@@ -148,11 +167,13 @@ def emulate_filter(m0, p0, ys, f, q, hr, w, three=True):
         fb = fp.expand(bsz, PAD, PAD)
         p_pred = mma3(mma3(fb, p, three=three), fb, acc=qp.expand_as(p),
                       three=three)
-        lam = schur_inverse(p_pred, d, three)
+        lam = schur_inverse(p_pred, d, three, mirror)
         xi = torch.zeros((bsz, PAD))
         xi[:, :d] = y @ hrt.T
         h = torch.einsum("bij,bj->bi", lam, m_pred) + xi
-        p = schur_inverse(lam + wp, d, three)
+        p = schur_inverse(lam + wp, d, three, mirror)
+        if mirror:
+            p = mirror_upper(p)
         m = torch.einsum("bij,bj->bi", p, h)
         means.append(m[:, :d])
     return torch.stack(means), m[:, :d], p[:, :d, :d]
@@ -213,6 +234,31 @@ def test_emulated_tier_matches_plain_version_and_jax(d, dy, p0_scale,
               f"difference from the plain version (means, final m, final "
               f"P): 3xTF32 {errs[0]:.3g} {errs[1]:.3g} {errs[2]:.3g}; one "
               f"TF32 product {errs1[0]:.3g} {errs1[1]:.3g} {errs1[2]:.3g}")
+
+
+@pytest.mark.parametrize("d", [24, 32])
+def test_mirrored_tier_keeps_a_long_chain_on_the_float64_filter(d, capsys):
+    """One observation of d states over 40 steps (ROADMAP C7): the Schur
+    blocks leave P's two triangles apart by rounding and the two inverses a
+    step amplify that, so the tier forms each inverse's lower-left block as
+    the transpose of its upper-right and mirrors P's diagonal blocks after
+    the second.  Mirrored, the emulation holds the float64 filter at
+    ``chip_smoke.ORACLE_TOL``; as the Schur blocks leave it, its drift is
+    printed, not held."""
+    from chip_smoke import ORACLE_TOL, filter_float64
+
+    m, p, ys, f, q, h, r = _system(3, 40, d, 1, 9.0, seed=d + 1)
+    w_obs, hr = ff.evidence_operators(h, r)
+    o_means, o_m, o_p = filter_float64(m, p, ys, f, q, h, r)
+    got = emulate_filter(m, p, ys, f, q, hr, w_obs)
+    for g, want in zip(got, (o_means, o_m, o_p)):
+        np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=ORACLE_TOL)
+    drift = emulate_filter(m, p, ys, f, q, hr, w_obs, mirror=False)[0]
+    with capsys.disabled():
+        print(f"\n[tc emulation] d={d} dy=1, 40 steps: means from the "
+              f"float64 filter {np.abs(got[0].numpy() - o_means).max():.3g} "
+              f"mirrored, {np.abs(drift.numpy() - o_means).max():.3g} "
+              f"without")
 
 
 def test_tf32_rounds_to_nearest_ties_away():

@@ -726,15 +726,26 @@ def test_an_unported_fe_branch_names_its_roadmap_item():
                             free_energy=True, device=CPU)
 
 
-def test_shared_and_annotations_keep_raising():
+def test_annotations_carry_the_free_energy_and_shared_refuses_a_chain():
+    """``annotations=`` (refused until ROADMAP A4b was ported): on the LGSSM
+    every posterior's (B,) log-scale is its dataset's -FE, as the JAX
+    package's; ``shared=`` (refused until A7a) pools plain groups only, and
+    names a chain with the JAX package's error."""
     c = lgssm_constants()
     y = lgssm_y(2, 8)
-    with pytest.raises(NotImplementedError, match="shared"):
+    tres = trx.infer_batched(tzoo.lgssm(*c), {"y": y}, free_energy=True,
+                             annotations=trx.LogScaleAnnotations(),
+                             device=CPU)
+    jres = jrx.infer_batched(jzoo.lgssm(*c), {"y": y}, free_energy=True,
+                             annotations=jrx.LogScaleAnnotations())
+    ls = trx.getlogscale(tres.posteriors["x"])
+    torch.testing.assert_close(ls, -tres.free_energy[-1], rtol=0, atol=0)
+    np.testing.assert_allclose(ls.numpy(),
+                               np.asarray(jrx.getlogscale(jres[0]["x"])),
+                               rtol=1e-5, atol=1e-3)
+    with pytest.raises(ValueError, match="is a chain block"):
         trx.infer_batched(tzoo.lgssm(*c), {"y": y}, free_energy=True,
                           shared=("x",), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        trx.infer_batched(tzoo.lgssm(*c), {"y": y}, free_energy=True,
-                          annotations=object(), device=CPU)
 
 
 def test_the_memory_budget_counts_the_free_energy():

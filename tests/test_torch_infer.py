@@ -251,18 +251,42 @@ def _streaming(**kwargs):
 
 @pytest.mark.parametrize("kwargs,item", [
     (_streaming(mesh=object()), "A7b"),
-    ({"annotations": object()}, "A4"),
+    (_streaming(annotations=object()), "A4c"),
     (_streaming(session=object()), "A6"),
-    ({"mesh": object()}, "A7"),
+    ({"mesh": object()}, "A7b"),
     ({"constraints": object()}, "A6"),
     ({"meta": {"MvNormalMeanCovariance": {}}}, "A6"),
-    ({"postprocess": object()}, "A6"),
+    (_streaming(postprocess=object()), "A4c"),
 ])
 def test_unported_infer_arguments_raise_with_their_roadmap_item(kwargs, item):
     c = lgssm_constants()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trx.infer(tzoo.lgssm(*c), data={"y": lgssm_data(6, seed=0)},
                   device=CPU, **kwargs)
+
+
+def test_infer_annotations_and_postprocess_match_jax():
+    """``annotations=`` and ``postprocess=`` (refused until ROADMAP A4b was
+    ported): under ``KeepEach`` every sweep's posterior is a ``Marginal``
+    whose log-scale is that sweep's -FE, as JAX ``infer`` gives it, and
+    ``postprocess=`` maps every posterior."""
+    c = lgssm_constants()
+    y = lgssm_data(24, seed=3)
+    jres = jrx.infer(jzoo.lgssm(*c), data={"y": y}, iterations=2,
+                     free_energy=True, annotations=jrx.LogScaleAnnotations())
+    tres = trx.infer(tzoo.lgssm(*c), data={"y": y}, iterations=2,
+                     free_energy=True, annotations=trx.LogScaleAnnotations(),
+                     device=CPU)
+    for it, (tp, jp) in enumerate(zip(tres.posteriors["x"],
+                                      jres.posteriors["x"])):
+        assert isinstance(tp, trx.Marginal)
+        assert float(trx.getlogscale(tp)) == float(-tres.free_energy[it])
+        np.testing.assert_allclose(float(trx.getlogscale(tp)),
+                                   float(jrx.getlogscale(jp)), rtol=1e-5)
+        assert_gauss_close(trx.getdata(tp), jrx.getdata(jp))
+    means = trx.infer(tzoo.lgssm(*c), data={"y": y}, device=CPU,
+                      postprocess=lambda m: trx.getdata(m).mean())
+    assert isinstance(means.posteriors["x"], torch.Tensor)
 
 
 def test_infer_free_energy_matches_jax():

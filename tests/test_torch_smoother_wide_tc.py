@@ -29,6 +29,7 @@ import torch
 from rxinfer_tpu.ops import kalman as jk
 from rxinfer_tpu_torch.ops import fused_smoother as fs
 from test_torch_filter_tensor import gauss_jordan, mma3, schur_blocks
+from test_torch_filter_tensor import mirror_upper as _mirror
 
 # the kernels against the plain versions (chip_smoke.py's RTOL / ATOL): the
 # two differ in rounding only (3xTF32 products, Schur at 8 with
@@ -108,18 +109,13 @@ def _pad_params(f, bvec, q, w, bsz, d):
     return pad(f, False), bp, pad(q, True), pad(w, False)
 
 
-def _mirror(p):
-    """The symmetric matrix of p's upper triangle: what K2 reads of K1's
-    stored pf."""
-    up = torch.triu(p)
-    return up + up.transpose(-1, -2) - torch.diag_embed(
-        torch.diagonal(p, dim1=-2, dim2=-1))
-
-
-def emulate_forward(m0, p0, xi, f, bvec, q, w, three=True):
+def emulate_forward(m0, p0, xi, f, bvec, q, w, three=True, mirror=True):
     """K1 over (B, d) m0, (B, d, d) p0, (T, B, d) xi: the filtered means
     (T, B, d) and covariances (T, B, d, d) as stored (the upper triangle,
-    mirrored), float32."""
+    mirrored), float32.  With ``mirror`` (the kernel) P's lower triangle is
+    the mirror of its upper after each step's second inverse;
+    ``mirror=False`` carries it as the inverse leaves it (K1 before ROADMAP
+    C7's repair)."""
     t_len, bsz, d = xi.shape
     fp, bp, qp, wp = _pad_params(f, bvec, q, w, bsz, d)
     m = torch.zeros((bsz, PAD))
@@ -138,6 +134,8 @@ def emulate_forward(m0, p0, xi, f, bvec, q, w, three=True):
         lam = inverse16(p, d, three, FWD_LEAF)
         h = torch.einsum("bij,bj->bi", lam, m_pred) + xip[t]
         p = inverse16(lam + wp, d, three, FWD_LEAF)
+        if mirror:
+            p = _mirror(p)
         m = torch.einsum("bij,bj->bi", p, h)
         means.append(m[:, :d])
         covs.append(_mirror(p[:, :d, :d]))
@@ -273,6 +271,33 @@ def test_emulated_kernels_match_plain_versions_and_jax(d, per_chain,
         print(f"\n[wide tc emulation] d={d} {'W, Q per chain' if per_chain else 'static'}"
               f" P0={p0_scale:g} I, max abs difference from the plain "
               f"versions: 3xTF32 {err(got)}; one TF32 product {err(one)}")
+
+
+def test_mirrored_forward_keeps_a_long_chain_on_the_float64_rts(capsys):
+    """One observation of 16 states (a rank-one W) over 40 steps, ROADMAP
+    C7: the Schur blocks leave P's two triangles apart by rounding and the
+    two inverses a step amplify that, so K1 mirrors P's upper triangle after
+    each step's second inverse.  Mirrored, the emulated K1 holds the float64
+    filter, and the emulated K2 on its outputs the float64 RTS, at
+    ``chip_smoke.ORACLE_TOL``; K1 as the inverse leaves P is printed, not
+    held."""
+    from chip_smoke import ORACLE_TOL, one_observation_system, rts_float64
+
+    m0, p0, xi, f, bvec, q, w = one_observation_system(16, 3, 40)
+    o_mf, o_pf, o_ms, o_ps = rts_float64(m0, p0, xi, f, bvec, q, w,
+                                         filtered=True)
+    mf, pf = emulate_forward(m0, p0, torch.as_tensor(xi), f, bvec, q, w)
+    ms, ps, _ = emulate_backward(mf, pf, f, bvec, q)
+    for g, want in zip((mf, pf, ms, ps), (o_mf, o_pf, o_ms, o_ps)):
+        np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=ORACLE_TOL)
+    drift = emulate_forward(m0, p0, torch.as_tensor(xi), f, bvec, q, w,
+                            mirror=False)[0]
+    with capsys.disabled():
+        print(f"\n[wide tc emulation] d=16, rank-one W, 40 steps: K1's "
+              f"means from the float64 filter "
+              f"{np.abs(mf.numpy() - o_mf).max():.3g} mirrored, "
+              f"{np.abs(drift.numpy() - o_mf).max():.3g} without; K2's "
+              f"from the float64 RTS {np.abs(ms.numpy() - o_ms).max():.3g}")
 
 
 @pytest.mark.parametrize("leaf", [gauss_jordan, gauss_jordan_pairs])

@@ -556,8 +556,8 @@ def test_data_colliding_with_an_autoupdated_argument_is_refused():
 @pytest.mark.parametrize("kwargs,item", [
     ({"constraints": object()}, "A6"),
     ({"meta": {"Beta": {}}}, "A6"),
-    ({"postprocess": object()}, "A6"),
-    ({"annotations": object()}, "A4b"),
+    ({"postprocess": object()}, "A4c"),
+    ({"annotations": object()}, "A4c"),
     ({"catch_exception": True}, None),
 ])
 def test_unported_streaming_arguments_raise(kwargs, item):
