@@ -2,9 +2,10 @@
 
 A model written with ``@model``, ``latent``, ``plate``,
 ``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Beta``, ``Bernoulli``,
-``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition`` and
-``NormalMixture`` runs through ``infer`` on one dataset, through
-``batched_program`` / ``infer_batched`` over many, and through
+``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``,
+``NormalMixture``, ``Mixture``, ``AR``, ``GCV`` and ``dot`` runs through
+``infer`` on one dataset, through ``batched_program`` / ``infer_batched``
+over many, and through
 ``infer(autoupdates=...)``, the streaming engine, on one stream or many, on
 an NVIDIA GPU; ``free_energy=True``
 returns the Bethe free energy after every sweep (``engine/bethe.py``).  In a
@@ -46,6 +47,11 @@ from .dists import (  # noqa: F401
     WishartInverseScale,
 )
 from .graph.dsl import (  # noqa: F401
+    AR,
+    GCV,
+    ARMeta,
+    ARsafe,
+    ARunsafe,
     Bernoulli,
     Beta,
     Categorical,
@@ -60,6 +66,7 @@ from .graph.dsl import (  # noqa: F401
     NormalMixture,
     Transition,
     Wishart,
+    dot,
     latent,
     model,
     plate,

@@ -116,6 +116,7 @@ from .blocks import (
     DiscreteChainBlock,
     GaussianChainBlock,
     PlainGroup,
+    cpu_context,
 )
 
 # Chain-moment budget of one batched program: three quarters of the H100's
@@ -349,9 +350,10 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict,
         # at T = 1 the chain applies no transition, so the (T-1)-row tables
         # are empty; the constants come from the factor's Const interfaces
         # all the same, so ask for one row
-        a, bb, q = block._transition_params(state0, d0, max(length, 2))
-        m0, p0 = block._prior_moments(state0, d0)
-        _, w = block._evidence(state0, d0, length)
+        a, bb, q = block._transition_params(_one(state0), _one(d0),
+                                            max(length, 2))
+        m0, p0 = block._prior_moments(_one(state0), _one(d0))
+        _, w = _probe_evidence(block, state0, d0)
     except Exception as exc:  # noqa: BLE001 — any assembly failure: reason
         return None, (
             f"constant-parameter assembly failed ({type(exc).__name__}: "
@@ -398,6 +400,18 @@ def _plan_fused_gaussian(block: GaussianChainBlock, data0: dict,
     return plan, wlin_reason
 
 
+def _one(tree: dict) -> dict:
+    """One dataset's data or state as a batch of one."""
+    return {k: tree_map(lambda a: a[None], v) for k, v in tree.items()}
+
+
+def _probe_evidence(block: GaussianChainBlock, state: dict, d0: dict):
+    """One dataset's evidence xi (T, d) and W (T, d, d) at ``state``: the
+    block's batch-major evidence on a batch of one on the CPU."""
+    xi, w = block._evidence_batch(_one(state), _one(d0), cpu_context())
+    return xi[0], w[0]
+
+
 def _extract_linear_evidence(block: GaussianChainBlock, d0: dict,
                              length: int, state: dict | None = None):
     """Extract the evidence information vector as a per-slot AFFINE map of
@@ -410,7 +424,7 @@ def _extract_linear_evidence(block: GaussianChainBlock, d0: dict,
     state = state or {}
 
     def xi_of(dd):
-        xi, _ = block._evidence(dict(state), dd, length)
+        xi, _ = _probe_evidence(block, state, dd)
         return xi
 
     try:
@@ -514,7 +528,7 @@ def _wlinear_map(block, d0, length, state0, vname, PointMass, e_precision):
         st = dict(state0)
         st[vname] = PointMass(torch.as_tensor(vval, dtype=torch.float32))
         e, c = _extract_linear_evidence(block, d0, length, state=st)
-        _, w = block._evidence(st, d0, length)
+        _, w = _probe_evidence(block, st, d0)
         return e, c, w.numpy()[0]
 
     e1, c1, w1 = probe(eye)
@@ -563,7 +577,7 @@ def _wlinear_map(block, d0, length, state0, vname, PointMass, e_precision):
     # the initial state's own marginal: the rules must read q(v) through
     # E[v] only, or the fused path would drift from the scan path
     es, cs = _extract_linear_evidence(block, d0, length, state=state0)
-    _, ws = block._evidence(dict(state0), d0, length)
+    _, ws = _probe_evidence(block, state0, d0)
     ws = ws.numpy()[0]
     if cs is None or not ok(cs, c1):
         return None, ("at the initial state the evidence's offset differs "
@@ -842,6 +856,15 @@ def build_plans(compiled, data0: dict, all_finite: bool = True,
             plans[name] = "discrete"
             report[name] = {"fused": True, "kernel": "fused_fb",
                             "route": route}
+            continue
+        if type(block) is not GaussianChainBlock:
+            report[name] = {
+                "fused": False,
+                "reason": (
+                    f"{type(block).__name__} has state-dependent transition "
+                    "parameters (re-assembled every sweep); XLA scan path"
+                ),
+            }
             continue
         if not all_finite:
             report[name] = {

@@ -57,6 +57,8 @@ _LOG2PIE = 2.837877066409345  # log(2*pi*e)
 # cluster when both are random (``gaussian_pair_fe``)
 _GAUSS_PAIR = {"NormalMeanVariance", "NormalMeanPrecision",
                "MvNormalMeanCovariance", "MvNormalMeanPrecision"}
+# and the (out, in) pair of a dot-product likelihood
+_DOT_PAIR = {"GaussianDotCovariance", "GaussianDotPrecision"}
 
 
 def _n_copies(f) -> int:
@@ -98,20 +100,20 @@ def slot_degrees(graph: ModelGraph, var) -> np.ndarray:
 
 def gaussian_pair_entropy(covs_out, covs_in, cross_out_in, scalar: bool):
     """Entropy of the joint Gaussian (out, in) of each pair: covariances
-    (..., d, d) and Cov(out, in) (..., d, d), or (...,) each for a scalar
-    chain."""
+    (..., d_out, d_out) and (..., d_in, d_in) and Cov(out, in)
+    (..., d_out, d_in), or (...,) each for a scalar chain."""
     if scalar:
         det = covs_out * covs_in - cross_out_in ** 2
         return _LOG2PIE + 0.5 * torch.log(det)
-    d = covs_out.shape[-1]
+    d, e = covs_out.shape[-1], covs_in.shape[-1]
     lead = torch.broadcast_shapes(covs_out.shape[:-2], covs_in.shape[:-2],
                                   cross_out_in.shape[:-2])
-    joint = covs_out.new_empty(lead + (2 * d, 2 * d))
+    joint = covs_out.new_empty(lead + (d + e, d + e))
     joint[..., :d, :d] = covs_out
     joint[..., :d, d:] = cross_out_in
     joint[..., d:, :d] = cross_out_in.transpose(-1, -2)
     joint[..., d:, d:] = covs_in
-    return d * _LOG2PIE + 0.5 * batched_logdet(joint)
+    return 0.5 * (d + e) * _LOG2PIE + 0.5 * batched_logdet(joint)
 
 
 def discrete_pair_entropy(xis):
@@ -159,9 +161,11 @@ class FactorFE:
                 and in_cavity_cluster(node_cls, "out")
                 and in_cavity_cluster(node_cls, "in")):
             raise _unported_branch(f, "affine custom-transition pair")
-        mean_ref = f.interfaces.get("mean")
+        mean_ref = f.interfaces.get(
+            "in" if f.fform in _DOT_PAIR else "mean")
         if (not is_chain_transition and f.plate is None
-                and f.out.var.kind == "random" and f.fform in _GAUSS_PAIR
+                and f.out.var.kind == "random"
+                and f.fform in _GAUSS_PAIR | _DOT_PAIR
                 and isinstance(mean_ref, Ref)
                 and mean_ref.var.kind == "random"):
             # the JAX package takes the exact (out, mean) pair here whenever
@@ -199,6 +203,12 @@ class FactorFE:
             q_out, q_in = q["out"], q["in"]
             if f.fform == "DiscreteTransition":
                 hp = discrete_pair_entropy(cross)
+            elif f.fform == "AR" and not self.chain_scalar:
+                # the shift rows of the embedded state are deterministic:
+                # the cluster is (out_0, in), of dimension k + 1
+                hp = gaussian_pair_entropy(q_out.cov()[..., :1, :1],
+                                           q_in.cov(), cross[..., :1, :],
+                                           scalar=False)
             elif self.chain_scalar:
                 hp = gaussian_pair_entropy(q_out.var(), q_in.var(), cross,
                                            scalar=True)

@@ -1,39 +1,39 @@
 """Executable blocks of the compiled plan (counterpart of
 ``rxinfer_tpu/engine/blocks.py``).
 
-Two ways of evaluating rules, chosen by the ``ctx`` argument:
-
-* plan time (``ctx=None``): one dataset on the CPU, slots on axis 0.  The
-  batched program evaluates ``GaussianChainBlock``'s plan-time methods
-  (``_prior_moments``, ``_transition_params``, ``_evidence_msg``,
-  ``_evidence``) this way, once, to extract the fused plan's constants
-  (engine/batched.py); the chain itself is then solved by the fused smoother
-  kernels.
-* every sweep (``ctx`` a ``BatchContext``): the whole batch on the program's
-  device, batch on axis 0 and slots on axis 1.  A value that a plated factor
-  shares across its copies (a scalar group, an indexed slot, a whole data
-  array) gets a unit plate axis, so that batched rules broadcast.
-  ``PlainGroup.update``, ``DiscreteChainBlock._inputs`` and both chain
-  blocks' ``update`` run this way, over the batch rather than under a
-  per-dataset ``vmap``; ``infer`` runs one dataset as a batch of one.
+Every rule is evaluated over a batch (``ctx``, a ``BatchContext``): batch
+on axis 0 and slots on axis 1.  A value that a plated factor shares across
+its copies (a scalar group, an indexed slot, a whole data array) gets a
+unit plate axis, so that batched rules broadcast.  ``PlainGroup.update``,
+``DiscreteChainBlock._inputs`` and the chain blocks' ``update`` run this
+way over the whole batch on the program's device rather than under a
+per-dataset ``vmap``; ``infer`` runs one dataset as a batch of one, and the
+batched program's plan-time probes (engine/batched.py) evaluate
+``GaussianChainBlock``'s ``_prior_moments``, ``_transition_params`` and
+``_evidence_batch`` on one dataset as a batch of one on the CPU
+(``cpu_context``), once, to extract the fused plan's constants.
 
 Ported: ``build_q`` (with the structured ``joint`` of a chain transition from
 ``chain_cross``), ``resolve_iface``, ``factor_data_mask`` and
 ``mask_message`` (NaN observations are zero-filled by the program and their
 factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
 ``PlainGroup`` for the mean-field path (scalar groups plate-reduced, array
-groups padded over their slots), ``GaussianChainBlock`` (its ``update``
-with the Kalman scans of ``ops/kalman.py``) and ``DiscreteChainBlock`` (its
-``update`` with ``ops/discrete_chain.py``), each solving with the
-associative scans from 48 slots and the loops below.
+groups padded over their slots; a rule that reads its own marginal sees it
+once the group has one), ``GaussianChainBlock`` (its ``update`` with the
+Kalman scans of ``ops/kalman.py``, its evidence with the damping of
+``meta={...: {"damping": lam}}``), ``GCVChainBlock`` and ``ARChainBlock``
+(per-chain transitions re-assembled from the state every sweep, on the same
+scans) and ``DiscreteChainBlock`` (its ``update`` with
+``ops/discrete_chain.py``), each solving with the associative scans from 48
+slots and the loops below.
 ``PlainGroup.update`` ends with ``PlainGroup.finalize``'s family
 conversion: a product in the Wishart inverse-scale carrier becomes a
 ``Wishart`` (form constraints, its other branch, are not ported); with
 ``raw_product`` it returns the product before it, for pooled ``shared=``
 sums.  The cavity (EP) message store is ported for the generic ``Mixture``
 node alone (``CAVITY_STORE_NODES``).  Not ported: the ``time_mesh`` branch
-of ``GaussianChainBlock.update`` (time sharding), the AR/GCV chain blocks,
-EP damping of evidence messages, and the ``PlainGroup`` branches that
+of ``GaussianChainBlock.update`` (time sharding), the single-step GCV pair
+(``attach_gcv_pair_cross``), and the ``PlainGroup`` branches that
 ``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
 factors, the other nodes' cavity stores, required-message dependencies,
 mean-field splits, form and message-form constraints and function-form
@@ -49,6 +49,7 @@ import torch
 
 from ..dists import PointMass, WishartInverseScale, pd_inverse, tree_map
 from ..dists.gaussian import (
+    ScalarGaussians,
     as_mv_weighted_mean_precision,
     as_weighted_mean_precision,
 )
@@ -104,23 +105,18 @@ def _coverage(f: Factor, ref: Ref):
     return (p.lo + ref.idx.offset, p.hi + ref.idx.offset)
 
 
-def _device_of(data: dict) -> torch.device:
-    for v in data.values():
-        if isinstance(v, torch.Tensor):
-            return v.device
-    return torch.device("cpu")
+def cpu_context() -> "BatchContext":
+    """The context of a batch of one on the CPU: how the batched program's
+    plan-time probes (engine/batched.py) evaluate one dataset's rules."""
+    return BatchContext(torch.device("cpu"), 1, {})
 
 
 def resolve_iface(value, f: Factor, state: dict, data: dict,
-                  ctx: Optional[BatchContext] = None):
-    """Resolve an interface value to a marginal: one dataset's (slots on
-    axis 0) at plan time, the whole batch's (slots on axis 1) under
-    ``ctx``."""
+                  ctx: BatchContext):
+    """Resolve an interface value to a marginal over the batch (batch on
+    axis 0, slots on axis 1)."""
     if isinstance(value, Const):
-        if ctx is not None:
-            return PointMass(ctx.const(value))
-        return PointMass(torch.as_tensor(np.asarray(value.value, np.float32),
-                                         device=_device_of(data)))
+        return PointMass(ctx.const(value))
     ref = value
     cov = _coverage(f, ref)
     if cov == "grid":
@@ -130,27 +126,28 @@ def resolve_iface(value, f: Factor, state: dict, data: dict,
         else state[ref.var.name]
     if cov is None:
         return q
-    axis = 0 if ctx is None else 1
     if isinstance(cov, int):
-        return tree_map(lambda a: a.select(axis, cov), q)
+        return tree_map(lambda a: a.select(1, cov), q)
     lo, hi = cov
-    return tree_map(lambda a: a.narrow(axis, lo, hi - lo), q)
+    return tree_map(lambda a: a.narrow(1, lo, hi - lo), q)
 
 
 def build_q(f: Factor, state: dict, data: dict,
             exclude: Optional[str] = None,
-            chain_cross: Optional[dict] = None,
-            ctx: Optional[BatchContext] = None) -> dict:
+            chain_cross: Optional[dict] = None, *,
+            ctx: BatchContext) -> dict:
     """The rule-input marginal dict of factor ``f`` (all interfaces but
-    ``exclude``).  When ``f`` is a chain's transition and ``chain_cross``
-    holds that chain's pair statistics, they ride along as ``q["joint"]``
-    (the structured cluster marginal q(out, in))."""
+    ``exclude``) over the batch.  A value that a plated factor shares
+    across its copies gets a unit plate axis after the batch axis.  When
+    ``f`` is a chain's transition and ``chain_cross`` holds that chain's
+    pair statistics, they ride along as ``q["joint"]`` (the structured
+    cluster marginal q(out, in))."""
     q = {}
     for name, v in f.all_interfaces().items():
         if name == exclude:
             continue
         x = resolve_iface(v, f, state, data, ctx)
-        if (ctx is not None and f.plate is not None and isinstance(v, Ref)
+        if (f.plate is not None and isinstance(v, Ref)
                 and not isinstance(_coverage(f, v), tuple)):
             # shared by every plate copy: a unit plate axis after the batch
             x = tree_map(lambda a: a.unsqueeze(1), x)
@@ -271,7 +268,11 @@ class PlainGroup:
         msgs = []
         length = self.var.length
         for f, iface, rule in self.adjacency:
-            q = build_q(f, state, data, exclude=iface,
+            # a rule that reads its own marginal (GCV's message to z) sees
+            # it once this group has one (initialization or a sweep)
+            needs_self = (getattr(get_node(f.fform), "needs_self_marginal",
+                                  False) and self.var.name in state)
+            q = build_q(f, state, data, exclude=None if needs_self else iface,
                         chain_cross=chain_cross, ctx=ctx)
             cavity = f.fform in CAVITY_STORE_NODES
             if cavity:
@@ -296,28 +297,15 @@ class PlainGroup:
         return q if raw_product else self.finalize(q)
 
 
-def _place(total: int, lo: int, hi: int, x: torch.Tensor,
-           event: tuple) -> torch.Tensor:
-    """Embed a message batch covering slots [lo, hi) into ``total`` slots
-    (zeros elsewhere) without in-place writes, so ``torch.func.jvp`` can
-    differentiate through it."""
-    x = x.expand((hi - lo,) + event)
-    parts = []
-    if lo > 0:
-        parts.append(x.new_zeros((lo,) + event))
-    parts.append(x)
-    if hi < total:
-        parts.append(x.new_zeros((total - hi,) + event))
-    return torch.cat(parts) if len(parts) > 1 else x
-
-
 class GaussianChainBlock:
     """Gaussian chain: prior factor at slot 0, lag-1 linear-Gaussian
     transition over a plate, Gaussian evidence factors attached to slots.
     ``update`` solves the chain exactly over the whole batch by Kalman
     smoothing (``ops/kalman.py``): the associative-scan smoother when
     ``use_parallel`` and the chain has 48 slots or more, the sequential one
-    below that."""
+    below that.  The methods that assemble its parameters take the batch's
+    ``BatchContext``; without one they evaluate a batch of one on the CPU
+    (``cpu_context``), as the batched program's plan-time probes do."""
 
     def __init__(self, var, dim: int, scalar: bool, prior: Factor,
                  transition: Factor, evidence: list,
@@ -337,6 +325,7 @@ class GaussianChainBlock:
         return x[..., None, None] if self.scalar else x
 
     def _prior_moments(self, state, data, ctx=None):
+        ctx = ctx or cpu_context()
         q = build_q(self.prior, state, data, exclude="out", ctx=ctx)
         msg = get_message_rule(self.prior.fform, "out")(q)
         if self.scalar:
@@ -356,21 +345,26 @@ class GaussianChainBlock:
                 d, dtype=p0.dtype, device=p0.device))
         return m0, p0
 
+    def _steps(self, a, b, q, length):
+        """A, b, Q broadcast over the T-1 transitions: (..., T-1, d, d) and
+        (..., T-1, d), expanded views of the one-step values."""
+        tm1 = length - 1
+        steps = lambda x, ev: x.unsqueeze(-ev - 1).expand(
+            x.shape[:-ev] + (tm1,) + x.shape[-ev:])
+        return steps(a, 2), steps(b, 1), steps(q, 2)
+
     def _transition_params(self, state, data, length, ctx=None):
         """A, b, Q of the T-1 transitions, (..., T-1, d, d) and (..., T-1, d):
-        no leading axes when they are constants, the batch's under ``ctx``
-        when the noise is a random variable's marginal."""
+        no leading axes when they are constants, the batch's when the noise
+        is a random variable's marginal."""
+        ctx = ctx or cpu_context()
         f = self.transition
-        dev = _device_of(data) if ctx is None else ctx.device
 
         def const(name, default):
             v = f.interfaces.get(name)
             if not isinstance(v, Const):
-                return torch.as_tensor(default, device=dev)
-            if ctx is not None:
-                return ctx.const(v)
-            return torch.as_tensor(np.asarray(v.value, np.float32),
-                                   device=dev)
+                return torch.as_tensor(default, device=ctx.device)
+            return ctx.const(v)
 
         a = const("A", np.eye(self.dim, dtype=np.float32))
         if self.scalar and a.ndim == 0:
@@ -379,7 +373,7 @@ class GaussianChainBlock:
         if self.scalar and b.ndim == 0:
             b = b[None]
         if not self.scalar and b.ndim == 0:
-            b = torch.zeros((self.dim,), device=dev)
+            b = torch.zeros((self.dim,), device=ctx.device)
         if "cov" in f.interfaces or "var" in f.interfaces:
             noise = f.interfaces.get("cov", f.interfaces.get("var"))
             nq = resolve_iface(noise, f, state, data, ctx)
@@ -396,24 +390,30 @@ class GaussianChainBlock:
                 d = w.shape[-1]
                 w = w + 1e-4 * torch.eye(d, dtype=w.dtype, device=w.device)
             q_cov = pd_inverse(w)
-        tm1 = length - 1
-        steps = lambda x, ev: x.unsqueeze(-ev - 1).expand(
-            x.shape[:-ev] + (tm1,) + x.shape[-ev:])
-        return steps(a, 2), steps(b, 1), steps(q_cov, 2)
+        return self._steps(a, b, q_cov, length)
 
-    def _evidence_msg(self, f, iface, state, data, ctx=None):
+    def _evidence_msg(self, f, iface, state, data, ctx=None,
+                      chain_cross=None):
         """One evidence factor's Gaussian message to the chain as lifted
-        information-form tensors ``(mxi, mw, coverage)``."""
+        information-form tensors ``(mxi, mw, coverage)``.  A rule that
+        reads its own marginal (``needs_self_marginal``: GCV's message to
+        z) sees the chain's current marginal once it has one, and a chain
+        transition's pair statistics ride along (``chain_cross``).  With
+        ``meta={...: {"damping": lam}}`` the message is blended with the
+        previous sweep's in natural parameters, (1 - lam) new + lam old,
+        and stored in the state under ``_msg:<factor id>:<interface>``."""
+        ctx = ctx or cpu_context()
         rule = get_message_rule(f.fform, iface)
         node_cls = get_node(f.fform)
         needs_self = (getattr(node_cls, "needs_self_marginal", False)
                       and self.var.name in state)
         q = build_q(f, state, data, exclude=None if needs_self else iface,
-                    ctx=ctx)
+                    chain_cross=chain_cross, ctx=ctx)
         if in_cavity_cluster(node_cls, iface):
             # EP cavity: same-cluster random neighbours are divided by this
-            # factor's stored message (none on the static tier, where every
-            # other interface is a constant or data)
+            # factor's stored message (none: engine/compile.py refuses a
+            # cluster with another random interface outside
+            # CAVITY_STORE_NODES)
             for name, v in f.all_interfaces().items():
                 if name == iface or name not in q:
                     continue
@@ -423,10 +423,20 @@ class GaussianChainBlock:
                 if isinstance(v, Ref) and v.var.kind == "random" \
                         and key in state:
                     q[name] = nat_div(q[name], state[key])
-        if (f.meta or {}).get("damping"):
-            raise NotImplementedError(
-                "damped evidence messages are not ported yet.")
         msg = rule(q)
+        damping = (f.meta or {}).get("damping")
+        if damping:
+            key = f"_msg:{f.id}:{iface}"
+            stored = msg if f.plate is None else pad_plate(
+                msg, 0, f.plate.size, f.plate.size, batch_ndim=1)
+            # the first sweep keeps the raw rule message and stores it for
+            # the next sweep's blend, as the JAX package does
+            if key in state:
+                lam = float(damping)
+                stored = msg = from_natural(family_key(stored), tuple(
+                    (1.0 - lam) * a + lam * b for a, b in
+                    zip(to_natural(stored), to_natural(state[key]))))
+            state[key] = stored
         if self.scalar:
             m = as_weighted_mean_precision(msg)
             mxi, mw = self._lift_vec(m.xi), self._lift_mat(m.w)
@@ -436,35 +446,17 @@ class GaussianChainBlock:
         ref = f.out if iface == "out" else f.interfaces[iface]
         return mxi, mw, _coverage(f, ref)
 
-    def _evidence(self, state, data, length):
-        """Per-slot evidence information vectors xi (T, d) and precisions
-        W (T, d, d): the sum of every evidence factor's message."""
-        d = self.dim
-        dev = _device_of(data)
-        xi = torch.zeros((length, d), device=dev)
-        w = torch.zeros((length, d, d), device=dev)
-        for f, iface in self.evidence:
-            mxi, mw, cov = self._evidence_msg(f, iface, state, data)
-            if isinstance(cov, tuple):
-                lo, hi = cov
-            elif isinstance(cov, int):
-                lo, hi = cov, cov + 1
-                mxi, mw = mxi[None], mw[None]
-            else:
-                raise AssertionError("chain evidence must be indexed")
-            xi = xi + _place(length, lo, hi, mxi, (d,))
-            w = w + _place(length, lo, hi, mw, (d, d))
-        return xi, w
-
-    def _evidence_batch(self, state, data, ctx: BatchContext):
+    def _evidence_batch(self, state, data, ctx=None, chain_cross=None):
         """The batch's evidence xi (B, T, d) and W (B, T, d, d), masked
         where an observation is missing (zero natural parameters: no
         evidence)."""
+        ctx = ctx or cpu_context()
         d, length = self.dim, self.var.length
         xi = torch.zeros((ctx.batch, length, d), device=ctx.device)
         w = torch.zeros((ctx.batch, length, d, d), device=ctx.device)
         for f, iface in self.evidence:
-            mxi, mw, cov = self._evidence_msg(f, iface, state, data, ctx)
+            mxi, mw, cov = self._evidence_msg(f, iface, state, data, ctx,
+                                              chain_cross)
             mask = ctx.masks.get(f.id)
             if mask is not None:
                 mxi = mxi * mask.reshape(mask.shape + (1,))
@@ -493,7 +485,7 @@ class GaussianChainBlock:
         d, length = self.dim, self.var.length
         m0, p0 = self._prior_moments(state, data, ctx)
         a, b, q = self._transition_params(state, data, length, ctx)
-        xi, w = self._evidence_batch(state, data, ctx)
+        xi, w = self._evidence_batch(state, data, ctx, chain_cross)
         params = ChainParams(m0.expand(ctx.batch, d),
                              p0.expand(ctx.batch, d, d), a, b, q, xi, w)
         solver = (parallel_smoother if self.use_parallel and length >= 48
@@ -506,6 +498,61 @@ class GaussianChainBlock:
         # of the smoother's Cov(x_t, x_{t+1})
         return (MvNormalMeanCovariance(res.means, res.covs),
                 res.cross.transpose(-1, -2))
+
+
+class GCVChainBlock(GaussianChainBlock):
+    """A scalar Gaussian chain whose per-step transition variance is set by
+    a higher-level latent: Q_t = 1 / E[exp(-(kappa z_t + omega))] (the HGF's
+    x level; ``rules/gcv.py``), per chain and step, (B, T-1, 1, 1)."""
+
+    def _transition_params(self, state, data, length, ctx=None):
+        from ..rules.gcv import expected_precision
+
+        ctx = ctx or cpu_context()
+        f = self.transition
+        # only the volatility side: out and in are this chain
+        q = {name: resolve_iface(v, f, state, data, ctx)
+             for name, v in f.interfaces.items()
+             if name in ("z", "kappa", "omega")}
+        q_cov = (1.0 / expected_precision(q))[..., None, None]
+        eye = torch.eye(1, device=ctx.device)
+        a, b, _ = self._steps(eye, torch.zeros((1,), device=ctx.device),
+                              eye, length)
+        return a, b, q_cov
+
+
+class ARChainBlock(GaussianChainBlock):
+    """An order-k autoregressive chain: the companion transition built from
+    the current E[theta], the innovation variance from E[gamma]
+    (``rules/ar.py``), per chain, (B, T-1, k, k) views of (B, k, k).  The
+    diagonal JITTER keeps the embedded (singular) process noise invertible
+    for the smoother's algebra: Q = JITTER I + e_1 e_1^T / E[gamma]."""
+
+    JITTER = 1e-6
+
+    def _transition_params(self, state, data, length, ctx=None):
+        from ..rules.expectations import e_mean, e_precision
+
+        ctx = ctx or cpu_context()
+        f = self.transition
+        theta_q = resolve_iface(f.interfaces["theta"], f, state, data, ctx)
+        gamma_q = resolve_iface(f.interfaces["gamma"], f, state, data, ctx)
+        k = self.dim
+        th = e_mean(theta_q)
+        if isinstance(theta_q, ScalarGaussians) or th.ndim == 0:
+            th = th[..., None]    # a scalar coefficient (order 1)
+        lead = th.shape[:-1]
+        a = torch.zeros(lead + (k, k), device=ctx.device)
+        a[..., 0, :] = th
+        if k > 1:
+            idx = torch.arange(1, k, device=ctx.device)
+            a[..., idx, idx - 1] = 1.0
+        g = e_precision(gamma_q)
+        q_cov = self.JITTER * torch.eye(k, device=ctx.device).expand(
+            g.shape + (k, k)).clone()
+        q_cov[..., 0, 0] += 1.0 / g
+        b = torch.zeros((k,), device=ctx.device)
+        return self._steps(a, b, q_cov, length)
 
 
 class DiscreteChainBlock:

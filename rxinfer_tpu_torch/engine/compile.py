@@ -8,9 +8,10 @@ the single-dataset program of ``infer`` (``make_program`` / ``run`` /
 ``run_iterative``) and the batched program (engine/batched.py).
 
 Ported subset: ``contract_deltas``, ``normalize_transitions``,
-``detect_chains``, ``schedule_sweep`` and the parts of ``CompiledModel`` that
-models of Gaussian chains, discrete chains and plain conjugate groups need
-with ``constraints=None``: block construction with compile-time rule
+``detect_chains``, ``schedule_sweep``, ``attach_meta`` (``meta=``) and the
+parts of ``CompiledModel`` that models of Gaussian, AR, GCV and discrete
+chains and plain conjugate groups need with ``constraints=None``: block
+construction with compile-time rule
 resolution, ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
 (``_sweep_once``, batch-major under a ``BatchContext``: one dataset is a
 batch of one), the Bethe free energy after each sweep (``degrees``,
@@ -28,8 +29,8 @@ family the port has a natural-parameter view for (``gaussian``,
 ``dirichlet_collection``, ``gamma``, ``wishart``).  Not ported yet (they
 raise ``NotImplementedError``): plain groups of other families
 (``inverse_gamma``, ...), the plain-group branches listed in
-``engine/blocks.py``, AR/GCV chains, constraints, meta, tree-scheduled
-(auto-initialized) loopy models.
+``engine/blocks.py``, single-step GCV factors (``check_gcv_factors``),
+constraints, tree-scheduled (auto-initialized) loopy models.
 """
 
 from __future__ import annotations
@@ -53,9 +54,11 @@ from .bethe import (
 )
 from .blocks import (
     CAVITY_STORE_NODES,
+    ARChainBlock,
     BatchContext,
     DiscreteChainBlock,
     GaussianChainBlock,
+    GCVChainBlock,
     PlainGroup,
     _coverage,
     build_q,
@@ -164,6 +167,58 @@ def normalize_transitions(graph: ModelGraph, infos) -> None:
                            else np.float32(0.0)),
                 noise_name: noise,
             }
+
+
+def attach_meta(graph: ModelGraph, meta: Optional[dict]) -> None:
+    """The ``meta=`` argument (the reference's ``@meta``): a dict keyed by
+    node type, e.g. ``{"GCV": {"damping": 0.8}}``, or by ``(fform, (names,
+    ...))`` for the nodes of that type whose interfaces are bound to
+    variables of those names, the reference's per-neighbourhood form
+    ``GCV(x, z) -> ...``.  Each matching factor's ``meta`` gets the entries
+    (a value that is not a dict as ``{"meta": value}``)."""
+    if not meta:
+        return
+
+    def _neighbor_names(f):
+        return {v.var.name.split("/")[-1] for v in f.all_interfaces().values()
+                if isinstance(v, Ref)}
+
+    for f in graph.factors:
+        extra = meta.get(f.fform)
+        for key, val in meta.items():
+            if (isinstance(key, tuple) and key[0] == f.fform
+                    and set(key[1]) <= _neighbor_names(f)):
+                extra = val
+        if extra is not None:
+            merged = dict(f.meta or {})
+            merged.update(extra if isinstance(extra, dict)
+                          else {"meta": extra})
+            f.meta = merged
+
+
+def check_gcv_factors(graph: ModelGraph, chains: dict) -> None:
+    """Every GCV factor must be the transition of a GCV chain whose
+    volatility z is indexed a step.  A GCV factor that is not a chain's
+    transition is a single-step GCV, whose (out, in) pair the JAX package
+    keeps from stored cavity messages and the structured HGF constraints,
+    which are not ported; a chain transition with one z for every step is
+    not a model the JAX package's GCVChainBlock can assemble."""
+    transitions = {id(spec.transition): spec for spec in chains.values()}
+    for f in graph.factors:
+        if f.fform != "GCV":
+            continue
+        if id(f) not in transitions:
+            raise NotImplementedError(
+                f"factor GCV ({f.id}) is a single-step GCV (not the "
+                "transition of a GCV chain); its cavity store and the "
+                "structured constraints are not ported to the PyTorch "
+                "package yet (ROADMAP A6c).")
+        z = f.interfaces.get("z")
+        if not (isinstance(z, Ref) and isinstance(z.idx, SymIndex)):
+            raise NotImplementedError(
+                f"GCV chain {f.out.var.name!r}: its volatility z must be "
+                "indexed a step (z[t]); a volatility shared by the steps is "
+                "not a model the JAX package's GCV chain block assembles.")
 
 
 @dataclasses.dataclass
@@ -319,10 +374,8 @@ class CompiledModel:
         if constraints is not None:
             raise NotImplementedError(
                 "constraints are not ported to the PyTorch package yet.")
-        if meta:
-            raise NotImplementedError(
-                "meta is not ported to the PyTorch package yet.")
         self.graph = graph
+        attach_meta(graph, meta)
         contract_deltas(graph)
         for f in graph.factors:
             if (len(getattr(f, "plates", ())) >= 2
@@ -336,6 +389,7 @@ class CompiledModel:
         self.infos = resolve_groups(graph)
         normalize_transitions(graph, self.infos)
         self.chains = detect_chains(graph, self.infos)
+        check_gcv_factors(graph, self.chains)
 
         from ..graph.constraints import InitMessage
 
@@ -399,9 +453,11 @@ class CompiledModel:
             shape = self.infos[name].event_shape
             if spec is None:
                 self.blocks.append(("plain", self._plain_group(varmap[name])))
-            elif spec.kind == "gaussian":
+            elif spec.kind in ("gaussian", "ar", "gcv"):
                 scalar = shape == ()
-                self.blocks.append(("chain", GaussianChainBlock(
+                cls = {"ar": ARChainBlock, "gcv": GCVChainBlock,
+                       "gaussian": GaussianChainBlock}[spec.kind]
+                self.blocks.append(("chain", cls(
                     varmap[name], 1 if scalar else shape[0], scalar,
                     spec.prior, spec.transition, spec.evidence,
                     self.use_parallel)))
@@ -414,12 +470,6 @@ class CompiledModel:
                 self.blocks.append(("chain", DiscreteChainBlock(
                     varmap[name], shape[0], spec.prior, spec.transition,
                     spec.evidence, self.use_parallel)))
-            else:
-                raise NotImplementedError(
-                    f"chain {name!r} is a {spec.kind} chain: only Gaussian "
-                    "and discrete chains are ported to the PyTorch package "
-                    "yet."
-                )
         # free-energy plan: the degrees now (static), the factor evaluators
         # when free_energy=True first asks for them
         self._chain_factor_ids = {id(spec.transition)
@@ -504,10 +554,6 @@ class CompiledModel:
                 f"{where}: required-message dependencies are not ported "
                 "yet.")
         node_cls = get_node(f.fform)
-        if getattr(node_cls, "needs_self_marginal", False):
-            raise NotImplementedError(
-                f"{where}: rules that read their own marginal are not "
-                "ported yet.")
         if in_cavity_cluster(node_cls, iface) \
                 and f.fform not in CAVITY_STORE_NODES:
             for name, v in f.all_interfaces().items():

@@ -11,8 +11,11 @@ group, and the Gaussian mixture: ``Dirichlet`` (a random ``Categorical``
 ``p`` is a ``dirichlet`` group) and ``NormalMixture`` / ``MvNormalMixture``
 (``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
 wishart), ``GammaMixture`` (``switch`` categorical, ``shape{i}`` and
-``rate{i}`` gamma) and the generic ``Mixture`` (``switch`` categorical, the
-out and the components of the family their other factors give); variables
+``rate{i}`` gamma), the generic ``Mixture`` (``switch`` categorical, the
+out and the components of the family their other factors give), ``AR``
+(out, ``in`` and ``theta`` vectors of the order, ``gamma`` gamma), ``GCV``
+(scalar out, ``in`` and ``z``) and ``GaussianDot*`` (scalar out, ``in`` a
+vector as long as ``A``, ``prec`` gamma); variables
 reached only through nodes that are not ported yet
 stay unresolved and raise.
 """
@@ -43,6 +46,10 @@ _OUT_FAMILY = {
     "NormalMixture": "gaussian",
     "MvNormalMixture": "mv_gaussian",
     "GammaMixture": "gamma",
+    "GaussianDotCovariance": "gaussian",
+    "GaussianDotPrecision": "gaussian",
+    "AR": "mv_gaussian",
+    "GCV": "gaussian",
 }
 
 _INPUT_FAMILY = {
@@ -67,6 +74,14 @@ _INPUT_FAMILY = {
     ("MvNormalMixture", "switch"): "categorical",
     ("GammaMixture", "switch"): "categorical",
     ("Mixture", "switch"): "categorical",
+    ("GaussianDotCovariance", "in"): "mv_gaussian",
+    ("GaussianDotPrecision", "in"): "mv_gaussian",
+    ("GaussianDotPrecision", "prec"): "gamma",
+    ("AR", "in"): "mv_gaussian",
+    ("AR", "theta"): "mv_gaussian",
+    ("AR", "gamma"): "gamma",
+    ("GCV", "in"): "gaussian",
+    ("GCV", "z"): "gaussian",
 }
 
 # a mixture's component interfaces carry their index (mean0, prec1, ...)
@@ -122,8 +137,12 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
               "LinearGaussianCovariance", "LinearGaussianPrecision",
               "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture",
-              "GammaMixture"):
+              "GammaMixture", "GaussianDotCovariance",
+              "GaussianDotPrecision", "GCV"):
         return ()
+    if ff == "AR":
+        k = (f.meta or {}).get("order")
+        return (int(k),) if k else None
     if ff == "MvNormalMixture":
         for key in f.interfaces:
             if key.startswith("mean"):
@@ -185,6 +204,16 @@ def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
         return out_shape
     if ff in ("NormalMeanVariance", "NormalMeanPrecision") and iface == "mean":
         return ()
+    if ff == "AR" and iface in ("in", "theta"):
+        k = (f.meta or {}).get("order")
+        return (int(k),) if k else None
+    if ff in ("GaussianDotCovariance", "GaussianDotPrecision") \
+            and iface == "in":
+        a = f.interfaces.get("A")
+        if isinstance(a, Const):
+            return (_const_shape(a)[-1],)
+        if isinstance(a, Ref) and a.var.kind == "data":
+            return (tuple(a.var.event_shape)[-1],)
     if ff == "MvNormalMixture":
         if iface.startswith("mean"):
             return out_shape

@@ -1,15 +1,18 @@
 """Python ``@model`` DSL (counterpart of ``rxinfer_tpu/graph/dsl.py``).
 
 Ported subset, what the linear-Gaussian state-space model and the HMM
-need, and the conjugate models of the Beta-Bernoulli and Gaussian families:
-``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
-keyword aliases, data assignment ``y[t] = ...`` and ``y.observe(...)`` (a
-whole data variable, as a streaming tick observes), ``numpy_array @ x[t]``
-(or ``a * x[t] + b``) folding into a LinearGaussian factor,
-``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``
-(alias ``DiscreteTransition``), ``Gamma`` (shape/rate), ``Wishart``,
-``Beta``, ``Bernoulli`` and ``NormalMixture`` (the multivariate mixture
-when the component means are vectors).  Model
+need, the conjugate models of the Beta-Bernoulli and Gaussian families, and
+the autoregressive, HGF and regression models: ``@model``, ``latent``,
+``plate``, ``Normal``/``MvNormal`` with their keyword aliases, data
+assignment ``y[t] = ...`` and ``y.observe(...)`` (a whole data variable, as
+a streaming tick observes), ``numpy_array @ x[t]`` (or ``a * x[t] + b``)
+folding into a LinearGaussian factor, ``dot(a, x)`` with a constant vector
+or a data slot ``a`` folding into a GaussianDot factor, ``Categorical``,
+``Dirichlet``, ``DirichletCollection``, ``Transition`` (alias
+``DiscreteTransition``), ``Gamma`` (shape/rate), ``Wishart``, ``Beta``,
+``Bernoulli``, ``NormalMixture`` (the multivariate mixture when the
+component means are vectors), ``GammaMixture``, ``Mixture``, ``AR`` (with
+``ARMeta`` / ``ARsafe`` / ``ARunsafe``) and ``GCV``.  Model
 constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
 to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
 distributions of torch tensors, and such a distribution object used inside
@@ -17,9 +20,11 @@ a trace becomes a prior factor of its own (one per object, as the JAX
 package's ``_lift_dist`` does).
 
 Not ported yet (they raise ``NotImplementedError``): sums of random variables
-(GaussianSum / LinComb nodes), dot products, the scale-precision family,
-submodel scopes, ``where`` blocks, grid latents, folded data arithmetic and
-the rest of the node vocabulary.
+(GaussianSum / LinComb nodes), the scale-precision family, submodel scopes,
+``where`` blocks, grid latents and grid data, folded data arithmetic,
+``Gamma(shape=, scale=)`` and the rest of the node vocabulary (Delta,
+Probit, SoftDot, ...).  ``dot`` with two random arguments raises
+``TypeError``, as in the JAX package (it needs SoftDot).
 """
 
 from __future__ import annotations
@@ -126,6 +131,24 @@ class LinearExpr:
         return LinearExpr(a, self.x, b)
 
     __rmul__ = __mul__
+
+
+def dot(a, x: RVRef) -> LinearExpr:
+    """Inner product of a known vector with a random vector (the
+    reference's ``dot``).  ``a`` is a constant vector or a slot of a data
+    array, e.g. regression features: ``y[i] = Normal(mean=dot(phi[i],
+    theta), var=1.0)``."""
+    if isinstance(a, RVRef):
+        if a.ref.var.kind != "data":
+            raise TypeError(
+                "dot() with two random arguments needs the SoftDot node "
+                "(reference SoftDot); pass features as data or constants."
+            )
+        return LinearExpr(a.ref, x, None)
+    a = np.asarray(a)
+    if a.ndim != 1:
+        raise TypeError("dot() expects a vector first argument.")
+    return LinearExpr(a, x, None)
 
 
 # -- variable containers exposed to the model body --------------------------------
@@ -463,21 +486,25 @@ def _gaussian(kind_scalar: str, kwargs: dict) -> RVRef:
 
     if isinstance(mean, LinearExpr):
         a_val = mean.a
-        if (not mv) and a_val is not None and np.ndim(a_val) == 1:
-            raise NotImplementedError(
-                "dot-product means (GaussianDot nodes) are not ported to the "
-                "PyTorch package yet.")
+        # a dot-product mean (scalar out, vector random in): GaussianDot
+        is_dot = (not mv) and (isinstance(a_val, Ref) or (
+            a_val is not None and np.ndim(a_val) == 1))
         interfaces = {
             "in": mean.x.ref,
-            "A": Const(np.asarray(a_val)) if a_val is not None
+            "A": a_val if isinstance(a_val, Ref)
+            else Const(np.asarray(a_val)) if a_val is not None
             else Const(np.asarray(1.0)),
             "b": Const(np.asarray(mean.b)) if mean.b is not None
             else Const(np.asarray(0.0)),
             noise_name: _as_interface(noise_val),
         }
-        fform = ("Mv" if mv else "") + "LinearGaussian" + (
-            "Covariance" if noise_name in ("cov", "var") else "Precision"
-        )
+        if is_dot:
+            fform = "GaussianDot" + (
+                "Covariance" if noise_name == "var" else "Precision")
+        else:
+            fform = ("Mv" if mv else "") + "LinearGaussian" + (
+                "Covariance" if noise_name in ("cov", "var") else "Precision"
+            )
         return _builder().emit(fform, interfaces)
 
     return _builder().emit(base, {"mean": _as_interface(mean),
@@ -607,6 +634,53 @@ def Mixture(switch, components) -> RVRef:
         interfaces[f"comp{i}"] = _as_interface(c)
     return _builder().emit("Mixture", interfaces,
                            meta={"K": len(components)})
+
+
+class ARsafe:
+    """Stability variant marker (the reference ARMeta's ARsafe).  The AR
+    chain block is solved by an exact Kalman smoother, which is always the
+    safe path: ARunsafe is accepted and ignored."""
+
+
+class ARunsafe:
+    pass
+
+
+class ARMeta:
+    """The reference's ``ARMeta(Multivariate|Univariate, order, ARsafe())``;
+    the variate kind follows from the order and the latents' shape."""
+
+    def __init__(self, variate_or_order=None, order=None, stability=None):
+        if order is None and isinstance(variate_or_order, int):
+            order = variate_or_order
+        if not isinstance(order, int):
+            raise TypeError("ARMeta requires an integer order.")
+        self.order = order
+        self.stability = stability if stability is not None else ARsafe()
+
+
+def AR(prev, theta, gamma, order: int = None, meta: "ARMeta" = None) -> RVRef:
+    """Autoregressive node (the reference's AR + ARMeta + ARsafe)."""
+    if meta is not None:
+        order = meta.order
+    if order is None:
+        raise TypeError("AR requires order= (or meta=ARMeta(order)).")
+    return _builder().emit(
+        "AR",
+        {"in": _as_interface(prev), "theta": _as_interface(theta),
+         "gamma": _as_interface(gamma)},
+        meta={"order": order},
+    )
+
+
+def GCV(x_prev, z, kappa=1.0, omega=0.0) -> RVRef:
+    """Gaussian controlled-variance node, out ~ N(x_prev, exp(kappa z +
+    omega)) (the HGF's building block; the reference's GCV)."""
+    return _builder().emit(
+        "GCV",
+        {"in": _as_interface(x_prev), "z": _as_interface(z),
+         "kappa": _as_interface(kappa), "omega": _as_interface(omega)},
+    )
 
 
 # -- @model decorator and generator -------------------------------------------------

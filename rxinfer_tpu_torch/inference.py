@@ -29,9 +29,14 @@ energy of a generic ``Mixture`` model composed from exact mixture evidences
 pool plain groups over the batch on one device (``engine/batched.py``),
 chunked beyond the device budget.
 
+``meta=`` (per node type, or per neighbourhood; ``engine/compile.py``
+``attach_meta``) on ``infer``, ``batched_program`` and ``infer_batched``;
+the program caches tell meta values apart.
+
 Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): ``constraints``, ``meta``, a ``session`` other than the default
-(A6), ``mesh=`` and ``psum_axis`` (A7b).
+item): ``constraints`` and a ``session`` other than the default (A6),
+``mesh=`` and ``psum_axis`` (A7b), and the streaming engine's ``meta=``
+(A4c).
 """
 
 from __future__ import annotations
@@ -209,13 +214,13 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), iterations, free_energy, keep_each,
            all_finite, tuple(sorted(shared)), str(device))
-    # the bound hyperparameters are traced into the program as constants,
-    # so a hit needs their values, not only their names; constraints and
-    # meta are not ported (CompiledModel raises on them), so every cached
-    # program was built without them
-    values = (dict(model.bound), init_dists, options)
+    # the bound hyperparameters and the meta are traced into the program,
+    # so a hit needs their values, not only their names; constraints are
+    # not ported (CompiledModel raises on them), so every cached program
+    # was built without them
+    values = (dict(model.bound), init_dists, options, meta)
     cached = _PROGRAMS.get(sig, values)
-    if cached is not None and constraints is None and not meta:
+    if cached is not None and constraints is None:
         return cached
     graph = model.trace(first)
     compiled = CompiledModel(graph, init=init_dists, options=options,
@@ -229,9 +234,7 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     return compiled, prog
 
 
-_UNPORTED_INFER = (
-    ("mesh", "A7b"), ("constraints", "A6"), ("meta", "A6"),
-)
+_UNPORTED_INFER = (("mesh", "A7b"), ("constraints", "A6"))
 
 
 def _has_missing(v) -> bool:
@@ -351,7 +354,7 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
 def _infer(warn_opt: bool, model, data, initialization, options, iterations,
            free_energy, free_energy_diagnostics, predictvars, returnvars,
            showprogress, callbacks, benchmark, trace, device, annotations,
-           postprocess, **unported):
+           postprocess, meta, **unported):
     for name, item in _UNPORTED_INFER:
         val = unported[name]
         if val is not None and val is not False and not (
@@ -418,7 +421,7 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
     init_dists = dict(initialization or {})
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), str(device))
-    values = (dict(model.bound), init_dists, options)
+    values = (dict(model.bound), init_dists, options, meta)
     hit = _COMPILED.get(sig, values)
     if hit is not None:
         compiled = hit[0]
@@ -426,7 +429,8 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
         registry.invoke("before_model_creation")
         graph = model.trace({k: np.asarray(v.cpu() if isinstance(
             v, torch.Tensor) else v) for k, v in data.items()})
-        compiled = CompiledModel(graph, init=init_dists, options=options)
+        compiled = CompiledModel(graph, init=init_dists, options=options,
+                                 meta=meta)
         _COMPILED.put(sig, values, compiled, None)
         registry.invoke("after_model_creation")
 

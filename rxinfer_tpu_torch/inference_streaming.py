@@ -29,8 +29,8 @@ every tick, ``run_offline`` single and batched, ``start`` / ``stop``,
 ``is_errored`` and the ``on_error`` event, ``uselock``) and
 ``streaming_infer`` with ``benchmark=`` / ``trace=``.  Not ported (they
 raise ``NotImplementedError`` naming their ROADMAP item): ``mesh=``
-(A7b), ``constraints=`` / ``meta=`` and a ``session=`` other than the
-default (A6), ``annotations=`` / ``postprocess=`` (A4c).  The default session
+(A7b), ``constraints=`` and a ``session=`` other than the default (A6),
+``meta=``, ``annotations=`` / ``postprocess=`` (A4c).  The default session
 logs nothing.
 """
 
@@ -179,7 +179,7 @@ class RxInferenceEngine:
 
         for what, val, item in (("mesh=", mesh, "A7b"),
                                 ("constraints=", constraints, "A6"),
-                                ("meta=", meta, "A6"),
+                                ("meta=", meta, "A4c"),
                                 ("postprocess=", postprocess, "A4c"),
                                 ("annotations=", annotations, "A4c")):
             if val is not None and not (isinstance(val, dict) and not val):

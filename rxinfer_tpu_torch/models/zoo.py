@@ -1,7 +1,9 @@
 """Prebuilt models (counterpart of ``rxinfer_tpu/models/zoo.py``; the
 Beta-Bernoulli model, the linear-Gaussian state-space model, the one-step
 Kalman filter of the streaming engine, the Gaussian with unknown mean and
-precision, the Gaussian mixture and the hidden Markov model are ported)."""
+precision, the Gaussian mixture, the hidden Markov model, the hierarchical
+Gaussian filter, the latent autoregressive model and the linear regression
+are ported)."""
 
 from __future__ import annotations
 
@@ -125,3 +127,60 @@ def hmm(k: int, m: int):
         return {"A": A, "B": B, "s": s}
 
     return hmm
+
+
+def hgf(kappa: float = 1.0, omega: float = -2.0, z_var: float = 0.01,
+        obs_var: float = 0.01):
+    """Two-level hierarchical Gaussian filter."""
+
+    @rx.model
+    def hgf(y):
+        T = len(y)
+        z = rx.latent(T, name="z")
+        x = rx.latent(T, name="x")
+        z[0] = rx.Normal(mean=0.0, var=1.0)
+        x[0] = rx.Normal(mean=0.0, var=1.0)
+        for t in rx.plate(1, T):
+            z[t] = rx.Normal(mean=z[t - 1], var=z_var)
+            x[t] = rx.GCV(x[t - 1], z[t], kappa=kappa, omega=omega)
+        for t in rx.plate(T):
+            y[t] = rx.Normal(mean=x[t], var=obs_var)
+        return {"z": z, "x": x}
+
+    return hgf
+
+
+def latent_ar(order: int, obs_var: float = 0.09):
+    """Latent autoregressive model with unknown coefficients/precision."""
+    e1 = np.zeros(order, dtype=np.float32)
+    e1[0] = 1.0
+
+    @rx.model
+    def latent_ar(y):
+        T = len(y)
+        theta = rx.MvNormal(mean=np.zeros(order, np.float32),
+                            cov=np.float32(np.eye(order)))
+        gamma = rx.Gamma(shape=1.0, rate=1.0)
+        s = rx.latent(T, name="s")
+        s[0] = rx.MvNormal(mean=np.zeros(order, np.float32),
+                           cov=10.0 * np.float32(np.eye(order)))
+        for t in rx.plate(1, T):
+            s[t] = rx.AR(s[t - 1], theta, gamma, order=order)
+        for t in rx.plate(T):
+            y[t] = rx.Normal(mean=rx.dot(e1, s[t]), var=obs_var)
+        return {"theta": theta, "gamma": gamma, "s": s}
+
+    return latent_ar
+
+
+def linear_regression(d: int, noise_var: float = 1.0,
+                      prior_var: float = 100.0):
+    @rx.model
+    def linreg(phi, y):
+        theta = rx.MvNormal(mean=np.zeros(d, np.float32),
+                            cov=prior_var * np.eye(d, dtype=np.float32))
+        for i in rx.plate(len(y)):
+            y[i] = rx.Normal(mean=rx.dot(phi[i], theta), var=noise_var)
+        return {"theta": theta}
+
+    return linreg

@@ -62,11 +62,36 @@ class SmoothResult(NamedTuple):
 
 
 def _symmetrize(m):
+    if m.shape[-2:] == (1, 1):
+        return m        # 0.5 (m + m) is m, bit for bit
     return 0.5 * (m + m.transpose(-1, -2))
 
 
+def _eye(m):
+    """The identity of ``m``'s trailing dims (the number 1 for 1 x 1: the
+    same sums without a tensor made a call)."""
+    d = m.shape[-1]
+    return 1.0 if d == 1 else torch.eye(d, dtype=m.dtype, device=m.device)
+
+
 def _mv(m, v):
+    if m.shape[-2:] == (1, 1):
+        return m[..., 0] * v
     return torch.einsum("...ij,...j->...i", m, v)
+
+
+def _mm(*ms):
+    """The product m_0 m_1 ... left to right.  Of 1 x 1 operands (a scalar
+    chain) each product is one multiplication, taken elementwise: the same
+    bits as the matrix product, without a batched gemm launch per product
+    (and ``_mv`` likewise)."""
+    out = ms[0]
+    for m in ms[1:]:
+        if out.shape[-2:] == (1, 1) and m.shape[-2:] == (1, 1):
+            out = out * m
+        else:
+            out = out @ m
+    return out
 
 
 def _t(m):
@@ -103,15 +128,14 @@ def filter_step_element(F, b, Q, xi, W):
     """Element of one step t >= 1 from the transition (F, b, Q) into the step
     and the step's evidence (xi, W) in information form.  Q and W are
     symmetric, so (I + W Q) = (I + Q W)^T and one inverse serves both."""
-    eye = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
-    minv = small_inv(eye + Q @ W)                  # (I + Q W)^-1
+    minv = small_inv(_eye(F) + _mm(Q, W))          # (I + Q W)^-1
     minv_t = _t(minv)                              # (I + W Q)^-1
-    a = minv @ F
+    a = _mm(minv, F)
     belem = _mv(minv, b + _mv(Q, xi))
-    c = minv @ Q
+    c = _mm(minv, Q)
     f_t = _t(F)
     eta = _mv(f_t, _mv(minv_t, xi - _mv(W, b)))
-    j = f_t @ (minv_t @ W) @ F
+    j = _mm(f_t, _mm(minv_t, W), F)
     return a, belem, _symmetrize(c), eta, _symmetrize(j)
 
 
@@ -150,17 +174,16 @@ def filter_compose(elem_i, elem_j):
     general inverse covers all five solves."""
     a_i, b_i, c_i, eta_i, j_i = elem_i
     a_j, b_j, c_j, eta_j, j_j = elem_j
-    eye = torch.eye(a_i.shape[-1], dtype=a_i.dtype, device=a_i.device)
-    minv = small_inv(eye + c_i @ j_j)              # (I + C_i J_j)^-1
+    minv = small_inv(_eye(a_i) + _mm(c_i, j_j))    # (I + C_i J_j)^-1
     minv_t = _t(minv)                              # (I + J_j C_i)^-1
 
-    a = a_j @ (minv @ a_i)
+    a = _mm(a_j, _mm(minv, a_i))
     b = _mv(a_j, _mv(minv, b_i + _mv(c_i, eta_j))) + b_j
-    c = a_j @ (minv @ c_i) @ _t(a_j) + c_j
+    c = _mm(a_j, _mm(minv, c_i), _t(a_j)) + c_j
 
     a_i_t = _t(a_i)
     eta = _mv(a_i_t, _mv(minv_t, eta_j - _mv(j_j, b_i))) + eta_i
-    j = a_i_t @ (minv_t @ j_j) @ a_i + j_i
+    j = _mm(a_i_t, _mm(minv_t, j_j), a_i) + j_i
     return a, b, _symmetrize(c), eta, _symmetrize(j)
 
 
@@ -177,10 +200,10 @@ def filter_apply(m, P, elem):
 def smoother_step_element(mf, Pf, F, b, Q):
     """RTS element (E, g, L) of a step t < T-1 from its filtered moments and
     the transition out of it: x_t | x_{t+1}, y_{1:t} ~ N(E x_{t+1} + g, L)."""
-    p_pred = _symmetrize(F @ Pf @ _t(F) + Q)
-    e = _t(small_inv(p_pred) @ (F @ Pf))           # gain P_f F^T P_pred^-1
+    p_pred = _symmetrize(_mm(F, Pf, _t(F)) + Q)
+    e = _t(_mm(small_inv(p_pred), _mm(F, Pf)))     # gain P_f F^T P_pred^-1
     g = mf - _mv(e, _mv(F, mf) + b)
-    l = _symmetrize(Pf - e @ p_pred @ _t(e))
+    l = _symmetrize(Pf - _mm(e, p_pred, _t(e)))
     return e, g, l
 
 
@@ -208,9 +231,9 @@ def smooth_compose(elem_later, elem_earlier):
     result of the later one.  No inverse."""
     e_i, g_i, l_i = elem_later
     e_j, g_j, l_j = elem_earlier
-    e = e_j @ e_i
+    e = _mm(e_j, e_i)
     g = _mv(e_j, g_i) + g_j
-    l = e_j @ l_i @ _t(e_j) + l_j
+    l = _mm(e_j, l_i, _t(e_j)) + l_j
     return e, g, _symmetrize(l)
 
 
@@ -218,7 +241,7 @@ def smooth_apply(m, P, elem):
     """The smoothed (m, P) at an element's first step from the smoothed
     (m, P) just after its last step."""
     e, g, l = elem
-    return _mv(e, m) + g, _symmetrize(e @ P @ _t(e) + l)
+    return _mv(e, m) + g, _symmetrize(_mm(e, P, _t(e)) + l)
 
 
 # -- the single-chain solvers ---------------------------------------------------
@@ -241,7 +264,7 @@ def parallel_smoother(p: ChainParams) -> SmoothResult:
     e_step = elems[0][..., :-1, :, :]
     _, g, l = associative_scan(smooth_compose, elems, dim=elems[1].ndim - 2,
                                reverse=True)
-    return SmoothResult(g, l, fm, fc, e_step @ l[..., 1:, :, :])
+    return SmoothResult(g, l, fm, fc, _mm(e_step, l[..., 1:, :, :]))
 
 
 def _first_filtered(p: ChainParams):
@@ -259,7 +282,7 @@ def sequential_filter(p: ChainParams):
     for t in range(p.xi.shape[-2] - 1):
         f, b, q = p.F[..., t, :, :], p.b[..., t, :], p.Q[..., t, :, :]
         m_pred = _mv(f, m) + b
-        p_pred = _symmetrize(f @ c @ _t(f) + q)
+        p_pred = _symmetrize(_mm(f, c, _t(f)) + q)
         c = _symmetrize(pd_inverse(pd_inverse(p_pred) + p.W[..., t + 1, :, :]))
         m = _mv(c, small_solve(p_pred, m_pred, matrix=False)
                 + p.xi[..., t + 1, :])
@@ -279,11 +302,11 @@ def sequential_smoother(p: ChainParams) -> SmoothResult:
     for t in range(t_len - 2, -1, -1):
         mf, cf = fm[..., t, :], fc[..., t, :, :]
         f, b, q = p.F[..., t, :, :], p.b[..., t, :], p.Q[..., t, :, :]
-        p_pred = _symmetrize(f @ cf @ _t(f) + q)
-        e = _t(small_solve(p_pred, f @ cf, matrix=True))
-        cross.append(e @ c)
+        p_pred = _symmetrize(_mm(f, cf, _t(f)) + q)
+        e = _t(small_solve(p_pred, _mm(f, cf), matrix=True))
+        cross.append(_mm(e, c))
         m = mf + _mv(e, m - (_mv(f, mf) + b))
-        c = _symmetrize(cf + e @ (c - p_pred) @ _t(e))
+        c = _symmetrize(cf + _mm(e, c - p_pred, _t(e)))
         means.append(m)
         covs.append(c)
     vec = lambda xs: _time_cat([_one_step(x, False) for x in xs[::-1]], False)

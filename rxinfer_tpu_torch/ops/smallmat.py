@@ -92,6 +92,9 @@ def small_inv(m):
     d = m.shape[-1]
     if d > 16:
         return torch.linalg.inv(m)
+    if d == 1:
+        # (1 / (m / |m|)) / |m| is 1 / m bit for bit
+        return 1.0 / m
     scale = _diag_scale(m)[..., None, None]
     return _inv_core(m / scale) / scale
 
@@ -154,6 +157,9 @@ def small_solve(m, x, *, matrix: bool):
             return torch.linalg.solve(m, x)
         return torch.linalg.solve(m, x[..., None])[..., 0]
     inv = small_inv(m)
+    if m.shape[-1] == 1:
+        # one product each, elementwise (the same bits as the matrix one)
+        return inv * x if matrix else inv[..., 0] * x
     if matrix:
         return inv @ x
     return torch.einsum("...ij,...j->...i", inv, x)

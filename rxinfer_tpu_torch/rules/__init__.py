@@ -1,4 +1,4 @@
 """Message rules of the PyTorch port; importing this package registers the
 ported nodes."""
 
-from . import nodes, special  # noqa: F401  (registers the ported node rules)
+from . import ar, gcv, nodes, special  # noqa: F401  (registers the node rules)

@@ -1,7 +1,7 @@
 """Sufficient-statistic expectations shared by the message rules
 (counterpart of ``rxinfer_tpu/rules/expectations.py``).
 
-Ported subset: ``e_mean``, ``e_var``, ``e_cov``, ``e_sq`` and
+Ported subset: ``e_mean``, ``e_var``, ``e_cov``, ``e_sq``, ``e_outer`` and
 ``e_precision`` over the Gaussian families, ``GammaShapeRate``, ``Wishart``
 (and its inverse-scale carrier) and PointMass, and the log-expectations the
 average energies read: ``e_log`` and ``e_mirrorlog`` (Beta, Gamma,
@@ -40,6 +40,12 @@ def e_sq(d: Distribution):
     """E[x^2] (scalar support)."""
     m = d.mean()
     return e_var(d) + m * m
+
+
+def e_outer(d: Distribution):
+    """E[x x^T] (vector support)."""
+    m = d.mean()
+    return e_cov(d) + m[..., None] * m[..., None, :]
 
 
 def e_precision(d: Distribution):

@@ -2,8 +2,9 @@
 
 Ported subset: the message rules of the nodes a linear-Gaussian chain is
 built from — ``NormalMeanVariance``/``NormalMeanPrecision``,
-``MvNormalMeanCovariance``/``MvNormalMeanPrecision`` and the scalar and
-multivariate LinearGaussian pairs (out = A in + b + noise), with the
+``MvNormalMeanCovariance``/``MvNormalMeanPrecision``, the scalar and
+multivariate LinearGaussian pairs (out = A in + b + noise) and the
+GaussianDot pair (scalar out = a^T in + b + noise), with the
 conjugate messages towards a random precision (``message_to_prec``: a
 ``GammaShapeRate`` for a scalar, a ``WishartInverseScale`` for a matrix) —
 the priors of such a precision (``GammaShapeRate`` and ``Wishart``, towards
@@ -381,6 +382,76 @@ class LinearGaussianCovarianceNode(_LinearGaussianScalarBase):
 
 @node("LinearGaussianPrecision")
 class LinearGaussianPrecisionNode(_LinearGaussianScalarBase):
+    interfaces = ("out", "in", "A", "b", "prec")
+
+    @classmethod
+    def message_to_prec(cls, q):
+        c2 = cls._c2(q)
+        return GammaShapeRate(torch.full_like(c2, 1.5), 0.5 * c2)
+
+
+# -- GaussianDot: scalar out = a^T in + b + noise, a known vector ------------------
+
+class _GaussianDotBase:
+    """Scalar out = a^T in + b + noise with a random vector in and a known
+    vector a (a constant, or a slot of a data array: regression features).
+    out and in form one cluster; the rules are message-form already."""
+
+    interfaces = ("out", "in", "A", "b", "var")
+    cavity_cluster = ("out", "in")
+
+    @staticmethod
+    def _noise_var(q):
+        if "var" in q:
+            return e_mean(q["var"])
+        return 1.0 / e_precision(q["prec"])
+
+    @classmethod
+    def message_to_out(cls, q):
+        a, b = q["A"].point, q["b"].point
+        m, v = e_mean(q["in"]), e_cov(q["in"])
+        mean = torch.einsum("...i,...i->...", a, m) + b
+        var = torch.einsum("...i,...ij,...j->...", a, v, a) \
+            + cls._noise_var(q)
+        return NormalMeanVariance(mean, var)
+
+    @classmethod
+    def message_to_in(cls, q):
+        a, b = q["A"].point, q["b"].point
+        s = cls._noise_var(q) + e_var(q["out"])
+        diff = e_mean(q["out"]) - b
+        xi = a * (diff / s)[..., None]
+        w = a[..., :, None] * a[..., None, :] / s[..., None, None]
+        return MvNormalWeightedMeanPrecision(xi, w)
+
+    @classmethod
+    def _c2(cls, q):
+        """E[(out - a^T in - b)^2] under independent q(out), q(in)."""
+        a, b = q["A"].point, q["b"].point
+        m, v = e_mean(q["in"]), e_cov(q["in"])
+        diff = e_mean(q["out"]) - torch.einsum("...i,...i->...", a, m) - b
+        return (e_var(q["out"]) + torch.einsum("...i,...ij,...j->...", a, v, a)
+                + diff * diff)
+
+    @classmethod
+    def average_energy(cls, q):
+        if "prec" in q and not isinstance(q["prec"], PointMass):
+            elogw = e_log_precision(q["prec"])
+            w = e_precision(q["prec"])
+        else:
+            nv = cls._noise_var(q)
+            elogw = -torch.log(nv)
+            w = 1.0 / nv
+        return 0.5 * (_LOG2PI - elogw + w * cls._c2(q))
+
+
+@node("GaussianDotCovariance")
+class GaussianDotCovarianceNode(_GaussianDotBase):
+    pass
+
+
+@node("GaussianDotPrecision")
+class GaussianDotPrecisionNode(_GaussianDotBase):
     interfaces = ("out", "in", "A", "b", "prec")
 
     @classmethod

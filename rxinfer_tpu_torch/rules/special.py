@@ -1,9 +1,11 @@
-"""The generic ``Mixture`` and the ``GammaMixture`` nodes (counterpart of
-the two in ``rxinfer_tpu/rules/special.py``; its other nodes, Probit among
-them, wait for ROADMAP A6)."""
+"""The generic ``Mixture`` and the ``GammaMixture`` nodes and the
+Gauss-Hermite quadrature (counterpart of those in
+``rxinfer_tpu/rules/special.py``; its other nodes, Probit among them, wait
+for ROADMAP A6)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..dists import Bernoulli, BernoulliLogits, Categorical, GammaShapeRate
@@ -12,6 +14,32 @@ from ..dists.natural import family_key, from_natural, log_partition, to_natural
 from .expectations import e_log, e_mean
 from .nodes import _ComponentRules
 from .registry import node
+
+_GH_POINTS = 31
+_GH_NODES: dict = {}
+
+
+def gauss_hermite_nodes(n: int, device) -> tuple:
+    """The ``n`` probabilists' Gauss-Hermite nodes and their weights,
+    normalized to sum to one, as float32 tensors on ``device``: computed by
+    numpy once per (n, device) and kept, so a rule never copies them from
+    the host again."""
+    key = (n, str(torch.device(device)))
+    hit = _GH_NODES.get(key)
+    if hit is None:
+        x, w = np.polynomial.hermite_e.hermegauss(n)
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        w = torch.as_tensor(w, dtype=torch.float32, device=device)
+        hit = _GH_NODES[key] = (x, w / torch.sum(w))
+    return hit
+
+
+def _gauss_hermite(fn, m, v, n: int = _GH_POINTS):
+    """E[fn(x)] under N(m, v) by ``n``-point Gauss-Hermite quadrature (the
+    reference's GaussHermiteCubature meta); ``m`` and ``v`` broadcast."""
+    x, w = gauss_hermite_nodes(n, m.device)
+    pts = m[..., None] + torch.sqrt(v)[..., None] * x
+    return torch.sum(w * fn(pts), dim=-1)
 
 
 @node("GammaMixture")

@@ -2,6 +2,7 @@
 """Where the time of the port's scan path goes on one CUDA device.
 
     python3 scripts/profile_scan_path.py [--batch 1024] [--steps 10000]
+    python3 scripts/profile_scan_path.py --phase19
 
 Runs from the root of a checkout.  The path is the torch code that solves a
 chain without a kernel: ``infer`` on one dataset and a batched program with
@@ -16,6 +17,13 @@ it prints, CUDA events, median of 3 calls after a warm-up:
 * the stages of the batched smoother alone on the program's own inputs:
   the evidence assembly, the filter elements, the filter scan, the RTS
   elements and the RTS scan.
+
+With ``--phase19`` it profiles ``chip_smoke.py`` phase 19's two chain
+cells instead, each at the phase's shape and sweeps with the free energy
+(``zoo.latent_ar(8)`` over 256 series of 1000 steps, ``zoo.hgf()`` over
+256 datasets of 500), and the unfused LGSSM (``lgssm_constants(8)``) at
+the latent AR's B, T and d, one sweep: ms a call, device busy and idle,
+ns a chain-step (chain-steps: B T a sweep and chain) and the top kernels.
 
 It checks nothing: ``chip_smoke.py`` holds the path against the float64
 oracles and the fused program.
@@ -83,8 +91,11 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--batch", type=int, default=1024)
     parser.add_argument("--steps", type=int, default=10_000)
+    parser.add_argument("--phase19", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, os.getcwd())
+    if args.phase19:
+        return phase19_cells()
     import rxinfer_tpu_torch as rt
     from chip_smoke import lgssm_constants
     from rxinfer_tpu_torch.engine.blocks import BatchContext
@@ -147,6 +158,51 @@ def main() -> int:
     times = {k: round(_ms(fn), 3) for k, fn in stages.items()}
     print(f"[unfused] stages alone, ms: {times}")
     print(smi)
+    return 0
+
+
+def phase19_cells() -> int:
+    import torch
+
+    import chip_smoke as cs
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    dev = torch.device("cuda")
+    y, _ = cs.lar_data(cs.LAR_B, cs.LAR_T, cs.LAR_K, seed=19)
+    _, _, hy = cs.hgf_data(cs.HGF_B, cs.HGF_T)
+    f, q, h, r, m0, p0 = cs.lgssm_constants(cs.LAR_K)
+    yl = np.random.default_rng(1).standard_normal(
+        (cs.LAR_B, cs.LAR_T, cs.LAR_K)).astype(np.float32)
+    data = {name: {"y": torch.as_tensor(v, device=dev)}
+            for name, v in (("lar", y), ("hgf", hy), ("lgssm", yl))}
+    opts = {"warn": False}
+    _, lgssm = rt.batched_program(zoo.lgssm(f, q, h, r, m0, p0),
+                                  data["lgssm"], device=dev,
+                                  options={"fused_kernels": False, **opts})
+    cells = {
+        "latent_ar": (lambda: rt.infer_batched(
+            zoo.latent_ar(cs.LAR_K), data["lar"], iterations=cs.LAR_IT,
+            initialization=cs.lar_init(cs.LAR_K), free_energy=True,
+            device=dev, options=opts), cs.LAR_B * cs.LAR_T * cs.LAR_IT),
+        "hgf": (lambda: rt.infer_batched(
+            zoo.hgf(), data["hgf"], iterations=cs.HGF_IT,
+            initialization=cs.hgf_init(), free_energy=True, device=dev,
+            options=opts), 2 * cs.HGF_B * cs.HGF_T * cs.HGF_IT),
+        "unfused_lgssm_d8": (lambda: lgssm(data["lgssm"]),
+                             cs.LAR_B * cs.LAR_T),
+    }
+    for name, (fn, steps) in cells.items():
+        ms = _ms(fn)
+        prof = _profile(fn, top=8)
+        print(f"[{name}] {ms:.3f} ms a call, {1e6 * ms / steps:.1f} ns a "
+              f"chain-step, device busy {prof['busy_ms']:.3f} ms (idle "
+              f"{100 * (1 - prof['busy_ms'] / ms):.1f}%), "
+              f"{prof['launches']} device kernels; top {prof['top']}; {smi}",
+              flush=True)
     return 0
 
 

@@ -255,8 +255,9 @@ def _streaming(**kwargs):
     (_streaming(session=object()), "A6"),
     ({"mesh": object()}, "A7b"),
     ({"constraints": object()}, "A6"),
-    ({"meta": {"MvNormalMeanCovariance": {}}}, "A6"),
+    ({"session": object()}, "A6"),
     (_streaming(postprocess=object()), "A4c"),
+    (_streaming(meta={"MvNormalMeanCovariance": {}}), "A4c"),
 ])
 def test_unported_infer_arguments_raise_with_their_roadmap_item(kwargs, item):
     c = lgssm_constants()

@@ -555,10 +555,11 @@ def test_data_colliding_with_an_autoupdated_argument_is_refused():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"constraints": object()}, "A6"),
-    ({"meta": {"Beta": {}}}, "A6"),
+    ({"session": object()}, "A6"),
     ({"postprocess": object()}, "A4c"),
     ({"annotations": object()}, "A4c"),
     ({"catch_exception": True}, None),
+    ({"meta": {"Beta": {}}}, "A4c"),
 ])
 def test_unported_streaming_arguments_raise(kwargs, item):
     err = ValueError if item is None else NotImplementedError
