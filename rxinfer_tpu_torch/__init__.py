@@ -3,7 +3,9 @@
 A model written with ``@model``, ``latent``, ``plate``,
 ``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Beta``, ``Bernoulli``,
 ``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``,
-``NormalMixture``, ``Mixture``, ``AR``, ``GCV`` and ``dot`` runs through
+``NormalMixture``, ``Mixture``, ``AR``, ``GCV``, ``dot``, ``Delta``
+(``Linearization``, ``Unscented``, ``CVIProjection``, a known inverse),
+``Probit`` and ``SoftDot`` runs through
 ``infer`` on one dataset, through ``batched_program`` / ``infer_batched``
 over many, and through
 ``infer(autoupdates=...)``, the streaming engine, on one stream or many, on
@@ -55,6 +57,7 @@ from .graph.dsl import (  # noqa: F401
     Bernoulli,
     Beta,
     Categorical,
+    Delta,
     Dirichlet,
     DirichletCollection,
     DiscreteTransition,
@@ -64,12 +67,21 @@ from .graph.dsl import (  # noqa: F401
     MvNormal,
     Normal,
     NormalMixture,
+    Probit,
+    SoftDot,
     Transition,
     Wishart,
     dot,
     latent,
     model,
     plate,
+)
+from .rules import (  # noqa: F401
+    CVI,
+    CVIProjection,
+    DeltaMeta,
+    Linearization,
+    Unscented,
 )
 from .inference_streaming import (  # noqa: F401
     RxInferenceEngine,

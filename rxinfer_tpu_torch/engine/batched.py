@@ -1127,7 +1127,7 @@ def make_batched_program(compiled, data0: dict, iterations: int,
             free_energy=free_energy, fe_fn=pooled_fe if groups else None)
         return state, fe, history
 
-    return program
+    return compiled.matmul_precision.wrap(program)
 
 
 def make_chunked_shared_program(compiled, data0: dict, iterations: int,
@@ -1258,4 +1258,4 @@ def make_chunked_shared_program(compiled, data0: dict, iterations: int,
         fe = torch.stack(fes) if fes else torch.zeros((0,), device=device)
         return state, fe, []
 
-    return program
+    return compiled.matmul_precision.wrap(program)

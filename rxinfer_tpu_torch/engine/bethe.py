@@ -11,6 +11,11 @@
 * A missing observation (NaN) removes its likelihood copy: the copy's
   average energy is masked, and its entropy terms cancel against the
   variable's degree.
+* A deterministic node (Delta) has no average energy: its term is -H of
+  the joint belief over its inputs, from the cavity beliefs
+  (``bethe_term``), and an unplated contracted nonlinear Gaussian between
+  two random variables takes its structured (out, in) pair
+  (``nonlinear_pair_fe``).
 * On a tree at the BP fixed point FE equals -log Z.
 
 Every term is evaluated over the whole batch at once (batch axis first, as
@@ -32,10 +37,10 @@ mean-field branch counts a shared interface.  The JAX version subtracts the
 pair entropy alone, so on such a chain (``zoo.hmm``: the matrix A) its free
 energy is off by (T - 1) H[q(A)] and can fall below zero on discrete data;
 the port's equals the float64 structured-VMP free energy.  The JAX package's
-other branches read the cavity message stores (``_msg:`` keys) or nodes the
-port lacks: the structured pair of a Gaussian factor between two random
-variables, the affine custom-transition pair, structured single-step GCV
-and deterministic nodes' ``bethe_term``.  A factor that could take one of
+other branches read cavity message stores the port lacks (``_msg:`` keys
+of nodes outside ``CAVITY_STORE_NODES``): the structured pair of a
+Gaussian factor between two random variables, the affine
+custom-transition pair and structured single-step GCV.  A factor that could take one of
 them raises ``NotImplementedError`` naming ROADMAP A6 when its evaluator is
 built, rather than fall back to the mean-field bound.
 """
@@ -59,6 +64,90 @@ _GAUSS_PAIR = {"NormalMeanVariance", "NormalMeanPrecision",
                "MvNormalMeanCovariance", "MvNormalMeanPrecision"}
 # and the (out, in) pair of a dot-product likelihood
 _DOT_PAIR = {"GaussianDotCovariance", "GaussianDotPrecision"}
+# and of a contracted nonlinear Gaussian, out = fn(in) + noise, whose
+# cavity messages the port stores (engine/blocks.py CAVITY_STORE_NODES)
+_NG_PAIR = {"NonlinearGaussianCovariance", "NonlinearGaussianPrecision"}
+
+
+def _noise_expectations(q, noise_key: str, d: int):
+    """(E[V^-1] as (..., d, d), E[log det V]) of a Gaussian factor's
+    noise interface."""
+    from ..dists.gaussian import pd_inverse, pd_logdet
+    from ..rules.delta import _noise_rank
+    from ..rules.expectations import e_log_precision, e_logdet, e_precision
+
+    noise = q[noise_key]
+    rank = _noise_rank(q, noise_key, d)
+    if noise_key in ("var", "cov"):
+        if not isinstance(noise, PointMass):
+            raise NotImplementedError(
+                f"free_energy=True: a random {noise_key!r} noise (an "
+                "inverse-Gamma / inverse-Wishart group) is not ported to the "
+                "PyTorch package yet.")
+        if rank == 0:
+            return (1.0 / noise.point)[..., None, None], torch.log(noise.point)
+        return pd_inverse(noise.point), pd_logdet(noise.point)
+    w = e_precision(noise)
+    if rank == 0:
+        elogw = (torch.log(noise.point) if isinstance(noise, PointMass)
+                 else e_log_precision(noise))
+        return w[..., None, None], -elogw
+    elogw = (pd_logdet(noise.point) if isinstance(noise, PointMass)
+             else e_logdet(noise))
+    return w, -elogw
+
+
+def nonlinear_pair_fe(f, q: dict, state: dict, in_key: str, noise_key: str):
+    """AE - H over the local joint q(out, in) of a nonlinear Gaussian factor
+    out = fn(in) + noise, rebuilt from the cavity messages (the marginals
+    divided by the factor's stored messages) and fn linearized at the
+    input's mean: joint precision [[W_o + W, -W A], [-A^T W, W_i + A^T W A]]
+    with (A, b) the linearized map.  Exact for a linear fn: on a tree the
+    free energy is then -log Z.  The noise's entropy stays mean-field."""
+    from ..dists.natural import nat_div
+    from ..ops.smallmat import small_inv, small_logdet
+    from ..rules.delta import _info_form, _moments, _rank, _vmap_copies
+
+    cav_out = nat_div(q["out"], state[f"_msg:{f.id}:out"])
+    cav_in = nat_div(q[in_key], state[f"_msg:{f.id}:{in_key}"])
+    r_in = _rank(q, in_key)
+    m_i, _ = _moments(q[in_key], r_in)
+    f0, out_vec, a_mat = _vmap_copies(f.meta["fn"], m_i, [m_i.shape[-1]],
+                                      [r_in >= 1], jacobian=True)
+    xi_o, w_o = _info_form(cav_out, 1 if out_vec else 0)
+    xi_i, w_i = _info_form(cav_in, r_in)
+    d_o, d_i = xi_o.shape[-1], xi_i.shape[-1]
+    b_vec = f0 - torch.einsum("...ij,...j->...i", a_mat, m_i)
+    wbar, elogv = _noise_expectations(q, noise_key, d_o)
+    wa = wbar @ a_mat
+    at = a_mat.transpose(-1, -2)
+    top = torch.cat(torch.broadcast_tensors(w_o + wbar, -wa), dim=-1)
+    bot = torch.cat(torch.broadcast_tensors(-(at @ wbar), w_i + at @ wa),
+                    dim=-1)
+    top, bot = torch.broadcast_tensors(top, bot)
+    jmat = torch.cat([top, bot], dim=-2)
+    wb = torch.einsum("...ij,...j->...i", wbar, b_vec)
+    xi = torch.cat(torch.broadcast_tensors(
+        xi_o + wb, xi_i - torch.einsum("...ji,...j->...i", a_mat, wb)),
+        dim=-1)
+    vmat = small_inv(jmat)
+    mu = torch.einsum("...ij,...j->...i", vmat, xi)
+    mu_o, mu_i = mu[..., :d_o], mu[..., d_o:]
+    v_oo, v_oi = vmat[..., :d_o, :d_o], vmat[..., :d_o, d_o:]
+    v_ii = vmat[..., d_o:, d_o:]
+    err = mu_o - torch.einsum("...ij,...j->...i", a_mat, mu_i) - b_vec
+    cov_err = (v_oo - v_oi @ at - a_mat @ v_oi.transpose(-1, -2)
+               + a_mat @ v_ii @ at)
+    c2 = cov_err + err[..., :, None] * err[..., None, :]
+    ae = 0.5 * (d_o * 1.8378770664093453 + elogv
+                + torch.sum(wbar * c2.transpose(-1, -2), dim=(-2, -1)))
+    term = ae - (0.5 * (d_o + d_i) * _LOG2PIE - 0.5 * small_logdet(jmat))
+    noise = q.get(noise_key)
+    v = f.interfaces.get(noise_key)
+    if (noise is not None and not isinstance(noise, PointMass)
+            and isinstance(v, Ref) and v.var.kind == "random"):
+        term = term - noise.entropy()
+    return term
 
 
 def _n_copies(f) -> int:
@@ -149,11 +238,26 @@ class FactorFE:
         self.is_chain_transition = is_chain_transition
         self.chain_scalar = chain_scalar
         node_cls = get_node(f.fform)
-        if getattr(node_cls, "bethe_term", None) is not None:
-            raise _unported_branch(f, "deterministic-node bethe_term")
         if len(getattr(f, "plates", ())) >= 2:
             raise _unported_branch(f, "grid (nested-plate) accounting")
-        self.energy_fn = get_average_energy(f.fform)
+        # a deterministic node has no average energy: its whole term is
+        # -H[q_a] of the joint belief over its inputs (``bethe_term`` on the
+        # cavities)
+        self.bethe_fn = getattr(node_cls, "bethe_term", None)
+        self.energy_fn = (None if self.bethe_fn is not None
+                          else get_average_energy(f.fform))
+        # the structured (out, in) pair of an unplated nonlinear Gaussian
+        # with one random input, once both cavity messages are stored
+        self.pair = None
+        if (not is_chain_transition and f.plate is None
+                and f.out.var.kind == "random" and f.fform in _NG_PAIR):
+            in_keys = [k for k in f.interfaces if k.startswith("in")]
+            rand = [k for k in in_keys if isinstance(f.interfaces[k], Ref)
+                    and f.interfaces[k].var.kind == "random"]
+            if len(in_keys) == 1 and len(rand) == 1:
+                noise_key = next(k for k in ("var", "cov", "prec")
+                                 if k in f.interfaces)
+                self.pair = (rand[0], noise_key)
         in_ref = f.interfaces.get("in")
         if (not is_chain_transition and f.plate is not None
                 and isinstance(in_ref, Ref) and f.out.var.kind == "random"
@@ -181,6 +285,15 @@ class FactorFE:
         f = self.factor
         batch = ctx.batch
         n_copies = _n_copies(f)
+        if self.bethe_fn is not None:
+            return self._bethe_term(state, data, chain_cross, ctx)
+        if self.pair is not None:
+            in_key, noise_key = self.pair
+            if (f"_msg:{f.id}:out" in state
+                    and f"_msg:{f.id}:{in_key}" in state):
+                q = build_q(f, state, data, ctx=ctx)
+                return _per_element(
+                    nonlinear_pair_fe(f, q, state, in_key, noise_key), batch)
         q = build_q(f, state, data, chain_cross=chain_cross, ctx=ctx)
         ae = self.energy_fn(q)
         # a missing observation removes its copy: its entropy terms cancel
@@ -234,6 +347,29 @@ class FactorFE:
                     hv = hv * n_copies
                 h = h + _per_element(hv, batch)
         return total - h
+
+
+    def _bethe_term(self, state: dict, data: dict, chain_cross: dict,
+                    ctx: BatchContext):
+        """A deterministic node's contribution from its cavity beliefs (the
+        marginals of its random interfaces divided by its stored messages
+        there), one copy's term standing for every copy of a plate when
+        the copies share their inputs."""
+        from ..dists.natural import nat_div
+
+        f = self.factor
+        q = build_q(f, state, data, chain_cross=chain_cross, ctx=ctx)
+        for name, v in f.all_interfaces().items():
+            key = f"_msg:{f.id}:{name}"
+            if (name in q and key in state and isinstance(v, Ref)
+                    and v.var.kind == "random"):
+                q[name] = nat_div(q[name], state[key])
+        term = self.bethe_fn(q)
+        n_copies = _n_copies(f)
+        if (f.plate is not None and n_copies > 1
+                and (term.ndim < 2 or term.shape[1] == 1)):
+            term = term * n_copies
+        return _per_element(term, ctx.batch)
 
 
 def _slots(h, cov):

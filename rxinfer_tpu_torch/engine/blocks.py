@@ -19,7 +19,7 @@ Ported: ``build_q`` (with the structured ``joint`` of a chain transition from
 factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
 ``PlainGroup`` for the mean-field path (scalar groups plate-reduced, array
 groups padded over their slots; a rule that reads its own marginal sees it
-once the group has one), ``GaussianChainBlock`` (its ``update`` with the
+once the group has one), ``divide_cavities``, ``GaussianChainBlock`` (its ``update`` with the
 Kalman scans of ``ops/kalman.py``, its evidence with the damping of
 ``meta={...: {"damping": lam}}``), ``GCVChainBlock`` and ``ARChainBlock``
 (per-chain transitions re-assembled from the state every sweep, on the same
@@ -31,7 +31,8 @@ conversion: a product in the Wishart inverse-scale carrier becomes a
 ``Wishart`` (form constraints, its other branch, are not ported); with
 ``raw_product`` it returns the product before it, for pooled ``shared=``
 sums.  The cavity (EP) message store is ported for the generic ``Mixture``
-node alone (``CAVITY_STORE_NODES``).  Not ported: the ``time_mesh`` branch
+node and the Delta / NonlinearGaussian nodes (``CAVITY_STORE_NODES``).
+Not ported: the ``time_mesh`` branch
 of ``GaussianChainBlock.update`` (time sharding), the single-step GCV pair
 (``attach_gcv_pair_cross``), and the ``PlainGroup`` branches that
 ``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
@@ -227,9 +228,29 @@ def in_cavity_cluster(node_cls, iface: str) -> bool:
 
 
 # Nodes whose cavity (EP) messages the port stores: the generic Mixture's
-# rules read the inbound messages on its other edges.  Every other node's
-# cavity cluster is refused at compile time (ROADMAP A6).
-CAVITY_STORE_NODES = frozenset({"Mixture"})
+# rules read the inbound messages on its other edges, a Delta's or
+# NonlinearGaussian's the messages on its other (out, in) edges.  Another
+# node's cavity cluster that holds a second random variable is refused at
+# compile time (ROADMAP A6).
+CAVITY_STORE_NODES = frozenset({"Mixture", "Delta",
+                                "NonlinearGaussianCovariance",
+                                "NonlinearGaussianPrecision"})
+
+
+def divide_cavities(f: Factor, iface: str, q: dict, state: dict,
+                    node_cls) -> None:
+    """The EP cavity of a factor's rule towards ``iface``: each other random
+    interface of its BP cluster sees its marginal divided by the factor's
+    last message there (``_msg:<factor id>:<interface>`` in the state, once
+    there is one), so that the rule reads messages, not beliefs."""
+    for name, v in f.all_interfaces().items():
+        if name == iface or name not in q:
+            continue
+        if not in_cavity_cluster(node_cls, name):
+            continue
+        key = f"_msg:{f.id}:{name}"
+        if isinstance(v, Ref) and v.var.kind == "random" and key in state:
+            q[name] = nat_div(q[name], state[key])
 
 
 class PlainGroup:
@@ -239,10 +260,12 @@ class PlainGroup:
     array group.  ``adjacency`` lists (factor, interface, rule) with the rule
     resolved at compile time; ``engine/compile.py`` has already refused the
     branches this port lacks.  A factor of ``CAVITY_STORE_NODES`` sees, on
-    its other random edges, the marginal divided by its last message there
-    (kept in the state under ``_msg:<factor id>:<interface>``), and its
-    messages are coerced to the group's ``family`` (a two-class Categorical
-    to a Bernoulli)."""
+    the other random edges of its cluster, the marginal divided by its last
+    message there (``divide_cavities``), and keeps its message to this group
+    in the state under ``_msg:<factor id>:<interface>``.  A rule that reads
+    its own marginal (``needs_self_marginal``) sees it once the group has
+    one.  Messages are coerced to the group's ``family`` (a two-class
+    Categorical to a Bernoulli)."""
 
     def __init__(self, var, adjacency: list, family=None):
         self.var = var
@@ -268,18 +291,18 @@ class PlainGroup:
         msgs = []
         length = self.var.length
         for f, iface, rule in self.adjacency:
-            # a rule that reads its own marginal (GCV's message to z) sees
-            # it once this group has one (initialization or a sweep)
-            needs_self = (getattr(get_node(f.fform), "needs_self_marginal",
-                                  False) and self.var.name in state)
+            node_cls = get_node(f.fform)
+            # a rule that reads its own marginal (GCV's message to z, a
+            # delta's backward rules) sees it once this group has one
+            # (initialization or a sweep)
+            needs_self = (getattr(node_cls, "needs_self_marginal", False)
+                          and self.var.name in state)
             q = build_q(f, state, data, exclude=None if needs_self else iface,
                         chain_cross=chain_cross, ctx=ctx)
-            cavity = f.fform in CAVITY_STORE_NODES
+            cavity = (f.fform in CAVITY_STORE_NODES
+                      and in_cavity_cluster(node_cls, iface))
             if cavity:
-                for name, v in f.all_interfaces().items():
-                    key = f"_msg:{f.id}:{name}"
-                    if name != iface and key in state and name in q:
-                        q[name] = nat_div(q[name], state[key])
+                divide_cavities(f, iface, q, state, node_cls)
             msg = mask_message(coerce_message_family(rule(q), self.family),
                                ctx.masks.get(f.id))
             if cavity:
@@ -397,8 +420,12 @@ class GaussianChainBlock:
         """One evidence factor's Gaussian message to the chain as lifted
         information-form tensors ``(mxi, mw, coverage)``.  A rule that
         reads its own marginal (``needs_self_marginal``: GCV's message to
-        z) sees the chain's current marginal once it has one, and a chain
-        transition's pair statistics ride along (``chain_cross``).  With
+        z, a delta's backward rules) sees the chain's current marginal once
+        it has one, and a chain transition's pair statistics ride along
+        (``chain_cross``).  A factor of ``CAVITY_STORE_NODES`` divides the
+        other random interfaces of its cluster by its stored messages
+        (``divide_cavities``) and keeps this message in the state under
+        ``_msg:<factor id>:<interface>`` for its neighbours.  With
         ``meta={...: {"damping": lam}}`` the message is blended with the
         previous sweep's in natural parameters, (1 - lam) new + lam old,
         and stored in the state under ``_msg:<factor id>:<interface>``."""
@@ -409,22 +436,18 @@ class GaussianChainBlock:
                       and self.var.name in state)
         q = build_q(f, state, data, exclude=None if needs_self else iface,
                     chain_cross=chain_cross, ctx=ctx)
-        if in_cavity_cluster(node_cls, iface):
+        uses_cavity = in_cavity_cluster(node_cls, iface)
+        if uses_cavity:
             # EP cavity: same-cluster random neighbours are divided by this
-            # factor's stored message (none: engine/compile.py refuses a
-            # cluster with another random interface outside
-            # CAVITY_STORE_NODES)
-            for name, v in f.all_interfaces().items():
-                if name == iface or name not in q:
-                    continue
-                if not in_cavity_cluster(node_cls, name):
-                    continue
-                key = f"_msg:{f.id}:{name}"
-                if isinstance(v, Ref) and v.var.kind == "random" \
-                        and key in state:
-                    q[name] = nat_div(q[name], state[key])
+            # factor's stored messages (engine/compile.py refuses a cluster
+            # with another random interface outside CAVITY_STORE_NODES)
+            divide_cavities(f, iface, q, state, node_cls)
         msg = rule(q)
         damping = (f.meta or {}).get("damping")
+        if not damping and uses_cavity and f.fform in CAVITY_STORE_NODES:
+            # kept (before any missing-data mask) for the neighbours'
+            # cavities and the free energy
+            state[f"_msg:{f.id}:{iface}"] = msg
         if damping:
             key = f"_msg:{f.id}:{iface}"
             stored = msg if f.plate is None else pad_plate(

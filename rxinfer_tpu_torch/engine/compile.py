@@ -18,6 +18,9 @@ batch of one), the Bethe free energy after each sweep (``degrees``,
 ``fe_factors``, ``_free_energy``; ``options={"check_objective": True}``
 stops a host-driven run at a non-finite value), ``make_program``, ``run``,
 ``run_iterative`` (host loop with per-iteration callbacks), ``predict``,
+``options={"matmul_precision": ...}`` (``matmul_precision_scope``), the
+event ranks of the Delta / NonlinearGaussian factors' point-mass
+interfaces (``attach_delta_ranks``),
 ``make_batched_program`` and the streaming engine's tick surface
 (``make_tick_program``, ``run_tick``, ``make_sweep_fn``: ticks over a batch
 of streams, warm-started from the previous tick's state and pair
@@ -194,6 +197,73 @@ def attach_meta(graph: ModelGraph, meta: Optional[dict]) -> None:
             merged.update(extra if isinstance(extra, dict)
                           else {"meta": extra})
             f.meta = merged
+
+
+_DELTA_NODES = {"Delta", "NonlinearGaussianCovariance",
+                "NonlinearGaussianPrecision"}
+
+
+def attach_delta_ranks(graph: ModelGraph) -> None:
+    """Give every Delta / NonlinearGaussian factor the event rank of each
+    constant or data interface (``meta["_ranks"]``): a point-mass input
+    carries no class that tells a vector from a plate of scalars, and the
+    rules (``rules/delta.py``) broadcast the leading axes of the rest."""
+    for f in graph.factors:
+        if f.fform not in _DELTA_NODES:
+            continue
+        ranks = {}
+        for name, v in f.all_interfaces().items():
+            if isinstance(v, Const):
+                ranks[name] = int(np.ndim(v.value))
+            elif isinstance(v, Ref) and v.var.kind == "data":
+                ev = len(v.var.event_shape or ())
+                whole = v.idx is None and v.var.is_array
+                ranks[name] = ev + 1 if whole else ev
+        f.meta = {**(f.meta or {}), "_ranks": ranks}
+
+
+_MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                     "high": "high", "tensorfloat32": "high",
+                     "bfloat16": "medium", "default": None}
+
+
+class matmul_precision_scope:
+    """``options={"matmul_precision": name}``: the program's torch matmuls
+    run under ``torch.set_float32_matmul_precision`` for the call, and the
+    caller's setting comes back after it, on every exit path.  The JAX
+    names map as "highest" / "float32" -> "highest", "high" /
+    "tensorfloat32" -> "high", "bfloat16" -> "medium"; "default" and None
+    leave the setting alone.  The CUDA kernels (K1-K8) compute in float32
+    (or 3xTF32 on the tensor cores) whatever the option."""
+
+    def __init__(self, name: Optional[str]):
+        if name is not None and name not in _MATMUL_PRECISION:
+            raise ValueError(
+                f"matmul_precision {name!r} not supported; choose one of "
+                f"{sorted(_MATMUL_PRECISION)}.")
+        self.setting = _MATMUL_PRECISION.get(name) if name else None
+        self._prev = []
+
+    def __enter__(self):
+        self._prev.append(torch.get_float32_matmul_precision())
+        if self.setting is not None:
+            torch.set_float32_matmul_precision(self.setting)
+        return self
+
+    def __exit__(self, *exc):
+        torch.set_float32_matmul_precision(self._prev.pop())
+        return False
+
+    def wrap(self, program):
+        """``program`` run inside the scope (itself when it sets nothing)."""
+        if self.setting is None:
+            return program
+
+        def scoped(*args, **kwargs):
+            with self:
+                return program(*args, **kwargs)
+
+        return scoped
 
 
 def check_gcv_factors(graph: ModelGraph, chains: dict) -> None:
@@ -387,6 +457,7 @@ class CompiledModel:
                     "yet."
                 )
         self.infos = resolve_groups(graph)
+        attach_delta_ranks(graph)
         normalize_transitions(graph, self.infos)
         self.chains = detect_chains(graph, self.infos)
         check_gcv_factors(graph, self.chains)
@@ -440,11 +511,14 @@ class CompiledModel:
                 f"observation_dtype {self.observation_dtype!r} not supported;"
                 " choose 'float32', 'int8', or 'float8_e4m3fn'."
             )
-        for key in ("rulefallback", "matmul_precision"):
-            if options.get(key) is not None:
-                raise NotImplementedError(
-                    f"options={{{key!r}: ...}} is not ported to the PyTorch "
-                    "package yet.")
+        if options.get("rulefallback") is not None:
+            raise NotImplementedError(
+                "options={'rulefallback': ...} is not ported to the PyTorch "
+                "package yet.")
+        # strict accuracy mode: every program of this model runs its torch
+        # matmuls under the named precision (matmul_precision_scope)
+        self.matmul_precision = matmul_precision_scope(
+            options.get("matmul_precision"))
 
         self.blocks: list[tuple[str, Any]] = []
         varmap = {v.name: v for v in graph.random_variables()}
@@ -584,8 +658,12 @@ class CompiledModel:
         return dict(self._plan_report)
 
     def _init_state(self) -> dict:
-        """Initial marginals (float32 tensors on the CPU), broadcast across
-        the slots of array variables."""
+        """Initial marginals (float32 tensors on the CPU).  An array
+        variable's initialization is one slot's, broadcast across the slots,
+        or one per slot (its mean has the slot axis in front of the
+        variable's event shape).  The JAX package broadcasts a per-slot
+        initialization across the slots once more, and a delta rule then
+        fails on the doubled slot axis (ROADMAP C10)."""
         state = {}
         for name, spec in self.init.items():
             var = next(v for v in self.graph.random_variables()
@@ -593,6 +671,16 @@ class CompiledModel:
             d = spec() if callable(spec) else spec
             d = tree_map(lambda a: torch.as_tensor(a, dtype=torch.float32), d)
             if var.is_array:
+                event = tuple(self.infos[name].event_shape or ())
+                mean_shape = tuple(d.mean().shape)
+                if mean_shape == (var.length,) + event:
+                    state[name] = d
+                    continue
+                if mean_shape != event:
+                    raise ValueError(
+                        f"initialization of {name!r}: mean of shape "
+                        f"{mean_shape}, expected one slot's {event} or one "
+                        f"per slot, {(var.length,) + event}.")
                 d = tree_map(
                     lambda a: a.expand((var.length,) + tuple(a.shape)), d)
             state[name] = d
@@ -745,7 +833,7 @@ class CompiledModel:
                 free_energy=free_energy)
             return unbatch(state), fe[:, 0], [unbatch(h) for h in history]
 
-        return program
+        return self.matmul_precision.wrap(program)
 
     def run(self, data: dict, iterations: int = 1, free_energy: bool = False,
             keep_each: bool = False, device: Any = "cuda"):
@@ -829,6 +917,7 @@ class CompiledModel:
                 keep_each, free_energy=free_energy)
             return state, fe, history, chain_cross
 
+        run = self.matmul_precision.wrap(run)
         if cold:
             return lambda data: run(data, None, None)
         return lambda data, state, chain_cross: run(data, state, chain_cross)
@@ -869,7 +958,7 @@ class CompiledModel:
                   if free_energy else torch.zeros((0,), device=device))
             return (state, chain_cross), fe
 
-        return fn
+        return self.matmul_precision.wrap(fn)
 
     def variable_outbound_message(self, state: dict, data: dict,
                                   varname: str, ctx: BatchContext):
@@ -890,7 +979,11 @@ class CompiledModel:
                 continue
             if kind == "plain":
                 f, iface, rule = block.adjacency[-1]
-                q = build_q(f, state, data, exclude=iface, ctx=ctx)
+                # a rule that reads its own marginal sees it here too
+                needs_self = getattr(get_node(f.fform),
+                                     "needs_self_marginal", False)
+                q = build_q(f, state, data,
+                            exclude=None if needs_self else iface, ctx=ctx)
                 msg = mask_message(rule(q), ctx.masks.get(f.id))
                 return nat_div(state[varname], msg)
             return self._chain_outbound_message(block, state, data, ctx)

@@ -14,8 +14,13 @@ wishart), ``GammaMixture`` (``switch`` categorical, ``shape{i}`` and
 ``rate{i}`` gamma), the generic ``Mixture`` (``switch`` categorical, the
 out and the components of the family their other factors give), ``AR``
 (out, ``in`` and ``theta`` vectors of the order, ``gamma`` gamma), ``GCV``
-(scalar out, ``in`` and ``z``) and ``GaussianDot*`` (scalar out, ``in`` a
-vector as long as ``A``, ``prec`` gamma); variables
+(scalar out, ``in`` and ``z``), ``GaussianDot*`` (scalar out, ``in`` a
+vector as long as ``A``, ``prec`` gamma), ``Probit`` (a Bernoulli out, a
+Gaussian ``in``), ``SoftDot`` (scalar out, ``theta`` and ``x`` vectors,
+``gamma`` gamma) and ``Delta`` / ``NonlinearGaussian*`` (the out's shape by
+calling ``fn`` on zeros of its inputs' shapes, its family Gaussian or
+multivariate Gaussian by that shape; a random input's family by the shape
+its other factors give it); variables
 reached only through nodes that are not ported yet
 stay unresolved and raise.
 """
@@ -50,7 +55,14 @@ _OUT_FAMILY = {
     "GaussianDotPrecision": "gaussian",
     "AR": "mv_gaussian",
     "GCV": "gaussian",
+    "Probit": "bernoulli",
+    "SoftDot": "gaussian",
 }
+
+# the out of a deterministic node: Gaussian or multivariate Gaussian by the
+# shape its function gives
+_SHAPE_FAMILY = {"Delta", "NonlinearGaussianCovariance",
+                 "NonlinearGaussianPrecision"}
 
 _INPUT_FAMILY = {
     ("NormalMeanPrecision", "mean"): "gaussian",
@@ -82,6 +94,11 @@ _INPUT_FAMILY = {
     ("AR", "gamma"): "gamma",
     ("GCV", "in"): "gaussian",
     ("GCV", "z"): "gaussian",
+    ("Probit", "in"): "gaussian",
+    ("SoftDot", "theta"): "mv_gaussian",
+    ("SoftDot", "x"): "mv_gaussian",
+    ("SoftDot", "gamma"): "gamma",
+    ("NonlinearGaussianPrecision", "prec"): "gamma",
 }
 
 # a mixture's component interfaces carry their index (mean0, prec1, ...)
@@ -138,8 +155,10 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
               "LinearGaussianCovariance", "LinearGaussianPrecision",
               "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture",
               "GammaMixture", "GaussianDotCovariance",
-              "GaussianDotPrecision", "GCV"):
+              "GaussianDotPrecision", "GCV", "Probit", "SoftDot"):
         return ()
+    if ff in _SHAPE_FAMILY:
+        return _delta_out_shape(f, shape_of)
     if ff == "AR":
         k = (f.meta or {}).get("order")
         return (int(k),) if k else None
@@ -183,6 +202,26 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
                 return (s[-1],)
         return None
     return None
+
+
+def _delta_out_shape(f: Factor, shape_of) -> tuple | None:
+    """The out's event shape of a deterministic node: ``fn`` called on zeros
+    of its inputs' event shapes (None while an input's is unknown or when
+    ``fn`` does not take the probe)."""
+    import torch
+
+    fn = (f.meta or {}).get("fn")
+    keys = sorted((k for k in f.interfaces if k.startswith("in")),
+                  key=lambda k: int(k[2:]))
+    shapes = [shape_of(k) for k in keys]
+    if fn is None or any(s is None for s in shapes):
+        return None
+    try:
+        with torch.no_grad():
+            out = fn(*[torch.zeros(s) for s in shapes])
+    except Exception:  # noqa: BLE001 -- a probe the function refuses
+        return None
+    return tuple(torch.as_tensor(out).shape)
 
 
 def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
@@ -243,6 +282,11 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
                     if s is not None:
                         gi.event_shape = s
                         changed = True
+                if (f.fform in _SHAPE_FAMILY and gi.family is None
+                        and gi.event_shape is not None):
+                    gi.family = ("mv_gaussian" if len(gi.event_shape) == 1
+                                 else "gaussian")
+                    changed = True
             for name, v in f.interfaces.items():
                 if isinstance(v, Ref) and v.var.kind == "random":
                     gi = infos[v.var.name]

@@ -12,7 +12,9 @@ or a data slot ``a`` folding into a GaussianDot factor, ``Categorical``,
 ``DiscreteTransition``), ``Gamma`` (shape/rate), ``Wishart``, ``Beta``,
 ``Bernoulli``, ``NormalMixture`` (the multivariate mixture when the
 component means are vectors), ``GammaMixture``, ``Mixture``, ``AR`` (with
-``ARMeta`` / ``ARsafe`` / ``ARunsafe``) and ``GCV``.  Model
+``ARMeta`` / ``ARsafe`` / ``ARunsafe``), ``GCV``, ``Delta`` (its output
+feeding a Gaussian mean contracts to a NonlinearGaussian factor),
+``Probit`` and ``SoftDot``.  Model
 constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
 to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
 distributions of torch tensors, and such a distribution object used inside
@@ -22,9 +24,9 @@ package's ``_lift_dist`` does).
 Not ported yet (they raise ``NotImplementedError``): sums of random variables
 (GaussianSum / LinComb nodes), the scale-precision family, submodel scopes,
 ``where`` blocks, grid latents and grid data, folded data arithmetic,
-``Gamma(shape=, scale=)`` and the rest of the node vocabulary (Delta,
-Probit, SoftDot, ...).  ``dot`` with two random arguments raises
-``TypeError``, as in the JAX package (it needs SoftDot).
+``Gamma(shape=, scale=)`` and the rest of the node vocabulary (the
+logic, Poisson and Polya nodes, ...).  ``dot`` with two random arguments
+raises ``TypeError``, as in the JAX package: the model writes ``SoftDot``.
 """
 
 from __future__ import annotations
@@ -681,6 +683,36 @@ def GCV(x_prev, z, kappa=1.0, omega=0.0) -> RVRef:
         {"in": _as_interface(x_prev), "z": _as_interface(z),
          "kappa": _as_interface(kappa), "omega": _as_interface(omega)},
     )
+
+
+def Probit(x) -> RVRef:
+    """Probit link: out in {0, 1} ~ Bernoulli(Phi(x)) (``rules/special.py``
+    ``ProbitNode``)."""
+    return _builder().emit("Probit", {"in": _as_interface(x)})
+
+
+def SoftDot(theta, x, gamma) -> RVRef:
+    """out ~ N(theta^T x, 1 / gamma) with theta and x both random (the
+    reference's SoftDot; ``dot`` takes a known vector only)."""
+    return _builder().emit(
+        "SoftDot",
+        {"theta": _as_interface(theta), "x": _as_interface(x),
+         "gamma": _as_interface(gamma)},
+    )
+
+
+def Delta(fn, *args, method=None, inverse=None) -> RVRef:
+    """Nonlinear deterministic node out = fn(args...) with an approximation
+    method (the reference's DeltaMeta(method=Linearization() / Unscented() /
+    CVIProjection(), inverse=...); ``rules/delta.py``).  ``fn`` and
+    ``inverse`` are pure torch functions of single values (a scalar argument
+    as a 0-d tensor, a vector as a 1-d one), evaluated under
+    ``torch.func.vmap``.  ``Normal(mean=Delta(...), ...)`` contracts to a
+    NonlinearGaussian factor when the delta's output has no other use."""
+    interfaces = {f"in{i}": _as_interface(a) for i, a in enumerate(args)}
+    return _builder().emit(
+        "Delta", interfaces,
+        meta={"fn": fn, "method": method, "inverse": inverse})
 
 
 # -- @model decorator and generator -------------------------------------------------

@@ -494,8 +494,8 @@ class RxInferenceEngine:
                 self._compiled, self.autoupdates, example,
                 self.device) or False
             if self._stream_plan:
-                self._fused_fn = make_fused_stream_fn(self._stream_plan,
-                                                      self.device)
+                self._fused_fn = self._compiled.matmul_precision.wrap(
+                    make_fused_stream_fn(self._stream_plan, self.device))
         return self._stream_plan or None
 
     def _run_fused(self, plan, obs: dict):

@@ -1,17 +1,32 @@
-"""The generic ``Mixture`` and the ``GammaMixture`` nodes and the
-Gauss-Hermite quadrature (counterpart of those in
-``rxinfer_tpu/rules/special.py``; its other nodes, Probit among them, wait
-for ROADMAP A6)."""
+"""The ``Probit``, ``GammaMixture``, ``SoftDot`` and generic ``Mixture``
+nodes and the Gauss-Hermite quadrature (counterpart of
+``rxinfer_tpu/rules/special.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..dists import Bernoulli, BernoulliLogits, Categorical, GammaShapeRate
+from ..dists import (
+    Bernoulli,
+    BernoulliLogits,
+    Categorical,
+    GammaShapeRate,
+    MvNormalWeightedMeanPrecision,
+    NormalMeanPrecision,
+    NormalWeightedMeanPrecision,
+)
 from ..dists.mixture import MixtureDist
 from ..dists.natural import family_key, from_natural, log_partition, to_natural
-from .expectations import e_log, e_mean
+from .expectations import (
+    e_cov,
+    e_log,
+    e_log_precision,
+    e_mean,
+    e_precision,
+    e_sq,
+    e_var,
+)
 from .nodes import _ComponentRules
 from .registry import node
 
@@ -40,6 +55,46 @@ def _gauss_hermite(fn, m, v, n: int = _GH_POINTS):
     x, w = gauss_hermite_nodes(n, m.device)
     pts = m[..., None] + torch.sqrt(v)[..., None] * x
     return torch.sum(w * fn(pts), dim=-1)
+
+
+@node("Probit")
+class ProbitNode:
+    """out in {0, 1} ~ Bernoulli(Phi(in)) with a Gaussian in.  The message to
+    in is EP moment matching: the closed-form tilted moments of
+    N(x; m, v) Phi(s x), divided by the marginal (so the rule reads its own
+    marginal, ``needs_self_marginal``)."""
+
+    interfaces = ("out", "in")
+    needs_self_marginal = True
+
+    @staticmethod
+    def message_to_out(q):
+        m, v = e_mean(q["in"]), e_var(q["in"])
+        p = torch.special.ndtr(m / torch.sqrt(1.0 + v))
+        return Bernoulli(torch.clamp(p, 1e-7, 1 - 1e-7))
+
+    @staticmethod
+    def message_to_in(q):
+        s = 2.0 * e_mean(q["out"]) - 1.0
+        m, v = e_mean(q["in"]), e_var(q["in"])
+        denom = torch.sqrt(1.0 + v)
+        z = s * m / denom
+        # phi(z) / Phi(z), stable through log Phi
+        log_npdf = -0.5 * (z * z) - 0.9189385332046727
+        ratio = torch.exp(log_npdf - torch.special.log_ndtr(z))
+        mt = m + s * v * ratio / denom
+        vt = torch.clamp(v - (v * v) * ratio * (z + ratio) / (1.0 + v),
+                         min=1e-10)
+        # the message: tilted / marginal, in natural parameters
+        return NormalWeightedMeanPrecision(mt / vt - m / v, 1.0 / vt - 1.0 / v)
+
+    @staticmethod
+    def average_energy(q):
+        s = 2.0 * e_mean(q["out"]) - 1.0
+        m, v = e_mean(q["in"]), e_var(q["in"])
+        m, v, s = torch.broadcast_tensors(m, v, s)
+        return -_gauss_hermite(
+            lambda x: torch.special.log_ndtr(s[..., None] * x), m, v)
 
 
 @node("GammaMixture")
@@ -89,6 +144,60 @@ class GammaMixtureNode(metaclass=_ComponentRules):
                 + e_mean(q[f"rate{i}"]) * e_mean(q["out"])
                 - a * e_log(q[f"rate{i}"]) + torch.lgamma(a))
         return total
+
+
+@node("SoftDot")
+class SoftDotNode:
+    """out ~ N(theta^T x, 1 / gamma) with theta and x both random (the
+    soft inner product of time-varying regression): mean-field VMP."""
+
+    interfaces = ("out", "theta", "x", "gamma")
+
+    @staticmethod
+    def _outer(d):
+        m = e_mean(d)
+        return e_cov(d) + m[..., None] * m[..., None, :], m
+
+    @classmethod
+    def message_to_out(cls, q):
+        mean = torch.sum(e_mean(q["theta"]) * e_mean(q["x"]), dim=-1)
+        mean, w = torch.broadcast_tensors(mean, e_precision(q["gamma"]))
+        return NormalMeanPrecision(mean, w)
+
+    @classmethod
+    def message_to_theta(cls, q):
+        g = e_precision(q["gamma"])
+        xx, mx = cls._outer(q["x"])
+        y = e_mean(q["out"])
+        return MvNormalWeightedMeanPrecision(
+            (g * y)[..., None] * mx, g[..., None, None] * xx)
+
+    @classmethod
+    def message_to_x(cls, q):
+        g = e_precision(q["gamma"])
+        tt, mt = cls._outer(q["theta"])
+        y = e_mean(q["out"])
+        return MvNormalWeightedMeanPrecision(
+            (g * y)[..., None] * mt, g[..., None, None] * tt)
+
+    @classmethod
+    def _c2(cls, q):
+        tt, mt = cls._outer(q["theta"])
+        xx, mx = cls._outer(q["x"])
+        y = e_mean(q["out"])
+        return (e_sq(q["out"]) - 2.0 * y * torch.sum(mt * mx, dim=-1)
+                + torch.sum(tt * xx.transpose(-1, -2), dim=(-2, -1)))
+
+    @classmethod
+    def message_to_gamma(cls, q):
+        c2 = cls._c2(q)
+        return GammaShapeRate(torch.full_like(c2, 1.5), 0.5 * c2)
+
+    @classmethod
+    def average_energy(cls, q):
+        g = e_precision(q["gamma"])
+        return 0.5 * (1.8378770664093453 - e_log_precision(q["gamma"])
+                      + g * cls._c2(q))
 
 
 @node("Mixture")

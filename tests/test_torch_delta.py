@@ -1,0 +1,1131 @@
+"""The Delta node and the contracted NonlinearGaussian factors (ROADMAP A6b)
+through both packages on the CPU: the transforms (Linearization, Unscented,
+the sampled CVIProjection transform on the JAX package's draws, the known
+inverse) and their helpers, each node rule, ``tests/models/test_delta.py``'s
+models through ``infer``, a range-bearing tracker and a sin chain through
+``infer`` and ``infer_batched``, and the pins of three reference faults:
+
+* C10: a per-slot initialization of a multivariate delta chain, which the
+  JAX package broadcasts over the slots once more and then fails on;
+* C11: ``Unscented()``'s default alpha = 1e-3 amplifies float32 rounding by
+  about 1e5, so far from the origin its moments lose their digits, in both
+  packages;
+* C12: the JAX package's backward message divides the conditioned marginal
+  by the marginal, which cancels in float32 on a partially observed chain;
+  the port computes the same message as a pullback, and its linear-delta
+  fleet equals a float64 RTS smoother.
+
+Inputs come from numpy seeds; the port runs with ``device="cpu"``."""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rxinfer_tpu as jrx
+import rxinfer_tpu_torch as trx
+from rxinfer_tpu import dists as jd
+from rxinfer_tpu.rules import delta as jdelta
+from rxinfer_tpu_torch import dists as td
+from rxinfer_tpu_torch.rules import delta as tdelta
+
+# one transform or rule on the same float32 inputs in two libraries,
+# relative to the largest value (LAPACK's solves and Cholesky against the
+# port's closed forms; measured on a CPU at up to 5e-6)
+RULE_TOL = 1e-5
+# a message to an input: the JAX package's division of two precisions
+# against the port's pullback (C12), on inputs where neither cancels much
+# (measured on a CPU at up to 2.2e-5)
+MSG_TOL = 1e-4
+# posteriors after several sweeps, relative to the largest value
+POST_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def T(x):
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def spd(rng, lead, n, scale=1.0):
+    a = rng.standard_normal(lead + (n, n))
+    return (scale * (a @ np.swapaxes(a, -1, -2) / n + np.eye(n))).astype(
+        np.float32)
+
+
+# -- functions of the transforms: (jax fn, torch fn, input dims, vectors) ------
+
+def j_rb(x):
+    return jnp.stack([jnp.sqrt(x[0] ** 2 + x[1] ** 2), jnp.arctan2(x[1], x[0])])
+
+
+def t_rb(x):
+    return torch.stack([torch.sqrt(x[0] ** 2 + x[1] ** 2),
+                        torch.atan2(x[1], x[0])])
+
+
+FNS = {
+    "range_bearing": (j_rb, t_rb, [4], [True]),
+    "sin": (jnp.sin, torch.sin, [1], [False]),
+    "two_inputs": (lambda a, s: jnp.stack([a[0] * s, jnp.tanh(a[1]), s * s]),
+                   lambda a, s: torch.stack([a[0] * s, torch.tanh(a[1]),
+                                             s * s]),
+                   [2, 1], [True, False]),
+}
+
+
+def joint_inputs(name, lead=(3,), seed=0):
+    rng = np.random.default_rng(seed)
+    n = sum(FNS[name][2])
+    m = rng.standard_normal(lead + (n,)).astype(np.float32)
+    if name == "range_bearing":
+        m[..., :2] = m[..., :2] * 5 + np.array([12.0, 6.0], np.float32)
+    return m, spd(rng, lead, n, 0.5)
+
+
+METHODS = {
+    "linearization": (jdelta.Linearization(), tdelta.Linearization()),
+    "unscented_alpha1": (jdelta.Unscented(alpha=1.0),
+                         tdelta.Unscented(alpha=1.0)),
+    "unscented_kappa": (jdelta.Unscented(alpha=0.5, beta=2.0, kappa=1.0),
+                        tdelta.Unscented(alpha=0.5, beta=2.0, kappa=1.0)),
+    "cvi": (jdelta.CVIProjection(n_samples=256, seed=3),
+            tdelta.CVIProjection(n_samples=256, seed=3)),
+}
+
+
+def jax_draws(params, n):
+    return np.asarray(jax.random.normal(jax.random.PRNGKey(params.seed),
+                                        (params.n_samples, n)))
+
+
+@pytest.fixture
+def jax_draws_in_port(monkeypatch):
+    """The port's CVIProjection draws replaced by the JAX package's."""
+    def draws(params, n, dtype, device):
+        return torch.as_tensor(jax_draws(params, n), dtype=dtype,
+                               device=device)
+
+    monkeypatch.setattr(tdelta, "standard_normal_draws", draws)
+
+
+@pytest.mark.parametrize("fn_name", sorted(FNS))
+@pytest.mark.parametrize("method", sorted(METHODS))
+def test_transforms_match_jax(fn_name, method):
+    """(E[y], Cov(y), Cov(z, y) or the Jacobian) of each transform over
+    three copies at once, against the JAX function copy by copy."""
+    jfn, tfn, dims, vecs = FNS[fn_name]
+    jm, tm = METHODS[method]
+    m, v = joint_inputs(fn_name)
+    flat = jdelta._split_apply(jfn, dims, vecs)
+    want = []
+    for i in range(m.shape[0]):
+        if method == "linearization":
+            f0, cov, jac = jdelta._push_linearized(flat, jnp.asarray(m[i]),
+                                                   jnp.asarray(v[i]))
+            want.append((f0, cov, jac))
+        elif method == "cvi":
+            # the JAX transform's own draws (PRNGKey(seed)) on both sides
+            want.append(jdelta._push_sampled(flat, jnp.asarray(m[i]),
+                                             jnp.asarray(v[i]), jm))
+        else:
+            want.append(jdelta._push_unscented(flat, jnp.asarray(m[i]),
+                                               jnp.asarray(v[i]), jm))
+    if method == "linearization":
+        got = tdelta._push_linearized(tfn, dims, vecs, T(m), T(v))[:3]
+    elif method == "cvi":
+        got = tdelta._push_sampled(tfn, dims, vecs, T(m), T(v), tm,
+                                   eps=jax_draws(tm, m.shape[-1]))[:3]
+    else:
+        got = tdelta._push_unscented(tfn, dims, vecs, T(m), T(v), tm)[:3]
+    for k in range(3):
+        assert rel(got[k].numpy(), np.stack([np.asarray(w[k])
+                                             for w in want])) <= RULE_TOL
+
+
+def test_out_vector_flag_and_vmap_error():
+    """A scalar fn gives a scalar out; a function torch.func cannot vmap
+    raises its RuntimeError rather than run per copy."""
+    m, v = joint_inputs("sin")
+    assert tdelta._push_linearized(torch.sin, [1], [False], T(m), T(v))[3] \
+        is False
+    assert tdelta._push_linearized(t_rb, [4], [True],
+                                   *map(T, joint_inputs("range_bearing")))[3]
+
+    def not_vmappable(x):
+        return torch.tensor(float(x.item()))
+
+    with pytest.raises(RuntimeError):
+        tdelta._push_linearized(not_vmappable, [1], [False], T(m), T(v))
+
+
+def test_helpers_match_jax():
+    """_psd_guard (an indefinite input and a zero one too), _sigma_points,
+    _ridged_inv, _robust_moments and _stat_jacobian."""
+    rng = np.random.default_rng(1)
+    v = spd(rng, (3,), 4)
+    v[0] = v[0] - 1.5 * np.eye(4, dtype=np.float32)     # indefinite
+    for a in (v, np.zeros((4, 4), np.float32)):
+        want = np.stack([np.asarray(jdelta._psd_guard(jnp.asarray(x)))
+                         for x in np.reshape(a, (-1, 4, 4))])
+        got = tdelta._psd_guard(T(a)).numpy().reshape(want.shape)
+        assert rel(got, want) <= RULE_TOL
+    m, v = joint_inputs("range_bearing")
+    for alpha, beta, kappa in ((1.0, 2.0, 0.0), (0.5, 2.0, 1.0)):
+        pts, wm, wc = tdelta._sigma_points(T(m), T(v), alpha, beta, kappa)
+        for i in range(3):
+            jp, jwm, jwc = jdelta._sigma_points(jnp.asarray(m[i]),
+                                                jnp.asarray(v[i]), alpha,
+                                                beta, kappa)
+            assert rel(pts[i].numpy(), jp) <= RULE_TOL
+            assert rel(wm.numpy(), jwm) <= RULE_TOL
+            assert rel(wc.numpy(), jwc) <= RULE_TOL
+    want = np.stack([np.asarray(jdelta._ridged_inv(jnp.asarray(x))) for x in v])
+    assert rel(tdelta._ridged_inv(T(v)).numpy(), want) <= RULE_TOL
+    # the ridged information form of a carrier, vector and scalar
+    w = spd(rng, (3,), 4, 2.0)
+    xi = rng.standard_normal((3, 4)).astype(np.float32)
+    for i in range(3):
+        jm_, jv_, _ = jdelta._robust_moments(
+            jd.MvNormalWeightedMeanPrecision(jnp.asarray(xi[i]),
+                                             jnp.asarray(w[i])))
+        jsm, jsv, _ = jdelta._robust_moments(
+            jd.NormalWeightedMeanPrecision(jnp.asarray(xi[i, 0]),
+                                           jnp.asarray(w[i, 0, 0])))
+        tm_, tv_ = tdelta._robust_moments(
+            td.MvNormalWeightedMeanPrecision(T(xi[i]), T(w[i])), 1)
+        tsm, tsv = tdelta._robust_moments(
+            td.NormalWeightedMeanPrecision(T(xi[i, 0]), T(w[i, 0, 0])), 0)
+        assert rel(tv_.numpy(), jv_) <= RULE_TOL
+        assert rel(tm_.numpy(), jm_) <= RULE_TOL
+        assert rel(tsm.numpy()[0], jsm) <= RULE_TOL
+        assert rel(tsv.numpy()[0, 0], jsv) <= RULE_TOL
+    flat = jdelta._split_apply(j_rb, [4], [True])
+    for name, (jm, tm) in METHODS.items():
+        if name == "cvi":
+            continue
+        got = tdelta._stat_jacobian(t_rb, [4], [True], T(m), T(v), tm)
+        want = np.stack([np.asarray(jdelta._stat_jacobian(
+            flat, jnp.asarray(m[i]), jnp.asarray(v[i]), jm)) for i in range(3)])
+        assert rel(got.numpy(), want) <= RULE_TOL
+
+
+def _q_pair(lib, m, v, out, noise=None, meta=None, out_kind="point"):
+    """A contracted factor's q: the input in0's marginal (MvNormal), the
+    out (observed, or a Gaussian belief) and the noise."""
+    d = jd if lib == "jax" else td
+    conv = jnp.asarray if lib == "jax" else T
+    q = {"in0": d.MvNormalMeanCovariance(conv(m), conv(v))}
+    if out_kind == "point":
+        q["out"] = d.PointMass(conv(out))
+    else:
+        q["out"] = d.MvNormalWeightedMeanPrecision(conv(out[0]), conv(out[1]))
+    if noise is not None:
+        q[noise[0]] = d.PointMass(conv(noise[1]))
+    q["_meta"] = dict(meta or {}, _plated=False)
+    return q
+
+
+def _rule_pair(node, rule, m, v, out, noise, method, out_kind="point"):
+    """The range-bearing rule over three copies in the port, copy by copy
+    in JAX."""
+    want = []
+    for i in range(m.shape[0]):
+        o = out[i] if out_kind == "point" else (out[0][i], out[1][i])
+        q = _q_pair("jax", m[i], v[i], o, noise,
+                    {"fn": j_rb, "method": method[0]}, out_kind)
+        want.append(getattr(getattr(jdelta, node), rule)(q))
+    q = _q_pair("torch", m, v, out, noise,
+                {"fn": t_rb, "method": method[1],
+                 "_ranks": {"out": 1, "cov": 2, "prec": 2}}, out_kind)
+    return getattr(getattr(tdelta, node), rule)(q), want
+
+
+def _leaves(d):
+    return [np.asarray(getattr(d, f)) for f in d.__dataclass_fields__]
+
+
+@pytest.mark.parametrize("method", sorted(METHODS))
+@pytest.mark.parametrize("out_kind", ["point", "belief"])
+def test_nonlinear_gaussian_rules_match_jax(method, out_kind,
+                                            jax_draws_in_port):
+    """NonlinearGaussianCovariance's message to out and to in0 (an observed
+    out and a Gaussian out belief), its average energy, and
+    NonlinearGaussianPrecision's message to a Wishart precision."""
+    rng = np.random.default_rng(2)
+    m, v = joint_inputs("range_bearing", seed=2)
+    y = np.stack([np.hypot(m[:, 0], m[:, 1]), np.arctan2(m[:, 1], m[:, 0])],
+                 -1) + 0.1 * rng.standard_normal((3, 2)).astype(np.float32)
+    out = y.astype(np.float32) if out_kind == "point" else (
+        (y * 2.0).astype(np.float32),
+        np.broadcast_to(np.diag([2.0, 50.0]), (3, 2, 2)).astype(np.float32))
+    noise = ("cov", np.diag([0.05, 1e-2]).astype(np.float32))
+    meth = METHODS[method]
+    for rule, tol in (("message_to_out", RULE_TOL), ("message_to_in0", MSG_TOL),
+                      ("average_energy", RULE_TOL)):
+        if rule == "average_energy" and out_kind != "point":
+            continue
+        got, want = _rule_pair("NonlinearGaussianCovarianceNode", rule, m, v,
+                               out, noise, meth, out_kind)
+        if rule == "average_energy":
+            assert rel(got.numpy(), np.stack([np.asarray(w) for w in want])) \
+                <= tol
+            continue
+        for g, w in zip(_leaves(got), zip(*[_leaves(x) for x in want])):
+            assert rel(g, np.stack(w)) <= tol, rule
+    got, want = _rule_pair("NonlinearGaussianPrecisionNode", "message_to_prec",
+                           m, v, y.astype(np.float32),
+                           ("prec", np.diag([20.0, 100.0]).astype(np.float32)),
+                           meth)
+    assert rel(got.s_inv.numpy(), np.stack([np.asarray(w.s_inv)
+                                            for w in want])) <= RULE_TOL
+    assert rel(got.nu.numpy(), np.stack([np.asarray(w.nu) * np.ones(())
+                                         for w in want])) == 0.0
+
+
+def test_scalar_noise_rules_match_jax():
+    """A scalar NonlinearGaussian with a variance, and with a random Gamma
+    precision: messages to out, in0 and the Gamma, and the average energy."""
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal(5).astype(np.float32)
+    v = (0.3 + rng.uniform(size=5)).astype(np.float32)
+    y = (np.sin(m) + 0.1 * rng.standard_normal(5)).astype(np.float32)
+    for noise in ("var", "gamma"):
+        want = {}
+        for i in range(5):
+            q = {"in0": jd.NormalMeanVariance(jnp.asarray(m[i]),
+                                              jnp.asarray(v[i])),
+                 "out": jd.PointMass(jnp.asarray(y[i])),
+                 "_meta": {"fn": jnp.sin, "method": None, "_plated": False}}
+            node = jdelta.NonlinearGaussianCovarianceNode
+            if noise == "var":
+                q["var"] = jd.PointMass(jnp.asarray(0.04))
+            else:
+                q["prec"] = jd.GammaShapeRate(jnp.asarray(3.0),
+                                              jnp.asarray(0.1))
+                node = jdelta.NonlinearGaussianPrecisionNode
+            for rule in ("message_to_out", "message_to_in0",
+                         "average_energy") + (("message_to_prec",)
+                                              if noise == "gamma" else ()):
+                want.setdefault(rule, []).append(getattr(node, rule)(q))
+        q = {"in0": td.NormalMeanVariance(T(m), T(v)), "out": td.PointMass(T(y)),
+             "_meta": {"fn": torch.sin, "method": None}}
+        node = tdelta.NonlinearGaussianCovarianceNode
+        if noise == "var":
+            q["var"] = td.PointMass(T(0.04))
+        else:
+            q["prec"] = td.GammaShapeRate(T(3.0), T(0.1))
+            node = tdelta.NonlinearGaussianPrecisionNode
+        for rule, ws in want.items():
+            got = getattr(node, rule)(q)
+            if rule == "average_energy":
+                assert rel(got.numpy(), np.stack(ws)) <= RULE_TOL
+                continue
+            for g, w in zip(_leaves(got), zip(*[_leaves(x) for x in ws])):
+                assert rel(g, np.stack(w)) <= MSG_TOL, (noise, rule)
+
+
+@pytest.mark.parametrize("method", sorted(METHODS))
+def test_delta_node_rules_match_jax(method, jax_draws_in_port):
+    """The uncontracted Delta node with two inputs (a vector and a scalar)
+    and a Gaussian out belief: the message to out, to each input, and the
+    Bethe term; and a point-mass input, which leaves the out message rank
+    deficient (the relative ridge)."""
+    jfn, tfn, dims, vecs = FNS["two_inputs"]
+    rng = np.random.default_rng(4)
+    ma = rng.standard_normal((3, 2)).astype(np.float32)
+    va = spd(rng, (3,), 2, 0.3)
+    ms = (1.0 + rng.uniform(size=3)).astype(np.float32)
+    vs = (0.2 + 0.1 * rng.uniform(size=3)).astype(np.float32)
+    xo = rng.standard_normal((3, 3)).astype(np.float32)
+    wo = spd(rng, (3,), 3, 2.0)
+    jm, tm = METHODS[method]
+    results = {}
+    for i in range(3):
+        q = {"in0": jd.MvNormalMeanCovariance(jnp.asarray(ma[i]),
+                                              jnp.asarray(va[i])),
+             "in1": jd.NormalMeanVariance(jnp.asarray(ms[i]),
+                                          jnp.asarray(vs[i])),
+             "out": jd.MvNormalWeightedMeanPrecision(jnp.asarray(xo[i]),
+                                                     jnp.asarray(wo[i])),
+             "_meta": {"fn": jfn, "method": jm, "_plated": False}}
+        for rule in ("message_to_out", "message_to_in0", "message_to_in1",
+                     "bethe_term"):
+            results.setdefault(rule, []).append(
+                getattr(jdelta.DeltaNode, rule)(q))
+    q = {"in0": td.MvNormalMeanCovariance(T(ma), T(va)),
+         "in1": td.NormalMeanVariance(T(ms), T(vs)),
+         "out": td.MvNormalWeightedMeanPrecision(T(xo), T(wo)),
+         "_meta": {"fn": tfn, "method": tm}}
+    for rule, ws in results.items():
+        got = getattr(tdelta.DeltaNode, rule)(q)
+        if rule == "bethe_term":
+            assert rel(got.numpy(), np.stack(ws)) <= RULE_TOL
+            continue
+        tol = RULE_TOL if rule == "message_to_out" else MSG_TOL
+        for g, w in zip(_leaves(got), zip(*[_leaves(x) for x in ws])):
+            assert rel(g, np.stack(w)) <= tol, rule
+    # a point-mass scalar input: out = (a0 s, tanh a1, s^2) has rank 2 < 3
+    want = [jdelta.DeltaNode.message_to_out(
+        {"in0": jd.MvNormalMeanCovariance(jnp.asarray(ma[i]),
+                                          jnp.asarray(va[i])),
+         "in1": jd.PointMass(jnp.asarray(ms[i])),
+         "_meta": {"fn": jfn, "method": jm, "_plated": False}})
+        for i in range(3)]
+    got = tdelta.DeltaNode.message_to_out(
+        {"in0": td.MvNormalMeanCovariance(T(ma), T(va)),
+         "in1": td.PointMass(T(ms)), "_meta": {"fn": tfn, "method": tm}})
+    for g, w in zip(_leaves(got), zip(*[_leaves(x) for x in want])):
+        assert rel(g, np.stack(w)) <= RULE_TOL
+
+
+@pytest.mark.parametrize("target", [0, 1])
+def test_known_inverse_backward_matches_jax(target):
+    """The known-inverse message of a one-input delta (exp, log) and of a
+    two-input one (x tanh(g) with both inverses), an out belief widened by
+    a noise, against the JAX function."""
+    rng = np.random.default_rng(5)
+    n = 4
+    if target == 0:
+        jfn, tfn = jnp.exp, torch.exp
+        jinv, tinv = jnp.log, torch.log
+        m = (0.5 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+        v = (0.05 + 0.01 * rng.uniform(size=n)).astype(np.float32)
+        y = (np.exp(m) + 0.05).astype(np.float32)
+        want = [jdelta._known_inverse_backward(
+            {"in0": jd.NormalMeanVariance(jnp.asarray(m[i]), jnp.asarray(v[i])),
+             "out": jd.PointMass(jnp.asarray(y[i])),
+             "_meta": {"fn": jfn}}, 0, ["in0"], jdelta.Linearization(), jinv,
+            extra_out_cov=jnp.asarray([[0.01]])) for i in range(n)]
+        got = tdelta._known_inverse_backward(
+            {"in0": td.NormalMeanVariance(T(m), T(v)), "out": td.PointMass(T(y)),
+             "_meta": {"fn": tfn}}, 0, ["in0"], tdelta.Linearization(), tinv,
+            extra_out_cov=T([[0.01]]))
+    else:
+        def jf(x, g):
+            return x * jnp.tanh(g)
+
+        def tf(x, g):
+            return x * torch.tanh(g)
+
+        jinv = (lambda o, g: o / jnp.tanh(g),
+                lambda o, x: jnp.arctanh(jnp.clip(o / x, -0.999, 0.999)))
+        tinv = (lambda o, g: o / torch.tanh(g),
+                lambda o, x: torch.atanh(torch.clamp(o / x, -0.999, 0.999)))
+        mx = (1.4 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+        mg = (0.9 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+        y = (mx * np.tanh(mg) + 0.02).astype(np.float32)
+        want, tq = [], {}
+        for i in range(n):
+            q = {"in0": jd.NormalMeanVariance(jnp.asarray(mx[i]),
+                                              jnp.asarray(0.1)),
+                 "in1": jd.NormalMeanVariance(jnp.asarray(mg[i]),
+                                              jnp.asarray(0.05)),
+                 "out": jd.PointMass(jnp.asarray(y[i])), "_meta": {"fn": jf}}
+            want.append(jdelta._known_inverse_backward(
+                q, 1, ["in0", "in1"], jdelta.Unscented(alpha=1.0), jinv,
+                extra_out_cov=jnp.asarray([[0.01]])))
+        tq = {"in0": td.NormalMeanVariance(T(mx), T(np.full(n, 0.1))),
+              "in1": td.NormalMeanVariance(T(mg), T(np.full(n, 0.05))),
+              "out": td.PointMass(T(y)), "_meta": {"fn": tf}}
+        got = tdelta._known_inverse_backward(
+            tq, 1, ["in0", "in1"], tdelta.Unscented(alpha=1.0), tinv,
+            extra_out_cov=T([[0.01]]))
+    for g, w in zip(_leaves(got), zip(*[_leaves(x) for x in want])):
+        assert rel(g, np.stack(w)) <= MSG_TOL
+
+
+def test_wrong_inverse_arity_warns():
+    """inverse= that does not fit the inputs warns and falls back."""
+    q = {"in0": td.NormalMeanVariance(T(0.1), T(1.0)),
+         "in1": td.NormalMeanVariance(T(0.2), T(1.0)),
+         "out": td.PointMass(T(0.5)), "_meta": {"fn": lambda a, b: a + b}}
+    with pytest.warns(UserWarning, match="ignored"):
+        assert tdelta._known_inverse_backward(
+            q, 0, ["in0", "in1"], tdelta.Linearization(),
+            lambda o: o) is None
+
+
+# -- models: tests/models/test_delta.py through both packages ------------------
+
+def _sin_model(rx, sin, n, method):
+    @rx.model
+    def m(y):
+        theta = rx.Normal(mean=0.3, var=1.0)
+        for i in rx.plate(n):
+            y[i] = rx.Normal(mean=rx.Delta(sin, theta, method=method),
+                             var=0.01)
+        return {"theta": theta}
+
+    return m
+
+
+def _case(name):
+    """(JAX model, port model, data, iterations, JAX init, port init,
+    names, check of the port's posteriors) of a ``test_delta.py`` case."""
+    if name == "linear_exact":
+        rng = np.random.default_rng(0)
+        n = 50
+        y = (2.0 * 1.7 + 1.0 + 0.5 * rng.standard_normal(n)).astype(np.float32)
+
+        def build(rx):
+            @rx.model
+            def m(y):
+                theta = rx.Normal(mean=0.0, var=10.0)
+                for i in rx.plate(n):
+                    y[i] = rx.Normal(mean=rx.Delta(lambda t: 2.0 * t + 1.0,
+                                                   theta), var=0.25)
+                return {"theta": theta}
+
+            return m
+
+        def check(post):
+            w = 1 / 10 + n * 4.0 / 0.25
+            mexp = (2.0 * (y - 1.0) / 0.25).sum() / w
+            assert np.isclose(float(post["theta"].mean()), mexp, rtol=1e-4)
+            assert np.isclose(float(post["theta"].precision()), w, rtol=1e-4)
+
+        return (build(jrx), build(trx), {"y": y}, 5,
+                {"theta": jd.NormalMeanVariance(0.0, 10.0)},
+                {"theta": td.NormalMeanVariance(T(0.0), T(10.0))},
+                ("theta",), check)
+    if name == "sin_linearization":
+        rng = np.random.default_rng(1)
+        n = 200
+        y = (np.sin(0.6) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+        def check(post):
+            est = float(post["theta"].mean())
+            assert abs(np.sin(est) - y.mean()) < 0.01
+            assert abs(est - 0.6) < 0.05
+
+        return (_sin_model(jrx, jnp.sin, n, jdelta.Linearization()),
+                _sin_model(trx, torch.sin, n, tdelta.Linearization()),
+                {"y": y}, 25, {"theta": jd.NormalMeanVariance(0.3, 1.0)},
+                {"theta": td.NormalMeanVariance(T(0.3), T(1.0))}, ("theta",),
+                check)
+    if name == "unscented_multi_input":
+        rng = np.random.default_rng(2)
+        n = 300
+        z_true = 2.0 * np.exp(0.5)
+        y = (z_true + 0.2 * rng.standard_normal(n)).astype(np.float32)
+
+        def build(rx, exp, method):
+            @rx.model
+            def m(y):
+                a = rx.Normal(mean=1.5, var=1.0)
+                b = rx.Normal(mean=0.3, var=1.0)
+                for i in rx.plate(n):
+                    y[i] = rx.Normal(mean=rx.Delta(lambda aa, bb: aa * exp(bb),
+                                                   a, b, method=method),
+                                     var=0.04)
+                return {"a": a, "b": b}
+
+            return m
+
+        def check(post):
+            a, b = float(post["a"].mean()), float(post["b"].mean())
+            assert abs(a * np.exp(b) - z_true) < 0.15
+
+        return (build(jrx, jnp.exp, jdelta.Unscented()),
+                build(trx, torch.exp, tdelta.Unscented()), {"y": y}, 30,
+                {"a": jd.NormalMeanVariance(1.5, 1.0),
+                 "b": jd.NormalMeanVariance(0.3, 1.0)},
+                {"a": td.NormalMeanVariance(T(1.5), T(1.0)),
+                 "b": td.NormalMeanVariance(T(0.3), T(1.0))}, ("a", "b"),
+                check)
+    if name == "mv_nonlinear":
+        rng = np.random.default_rng(3)
+        n = 150
+        x_true = np.array([0.8, -0.4], np.float32)
+        f_np = lambda v: np.array([np.tanh(v[0]), v[1] ** 3 + v[0]])
+        y = (f_np(x_true) + 0.1 * rng.standard_normal((n, 2))).astype(
+            np.float32)
+
+        def build(rx, stack, tanh):
+            @rx.model
+            def m(y):
+                x = rx.MvNormal(mean=np.zeros(2, np.float32),
+                                cov=np.eye(2, dtype=np.float32))
+                for i in rx.plate(n):
+                    y[i] = rx.MvNormal(
+                        mean=rx.Delta(lambda v: stack([tanh(v[0]),
+                                                       v[1] ** 3 + v[0]]), x),
+                        cov=0.01 * np.eye(2, dtype=np.float32))
+                return {"x": x}
+
+            return m
+
+        def check(post):
+            est = post["x"].mean().numpy()
+            np.testing.assert_allclose(f_np(est), y.mean(0), atol=0.05)
+
+        eye = np.eye(2, dtype=np.float32)
+        return (build(jrx, jnp.stack, jnp.tanh),
+                build(trx, torch.stack, torch.tanh), {"y": y}, 30,
+                {"x": jd.MvNormalMeanCovariance(np.zeros(2, np.float32), eye)},
+                {"x": td.MvNormalMeanCovariance(T(np.zeros(2)), T(eye))},
+                ("x",), check)
+    if name in ("known_inverse_single", "uncontracted_inverse"):
+        rng = np.random.default_rng(3 if name == "known_inverse_single" else 6)
+        n = 100 if name == "known_inverse_single" else 60
+        y = (np.exp(0.8) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+        uncontracted = name == "uncontracted_inverse"
+
+        def build(rx, exp, log):
+            @rx.model
+            def m(y):
+                theta = rx.Normal(mean=0.0, var=2.0)
+                for i in rx.plate(n):
+                    w = rx.Delta(exp, theta, inverse=log)
+                    y[i] = rx.Normal(mean=w, var=0.01)
+                out = {"theta": theta}
+                if uncontracted:
+                    out["w"] = w
+                return out
+
+            return m
+
+        def check(post):
+            assert abs(float(post["theta"].mean()) - 0.8) < 0.05
+
+        return (build(jrx, jnp.exp, jnp.log), build(trx, torch.exp, torch.log),
+                {"y": y}, 20, {"theta": jd.NormalMeanVariance(0.5, 1.0)},
+                {"theta": td.NormalMeanVariance(T(0.5), T(1.0))}, ("theta",),
+                check)
+    if name == "known_inverse_multi":
+        rng = np.random.default_rng(4)
+        n = 80
+        z = (1.4 * np.tanh(0.9) + 0.05 * rng.standard_normal(n)).astype(
+            np.float32)
+
+        def build(rx, tanh, atanh, clip):
+            inv = (lambda o, g: o / tanh(g),
+                   lambda o, x: atanh(clip(o / x, -0.999, 0.999)))
+
+            @rx.model
+            def m(z):
+                x = rx.Normal(mean=1.0, var=1.0)
+                g = rx.Normal(mean=1.0, var=1.0)
+                for i in rx.plate(n):
+                    z[i] = rx.Normal(mean=rx.Delta(lambda a, b: a * tanh(b),
+                                                   x, g, inverse=inv),
+                                     var=0.01)
+                return {"x": x, "g": g}
+
+            return m
+
+        def check(post):
+            prod = float(post["x"].mean()) * np.tanh(float(post["g"].mean()))
+            assert abs(prod - z.mean()) < 0.05
+            for nm in ("x", "g"):
+                assert np.isfinite(float(post[nm].var()))
+                assert float(post[nm].var()) > 0
+
+        return (build(jrx, jnp.tanh, jnp.arctanh, jnp.clip),
+                build(trx, torch.tanh, torch.atanh, torch.clamp), {"z": z}, 30,
+                {"x": jd.NormalMeanVariance(1.0, 1.0),
+                 "g": jd.NormalMeanVariance(1.0, 1.0)},
+                {"x": td.NormalMeanVariance(T(1.0), T(1.0)),
+                 "g": td.NormalMeanVariance(T(1.0), T(1.0))}, ("x", "g"),
+                check)
+    raise KeyError(name)
+
+
+# the unscented case's default alpha = 1e-3 amplifies float32 rounding in
+# both packages (C11): its weakly identified a and b drift apart, so the two
+# packages are held equal on the identified a exp(b)
+IDENTIFIED = {"unscented_multi_input":
+              lambda post: float(post["a"].mean())
+              * np.exp(float(post["b"].mean()))}
+
+
+@pytest.mark.parametrize("name", [
+    "linear_exact", "sin_linearization", "unscented_multi_input",
+    "mv_nonlinear", "known_inverse_single", "known_inverse_multi",
+    "uncontracted_inverse"])
+def test_delta_models_match_jax(name):
+    """``tests/models/test_delta.py``'s models through ``infer`` in both
+    packages: the reference test's own checks on the port's posteriors,
+    and the posteriors equal to the JAX package's (and with the free
+    energy, which the deterministic node's Bethe term enters, where the
+    delta stays uncontracted)."""
+    jm, tm, data, its, jinit, tinit, names, check = _case(name)
+    fe = name == "uncontracted_inverse"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jres = jrx.infer(model=jm, data=data, iterations=its,
+                         returnvars=jrx.KeepLast(), initialization=jinit,
+                         free_energy=fe)
+        tres = trx.infer(model=tm, data=data, iterations=its,
+                         returnvars=trx.KeepLast(), initialization=tinit,
+                         free_energy=fe, device="cpu")
+    check(tres.posteriors)
+    if name in IDENTIFIED:
+        assert rel(IDENTIFIED[name](tres.posteriors),
+                   IDENTIFIED[name](jres.posteriors)) <= 1e-2
+        return
+    for nm in names:
+        assert rel(tres.posteriors[nm].mean().numpy(),
+                   jres.posteriors[nm].mean()) <= POST_TOL, nm
+        assert rel(tres.posteriors[nm].var().numpy(),
+                   jres.posteriors[nm].var()) <= POST_TOL, nm
+    if fe:
+        assert rel(np.asarray(tres.free_energy), jres.free_energy) <= 1e-4
+
+
+def test_delta_fed_dot_is_refused():
+    """``test_static_inputs_two_arg_delta``'s model feeds a delta into
+    ``dot``: a tree of three random variables with no chain, which the JAX
+    package solves by its exact tree schedule; the port refuses it (the
+    tree schedule is not ported) rather than run a sweep order that is
+    not the reference's."""
+    theta = np.array([0.3, -0.2], np.float32)
+    c = np.array([1.0, 0.0], np.float32)
+
+    @trx.model
+    def m(y):
+        x = trx.MvNormal(mean=np.zeros(2, np.float32),
+                         precision=np.eye(2, dtype=np.float32))
+        z = trx.Delta(lambda a, th: a + th, x, theta)
+        w = trx.Normal(mean=trx.dot(c, z), var=1.0)
+        y.observe(trx.Normal(mean=w, variance=0.5))
+        return {"x": x, "w": w}
+
+    with pytest.raises(NotImplementedError, match="tree schedules"):
+        trx.infer(model=m, data={"y": np.float32(1.2)}, iterations=2,
+                  device="cpu")
+
+
+# -- chains: a range-bearing tracker and a sin chain ---------------------------
+
+DT, QQ = 0.1, 0.1
+F_CV = np.block([[np.eye(2), DT * np.eye(2)],
+                 [np.zeros((2, 2)), np.eye(2)]]).astype(np.float32)
+Q_CV = (QQ * np.block([[DT ** 3 / 3 * np.eye(2), DT ** 2 / 2 * np.eye(2)],
+                       [DT ** 2 / 2 * np.eye(2), DT * np.eye(2)]])).astype(
+    np.float32)
+R_RB = np.diag([0.01, 1e-4]).astype(np.float32)
+M0 = np.array([35.0, 0.0, 0.0, 0.0], np.float32)
+P0 = np.diag([225.0, 225.0, 1.0, 1.0]).astype(np.float32)
+
+
+def simulate_tracks(b, t_len, seed, linear=False):
+    """Constant-velocity tracks starting 20-50 m out within +-0.6 rad of
+    the x axis, observed in range and bearing (or in position)."""
+    rng = np.random.default_rng(seed)
+    xs = np.zeros((b, t_len, 4))
+    r0 = rng.uniform(20.0, 50.0, b)
+    a0 = rng.uniform(-0.6, 0.6, b)
+    x = np.stack([r0 * np.cos(a0), r0 * np.sin(a0), rng.standard_normal(b),
+                  rng.standard_normal(b)], -1)
+    for t in range(t_len):
+        if t:
+            x = x @ F_CV.T.astype(np.float64) + rng.multivariate_normal(
+                np.zeros(4), Q_CV, size=b)
+        xs[:, t] = x
+    if linear:
+        y = xs[..., :2]
+        noise = rng.multivariate_normal(np.zeros(2), np.diag([0.01, 0.01]),
+                                        size=(b, t_len))
+    else:
+        y = np.stack([np.hypot(xs[..., 0], xs[..., 1]),
+                      np.arctan2(xs[..., 1], xs[..., 0])], -1)
+        noise = rng.multivariate_normal(np.zeros(2), R_RB, size=(b, t_len))
+    return xs, (y + noise).astype(np.float32)
+
+
+def tracker(rx, fn, method, t_len, r=R_RB, p0=P0):
+    @rx.model
+    def trk(y):
+        x = rx.latent(t_len, name="x")
+        x[0] = rx.MvNormal(mean=M0, cov=p0)
+        for t in rx.plate(1, t_len):
+            x[t] = rx.MvNormal(mean=F_CV @ x[t - 1], cov=Q_CV)
+        for t in rx.plate(t_len):
+            y[t] = rx.MvNormal(mean=rx.Delta(fn, x[t], method=method), cov=r)
+        return {"x": x}
+
+    return trk
+
+
+def t_lin(x):
+    return torch.stack([x[0], x[1]])
+
+
+def j_lin(x):
+    return jnp.stack([x[0], x[1]])
+
+
+def rts_float64(y, r):
+    """Float64 RTS smoother of the linear fleet (positions observed)."""
+    f, q = F_CV.astype(np.float64), Q_CV.astype(np.float64)
+    h = np.hstack([np.eye(2), np.zeros((2, 2))])
+    means, covs = [], []
+    for yb in y.astype(np.float64):
+        m, p = M0.astype(np.float64), P0.astype(np.float64)
+        ms, ps, mp, pp = [], [], [], []
+        for t in range(len(yb)):
+            if t:
+                m, p = f @ m, f @ p @ f.T + q
+            mp.append(m)
+            pp.append(p)
+            s = h @ p @ h.T + r
+            k = p @ h.T @ np.linalg.inv(s)
+            m, p = m + k @ (yb[t] - h @ m), p - k @ s @ k.T
+            ms.append(m)
+            ps.append(p)
+        sm, sp = [ms[-1]], [ps[-1]]
+        for t in range(len(yb) - 2, -1, -1):
+            g = ps[t] @ f.T @ np.linalg.inv(pp[t + 1])
+            sm.insert(0, ms[t] + g @ (sm[0] - mp[t + 1]))
+            sp.insert(0, ps[t] + g @ (sp[0] - pp[t + 1]) @ g.T)
+        means.append(sm)
+        covs.append(sp)
+    return np.array(means), np.array(covs)
+
+
+def _track_init(lib):
+    if lib == "jax":
+        return {"x": jd.MvNormalMeanCovariance(M0, P0)}
+    return {"x": td.MvNormalMeanCovariance(T(M0), T(P0))}
+
+
+# the scan smoother's own float32 gap to the float64 RTS on this fleet, at
+# slot 0's velocity variance (measured on a CPU at 4.5e-4 of the largest
+# covariance, the same for the chain written with ``H @ x[t]`` on the same
+# scans)
+SCAN_COV_TOL = 1e-3
+# the delta's messages against the linear-Gaussian node's on the same scans
+# (the unscented slope S_zy^T V^-1 rounds; measured on a CPU at 3.3e-5)
+LIN_TOL = 1e-4
+
+
+def test_linear_delta_fleet_equals_rts_and_linear_gaussian():
+    """A linear delta fleet (positions observed through Delta) under
+    Linearization and Unscented(alpha=1): the posterior equals a float64
+    RTS smoother (means at 1e-4, covariances at the scans' own float32 gap)
+    and the same chain written as ``H @ x[t]`` on the same scan path
+    (LIN_TOL); the free energy is flat from the first sweep."""
+    xs, y = simulate_tracks(3, 40, seed=10, linear=True)
+    r = np.diag([0.01, 0.01]).astype(np.float32)
+    om, oc = rts_float64(y, r.astype(np.float64))
+    h = np.hstack([np.eye(2), np.zeros((2, 2))]).astype(np.float32)
+
+    @trx.model
+    def linear(y):
+        x = trx.latent(40, name="x")
+        x[0] = trx.MvNormal(mean=M0, cov=P0)
+        for t in trx.plate(1, 40):
+            x[t] = trx.MvNormal(mean=F_CV @ x[t - 1], cov=Q_CV)
+        for t in trx.plate(40):
+            y[t] = trx.MvNormal(mean=h @ x[t], cov=r)
+        return {"x": x}
+
+    lin, _ = trx.infer_batched(linear, {"y": y}, iterations=1,
+                               device="cpu", options={"fused_kernels": False})
+    for method in (tdelta.Linearization(), tdelta.Unscented(alpha=1.0)):
+        post, fe = trx.infer_batched(tracker(trx, t_lin, method, 40, r),
+                                     {"y": y}, iterations=4, free_energy=True,
+                                     initialization=_track_init("torch"),
+                                     device="cpu", options={"warn": False})
+        m, c = post["x"].mean().numpy(), post["x"].cov().numpy()
+        assert rel(m, om) <= POST_TOL
+        assert rel(c, oc) <= SCAN_COV_TOL
+        assert rel(m, lin["x"].mean().numpy()) <= LIN_TOL
+        assert rel(c, lin["x"].cov().numpy()) <= LIN_TOL
+        fe = fe.numpy()
+        assert np.abs(fe - fe[0]).max() <= 1e-5 * np.abs(fe).max()
+
+
+def test_c12_jax_backward_cancels_on_the_linear_fleet():
+    """C12 pinned: for a linear fn the message to the chain is the exact
+    likelihood, the same every sweep, so the free energy is flat from the
+    first sweep.  Under a vague prior (P0 = 100 I) and a tight observation
+    the JAX package's message, the conditioned marginal divided by the
+    marginal, cancels in float32 and its free energy wanders from sweep to
+    sweep by more than one nat (measured at about 50 on a CPU); the port's
+    pullback keeps it flat to 1e-5 relative."""
+    xs, y = simulate_tracks(3, 50, seed=10, linear=True)
+    rng = np.random.default_rng(15)
+    y = (xs[..., :2] + rng.multivariate_normal(
+        np.zeros(2), R_RB, size=(3, 50))).astype(np.float32)
+    p0 = (100.0 * np.eye(4)).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, jfe = jrx.infer_batched(
+            tracker(jrx, j_lin, jdelta.Linearization(), 50, p0=p0), {"y": y},
+            iterations=8, free_energy=True,
+            initialization={"x": jd.MvNormalMeanCovariance(M0, p0)})
+    _, tfe = trx.infer_batched(
+        tracker(trx, t_lin, tdelta.Linearization(), 50, p0=p0), {"y": y},
+        iterations=8, free_energy=True, device="cpu", options={"warn": False},
+        initialization={"x": td.MvNormalMeanCovariance(T(M0), T(p0))})
+    jfe, tfe = np.asarray(jfe), tfe.numpy()
+    assert np.ptp(jfe[1:], axis=0).max() > 1.0
+    assert np.ptp(tfe, axis=0).max() <= 1e-5 * np.abs(tfe).max()
+
+
+def test_range_bearing_tracker_matches_jax():
+    """The range-bearing tracker (d = 4 constant velocity, B = 3, T = 20)
+    through ``infer_batched``: the plan leaves the chain on the scans with
+    the JAX planner's reason, the means equal the JAX package's, the
+    smoothed positions' RMSE stays under the measurement noise's scale, and
+    one dataset through ``infer`` equals its row of the batch."""
+    xs, y = simulate_tracks(3, 20, seed=11)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jpost, _ = jrx.infer_batched(
+            tracker(jrx, j_rb, jdelta.Linearization(), 20), {"y": y},
+            iterations=6, free_energy=True, initialization=_track_init("jax"))
+    model = tracker(trx, t_rb, tdelta.Linearization(), 20)
+    compiled, _ = trx.batched_program(model, {"y": y}, iterations=6,
+                                      initialization=_track_init("torch"),
+                                      free_energy=True, device="cpu",
+                                      options={"warn": False})
+    assert compiled.plan_report()["x"] == {"fused": False, "reason": (
+        "evidence factor NonlinearGaussianCovariance reads the chain's own "
+        "marginal (state-dependent message)")}
+    post, fe = trx.infer_batched(model, {"y": y}, iterations=6,
+                                 free_energy=True,
+                                 initialization=_track_init("torch"),
+                                 device="cpu", options={"warn": False})
+    m = post["x"].mean().numpy()
+    assert rel(m, jpost["x"].mean()) <= POST_TOL
+    assert np.isfinite(fe.numpy()).all()
+    rmse = np.sqrt(np.mean((m[..., :2] - xs[..., :2]) ** 2))
+    assert rmse < np.sqrt(R_RB[0, 0] + (50.0 ** 2) * R_RB[1, 1])
+    one = trx.infer(model=model, data={"y": y[1]}, iterations=6,
+                    initialization=_track_init("torch"), free_energy=True,
+                    returnvars=trx.KeepLast(), device="cpu")
+    assert rel(one.posteriors["x"].mean().numpy(), m[1]) <= 1e-6
+    assert rel(np.asarray(one.free_energy), fe.numpy()[:, 1]) <= 1e-6
+
+
+# the two packages on tracks across the bearing cut after two sweeps, and
+# on tracks past the sensor after ten, on the positions relative to the
+# largest (measured on a CPU at 2.4e-4; by the fifth sweep the tracks
+# across the cut part by metres, the linearization there amplifying the
+# float32 rounding)
+CUT_TOL = 1e-3
+
+
+def test_tracks_across_the_bearing_cut_fail_alike_in_both_packages():
+    """A track that crosses the bearing's +-pi cut behind the sensor cannot
+    be followed by a Gaussian range-bearing likelihood: after two sweeps
+    and after ten both packages leave such tracks off by more than ten
+    times the noise's scale, and after two they agree with each other
+    there (CUT_TOL).  A track that passes within 3 m of the sensor without
+    crossing the cut is followed by both after ten sweeps, under the
+    noise's scale, and they agree there too.  The tracks are
+    ``simulate_tracks``' (velocities from a standard normal), picked by
+    their geometry."""
+    t_len = 300
+    xs, y = simulate_tracks(1024, t_len, seed=31)
+    bearing = np.arctan2(xs[..., 1], xs[..., 0])
+    cut = np.abs(np.diff(bearing, axis=1)).max(1) > np.pi
+    near = np.hypot(xs[..., 0], xs[..., 1]).min(1) < 3.0
+    pick = np.concatenate([np.flatnonzero(cut & ~near)[:2],
+                           np.flatnonzero(near & ~cut)[:2]])
+    assert len(pick) == 4
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jpost, _ = jrx.infer_batched(
+            tracker(jrx, j_rb, jdelta.Linearization(), t_len),
+            {"y": y[pick]}, iterations=10, returnvars=jrx.KeepEach(),
+            initialization=_track_init("jax"))
+    post, _ = trx.infer_batched(
+        tracker(trx, t_rb, tdelta.Linearization(), t_len), {"y": y[pick]},
+        iterations=10, returnvars=trx.KeepEach(),
+        initialization=_track_init("torch"), device="cpu",
+        options={"warn": False})
+    scale = np.sqrt(R_RB[0, 0] + (50.0 ** 2) * R_RB[1, 1])
+    for sweep in (1, 9):
+        jm = np.asarray(jpost["x"][sweep].mean())[..., :2]
+        tm = post["x"][sweep].mean().numpy()[..., :2]
+        for m in (jm, tm):
+            rmse = np.sqrt(np.mean((m - xs[pick, :, :2]) ** 2, axis=(1, 2)))
+            assert np.all(rmse[:2] > 10.0 * scale), (sweep, rmse)
+            if sweep == 9:
+                assert np.all(rmse[2:] < scale), (sweep, rmse)
+        rows = slice(0, 4) if sweep == 1 else slice(2, 4)
+        assert rel(tm[rows], jm[rows]) <= CUT_TOL, sweep
+
+
+def test_c10_per_slot_initialization():
+    """C10 pinned: a per-slot MvNormal initialization ((T, 4) means, (T, 4,
+    4) covariances) of the tracker fails in the JAX package, which
+    broadcasts it over the slots once more (the matmul at
+    ``rxinfer_tpu/rules/delta.py:173``); the port runs it, and with the
+    broadcast of one slot it equals the JAX run from that slot."""
+    xs, y = simulate_tracks(2, 12, seed=12)
+    jm = tracker(jrx, j_rb, jdelta.Linearization(), 12)
+    slots_m = np.broadcast_to(M0, (12, 4)).copy()
+    slots_p = np.broadcast_to(P0, (12, 4, 4)).copy()
+    with pytest.raises(ValueError, match="Incompatible shapes for matmul"):
+        jrx.infer_batched(jm, {"y": y}, iterations=2, initialization={
+            "x": jd.MvNormalMeanCovariance(slots_m, slots_p)},
+            options={"warn": False})
+    jpost, _ = jrx.infer_batched(jm, {"y": y}, iterations=3,
+                                 initialization=_track_init("jax"),
+                                 options={"warn": False})
+    tpost, _ = trx.infer_batched(
+        tracker(trx, t_rb, tdelta.Linearization(), 12), {"y": y},
+        iterations=3, device="cpu", options={"warn": False},
+        initialization={"x": td.MvNormalMeanCovariance(T(slots_m),
+                                                       T(slots_p))})
+    assert rel(tpost["x"].mean().numpy(), jpost["x"].mean()) <= POST_TOL
+    with pytest.raises(ValueError, match="one slot's"):
+        trx.infer_batched(
+            tracker(trx, t_rb, tdelta.Linearization(), 12), {"y": y},
+            device="cpu", options={"warn": False},
+            initialization={"x": td.MvNormalMeanCovariance(
+                T(slots_m[:5]), T(slots_p[:5]))})
+
+
+def test_c11_unscented_default_alpha_far_from_origin():
+    """C11 pinned: at the default alpha = 1e-3 the sigma-point weights are
+    of order 1e5 and amplify the float32 rounding of points and outputs:
+    at a range of about 35 m the JAX package's transform misses the float64
+    one by more than 10% relative, and the port's does too (the same
+    formula); alpha = 1 keeps both within 1e-4."""
+    m, v = joint_inputs("range_bearing", seed=13)
+    m[..., :2] += 25.0
+    flat = jdelta._split_apply(j_rb, [4], [True])
+    for alpha, worse in ((1e-3, True), (1.0, False)):
+        want = tdelta._push_unscented(t_rb, [4], [True],
+                                      torch.as_tensor(m, dtype=torch.float64),
+                                      torch.as_tensor(v, dtype=torch.float64),
+                                      tdelta.Unscented(alpha=alpha))[1]
+        jcov = np.stack([np.asarray(jdelta._push_unscented(
+            flat, jnp.asarray(m[i]), jnp.asarray(v[i]),
+            jdelta.Unscented(alpha=alpha))[1]) for i in range(3)])
+        tcov = tdelta._push_unscented(t_rb, [4], [True], T(m), T(v),
+                                      tdelta.Unscented(alpha=alpha))[1]
+        for got in (jcov, tcov.numpy()):
+            err = rel(got, want.numpy())
+            assert (err > 0.1) if worse else (err <= 1e-4), (alpha, err)
+
+
+def test_sin_chain_infer_and_batched_match_jax():
+    """A scalar chain observed through sin: ``infer`` and ``infer_batched``
+    give the same numbers in the port, equal to the JAX package's."""
+    rng = np.random.default_rng(14)
+    b, t_len = 3, 30
+    x = np.cumsum(0.1 * rng.standard_normal((b, t_len)), axis=1) + 0.3
+    y = (np.sin(x) + 0.05 * rng.standard_normal((b, t_len))).astype(np.float32)
+
+    def build(rx, sin):
+        @rx.model
+        def chain(y):
+            x = rx.latent(t_len, name="x")
+            x[0] = rx.Normal(mean=0.0, var=1.0)
+            for t in rx.plate(1, t_len):
+                x[t] = rx.Normal(mean=x[t - 1], var=0.01)
+            for t in rx.plate(t_len):
+                y[t] = rx.Normal(mean=rx.Delta(sin, x[t]), var=0.0025)
+            return {"x": x}
+
+        return chain
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jpost, jfe = jrx.infer_batched(
+            build(jrx, jnp.sin), {"y": y}, iterations=5, free_energy=True,
+            initialization={"x": jd.NormalMeanVariance(0.3, 1.0)})
+    tinit = {"x": td.NormalMeanVariance(T(0.3), T(1.0))}
+    tpost, tfe = trx.infer_batched(build(trx, torch.sin), {"y": y},
+                                   iterations=5, free_energy=True,
+                                   initialization=tinit, device="cpu",
+                                   options={"warn": False})
+    assert rel(tpost["x"].mean().numpy(), jpost["x"].mean()) <= POST_TOL
+    assert rel(tpost["x"].var().numpy(), jpost["x"].var()) <= POST_TOL
+    assert rel(tfe.numpy(), jfe) <= 1e-5
+    one = trx.infer(model=build(trx, torch.sin), data={"y": y[2]},
+                    iterations=5, initialization=tinit,
+                    returnvars=trx.KeepLast(), device="cpu")
+    assert rel(one.posteriors["x"].mean().numpy(),
+               tpost["x"].mean().numpy()[2]) <= 1e-6
+
+
+def _pair_model(rx, fn):
+    @rx.model
+    def pair(y):
+        x = rx.Normal(mean=0.5, var=1.0)
+        z = rx.Normal(mean=rx.Delta(fn, x), var=0.2)
+        y.observe(rx.Normal(mean=z, var=0.1))
+        return {"x": x, "z": z}
+
+    return pair
+
+
+@pytest.mark.parametrize("name", ["linear", "sin"])
+def test_nonlinear_gaussian_pair_fe_matches_jax(name):
+    """An unplated NonlinearGaussian between two random variables takes the
+    structured (out, in) pair in the free energy (``nonlinear_pair_fe``)
+    once both cavity messages are stored: every sweep's value equals the
+    JAX package's ``gaussian_pair_fe``, and for a linear fn -log Z; the
+    posteriors stay float32 (a Python number times a 0-d input gives
+    float64 tangents under ``jacfwd``)."""
+    jfn, tfn = ((lambda x: 2.0 * x + 1.0, lambda x: 2.0 * x + 1.0)
+                if name == "linear" else (jnp.sin, torch.sin))
+    y = {"y": np.float32(1.3)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jres = jrx.infer(model=_pair_model(jrx, jfn), data=y, iterations=6,
+                         free_energy=True, returnvars=jrx.KeepLast(),
+                         initialization={
+                             "x": jd.NormalMeanVariance(0.5, 1.0),
+                             "z": jd.NormalMeanVariance(1.0, 1.0)})
+    tres = trx.infer(model=_pair_model(trx, tfn), data=y, iterations=6,
+                     free_energy=True, returnvars=trx.KeepLast(),
+                     initialization={
+                         "x": td.NormalMeanVariance(T(0.5), T(1.0)),
+                         "z": td.NormalMeanVariance(T(1.0), T(1.0))},
+                     device="cpu")
+    fe = np.asarray(tres.free_energy)
+    assert rel(fe, jres.free_energy) <= 1e-5
+    for nm in ("x", "z"):
+        assert tres.posteriors[nm].mean().dtype == torch.float32
+        assert rel(tres.posteriors[nm].mean().numpy(),
+                   jres.posteriors[nm].mean()) <= POST_TOL
+    if name == "linear":
+        v = 4.0 * 1.0 + 0.2 + 0.1
+        log_z = 0.5 * np.log(2 * np.pi * v) + (1.3 - 2.0) ** 2 / (2 * v)
+        assert rel(fe[-1], log_z) <= 1e-5
+
+
+def test_meta_sets_the_delta_method():
+    """``meta={"Delta": {"method": ...}}`` sets the method of the model's
+    delta factors (contracted or not), as the method in the model does."""
+    rng = np.random.default_rng(16)
+    y = (np.sin(0.6) + 0.1 * rng.standard_normal(40)).astype(np.float32)
+    init = {"theta": td.NormalMeanVariance(T(0.3), T(1.0))}
+    kw = dict(data={"y": y}, iterations=6, returnvars=trx.KeepLast(),
+              initialization=init, device="cpu")
+    by_meta = trx.infer(model=_sin_model(trx, torch.sin, 40, None),
+                        meta={"Delta": {"method": tdelta.Unscented(alpha=1.0)}},
+                        **kw)
+    in_model = trx.infer(model=_sin_model(trx, torch.sin, 40,
+                                          tdelta.Unscented(alpha=1.0)), **kw)
+    default = trx.infer(model=_sin_model(trx, torch.sin, 40, None), **kw)
+    got = by_meta.posteriors["theta"]
+    assert torch.equal(got.mean(), in_model.posteriors["theta"].mean())
+    assert torch.equal(got.var(), in_model.posteriors["theta"].var())
+    assert not torch.equal(got.var(), default.posteriors["theta"].var())
