@@ -3218,10 +3218,12 @@ def hmm_vmp_fe_float64(y, a0, b0, iterations, with_state: bool = False):
 
 
 def gauss_vmp_fe_float64(y, iterations, m0=0.0, v0=100.0, a0=0.01,
-                         b0=0.01):
+                         b0=0.01, with_state: bool = False):
     """Mean-field VMP of ``zoo.gaussian_unknown_mean_precision`` in float64
     for every row of y (B, n), sweep mu then tau, tau starting at
-    Gamma(1, 1), with its free energy after each sweep: (iterations, B)."""
+    Gamma(1, 1), with its free energy after each sweep: (iterations, B);
+    ``with_state`` adds the last sweep's posteriors, {"mu": (mean, var),
+    "tau": (shape, rate)}."""
     y = np.asarray(y, np.float64)
     n = y.shape[1]
     a, b = np.ones(len(y)), np.ones(len(y))
@@ -3242,6 +3244,8 @@ def gauss_vmp_fe_float64(y, iterations, m0=0.0, v0=100.0, a0=0.01,
         h_mu = 0.5 * np.log(2 * np.pi * np.e * v)
         h_tau = a - np.log(b) + _lgamma64(a) + (1.0 - a) * digamma64(a)
         fes.append(ae_mu + ae_tau + ae_y - h_mu - h_tau)
+    if with_state:
+        return np.stack(fes), {"mu": (mu, v), "tau": (a, b)}
     return np.stack(fes)
 
 
@@ -3472,6 +3476,21 @@ def fe_quant_path(device, b: int, t_len: int, d: int, reps: int,
     return out
 
 
+def config2_data():
+    """Phase 12 (e)'s data (phase 21 (c) reuses the Gaussian cell): the
+    Beta-Bernoulli flips (BB_B, BB_N), row 0 the reference's 3743
+    successes, then the Gaussian cell's observations (GAUSS_B, GAUSS_N)
+    from the same generator."""
+    rng = np.random.default_rng(42)
+    flips = (rng.random((BB_B, BB_N)) < rng.uniform(0.2, 0.9, (BB_B, 1)))
+    flips[0] = rng.permutation(np.arange(BB_N) < 3743)
+    loc = rng.normal(0.0, 2.0, (GAUSS_B, 1))
+    scale = rng.uniform(0.5, 2.0, (GAUSS_B, 1))
+    yg = (loc + scale * rng.standard_normal((GAUSS_B, GAUSS_N))).astype(
+        np.float32)
+    return flips, yg
+
+
 def fe_config2_path(device, reps: int, log=print) -> dict:
     """Phase 12 (e): BASELINE config 2 through ``infer_batched``.
     ``zoo.beta_bernoulli(2.0, 7.0)`` over BB_B datasets of BB_N flips (row 0
@@ -3486,9 +3505,7 @@ def fe_config2_path(device, reps: int, log=print) -> dict:
     import rxinfer_tpu_torch as rt
     from rxinfer_tpu_torch.models import zoo
 
-    rng = np.random.default_rng(42)
-    flips = (rng.random((BB_B, BB_N)) < rng.uniform(0.2, 0.9, (BB_B, 1)))
-    flips[0] = rng.permutation(np.arange(BB_N) < 3743)
+    flips, yg_host = config2_data()
     y = torch.as_tensor(flips.astype(np.float32), device=device)
     res = rt.infer_batched(zoo.beta_bernoulli(2.0, 7.0), {"y": y},
                            free_energy=True, device=device)
@@ -3514,10 +3531,6 @@ def fe_config2_path(device, reps: int, log=print) -> dict:
             or not out["bb_ref_rel_err"] <= FE_REF_TOL:
         raise AssertionError(f"Beta-Bernoulli FE: {out}")
 
-    loc = rng.normal(0.0, 2.0, (GAUSS_B, 1))
-    scale = rng.uniform(0.5, 2.0, (GAUSS_B, 1))
-    yg_host = (loc + scale * rng.standard_normal((GAUSS_B, GAUSS_N))).astype(
-        np.float32)
     yg = torch.as_tensor(yg_host, device=device)
     init = {"tau": rt.Gamma(1.0, 1.0)}
     model = zoo.gaussian_unknown_mean_precision()
@@ -6465,6 +6478,425 @@ def strict_path(device, reps: int, smi: str, log=print) -> dict:
                    "default": (times[0] + times[3]) / 2}}
 
 
+# -- slice 22: constraints (phase 21) -----------------------------------------------
+
+# Phase 21 (a): the online HGF of tests/models/test_hgf_streaming.py:37-44
+# (kappa 1, omega 0, z step variance 0.04, y variance 0.01) on the streaming
+# engine, HGFS_B streams in lockstep, HGFS_IT sweeps a tick, with the
+# reference's constraint q(xt, zt, xt_min) = q(xt, xt_min)q(zt) passed
+# explicitly.  Stream 0 is tests/models/test_joint_pairs.py:101-114's data
+# (seed 42), streams 1.. the same recursion vectorized from seed 43.  Cut
+# for time: 300 ticks -> HGFS_T (a tick takes 77-98 ms on the card,
+# host-bound: 300 would take 23-29 s a call, and the phase may add 15 s);
+# (a2) compares the first HGFS_A2_T ticks.
+HGFS_B, HGFS_T, HGFS_IT, HGFS_A2_T = 10_000, 60, 10, 20
+HGFS_K, HGFS_W, HGFS_ZV, HGFS_YV = 1.0, 0.0, 0.2 ** 2, 0.1 ** 2
+HGFS_ROWS = (0, 1, HGFS_B // 2, HGFS_B - 1)
+HGFS_TOL = 1e-3          # phase 19 (b)'s HGF tolerance (C9), relative
+# the fleet's shares of (stream, tick) states within 3 and 6 sd, x and z;
+# the JAX package reaches them on 64 streams on the CPU
+# (scripts/constraint_gates.py)
+HGFS_SHARES = {"3sd": 0.95, "6sd": 0.999}
+HGFS_PROFILE_T = 3       # ticks of the profiled call
+# Phase 21 (b): tests/models/test_projection.py:12-48's model, theta ~
+# Beta(2, 2), PROJ_N observations y ~ N(theta, PROJ_VAR), over PROJ_B
+# datasets (theta uniform in (0.1, 0.9)), PROJ_IT sweeps of
+# ProjectedTo("beta", n_samples=PROJ_SAMPLES); every dataset against its
+# quadrature posterior.  The JAX package's worst gap over the first 64 of
+# these datasets on the CPU is not finite (NaN posteriors where theta is
+# below 0.19 or above 0.83, scripts/constraint_gates.py), so twice it
+# bounds nothing and the gate is the JAX test's own tolerance (mean 0.02,
+# variance 50% + 1e-4); PROJ_JAX_FINITE holds twice the JAX package's worst
+# gaps over the 53 datasets it solves, printed beside the port's
+PROJ_B, PROJ_N, PROJ_IT, PROJ_SAMPLES, PROJ_VAR = 1024, 60, 8, 4096, 0.05
+PROJ_TOL = {"mean": 0.02, "var_rel": 0.5, "var_abs": 1e-4}
+PROJ_JAX_FINITE = {"mean": 2.59e-4, "var_rel": 3.24e-2}
+# Phase 21 (c): MeanField() on phase 12 (e)'s Gaussian cell against its
+# float64 mean-field VMP, relative to the largest value
+MF_TOL = 1e-4
+# and against the unconstrained program: the mean-field rule forms the
+# message to mu in precision form where the default's takes variance
+# form, one float32 rounding apart in both packages
+# (tests/test_torch_constraints.py), relative
+MF_DEFAULT_TOL = 1e-5
+
+
+def hgfs_data(b: int, t_len: int):
+    """(z, x, y), each (t_len, b): stream 0 by
+    tests/models/test_joint_pairs.py:101-114's loop (seed 42), the others by
+    the same recursion over the streams at once (seed 43)."""
+    z = np.zeros((t_len, b))
+    x = np.zeros((t_len, b))
+    y = np.zeros((t_len, b))
+    rng = np.random.default_rng(42)
+    z_prev = x_prev = 0.0
+    for t in range(t_len):
+        z_prev = z_prev + np.sqrt(HGFS_ZV) * rng.standard_normal()
+        v = np.exp(HGFS_K * z_prev + HGFS_W)
+        x_prev = x_prev + np.sqrt(v) * rng.standard_normal()
+        z[t, 0], x[t, 0] = z_prev, x_prev
+        y[t, 0] = x_prev + np.sqrt(HGFS_YV) * rng.standard_normal()
+    rng = np.random.default_rng(43)
+    zp, xp = np.zeros(b - 1), np.zeros(b - 1)
+    for t in range(t_len):
+        zp = zp + np.sqrt(HGFS_ZV) * rng.standard_normal(b - 1)
+        xp = xp + np.sqrt(np.exp(HGFS_K * zp + HGFS_W)) \
+            * rng.standard_normal(b - 1)
+        z[t, 1:], x[t, 1:] = zp, xp
+        y[t, 1:] = xp + np.sqrt(HGFS_YV) * rng.standard_normal(b - 1)
+    return z, x, y.astype(np.float32)
+
+
+def hgfs_model(rx):
+    """tests/models/test_hgf_streaming.py:37-44's tick, in ``rx`` (the port
+    here; the JAX package in scripts/constraint_gates.py)."""
+    @rx.model
+    def hgf_step(y, zt_min_mean, zt_min_var, xt_min_mean, xt_min_var):
+        zt_min = rx.Normal(mean=zt_min_mean, var=zt_min_var)
+        xt_min = rx.Normal(mean=xt_min_mean, var=xt_min_var)
+        zt = rx.Normal(mean=zt_min, var=HGFS_ZV)
+        xt = rx.GCV(xt_min, zt, kappa=HGFS_K, omega=HGFS_W)
+        y.observe(rx.Normal(mean=xt, var=HGFS_YV))
+        return {"zt": zt, "xt": xt, "zt_min": zt_min, "xt_min": xt_min}
+
+    return hgf_step
+
+
+def hgfs_engine_kw(rx, b: int, dist, constrained: bool = True) -> dict:
+    """The engine's arguments beside the model and the data: the
+    autoupdates of b streams, the initialization (``dist`` makes a
+    NormalMeanVariance), the reference constraint."""
+    au = rx.autoupdates(
+        initial={"zt_min_mean": np.zeros(b, np.float32),
+                 "zt_min_var": np.full(b, 5.0, np.float32),
+                 "xt_min_mean": np.zeros(b, np.float32),
+                 "xt_min_var": np.full(b, 5.0, np.float32)},
+        zt_min_mean=lambda q: q["zt"].mean(),
+        zt_min_var=lambda q: q["zt"].var(),
+        xt_min_mean=lambda q: q["xt"].mean(),
+        xt_min_var=lambda q: q["xt"].var())
+    kw = dict(autoupdates=au, batched=True, iterations=HGFS_IT,
+              free_energy=True,
+              initialization={"zt": dist(0.0, 5.0), "xt": dist(0.0, 5.0)})
+    if constrained:
+        kw["constraints"] = rx.constraints(factorization=rx.factorize(
+            ("xt", "zt"), ("xt_min", "zt")))
+    return kw
+
+
+def hgfs_run(device, y, constrained: bool = True):
+    """The port's engine over y (T, B) on ``device`` through ``infer``'s
+    datastream with keephistory: xt's and zt's (mean, var) per tick, (T,
+    B) each, on the host, and the free energies (T, B, HGFS_IT)."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    t_len, b = y.shape
+    dist = lambda m, v: rt.NormalMeanVariance(torch.tensor(m),
+                                              torch.tensor(v))
+    yt = torch.as_tensor(y, device=device)
+    eng = rt.infer(model=hgfs_model(rt), datastream=[
+        {"y": yt[t]} for t in range(t_len)], keephistory=t_len,
+        historyvars={"xt": rt.KeepLast(), "zt": rt.KeepLast()},
+        device=device, **hgfs_engine_kw(rt, b, dist, constrained))
+    post = {name: tuple(torch.stack([getattr(h[name], f)() for h in
+                                     eng.history]).cpu().numpy()
+                        for f in ("mean", "var")) for name in ("xt", "zt")}
+    return post, torch.stack([torch.as_tensor(f) for f in
+                              eng.fe_history]).cpu().numpy()
+
+
+def hgfs_reference_checks(z, x, post, fe) -> dict:
+    """tests/models/test_joint_pairs.py:139-154 on one stream: positive
+    variances, every state within 6 sd, more than 95% within 3 sd (x and
+    z), and every large step of the tick-averaged free energy down."""
+    (mx, vx), (mz, vz) = post["xt"], post["zt"]
+    sx, sz = np.sqrt(vx), np.sqrt(vz)
+    diffs = np.diff(np.mean(fe, axis=0))
+    vals = {"var_positive": bool(np.all(sx > 0) and np.all(sz > 0)),
+            "x_6sd": bool(np.all(np.abs(x - mx) < 6.0 * sx)),
+            "z_6sd": bool(np.all(np.abs(z - mz) < 6.0 * sz)),
+            "x_3sd": float(np.mean(np.abs(x - mx) < 3.0 * sx)),
+            "z_3sd": float(np.mean(np.abs(z - mz) < 3.0 * sz)),
+            "fe_big_steps_down": bool(np.all(diffs[np.abs(diffs) > 0.1] < 0))}
+    vals["ok"] = (vals["var_positive"] and vals["x_6sd"] and vals["z_6sd"]
+                  and vals["x_3sd"] > 0.95 and vals["z_3sd"] > 0.95
+                  and vals["fe_big_steps_down"])
+    return vals
+
+
+def hgfs_shares(z, x, post) -> dict:
+    """The fleet's shares of (tick, stream) states within 3 and 6 sd."""
+    out = {}
+    for name, truth in (("x", x), ("z", z)):
+        m, v = post[name + "t"]
+        err = np.abs(truth - m) / np.sqrt(v)
+        out[name] = {"3sd": float(np.mean(err < 3.0)),
+                     "6sd": float(np.mean(err < 6.0))}
+    return out
+
+
+def proj_model(rx, n: int = PROJ_N):
+    """tests/models/test_projection.py:12-48's model."""
+    @rx.model
+    def beta_gauss(y):
+        theta = rx.Beta(2.0, 2.0)
+        for i in rx.plate(n):
+            y[i] = rx.Normal(mean=theta, var=PROJ_VAR)
+        return {"theta": theta}
+
+    return beta_gauss
+
+
+def proj_data(b: int, n: int = PROJ_N, seed: int = 22):
+    """theta (b,) uniform in (0.1, 0.9) and y (b, n) ~ N(theta, PROJ_VAR)."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0.1, 0.9, b)
+    y = theta[:, None] + np.sqrt(PROJ_VAR) * rng.standard_normal((b, n))
+    return theta, y.astype(np.float32)
+
+
+def proj_quadrature(y):
+    """Each dataset's posterior mean and variance of theta by the
+    trapezoid rule on 4001 points of (0, 1), float64 (the JAX test's
+    grid)."""
+    from scipy import integrate
+
+    y = np.asarray(y, np.float64)
+    ts = np.linspace(1e-4, 1 - 1e-4, 4001)
+    s1, s2, n = y.sum(1, keepdims=True), (y * y).sum(1, keepdims=True), \
+        y.shape[1]
+    logw = (np.log(ts * (1.0 - ts))[None]
+            - 0.5 * (s2 - 2.0 * ts[None] * s1 + n * ts[None] ** 2) / PROJ_VAR)
+    w = np.exp(logw - logw.max(1, keepdims=True))
+    w /= integrate.trapezoid(w, ts, axis=1)[:, None]
+    mean = integrate.trapezoid(ts[None] * w, ts, axis=1)
+    var = integrate.trapezoid((ts[None] - mean[:, None]) ** 2 * w, ts,
+                              axis=1)
+    return mean, var
+
+
+def proj_gaps(mean, var, q_mean, q_var) -> dict:
+    """The worst gaps to the quadrature: |mean error| and the variance
+    error over (var_rel * var + var_abs) as PROJ_TOL scales it."""
+    mean, var = np.asarray(mean, np.float64), np.asarray(var, np.float64)
+    return {"mean": float(np.abs(mean - q_mean).max()),
+            "var_rel": float((np.abs(var - q_var) / q_var).max())}
+
+
+def slice22_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 21's host work in a process of its own beside phase 3's: the
+    port on the CPU over (a)'s sampled streams, (b)'s quadrature posteriors
+    and (c)'s float64 mean-field VMP."""
+    import torch
+
+    lines: list = []
+    torch.set_num_threads(2)
+    out: dict = {}
+    t0 = time.perf_counter()
+    _, _, y = hgfs_data(HGFS_B, HGFS_T)
+    out["hgfs"] = hgfs_run(torch.device("cpu"), y[:, list(HGFS_ROWS)])
+    lines.append(f"[constraints check] the online HGF on the CPU over "
+                 f"{len(HGFS_ROWS)} streams, {HGFS_T} ticks in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["proj"] = proj_quadrature(proj_data(PROJ_B)[1])
+    _, yg = config2_data()
+    out["mf"] = gauss_vmp_fe_float64(yg, GAUSS_IT, with_state=True)
+    lines.append(f"[constraints check] quadrature of {PROJ_B} datasets and "
+                 f"the float64 VMP of {GAUSS_B} in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    _ended(lines, "phase 21 host checks", wall0)
+    return lines, out
+
+
+def hgf_stream_path(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 21 (a): the online HGF fleet, HGFS_B streams of HGFS_T ticks,
+    HGFS_IT sweeps a tick with the free energy, through ``infer``'s
+    datastream (``batched=True``, keephistory) with the reference
+    constraint: (a0) the sampled streams against the port's CPU run
+    (``host``) at HGFS_TOL relative; (a1) stream 0 by the reference's
+    checks and the fleet's shares within 3 and 6 sd (HGFS_SHARES); (a2)
+    the fleet without ``constraints=`` over the first HGFS_A2_T ticks equal
+    bit for bit on the sampled streams.  No kernel launches.  A two-tick
+    call warms the card first; the timed call is one, by the host's clock
+    (its ticks synchronize).  updates/s = 2 HGFS_T HGFS_B HGFS_IT (x and z
+    a sweep)."""
+    import torch
+
+    z, x, y = hgfs_data(HGFS_B, HGFS_T)
+    rows = list(HGFS_ROWS)
+    hgfs_run(device, y[:2])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (post, fe), peak = _peak_call(device, lambda: hgfs_run(device, y))
+    ms = 1e3 * (time.perf_counter() - t0)
+    expect_launches(read_launches())
+    t0 = time.perf_counter()
+    post_mf, fe_mf = hgfs_run(device, y[:HGFS_A2_T], constrained=False)
+    first = lambda a: a[:HGFS_A2_T]
+    ms_default = 1e3 * (time.perf_counter() - t0)
+    y_prof = y[:HGFS_PROFILE_T]
+    busy, kernels = _busy_and_kernels(lambda: hgfs_run(device, y_prof))
+    prof_ms = _once_ms(lambda: hgfs_run(device, y_prof))[1]
+    errs = {f"{n}_{w}": _rel_max(post[n][i][:, rows], host["hgfs"][0][n][i])
+            for n in ("xt", "zt") for i, w in enumerate(("mean", "var"))}
+    # the free energy printed beside them: its Gaussian average energies
+    # cancel E[out^2] - 2 E[out] mean + mean^2 at |y| of several units in
+    # float32 (tests/test_torch_hgf_streaming.py), so it is not held there
+    fe_err = _rel_max(fe[:, rows], host["hgfs"][1])
+    ref = hgfs_reference_checks(
+        z[:, 0], x[:, 0], {n: (post[n][0][:, 0], post[n][1][:, 0])
+                           for n in ("xt", "zt")}, fe[:, 0])
+    shares = hgfs_shares(z, x, post)
+    same = all(np.array_equal(first(post[n][i])[:, rows],
+                              post_mf[n][i][:, rows])
+               for n in ("xt", "zt") for i in (0, 1)) and np.array_equal(
+        first(fe)[:, rows], fe_mf[:, rows])
+    same_fleet = all(np.array_equal(first(post[n][i]), post_mf[n][i])
+                     for n in ("xt", "zt") for i in (0, 1))
+    ups = 2.0 * HGFS_T * HGFS_B * HGFS_IT / (ms / 1e3)
+    log(f"[constraints] (a) online HGF (B,T)=({HGFS_B},{HGFS_T}), {HGFS_IT} "
+        f"sweeps a tick with FE, q(xt, xt_min)q(zt): call_ms {ms:.1f} "
+        f"updates_per_s {ups:.6g} peak_gb {peak / 1e9:.3f}; a "
+        f"{HGFS_PROFILE_T}-tick call {prof_ms:.1f} ms: busy_ms {busy} idle "
+        f"{_idle_share(prof_ms, busy)} device kernels {kernels}; "
+        f"(a0) against the port on the CPU on streams {rows}, relative: "
+        f"{errs} (tol {HGFS_TOL}), free energy {fe_err:.3g}; (a1) stream 0 "
+        f"{ref}, fleet shares {shares}"
+        f" (gate {HGFS_SHARES}); (a2) without constraints= over {HGFS_A2_T} "
+        f"ticks bit-equal on the sampled streams {same}, on the fleet "
+        f"{same_fleet}, call_ms "
+        f"{ms_default:.1f}; launches none; {smi}")
+    if (max(errs.values()) > HGFS_TOL or not ref["ok"] or not same
+            or not np.isfinite(fe).all()
+            or any(shares[n][k] < HGFS_SHARES[k] for n in shares
+                   for k in HGFS_SHARES)):
+        raise AssertionError(f"the online HGF fleet: {errs}, {ref}, "
+                             f"{shares}, bit-equal {same}")
+    return {"ms": ms, "updates_per_s": ups, "busy_ms": busy,
+            "kernels": kernels, "peak_gb": peak / 1e9, "errs": errs,
+            "fe_err": fe_err}
+
+
+def projection_path(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 21 (b): ``ProjectedTo("beta")`` over PROJ_B datasets through
+    ``infer_batched``, PROJ_IT sweeps: every dataset against its quadrature
+    posterior (``host``) at PROJ_TOL.  No kernel launches.  updates/s =
+    PROJ_B PROJ_IT (one projected marginal a dataset a sweep)."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    _, y = proj_data(PROJ_B)
+    data = {"y": torch.as_tensor(y, device=device)}
+    model = proj_model(rt)
+    cons = rt.constraints(forms={"theta": rt.ProjectedTo(
+        "beta", n_samples=PROJ_SAMPLES)})
+    init = {"theta": rt.Beta(2.0, 2.0)}
+    run = lambda: rt.infer_batched(model, data, iterations=PROJ_IT,
+                                   constraints=cons, initialization=init,
+                                   device=device)
+    run()
+    cell = _nl_cell(device, run, reps=2)
+    q = cell["out"].posteriors["theta"]
+    gaps = proj_gaps(q.mean().cpu().numpy(), q.var().cpu().numpy(),
+                     *host["proj"])
+    var_ok = bool(np.all(np.abs(q.var().cpu().numpy() - host["proj"][1])
+                         <= PROJ_TOL["var_rel"] * host["proj"][1]
+                         + PROJ_TOL["var_abs"]))
+    ups = PROJ_B * PROJ_IT / (cell["ms"] / 1e3)
+    log(f"[constraints] (b) ProjectedTo('beta', n_samples={PROJ_SAMPLES}) "
+        f"B={PROJ_B}, n={PROJ_N}, {PROJ_IT} sweeps: call_ms "
+        f"{cell['ms']:.3f} updates_per_s {ups:.6g} busy_ms "
+        f"{cell['busy_ms']} idle {cell['idle']} device kernels "
+        f"{cell['kernels']} peak_gb {cell['peak_bytes'] / 1e9:.3f}; against "
+        f"the quadrature on every dataset: {gaps} (tol {PROJ_TOL}; twice "
+        f"the JAX package's gaps where it is finite {PROJ_JAX_FINITE}); "
+        f"launches none; {smi}")
+    if gaps["mean"] > PROJ_TOL["mean"] or not var_ok:
+        raise AssertionError(f"ProjectedTo fleet: {gaps}")
+    return {"ms": cell["ms"], "updates_per_s": ups, "gaps": gaps}
+
+
+def mean_field_paths(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 21 (c): ``constraints=MeanField()`` on paths that already
+    run.  Phase 12 (e)'s Gaussian cell through ``infer_batched``: against
+    its float64 mean-field VMP (``host``) at MF_TOL, against the
+    unconstrained program at MF_DEFAULT_TOL.  The LGSSM cell of phase 4
+    (one iteration): one K1 and one K2 launch, as without it, and the
+    posteriors equal to the unconstrained program's bit for bit."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    mf = rt.constraints(factorization=rt.MeanField())
+    _, yg = config2_data()
+    data = {"y": torch.as_tensor(yg, device=device)}
+    model = zoo.gaussian_unknown_mean_precision()
+    init = {"tau": rt.Gamma(1.0, 1.0)}
+    kw = dict(iterations=GAUSS_IT, free_energy=True, initialization=init,
+              device=device)
+    run = lambda: rt.infer_batched(model, data, constraints=mf, **kw)
+    run()
+    cell = _nl_cell(device, run, reps=3)
+    post, fe = cell["out"]
+    base, fe_base = rt.infer_batched(model, data, **kw)
+    o_fe, o = host["mf"]
+    got = {"mu_mean": post["mu"].mean(), "mu_var": post["mu"].var(),
+           "tau_shape": post["tau"].a, "tau_rate": post["tau"].b}
+    want = {"mu_mean": o["mu"][0], "mu_var": o["mu"][1],
+            "tau_shape": o["tau"][0], "tau_rate": o["tau"][1]}
+    dflt = {"mu_mean": base["mu"].mean(), "mu_var": base["mu"].var(),
+            "tau_shape": base["tau"].a, "tau_rate": base["tau"].b}
+    errs = {k: _rel_max(got[k].cpu().numpy(), want[k]) for k in got}
+    errs["fe"] = _rel_max(fe.cpu().numpy(), o_fe)
+    errs_default = {k: _rel_max(got[k].cpu().numpy(), dflt[k].cpu().numpy())
+                    for k in got}
+    errs_default["fe"] = _rel_max(fe.cpu().numpy(), fe_base.cpu().numpy())
+    bit_equal = all(torch.equal(got[k], dflt[k]) for k in got)
+    ups = 2.0 * GAUSS_B * GAUSS_IT / (cell["ms"] / 1e3)
+
+    f, q, h, r, m0, p0 = lgssm_constants(MAIN_D)
+    lg = zoo.lgssm(f, q, h, r, m0, p0)
+    ldata = {"y": torch.as_tensor(lgssm_y(MAIN_B, MAIN_T, MAIN_D),
+                                  device=device)}
+    states, launches, progs = {}, {}, {}
+    for name, cons in (("mean_field", mf), ("default", None)):
+        _, progs[name] = rt.batched_program(lg, ldata, iterations=1,
+                                            constraints=cons, device=device)
+        reset_launches()
+        states[name] = progs[name](ldata)[0]["x"]
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        expect_launches(launches[name], fused_smoother_fwd=1,
+                        fused_smoother_bwd=1)
+    lg_equal = (torch.equal(states["mean_field"].mu, states["default"].mu)
+                and torch.equal(states["mean_field"].sigma,
+                                states["default"].sigma))
+    lg_ms = _cuda_ms(lambda: progs["mean_field"](ldata), 2)
+    log(f"[constraints] (c) MeanField() on gaussian_unknown_mean_precision "
+        f"B={GAUSS_B} n={GAUSS_N}, {GAUSS_IT} sweeps with FE: call_ms "
+        f"{cell['ms']:.3f} updates_per_s {ups:.6g} busy_ms "
+        f"{cell['busy_ms']} idle {cell['idle']} device kernels "
+        f"{cell['kernels']} peak_gb {cell['peak_bytes'] / 1e9:.3f}; against "
+        f"the float64 mean-field VMP, relative: {errs} (tol {MF_TOL}); "
+        f"against the unconstrained program: {errs_default} (tol "
+        f"{MF_DEFAULT_TOL}), bit-equal {bit_equal}; LGSSM (B,T,d)=("
+        f"{MAIN_B},{MAIN_T},{MAIN_D}) under MeanField(): launches "
+        f"{launches['mean_field']}, posteriors bit-equal to the "
+        f"unconstrained program's {lg_equal}, call_ms {lg_ms:.4f}; {smi}")
+    if (max(errs.values()) > MF_TOL
+            or max(errs_default.values()) > MF_DEFAULT_TOL or not lg_equal):
+        raise AssertionError(f"MeanField(): {errs}, {errs_default}, LGSSM "
+                             f"bit-equal {lg_equal}")
+    return {"ms": cell["ms"], "errs": errs, "errs_default": errs_default,
+            "lgssm_launches": launches["mean_field"]}
+
+
 def _start_checker() -> None:
     """A check process's start-up, run while the main process builds the
     kernels: the port's imports and the card's context."""
@@ -6588,6 +7020,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     side18 = pool.apply_async(shared_checks, (wall0,))
     side20 = pool.apply_async(slice20_checks, (wall0,))
     side21 = pool.apply_async(slice21_checks, (wall0,))
+    side22 = pool.apply_async(slice22_checks, (wall0,))
     worst, plain = check_kernels(device, CHECK_SHAPES)
     _elapsed("K1/K2 checks", t_start)
     dyn_lines, dyn_worst = side_dyn.get()
@@ -6736,6 +7169,16 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     cvi_path(device, s21_host, smi=smi)
     strict = strict_path(device, reps=3, smi=smi)
     _elapsed("the nonlinear nodes and the strict-fp32 row", t_start)
+
+    # 21. constraints: (a) the online HGF fleet under the reference
+    # constraint, (b) ProjectedTo over a batch, (c) MeanField() on the
+    # Gaussian cell and the LGSSM cell
+    s22_lines, s22_host = side22.get()
+    print("\n".join(s22_lines))
+    hgf_stream_path(device, s22_host, smi=smi)
+    projection_path(device, s22_host, smi=smi)
+    mean_field_paths(device, s22_host, smi=smi)
+    _elapsed("the constraints", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}

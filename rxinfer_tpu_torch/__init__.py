@@ -10,7 +10,12 @@ A model written with ``@model``, ``latent``, ``plate``,
 over many, and through
 ``infer(autoupdates=...)``, the streaming engine, on one stream or many, on
 an NVIDIA GPU; ``free_energy=True``
-returns the Bethe free energy after every sweep (``engine/bethe.py``).  In a
+returns the Bethe free energy after every sweep (``engine/bethe.py``);
+``constraints=`` takes factorization, form (``ProjectedTo``,
+``PointMassFormConstraint``, ...) and message-form constraints
+(``graph/constraints.py``, ``engine/projection.py``), and
+``options={"rulefallback": NodeFunctionRuleFallback()}`` nodes defined by
+their ``logpdf`` (``factor_node``).  In a
 batched program its Gaussian chains are solved by the hand-written CUDA
 smoother kernels of ``csrc/fused_smoother.cu``, its discrete chains by the
 forward-backward kernels of ``csrc/fused_fb.cu`` (``csrc/fused_fb_wide.cu``
@@ -72,10 +77,31 @@ from .graph.dsl import (  # noqa: F401
     Transition,
     Wishart,
     dot,
+    factor_node,
     latent,
     model,
     plate,
 )
+from .graph.constraints import (  # noqa: F401
+    AbstractFormConstraint,
+    AutoProposal,
+    ComposedFormConstraint,
+    Constraints,
+    FixedMarginalFormConstraint,
+    FullFactorization,
+    InitMessage,
+    LeftProposal,
+    MeanField,
+    PointMassFormConstraint,
+    RightProposal,
+    SampleListFormConstraint,
+    UnspecifiedFormConstraint,
+    constraints,
+    factorize,
+    factorize_slots,
+)
+from .rules.registry import NodeFunctionRuleFallback  # noqa: F401
+from .engine.projection import ProjectedTo  # noqa: F401
 from .rules import (  # noqa: F401
     CVI,
     CVIProjection,

@@ -1,6 +1,8 @@
 """Distribution substrate of the PyTorch port (Gaussian families, Beta,
 Bernoulli, Categorical, Dirichlet, DirichletCollection, GammaShapeRate,
-Wishart, MixtureDist and PointMass; counterpart of ``rxinfer_tpu/dists``)."""
+Wishart, MixtureDist, PointMass, SampleList and the function-form
+LogPdfMessage; counterpart of ``rxinfer_tpu/dists``).  ``sampling.py``
+holds their draws, modes and log-densities."""
 
 from .base import (  # noqa: F401
     HUGE,
@@ -30,7 +32,12 @@ from .gaussian import (  # noqa: F401
 from .discrete import Categorical, Dirichlet, DirichletCollection  # noqa: F401
 from .matrix import Wishart, WishartInverseScale  # noqa: F401
 from .mixture import MixtureDist  # noqa: F401
-from .pointmass import PointMass, register_pointmass_products
+from .pointmass import (  # noqa: F401
+    LogPdfMessage,
+    PointMass,
+    SampleList,
+    register_pointmass_products,
+)
 from .scalar_families import (  # noqa: F401
     AbstractGamma,
     Bernoulli,

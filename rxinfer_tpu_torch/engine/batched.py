@@ -87,6 +87,8 @@ factors' constant interfaces (``_external_random``, ``_slot_signature``).
 
 from __future__ import annotations
 
+import copy
+
 import dataclasses
 import hashlib
 import warnings
@@ -923,12 +925,20 @@ def _partition_shared_adjacency(block, shared: set):
     return rep, per_ds
 
 
+def _with_adjacency(blk: PlainGroup, adjacency: list) -> PlainGroup:
+    """A copy of ``blk`` over part of its adjacency."""
+    part = copy.copy(blk)
+    part.adjacency = adjacency
+    return part
+
+
 def shared_groups(compiled, shared: tuple) -> dict:
     """The pooled groups of ``shared=``: each name -> (group, its
     per-dataset part, its replicated part, the number of replicated
-    factors), validated as the JAX package validates them (its check of a
-    projection form constraint has nothing to check here: the port refuses
-    ``constraints=`` when it compiles the model, ROADMAP A6)."""
+    factors), validated as the JAX package validates them: a projecting
+    form constraint (``ProjectedTo``) is refused, the pooled sum needs
+    closed-form natural-parameter products.  Both parts keep the group's
+    constraints (mean-field factors, forms, message forms)."""
     plain = {b.var.name: b for k, b in compiled.blocks if k == "plain"}
     shared_set = set(shared)
     groups = {}
@@ -941,6 +951,11 @@ def shared_groups(compiled, shared: tuple) -> dict:
                 " — shared aggregation covers non-chain (conjugate "
                 "parameter) variables.")
         blk = plain[nm]
+        if hasattr(blk.form_constraint, "project_product"):
+            raise NotImplementedError(
+                f"shared variable {nm!r} has a projection form constraint; "
+                "shared aggregation needs closed-form natural-parameter "
+                "products.")
         rep_adj, pd_adj = _partition_shared_adjacency(blk, shared_set)
         plated_rep = [e[0] for e in rep_adj if e[0].plate is not None]
         if plated_rep:
@@ -956,8 +971,8 @@ def shared_groups(compiled, shared: tuple) -> dict:
             raise ValueError(
                 f"shared variable {nm!r} has no per-dataset factors; sharing "
                 "it is a no-op.")
-        groups[nm] = (blk, PlainGroup(blk.var, pd_adj, blk.family),
-                      PlainGroup(blk.var, rep_adj, blk.family), len(rep_adj))
+        groups[nm] = (blk, _with_adjacency(blk, pd_adj),
+                      _with_adjacency(blk, rep_adj), len(rep_adj))
     return groups
 
 

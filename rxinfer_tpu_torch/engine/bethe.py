@@ -13,9 +13,14 @@
   variable's degree.
 * A deterministic node (Delta) has no average energy: its term is -H of
   the joint belief over its inputs, from the cavity beliefs
-  (``bethe_term``), and an unplated contracted nonlinear Gaussian between
-  two random variables takes its structured (out, in) pair
-  (``nonlinear_pair_fe``).
+  (``bethe_term``).
+* An unplated Gaussian factor between two random variables (the four
+  Gaussian nodes' (out, mean), the dot-product likelihood's and a
+  contracted nonlinear Gaussian's (out, in)) takes its structured pair,
+  rebuilt from the stored cavity messages (``gaussian_pair_fe``), and an
+  unplated single-step GCV its pair q(out, in) with the cross
+  ``attach_gcv_pair_cross`` rebuilds; a factor a factorization
+  constraint splits (``mean_field``) takes the mean-field terms.
 * On a tree at the BP fixed point FE equals -log Z.
 
 Every term is evaluated over the whole batch at once (batch axis first, as
@@ -24,10 +29,11 @@ the blocks' updates are), not per dataset under a ``vmap``: a factor's
 
 Ported: ``slot_degrees`` (an empty plate contributes no degree; the JAX
 version divides by its size and raises ``ZeroDivisionError``),
-``gaussian_pair_entropy``, ``discrete_pair_entropy``, ``FactorFE`` with the
-mean-field branch (average energy minus the entropies of its random
-interfaces, the missing-data mask, the copy accounting of plated factors)
-and the chain-transition branch (Gaussian scalar and vector chains,
+``gaussian_pair_entropy``, ``discrete_pair_entropy``, ``gaussian_pair_fe``,
+``FactorFE`` with the mean-field branch (average energy minus the entropies
+of its random interfaces, the missing-data mask, the copy accounting of
+plated factors), the structured pair branches above and the
+chain-transition branch (Gaussian scalar and vector chains,
 ``DiscreteTransition``), and ``variable_entropy_term``.
 
 One deliberate difference: a chain transition's local entropy is its pair
@@ -36,13 +42,11 @@ random transition matrix, a random process-noise precision), as the
 mean-field branch counts a shared interface.  The JAX version subtracts the
 pair entropy alone, so on such a chain (``zoo.hmm``: the matrix A) its free
 energy is off by (T - 1) H[q(A)] and can fall below zero on discrete data;
-the port's equals the float64 structured-VMP free energy.  The JAX package's
-other branches read cavity message stores the port lacks (``_msg:`` keys
-of nodes outside ``CAVITY_STORE_NODES``): the structured pair of a
-Gaussian factor between two random variables, the affine
-custom-transition pair and structured single-step GCV.  A factor that could take one of
-them raises ``NotImplementedError`` naming ROADMAP A6 when its evaluator is
-built, rather than fall back to the mean-field bound.
+the port's equals the float64 structured-VMP free energy.  The affine
+custom-transition pair of the JAX package (a lagged transition left to
+iterative message passing) needs the tree schedule: a factor that could
+take it raises ``NotImplementedError`` naming ROADMAP A6f when its
+evaluator is built, rather than fall back to the mean-field bound.
 """
 
 from __future__ import annotations
@@ -58,14 +62,15 @@ from .blocks import BatchContext, _coverage, build_q, in_cavity_cluster
 
 _LOG2PIE = 2.837877066409345  # log(2*pi*e)
 
-# Gaussian factors whose (out, mean) pair the JAX package treats as one
-# cluster when both are random (``gaussian_pair_fe``)
-_GAUSS_PAIR = {"NormalMeanVariance", "NormalMeanPrecision",
-               "MvNormalMeanCovariance", "MvNormalMeanPrecision"}
+# Gaussian factors whose (out, mean) pair is one cluster when both are
+# random, with their noise interface
+_GAUSS_PAIR_NOISE = {"NormalMeanVariance": "var",
+                     "NormalMeanPrecision": "prec",
+                     "MvNormalMeanCovariance": "cov",
+                     "MvNormalMeanPrecision": "prec"}
 # and the (out, in) pair of a dot-product likelihood
 _DOT_PAIR = {"GaussianDotCovariance", "GaussianDotPrecision"}
-# and of a contracted nonlinear Gaussian, out = fn(in) + noise, whose
-# cavity messages the port stores (engine/blocks.py CAVITY_STORE_NODES)
+# and of a contracted nonlinear Gaussian, out = fn(in) + noise
 _NG_PAIR = {"NonlinearGaussianCovariance", "NonlinearGaussianPrecision"}
 
 
@@ -97,27 +102,51 @@ def _noise_expectations(q, noise_key: str, d: int):
     return w, -elogw
 
 
-def nonlinear_pair_fe(f, q: dict, state: dict, in_key: str, noise_key: str):
-    """AE - H over the local joint q(out, in) of a nonlinear Gaussian factor
-    out = fn(in) + noise, rebuilt from the cavity messages (the marginals
-    divided by the factor's stored messages) and fn linearized at the
-    input's mean: joint precision [[W_o + W, -W A], [-A^T W, W_i + A^T W A]]
-    with (A, b) the linearized map.  Exact for a linear fn: on a tree the
-    free energy is then -log Z.  The noise's entropy stays mean-field."""
+def _pair_map(f, q: dict, in_key: str, r_in: int, d_o: int, d_i: int,
+              like):
+    """The pair's observation map out = A in + b (+ noise) as (A (...,
+    d_o, d_i), b (..., d_o)): a contracted nonlinear Gaussian's fn
+    linearized at the input's mean, a dot-product node's known row, the
+    identity for a Gaussian node's (out, mean) (on ``like``'s device and
+    dtype)."""
+    from ..rules.delta import _moments, _vmap_copies
+
+    dev, dt = like.device, like.dtype
+    fn = (f.meta or {}).get("fn")
+    if fn is not None:
+        m_i, _ = _moments(q[in_key], r_in)
+        f0, _, a_mat = _vmap_copies(fn, m_i, [m_i.shape[-1]], [r_in >= 1],
+                                    jacobian=True)
+        return a_mat, f0 - torch.einsum("...ij,...j->...i", a_mat, m_i)
+    if isinstance(q.get("A"), PointMass):
+        a_mat = q["A"].point.reshape(q["A"].point.shape[:-1] + (d_o, d_i))
+        b = q.get("b")
+        b_vec = (b.point[..., None] if isinstance(b, PointMass)
+                 else torch.zeros((d_o,), dtype=dt, device=dev))
+        return a_mat, b_vec
+    return (torch.eye(d_o, dtype=dt, device=dev),
+            torch.zeros((d_o,), dtype=dt, device=dev))
+
+
+def gaussian_pair_fe(f, q: dict, state: dict, in_key: str, noise_key: str):
+    """AE - H over the local joint q(out, in) of a Gaussian factor out =
+    g(in) + noise, rebuilt from the cavity messages (the marginals divided
+    by the factor's stored messages) with g affine or linearized at the
+    input's mean (``_pair_map``): joint precision [[W_o + W, -W A],
+    [-A^T W, W_i + A^T W A]].  Exact for an affine g: on a tree the free
+    energy is then -log Z.  The noise's entropy stays mean-field (the
+    reference's default constraints)."""
     from ..dists.natural import nat_div
     from ..ops.smallmat import small_inv, small_logdet
-    from ..rules.delta import _info_form, _moments, _rank, _vmap_copies
+    from ..rules.delta import _info_form, _rank
 
     cav_out = nat_div(q["out"], state[f"_msg:{f.id}:out"])
     cav_in = nat_div(q[in_key], state[f"_msg:{f.id}:{in_key}"])
     r_in = _rank(q, in_key)
-    m_i, _ = _moments(q[in_key], r_in)
-    f0, out_vec, a_mat = _vmap_copies(f.meta["fn"], m_i, [m_i.shape[-1]],
-                                      [r_in >= 1], jacobian=True)
-    xi_o, w_o = _info_form(cav_out, 1 if out_vec else 0)
+    xi_o, w_o = _info_form(cav_out, _rank(q, "out"))
     xi_i, w_i = _info_form(cav_in, r_in)
     d_o, d_i = xi_o.shape[-1], xi_i.shape[-1]
-    b_vec = f0 - torch.einsum("...ij,...j->...i", a_mat, m_i)
+    a_mat, b_vec = _pair_map(f, q, in_key, r_in, d_o, d_i, xi_o)
     wbar, elogv = _noise_expectations(q, noise_key, d_o)
     wa = wbar @ a_mat
     at = a_mat.transpose(-1, -2)
@@ -220,62 +249,70 @@ def _per_element(x, batch: int):
     return x.reshape(x.shape[0], -1).sum(dim=1)
 
 
-def _unported_branch(f, what: str):
+def _unported_branch(f, what: str, item: str):
     return NotImplementedError(
         f"free_energy=True: factor {f.fform} ({f.id}) takes the JAX "
-        f"package's {what}, which reads the cavity message stores (or nodes) "
-        "the PyTorch package does not have yet (ROADMAP A6).")
+        f"package's {what}, which the PyTorch package does not have yet "
+        f"(ROADMAP {item}).")
 
 
 class FactorFE:
     """One factor's free-energy contribution over the batch, (B,): its
-    average energy minus its local entropy.  Built once per compiled
-    model."""
+    average energy minus its local entropy.  ``mean_field``: a
+    factorization constraint splits the factor, which then takes the
+    mean-field terms only.  Built once per compiled model."""
 
     def __init__(self, factor, is_chain_transition: bool,
-                 chain_scalar: bool):
+                 chain_scalar: bool, mean_field: bool = False):
         f = self.factor = factor
         self.is_chain_transition = is_chain_transition
         self.chain_scalar = chain_scalar
+        self.mean_field = mean_field
         node_cls = get_node(f.fform)
         if len(getattr(f, "plates", ())) >= 2:
-            raise _unported_branch(f, "grid (nested-plate) accounting")
+            raise _unported_branch(f, "grid (nested-plate) accounting",
+                                   "A6e")
         # a deterministic node has no average energy: its whole term is
         # -H[q_a] of the joint belief over its inputs (``bethe_term`` on the
         # cavities)
         self.bethe_fn = getattr(node_cls, "bethe_term", None)
         self.energy_fn = (None if self.bethe_fn is not None
                           else get_average_energy(f.fform))
-        # the structured (out, in) pair of an unplated nonlinear Gaussian
-        # with one random input, once both cavity messages are stored
-        self.pair = None
-        if (not is_chain_transition and f.plate is None
-                and f.out.var.kind == "random" and f.fform in _NG_PAIR):
-            in_keys = [k for k in f.interfaces if k.startswith("in")]
-            rand = [k for k in in_keys if isinstance(f.interfaces[k], Ref)
-                    and f.interfaces[k].var.kind == "random"]
-            if len(in_keys) == 1 and len(rand) == 1:
-                noise_key = next(k for k in ("var", "cov", "prec")
-                                 if k in f.interfaces)
-                self.pair = (rand[0], noise_key)
         in_ref = f.interfaces.get("in")
-        if (not is_chain_transition and f.plate is not None
+        if (not is_chain_transition and not mean_field
+                and f.plate is not None
                 and isinstance(in_ref, Ref) and f.out.var.kind == "random"
                 and f.out.var is in_ref.var
                 and in_cavity_cluster(node_cls, "out")
                 and in_cavity_cluster(node_cls, "in")):
-            raise _unported_branch(f, "affine custom-transition pair")
-        mean_ref = f.interfaces.get(
-            "in" if f.fform in _DOT_PAIR else "mean")
-        if (not is_chain_transition and f.plate is None
-                and f.out.var.kind == "random"
-                and f.fform in _GAUSS_PAIR | _DOT_PAIR
-                and isinstance(mean_ref, Ref)
-                and mean_ref.var.kind == "random"):
-            # the JAX package takes the exact (out, mean) pair here whenever
-            # both cavity messages are stored; the port keeps no such store
-            # and cannot tell, so it refuses rather than take the bound
-            raise _unported_branch(f, "structured (out, mean) pair")
+            raise _unported_branch(f, "affine custom-transition pair", "A6f")
+        # the structured (out, in) pair of an unplated Gaussian factor
+        # between two random variables, once both cavity messages are
+        # stored: (in-interface, noise-interface)
+        self.pair = None
+        structured = (not is_chain_transition and not mean_field
+                      and f.plate is None and f.out.var.kind == "random")
+        # the structured single-step GCV pair (the reference HGF
+        # constraint q(xt, zt, xt_min) = q(xt, xt_min)q(zt))
+        self.gcv_pair = structured and f.fform == "GCV"
+        if not structured:
+            return
+
+        def random(key):
+            v = f.interfaces.get(key)
+            return isinstance(v, Ref) and v.var.kind == "random"
+
+        if f.fform in _GAUSS_PAIR_NOISE and random("mean"):
+            self.pair = ("mean", _GAUSS_PAIR_NOISE[f.fform])
+        elif f.fform in _DOT_PAIR and random("in"):
+            self.pair = ("in", "var" if "var" in f.interfaces else "prec")
+        elif f.fform in _NG_PAIR:
+            in_keys = [k for k in f.interfaces if k.startswith("in")]
+            rand = [k for k in in_keys if random(k)]
+            if len(in_keys) == 1 and len(rand) == 1:
+                noise_key = next(k for k in ("var", "cov", "prec")
+                                 if k in f.interfaces)
+                self.pair = (rand[0], noise_key)
 
     def __call__(self, state: dict, data: dict, chain_cross: dict,
                  ctx: BatchContext, entropies: dict | None = None):
@@ -287,13 +324,27 @@ class FactorFE:
         n_copies = _n_copies(f)
         if self.bethe_fn is not None:
             return self._bethe_term(state, data, chain_cross, ctx)
+        if (self.gcv_pair and f"_msg:{f.id}:out" in state
+                and f"_msg:{f.id}:in" in state):
+            # AE over the joint q(out, in) (build_q attaches the cross
+            # rebuilt from the cavities) and the pair's entropy in place of
+            # the two marginal ones
+            q = build_q(f, state, data, ctx=ctx)
+            h = gaussian_pair_entropy(q["out"].var(), q["in"].var(),
+                                      q["joint"], scalar=True)
+            for name in ("z", "kappa", "omega"):
+                qv, v = q.get(name), f.interfaces.get(name)
+                if (qv is not None and not isinstance(qv, PointMass)
+                        and isinstance(v, Ref) and v.var.kind == "random"):
+                    h = h + qv.entropy()
+            return _per_element(self.energy_fn(q) - h, batch)
         if self.pair is not None:
             in_key, noise_key = self.pair
             if (f"_msg:{f.id}:out" in state
                     and f"_msg:{f.id}:{in_key}" in state):
                 q = build_q(f, state, data, ctx=ctx)
                 return _per_element(
-                    nonlinear_pair_fe(f, q, state, in_key, noise_key), batch)
+                    gaussian_pair_fe(f, q, state, in_key, noise_key), batch)
         q = build_q(f, state, data, chain_cross=chain_cross, ctx=ctx)
         ae = self.energy_fn(q)
         # a missing observation removes its copy: its entropy terms cancel

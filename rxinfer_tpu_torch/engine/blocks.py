@@ -14,31 +14,33 @@ batched program's plan-time probes (engine/batched.py) evaluate
 (``cpu_context``), once, to extract the fused plan's constants.
 
 Ported: ``build_q`` (with the structured ``joint`` of a chain transition from
-``chain_cross``), ``resolve_iface``, ``factor_data_mask`` and
-``mask_message`` (NaN observations are zero-filled by the program and their
-factor copies masked out), ``in_cavity_cluster``, ``_coverage``,
-``PlainGroup`` for the mean-field path (scalar groups plate-reduced, array
-groups padded over their slots; a rule that reads its own marginal sees it
-once the group has one), ``divide_cavities``, ``GaussianChainBlock`` (its ``update`` with the
+``chain_cross``, and of a single-step GCV factor from its stored cavity
+messages, ``attach_gcv_pair_cross``), ``resolve_iface``,
+``factor_data_mask`` and ``mask_message`` (NaN observations are zero-filled
+by the program and their factor copies masked out), ``in_cavity_cluster``,
+``_coverage``, ``divide_cavities``, ``PlainGroup`` (scalar groups
+plate-reduced, array groups padded over their slots; a rule that reads its
+own marginal sees it once the group has one; the EP cavity store of every
+node that declares ``cavity_cluster`` or ``uses_cavity``, which a
+mean-field factor skips; form and message-form constraints; function-form
+fallback messages, which a projecting form must absorb),
+``GaussianChainBlock`` (its ``update`` with the
 Kalman scans of ``ops/kalman.py``, its evidence with the damping of
-``meta={...: {"damping": lam}}``), ``GCVChainBlock`` and ``ARChainBlock``
+``meta={...: {"damping": lam}}`` and the cavity store of its evidence
+factors' clusters), ``GCVChainBlock`` and ``ARChainBlock``
 (per-chain transitions re-assembled from the state every sweep, on the same
 scans) and ``DiscreteChainBlock`` (its ``update`` with
 ``ops/discrete_chain.py``), each solving with the associative scans from 48
 slots and the loops below.
-``PlainGroup.update`` ends with ``PlainGroup.finalize``'s family
-conversion: a product in the Wishart inverse-scale carrier becomes a
-``Wishart`` (form constraints, its other branch, are not ported); with
-``raw_product`` it returns the product before it, for pooled ``shared=``
-sums.  The cavity (EP) message store is ported for the generic ``Mixture``
-node and the Delta / NonlinearGaussian nodes (``CAVITY_STORE_NODES``).
-Not ported: the ``time_mesh`` branch
-of ``GaussianChainBlock.update`` (time sharding), the single-step GCV pair
-(``attach_gcv_pair_cross``), and the ``PlainGroup`` branches that
-``engine/compile.py`` refuses when it builds a group: grid (nested-plate)
-factors, the other nodes' cavity stores, required-message dependencies,
-mean-field splits, form and message-form constraints and function-form
-fallback messages.
+``PlainGroup.update`` ends with ``PlainGroup.finalize``: a product in the
+Wishart inverse-scale carrier becomes a ``Wishart``, then the form
+constraint applies; with ``raw_product`` it returns the product before
+it, for pooled ``shared=`` sums.  The cavity stores are state entries
+``_msg:<factor id>:<interface>``, as in the JAX package.
+Not ported: the ``time_mesh`` branch of ``GaussianChainBlock.update``
+(time sharding), and the ``PlainGroup`` branches that ``engine/compile.py``
+refuses when it builds a group: grid (nested-plate) factors and
+required-message dependencies.
 """
 
 from __future__ import annotations
@@ -48,7 +50,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dists import PointMass, WishartInverseScale, pd_inverse, tree_map
+from ..dists import (
+    PointMass,
+    WishartInverseScale,
+    pd_inverse,
+    tree_leaves,
+    tree_map,
+)
 from ..dists.gaussian import (
     ScalarGaussians,
     as_mv_weighted_mean_precision,
@@ -160,7 +168,32 @@ def build_q(f: Factor, state: dict, data: dict,
         if (isinstance(in_ref, Ref) and f.out.var is in_ref.var
                 and f.out.var.name in chain_cross):
             q["joint"] = chain_cross[f.out.var.name]
+    if "joint" not in q:
+        attach_gcv_pair_cross(q, f, state)
     return q
+
+
+def attach_gcv_pair_cross(q: dict, f: Factor, state: dict) -> None:
+    """Structured single-step GCV: Cov(out, in) of the cluster q(out, in)
+    from the stored cavity messages and the expected volatility precision
+    w, attached as ``q["joint"]``.  The pair's joint precision is
+    [[w_out_cav + w, -w], [-w, w_in_cav + w]], so Cov(out, in) =
+    w / det.  This is the reference HGF constraint ``q(xt, zt, xt_min) =
+    q(xt, xt_min)q(zt)`` on a GCV factor that is not a chain's transition
+    (a chain's carries its exact cross in ``chain_cross``); a mean-field
+    factor stores no cavity messages, so it gets none."""
+    if f.fform != "GCV" or "out" not in q or "in" not in q or "z" not in q:
+        return
+    ko, ki = f"_msg:{f.id}:out", f"_msg:{f.id}:in"
+    if ko not in state or ki not in state:
+        return
+    from ..rules.gcv import expected_precision
+
+    w_o = as_weighted_mean_precision(nat_div(q["out"], state[ko])).w
+    w_i = as_weighted_mean_precision(nat_div(q["in"], state[ki])).w
+    wbar = expected_precision(q)
+    det = (w_o + wbar) * (w_i + wbar) - wbar * wbar
+    q["joint"] = wbar / det
 
 
 def factor_data_mask(f: Factor, data: dict):
@@ -227,14 +260,36 @@ def in_cavity_cluster(node_cls, iface: str) -> bool:
     )
 
 
-# Nodes whose cavity (EP) messages the port stores: the generic Mixture's
-# rules read the inbound messages on its other edges, a Delta's or
-# NonlinearGaussian's the messages on its other (out, in) edges.  Another
-# node's cavity cluster that holds a second random variable is refused at
-# compile time (ROADMAP A6).
-CAVITY_STORE_NODES = frozenset({"Mixture", "Delta",
-                                "NonlinearGaussianCovariance",
-                                "NonlinearGaussianPrecision"})
+def with_batch_axis(d, batch: int, plated: bool = False):
+    """``d`` with the batch axis on every natural-parameter leaf (and,
+    ``plated``, a plate or slot axis after it): a leaf computed from
+    constants alone lacks it and is broadcast (a view), so that a stored
+    message or a marginal leads with the batch whatever its inputs.  A
+    distribution without a natural-parameter view (a mixture) is returned
+    as it is, and so is one whose leaves all have the axes."""
+    try:
+        key = family_key(d)
+    except TypeError:
+        return d
+    need = 2 if plated else 1
+    ranks = NAT_EVENT_RANKS[key]
+    # every family's fields have its natural leaves' ranks, in their order:
+    # the shapes are read without computing anything
+    leaves = tree_leaves(d)
+    if len(leaves) == len(ranks) and all(
+            a.ndim - r >= need for a, r in zip(leaves, ranks)):
+        return d
+    nat = to_natural(d)
+    if all(n.ndim - r >= need for n, r in zip(nat, ranks)):
+        return d
+    out = []
+    for n, r in zip(nat, ranks):
+        if n.ndim - r < need:
+            if need == 2 and n.ndim == r:
+                n = n.unsqueeze(0)          # shared by every copy
+            n = n.expand((batch,) + tuple(n.shape))
+        out.append(n)
+    return from_natural(key, tuple(out))
 
 
 def divide_cavities(f: Factor, iface: str, q: dict, state: dict,
@@ -258,28 +313,41 @@ class PlainGroup:
     the product of every adjacent factor's message to v (natural-parameter
     sums), plate-reduced for a scalar group and padded over the slots for an
     array group.  ``adjacency`` lists (factor, interface, rule) with the rule
-    resolved at compile time; ``engine/compile.py`` has already refused the
-    branches this port lacks.  A factor of ``CAVITY_STORE_NODES`` sees, on
-    the other random edges of its cluster, the marginal divided by its last
-    message there (``divide_cavities``), and keeps its message to this group
-    in the state under ``_msg:<factor id>:<interface>``.  A rule that reads
-    its own marginal (``needs_self_marginal``) sees it once the group has
-    one.  Messages are coerced to the group's ``family`` (a two-class
-    Categorical to a Bernoulli)."""
+    resolved at compile time (the mean-field ``vmp_`` variant of a factor in
+    ``mf_ids``, a ``NodeFunctionRuleFallback`` rule where the node has
+    none); ``engine/compile.py`` has already refused the branches this port
+    lacks.  A factor outside ``mf_ids`` whose node declares this interface
+    in its BP cluster (``in_cavity_cluster``) sees, on the other random
+    edges of its cluster, the marginal divided by its last message there
+    (``divide_cavities``), and keeps its message to this group in the state
+    under ``_msg:<factor id>:<interface>``.  A rule that reads its own
+    marginal (``needs_self_marginal``) sees it once the group has one.
+    Messages are coerced to the group's ``family`` (a two-class Categorical
+    to a Bernoulli).  ``message_form`` constrains each inbound message
+    before the product (mu(x)::C), ``form_constraint`` the product (q(x)::C;
+    a projecting one, such as ``ProjectedTo``, takes the messages
+    themselves and the previous marginal as its warm start)."""
 
-    def __init__(self, var, adjacency: list, family=None):
+    def __init__(self, var, adjacency: list, family=None,
+                 form_constraint=None, mf_ids=None, message_form=None,
+                 event_ndim: int = 0):
         self.var = var
         self.adjacency = adjacency
         self.family = family
+        self.form_constraint = form_constraint
+        self.mf_ids = frozenset(mf_ids or ())
+        self.message_form = message_form
+        self.event_ndim = event_ndim
 
-    @staticmethod
-    def finalize(q):
-        """The family conversion of a message product (split out of
-        ``update`` so that pooled ``shared=`` aggregation can sum the
-        products over the batch before it): a product in the Wishart
-        inverse-scale carrier becomes a ``Wishart``."""
+    def finalize(self, q):
+        """The family conversion and form constraint of a message product
+        (split out of ``update`` so that pooled ``shared=`` aggregation can
+        sum the products over the batch before it): a product in the
+        Wishart inverse-scale carrier becomes a ``Wishart``."""
         if isinstance(q, WishartInverseScale):
             q = q.to_wishart()
+        if self.form_constraint is not None:
+            q = self.form_constraint.constrain(q)
         return q
 
     def update(self, state: dict, data: dict, chain_cross: dict,
@@ -288,6 +356,9 @@ class PlainGroup:
         messages before ``finalize`` (a conjugate carrier such as the
         Wishart inverse-scale one, summed over the batch before it is
         normalized)."""
+        from ..dists import LogPdfMessage
+        from ..dists.base import ProductError
+
         msgs = []
         length = self.var.length
         for f, iface, rule in self.adjacency:
@@ -299,14 +370,20 @@ class PlainGroup:
                           and self.var.name in state)
             q = build_q(f, state, data, exclude=None if needs_self else iface,
                         chain_cross=chain_cross, ctx=ctx)
-            cavity = (f.fform in CAVITY_STORE_NODES
+            cavity = (f.id not in self.mf_ids
                       and in_cavity_cluster(node_cls, iface))
             if cavity:
                 divide_cavities(f, iface, q, state, node_cls)
-            msg = mask_message(coerce_message_family(rule(q), self.family),
-                               ctx.masks.get(f.id))
+            raw = coerce_message_family(rule(q), self.family)
+            if isinstance(raw, LogPdfMessage):
+                # function-form fallback: the plate is folded into its
+                # log-density; a form constraint must project it
+                msgs.append(raw)
+                continue
+            msg = mask_message(raw, ctx.masks.get(f.id))
             if cavity:
-                state[f"_msg:{f.id}:{iface}"] = msg
+                state[f"_msg:{f.id}:{iface}"] = with_batch_axis(
+                    msg, ctx.batch, f.plate is not None)
             if length is None:
                 if f.plate is not None:
                     msg = prod_reduce(msg, f.plate.size, batch_ndim=1)
@@ -316,8 +393,52 @@ class PlainGroup:
                 lo, hi = cov if isinstance(cov, tuple) else (cov, cov + 1)
                 msg = pad_plate(msg, lo, hi, length, batch_ndim=1)
             msgs.append(msg)
+        mform = self.message_form
+        if mform is not None:
+            # mu(x)::C on each inbound message; a projecting constraint
+            # absorbs fallback messages too
+            if hasattr(mform, "project_product"):
+                msgs = [mform.project_product([m]) for m in msgs]
+            else:
+                msgs = [m if isinstance(m, LogPdfMessage)
+                        else mform.constrain(m) for m in msgs]
+        if self.form_constraint is not None and hasattr(
+                self.form_constraint, "project_product"):
+            # a product without a closed form, projected; the previous
+            # sweep's marginal warm-starts it (the reference's
+            # ProjectionContext)
+            return self._batched(self.form_constraint.project_product(
+                msgs, prev=state.get(self.var.name)), ctx.batch)
+        if any(isinstance(m, LogPdfMessage) for m in msgs):
+            raise ProductError(
+                f"Variable {self.var.name} receives a function-form fallback "
+                "message (NodeFunctionRuleFallback); add a functional-form "
+                "constraint for it, e.g. constraints(forms={"
+                f"{self.var.name!r}: ProjectedTo(...)}}) — the reference "
+                "likewise requires q(x)::ProjectedTo(...) with the fallback "
+                "(docs/src/manuals/inference/undefinedrules.md).")
         q = prod_all(msgs)
-        return q if raw_product else self.finalize(q)
+        if raw_product:
+            return q
+        return self._batched(self.finalize(q), ctx.batch)
+
+    def _batched(self, q, batch: int):
+        """The marginal with the batch axis on every leaf: a product of
+        messages computed from constants alone (mean-field rules), a pinned
+        or collapsed form (``FixedMarginalFormConstraint``, a point mass of
+        constants) lacks it on some."""
+        from ..dists import SampleList
+
+        need = 1 if self.var.length is None else 2
+        expand = lambda a, lead: a.expand((batch,) + tuple(a.shape)) \
+            if lead < need else a
+        if isinstance(q, PointMass):
+            return PointMass(expand(q.point, q.point.ndim - self.event_ndim))
+        if isinstance(q, SampleList):
+            lead = q.log_weights.ndim - 1
+            return SampleList(expand(q.samples, lead),
+                              expand(q.log_weights, lead))
+        return with_batch_axis(q, batch, self.var.length is not None)
 
 
 class GaussianChainBlock:
@@ -422,8 +543,9 @@ class GaussianChainBlock:
         reads its own marginal (``needs_self_marginal``: GCV's message to
         z, a delta's backward rules) sees the chain's current marginal once
         it has one, and a chain transition's pair statistics ride along
-        (``chain_cross``).  A factor of ``CAVITY_STORE_NODES`` divides the
-        other random interfaces of its cluster by its stored messages
+        (``chain_cross``).  A factor whose node declares ``iface`` in its
+        BP cluster divides the other random interfaces of the cluster by
+        its stored messages
         (``divide_cavities``) and keeps this message in the state under
         ``_msg:<factor id>:<interface>`` for its neighbours.  With
         ``meta={...: {"damping": lam}}`` the message is blended with the
@@ -439,15 +561,15 @@ class GaussianChainBlock:
         uses_cavity = in_cavity_cluster(node_cls, iface)
         if uses_cavity:
             # EP cavity: same-cluster random neighbours are divided by this
-            # factor's stored messages (engine/compile.py refuses a cluster
-            # with another random interface outside CAVITY_STORE_NODES)
+            # factor's stored messages
             divide_cavities(f, iface, q, state, node_cls)
         msg = rule(q)
         damping = (f.meta or {}).get("damping")
-        if not damping and uses_cavity and f.fform in CAVITY_STORE_NODES:
+        if not damping and uses_cavity:
             # kept (before any missing-data mask) for the neighbours'
             # cavities and the free energy
-            state[f"_msg:{f.id}:{iface}"] = msg
+            state[f"_msg:{f.id}:{iface}"] = with_batch_axis(
+                msg, ctx.batch, f.plate is not None)
         if damping:
             key = f"_msg:{f.id}:{iface}"
             stored = msg if f.plate is None else pad_plate(

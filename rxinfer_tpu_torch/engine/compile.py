@@ -8,11 +8,15 @@ the single-dataset program of ``infer`` (``make_program`` / ``run`` /
 ``run_iterative``) and the batched program (engine/batched.py).
 
 Ported subset: ``contract_deltas``, ``normalize_transitions``,
-``detect_chains``, ``schedule_sweep``, ``attach_meta`` (``meta=``) and the
+``detect_chains``, ``schedule_sweep``, ``attach_meta`` (``meta=``),
+``_mean_field_factor_ids`` (factorization constraints) and the
 parts of ``CompiledModel`` that models of Gaussian, AR, GCV and discrete
-chains and plain conjugate groups need with ``constraints=None``: block
-construction with compile-time rule
-resolution, ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
+chains and plain conjugate groups need: block construction with
+compile-time rule resolution (the mean-field ``vmp_`` variants of a
+factor split by a factorization constraint, ``options={"rulefallback":
+NodeFunctionRuleFallback()}`` where a node has no rule, the form and
+message-form constraints of each plain group, the slot-factorization
+checks), ``_init_state``, ``plan_report``, ``_with_derived``, the sweep
 (``_sweep_once``, batch-major under a ``BatchContext``: one dataset is a
 batch of one), the Bethe free energy after each sweep (``degrees``,
 ``fe_factors``, ``_free_energy``; ``options={"check_objective": True}``
@@ -32,8 +36,8 @@ family the port has a natural-parameter view for (``gaussian``,
 ``dirichlet_collection``, ``gamma``, ``wishart``).  Not ported yet (they
 raise ``NotImplementedError``): plain groups of other families
 (``inverse_gamma``, ...), the plain-group branches listed in
-``engine/blocks.py``, single-step GCV factors (``check_gcv_factors``),
-constraints, tree-scheduled (auto-initialized) loopy models.
+``engine/blocks.py``, submodel-scoped constraints, tree-scheduled
+(auto-initialized) loopy models.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ from .bethe import (
     variable_entropy_term,
 )
 from .blocks import (
-    CAVITY_STORE_NODES,
     ARChainBlock,
     BatchContext,
     DiscreteChainBlock,
@@ -267,28 +270,64 @@ class matmul_precision_scope:
 
 
 def check_gcv_factors(graph: ModelGraph, chains: dict) -> None:
-    """Every GCV factor must be the transition of a GCV chain whose
-    volatility z is indexed a step.  A GCV factor that is not a chain's
-    transition is a single-step GCV, whose (out, in) pair the JAX package
-    keeps from stored cavity messages and the structured HGF constraints,
-    which are not ported; a chain transition with one z for every step is
-    not a model the JAX package's GCVChainBlock can assemble."""
-    transitions = {id(spec.transition): spec for spec in chains.values()}
-    for f in graph.factors:
+    """A GCV chain's volatility z must be indexed a step: a chain
+    transition with one z for every step is not a model the JAX package's
+    GCVChainBlock can assemble.  (A GCV factor that is no chain's
+    transition is a single-step GCV: its (out, in) pair is kept from the
+    stored cavity messages, ``engine/blocks.py`` ``attach_gcv_pair_cross``.)"""
+    for spec in chains.values():
+        f = spec.transition
         if f.fform != "GCV":
             continue
-        if id(f) not in transitions:
-            raise NotImplementedError(
-                f"factor GCV ({f.id}) is a single-step GCV (not the "
-                "transition of a GCV chain); its cavity store and the "
-                "structured constraints are not ported to the PyTorch "
-                "package yet (ROADMAP A6c).")
         z = f.interfaces.get("z")
         if not (isinstance(z, Ref) and isinstance(z.idx, SymIndex)):
             raise NotImplementedError(
                 f"GCV chain {f.out.var.name!r}: its volatility z must be "
                 "indexed a step (z[t]); a volatility shared by the steps is "
                 "not a model the JAX package's GCV chain block assembles.")
+
+
+def _mean_field_factor_ids(graph: ModelGraph, constraints) -> set:
+    """Ids of the factors whose neighbourhood a factorization constraint
+    splits.  ``MeanField()`` splits every factor.  A ``factorize()`` group
+    splits a factor when it names two variables of the factor's structured
+    (cavity) cluster, or of its random interfaces when the node declares
+    none; a split across the default mean-field boundary (the reference
+    HGF's ``q(xt, zt, xt_min) = q(xt, xt_min)q(zt)``: zt is across the GCV
+    cluster already) is the engine default, a no-op that keeps the pair."""
+    fac = getattr(constraints, "factorization", None) if constraints else None
+    if fac is None:
+        return set()
+    from ..graph.constraints import MeanField
+
+    if isinstance(fac, MeanField):
+        return {f.id for f in graph.factors}
+    known = {v.name for v in graph.random_variables()}
+    groups = []
+    for names in fac:
+        unknown = set(names) - known
+        if unknown:
+            raise ValueError(
+                "factorization constraint names unknown variables "
+                f"{sorted(unknown)}")
+        groups.append(set(names))
+    ids: set = set()
+    for f in graph.factors:
+        rvars = {v.var.name for v in f.all_interfaces().values()
+                 if isinstance(v, Ref) and v.var.kind == "random"}
+        try:
+            node_cls = get_node(f.fform)
+        except KeyError:   # an unregistered fform: its random interfaces
+            node_cls = None
+        cluster = set()
+        if node_cls is not None:
+            cluster = {v.var.name for name, v in f.all_interfaces().items()
+                       if isinstance(v, Ref) and v.var.kind == "random"
+                       and in_cavity_cluster(node_cls, name)}
+        relevant = cluster if cluster else rvars
+        if any(len(relevant & g) >= 2 for g in groups):
+            ids.add(f.id)
+    return ids
 
 
 @dataclasses.dataclass
@@ -441,10 +480,11 @@ class CompiledModel:
                  options: Optional[dict] = None, constraints: Any = None,
                  meta: Optional[dict] = None):
         options = options or {}
-        if constraints is not None:
-            raise NotImplementedError(
-                "constraints are not ported to the PyTorch package yet.")
+        from ..graph.constraints import check_ported
+
+        check_ported(constraints)
         self.graph = graph
+        self.constraints = constraints
         attach_meta(graph, meta)
         contract_deltas(graph)
         for f in graph.factors:
@@ -456,11 +496,27 @@ class CompiledModel:
                     f"latent ({f.out.var.name}); grid latents are not ported "
                     "yet."
                 )
+        # factors a factorization constraint splits: mean-field rule
+        # variants, no cavity store, mean-field free-energy accounting
+        self.mf_factor_ids = _mean_field_factor_ids(graph, constraints)
         self.infos = resolve_groups(graph)
         attach_delta_ranks(graph)
         normalize_transitions(graph, self.infos)
         self.chains = detect_chains(graph, self.infos)
         check_gcv_factors(graph, self.chains)
+        # q(x) = q(x[begin])..q(x[end]): non-chain arrays are slot-factored
+        # by construction; a chain is solved exactly, which is strictly
+        # tighter, so a request to degrade it raises
+        for name in (getattr(constraints, "slot_factorized", None) or []):
+            if name not in {v.name for v in graph.random_variables()}:
+                raise ValueError(
+                    f"slot factorization names unknown variable {name!r}")
+            if name in self.chains:
+                raise NotImplementedError(
+                    f"q({name}) = q({name}[begin])..q({name}[end]) requested "
+                    "on a chain variable: the engine solves chains exactly "
+                    "(Kalman/forward-backward blocks), which is strictly "
+                    "tighter than slot factorization. Remove the constraint.")
 
         from ..graph.constraints import InitMessage
 
@@ -511,10 +567,14 @@ class CompiledModel:
                 f"observation_dtype {self.observation_dtype!r} not supported;"
                 " choose 'float32', 'int8', or 'float8_e4m3fn'."
             )
-        if options.get("rulefallback") is not None:
-            raise NotImplementedError(
-                "options={'rulefallback': ...} is not ported to the PyTorch "
-                "package yet.")
+        # infer(options={"rulefallback": NodeFunctionRuleFallback()})
+        self.rulefallback = options.get("rulefallback")
+        if self.rulefallback is not None and not callable(
+                getattr(self.rulefallback, "make_rule", None)):
+            raise TypeError(
+                "options={'rulefallback': ...} takes a "
+                "NodeFunctionRuleFallback() (an object with make_rule(fform, "
+                f"iface)); got {type(self.rulefallback).__name__}.")
         # strict accuracy mode: every program of this model runs its torch
         # matmuls under the named precision (matmul_precision_scope)
         self.matmul_precision = matmul_precision_scope(
@@ -566,6 +626,7 @@ class CompiledModel:
                                   and f.out.var.name in self.chains
                                   and self.infos[f.out.var.name].event_shape
                                   == ()),
+                    mean_field=f.id in self.mf_factor_ids,
                 )
                 for f in self.graph.factors
             ]
@@ -596,9 +657,14 @@ class CompiledModel:
 
     def _plain_group(self, var) -> PlainGroup:
         """The conjugate group of a non-chain variable: every interface at
-        which a factor touches it, with that interface's rule.  Branches of
-        the JAX ``PlainGroup`` this port lacks raise here, at compile
-        time."""
+        which a factor touches it, with that interface's rule (the
+        ``vmp_`` variant for a mean-field factor; the rule fallback's where
+        the node has none), and the variable's form and message-form
+        constraints.  Branches of the JAX ``PlainGroup`` this port lacks
+        raise here, at compile time."""
+        from ..graph.constraints import as_form_constraint
+        from ..rules.registry import RuleNotFoundError
+
         family = self.infos[var.name].family
         if family not in NAT_EVENT_RANKS:
             raise NotImplementedError(
@@ -613,9 +679,29 @@ class CompiledModel:
             for iface, v in f.all_interfaces().items():
                 if isinstance(v, Ref) and v.var is var:
                     self._check_plain_edge(var, f, iface, v)
-                    adjacency.append(
-                        (f, iface, get_message_rule(f.fform, iface)))
-        return PlainGroup(var, adjacency, family)
+                    try:
+                        rule = get_message_rule(
+                            f.fform, iface, vmp=f.id in self.mf_factor_ids)
+                    except RuleNotFoundError:
+                        if self.rulefallback is None:
+                            raise
+                        rule = self.rulefallback.make_rule(
+                            f.fform, iface, plated=f.plate is not None,
+                            batched=tuple(
+                                n for n, w in f.all_interfaces().items()
+                                if isinstance(w, Ref)))
+                    adjacency.append((f, iface, rule))
+        cons = self.constraints
+        forms = getattr(cons, "forms", None) or {}
+        mforms = getattr(cons, "message_forms", None) or {}
+        return PlainGroup(var, adjacency, family,
+                          form_constraint=as_form_constraint(
+                              forms.get(var.name)),
+                          mf_ids=self.mf_factor_ids,
+                          message_form=as_form_constraint(
+                              mforms.get(var.name)),
+                          event_ndim=len(self.infos[var.name].event_shape
+                                         or ()))
 
     @staticmethod
     def _check_plain_edge(var, f, iface: str, ref: Ref) -> None:
@@ -627,17 +713,6 @@ class CompiledModel:
             raise NotImplementedError(
                 f"{where}: required-message dependencies are not ported "
                 "yet.")
-        node_cls = get_node(f.fform)
-        if in_cavity_cluster(node_cls, iface) \
-                and f.fform not in CAVITY_STORE_NODES:
-            for name, v in f.all_interfaces().items():
-                if (name != iface and in_cavity_cluster(node_cls, name)
-                        and isinstance(v, Ref) and v.var.kind == "random"):
-                    raise NotImplementedError(
-                        f"{where}: its cavity cluster also holds the random "
-                        f"variable {v.var.name!r}, which needs the EP "
-                        "message store (cavity division); it is not ported "
-                        "yet.")
         if var.is_array:
             cov = _coverage(f, ref)
             if cov is None or (isinstance(cov, int) and f.plate is not None):
@@ -785,7 +860,9 @@ class CompiledModel:
                 fes.append((fe_fn or self._free_energy)(state, chain_cross,
                                                         data, ctx))
             if keep_each:
-                history.append(dict(state))
+                # the cavity stores stay out of the history
+                history.append({k: v for k, v in state.items()
+                                if not k.startswith("_msg:")})
             if registry is not None:
                 fe_host = (float(fes[-1][0]) if free_energy
                            and ctx.batch == 1 else None)

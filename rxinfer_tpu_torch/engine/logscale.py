@@ -62,7 +62,9 @@ def inbound_evidence(compiled, state: dict, data: dict, ctx: BatchContext,
                       if isinstance(v, Ref) and v.var is var), None)
         if iface is None:
             continue
-        raw = get_message_rule(f.fform, iface)(
+        # a factor split by a factorization constraint: its mean-field rule
+        raw = get_message_rule(f.fform, iface,
+                               vmp=f.id in compiled.mf_factor_ids)(
             build_q(f, state, data, exclude=iface, ctx=ctx))
         mask = ctx.masks.get(f.id)
         msg = mask_message(raw, mask)

@@ -14,7 +14,7 @@ or a data slot ``a`` folding into a GaussianDot factor, ``Categorical``,
 component means are vectors), ``GammaMixture``, ``Mixture``, ``AR`` (with
 ``ARMeta`` / ``ARsafe`` / ``ARunsafe``), ``GCV``, ``Delta`` (its output
 feeding a Gaussian mean contracts to a NonlinearGaussian factor),
-``Probit`` and ``SoftDot``.  Model
+``Probit``, ``SoftDot`` and ``factor_node`` (a user-registered node).  Model
 constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
 to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
 distributions of torch tensors, and such a distribution object used inside
@@ -683,6 +683,15 @@ def GCV(x_prev, z, kappa=1.0, omega=0.0) -> RVRef:
         {"in": _as_interface(x_prev), "z": _as_interface(z),
          "kappa": _as_interface(kappa), "omega": _as_interface(omega)},
     )
+
+
+def factor_node(fform: str, **interfaces) -> RVRef:
+    """A user-registered node, by name (register its rules with
+    ``rxinfer_tpu_torch.rules.registry.node("Name")`` first; a node that
+    defines only ``logpdf`` runs with ``infer(options={"rulefallback":
+    NodeFunctionRuleFallback()})``)."""
+    return _builder().emit(
+        fform, {k: _as_interface(v) for k, v in interfaces.items()})
 
 
 def Probit(x) -> RVRef:

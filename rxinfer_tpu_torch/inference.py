@@ -30,13 +30,15 @@ pool plain groups over the batch on one device (``engine/batched.py``),
 chunked beyond the device budget.
 
 ``meta=`` (per node type, or per neighbourhood; ``engine/compile.py``
-``attach_meta``) on ``infer``, ``batched_program`` and ``infer_batched``;
-the program caches tell meta values apart.
+``attach_meta``) and ``constraints=`` (factorization, form and
+message-form constraints; ``graph/constraints.py``) on ``infer``,
+``batched_program`` and ``infer_batched``; the program caches tell meta
+and constraint values apart (``_value_equal``).
 
 Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): ``constraints`` and a ``session`` other than the default (A6),
-``mesh=`` and ``psum_axis`` (A7b), and the streaming engine's ``meta=``
-(A4c).
+item): submodel-scoped constraints (A6i), a ``session`` other than the
+default (A6h), ``mesh=`` and ``psum_axis`` (A7b), and the streaming
+engine's ``meta=`` (A4c).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import dataclasses
 import math
 import sys
 import time
+import types
 import warnings
 from typing import Any, Optional
 
@@ -131,7 +134,11 @@ def _shape_sig(data: dict) -> tuple:
 
 
 def _value_equal(a, b) -> bool:
-    """Structural value equality for cache keys."""
+    """Structural value equality for cache keys: programs close over
+    constraint, meta and initialization values, so equal but fresh objects
+    hit the cache and any change of value misses it.  Functions compare by
+    code and closure values (a loop re-creating the same lambda hits),
+    other objects by their attributes."""
     if a is b:
         return True
     if type(a) is not type(b):
@@ -148,6 +155,18 @@ def _value_equal(a, b) -> bool:
     if dataclasses.is_dataclass(a) and not isinstance(a, type):
         return all(_value_equal(getattr(a, f.name), getattr(b, f.name))
                    for f in dataclasses.fields(a))
+    if isinstance(a, types.MethodType):
+        return (a.__func__.__code__ is b.__func__.__code__
+                and _value_equal(a.__self__, b.__self__))
+    if isinstance(a, types.FunctionType):
+        ca, cb = a.__closure__ or (), b.__closure__ or ()
+        return (a.__code__ is b.__code__ and len(ca) == len(cb)
+                and all(_value_equal(x.cell_contents, y.cell_contents)
+                        for x, y in zip(ca, cb)))
+    if callable(a) and not hasattr(a, "__dict__"):
+        return a is b
+    if hasattr(a, "__dict__") and not isinstance(a, type):
+        return _value_equal(vars(a), vars(b))
     try:
         return bool(a == b)
     except Exception:  # noqa: BLE001 — incomparable values never match
@@ -214,13 +233,11 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), iterations, free_energy, keep_each,
            all_finite, tuple(sorted(shared)), str(device))
-    # the bound hyperparameters and the meta are traced into the program,
-    # so a hit needs their values, not only their names; constraints are
-    # not ported (CompiledModel raises on them), so every cached program
-    # was built without them
-    values = (dict(model.bound), init_dists, options, meta)
+    # the bound hyperparameters, the meta and the constraints are traced
+    # into the program, so a hit needs their values, not only their names
+    values = (dict(model.bound), init_dists, options, meta, constraints)
     cached = _PROGRAMS.get(sig, values)
-    if cached is not None and constraints is None:
+    if cached is not None:
         return cached
     graph = model.trace(first)
     compiled = CompiledModel(graph, init=init_dists, options=options,
@@ -234,7 +251,7 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     return compiled, prog
 
 
-_UNPORTED_INFER = (("mesh", "A7b"), ("constraints", "A6"))
+_UNPORTED_INFER = (("mesh", "A7b"),)
 
 
 def _has_missing(v) -> bool:
@@ -354,7 +371,7 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
 def _infer(warn_opt: bool, model, data, initialization, options, iterations,
            free_energy, free_energy_diagnostics, predictvars, returnvars,
            showprogress, callbacks, benchmark, trace, device, annotations,
-           postprocess, meta, **unported):
+           postprocess, meta, constraints, **unported):
     for name, item in _UNPORTED_INFER:
         val = unported[name]
         if val is not None and val is not False and not (
@@ -421,7 +438,7 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
     init_dists = dict(initialization or {})
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
            tuple(sorted(init_dists)), str(device))
-    values = (dict(model.bound), init_dists, options, meta)
+    values = (dict(model.bound), init_dists, options, meta, constraints)
     hit = _COMPILED.get(sig, values)
     if hit is not None:
         compiled = hit[0]
@@ -430,7 +447,7 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
         graph = model.trace({k: np.asarray(v.cpu() if isinstance(
             v, torch.Tensor) else v) for k, v in data.items()})
         compiled = CompiledModel(graph, init=init_dists, options=options,
-                                 meta=meta)
+                                 constraints=constraints, meta=meta)
         _COMPILED.put(sig, values, compiled, None)
         registry.invoke("after_model_creation")
 
@@ -643,7 +660,8 @@ def _composed_mixture_fe(compiled, plan: dict, state: dict, data: dict,
                  chain_scalar=(f.out.var.kind == "random"
                                and f.out.var.name in compiled.chains
                                and compiled.infos[f.out.var.name].event_shape
-                               == ()))
+                               == ()),
+                 mean_field=f.id in compiled.mf_factor_ids)
         for f in plan["plain_factors"]]
     chain_cross: dict = {}
     if any(nm in compiled.chains for nm in plain_vars):

@@ -27,10 +27,12 @@ the host loop with per-iteration events and ``stop_iteration``,
 ``keephistory`` / ``historyvars`` / ``returnvars``, the free energy of
 every tick, ``run_offline`` single and batched, ``start`` / ``stop``,
 ``is_errored`` and the ``on_error`` event, ``uselock``) and
-``streaming_infer`` with ``benchmark=`` / ``trace=``.  Not ported (they
+``streaming_infer`` with ``benchmark=`` / ``trace=``, and ``constraints=``
+(the tick's compiled model takes them; its cavity stores, ``_msg:`` state
+entries, carry from tick to tick with the marginals).  Not ported (they
 raise ``NotImplementedError`` naming their ROADMAP item): ``mesh=``
-(A7b), ``constraints=`` and a ``session=`` other than the default (A6),
-``meta=``, ``annotations=`` / ``postprocess=`` (A4c).  The default session
+(A7b), a ``session=`` other than the default (A6h), submodel-scoped
+constraints (A6i), ``meta=``, ``annotations=`` / ``postprocess=`` (A4c).  The default session
 logs nothing.
 """
 
@@ -178,12 +180,14 @@ class RxInferenceEngine:
         from .inference import KeepEach, _resolve_device
 
         for what, val, item in (("mesh=", mesh, "A7b"),
-                                ("constraints=", constraints, "A6"),
                                 ("meta=", meta, "A4c"),
                                 ("postprocess=", postprocess, "A4c"),
                                 ("annotations=", annotations, "A4c")):
             if val is not None and not (isinstance(val, dict) and not val):
                 raise _unported(what, item)
+        from .graph.constraints import check_ported
+
+        check_ported(constraints)
         self.device = _resolve_device(device)
         self.model = model
         self._batched = bool(batched)
@@ -196,6 +200,7 @@ class RxInferenceEngine:
         self.keephistory = keephistory
         self.options = options
         self.initialization = initialization
+        self.constraints = constraints
         self.returnvars = returnvars
         self.history: list[dict] = []
         self.fe_history: list = []
@@ -280,7 +285,7 @@ class RxInferenceEngine:
                 data = {k: v[0] for k, v in data.items()}
             self._compiled = CompiledModel(
                 self.model.trace(data), init=self.initialization,
-                options=self.options)
+                options=self.options, constraints=self.constraints)
             self._carry = None
             self._fire("after_model_creation")
 

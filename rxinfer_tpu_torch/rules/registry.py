@@ -7,8 +7,9 @@ mean-field ``vmp_message_to_<iface>`` variants.  Lookups happen when a program
 is built, never per call.
 
 Ported subset: ``node``, ``get_node``, ``get_message_rule``,
-``get_average_energy``, ``has_node`` and ``RuleNotFoundError``.  Not
-ported: ``trace_messages``, ``call_rule`` and ``NodeFunctionRuleFallback``.
+``get_average_energy``, ``has_node``, ``RuleNotFoundError`` and
+``NodeFunctionRuleFallback``.  Not ported: ``trace_messages`` and
+``call_rule``.
 """
 
 from __future__ import annotations
@@ -73,3 +74,49 @@ def get_message_rule(fform: str, iface: str, vmp: bool = False) -> Callable:
             f"{[m[len('message_to_'):] for m in dir(cls) if m.startswith('message_to_')]}."
         )
     return fn
+
+
+class NodeFunctionRuleFallback:
+    """Missing message rules approximated from the node's ``logpdf``
+    (reference NodeFunctionRuleFallback, docs/src/manuals/inference/
+    undefinedrules.md:82-113): the message towards an interface is the
+    node function with every other interface fixed at its marginal's mean,
+    a function-form ``LogPdfMessage`` that a functional-form constraint
+    (``ProjectedTo`` / ``SampleListFormConstraint`` /
+    ``PointMassFormConstraint``) on the receiving variable must project.
+    Enabled by ``infer(options={"rulefallback": NodeFunctionRuleFallback()})``.
+
+    ``make_rule`` takes, beside the JAX package's (fform, iface), what the
+    batch-major rule cannot read from its inputs: whether the factor is
+    plated (its copies sit on the axis after the batch, and the message
+    sums them) and which interfaces carry the batch axis (references to
+    variables, not constants)."""
+
+    def make_rule(self, fform: str, iface: str, plated: bool = False,
+                  batched: tuple = ()) -> Callable:
+        from ..dists import LogPdfMessage
+        from .expectations import e_mean
+
+        cls = get_node(fform)
+        logpdf = getattr(cls, "logpdf", None)
+        if logpdf is None:
+            raise RuleNotFoundError(
+                f"Rule not found for '{fform}' -> '{iface}', and the node "
+                "defines no logpdf for NodeFunctionRuleFallback to use.")
+
+        def rule(q):
+            others = {name: e_mean(d) for name, d in q.items()
+                      if name != "_meta"}
+            batch = next(((others[n].shape[0],) for n in batched
+                          if n in others and others[n].ndim), ())
+
+            def log_fn(x):
+                # x: (S, batch...); a plate's copies on the axis after it
+                vals = dict(others)
+                vals[iface] = x[..., None] if plated else x
+                return logpdf(vals)
+
+            return LogPdfMessage(log_fn, plate_axes=1 if plated else 0,
+                                 batch_shape=batch)
+
+        return rule

@@ -1078,7 +1078,7 @@ def _pair_model(rx, fn):
 @pytest.mark.parametrize("name", ["linear", "sin"])
 def test_nonlinear_gaussian_pair_fe_matches_jax(name):
     """An unplated NonlinearGaussian between two random variables takes the
-    structured (out, in) pair in the free energy (``nonlinear_pair_fe``)
+    structured (out, in) pair in the free energy (``gaussian_pair_fe``)
     once both cavity messages are stored: every sweep's value equals the
     JAX package's ``gaussian_pair_fe``, and for a linear fn -log Z; the
     posteriors stay float32 (a Python number times a 0-d input gives

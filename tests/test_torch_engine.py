@@ -227,10 +227,10 @@ def test_converted_jax_plan_reproduces_jax_posteriors():
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"options": {"fused_moment_dtype": "float16"}}, ValueError,
      "'float32' or 'bfloat16'"),
-    # matmul_precision runs since A6g(i) (tests/test_torch_matmul_precision.py);
-    # rulefallback does not
-    ({"options": {"rulefallback": object()}}, NotImplementedError,
-     "rulefallback"),
+    # matmul_precision runs since A6g(i) (tests/test_torch_matmul_precision.py),
+    # rulefallback since A6g (tests/test_torch_constraints.py), which takes
+    # a NodeFunctionRuleFallback and nothing else
+    ({"options": {"rulefallback": object()}}, TypeError, "rulefallback"),
     # shared= itself runs since A7a (tests/test_torch_shared.py); its sum
     # over a device mesh does not
     ({"shared": ("x",), "psum_axis": "dp"}, NotImplementedError, "shared"),

@@ -696,33 +696,52 @@ def test_after_iteration_callbacks_see_the_free_energy():
 
 
 def test_an_unported_fe_branch_names_its_roadmap_item():
-    """A chain whose prior mean is a slot of another chain: the JAX package
-    may take the exact (out, mean) pair there, from cavity messages the
-    port keeps no store of."""
+    """A lagged transition of a user node whose (out, in) is one cavity
+    cluster, left to iterative message passing: the JAX package may take
+    its affine custom-transition pair there, which waits for the tree
+    schedule (ROADMAP A6f).  (The model this test held until ROADMAP A6c,
+    a chain whose prior mean is a slot of another chain, now runs: its
+    free energy is held against the JAX package's in
+    tests/test_torch_constraints.py.)"""
+    from rxinfer_tpu_torch.rules.registry import node
+
+    @node("HalfStepFE")
+    class HalfStep:
+        interfaces = ("out", "in")
+        uses_cavity = True
+
+        @staticmethod
+        def message_to_out(q):
+            return td.NormalMeanVariance(0.5 * q["in"].mean(),
+                                         0.25 * q["in"].var() + 1.0)
+
+        @staticmethod
+        def message_to_in(q):
+            return td.NormalMeanVariance(2.0 * q["out"].mean(),
+                                         4.0 * (q["out"].var() + 1.0))
+
+        @staticmethod
+        def average_energy(q):
+            return 0.0 * q["out"].mean()
 
     @trx.model
-    def two_chains(y, u):
+    def lagged(y):
         T = len(y)
-        z = trx.latent(T, name="z")
-        z[0] = trx.Normal(mean=0.0, var=1.0)
-        for t in trx.plate(1, T):
-            z[t] = trx.Normal(mean=z[t - 1], var=1.0)
-        for t in trx.plate(T):
-            u[t] = trx.Normal(mean=z[t], var=1.0)
         x = trx.latent(T, name="x")
-        x[0] = trx.Normal(mean=z[T - 1], var=1.0)
+        x[0] = trx.Normal(mean=0.0, var=1.0)
         for t in trx.plate(1, T):
-            x[t] = trx.Normal(mean=x[t - 1], var=1.0)
+            x[t] = trx.factor_node("HalfStepFE", **{"in": x[t - 1]})
         for t in trx.plate(T):
             y[t] = trx.Normal(mean=x[t], var=1.0)
-        return {"x": x, "z": z}
+        return {"x": x}
 
-    data = {"y": np.zeros((2, 6), np.float32),
-            "u": np.ones((2, 6), np.float32)}
+    data = {"y": np.zeros((2, 6), np.float32)}
     init = {"x": trx.Normal(mean=0.0, var=1.0)}
-    trx.batched_program(two_chains, data, initialization=init, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        trx.batched_program(two_chains, data, initialization=init,
+    with pytest.warns(UserWarning, match="no chain solver"):
+        trx.batched_program(lagged, data, initialization=init, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6f"), \
+            pytest.warns(UserWarning, match="no chain solver"):
+        trx.batched_program(lagged, data, initialization=init,
                             free_energy=True, device=CPU)
 
 

@@ -6,7 +6,7 @@ helper, one ``GCVChainBlock`` update, ``zoo.hgf`` through ``infer_batched``
 with and without ``meta={"GCV": {"damping": 0.8}}`` and through ``infer``,
 a GCV chain whose volatilities are independent a step (a plain group
 whose rule reads its own marginal), ``meta=`` by neighbourhood, the program caches
-keyed on the meta values, and the refusal of a single-step GCV.  The free
+keyed on the meta values, and a single-step GCV against the JAX package.  The free
 energies differ by ROADMAP C8's closed form: the JAX package leaves out
 H[q(z_t)] once a GCV transition.  Inputs come from numpy seeds; the port
 runs with ``device="cpu"``."""
@@ -258,18 +258,23 @@ def test_hgf_plan_report_matches_jax(hgf_runs):
 
 def test_damping_blends_the_stored_messages(hgf_runs):
     """Under damping the z chain's GCV messages are kept in the state
-    (``_msg:<factor id>:z``); without it nothing is stored."""
+    (``_msg:<factor id>:z``); without it they are not.  (The observation
+    factor's cavity store of its (out, mean) cluster, ``_msg:<id>:mean``,
+    is kept either way, as in the JAX package.)"""
     program = trx.batched_program(
         tzoo.hgf(), {"y": hgf_y()}, iterations=2, initialization=z_init(td),
         meta=DAMPED, device=CPU)[1]
     state, _, _ = program({"y": hgf_y()})
-    keys = [k for k in state if k.startswith("_msg:")]
-    assert len(keys) == 1 and keys[0].endswith(":z")
+    keys = [k for k in state if k.startswith("_msg:") and k.endswith(":z")]
+    assert len(keys) == 1
     assert tuple(state[keys[0]].xi.shape) == (B, T - 1)
     program = trx.batched_program(
         tzoo.hgf(), {"y": hgf_y()}, iterations=2, initialization=z_init(td),
         device=CPU)[1]
-    assert not [k for k in program({"y": hgf_y()})[0] if k.startswith("_")]
+    state = program({"y": hgf_y()})[0]
+    assert not [k for k in state if k.endswith(":z")]
+    assert [k for k in state if k.startswith("_")] \
+        == [k for k in state if k.startswith("_msg:") and k.endswith(":mean")]
 
 
 def test_hgf_infer_matches_jax():
@@ -385,15 +390,31 @@ def test_program_cache_tells_meta_values_apart():
 
 
 def test_a_single_step_gcv_is_refused_with_its_roadmap_item():
-    @trx.model
-    def one_step(y):
-        x0 = trx.Normal(mean=0.0, var=1.0)
-        z = trx.Normal(mean=0.0, var=1.0)
-        x = trx.GCV(x0, z, kappa=KAPPA, omega=OMEGA)
-        y.observe(trx.Normal(mean=x, var=0.01))
-        return {"x": x}
+    """A single-step GCV (no chain's transition), refused until ROADMAP A6c
+    ported its (out, in) pair (``attach_gcv_pair_cross``): ``infer`` now
+    runs it, and its posteriors and free energy equal the JAX package's."""
+    def make(rx):
+        @rx.model
+        def one_step(y):
+            x0 = rx.Normal(mean=0.0, var=1.0)
+            z = rx.Normal(mean=0.0, var=1.0)
+            x = rx.GCV(x0, z, kappa=KAPPA, omega=OMEGA)
+            y.observe(rx.Normal(mean=x, var=0.01))
+            return {"x": x}
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
-        trx.infer(one_step, data={"y": np.float32(0.3)},
-                  initialization={"z": td.NormalMeanVariance(
-                      torch.tensor(0.0), torch.tensor(1.0))}, device=CPU)
+        return one_step
+
+    kw = dict(data={"y": np.float32(0.3)}, iterations=6, free_energy=True,
+              returnvars=jrx.KeepLast())
+    jres = jrx.infer(make(jrx), initialization={
+        n: jd.NormalMeanVariance(0.0, 1.0) for n in ("z", "x")}, **kw)
+    kw["returnvars"] = trx.KeepLast()
+    tres = trx.infer(make(trx), initialization={
+        n: td.NormalMeanVariance(torch.tensor(0.0), torch.tensor(1.0))
+        for n in ("z", "x")}, device=CPU, **kw)
+    assert_rel(tres.posteriors["x"].mean().numpy(),
+               jres.posteriors["x"].mean(), POST_TOL)
+    assert_rel(tres.posteriors["x"].var().numpy(),
+               jres.posteriors["x"].var(), POST_TOL)
+    np.testing.assert_allclose(tres.free_energy.numpy(),
+                               np.asarray(jres.free_energy), **FE_TOL)

@@ -421,19 +421,33 @@ def test_plain_gaussian_groups_match_jax(source, var):
 
 
 def test_cavity_message_stores_are_not_ported():
-    @trx.model
-    def two_level(y):
-        mu = trx.Normal(mean=0.0, var=1.0)
-        x = trx.Normal(mean=mu, var=1.0)
-        for i in trx.plate(len(y)):
-            y[i] = trx.Normal(mean=x, var=1.0)
-        return {"mu": mu, "x": x}
+    """A Gaussian factor between two random variables (x given mu) needs
+    the (out, mean) cavity store, refused until ROADMAP A6c ported it: the
+    batched program now runs and equals the JAX package's."""
+    def make(rx):
+        @rx.model
+        def two_level(y):
+            mu = rx.Normal(mean=0.0, var=1.0)
+            x = rx.Normal(mean=mu, var=1.0)
+            for i in rx.plate(len(y)):
+                y[i] = rx.Normal(mean=x, var=1.0)
+            return {"mu": mu, "x": x}
 
-    with pytest.raises(NotImplementedError, match="cavity"):
-        trx.batched_program(two_level, {"y": np.zeros((2, 4), np.float32)},
-                            initialization={"mu": trx.Normal(mean=0.0,
-                                                             var=1.0)},
-                            device=CPU)
+        return two_level
+
+    y = np.random.default_rng(4).standard_normal((2, 4)).astype(np.float32)
+    _, tprog = trx.batched_program(
+        make(trx), {"y": y}, iterations=4,
+        initialization={"mu": trx.Normal(mean=0.0, var=1.0)}, device=CPU)
+    _, jprog = jrx.batched_program(
+        make(jrx), {"y": y}, iterations=4,
+        initialization={"mu": jd.NormalMeanVariance(0.0, 1.0)})
+    tstate, jstate = tprog({"y": y})[0], jprog({"y": y})[0]
+    for var in ("mu", "x"):
+        np.testing.assert_allclose(tstate[var].mean().numpy(),
+                                   np.asarray(jstate[var].mean()), **RULE_TOL)
+        np.testing.assert_allclose(tstate[var].var().numpy(),
+                                   np.asarray(jstate[var].var()), **RULE_TOL)
 
 
 # -- the kernels on the card --------------------------------------------------------

@@ -254,7 +254,10 @@ def _streaming(**kwargs):
     (_streaming(annotations=object()), "A4c"),
     (_streaming(session=object()), "A6"),
     ({"mesh": object()}, "A7b"),
-    ({"constraints": object()}, "A6"),
+    # constraints are ported; submodel-scoped blocks wait for the DSL's
+    # submodel scopes
+    ({"constraints": trx.constraints(submodel={"walk": trx.constraints()})},
+     "A6i"),
     ({"session": object()}, "A6"),
     (_streaming(postprocess=object()), "A4c"),
     (_streaming(meta={"MvNormalMeanCovariance": {}}), "A4c"),

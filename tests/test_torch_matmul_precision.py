@@ -121,8 +121,11 @@ def test_without_the_option_nothing_changes():
 
 
 def test_rulefallback_still_raises():
+    """``rulefallback`` runs since ROADMAP A6g with a
+    ``NodeFunctionRuleFallback`` (tests/test_torch_constraints.py); anything
+    else raises."""
     model, data = lgssm_data()
-    with pytest.raises(NotImplementedError, match="rulefallback"):
+    with pytest.raises(TypeError, match="rulefallback"):
         trx.batched_program(model, data, device=CPU,
                             options={"rulefallback": object()})
 

@@ -554,7 +554,8 @@ def test_data_colliding_with_an_autoupdated_argument_is_refused():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"constraints": object()}, "A6"),
+    ({"constraints": trx.constraints(submodel={"walk": trx.constraints()})},
+     "A6i"),
     ({"session": object()}, "A6"),
     ({"postprocess": object()}, "A4c"),
     ({"annotations": object()}, "A4c"),
