@@ -319,6 +319,36 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    with ``options={"matmul_precision": "highest"}`` beside the default
    program: one K1 and one K2 launch each, equal within STRICT_TOL, the
    float64 RTS on sampled chains.  ``[nl]`` lines.
+21. Constraints (ROADMAP A6c, A6g): (a) the online HGF of
+   tests/models/test_hgf_streaming.py over HGFS_B streams under the
+   reference constraint, against the port on the CPU (HGFS_TOL), the
+   reference's checks and the fleet's 3 / 6 sd shares, bit-equal without
+   the constraint; (b) ``ProjectedTo("beta")`` over PROJ_B datasets
+   against quadrature (PROJ_TOL); (c) ``MeanField()`` on phase 12 (e)'s
+   Gaussian cell against its float64 mean-field VMP (MF_TOL) and on the
+   LGSSM cell (one K1 and one K2 launch, bit-equal).  ``[constraints]``
+   lines.
+22. The rest of the node library (ROADMAP A6d) on plain groups, every
+   cell through ``infer_batched`` with the free energy and every kernel's
+   launch count at zero: (a) counts: rate ~ Gamma(shape=2, scale=5), y ~
+   Poisson(rate) over CNT_B x CNT_N; p ~ Beta(1, 1), y ~ Binomial(n, p)
+   over BIN_B x BIN_N; p ~ Dirichlet(ones(MULT_K)), y ~ Multinomial(n, p)
+   over MULT_B x MULT_N; each against its closed-form posterior and -log
+   p(y); (b) a noise level, mu ~ N(0, 100), v ~ InverseGamma(2, 1) over
+   NOISE_B x NOISE_N, NOISE_IT sweeps, against a float64 VMP of the port's
+   schedule (the free energy of every sweep); (c) covariances at d = COV_D
+   over COV_B x COV_N: InverseWishart with m known (closed form IW(nu + N,
+   Psi + S), -log p(y)), m ~ MvNormal(0, 100 I) (a float64 VMP, COV_IT
+   sweeps), and MvNormal(mean=m, gamma=g), g ~ Gamma(1, 1) (a float64
+   VMP); (d) sums: y ~ N(a + b, 0.25) over SUM_B datasets of one reading
+   (a tree: the closed-form marginals) and of SUM_LOOPY_N (loopy, SUM_IT
+   sweeps: a float64 BP with the port's cavity store, and E[a + b] against
+   its conjugate posterior at A6D_SUM_GAP), s = lincomb(A x + B u), y ~
+   MvNormal(s, R) at d = LC_D over LC_B (the closed-form posterior and -log
+   p(y)).  All at A6D_TOL relative; the float64 references in a check
+   process (``slice23_checks``).  Each cell: call ms, updates/s, device
+   busy and idle, device kernels a call, peak memory.  ``[a6d]`` lines,
+   and ``launches_phase22`` on every row of the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -6897,6 +6927,567 @@ def mean_field_paths(device, host: dict, smi: str, log=print) -> dict:
             "lgssm_launches": launches["mean_field"]}
 
 
+# -- the rest of the node library (phase 22) ---------------------------------------
+
+# Phase 22's cells, each a plain-group model through ``infer_batched`` with
+# the free energy (no kernel launches):
+# (a) counts: one demand rate a store, rate ~ Gamma(shape=2, scale=5),
+#     y ~ Poisson(rate), CNT_B stores x CNT_N days; a click-through rate an
+#     ad, p ~ Beta(1, 1), y ~ Binomial(n, p), BIN_B ads x BIN_N days;
+#     session mixes a user, p ~ Dirichlet(ones(MULT_K)), y ~ Multinomial(n,
+#     p), MULT_B users x MULT_N sessions;
+# (b) a noise level a sensor: mu ~ N(0, 100), v ~ InverseGamma(2, 1),
+#     y ~ N(mu, var=v), NOISE_B sensors x NOISE_N readings, NOISE_IT sweeps;
+# (c) a covariance a sensor array at d = COV_D: Sigma ~ InverseWishart(d +
+#     3, I), y ~ MvNormal(m, cov=Sigma), COV_B arrays x COV_N readings, m
+#     known (one sweep) or m ~ MvNormal(0, 100 I) (COV_IT sweeps), and the
+#     scale-precision form MvNormal(mean=m, gamma=g), g ~ Gamma(1, 1);
+# (d) an offset plus a bias a sensor: y ~ N(a + b, 0.25) (the contracted
+#     GaussianSum factor), SUM_B datasets of one reading (a tree) and of
+#     SUM_LOOPY_N (loopy, SUM_IT sweeps); s = lincomb(A x + B u), y ~
+#     MvNormal(s, R) at d = LC_D, LC_B datasets.
+CNT_B, CNT_N = 10_000, 365
+BIN_B, BIN_N = 10_000, 30
+MULT_B, MULT_N, MULT_K = 4096, 50, 16
+NOISE_B, NOISE_N, NOISE_IT = 4096, 1000, 10
+COV_B, COV_N, COV_D, COV_IT = 1024, 400, 8, 5
+SUM_B, SUM_LOOPY_N, SUM_IT = 10_000, 100, 20
+LC_B, LC_D, LC_IT = 10_000, 4, 2
+# float32 against each cell's float64 closed form or float64 VMP of the
+# same schedule: the posteriors' parameters and the free energy, each
+# relative to its largest value
+A6D_TOL = 1e-4
+# the loopy sum's E[a + b] against the conjugate posterior of a + b: loopy
+# BP's own gap, bounded as tests/models/test_misc_nodes.py bounds it
+A6D_SUM_GAP = 0.05
+
+
+def _log_factorial64(x):
+    """log x! of non-negative integer counts (a float array), by a table."""
+    x = np.asarray(x, np.int64)
+    table = np.concatenate([[0.0], np.cumsum(np.log(np.arange(
+        1, int(x.max()) + 1, dtype=np.float64)))])
+    return table[x]
+
+
+def _mv_lgamma64(d: int, a):
+    a = np.asarray(a, np.float64)
+    j = np.arange(1, d + 1)
+    return 0.25 * d * (d - 1) * math.log(math.pi) + _lgamma64(
+        a[..., None] + 0.5 * (1 - j)).sum(-1)
+
+
+def _mv_digamma64(d: int, a):
+    a = np.asarray(a, np.float64)
+    j = np.arange(1, d + 1)
+    return digamma64(a[..., None] + 0.5 * (1 - j)).sum(-1)
+
+
+def _slogdet64(m):
+    return np.linalg.slogdet(np.asarray(m, np.float64))[1]
+
+
+def a6d_counts_data():
+    """Phase 22 (a)'s data: Poisson counts (CNT_B, CNT_N), binomial
+    successes and trials (BIN_B, BIN_N), multinomial counts (MULT_B,
+    MULT_N, MULT_K) and their totals."""
+    rng = np.random.default_rng(23)
+    rate = rng.gamma(2.0, 5.0, (CNT_B, 1))
+    y = rng.poisson(rate, (CNT_B, CNT_N)).astype(np.float32)
+    n = rng.integers(20, 500, (BIN_B, BIN_N))
+    yb = rng.binomial(n, rng.beta(2.0, 30.0, (BIN_B, 1))).astype(np.float32)
+    nm = rng.integers(1, 40, (MULT_B, MULT_N))
+    ym = rng.multinomial(nm, rng.dirichlet(np.ones(MULT_K), MULT_B)[
+        :, None, :]).astype(np.float32)
+    return y, (yb, n.astype(np.float32)), (ym, nm.astype(np.float32))
+
+
+def a6d_counts_oracle():
+    """Phase 22 (a)'s closed forms in float64: each cell's posterior
+    parameters and -log p(y)."""
+    y, (yb, n), (ym, nm) = a6d_counts_data()
+    out = {}
+    a, b = 2.0 + y.sum(1, dtype=np.float64), 0.2 + CNT_N
+    out["poisson"] = ({"a": a, "b": np.full(CNT_B, b)}, -(
+        _lgamma64(a) - a * np.log(b) - (math.lgamma(2.0) - 2.0 * np.log(0.2))
+        - _log_factorial64(y).sum(1)))
+    pa = 1.0 + yb.sum(1, dtype=np.float64)
+    pb = 1.0 + (n - yb).sum(1, dtype=np.float64)
+    out["binomial"] = ({"a": pa, "b": pb}, -(
+        _lgamma64(pa) + _lgamma64(pb) - _lgamma64(pa + pb)
+        + (_log_factorial64(n) - _log_factorial64(yb)
+           - _log_factorial64(n - yb)).sum(1)))
+    alpha = 1.0 + ym.sum(1, dtype=np.float64)
+    out["multinomial"] = ({"alpha": alpha}, -(
+        _lgamma64(alpha).sum(-1) - _lgamma64(alpha.sum(-1))
+        + math.lgamma(MULT_K)
+        + (_log_factorial64(nm) - _log_factorial64(ym).sum(-1)).sum(1)))
+    return out
+
+
+def a6d_noise_data():
+    rng = np.random.default_rng(24)
+    loc = rng.normal(0.0, 2.0, (NOISE_B, 1))
+    scale = rng.uniform(0.2, 2.0, (NOISE_B, 1))
+    return (loc + scale * rng.standard_normal((NOISE_B, NOISE_N))).astype(
+        np.float32)
+
+
+def a6d_noise_vmp64(y, iterations):
+    """Phase 22 (b)'s VMP in float64, the port's schedule (mu, then v; v
+    starting at its prior): mu's messages read E[v] (the Gaussian node's
+    BP-form message to its mean), v's are the a = -1/2 InverseGamma
+    carriers.  The posteriors after the last sweep and the free energy
+    after every sweep, (iterations, B)."""
+    y = np.asarray(y, np.float64)
+    n = y.shape[1]
+    s1, s2 = y.sum(1), (y * y).sum(1)
+    a, b = np.full(len(y), 2.0), np.ones(len(y))
+    fes = []
+    for _ in range(iterations):
+        w = 1.0 / 100.0 + n / (b / (a - 1.0))
+        m, v = (s1 / (b / (a - 1.0))) / w, 1.0 / w
+        c = s2 - 2.0 * m * s1 + n * (m * m + v)
+        a, b = 2.0 + 0.5 * n, 1.0 + 0.5 * c
+        fes.append(_noise_fe64(n, m, v, c, a, b))
+    return {"mu_mean": m, "mu_var": v, "v_a": a, "v_b": b}, np.stack(fes)
+
+
+def _noise_fe64(n, m, v, c, a, b):
+    e_inv, e_log = a / b, np.log(b) - digamma64(a)
+    ae = (0.5 * (n * math.log(2 * math.pi) + n * e_log + c * e_inv)
+          + 0.5 * (math.log(2 * math.pi * 100.0) + (m * m + v) / 100.0)
+          - (2.0 * math.log(1.0) - math.lgamma(2.0) - 3.0 * e_log - e_inv))
+    h = (0.5 * np.log(2 * np.pi * np.e * v)
+         + a + np.log(b) + _lgamma64(a) - (1.0 + a) * digamma64(a))
+    return ae - h
+
+
+def a6d_cov_data():
+    rng = np.random.default_rng(25)
+    d = COV_D
+    g = rng.standard_normal((COV_B, d, d)) / np.sqrt(d)
+    chol = np.linalg.cholesky(g @ np.swapaxes(g, -1, -2) + 0.5 * np.eye(d))
+    m = rng.normal(0.0, 1.0, (COV_B, 1, d))
+    y = m + np.einsum("bij,bnj->bni", chol,
+                      rng.standard_normal((COV_B, COV_N, d)))
+    return y.astype(np.float32)
+
+
+def _iw_entropy64(nu, psi):
+    d = psi.shape[-1]
+    return (0.5 * (d + 1.0) * _slogdet64(psi) - 0.5 * d * (d + 1.0)
+            * math.log(2.0) + _mv_lgamma64(d, 0.5 * nu)
+            - 0.5 * (nu + d + 1.0) * _mv_digamma64(d, 0.5 * nu)
+            + 0.5 * nu * d)
+
+
+def _mvn_entropy64(cov):
+    d = cov.shape[-1]
+    return 0.5 * d * (math.log(2 * math.pi) + 1.0) + 0.5 * _slogdet64(cov)
+
+
+def a6d_cov_oracle(y, iterations):
+    """Phase 22 (c) in float64: (known) the closed-form IW(nu0 + N, I + S)
+    and -log p(y) (a matrix-t); (random m) the port's schedule, m then
+    Sigma, Sigma starting at its prior, m's messages reading E[Sigma]; (gamma)
+    the scale-precision form, m then g, g starting at Gamma(1, 1).  The
+    random cells' posteriors and free energy after the last sweep."""
+    y = np.asarray(y, np.float64)
+    bsz, n, d = y.shape
+    nu0, psi0 = d + 3.0, np.eye(d)
+    s = np.einsum("bni,bnj->bij", y, y)
+    nu, psi = nu0 + n, psi0 + s
+    log_z = (-0.5 * n * d * math.log(math.pi) + _mv_lgamma64(d, 0.5 * nu)
+             - _mv_lgamma64(d, 0.5 * nu0) + 0.5 * nu0 * _slogdet64(psi0)
+             - 0.5 * nu * _slogdet64(psi))
+    out = {"known": ({"nu": np.full(bsz, nu), "psi": psi}, -log_z)}
+
+    ysum = y.sum(1)
+    eye = np.eye(d)
+
+    def m_update(prec_obs):
+        w = eye / 100.0 + n * prec_obs
+        v = np.linalg.inv(w)
+        return np.einsum("bij,bjk,bk->bi", v, prec_obs, ysum), v
+
+    def scatter(m, v):
+        r = y - m[:, None, :]
+        return np.einsum("bni,bnj->bij", r, r) + n * v
+
+    nu_q, psi_q = np.full(bsz, nu0), np.broadcast_to(psi0, (bsz, d, d))
+    for _ in range(iterations):
+        e_sig = psi_q / (nu_q - d - 1.0)[:, None, None]
+        m, v = m_update(np.linalg.inv(e_sig))
+        c = scatter(m, v)
+        nu_q, psi_q = np.full(bsz, nu0 + n), psi0 + c
+    e_inv = nu_q[:, None, None] * np.linalg.inv(psi_q)
+    e_ld = _slogdet64(psi_q) - d * math.log(2.0) - _mv_digamma64(d, 0.5 * nu_q)
+    tr = lambda a_, b_: np.einsum("bij,bji->b", a_, b_)
+    ae = (0.5 * (n * d * math.log(2 * math.pi) + n * e_ld + tr(e_inv, c))
+          + 0.5 * (d * math.log(2 * math.pi * 100.0)
+                   + (np.einsum("bi,bi->b", m, m) + np.trace(v, axis1=1,
+                                                            axis2=2)) / 100.0)
+          - (-0.5 * (nu0 + d + 1.0) * e_ld - 0.5 * np.trace(e_inv, axis1=1,
+                                                             axis2=2)
+             - 0.5 * nu0 * d * math.log(2.0) - _mv_lgamma64(d, 0.5 * nu0)))
+    fe = ae - _mvn_entropy64(v) - _iw_entropy64(nu_q, psi_q)
+    out["random_m"] = ({"m": m, "sigma_mean": psi_q / (nu_q - d - 1.0)[
+        :, None, None]}, fe)
+
+    ga, gb = np.ones(bsz), np.ones(bsz)
+    for _ in range(iterations):
+        m, v = m_update((ga / gb)[:, None, None] * eye)
+        tr_c = np.trace(scatter(m, v), axis1=1, axis2=2)
+        ga, gb = 1.0 + 0.5 * n * d, 1.0 + 0.5 * tr_c
+    eg, elg = ga / gb, digamma64(ga) - np.log(gb)
+    ae = (0.5 * (n * d * math.log(2 * math.pi) - n * d * elg + eg * tr_c)
+          + 0.5 * (d * math.log(2 * math.pi * 100.0)
+                   + (np.einsum("bi,bi->b", m, m) + np.trace(v, axis1=1,
+                                                            axis2=2)) / 100.0)
+          + eg)
+    h_g = ga - np.log(gb) + _lgamma64(ga) + (1.0 - ga) * digamma64(ga)
+    out["gamma"] = ({"m": m, "g_a": np.full(bsz, ga), "g_b": gb},
+                    ae - _mvn_entropy64(v) - h_g)
+    return out
+
+
+def a6d_sum_data():
+    rng = np.random.default_rng(26)
+    ab = rng.normal(0.0, 1.0, (SUM_B, 2))
+    tree = ab[:, :1] + ab[:, 1:] + 0.5 * rng.standard_normal((SUM_B, 1))
+    loopy = (ab[:, :1] + ab[:, 1:]
+             + 0.5 * rng.standard_normal((SUM_B, SUM_LOOPY_N)))
+    return tree.astype(np.float32), loopy.astype(np.float32)
+
+
+def a6d_sum_bp64(y, iterations, prior_a=(1.0, 1.0), prior_b=(0.5, 2.0)):
+    """Phase 22 (d)'s offset-plus-bias model y ~ N(a + b, 0.25) in float64
+    with the port's schedule and cavity store: a, then b, each copy's
+    message read from the other term's marginal divided by that copy's
+    last message to it.  The marginals and the free energy (the factor's
+    mean-field average energy; the pair's structure is not scored, in both
+    packages) after the last sweep."""
+    y = np.asarray(y, np.float64)
+    nat = lambda m, v: (m / v, 1.0 / v)
+    qa, qb = nat(*prior_a), nat(*prior_b)
+    qa = tuple(np.broadcast_to(x, (len(y), 1)) for x in qa)
+    qb = tuple(np.broadcast_to(x, (len(y), 1)) for x in qb)
+    msg = {"a": None, "b": None}
+
+    def update(q_other, msg_other, prior):
+        cav = q_other if msg_other is None else (
+            q_other[0] - msg_other[0], q_other[1] - msg_other[1])
+        m_c, v_c = cav[0] / cav[1], 1.0 / cav[1]
+        new = tuple(np.broadcast_to(x, y.shape)
+                    for x in nat(y - m_c, v_c + 0.25))
+        p = nat(*prior)
+        return (p[0] + new[0].sum(1, keepdims=True),
+                p[1] + new[1].sum(1, keepdims=True)), new
+
+    for _ in range(iterations):
+        qa, msg["a"] = update(qb, msg["b"], prior_a)
+        qb, msg["b"] = update(qa, msg["a"], prior_b)
+    ma, va = qa[0][:, 0] / qa[1][:, 0], 1.0 / qa[1][:, 0]
+    mb, vb = qb[0][:, 0] / qb[1][:, 0], 1.0 / qb[1][:, 0]
+    c = ((y - ma[:, None] - mb[:, None]) ** 2 + va[:, None]
+         + vb[:, None]).sum(1)
+    n = y.shape[1]
+    ae = (0.5 * (n * math.log(2 * math.pi * 0.25) + c / 0.25)
+          + sum(0.5 * (math.log(2 * math.pi * pv) + ((mm - pm) ** 2 + vv)
+                       / pv)
+                for (pm, pv), mm, vv in ((prior_a, ma, va),
+                                         (prior_b, mb, vb))))
+    fe = ae - 0.5 * np.log(2 * np.pi * np.e * va) - 0.5 * np.log(
+        2 * np.pi * np.e * vb)
+    return {"a_mean": ma, "a_var": va, "b_mean": mb, "b_var": vb}, fe
+
+
+def a6d_lincomb_consts():
+    rng = np.random.default_rng(27)
+    d = LC_D
+    a_mat = (np.eye(d) + 0.2 * rng.standard_normal((d, d))).astype(np.float32)
+    b_mat = rng.standard_normal((d, 2)).astype(np.float32)
+    r_cov = (0.5 * np.eye(d)).astype(np.float32)
+    y = rng.standard_normal((LC_B, d)).astype(np.float32) * 2.0
+    return a_mat, b_mat, r_cov, y
+
+
+def a6d_lincomb_oracle():
+    """Phase 22 (d)'s linear combination in closed form (float64): the
+    Gaussian posterior of (x, u) and -log p(y)."""
+    a_mat, b_mat, r_cov, y = a6d_lincomb_consts()
+    d = LC_D
+    h = np.concatenate([a_mat, b_mat], 1).astype(np.float64)
+    p0 = np.diag([1.0] * d + [2.0, 2.0])
+    m0 = np.array([0.0] * d + [1.0, 1.0])
+    s = h @ p0 @ h.T + r_cov
+    gain = p0 @ h.T @ np.linalg.inv(s)
+    r = y.astype(np.float64) - h @ m0
+    mean = m0 + r @ gain.T
+    cov = p0 - gain @ h @ p0
+    log_z = -0.5 * (np.linalg.slogdet(2 * np.pi * s)[1]
+                    + np.einsum("bi,ij,bj->b", r, np.linalg.inv(s), r))
+    return {"x_mean": mean[:, :d], "u_mean": mean[:, d:],
+            "x_cov": cov[:d, :d], "u_cov": cov[d:, d:]}, -log_z
+
+
+def slice23_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 22's float64 closed forms and VMPs in a check process."""
+    lines: list = []
+    t0 = time.perf_counter()
+    out = {"counts": a6d_counts_oracle(),
+           "noise": a6d_noise_vmp64(a6d_noise_data(), NOISE_IT),
+           "cov": a6d_cov_oracle(a6d_cov_data(), COV_IT),
+           "lincomb": a6d_lincomb_oracle()}
+    tree, loopy = a6d_sum_data()
+    out["sum_tree"] = a6d_sum_bp64(tree, 1)
+    out["sum_loopy"] = a6d_sum_bp64(loopy, SUM_IT, (0.0, 1.0), (0.0, 1.0))
+    lines.append(f"[a6d check] the float64 closed forms and VMPs of phase "
+                 f"22 in {time.perf_counter() - t0:.1f} s")
+    _ended(lines, "phase 22 host checks", wall0)
+    return lines, out
+
+
+def a6d_models(rt):
+    """Phase 22's models, written once for the port."""
+    @rt.model
+    def counts(y):
+        rate = rt.Gamma(shape=2.0, scale=5.0)
+        for i in rt.plate(len(y)):
+            y[i] = rt.Poisson(rate)
+        return {"rate": rate}
+
+    @rt.model
+    def clicks(y, n):
+        p = rt.Beta(1.0, 1.0)
+        for i in rt.plate(len(y)):
+            y[i] = rt.Binomial(n[i], p)
+        return {"p": p}
+
+    @rt.model
+    def sessions(y, n):
+        p = rt.Dirichlet(np.ones(MULT_K, np.float32))
+        for i in rt.plate(len(y)):
+            y[i] = rt.Multinomial(n[i], p)
+        return {"p": p}
+
+    @rt.model
+    def noise(y):
+        mu = rt.Normal(mean=0.0, var=100.0)
+        v = rt.InverseGamma(2.0, 1.0)
+        for i in rt.plate(len(y)):
+            y[i] = rt.Normal(mean=mu, var=v)
+        return {"mu": mu, "v": v}
+
+    eye = np.eye(COV_D, dtype=np.float32)
+    zero = np.zeros(COV_D, np.float32)
+
+    @rt.model
+    def cov_known(y):
+        sig = rt.InverseWishart(COV_D + 3.0, eye)
+        for i in rt.plate(len(y)):
+            y[i] = rt.MvNormal(mean=zero, cov=sig)
+        return {"sig": sig}
+
+    @rt.model
+    def cov_random(y):
+        sig = rt.InverseWishart(COV_D + 3.0, eye)
+        m = rt.MvNormal(mean=zero, cov=100.0 * eye)
+        for i in rt.plate(len(y)):
+            y[i] = rt.MvNormal(mean=m, cov=sig)
+        return {"sig": sig, "m": m}
+
+    @rt.model
+    def scale_prec(y):
+        m = rt.MvNormal(mean=zero, cov=100.0 * eye)
+        g = rt.Gamma(shape=1.0, rate=1.0)
+        for i in rt.plate(len(y)):
+            y[i] = rt.MvNormal(mean=m, gamma=g)
+        return {"m": m, "g": g}
+
+    def offset_bias(prior_a, prior_b):
+        @rt.model
+        def m(y):
+            a = rt.Normal(mean=prior_a[0], var=prior_a[1])
+            b = rt.Normal(mean=prior_b[0], var=prior_b[1])
+            for i in rt.plate(len(y)):
+                y[i] = rt.Normal(mean=a + b, var=0.25)
+            return {"a": a, "b": b}
+        return m
+
+    a_mat, b_mat, r_cov, _ = a6d_lincomb_consts()
+
+    @rt.model
+    def lincomb(y):
+        x = rt.MvNormal(mean=np.zeros(LC_D, np.float32),
+                        cov=np.eye(LC_D, dtype=np.float32))
+        u = rt.MvNormal(mean=np.ones(2, np.float32),
+                        cov=2.0 * np.eye(2, dtype=np.float32))
+        s = rt.lincomb(a_mat @ x + b_mat @ u)
+        y.observe(rt.MvNormal(mean=s, cov=r_cov))
+        return {"x": x, "u": u, "s": s}
+
+    return {"counts": counts, "clicks": clicks, "sessions": sessions,
+            "noise": noise, "cov_known": cov_known, "cov_random": cov_random,
+            "scale_prec": scale_prec,
+            "sum_tree": offset_bias((1.0, 1.0), (0.5, 2.0)),
+            "sum_loopy": offset_bias((0.0, 1.0), (0.0, 1.0)),
+            "lincomb": lincomb}
+
+
+def _a6d_cell(device, model, data, iterations, init=None):
+    """One phase 22 cell through ``infer_batched`` with the free energy,
+    its program built by a first call: ``_nl_cell``'s launches (none may
+    launch), time, peak memory, device busy and kernels."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    data = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    run = lambda: rt.infer_batched(model, data, iterations=iterations,
+                                   initialization=init, free_energy=True,
+                                   device=device)
+    run()
+    return _nl_cell(device, run, reps=1)
+
+
+def a6d_paths(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 22 (a)-(d), every cell with the free energy and every kernel's
+    launch count at zero, each against its float64 closed form or float64
+    VMP of the port's schedule (``host``) at A6D_TOL relative (posteriors'
+    parameters and the free energy after the last sweep); updates/s = B x
+    sweeps x the random variables a sweep updates, over the call's time."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    models = a6d_models(rt)
+    cpu = lambda t: t.detach().cpu().numpy()
+    results: dict = {}
+
+    def gate(tag, label, cell, got, want, fe_want, b, sweeps, nvars,
+             extra=""):
+        post, fe = cell["out"]
+        errs = {k: _rel_max(got[k], want[k]) for k in want}
+        # the last sweep's free energy, or every sweep's against a VMP's
+        errs["fe"] = _rel_max(cpu(fe if np.ndim(fe_want) == 2 else fe[-1]),
+                              fe_want)
+        finite = bool(torch.isfinite(fe).all())
+        ups = b * sweeps * nvars / (cell["ms"] / 1e3)
+        log(f"[a6d] {tag} {label}: call_ms {cell['ms']:.3f} updates_per_s "
+            f"{ups:.6g} busy_ms {cell['busy_ms']} idle {cell['idle']} device "
+            f"kernels {cell['kernels']} peak_gb "
+            f"{cell['peak_bytes'] / 1e9:.3f}; against the float64 reference, "
+            f"relative: {errs} (tol {A6D_TOL}){extra}; launches none; {smi}")
+        if max(errs.values()) > A6D_TOL or not finite:
+            raise AssertionError(f"phase 22 {tag} {label}: {errs}, finite "
+                                 f"free energy {finite}")
+        results[label] = {"ms": cell["ms"], "updates_per_s": ups,
+                          "launches": cell["launches"],
+                          "busy_ms": cell["busy_ms"],
+                          "kernels": cell["kernels"],
+                          "peak_gb": cell["peak_bytes"] / 1e9, "errs": errs}
+
+    # (a) counts
+    y, (yb, n), (ym, nm) = a6d_counts_data()
+    oc = host["counts"]
+    cell = _a6d_cell(device, models["counts"], {"y": y}, 1)
+    q = cell["out"][0]["rate"]
+    gate("(a)", f"poisson-gamma (B,N)=({CNT_B},{CNT_N})", cell,
+         {"a": cpu(q.a), "b": cpu(q.b)}, *oc["poisson"], CNT_B, 1, 1)
+    cell = _a6d_cell(device, models["clicks"], {"y": yb, "n": n}, 1)
+    q = cell["out"][0]["p"]
+    gate("(a)", f"beta-binomial (B,N)=({BIN_B},{BIN_N})", cell,
+         {"a": cpu(q.a), "b": cpu(q.b)}, *oc["binomial"], BIN_B, 1, 1)
+    cell = _a6d_cell(device, models["sessions"], {"y": ym, "n": nm}, 1)
+    q = cell["out"][0]["p"]
+    gate("(a)", f"dirichlet-multinomial (B,N,K)=({MULT_B},{MULT_N},"
+         f"{MULT_K})", cell, {"alpha": cpu(q.alpha)}, *oc["multinomial"],
+         MULT_B, 1, 1)
+
+    # (b) noise levels
+    init = {"v": rt.InverseGamma(2.0, 1.0)}
+    cell = _a6d_cell(device, models["noise"], {"y": a6d_noise_data()},
+                     NOISE_IT, init)
+    post = cell["out"][0]
+    fe_all = cpu(cell["out"][1])
+    # a rise over a sweep, relative to the largest free energy: float32
+    # rounding on a dataset whose terms cancel to a free energy near 0
+    rise = float(np.max(np.diff(fe_all, axis=0)) / np.abs(fe_all).max())
+    gate("(b)", f"noise level (B,N)=({NOISE_B},{NOISE_N}), {NOISE_IT} sweeps",
+         cell, {"mu_mean": cpu(post["mu"].mean()),
+                "mu_var": cpu(post["mu"].var()), "v_a": cpu(post["v"].a),
+                "v_b": cpu(post["v"].b)}, *host["noise"], NOISE_B, NOISE_IT,
+         2, extra=f" (the free energy of every sweep); its largest rise over "
+                  f"a sweep, relative to the largest: {rise:.3g}")
+    if rise > A6D_TOL:
+        raise AssertionError(f"phase 22 (b): the free energy rose {rise}")
+
+    # (c) covariances
+    yc = a6d_cov_data()
+    ov = host["cov"]
+    cell = _a6d_cell(device, models["cov_known"], {"y": yc}, 1)
+    q = cell["out"][0]["sig"]
+    gate("(c)", f"inverse-Wishart, m known (B,N,d)=({COV_B},{COV_N},{COV_D})",
+         cell, {"nu": cpu(q.nu), "psi": cpu(q.psi)}, *ov["known"], COV_B, 1,
+         1)
+    eye = np.eye(COV_D, dtype=np.float32)
+    cell = _a6d_cell(device, models["cov_random"], {"y": yc}, COV_IT,
+                     {"sig": rt.InverseWishart(COV_D + 3.0, eye)})
+    post = cell["out"][0]
+    gate("(c)", f"inverse-Wishart, m random, {COV_IT} sweeps", cell,
+         {"m": cpu(post["m"].mean()), "sigma_mean": cpu(post["sig"].mean())},
+         *ov["random_m"], COV_B, COV_IT, 2)
+    cell = _a6d_cell(device, models["scale_prec"], {"y": yc}, COV_IT,
+                     {"g": rt.Gamma(shape=1.0, rate=1.0)})
+    post = cell["out"][0]
+    gate("(c)", f"MvNormal(mean=m, gamma=g), {COV_IT} sweeps", cell,
+         {"m": cpu(post["m"].mean()), "g_a": cpu(post["g"].a),
+          "g_b": cpu(post["g"].b)}, *ov["gamma"], COV_B, COV_IT, 2)
+
+    # (d) sums
+    tree, loopy = a6d_sum_data()
+    for label, key, yy, its, init in (
+            (f"offset+bias tree (B,N)=({SUM_B},1)", "sum_tree", tree, 1,
+             ((1.0, 1.0), (0.5, 2.0))),
+            (f"offset+bias loopy (B,N)=({SUM_B},{SUM_LOOPY_N}), {SUM_IT} "
+             f"sweeps", "sum_loopy", loopy, SUM_IT,
+             ((0.0, 1.0), (0.0, 1.0)))):
+        cell = _a6d_cell(device, models[key], {"y": yy}, its, {
+            "a": rt.Normal(mean=init[0][0], var=init[0][1]),
+            "b": rt.Normal(mean=init[1][0], var=init[1][1])})
+        post = cell["out"][0]
+        got = {"a_mean": cpu(post["a"].mean()), "a_var": cpu(post["a"].var()),
+               "b_mean": cpu(post["b"].mean()), "b_var": cpu(post["b"].var())}
+        extra = ""
+        if key == "sum_loopy":
+            # the conjugate posterior mean of s = a + b (prior N(0, 2))
+            s_exact = (yy.astype(np.float64).sum(1) / 0.25) / (
+                0.5 + SUM_LOOPY_N / 0.25)
+            gap = float(np.abs(got["a_mean"] + got["b_mean"]
+                               - s_exact).max())
+            extra = f"; E[a + b] against its conjugate posterior: {gap:.3g} " \
+                    f"(bound {A6D_SUM_GAP})"
+            if gap > A6D_SUM_GAP:
+                raise AssertionError(f"phase 22 (d) loopy sum: {gap}")
+        gate("(d)", label, cell, got, *host[key], SUM_B, its, 2, extra=extra)
+    a_mat, b_mat, r_cov, ylc = a6d_lincomb_consts()
+    lc_init = {"x": rt.MvNormal(mean=np.zeros(LC_D, np.float32),
+                                cov=np.eye(LC_D, dtype=np.float32)),
+               "u": rt.MvNormal(mean=np.ones(2, np.float32),
+                                cov=2.0 * np.eye(2, dtype=np.float32))}
+    cell = _a6d_cell(device, models["lincomb"], {"y": ylc}, LC_IT, lc_init)
+    post = cell["out"][0]
+    ol, ofe = host["lincomb"]
+    got = {"x_mean": cpu(post["x"].mean()), "u_mean": cpu(post["u"].mean()),
+           "x_cov": cpu(post["x"].cov()), "u_cov": cpu(post["u"].cov())}
+    want = {k: np.broadcast_to(v, got[k].shape) for k, v in ol.items()}
+    gate("(d)", f"lincomb(A x + B u) (B,d)=({LC_B},{LC_D})", cell, got, want,
+         ofe, LC_B, LC_IT, 3)
+    return results
+
+
 def _start_checker() -> None:
     """A check process's start-up, run while the main process builds the
     kernels: the port's imports and the card's context."""
@@ -7021,6 +7612,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     side20 = pool.apply_async(slice20_checks, (wall0,))
     side21 = pool.apply_async(slice21_checks, (wall0,))
     side22 = pool.apply_async(slice22_checks, (wall0,))
+    side23 = pool.apply_async(slice23_checks, (wall0,))
     worst, plain = check_kernels(device, CHECK_SHAPES)
     _elapsed("K1/K2 checks", t_start)
     dyn_lines, dyn_worst = side_dyn.get()
@@ -7179,6 +7771,13 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     projection_path(device, s22_host, smi=smi)
     mean_field_paths(device, s22_host, smi=smi)
     _elapsed("the constraints", t_start)
+
+    # 22. the rest of the node library on plain groups (no kernel): (a)
+    # counts, (b) a noise level, (c) covariances, (d) sums
+    s23_lines, s23_host = side23.get()
+    print("\n".join(s23_lines))
+    a6d = a6d_paths(device, s23_host, smi=smi)
+    _elapsed("the rest of the node library", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}
@@ -7787,6 +8386,9 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
             "gmm": gmm["launches"].get(row["name"], 0),
             "stream_fused": stream["launches_a"].get(row["name"], 0),
             "stream_generic": stream["launches_b"].get(row["name"], 0)}
+        row["launches_phase22"] = {
+            cell: res["launches"].get(row["name"], 0)
+            for cell, res in a6d.items()}
     print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
           f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
           f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "

@@ -1,11 +1,15 @@
 """rxinfer_tpu_torch — the PyTorch/CUDA port of ``rxinfer_tpu``.
 
 A model written with ``@model``, ``latent``, ``plate``,
-``MvNormal``/``Normal``, ``Gamma``, ``Wishart``, ``Beta``, ``Bernoulli``,
+``MvNormal``/``Normal`` (sums of random terms in their means: ``a + b``,
+``A @ x + B @ u``), ``Gamma``, ``InverseGamma``, ``Wishart``,
+``InverseWishart``, ``Beta``, ``Bernoulli``, ``Binomial``, ``Poisson``,
+``Multinomial``, ``Uniform``, ``Uninformative``, ``Sum``, ``lincomb``,
 ``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``,
 ``NormalMixture``, ``Mixture``, ``AR``, ``GCV``, ``dot``, ``Delta``
 (``Linearization``, ``Unscented``, ``CVIProjection``, a known inverse),
-``Probit`` and ``SoftDot`` runs through
+``Probit``, ``SoftDot``, ``factor_node`` and ``where`` blocks
+(``RequireMessage``) runs through
 ``infer`` on one dataset, through ``batched_program`` / ``infer_batched``
 over many, and through
 ``infer(autoupdates=...)``, the streaming engine, on one stream or many, on
@@ -44,8 +48,10 @@ from . import rules  # noqa: F401  (registers the ported node rules)
 from .dists import (  # noqa: F401
     BernoulliLogits,
     GammaShapeRate,
+    GammaShapeScale,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
+    MvNormalMeanScalePrecision,
     MvNormalWeightedMeanPrecision,
     NormalMeanPrecision,
     NormalMeanVariance,
@@ -61,6 +67,7 @@ from .graph.dsl import (  # noqa: F401
     ARunsafe,
     Bernoulli,
     Beta,
+    Binomial,
     Categorical,
     Delta,
     Dirichlet,
@@ -68,19 +75,30 @@ from .graph.dsl import (  # noqa: F401
     DiscreteTransition,
     Gamma,
     GammaMixture,
+    InverseGamma,
+    InverseWishart,
     Mixture,
+    Multinomial,
     MvNormal,
     Normal,
     NormalMixture,
+    Poisson,
     Probit,
+    RequireMessage,
+    RequireMessageFunctionalDependencies,
     SoftDot,
+    Sum,
     Transition,
+    Uniform,
+    Uninformative,
     Wishart,
     dot,
     factor_node,
     latent,
+    lincomb,
     model,
     plate,
+    where,
 )
 from .graph.constraints import (  # noqa: F401
     AbstractFormConstraint,
@@ -100,7 +118,7 @@ from .graph.constraints import (  # noqa: F401
     factorize,
     factorize_slots,
 )
-from .rules.registry import NodeFunctionRuleFallback  # noqa: F401
+from .rules.registry import NodeFunctionRuleFallback, call_rule  # noqa: F401
 from .engine.projection import ProjectedTo  # noqa: F401
 from .rules import (  # noqa: F401
     CVI,

@@ -29,16 +29,24 @@ _FAMILIES = {
     "Beta": D.Beta,
     "Bernoulli": D.Bernoulli,
     "GammaShapeRate": D.GammaShapeRate,
+    "GammaShapeScale": D.GammaShapeScale,
+    "InverseGamma": D.InverseGamma,
+    "Poisson": D.Poisson,
+    "Binomial": D.Binomial,
+    "Uniform": D.Uniform,
     "Wishart": D.Wishart,
     "WishartInverseScale": D.WishartInverseScale,
+    "InverseWishart": D.InverseWishart,
     "NormalMeanVariance": D.NormalMeanVariance,
     "NormalMeanPrecision": D.NormalMeanPrecision,
     "NormalWeightedMeanPrecision": D.NormalWeightedMeanPrecision,
     "MvNormalMeanCovariance": D.MvNormalMeanCovariance,
     "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
     "MvNormalWeightedMeanPrecision": D.MvNormalWeightedMeanPrecision,
+    "MvNormalMeanScalePrecision": D.MvNormalMeanScalePrecision,
     "PointMass": D.PointMass,
     "Categorical": D.Categorical,
+    "Multinomial": D.Multinomial,
     "Dirichlet": D.Dirichlet,
     "DirichletCollection": D.DirichletCollection,
 }

@@ -1,7 +1,9 @@
-"""Distribution substrate of the PyTorch port (Gaussian families, Beta,
-Bernoulli, Categorical, Dirichlet, DirichletCollection, GammaShapeRate,
-Wishart, MixtureDist, PointMass, SampleList and the function-form
-LogPdfMessage; counterpart of ``rxinfer_tpu/dists``).  ``sampling.py``
+"""Distribution substrate of the PyTorch port (Gaussian families with the
+scale-precision one, Beta, Bernoulli, Binomial, Categorical, Dirichlet,
+DirichletCollection, Multinomial, GammaShapeRate, GammaShapeScale,
+InverseGamma, Poisson, Uniform, Wishart, InverseWishart, MixtureDist,
+PointMass, SampleList and the function-form LogPdfMessage; counterpart of
+``rxinfer_tpu/dists``).  ``sampling.py``
 holds their draws, modes and log-densities."""
 
 from .base import (  # noqa: F401
@@ -20,6 +22,7 @@ from .gaussian import (  # noqa: F401
     AbstractNormal,
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
+    MvNormalMeanScalePrecision,
     MvNormalWeightedMeanPrecision,
     NormalMeanPrecision,
     NormalMeanVariance,
@@ -29,8 +32,13 @@ from .gaussian import (  # noqa: F401
     pd_inverse,
     pd_logdet,
 )
-from .discrete import Categorical, Dirichlet, DirichletCollection  # noqa: F401
-from .matrix import Wishart, WishartInverseScale  # noqa: F401
+from .discrete import (  # noqa: F401
+    Categorical,
+    Dirichlet,
+    DirichletCollection,
+    Multinomial,
+)
+from .matrix import InverseWishart, Wishart, WishartInverseScale  # noqa: F401
 from .mixture import MixtureDist  # noqa: F401
 from .pointmass import (  # noqa: F401
     LogPdfMessage,
@@ -43,7 +51,12 @@ from .scalar_families import (  # noqa: F401
     Bernoulli,
     BernoulliLogits,
     Beta,
+    Binomial,
     GammaShapeRate,
+    GammaShapeScale,
+    InverseGamma,
+    Poisson,
+    Uniform,
 )
 
 register_pointmass_products(
@@ -59,7 +72,15 @@ register_pointmass_products(
     MvNormalMeanCovariance,
     MvNormalMeanPrecision,
     MvNormalWeightedMeanPrecision,
+    MvNormalMeanScalePrecision,
     GammaShapeRate,
+    GammaShapeScale,
+    InverseGamma,
+    Poisson,
+    Binomial,
+    Uniform,
+    Multinomial,
     Wishart,
     WishartInverseScale,
+    InverseWishart,
 )

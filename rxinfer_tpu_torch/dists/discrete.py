@@ -1,13 +1,14 @@
 """Discrete / simplex families (counterpart of ``rxinfer_tpu/dists/discrete.py``).
 
-Ported subset: ``Categorical`` (stored as logits; ``from_probs``, ``probs``,
+``Categorical`` (stored as logits; ``from_probs``, ``probs``,
 ``log_probs``, ``mean``, ``var``, ``entropy``), ``Dirichlet`` (``mean``,
 ``var``, ``mean_log``, ``entropy``, ``vague``) and ``DirichletCollection``
 (``mean``, ``mean_log``, ``var`` and ``entropy``, summed over the columns)
 with their closed-form products — what the HMM's discrete chain and its
 Dirichlet transition/emission groups need, and the mixture weights of a
-Gaussian mixture.  ``Multinomial``, sampling and log-densities arrive with
-the rest of the node library.
+Gaussian mixture — and ``Multinomial`` (a trial count and logits; counts
+data, its latent the Dirichlet of ``p``).  Draws and log-densities live in
+``sampling.py``.
 
 Batch axes.  Every tensor may carry leading batch dimensions.  A
 ``DirichletCollection`` is a collection of independent Dirichlets over the
@@ -142,3 +143,30 @@ class DirichletCollection(Distribution):
 @register_prod(DirichletCollection, DirichletCollection)
 def _prod_dirichlet_collection(x: DirichletCollection, y: DirichletCollection):
     return DirichletCollection(x.alpha + y.alpha - 1.0)
+
+
+@dist_dataclass
+class Multinomial(Distribution):
+    """Multinomial(n, p), p stored as logits (..., K); n (...,)."""
+
+    n: torch.Tensor
+    logits: torch.Tensor
+
+    @property
+    def event_ndim(self) -> int:
+        return 1
+
+    def probs(self):
+        return torch.softmax(self.logits, dim=-1)
+
+    def mean(self):
+        return self.n[..., None] * self.probs()
+
+    def var(self):
+        p = self.probs()
+        return self.n[..., None] * p * (1.0 - p)
+
+    @classmethod
+    def vague(cls, k: int, n=1.0, dtype=torch.float32):
+        return cls(torch.tensor(float(n), dtype=dtype),
+                   torch.zeros((k,), dtype=dtype))

@@ -1,11 +1,12 @@
 """Gaussian families, scalar and multivariate (counterpart of
 ``rxinfer_tpu/dists/gaussian.py``).
 
-Ported subset: the scalar and multivariate mean-variance / mean-precision /
+The scalar and multivariate mean-variance / mean-precision /
 weighted-mean-precision parametrizations with their entropies (whose
-log-determinants are one batched ``torch.linalg.slogdet``),
+log-determinants are one batched ``torch.linalg.slogdet``), the
+scale-precision family ``MvNormalMeanScalePrecision`` (N(mu, (gamma I)^-1)),
 ``pd_inverse``/``pd_logdet`` and the natural-form conversions.  Not ported:
-the scale-precision family, ``JointGaussian``, sampling and log-densities.
+``JointGaussian``.  Draws and log-densities live in ``sampling.py``.
 
 The compute form of message products is the information form: the product is
 ``(xi1 + xi2, W1 + W2)``.  Every tensor may carry leading batch dimensions.
@@ -232,8 +233,40 @@ class MvNormalWeightedMeanPrecision(AbstractMvNormal):
         return self.xi
 
 
+@dist_dataclass
+class MvNormalMeanScalePrecision(AbstractMvNormal):
+    """N(mu, (gamma I)^-1): mu (..., d), the scalar precision gamma (...,)."""
+
+    mu: torch.Tensor
+    gamma: torch.Tensor
+
+    def _eye(self):
+        d = self.mu.shape[-1]
+        return torch.eye(d, dtype=self.mu.dtype, device=self.mu.device)
+
+    def mean(self):
+        return self.mu
+
+    def cov(self):
+        return self._eye() / self.gamma[..., None, None]
+
+    def var(self):
+        return torch.broadcast_tensors((1.0 / self.gamma)[..., None],
+                                       self.mu)[0]
+
+    def precision(self):
+        return self._eye() * self.gamma[..., None, None]
+
+    def weightedmean(self):
+        return self.mu * self.gamma[..., None]
+
+    def entropy(self):
+        d = self.mu.shape[-1]
+        return 0.5 * d * (_LOG2PI + 1.0) - 0.5 * d * torch.log(self.gamma)
+
+
 MvGaussians = (MvNormalMeanCovariance, MvNormalMeanPrecision,
-               MvNormalWeightedMeanPrecision)
+               MvNormalWeightedMeanPrecision, MvNormalMeanScalePrecision)
 
 
 def as_mv_weighted_mean_precision(d) -> MvNormalWeightedMeanPrecision:

@@ -1,10 +1,11 @@
 """Matrix-variate families (counterpart of ``rxinfer_tpu/dists/matrix.py``).
 
-Ported subset: ``Wishart`` with its closed-form product and the
-inverse-scale carrier ``WishartInverseScale`` (the conjugate message to a
-precision matrix), and the multivariate log-gamma / digamma they use.
-``InverseWishart`` arrives with the slice whose path needs it.  Every tensor
-may carry leading batch dimensions: ``nu`` (...,), the scale (..., d, d).
+``Wishart`` with its closed-form product, the inverse-scale carrier
+``WishartInverseScale`` (the conjugate message to a precision matrix),
+``InverseWishart`` (the conjugate carrier of a covariance matrix, with its
+expected inverse and log-determinant) and the multivariate log-gamma /
+digamma they use.  Every tensor may carry leading batch dimensions: ``nu``
+(...,), the scale (..., d, d).
 """
 
 from __future__ import annotations
@@ -103,3 +104,58 @@ class WishartInverseScale(Distribution):
 
     def to_wishart(self) -> Wishart:
         return Wishart(self.nu, pd_inverse(self.s_inv))
+
+
+@dist_dataclass
+class InverseWishart(Distribution):
+    """InverseWishart(nu, Psi); E[X] = Psi / (nu - d - 1).  The conjugate
+    message to a Gaussian's covariance is the improper nu = -d member
+    (natural parameters (1, C)): its product with a proper prior adds one
+    pseudo-observation, IW(nu0 + 1, Psi0 + C)."""
+
+    nu: torch.Tensor
+    psi: torch.Tensor  # (..., d, d)
+
+    @property
+    def event_ndim(self) -> int:
+        return 2
+
+    @property
+    def dim(self) -> int:
+        return self.psi.shape[-1]
+
+    def mean(self):
+        return self.psi / (self.nu - self.dim - 1.0)[..., None, None]
+
+    def mean_inverse(self):
+        """E[X^-1] = nu Psi^-1."""
+        return self.nu[..., None, None] * pd_inverse(self.psi)
+
+    def mean_logdet(self):
+        """E[log|X|] = log|Psi| - d log 2 - psi_d(nu / 2)."""
+        d = self.dim
+        return (pd_logdet(self.psi) - d * _LOG2
+                - _mv_digamma(d, 0.5 * self.nu))
+
+    def entropy(self):
+        """-E[log p(X)] = (d + 1)/2 log|Psi| - d (d + 1)/2 log 2 +
+        log Gamma_d(nu/2) - (nu + d + 1)/2 psi_d(nu/2) + nu d / 2.  The
+        JAX package adds the log 2 term where it subtracts it (ROADMAP
+        C13)."""
+        d = self.dim
+        nu = self.nu
+        return (0.5 * (d + 1.0) * pd_logdet(self.psi)
+                - 0.5 * d * (d + 1.0) * _LOG2
+                + _mv_gammaln(d, 0.5 * nu)
+                - 0.5 * (nu + d + 1.0) * _mv_digamma(d, 0.5 * nu)
+                + 0.5 * nu * d)
+
+    @classmethod
+    def vague(cls, dim: int, dtype=torch.float32):
+        return cls(torch.tensor(dim + 2.0 + TINY, dtype=dtype),
+                   TINY * torch.eye(dim, dtype=dtype))
+
+
+@register_prod(InverseWishart, InverseWishart)
+def _prod_inverse_wishart(x: InverseWishart, y: InverseWishart):
+    return InverseWishart(x.nu + y.nu + x.dim + 1.0, x.psi + y.psi)

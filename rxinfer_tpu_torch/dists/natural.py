@@ -3,10 +3,10 @@
 
 For every family ``prod(d1, d2) == from_natural(to_natural(d1) +
 to_natural(d2))`` and the ZERO natural vector is the multiplicative identity.
-Ported subset: the ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
-``categorical``, ``dirichlet``, ``dirichlet_collection``, ``gamma`` and
-``wishart`` families (the other
-conjugate families arrive with the rest of the node library), ``prod_all``,
+The ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
+``categorical``, ``dirichlet``, ``dirichlet_collection``, ``gamma`` (any
+Gamma parametrization, read as (shape, rate)), ``inverse_gamma``,
+``wishart``, ``inverse_wishart`` and ``poisson`` families, ``prod_all``,
 ``nat_div``, ``prod_reduce``, ``pad_plate``, ``NAT_EVENT_RANKS``, and for
 the generic ``Mixture`` ``log_partition``, ``logpdf``, the mixture products
 and divisions and ``coerce_message_family``.  The
@@ -41,13 +41,15 @@ from .gaussian import (
     as_weighted_mean_precision,
     pd_inverse,
 )
-from .matrix import Wishart, WishartInverseScale
+from .matrix import InverseWishart, Wishart, WishartInverseScale
 from .scalar_families import (
     AbstractGamma,
     Bernoulli,
     BernoulliLogits,
     Beta,
     GammaShapeRate,
+    InverseGamma,
+    Poisson,
 )
 
 
@@ -82,6 +84,13 @@ _TABLE = {
                    if isinstance(d, WishartInverseScale)
                    else (d.nu - d.s.shape[-1] - 1.0, pd_inverse(d.s))),
         lambda n: WishartInverseScale(n[0] + n[1].shape[-1] + 1.0, n[1])),
+    "inverse_gamma": (lambda d: (d.a + 1.0, d.b),
+                      lambda n: InverseGamma(n[0] - 1.0, n[1])),
+    "inverse_wishart": (
+        lambda d: (d.nu + d.psi.shape[-1] + 1.0, d.psi),
+        lambda n: InverseWishart(n[0] - n[1].shape[-1] - 1.0, n[1])),
+    "poisson": (lambda d: (torch.log(d.lam),),
+                lambda n: Poisson(torch.exp(n[0]))),
 }
 
 # Event ranks of each family's natural-parameter leaves: they tell the batch
@@ -95,7 +104,10 @@ NAT_EVENT_RANKS = {
     "dirichlet_collection": (2,),
     "categorical": (1,),
     "gamma": (0, 0),
+    "inverse_gamma": (0, 0),
     "wishart": (0, 2),
+    "inverse_wishart": (0, 2),
+    "poisson": (0,),
 }
 
 
@@ -116,8 +128,14 @@ def family_key(d: Distribution) -> str:
         return "categorical"
     if isinstance(d, AbstractGamma):
         return "gamma"
+    if isinstance(d, InverseGamma):
+        return "inverse_gamma"
     if isinstance(d, (Wishart, WishartInverseScale)):
         return "wishart"
+    if isinstance(d, InverseWishart):
+        return "inverse_wishart"
+    if isinstance(d, Poisson):
+        return "poisson"
     raise TypeError(f"No natural-parameter view for {type(d).__name__}")
 
 
@@ -164,6 +182,11 @@ def log_partition(family: str, nat: tuple):
         return torch.nn.functional.softplus(nat[0])
     if family == "categorical":
         return torch.logsumexp(nat[0], dim=-1)
+    if family == "inverse_gamma":
+        a = nat[0] - 1.0
+        return torch.lgamma(a) - a * torch.log(nat[1])
+    if family == "poisson":
+        return torch.exp(nat[0])
     raise NotImplementedError(
         f"log_partition for family {family!r} is not available.")
 
@@ -193,6 +216,11 @@ def logpdf(d: Distribution, x):
         stat = nat[0] * x
     elif key == "categorical":
         stat = (nat[0] * x).sum(-1)
+    elif key == "inverse_gamma":
+        stat = -nat[0] * torch.log(x) - nat[1] / x
+    elif key == "poisson":
+        # the base measure 1 / x! enters here
+        stat = nat[0] * x - torch.lgamma(x + 1.0)
     else:
         raise NotImplementedError(f"logpdf for family {key!r}")
     return stat - log_partition(key, nat)

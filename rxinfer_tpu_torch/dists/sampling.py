@@ -6,7 +6,7 @@ Every draw comes from an explicit ``torch.Generator`` on the
 distribution's device (``generator``), so that a seeded constraint draws
 the same stream at every call; the streams are torch's, never JAX's.
 Draws lead with the sample axis: ``sample(d, n, g)`` is (n, batch...,
-event...).
+event...).  Poisson and Binomial draws are float tensors of counts.
 """
 
 from __future__ import annotations
@@ -14,11 +14,19 @@ from __future__ import annotations
 import torch
 
 from .base import Distribution, tree_leaves
-from .discrete import Categorical, Dirichlet
+from .discrete import Categorical, Dirichlet, Multinomial
 from .gaussian import AbstractMvNormal, AbstractNormal
 from .natural import logpdf as _natural_logpdf
 from .pointmass import PointMass, SampleList
-from .scalar_families import AbstractGamma, Bernoulli, BernoulliLogits, Beta
+from .scalar_families import (
+    AbstractGamma,
+    Bernoulli,
+    BernoulliLogits,
+    Beta,
+    Binomial,
+    InverseGamma,
+    Poisson,
+)
 
 
 def batch_shape(d):
@@ -100,6 +108,15 @@ def sample(d: Distribution, n: int, g: torch.Generator):
         u = torch.rand((n,) + tuple(p.shape), generator=g, device=p.device,
                        dtype=p.dtype)
         return (u < p).to(p.dtype)
+    if isinstance(d, Poisson):
+        lam = d.lam
+        return torch.poisson(lam.expand((n,) + tuple(lam.shape)).contiguous(),
+                             generator=g)
+    if isinstance(d, Binomial):
+        cnt, p = torch.broadcast_tensors(d.n, d.p)
+        shape = (n,) + tuple(p.shape)
+        return torch.binomial(cnt.expand(shape).contiguous(),
+                              p.expand(shape).contiguous(), generator=g)
     raise NotImplementedError(
         f"sampling from {type(d).__name__} is not available.")
 
@@ -120,6 +137,12 @@ def mode(d: Distribution):
         return (d.logit >= 0).to(d.logit.dtype)
     if isinstance(d, Bernoulli):
         return (d.p >= 0.5).to(d.p.dtype)
+    if isinstance(d, InverseGamma):
+        return d.b / (d.a + 1.0)
+    if isinstance(d, Poisson):
+        return torch.floor(d.lam)
+    if isinstance(d, Binomial):
+        return torch.clamp(torch.floor((d.n + 1.0) * d.p), max=d.n)
     if isinstance(d, Categorical):
         k = d.logits.shape[-1]
         return torch.nn.functional.one_hot(
@@ -133,4 +156,16 @@ def logpdf(d, x):
     ``LogPdfMessage`` through its ``log_fn``)."""
     if hasattr(d, "log_fn"):
         return d.logpdf(x)
+    if isinstance(d, Binomial):
+        n, p = d.n, d.p
+        x = torch.as_tensor(x, dtype=p.dtype, device=p.device)
+        return (torch.lgamma(n + 1.0) - torch.lgamma(x + 1.0)
+                - torch.lgamma(n - x + 1.0) + torch.xlogy(x, p)
+                + torch.xlogy(n - x, 1.0 - p))
+    if isinstance(d, Multinomial):
+        x = torch.as_tensor(x, dtype=d.logits.dtype, device=d.logits.device)
+        lp = torch.log_softmax(d.logits, dim=-1)
+        return (torch.lgamma(torch.sum(x, dim=-1) + 1.0)
+                - torch.sum(torch.lgamma(x + 1.0), dim=-1)
+                + torch.sum(x * lp, dim=-1))
     return _natural_logpdf(d, x)

@@ -11,8 +11,8 @@
 * A missing observation (NaN) removes its likelihood copy: the copy's
   average energy is masked, and its entropy terms cancel against the
   variable's degree.
-* A deterministic node (Delta) has no average energy: its term is -H of
-  the joint belief over its inputs, from the cavity beliefs
+* A deterministic node (Delta, Sum, LinComb) has no average energy: its
+  term is -H of the joint belief over its inputs, from the cavity beliefs
   (``bethe_term``).
 * An unplated Gaussian factor between two random variables (the four
   Gaussian nodes' (out, mean), the dot-product likelihood's and a
@@ -79,19 +79,24 @@ def _noise_expectations(q, noise_key: str, d: int):
     noise interface."""
     from ..dists.gaussian import pd_inverse, pd_logdet
     from ..rules.delta import _noise_rank
-    from ..rules.expectations import e_log_precision, e_logdet, e_precision
+    from ..rules.expectations import (
+        e_inv_scalar,
+        e_inverse,
+        e_log,
+        e_log_precision,
+        e_logdet,
+        e_precision,
+    )
 
     noise = q[noise_key]
     rank = _noise_rank(q, noise_key, d)
     if noise_key in ("var", "cov"):
-        if not isinstance(noise, PointMass):
-            raise NotImplementedError(
-                f"free_energy=True: a random {noise_key!r} noise (an "
-                "inverse-Gamma / inverse-Wishart group) is not ported to the "
-                "PyTorch package yet.")
+        # a point mass, or a random InverseGamma / InverseWishart noise
         if rank == 0:
-            return (1.0 / noise.point)[..., None, None], torch.log(noise.point)
-        return pd_inverse(noise.point), pd_logdet(noise.point)
+            return e_inv_scalar(noise)[..., None, None], e_log(noise)
+        if isinstance(noise, PointMass):
+            return pd_inverse(noise.point), pd_logdet(noise.point)
+        return e_inverse(noise), e_logdet(noise)
     w = e_precision(noise)
     if rank == 0:
         elogw = (torch.log(noise.point) if isinstance(noise, PointMass)
@@ -128,6 +133,16 @@ def _pair_map(f, q: dict, in_key: str, r_in: int, d_o: int, d_i: int,
             torch.zeros((d_o,), dtype=dt, device=dev))
 
 
+def _cat_lead(parts, event_ndim: int, dim: int):
+    """``torch.cat`` of tensors whose leading (batch) axes broadcast, their
+    ``event_ndim`` trailing axes kept as they are (an out and an in block
+    of different sizes)."""
+    lead = torch.broadcast_shapes(*[p.shape[:p.ndim - event_ndim]
+                                    for p in parts])
+    return torch.cat([p.expand(lead + p.shape[p.ndim - event_ndim:])
+                      for p in parts], dim=dim)
+
+
 def gaussian_pair_fe(f, q: dict, state: dict, in_key: str, noise_key: str):
     """AE - H over the local joint q(out, in) of a Gaussian factor out =
     g(in) + noise, rebuilt from the cavity messages (the marginals divided
@@ -150,15 +165,13 @@ def gaussian_pair_fe(f, q: dict, state: dict, in_key: str, noise_key: str):
     wbar, elogv = _noise_expectations(q, noise_key, d_o)
     wa = wbar @ a_mat
     at = a_mat.transpose(-1, -2)
-    top = torch.cat(torch.broadcast_tensors(w_o + wbar, -wa), dim=-1)
-    bot = torch.cat(torch.broadcast_tensors(-(at @ wbar), w_i + at @ wa),
-                    dim=-1)
-    top, bot = torch.broadcast_tensors(top, bot)
-    jmat = torch.cat([top, bot], dim=-2)
+    top = _cat_lead([w_o + wbar, -wa], 2, -1)
+    bot = _cat_lead([-(at @ wbar), w_i + at @ wa], 2, -1)
+    jmat = _cat_lead([top, bot], 2, -2)
     wb = torch.einsum("...ij,...j->...i", wbar, b_vec)
-    xi = torch.cat(torch.broadcast_tensors(
-        xi_o + wb, xi_i - torch.einsum("...ji,...j->...i", a_mat, wb)),
-        dim=-1)
+    xi = _cat_lead([xi_o + wb,
+                    xi_i - torch.einsum("...ji,...j->...i", a_mat, wb)],
+                   1, -1)
     vmat = small_inv(jmat)
     mu = torch.einsum("...ij,...j->...i", vmat, xi)
     mu_o, mu_i = mu[..., :d_o], mu[..., d_o:]

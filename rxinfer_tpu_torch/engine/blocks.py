@@ -21,9 +21,11 @@ by the program and their factor copies masked out), ``in_cavity_cluster``,
 ``_coverage``, ``divide_cavities``, ``PlainGroup`` (scalar groups
 plate-reduced, array groups padded over their slots; a rule that reads its
 own marginal sees it once the group has one; the EP cavity store of every
-node that declares ``cavity_cluster`` or ``uses_cavity``, which a
-mean-field factor skips; form and message-form constraints; function-form
-fallback messages, which a projecting form must absorb),
+node that declares ``cavity_cluster`` or ``uses_cavity`` (the deterministic
+``Sum`` / ``LinComb`` among them), which a mean-field factor skips; the
+required message on a factor's own edge, ``require_message``; form and
+message-form constraints; function-form fallback messages, which a
+projecting form must absorb),
 ``GaussianChainBlock`` (its ``update`` with the
 Kalman scans of ``ops/kalman.py``, its evidence with the damping of
 ``meta={...: {"damping": lam}}`` and the cavity store of its evidence
@@ -38,9 +40,10 @@ constraint applies; with ``raw_product`` it returns the product before
 it, for pooled ``shared=`` sums.  The cavity stores are state entries
 ``_msg:<factor id>:<interface>``, as in the JAX package.
 Not ported: the ``time_mesh`` branch of ``GaussianChainBlock.update``
-(time sharding), and the ``PlainGroup`` branches that ``engine/compile.py``
-refuses when it builds a group: grid (nested-plate) factors and
-required-message dependencies.
+(time sharding), and the ``PlainGroup`` branch that ``engine/compile.py``
+refuses when it builds a group: grid (nested-plate) factors (ROADMAP A6e).
+As in the JAX package, a required-message dependency acts on plain groups
+only: a chain's evidence factor reads the chain's marginal.
 """
 
 from __future__ import annotations
@@ -155,12 +158,7 @@ def build_q(f: Factor, state: dict, data: dict,
     for name, v in f.all_interfaces().items():
         if name == exclude:
             continue
-        x = resolve_iface(v, f, state, data, ctx)
-        if (f.plate is not None and isinstance(v, Ref)
-                and not isinstance(_coverage(f, v), tuple)):
-            # shared by every plate copy: a unit plate axis after the batch
-            x = tree_map(lambda a: a.unsqueeze(1), x)
-        q[name] = x
+        q[name] = factor_marginal(f, v, state, data, ctx)
     if f.meta is not None:
         q["_meta"] = {**f.meta, "_plated": f.plate is not None}
     if chain_cross:
@@ -171,6 +169,42 @@ def build_q(f: Factor, state: dict, data: dict,
     if "joint" not in q:
         attach_gcv_pair_cross(q, f, state)
     return q
+
+
+def factor_marginal(f: Factor, v, state: dict, data: dict,
+                    ctx: BatchContext):
+    """The marginal at one interface value ``v`` of ``f`` as ``build_q``
+    hands it to a rule: a value that a plated factor shares across its
+    copies gets a unit plate axis after the batch axis."""
+    x = resolve_iface(v, f, state, data, ctx)
+    if (f.plate is not None and isinstance(v, Ref)
+            and not isinstance(_coverage(f, v), tuple)):
+        x = tree_map(lambda a: a.unsqueeze(1), x)
+    return x
+
+
+def require_message(f: Factor, iface: str, q: dict, state: dict,
+                    data: dict, ctx: BatchContext) -> bool:
+    """A ``RequireMessage`` dependency on ``f``'s own edge ``iface`` (the
+    reference's ``RequireMessageFunctionalDependencies``): the rule reads
+    the inbound message there, the marginal divided by the factor's
+    previous message (``_msg:<factor id>:<interface>``), seeded on the
+    first sweep by the message the model gave (a ``None`` seed leaves the
+    rule without it).  Returns whether the edge has the dependency, so that
+    its message is stored."""
+    deps = f.dependencies
+    if deps is None or iface not in deps.interfaces:
+        return False
+    key = f"_msg:{f.id}:{iface}"
+    if key in state:
+        own = factor_marginal(f, f.all_interfaces()[iface], state, data, ctx)
+        q[iface] = nat_div(own, state[key])
+    elif deps.interfaces[iface] is not None:
+        q[iface] = tree_map(
+            lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                      device=ctx.device),
+            deps.interfaces[iface])
+    return True
 
 
 def attach_gcv_pair_cross(q: dict, f: Factor, state: dict) -> None:
@@ -281,7 +315,9 @@ def with_batch_axis(d, batch: int, plated: bool = False):
         return d
     nat = to_natural(d)
     if all(n.ndim - r >= need for n, r in zip(nat, ranks)):
-        return d
+        # the natural leaves have the axes where a field lacks them (a
+        # constant mean beside a batched variance)
+        return from_natural(key, nat)
     out = []
     for n, r in zip(nat, ranks):
         if n.ndim - r < need:
@@ -374,14 +410,19 @@ class PlainGroup:
                       and in_cavity_cluster(node_cls, iface))
             if cavity:
                 divide_cavities(f, iface, q, state, node_cls)
+            required = require_message(f, iface, q, state, data, ctx)
             raw = coerce_message_family(rule(q), self.family)
             if isinstance(raw, LogPdfMessage):
                 # function-form fallback: the plate is folded into its
                 # log-density; a form constraint must project it
                 msgs.append(raw)
                 continue
+            if tree_leaves(raw)[0].device != ctx.device:
+                # a message of no input at all (the flat Uninformative
+                # prior's) is made on the CPU
+                raw = tree_map(lambda a: a.to(ctx.device), raw)
             msg = mask_message(raw, ctx.masks.get(f.id))
-            if cavity:
+            if cavity or required:
                 state[f"_msg:{f.id}:{iface}"] = with_batch_axis(
                     msg, ctx.batch, f.plate is not None)
             if length is None:

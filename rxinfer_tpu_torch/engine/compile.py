@@ -8,7 +8,10 @@ the single-dataset program of ``infer`` (``make_program`` / ``run`` /
 ``run_iterative``) and the batched program (engine/batched.py).
 
 Ported subset: ``contract_deltas``, ``normalize_transitions``,
-``detect_chains``, ``schedule_sweep``, ``attach_meta`` (``meta=``),
+``detect_chains``, ``schedule_sweep`` (with the JAX package's tree
+schedule of a chain-free deadlock, ``_try_tree_schedule``, and the
+ancestral or vague seeds of its variables, ``_prior_init`` /
+``_vague_for``), ``attach_meta`` (``meta=``),
 ``_mean_field_factor_ids`` (factorization constraints) and the
 parts of ``CompiledModel`` that models of Gaussian, AR, GCV and discrete
 chains and plain conjugate groups need: block construction with
@@ -33,11 +36,11 @@ statistics, the initialization read at the first tick only; and
 plain group is built for every random variable that is not a chain, in a
 family the port has a natural-parameter view for (``gaussian``,
 ``mv_gaussian``, ``beta``, ``bernoulli``, ``categorical``, ``dirichlet``,
-``dirichlet_collection``, ``gamma``, ``wishart``).  Not ported yet (they
-raise ``NotImplementedError``): plain groups of other families
-(``inverse_gamma``, ...), the plain-group branches listed in
-``engine/blocks.py``, submodel-scoped constraints, tree-scheduled
-(auto-initialized) loopy models.
+``dirichlet_collection``, ``gamma``, ``inverse_gamma``, ``wishart``,
+``inverse_wishart``, ``poisson``), with the required-message dependencies
+of ``where(dependencies=RequireMessage(...))``.  Not ported yet (they raise
+``NotImplementedError``): the grid (nested-plate) branch of the plain groups
+(ROADMAP A6e) and submodel-scoped constraints (A6i).
 """
 
 from __future__ import annotations
@@ -422,17 +425,98 @@ def _read_deps(var, graph: ModelGraph, chains) -> set[str]:
     return deps
 
 
-def schedule_sweep(graph, chains, init_names: set[str]) -> list[str]:
+def _try_tree_schedule(remaining, graph: ModelGraph) -> Optional[list]:
+    """The deadlocked variables as a tree sweep, or None when they are
+    loopy.  When the factor graph restricted to them is acyclic (checked by
+    union-find over each factor's deadlocked neighbourhood; a plated factor
+    is one factor), exact BP needs no initialization: a leaves-to-root pass
+    followed by the reverse root-to-leaves pass gives every marginal in one
+    sweep.  The variables are then auto-initialized (``_prior_init`` /
+    ``_vague_for``) so that the not-yet-informed side of each update is a
+    neutral message."""
+    names = {v.name for v in remaining}
+    fac_adj: dict = {n: [] for n in names}
+    fac_vars: list = []
+    for f in graph.factors:
+        vs = sorted({v.var.name for v in f.all_interfaces().values()
+                     if isinstance(v, Ref) and v.var.kind == "random"
+                     and v.var.name in names})
+        if len(vs) >= 2:
+            fid = len(fac_vars)
+            fac_vars.append((fid, vs))
+            for n in vs:
+                fac_adj[n].append(fid)
+
+    parent = {n: n for n in names}
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for _, vs in fac_vars:
+        for other in vs[1:]:
+            rb, ro = find(vs[0]), find(other)
+            if rb == ro:
+                return None  # a cycle: a loopy model
+            parent[ro] = rb
+
+    # depth-first post-order over the forest: leaves first
+    post: list = []
+    seen_v: set = set()
+    seen_f: set = set()
+    for root in sorted(names):
+        if root in seen_v:
+            continue
+        stack = [(root, iter(fac_adj[root]))]
+        seen_v.add(root)
+        while stack:
+            var, fac_iter = stack[-1]
+            advanced = False
+            for fid in fac_iter:
+                if fid in seen_f:
+                    continue
+                seen_f.add(fid)
+                for child in fac_vars[fid][1]:
+                    if child not in seen_v:
+                        seen_v.add(child)
+                        stack.append((child, iter(fac_adj[child])))
+                        advanced = True
+                        break
+                if advanced:
+                    break
+            if not advanced:
+                post.append(var)
+                stack.pop()
+    return post + post[-2::-1]
+
+
+def schedule_sweep(graph, chains, init_names: set) -> tuple:
     """Greedy topological sweep order; initialized groups count as
-    available.  A deadlock that blocks a chain is the caller's to break with
-    an initialization (``ValueError``, as in the JAX package); a chain-free
-    deadlock would take the JAX package's exact tree schedule, which is not
-    ported yet (``NotImplementedError``)."""
+    available.  Returns ``(order, auto_init)``: the variables of
+    ``auto_init`` were deadlocked on each other but form a tree, scheduled
+    as an exact forward and backward BP sweep (``_try_tree_schedule``), or
+    are plain groups that a factor touches at two interfaces (they read
+    their own marginal on the first sweep); each must be auto-initialized.
+    A deadlock that blocks a chain, or a loopy one, is the caller's to
+    break with an initialization (``ValueError``, as in the JAX
+    package)."""
     remaining = list(graph.random_variables())
-    available: set[str] = set(init_names)
-    updated: set[str] = set()
-    order: list[str] = []
+    available: set = set(init_names)
+    updated: set = set()
+    order: list = []
     deps_map = {v.name: _read_deps(v, graph, chains) for v in remaining}
+    self_dep: set = set()
+    for v in remaining:
+        if v.name in chains or v.name in init_names:
+            continue
+        for f in graph.factors:
+            touches = sum(1 for iv in f.all_interfaces().values()
+                          if isinstance(iv, Ref) and iv.var is v)
+            if touches >= 2:
+                self_dep.add(v.name)
+                break
     while remaining:
         progressed = False
         for v in list(remaining):
@@ -442,21 +526,104 @@ def schedule_sweep(graph, chains, init_names: set[str]) -> list[str]:
                 remaining.remove(v)
                 progressed = True
         if not progressed:
-            blocked = {v.name: sorted(deps_map[v.name] - updated - available)
-                       for v in remaining}
-            if any(v.name in chains for v in remaining):
+            tree_order = None
+            if not any(v.name in chains for v in remaining):
+                tree_order = _try_tree_schedule(remaining, graph)
+            if tree_order is None:
+                blocked = {v.name: sorted(deps_map[v.name] - updated
+                                          - available)
+                           for v in remaining}
                 raise ValueError(
                     "Model contains initialization cycles; provide "
                     f"initialization for some of: {blocked}. (Reference "
                     "equivalent: @initialization is required for "
                     "variational iterations.)"
                 )
-            raise NotImplementedError(
-                "Model contains initialization cycles "
-                f"({blocked}); tree schedules and loopy models are not "
-                "ported to the PyTorch package yet."
-            )
-    return order
+            return (order + tree_order,
+                    {v.name for v in remaining} | self_dep)
+    return order, self_dep
+
+
+def _prior_init(graph: ModelGraph, name: str, _memo=None, _stack=None):
+    """The ancestral seed of an auto-initialized variable: its unplated,
+    whole-variable defining factor's ``message_to_out`` with constant
+    interfaces as point masses and random inputs seeded the same way,
+    recursively (the message the reference's reactive schedule would
+    deliver first).  None when the variable has no such factor or the
+    cascade fails (the vague marginal is then taken)."""
+    from ..dists import PointMass
+
+    _memo = {} if _memo is None else _memo
+    _stack = set() if _stack is None else _stack
+    if name in _memo:
+        return _memo[name]
+    if name in _stack:   # a cycle: the vague marginal breaks it
+        return None
+    _stack = _stack | {name}
+    for f in graph.factors:
+        if not (f.out.var.kind == "random" and f.out.var.name == name
+                and f.out.idx is None and f.plate is None):
+            continue
+        try:
+            q = {}
+            for k, v in f.interfaces.items():
+                if isinstance(v, Const):
+                    q[k] = PointMass(torch.as_tensor(
+                        np.asarray(v.value, np.float32)))
+                    continue
+                seed = None
+                if (isinstance(v, Ref) and v.var.kind == "random"
+                        and v.idx is None):
+                    seed = _prior_init(graph, v.var.name, _memo, _stack)
+                if seed is None:
+                    raise LookupError(k)
+                q[k] = seed
+            if f.meta is not None:
+                q["_meta"] = {**f.meta, "_plated": False}
+            with torch.no_grad():
+                out = get_message_rule(f.fform, "out")(q)
+            _memo[name] = out
+            return out
+        except Exception:  # noqa: BLE001 -- any failure: the vague seed
+            continue
+    _memo[name] = None
+    return None
+
+
+def _vague_for(family: str, event_shape: tuple):
+    """The non-informative marginal of an auto-initialized tree-schedule
+    variable (the reference's ``vague(T)``).  The Gaussian scale is 1e6,
+    not 1e12: cavities are natural-parameter differences in float32, where
+    a 1e-12 precision beside an informative one cancels to an exactly flat
+    cavity; 1e-6 stays representable and biases a posterior by O(1e-5)
+    relative."""
+    from .. import dists as D
+
+    f32 = torch.float32
+    if family == "gaussian":
+        return D.NormalMeanVariance(torch.tensor(0.0), torch.tensor(1.0e6))
+    if family == "mv_gaussian":
+        d = event_shape[0]
+        return D.MvNormalMeanCovariance(torch.zeros(d), 1.0e6 * torch.eye(d))
+    if family == "bernoulli":
+        return D.BernoulliLogits(torch.tensor(0.0))
+    if family == "beta":
+        return D.Beta(torch.tensor(1.0), torch.tensor(1.0))
+    if family == "gamma":
+        return D.GammaShapeRate.vague(f32)
+    if family == "inverse_gamma":
+        return D.InverseGamma.vague(f32)
+    if family == "categorical":
+        return D.Categorical(torch.zeros(event_shape[0]))
+    if family == "dirichlet":
+        return D.Dirichlet.vague(event_shape[0], f32)
+    if family == "wishart":
+        return D.Wishart.vague(event_shape[0], f32)
+    if family == "inverse_wishart":
+        return D.InverseWishart.vague(event_shape[0], f32)
+    raise ValueError(
+        f"No vague initializer for family {family!r}; provide an explicit "
+        "initialization for the tree-scheduled variables.")
 
 
 def _all_finite(data: dict) -> bool:
@@ -526,7 +693,22 @@ class CompiledModel:
         if unknown:
             raise ValueError(
                 f"initialization given for unknown variables {unknown}")
-        self.sweep = schedule_sweep(graph, self.chains, set(init))
+        self.sweep, auto_init = schedule_sweep(graph, self.chains, set(init))
+        from ..dists.natural import family_key
+
+        for name in sorted(auto_init - set(init)):
+            gi = self.infos[name]
+            seed = _prior_init(graph, name)
+            if seed is not None:
+                # the seed must be of the group's conjugate family (a
+                # mixture's out message is not)
+                try:
+                    if family_key(seed) != gi.family:
+                        seed = None
+                except TypeError:
+                    seed = None
+            init[name] = (seed if seed is not None
+                          else _vague_for(gi.family, gi.event_shape))
         self.init = init
 
         unknown = set(options) - _KNOWN_OPTIONS
@@ -708,11 +890,8 @@ class CompiledModel:
         where = f"plain group {var.name!r}, factor {f.fform} ({iface})"
         if len(getattr(f, "plates", ())) >= 2:
             raise NotImplementedError(
-                f"{where}: grid (nested-plate) factors are not ported yet.")
-        if f.dependencies is not None:
-            raise NotImplementedError(
-                f"{where}: required-message dependencies are not ported "
-                "yet.")
+                f"{where}: grid (nested-plate) factors are not ported yet "
+                "(ROADMAP A6e).")
         if var.is_array:
             cov = _coverage(f, ref)
             if cov is None or (isinstance(cov, int) and f.plate is not None):

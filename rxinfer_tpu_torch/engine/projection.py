@@ -27,8 +27,9 @@ the digamma systems for Beta, Gamma and Dirichlet; ``rules/delta.py`` uses
 it for ``CVIProjection(out_family=...)``.  A scalar family's samples there
 are (..., S), a vector family's (..., S, d), the weights (S,) or (..., S).
 
-Families: gaussian, mv_gaussian, beta, gamma, dirichlet, bernoulli.
-``poisson`` and ``binomial`` wait for those distributions (ROADMAP A6d).
+Families: gaussian, mv_gaussian, beta, gamma, dirichlet, bernoulli,
+poisson and binomial (its trial count a parameter outside the natural one,
+carried beside it: ``ProjectedTo("binomial", n=...)``).
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ import torch
 from ..dists import (
     BernoulliLogits,
     Beta,
+    Binomial,
     Dirichlet,
     GammaShapeRate,
     MvNormalMeanCovariance,
     MvNormalWeightedMeanPrecision,
     NormalMeanVariance,
+    Poisson,
     pd_inverse,
 )
 from ..dists.base import ProductError
@@ -71,29 +74,36 @@ _SUFF = {
     "gamma": lambda x: (torch.log(x), -x),
     "dirichlet": lambda x: (torch.log(x),),
     "bernoulli": lambda x: (x,),
+    "poisson": lambda x: (x,),
+    "binomial": lambda x: (x,),
 }
 
 SUPPORTED = tuple(sorted(_SUFF))
-# families of the JAX package's projection whose distributions the port
-# does not have yet
-_UNPORTED = {"poisson": "A6d", "binomial": "A6d"}
+# natural-parameter event ranks, the binomial's (its logit) beside the
+# registry's
+_RANKS = {**NAT_EVENT_RANKS, "binomial": (0,)}
 
 
 def _check_family(family: str) -> None:
-    if family in _UNPORTED:
-        raise NotImplementedError(
-            f"projection onto {family!r}: the PyTorch package has no "
-            f"{family} distribution yet (ROADMAP {_UNPORTED[family]}).")
     if family not in _SUFF:
         raise ValueError(
             f"projection supports families {SUPPORTED}, got {family!r}")
 
 
-def _nat_to_dist(family: str, nat: tuple):
+def _nat_to_dist(family: str, nat: tuple, n_trials=None):
+    """``from_natural``, with the binomial's trial count carried beside its
+    natural parameter (the logit)."""
+    if family == "binomial":
+        n = torch.as_tensor(n_trials, dtype=nat[0].dtype,
+                            device=nat[0].device)
+        return Binomial(n, torch.sigmoid(nat[0]))
     return from_natural(family, nat)
 
 
 def _dist_to_nat(family: str, dist):
+    if family == "binomial":
+        p = torch.clamp(dist.p, 1e-6, 1.0 - 1e-6)
+        return (torch.log(p) - torch.log1p(-p),)
     return to_natural(dist)
 
 
@@ -114,7 +124,8 @@ def _project_domain(family: str, nat: tuple) -> tuple:
         return (torch.clamp(nat[0], min=-0.999), torch.clamp(nat[1], min=1e-6))
     if family == "dirichlet":
         return (torch.clamp(nat[0], min=-0.999),)
-    if family == "bernoulli":
+    if family in ("bernoulli", "binomial", "poisson"):
+        # the logit, or log lam: bounded so that the draws stay finite
         return (torch.clamp(nat[0], -15.0, 15.0),)
     raise ValueError(f"unsupported projection family {family!r}")
 
@@ -141,23 +152,25 @@ def _unflatten(vec, shapes):
 def _lead_shape(family: str, nat: tuple) -> tuple:
     """The batch shape of a natural-parameter tuple."""
     return tuple(torch.broadcast_shapes(*[
-        n.shape[:n.ndim - r] for n, r in zip(nat, NAT_EVENT_RANKS[family])]))
+        n.shape[:n.ndim - r] for n, r in zip(nat, _RANKS[family])]))
 
 
 def project_logpdf(family: str, logpdf_fn, initial, *, n_iters: int = 40,
                    n_samples: int = 512, step: float = 0.4,
                    decay: float = 0.05, ridge: float = 1e-5, seed: int = 0,
-                   batch_shape: tuple = ()):
+                   batch_shape: tuple = (), n_trials=None):
     """Stochastic natural-gradient projection of an unnormalized
     log-density onto ``family``, warm-started from ``initial`` (a
     distribution of the family).  ``logpdf_fn`` maps draws (S, batch...,
     event...) to (S, batch...); the batch is ``initial``'s broadcast with
-    ``batch_shape``.  Returns the projected distribution over the batch."""
+    ``batch_shape``; ``n_trials`` is a binomial's trial count.  Returns the
+    projected distribution over the batch."""
     from ..ops.smallmat import small_solve
 
     _check_family(family)
-    ranks = NAT_EVENT_RANKS[family]
-    eta0 = tuple(n.to(torch.float32) for n in to_natural(initial))
+    ranks = _RANKS[family]
+    eta0 = tuple(n.to(torch.float32)
+                 for n in _dist_to_nat(family, initial))
     device = eta0[0].device
     g = generator(seed, device)
     lead = tuple(torch.broadcast_shapes(_lead_shape(family, eta0),
@@ -170,8 +183,8 @@ def project_logpdf(family: str, logpdf_fn, initial, *, n_iters: int = 40,
     half = max(1, n_iters // 2)  # n_iters = 1 must not divide by 0
     avg = torch.zeros_like(vec)
     for i in range(n_iters):
-        q = _nat_to_dist(family, _project_domain(family,
-                                                 _unflatten(vec, shapes)))
+        q = _nat_to_dist(family, _project_domain(
+            family, _unflatten(vec, shapes)), n_trials)
         z = sample(q, n_samples, g)                        # (S, lead, ev)
         t = _stats_matrix(family, z)                       # (S, lead, P)
         # Cov(T, log p~ - log q) = Cov(T, f) - F eta: F^-1 of it estimates
@@ -190,7 +203,8 @@ def project_logpdf(family: str, logpdf_fn, initial, *, n_iters: int = 40,
         if i >= n_iters - half:
             avg = avg + vec / half
     return _nat_to_dist(family,
-                        _project_domain(family, _unflatten(avg, shapes)))
+                        _project_domain(family, _unflatten(avg, shapes)),
+                        n_trials)
 
 
 def _stats_matrix(family: str, z):
@@ -273,6 +287,8 @@ def fit_weighted_samples(family: str, samples, weights):
     if family == "bernoulli":
         m = torch.clamp(torch.sum(w * samples, dim=-1), 1e-6, 1.0 - 1e-6)
         return BernoulliLogits(torch.log(m) - torch.log1p(-m))
+    if family == "poisson":
+        return Poisson(torch.clamp(torch.sum(w * samples, dim=-1), min=1e-8))
     if family == "dirichlet":
         s = torch.clamp(samples, min=1e-6)
         s = s / torch.sum(s, dim=-1, keepdim=True)
@@ -362,16 +378,22 @@ class ProjectedTo(AbstractFormConstraint):
     stochastic natural-gradient descent on the exponential-family manifold
     (reference ``ProjectedTo``, ext/ProjectionExt/ProjectionExt.jl:24-67):
     ``ProjectedTo("beta")``, ``("gaussian")``, ``("mv_gaussian")``,
-    ``("gamma")``, ``("dirichlet")``, ``("bernoulli")``.  Inside the engine
-    the previous sweep's marginal warm-starts the descent (the reference's
-    ProjectionContext); the first sweep starts from the initialization, or
-    from an importance-sampling moment fit.  ``"poisson"`` and
-    ``"binomial"`` raise ``NotImplementedError`` (ROADMAP A6d)."""
+    ``("gamma")``, ``("dirichlet")``, ``("bernoulli")``, ``("poisson")``,
+    ``("binomial", n=...)``.  Inside the engine the previous sweep's
+    marginal warm-starts the descent (the reference's ProjectionContext);
+    the first sweep starts from the initialization, or from an
+    importance-sampling moment fit (the one-parameter discrete families from
+    their vague point)."""
 
     def __init__(self, family: str, n_samples: int = 512, seed: int = 0,
                  n_iters: int = 40, step: float = 0.4,
                  proposal_scale: float = 2.0, n=None):
         _check_family(family)
+        if family == "binomial" and n is None:
+            raise ValueError(
+                "ProjectedTo('binomial') needs the trial count: "
+                "ProjectedTo('binomial', n=...) (a parameter outside the "
+                "family's natural one).")
         self.family = family
         self.n_samples = n_samples
         self.seed = seed
@@ -391,11 +413,18 @@ class ProjectedTo(AbstractFormConstraint):
             pass
         if prev is not None and self._same_family(prev):
             initial = prev
-        elif self.family == "bernoulli":
+        elif self.family in ("bernoulli", "poisson", "binomial"):
             # a one-parameter discrete target converges from the vague point
             # in a few natural-gradient steps
-            initial = BernoulliLogits(
-                torch.zeros((), device=device_of_messages(msgs)))
+            dev = device_of_messages(msgs)
+            initial = {
+                "bernoulli": lambda: BernoulliLogits(
+                    torch.zeros((), device=dev)),
+                "poisson": lambda: Poisson(torch.ones((), device=dev)),
+                "binomial": lambda: Binomial(
+                    torch.as_tensor(float(self.n), device=dev),
+                    torch.full((), 0.5, device=dev)),
+            }[self.family]()
         else:
             initial = _is_initializer(
                 self.family, [m for m in msgs if not hasattr(m, "log_fn")]
@@ -407,9 +436,11 @@ class ProjectedTo(AbstractFormConstraint):
         return project_logpdf(
             self.family, log_prod, initial, n_iters=self.n_iters,
             n_samples=self.n_samples, step=self.step, seed=self.seed,
-            batch_shape=batch_shape_of(msgs))
+            batch_shape=batch_shape_of(msgs), n_trials=self.n)
 
     def _same_family(self, dist) -> bool:
+        if self.family == "binomial":
+            return isinstance(dist, Binomial)
         try:
             return family_key(dist) == self.family
         except TypeError:

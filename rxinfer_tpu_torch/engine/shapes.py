@@ -2,27 +2,31 @@
 (counterpart of ``rxinfer_tpu/engine/shapes.py``).
 
 Event shapes and marginal families of every random variable are resolved
-statically from constant hyperparameters and data shapes.  Ported subset: the
-tables for the node set of ``rules/nodes.py``: the Gaussian and discrete
-nodes, ``Beta`` / ``Bernoulli`` (a random ``p`` is a ``beta`` group),
-the precision priors ``GammaShapeRate`` and ``Wishart``, with a random
-precision input resolved to a ``gamma`` (scalar) or ``wishart`` (d x d)
-group, and the Gaussian mixture: ``Dirichlet`` (a random ``Categorical``
-``p`` is a ``dirichlet`` group) and ``NormalMixture`` / ``MvNormalMixture``
-(``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
-wishart), ``GammaMixture`` (``switch`` categorical, ``shape{i}`` and
-``rate{i}`` gamma), the generic ``Mixture`` (``switch`` categorical, the
-out and the components of the family their other factors give), ``AR``
-(out, ``in`` and ``theta`` vectors of the order, ``gamma`` gamma), ``GCV``
-(scalar out, ``in`` and ``z``), ``GaussianDot*`` (scalar out, ``in`` a
-vector as long as ``A``, ``prec`` gamma), ``Probit`` (a Bernoulli out, a
-Gaussian ``in``), ``SoftDot`` (scalar out, ``theta`` and ``x`` vectors,
-``gamma`` gamma) and ``Delta`` / ``NonlinearGaussian*`` (the out's shape by
-calling ``fn`` on zeros of its inputs' shapes, its family Gaussian or
-multivariate Gaussian by that shape; a random input's family by the shape
-its other factors give it); variables
-reached only through nodes that are not ported yet
-stay unresolved and raise.
+statically from constant hyperparameters and data shapes, with the tables
+of the port's node set (``rules/nodes.py``, ``rules/special.py``,
+``rules/ar.py``, ``rules/gcv.py``, ``rules/delta.py``): the Gaussian nodes
+(the scale-precision one too), a random precision resolved to a ``gamma``
+(scalar) or ``wishart`` (d x d) group and a random variance or covariance
+to an ``inverse_gamma`` or ``inverse_wishart`` group; ``Beta`` /
+``Bernoulli`` / ``Binomial`` (a random ``p`` is a ``beta`` group),
+``Poisson`` (a random rate a ``gamma`` group), ``Categorical`` /
+``Multinomial`` (a random ``p`` a ``dirichlet`` group), the priors
+``GammaShapeRate`` / ``GammaShapeScale``, ``InverseGamma``, ``Wishart``,
+``InverseWishart``, ``Uniform`` and ``Uninformative``; the sums ``Sum`` /
+``LinComb`` (the out's shape from the maps or the terms, its family
+Gaussian or multivariate Gaussian by that shape) and ``GaussianSum*``; the
+mixtures (``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
+wishart; ``GammaMixture``'s ``shape{i}`` / ``rate{i}`` gamma; the generic
+``Mixture``'s out and components of the family their other factors give),
+``AR`` (out, ``in`` and ``theta`` vectors of the order, ``gamma`` gamma),
+``GCV`` (scalar out, ``in`` and ``z``), ``GaussianDot*`` (scalar out,
+``in`` a vector as long as ``A``, ``prec`` gamma), ``Probit`` (a Bernoulli
+out, a Gaussian ``in``), ``SoftDot`` (scalar out, ``theta`` and ``x``
+vectors, ``gamma`` gamma) and ``Delta`` / ``NonlinearGaussian*`` (the out's
+shape by calling ``fn`` on zeros of its inputs' shapes, its family Gaussian
+or multivariate Gaussian by that shape; a random input's family by the
+shape its other factors give it); variables reached only through nodes that
+are not ported yet stay unresolved and raise.
 """
 
 from __future__ import annotations
@@ -38,12 +42,25 @@ _OUT_FAMILY = {
     "LinearGaussianPrecision": "gaussian",
     "MvNormalMeanCovariance": "mv_gaussian",
     "MvNormalMeanPrecision": "mv_gaussian",
+    "MvNormalMeanScalePrecision": "mv_gaussian",
     "MvLinearGaussianCovariance": "mv_gaussian",
     "MvLinearGaussianPrecision": "mv_gaussian",
     "Beta": "beta",
     "Bernoulli": "bernoulli",
+    "Binomial": "poisson",     # counts: the carrier of a data out, unused
+    "Multinomial": "poisson",  # likewise
+    "Poisson": "poisson",
     "GammaShapeRate": "gamma",
+    "GammaShapeScale": "gamma",
+    "InverseGamma": "inverse_gamma",
     "Wishart": "wishart",
+    "InverseWishart": "inverse_wishart",
+    "Uniform": "gaussian",     # a continuous scalar carrier
+    "Uninformative": "gaussian",
+    "GaussianSumCovariance": "gaussian",
+    "GaussianSumPrecision": "gaussian",
+    "MvGaussianSumCovariance": "mv_gaussian",
+    "MvGaussianSumPrecision": "mv_gaussian",
     "Categorical": "categorical",
     "Dirichlet": "dirichlet",
     "DirichletCollection": "dirichlet_collection",
@@ -63,6 +80,8 @@ _OUT_FAMILY = {
 # shape its function gives
 _SHAPE_FAMILY = {"Delta", "NonlinearGaussianCovariance",
                  "NonlinearGaussianPrecision"}
+# and the out of a sum node, by the shape its maps or terms give
+_SUM_NODES = {"Sum", "LinComb"}
 
 _INPUT_FAMILY = {
     ("NormalMeanPrecision", "mean"): "gaussian",
@@ -74,7 +93,17 @@ _INPUT_FAMILY = {
     ("LinearGaussianCovariance", "in"): "gaussian",
     ("LinearGaussianPrecision", "in"): "gaussian",
     ("NormalMeanPrecision", "prec"): "gamma",
+    ("NormalMeanVariance", "var"): "inverse_gamma",
     ("MvNormalMeanPrecision", "prec"): "wishart",
+    ("MvNormalMeanCovariance", "cov"): "inverse_wishart",
+    ("MvNormalMeanScalePrecision", "mean"): "mv_gaussian",
+    ("MvNormalMeanScalePrecision", "gamma"): "gamma",
+    ("GaussianSumPrecision", "prec"): "gamma",
+    ("MvGaussianSumPrecision", "prec"): "wishart",
+    ("Binomial", "p"): "beta",
+    ("Poisson", "rate"): "gamma",
+    ("GammaShapeRate", "rate"): "gamma",
+    ("Multinomial", "p"): "dirichlet",
     ("MvLinearGaussianPrecision", "prec"): "wishart",
     ("LinearGaussianPrecision", "prec"): "gamma",
     ("DiscreteTransition", "in"): "categorical",
@@ -111,6 +140,12 @@ _COMPONENT_FAMILY = {
 
 def input_family(f: Factor, iface: str) -> str | None:
     """Family of a random variable at interface ``iface`` of ``f``."""
+    if iface.startswith("in") and iface[2:].isdigit():
+        if f.fform.startswith("GaussianSum"):
+            return "gaussian"
+        if f.fform.startswith("MvGaussianSum"):
+            return "mv_gaussian"
+        return None   # Sum / LinComb / Delta: the shape decides
     comps = _COMPONENT_FAMILY.get(f.fform)
     if comps is not None:
         for prefix, fam in comps.items():
@@ -153,10 +188,30 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
 
     if ff in ("NormalMeanVariance", "NormalMeanPrecision",
               "LinearGaussianCovariance", "LinearGaussianPrecision",
-              "GammaShapeRate", "Beta", "Bernoulli", "NormalMixture",
-              "GammaMixture", "GaussianDotCovariance",
-              "GaussianDotPrecision", "GCV", "Probit", "SoftDot"):
+              "GammaShapeRate", "GammaShapeScale", "InverseGamma",
+              "Poisson", "Uniform", "Binomial", "Uninformative", "Beta",
+              "Bernoulli", "NormalMixture", "GammaMixture",
+              "GaussianDotCovariance", "GaussianDotPrecision",
+              "GaussianSumCovariance", "GaussianSumPrecision", "GCV",
+              "Probit", "SoftDot"):
         return ()
+    if ff in _SUM_NODES:
+        if ff == "LinComb":
+            for k, v in ifc.items():
+                if k.startswith("A") and k[1:].isdigit() \
+                        and isinstance(v, Const):
+                    sh = _const_shape(v)
+                    if len(sh) == 2:
+                        return (sh[0],)
+                    if len(sh) == 1:
+                        return ()
+        # scalar multipliers or a Sum: the terms' shape
+        for k in ifc:
+            if k.startswith("in"):
+                s = shape_of(k)
+                if s is not None:
+                    return s
+        return None
     if ff in _SHAPE_FAMILY:
         return _delta_out_shape(f, shape_of)
     if ff == "AR":
@@ -180,10 +235,13 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
         return shape_of("alpha")
     if ff == "Wishart":
         return shape_of("S")
+    if ff == "InverseWishart":
+        return shape_of("Psi")
     if ff == "DiscreteTransition":
         s = shape_of("matrix")
         return (s[0],) if s else None
-    if ff in ("MvNormalMeanCovariance", "MvNormalMeanPrecision"):
+    if ff in ("MvNormalMeanCovariance", "MvNormalMeanPrecision",
+              "MvNormalMeanScalePrecision"):
         s = shape_of("mean")
         if s:
             return s
@@ -191,6 +249,17 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
             s = shape_of(key)
             if s:
                 return (s[-1],)
+        return None
+    if ff in ("MvGaussianSumCovariance", "MvGaussianSumPrecision"):
+        for key in ("cov", "prec"):
+            s = shape_of(key)
+            if s:
+                return (s[-1],)
+        for k in ifc:
+            if k.startswith("in"):
+                s = shape_of(k)
+                if s:
+                    return s
         return None
     if ff in ("MvLinearGaussianCovariance", "MvLinearGaussianPrecision"):
         a = shape_of("A")
@@ -238,9 +307,24 @@ def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
             s = _const_shape(a)
             if len(s) == 2:
                 return (s[1],)
-    if ff in ("MvNormalMeanCovariance", "MvNormalMeanPrecision") \
-            and iface == "mean":
+    if ff in ("MvNormalMeanCovariance", "MvNormalMeanPrecision",
+              "MvNormalMeanScalePrecision") and iface == "mean":
         return out_shape
+    if ff in ("GaussianSumCovariance", "GaussianSumPrecision") \
+            and iface.startswith("in"):
+        return ()
+    if ff in ("MvGaussianSumCovariance", "MvGaussianSumPrecision", "Sum") \
+            and iface.startswith("in"):
+        return out_shape
+    if ff == "LinComb" and iface.startswith("in"):
+        a = f.interfaces.get("A" + iface[2:])
+        if isinstance(a, Const):
+            sh = _const_shape(a)
+            if len(sh) >= 1:
+                # a trailing 1: a column map from a scalar input
+                return (sh[-1],) if sh[-1] > 1 else ()
+            return out_shape   # a scalar multiplier: the out's space
+        return None
     if ff in ("NormalMeanVariance", "NormalMeanPrecision") and iface == "mean":
         return ()
     if ff == "AR" and iface in ("in", "theta"):
@@ -282,7 +366,8 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
                     if s is not None:
                         gi.event_shape = s
                         changed = True
-                if (f.fform in _SHAPE_FAMILY and gi.family is None
+                if (f.fform in _SHAPE_FAMILY | _SUM_NODES
+                        and gi.family is None
                         and gi.event_shape is not None):
                     gi.family = ("mv_gaussian" if len(gi.event_shape) == 1
                                  else "gaussian")
@@ -301,9 +386,11 @@ def resolve_groups(graph: ModelGraph) -> dict[str, GroupInfo]:
                             if f.out.var.kind == "data" else None)
                         s = infer_input_shape(f, name, out_shape)
                         if s is None and fam in ("gamma", "beta",
-                                                 "bernoulli"):
+                                                 "bernoulli", "poisson",
+                                                 "inverse_gamma"):
                             s = ()
-                        if s is None and fam == "wishart" and out_shape:
+                        if (s is None and out_shape
+                                and fam in ("wishart", "inverse_wishart")):
                             s = (out_shape[-1], out_shape[-1])
                         if s is not None:
                             gi.event_shape = s

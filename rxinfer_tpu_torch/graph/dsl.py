@@ -1,32 +1,37 @@
 """Python ``@model`` DSL (counterpart of ``rxinfer_tpu/graph/dsl.py``).
 
-Ported subset, what the linear-Gaussian state-space model and the HMM
-need, the conjugate models of the Beta-Bernoulli and Gaussian families, and
-the autoregressive, HGF and regression models: ``@model``, ``latent``,
-``plate``, ``Normal``/``MvNormal`` with their keyword aliases, data
-assignment ``y[t] = ...`` and ``y.observe(...)`` (a whole data variable, as
-a streaming tick observes), ``numpy_array @ x[t]`` (or ``a * x[t] + b``)
-folding into a LinearGaussian factor, ``dot(a, x)`` with a constant vector
-or a data slot ``a`` folding into a GaussianDot factor, ``Categorical``,
-``Dirichlet``, ``DirichletCollection``, ``Transition`` (alias
-``DiscreteTransition``), ``Gamma`` (shape/rate), ``Wishart``, ``Beta``,
-``Bernoulli``, ``NormalMixture`` (the multivariate mixture when the
-component means are vectors), ``GammaMixture``, ``Mixture``, ``AR`` (with
-``ARMeta`` / ``ARsafe`` / ``ARunsafe``), ``GCV``, ``Delta`` (its output
-feeding a Gaussian mean contracts to a NonlinearGaussian factor),
-``Probit``, ``SoftDot`` and ``factor_node`` (a user-registered node).  Model
-constants stay numpy arrays, as in the JAX package; numpy defers ``A @ x``
-to ``RVRef.__rmatmul__``.  Outside a trace the node constructors build
+``@model``, ``latent``, ``plate``, ``Normal``/``MvNormal`` with their
+keyword aliases (``gamma=`` the scale precision: ``MvNormalMeanScalePrecision``,
+or a scalar ``NormalMeanPrecision``), data assignment ``y[t] = ...`` and
+``y.observe(...)`` (a whole data variable, as a streaming tick observes),
+``numpy_array @ x[t]`` (or ``a * x[t] + b``) folding into a LinearGaussian
+factor, ``dot(a, x)`` with a constant vector or a data slot ``a`` folding
+into a GaussianDot factor, sums of random terms (``a + b`` folding into a
+GaussianSum factor under a Gaussian mean, ``A @ x + B @ u`` into a
+``LinComb`` node, ``Sum(...)`` and ``lincomb(...)`` standalone),
+``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``
+(alias ``DiscreteTransition``), ``Gamma`` (shape/rate or shape/scale, with
+the aliases ``a=``, ``b=``), ``InverseGamma``, ``Wishart``,
+``InverseWishart``, ``Beta``, ``Bernoulli``, ``Binomial``, ``Poisson``,
+``Multinomial``, ``Uniform``, ``Uninformative``, ``NormalMixture`` (the
+multivariate mixture when the component means are vectors),
+``GammaMixture``, ``Mixture``, ``AR`` (with ``ARMeta`` / ``ARsafe`` /
+``ARunsafe``), ``GCV``, ``Delta`` (its output feeding a Gaussian mean
+contracts to a NonlinearGaussian factor), ``Probit``, ``SoftDot``,
+``factor_node`` (a user-registered node) and ``with where(meta=,
+dependencies=RequireMessage(...)):`` blocks.  Model constants stay numpy
+arrays, as in the JAX package; numpy defers ``A @ x`` to
+``RVRef.__rmatmul__``.  Outside a trace the node constructors build
 distributions of torch tensors, and such a distribution object used inside
 a trace becomes a prior factor of its own (one per object, as the JAX
 package's ``_lift_dist`` does).
 
-Not ported yet (they raise ``NotImplementedError``): sums of random variables
-(GaussianSum / LinComb nodes), the scale-precision family, submodel scopes,
-``where`` blocks, grid latents and grid data, folded data arithmetic,
-``Gamma(shape=, scale=)`` and the rest of the node vocabulary (the
-logic, Poisson and Polya nodes, ...).  ``dot`` with two random arguments
-raises ``TypeError``, as in the JAX package: the model writes ``SoftDot``.
+Not ported yet: grid latents and grid data (they raise
+``NotImplementedError`` naming ROADMAP A6e), the logic, Polya and
+continuous-transition nodes (A6e), submodel scopes (A6i) and folded data
+arithmetic.  ``dot`` with two
+random arguments raises ``TypeError``, as in the JAX package: the model
+writes ``SoftDot``.
 """
 
 from __future__ import annotations
@@ -78,9 +83,7 @@ class RVRef:
 
     def __add__(self, b):
         if isinstance(b, (RVRef, LinearExpr)):
-            raise NotImplementedError(
-                "sums of random variables (GaussianSum / LinComb nodes) are "
-                "not ported to the PyTorch package yet.")
+            return AddExpr((self, b))
         return LinearExpr(None, self, np.asarray(b))
 
     __radd__ = __add__
@@ -107,9 +110,8 @@ class LinearExpr:
 
     def __add__(self, b2):
         if isinstance(b2, (RVRef, LinearExpr)):
-            raise NotImplementedError(
-                "sums of random terms (LinComb nodes) are not ported to the "
-                "PyTorch package yet.")
+            # a combination of random terms: A @ x + B @ u (+ ...)
+            return AddExpr((self, b2))
         b2 = np.asarray(b2)
         b = b2 if self.b is None else self.b + b2
         return LinearExpr(self.a, self.x, b)
@@ -133,6 +135,28 @@ class LinearExpr:
         return LinearExpr(a, self.x, b)
 
     __rmul__ = __mul__
+
+
+class AddExpr:
+    """A sum of random terms: plain random variables (a ``Sum`` node, or a
+    GaussianSum factor under a Gaussian mean) or linear-map terms ``A @ x``
+    (a ``LinComb`` node)."""
+
+    __array_ufunc__ = None
+
+    def __init__(self, terms):
+        self.terms = tuple(terms)
+
+    def __add__(self, other):
+        if isinstance(other, (RVRef, LinearExpr)):
+            return AddExpr(self.terms + (other,))
+        raise TypeError("rv-sum expressions support rv / A @ rv terms only.")
+
+    __radd__ = __add__
+
+    @property
+    def has_linear_terms(self):
+        return any(isinstance(t, LinearExpr) for t in self.terms)
 
 
 def dot(a, x: RVRef) -> LinearExpr:
@@ -203,7 +227,7 @@ class DataArray:
         if isinstance(key, tuple):
             raise NotImplementedError(
                 "grid-indexed data y[i, j] is not ported to the PyTorch "
-                "package yet.")
+                "package yet (ROADMAP A6e).")
         if self._var.length is None:
             self._var.length = self.shape[0]
             self._var.event_shape = self.shape[1:]
@@ -233,7 +257,7 @@ def latent(length, name: Optional[str] = None):
     if isinstance(length, tuple):
         raise NotImplementedError(
             "grid latents latent((N, M)) are not ported to the PyTorch "
-            "package yet.")
+            "package yet (ROADMAP A6e).")
     var = b.graph.add_variable(
         Variable(name if name else b.fresh_name("x"), "random", int(length))
     )
@@ -260,10 +284,58 @@ def plate(*args, name: Optional[str] = None):
 
 # -- builder ---------------------------------------------------------------------
 
+class RequireMessage:
+    """Per-node functional-dependencies override (the reference's
+    ``RequireMessageFunctionalDependencies``): the rule towards a named
+    interface also receives the inbound message on that same edge (the
+    marginal divided by the factor's previous message there) instead of
+    the marginal, seeded by the given message on the first sweep (None: the
+    marginal).  Python cannot take ``in`` as a keyword, so a trailing
+    underscore is stripped: ``RequireMessage(in_=prior)``."""
+
+    def __init__(self, **interfaces):
+        self.interfaces = {
+            (k[:-1] if k.endswith("_") else k): v
+            for k, v in interfaces.items()}
+
+    def __repr__(self):
+        return f"RequireMessage({', '.join(self.interfaces)})"
+
+
+RequireMessageFunctionalDependencies = RequireMessage
+
+
+class where:
+    """Block-scoped node options, the reference's ``where {...}``::
+
+        with where(dependencies=RequireMessage(in_=prior)):
+            y[k] = factor_node("ProbitEP", **{"in": x})
+
+    ``meta`` merges into (without overriding) a node's own meta dict (a
+    value that is not a dict as ``{"method": value}``); ``dependencies``
+    attaches a ``RequireMessage`` to every factor emitted in the block."""
+
+    def __init__(self, meta=None, dependencies=None):
+        self.meta = meta
+        self.dependencies = dependencies
+
+    def __enter__(self):
+        b = _active()
+        if b is None:
+            raise RuntimeError("where(...) is only valid inside @model.")
+        b.options_stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _builder().options_stack.pop()
+        return False
+
+
 class ModelBuilder:
     def __init__(self, name: str):
         self.graph = ModelGraph(name)
         self.plate_stack: list[Plate] = []
+        self.options_stack: list[where] = []
         self._name_counter = 0
         # (file, line, name) -> Variable holding that source-line name hint
         self._line_hints: dict = {}
@@ -319,6 +391,13 @@ class ModelBuilder:
             out = Ref(var, None)
         f = Factor(fform, out, interfaces, plate=p, meta=meta)
         f.plates = tuple(self.plate_stack)
+        for opt in self.options_stack:
+            if opt.meta is not None:
+                extra = (opt.meta if isinstance(opt.meta, dict)
+                         else {"method": opt.meta})
+                f.meta = {**extra, **(f.meta or {})}
+            if opt.dependencies is not None:
+                f.dependencies = opt.dependencies
         self.graph.add_factor(f)
         return RVRef(out)
 
@@ -346,7 +425,7 @@ def _as_interface(v) -> Any:
         return v.ref
     if isinstance(v, DataArray):
         return Ref(v._var, None)
-    if isinstance(v, LinearExpr):
+    if isinstance(v, (LinearExpr, AddExpr)):
         return v
     if isinstance(v, PointMass):
         return Const(np.asarray(v.point.detach().cpu()))
@@ -375,18 +454,21 @@ def _direct_dist(fform: str, *args):
         "NormalMeanPrecision": D.NormalMeanPrecision,
         "MvNormalMeanCovariance": D.MvNormalMeanCovariance,
         "MvNormalMeanPrecision": D.MvNormalMeanPrecision,
+        "MvNormalMeanScalePrecision": D.MvNormalMeanScalePrecision,
         "Beta": D.Beta,
         "Bernoulli": D.Bernoulli,
+        "Binomial": D.Binomial,
         "Categorical": D.Categorical.from_probs,
         "Dirichlet": D.Dirichlet,
         "DirichletCollection": D.DirichletCollection,
         "GammaShapeRate": D.GammaShapeRate,
+        "GammaShapeScale": D.GammaShapeScale,
+        "InverseGamma": D.InverseGamma,
         "Wishart": D.Wishart,
+        "InverseWishart": D.InverseWishart,
+        "Poisson": D.Poisson,
+        "Uniform": D.Uniform,
     }
-    if fform not in table:
-        raise NotImplementedError(
-            f"{fform} distributions are not ported to the PyTorch package "
-            "yet.")
     return table[fform](*[torch.as_tensor(np.asarray(a, np.float32))
                           for a in args])
 
@@ -414,19 +496,27 @@ def _lift_dist(d) -> RVRef:
                                                    cov=c(d.sigma)),
         D.MvNormalMeanPrecision: lambda: MvNormal(mean=c(d.mu),
                                                   precision=c(d.w)),
+        D.MvNormalMeanScalePrecision: lambda: MvNormal(mean=c(d.mu),
+                                                       gamma=c(d.gamma)),
         D.Beta: lambda: Beta(c(d.a), c(d.b)),
         D.Bernoulli: lambda: Bernoulli(c(d.p)),
+        D.Binomial: lambda: Binomial(c(d.n), c(d.p)),
         D.GammaShapeRate: lambda: Gamma(shape=c(d.a), rate=c(d.b)),
+        D.GammaShapeScale: lambda: Gamma(shape=c(d.a), scale=c(d.theta)),
+        D.InverseGamma: lambda: InverseGamma(c(d.a), c(d.b)),
         D.Categorical: lambda: Categorical(c(d.probs())),
         D.Dirichlet: lambda: Dirichlet(c(d.alpha)),
         D.DirichletCollection: lambda: DirichletCollection(c(d.alpha)),
         D.Wishart: lambda: Wishart(c(d.nu), c(d.s)),
+        D.InverseWishart: lambda: InverseWishart(c(d.nu), c(d.psi)),
+        D.Poisson: lambda: Poisson(c(d.lam)),
+        D.Uniform: lambda: Uniform(c(d.lo), c(d.hi)),
     }
     ctor = table.get(type(d))
     if ctor is None:
-        raise NotImplementedError(
-            f"`{type(d).__name__}` as a prior inside @model is not ported to "
-            "the PyTorch package yet.")
+        raise TypeError(
+            f"`{type(d).__name__}` cannot be used as a prior inside @model: "
+            "no factor node matches this distribution family.")
     saved, b.plate_stack = b.plate_stack, []
     try:
         ref = ctor()
@@ -464,27 +554,43 @@ def _gaussian(kind_scalar: str, kwargs: dict) -> RVRef:
         raise TypeError(f"Unknown Normal arguments: {list(kwargs)}")
     if mean is None or noise_val is None:
         raise TypeError("Normal requires mean and one of var/cov/precision.")
-    if noise_kind == "ScalePrecision":
-        raise NotImplementedError(
-            "the scale-precision parametrization (gamma=) is not ported to "
-            "the PyTorch package yet.")
 
     mv = kind_scalar == "MvNormal"
     if mv:
         base = {"Variance": "MvNormalMeanCovariance",
                 "Covariance": "MvNormalMeanCovariance",
-                "Precision": "MvNormalMeanPrecision"}[noise_kind]
+                "Precision": "MvNormalMeanPrecision",
+                "ScalePrecision": "MvNormalMeanScalePrecision"}[noise_kind]
     else:
         base = {"Variance": "NormalMeanVariance",
                 "Covariance": "NormalMeanVariance",
-                "Precision": "NormalMeanPrecision"}[noise_kind]
+                "Precision": "NormalMeanPrecision",
+                "ScalePrecision": "NormalMeanPrecision"}[noise_kind]
     noise_name = {"MvNormalMeanCovariance": "cov",
                   "MvNormalMeanPrecision": "prec",
+                  "MvNormalMeanScalePrecision": "gamma",
                   "NormalMeanVariance": "var",
                   "NormalMeanPrecision": "prec"}[base]
 
     if _active() is None:
         return _direct_dist(base, mean, noise_val)
+
+    if isinstance(mean, AddExpr):
+        # Normal(mean = a + b, ...) with random terms: one GaussianSum factor
+        # (exact BP messages and an average energy); linear-map terms make a
+        # LinComb node, and the scale-precision form a Sum node, feeding the
+        # mean
+        if mean.has_linear_terms:
+            mean = lincomb(mean)
+        elif noise_name in ("var", "cov", "prec"):
+            interfaces = {f"in{i}": _as_interface(t)
+                          for i, t in enumerate(mean.terms)}
+            interfaces[noise_name] = _as_interface(noise_val)
+            fform = ("Mv" if mv else "") + "GaussianSum" + (
+                "Covariance" if noise_name in ("var", "cov") else "Precision")
+            return _builder().emit(fform, interfaces)
+        else:
+            mean = Sum(*mean.terms)
 
     if isinstance(mean, LinearExpr):
         a_val = mean.a
@@ -528,8 +634,11 @@ def Gamma(shape=None, rate=None, scale=None, a=None, b=None) -> RVRef:
     if sh is None or (rate is None and scale is None):
         raise TypeError("Gamma requires shape and rate (or scale).")
     if scale is not None:
-        raise NotImplementedError(
-            "Gamma(shape=, scale=) is not ported to the PyTorch package yet.")
+        if _active() is None:
+            return _direct_dist("GammaShapeScale", sh, scale)
+        return _builder().emit(
+            "GammaShapeScale", {"shape": _as_interface(sh),
+                                "scale": _as_interface(scale)})
     if _active() is None:
         return _direct_dist("GammaShapeRate", sh, rate)
     return _builder().emit(
@@ -547,6 +656,24 @@ def Wishart(nu, S) -> RVRef:
                                        "S": _as_interface(S)})
 
 
+def InverseGamma(shape, scale) -> RVRef:
+    """InverseGamma(shape, scale) prior of a variance; E = scale / (shape -
+    1)."""
+    if _active() is None:
+        return _direct_dist("InverseGamma", shape, scale)
+    return _builder().emit("InverseGamma", {"shape": _as_interface(shape),
+                                            "scale": _as_interface(scale)})
+
+
+def InverseWishart(nu, Psi) -> RVRef:
+    """InverseWishart(nu, Psi) prior of a covariance matrix; E = Psi / (nu -
+    d - 1)."""
+    if _active() is None:
+        return _direct_dist("InverseWishart", nu, Psi)
+    return _builder().emit("InverseWishart", {"nu": _as_interface(nu),
+                                              "Psi": _as_interface(Psi)})
+
+
 def Beta(a, b) -> RVRef:
     if _active() is None:
         return _direct_dist("Beta", a, b)
@@ -558,6 +685,82 @@ def Bernoulli(p) -> RVRef:
     if _active() is None:
         return _direct_dist("Bernoulli", p)
     return _builder().emit("Bernoulli", {"p": _as_interface(p)})
+
+
+def Binomial(n, p) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Binomial", n, p)
+    return _builder().emit("Binomial", {"n": _as_interface(n),
+                                        "p": _as_interface(p)})
+
+
+def Poisson(rate) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Poisson", rate)
+    return _builder().emit("Poisson", {"rate": _as_interface(rate)})
+
+
+def Multinomial(n, p) -> RVRef:
+    """Multinomial(n, p): counts over the K outcomes of the simplex p."""
+    if _active() is None:
+        import torch
+
+        from .. import dists as D
+
+        return D.Multinomial(
+            torch.as_tensor(np.asarray(n, np.float32)),
+            torch.log(torch.clamp(torch.as_tensor(np.asarray(p, np.float32)),
+                                  min=1e-37)))
+    return _builder().emit("Multinomial", {"n": _as_interface(n),
+                                           "p": _as_interface(p)})
+
+
+def Uniform(lo=0.0, hi=1.0) -> RVRef:
+    if _active() is None:
+        return _direct_dist("Uniform", lo, hi)
+    return _builder().emit("Uniform", {"lo": _as_interface(lo),
+                                       "hi": _as_interface(hi)})
+
+
+def Uninformative() -> RVRef:
+    """Flat prior (the reference's Uninformative node)."""
+    return _builder().emit("Uninformative", {})
+
+
+def Sum(*terms) -> RVRef:
+    """Deterministic sum of random variables (the reference's ``+``
+    node)."""
+    return _builder().emit(
+        "Sum", {f"in{i}": _as_interface(t) for i, t in enumerate(terms)})
+
+
+def lincomb(expr) -> RVRef:
+    """A deterministic linear combination of random variables as a node:
+    ``x_next = lincomb(A @ x + B @ u)`` (the reference's composed ``*`` and
+    ``+`` deterministic nodes)."""
+    if isinstance(expr, RVRef):
+        return expr
+    if isinstance(expr, LinearExpr):
+        expr = AddExpr((expr,))
+    if not isinstance(expr, AddExpr):
+        raise TypeError("lincomb() expects a sum of rv / A @ rv terms.")
+    interfaces = {}
+    bias = None
+    for i, t in enumerate(expr.terms):
+        if isinstance(t, RVRef):
+            interfaces[f"in{i}"] = t.ref
+            interfaces[f"A{i}"] = Const(np.asarray(1.0))
+            continue
+        if isinstance(t.a, Ref):
+            raise TypeError("lincomb() with data-indexed maps not supported.")
+        interfaces[f"in{i}"] = t.x.ref
+        interfaces[f"A{i}"] = Const(np.asarray(t.a if t.a is not None
+                                               else 1.0))
+        if t.b is not None:
+            bias = t.b if bias is None else bias + t.b
+    if bias is not None:
+        interfaces["b"] = Const(np.asarray(bias))
+    return _builder().emit("LinComb", interfaces)
 
 
 def Categorical(p) -> RVRef:

@@ -14,7 +14,9 @@ every chain with the scans of ``ops/kalman.py`` / ``ops/discrete_chain.py``,
 never with the fused kernels, as the JAX package does.  Posteriors are
 whatever the blocks produce (batched: every leaf with the batch axis
 first): Gaussian chains, ``Categorical`` chains, ``DirichletCollection``,
-Gaussian, ``Beta``, ``GammaShapeRate`` and ``Wishart`` plain groups.  Every
+Gaussian, ``Beta``, ``Dirichlet``, ``GammaShapeRate``, ``InverseGamma``,
+``Wishart`` and ``InverseWishart`` plain groups (the Sum / LinComb outs
+among the Gaussians).  Every
 entry point runs on ``"cuda"`` unless the caller passes another ``device``;
 with no device given and no CUDA device present it raises ``RuntimeError``
 rather than carry on on the CPU.

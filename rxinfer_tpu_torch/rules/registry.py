@@ -7,9 +7,8 @@ mean-field ``vmp_message_to_<iface>`` variants.  Lookups happen when a program
 is built, never per call.
 
 Ported subset: ``node``, ``get_node``, ``get_message_rule``,
-``get_average_energy``, ``has_node``, ``RuleNotFoundError`` and
-``NodeFunctionRuleFallback``.  Not ported: ``trace_messages`` and
-``call_rule``.
+``get_average_energy``, ``has_node``, ``call_rule``, ``RuleNotFoundError``
+and ``NodeFunctionRuleFallback``.  Not ported: ``trace_messages``.
 """
 
 from __future__ import annotations
@@ -74,6 +73,22 @@ def get_message_rule(fform: str, iface: str, vmp: bool = False) -> Callable:
             f"{[m[len('message_to_'):] for m in dir(cls) if m.startswith('message_to_')]}."
         )
     return fn
+
+
+def call_rule(fform: str, iface: str, vmp: bool = False, meta: dict = None,
+              **marginals):
+    """Invoke a node's message rule outside inference (the reference's
+    ``@call_rule NodeType(:iface, Marginalisation)(q_... = ...)``).  The
+    keyword arguments map the node's other interfaces to marginals or
+    messages (distributions; a constant as a ``PointMass``);
+    ``iface="average_energy"`` evaluates the node's average energy
+    instead."""
+    q = dict(marginals)
+    if meta is not None:
+        q["_meta"] = meta
+    if iface == "average_energy":
+        return get_average_energy(fform)(q)
+    return get_message_rule(fform, iface, vmp=vmp)(q)
 
 
 class NodeFunctionRuleFallback:

@@ -693,24 +693,40 @@ def test_delta_models_match_jax(name):
 def test_delta_fed_dot_is_refused():
     """``test_static_inputs_two_arg_delta``'s model feeds a delta into
     ``dot``: a tree of three random variables with no chain, which the JAX
-    package solves by its exact tree schedule; the port refuses it (the
-    tree schedule is not ported) rather than run a sweep order that is
-    not the reference's."""
+    package solves by its exact tree schedule.  The port refused it until
+    the tree schedule was ported; now both packages solve it, and the model
+    is linear, so both reach the closed form: E[x_1] = (y - theta_1) / 2.5
+    and FE = -log Z."""
     theta = np.array([0.3, -0.2], np.float32)
     c = np.array([1.0, 0.0], np.float32)
 
-    @trx.model
-    def m(y):
-        x = trx.MvNormal(mean=np.zeros(2, np.float32),
-                         precision=np.eye(2, dtype=np.float32))
-        z = trx.Delta(lambda a, th: a + th, x, theta)
-        w = trx.Normal(mean=trx.dot(c, z), var=1.0)
-        y.observe(trx.Normal(mean=w, variance=0.5))
-        return {"x": x, "w": w}
+    def source(rx, fn):
+        @rx.model
+        def m(y):
+            x = rx.MvNormal(mean=np.zeros(2, np.float32),
+                            precision=np.eye(2, dtype=np.float32))
+            z = rx.Delta(fn, x, theta)
+            w = rx.Normal(mean=rx.dot(c, z), var=1.0)
+            y.observe(rx.Normal(mean=w, variance=0.5))
+            return {"x": x, "w": w}
+        return m
 
-    with pytest.raises(NotImplementedError, match="tree schedules"):
-        trx.infer(model=m, data={"y": np.float32(1.2)}, iterations=2,
-                  device="cpu")
+    tres = trx.infer(model=source(trx, lambda a, th: a + th),
+                     data={"y": np.float32(1.2)}, iterations=2,
+                     free_energy=True, device="cpu")
+    jres = jrx.infer(model=source(jrx, lambda a, th: a + th),
+                     data={"y": np.float32(1.2)}, iterations=2,
+                     free_energy=True)
+    v_tot = 2.5
+    mx = (1.2 - float(theta[0])) / v_tot
+    fe = 0.5 * np.log(2 * np.pi * v_tot) + (1.2 - float(theta[0])) ** 2 \
+        / (2 * v_tot)
+    t_x = tres.posteriors["x"][-1].mean().numpy()
+    j_x = np.asarray(jres.posteriors["x"][-1].mean())
+    np.testing.assert_allclose(t_x, j_x, rtol=1e-4, atol=1e-5)
+    assert abs(float(t_x[0]) - mx) < 1e-4
+    np.testing.assert_allclose(np.asarray(tres.free_energy)[-1], fe,
+                               rtol=1e-5)
 
 
 # -- chains: a range-bearing tracker and a sin chain ---------------------------

@@ -160,5 +160,6 @@ def test_dist_from_numpy_takes_jax_fields():
         "MvNormalMeanCovariance",
         {"mu": np.asarray(j.mu), "sigma": np.asarray(j.sigma)})
     np.testing.assert_array_equal(t.sigma.numpy(), sigma)
+    # a family without a counterpart in the port
     with pytest.raises(NotImplementedError):
-        convert.dist_from_numpy("InverseWishart", [1.0, np.eye(2)])
+        convert.dist_from_numpy("JointGaussian", [np.zeros(2), np.eye(2)])

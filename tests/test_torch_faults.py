@@ -7,8 +7,8 @@ reference):
 * a one-step chain (T = 1) plans without a transition, since step 0 applies
   none (the JAX package fails before planning);
 * a deadlock that blocks a chain raises ``ValueError`` asking for an
-  initialization, as the JAX package does; a chain-free deadlock keeps
-  ``NotImplementedError`` until the tree schedule is ported."""
+  initialization, as the JAX package does; a chain-free deadlock takes the
+  tree schedule, as in the JAX package."""
 
 import numpy as np
 import pytest
@@ -151,7 +151,9 @@ def test_a_blocked_chain_asks_for_an_initialization(rx, kwargs):
 
 def test_a_chain_free_cycle_is_not_ported_yet():
     """No chain is blocked, so the JAX package's tree schedule runs the
-    model; the port has no tree schedule yet."""
+    model (one plated factor over m and tau: a tree), auto-initialized from
+    the priors; the port refused it until the tree schedule was ported and
+    now gives the same posteriors."""
     def source(rx):
         @rx.model
         def iid(y):
@@ -165,5 +167,8 @@ def test_a_chain_free_cycle_is_not_ported_yet():
     y = np.random.default_rng(4).standard_normal((2, 5)).astype(np.float32)
     jpost, _ = jrx.infer_batched(source(jrx), {"y": y})
     assert np.all(np.isfinite(np.asarray(jpost["m"].mean())))
-    with pytest.raises(NotImplementedError, match="initialization cycles"):
-        trx.infer_batched(source(trx), {"y": y}, device=CPU)
+    tpost, _ = trx.infer_batched(source(trx), {"y": y}, device=CPU)
+    for name in ("m", "tau"):
+        np.testing.assert_allclose(tpost[name].mean().numpy(),
+                                   np.asarray(jpost[name].mean()),
+                                   rtol=1e-5, atol=1e-6)

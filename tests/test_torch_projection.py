@@ -140,9 +140,14 @@ def test_projection_exact_convert_and_warm_start():
 
 
 def test_unported_families_raise_with_their_roadmap_item():
-    for family in ("poisson", "binomial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6d"):
-            trx.ProjectedTo(family)
+    """``poisson`` and ``binomial`` raised naming ROADMAP A6d until their
+    distributions were ported (``tests/test_torch_nodes_a6d.py`` holds
+    their projections); the binomial needs its trial count, and a family
+    the projection has no statistics for is refused."""
+    assert trx.ProjectedTo("poisson").family == "poisson"
+    assert trx.ProjectedTo("binomial", n=12).n == 12
+    with pytest.raises(ValueError, match="n="):
+        trx.ProjectedTo("binomial")
     with pytest.raises(ValueError, match="supports"):
         trx.ProjectedTo("wishart")
 
