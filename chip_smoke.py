@@ -349,6 +349,30 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    process (``slice23_checks``).  Each cell: call ms, updates/s, device
    busy and idle, device kernels a call, peak memory.  ``[a6d]`` lines,
    and ``launches_phase22`` on every row of the ``kernels`` line.
+23. Grid data and grid latents over nested plates, the logic, Polya and
+   continuous-transition nodes with ``tie`` (ROADMAP A6e) and the affine
+   custom-transition pair of the free energy (A6f), on plain groups, every
+   cell with the free energy and every kernel's launch count at zero: (a1)
+   z[i, j] ~ N(0, 4), y[i, j] ~ N(z[i, j], 1) over GRID_N x GRID_M on
+   ``infer`` against the closed-form posteriors and -log Z; (a2) the grid
+   hierarchy of tests/models/test_grid_latents.py over GH_B regions of GH_N
+   x GH_M with GH_NAN of y missing, GH_IT sweeps, against a float64 run of
+   the port's updates (the free energy of every sweep); (a3) the three-axis
+   Beta-Bernoulli over CUBE_SHAPE on ``infer`` (closed form); (b)
+   BinomialPolya over PG_B x PG_N rows at d = PG_D, n = PG_TRIALS, and the
+   two-class MultinomialPolya over MPG_B x PG_N, PG_IT sweeps, against a
+   float64 run of the same Polya-Gamma updates (every sweep's free energy);
+   (c) ContinuousTransition over CT_B x CT_N at (dy, dx) = (CT_DY, CT_DX):
+   W known (the closed-form posterior of vec(A) and -log p(y)) and W ~
+   Wishart(dy + 2, I) (a float64 VMP); (d) the reference's fault tree with
+   ``tie`` over LOGIC_B trees and the noisy-OR over LOGIC_B copies, against
+   float64 enumeration (marginals and -log Z); (e) a user node's drifting
+   walk over WALK_B x WALK_T and its vector form at d = MVWALK_D over
+   MVWALK_B, against the float64 RTS smoother and Kalman -log Z.  All at
+   A6E_TOL relative; the float64 references in a check process
+   (``slice24_checks``).  Each cell: call ms, updates/s, device busy and
+   idle, device kernels a call, peak memory.  ``[a6e]`` lines, and
+   ``launches_phase23`` on every row of the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -7488,6 +7512,831 @@ def a6d_paths(device, host: dict, smi: str, log=print) -> dict:
     return results
 
 
+# -- grid data and latents, logic, Polya, continuous transitions and the affine
+# custom-transition pair (phase 23) ------------------------------------------
+
+# Phase 23's cells, plain groups through ``infer`` / ``infer_batched`` with
+# the free energy (no kernel launches):
+# (a1) z[i, j] ~ N(0, 4), y[i, j] ~ N(z[i, j], 1) over GRID_N stores x
+#      GRID_M days on ``infer``, GRID_IT sweeps;
+# (a2) a residual a store-day under a mean a store and a shared noise
+#      precision (tests/models/test_grid_latents.py:39-73) over GH_B regions
+#      of GH_N stores x GH_M days, GH_NAN of y missing, GH_IT sweeps;
+# (a3) one conversion rate over CUBE_SHAPE campaigns x regions x days, three
+#      nested plates (tests/models/test_nested_plates.py:138-159) on
+#      ``infer``;
+# (b)  a click-through regression a campaign, y ~ BinomialPolya(x, n, beta)
+#      over PG_B campaigns x PG_N rows, d = PG_D features, n = PG_TRIALS,
+#      PG_IT sweeps; the two-class MultinomialPolya over MPG_B x PG_N;
+# (c)  an emission operator a sensor, y ~ ContinuousTransition(x, vec(A), W)
+#      over CT_B sensors x CT_N readings at (dy, dx) = (CT_DY, CT_DX): W
+#      known (CT_IT_KNOWN sweeps), W ~ Wishart(dy + 2, I) (CT_IT_RANDOM);
+# (d1) the reference's fault tree IMPLY(x1, AND(x2, OR(x3, NOT(x4)))) with
+#      tie(x, Bernoulli(y)), y per tree from U(0.05, 0.95), LOGIC_B trees,
+#      LOGIC_IT sweeps; (d2) the noisy-OR of tests/models/
+#      test_boolean_custom.py over LOGIC_B copies with y in {0, 1};
+# (e1) a user node's drifting random walk (DriftWalkT,
+#      tests/models/test_custom_transition_chain.py:24-45) over WALK_B
+#      datasets of WALK_T steps, WALK_IT sweeps of iterative message passing;
+#      (e2) its vector form at d = MVWALK_D over MVWALK_B datasets,
+#      MVWALK_IT sweeps.
+# The sweeps of (b)-(e) are cut to hold the phase near 10 s on the card
+# (each cell runs a timed and a profiled call; the walks converge to their
+# RTS within 1e-6 by 30 and 10 sweeps on the CPU): Polya 30 -> 10, (c2)
+# 10 -> 5, logic 20 -> 10, (e1) 100 -> 30, (e2) 60 -> 15.
+GRID_N, GRID_M, GRID_IT = 1000, 365, 2
+GH_B, GH_N, GH_M, GH_IT, GH_NAN = 64, 100, 365, 10, 0.1
+CUBE_SHAPE = (1024, 16, 30)
+PG_B, PG_N, PG_D, PG_TRIALS, PG_IT = 1024, 1000, 8, 20, 10
+MPG_B = 256
+CT_B, CT_N, CT_DY, CT_DX = 1024, 200, 4, 8
+CT_IT_KNOWN, CT_IT_RANDOM = 5, 5
+CT_NOISE = 0.3
+LOGIC_B, LOGIC_IT = 10_000, 10
+WALK_B, WALK_T, WALK_IT = 1024, 50, 30
+WALK_DRIFT, WALK_Q, WALK_R, WALK_V0 = 0.5, 0.3, 0.04, 0.4
+MVWALK_B, MVWALK_D, MVWALK_IT = 256, 4, 15
+# float32 against each cell's float64 closed form, enumeration, RTS or VMP
+# of the port's schedule: the posteriors' parameters and the free energy,
+# each relative to its largest value (phase 22's)
+A6E_TOL = 1e-4
+# the order in which a sweep updates (a2)'s groups and (c)'s (the port's
+# schedule, ``CompiledModel.sweep``), which the float64 VMPs follow
+GH_ORDER = ("tau", "mu", "z")
+CT_ORDER = ("theta", "prec")
+
+
+def a6e_grid_data():
+    """(a1)'s observations: y = z + e, z ~ N(0, 4), e ~ N(0, 1)."""
+    rng = np.random.default_rng(230)
+    return (np.sqrt(5.0) * rng.standard_normal((GRID_N, GRID_M))).astype(
+        np.float32)
+
+
+def a6e_grid_oracle():
+    y = a6e_grid_data().astype(np.float64)
+    nlz = float((0.5 * np.log(2 * np.pi * 5.0) + y * y / 10.0).sum())
+    return {"mean": y * 0.8, "var": np.full(y.shape, 0.8)}, nlz
+
+
+def a6e_hier_data():
+    """(a2)'s y (GH_B, GH_N, GH_M): store means from N(0, 1.5^2), a
+    residual N(0, 1) a store-day, noise 0.3, GH_NAN of the cells NaN."""
+    rng = np.random.default_rng(231)
+    mu = 1.5 * rng.standard_normal((GH_B, GH_N, 1))
+    z = mu + rng.standard_normal((GH_B, GH_N, GH_M))
+    y = (z + 0.3 * rng.standard_normal(z.shape)).astype(np.float32)
+    y[rng.random(y.shape) < GH_NAN] = np.nan
+    return y
+
+
+def _gauss_entropy64(v):
+    return 0.5 * np.log(2 * np.pi * np.e * v)
+
+
+def _gamma_entropy64(a, b):
+    return a - np.log(b) + _lgamma64(a) + (1.0 - a) * digamma64(a)
+
+
+def a6e_hier_vmp64(y, iterations):
+    """(a2)'s updates in float64 in the port's order (GH_ORDER) from
+    (a2)'s initialization, tau ~ Gamma(1, 1), mu[i] ~ N(0, 100), z[i, j] ~
+    N(0, 1): the Gaussian nodes' rules between z and mu (the other end's
+    marginal integrated, as the port's and the JAX package's rules do), the
+    conjugate Gamma update of tau; the mean-field free energy after every
+    sweep, the last sweep's posteriors."""
+    obs = np.isfinite(y)
+    yz = np.where(obs, y, 0.0).astype(np.float64)
+    n_obs = obs.sum(axis=(1, 2))
+    b, n, m = y.shape
+    ta, tb = np.ones(b), np.ones(b)
+    mm, mv = np.zeros((b, n)), np.full((b, n), 100.0)
+    zm, zv = np.zeros((b, n, m)), np.ones((b, n, m))
+    fes = []
+    for _ in range(iterations):
+        for name in GH_ORDER:
+            if name == "tau":
+                r2 = np.where(obs, (yz - zm) ** 2 + zv, 0.0).sum(axis=(1, 2))
+                ta, tb = 1.0 + 0.5 * n_obs, 1.0 + 0.5 * r2
+            elif name == "z":
+                # the Gaussian node's (out, mean) rule integrates the other
+                # end's marginal: N(E[mu], Var[mu] + 1)
+                w_mu = 1.0 / (1.0 + mv[:, :, None])
+                w = w_mu + obs * (ta / tb)[:, None, None]
+                xi = w_mu * mm[:, :, None] + obs * yz * (ta / tb)[:, None,
+                                                                 None]
+                zm, zv = xi / w, 1.0 / w
+            else:
+                w_z = 1.0 / (1.0 + zv)
+                w = 0.01 + w_z.sum(axis=2)
+                mm, mv = (w_z * zm).sum(axis=2) / w, 1.0 / w
+        et, elt = ta / tb, digamma64(ta) - np.log(tb)
+        r2 = np.where(obs, (yz - zm) ** 2 + zv, 0.0).sum(axis=(1, 2))
+        ae = (0.5 * (n_obs * np.log(2 * np.pi) - n_obs * elt + et * r2)
+              + 0.5 * (n * m * np.log(2 * np.pi)
+                       + (zv + mv[:, :, None]
+                          + (zm - mm[:, :, None]) ** 2).sum(axis=(1, 2)))
+              + 0.5 * (n * np.log(2 * np.pi * 100.0)
+                       + (mv + mm * mm).sum(axis=1) / 100.0)
+              + et)
+        h = (_gauss_entropy64(zv).sum(axis=(1, 2))
+             + _gauss_entropy64(mv).sum(axis=1) + _gamma_entropy64(ta, tb))
+        fes.append(ae - h)
+    post = {"tau_a": ta, "tau_b": tb, "mu_mean": mm, "mu_var": mv,
+            "z_mean": zm, "z_var": zv}
+    return post, np.stack(fes)
+
+
+def a6e_cube_data():
+    rng = np.random.default_rng(232)
+    return (rng.random(CUBE_SHAPE) < 0.05).astype(np.float32)
+
+
+def a6e_cube_oracle():
+    y = a6e_cube_data()
+    h, n = float(y.sum(dtype=np.float64)), float(y.size)
+    a, b = 1.0 + h, 1.0 + n - h
+    nlz = -float(_lgamma64(a) + _lgamma64(b) - _lgamma64(a + b))
+    return {"a": np.float64(a), "b": np.float64(b)}, nlz
+
+
+def a6e_polya_data(b: int, multi: bool = False):
+    """(b)'s features x (b, PG_N, PG_D) and successes of PG_TRIALS trials
+    under beta ~ N(0, 0.5^2 I) a campaign (two counts a row for the
+    MultinomialPolya)."""
+    rng = np.random.default_rng(233 + int(multi))
+    x = rng.standard_normal((b, PG_N, PG_D)).astype(np.float32)
+    beta = 0.5 * rng.standard_normal((b, PG_D, 1))
+    p = 1.0 / (1.0 + np.exp(-(x.astype(np.float64) @ beta)[..., 0]))
+    y = rng.binomial(PG_TRIALS, p).astype(np.float32)
+    if multi:
+        y = np.stack([y, PG_TRIALS - y], axis=-1).astype(np.float32)
+    return x, y
+
+
+def a6e_polya_vmp64(x, y, iterations):
+    """The Polya-Gamma VMP of (b) in float64: beta ~ N(0, 10 I), q(beta)
+    from N(0, I); every sweep E[omega] from the last q(beta), the Gaussian
+    update, and the free energy (the prior's energy, every row's bound, -H
+    of q(beta))."""
+    x = x.astype(np.float64)
+    y = (y[..., 0] if y.ndim == 3 else y).astype(np.float64)
+    n = float(PG_TRIALS)
+    b, _, d = x.shape
+    mean, cov = np.zeros((b, d)), np.broadcast_to(np.eye(d), (b, d, d))
+    log_binom = (_log_factorial64(np.full(y.shape, n)) - _log_factorial64(y)
+                 - _log_factorial64(n - y))
+    xi = np.matmul((y - 0.5 * n)[:, None, :], x)[:, 0]
+
+    def moments(mean, cov):
+        m = np.matmul(x, mean[..., None])[..., 0]
+        v = (np.matmul(x, cov) * x).sum(-1)
+        c = np.sqrt(np.maximum(m * m + v, 1e-12))
+        om = np.where(c < 1e-4, n / 4.0, n / (2.0 * c) * np.tanh(c / 2.0))
+        return m, c, om
+
+    fes = []
+    for _ in range(iterations):
+        _, _, om = moments(mean, cov)
+        w = np.eye(d) / 10.0 + np.matmul(
+            np.swapaxes(om[..., None] * x, 1, 2), x)
+        cov = np.linalg.inv(w)
+        mean = np.einsum("bij,bj->bi", cov, xi)
+        m, c, _ = moments(mean, cov)
+        ae = -(log_binom + (y - 0.5 * n) * m - n * np.logaddexp(0.0, c)
+               + 0.5 * n * c).sum(axis=1)
+        ae = ae + 0.5 * (d * np.log(2 * np.pi * 10.0)
+                         + (np.trace(cov, axis1=1, axis2=2)
+                            + (mean * mean).sum(1)) / 10.0)
+        h = 0.5 * d * (np.log(2 * np.pi) + 1.0) + 0.5 * _slogdet64(cov)
+        fes.append(ae - h)
+    return {"mean": mean, "cov": cov}, np.stack(fes)
+
+
+def a6e_ct_data():
+    """(c)'s inputs x (CT_B, CT_N, CT_DX) and outputs y = A x + e, A
+    (CT_DY, CT_DX) a sensor from N(0, 1 / dx), e ~ N(0, CT_NOISE^2 I)."""
+    rng = np.random.default_rng(235)
+    a = rng.standard_normal((CT_B, CT_DY, CT_DX)) / np.sqrt(CT_DX)
+    x = rng.standard_normal((CT_B, CT_N, CT_DX))
+    y = np.einsum("bij,bnj->bni", a, x) + CT_NOISE * rng.standard_normal(
+        (CT_B, CT_N, CT_DY))
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def _ct_stats(x, y):
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    return (np.einsum("bni,bnj->bij", x, x), np.einsum("bni,bnj->bij", y, x),
+            np.einsum("bni,bnj->bij", y, y))
+
+
+def _ct_theta(w, sxx, syx):
+    """q(theta) of one update at E[W] = ``w``: the prior N(0, 10 I) times
+    every reading's message (precision W kron x x^T, row-major vec)."""
+    b, dy, dx = syx.shape
+    lam = np.eye(dy * dx) / 10.0 + np.einsum("bik,bjl->bijkl", w, sxx
+                                             ).reshape(b, dy * dx, dy * dx)
+    eta = np.einsum("bij,bjk->bik", w, syx).reshape(b, dy * dx)
+    cov = np.linalg.inv(lam)
+    return np.einsum("bij,bj->bi", cov, eta), cov, lam, eta
+
+
+def _ct_scatter(mean, cov, sxx, syx, syy):
+    """sum over the readings of E[(y - A x)(y - A x)^T] under q(theta)."""
+    b, dy, dx = syx.shape
+    a = mean.reshape(b, dy, dx)
+    s = (syy - np.einsum("bij,bkj->bik", syx, a)
+         - np.einsum("bij,bkj->bik", a, syx)
+         + np.einsum("bij,bjk,blk->bil", a, sxx, a))
+    tc = cov.reshape(b, dy, dx, dy, dx)
+    return s + np.einsum("bijkl,bjl->bik", tc, sxx)
+
+
+def _ct_theta_fe_terms(mean, cov):
+    d = mean.shape[-1]
+    ae = 0.5 * (d * np.log(2 * np.pi * 10.0)
+                + (np.trace(cov, axis1=1, axis2=2) + (mean * mean).sum(1))
+                / 10.0)
+    h = 0.5 * d * (np.log(2 * np.pi) + 1.0) + 0.5 * _slogdet64(cov)
+    return ae, h
+
+
+def a6e_ct_known_oracle():
+    """(c1) in closed form: the posterior of vec(A) at W = I / CT_NOISE^2
+    and -log p(y) of the linear-Gaussian model."""
+    x, y = a6e_ct_data()
+    sxx, syx, syy = _ct_stats(x, y)
+    w = np.broadcast_to(np.eye(CT_DY) / CT_NOISE ** 2, (CT_B, CT_DY, CT_DY))
+    mean, cov, lam, eta = _ct_theta(w, sxx, syx)
+    dth = CT_DY * CT_DX
+    nlz = 0.5 * (np.trace(syy, axis1=1, axis2=2) / CT_NOISE ** 2
+                 - np.einsum("bi,bi->b", eta, mean)
+                 + _slogdet64(lam) - dth * np.log(0.1)
+                 + CT_N * CT_DY * np.log(2 * np.pi * CT_NOISE ** 2))
+    return {"mean": mean, "cov": cov}, nlz
+
+
+def _wishart_elogdet64(nu, s):
+    d = s.shape[-1]
+    return _mv_digamma64(d, nu / 2.0) + d * np.log(2.0) + _slogdet64(s)
+
+
+def a6e_ct_random_vmp64(iterations):
+    """(c2) by mean-field VMP in float64 in the port's order (CT_ORDER)
+    from q(theta) = N(0, I), q(W) = Wishart(dy + 2, I): the free energy of
+    every sweep and the last posteriors."""
+    x, y = a6e_ct_data()
+    sxx, syx, syy = _ct_stats(x, y)
+    d = CT_DY
+    nu0 = d + 2.0
+    dth = CT_DY * CT_DX
+    mean = np.zeros((CT_B, dth))
+    cov = np.broadcast_to(np.eye(dth), (CT_B, dth, dth))
+    nu, s = np.full(CT_B, nu0), np.broadcast_to(np.eye(d), (CT_B, d, d))
+    fes = []
+    for _ in range(iterations):
+        for name in CT_ORDER:
+            if name == "theta":
+                mean, cov, _, _ = _ct_theta(nu[:, None, None] * s, sxx, syx)
+            else:
+                c = _ct_scatter(mean, cov, sxx, syx, syy)
+                nu, s = np.full(CT_B, nu0 + CT_N), np.linalg.inv(np.eye(d) + c)
+        ew, elw = nu[:, None, None] * s, _wishart_elogdet64(nu, s)
+        c = _ct_scatter(mean, cov, sxx, syx, syy)
+        ae_lik = 0.5 * (CT_N * d * np.log(2 * np.pi) - CT_N * elw
+                        + np.einsum("bij,bji->b", ew, c))
+        ae_w = -(0.5 * (nu0 - d - 1) * elw
+                 - 0.5 * np.trace(ew, axis1=1, axis2=2)
+                 - 0.5 * nu0 * d * np.log(2.0) - _mv_lgamma64(d, nu0 / 2.0))
+        h_w = (0.5 * (d + 1) * _slogdet64(s) + 0.5 * d * (d + 1) * np.log(2.0)
+               + _mv_lgamma64(d, nu / 2.0)
+               - 0.5 * (nu - d - 1) * _mv_digamma64(d, nu / 2.0)
+               + 0.5 * nu * d)
+        ae_t, h_t = _ct_theta_fe_terms(mean, cov)
+        fes.append(ae_lik + ae_w + ae_t - h_w - h_t)
+    return {"mean": mean, "cov": cov, "w_mean": nu[:, None, None] * s}, \
+        np.stack(fes)
+
+
+def a6e_logic_data():
+    """(d1)'s soft evidence y a tree and (d2)'s observed effect a copy."""
+    rng = np.random.default_rng(236)
+    return (rng.uniform(0.05, 0.95, LOGIC_B).astype(np.float32),
+            (rng.random(LOGIC_B) < 0.5).astype(np.float32))
+
+
+def a6e_logic_oracle():
+    """float64 enumeration: (d1) the marginals of x1..x4 and x and -log Z
+    over the 2^4 input states; (d2) q(a), q(b) and -log P(y) over 2^2."""
+    y1, y2 = (v.astype(np.float64) for v in a6e_logic_data())
+    z, marg = 0.0, np.zeros((5, LOGIC_B))
+    for s in range(16):
+        x1, x2, x3, x4 = [(s >> k) & 1 for k in range(4)]
+        x = int((not x1) or (x2 and (x3 or not x4)))
+        w = 0.5 ** 4 * (y1 if x else 1.0 - y1)
+        z = z + w
+        marg += w * np.array([x1, x2, x3, x4, x], np.float64)[:, None]
+    tree = {k: marg[i] / z for i, k in enumerate(("x1", "x2", "x3", "x4",
+                                                    "x"))}
+    z2, qa, qb = 0.0, 0.0, 0.0
+    for a in (0, 1):
+        for b in (0, 1):
+            w = (0.3 if a else 0.7) * (0.1 if b else 0.9)
+            w = w * (y2 if (a or b) else 1.0 - y2)
+            z2, qa, qb = z2 + w, qa + a * w, qb + b * w
+    return (tree, -np.log(z)), ({"a": qa / z2, "b": qb / z2}, -np.log(z2))
+
+
+def a6e_walk_data():
+    """(e1)'s observations (WALK_B, WALK_T) of a random walk with drift."""
+    rng = np.random.default_rng(237)
+    x = WALK_DRIFT + np.sqrt(WALK_V0) * rng.standard_normal((WALK_B, 1))
+    x = x + np.concatenate([np.zeros((WALK_B, 1)), np.cumsum(
+        WALK_DRIFT + np.sqrt(WALK_Q) * rng.standard_normal(
+            (WALK_B, WALK_T - 1)), axis=1)], axis=1)
+    return (x + np.sqrt(WALK_R) * rng.standard_normal(x.shape)).astype(
+        np.float32)
+
+
+def a6e_mvwalk_consts():
+    """(e2)'s transition out = A in + b + N(0, Q) at d = MVWALK_D, the
+    observation noise R and the prior N(0, P0)."""
+    d = MVWALK_D
+    th = 0.3
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    a = np.zeros((d, d))
+    a[:2, :2], a[2:, 2:], a[0, 2] = 0.97 * rot, 0.9 * rot.T, 0.1
+    rng = np.random.default_rng(238)
+    l_ = 0.2 * rng.standard_normal((d, d))
+    q = l_ @ l_.T + 0.1 * np.eye(d)
+    b = np.array([0.2, -0.1, 0.05, 0.1])
+    return (a.astype(np.float32), b.astype(np.float32), q.astype(np.float32),
+            (0.05 * np.eye(d)).astype(np.float32), np.eye(d, dtype=np.float32))
+
+
+def a6e_mvwalk_data():
+    a, b, q, r, p0 = (m.astype(np.float64) for m in a6e_mvwalk_consts())
+    rng = np.random.default_rng(239)
+    d = MVWALK_D
+    x = rng.standard_normal((MVWALK_B, d)) @ np.linalg.cholesky(p0).T
+    ys = []
+    for t in range(WALK_T):
+        if t:
+            x = x @ a.T + b + rng.standard_normal((MVWALK_B, d)) @ \
+                np.linalg.cholesky(q).T
+        ys.append(x + rng.standard_normal((MVWALK_B, d)) @
+                  np.linalg.cholesky(r).T)
+    return np.stack(ys, axis=1).astype(np.float32)
+
+
+def _kalman_rts64(y, m0, p0, a, b, q, r):
+    """float64 Kalman filter and RTS smoother of x_t = A x_{t-1} + b +
+    N(0, Q), y_t = x_t + N(0, R) over a batch y (B, T, d): the smoothed
+    means and covariances and -log p(y)."""
+    bsz, t_len, d = y.shape
+    fm, fp = np.zeros((bsz, t_len, d)), np.zeros((bsz, t_len, d, d))
+    m, p = np.broadcast_to(m0, (bsz, d)), np.broadcast_to(p0, (bsz, d, d))
+    nlz = np.zeros(bsz)
+    for t in range(t_len):
+        if t:
+            m, p = m @ a.T + b, a @ p @ a.T + q
+        s = p + r
+        e = y[:, t] - m
+        sol = np.linalg.solve(s, e[..., None])[..., 0]
+        nlz += 0.5 * (d * np.log(2 * np.pi) + _slogdet64(s)
+                      + (e * sol).sum(-1))
+        k = np.linalg.solve(s, p)          # S^-1 P = K^T (symmetric S, P)
+        m = m + np.einsum("bji,bj->bi", k, e)
+        p = p - np.swapaxes(k, 1, 2) @ p
+        fm[:, t], fp[:, t] = m, p
+    sm, sp = fm.copy(), fp.copy()
+    for t in range(t_len - 2, -1, -1):
+        pp = a @ fp[:, t] @ a.T + q
+        g = fp[:, t] @ a.T @ np.linalg.inv(pp)
+        sm[:, t] = fm[:, t] + np.einsum("bij,bj->bi", g, sm[:, t + 1] - (
+            fm[:, t] @ a.T + b))
+        sp[:, t] = fp[:, t] + g @ (sp[:, t + 1] - pp) @ np.swapaxes(g, 1, 2)
+    return sm, sp, nlz
+
+
+def a6e_walk_oracle():
+    y = a6e_walk_data().astype(np.float64)[..., None]
+    one = np.ones((1, 1))
+    sm, sp, nlz = _kalman_rts64(y, np.array([WALK_DRIFT]), WALK_V0 * one, one,
+                                np.array([WALK_DRIFT]), WALK_Q * one,
+                                WALK_R * one)
+    return {"mean": sm[..., 0], "var": sp[..., 0, 0]}, nlz
+
+
+def a6e_mvwalk_oracle():
+    a, b, q, r, p0 = (m.astype(np.float64) for m in a6e_mvwalk_consts())
+    sm, sp, nlz = _kalman_rts64(a6e_mvwalk_data().astype(np.float64),
+                                np.zeros(MVWALK_D), p0, a, b, q, r)
+    return {"mean": sm, "cov": sp}, nlz
+
+
+def slice24_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 23's float64 closed forms, enumerations, RTS smoothers and
+    VMPs in a check process."""
+    lines: list = []
+    t0 = time.perf_counter()
+    out = {"grid": a6e_grid_oracle(),
+           "hier": a6e_hier_vmp64(a6e_hier_data(), GH_IT),
+           "cube": a6e_cube_oracle(),
+           "polya": a6e_polya_vmp64(*a6e_polya_data(PG_B), PG_IT),
+           "mpolya": a6e_polya_vmp64(*a6e_polya_data(MPG_B, True), PG_IT),
+           "ct_known": a6e_ct_known_oracle(),
+           "ct_random": a6e_ct_random_vmp64(CT_IT_RANDOM),
+           "logic": a6e_logic_oracle(), "walk": a6e_walk_oracle(),
+           "mvwalk": a6e_mvwalk_oracle()}
+    lines.append(f"[a6e check] the float64 references of phase 23 in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    _ended(lines, "phase 23 host checks", wall0)
+    return lines, out
+
+
+def a6e_models(rt):
+    """Phase 23's models, written once for the port, and the user nodes of
+    (e) registered in its rule registry."""
+    import torch
+
+    from rxinfer_tpu_torch.rules.registry import node
+
+    @rt.model
+    def grid(y):
+        z = rt.latent((GRID_N, GRID_M), name="z")
+        for i in rt.plate(GRID_N):
+            for j in rt.plate(GRID_M):
+                z[i, j] = rt.Normal(mean=0.0, var=4.0)
+                y[i, j] = rt.Normal(mean=z[i, j], var=1.0)
+        return {"z": z}
+
+    @rt.model
+    def hier(y):
+        tau = rt.Gamma(shape=1.0, rate=1.0)
+        mu = rt.latent(GH_N, name="mu")
+        for i in rt.plate(GH_N):
+            mu[i] = rt.Normal(mean=0.0, var=100.0)
+        z = rt.latent((GH_N, GH_M), name="z")
+        for i in rt.plate(GH_N):
+            for j in rt.plate(GH_M):
+                z[i, j] = rt.Normal(mean=mu[i], precision=1.0)
+                y[i, j] = rt.Normal(mean=z[i, j], precision=tau)
+        return {"mu": mu, "z": z, "tau": tau}
+
+    @rt.model
+    def cube(y):
+        theta = rt.Beta(1.0, 1.0)
+        for i in rt.plate(CUBE_SHAPE[0]):
+            for j in rt.plate(CUBE_SHAPE[1]):
+                for k in rt.plate(CUBE_SHAPE[2]):
+                    y[i, j, k] = rt.Bernoulli(theta)
+        return {"theta": theta}
+
+    def polya(fform):
+        @rt.model
+        def m(x, y):
+            beta = rt.MvNormal(mean=np.zeros(PG_D, np.float32),
+                               cov=10.0 * np.eye(PG_D, dtype=np.float32))
+            for i in rt.plate(PG_N):
+                y[i] = getattr(rt, fform)(x[i], float(PG_TRIALS), beta)
+            return {"beta": beta}
+        return m
+
+    dth = CT_DY * CT_DX
+
+    def ctrans(known):
+        w = np.float32(np.eye(CT_DY) / CT_NOISE ** 2)
+
+        @rt.model
+        def m(x, y):
+            theta = rt.MvNormal(mean=np.zeros(dth, np.float32),
+                                cov=10.0 * np.eye(dth, dtype=np.float32))
+            prec = w if known else rt.Wishart(
+                CT_DY + 2.0, np.eye(CT_DY, dtype=np.float32))
+            for i in rt.plate(CT_N):
+                y[i] = rt.ContinuousTransition(x[i], theta, prec)
+            return {"theta": theta} if known else {"theta": theta,
+                                                   "prec": prec}
+        return m
+
+    @rt.model
+    def fault_tree(y):
+        x1 = rt.Bernoulli(0.5)
+        x2 = rt.Bernoulli(0.5)
+        x3 = rt.Bernoulli(0.5)
+        x4 = rt.Bernoulli(0.5)
+        x = rt.IMPLY(x1, rt.AND(x2, rt.OR(x3, rt.NOT(x4))))
+        rt.tie(x, rt.Bernoulli(y))
+        return {"x1": x1, "x2": x2, "x3": x3, "x4": x4, "x": x}
+
+    @rt.model
+    def noisy_or(y):
+        a = rt.Bernoulli(0.3)
+        b = rt.Bernoulli(0.1)
+        y.observe(rt.OR(a, b))
+        return {"a": a, "b": b}
+
+    @node("DriftWalkT")
+    class DriftWalkT:
+        """out ~ N(in + WALK_DRIFT, WALK_Q)."""
+
+        interfaces = ("out", "in")
+        cavity_cluster = ("out", "in")
+
+        @staticmethod
+        def message_to_out(q):
+            m = q["in"]
+            return rt.NormalMeanVariance(m.mean() + WALK_DRIFT,
+                                         m.var() + WALK_Q)
+
+        @staticmethod
+        def message_to_in(q):
+            m = q["out"]
+            return rt.NormalMeanVariance(m.mean() - WALK_DRIFT,
+                                         m.var() + WALK_Q)
+
+        @staticmethod
+        def average_energy(q):
+            mo, vo = q["out"].mean(), q["out"].var()
+            mi, vi = q["in"].mean(), q["in"].var()
+            return 0.5 * (math.log(2 * math.pi * WALK_Q)
+                          + ((mo - mi - WALK_DRIFT) ** 2 + vo + vi) / WALK_Q)
+
+    a4, b4, q4, r4, p4 = a6e_mvwalk_consts()
+    a4_inv = np.linalg.inv(a4).astype(np.float32)
+
+    @node("MvDriftWalkT")
+    class MvDriftWalkT:
+        """out ~ N(A in + b, Q) at d = MVWALK_D."""
+
+        interfaces = ("out", "in")
+        cavity_cluster = ("out", "in")
+
+        @staticmethod
+        def message_to_out(q):
+            m = q["in"]
+            dev = m.mean().device
+            a, b, qq = (torch.as_tensor(v, device=dev) for v in (a4, b4, q4))
+            return rt.MvNormalMeanCovariance(
+                torch.einsum("ij,...j->...i", a, m.mean()) + b,
+                torch.einsum("ij,...jk,lk->...il", a, m.cov(), a) + qq)
+
+        @staticmethod
+        def message_to_in(q):
+            m = q["out"]
+            dev = m.mean().device
+            ai, b, qq = (torch.as_tensor(v, device=dev)
+                         for v in (a4_inv, b4, q4))
+            return rt.MvNormalMeanCovariance(
+                torch.einsum("ij,...j->...i", ai, m.mean() - b),
+                torch.einsum("ij,...jk,lk->...il", ai, m.cov() + qq, ai))
+
+        @staticmethod
+        def average_energy(q):
+            return 0.0 * q["out"].mean()[..., 0]
+
+    @rt.model
+    def walk(y):
+        x = rt.latent(WALK_T, name="x")
+        x[0] = rt.Normal(mean=WALK_DRIFT, var=WALK_V0)
+        for t in rt.plate(1, WALK_T):
+            x[t] = rt.factor_node("DriftWalkT", **{"in": x[t - 1]})
+        for t in rt.plate(WALK_T):
+            y[t] = rt.Normal(mean=x[t], var=WALK_R)
+        return {"x": x}
+
+    @rt.model
+    def mvwalk(y):
+        x = rt.latent(WALK_T, name="x")
+        x[0] = rt.MvNormal(mean=np.zeros(MVWALK_D, np.float32), cov=p4)
+        for t in rt.plate(1, WALK_T):
+            x[t] = rt.factor_node("MvDriftWalkT", **{"in": x[t - 1]})
+        for t in rt.plate(WALK_T):
+            y[t] = rt.MvNormal(mean=x[t], cov=r4)
+        return {"x": x}
+
+    return {"grid": grid, "hier": hier, "cube": cube,
+            "polya": polya("BinomialPolya"),
+            "mpolya": polya("MultinomialPolya"),
+            "ct_known": ctrans(True), "ct_random": ctrans(False),
+            "fault_tree": fault_tree, "noisy_or": noisy_or, "walk": walk,
+            "mvwalk": mvwalk}
+
+
+def _a6e_cell(device, model, data, iterations, init=None, batched=True):
+    """One phase 23 cell with the free energy through ``infer_batched`` (or
+    ``infer`` on one dataset): its program built beforehand (by
+    ``batched_program``; ``infer``'s by a first call), then ``_nl_cell``'s
+    launches (none may launch), time, peak memory, device busy and
+    kernels.  ``out`` is (posteriors, free energy (iterations, B) or
+    (iterations,))."""
+    import warnings
+
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    data = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+
+    def run():
+        with warnings.catch_warnings():
+            # the custom chains warn that they have no chain solver
+            warnings.simplefilter("ignore")
+            if batched:
+                return rt.infer_batched(model, data, iterations=iterations,
+                                        initialization=init,
+                                        free_energy=True, device=device)
+            res = rt.infer(model=model, data=data, iterations=iterations,
+                           initialization=init, free_energy=True,
+                           returnvars=rt.KeepLast(), device=device)
+            return res.posteriors, res.free_energy
+
+    if batched:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rt.batched_program(model, data, iterations=iterations,
+                               initialization=init, free_energy=True,
+                               device=device)
+    else:
+        run()
+    return _nl_cell(device, run, reps=1)
+
+
+def a6e_paths(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 23 (a)-(e), every cell with the free energy and every kernel's
+    launch count at zero, each against its float64 closed form,
+    enumeration, RTS smoother or VMP of the port's schedule (``host``) at
+    A6E_TOL relative (the posteriors and the free energy after the last
+    sweep, or after every sweep against a VMP); updates/s = datasets x
+    sweeps x the variable slots a sweep updates, over the call's time."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    models = a6e_models(rt)
+    cpu = lambda t: t.detach().cpu().numpy()
+    results: dict = {}
+
+    def gate(tag, label, cell, got, want, fe_want, b, sweeps, slots,
+             extra=""):
+        post, fe = cell["out"]
+        errs = {k: _rel_max(got[k], want[k]) for k in want}
+        errs["fe"] = _rel_max(cpu(fe if np.ndim(fe_want) == 2 else fe[-1]),
+                              fe_want)
+        finite = bool(torch.isfinite(fe).all())
+        ups = b * sweeps * slots / (cell["ms"] / 1e3)
+        log(f"[a6e] {tag} {label}: call_ms {cell['ms']:.3f} updates_per_s "
+            f"{ups:.6g} busy_ms {cell['busy_ms']} idle {cell['idle']} device "
+            f"kernels {cell['kernels']} peak_gb "
+            f"{cell['peak_bytes'] / 1e9:.3f}; against the float64 reference, "
+            f"relative: {errs} (tol {A6E_TOL}){extra}; launches none; {smi}")
+        if max(errs.values()) > A6E_TOL or not finite:
+            raise AssertionError(f"phase 23 {tag} {label}: {errs}, finite "
+                                 f"free energy {finite}")
+        results[label] = {"ms": cell["ms"], "updates_per_s": ups,
+                          "launches": cell["launches"],
+                          "busy_ms": cell["busy_ms"],
+                          "kernels": cell["kernels"],
+                          "peak_gb": cell["peak_bytes"] / 1e9, "errs": errs}
+
+    # (a) grids
+    want, nlz = host["grid"]
+    cell = _a6e_cell(device, models["grid"], {"y": a6e_grid_data()}, GRID_IT,
+                     batched=False)
+    q = cell["out"][0]["z"]
+    gate("(a1)", f"grid latent (N,M)=({GRID_N},{GRID_M}) on infer", cell,
+         {"mean": cpu(q.mean()), "var": cpu(q.var())}, want, nlz, 1, GRID_IT,
+         GRID_N * GRID_M)
+    compiled, _ = rt.batched_program(
+        models["hier"], {"y": np.zeros((1, GH_N, GH_M), np.float32)},
+        iterations=1, initialization=a6e_hier_init(rt), device="cpu")
+    if tuple(compiled.sweep) != GH_ORDER:
+        raise AssertionError(f"phase 23 (a2): the port's sweep "
+                             f"{compiled.sweep} is not the oracle's "
+                             f"{GH_ORDER}")
+    ow, ofe = host["hier"]
+    cell = _a6e_cell(device, models["hier"], {"y": a6e_hier_data()}, GH_IT,
+                     a6e_hier_init(rt))
+    post = cell["out"][0]
+    gate("(a2)", f"grid hierarchy (B,N,M)=({GH_B},{GH_N},{GH_M}), "
+         f"{GH_NAN:.0%} missing, {GH_IT} sweeps", cell,
+         {"tau_a": cpu(post["tau"].a), "tau_b": cpu(post["tau"].b),
+          "mu_mean": cpu(post["mu"].mean()), "mu_var": cpu(post["mu"].var()),
+          "z_mean": cpu(post["z"].mean()), "z_var": cpu(post["z"].var())},
+         ow, ofe, GH_B, GH_IT, 2 * GH_N * GH_M + GH_N + 2,
+         extra=" (the free energy of every sweep)")
+    want, nlz = host["cube"]
+    cell = _a6e_cell(device, models["cube"], {"y": a6e_cube_data()}, 1,
+                     batched=False)
+    q = cell["out"][0]["theta"]
+    gate("(a3)", f"three-axis Beta-Bernoulli {CUBE_SHAPE} on infer", cell,
+         {"a": cpu(q.a), "b": cpu(q.b)}, want, nlz, 1, 1, 1)
+
+    # (b) Polya regressions
+    pinit = {"beta": rt.MvNormalMeanCovariance(
+        torch.zeros(PG_D), torch.eye(PG_D))}
+    for key, b, label in (
+            ("polya", PG_B, f"BinomialPolya (B,N,d)=({PG_B},{PG_N},{PG_D}), "
+             f"n={PG_TRIALS}, {PG_IT} sweeps"),
+            ("mpolya", MPG_B, f"MultinomialPolya K=2 (B,N,d)=({MPG_B},"
+             f"{PG_N},{PG_D}), {PG_IT} sweeps")):
+        x, y = a6e_polya_data(b, key == "mpolya")
+        cell = _a6e_cell(device, models[key], {"x": x, "y": y}, PG_IT, pinit)
+        q = cell["out"][0]["beta"]
+        ow, ofe = host[key]
+        gate("(b)", label, cell, {"mean": cpu(q.mean()), "cov": cpu(q.cov())},
+             ow, ofe, b, PG_IT, 1,
+             extra=" (the free energy of every sweep)")
+
+    # (c) continuous transitions
+    x, y = a6e_ct_data()
+    dth = CT_DY * CT_DX
+    tinit = {"theta": rt.MvNormalMeanCovariance(torch.zeros(dth),
+                                                torch.eye(dth))}
+    cell = _a6e_cell(device, models["ct_known"], {"x": x, "y": y},
+                     CT_IT_KNOWN, tinit)
+    q = cell["out"][0]["theta"]
+    ow, nlz = host["ct_known"]
+    gate("(c1)", f"ContinuousTransition W known (B,N,dy,dx)=({CT_B},{CT_N},"
+         f"{CT_DY},{CT_DX}), {CT_IT_KNOWN} sweeps", cell,
+         {"mean": cpu(q.mean()), "cov": cpu(q.cov())}, ow, nlz, CT_B,
+         CT_IT_KNOWN, 1)
+    compiled, _ = rt.batched_program(
+        models["ct_random"], {"x": x[:1], "y": y[:1]}, iterations=1,
+        initialization=a6e_ct_init(rt), device="cpu")
+    if tuple(compiled.sweep) != CT_ORDER:
+        raise AssertionError(f"phase 23 (c2): the port's sweep "
+                             f"{compiled.sweep} is not the oracle's "
+                             f"{CT_ORDER}")
+    cell = _a6e_cell(device, models["ct_random"], {"x": x, "y": y},
+                     CT_IT_RANDOM, a6e_ct_init(rt))
+    post = cell["out"][0]
+    ow, ofe = host["ct_random"]
+    gate("(c2)", f"ContinuousTransition W ~ Wishart(dy + 2, I), "
+         f"{CT_IT_RANDOM} sweeps", cell,
+         {"mean": cpu(post["theta"].mean()), "cov": cpu(post["theta"].cov()),
+          "w_mean": cpu(post["prec"].mean())}, ow, ofe, CT_B, CT_IT_RANDOM, 2,
+         extra=" (the free energy of every sweep)")
+
+    # (d) logic
+    y1, y2 = a6e_logic_data()
+    (tree, nlz1), (nor, nlz2) = host["logic"]
+    names = ("x1", "x2", "x3", "x4", "x")
+    cell = _a6e_cell(device, models["fault_tree"], {"y": y1}, LOGIC_IT,
+                     {k: rt.Bernoulli(0.5) for k in names})
+    post = cell["out"][0]
+    gate("(d1)", f"fault tree with tie (B={LOGIC_B}), {LOGIC_IT} sweeps",
+         cell, {k: cpu(post[k].mean()) for k in names}, tree, nlz1, LOGIC_B,
+         LOGIC_IT, len(names))
+    cell = _a6e_cell(device, models["noisy_or"], {"y": y2}, LOGIC_IT,
+                     {"a": rt.Bernoulli(0.3), "b": rt.Bernoulli(0.1)})
+    post = cell["out"][0]
+    gate("(d2)", f"noisy-OR (B={LOGIC_B}), {LOGIC_IT} sweeps", cell,
+         {k: cpu(post[k].mean()) for k in ("a", "b")}, nor, nlz2, LOGIC_B,
+         LOGIC_IT, 2)
+
+    # (e) the affine custom-transition pair
+    ow, nlz = host["walk"]
+    cell = _a6e_cell(device, models["walk"], {"y": a6e_walk_data()}, WALK_IT,
+                     {"x": rt.NormalMeanVariance(torch.tensor(0.0),
+                                                 torch.tensor(10.0))})
+    q = cell["out"][0]["x"]
+    gate("(e1)", f"DriftWalkT (B,T)=({WALK_B},{WALK_T}), {WALK_IT} sweeps",
+         cell, {"mean": cpu(q.mean()), "var": cpu(q.var())}, ow, nlz, WALK_B,
+         WALK_IT, WALK_T)
+    ow, nlz = host["mvwalk"]
+    cell = _a6e_cell(device, models["mvwalk"], {"y": a6e_mvwalk_data()},
+                     MVWALK_IT, {"x": rt.MvNormalMeanCovariance(
+                         torch.zeros(MVWALK_D), 10.0 * torch.eye(MVWALK_D))})
+    q = cell["out"][0]["x"]
+    gate("(e2)", f"MvDriftWalkT (B,T,d)=({MVWALK_B},{WALK_T},{MVWALK_D}), "
+         f"{MVWALK_IT} sweeps", cell,
+         {"mean": cpu(q.mean()), "cov": cpu(q.cov())}, ow, nlz, MVWALK_B,
+         MVWALK_IT, WALK_T)
+    return results
+
+
+def a6e_hier_init(rt):
+    """(a2)'s initialization, which ``a6e_hier_vmp64`` starts from."""
+    import torch
+
+    return {"tau": rt.GammaShapeRate(torch.tensor(1.0), torch.tensor(1.0)),
+            "mu": rt.NormalMeanVariance(torch.tensor(0.0),
+                                        torch.tensor(100.0)),
+            "z": rt.NormalMeanVariance(torch.tensor(0.0), torch.tensor(1.0))}
+
+
+def a6e_ct_init(rt):
+    """(c2)'s initialization, which ``a6e_ct_random_vmp64`` starts from."""
+    import torch
+
+    dth = CT_DY * CT_DX
+    return {"theta": rt.MvNormalMeanCovariance(torch.zeros(dth),
+                                               torch.eye(dth)),
+            "prec": rt.Wishart(torch.tensor(CT_DY + 2.0), torch.eye(CT_DY))}
+
+
 def _start_checker() -> None:
     """A check process's start-up, run while the main process builds the
     kernels: the port's imports and the card's context."""
@@ -7613,6 +8462,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     side21 = pool.apply_async(slice21_checks, (wall0,))
     side22 = pool.apply_async(slice22_checks, (wall0,))
     side23 = pool.apply_async(slice23_checks, (wall0,))
+    side24 = pool.apply_async(slice24_checks, (wall0,))
     worst, plain = check_kernels(device, CHECK_SHAPES)
     _elapsed("K1/K2 checks", t_start)
     dyn_lines, dyn_worst = side_dyn.get()
@@ -7778,6 +8628,17 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     print("\n".join(s23_lines))
     a6d = a6d_paths(device, s23_host, smi=smi)
     _elapsed("the rest of the node library", t_start)
+
+    # 23. grid data and grid latents, the logic, Polya and
+    # continuous-transition nodes, and the affine custom-transition pair,
+    # on plain groups (no kernel)
+    s24_lines, s24_host = side24.get()
+    print("\n".join(s24_lines))
+    t23 = time.perf_counter()
+    a6e = a6e_paths(device, s24_host, smi=smi)
+    print(f"[a6e] phase 23 took {time.perf_counter() - t23:.1f} s; {smi}")
+    _elapsed("grids, logic, Polya, continuous transitions and the custom "
+             "pair", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}
@@ -8389,6 +9250,9 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         row["launches_phase22"] = {
             cell: res["launches"].get(row["name"], 0)
             for cell, res in a6d.items()}
+        row["launches_phase23"] = {
+            cell: res["launches"].get(row["name"], 0)
+            for cell, res in a6e.items()}
     print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
           f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
           f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "

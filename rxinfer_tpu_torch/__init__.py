@@ -8,7 +8,10 @@ A model written with ``@model``, ``latent``, ``plate``,
 ``Categorical``, ``Dirichlet``, ``DirichletCollection``, ``Transition``,
 ``NormalMixture``, ``Mixture``, ``AR``, ``GCV``, ``dot``, ``Delta``
 (``Linearization``, ``Unscented``, ``CVIProjection``, a known inverse),
-``Probit``, ``SoftDot``, ``factor_node`` and ``where`` blocks
+``Probit``, ``SoftDot``, the logic nodes ``OR`` / ``AND`` / ``NOT`` /
+``IMPLY`` with ``tie``, ``BinomialPolya`` / ``MultinomialPolya``,
+``ContinuousTransition``, grid data and grid latents over nested plates
+(``y[i, j]``, ``latent((N, M))``), ``factor_node`` and ``where`` blocks
 (``RequireMessage``) runs through
 ``infer`` on one dataset, through ``batched_program`` / ``infer_batched``
 over many, and through
@@ -65,7 +68,13 @@ from .graph.dsl import (  # noqa: F401
     ARMeta,
     ARsafe,
     ARunsafe,
+    AND,
+    IMPLY,
+    NOT,
+    OR,
     Bernoulli,
+    BinomialPolya,
+    ContinuousTransition,
     Beta,
     Binomial,
     Categorical,
@@ -79,6 +88,7 @@ from .graph.dsl import (  # noqa: F401
     InverseWishart,
     Mixture,
     Multinomial,
+    MultinomialPolya,
     MvNormal,
     Normal,
     NormalMixture,
@@ -98,6 +108,7 @@ from .graph.dsl import (  # noqa: F401
     lincomb,
     model,
     plate,
+    tie,
     where,
 )
 from .graph.constraints import (  # noqa: F401

@@ -10,6 +10,9 @@ numpy, without importing the JAX package.
 * ``dist_from_numpy(family, params)`` builds a port distribution from the
   class name of a JAX distribution and its numpy parameters, in field order
   or by field name.
+* ``dist_to_numpy(d)`` is the way back: the family's name and its fields
+  as numpy arrays.  Both keep whatever leading axes the fields carry (a
+  batch, a plate, the (N, M) of a grid latent).
 * ``filter_state_from_numpy(m, p)`` builds the ``FilterState`` of
   ``parallel.filtering`` from the numpy fields of the JAX package's.
 """
@@ -96,6 +99,17 @@ def dist_from_numpy(family: str, params, device="cpu") -> D.Distribution:
             f"{family} takes {field_names}, got {len(params)} parameters")
     return cls(*[torch.as_tensor(np.array(p, np.float32), device=device)
                  for p in params])
+
+
+def dist_to_numpy(d: D.Distribution) -> tuple:
+    """``(family, {field: numpy array})`` of a port distribution, the
+    inverse of ``dist_from_numpy``."""
+    family = type(d).__name__
+    if _FAMILIES.get(family) is not type(d):
+        raise NotImplementedError(
+            f"family {family!r} is not ported; ported: {sorted(_FAMILIES)}")
+    return family, {f.name: getattr(d, f.name).detach().cpu().numpy()
+                    for f in dataclasses.fields(d)}
 
 
 def filter_state_from_numpy(m, p, device="cpu") -> FilterState:

@@ -7,7 +7,8 @@ The ``gaussian``, ``mv_gaussian``, ``beta``, ``bernoulli``,
 ``categorical``, ``dirichlet``, ``dirichlet_collection``, ``gamma`` (any
 Gamma parametrization, read as (shape, rate)), ``inverse_gamma``,
 ``wishart``, ``inverse_wishart`` and ``poisson`` families, ``prod_all``,
-``nat_div``, ``prod_reduce``, ``pad_plate``, ``NAT_EVENT_RANKS``, and for
+``nat_div``, ``prod_reduce``, ``pad_plate``, the grid factors'
+``broadcast_batch`` and ``prod_reduce_axes``, ``NAT_EVENT_RANKS``, and for
 the generic ``Mixture`` ``log_partition``, ``logpdf``, the mixture products
 and divisions and ``coerce_message_family``.  The
 ``wishart`` view keeps the inverse-scale carrier: one observation's
@@ -372,3 +373,26 @@ def pad_plate(d: Distribution, lo: int, hi: int, total: int,
             n = torch.cat([n.new_zeros(before), n, n.new_zeros(after)], dim=ax)
         out.append(n)
     return from_natural(key, tuple(out))
+
+
+def broadcast_batch(d: Distribution, batch_shape: tuple) -> Distribution:
+    """Every natural leaf broadcast to the full ``batch_shape`` (its trailing
+    event axes kept): a nested-plate factor's message computed from
+    partially batched inputs then stands for the whole grid of copies
+    before it is masked and reduced.  The leaves are expanded views."""
+    key = family_key(d)
+    out = []
+    for n, r in zip(to_natural(d), NAT_EVENT_RANKS[key]):
+        evt = tuple(n.shape[n.ndim - r:]) if r else ()
+        out.append(n.expand(tuple(batch_shape) + evt))
+    return from_natural(key, tuple(out))
+
+
+def prod_reduce_axes(d: Distribution, axes) -> Distribution:
+    """Product of plated messages over several leading axes at once (a
+    natural-parameter sum); the leaves carry the full batch
+    (``broadcast_batch``)."""
+    key = family_key(d)
+    axes = tuple(axes)
+    return from_natural(key, tuple(torch.sum(n, dim=axes)
+                                   for n in to_natural(d)))

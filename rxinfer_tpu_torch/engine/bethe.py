@@ -42,11 +42,15 @@ random transition matrix, a random process-noise precision), as the
 mean-field branch counts a shared interface.  The JAX version subtracts the
 pair entropy alone, so on such a chain (``zoo.hmm``: the matrix A) its free
 energy is off by (T - 1) H[q(A)] and can fall below zero on discrete data;
-the port's equals the float64 structured-VMP free energy.  The affine
-custom-transition pair of the JAX package (a lagged transition left to
-iterative message passing) needs the tree schedule: a factor that could
-take it raises ``NotImplementedError`` naming ROADMAP A6f when its
-evaluator is built, rather than fall back to the mean-field bound.
+the port's equals the float64 structured-VMP free energy.
+
+A nested-plate factor's energy stands for its whole copy grid, and a
+single-axis neighbour's entropy enters once per copy along the grid's
+other axes (``slot_degrees`` counts the same).  A user node's lagged
+transition left to iterative message passing, whose (out, in) is one
+cavity cluster, takes the affine custom-transition pair when its out rule
+probes affine Gaussian (``_extract_affine_transition``): the pair joint
+from the stored cavities, so that the free energy is -log Z on a tree.
 """
 
 from __future__ import annotations
@@ -56,9 +60,15 @@ import torch
 
 from ..dists import PointMass
 from ..dists.gaussian import batched_logdet
-from ..graph.ir import ModelGraph, Ref
+from ..graph.ir import Const, ModelGraph, Ref, SymIndex
 from ..rules.registry import get_average_energy, get_node
-from .blocks import BatchContext, _coverage, build_q, in_cavity_cluster
+from .blocks import (
+    BatchContext,
+    _coverage,
+    _grid,
+    build_q,
+    in_cavity_cluster,
+)
 
 _LOG2PIE = 2.837877066409345  # log(2*pi*e)
 
@@ -224,7 +234,8 @@ def slot_degrees(graph: ModelGraph, var) -> np.ndarray:
                 # per slot: the copies over a nested factor's other plate
                 # axes all touch it (1 for a single-plate factor)
                 size = v.idx.plate.size
-                per_slot = copies // size if size else 0
+                per_slot = (copies // size if size else 0) \
+                    if isinstance(v.idx, SymIndex) else 1
                 deg[cov[0]:cov[1]] += per_slot
     return deg
 
@@ -262,11 +273,83 @@ def _per_element(x, batch: int):
     return x.reshape(x.shape[0], -1).sum(dim=1)
 
 
-def _unported_branch(f, what: str, item: str):
-    return NotImplementedError(
-        f"free_energy=True: factor {f.fform} ({f.id}) takes the JAX "
-        f"package's {what}, which the PyTorch package does not have yet "
-        f"(ROADMAP {item}).")
+def _extract_affine_transition(f, event_shape=None):
+    """Probe a custom lagged transition's ``message_to_out`` for an affine
+    Gaussian conditional out | in ~ N(A in + b, Q), scalar or vector
+    state: the rule is called on point masses at fixed points (the zero
+    point, the basis vectors and a check point; three points for a scalar
+    state), on the CPU, once, when the free-energy plan is built, and the
+    mean's affinity and the covariance's independence of the input are
+    checked on the host with the JAX package's points and tolerances, so
+    that the same user nodes qualify in both packages.  Returns ``(A, b,
+    Q)`` (floats for a scalar state, float32 arrays for a vector one) or
+    None when the rule is not affine Gaussian (a dimension-changing one
+    among them): the factor then keeps the mean-field terms."""
+    from ..rules.registry import get_message_rule
+
+    try:
+        rule = get_message_rule(f.fform, "out")
+        ev = event_shape
+        if ev is None:
+            ev = getattr(f.interfaces["in"].var, "event_shape", None) or ()
+        if len(ev) > 1:
+            return None
+        vector = len(ev) == 1
+        d_i = int(ev[0]) if vector else 1
+
+        def probe(x):
+            q = {"in": PointMass(torch.as_tensor(np.asarray(x, np.float32)))}
+            for name, v in f.interfaces.items():
+                if name != "in" and isinstance(v, Const):
+                    q[name] = PointMass(torch.as_tensor(
+                        np.asarray(v.value, np.float32)))
+            if f.meta is not None:
+                q["_meta"] = {**f.meta, "_plated": f.plate is not None}
+            with torch.no_grad():
+                msg = rule(q)
+            if vector:
+                return (np.asarray(msg.mean().cpu(), np.float64),
+                        np.asarray(msg.cov().cpu(), np.float64))
+            return float(msg.mean()), float(msg.var())
+
+        if not vector:
+            xs = (0.37, -1.21, 2.05)
+            ms, vs = zip(*(probe(np.float32(x)) for x in xs))
+            a = (ms[0] - ms[1]) / (np.float32(xs[0]) - np.float32(xs[1]))
+            b = ms[0] - a * np.float32(xs[0])
+            if not np.isclose(ms[2], a * np.float32(xs[2]) + b, rtol=1e-5,
+                              atol=1e-6):
+                return None
+            if not (np.isclose(vs[0], vs[1], rtol=1e-6)
+                    and np.isclose(vs[0], vs[2], rtol=1e-6)):
+                return None
+            if not vs[0] > 0:
+                return None
+            return float(a), float(b), float(vs[0])
+
+        b_vec, q0 = probe(np.zeros(d_i, np.float32))
+        if b_vec.shape != (d_i,) or q0.shape != (d_i, d_i):
+            return None   # a dimension-changing transition
+        cols, covs = [], []
+        for j in range(d_i):
+            e = np.zeros(d_i, np.float32)
+            e[j] = 1.0
+            mj, vj = probe(e)
+            cols.append(mj - b_vec)
+            covs.append(vj)
+        a_mat = np.stack(cols, axis=1)
+        x_t = np.linspace(-1.3, 2.05, d_i).astype(np.float32)
+        mt, vt = probe(x_t)
+        if not np.allclose(mt, a_mat @ x_t + b_vec, rtol=1e-5, atol=1e-5):
+            return None
+        for v in covs + [vt]:
+            if not np.allclose(v, q0, rtol=1e-6, atol=1e-8):
+                return None
+        np.linalg.cholesky(q0)   # positive definite, else None
+        return (np.asarray(a_mat, np.float32), np.asarray(b_vec, np.float32),
+                np.asarray(q0, np.float32))
+    except Exception:  # noqa: BLE001 -- any probe failure: mean-field FE
+        return None
 
 
 class FactorFE:
@@ -276,21 +359,24 @@ class FactorFE:
     mean-field terms only.  Built once per compiled model."""
 
     def __init__(self, factor, is_chain_transition: bool,
-                 chain_scalar: bool, mean_field: bool = False):
+                 chain_scalar: bool, mean_field: bool = False,
+                 event_shape=None):
         f = self.factor = factor
         self.is_chain_transition = is_chain_transition
         self.chain_scalar = chain_scalar
         self.mean_field = mean_field
         node_cls = get_node(f.fform)
-        if len(getattr(f, "plates", ())) >= 2:
-            raise _unported_branch(f, "grid (nested-plate) accounting",
-                                   "A6e")
         # a deterministic node has no average energy: its whole term is
         # -H[q_a] of the joint belief over its inputs (``bethe_term`` on the
         # cavities)
         self.bethe_fn = getattr(node_cls, "bethe_term", None)
         self.energy_fn = (None if self.bethe_fn is not None
                           else get_average_energy(f.fform))
+        # a user node's lagged transition left to iterative message
+        # passing, whose (out, in) is one cavity cluster: when its out rule
+        # probes affine Gaussian, the pair joint rebuilt from the stored
+        # cavities (``_custom_pair_fe``), so that FE = -log Z on a tree
+        self.custom_pair = None
         in_ref = f.interfaces.get("in")
         if (not is_chain_transition and not mean_field
                 and f.plate is not None
@@ -298,7 +384,7 @@ class FactorFE:
                 and f.out.var is in_ref.var
                 and in_cavity_cluster(node_cls, "out")
                 and in_cavity_cluster(node_cls, "in")):
-            raise _unported_branch(f, "affine custom-transition pair", "A6f")
+            self.custom_pair = _extract_affine_transition(f, event_shape)
         # the structured (out, in) pair of an unplated Gaussian factor
         # between two random variables, once both cavity messages are
         # stored: (in-interface, noise-interface)
@@ -337,6 +423,10 @@ class FactorFE:
         n_copies = _n_copies(f)
         if self.bethe_fn is not None:
             return self._bethe_term(state, data, chain_cross, ctx)
+        if (self.custom_pair is not None and f"_msg:{f.id}:out" in state
+                and f"_msg:{f.id}:in" in state):
+            return _per_element(self._custom_pair_fe(state, data, ctx),
+                                batch)
         if (self.gcv_pair and f"_msg:{f.id}:out" in state
                 and f"_msg:{f.id}:in" in state):
             # AE over the joint q(out, in) (build_q attaches the cross
@@ -365,7 +455,14 @@ class FactorFE:
         mask = ctx.masks.get(f.id)
         if mask is not None:
             ae = ae * mask
-        if f.plate is not None and n_copies > 1 and ae.ndim >= 2 \
+        grid = _grid(f)
+        if grid is not None:
+            # a nested-plate factor: the energy stands for its whole copy
+            # grid (unit axes where every input is shared along a plate)
+            if 0 < ae.ndim < 1 + len(grid):
+                ae = ae.reshape(ae.shape + (1,) * (1 + len(grid) - ae.ndim))
+            ae = ae.expand((batch,) + grid)
+        elif f.plate is not None and n_copies > 1 and ae.ndim >= 2 \
                 and ae.shape[1] == 1:
             # every interface shared by the copies: one energy stands for
             # plate.size copies
@@ -409,8 +506,87 @@ class FactorFE:
                 # a plated factor's shared interface: one copy per slot
                 if f.plate is not None and cov is None:
                     hv = hv * n_copies
+                elif grid is not None and isinstance(v.idx, SymIndex):
+                    # a single-axis neighbour's slot takes part in every
+                    # copy along the grid's other axes
+                    hv = hv * (n_copies // v.idx.plate.size)
                 h = h + _per_element(hv, batch)
         return total - h
+
+    def _custom_pair_fe(self, state: dict, data: dict, ctx: BatchContext):
+        """AE - H of a custom affine Gaussian lagged transition at the
+        fixed point: per copy the pair joint q(out, in) proportional to
+        cav_out x cav_in x N(out; A in + b, Q) from the stored cavity
+        messages, closed form in (A, b, Q) (the node's own
+        ``average_energy`` is bypassed: its message rules define the
+        factor)."""
+        from ..dists.gaussian import as_weighted_mean_precision
+        from ..dists.natural import nat_div
+
+        f = self.factor
+        a_c, b_c, q_c = self.custom_pair
+        q = build_q(f, state, data, ctx=ctx)
+        cav_o = nat_div(q["out"], state[f"_msg:{f.id}:out"])
+        cav_i = nat_div(q["in"], state[f"_msg:{f.id}:in"])
+        if np.ndim(a_c) == 2:
+            return self._custom_pair_fe_mv(cav_o, cav_i)
+        no = as_weighted_mean_precision(cav_o)
+        ni = as_weighted_mean_precision(cav_i)
+        joo = no.w + 1.0 / q_c
+        jii = ni.w + a_c * a_c / q_c
+        joi = -a_c / q_c
+        xo = no.xi + b_c / q_c
+        xi_ = ni.xi - a_c * b_c / q_c
+        det = joo * jii - joi * joi
+        voo, vii, c = jii / det, joo / det, -joi / det
+        mo = (jii * xo - joi * xi_) / det
+        mi = (joo * xi_ - joi * xo) / det
+        resid = mo - a_c * mi - b_c
+        ae = 0.5 * (np.log(2 * np.pi * q_c)
+                    + (resid ** 2 + voo + a_c * a_c * vii - 2 * a_c * c)
+                    / q_c)
+        return ae - gaussian_pair_entropy(voo, vii, c, scalar=True)
+
+    def _custom_pair_fe_mv(self, cav_o, cav_i):
+        """The vector-state ``_custom_pair_fe``: per copy the pair joint in
+        block information form."""
+        from ..dists.gaussian import as_mv_weighted_mean_precision
+
+        no = as_mv_weighted_mean_precision(cav_o)
+        ni = as_mv_weighted_mean_precision(cav_i)
+        like = dict(dtype=no.xi.dtype, device=no.xi.device)
+        a_c, b_c, q_c = self.custom_pair
+        a = torch.as_tensor(a_c, **like)
+        b = torch.as_tensor(b_c, **like)
+        qinv = torch.as_tensor(np.linalg.inv(q_c), **like)
+        logdet_q = float(np.linalg.slogdet(q_c)[1])
+        d = a.shape[0]
+        joo = no.w + qinv
+        jii = ni.w + a.T @ qinv @ a
+        lead = torch.broadcast_shapes(joo.shape[:-2], jii.shape[:-2])
+        joo, jii = joo.expand(lead + (d, d)), jii.expand(lead + (d, d))
+        joi = (-(qinv @ a)).expand(lead + (d, d))
+        jmat = torch.cat([torch.cat([joo, joi], dim=-1),
+                          torch.cat([joi.transpose(-1, -2), jii], dim=-1)],
+                         dim=-2)
+        xo = no.xi + qinv @ b
+        xi_ = ni.xi - a.T @ (qinv @ b)
+        lead_x = torch.broadcast_shapes(xo.shape[:-1], xi_.shape[:-1])
+        xi_full = torch.cat([xo.expand(lead_x + (d,)),
+                             xi_.expand(lead_x + (d,))], dim=-1)
+        vmat = torch.linalg.inv(jmat)
+        mu = torch.einsum("...ij,...j->...i", vmat, xi_full)
+        mo, mi = mu[..., :d], mu[..., d:]
+        voo, voi, vii = vmat[..., :d, :d], vmat[..., :d, d:], vmat[..., d:, d:]
+        resid = mo - torch.einsum("ij,...j->...i", a, mi) - b
+        cov_err = (voo - torch.einsum("...ik,jk->...ij", voi, a)
+                   - torch.einsum("ik,...jk->...ij", a, voi)
+                   + torch.einsum("ik,...kl,jl->...ij", a, vii, a))
+        c2 = cov_err + resid[..., :, None] * resid[..., None, :]
+        ae = 0.5 * (d * np.log(2 * np.pi) + logdet_q
+                    + torch.einsum("ij,...ji->...", qinv, c2))
+        h = d * _LOG2PIE - 0.5 * torch.linalg.slogdet(jmat)[1]
+        return ae - h
 
 
     def _bethe_term(self, state: dict, data: dict, chain_cross: dict,
@@ -438,9 +614,10 @@ class FactorFE:
 
 def _slots(h, cov):
     """The slots ``cov`` (``_coverage``) of a variable's per-slot entropy
-    (B, slots) (or (B,) for a single-copy variable), as ``build_q`` takes
-    them of its marginal."""
-    if cov is None:
+    (B, slots) (or (B,) for a single-copy variable, (B, N, M) for a grid
+    latent, whose grid slot is all of it), as ``build_q`` takes them of its
+    marginal."""
+    if cov is None or cov == "grid":
         return h
     if isinstance(cov, int):
         return h.select(1, cov)

@@ -39,9 +39,15 @@ Wishart inverse-scale carrier becomes a ``Wishart``, then the form
 constraint applies; with ``raw_product`` it returns the product before
 it, for pooled ``shared=`` sums.  The cavity stores are state entries
 ``_msg:<factor id>:<interface>``, as in the JAX package.
+A nested-plate factor's copy grid (``_grid``) sits after the batch axis:
+a grid slot ``y[i, j]`` / ``z[i, j]`` resolves to the whole (B, N, M, ...)
+array, a single-axis slot gets unit axes for the other plates
+(``_expand_for_grid``), and ``PlainGroup._grid_message`` broadcasts the
+factor's messages to the whole grid, masks them and product-reduces the
+axes that do not index the group; such a factor takes plain VMP, with no
+cavity store.
 Not ported: the ``time_mesh`` branch of ``GaussianChainBlock.update``
-(time sharding), and the ``PlainGroup`` branch that ``engine/compile.py``
-refuses when it builds a group: grid (nested-plate) factors (ROADMAP A6e).
+(time sharding).
 As in the JAX package, a required-message dependency acts on plain groups
 only: a chain's evidence factor reads the chain's marginal.
 """
@@ -67,6 +73,7 @@ from ..dists.gaussian import (
 )
 from ..dists.natural import (
     NAT_EVENT_RANKS,
+    broadcast_batch,
     coerce_message_family,
     family_key,
     from_natural,
@@ -74,9 +81,10 @@ from ..dists.natural import (
     pad_plate,
     prod_all,
     prod_reduce,
+    prod_reduce_axes,
     to_natural,
 )
-from ..graph.ir import Const, Factor, Ref
+from ..graph.ir import Const, Factor, Ref, SymIndex
 from ..rules.registry import get_message_rule, get_node
 
 
@@ -117,6 +125,37 @@ def _coverage(f: Factor, ref: Ref):
     return (p.lo + ref.idx.offset, p.hi + ref.idx.offset)
 
 
+def _grid(f: Factor) -> Optional[tuple]:
+    """The copy grid of a nested-plate factor, one size per plate, outer
+    first (None for one plate or none)."""
+    plates = getattr(f, "plates", ())
+    if len(plates) < 2:
+        return None
+    return tuple(p.size for p in plates)
+
+
+def _plate_axes(f: Factor) -> int:
+    """The copy axes of a plated factor after the batch axis: one a nested
+    plate."""
+    return max(1, len(getattr(f, "plates", ())))
+
+
+def _grid_pos(f: Factor, ref: Ref) -> int:
+    """The axis of ``f``'s copy grid that the plate indexing ``ref`` is."""
+    return [p.id for p in f.plates].index(ref.idx.plate.id)
+
+
+def _expand_for_grid(x, f: Factor, ref: Ref):
+    """Unit axes inserted after the batch axis, so that a single-axis
+    marginal, covariate or mask lines up with its own plate's axis of the
+    factor's copy grid."""
+    pos = _grid_pos(f, ref)
+    for ax in range(len(_grid(f))):
+        if ax != pos:
+            x = tree_map(lambda a, _d=1 + ax: a.unsqueeze(_d), x)
+    return x
+
+
 def cpu_context() -> "BatchContext":
     """The context of a batch of one on the CPU: how the batched program's
     plan-time probes (engine/batched.py) evaluate one dataset's rules."""
@@ -131,17 +170,18 @@ def resolve_iface(value, f: Factor, state: dict, data: dict,
         return PointMass(ctx.const(value))
     ref = value
     cov = _coverage(f, ref)
-    if cov == "grid":
-        raise NotImplementedError(
-            "grid (nested-plate) interfaces are not ported yet.")
     q = PointMass(data[ref.var.name]) if ref.var.kind == "data" \
         else state[ref.var.name]
-    if cov is None:
+    if cov is None or cov == "grid":
+        # a grid slot y[i, j] / z[i, j] is the whole (B, N, M, ...) array
         return q
     if isinstance(cov, int):
         return tree_map(lambda a: a.select(1, cov), q)
     lo, hi = cov
-    return tree_map(lambda a: a.narrow(1, lo, hi - lo), q)
+    q = tree_map(lambda a: a.narrow(1, lo, hi - lo), q)
+    if _grid(f) is not None:
+        q = _expand_for_grid(q, f, ref)
+    return q
 
 
 def build_q(f: Factor, state: dict, data: dict,
@@ -177,9 +217,11 @@ def factor_marginal(f: Factor, v, state: dict, data: dict,
     hands it to a rule: a value that a plated factor shares across its
     copies gets a unit plate axis after the batch axis."""
     x = resolve_iface(v, f, state, data, ctx)
-    if (f.plate is not None and isinstance(v, Ref)
-            and not isinstance(_coverage(f, v), tuple)):
-        x = tree_map(lambda a: a.unsqueeze(1), x)
+    if f.plate is not None and isinstance(v, Ref):
+        cov = _coverage(f, v)
+        if cov is None or isinstance(cov, int):
+            for _ in range(_plate_axes(f)):
+                x = tree_map(lambda a: a.unsqueeze(1), x)
     return x
 
 
@@ -234,25 +276,31 @@ def factor_data_mask(f: Factor, data: dict):
     """Per-copy observation mask of factor ``f`` over the batch (``data``
     leaves carry the batch on axis 0): 1.0 where every data interface is
     finite, 0.0 where any is NaN (missing).  Shape (B, P) for a plated
-    factor, (B,) otherwise; None when the factor touches no data."""
+    factor, (B,) + (the copy grid's axes, unit where a data interface does
+    not index them) for a nested-plate one, (B,) otherwise; None when the
+    factor touches no data."""
     masks = []
     for v in f.all_interfaces().values():
         if not (isinstance(v, Ref) and v.var.kind == "data"):
             continue
         arr = data[v.var.name]
         cov = _coverage(f, v)
+        grid = _grid(f)
         if cov == "grid":
-            raise NotImplementedError(
-                "grid (nested-plate) interfaces are not ported yet.")
-        if isinstance(cov, tuple):
+            lead = 1 + len(v.idx)
+            finite = torch.isfinite(arr).reshape(
+                arr.shape[:lead] + (-1,)).all(-1)
+        elif isinstance(cov, tuple):
             sl = arr[:, cov[0]:cov[1]]
             finite = torch.isfinite(sl).reshape(
                 sl.shape[0], sl.shape[1], -1).all(-1)
+            if grid is not None:
+                finite = _expand_for_grid(finite, f, v)
         else:
             sl = arr if cov is None else arr[:, cov]
             finite = torch.isfinite(sl).reshape(sl.shape[0], -1).all(-1)
             if f.plate is not None:
-                finite = finite[:, None]
+                finite = finite.reshape(finite.shape + (1,) * _plate_axes(f))
         masks.append(finite)
     if not masks:
         return None
@@ -406,7 +454,11 @@ class PlainGroup:
                           and self.var.name in state)
             q = build_q(f, state, data, exclude=None if needs_self else iface,
                         chain_cross=chain_cross, ctx=ctx)
-            cavity = (f.id not in self.mf_ids
+            grid = _grid(f)
+            # a nested-plate factor takes plain VMP, no cavity store (its
+            # outputs are observations or grid slots, where the cavity is a
+            # no-op on trees), as in the JAX package
+            cavity = (f.id not in self.mf_ids and grid is None
                       and in_cavity_cluster(node_cls, iface))
             if cavity:
                 divide_cavities(f, iface, q, state, node_cls)
@@ -421,6 +473,9 @@ class PlainGroup:
                 # a message of no input at all (the flat Uninformative
                 # prior's) is made on the CPU
                 raw = tree_map(lambda a: a.to(ctx.device), raw)
+            if grid is not None:
+                msgs.append(self._grid_message(f, iface, raw, grid, ctx))
+                continue
             msg = mask_message(raw, ctx.masks.get(f.id))
             if cavity or required:
                 state[f"_msg:{f.id}:{iface}"] = with_batch_axis(
@@ -462,6 +517,41 @@ class PlainGroup:
         if raw_product:
             return q
         return self._batched(self.finalize(q), ctx.batch)
+
+    def _grid_message(self, f: Factor, iface: str, raw, grid: tuple,
+                      ctx: BatchContext):
+        """A nested-plate factor's message to this group: broadcast to the
+        whole (B,) + grid batch of copies, masked, then product-reduced over
+        every grid axis that does not index this variable (a grid latent
+        keeps one message per slot; an array group is padded over its
+        slots)."""
+        msg = broadcast_batch(raw, (ctx.batch,) + grid)
+        msg = mask_message(msg, ctx.masks.get(f.id))
+        ref = f.out if iface == "out" else f.interfaces[iface]
+        if self.var.grid_axes:
+            if not isinstance(ref.idx, tuple):
+                raise NotImplementedError(
+                    f"Grid latent {self.var.name} must be referenced with a "
+                    f"full grid index (factor {f.fform}).")
+            plate_ids = [p.id for p in f.plates]
+            pos = [plate_ids.index(k.plate.id) for k in ref.idx]
+            if pos != sorted(pos):
+                raise NotImplementedError(
+                    f"Grid latent {self.var.name}: transposed use inside "
+                    f"factor {f.fform} is not supported.")
+            other = [1 + ax for ax in range(len(grid)) if ax not in pos]
+            return prod_reduce_axes(msg, other) if other else msg
+        if self.var.length is None:
+            return prod_reduce_axes(msg, range(1, len(grid) + 1))
+        if not isinstance(ref.idx, SymIndex):
+            raise NotImplementedError(
+                f"Array group {self.var.name}: grid factor {f.fform} must "
+                "index it by a plate symbol.")
+        pos = _grid_pos(f, ref)
+        lo, hi = _coverage(f, ref)
+        msg = prod_reduce_axes(
+            msg, [1 + ax for ax in range(len(grid)) if ax != pos])
+        return pad_plate(msg, lo, hi, self.var.length, batch_ndim=1)
 
     def _batched(self, q, batch: int):
         """The marginal with the batch axis on every leaf: a product of

@@ -38,9 +38,11 @@ family the port has a natural-parameter view for (``gaussian``,
 ``mv_gaussian``, ``beta``, ``bernoulli``, ``categorical``, ``dirichlet``,
 ``dirichlet_collection``, ``gamma``, ``inverse_gamma``, ``wishart``,
 ``inverse_wishart``, ``poisson``), with the required-message dependencies
-of ``where(dependencies=RequireMessage(...))``.  Not ported yet (they raise
-``NotImplementedError``): the grid (nested-plate) branch of the plain groups
-(ROADMAP A6e) and submodel-scoped constraints (A6i).
+of ``where(dependencies=RequireMessage(...))``; a grid latent's
+initialization is one slot's, broadcast over its ``grid_axes``, and a
+nested-plate factor that defines an anonymous latent is refused, as in the
+JAX package.  Not ported yet (they raise ``NotImplementedError``):
+submodel-scoped constraints (A6i).
 """
 
 from __future__ import annotations
@@ -660,8 +662,8 @@ class CompiledModel:
                     and not isinstance(f.out.idx, tuple)):
                 raise NotImplementedError(
                     f"Nested-plate factor {f.fform} defines an anonymous "
-                    f"latent ({f.out.var.name}); grid latents are not ported "
-                    "yet."
+                    f"latent ({f.out.var.name}): declare a grid latent "
+                    "(z = latent((N, M))) and assign z[i, j] = ... instead."
                 )
         # factors a factorization constraint splits: mean-field rule
         # variants, no cavity store, mean-field free-energy accounting
@@ -809,6 +811,10 @@ class CompiledModel:
                                   and self.infos[f.out.var.name].event_shape
                                   == ()),
                     mean_field=f.id in self.mf_factor_ids,
+                    event_shape=(self.infos[f.out.var.name].event_shape
+                                 if f.out.var.kind == "random"
+                                 and f.out.var.name in self.infos
+                                 else None),
                 )
                 for f in self.graph.factors
             ]
@@ -889,9 +895,7 @@ class CompiledModel:
     def _check_plain_edge(var, f, iface: str, ref: Ref) -> None:
         where = f"plain group {var.name!r}, factor {f.fform} ({iface})"
         if len(getattr(f, "plates", ())) >= 2:
-            raise NotImplementedError(
-                f"{where}: grid (nested-plate) factors are not ported yet "
-                "(ROADMAP A6e).")
+            return   # PlainGroup._grid_message refuses what it cannot take
         if var.is_array:
             cov = _coverage(f, ref)
             if cov is None or (isinstance(cov, int) and f.plate is not None):
@@ -924,7 +928,11 @@ class CompiledModel:
                        if v.name == name)
             d = spec() if callable(spec) else spec
             d = tree_map(lambda a: torch.as_tensor(a, dtype=torch.float32), d)
-            if var.is_array:
+            if var.grid_axes:
+                # one slot's initialization broadcast over the grid
+                d = tree_map(lambda a: a.expand(tuple(var.grid_axes)
+                                                + tuple(a.shape)), d)
+            elif var.is_array:
                 event = tuple(self.infos[name].event_shape or ())
                 mean_shape = tuple(d.mean().shape)
                 if mean_shape == (var.length,) + event:

@@ -19,6 +19,10 @@ mixtures (``switch`` categorical, ``mean{i}`` Gaussian, ``prec{i}`` gamma or
 wishart; ``GammaMixture``'s ``shape{i}`` / ``rate{i}`` gamma; the generic
 ``Mixture``'s out and components of the family their other factors give),
 ``AR`` (out, ``in`` and ``theta`` vectors of the order, ``gamma`` gamma),
+the logic nodes ``OR`` / ``AND`` / ``NOT`` / ``IMPLY`` (Bernoulli out and
+inputs), ``BinomialPolya`` / ``MultinomialPolya`` (``beta`` a vector as long
+as the features ``x``), ``ContinuousTransition`` (out, ``in`` and ``theta``
+multivariate Gaussian, ``prec`` Wishart),
 ``GCV`` (scalar out, ``in`` and ``z``), ``GaussianDot*`` (scalar out,
 ``in`` a vector as long as ``A``, ``prec`` gamma), ``Probit`` (a Bernoulli
 out, a Gaussian ``in``), ``SoftDot`` (scalar out, ``theta`` and ``x``
@@ -74,6 +78,13 @@ _OUT_FAMILY = {
     "GCV": "gaussian",
     "Probit": "bernoulli",
     "SoftDot": "gaussian",
+    "OR": "bernoulli",
+    "AND": "bernoulli",
+    "NOT": "bernoulli",
+    "IMPLY": "bernoulli",
+    "BinomialPolya": "poisson",       # counts: the carrier of a data out
+    "MultinomialPolya": "poisson",
+    "ContinuousTransition": "mv_gaussian",
 }
 
 # the out of a deterministic node: Gaussian or multivariate Gaussian by the
@@ -128,6 +139,18 @@ _INPUT_FAMILY = {
     ("SoftDot", "x"): "mv_gaussian",
     ("SoftDot", "gamma"): "gamma",
     ("NonlinearGaussianPrecision", "prec"): "gamma",
+    ("OR", "in1"): "bernoulli",
+    ("OR", "in2"): "bernoulli",
+    ("AND", "in1"): "bernoulli",
+    ("AND", "in2"): "bernoulli",
+    ("IMPLY", "in1"): "bernoulli",
+    ("IMPLY", "in2"): "bernoulli",
+    ("NOT", "in"): "bernoulli",
+    ("BinomialPolya", "beta"): "mv_gaussian",
+    ("MultinomialPolya", "beta"): "mv_gaussian",
+    ("ContinuousTransition", "in"): "mv_gaussian",
+    ("ContinuousTransition", "theta"): "mv_gaussian",
+    ("ContinuousTransition", "prec"): "wishart",
 }
 
 # a mixture's component interfaces carry their index (mean0, prec1, ...)
@@ -193,7 +216,7 @@ def infer_event_shape(f: Factor, graph: ModelGraph, known: dict) -> tuple | None
               "Bernoulli", "NormalMixture", "GammaMixture",
               "GaussianDotCovariance", "GaussianDotPrecision",
               "GaussianSumCovariance", "GaussianSumPrecision", "GCV",
-              "Probit", "SoftDot"):
+              "Probit", "SoftDot", "OR", "AND", "NOT", "IMPLY"):
         return ()
     if ff in _SUM_NODES:
         if ff == "LinComb":
@@ -300,6 +323,13 @@ def infer_input_shape(f: Factor, iface: str, out_shape) -> tuple | None:
         m = f.interfaces.get("matrix")
         if isinstance(m, Const):
             return (_const_shape(m)[1],)
+    if ff in ("BinomialPolya", "MultinomialPolya") and iface == "beta":
+        x = f.interfaces.get("x")
+        if isinstance(x, Const):
+            return (_const_shape(x)[-1],)
+        if isinstance(x, Ref) and x.var.kind == "data":
+            return (tuple(x.var.event_shape)[-1],)
+        return None
     if ff in ("MvLinearGaussianCovariance", "MvLinearGaussianPrecision") \
             and iface == "in":
         a = f.interfaces.get("A")

@@ -18,4 +18,16 @@ from .constraints import (  # noqa: F401
     factorize,
     factorize_slots,
 )
-from .dsl import Delta, Probit, SoftDot  # noqa: F401
+from .dsl import (  # noqa: F401
+    AND,
+    IMPLY,
+    NOT,
+    OR,
+    BinomialPolya,
+    ContinuousTransition,
+    Delta,
+    MultinomialPolya,
+    Probit,
+    SoftDot,
+    tie,
+)

@@ -26,12 +26,20 @@ distributions of torch tensors, and such a distribution object used inside
 a trace becomes a prior factor of its own (one per object, as the JAX
 package's ``_lift_dist`` does).
 
-Not ported yet: grid latents and grid data (they raise
-``NotImplementedError`` naming ROADMAP A6e), the logic, Polya and
-continuous-transition nodes (A6e), submodel scopes (A6i) and folded data
-arithmetic.  ``dot`` with two
-random arguments raises ``TypeError``, as in the JAX package: the model
-writes ``SoftDot``.
+Nested plates: ``y[i, j]`` indexes grid data and ``z = latent((N, M))``
+declares a grid latent, ``z[i, j] = Node(...)`` defining every slot at once
+(``_check_grid_key``: symbolic indices over full plates, in the nesting
+order); a factor emitted inside nested plates records them all in
+``plates``.  The logic nodes ``OR``, ``AND``, ``NOT``, ``IMPLY`` and
+``tie`` (a second factor on an existing random variable), the Polya
+regressions ``BinomialPolya`` / ``MultinomialPolya`` and
+``ContinuousTransition``.  Nested calls emit their inner factors first
+(``x = IMPLY(a, NOT(b))`` emits NOT before IMPLY), so the assignment target
+names the last emit of its statement.
+
+Not ported yet: submodel scopes (A6i) and folded data arithmetic.  ``dot``
+with two random arguments raises ``TypeError``, as in the JAX package: the
+model writes ``SoftDot``.
 """
 
 from __future__ import annotations
@@ -207,6 +215,55 @@ class LatentArray:
         _builder().rebind(value.ref, Ref(self._var, self._norm_idx(key)))
 
 
+def _check_grid_key(key: tuple, axes: tuple, name: str) -> tuple:
+    """Validate a grid index ``[i, j]``: zero-offset symbolic indices over
+    full plates, outer first, matching the array's leading axes."""
+    if not all(isinstance(k, SymIndex) for k in key):
+        raise TypeError(
+            "multi-axis grid indexing supports symbolic plate indices only "
+            "(mixed concrete/symbolic grid slots are not supported).")
+    if len(axes) < len(key):
+        raise ValueError(
+            f"{name} has {len(axes)} grid axes, indexed with {len(key)}.")
+    stack = _builder().plate_stack
+    if tuple(stack[-len(key):]) != tuple(k.plate for k in key):
+        raise ValueError(
+            "grid index plate order must match the nesting order of the "
+            "active plates (outer first); transpose the array if its axes "
+            "are ordered differently.")
+    for ax, k in enumerate(key):
+        if k.offset != 0 or k.plate.lo != 0 or k.plate.hi != axes[ax]:
+            raise NotImplementedError(
+                "grid slots need zero-offset indices over full plates "
+                f"(axis {ax}: plate [{k.plate.lo},{k.plate.hi}) vs axis "
+                f"length {axes[ax]}); lagged grid references are not "
+                "supported.")
+    return key
+
+
+class GridLatentArray:
+    """Multi-axis latent array: ``z[i, j] = Node(...)`` inside nested plates
+    defines the whole grid at once."""
+
+    def __init__(self, var: Variable, axes: tuple):
+        self._var = var
+        self.axes = axes
+
+    def __getitem__(self, key) -> RVRef:
+        if not isinstance(key, tuple):
+            raise TypeError(
+                f"grid latent {self._var.name} must be indexed with "
+                f"{len(self.axes)} indices.")
+        return RVRef(Ref(self._var,
+                         _check_grid_key(key, self.axes, self._var.name)))
+
+    def __setitem__(self, key, value):
+        if not isinstance(value, RVRef):
+            raise TypeError("z[i, j] = ... expects a node constructor call.")
+        _builder().rebind(value.ref, Ref(
+            self._var, _check_grid_key(key, self.axes, self._var.name)))
+
+
 class DataArray:
     """Observed-data placeholder; ``y[t] = Node(...)`` observes slot t.
     Indexing marks the leading axis as a plate; passing the array whole makes
@@ -223,11 +280,21 @@ class DataArray:
     def __len__(self):
         return self.shape[0]
 
+    def _norm_grid_idx(self, key: tuple) -> tuple:
+        """A nested-plate grid index ``y[i, j]``: the leading axes it
+        indexes become the variable's ``grid_axes``, the rest its event."""
+        key = _check_grid_key(key, self.shape, self._var.name)
+        if self._var.length is not None:
+            raise ValueError(
+                f"data array {self._var.name} is used with both single and "
+                "grid indexing.")
+        self._var.grid_axes = tuple(self.shape[:len(key)])
+        self._var.event_shape = self.shape[len(key):]
+        return key
+
     def _norm_idx(self, key):
         if isinstance(key, tuple):
-            raise NotImplementedError(
-                "grid-indexed data y[i, j] is not ported to the PyTorch "
-                "package yet (ROADMAP A6e).")
+            return self._norm_grid_idx(key)
         if self._var.length is None:
             self._var.length = self.shape[0]
             self._var.event_shape = self.shape[1:]
@@ -252,12 +319,16 @@ class DataArray:
 
 
 def latent(length, name: Optional[str] = None):
-    """Declare an array of latent variables."""
+    """Declare an array of latent variables; a tuple ``length`` declares a
+    grid latent (``latent((N, M))``, defined inside nested plates by ``z[i,
+    j] = Node(...)``)."""
     b = _builder()
     if isinstance(length, tuple):
-        raise NotImplementedError(
-            "grid latents latent((N, M)) are not ported to the PyTorch "
-            "package yet (ROADMAP A6e).")
+        axes = tuple(int(a) for a in length)
+        var = b.graph.add_variable(
+            Variable(name if name else b.fresh_name("x"), "random", None))
+        var.grid_axes = axes
+        return GridLatentArray(var, axes)
     var = b.graph.add_variable(
         Variable(name if name else b.fresh_name("x"), "random", int(length))
     )
@@ -363,6 +434,9 @@ class ModelBuilder:
         if not m:
             return None
         name = m.group(1)
+        # nested calls emit inner factors first and loops re-emit from the
+        # same line: the assignment target is the last emit of the
+        # statement, so it takes the name back from an earlier one
         key = (frame.f_code.co_filename, frame.f_lineno, name)
         prev = self._line_hints.get(key)
         if prev is not None and prev.name == name:
@@ -720,6 +794,69 @@ def Uniform(lo=0.0, hi=1.0) -> RVRef:
         return _direct_dist("Uniform", lo, hi)
     return _builder().emit("Uniform", {"lo": _as_interface(lo),
                                        "hi": _as_interface(hi)})
+
+
+def BinomialPolya(x, n, beta) -> RVRef:
+    """Binomial regression through Polya-Gamma augmentation (the
+    reference's BinomialPolya): out ~ Binomial(n, logistic(x^T beta))."""
+    return _builder().emit(
+        "BinomialPolya",
+        {"x": _as_interface(x), "n": _as_interface(n),
+         "beta": _as_interface(beta)})
+
+
+def MultinomialPolya(x, n, beta) -> RVRef:
+    """The two-class Multinomial regression (``rules/polya.py``)."""
+    return _builder().emit(
+        "MultinomialPolya",
+        {"x": _as_interface(x), "n": _as_interface(n),
+         "beta": _as_interface(beta)})
+
+
+def ContinuousTransition(x, theta, prec) -> RVRef:
+    """out = reshape(theta) @ x + noise with a random row-major vectorized
+    transition matrix (the reference's ContinuousTransition)."""
+    return _builder().emit(
+        "ContinuousTransition",
+        {"in": _as_interface(x), "theta": _as_interface(theta),
+         "prec": _as_interface(prec)})
+
+
+def OR(a, b) -> RVRef:
+    """Boolean OR node (the reference's alias ``a || b``)."""
+    return _builder().emit("OR", {"in1": _as_interface(a),
+                                  "in2": _as_interface(b)})
+
+
+def AND(a, b) -> RVRef:
+    return _builder().emit("AND", {"in1": _as_interface(a),
+                                   "in2": _as_interface(b)})
+
+
+def NOT(a) -> RVRef:
+    return _builder().emit("NOT", {"in": _as_interface(a)})
+
+
+def IMPLY(a, b) -> RVRef:
+    return _builder().emit("IMPLY", {"in1": _as_interface(a),
+                                     "in2": _as_interface(b)})
+
+
+def tie(x: RVRef, node: RVRef) -> RVRef:
+    """Attach a further factor to an existing random variable: the
+    reference's second ``~`` on one variable (``x ~ IMPLY(...)`` then ``x ~
+    Bernoulli(y)``).  ``node`` is a just-created factor output; its
+    anonymous variable is rebound to ``x`` and the factor marked as
+    evidence."""
+    if not isinstance(x, RVRef) or not isinstance(node, RVRef):
+        raise TypeError("tie(x, node) expects two random-variable references.")
+    b = _builder()
+    anon_var = node.ref.var
+    for f in b.graph.factors:
+        if f.out.var is anon_var:
+            f.evidence = True
+    b.rebind(node.ref, x.ref)
+    return x
 
 
 def Uninformative() -> RVRef:

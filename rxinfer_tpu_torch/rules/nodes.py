@@ -95,9 +95,19 @@ _LOG2PIE = 2.837877066409345  # log(2 pi e)
 
 
 def _scalar_c(q):
-    """E[(out - mean)^2] under independent q(out), q(mean)."""
+    """E[(out - mean)^2] under independent q(out), q(mean), expanded as the
+    JAX package's messages take it."""
     return (e_sq(q["out"]) - 2.0 * e_mean(q["out"]) * e_mean(q["mean"])
             + e_sq(q["mean"]))
+
+
+def _scalar_c_energy(q):
+    """The same as Var[out] + Var[mean] + (E[out] - E[mean])^2, for the
+    average energies: the expanded form cancels in float32 at levels far
+    from 0 and leaves the free energy there off by up to 1e-4 relative
+    (ROADMAP C14; the JAX package's energies keep it)."""
+    diff = e_mean(q["out"]) - e_mean(q["mean"])
+    return e_var(q["out"]) + e_var(q["mean"]) + diff * diff
 
 
 # -- scalar Gaussian nodes -------------------------------------------------------
@@ -136,7 +146,7 @@ class NormalMeanVarianceNode:
     @staticmethod
     def average_energy(q):
         return 0.5 * (_LOG2PI + e_log(q["var"])
-                      + _scalar_c(q) * e_inv_scalar(q["var"]))
+                      + _scalar_c_energy(q) * e_inv_scalar(q["var"]))
 
 
 @node("NormalMeanPrecision")
@@ -173,7 +183,7 @@ class NormalMeanPrecisionNode:
     def average_energy(q):
         w = e_precision(q["prec"])
         elogw = e_log_precision(q["prec"])
-        return 0.5 * (_LOG2PI - elogw + w * _scalar_c(q))
+        return 0.5 * (_LOG2PI - elogw + w * _scalar_c_energy(q))
 
 
 # -- multivariate Gaussian nodes ---------------------------------------------------

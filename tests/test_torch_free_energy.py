@@ -6,7 +6,8 @@ package's on ``zoo.lgssm``, ``zoo.hmm``, the ``lgssm_wtau`` model, int8
 ingest and NaN batches; FE == -log Z against a float64 Kalman filter with a
 transition far from symmetric; the one-step chain (the JAX package raises,
 the port gives the closed form); ``log_evidence``; the diagnostics; and the
-refusal of a branch the port lacks.  Inputs come from numpy seeds.  JAX
+affine custom-transition pair of a user node's lagged transition.  Inputs
+come from numpy seeds.  JAX
 runs as its own tests run it on the CPU (Pallas in interpret mode); the
 port runs on the CPU with its kernels' plain versions."""
 
@@ -697,52 +698,74 @@ def test_after_iteration_callbacks_see_the_free_energy():
 
 def test_an_unported_fe_branch_names_its_roadmap_item():
     """A lagged transition of a user node whose (out, in) is one cavity
-    cluster, left to iterative message passing: the JAX package may take
-    its affine custom-transition pair there, which waits for the tree
-    schedule (ROADMAP A6f).  (The model this test held until ROADMAP A6c,
-    a chain whose prior mean is a slot of another chain, now runs: its
-    free energy is held against the JAX package's in
-    tests/test_torch_constraints.py.)"""
-    from rxinfer_tpu_torch.rules.registry import node
+    cluster, left to iterative message passing: out = in / 2 + N(0, 1),
+    whose out rule probes affine Gaussian, so both packages take the affine
+    custom-transition pair (ROADMAP A6f, refused here until it was ported).
+    The port's free energy after every sweep equals the JAX package's, and
+    at the fixed point the Kalman -log Z of the chain."""
 
-    @node("HalfStepFE")
-    class HalfStep:
-        interfaces = ("out", "in")
-        uses_cavity = True
+    def register(rx):
+        d = td if rx is trx else jd
+        if rx is trx:
+            from rxinfer_tpu_torch.rules.registry import node
+        else:
+            from rxinfer_tpu.rules.registry import node
 
-        @staticmethod
-        def message_to_out(q):
-            return td.NormalMeanVariance(0.5 * q["in"].mean(),
-                                         0.25 * q["in"].var() + 1.0)
+        @node("HalfStepFE")
+        class HalfStep:
+            interfaces = ("out", "in")
+            uses_cavity = True
 
-        @staticmethod
-        def message_to_in(q):
-            return td.NormalMeanVariance(2.0 * q["out"].mean(),
-                                         4.0 * (q["out"].var() + 1.0))
+            @staticmethod
+            def message_to_out(q):
+                return d.NormalMeanVariance(0.5 * q["in"].mean(),
+                                            0.25 * q["in"].var() + 1.0)
 
-        @staticmethod
-        def average_energy(q):
-            return 0.0 * q["out"].mean()
+            @staticmethod
+            def message_to_in(q):
+                return d.NormalMeanVariance(2.0 * q["out"].mean(),
+                                            4.0 * (q["out"].var() + 1.0))
 
-    @trx.model
-    def lagged(y):
-        T = len(y)
-        x = trx.latent(T, name="x")
-        x[0] = trx.Normal(mean=0.0, var=1.0)
-        for t in trx.plate(1, T):
-            x[t] = trx.factor_node("HalfStepFE", **{"in": x[t - 1]})
-        for t in trx.plate(T):
-            y[t] = trx.Normal(mean=x[t], var=1.0)
-        return {"x": x}
+            @staticmethod
+            def average_energy(q):
+                return 0.0 * q["out"].mean()
 
-    data = {"y": np.zeros((2, 6), np.float32)}
-    init = {"x": trx.Normal(mean=0.0, var=1.0)}
-    with pytest.warns(UserWarning, match="no chain solver"):
-        trx.batched_program(lagged, data, initialization=init, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6f"), \
-            pytest.warns(UserWarning, match="no chain solver"):
-        trx.batched_program(lagged, data, initialization=init,
-                            free_energy=True, device=CPU)
+    def lagged(rx):
+        @rx.model
+        def m(y):
+            T = len(y)
+            x = rx.latent(T, name="x")
+            x[0] = rx.Normal(mean=0.0, var=1.0)
+            for t in rx.plate(1, T):
+                x[t] = rx.factor_node("HalfStepFE", **{"in": x[t - 1]})
+            for t in rx.plate(T):
+                y[t] = rx.Normal(mean=x[t], var=1.0)
+            return {"x": x}
+        return m
+
+    y = np.random.default_rng(3).standard_normal((2, 6)).astype(np.float32)
+    fes = []
+    for rx in (trx, jrx):
+        register(rx)
+        d = td if rx is trx else jd
+        init = {"x": d.NormalMeanVariance(*(
+            (torch.tensor(0.0), torch.tensor(1.0)) if rx is trx
+            else (jnp.float32(0.0), jnp.float32(1.0))))}
+        with pytest.warns(UserWarning, match="chain solver"):
+            _, fe = rx.infer_batched(
+                lagged(rx), {"y": y}, iterations=40, initialization=init,
+                free_energy=True, **(dict(device=CPU) if rx is trx else {}))
+        fes.append(np.asarray(fe))
+    np.testing.assert_allclose(fes[0], fes[1], **FE_TOL)
+    for b in range(2):
+        m, v, nlz = 0.0, 1.0, 0.0
+        for t, yt in enumerate(y[b].astype(np.float64)):
+            if t:
+                m, v = 0.5 * m, 0.25 * v + 1.0
+            s_ = v + 1.0
+            nlz += 0.5 * (np.log(2 * np.pi * s_) + (yt - m) ** 2 / s_)
+            m, v = m + v / s_ * (yt - m), v - v * v / s_
+        np.testing.assert_allclose(fes[0][-1, b], nlz, rtol=1e-5)
 
 
 def test_annotations_carry_the_free_energy_and_shared_refuses_a_chain():

@@ -746,17 +746,37 @@ def test_distribution_objects_lift_to_priors_like_jax():
 
 @pytest.mark.parametrize("what", ["grid_data", "grid_latent"])
 def test_remaining_statements_raise_naming_their_roadmap_item(what):
-    @trx.model
-    def m(y):
-        if what == "grid_data":
-            x = trx.Normal(mean=0.0, var=1.0)
-            y[0, 0] = trx.Normal(mean=x, var=1.0)
-        else:
-            trx.latent((2, 2))
-        return {}
+    """The statements this file pinned as refused until ROADMAP A6e was
+    ported: a concrete grid index ``y[0, 0]`` is refused by both packages
+    (grid data takes symbolic plate indices only), and a grid latent
+    declared outside any plate traces in both to the same graph."""
+    def source(rx):
+        @rx.model
+        def m(y):
+            if what == "grid_data":
+                x = rx.Normal(mean=0.0, var=1.0)
+                y[0, 0] = rx.Normal(mean=x, var=1.0)
+            else:
+                z = rx.latent((2, 2), name="z")
+                for i in rx.plate(2):
+                    for j in rx.plate(2):
+                        z[i, j] = rx.Normal(mean=0.0, var=1.0)
+                        y[i, j] = rx.Normal(mean=z[i, j], var=1.0)
+            return {}
+        return m
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A6e"):
-        m.trace({"y": np.zeros((2, 2), np.float32)})
+    y = np.zeros((2, 2), np.float32)
+    if what == "grid_data":
+        for rx in (trx, jrx):
+            with pytest.raises(TypeError, match="symbolic plate indices"):
+                source(rx).trace({"y": y})
+        return
+    tg, jg = source(trx).trace({"y": y}), source(jrx).trace({"y": y})
+    for g in (tg, jg):
+        z = next(v for v in g.variables if v.name == "z")
+        assert z.grid_axes == (2, 2) and not z.is_array
+        assert [len(f.plates) for f in g.factors] == [2, 2]
+    assert [f.fform for f in tg.factors] == [f.fform for f in jg.factors]
 
 
 # -- the streaming engine ----------------------------------------------------------
