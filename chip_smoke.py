@@ -373,6 +373,31 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    (``slice24_checks``).  Each cell: call ms, updates/s, device busy and
    idle, device kernels a call, peak memory.  ``[a6e]`` lines, and
    ``launches_phase23`` on every row of the ``kernels`` line.
+24. Submodels, folded data, node contraction (ROADMAP A6i), sessions,
+   checkpoints, ``trace_messages``, ``profile_trace`` and early stopping
+   (A6h), the streaming engine's ``meta=`` / ``annotations=`` /
+   ``postprocess=`` (A4c): (a) phase 4's LGSSM cell written as submodels
+   inside ``scope("track")`` through ``infer_batched`` with the free
+   energy: one K1 and one K2 launch, posteriors and free energy bit-equal
+   to ``zoo.lgssm``'s, the same ``trace_messages`` records, a
+   ``profile_trace`` Chrome trace naming the smoother kernels; (b) x ~
+   N(a + b, 1) with data a, b (folded), y over FOLD_N days, FOLD_B stores,
+   against the float64 closed form (FOLD_TOL), new b reusing the program;
+   (c) the gcv_sub chain of tests/models/test_node_contraction.py over
+   GCVC_B datasets, contracted against its body (the JAX test's bounds),
+   against the port on the CPU (GCVC_TOL), and on ``infer`` with
+   ``allow_node_contraction=True`` over the JAX test's series, the free
+   energy non-increasing;
+   (d1) config 2's Beta-Bernoulli as CTR_B click-through streams over CTR_T
+   ticks with annotations, the free energy and a postprocess: each tick's
+   per-stream log-scale against the float64 log predictive (LOGSCALE_TOL);
+   (d2) phase 21 (a)'s online HGF over HGFM_T ticks with meta= against the
+   port on the CPU; (e) phase 14's engine checkpointed half-way
+   (``save_checkpoint`` / ``load_checkpoint`` onto the card) and resumed
+   bit-equal, and an ``infer`` stopped by ``StopEarlyIterationStrategy``
+   at the CPU's sweep; the default session's counts.  The references in a
+   check process (``slice25_checks``).  ``[s24]`` lines, and
+   ``launches_phase24`` on every row of the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -3530,8 +3555,10 @@ def fe_quant_path(device, b: int, t_len: int, d: int, reps: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def config2_data():
-    """Phase 12 (e)'s data (phase 21 (c) reuses the Gaussian cell): the
+    """Phase 12 (e)'s data (phase 21 (c) and 24 (e) reuse the Gaussian
+    cell; made once a process, its callers only read it): the
     Beta-Bernoulli flips (BB_B, BB_N), row 0 the reference's 3743
     successes, then the Gaussian cell's observations (GAUSS_B, GAUSS_N)
     from the same generator."""
@@ -6638,10 +6665,11 @@ def hgfs_engine_kw(rx, b: int, dist, constrained: bool = True) -> dict:
     return kw
 
 
-def hgfs_run(device, y, constrained: bool = True):
+def hgfs_run(device, y, constrained: bool = True, meta=None, keep=None):
     """The port's engine over y (T, B) on ``device`` through ``infer``'s
-    datastream with keephistory: xt's and zt's (mean, var) per tick, (T,
-    B) each, on the host, and the free energies (T, B, HGFS_IT)."""
+    datastream with keephistory (and ``meta=``): xt's and zt's (mean, var)
+    per tick, (T, B) each, on the host, and the free energies (T, B,
+    HGFS_IT).  The engine is appended to ``keep`` when given."""
     import torch
 
     import rxinfer_tpu_torch as rt
@@ -6653,7 +6681,9 @@ def hgfs_run(device, y, constrained: bool = True):
     eng = rt.infer(model=hgfs_model(rt), datastream=[
         {"y": yt[t]} for t in range(t_len)], keephistory=t_len,
         historyvars={"xt": rt.KeepLast(), "zt": rt.KeepLast()},
-        device=device, **hgfs_engine_kw(rt, b, dist, constrained))
+        device=device, meta=meta, **hgfs_engine_kw(rt, b, dist, constrained))
+    if keep is not None:
+        keep.append(eng)
     post = {name: tuple(torch.stack([getattr(h[name], f)() for h in
                                      eng.history]).cpu().numpy()
                         for f in ("mean", "var")) for name in ("xt", "zt")}
@@ -8337,6 +8367,688 @@ def a6e_ct_init(rt):
             "prec": rt.Wishart(torch.tensor(CT_DY + 2.0), torch.eye(CT_DY))}
 
 
+# -- submodels, folded data, node contraction, the engine's meta, annotations
+# and postprocess, checkpoints (phase 24) -------------------------------------------
+
+# (a): phase 4's LGSSM cell written as submodels inside scope("track")
+S24_LABEL = "track/transition/x"
+# (b): a demand level per store whose prior mean is last year's level plus
+# a planned promotion lift (data a, b), 365 days of sales under N(x, 1)
+FOLD_B, FOLD_N = 10_000, 365
+FOLD_TOL = 1e-5          # against the float64 closed form, relative
+FOLD_SHIFT = 1.0         # (b)'s second call: every lift one unit higher
+# (c): tests/models/test_node_contraction.py's gcv_sub chain at T = 16
+# over GCVC_B series, and on ``infer`` over the JAX test's own series (T =
+# 4), where the reference holds the free energy non-increasing.  Over
+# random series at T = 16 the contracted chain's free energy rises by up to
+# 1.5e-2 on 64% of them (the body's on 83%), in the JAX package as in the
+# port (measured on the CPU): mean-field VMP through GCV's quadrature is
+# not monotone there, so that cell reports its rise and is not held to it.
+GCVC_B, GCVC_T, GCVC_IT = 1024, 16, 15
+GCVC_REF_T = 4
+GCVC_PROFILE_IT = 1      # sweeps of the profiled call (busy scaled to 15)
+GCVC_KAPPA, GCVC_OMEGA = 1.0, -1.0
+GCVC_ROWS = (0, 1, GCVC_B // 2, GCVC_B - 1)
+GCVC_TOL = 1e-4           # the card against the port's CPU run, relative
+GCVC_BOUNDS = {"fe": 0.5, "means": 0.15}   # the JAX test's, absolute
+GCVC_MONOTONE = 1e-4
+# (d1): config 2's Beta-Bernoulli as CTR_B click-through streams in
+# lockstep over CTR_T ticks; each tick's log-scale against the float64 log
+# predictive at LOGSCALE_TOL plus 8 float32 ulps of lgamma(a + b + 1), the
+# largest term the tick's free energy cancels (a float32 lgamma of ~860 at
+# tick 200 is off by ~5e-5 alone: 8.0e-5 measured on the CPU)
+CTR_B, CTR_T, CTR_PROFILE_T = 10_000, 200, 10
+LOGSCALE_TOL = 1e-5
+# (d2): phase 21 (a)'s online HGF over HGFM_T ticks with GCV damping,
+# without meta= over the first HGFM_PLAIN_T, profiled over HGFM_PROFILE_T
+# (a tick takes 100-150 ms)
+HGFM_T, HGFM_PLAIN_T, HGFM_PROFILE_T = 10, 1, 1
+HGFM_META = {"GCV": {"damping": 0.8}}
+# (e): phase 14's engine cell checkpointed after CKPT_SPLIT ticks; the
+# early-stopped infer on row 0 of phase 12 (e)'s Gaussian cell
+CKPT_SPLIT = STREAM_T // 2
+# the stopper's atol sits well above the free energy's float32 rounding
+# (an ulp at its ~876 is 6.1e-5): at the JAX test's 1e-4 an H100 stopped a
+# sweep after the CPU, its converged sweeps one ulp apart
+ES_ATOL, ES_IT, ES_TOL = 1e-2, 50, 1e-5
+
+
+def s24_lgssm_submodels(rt, f, q, h, r, m0, p0):
+    """``zoo.lgssm`` written as submodels inside ``scope("track")``: the
+    state chain (``default_init`` for its x) and the observations."""
+    import torch
+
+    prior = rt.MvNormalMeanCovariance(torch.as_tensor(m0),
+                                      torch.as_tensor(p0))
+
+    @rt.submodel(default_init={"x": prior})
+    def transition(t_len):
+        x = rt.latent(t_len, name="x")
+        x[0] = rt.MvNormal(mean=m0, cov=p0)
+        for t in rt.plate(1, t_len):
+            x[t] = rt.MvNormal(mean=f @ x[t - 1], cov=q)
+        return x
+
+    @rt.submodel
+    def emission(y, x):
+        for t in rt.plate(len(y)):
+            y[t] = rt.MvNormal(mean=h @ x[t], cov=r)
+
+    @rt.model
+    def lgssm_track(y):
+        with rt.scope("track"):
+            x = transition(len(y))
+            emission(y, x)
+
+    return lgssm_track
+
+
+def fold_data():
+    """(b)'s stores: last year's level a, the planned lift b, and 365 days
+    of sales around a + b + a store effect."""
+    rng = np.random.default_rng(25)
+    a = rng.normal(10.0, 3.0, FOLD_B).astype(np.float32)
+    b = rng.uniform(0.0, 2.0, FOLD_B).astype(np.float32)
+    level = a + b + rng.standard_normal(FOLD_B)
+    y = (level[:, None] + rng.standard_normal((FOLD_B, FOLD_N))).astype(
+        np.float32)
+    return a, b, y
+
+
+def fold_closed_form(a, b, y):
+    """x ~ N(a + b, 1), y_d ~ N(x, 1): the posterior mean and variance and
+    -log p(y), float64."""
+    a, b, y = (np.asarray(v, np.float64) for v in (a, b, y))
+    n = y.shape[1]
+    mu = a + b
+    var = 1.0 / (1.0 + n)
+    mean = (mu + y.sum(1)) * var
+    res = y - mu[:, None]
+    quad = (res ** 2).sum(1) - res.sum(1) ** 2 / (1.0 + n)
+    return mean, var, 0.5 * (n * np.log(2 * np.pi) + np.log1p(n) + quad)
+
+
+def fold_model(rt):
+    @rt.model
+    def demand(y, a, b):
+        x = rt.Normal(mean=a + b, precision=1.0)
+        for d in rt.plate(len(y)):
+            y[d] = rt.Normal(mean=x, var=1.0)
+        return {"x": x}
+
+    return demand
+
+
+def gcvc_register(rt):
+    """(c)'s user node ``gcv_sub`` in the port's registry: its rules
+    forward to GCV through ``call_rule`` (x is GCV's ``in``), as
+    tests/models/test_node_contraction.py's do."""
+    import torch
+
+    from rxinfer_tpu_torch.dists import tree_leaves
+    from rxinfer_tpu_torch.rules.registry import node
+
+    def consts(q):
+        dev = tree_leaves(q["x"])[0].device
+        return {k: rt.PointMass(torch.tensor(np.float32(v), device=dev))
+                for k, v in (("kappa", GCVC_KAPPA), ("omega", GCVC_OMEGA))}
+
+    def fwd(q):
+        fw = {"in": q["x"], "z": q["z"]}
+        if "out" in q:
+            fw["out"] = q["out"]
+        return fw
+
+    @node("gcv_sub")
+    class GcvSubNode:
+        interfaces = ("out", "x", "z")
+        needs_self_marginal = True
+        cavity_cluster = ("out", "x")
+
+        @staticmethod
+        def message_to_out(q):
+            return rt.call_rule("GCV", "out", **fwd(q), **consts(q))
+
+        @staticmethod
+        def message_to_x(q):
+            return rt.call_rule("GCV", "in", **fwd(q), **consts(q))
+
+        @staticmethod
+        def message_to_z(q):
+            return rt.call_rule("GCV", "z", **{"in": q["x"], "out": q["out"],
+                                               "z": q["z"]}, **consts(q))
+
+        @staticmethod
+        def average_energy(q):
+            return rt.call_rule("GCV", "average_energy", **fwd(q),
+                                **consts(q))
+
+
+def gcvc_models(rt):
+    """(c)'s chain with the contracted submodel and with its body traced
+    (two models: the program caches key on the model function).  The
+    batched entry points take no ``allow_node_contraction=``, as in the
+    JAX package, so the contracted model traces with it itself."""
+    from rxinfer_tpu_torch.graph.dsl import ModelGenerator
+
+    gcvc_register(rt)
+
+    @rt.submodel
+    def gcv_sub(x=None, z=None):
+        return rt.GCV(x, z, kappa=GCVC_KAPPA, omega=GCVC_OMEGA)
+
+    def chain():
+        @rt.model
+        def gcv_chain(y):
+            named = {}
+            x_prev = rt.Normal(mean=0.0, var=1.0)
+            named["x0"] = x_prev
+            for t in range(len(y)):
+                z = rt.Normal(mean=0.0, var=0.5)
+                x = gcv_sub(x=x_prev, z=z)
+                y[t] = rt.Normal(mean=x, var=0.1)
+                named[f"z{t}"] = z
+                named[f"x{t + 1}"] = x
+                x_prev = x
+            return named
+
+        return gcv_chain
+
+    class Contracted(ModelGenerator):
+        def trace(self, data, allow_node_contraction=False):
+            return super().trace(data, allow_node_contraction=True)
+
+    contracted = chain()
+    return Contracted(contracted.fn, contracted.bound), chain()
+
+
+def gcvc_init(rt):
+    import torch
+
+    nmv = lambda m, v: rt.NormalMeanVariance(torch.tensor(m), torch.tensor(v))
+    init = {f"x{t}": nmv(0.0, 1.0) for t in range(GCVC_T + 1)}
+    init.update({f"z{t}": nmv(0.0, 0.5) for t in range(GCVC_T)})
+    return init
+
+
+def gcvc_data(b: int = GCVC_B, t_len: int = GCVC_T):
+    """(c)'s series; (1, GCVC_REF_T) is the JAX test's own."""
+    return np.random.default_rng(11).normal(0.0, 1.0, (b, t_len)).astype(
+        np.float32)
+
+
+def gcvc_reference_run(device, contract: bool):
+    """(c) on ``infer`` over the JAX test's series, contracted or with the
+    body traced: the free energy of every sweep and the means."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    _, chain = gcvc_models(rt)
+    init = {k: v for k, v in gcvc_init(rt).items()
+            if int(k[1:]) <= GCVC_REF_T - (k[0] == "z")}
+    res = rt.infer(model=chain, data={"y": torch.as_tensor(
+        gcvc_data(1, GCVC_REF_T)[0], device=device)}, iterations=GCVC_IT,
+        free_energy=True, returnvars=rt.KeepLast(),
+        constraints=rt.MeanField(), initialization=init,
+        allow_node_contraction=contract, device=device)
+    return (res.free_energy.cpu().numpy(),
+            {k: float(v.mean()) for k, v in res.posteriors.items()})
+
+
+def gcvc_run(device, model, y, iterations: int = GCVC_IT):
+    """(c)'s ``infer_batched`` call: the means of every variable (name ->
+    (B,)) and the free energy (iterations, B), on the host."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    post, fe = rt.infer_batched(
+        model, {"y": torch.as_tensor(y, device=device)}, iterations=iterations,
+        free_energy=True, constraints=rt.MeanField(),
+        initialization=gcvc_init(rt), device=device)
+    return ({k: v.mean().cpu().numpy() for k, v in post.items()},
+            fe.cpu().numpy())
+
+
+def ctr_data():
+    """(d1)'s impressions: CTR_T ticks of CTR_B ads, each clicked with its
+    own rate in [0.01, 0.2]."""
+    rng = np.random.default_rng(26)
+    p = rng.uniform(0.01, 0.2, CTR_B)
+    return (rng.uniform(size=(CTR_T, CTR_B)) < p).astype(np.float32)
+
+
+def ctr_log_predictive(ys):
+    """Each tick's float64 log predictive log p(y_t | y_<t) of every stream
+    under Beta(1, 1), and its tolerance (LOGSCALE_TOL above)."""
+    from scipy.special import betaln, gammaln
+
+    a = np.ones(ys.shape[1])
+    b = np.ones(ys.shape[1])
+    lp = np.empty(ys.shape)
+    tol = np.empty(ys.shape)
+    for t, y in enumerate(ys.astype(np.float64)):
+        lp[t] = betaln(a + y, b + 1.0 - y) - betaln(a, b)
+        tol[t] = LOGSCALE_TOL + 8 * np.finfo(np.float32).eps * gammaln(
+            a + b + 1.0)
+        a, b = a + y, b + 1.0 - y
+    return lp, tol
+
+
+def ctr_model(rt):
+    @rt.model
+    def ctr_tick(y, pa, pb):
+        theta = rt.Beta(pa, pb)
+        y.observe(rt.Bernoulli(theta))
+        return {"theta": theta}
+
+    return ctr_tick
+
+
+def ctr_run(device, ys, seen):
+    """(d1)'s engine over ys (T, B): annotations, the free energy and a user
+    postprocess; ``seen`` receives every tick's postprocessed posteriors."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    b = ys.shape[1]
+    au = rt.autoupdates(initial={"pa": np.ones(b, np.float32),
+                                 "pb": np.ones(b, np.float32)},
+                        pa=lambda q: q["theta"].a, pb=lambda q: q["theta"].b)
+    yt = torch.as_tensor(ys, device=device)
+    return rt.infer(model=ctr_model(rt), autoupdates=au, batched=True,
+                    datastream=[{"y": yt[t]} for t in range(len(ys))],
+                    free_energy=True, annotations=rt.LogScaleAnnotations(),
+                    postprocess=lambda m: ("ctr", m), device=device,
+                    callbacks={"on_marginal_update":
+                               lambda ev: seen.append(ev.payload)})
+
+
+def early_stop_run(device):
+    """(e)'s early-stopped ``infer`` on row 0 of phase 12 (e)'s Gaussian
+    cell: the sweeps it ran, their free energies and mu's mean."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+
+    _, yg = config2_data()
+    stopper = rt.StopEarlyIterationStrategy(atol=ES_ATOL)
+    res = rt.infer(model=zoo.gaussian_unknown_mean_precision(),
+                   data={"y": torch.as_tensor(yg[0], device=device)},
+                   iterations=ES_IT, free_energy=True,
+                   returnvars=rt.KeepLast(),
+                   initialization={"tau": rt.GammaShapeRate(
+                       torch.tensor(1.0), torch.tensor(1.0))},
+                   callbacks={"after_iteration": stopper}, device=device)
+    return (len(res.free_energy), res.free_energy.cpu().numpy(),
+            float(res.posteriors["mu"].mean()))
+
+
+def slice25_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 24's host work in a check process: (b)'s float64 closed forms,
+    (c)'s chains and (d2)'s online HGF on the CPU on sampled rows, (d1)'s
+    float64 log predictives, (e)'s early-stopped infer on the CPU."""
+    import torch
+
+    import rxinfer_tpu_torch as rt
+
+    lines: list = []
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    a, b, y = fold_data()
+    out = {"fold": fold_closed_form(a, b, y),
+           "fold_shift": fold_closed_form(a, b + FOLD_SHIFT, y)}
+    contracted, flat = gcvc_models(rt)
+    yc = gcvc_data()[list(GCVC_ROWS)]
+    out["gcvc"] = gcvc_run(cpu, contracted, yc)
+    # the body traced, over every series: the contracted card run is held
+    # against it at the JAX test's bounds
+    out["gcvc_flat"] = gcvc_run(cpu, flat, gcvc_data())
+    out["gcvc_ref_body"] = gcvc_reference_run(cpu, False)
+    out["ctr"] = ctr_log_predictive(ctr_data())
+    _, _, yh = hgfs_data(HGFS_B, HGFM_T)
+    out["hgfm"] = hgfs_run(cpu, yh[:, list(HGFS_ROWS)], meta=HGFM_META)
+    out["early_stop"] = early_stop_run(cpu)
+    lines.append(f"[s24 check] phase 24's references on the CPU in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    _ended(lines, "phase 24 host checks", wall0)
+    return lines, out
+
+
+def _trace_kernels(files: list, names: tuple) -> dict:
+    """Device kernels of ``profile_trace``'s Chrome trace: the launches of
+    each name in ``names``, and every kernel's summed ms."""
+    events = []
+    for path in files:
+        with open(path) as fh:
+            events += [e for e in json.load(fh).get("traceEvents", [])
+                       if e.get("cat") == "kernel"]
+    return {"launches": {n: sum(1 for e in events if n in e["name"])
+                         for n in names},
+            "busy_ms": sum(e.get("dur", 0.0) for e in events) / 1e3,
+            "kernels": len(events)}
+
+
+def slice25_paths(device, host: dict, smi: str, log=print) -> dict:
+    """Phase 24 (a)-(e): this slice's paths at full width, each checked on
+    the card, its launches read, its ms, device busy and idle share, device
+    kernels and peak memory printed.  Only (a) and (d1) are timed (one
+    warm-up, one timed call); every other cell reports its checked call."""
+    import tempfile
+
+    import torch
+
+    import rxinfer_tpu_torch as rt
+    from rxinfer_tpu_torch.models import zoo
+    from rxinfer_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from rxinfer_tpu_torch.utils.session import get_default_session
+
+    results: dict = {}
+    cpu = lambda t: t.detach().cpu().numpy()
+    sess = get_default_session()
+    n0 = {k: sess.get_session_stats(k).total
+          for k in ("inference", "streaming_inference")}
+    n_calls = {"inference": 0, "streaming_inference": 0}
+
+    cell_t0 = [time.perf_counter()]
+
+    def report(tag, label, ms, busy, kernels, peak, launches, extra):
+        cell_s = time.perf_counter() - cell_t0[0]
+        cell_t0[0] = time.perf_counter()
+        log(f"[s24] {tag} {label} (the cell {cell_s:.2f} s): call_ms "
+            f"{ms:.3f} busy_ms {busy} idle "
+            f"{_idle_share(ms, busy)} device kernels {kernels} peak_gb "
+            f"{peak / 1e9:.3f}; {extra}; launches "
+            f"{ {k: v for k, v in launches.items() if v} or 'none'}; {smi}")
+        results[tag] = {"ms": ms, "busy_ms": busy, "kernels": kernels,
+                        "peak_bytes": peak, "launches": launches}
+
+    # (a) the LGSSM cell as submodels: the fused plan, K1 and K2 once each
+    f, q, h, r, m0, p0 = lgssm_constants(MAIN_D)
+    flat = zoo.lgssm(f, q, h, r, m0, p0)
+    sub = s24_lgssm_submodels(rt, f, q, h, r, m0, p0)
+    y = torch.as_tensor(lgssm_y(MAIN_B, MAIN_T, MAIN_D), device=device)
+    data = {"y": y}
+    run_a = lambda m: rt.infer_batched(m, data, free_energy=True,
+                                       device=device)
+    compiled, _ = rt.batched_program(sub, data, free_energy=True,
+                                     device=device)
+    report_a = compiled.plan_report()[S24_LABEL]
+    want_route = "cuda" if device.type == "cuda" else "plain"
+    if not report_a.get("fused") or report_a.get("route") != want_route:
+        raise AssertionError(f"phase 24 (a): not the fused plan: {report_a}")
+    run_a(sub)                                            # warm-up
+    reset_launches()
+    with rt.trace_messages() as mt_sub:
+        (res_s, ms_a) = _once_ms(lambda: run_a(sub))
+    launches = read_launches()
+    expect_launches(launches, fused_smoother_fwd=1, fused_smoother_bwd=1)
+    with rt.trace_messages() as mt_flat:
+        res_f = run_a(flat)
+    qs, qf = res_s.posteriors[S24_LABEL], res_f.posteriors["x"]
+    bit_equal = (torch.equal(qs.mean(), qf.mean())
+                 and torch.equal(qs.cov(), qf.cov())
+                 and torch.equal(res_s.free_energy, res_f.free_energy))
+    strip = lambda recs: [(e["node"], e["mean_field"]) for e in recs]
+    same_trace = (strip(mt_sub.records) == strip(mt_flat.records)
+                  and len(mt_sub.records) > 0)
+    logdir = tempfile.mkdtemp(prefix="s24_profile_")
+    with rt.profile_trace(logdir) as pt:
+        _, peak_a = _peak_call(device, lambda: run_a(sub))
+    names = tuple(n for k in ("fused_smoother_fwd", "fused_smoother_bwd")
+                  for n in SMOOTHER_KERNEL_NAMES[k])
+    traced = _trace_kernels(pt.trace_files(), names)
+    shutil.rmtree(logdir, ignore_errors=True)
+    named = (traced["launches"]["fwd_replay_kernel"] >= 1
+             and traced["launches"]["bwd_replay_kernel"] >= 1)
+    report("(a)", f"LGSSM as submodels (B,T,d)=({MAIN_B},{MAIN_T},{MAIN_D}) "
+           "with FE, infer_batched", ms_a, traced["busy_ms"],
+           traced["kernels"], peak_a, launches,
+           f"bit-equal to zoo.lgssm {bit_equal}; trace_messages records "
+           f"{len(mt_sub.records)} equal to the flat model's {same_trace}; "
+           f"profile_trace names the smoother kernels {named} "
+           f"({traced['launches']})")
+    if not (bit_equal and same_trace and named):
+        raise AssertionError(f"phase 24 (a): bit-equal {bit_equal}, traces "
+                             f"{same_trace}, profile {traced['launches']}")
+    del res_s, res_f, qs, qf, y, data
+
+    # (b) folded data on plain groups; new a, b reuse the program
+    a, b, yf = fold_data()
+    fdata = {"a": torch.as_tensor(a, device=device),
+             "b": torch.as_tensor(b, device=device),
+             "y": torch.as_tensor(yf, device=device)}
+    model_b = fold_model(rt)
+    first, _ = rt.batched_program(model_b, fdata, free_energy=True,
+                                  device=device)
+    reset_launches()
+    (post_b, ms_b), peak_b = _peak_call(device, lambda: _once_ms(
+        lambda: rt.infer_batched(model_b, fdata, free_energy=True,
+                                 device=device)))
+    launches_b = read_launches()
+    expect_launches(launches_b)
+    shifted = dict(fdata, b=fdata["b"] + FOLD_SHIFT)
+    post_b2 = rt.infer_batched(model_b, shifted, free_energy=True,
+                               device=device)
+    again, _ = rt.batched_program(model_b, shifted, free_energy=True,
+                                  device=device)
+    errs_b = {}
+    for tag, (pb, fb), ref in (("", post_b, host["fold"]),
+                               ("shift_", post_b2, host["fold_shift"])):
+        mean, var, nlz = ref
+        errs_b[tag + "mean"] = _rel_max(cpu(pb["x"].mean()), mean)
+        errs_b[tag + "var"] = _rel_max(cpu(pb["x"].var()),
+                                       np.full_like(mean, var))
+        errs_b[tag + "fe"] = _rel_max(cpu(fb[-1]), nlz)
+    moved = float((post_b2[0]["x"].mean() - post_b[0]["x"].mean()).mean())
+    want_move = FOLD_SHIFT / (1.0 + FOLD_N)
+    busy_b, kernels_b = _busy_and_kernels(
+        lambda: rt.infer_batched(model_b, fdata, free_energy=True,
+                                 device=device))
+    report("(b)", f"folded data a + b, (B,N)=({FOLD_B},{FOLD_N}) with FE",
+           ms_b, busy_b, kernels_b, peak_b, launches_b,
+           f"against the float64 closed form, relative: {errs_b} (tol "
+           f"{FOLD_TOL}); b + {FOLD_SHIFT} reuses the program "
+           f"{again is first}, moves the means by {moved:.6g} (closed form "
+           f"{want_move:.6g})")
+    if (max(errs_b.values()) > FOLD_TOL or again is not first
+            or abs(moved - want_move) > 1e-4):
+        raise AssertionError(f"phase 24 (b): {errs_b}, reused "
+                             f"{again is first}, moved {moved}")
+    del fdata, shifted, post_b, post_b2
+
+    # (c) node contraction over GCVC_B datasets
+    contracted, _ = gcvc_models(rt)
+    yc = gcvc_data()
+    rt.batched_program(contracted, {"y": torch.as_tensor(yc, device=device)},
+                       iterations=GCVC_IT, free_energy=True,
+                       constraints=rt.MeanField(),
+                       initialization=gcvc_init(rt), device=device)
+    reset_launches()
+    ((mc, fec), ms_c), peak_c = _peak_call(device, lambda: _once_ms(
+        lambda: gcvc_run(device, contracted, yc)))
+    launches_c = read_launches()
+    expect_launches(launches_c)
+    mf_, fef = host["gcvc_flat"]
+    rows = list(GCVC_ROWS)
+    hm, hfe = host["gcvc"]
+    errs_c = {"means": max(_rel_max(mc[k][rows], hm[k]) for k in hm),
+              "fe": _rel_max(fec[:, rows], hfe)}
+    gaps = {"fe": float(np.abs(fec[-1] - fef[-1]).max()),
+            "means": max(float(np.abs(mc[k] - mf_[k]).max()) for k in mf_)}
+    rises = np.diff(fec, axis=0).max(axis=0)
+    fe_ref, m_ref = gcvc_reference_run(device, True)
+    fe_body, m_body = host["gcvc_ref_body"]
+    n_calls["inference"] += 1
+    ref_rise = float(np.diff(fe_ref).max())
+    ref_gaps = {"fe": abs(float(fe_ref[-1] - fe_body[-1])),
+                "means": max(abs(m_ref[k] - m_body[k]) for k in m_body)}
+    one_sweep = lambda: gcvc_run(device, contracted, yc, GCVC_PROFILE_IT)
+    one_sweep()
+    busy_c, kernels_c = _busy_and_kernels(one_sweep)
+    busy_c = (busy_c * GCVC_IT / GCVC_PROFILE_IT
+              if isinstance(busy_c, float) else busy_c)
+    report("(c)", f"node contraction, gcv_sub chain (B,T)=({GCVC_B},"
+           f"{GCVC_T}), {GCVC_IT} sweeps under MeanField()", ms_c, busy_c,
+           kernels_c, peak_c, launches_c,
+           f"against the port on the CPU on rows {rows}, relative: {errs_c} "
+           f"(tol {GCVC_TOL}); contracted against the body traced (the "
+           f"port on the CPU): {gaps} (bounds {GCVC_BOUNDS}); finite {bool(np.isfinite(fec).all())}; "
+           f"FE rises by more than {GCVC_MONOTONE} on "
+           f"{float((rises > GCVC_MONOTONE).mean()):.3f} of the series, "
+           f"at most {float(rises.max()):.3g} (not held, see GCVC_REF_T); "
+           f"infer(allow_node_contraction=True) on the JAX test's series: "
+           f"largest FE rise {ref_rise:.3g} (tol {GCVC_MONOTONE}), against "
+           f"the body {ref_gaps} (its body on the CPU); busy and kernels "
+           f"over {GCVC_PROFILE_IT} sweep, busy scaled to {GCVC_IT}")
+    if (max(errs_c.values()) > GCVC_TOL or not np.isfinite(fec).all()
+            or any(gaps[k] >= GCVC_BOUNDS[k] for k in gaps)
+            or not np.isfinite(fe_ref).all() or ref_rise > GCVC_MONOTONE
+            or any(ref_gaps[k] >= GCVC_BOUNDS[k] for k in ref_gaps)):
+        raise AssertionError(f"phase 24 (c): {errs_c}, {gaps}, the JAX "
+                             f"test's series: rise {ref_rise}, {ref_gaps}")
+
+    # (d1) click-through streams: per-stream log-scales and a postprocess
+    ys = ctr_data()
+    ctr_run(device, ys[:2], [])                           # warm-up
+    seen: list = []
+    t0 = time.perf_counter()
+    reset_launches()
+    eng, peak_d1 = _peak_call(device, lambda: ctr_run(device, ys, seen))
+    ms_d1 = (time.perf_counter() - t0) * 1e3
+    launches_d1 = read_launches()
+    expect_launches(launches_d1)
+    n_calls["streaming_inference"] += 2
+    wrapped = len(seen) == CTR_T and all(
+        p["theta"][0] == "ctr" and isinstance(p["theta"][1], rt.Marginal)
+        for p in seen)
+    scales = cpu(torch.stack([rt.getlogscale(p["theta"][1]) for p in seen]))
+    lp, tol = host["ctr"]
+    err = np.abs(scales - lp)
+    over = float((err / tol).max())
+    busy_d1, kernels_d1 = _busy_and_kernels(
+        lambda: ctr_run(device, ys[:CTR_PROFILE_T], []))
+    n_calls["streaming_inference"] += 1
+    busy_d1 = (busy_d1 * CTR_T / CTR_PROFILE_T
+               if isinstance(busy_d1, float) else busy_d1)
+    report("(d1)", f"click-through streams (B,T)=({CTR_B},{CTR_T}), "
+           "annotations, FE and a postprocess, on_next (host clock)", ms_d1,
+           busy_d1, kernels_d1, peak_d1, launches_d1,
+           f"log-scale against the float64 log predictive: max abs "
+           f"{err.max():.3g}, at most {over:.3g} of its tolerance "
+           f"({LOGSCALE_TOL} + 8 float32 ulps of lgamma(a + b + 1)); the "
+           f"postprocess wraps every tick {wrapped}; busy and kernels over "
+           f"{CTR_PROFILE_T} ticks, busy scaled to {CTR_T}")
+    if over > 1.0 or not wrapped or scales.shape != (CTR_T, CTR_B):
+        raise AssertionError(f"phase 24 (d1): {err.max()}, {over}, wrapped "
+                             f"{wrapped}")
+    del eng, seen
+
+    # (d2) the online HGF with meta=: against the CPU, meta on the tick
+    _, _, yh = hgfs_data(HGFS_B, HGFM_T)
+    t0 = time.perf_counter()
+    reset_launches()
+    kept: list = []
+    (post_m, fe_m), peak_d2 = _peak_call(
+        device, lambda: hgfs_run(device, yh, meta=HGFM_META, keep=kept))
+    ms_d2 = (time.perf_counter() - t0) * 1e3
+    launches_d2 = read_launches()
+    expect_launches(launches_d2)
+    post_n, fe_n = hgfs_run(device, yh[:HGFM_PLAIN_T])
+    busy_d2, kernels_d2 = _busy_and_kernels(
+        lambda: hgfs_run(device, yh[:HGFM_PROFILE_T], meta=HGFM_META))
+    busy_d2 = (busy_d2 * HGFM_T / HGFM_PROFILE_T
+               if isinstance(busy_d2, float) else busy_d2)
+    n_calls["streaming_inference"] += 3
+    hrows = list(HGFS_ROWS)
+    errs_d2 = {f"{n}_{w}": _rel_max(post_m[n][i][:, hrows],
+                                    host["hgfm"][0][n][i])
+               for n in ("xt", "zt") for i, w in enumerate(("mean", "var"))}
+    same = all(np.array_equal(post_m[n][i][:HGFM_PLAIN_T], post_n[n][i])
+               for n in ("xt", "zt") for i in (0, 1))
+    damped = [fct.meta.get("damping") for fct in
+              kept[0]._compiled.graph.factors if fct.fform == "GCV"]
+    report("(d2)", f"online HGF (B,T)=({HGFS_B},{HGFM_T}), {HGFS_IT} sweeps "
+           f"a tick, meta={HGFM_META}", ms_d2, busy_d2, kernels_d2,
+           peak_d2, launches_d2,
+           f"against the port on the CPU on streams {hrows}, relative: "
+           f"{errs_d2} (tol {HGFS_TOL}); the tick's GCV factors carry "
+           f"damping {damped}; without meta= over the first {HGFM_PLAIN_T} "
+           f"ticks bit-equal {same} (GCV damping "
+           "blends a chain's evidence only, in both packages; xt is a plain "
+           f"group); busy and kernels over {HGFM_PROFILE_T} tick, busy "
+           f"scaled to {HGFM_T}")
+    if max(errs_d2.values()) > HGFS_TOL or damped != [0.8]:
+        raise AssertionError(f"phase 24 (d2): {errs_d2}, damping {damped}")
+
+    # (e) checkpoint and resume of phase 14's engine; the early stop
+    ff, qq, _, rr, _, pp0 = lgssm_constants(STREAM_D)
+    rng = np.random.default_rng(0)
+    yss = torch.as_tensor(rng.standard_normal(
+        (STREAM_T, STREAM_B, STREAM_D)).astype(np.float32), device=device)
+
+    def engine(au):
+        return rt.infer(model=_stream_tick_model(rr), datastream=None,
+                        autoupdates=au, batched=True, device=device)
+
+    make_au = lambda: _stream_autoupdates(ff, qq, pp0, STREAM_B, device)
+    whole = engine(make_au())
+    reset_launches()
+    (posts, _), peak_e = _peak_call(device, lambda: whole.run_offline(
+        {"y": yss}))
+    first_half = engine(make_au())
+    first_half.run_offline({"y": yss[:CKPT_SPLIT]})
+    ckdir = tempfile.mkdtemp(prefix="s24_ckpt_")
+    path = os.path.join(ckdir, "args.pkl")
+    t0 = time.perf_counter()
+    save_checkpoint(path, first_half.args)
+    args = load_checkpoint(path, device=device)
+    ms_ck = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(ckdir, ignore_errors=True)
+    resumed = engine(rt.autoupdates(initial=args, **make_au().mapping))
+    (rest, _), ms_e = _once_ms(lambda: resumed.run_offline(
+        {"y": yss[CKPT_SPLIT:]}))
+    launches_e = read_launches()
+    expect_launches(launches_e)
+    n_calls["streaming_inference"] += 3
+    bits = (torch.equal(rest["x"].mean(), posts["x"].mean()[CKPT_SPLIT:])
+            and torch.equal(rest["x"].cov(), posts["x"].cov()[CKPT_SPLIT:])
+            and all(torch.equal(resumed.args[k], whole.args[k])
+                    for k in whole.args))
+    plans = [bool(e._stream_plan) for e in (whole, first_half, resumed)]
+    sweeps, fes, mu = early_stop_run(device)
+    n_calls["inference"] += 1
+    h_sweeps, h_fes, h_mu = host["early_stop"]
+    es_err = (_rel_max(fes, h_fes) if sweeps == h_sweeps else float("inf"))
+    busy_e, kernels_e = _busy_and_kernels(lambda: resumed.run_offline(
+        {"y": yss[CKPT_SPLIT:]}))
+    report("(e)", f"checkpoint after {CKPT_SPLIT} of {STREAM_T} ticks, "
+           f"(B,d)=({STREAM_B},{STREAM_D}), the resumed half", ms_e, busy_e,
+           kernels_e, peak_e, launches_e,
+           f"resumed bit-equal to the whole run {bits} (fused stream plan "
+           f"{plans}); save and load {ms_ck:.1f} ms; early stop at sweep "
+           f"{sweeps} of {ES_IT} (CPU {h_sweeps}), FE against the CPU "
+           f"relative {es_err:.3g} (tol {ES_TOL}), mu {mu:.6g} (CPU "
+           f"{h_mu:.6g})")
+    if not bits or sweeps != h_sweeps or es_err > ES_TOL:
+        raise AssertionError(f"phase 24 (e): bits {bits}, sweeps {sweeps} "
+                             f"against {h_sweeps}, FE {es_err}")
+
+    logged = {k: sess.get_session_stats(k).total - n0[k] for k in n0}
+    log(f"[s24] the default session logged {logged} (calls made: "
+        f"{n_calls})")
+    if logged != n_calls:
+        raise AssertionError(f"phase 24: session {logged}, calls {n_calls}")
+    return results
+
+
 def _start_checker() -> None:
     """A check process's start-up, run while the main process builds the
     kernels: the port's imports and the card's context."""
@@ -8433,7 +9145,7 @@ def main() -> int:
 
 def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
                     kernels) -> int:
-    """``main``'s phases 2-20 with the check processes' pool (``main``
+    """``main``'s phases 2-24 with the check processes' pool (``main``
     stops it whatever happens here).  The kernel checks and the host
     oracles are fetched before phase 4; the host checks of phases 18-20
     run meanwhile and are fetched where their phases need them."""
@@ -8463,6 +9175,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     side22 = pool.apply_async(slice22_checks, (wall0,))
     side23 = pool.apply_async(slice23_checks, (wall0,))
     side24 = pool.apply_async(slice24_checks, (wall0,))
+    side25 = pool.apply_async(slice25_checks, (wall0,))
     worst, plain = check_kernels(device, CHECK_SHAPES)
     _elapsed("K1/K2 checks", t_start)
     dyn_lines, dyn_worst = side_dyn.get()
@@ -8639,6 +9352,17 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     print(f"[a6e] phase 23 took {time.perf_counter() - t23:.1f} s; {smi}")
     _elapsed("grids, logic, Polya, continuous transitions and the custom "
              "pair", t_start)
+
+    # 24. submodels (K1/K2 through the LGSSM written as submodels), folded
+    # data, node contraction, the streaming engine's meta, annotations and
+    # postprocess, checkpoints and early stopping
+    s25_lines, s25_host = side25.get()
+    print("\n".join(s25_lines))
+    t24 = time.perf_counter()
+    s24 = slice25_paths(device, s25_host, smi=smi)
+    print(f"[s24] phase 24 took {time.perf_counter() - t24:.1f} s; {smi}")
+    _elapsed("submodels, folding, contraction, the engine's A4c and "
+             "checkpoints", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}
@@ -9253,6 +9977,9 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         row["launches_phase23"] = {
             cell: res["launches"].get(row["name"], 0)
             for cell, res in a6e.items()}
+        row["launches_phase24"] = {
+            cell: res["launches"].get(row["name"], 0)
+            for cell, res in s24.items()}
     print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
           f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
           f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "

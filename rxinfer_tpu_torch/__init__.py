@@ -44,10 +44,21 @@ state dimension of 9 to 16 or more than 8 observations).  Every kernel is built 
 at first use.  Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
+Models compose from submodels (``scope``, ``submodel`` with
+``default_constraints`` / ``default_init``, node contraction under
+``infer(allow_node_contraction=True)``), and data arithmetic folds into
+derived data.  ``trace_messages`` records the rule dispatches of the
+sweeps; sessions (``utils/session.py``), telemetry to a local file
+(``utils/telemetry.py``), checkpoints (``save_checkpoint`` /
+``load_checkpoint``), ``profile_trace``, ``benchmark_table``,
+``convert_to_tensorboard`` and ``StopEarlyIterationStrategy`` instrument
+the entry points.
+
 The package imports torch and numpy only — never JAX nor ``rxinfer_tpu``.
 """
 
-from . import rules  # noqa: F401  (registers the ported node rules)
+from . import dists, rules  # noqa: F401  (rules: registers the node rules)
+from .dists import *  # noqa: F401,F403  (the families at the top level)
 from .dists import (  # noqa: F401
     BernoulliLogits,
     GammaShapeRate,
@@ -108,6 +119,8 @@ from .graph.dsl import (  # noqa: F401
     lincomb,
     model,
     plate,
+    scope,
+    submodel,
     tie,
     where,
 )
@@ -129,7 +142,11 @@ from .graph.constraints import (  # noqa: F401
     factorize,
     factorize_slots,
 )
-from .rules.registry import NodeFunctionRuleFallback, call_rule  # noqa: F401
+from .rules.registry import (  # noqa: F401
+    NodeFunctionRuleFallback,
+    call_rule,
+    trace_messages,
+)
 from .engine.projection import ProjectedTo  # noqa: F401
 from .rules import (  # noqa: F401
     CVI,
@@ -165,3 +182,25 @@ from .inference import (  # noqa: F401
     iserror,
     issuccess,
 )
+from .diagnostics import (  # noqa: F401
+    DefaultObjectiveDiagnosticChecks,
+    ObjectiveDiagnosticCheckInfs,
+    ObjectiveDiagnosticCheckNaNs,
+)
+from .utils import (  # noqa: F401
+    Session,
+    create_session,
+    summarize_session,
+    summarize_session_table,
+)
+from .utils.callbacks import (  # noqa: F401
+    BenchmarkCallbacks,
+    StopEarlyIterationStrategy,
+    TraceCallbacks,
+    benchmark_table,
+    convert_to_tensorboard,
+    profile_trace,
+)
+from .utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
+
+__version__ = "0.1.0"

@@ -85,7 +85,7 @@ from ..dists.natural import (
     to_natural,
 )
 from ..graph.ir import Const, Factor, Ref, SymIndex
-from ..rules.registry import get_message_rule, get_node
+from ..rules.registry import get_message_rule, get_node, trace_messages
 
 
 class BatchContext:
@@ -463,6 +463,8 @@ class PlainGroup:
             if cavity:
                 divide_cavities(f, iface, q, state, node_cls)
             required = require_message(f, iface, q, state, data, ctx)
+            trace_messages.record(node=f.fform, interface=iface,
+                                  mean_field=f.id in self.mf_ids)
             raw = coerce_message_family(rule(q), self.family)
             if isinstance(raw, LogPdfMessage):
                 # function-form fallback: the plate is folded into its

@@ -41,8 +41,13 @@ family the port has a natural-parameter view for (``gaussian``,
 of ``where(dependencies=RequireMessage(...))``; a grid latent's
 initialization is one slot's, broadcast over its ``grid_axes``, and a
 nested-plate factor that defines an anonymous latent is refused, as in the
-JAX package.  Not ported yet (they raise ``NotImplementedError``):
-submodel-scoped constraints (A6i).
+JAX package.  Submodel-scoped constraint blocks and a submodel's
+``default_constraints`` are expanded against the traced graph
+(``expand_submodel_constraints``; a scope under ``MeanField()`` splits
+every factor created in it), and a tuple key ``("walk", "tau")`` of
+``initialization=`` or a submodel's ``default_init`` initializes the
+variable ``tau`` of every instance of ``walk`` that the user's
+initialization does not name.
 """
 
 from __future__ import annotations
@@ -56,8 +61,9 @@ import torch
 
 from ..dists import tree_map
 from ..dists.natural import NAT_EVENT_RANKS
+from ..graph.constraints import _scope_base
 from ..graph.ir import Const, Factor, ModelGraph, Ref, SymIndex
-from ..rules.registry import get_message_rule, get_node
+from ..rules.registry import get_message_rule, get_node, trace_messages
 from .bethe import (
     FactorFE,
     slot_degrees,
@@ -300,9 +306,16 @@ def _mean_field_factor_ids(graph: ModelGraph, constraints) -> set:
     none; a split across the default mean-field boundary (the reference
     HGF's ``q(xt, zt, xt_min) = q(xt, xt_min)q(zt)``: zt is across the GCV
     cluster already) is the engine default, a no-op that keeps the pair."""
+    ids: set = set()
+    # submodel-scoped MeanField blocks: the factors created under the scope
+    for prefix in (getattr(constraints, "mf_scopes", None) or []):
+        for f in graph.factors:
+            fp = "/".join(f.scope)
+            if fp == prefix or fp.startswith(prefix + "/"):
+                ids.add(f.id)
     fac = getattr(constraints, "factorization", None) if constraints else None
     if fac is None:
-        return set()
+        return ids
     from ..graph.constraints import MeanField
 
     if isinstance(fac, MeanField):
@@ -316,7 +329,6 @@ def _mean_field_factor_ids(graph: ModelGraph, constraints) -> set:
                 "factorization constraint names unknown variables "
                 f"{sorted(unknown)}")
         groups.append(set(names))
-    ids: set = set()
     for f in graph.factors:
         rvars = {v.var.name for v in f.all_interfaces().values()
                  if isinstance(v, Ref) and v.var.kind == "random"}
@@ -649,10 +661,19 @@ class CompiledModel:
                  options: Optional[dict] = None, constraints: Any = None,
                  meta: Optional[dict] = None):
         options = options or {}
-        from ..graph.constraints import check_ported
-
-        check_ported(constraints)
         self.graph = graph
+        defaults = graph.default_submodel_constraints
+        if defaults or getattr(constraints, "submodel", None):
+            from ..graph.constraints import (
+                Constraints,
+                expand_submodel_constraints,
+            )
+
+            if constraints is None:
+                constraints = Constraints(factorization=None, forms={},
+                                          slot_factorized=[], submodel={})
+            constraints = expand_submodel_constraints(graph, constraints,
+                                                      defaults)
         self.constraints = constraints
         attach_meta(graph, meta)
         contract_deltas(graph)
@@ -689,8 +710,35 @@ class CompiledModel:
 
         from ..graph.constraints import InitMessage
 
+        init = dict(init or {})
+        rv_names = {v.name for v in graph.random_variables()}
+
+        def instances(base: str, local: str) -> list:
+            # the variable ``local`` of every instance of the submodel
+            # type ``base`` (``base/local``, ``base:2/local``, ...)
+            return [n for n in rv_names if n.endswith("/" + local)
+                    and _scope_base(n[:-len(local) - 1].split("/")[-1])
+                    == base]
+
+        # a ("walk", "tau") key initializes tau in every instance of walk
+        for key in [k for k in init if isinstance(k, tuple)]:
+            base, local = key
+            val = init.pop(key)
+            matched = instances(base, local)
+            if not matched:
+                raise ValueError(
+                    f"initialization block ({base!r}, {local!r}) matches no "
+                    "variable in the model.")
+            for n in matched:
+                init.setdefault(n, val)
+        # a submodel's default_init fills the instances the user's
+        # initialization does not name
+        for base, spec in graph.default_submodel_init.items():
+            for local, val in spec.items():
+                for n in instances(base, local):
+                    init.setdefault(n, val)
         init = {k: (v.dist if isinstance(v, InitMessage) else v)
-                for k, v in dict(init or {}).items()}
+                for k, v in init.items()}
         unknown = set(init) - {v.name for v in graph.random_variables()}
         if unknown:
             raise ValueError(
@@ -991,6 +1039,10 @@ class CompiledModel:
         for kind, block in self.blocks:
             name = block.var.name
             update = fused.get(name, block.update)
+            if kind == "chain":
+                trace_messages.record(
+                    node=f"<chain:{type(block).__name__}>", interface=name,
+                    mean_field=False)
             if kind == "plain":
                 state[name] = update(state, data, chain_cross, ctx)
                 continue

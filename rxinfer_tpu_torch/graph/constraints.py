@@ -19,12 +19,13 @@ Functional forms, applied to a plain group's marginal after each product
 ``FixedMarginalFormConstraint`` (a pinned marginal) and, in
 ``engine/projection.py``, ``ProjectedTo``.
 
-Everything runs batch-major: a marginal's leaves carry the batch first.
+Submodel-scoped blocks: ``constraints(submodel={"walk": ...})`` applies a
+block's factorization, forms and message forms to the variables and factors
+of every instance of the scope ``walk`` (``"walk:2"``: that instance only),
+and a submodel's ``default_constraints`` to every instance no user block
+targets (``expand_submodel_constraints``).
 
-Not ported: submodel-scoped blocks (``constraints(submodel=...)``,
-``expand_submodel_constraints``) and submodels' ``default_constraints``,
-which wait for submodel scopes in the DSL (ROADMAP A6i); a non-empty
-``submodel=`` raises ``NotImplementedError`` naming it.
+Everything runs batch-major: a marginal's leaves carry the batch first.
 """
 
 from __future__ import annotations
@@ -75,10 +76,12 @@ class Constraints:
     factorization: Any = None  # MeanField() | list of name tuples | None
     forms: Optional[dict] = None  # var name -> form constraint (q(x)::C)
     slot_factorized: Optional[list] = None  # arrays mean-field over slots
-    # scope name -> Constraints inside that submodel scope (not ported)
+    # scope name -> Constraints inside that submodel scope ('name:2': one
+    # instance)
     submodel: Optional[dict] = None
     # var name -> form constraint on each inbound message (mu(x)::C)
     message_forms: Optional[dict] = None
+    # filled by expansion: scope prefixes whose factors go mean-field
     mf_scopes: Optional[list] = None
 
 
@@ -90,14 +93,86 @@ def constraints(factorization: Any = None, forms: Optional[dict] = None,
                        submodel or {}, message_forms or {})
 
 
-def check_ported(cons) -> None:
-    """Refuse what the port lacks: submodel-scoped constraint blocks."""
-    if cons is not None and (getattr(cons, "submodel", None)
-                             or getattr(cons, "mf_scopes", None)):
-        raise NotImplementedError(
-            "constraints(submodel=...): submodel-scoped constraint blocks "
-            "wait for submodel scopes in the PyTorch package's DSL "
-            "(ROADMAP A6i).")
+def _scope_base(segment: str) -> str:
+    return segment.split(":")[0]
+
+
+def expand_submodel_constraints(graph, cons: Constraints,
+                                defaults: Optional[dict] = None
+                                ) -> Constraints:
+    """Flatten submodel-scoped constraint blocks against the traced graph:
+    each block's local variable names become full scoped names
+    (``walk:2/x``) for every matching scope instance.  A key ``walk``
+    matches every instance of the scope, ``walk:2`` exactly one; a key that
+    matches none raises ``ValueError``.  ``defaults`` maps submodel base
+    names to the ``default_constraints`` of ``@submodel``, applied to every
+    instance no user block targeted."""
+    if not cons.submodel and not defaults:
+        return cons
+    prefixes: set = set()
+    for v in list(graph.variables) + list(graph.factors):
+        for i in range(len(v.scope)):
+            prefixes.add(v.scope[:i + 1])
+
+    flat = Constraints(
+        factorization=(cons.factorization
+                       if isinstance(cons.factorization, MeanField)
+                       or cons.factorization is None
+                       else list(cons.factorization)),
+        forms=dict(cons.forms or {}),
+        slot_factorized=list(cons.slot_factorized or []),
+        message_forms=dict(cons.message_forms or {}),
+        mf_scopes=[],
+    )
+    known = {v.name for v in graph.variables if v.kind == "random"}
+
+    def _apply_block(key, sub, p):
+        prefix = "/".join(p)
+        if isinstance(sub.factorization, MeanField):
+            flat.mf_scopes.append(prefix)
+        elif sub.factorization:
+            if flat.factorization is None:
+                flat.factorization = []
+            if not isinstance(flat.factorization, MeanField):
+                # (a global MeanField dominates)
+                for tup in sub.factorization:
+                    flat.factorization.append(
+                        tuple(f"{prefix}/{n}" for n in tup))
+        for local, form in (sub.forms or {}).items():
+            full = f"{prefix}/{local}"
+            if full not in known:
+                raise ValueError(
+                    f"submodel constraint block {key!r}: no variable "
+                    f"{local!r} in scope {prefix!r}.")
+            flat.forms[full] = form
+        for local in (sub.slot_factorized or []):
+            flat.slot_factorized.append(f"{prefix}/{local}")
+        for local, form in (getattr(sub, "message_forms", None)
+                            or {}).items():
+            flat.message_forms[f"{prefix}/{local}"] = form
+
+    user_matched: set = set()
+    for key, sub in (cons.submodel or {}).items():
+        if getattr(sub, "submodel", None):
+            raise NotImplementedError(
+                "nested submodel constraint blocks: scope the inner block "
+                "directly by its path key instead.")
+        matched = [p for p in prefixes
+                   if (p[-1] == key if ":" in key
+                       else _scope_base(p[-1]) == key)]
+        if not matched:
+            raise ValueError(
+                f"constraints submodel block {key!r} matches no scope in the "
+                "model (scopes present: "
+                f"{sorted('/'.join(p) for p in prefixes) or 'none'}).")
+        user_matched.update(matched)
+        for p in sorted(matched):
+            _apply_block(key, sub, p)
+    for base, sub in (defaults or {}).items():
+        for p in sorted(prefixes):
+            if _scope_base(p[-1]) == base and p not in user_matched:
+                _apply_block(base, sub, p)
+    return flat
 
 
 # -- functional form constraints ---------------------------------------------

@@ -37,9 +37,17 @@ regressions ``BinomialPolya`` / ``MultinomialPolya`` and
 (``x = IMPLY(a, NOT(b))`` emits NOT before IMPLY), so the assignment target
 names the last emit of its statement.
 
-Not ported yet: submodel scopes (A6i) and folded data arithmetic.  ``dot``
-with two random arguments raises ``TypeError``, as in the JAX package: the
-model writes ``SoftDot``.
+Submodels: ``with scope("walk"):`` prefixes the names of the variables
+created inside with ``walk/`` (instances of a repeated name are ``walk``,
+``walk:2``, ...) and records the scope path on the IR; ``@submodel`` opens
+such a scope at every call of a function and attaches its
+``default_constraints`` / ``default_init`` to every instance; under
+``trace(data, allow_node_contraction=True)`` a submodel whose name is a
+registered node becomes one factor of that node.  Data arithmetic (``a + b
+- 1``, ``a * b``, ``-a``, ``a / b`` over data variables and numbers) folds
+into a derived data variable, a torch function of the runtime data dict
+(``graph.derived_data``).  ``dot`` with two random arguments raises
+``TypeError``, as in the JAX package: the model writes ``SoftDot``.
 """
 
 from __future__ import annotations
@@ -317,22 +325,199 @@ class DataArray:
         """Observe the whole data variable: ``y.observe(Normal(...))``."""
         _builder().rebind(value.ref, Ref(self._var, None))
 
+    # folded arithmetic: data-variable expressions become derived data
+    def __add__(self, o):
+        return DataExpr._lift(self)._bin(o, "add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return DataExpr._lift(self)._bin(o, "sub")
+
+    def __rsub__(self, o):
+        return DataExpr._lift(o)._bin(self, "sub")
+
+    def __mul__(self, o):
+        return DataExpr._lift(self)._bin(o, "mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return DataExpr._lift(self)._bin(o, "div")
+
+    def __rtruediv__(self, o):
+        return DataExpr._lift(o)._bin(self, "div")
+
+    def __neg__(self):
+        return DataExpr._lift(self)._bin(-1.0, "mul")
+
+
+def _fold_operands(x, y):
+    """A folded operation's operands: a number or numpy constant meeting a
+    tensor becomes a float32 tensor on the tensor's device (at run time the
+    data are tensors; when a program is planned, numpy arrays)."""
+    import torch
+
+    if isinstance(x, torch.Tensor) and not isinstance(y, torch.Tensor):
+        y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    elif isinstance(y, torch.Tensor) and not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, dtype=torch.float32, device=y.device)
+    return x, y
+
+
+class DataExpr:
+    """Elementwise arithmetic over data variables, recorded at trace time
+    and materialized as a derived data variable: ``graph.derived_data[name]``
+    maps to a function of the runtime data dict, evaluated with the data
+    (``CompiledModel._with_derived``), so a new value of a source variable
+    moves the fold without a new program."""
+
+    __array_ufunc__ = None
+
+    _OPS = {
+        "add": lambda x, y: x + y,
+        "sub": lambda x, y: x - y,
+        "mul": lambda x, y: x * y,
+        "div": lambda x, y: x / y,
+    }
+
+    def __init__(self, fn, srcs, shape):
+        self.fn = fn        # (data dict) -> tensor or array
+        self.srcs = srcs    # names of the source data variables
+        self.shape = shape
+
+    @staticmethod
+    def _lift(v) -> "DataExpr":
+        if isinstance(v, DataExpr):
+            return v
+        if isinstance(v, DataArray):
+            name = v._var.name
+            return DataExpr(lambda data, n=name: data[n], {name}, v.shape)
+        arr = np.asarray(v)
+        if arr.dtype == object:
+            raise TypeError(
+                f"`{type(v).__name__}` cannot appear in a data-variable "
+                "expression inside @model.")
+        arr = arr.astype(np.float32)
+        return DataExpr(lambda data, a=arr: a, set(), arr.shape)
+
+    def _bin(self, other, opname) -> "DataExpr":
+        o = DataExpr._lift(other)
+        op = DataExpr._OPS[opname]
+        shape = np.broadcast_shapes(self.shape, o.shape)
+        f1, f2 = self.fn, o.fn
+        return DataExpr(lambda data: op(*_fold_operands(f1(data), f2(data))),
+                        self.srcs | o.srcs, shape)
+
+    def __add__(self, o):
+        return self._bin(o, "add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._bin(o, "sub")
+
+    def __rsub__(self, o):
+        return DataExpr._lift(o)._bin(self, "sub")
+
+    def __mul__(self, o):
+        return self._bin(o, "mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._bin(o, "div")
+
+    def __rtruediv__(self, o):
+        return DataExpr._lift(o)._bin(self, "div")
+
+    def __neg__(self):
+        return self._bin(-1.0, "mul")
+
 
 def latent(length, name: Optional[str] = None):
     """Declare an array of latent variables; a tuple ``length`` declares a
     grid latent (``latent((N, M))``, defined inside nested plates by ``z[i,
     j] = Node(...)``)."""
     b = _builder()
+    name = b.scoped_name(name) if name else b.fresh_name("x")
     if isinstance(length, tuple):
         axes = tuple(int(a) for a in length)
-        var = b.graph.add_variable(
-            Variable(name if name else b.fresh_name("x"), "random", None))
+        var = b.graph.add_variable(Variable(name, "random", None))
         var.grid_axes = axes
+        var.scope = tuple(b.scope_stack)
         return GridLatentArray(var, axes)
-    var = b.graph.add_variable(
-        Variable(name if name else b.fresh_name("x"), "random", int(length))
-    )
+    var = b.graph.add_variable(Variable(name, "random", int(length)))
+    var.scope = tuple(b.scope_stack)
     return LatentArray(var)
+
+
+def scope(name: str):
+    """Submodel scope: ``with scope("walk"): ...`` prefixes the names of
+    the variables created inside with ``walk/`` and records the scope path
+    on the IR, so posteriors appear as ``"walk/x"`` and
+    ``constraints(submodel={"walk": ...})`` targets the block.  Repeated
+    uses of one name are instances ``walk``, ``walk:2``, ...: a constraint
+    keyed ``"walk"`` applies to every instance, ``"walk:2"`` to that one."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def _cm():
+        b = _builder()
+        b.enter_scope(name)
+        try:
+            yield
+        finally:
+            b.scope_stack.pop()
+
+    return _cm()
+
+
+def submodel(fn=None, *, name: Optional[str] = None, default_constraints=None,
+             default_init=None):
+    """Declare a function a named submodel: every call opens a scope named
+    after it (instances ``name``, ``name:2``, ... as with ``scope``).
+    ``default_constraints`` apply to every instance the user's
+    ``constraints(submodel={...})`` does not target, ``default_init`` (a
+    dict of local variable names) initializes every instance the user's
+    ``initialization=`` does not.  Under node contraction
+    (``allow_node_contraction=True``) a submodel whose name is a registered
+    node is emitted as one factor of that node, its keyword arguments
+    naming the interfaces, and its body is not traced."""
+    import functools
+
+    def deco(f):
+        sm_name = name or f.__name__
+
+        @functools.wraps(f)
+        def wrapped(*args, **kwargs):
+            b = _builder()
+            if b.allow_node_contraction:
+                from ..rules.registry import has_node
+
+                if has_node(sm_name):
+                    if args:
+                        raise TypeError(
+                            f"node contraction of submodel {sm_name!r} "
+                            "requires keyword arguments (they name the "
+                            "factor's interfaces).")
+                    return b.emit(sm_name, {k: _as_interface(v)
+                                            for k, v in kwargs.items()})
+            b.enter_scope(sm_name)
+            if default_constraints is not None:
+                b.graph.default_submodel_constraints[sm_name] = \
+                    default_constraints
+            if default_init is not None:
+                b.graph.default_submodel_init[sm_name] = dict(default_init)
+            try:
+                return f(*args, **kwargs)
+            finally:
+                b.scope_stack.pop()
+
+        wrapped.__rx_submodel__ = sm_name
+        return wrapped
+
+    return deco(fn) if fn is not None else deco
 
 
 def plate(*args, name: Optional[str] = None):
@@ -407,6 +592,9 @@ class ModelBuilder:
         self.graph = ModelGraph(name)
         self.plate_stack: list[Plate] = []
         self.options_stack: list[where] = []
+        self.scope_stack: list[str] = []
+        self._scope_counts: dict[str, int] = {}
+        self.allow_node_contraction = False
         self._name_counter = 0
         # (file, line, name) -> Variable holding that source-line name hint
         self._line_hints: dict = {}
@@ -415,6 +603,23 @@ class ModelBuilder:
     def fresh_name(self, prefix: str) -> str:
         self._name_counter += 1
         return f"_{prefix}{self._name_counter}"
+
+    def scoped_name(self, name: str) -> str:
+        """A user-facing name under the active scope path (``walk/x``)."""
+        if not self.scope_stack or name.startswith("_"):
+            return name
+        return "/".join(self.scope_stack) + "/" + name
+
+    def enter_scope(self, name: str) -> str:
+        """Open a scope instance: repeated uses of a name are ``name``,
+        ``name:2``, ``name:3``, ..."""
+        if "/" in name or ":" in name:
+            raise ValueError("scope names may not contain '/' or ':'")
+        n = self._scope_counts.get(name, 0) + 1
+        self._scope_counts[name] = n
+        seg = name if n == 1 else f"{name}:{n}"
+        self.scope_stack.append(seg)
+        return seg
 
     def _guess_target_name(self) -> Optional[str]:
         """Best-effort capture of the assignment target (``theta =
@@ -433,7 +638,7 @@ class ModelBuilder:
         m = re.match(r"\s*([A-Za-z_]\w*)\s*=[^=]", line)
         if not m:
             return None
-        name = m.group(1)
+        name = self.scoped_name(m.group(1))
         # nested calls emit inner factors first and loops re-emit from the
         # same line: the assignment target is the last emit of the
         # statement, so it takes the name back from an earlier one
@@ -463,8 +668,10 @@ class ModelBuilder:
             if guessed is not None:
                 self._line_hints[self._pending_hint_key] = var
             out = Ref(var, None)
+        var.scope = tuple(self.scope_stack)
         f = Factor(fform, out, interfaces, plate=p, meta=meta)
         f.plates = tuple(self.plate_stack)
+        f.scope = tuple(self.scope_stack)
         for opt in self.options_stack:
             if opt.meta is not None:
                 extra = (opt.meta if isinstance(opt.meta, dict)
@@ -501,6 +708,16 @@ def _as_interface(v) -> Any:
         return Ref(v._var, None)
     if isinstance(v, (LinearExpr, AddExpr)):
         return v
+    if isinstance(v, DataExpr):
+        # a folded data expression: an anonymous derived data variable,
+        # computed from the runtime data dict with the data
+        b = _builder()
+        name = b.fresh_name("fold")
+        var = b.graph.add_variable(Variable(name, "data", None))
+        var.event_shape = tuple(v.shape)
+        var.dtype = np.float32
+        b.graph.derived_data[name] = v.fn
+        return Ref(var, None)
     if isinstance(v, PointMass):
         return Const(np.asarray(v.point.detach().cpu()))
     if isinstance(v, Distribution):
@@ -1081,10 +1298,13 @@ class ModelGenerator:
     def __or__(self, data: dict) -> ModelGraph:
         return self.trace(data)
 
-    def trace(self, data: dict[str, Any]) -> ModelGraph:
+    def trace(self, data: dict[str, Any],
+              allow_node_contraction: bool = False) -> ModelGraph:
         """Build the factor graph for the given data (shapes taken from
-        values)."""
+        values).  ``allow_node_contraction``: a ``submodel`` whose name is a
+        registered node is one factor of that node."""
         builder = ModelBuilder(self.name)
+        builder.allow_node_contraction = allow_node_contraction
         prev = getattr(_STATE, "builder", None)
         _STATE.builder = builder
         try:

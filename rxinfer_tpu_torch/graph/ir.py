@@ -205,11 +205,16 @@ class ModelGraph:
         self.factors: list[Factor] = []
         self.plates: list[Plate] = []
         self.data_vars: dict[str, Variable] = {}
-        # derived data entries: name -> fn(data_dict) -> jnp array, evaluated
-        # inside the compiled program (reference: data variables fold
+        # derived data entries: name -> fn(data_dict) -> tensor, evaluated
+        # with the data (CompiledModel._with_derived) (reference: data variables fold
         # automatically, test/models/models_tests.jl:221+ — `x ~ Normal(mean=
         # a + b, ...)` with data-valued a, b creates anonymous folded data)
         self.derived_data: dict[str, Any] = {}
+        # submodel base name -> the Constraints / initialization dict that
+        # ``@submodel(default_constraints=, default_init=)`` declared for
+        # every instance of that submodel type
+        self.default_submodel_constraints: dict[str, Any] = {}
+        self.default_submodel_init: dict[str, dict] = {}
 
     # -- construction ------------------------------------------------------------
     def add_variable(self, v: Variable) -> Variable:

@@ -33,14 +33,18 @@ chunked beyond the device budget.
 
 ``meta=`` (per node type, or per neighbourhood; ``engine/compile.py``
 ``attach_meta``) and ``constraints=`` (factorization, form and
-message-form constraints; ``graph/constraints.py``) on ``infer``,
-``batched_program`` and ``infer_batched``; the program caches tell meta
-and constraint values apart (``_value_equal``).
+message-form constraints, submodel-scoped blocks; ``graph/constraints.py``)
+on ``infer``, ``batched_program`` and ``infer_batched``; the program caches
+tell meta and constraint values apart (``_value_equal``).
+``infer(allow_node_contraction=True)`` traces a submodel whose name is a
+registered node as one factor of it (a key of the compile cache); the
+batched entry points do not take the keyword, as in the JAX package.
+``infer`` and the streaming engine log every call to ``session=`` (the
+default session unless another or None is given; ``utils/session.py``),
+a failed call with ``status="failure"``.
 
-Not ported yet (they raise ``NotImplementedError``, each naming its ROADMAP
-item): submodel-scoped constraints (A6i), a ``session`` other than the
-default (A6h), ``mesh=`` and ``psum_axis`` (A7b), and the streaming
-engine's ``meta=`` (A4c).
+Not ported yet: ``mesh=`` and ``psum_axis`` (A7b) raise
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -233,7 +237,8 @@ def batched_program(model, data: dict, iterations: Optional[int] = None,
     first = {k: _first_element(v) for k, v in data.items()}
     all_finite = _all_finite(data)
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
-           tuple(sorted(init_dists)), iterations, free_energy, keep_each,
+           tuple(sorted(init_dists, key=repr)), iterations, free_energy,
+           keep_each,
            all_finite, tuple(sorted(shared)), str(device))
     # the bound hyperparameters, the meta and the constraints are traced
     # into the program, so a hit needs their values, not only their names
@@ -287,6 +292,7 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
           trace: bool = False, catch_exception: bool = False,
           annotations: Any = None, postprocess: Any = None,
           session: Any = "default", uselock: Any = False,
+          allow_node_contraction: bool = False,
           mesh: Any = None, batched: bool = False, device: Any = None):
     """Inference on one dataset (batch mode): trace the model on the data's
     shapes, compile the schedule once per shape and setting, run
@@ -307,7 +313,12 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
     instead: it returns the ``RxInferenceEngine`` of
     ``inference_streaming.py``, which has run ``datastream`` to its end when
     one is given (``batched=True``: B streams in lockstep, every
-    observation and autoupdated value with a leading batch axis)."""
+    observation and autoupdated value with a leading batch axis).
+
+    Every call is logged to ``session`` (``"default"``: the default
+    session; None: none), with ``status="failure"`` when it fails.
+    ``allow_node_contraction=True``: a ``submodel`` whose name is a
+    registered node is traced as one factor of that node."""
     device = _resolve_device(device)
     if autoupdates is not None or datastream is not None:
         if mesh is not None:
@@ -327,11 +338,8 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
             annotations=annotations, postprocess=postprocess,
             benchmark=benchmark, trace=trace,
             catch_exception=catch_exception, session=session,
+            allow_node_contraction=allow_node_contraction,
             batched=batched, device=device)
-    if session not in ("default", None):
-        raise NotImplementedError(
-            "infer(session=...) is not ported to the PyTorch package yet "
-            "(ROADMAP A6).")
     if data is None:
         raise ValueError(
             "Batch inference requires data= (or use datastream=).")
@@ -353,12 +361,22 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
         predictvars=predictvars, returnvars=returnvars,
         showprogress=showprogress, callbacks=callbacks,
         benchmark=benchmark, trace=trace, annotations=annotations,
-        postprocess=postprocess, mesh=mesh, device=device)
-    if not catch_exception:
-        return _infer(warn_opt, **kwargs)
+        postprocess=postprocess, mesh=mesh, device=device,
+        allow_node_contraction=allow_node_contraction)
+    from .utils.session import resolve_session
+
+    sess = resolve_session(session)
+    log = dict(label="inference", model=getattr(model, "name", str(model)),
+               data_keys=sorted(data), iterations=iterations or 1)
+    t0 = time.perf_counter()
     try:
-        return _infer(warn_opt, **kwargs)
-    except Exception as exc:  # noqa: BLE001 — the result carries the error
+        result = _infer(warn_opt, **kwargs)
+    except Exception as exc:  # noqa: BLE001 — logged, then raised or kept
+        if sess is not None:
+            sess.log_invoke(**log, status="failure", error=repr(exc),
+                            duration_s=time.perf_counter() - t0)
+        if not catch_exception:
+            raise
         import traceback
 
         result = InferenceResult({}, None, None, 0.0)
@@ -368,12 +386,16 @@ def infer(model, data: Optional[dict] = None, datastream: Any = None,
         result.benchmark = None
         result.trace = None
         return result
+    if sess is not None:
+        sess.log_invoke(**log, status="success", duration_s=result.elapsed_s)
+    return result
 
 
 def _infer(warn_opt: bool, model, data, initialization, options, iterations,
            free_energy, free_energy_diagnostics, predictvars, returnvars,
            showprogress, callbacks, benchmark, trace, device, annotations,
-           postprocess, meta, constraints, **unported):
+           postprocess, meta, constraints, allow_node_contraction,
+           **unported):
     for name, item in _UNPORTED_INFER:
         val = unported[name]
         if val is not None and val is not False and not (
@@ -439,7 +461,8 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
 
     init_dists = dict(initialization or {})
     sig = (model.fn, tuple(sorted(model.bound)), _shape_sig(data),
-           tuple(sorted(init_dists)), str(device))
+           tuple(sorted(init_dists, key=repr)), bool(allow_node_contraction),
+           str(device))
     values = (dict(model.bound), init_dists, options, meta, constraints)
     hit = _COMPILED.get(sig, values)
     if hit is not None:
@@ -447,7 +470,8 @@ def _infer(warn_opt: bool, model, data, initialization, options, iterations,
     else:
         registry.invoke("before_model_creation")
         graph = model.trace({k: np.asarray(v.cpu() if isinstance(
-            v, torch.Tensor) else v) for k, v in data.items()})
+            v, torch.Tensor) else v) for k, v in data.items()},
+            allow_node_contraction=allow_node_contraction)
         compiled = CompiledModel(graph, init=init_dists, options=options,
                                  constraints=constraints, meta=meta)
         _COMPILED.put(sig, values, compiled, None)

@@ -27,13 +27,18 @@ the host loop with per-iteration events and ``stop_iteration``,
 ``keephistory`` / ``historyvars`` / ``returnvars``, the free energy of
 every tick, ``run_offline`` single and batched, ``start`` / ``stop``,
 ``is_errored`` and the ``on_error`` event, ``uselock``) and
-``streaming_infer`` with ``benchmark=`` / ``trace=``, and ``constraints=``
-(the tick's compiled model takes them; its cavity stores, ``_msg:`` state
-entries, carry from tick to tick with the marginals).  Not ported (they
-raise ``NotImplementedError`` naming their ROADMAP item): ``mesh=``
-(A7b), a ``session=`` other than the default (A6h), submodel-scoped
-constraints (A6i), ``meta=``, ``annotations=`` / ``postprocess=`` (A4c).  The default session
-logs nothing.
+``streaming_infer`` with ``benchmark=`` / ``trace=``, ``constraints=``
+and ``meta=`` (the tick's compiled model takes them; its cavity stores,
+``_msg:`` state entries, carry from tick to tick with the marginals),
+``annotations=`` / ``postprocess=`` on every tick's posteriors
+(``LogScaleAnnotations()`` with ``free_energy=True``: each posterior a
+``Marginal`` whose log-scale is minus the tick's free energy, one per
+stream when batched), ``allow_node_contraction=`` and ``session=`` (the
+engine's creation is logged as ``"streaming_inference"``).  ``run_offline``
+returns the raw per-tick posteriors, as the JAX engine's does; with
+annotations or a postprocess a batched one takes the generic tick, not
+the fused stream plan.  Not ported: ``mesh=`` (A7b) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -175,21 +180,16 @@ class RxInferenceEngine:
                  returnvars: Any = None, historyvars: Any = None,
                  annotations: Any = None, postprocess: Any = None,
                  uselock=False, warn: bool = True,
+                 allow_node_contraction: bool = False,
                  batched: bool = False, mesh: Any = None,
                  device: Any = None):
         from .inference import KeepEach, _resolve_device
 
-        for what, val, item in (("mesh=", mesh, "A7b"),
-                                ("meta=", meta, "A4c"),
-                                ("postprocess=", postprocess, "A4c"),
-                                ("annotations=", annotations, "A4c")):
-            if val is not None and not (isinstance(val, dict) and not val):
-                raise _unported(what, item)
-        from .graph.constraints import check_ported
-
-        check_ported(constraints)
+        if mesh is not None:
+            raise _unported("mesh=", "A7b")
         self.device = _resolve_device(device)
         self.model = model
+        self.allow_node_contraction = allow_node_contraction
         self._batched = bool(batched)
         self.autoupdates = autoupdates_spec
         self.args = {k: v.to(self.device)
@@ -201,7 +201,10 @@ class RxInferenceEngine:
         self.options = options
         self.initialization = initialization
         self.constraints = constraints
+        self.meta = meta
         self.returnvars = returnvars
+        self.annotations = annotations
+        self.postprocess = postprocess
         self.history: list[dict] = []
         self.fe_history: list = []
         self.posteriors: Optional[dict] = None
@@ -284,8 +287,10 @@ class RxInferenceEngine:
             if self._batched:
                 data = {k: v[0] for k, v in data.items()}
             self._compiled = CompiledModel(
-                self.model.trace(data), init=self.initialization,
-                options=self.options, constraints=self.constraints)
+                self.model.trace(
+                    data, allow_node_contraction=self.allow_node_contraction),
+                init=self.initialization, options=self.options,
+                constraints=self.constraints, meta=self.meta)
             self._carry = None
             self._fire("after_model_creation")
 
@@ -298,6 +303,30 @@ class RxInferenceEngine:
                      else list(self.returnvars))
             out = {k: v for k, v in out.items() if k in names}
         return out
+
+    def _postprocess(self, posteriors: dict, fe) -> dict:
+        """A tick's posteriors as the user gets them: under
+        ``annotations`` with the free energy each one a ``Marginal`` whose
+        log-scale is minus the tick's last free energy (``fe`` in the user's
+        layout: one value per stream when batched), then ``postprocess``
+        (by default: keep the annotations when asked for, else unwrap)."""
+        if self.annotations is None and self.postprocess is None:
+            return posteriors
+        from .postprocess import (
+            Marginal,
+            default_postprocess,
+            inference_postprocess,
+        )
+
+        strategy = (self.postprocess if self.postprocess is not None
+                    else default_postprocess(self.annotations))
+        if self.annotations is not None and fe is not None and fe.numel():
+            scale = -fe[..., -1]
+            wrap = lambda d: Marginal(d, {"log_scale": scale})
+        else:
+            wrap = lambda d: d
+        return {k: inference_postprocess(strategy, wrap(v))
+                for k, v in posteriors.items()}
 
     def _fetch(self, state: dict, data: dict, all_finite: bool):
         data, ctx = self._compiled._tick_context(data, all_finite,
@@ -341,11 +370,13 @@ class RxInferenceEngine:
             keep_each=self._need_keep_each, carry=self._carry,
             device=self.device, all_finite=all_finite)
         raw = self._extract(state)
-        self.posteriors = self._user(raw)
+        fe = self._fe_out(fe)
+        self.posteriors = self._postprocess(
+            self._user(raw), fe if self.free_energy else None)
         self._fire("on_marginal_update", self.posteriors)
         self._fire("after_data_update", obs)
         self._fire("after_iteration", {"iteration": self.iterations - 1})
-        return state, raw, self._fe_out(fe), history_states
+        return state, raw, fe, history_states
 
     def _tick_host_loop(self, data: dict, obs: dict, all_finite: bool):
         """One sweep per VMP iteration with true per-iteration events and
@@ -389,8 +420,10 @@ class RxInferenceEngine:
         self._carry = carry
         state = carry[0]
         raw = self._extract(state)
-        self.posteriors = self._user(raw)
-        return state, raw, self._fe_out(fe_arr), history_states
+        fe_arr = self._fe_out(fe_arr)
+        self.posteriors = self._postprocess(
+            self._user(raw), fe_arr if self.free_energy else None)
+        return state, raw, fe_arr, history_states
 
     def _on_next(self, obs: dict):
         # the reference engine's events (src/inference/streaming.jl:847-866)
@@ -488,7 +521,8 @@ class RxInferenceEngine:
     def _ensure_stream_plan(self, first: dict):
         """Probe once whether the fused stream plan applies."""
         if (self.free_energy or self._need_keep_each or self.iterations != 1
-                or self.returnvars is not None):
+                or self.returnvars is not None or self.annotations is not None
+                or self.postprocess is not None):
             return None
         if self._stream_plan is None:
             from .engine.stream_plan import make_fused_stream_fn, \
@@ -561,7 +595,8 @@ def streaming_infer(model, datastream, autoupdates, initialization=None,
                     callbacks=None, returnvars=None, historyvars=None,
                     annotations=None, postprocess=None, benchmark=False,
                     trace=False, catch_exception=False, session="default",
-                    batched=False, mesh=None, device=None):
+                    allow_node_contraction=False, batched=False, mesh=None,
+                    device=None):
     """The streaming branch of ``infer`` (reference
     src/inference/inference.jl:700-731): builds the engine and, when a
     ``datastream`` is given, runs it to its end."""
@@ -572,8 +607,6 @@ def streaming_infer(model, datastream, autoupdates, initialization=None,
             "catch_exception= is batch-only; streaming errors flip "
             "engine.is_errored and fire the 'on_error' event (reference: "
             "src/inference/streaming.jl:438-452).")
-    if session not in ("default", None):
-        raise _unported("session=", "A6")
     warn = True if options is None else options.get("warn", True)
     engine = RxInferenceEngine(
         model, autoupdates, iterations=iterations, free_energy=free_energy,
@@ -583,6 +616,7 @@ def streaming_infer(model, datastream, autoupdates, initialization=None,
         constraints=constraints, meta=meta, event_callbacks=callbacks,
         returnvars=returnvars, historyvars=historyvars,
         annotations=annotations, postprocess=postprocess, warn=warn,
+        allow_node_contraction=allow_node_contraction,
         batched=batched, mesh=mesh, device=device)
     if benchmark:
         from .utils.callbacks import BenchmarkCallbacks
@@ -597,6 +631,15 @@ def streaming_infer(model, datastream, autoupdates, initialization=None,
         tr = TraceCallbacks()
         engine._recorders.append(tr.events.append)
         engine.trace = tr
+    from .utils.session import resolve_session
+
+    sess = resolve_session(session)
+    if sess is not None:
+        sess.log_invoke(label="streaming_inference",
+                        model=getattr(model, "name", str(model)),
+                        data_keys=sorted(autoupdates.initial),
+                        iterations=iterations, status="created",
+                        duration_s=0.0)
     if datastream is not None:
         engine.start(datastream)
     return engine

@@ -6,16 +6,58 @@ to marginals, PointMass for observed values and constants) and optional
 mean-field ``vmp_message_to_<iface>`` variants.  Lookups happen when a program
 is built, never per call.
 
-Ported subset: ``node``, ``get_node``, ``get_message_rule``,
-``get_average_energy``, ``has_node``, ``call_rule``, ``RuleNotFoundError``
-and ``NodeFunctionRuleFallback``.  Not ported: ``trace_messages``.
+Ported: ``node``, ``get_node``, ``get_message_rule``,
+``get_average_energy``, ``has_node``, ``call_rule``, ``RuleNotFoundError``,
+``NodeFunctionRuleFallback`` and ``trace_messages``.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Callable
 
 _NODES: dict[str, type] = {}
+
+
+class trace_messages:
+    """Record every message-rule dispatch of the sweeps run inside the
+    block (reference "Tracing individual message computations",
+    docs/src/manuals/debugging.md:136-143)::
+
+        with trace_messages() as mt:
+            infer(model=m, data=..., device="cpu")
+        mt.records  # [{'node': 'Bernoulli', 'interface': 'p',
+                    #   'mean_field': False}, ...]
+
+    One entry per (node, interface, variant) a plain group dispatches, and
+    ``{'node': '<chain:GaussianChainBlock>', 'interface': 'x', ...}`` per
+    chain block solved, in dispatch order.  The port runs its sweeps
+    eagerly, so every sweep of every call records; the JAX package
+    records while it traces a program (its first sweep and its scan body
+    once).  A ``contextvars`` recorder: nested blocks and concurrent
+    inferences each see their own, and leaving a block restores the
+    enclosing one."""
+
+    _active = contextvars.ContextVar("trace_messages_active", default=None)
+
+    def __init__(self):
+        self.records: list[dict] = []
+        self._token = None
+
+    def __enter__(self):
+        self._token = trace_messages._active.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        trace_messages._active.reset(self._token)
+        self._token = None
+        return False
+
+    @staticmethod
+    def record(**entry):
+        rec = trace_messages._active.get()
+        if rec is not None:
+            rec.records.append(entry)
 
 
 class RuleNotFoundError(KeyError):

@@ -5,11 +5,12 @@ Event names mirror the reference's typed events; ``infer`` fires
 before/after_model_creation, before/after_inference and
 before/after_iteration (an ``after_iteration`` handler may stop the
 iterations); the streaming engine fires ``ENGINE_EVENTS``, the reference
-engine's events.  Ported: ``EVENT_NAMES``, ``ENGINE_EVENTS``, ``Event``,
-``CallbackRegistry``,
-``BenchmarkCallbacks`` and ``TraceCallbacks``.  Not ported: the profiler
-context, the TensorBoard export and ``StopEarlyIterationStrategy``, which
-reads the free energy (not ported yet).
+engine's events.  ``EVENT_NAMES``, ``ENGINE_EVENTS``, ``Event``,
+``CallbackRegistry``, ``BenchmarkCallbacks`` with ``benchmark_table``,
+``TraceCallbacks`` with ``convert_to_tensorboard``,
+``StopEarlyIterationStrategy`` (free-energy convergence through the
+``stop_iteration`` hook) and ``profile_trace`` (``torch.profiler`` around
+inference calls, a Chrome trace in a log directory).
 """
 
 from __future__ import annotations
@@ -157,3 +158,122 @@ class TraceCallbacks:
         with open(path, "w") as f:
             json.dump([{"name": e.name, "span": e.span_id,
                         "t_ns": e.timestamp_ns} for e in self.events], f)
+
+
+def benchmark_table(bench: BenchmarkCallbacks) -> str:
+    """A plain-text table of ``bench.stats()`` (reference: PrettyTablesExt
+    over the benchmark stats, ext/PrettyTablesExt/PrettyTablesExt.jl:22)."""
+    stats = bench.stats()
+    if not stats:
+        return "(no benchmark samples recorded)"
+    header = (f"{'stage':<18}{'n':>6}{'min ms':>10}{'median ms':>11}"
+              f"{'mean ms':>10}{'max ms':>10}{'std ms':>9}")
+    lines = [header, "-" * len(header)]
+    for stage, row in stats.items():
+        lines.append(
+            f"{stage:<18}{row['n']:>6}{row['min_ms']:>10.3f}"
+            f"{row['median_ms']:>11.3f}{row['mean_ms']:>10.3f}"
+            f"{row['max_ms']:>10.3f}{row['std_ms']:>9.3f}")
+    return "\n".join(lines)
+
+
+class profile_trace:
+    """``torch.profiler`` around inference calls, host and device::
+
+        with profile_trace("/path/to/logdir") as pt:
+            infer_batched(...)
+        pt.profile.key_averages()   # the profile itself
+
+    On leaving the block a Chrome trace (``*.pt.trace.json``) is written
+    into ``logdir`` by ``tensorboard_trace_handler``, which needs no
+    ``tensorboard`` package; it opens in chrome://tracing, Perfetto or
+    TensorBoard's profiler plugin.  The CUDA activity is recorded when a
+    CUDA device is present."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.profile = None
+
+    def __enter__(self):
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profile = torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                self.logdir))
+        self.profile.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profile.__exit__(*exc)
+        return False
+
+    def trace_files(self) -> list:
+        """The trace files in ``logdir``."""
+        import os
+
+        return sorted(os.path.join(self.logdir, f)
+                      for f in os.listdir(self.logdir)
+                      if ".pt.trace.json" in f)
+
+
+def convert_to_tensorboard(trace: TraceCallbacks, logdir: str):
+    """Write traced events into a TensorBoard log directory (reference
+    TensorBoardLoggerExt.convert_to_tensorboard,
+    ext/TensorBoardLoggerExt/TensorBoardLoggerExt.jl:241): each event a text
+    entry, each free energy a scalar.  Needs the ``tensorboard`` package."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as exc:
+        raise ImportError(
+            "convert_to_tensorboard needs the `tensorboard` package "
+            "(torch.utils.tensorboard writes through it); install "
+            "`tensorboard` or export the trace with "
+            "TraceCallbacks.export_json.") from exc
+
+    writer = SummaryWriter(log_dir=logdir)
+    try:
+        t0 = trace.events[0].timestamp_ns if trace.events else 0
+        fe_step = 0
+        for step, e in enumerate(trace.events):
+            dt_us = (e.timestamp_ns - t0) / 1e3
+            writer.add_text(
+                f"rxinfer/{e.name}",
+                f"span={e.span_id} t+{dt_us:.1f}us payload={e.payload}",
+                global_step=step)
+            fe = (e.payload or {}).get("free_energy")
+            if fe is not None:
+                writer.add_scalar("rxinfer/free_energy", float(fe), fe_step)
+                fe_step += 1
+    finally:
+        writer.close()
+
+
+class StopEarlyIterationStrategy:
+    """Free-energy convergence stopping (reference
+    StopEarlyIterationStrategy, src/callbacks/stop_early.jl:20-74): as an
+    ``after_iteration`` handler it compares the sweep's free energy with the
+    previous one and sets ``stop_iteration`` once they are within ``atol +
+    rtol * |previous|``.  Needs ``free_energy=True``."""
+
+    def __init__(self, atol: float = 1e-6, rtol: float = 1e-8):
+        self.atol = atol
+        self.rtol = rtol
+        self._prev: Optional[float] = None
+
+    def __call__(self, ev: Event):
+        fe = (ev.payload or {}).get("free_energy")
+        if fe is None:
+            return
+        fe = float(fe)
+        if self._prev is not None and (
+                abs(fe - self._prev) <= self.atol + self.rtol * abs(self._prev)):
+            ev.stop_iteration = True
+        self._prev = fe

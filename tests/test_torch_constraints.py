@@ -589,10 +589,15 @@ def test_mean_field_batched_matches_jax():
 
 
 def test_submodel_constraints_and_shared_projection_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6i"):
-        trx.infer(model=_coin(trx, 2.0), data={"y": np.ones(3, np.float32)},
-                  constraints=trx.constraints(
-                      submodel={"walk": trx.constraints()}), device=CPU)
+    """A submodel block naming no scope of the model raises ``ValueError``
+    as in the JAX package (submodel-scoped blocks themselves are ported:
+    tests/test_torch_submodels.py); a pooled projection is refused."""
+    for rx, dev in ((jrx, {}), (trx, {"device": CPU})):
+        with pytest.raises(ValueError, match="'walk' matches no scope"):
+            rx.infer(model=_coin(rx, 2.0),
+                     data={"y": np.ones(3, np.float32)},
+                     constraints=rx.constraints(
+                         submodel={"walk": rx.constraints()}), **dev)
     with pytest.raises(NotImplementedError, match="projection form"):
         trx.infer_batched(
             _coin(trx, 2.0), {"y": np.ones((2, 3), np.float32)},

@@ -251,22 +251,42 @@ def _streaming(**kwargs):
 
 @pytest.mark.parametrize("kwargs,item", [
     (_streaming(mesh=object()), "A7b"),
-    (_streaming(annotations=object()), "A4c"),
-    (_streaming(session=object()), "A6"),
+    (_streaming(annotations=trx.LogScaleAnnotations()), "A4c"),
+    (_streaming(session=trx.create_session()), "A6"),
     ({"mesh": object()}, "A7b"),
-    # constraints are ported; submodel-scoped blocks wait for the DSL's
-    # submodel scopes
     ({"constraints": trx.constraints(submodel={"walk": trx.constraints()})},
      "A6i"),
-    ({"session": object()}, "A6"),
-    (_streaming(postprocess=object()), "A4c"),
+    ({"session": trx.create_session()}, "A6"),
+    (_streaming(postprocess=lambda d: d), "A4c"),
     (_streaming(meta={"MvNormalMeanCovariance": {}}), "A4c"),
 ])
 def test_unported_infer_arguments_raise_with_their_roadmap_item(kwargs, item):
+    """Only ``mesh=`` (A7b) is still refused, naming its item.  The
+    arguments of A4c, A6h and A6i, refused until they were ported, run: a
+    session logs the call, the streaming engine takes its meta, annotations
+    and postprocess, and a submodel block naming no scope of the model
+    raises ``ValueError`` as in the JAX package."""
     c = lgssm_constants()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        trx.infer(tzoo.lgssm(*c), data={"y": lgssm_data(6, seed=0)},
-                  device=CPU, **kwargs)
+    call = lambda: trx.infer(tzoo.lgssm(*c), data={"y": lgssm_data(6, seed=0)},
+                             device=CPU, **kwargs)
+    if item == "A7b":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call()
+    elif item == "A6i":
+        with pytest.raises(ValueError, match="'walk' matches no scope"):
+            call()
+    else:
+        out = call()
+        session = kwargs.get("session")
+        if session is not None:
+            label = ("streaming_inference" if "autoupdates" in kwargs
+                     else "inference")
+            assert session.get_session_stats(label).total == 1
+        if "autoupdates" in kwargs:
+            assert isinstance(out, trx.RxInferenceEngine)
+            for name in ("annotations", "postprocess", "meta"):
+                if name in kwargs:
+                    assert getattr(out, name) is kwargs[name]
 
 
 def test_infer_annotations_and_postprocess_match_jax():
