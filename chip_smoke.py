@@ -418,6 +418,28 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    d = 4, against the flat mesh (HIERM_TOL).  One rank on one card: no
    multi-GPU time (NCCL takes one rank a GPU).  ``[s25]`` lines, and
    ``launches_phase25`` on every row of the ``kernels`` line.
+26. The warp K3's tier past d = 32 and the wide K5's marginal kernel
+   past 16 states at full width: (a) path A at
+   (B, T, d, dy) = FILTER64 (2000, 200, 64, 64) through
+   ``make_sharded_filtering(fused=True)`` (``filter64_path``): one
+   ``fused_filter_warp`` launch of ``warp_filter_tc64_kernel`` a call and
+   none of the sweep tier's, sampled chains against the float64 filter
+   (ORACLE_TOL), the kernel against its plain version on the host over
+   one step of four chains (RTOL / ATOL; computed in a check process,
+   ``slice27_checks``, beside phase 17 (a)'s shapes past d = 32), the call
+   over three calls after a warm-up, the kernel alone, then the sweep tier
+   at the same shape and inputs between two timings of the new tier (their
+   outputs held to each other), registers, spills, warps an SM, the bound
+   (``filter_bound``, 3xTF32 at the top three Schur levels) and its
+   share; (b) a 32-state HMM (``hmm16_path`` at HMM32: 1024 x 1000, 32
+   categories, 20 sweeps): 20 serial and 20 marginal launches a call, the
+   marginal kernel ``fb_wide_marg_rows_kernel``, sampled chains against
+   the float64 VMP (HMM_ORACLE_TOL), the two calls against their plain
+   versions on the path's inputs (the serial one on the host on the
+   sampled chains), the free energy's gap to the float64 one recorded,
+   each launch alone and in the program against ``fb_wide_bounds``.
+   ``[filter64]`` / ``[hmm32]`` / ``[s26]`` lines, four more rows on the
+   ``kernels`` line and ``launches_phase26`` on every row.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -560,7 +582,7 @@ QUANT_ITERATIONS = (1, 10)
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
                        "fused_filter_wide": "wide_filter_tc_kernel",
-                       "fused_filter_warp": "warp_filter(?:_tc)?_kernel"}
+                       "fused_filter_warp": "warp_filter(?:_tc|_tc64)?_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
     "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
@@ -579,6 +601,10 @@ FB_KERNEL_NAMES = {"fused_fb_fwd": ("fb_fwd_kernel",),
 FB_WIDE_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
                         "fused_fb_marg_wide": ("fb_xisum_kernel",
                                                "fb_wide_marg_half_kernel")}
+# ... and at 16 < K <= 32, where the marginal kernel runs a warp a unit
+FB_ROWS_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
+                        "fused_fb_marg_wide": ("fb_xisum_kernel",
+                                               "fb_wide_marg_rows_kernel")}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
@@ -1170,14 +1196,17 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
     return worst
 
 
-def check_fb_path_inputs(lp, lt, le, log=print,
-                         tag: str = "hmm") -> tuple[dict, dict]:
+def check_fb_path_inputs(lp, lt, le, log=print, tag: str = "hmm",
+                         serial_rows: list | None = None
+                         ) -> tuple[dict, dict]:
     """K4/K5 against their plain versions on the inputs the HMM path hands
     them in its last sweep, at the path's own (B, T, K): above eight states
     the two calls the path makes (``fb_serial_wide``, ``fb_marginals_wide``,
-    under their launch keys), else ``fb_forward`` / ``fb_backward``.
-    Returns per-launch-key max abs error and the plain versions' ms (their
-    one call here)."""
+    under their launch keys), else ``fb_forward`` / ``fb_backward``; with
+    ``serial_rows`` the serial call's plain version runs on the host on
+    those chains (its step is a few hundred launches on the card: 7.3 s
+    a call at 32 states).  Returns per-launch-key max abs error and the
+    plain versions' ms (their one call here)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
@@ -1187,15 +1216,26 @@ def check_fb_path_inputs(lp, lt, le, log=print,
     if k > ffb.REG_MAX_STATES:
         first, second = ffb.launch_key("serial", k), ffb.launch_key("marg", k)
         alphas, logz, betas = ffb.fb_serial_wide(lp, lt, le)
-        (alphas_r, logz_r, betas_r), first_ms = _once_ms(
-            lambda: ffb.fb_forward_reference(lp, lt, le)
-            + (ffb.beta_pass_reference(lt, le),))
+        serial_plain = lambda a, b, c: ffb.fb_forward_reference(a, b, c) + (
+            ffb.beta_pass_reference(b, c),)
+        if serial_rows is None:
+            (alphas_r, logz_r, betas_r), first_ms = _once_ms(
+                lambda: serial_plain(lp, lt, le))
+        else:
+            pick = list(serial_rows)
+            t0 = time.perf_counter()
+            alphas_r, logz_r, betas_r = (
+                x.to(le.device) for x in serial_plain(
+                    lp[pick].cpu(), lt[pick].cpu(), le[:, pick].cpu()))
+            first_ms = (time.perf_counter() - t0) * 1e3
         g, xs, steps = ffb.fb_marginals_wide(lt, le, alphas, betas, True)
         (g_r, xs_r, steps_r), second_ms = _once_ms(
             lambda: ffb.marginals_reference(lt, le, alphas, betas, True,
                                             tile=tile))
-        first_rows = [("alphas", alphas, alphas_r), ("logz", logz, logz_r),
-                      ("betas", betas, betas_r)]
+        sel = (slice(None) if serial_rows is None else list(serial_rows))
+        first_rows = [("alphas", alphas[:, sel], alphas_r),
+                      ("logz", logz[sel], logz_r),
+                      ("betas", betas[:, sel], betas_r)]
     else:
         first, second = ffb.launch_key("fwd", k), ffb.launch_key("bwd", k)
         alphas, logz = ffb.fb_forward(lp, lt, le)
@@ -1226,7 +1266,9 @@ def check_fb_path_inputs(lp, lt, le, log=print,
     log(f"[{tag}] {first} / {second} vs plain versions on the path's "
         f"inputs, (B,T,K)=({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
         + f" (rtol=atol={FB_RTOL}); the plain versions' one call "
-        f"{first_ms:.1f} / {second_ms:.1f} ms")
+        f"{first_ms:.1f} / {second_ms:.1f} ms"
+        + ("" if serial_rows is None else
+           f" ({first} on the host, chains {list(serial_rows)})"))
     if failures:
         raise AssertionError("forward-backward kernels disagree on the HMM "
                              "path's inputs: " + "; ".join(failures))
@@ -1729,7 +1771,7 @@ def d16_oracle(b: int, t_len: int, d: int, seed: int = 16) -> dict:
 
 def host_prefetch(wall0: float, part: int) -> tuple[list, dict]:
     """The slowest host results (data and float64 oracles) of phases 4, 5,
-    9, 10, 12, 15 and 16, computed in a check process while phase 3 runs,
+    9, 10, 12, 15, 16 and 26, computed in a check process while phase 3 runs,
     by the functions the phases call: the main process takes them from
     ``_MEMO``."""
     lines: list = []
@@ -1739,10 +1781,14 @@ def host_prefetch(wall0: float, part: int) -> tuple[list, dict]:
         lgssm_logz_rows(MAIN_B, MAIN_T, MAIN_D, tuple(FE_ROWS))
         infer_lgssm_oracle(MAIN_T, MAIN_D)
         nan_batch_oracle(NAN_B, MAIN_T, MAIN_D)
+        hmm16_oracle(HMM32_B, HMM32_T, HMM32_K, HMM32_M, HMM32_IT)
     else:
         wtau_oracle(WTAU_B, WTAU_T, WTAU_D, WTAU_IT, WTAU_ROWS)
         hmm16_oracle(HMM16_B, HMM16_T, HMM16_K, HMM16_M, HMM16_IT)
         d16_oracle(D16_B, D16_T, D16_D)
+        _memo(("filter_bound",) + (FILTER64_B, FILTER64_T) + (FILTER64_D,) * 2,
+              lambda: filter_bound(FILTER64_B, FILTER64_T, FILTER64_D,
+                                   FILTER64_D))
     _ended(lines, f"host oracles, part {part}", wall0)
     return lines, dict(_MEMO)
 
@@ -1901,8 +1947,10 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
     "fused_filter_wide": 8 < d <= 16, or d <= 8 with dy > 8) F P F^T + Q,
     both inverses' block products at the top level of the Schur recursion
     and the evidence xi = HR y; at the warp K3's tensor-core tier (16 < d <=
-    32) F P F^T + Q and the inverses' block products at the top two levels.
-    ``bound_ms_fp32`` prices every operation at the float32 rate."""
+    32) F P F^T + Q and the inverses' block products at the top two levels;
+    at its tier past 32 (32 < d <= 64) the same at the top three levels
+    (the Schur blocks at 64 or 48, 32 and 16).  ``bound_ms_fp32`` prices
+    every operation at the float32 rate."""
     from rxinfer_tpu_torch.ops import entrywise as ew
     from rxinfer_tpu_torch.ops import fused_filter as ff
 
@@ -1919,6 +1967,8 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
         levels = 1
     elif ff.WIDE_MAX_DIM < d <= ff.TC_DIM:
         levels = 2
+    elif ff.TC_DIM < d <= ff.TC64_DIM:
+        levels = 3
     tc_ops = 0
     if levels:
         tc_ops = _count_ops(lambda: ew.sandwich_sym(
@@ -2191,16 +2241,21 @@ def check_quant_kernels(device, log=print) -> tuple[dict, dict]:
 def filter_path(device, b: int, t_len: int, d: int, reps: int,
                 log=print, plain_steps: int | None = None,
                 tag: str = "filter", inner: int = 20,
-                warm_sync: bool = False) -> dict:
+                warm_sync: bool = False,
+                plain_chains: int | None = None) -> dict:
     """Phase 7, path A: the continuous-batching filter at (B, T, d), d = dy
     (phase 16 (d) at d = 16, on the wide K3; phase 17 (b) at d = 32, on the
-    warp K3).  The kernel is held against its plain version on the path's
-    own inputs, over the first ``plain_steps`` steps when given (the plain
-    step at d = 16 is ~10^4 small launches), and that one call of the plain
-    version is its time.  K3 alone is timed over ``inner`` launches back to
-    back a round; ``warm_sync`` waits for each launch that brings the clock
-    up (a kernel of tens of ms: half a second of launches enqueued without
-    waiting runs for tens of seconds)."""
+    warp K3; phase 26 (a) at d = 64, on its tier past 32).  The kernel is
+    held against its plain version on the path's own inputs, over the first
+    ``plain_steps`` steps when given (the plain step at d = 16 is ~10^4
+    small launches), and that one call of the plain version is its time;
+    with ``plain_chains`` the plain version runs on the host on that many
+    of the sampled chains (``plain_device`` "host"), else on the card.  K3
+    alone is timed over ``inner`` launches back to back a round;
+    ``warm_sync`` waits for each launch that brings the clock up (a kernel
+    of tens of ms: half a second of launches enqueued without waiting runs
+    for tens of seconds).  The profile also lists the call's top device
+    kernels."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -2251,10 +2306,19 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     ys_soa = ys.transpose(1, 2).contiguous()
     ys_plain = ys_soa[:plain_steps].contiguous() if plain_steps else ys_soa
     got = ff.fused_filter(m_soa, p_soa, ys_plain, f, q, hr, w_obs)
-    # the plain version's one call (2-4 s: thousands of small launches) is
-    # its time as well
-    want, plain_kernel_ms = _once_ms(lambda: ff.fused_filter_reference(
-        m_soa, p_soa, ys_plain, f, q, hr, w_obs))
+    if plain_chains:
+        # the plain version on the host, on the sampled chains (computed
+        # ahead in a check process: ``slice27_checks``)
+        pick = rows[:plain_chains]
+        got = tuple(g[..., pick] for g in got)
+        want, plain_kernel_ms = filter_plain_rows(
+            b, t_len, d, int(ys_plain.shape[0]), tuple(pick))
+        want = [torch.as_tensor(w) for w in want]
+    else:
+        # the plain version's one call (2-4 s: thousands of small launches)
+        # is its time as well
+        want, plain_kernel_ms = _once_ms(lambda: ff.fused_filter_reference(
+            m_soa, p_soa, ys_plain, f, q, hr, w_obs))
     kernel_err = 0.0
     for label, g, w in zip(("means", "final m", "final P"), got, want):
         ea, er, ok = _max_err(g.cpu().numpy(), w.cpu().numpy())
@@ -2263,12 +2327,16 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
             raise AssertionError(f"K3 disagrees with its plain version on "
                                  f"path A's inputs, {label}: abs {ea:.3g}")
     log(f"[{tag}] K3 vs plain version on the path's inputs over "
-        f"{ys_plain.shape[0]} steps: max abs {kernel_err:.3g} (rtol=atol="
-        f"{RTOL})")
+        f"{ys_plain.shape[0]} steps"
+        + (f" of chains {rows[:plain_chains]} (the plain version on the "
+           "host)" if plain_chains else "")
+        + f": max abs {kernel_err:.3g} (rtol=atol={RTOL})")
 
     out = {"errs": errs, "launches": launches, "kernel_err": kernel_err,
            "plain_kernel_ms": plain_kernel_ms,
-           "plain_steps": int(ys_plain.shape[0])}
+           "plain_steps": int(ys_plain.shape[0]),
+           "plain_chains": len(rows[:plain_chains]) if plain_chains else b,
+           "plain_device": "host" if plain_chains else "card"}
     out["call_ms"] = _cuda_ms(lambda: fn(state, ys), reps)
     out["updates_per_s"] = b * t_len / (out["call_ms"] / 1e3)
     k3 = lambda: ff.fused_filter(m_soa, p_soa, ys_soa, f, q, hr, w_obs)
@@ -2282,8 +2350,8 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
     out["sm_clock_mhz"] = clk.mhz
     out["layout_ms"] = _cuda_ms(lambda: ys.transpose(1, 2).contiguous(), reps,
                                 inner=20)
-    out["profile"] = _device_profile(lambda: fn(state, ys),
-                                     {key: FILTER_KERNEL_NAMES[key]})
+    out["profile"] = _device_profile(
+        lambda: fn(state, ys), {key: FILTER_KERNEL_NAMES[key]}, top=4)
     busy = out["profile"]["busy_ms"]
     out["cycles_per_step"] = _cycles_per_step(
         out["profile"]["kernels"][key]["ms_per_launch"],
@@ -2293,9 +2361,10 @@ def filter_path(device, b: int, t_len: int, d: int, reps: int,
         f"the call at {out['sm_clock_mhz']:.0f} MHz; alone: K3 "
         f"{out['kernel_ms']:.4f} ms, observation "
         f"layout copy {out['layout_ms']:.4f} ms; K3's plain version "
-        f"{out['plain_kernel_ms']:.1f} ms; device busy {busy} ms per call, "
-        f"idle {_idle_share(out['call_ms'], busy)}; in the call "
-        f"{out['profile']['kernels']}")
+        f"{out['plain_kernel_ms']:.1f} ms ({out['plain_device']}); device "
+        f"busy {busy} ms per call, idle {_idle_share(out['call_ms'], busy)};"
+        f" in the call {out['profile']['kernels']}, top device kernels "
+        f"[name, launches, ms] {out['profile'].get('top')}")
     return out
 
 
@@ -4072,9 +4141,12 @@ WIDE_KERNEL_NAMES = {"fused_smoother_fwd_wide": "wide_fwd_tc_kernel",
 # one state past it (lane 0 takes two); (3, 17, 64) the table in shared
 # memory; (2, 9, 240) past it: 240 rows of 241 floats do not fit an H100
 # block's 227 KB beside the ring, so both passes read the table from device
-# memory (FB_DEVICE_TABLE_K, held by the check).
+# memory (FB_DEVICE_TABLE_K, held by the check); (37, 1001, 17) the first K
+# of the marginal kernel past 16 states, a row of 17 floats (scalar stores,
+# an odd stride), ragged tiles.
 FB_WIDE_CHECK_SHAPES = [(37, 1001, 9), (8, 4099, 16), (33, 97, 32),
-                        (5, 33, 33), (3, 17, 64), (2, 9, 240)]
+                        (5, 33, 33), (3, 17, 64), (2, 9, 240),
+                        (37, 1001, 17)]
 FB_DEVICE_TABLE_K = 240
 # Phase 16 (b): a 16-state HMM through batched_program at the path's full
 # width; per-step xi is 999 * 1024 * 256 floats (1.05 GB) a sweep.
@@ -4098,11 +4170,16 @@ FILTER16_PLAIN_STEPS = 4
 # Phase 17 (a): the warp K3 (d > 16) at (B, T, d, dy) against its plain
 # version: on the tensor-core tier d = 17 with one observation and a ragged
 # last block of chains (37 = 4 * 8 + 5), d = 24 with fewer observations than
-# states, d = 32 with dy = 40 (two staged chunks); on the sweep tiers d = 33
-# (two columns a lane), d = 64 (four chains a block).  Short chains: the
-# plain step at d = 64 is about 10^6 small torch operations.
-FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 24, 12), (33, 4, 32, 40),
-                            (10, 3, 33, 5), (5, 2, 64, 8)]
+# states, d = 32 with dy = 40 (two staged chunks); on the tier past 32
+# (FILTER_TC64_CHECK_SHAPES, in a check process of their own: the plain
+# step at d = 64 is about 10^6 small torch operations, seconds on the host)
+# d = 33 and 48 at DP = 48 (eight chains a block) with ragged last blocks
+# (10 = 8 + 2, 17 = 2 * 8 + 1), d = 64 at DP = 64 (four chains a block)
+# with 8, with one observation (a ragged block of 9 = 2 * 4 + 1) and with
+# 100 (four staged chunks); d = 65, the first d past it, on the sweep tier.
+FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 24, 12), (33, 4, 32, 40)]
+FILTER_TC64_CHECK_SHAPES = [(10, 3, 33, 5), (5, 2, 64, 8), (17, 2, 48, 7),
+                            (9, 1, 64, 1), (5, 1, 64, 100), (3, 1, 65, 4)]
 # ... and the tiers past them, against the float64 filter (the plain step is
 # minutes there): d = 100 reads F, Q and W from device memory, d = 176 keeps
 # each chain's matrices in a device-memory scratch (``warp_plan`` on an
@@ -4119,10 +4196,25 @@ FILTER32_PLAIN_STEPS = 2
 # gap between P's two triangles (a kernel that does not keep P symmetric
 # drifts to NaN), against the float64 filter / RTS on every chain at
 # ORACLE_TOL: the wide K1 and K2 at d = 16 with a rank-one W, the warp K3's
-# tensor-core tier at each ONE_OBS_WARP_D.
+# tensor-core tiers at each ONE_OBS_WARP_D (48 and 64: the tier past 32).
 ONE_OBS_T, ONE_OBS_B = 200, 37
 ONE_OBS_WIDE_D = 16
-ONE_OBS_WARP_D = (17, 24, 32)
+ONE_OBS_WARP_D = (17, 24, 32, 48, 64)
+# Phase 26 (a): path A at d = dy = 64 on the warp K3's tier past 32, the
+# sweep tier timed at the same shape in the same run; the kernel against
+# its plain version on the path's inputs over FILTER64_PLAIN_STEPS steps of
+# FILTER64_PLAIN_CHAINS sampled chains on the host (the plain step is about
+# 1.4e6 small torch operations at d = 64: seconds on the host, more on the
+# card).  (b) a 32-state HMM through batched_program at phase 16 (b)'s
+# width, on the wide K4/K5 (the marginal kernel past 16 states), over 32
+# categories, each state's most likely its own (``hmm_k_emission``): with
+# 8, four states a category, the float32 VMP drifts 2.2e-4 relative from
+# the float64 one over 20 sweeps on the CPU as well, past HMM_ORACLE_TOL
+# (``scripts/hmm16_conditioning.py --states 32 --categories 8``; 32
+# categories: 7.2e-6 for A, 3.6e-5 for B).
+FILTER64_B, FILTER64_T, FILTER64_D = 2000, 200, 64
+FILTER64_PLAIN_STEPS, FILTER64_PLAIN_CHAINS = 1, 4
+HMM32_B, HMM32_T, HMM32_IT, HMM32_K, HMM32_M = 1024, 1000, 20, 32, 32
 BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
                          "fused_smoother_fwd"],
                      "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
@@ -4291,7 +4383,7 @@ def check_one_observation_smoother(device, log=print) -> float:
 
 
 def check_one_observation_filter(device, log=print) -> float:
-    """Phase 17 (a), ROADMAP C7: the warp K3's tensor-core tier at each
+    """Phase 17 (a), ROADMAP C7: the warp K3's tensor-core tiers at each
     ONE_OBS_WARP_D with one observation over ONE_OBS_T steps
     (``_filter_system``, P0 = 9 I), every chain's means and final moments
     against the float64 filter at ORACLE_TOL, one ``fused_filter_warp``
@@ -4336,7 +4428,7 @@ def check_one_observation_filter(device, log=print) -> float:
             f" " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (tol {ORACLE_TOL})")
     if bad:
-        raise AssertionError("the warp K3's tensor-core tier leaves the "
+        raise AssertionError("the warp K3's tensor-core tiers leave the "
                              "float64 filter on one observation: "
                              + "; ".join(bad))
     return worst
@@ -4671,7 +4763,8 @@ def hmm_k_init(k: int, m: int):
 
 def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
                reps: int, smi: str, log=print) -> dict:
-    """Phase 16 (b): ``zoo.hmm(k, m)`` through ``batched_program`` at (B, T)
+    """Phase 16 (b) (and 26 (b) at 32 states; the log lines' tag "hmm{k}"):
+    ``zoo.hmm(k, m)`` through ``batched_program`` at (B, T)
     with ``iterations`` sweeps, y from ``simulate_hmm_k``: the plan fused on
     the CUDA route, exactly ``iterations`` serial launches (both
     recursions) and ``iterations`` marginal launches a call and no other
@@ -4692,6 +4785,9 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     from rxinfer_tpu_torch.models import zoo
     from rxinfer_tpu_torch.ops import fused_fb as ffb
 
+    tag = f"hmm{k}"
+    names = FB_ROWS_KERNEL_NAMES if ffb.HALF_WARP_STATES < k <= \
+        ffb.ROW_STATES else FB_WIDE_KERNEL_NAMES
     marks = [("start", time.perf_counter())]
     mark = lambda what: marks.append((what, time.perf_counter()))
     y_host = hmm16_y(b, t_len, k, m)
@@ -4704,15 +4800,15 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         initialization=init, device=device)
     report = compiled.plan_report()
     mark("data and plan")
-    log(f"[hmm16] plan_report {report}")
+    log(f"[{tag}] plan_report {report}")
     if report.get("s") != {"fused": True, "kernel": "fused_fb",
                            "route": "cuda"}:
-        raise AssertionError("the 16-state chain is not on the CUDA "
+        raise AssertionError(f"the {k}-state chain is not on the CUDA "
                              "forward-backward kernels")
     reset_launches()
     (state, _, _), peak = _peak_call(device, lambda: prog({"y": y}))
     launches = read_launches()
-    log(f"[hmm16] launches in one program call: {launches}; peak "
+    log(f"[{tag}] launches in one program call: {launches}; peak "
         f"{peak / 1e9:.3f} GB above the inputs")
     expect_launches(launches, fused_fb_serial_wide=iterations,
                     fused_fb_marg_wide=iterations)
@@ -4720,8 +4816,8 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     conc = {n: state[n].alpha.cpu().numpy() for n in ("A", "B")}
     if probs.shape != (b, t_len, k) or not np.isfinite(probs).all() or \
             any(not np.isfinite(c).all() for c in conc.values()):
-        raise AssertionError("16-state HMM posteriors have the wrong shape or"
-                             " are not finite")
+        raise AssertionError(f"{k}-state HMM posteriors have the wrong "
+                             "shape or are not finite")
     mark("checked call")
     rows = edge_rows(b)
     # one float64 VMP pass: the posteriors here, its FE below
@@ -4732,17 +4828,18 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         "A_rel": float((np.abs(conc["A"][rows] - o_a) / o_a).max()),
         "B_rel": float((np.abs(conc["B"][rows] - o_b) / o_b).max()),
     }
-    log(f"[hmm16] float64 VMP, chains {rows}: {errs} (tol {HMM_ORACLE_TOL})")
+    log(f"[{tag}] float64 VMP, chains {rows}: {errs} (tol {HMM_ORACLE_TOL})")
     if errs["gammas"] > HMM_ORACLE_TOL["gammas"] or max(
             errs["A_rel"], errs["B_rel"]) > HMM_ORACLE_TOL["conc_rel"]:
-        raise AssertionError(f"the 16-state HMM disagrees with the float64 "
+        raise AssertionError(f"the {k}-state HMM disagrees with the float64 "
                              f"VMP: {errs}")
     out = {"errs": errs, "launches": launches, "peak_bytes": peak}
     block = next(blk for kind, blk in compiled.blocks if blk.var.name == "s")
     lp, elog_a, le_t = block._inputs(state, {"y": y}, {},
                                      BatchContext(device, b, {}))
     out["kernel_errs"], out["plain_ms"] = check_fb_path_inputs(
-        lp, elog_a, le_t, log=log, tag="hmm16")
+        lp, elog_a, le_t, log=log, tag=tag,
+        serial_rows=rows if k > ffb.HALF_WARP_STATES else None)
     mark("the two calls against the plain versions")
 
     # the free energy: one call, against the float64 structured VMP's
@@ -4757,11 +4854,19 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
                     fused_fb_marg_wide=iterations)
     fe = fe.cpu().numpy()
     out["fe_rel_err"] = _rel(fe[:, rows], fe_want)
-    log(f"[hmm16] FE with free_energy=True, rows {rows} last sweep "
+    # Past 16 states the float32 FE is coarser than FE_HMM_TOL: at 32 the
+    # port's plain version on the CPU misses the float64 FE by 2.6e-4 as
+    # well (``scripts/hmm16_conditioning.py --states 32 --categories 32``),
+    # so the gap is recorded there, not held.
+    fe_held = k <= ffb.HALF_WARP_STATES
+    log(f"[{tag}] FE with free_energy=True, rows {rows} last sweep "
         f"{fe[-1, rows].tolist()}: against the float64 structured VMP max "
-        f"rel err {out['fe_rel_err']:.3g} (tol {FE_HMM_TOL})")
-    if not np.isfinite(fe).all() or not out["fe_rel_err"] <= FE_HMM_TOL:
-        raise AssertionError(f"16-state HMM FE: {out['fe_rel_err']}")
+        f"rel err {out['fe_rel_err']:.3g} ("
+        + (f"tol {FE_HMM_TOL})" if fe_held else "recorded, not held: the "
+           "float32 FE's own resolution)"))
+    if not np.isfinite(fe).all() or (
+            fe_held and not out["fe_rel_err"] <= FE_HMM_TOL):
+        raise AssertionError(f"{k}-state HMM FE: {out['fe_rel_err']}")
     mark("free energy")
 
     # the program, then each call alone on the last sweep's inputs, while
@@ -4787,18 +4892,26 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     out["alone_cycles_per_step"] = {
         n: _cycles_per_step(ms, clk.mhz, t_len)
         for n, ms in out["alone_ms"].items()}
-    out["marginal_warps_per_sm"] = ffb.wide_marginal_warps_per_sm(device)
+    out["marginal_warps_per_sm"] = ffb.wide_marginal_warps_per_sm(device, k)
     out["updates_per_s"] = b * iterations * (t_len + 2) / (
         out["program_ms"] / 1e3)
-    out["profile"] = _device_profile(lambda: prog({"y": y}),
-                                     FB_WIDE_KERNEL_NAMES, top=8)
+    out["profile"] = _device_profile(lambda: prog({"y": y}), names, top=8)
     out["cycles_per_step"] = {
         n: _cycles_per_step(row["ms_per_launch"], clk.mhz, t_len)
         for n, row in out["profile"]["kernels"].items()}
+    # the program's device time outside the two calls' kernels (the
+    # engine's messages: the Dirichlet message over the per-step xi, the
+    # evidence, the marginals' moments)
+    rows_k = out["profile"]["kernels"].values()
+    out["rest_ms"] = "not measured" if isinstance(
+        out["profile"]["busy_ms"], str) or any(
+        isinstance(r["ms_per_launch"], str) for r in rows_k) else \
+        out["profile"]["busy_ms"] - sum(r["ms_per_launch"] * r["launches"]
+                                        for r in rows_k)
     out["tile"] = ffb.device_tile(b, t_len, device, k)
     mark("timing and profile")
     busy = out["profile"]["busy_ms"]
-    log(f"[hmm16] program {out['program_ms']:.3f} ms/call "
+    log(f"[{tag}] program {out['program_ms']:.3f} ms/call "
         f"({out['updates_per_s']:.4g} updates/s); device busy {busy} ms per "
         f"call, idle {_idle_share(out['program_ms'], busy)}; in the program "
         f"{out['profile']['kernels']} ({out['cycles_per_step']} cycles a "
@@ -4807,9 +4920,140 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         f"({out['alone_cycles_per_step']} cycles a step); marginal tile "
         f"{out['tile']} ({-(-t_len // out['tile'])} tiles), "
         f"{out['marginal_warps_per_sm']} marginal warps an SM by occupancy "
-        f"(the tile rule takes {ffb.MARGINAL_WARPS_PER_SM}); "
+        f"(the tile rule takes {ffb.marginal_plan(k)['warps_per_sm']}); "
         f"seconds: " + ", ".join(f"{what} {t - t0:.1f}" for (_, t0), (what, t)
                                  in zip(marks, marks[1:])) + f"; {smi}")
+    return out
+
+
+def _ptxas_of(name: str, entry: str) -> dict:
+    """The ``ptxas`` lines of the library ``name``'s kernels whose mangled
+    name contains ``entry``: the lines, the most registers and the most
+    spill bytes among them."""
+    import re
+
+    from rxinfer_tpu_torch import kernels
+
+    lines, inside = [], False
+    for line in kernels.ptxas_report(name).splitlines():
+        if "Compiling entry" in line:
+            inside = entry in line
+            if inside:
+                lines.append(line.strip())
+        elif inside and any(k in line for k in ("registers", "spill")):
+            lines.append(line.strip())
+    text = " ".join(lines)
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(n) for n in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", text)]
+    if not lines:
+        raise AssertionError(f"no ptxas lines of {entry} in {name}")
+    return {"lines": lines, "registers": max(regs) if regs else None,
+            "spill_bytes": max(spills) if spills else None}
+
+
+def filter64_path(device, smi: str, log=print) -> dict:
+    """Phase 26 (a): path A at (B, T, d, dy) = (FILTER64_B, FILTER64_T, 64,
+    64) through ``make_sharded_filtering(fused=True)`` on the warp K3's tier
+    past 32 (``filter_path``: one ``fused_filter_warp`` launch a call, the
+    float64 filter on sampled chains, the plain version on the host over
+    FILTER64_PLAIN_STEPS steps of FILTER64_PLAIN_CHAINS chains, the call
+    over three calls after a warm-up, the kernel alone, the profile), its
+    device kernel ``warp_filter_tc64_kernel`` and never the sweep tier's
+    ``warp_filter_kernel`` in the call; then the sweep tier
+    (``warp_filter_kernel`` on ``sweep_warp_plan``, through the same
+    library's launcher) at the same shape and inputs, timed between two
+    timings of the new tier, and the two tiers' outputs against each other;
+    the new tier's ``ptxas`` registers and spills and its warps an SM."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    b, t_len, d = FILTER64_B, FILTER64_T, FILTER64_D
+    plan = ff.device_warp_plan(d, device)
+    if plan["tier"] != "tensor_cores_64":
+        raise AssertionError(f"d = {d} plans {plan}, not the tier past 32")
+    out = filter_path(device, b, t_len, d, reps=3,
+                      plain_steps=FILTER64_PLAIN_STEPS,
+                      plain_chains=FILTER64_PLAIN_CHAINS, tag="filter64",
+                      inner=1, warm_sync=True, log=log)
+    top = out["profile"].get("top") or []
+    if not any("warp_filter_tc64_kernel" in row[0] for row in top) or any(
+            "warp_filter_kernel" in row[0] for row in top):
+        raise AssertionError(f"path A at d = {d} reached the sweep tier: "
+                             f"{top}")
+    # the sweep tier at the same shape, on the same inputs
+    f, q, h, r, _, p0_host = lgssm_constants(d)
+    w_obs, hr = ff.evidence_operators(h, r)
+    fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, d)
+    rng = np.random.default_rng(0)
+    ys = torch.as_tensor(rng.standard_normal((t_len, b, d)).astype(
+        np.float32), device=device).transpose(1, 2).contiguous()
+    m0 = torch.zeros((d, b), device=device)
+    p0 = _soa_state(m0.t(), torch.as_tensor(p0_host, device=device).expand(
+        (b, d, d)))[1]
+    lib = ff._library("fused_filter_warp")
+    sweep = ff.sweep_warp_plan(d, ff._smem_optin(device.index or 0))
+    dp, stride, chains = (sweep["padded_dim"], sweep["stride"],
+                          sweep["chains_per_block"])
+    prm = np.zeros((4, dp, stride), np.float32)
+    for i, a in enumerate((fh, fh.T, qh, wh)):
+        prm[i, :d, :d] = a
+    params = torch.as_tensor(prm, device=device)
+    hr_t = torch.as_tensor(np.ascontiguousarray(hrh.T), device=device)
+    old_out = (torch.empty((t_len, d, b), device=device),
+               torch.empty((d, b), device=device), torch.empty_like(p0))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if (sweep["params"], sweep["chain_matrices"]) != ("shared", "shared"):
+        raise AssertionError(f"the sweep tier's plan at d = {d}: {sweep}")
+
+    def old():
+        rc = lib.rxt_warp_filter(
+            d, d, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            hr_t.data_ptr(), params.data_ptr(),
+            *(o.data_ptr() for o in old_out), None, t_len, b, dp, stride,
+            chains, 1, 1, stream)
+        if rc:
+            raise AssertionError(f"the sweep tier at d = {d}: CUDA error {rc}")
+
+    new = lambda: ff.fused_filter(m0, p0, ys, f, q, hr, w_obs)
+    got = new()
+    old()
+    torch.cuda.synchronize()
+    out["tiers_diff"] = 0.0
+    for label, a, c in zip(("means", "final m", "final P"), got, old_out):
+        ea, er, ok = _max_err(a.cpu().numpy(), c.cpu().numpy())
+        out["tiers_diff"] = max(out["tiers_diff"], ea)
+        if not ok:
+            raise AssertionError(f"the tiers past 32 and the sweep tier "
+                                 f"differ at d = {d}, {label}: abs {ea:.3g}")
+    with SmClock() as clk:
+        new_ms = [_cuda_ms(new, 3)]
+        out["sweep_ms"] = _cuda_ms(old, 2)
+        new_ms.append(_cuda_ms(new, 3))
+    out["kernel_ms_beside_sweep"] = new_ms
+    out["sweep_clock_mhz"] = clk.mhz
+    out["speedup_over_sweep"] = out["sweep_ms"] / min(new_ms)
+    out["ptxas"] = _ptxas_of("fused_filter_warp", "warp_filter_tc64_kernel")
+    out["warps_per_sm"] = lib.rxt_warp_filter_tc64_blocks_per_sm(d) \
+        * plan["chains_per_block"]
+    out["plan"] = plan
+    out["bound"] = _memo(("filter_bound", b, t_len, d, d),
+                         lambda: filter_bound(b, t_len, d, d))
+    bnd = out["bound"]
+    in_call = out["profile"]["kernels"]["fused_filter_warp"]["ms_per_launch"]
+    log(f"[filter64] warp_filter_tc64_kernel alone {out['kernel_ms']:.3f} "
+        f"ms, in the call {in_call} ms ({out['cycles_per_step']} cycles a "
+        f"step at {out['sm_clock_mhz']:.0f} MHz); beside the sweep tier {new_ms} ms"
+        f" against warp_filter_kernel {out['sweep_ms']:.3f} ms at "
+        f"{clk.mhz:.0f} MHz: {out['speedup_over_sweep']:.2f}x; the two "
+        f"tiers' outputs differ by up to {out['tiers_diff']:.3g}; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; float32 only "
+        f"{bnd['bound_ms_fp32']:.4f}), share "
+        f"{100 * bnd['bound_ms'] / out['kernel_ms']:.2f}%; registers "
+        f"{out['ptxas']['registers']}, spill bytes "
+        f"{out['ptxas']['spill_bytes']}; {out['warps_per_sm']} warps an SM;"
+        f" plan {plan}; {smi}")
     return out
 
 
@@ -4919,10 +5163,11 @@ def _unfold_host(pf, d: int) -> np.ndarray:
 def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
     """Phase 17 (a) in a process of its own beside phase 3's: the warp K3 at
     FILTER_WARP_CHECK_SHAPES against its plain version (sampled chains of
-    the first against the float64 filter), each d on its tier, and at
-    FILTER_WARP_TIER_SHAPES against the float64 filter.  Returns the log
-    lines, the launch key's max error and the tier checks' errors and plans
-    (``by_d``: the tier each check shape's d took)."""
+    the first against the float64 filter), each d of these and of
+    FILTER_TC64_CHECK_SHAPES on its tier (``slice27_checks`` holds the
+    latter), and at FILTER_WARP_TIER_SHAPES against the float64 filter.
+    Returns the log lines, the launch key's max error and the tier checks'
+    errors and plans (``by_d``: the tier each check shape's d took)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -4930,9 +5175,10 @@ def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
     device = torch.device("cuda")
     lines: list = []
     taken = {d: ff.device_warp_plan(d, device)["tier"]
-             for _, _, d, _ in FILTER_WARP_CHECK_SHAPES}
-    if taken != {d: "tensor_cores" if d <= ff.TC_DIM else "sweep"
-                 for d in taken}:
+             for _, _, d, _ in FILTER_WARP_CHECK_SHAPES
+             + FILTER_TC64_CHECK_SHAPES}
+    if taken != {d: "tensor_cores" if d <= ff.TC_DIM else "tensor_cores_64"
+                 if d <= ff.TC64_DIM else "sweep" for d in taken}:
         raise AssertionError(f"the warp K3's check shapes took the tiers "
                              f"{taken}")
     lines.append(f"[check] K3 fused_filter_warp tiers by d: {taken}")
@@ -4945,6 +5191,54 @@ def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
         device, log=lines.append)
     _ended(lines, "warp K3 checks", wall0)
     return lines, worst, tiers
+
+
+def filter_plain_rows(b: int, t_len: int, d: int, steps: int,
+                      rows: tuple):
+    """Path A's plain version at (B, T, d) (``filter_path``'s inputs:
+    ``lgssm_constants``, the observations from seed 0) on the host over the
+    first ``steps`` steps of the chains ``rows``: its (means, final m, final
+    packed P) as arrays, and its host milliseconds."""
+    import torch
+
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+    from rxinfer_tpu_torch.ops.fused_smoother import sym_fold
+
+    def plain():
+        f, q, h, r, _, p0 = lgssm_constants(d)
+        w_obs, hr = ff.evidence_operators(h, r)
+        ys = np.random.default_rng(0).standard_normal(
+            (t_len, b, d)).astype(np.float32)[:steps, list(rows)]
+        n = len(rows)
+        m0 = torch.zeros((d, n))
+        p0 = sym_fold(torch.as_tensor(np.broadcast_to(p0, (n, d, d)).copy())
+                      ).contiguous()
+        ys_soa = torch.as_tensor(np.ascontiguousarray(ys.transpose(0, 2, 1)))
+        t0 = time.perf_counter()
+        want = ff.fused_filter_reference(m0, p0, ys_soa, f, q, hr, w_obs)
+        ms = (time.perf_counter() - t0) * 1e3
+        return [w.numpy() for w in want], ms
+
+    return _memo(("filter_plain", b, t_len, d, steps, tuple(rows)), plain)
+
+
+def slice27_checks(wall0: float) -> tuple[list, dict, dict]:
+    """Phase 17 (a)'s shapes past d = 32 (FILTER_TC64_CHECK_SHAPES: the
+    tier past 32 and the first d past it) against the plain version, and
+    phase 26 (a)'s plain version on its sampled chains (``filter_plain_
+    rows``), in a check process.  Returns the log lines, the launch key's
+    max error and the host results for ``_MEMO``."""
+    import torch
+
+    device = torch.device("cuda")
+    lines: list = []
+    worst = check_filter_kernel(device, FILTER_TC64_CHECK_SHAPES,
+                                log=lines.append, seed=2700)
+    filter_plain_rows(FILTER64_B, FILTER64_T, FILTER64_D,
+                      FILTER64_PLAIN_STEPS,
+                      tuple(edge_rows(FILTER64_B)[:FILTER64_PLAIN_CHAINS]))
+    _ended(lines, "warp K3 checks past d = 32", wall0)
+    return lines, worst, dict(_MEMO)
 
 
 def _ended(lines: list, what: str, wall0: float) -> None:
@@ -9455,6 +9749,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     side14 = pool.apply_async(slice14_checks, (wall0,))
     prefetch = [pool.apply_async(host_prefetch, (wall0, part))
                 for part in (0, 1)]
+    side27 = pool.apply_async(slice27_checks, (wall0,))
     side18 = pool.apply_async(shared_checks, (wall0,))
     side20 = pool.apply_async(slice20_checks, (wall0,))
     side21 = pool.apply_async(slice21_checks, (wall0,))
@@ -9662,6 +9957,22 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         s25 = slice26_paths(device, s26_host, smi=smi)
     print(f"[s25] phase 25 took {time.perf_counter() - t25:.1f} s; {smi}")
     _elapsed("the mesh entry points", t_start)
+
+    # 26. the two kernel tiers redesigned for the card: (a) path A at d = dy
+    # = 64 on the warp K3's tier past 32, the sweep tier beside it; (b) a
+    # 32-state HMM on the wide K4/K5, the marginal kernel past 16 states
+    s27_lines, s27_worst, s27_memo = side27.get()
+    print("\n".join(s27_lines))
+    _MEMO.update(s27_memo)
+    worst["fused_filter_warp"] = max(worst["fused_filter_warp"],
+                                     s27_worst["fused_filter_warp"])
+    t26 = time.perf_counter()
+    filt64 = filter64_path(device, smi=smi)
+    hmm32 = hmm16_path(device, HMM32_B, HMM32_T, HMM32_K, HMM32_M, HMM32_IT,
+                       reps=2, smi=smi)
+    hmm32_bounds = fb_wide_bounds(HMM32_B, HMM32_T, HMM32_K)
+    print(f"[s26] phase 26 took {time.perf_counter() - t26:.1f} s; {smi}")
+    _elapsed("path A at d = 64 and the 32-state HMM", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}
@@ -10240,7 +10551,8 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         "ptxas_tensor_core_tier": tc_ptxas,
         "plans_device_tiers": s14_tiers["plans"],
         "shapes_checked": ["x".join(map(str, s))
-                           for s in FILTER_WARP_CHECK_SHAPES]
+                           for s in FILTER_WARP_CHECK_SHAPES
+                           + FILTER_TC64_CHECK_SHAPES]
         + ["x".join(map(str, s[:4])) for s in FILTER_WARP_TIER_SHAPES],
         "ptxas": warp_ptxas,
     })
@@ -10250,6 +10562,124 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
           f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; plain "
           f"{filt32['plain_kernel_ms']:.1f} ms over {filt32['plain_steps']} "
           f"steps; {smi}")
+    # phase 26: the warp K3's tier past 32 (path A at d = 64) and the wide
+    # K4/K5 at 32 states (the marginal kernel past 16 states)
+    bnd64 = filt64["bound"]
+    rows.append({
+        "name": "fused_filter_warp_d64", "route": "cuda",
+        "source": "rxinfer_tpu_torch/csrc/fused_filter_warp.cu",
+        "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "launch_key": "fused_filter_warp",
+        "device_kernel": "warp_filter_tc64_kernel",
+        "launches": filt64["launches"]["fused_filter_warp"],
+        "max_abs_err": max(worst["fused_filter_warp"], filt64["kernel_err"]),
+        "max_abs_err_on_path": filt64["kernel_err"],
+        "max_abs_err_vs_float64_on_path": max(filt64["errs"].values()),
+        "ms": filt64["kernel_ms"],
+        "ms_beside_sweep_tier": filt64["kernel_ms_beside_sweep"],
+        "ms_in_path": filt64["profile"]["kernels"]["fused_filter_warp"][
+            "ms_per_launch"],
+        "call_ms": filt64["call_ms"],
+        "sweep_tier_ms": filt64["sweep_ms"],
+        "speedup_over_sweep_tier": filt64["speedup_over_sweep"],
+        "max_abs_diff_from_sweep_tier": filt64["tiers_diff"],
+        "plain_ms": filt64["plain_kernel_ms"],
+        "plain_shape_BTddy": [filt64["plain_chains"], filt64["plain_steps"],
+                              FILTER64_D, FILTER64_D],
+        "plain_device": filt64["plain_device"],
+        "bound_ms": bnd64["bound_ms"], "bound_by": bnd64["bound_by"],
+        "bound_ms_fp32": bnd64["bound_ms_fp32"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a Kalman filter",
+        "shape_BTddy": [FILTER64_B, FILTER64_T, FILTER64_D, FILTER64_D],
+        "bytes": bnd64["bytes"], "ops": bnd64["ops"],
+        "ops_tensor_cores": bnd64["ops_tensor_cores"],
+        "bound_rates": "ops_tensor_cores at 3xTF32 (495e12 / 3 op/s), the "
+                       "other ops at 67e12 op/s, bytes at 3.35e12 B/s",
+        "cycles_per_step": filt64["cycles_per_step"],
+        "sm_clock_mhz": filt64["sm_clock_mhz"],
+        "share_of_bound": bnd64["bound_ms"] / filt64["kernel_ms"],
+        "registers": filt64["ptxas"]["registers"],
+        "spill_bytes": filt64["ptxas"]["spill_bytes"],
+        "ptxas": filt64["ptxas"]["lines"],
+        "warps_per_sm": filt64["warps_per_sm"], "plan": filt64["plan"],
+        "tier_by_d": s14_tiers["by_d"],
+        "one_observation_BT_d": [ONE_OBS_B, ONE_OBS_T, list(ONE_OBS_WARP_D)],
+        "max_abs_err_one_observation_vs_float64":
+            s14_tiers["one_observation"],
+        "max_abs_err_at_check_shapes": s27_worst["fused_filter_warp"],
+        "shapes_checked": ["x".join(map(str, s))
+                           for s in FILTER_TC64_CHECK_SHAPES],
+    })
+    print(f"[filter64] fused_filter_warp (warp_filter_tc64_kernel): "
+          f"{filt64['kernel_ms']:.4f} ms alone, in the call "
+          f"{rows[-1]['ms_in_path']} ms, call {filt64['call_ms']:.4f} ms; "
+          f"bound {bnd64['bound_ms']:.4f} ms ({bnd64['bound_by']}), roofline"
+          f" share {100 * rows[-1]['share_of_bound']:.2f}%; the sweep tier "
+          f"{filt64['sweep_ms']:.3f} ms ({filt64['speedup_over_sweep']:.2f}x)"
+          f"; plain {filt64['plain_kernel_ms']:.1f} ms over "
+          f"{filt64['plain_steps']} step(s) of {filt64['plain_chains']} "
+          f"chains on the host; {smi}")
+    hmm32_shape = (HMM32_B, HMM32_T, HMM32_K)
+    tile32 = hmm32["tile"]
+    for name, replaces in (
+            ("fused_fb_serial_wide", "rxinfer_tpu/ops/pallas_discrete.py:48"),
+            ("fused_fb_marg_wide", "rxinfer_tpu/ops/pallas_discrete.py:87")):
+        prof = hmm32["profile"]["kernels"][name]
+        entry = ("fb_wide_serial_kernelILi32E" if "serial" in name
+                 else "fb_wide_marg_rows_kernelILb1ELb1E")
+        px = _ptxas_of("fused_fb_wide", entry)
+        rows.append({
+            "name": name + "_k32", "route": "cuda",
+            "source": "rxinfer_tpu_torch/csrc/fused_fb_wide.cu",
+            "replaces": replaces, "launch_key": name,
+            "device_kernel": FB_ROWS_KERNEL_NAMES[name],
+            "launches": hmm32["launches"][name],
+            "max_abs_err": max(worst[name], hmm32["kernel_errs"][name]),
+            "max_abs_err_on_path": hmm32["kernel_errs"][name],
+            "ms": hmm32["alone_ms"][name],
+            "ms_in_path": prof["ms_per_launch"],
+            "ms_in_path_by_pass": prof.get("parts"),
+            "program_ms": hmm32["program_ms"],
+            "program_busy_ms": hmm32["profile"]["busy_ms"],
+            "cycles_per_step": hmm32["cycles_per_step"][name],
+            "sm_clock_mhz": hmm32["sm_clock_mhz"],
+            "tile": {"marginal_steps": tile32,
+                     "marginal_tiles": -(-HMM32_T // tile32),
+                     "marginal_warps_per_sm": hmm32["marginal_warps_per_sm"]},
+            "registers": px["registers"], "spill_bytes": px["spill_bytes"],
+            "ptxas": px["lines"],
+            "plain_ms": hmm32["plain_ms"][name],
+            # the serial call's plain version runs on the host on the
+            # sampled chains (check_fb_path_inputs' serial_rows)
+            "plain_shape_BTK": [len(edge_rows(HMM32_B)), HMM32_T, HMM32_K]
+            if "serial" in name else list(hmm32_shape),
+            "plain_device": "host" if "serial" in name else "card",
+            "bound_ms": hmm32_bounds[name]["bound_ms"],
+            "bound_by": hmm32_bounds[name]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes an HMM "
+                            "forward-backward",
+            "share_of_bound": hmm32_bounds[name]["bound_ms"]
+            / hmm32["alone_ms"][name],
+            "shape_BTK": list(hmm32_shape),
+            "bytes": hmm32_bounds[name]["bytes"],
+            "ops": hmm32_bounds[name]["ops"],
+        })
+        print(f"[hmm32] {name}: {hmm32['alone_ms'][name]:.4f} ms alone, in "
+              f"the program {prof['ms_per_launch']} ms (passes "
+              f"{prof.get('parts')}), bound "
+              f"{hmm32_bounds[name]['bound_ms']:.4f} ms "
+              f"({hmm32_bounds[name]['bound_by']}), share "
+              f"{100 * rows[-1]['share_of_bound']:.2f}%; registers "
+              f"{px['registers']}, spill bytes {px['spill_bytes']}; plain "
+              f"{hmm32['plain_ms'][name]:.1f} ms at (B,T,K)="
+              f"{tuple(rows[-1]['plain_shape_BTK'])} on the "
+              f"{rows[-1]['plain_device']}; {smi}")
+    print(f"[hmm32] program_ms {hmm32['program_ms']:.4f} updates_per_s "
+          f"{hmm32['updates_per_s']:.6g} (B={HMM32_B}, T={HMM32_T}, "
+          f"K={HMM32_K}, iterations={HMM32_IT}), device busy "
+          f"{hmm32['profile']['busy_ms']} ms a call, of it the engine's "
+          f"other device kernels {hmm32['rest_ms']} ms; peak "
+          f"{hmm32['peak_bytes'] / 1e9:.3f} GB; {smi}")
     print(f"[filter32] call_ms {filt32['call_ms']:.4f} chain_updates_per_s "
           f"{filt32['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
           f"d=dy={FILTER32_D}); {smi}")
@@ -10282,6 +10712,10 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         row["launches_phase25"] = {
             cell: res["launches"].get(row["name"], 0)
             for cell, res in s25.items()}
+        key = row.get("launch_key", row["name"])
+        row["launches_phase26"] = {
+            "filter64": filt64["launches"].get(key, 0),
+            "hmm32": hmm32["launches"].get(key, 0)}
     print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
           f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
           f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "

@@ -67,9 +67,31 @@
 //     bytes, so registers buy warps.  The tile rule (`pick_tile_wide`) puts
 //     every (tile, chain) on the card in one wave at kMargBlocksPerSM blocks
 //     an SM, the occupancy the launch bounds give.
-//     K > 16 (`fb_wide_marg_kernel`): a warp a (tile, chain), lane i row i
-//     (rows lane, lane + 32, ... above 32), the row sums summed in row
-//     order.
+//     16 < K <= 32 (`fb_wide_marg_rows_kernel`): a warp a (tile, chain),
+//     lane i row i of each step's block, so that every sum keeps the plain
+//     version's index order in one lane (a row sum) or over a vector in
+//     shared memory (gamma's sum, the sum of the row sums) and the kernel
+//     gives the plain version's bits.  What held its first design (a warp a
+//     tile and chain with its rows in registers: 4.91 ms at (1024, 1000,
+//     32) on an H100 80GB HBM3 at 700 W, 29% of its bound) to a quarter
+//     of the HBM rate was instructions, not bytes: the per-step block was
+//     copied out element by element with an integer division and a modulo
+//     by K each, the broadcasts and the in-order sums read one float a
+//     load, and the step's inputs were loaded when needed.  Now the chain's table
+//     and each step's block sit in the warp's shared memory at a row stride
+//     that spreads a column over the banks (K + 4 or K + 8 with an odd
+//     number of float4s a row at K % 4 == 0, else an odd stride); the
+//     block goes out in contiguous order, the lanes' offsets into the stage
+//     fixed for the unit, as whole 16-byte stores (K % 4 == 0: 512
+//     contiguous bytes a warp store, eight a step at K = 32) or 128
+//     contiguous bytes a store; the table row, alpha_t and the sums'
+//     vectors are read as float4s; the step's inputs are loaded one step
+//     ahead; four CTAs of four warps an SM (`kMargRowsBlocksPerSM`, 128
+//     registers), and the tile rule puts every (tile, chain) on the card
+//     in one wave of them.
+//     K > 32 (`fb_wide_marg_kernel`): a warp a (tile, chain), rows lane,
+//     lane + 32, ..., the partial accumulated in the output `part` in
+//     place, the row sums summed in row order.
 //   * xi_sum: fused_fb.cuh's kernel sums the per-tile partials in tile order
 //     (one tile: the marginal pass writes xi_sum itself).  No atomics: the
 //     same inputs give the same bits on every run.
@@ -87,6 +109,9 @@ constexpr int kChainWarps = 4;  // warps a CTA (serial K <= 32, marginals)
 constexpr int kHalf = 16;       // lanes of a half-warp: the split design's K
 constexpr int kHalfTerms = 8;   // terms of a log-sum-exp the low half takes
 constexpr int kMargBlocksPerSM = 5;  // K <= 16 marginal CTAs an SM holds
+constexpr int kMargRowsBlocksPerSM = 4;  // 16 < K <= 32 marginal CTAs an SM
+constexpr int kRowsMax = 32;            // 16 < K <= 32: a lane a row
+constexpr int kRowStrideMax = 36;       // the rows' largest stride
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -780,13 +805,221 @@ __global__ void __launch_bounds__(kWarp * kChainWarps, kMargBlocksPerSM)
   }
 }
 
-// K > 16: a warp a unit, lane i row i of xi_t and of the tile's partial
-// (registers for K <= 32; above, rows lane, lane + 32, ... and the partial
-// accumulates in the output `part` in place).  The maxima are warp
-// reductions; the row sums are gathered through shared memory and summed in
-// row order by every lane.  With STEPS at K <= 32 a step's K x K block is
-// staged in shared memory and written out by the warp in order.
-template <int KMAX, bool STEPS>
+// The row stride of a 16 < K <= 32 chain's table and stage: at K % 4 == 0
+// whole float4s, an odd number of them (a float4 column read takes eight
+// distinct bank quads a phase); else odd (a column read takes 32 banks).
+__host__ __device__ constexpr int marg_row_stride(int K) {
+  return K % 4 != 0 ? (K | 1) : ((K / 4) % 2 == 0 ? K + 4 : K + 8);
+}
+
+// v[0] + v[1] + ... + v[n-1] in index order, n <= 32, v 16-byte aligned in
+// shared memory and read as float4s.
+__device__ __forceinline__ float sum_vec(const float* v, int n) {
+  float s = v[0];
+#pragma unroll
+  for (int q = 0; q < kRowsMax / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(v)[q];
+    const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * q + k;
+      if (i > 0 && i < n) s += e[k];
+    }
+  }
+  return s;
+}
+
+// 16 < K <= 32: a warp a unit, lane i row i of xi_t and of the tile's
+// partial (registers); the chain's table and each step's xi in the warp's
+// shared memory at row stride marg_row_stride(K); VEC (K % 4 == 0) reads
+// rows as float4s and writes the step's block as 16-byte stores.  The
+// maxima are warp reductions; the row sums run in column order in their
+// lane and the sum of the row sums over a vector in shared memory in row
+// order, as the plain version's.  A unit's warp runs all of its steps (no
+// warp of the block waits on another).
+template <bool VEC, bool STEPS>
+__global__ void __launch_bounds__(kWarp * kChainWarps, kMargRowsBlocksPerSM)
+    fb_wide_marg_rows_kernel(const float* __restrict__ lt,
+                             const float* __restrict__ le,
+                             const float* __restrict__ alphas,
+                             const float* __restrict__ betas,
+                             float* __restrict__ gammas,
+                             float* __restrict__ part,
+                             float* __restrict__ xi_steps, int64_t T,
+                             int64_t B, int K, int64_t tile, int64_t tiles) {
+  constexpr int kRows = kRowsMax * kRowStrideMax;
+  __shared__ __align__(16) float tab_s[kChainWarps][kRows];
+  __shared__ __align__(16) float stage_s[kChainWarps][STEPS ? kRows : 4];
+  __shared__ __align__(16) float vec_s[kChainWarps][2 * kRowsMax];
+  const int warp = static_cast<int>(threadIdx.x) / kWarp;
+  const int lane = static_cast<int>(threadIdx.x) % kWarp;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kChainWarps + warp;
+  if (w >= tiles * B) return;
+  const int64_t b = w % B;
+  const int64_t t0 = (w / B) * tile;
+  const int64_t t_end = t0 + tile < T ? t0 + tile : T;
+  const int64_t step = B * K;
+  const int kk = K * K;
+  const int sk = marg_row_stride(K);
+  const bool own = lane < K;
+  float* tab = tab_s[warp];
+  float* stage = stage_s[warp];
+  float* a_s = vec_s[warp];      // alpha_t
+  float* v_s = a_s + kRowsMax;   // the exps of gamma, then the row sums
+  for (int i = lane; i < kRowsMax; i += kWarp) {
+    a_s[i] = 0.0f;
+    v_s[i] = 0.0f;
+  }
+  for (int idx = lane; idx < kk; idx += kWarp)
+    tab[(idx / K) * sk + idx % K] = lt[b * kk + idx];
+  // VEC: the stage's offsets of this lane's float4s of a step's block, in
+  // the block's contiguous order: float4 lane + 32 n
+  constexpr int kOut4 = kRowsMax * kRowsMax / 4 / kWarp;
+  int off[VEC ? kOut4 : 1];
+  if constexpr (VEC) {
+#pragma unroll
+    for (int n = 0; n < kOut4; ++n) {
+      const int e = 4 * (lane + kWarp * n);
+      off[n] = e < kk ? (e / K) * sk + e % K : -1;
+    }
+  }
+  __syncwarp();
+  float acc[kRowsMax];
+#pragma unroll
+  for (int j = 0; j < kRowsMax; ++j) acc[j] = 0.0f;
+  // alpha_t, beta_t, le_{t+1}, beta_{t+1} of the step to come
+  int64_t at = t0 * step + b * K;
+  const bool first_xi = own && t0 + 1 < T;
+  float a_c = own ? alphas[at + lane] : 0.0f;
+  float b_c = own ? betas[at + lane] : 0.0f;
+  float le_n = first_xi ? le[at + step + lane] : 0.0f;
+  float b_n = first_xi ? betas[at + step + lane] : 0.0f;
+  const float* row = tab + lane * sk;
+  for (int64_t t = t0; t < t_end; ++t, at += step) {
+    // the next step's inputs, in flight while this step computes
+    const bool next = own && t + 1 < t_end, next_xi = next && t + 2 < T;
+    const float a_x = next ? alphas[at + step + lane] : 0.0f;
+    const float le_x = next_xi ? le[at + 2 * step + lane] : 0.0f;
+    const float b_x = next_xi ? betas[at + 2 * step + lane] : 0.0f;
+    // gamma_t: lane i, state i
+    const float g = a_c + b_c;
+    const float mg = warp_max(own ? g : -INFINITY);
+    const float e = expf(g - mg);
+    if (own) {
+      a_s[lane] = a_c;
+      v_s[lane] = e;
+    }
+    __syncwarp();
+    const float gs = sum_vec(v_s, K);
+    if (own) gammas[at + lane] = e / gs;
+    if (t + 1 < T) {
+      // x[j] = alpha_t[j] + ((logA[i][j] + le_{t+1}[i]) + beta_{t+1}[i])
+      float x[kRowsMax];
+      float lm = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < kRowsMax / 4; ++q) {
+        const float4 av = reinterpret_cast<const float4*>(a_s)[q];
+        float r4[4];
+        if (VEC) {
+          if (own && 4 * q < K) {
+            const float4 rv = *reinterpret_cast<const float4*>(row + 4 * q);
+            r4[0] = rv.x; r4[1] = rv.y; r4[2] = rv.z; r4[3] = rv.w;
+          } else {
+            r4[0] = r4[1] = r4[2] = r4[3] = 0.0f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            r4[k] = own && 4 * q + k < K ? row[4 * q + k] : 0.0f;
+        }
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * q + k;
+          x[j] = a4[k] + ((r4[k] + le_n) + b_n);
+          if (j < K) lm = fmaxf(lm, x[j]);
+        }
+      }
+      const float mx = warp_max(own ? lm : -INFINITY);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kRowsMax; ++j) {
+        if (j < K) {
+          x[j] = expf(x[j] - mx);
+          rs = j == 0 ? x[j] : rs + x[j];
+        }
+      }
+      __syncwarp();  // every lane has read a_s and v_s
+      if (own) v_s[lane] = rs;
+      __syncwarp();
+      const float xs = sum_vec(v_s, K);
+      if (own) {
+#pragma unroll
+        for (int j = 0; j < kRowsMax; ++j) {
+          if (j < K) {
+            x[j] = x[j] / xs;
+            acc[j] += x[j];
+          }
+        }
+      }
+      if constexpr (STEPS) {
+        if (own) {
+          float* dst = stage + lane * sk;
+          if (VEC) {
+#pragma unroll
+            for (int q = 0; q < kRowsMax / 4; ++q)
+              if (4 * q < K)
+                reinterpret_cast<float4*>(dst)[q] = make_float4(
+                    x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kRowsMax; ++j)
+              if (j < K) dst[j] = x[j];
+          }
+        }
+        __syncwarp();
+        float* out = xi_steps + at * K;  // (t, b)'s block: (t B + b) K K
+        if constexpr (VEC) {
+#pragma unroll
+          for (int n = 0; n < kOut4; ++n)
+            if (off[n] >= 0)
+              reinterpret_cast<float4*>(out)[lane + kWarp * n] =
+                  *reinterpret_cast<const float4*>(stage + off[n]);
+        } else {
+          // float e = lane + 32 n sits at row r, column c; 32 floats on is
+          // one row and 32 - K columns on (K > 16)
+          int r = lane / K, c = lane % K;
+          for (int e = lane; e < kk; e += kWarp) {
+            out[e] = stage[r * sk + c];
+            c += kWarp - K;
+            r += 1;
+            if (c >= K) {
+              c -= K;
+              r += 1;
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // before a_s, v_s and the stage take the next step
+    a_c = a_x;
+    b_c = b_n;
+    le_n = le_x;
+    b_n = b_x;
+  }
+  if (own) {
+    float* part_b = part + w * kk;  // (tiles, B, K, K): w = s * B + b
+#pragma unroll
+    for (int j = 0; j < kRowsMax; ++j)
+      if (j < K) part_b[lane * K + j] = acc[j];
+  }
+}
+
+// K > 32: a warp a unit, rows lane, lane + 32, ... of xi_t, the tile's
+// partial accumulated in the output `part` in place.  The maxima are warp
+// reductions; the row sums are gathered through shared memory and summed
+// in row order by every lane.
+template <bool STEPS>
 __global__ void __launch_bounds__(kWarp * kChainWarps)
     fb_wide_marg_kernel(const float* __restrict__ lt,
                         const float* __restrict__ le,
@@ -795,10 +1028,7 @@ __global__ void __launch_bounds__(kWarp * kChainWarps)
                         float* __restrict__ gammas, float* __restrict__ part,
                         float* __restrict__ xi_steps, int64_t T, int64_t B,
                         int K, int64_t tile, int64_t tiles) {
-  constexpr int kVec = KMAX > 0 ? KMAX : 1;
-  constexpr int kStage = KMAX > 0 && STEPS ? KMAX * (KMAX + 1) : 1;
-  __shared__ __align__(16) float stat_s[kChainWarps][2 * kVec + kStage];
-  extern __shared__ __align__(16) float dyn_s[];  // K > 32: 2 K a warp
+  extern __shared__ __align__(16) float dyn_s[];  // 2 K floats a warp
   const int warp = static_cast<int>(threadIdx.x) / kWarp;
   const int lane = static_cast<int>(threadIdx.x) % kWarp;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kChainWarps + warp;
@@ -808,132 +1038,61 @@ __global__ void __launch_bounds__(kWarp * kChainWarps)
   const int64_t t_end = t0 + tile < T ? t0 + tile : T;
   const int64_t step = B * K;
   const int64_t kk = static_cast<int64_t>(K) * K;
-  float* a_s = KMAX > 0 ? stat_s[warp] : dyn_s + warp * 2 * K;  // alpha_t
-  float* v_s = a_s + (KMAX > 0 ? KMAX : K);  // a gathered vector
+  float* a_s = dyn_s + warp * 2 * K;  // alpha_t
+  float* v_s = a_s + K;               // a gathered vector
   const float* lt_b = lt + b * kk;
   float* part_b = part + w * kk;  // (tiles, B, K, K): w = s * B + b
 
-  if constexpr (KMAX > 0) {
-    float* x_s = v_s + kVec;  // a step's xi, rows of K + 1 (STEPS)
-    const bool own = lane < K;
-    float A[KMAX], acc[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      A[j] = own && j < K ? lt_b[lane * K + j] : 0.0f;
-      acc[j] = 0.0f;
+  for (int i = lane; i < K; i += kWarp)
+    for (int j = 0; j < K; ++j) part_b[i * K + j] = 0.0f;
+  for (int64_t t = t0; t < t_end; ++t) {
+    const int64_t at = t * step + b * K;
+    float lm = -INFINITY;
+    for (int i = lane; i < K; i += kWarp) {
+      const float a = alphas[at + i];
+      const float g = a + betas[at + i];
+      a_s[i] = a;
+      v_s[i] = g;
+      lm = fmaxf(lm, g);
     }
-    float bcur = own ? betas[t0 * step + b * K + lane] : 0.0f;
-    for (int64_t t = t0; t < t_end; ++t) {
-      const int64_t at = t * step + b * K;
-      const float a = own ? alphas[at + lane] : 0.0f;
-      const float g = a + bcur;
-      const float mg = warp_max(own ? g : -INFINITY);
-      const float e = expf(g - mg);
-      if (own) {
-        a_s[lane] = a;
-        v_s[lane] = e;
-      }
-      __syncwarp();
-      const float gs = sum_in_order(v_s, K);
-      if (own) gammas[at + lane] = e / gs;
-      if (t + 1 < T) {
-        const float bnx = own ? betas[at + step + lane] : 0.0f;
-        const float lnx = own ? le[at + step + lane] : 0.0f;
-        float x[KMAX];
-        float lm = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
-          x[j] = j < K ? a_s[j] + (A[j] + lnx + bnx) : 0.0f;
-          if (j < K) lm = fmaxf(lm, x[j]);
-        }
-        const float mx = warp_max(own ? lm : -INFINITY);
-        float rs = 0.0f;
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
-          if (j < K) {
-            x[j] = expf(x[j] - mx);
-            rs = j == 0 ? x[j] : rs + x[j];
-          }
-        }
-        __syncwarp();  // every lane has read v_s's exps
-        if (own) v_s[lane] = rs;
-        __syncwarp();
-        const float xs = sum_in_order(v_s, K);
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
-          if (j < K) {
-            const float v = x[j] / xs;
-            acc[j] += v;
-            if (STEPS && own) x_s[lane * (K + 1) + j] = v;
-          }
-        }
-        if constexpr (STEPS) {
-          __syncwarp();
-          float* dst = xi_steps + at * K;
-          for (int c = lane; c < K * K; c += kWarp)
-            dst[c] = x_s[(c / K) * (K + 1) + c % K];
-        }
-        bcur = bnx;
-      }
-      __syncwarp();  // before a_s, v_s and x_s take the next step
-    }
-    if (own) {
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < K) part_b[lane * K + j] = acc[j];
-    }
-  } else {
-    for (int i = lane; i < K; i += kWarp)
-      for (int j = 0; j < K; ++j) part_b[i * K + j] = 0.0f;
-    for (int64_t t = t0; t < t_end; ++t) {
-      const int64_t at = t * step + b * K;
-      float lm = -INFINITY;
+    const float mg = warp_max(lm);
+    for (int i = lane; i < K; i += kWarp) v_s[i] = expf(v_s[i] - mg);
+    __syncwarp();
+    const float gs = sum_in_order(v_s, K);
+    for (int i = lane; i < K; i += kWarp) gammas[at + i] = v_s[i] / gs;
+    if (t + 1 < T) {
+      lm = -INFINITY;
       for (int i = lane; i < K; i += kWarp) {
-        const float a = alphas[at + i];
-        const float g = a + betas[at + i];
-        a_s[i] = a;
-        v_s[i] = g;
-        lm = fmaxf(lm, g);
+        const float lnx = le[at + step + i], bnx = betas[at + step + i];
+        for (int j = 0; j < K; ++j)
+          lm = fmaxf(lm, a_s[j] + (lt_b[i * K + j] + lnx + bnx));
       }
-      const float mg = warp_max(lm);
-      for (int i = lane; i < K; i += kWarp) v_s[i] = expf(v_s[i] - mg);
-      __syncwarp();
-      const float gs = sum_in_order(v_s, K);
-      for (int i = lane; i < K; i += kWarp) gammas[at + i] = v_s[i] / gs;
-      if (t + 1 < T) {
-        lm = -INFINITY;
-        for (int i = lane; i < K; i += kWarp) {
-          const float lnx = le[at + step + i], bnx = betas[at + step + i];
-          for (int j = 0; j < K; ++j)
-            lm = fmaxf(lm, a_s[j] + (lt_b[i * K + j] + lnx + bnx));
+      const float mx = warp_max(lm);
+      __syncwarp();  // every lane is done with v_s's exps
+      for (int i = lane; i < K; i += kWarp) {
+        const float lnx = le[at + step + i], bnx = betas[at + step + i];
+        float rs = 0.0f;
+        for (int j = 0; j < K; ++j) {
+          const float e =
+              expf(a_s[j] + (lt_b[i * K + j] + lnx + bnx) - mx);
+          rs = j == 0 ? e : rs + e;
         }
-        const float mx = warp_max(lm);
-        __syncwarp();  // every lane is done with v_s's exps
-        for (int i = lane; i < K; i += kWarp) {
-          const float lnx = le[at + step + i], bnx = betas[at + step + i];
-          float rs = 0.0f;
-          for (int j = 0; j < K; ++j) {
-            const float e =
-                expf(a_s[j] + (lt_b[i * K + j] + lnx + bnx) - mx);
-            rs = j == 0 ? e : rs + e;
-          }
-          v_s[i] = rs;
-        }
-        __syncwarp();
-        const float xs = sum_in_order(v_s, K);
-        float* dst = STEPS ? xi_steps + at * K : nullptr;
-        for (int i = lane; i < K; i += kWarp) {
-          const float lnx = le[at + step + i], bnx = betas[at + step + i];
-          for (int j = 0; j < K; ++j) {
-            const float v =
-                expf(a_s[j] + (lt_b[i * K + j] + lnx + bnx) - mx) / xs;
-            part_b[i * K + j] += v;
-            if (STEPS) dst[i * K + j] = v;
-          }
-        }
+        v_s[i] = rs;
       }
       __syncwarp();
+      const float xs = sum_in_order(v_s, K);
+      float* dst = STEPS ? xi_steps + at * K : nullptr;
+      for (int i = lane; i < K; i += kWarp) {
+        const float lnx = le[at + step + i], bnx = betas[at + step + i];
+        for (int j = 0; j < K; ++j) {
+          const float v =
+              expf(a_s[j] + (lt_b[i * K + j] + lnx + bnx) - mx) / xs;
+          part_b[i * K + j] += v;
+          if (STEPS) dst[i * K + j] = v;
+        }
+      }
     }
+    __syncwarp();
   }
 }
 
@@ -993,17 +1152,27 @@ int launch_serial(const SerialCfg& c, int roles, const float* lp,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KMAX, bool STEPS>
+template <bool STEPS>
+int launch_marg_general(const float* lt, const float* le, const float* alphas,
+                        const float* betas, float* gammas, float* part,
+                        float* xi_steps, int64_t T, int64_t B, int K,
+                        int64_t tile, int64_t tiles, cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(float)) * kChainWarps * 2 * K;
+  const int rc = allow_smem(fb_wide_marg_kernel<STEPS>, bytes);
+  if (rc != 0) return rc;
+  fb_wide_marg_kernel<STEPS><<<grid_for(tiles * B, kChainWarps),
+                               kChainWarps * kWarp, bytes, stream>>>(
+      lt, le, alphas, betas, gammas, part, xi_steps, T, B, K, tile, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC, bool STEPS>
 int launch_marg_rows(const float* lt, const float* le, const float* alphas,
                      const float* betas, float* gammas, float* part,
                      float* xi_steps, int64_t T, int64_t B, int K,
                      int64_t tile, int64_t tiles, cudaStream_t stream) {
-  const int bytes =
-      KMAX > 0 ? 0 : static_cast<int>(sizeof(float)) * kChainWarps * 2 * K;
-  const int rc = allow_smem(fb_wide_marg_kernel<KMAX, STEPS>, bytes);
-  if (rc != 0) return rc;
-  fb_wide_marg_kernel<KMAX, STEPS><<<grid_for(tiles * B, kChainWarps),
-                                     kChainWarps * kWarp, bytes, stream>>>(
+  fb_wide_marg_rows_kernel<VEC, STEPS><<<grid_for(tiles * B, kChainWarps),
+                                         kChainWarps * kWarp, 0, stream>>>(
       lt, le, alphas, betas, gammas, part, xi_steps, T, B, K, tile, tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1065,16 +1234,18 @@ int rxt_fb_wide_marg(int k, int per_step, const float* lt, const float* le,
                                      xi_steps, T, B, k, tile, tiles, s)
             : launch_marg_half<false>(lt, le, alphas, betas, gammas, part,
                                       xi_steps, T, B, k, tile, tiles, s);
-  } else if (k <= 32) {
-    rc = st ? launch_marg_rows<32, true>(lt, le, alphas, betas, gammas, part,
-                                         xi_steps, T, B, k, tile, tiles, s)
-            : launch_marg_rows<32, false>(lt, le, alphas, betas, gammas,
-                                          part, xi_steps, T, B, k, tile,
-                                          tiles, s);
+  } else if (k <= kRowsMax) {
+#define RXT_ROWS(VEC, STEPS)                                                \
+  launch_marg_rows<VEC, STEPS>(lt, le, alphas, betas, gammas, part, xi_steps, \
+                               T, B, k, tile, tiles, s)
+    const bool vec = k % 4 == 0;
+    rc = vec ? (st ? RXT_ROWS(true, true) : RXT_ROWS(true, false))
+             : (st ? RXT_ROWS(false, true) : RXT_ROWS(false, false));
+#undef RXT_ROWS
   } else {
-    rc = st ? launch_marg_rows<0, true>(lt, le, alphas, betas, gammas, part,
+    rc = st ? launch_marg_general<true>(lt, le, alphas, betas, gammas, part,
                                         xi_steps, T, B, k, tile, tiles, s)
-            : launch_marg_rows<0, false>(lt, le, alphas, betas, gammas, part,
+            : launch_marg_general<false>(lt, le, alphas, betas, gammas, part,
                                          xi_steps, T, B, k, tile, tiles, s);
   }
   if (rc != 0 || tiles == 1) return rc;
@@ -1100,6 +1271,20 @@ int rxt_fb_wide_serial_plan(int k, int* ts, int* table) {
 // with the per-step xi an SM holds on the current device with its
 // registers (0 on an error).
 int rxt_fb_wide_marg_warps_per_sm() { return kMargBlocksPerSM * kChainWarps; }
+
+// The same for the 16 < K <= 32 marginal kernel (ops/fused_fb.py
+// MARGINAL_ROW_WARPS_PER_SM checks it), and the blocks of it with the
+// per-step xi at K = 32 an SM holds on the current device (0 on an error).
+int rxt_fb_wide_marg_rows_warps_per_sm() {
+  return kMargRowsBlocksPerSM * kChainWarps;
+}
+
+int rxt_fb_wide_marg_rows_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fb_wide_marg_rows_kernel<true, true>, kChainWarps * kWarp, 0);
+  return rc == cudaSuccess ? blocks : 0;
+}
 
 int rxt_fb_wide_marg_blocks_per_sm() {
   int blocks = 0;

@@ -14,12 +14,15 @@
 // ys (T, dy, B), m0 (d, B), p0 (nsym, B) upper triangle row by row; out
 // means (T, d, B), mf (d, B), pf (nsym, B).
 //
-// Two tiers, a chain on a whole warp in both; the host-side rule that
+// Three tiers, a chain on a whole warp in each; the host-side rule that
 // picks the tier and the chains a block is ops/fused_filter.py `warp_plan`.
 // To d = 32 the tensor-core tier (namespace tc below): the chain's two
 // matrices in registers, their products and the inverses' Schur blocks on
-// the tensor cores in 3xTF32.  Past d = 32 the sweep tiers, described
-// here.
+// the tensor cores in 3xTF32.  To d = 64 the tensor-core tier past 32
+// (namespace tc64): the same arithmetic on 16 x 16 blocks of matrices that
+// sit in shared memory.  Past d = 64 the sweep tiers, described here (the
+// plan of ops/fused_filter.py `sweep_warp_plan` still launches them at any
+// d, where the timing scripts set them beside the tensor-core tiers).
 //
 // The sweep tiers: a chain's two d x d matrices (P and a work matrix) live
 // in memory, not in registers: rows at a padded stride S (the dim padded
@@ -57,10 +60,17 @@
 // tier is bound by its shared-memory instructions
 // instead: the sweep loads and stores an entry for each multiply-add, the
 // products load 0.375 words a multiply-add, and a warp of one chain has
-// one dependent chain of d pivots (51.98 ms at that shape on an H100).
+// one dependent chain of d pivots (51.98 ms at that shape on an H100; at
+// (2,000, 200, 64, 64) 358.9 ms).
 // The tensor-core tier is bound by its instructions' issue and latency at
 // 16 warps an SM (128 registers a thread): the splits of the operands into
-// TF32 parts, the leaves' pivots and the 3xTF32 products (14.2 ms).
+// TF32 parts, the leaves' pivots and the 3xTF32 products (14.2 ms).  The
+// tier past 32 at (2,000, 200, 64, 64): the operations take 3.46 ms with
+// the 96% of them it runs on the tensor cores at the 3xTF32 rate (8.08 ms
+// at float32 only), the bytes (0.239 GB) 0.07 ms; it is bound by its
+// warps' latency (two warps a chain, four chains an SM, shared memory the
+// limit): 39.2 ms on an H100 80GB HBM3 at 700 W, 9.0 times the sweep
+// tier (358.9 ms).
 //
 // A chain index past B runs on the last chain's inputs and stores nothing,
 // so every lane reaches every __syncwarp.
@@ -829,6 +839,658 @@ int blocks_per_sm(int chains) {
 
 }  // namespace tc
 
+// ---- The tensor-core tier past 32: 32 < d <= 64 ---------------------------
+//
+// The d <= 32 tier's arithmetic (3xTF32 products C = A N^T on operands in
+// mma.sync's accumulator layout, the Schur recursion with Gauss-Jordan
+// leaves of 8, P mirrored each step, the evidence formed here) carried to a
+// state padded to DP = 16 NB: NB = 3 (DP = 48) to d = 48, NB = 4 (DP = 64)
+// past it.
+// * Where the matrices live.  At DP = 64 one chain's matrix is 16 KB: in
+//   the accumulator layout a warp would hold 128 registers a lane for each
+//   of the chain's two matrices, so they cannot stay in registers as at
+//   d <= 32.  Two ways were open: (a) a warpgroup a chain, each warp a
+//   16-row strip of each matrix in registers, or (b) both matrices in
+//   shared memory, 16 x 16 blocks loaded into registers for each product.
+//   (a) needs every product and every Schur level to trade strips between
+//   the four warps through shared memory anyway, with a barrier at each of
+//   them; (b) keeps the d <= 32 tier's warp-level primitives.  Shared
+//   memory sets the occupancy under both: two matrices a chain (36 KB at
+//   DP = 64) and F, Q, W a block (72 KB) let 4 chains share an SM at DP =
+//   64 (8 at DP = 48).  This tier is (b).
+// * Warps a chain (Dim::kWarps, a team): one at DP = 48 (8 warps an SM),
+//   two at DP = 64, which split each step's block products (F P F^T + Q a
+//   block row each in a snake order, the inverses' X, S, Y and TL a block
+//   each) while the 32 x 32 inverses of A and S run on the first.  Every
+//   chain of a block runs the same steps, so __syncthreads orders a team.
+//   On an H100 80GB HBM3 at 700 W at (B, T, d, dy) = (2000, 200, 64, 64)
+//   (scripts/warp_filter_variants.py): one warp a chain 48.5 ms, two 39.4,
+//   four (128 registers, spilled) 40.8.  Of the two warps' 39.4 ms (each
+//   part taken out in turn): F P F^T + Q 8.6, the 32 x 32 inverses 11.1,
+//   the other Schur products 9.5, the rest (vectors, the scale and mirror
+//   passes, 22 barriers a step) about 10; pivot-pair leaves were slower
+//   (40.6).  Each warp runs one dependent chain of products and leaves,
+//   two warps a scheduler: latency, not the tensor cores' rate, bounds it.
+// * Rows sit DP + 8 floats apart (8 or 24 modulo the 32 banks): a quad's
+//   float2 loads of rows g, columns 2t, 2t + 1 take 32 distinct banks a
+//   half-warp, and a lane's column read of a row of 32 consecutive floats
+//   none twice.  F (split once into its TF32 parts), Q (padded diagonal 1)
+//   and W sit in shared memory once a block; a chain's P and a work matrix
+//   W2 beside its vectors.
+// * The step: m_pred = F m (a row a thread, the sum staggered so that the
+//   lanes read distinct banks); P_pred = F P F^T + Q a 16-row block row at
+//   a time (X_i = F_i P in registers, then the blocks (i, j <= i) of X_i
+//   F^T + Q into W2): the inverse reads the lower blocks only.  Both
+//   inverses are the plain version's Schur recursion split at 32
+//   (sym_inv64): A^-1 by the d <= 32 tier's 32 x 32 inverse in registers
+//   (split at 16, leaves of 8), X = A^-1 B and its transpose into the work
+//   matrix, S = D - B^T X, S^-1 (32 x 32 in registers, or 16 x 16 at
+//   DP = 48), Y = X S^-1, TL = A^-1 + Y X^T; the upper-right block -Y and
+//   the lower-left its exact transpose (by shuffles), TL's upper-right
+//   16 x 16 block the transpose of its lower-left, so that after the
+//   diagonal blocks are mirrored (tc16.cuh mirror_upper) P is the symmetric
+//   matrix of its upper triangle each step (ROADMAP C7).
+// * Operations a step at DP = 64: 104 products of 16 x 16 x 16 for
+//   F P F^T + Q, 38 for each inverse and 4 leaf-level 16 x 16 inverses
+//   (each four 8 x 8 x 8 products and two leaves of 8 pivots): 2,256
+//   mma.sync a step, three for each TF32 product.
+
+namespace tc64 {
+
+using tc::Blk;
+
+template <int NB>
+struct Dim {
+  static constexpr int kDP = 16 * NB;              // the padded state
+  static constexpr int kS = kDP + 8;               // a matrix's row stride
+  static constexpr int kMat = kDP * kS;
+  static constexpr int kChains = NB == 4 ? 4 : 8;  // chains a block
+  static constexpr int kWarps = NB == 4 ? 2 : 1;   // warps a chain
+  // a chain's m, m_pred, h, each warp's observation chunk and partial sum
+  static constexpr int kVec = 3 * kDP + kWarps * kYChunk + 4;
+  // F's two TF32 parts, Q and W; each chain's P, work matrix and vectors
+  static constexpr int kSmemFloats = 4 * kMat + kChains * (2 * kMat + kVec);
+};
+
+// Block (bi, bj) of a shared matrix at row stride S, in accumulator layout.
+template <int S>
+__device__ __forceinline__ void ld_blk(Blk& x, const float* m, int bi, int bj,
+                                       int g, int t) {
+  const float* p = m + (16 * bi + g) * S + 16 * bj + 2 * t;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = *reinterpret_cast<const float2*>(p + 8 * h * S + 8 * nj);
+      x[nj][2 * h] = v.x;
+      x[nj][2 * h + 1] = v.y;
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void st_blk(const Blk& x, float* m, int bi, int bj,
+                                       int g, int t) {
+  float* p = m + (16 * bi + g) * S + 16 * bj + 2 * t;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(p + 8 * h * S + 8 * nj) =
+          make_float2(x[nj][2 * h], x[nj][2 * h + 1]);
+}
+
+// The A operand's TF32 parts of both k tiles of a block (tc16.cuh a_frag).
+__device__ __forceinline__ void a_parts(const Blk& a, bool neg,
+                                        uint32_t (&ah)[2][4],
+                                        uint32_t (&al)[2][4]) {
+  tc::a_frag(a[0], neg, ah[0], al[0]);
+  tc::a_frag(a[1], neg, ah[1], al[1]);
+}
+
+// The same from a block already split: its high and low parts.
+__device__ __forceinline__ void a_split(const Blk& h, const Blk& l,
+                                        uint32_t (&ah)[2][4],
+                                        uint32_t (&al)[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int perm[4] = {0, 2, 1, 3};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      ah[kk][r] = __float_as_uint(h[kk][perm[r]]);
+      al[kk][r] = __float_as_uint(l[kk][perm[r]]);
+    }
+  }
+}
+
+// acc += the three TF32 products of one k tile of 8, formed on a zero
+// accumulator and added to acc by a float32 add.  The tensor cores do not
+// round a sum to nearest as an add does: chained over the 24 products of a
+// 64-deep sum, their accumulation left P past ORACLE_TOL from the float64
+// filter after 200 one-observation steps at d = 64 on an H100 (ROADMAP
+// C7's test; `64: chained k tiles` of scripts/warp_filter_variants.py),
+// where tests/test_torch_filter_tc64.py's emulation, every sum rounded to
+// nearest, stays within it; a k tile at a time keeps each chain three
+// products long.
+__device__ __forceinline__ void mma3_add(float (&acc)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[2],
+                                         const uint32_t (&bl)[2]) {
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  tc::mma3(part, ah, al, bh, bl);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r] += part[r];
+}
+
+// acc += A n^T over a 16 x 16 x 16 product, A given as its TF32 parts.
+__device__ __forceinline__ void mul_acc(float (&acc)[2][4],
+                                        const uint32_t (&ah)[2][4],
+                                        const uint32_t (&al)[2][4],
+                                        const Blk& n) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t nh[4], nl[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tc::split(n[kk][r], nh[r], nl[r]);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const uint32_t bh[2] = {nh[2 * nj], nh[2 * nj + 1]};
+      const uint32_t bl[2] = {nl[2 * nj], nl[2 * nj + 1]};
+      mma3_add(acc[nj], ah[kk], al[kk], bh, bl);
+    }
+  }
+}
+
+// The same with n already split into its high and low parts.
+__device__ __forceinline__ void mul_acc_split(float (&acc)[2][4],
+                                              const uint32_t (&ah)[2][4],
+                                              const uint32_t (&al)[2][4],
+                                              const Blk& nh, const Blk& nl) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const uint32_t bh[2] = {__float_as_uint(nh[kk][2 * nj]),
+                              __float_as_uint(nh[kk][2 * nj + 1])};
+      const uint32_t bl[2] = {__float_as_uint(nl[kk][2 * nj]),
+                              __float_as_uint(nl[kk][2 * nj + 1])};
+      mma3_add(acc[nj], ah[kk], al[kk], bh, bl);
+    }
+}
+
+__device__ __forceinline__ void blk_scale(Blk& x, float s) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[nj][r] *= s;
+}
+
+// In place, in registers: the inverse of the symmetric 32 x 32 matrix
+// [a bt^T; bt dd] (its lower blocks; the upper-right one is not read), as
+// the d <= 32 tier's sym_inv_scaled without the scale: bu becomes the
+// upper-right block -Y, bt its exact transpose.
+__device__ __forceinline__ void inv32(Blk& a, Blk& bt, Blk& dd, Blk& bu, int g,
+                                      int t, int lane) {
+  tc::inv16<false>(a, g, t, lane);             // A^-1
+  Blk x, z;
+  tc::blk_mul<false, false>(x, a, bt);         // X = A^-1 B
+  tc::blk_mul<false, false>(z, bt, a);         // Z = B^T A^-1
+  tc::blk_mul<true, true>(dd, z, bt);          // S = D - Z B
+  tc::inv16<false>(dd, g, t, lane);            // S^-1
+  tc::blk_mul<false, false>(bu, x, dd);        // Y = X S^-1
+  tc::blk_mul<true, false>(a, bu, x);          // TL = A^-1 + Y X^T
+  blk_scale(bu, -1.0f);
+  tc::transpose(bt, bu, g, t);                 // -Y^T, exactly
+}
+
+// A chain's team: W warps (sub-warp s, lane), every chain of a block in
+// lockstep, so that __syncthreads orders a team's shared memory (every
+// chain runs the same steps: a chain index past B runs the last chain's
+// inputs and stores nothing).  Work unit n of a phase goes to sub-warp
+// n % W.
+struct Team {
+  int s, lane, g, t;
+};
+
+// 1 / the mean |diagonal| over the d real entries (1 for a zero
+// diagonal), the same on every thread of the team: each warp sums its rows
+// (row s * 32 + lane, + 32 W, ...), the W sums through `red` in order.
+template <int S, int W>
+__device__ __forceinline__ float inverse_scale(const float* m, float* red,
+                                               int d, const Team& tm) {
+  float sum = 0.0f;
+  for (int j = tm.s * kLanes + tm.lane; j < d; j += W * kLanes)
+    sum += fabsf(m[j * S + j]);
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2) sum += __shfl_xor_sync(kFull, sum, o);
+  if (tm.lane == 0) red[tm.s] = sum;
+  __syncthreads();
+  sum = red[0];
+#pragma unroll
+  for (int w = 1; w < W; ++w) sum += red[w];
+  float scale = sum / static_cast<float>(d);
+  scale = scale > 0.0f ? scale : 1.0f;
+  return 1.0f / scale;
+}
+
+// acc (+)= (NEG ? -1 : 1) sum over kb < KB of A's block (ai, a0 + kb) times
+// N's block (ni, n0 + kb) transposed, A and N in shared memory.
+template <int S, int KB, bool NEG>
+__device__ __forceinline__ void blk_prod(Blk& acc, const float* a, int ai,
+                                         int a0, const float* n, int ni,
+                                         int n0, int g, int t) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    Blk x, y;
+    ld_blk<S>(x, a, ai, a0 + kb, g, t);
+    ld_blk<S>(y, n, ni, n0 + kb, g, t);
+    uint32_t ah[2][4], al[2][4];
+    a_parts(x, NEG, ah, al);
+    mul_acc(acc, ah, al, y);
+  }
+}
+
+// The lower blocks (i, j <= i) of an NB x NB block matrix, the n-th in row
+// order.
+template <int NB>
+__device__ __forceinline__ void lower_block(int n, int& i, int& j) {
+  i = 0;
+  while (n > i) {
+    n -= i + 1;
+    ++i;
+  }
+  j = n;
+}
+
+// In place: the inverse of the symmetric m (its lower blocks; identity
+// past d), scaled as sym_inv_scaled, by the Schur blocks at 32, over the
+// team's W warps: the 32 x 32 (or, at DP = 48, 16 x 16) inverses of A and
+// of S on sub-warp 0, every block product on the sub-warp of its block.
+// w is the chain's work matrix (X in its blocks (0..1, 0..NB-3), X^T in
+// (2.., 0..1)).  Every block of the result is written.
+template <int NB, int W>
+__device__ __forceinline__ void sym_inv64(float* m, float* w, float* red,
+                                          int d, const Team& tm) {
+  constexpr int S = Dim<NB>::kS;
+  constexpr int NR = NB - 2;  // blocks of D
+  const int g = tm.g, t = tm.t;
+  const float inv_s = inverse_scale<S, W>(m, red, d, tm);
+#pragma unroll
+  for (int n = 0; n < NB * (NB + 1) / 2; ++n) {
+    if (n % W != tm.s) continue;
+    int bi, bj;
+    lower_block<NB>(n, bi, bj);
+    Blk x;
+    ld_blk<S>(x, m, bi, bj, g, t);
+    blk_scale(x, inv_s);
+    st_blk<S>(x, m, bi, bj, g, t);
+  }
+  __syncthreads();
+  if (tm.s == 0) {  // A^-1
+    Blk a, bt, dd, bu;
+    ld_blk<S>(a, m, 0, 0, g, t);
+    ld_blk<S>(bt, m, 1, 0, g, t);
+    ld_blk<S>(dd, m, 1, 1, g, t);
+    inv32(a, bt, dd, bu, g, t, tm.lane);
+    st_blk<S>(a, m, 0, 0, g, t);
+    st_blk<S>(bu, m, 0, 1, g, t);
+    st_blk<S>(bt, m, 1, 0, g, t);
+    st_blk<S>(dd, m, 1, 1, g, t);
+  }
+  __syncthreads();
+  // X = A^-1 B (B^T is m's block row 2..), and X^T
+#pragma unroll
+  for (int n = 0; n < 2 * NR; ++n) {
+    if (n % W != tm.s) continue;
+    const int bi = n / NR, j = n % NR;
+    Blk acc = {};
+    blk_prod<S, 2, false>(acc, m, bi, 0, m, 2 + j, 0, g, t);
+    Blk tr;
+    tc::transpose(tr, acc, g, t);
+    st_blk<S>(acc, w, bi, j, g, t);
+    st_blk<S>(tr, w, 2 + j, bi, g, t);
+  }
+  __syncthreads();
+  // S = D - B^T X, its lower blocks
+#pragma unroll
+  for (int n = 0; n < NR * (NR + 1) / 2; ++n) {
+    if (n % W != tm.s) continue;
+    int i, j;
+    lower_block<NR>(n, i, j);
+    Blk acc;
+    ld_blk<S>(acc, m, 2 + i, 2 + j, g, t);
+    blk_prod<S, 2, true>(acc, m, 2 + i, 0, w, 2 + j, 0, g, t);
+    st_blk<S>(acc, m, 2 + i, 2 + j, g, t);
+  }
+  __syncthreads();
+  if (tm.s == 0) {  // S^-1
+    if constexpr (NR == 2) {
+      Blk a, bt, dd, bu;
+      ld_blk<S>(a, m, 2, 2, g, t);
+      ld_blk<S>(bt, m, 3, 2, g, t);
+      ld_blk<S>(dd, m, 3, 3, g, t);
+      inv32(a, bt, dd, bu, g, t, tm.lane);
+      st_blk<S>(a, m, 2, 2, g, t);
+      st_blk<S>(bu, m, 2, 3, g, t);
+      st_blk<S>(bt, m, 3, 2, g, t);
+      st_blk<S>(dd, m, 3, 3, g, t);
+    } else {
+      Blk a;
+      ld_blk<S>(a, m, 2, 2, g, t);
+      tc::inv16<false>(a, g, t, tm.lane);
+      st_blk<S>(a, m, 2, 2, g, t);
+    }
+  }
+  __syncthreads();
+  // Y = X S^-1: -Y upper right, -Y^T lower left
+#pragma unroll
+  for (int n = 0; n < 2 * NR; ++n) {
+    if (n % W != tm.s) continue;
+    const int bi = n / NR, j = n % NR;
+    Blk acc = {};
+    blk_prod<S, NR, true>(acc, w, bi, 0, m, 2 + j, 2, g, t);
+    Blk tr;
+    tc::transpose(tr, acc, g, t);
+    st_blk<S>(acc, m, bi, 2 + j, g, t);
+    st_blk<S>(tr, m, 2 + j, bi, g, t);
+  }
+  __syncthreads();
+  // TL = A^-1 + Y X^T: its blocks (0, 0), (1, 0), (1, 1); (0, 1) the
+  // transpose of (1, 0)
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    if (n % W != tm.s) continue;
+    int bi, bj;
+    lower_block<2>(n, bi, bj);
+    Blk acc;
+    ld_blk<S>(acc, m, bi, bj, g, t);
+    blk_prod<S, NR, true>(acc, m, bi, 2, w, bj, 0, g, t);  // -(-Y) X^T
+    st_blk<S>(acc, m, bi, bj, g, t);
+    if (bi != bj) {
+      Blk tr;
+      tc::transpose(tr, acc, g, t);
+      st_blk<S>(tr, m, bj, bi, g, t);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NB * NB; ++n) {
+    if (n % W != tm.s) continue;
+    Blk x;
+    ld_blk<S>(x, m, n / NB, n % NB, g, t);
+    blk_scale(x, inv_s);
+    st_blk<S>(x, m, n / NB, n % NB, g, t);
+  }
+  __syncthreads();
+}
+
+// Into w: the lower blocks (i, j <= i) of block row I of F P F^T + Q: X_I
+// = F_I P (P symmetric, so its block (j, kb) is the N of block (kb, j)) in
+// registers, then X_I F^T + Q.
+template <int NB, int I>
+__device__ __forceinline__ void predict_row(const float* p, float* w,
+                                            const float* fh, const float* fl,
+                                            const float* q, int g, int t) {
+  constexpr int S = Dim<NB>::kS;
+  float x[NB][2][4] = {};
+  // one k block at a time: unrolled, the next blocks' loads were hoisted
+  // past 255 registers (16 independent products a block are ILP enough)
+#pragma unroll 1
+  for (int kb = 0; kb < NB; ++kb) {
+    Blk h, l;
+    ld_blk<S>(h, fh, I, kb, g, t);
+    ld_blk<S>(l, fl, I, kb, g, t);
+    uint32_t ah[2][4], al[2][4];
+    a_split(h, l, ah, al);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Blk n;
+      ld_blk<S>(n, p, j, kb, g, t);
+      mul_acc(x[j], ah, al, n);
+    }
+  }
+  float c[I + 1][2][4];
+#pragma unroll
+  for (int j = 0; j <= I; ++j) ld_blk<S>(c[j], q, I, j, g, t);
+#pragma unroll
+  for (int kb = 0; kb < NB; ++kb) {
+    uint32_t ah[2][4], al[2][4];
+    a_parts(x[kb], false, ah, al);
+#pragma unroll
+    for (int j = 0; j <= I; ++j) {
+      Blk h, l;
+      ld_blk<S>(h, fh, j, kb, g, t);
+      ld_blk<S>(l, fl, j, kb, g, t);
+      mul_acc_split(c[j], ah, al, h, l);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j <= I; ++j) st_blk<S>(c[j], w, I, j, g, t);
+}
+
+// The block rows of F P F^T + Q over the team: row I to the sub-warp of
+// the snake order 0, 1, .., W-1, W-1, .., 0, 0, 1, .. (row I has I + 1
+// blocks of the second product, so the sub-warps' shares even out).
+template <int NB, int W>
+__device__ __forceinline__ void predict_cov(const float* p, float* w,
+                                            const float* fh, const float* fl,
+                                            const float* q, const Team& tm) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int r = i % (2 * W);
+    if ((r < W ? r : 2 * W - 1 - r) != tm.s) continue;
+    switch (i) {
+      case 0: predict_row<NB, 0>(p, w, fh, fl, q, tm.g, tm.t); break;
+      case 1: predict_row<NB, 1>(p, w, fh, fl, q, tm.g, tm.t); break;
+      case 2: predict_row<NB, 2>(p, w, fh, fl, q, tm.g, tm.t); break;
+      default:
+        if constexpr (NB > 3)
+          predict_row<NB, (NB > 3 ? 3 : 0)>(p, w, fh, fl, q, tm.g, tm.t);
+        break;
+    }
+  }
+}
+
+// Entry j of M v for the shared matrix M (symmetric: its column j read as
+// row j, 32 neighbouring floats a warp) and the vector v, zero past d.
+template <int NB>
+__device__ __forceinline__ float col_vec(const float* m, const float* v,
+                                         int j) {
+  constexpr int S = Dim<NB>::kS;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < Dim<NB>::kDP; ++k) acc = fmaf(m[k * S + j], v[k], acc);
+  return acc;
+}
+
+// params: the (4, DP, s_in) F, F^T, Q, W of the other tiers, zero past d.
+template <int NB>
+__global__ void __launch_bounds__(Dim<NB>::kChains * Dim<NB>::kWarps * kLanes,
+                                  1)
+warp_filter_tc64_kernel(const float* __restrict__ ys,
+                        const float* __restrict__ m0,
+                        const float* __restrict__ p0,
+                        const float* __restrict__ hr_t,
+                        const float* __restrict__ params,
+                        float* __restrict__ means, float* __restrict__ mf,
+                        float* __restrict__ pf, int64_t T, int64_t B, int d,
+                        int dy, int s_in) {
+  using D = Dim<NB>;
+  constexpr int DP = D::kDP, S = D::kS, MAT = D::kMat, W = D::kWarps;
+  constexpr int TEAM = W * kLanes;
+  extern __shared__ __align__(16) float smem[];
+  float* fh = smem;             // F's TF32 high part
+  float* fl = smem + MAT;       // F's TF32 low part
+  float* q = smem + 2 * MAT;    // Q, its padded diagonal 1
+  float* w = smem + 3 * MAT;    // W
+  const int wid = threadIdx.x / kLanes;
+  const int chain = wid / W;
+  Team tm;
+  tm.s = wid % W;
+  tm.lane = threadIdx.x % kLanes;
+  tm.g = tm.lane >> 2;
+  tm.t = tm.lane & 3;
+  const int r0 = tm.s * kLanes + tm.lane;  // the thread's first row
+  const int64_t b_raw = static_cast<int64_t>(blockIdx.x) * D::kChains + chain;
+  const bool valid = b_raw < B;
+  const int64_t b = valid ? b_raw : B - 1;
+  const int mat_in = DP * s_in;
+  for (int i = threadIdx.x; i < DP * S; i += blockDim.x) {
+    const int r = i / S, c = i % S;
+    const bool in = c < DP;
+    const float fv = in ? params[r * s_in + c] : 0.0f;
+    uint32_t hi, lo;
+    tc::split(fv, hi, lo);
+    fh[i] = __uint_as_float(hi);
+    fl[i] = __uint_as_float(lo);
+    q[i] = in ? params[2 * mat_in + r * s_in + c] +
+                    (r == c && r >= d ? 1.0f : 0.0f)
+              : 0.0f;
+    w[i] = in ? params[3 * mat_in + r * s_in + c] : 0.0f;
+  }
+  float* pm = smem + 4 * MAT + chain * (2 * MAT + D::kVec);
+  float* wk = pm + MAT;
+  float* mv = wk + MAT;
+  float* mp = mv + DP;
+  float* hv = mp + DP;
+  float* y_s = hv + DP + tm.s * kYChunk;  // each warp's observation chunk
+  float* red = hv + DP + W * kYChunk;     // the warps' partial sums
+  for (int i = r0; i < 2 * MAT + D::kVec; i += TEAM) pm[i] = 0.0f;
+  __syncthreads();
+  // the state handed in; identity past d
+  for (int j = r0; j < DP; j += TEAM) {
+    if (j < d) {
+      mv[j] = m0[j * B + b];
+      for (int i = 0; i <= j; ++i) {
+        const float v = p0[sym_slot(i, j, d) * B + b];
+        pm[i * S + j] = v;
+        pm[j * S + i] = v;
+      }
+    } else {
+      pm[j * S + j] = 1.0f;
+    }
+  }
+  __syncthreads();  // the parameters and the state are in place
+
+  for (int64_t step = 0; step < T; ++step) {
+    const float* yt = ys + step * dy * B + b;
+    float y_next = tm.lane < dy ? yt[tm.lane * B] : 0.0f;
+
+    // m_pred = F m (F = its high part + its low part exactly), row j
+    // summed from column j on, so that the lanes read distinct banks
+    for (int j = r0; j < DP; j += TEAM) {
+      float acc = 0.0f;
+      for (int kk = 0; kk < DP; ++kk) {
+        const int k = j + kk < DP ? j + kk : j + kk - DP;
+        acc = fmaf(fh[j * S + k] + fl[j * S + k], mv[k], acc);
+      }
+      mp[j] = acc;
+    }
+    // P_pred = F P F^T + Q into the work matrix ; L = P_pred^-1
+    predict_cov<NB, W>(pm, wk, fh, fl, q, tm);
+    __syncthreads();
+    sym_inv64<NB, W>(wk, pm, red, d, tm);
+
+    // xi_j = sum_k HR[j][k] y_t[k], k in order, a chunk at a time (into h;
+    // each warp stages the chunk for its own rows)
+    for (int c = 0; c < dy; c += kYChunk) {
+      if (c > 0) y_next = c + tm.lane < dy ? yt[(c + tm.lane) * B] : 0.0f;
+      __syncwarp();  // the warp is done with the last chunk
+      y_s[tm.lane] = y_next;
+      __syncwarp();
+      const int n = dy - c < kYChunk ? dy - c : kYChunk;
+      for (int j = r0; j < d; j += TEAM) {
+        const float* hr = hr_t + static_cast<int64_t>(c) * d + j;
+        float xi = c > 0 ? hv[j] : 0.0f;
+        for (int k = 0; k < n; ++k, hr += d)
+          xi = c + k == 0 ? *hr * y_s[k] : fmaf(*hr, y_s[k], xi);
+        hv[j] = xi;
+      }
+    }
+    // h = L m_pred + xi (each thread its own entries; zero past d)
+    for (int j = r0; j < d; j += TEAM)
+      hv[j] = col_vec<NB>(wk, mp, j) + hv[j];
+    // L + W, its lower blocks, into P's matrix ; P = (L + W)^-1
+#pragma unroll
+    for (int n = 0; n < NB * (NB + 1) / 2; ++n) {
+      if (n % W != tm.s) continue;
+      int bi, bj;
+      lower_block<NB>(n, bi, bj);
+      Blk x, o;
+      ld_blk<S>(x, wk, bi, bj, tm.g, tm.t);
+      ld_blk<S>(o, w, bi, bj, tm.g, tm.t);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) x[nj][r] += o[nj][r];
+      st_blk<S>(x, pm, bi, bj, tm.g, tm.t);
+    }
+    __syncthreads();
+    sym_inv64<NB, W>(pm, wk, red, d, tm);
+    // P's diagonal blocks: the lower triangle the mirror of the upper
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      if (bi % W != tm.s) continue;
+      Blk x;
+      ld_blk<S>(x, pm, bi, bi, tm.g, tm.t);
+      tc::mirror_upper(x, tm.g, tm.t);
+      st_blk<S>(x, pm, bi, bi, tm.g, tm.t);
+    }
+    __syncthreads();
+    // m = P h
+    for (int j = r0; j < d; j += TEAM) {
+      const float m = col_vec<NB>(pm, hv, j);
+      mv[j] = m;
+      if (valid) means[(step * d + j) * B + b] = m;
+    }
+    __syncthreads();
+  }
+
+  if (valid) {
+    for (int j = r0; j < d; j += TEAM) {
+      mf[j * B + b] = mv[j];
+      for (int i = 0; i <= j; ++i) pf[sym_slot(i, j, d) * B + b] = pm[i * S + j];
+    }
+  }
+}
+
+// The state's padding: 48 to d = 48, else 64.
+constexpr int blocks(int d) { return d <= 48 ? 3 : 4; }
+
+template <int NB>
+int launch(const float* ys, const float* m0, const float* p0,
+           const float* hr_t, const float* params, float* means, float* mf,
+           float* pf, int64_t T, int64_t B, int d, int dy, int s_in,
+           cudaStream_t stream) {
+  const int bytes = 4 * Dim<NB>::kSmemFloats;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      warp_filter_tc64_kernel<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int chains = Dim<NB>::kChains;
+  const unsigned grid = static_cast<unsigned>((B + chains - 1) / chains);
+  const unsigned threads = chains * Dim<NB>::kWarps * kLanes;
+  warp_filter_tc64_kernel<NB><<<grid, threads, bytes, stream>>>(
+      ys, m0, p0, hr_t, params, means, mf, pf, T, B, d, dy, s_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NB>
+int blocks_per_sm() {
+  int n = 0;
+  if (cudaFuncSetAttribute(warp_filter_tc64_kernel<NB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           4 * Dim<NB>::kSmemFloats) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, warp_filter_tc64_kernel<NB>,
+          Dim<NB>::kChains * Dim<NB>::kWarps * kLanes,
+          4 * Dim<NB>::kSmemFloats) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace tc64
+
 int64_t smem_bytes(int dp, int s, int chains, bool params_shared,
                    bool chain_shared) {
   const int64_t mat = static_cast<int64_t>(dp) * s;
@@ -933,6 +1595,39 @@ int rxt_warp_filter_tc(int d, int dy, const float* ys, const float* m0,
                           dy, s_in, chains, st);
   return tc::launch<tc::kDim>(ys, m0, p0, hr_t, params, means, mf, pf, T, B,
                               d, dy, s_in, chains, st);
+}
+
+// The tensor-core tier past 32 (32 < d <= 64, the state padded to 48 to
+// d = 48, else 64): a block's shared bytes (ops/fused_filter.py tc64_plan
+// computes the same), the blocks an SM holds (or -1), and its launch.
+// params is the other tiers' device (4, DP, s_in) F, F^T, Q, W, zero past
+// d.
+int64_t rxt_warp_filter_tc64_smem_bytes(int d) {
+  return 4 * static_cast<int64_t>(tc64::blocks(d) == 3
+                                      ? tc64::Dim<3>::kSmemFloats
+                                      : tc64::Dim<4>::kSmemFloats);
+}
+
+int rxt_warp_filter_tc64_blocks_per_sm(int d) {
+  return tc64::blocks(d) == 3 ? tc64::blocks_per_sm<3>()
+                              : tc64::blocks_per_sm<4>();
+}
+
+int rxt_warp_filter_tc64(int d, int dy, const float* ys, const float* m0,
+                         const float* p0, const float* hr_t,
+                         const float* params, float* means, float* mf,
+                         float* pf, int64_t T, int64_t B, int s_in,
+                         void* stream) {
+  const int nb = tc64::blocks(d);
+  if (d <= tc::kDim || d > 64 || dy < 1 || T < 1 || B < 1 ||
+      s_in < 16 * nb || s_in % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nb == 3)
+    return tc64::launch<3>(ys, m0, p0, hr_t, params, means, mf, pf, T, B, d,
+                           dy, s_in, st);
+  return tc64::launch<4>(ys, m0, p0, hr_t, params, means, mf, pf, T, B, d,
+                         dy, s_in, st);
 }
 
 const char* rxt_error_string(int code) {

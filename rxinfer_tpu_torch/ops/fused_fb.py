@@ -17,7 +17,7 @@ Kernels (``csrc/fused_fb.cu`` for K <= ``REG_MAX_STATES``,
     chain), then, with more than one tile, xi_sum from the per-tile partials
     in tile order (``pick_tile`` sets the tile; ``pick_tile_wide`` for the
     wide kernels, whose marginal pass runs a half-warp a tile and chain at
-    K <= 16).
+    K <= 16 and a warp above, ``marginal_plan``).
 The register kernels keep a chain's states on up to 8 lanes; the wide ones
 run a chain on a warp and take any K the tensors' memory allows, as the JAX
 kernels do.  Above 8 states ``fused_fb_batched`` launches the wide kernels
@@ -79,6 +79,10 @@ MIN_TILE_STEPS = 4                 # a partial per tile costs K*K floats a chain
 # bounds, ``kMargBlocksPerSM`` CTAs of four warps); ``pick_tile_wide`` puts
 # all (tile, chain) half-warps on the card in one wave of this many.
 MARGINAL_WARPS_PER_SM = 20
+# The same for the marginal kernel at HALF_WARP_STATES < K <= ROW_STATES
+# (``kMargRowsBlocksPerSM`` CTAs of four warps, a warp a (tile, chain)).
+ROW_STATES = 32
+MARGINAL_ROW_WARPS_PER_SM = 16
 
 # wrapper calls that launched on CUDA tensors (the plain version on CPU
 # tensors counts none)
@@ -332,13 +336,42 @@ def pick_tile(bsz: int, t_len: int, sm_count: int) -> int:
         bsz, t_len)
 
 
-def pick_tile_wide(bsz: int, t_len: int, sm_count: int) -> int:
-    """Steps per tile of the wide kernels' marginal pass, which runs a
-    half-warp a (tile, chain) (at K <= 16; a warp above): the fewest steps
-    a tile, ceil(T / n), for the most tiles n whose B * n half-warps the
-    card holds at once (``MARGINAL_WARPS_PER_SM`` warps an SM, one wave),
-    but at least ``MIN_TILE_STEPS`` and at most T."""
-    units = sm_count * MARGINAL_WARPS_PER_SM * 2
+def marginal_plan(k: int) -> dict:
+    """How the wide marginal pass runs at K > 8 states: its kernel, the
+    lanes of a (tile, chain) unit, the warps an SM holds by the kernel's
+    launch bounds (``units_per_sm`` units), and at HALF_WARP_STATES < K <=
+    ROW_STATES the row stride of the chain's table and of each step's stage
+    in shared memory (``marg_row_stride`` of the source: K % 4 == 0 whole
+    float4s, an odd number of them; else odd) and whether the per-step xi
+    goes out as 16-byte stores (K % 4 == 0)."""
+    if k <= REG_MAX_STATES:
+        raise ValueError(f"the wide marginal pass takes K > {REG_MAX_STATES}")
+    if k <= HALF_WARP_STATES:
+        return {"kernel": "fb_wide_marg_half_kernel", "lanes_per_unit": 16,
+                "warps_per_sm": MARGINAL_WARPS_PER_SM,
+                "units_per_sm": 2 * MARGINAL_WARPS_PER_SM}
+    if k <= ROW_STATES:
+        if k % 4:
+            stride = k | 1
+        else:
+            stride = k + 4 if (k // 4) % 2 == 0 else k + 8
+        return {"kernel": "fb_wide_marg_rows_kernel", "lanes_per_unit": 32,
+                "warps_per_sm": MARGINAL_ROW_WARPS_PER_SM,
+                "units_per_sm": MARGINAL_ROW_WARPS_PER_SM,
+                "row_stride": stride, "vector_stores": k % 4 == 0}
+    return {"kernel": "fb_wide_marg_kernel", "lanes_per_unit": 32,
+            "warps_per_sm": MARGINAL_WARPS_PER_SM,
+            "units_per_sm": 2 * MARGINAL_WARPS_PER_SM}
+
+
+def pick_tile_wide(bsz: int, t_len: int, sm_count: int, k: int = 16) -> int:
+    """Steps per tile of the wide kernels' marginal pass at K states: the
+    fewest steps a tile, ceil(T / n), for the most tiles n whose B * n
+    units the card holds at once (``marginal_plan(k)["units_per_sm"]`` an
+    SM, one wave: half-warps at K <= 16, warps at 16 < K <= 32), but at
+    least ``MIN_TILE_STEPS`` and at most T.  Past 32 states the rule of
+    K <= 16 stays."""
+    units = sm_count * marginal_plan(k)["units_per_sm"]
     n = max(1, units // max(bsz, 1))
     return max(1, min(t_len, max(MIN_TILE_STEPS, -(-t_len // n))))
 
@@ -443,16 +476,22 @@ def _library(wide: bool):
                                              i64, i64, i64, i64, p]
             lib.rxt_fb_wide_serial_plan.argtypes = [ci, pi, pi]
             lib.rxt_fb_wide_marg_blocks_per_sm.argtypes = []
+            lib.rxt_fb_wide_marg_rows_blocks_per_sm.argtypes = []
             for fn in (lib.rxt_fb_wide_serial, lib.rxt_fb_wide_marg,
                        lib.rxt_fb_wide_serial_plan,
                        lib.rxt_fb_wide_marg_warps_per_sm,
-                       lib.rxt_fb_wide_marg_blocks_per_sm):
+                       lib.rxt_fb_wide_marg_blocks_per_sm,
+                       lib.rxt_fb_wide_marg_rows_warps_per_sm,
+                       lib.rxt_fb_wide_marg_rows_blocks_per_sm):
                 fn.restype = ci
-            if lib.rxt_fb_wide_marg_warps_per_sm() != MARGINAL_WARPS_PER_SM:
-                raise RuntimeError(
-                    "csrc/fused_fb_wide.cu bounds its marginal kernel to "
-                    f"{lib.rxt_fb_wide_marg_warps_per_sm()} warps an SM, "
-                    f"the tile rule expects {MARGINAL_WARPS_PER_SM}")
+            for fn, want in ((lib.rxt_fb_wide_marg_warps_per_sm,
+                              MARGINAL_WARPS_PER_SM),
+                             (lib.rxt_fb_wide_marg_rows_warps_per_sm,
+                              MARGINAL_ROW_WARPS_PER_SM)):
+                if fn() != want:
+                    raise RuntimeError(
+                        f"csrc/fused_fb_wide.cu bounds a marginal kernel to "
+                        f"{fn()} warps an SM, the tile rule expects {want}")
         else:
             lib.rxt_fb_fwd.argtypes = [ci, p, p, p, p, p, i64, i64, p]
             lib.rxt_fb_fwd.restype = ci
@@ -485,13 +524,17 @@ def wide_serial_plan(k: int, device) -> dict:
             ("device" if k > 32 else "registers")}
 
 
-def wide_marginal_warps_per_sm(device) -> int:
-    """Warps an SM of ``device`` holds of the K <= 16 marginal kernel with
-    the per-step xi, as the CUDA occupancy calculator reads its registers
-    (``pick_tile_wide`` assumes ``MARGINAL_WARPS_PER_SM``)."""
+def wide_marginal_warps_per_sm(device, k: int = 16) -> int:
+    """Warps an SM of ``device`` holds of the marginal kernel at K states
+    (K <= 16, or 16 < K <= 32 with the float4 stores) with the per-step xi,
+    as the CUDA occupancy calculator reads its registers and shared memory
+    (``pick_tile_wide`` assumes ``marginal_plan(k)["warps_per_sm"]``)."""
     lib = _library(wide=True)
+    fn = (lib.rxt_fb_wide_marg_rows_blocks_per_sm
+          if HALF_WARP_STATES < k <= ROW_STATES
+          else lib.rxt_fb_wide_marg_blocks_per_sm)
     with torch.cuda.device(device):
-        return 4 * lib.rxt_fb_wide_marg_blocks_per_sm()
+        return 4 * fn()
 
 
 def _check_dims(t_len, k):
@@ -597,8 +640,9 @@ def fb_forward(log_prior, log_trans, log_evidence):
 
 def device_tile(bsz: int, t_len: int, device, k: int) -> int:
     """The marginal tile ``fb_backward`` takes at (B, T, K) on ``device``."""
-    rule = pick_tile_wide if k > REG_MAX_STATES else pick_tile
-    return rule(bsz, t_len, kernels.sm_count(device))
+    if k > REG_MAX_STATES:
+        return pick_tile_wide(bsz, t_len, kernels.sm_count(device), k)
+    return pick_tile(bsz, t_len, kernels.sm_count(device))
 
 
 def fb_backward(log_trans, log_evidence, alphas, per_step_xi: bool = False):

@@ -28,9 +28,11 @@ larger d, at any dy, launches a kernel of ``csrc/fused_filter_warp.cu`` (a
 chain on
 a warp; ``warp_plan`` picks the tier): to d = 32 ``warp_filter_tc_kernel``
 (the matrices in registers, the products and the Schur blocks of the
-inverses on the tensor cores in 3xTF32), past it ``warp_filter_kernel``
-(the matrices in shared memory or, past what a block holds, in a
-device-memory scratch).  The
+inverses on the tensor cores in 3xTF32), to d = 64
+``warp_filter_tc64_kernel`` (the same arithmetic on 16 x 16 blocks of
+matrices that sit in shared memory), past it ``warp_filter_kernel`` (the
+matrices in shared memory or, past what a block holds, in a device-memory
+scratch).  The
 wrapper takes the plain version when its tensors lie on the CPU and launches
 a kernel when they lie on a CUDA device; there is no fallback from a kernel
 to the plain version.  ``LAUNCHES`` counts kernel launches under
@@ -93,6 +95,15 @@ TC_STRIDE = 40
 TC_VEC_FLOATS = 3 * TC_DIM + WARP_Y_CHUNK + 8 * WARP_LANES
 TC_MIN_BLOCKS = 2
 TC_MAX_REGISTERS = 65_536 // (TC_MIN_BLOCKS * WARP_MAX_CHAINS * WARP_LANES)
+# The tensor-core tier past TC_DIM, d up to TC64_DIM: the state padded to 48
+# (d <= TC64_SMALL_DIM) or 64, both of a chain's matrices in shared memory at
+# rows padded + 8 floats apart, F's two TF32 parts, Q and W once a block;
+# TC64_CHAINS[padded] chains of TC64_WARPS[padded] warps a block, one block
+# an SM.
+TC64_DIM = 64
+TC64_SMALL_DIM = 48
+TC64_CHAINS = {48: 8, 64: 4}
+TC64_WARPS = {48: 1, 64: 2}    # warps a chain
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
 LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0, "fused_filter_warp": 0}
@@ -105,6 +116,32 @@ def launch_key(d: int, dy: int) -> str:
     return "fused_filter_wide" if d <= WIDE_MAX_DIM else "fused_filter_warp"
 
 
+def tc64_plan(d: int) -> dict:
+    """How ``warp_filter_tc64_kernel`` (``tier`` "tensor_cores_64") runs at
+    state dim ``d`` (32 < d <= 64): a chain on ``warps_per_chain`` warps
+    (one at DP = 48, two at 64: the block products of a step split between
+    them), the state padded to ``padded_dim`` (48 to d = 48, else 64), both
+    of a chain's matrices in shared memory at rows ``stride`` = padded + 8
+    floats apart (8 or 24 modulo the 32 banks: a quad's float2 fragment
+    loads take distinct banks), F's two TF32 parts, Q and W there once a
+    block, each chain's m, m_pred, h, each warp's observation chunk and
+    partial sum beside its matrices; their products and every Schur block
+    of the inverses on the tensor cores in 3xTF32.  ``chains_per_block``
+    chains a block and one block an SM: shared memory sets the occupancy
+    (``smem_bytes``, within an H100 block's 232,448)."""
+    dp = TC64_SMALL_DIM if d <= TC64_SMALL_DIM else TC64_DIM
+    stride = dp + 8
+    chains, warps = TC64_CHAINS[dp], TC64_WARPS[dp]
+    mat = dp * stride
+    vec = 3 * dp + warps * WARP_Y_CHUNK + 4
+    return {"tier": "tensor_cores_64", "lanes_per_chain": warps * WARP_LANES,
+            "warps_per_chain": warps, "padded_dim": dp, "stride": stride,
+            "chains_per_block": chains, "params": "shared",
+            "chain_matrices": "shared", "tensor_dim": dp,
+            "smem_bytes": 4 * (4 * mat + chains * (2 * mat + vec)),
+            "warps_per_sm": chains * warps}
+
+
 def warp_plan(d: int, smem_limit: int) -> dict:
     """How the warp kernels run at state dim ``d`` (> 16) on a device whose
     blocks may take ``smem_limit`` bytes of shared memory (232,448 on an
@@ -115,9 +152,13 @@ def warp_plan(d: int, smem_limit: int) -> dict:
     ``tensor_dim`` (24 to d = 24, else 32: the tiles past it are padding),
     F, Q and W in shared memory (``smem_bytes``, within any sm_90 block's
     limit), at most ``max_registers`` a thread, so ``warps_per_sm`` warps
-    an SM or more.  Past it, ``sweep_warp_plan``'s tiers."""
-    if d > TC_DIM:
+    an SM or more.  To d = ``TC64_DIM`` ``tc64_plan``'s tier, which needs
+    an H100's shared memory (the launcher refuses a smaller limit).  Past
+    it, ``sweep_warp_plan``'s tiers."""
+    if d > TC64_DIM:
         return sweep_warp_plan(d, smem_limit)
+    if d > TC_DIM:
+        return tc64_plan(d)
     return {"tier": "tensor_cores", "lanes_per_chain": WARP_LANES,
             "columns_per_lane": 1, "padded_dim": TC_DIM,
             "stride": TC_DIM + 4, "chains_per_block": WARP_MAX_CHAINS,
@@ -243,6 +284,13 @@ def _library(key: str):
             lib.rxt_warp_filter_tc_smem_bytes.restype = i64
             lib.rxt_warp_filter_tc_blocks_per_sm.argtypes = [ci, ci]
             lib.rxt_warp_filter_tc_blocks_per_sm.restype = ci
+            lib.rxt_warp_filter_tc64.argtypes = [
+                ci, ci, p, p, p, p, p, p, p, p, i64, i64, ci, p]
+            lib.rxt_warp_filter_tc64.restype = ci
+            lib.rxt_warp_filter_tc64_blocks_per_sm.argtypes = [ci]
+            lib.rxt_warp_filter_tc64_blocks_per_sm.restype = ci
+            lib.rxt_warp_filter_tc64_smem_bytes.argtypes = [ci]
+            lib.rxt_warp_filter_tc64_smem_bytes.restype = i64
         elif key == "fused_filter_wide":
             lib.rxt_wide_filter.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, p,
@@ -312,9 +360,14 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
     dp, stride, chains = (plan["padded_dim"], plan["stride"],
                           plan["chains_per_block"])
     tc = plan["tier"] == "tensor_cores"
+    tc64 = plan["tier"] == "tensor_cores_64"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
-    smem = (lib.rxt_warp_filter_tc_smem_bytes(chains) if tc else
-            lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs))
+    if tc:
+        smem = lib.rxt_warp_filter_tc_smem_bytes(chains)
+    elif tc64:
+        smem = lib.rxt_warp_filter_tc64_smem_bytes(d)
+    else:
+        smem = lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs)
     if smem != plan["smem_bytes"]:
         raise RuntimeError("csrc/fused_filter_warp.cu and warp_plan disagree "
                            f"on the shared bytes of {plan}")
@@ -328,6 +381,11 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), params.data_ptr(), means.data_ptr(),
             mf.data_ptr(), pf.data_ptr(), t_len, bsz, stride, chains, stream)
+    if tc64:
+        return lib.rxt_warp_filter_tc64(
+            d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+            hr_t.data_ptr(), params.data_ptr(), means.data_ptr(),
+            mf.data_ptr(), pf.data_ptr(), t_len, bsz, stride, stream)
     scratch = None if cs else torch.empty(
         (-(-bsz // chains) * chains * 2 * dp * stride,), dtype=torch.float32,
         device=ys.device)

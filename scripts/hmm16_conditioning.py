@@ -3,20 +3,25 @@
 CPU: the data of ``chip_smoke.py`` phase 16 (b) against the same size with
 two states a category.
 
-    python3 scripts/hmm16_conditioning.py [--iterations 1,5,20]
+    python3 scripts/hmm16_conditioning.py [--iterations 1,5,20] [--states K]
+        [--categories M]
 
 Run from the root of a checkout; needs no card (the port runs its plain
 versions with ``device="cpu"``; on the card the wide K4/K5 give the same
 bits as those plain versions).  For each emission model it takes the
-sampled rows of phase 16 (b) (B = 1024, T = 1000, K = 16, m = 8, seed 16),
+sampled rows of phase 16 (b) (B = 1024, T = 1000, K = 16, m = 8, seed 16;
+``--states 32 --categories 16``: phase 26 (b)'s K and m),
 runs ``batched_program`` on them in float32 and ``chip_smoke``'s float64
 structured VMP at each number of sweeps, and prints the largest difference
 of the state probabilities (absolute) and of the A and B concentrations
-(relative), and how far the float64 VMP itself moves after 20 sweeps when
-its initial B concentrations move by 1e-7 relative.  ``aliased``: state s
+(relative), the largest relative difference of the free energy from the
+float64 structured VMP's (``free_energy=True``, every sweep), and how far
+the float64 VMP itself moves after 20 sweeps when its initial B
+concentrations move by 1e-7 relative.  ``aliased``: state s
 emits category s % 8 with 0.8 (s and s + 8 alike), B's initial
 concentrations lean to it with a slope of 0.1 over the states;
-``distinct``: ``chip_smoke.hmm_k_emission``.  About a minute.
+``distinct``: ``chip_smoke.hmm_k_emission``.  About a minute (two at
+K = 32).
 """
 
 import argparse
@@ -40,7 +45,8 @@ def _chip_smoke():
 
 
 def aliased(seed: int):
-    """Observations and initial concentrations with two states a category."""
+    """Observations and initial concentrations with K / M states a
+    category."""
     rng = np.random.default_rng(seed)
     s = rng.integers(K, size=B)
     ys = np.empty((B, T), np.int64)
@@ -56,7 +62,10 @@ def aliased(seed: int):
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iterations", default="1,5,20")
+    parser.add_argument("--states", type=int, default=K)
+    parser.add_argument("--categories", type=int, default=M)
     args = parser.parse_args(argv)
+    globals()["K"], globals()["M"] = args.states, args.categories
     import torch
 
     import rxinfer_tpu_torch as rt
@@ -83,6 +92,15 @@ def main(argv) -> int:
                   f"{np.max(np.abs(state['A'].alpha.numpy() - a) / a):.3g}, "
                   f"B {np.max(np.abs(state['B'].alpha.numpy() - b) / b):.3g}"
                   " (relative)", flush=True)
+        its = max(int(x) for x in args.iterations.split(","))
+        _, prog = rt.batched_program(zoo.hmm(K, M), {"y": y}, iterations=its,
+                                     initialization=init, free_energy=True,
+                                     device="cpu")
+        _, fe, _ = prog({"y": y})
+        fe64 = cs.hmm_vmp_fe_float64(y, a0, b0, its)
+        print(f"{name} {its} sweeps: the free energy "
+              f"{np.max(np.abs(fe.numpy() - fe64) / np.abs(fe64)):.3g} "
+              "(relative) from the float64 one", flush=True)
         _, a, b = cs.hmm_vmp_float64(y, a0, b0, 20)
         rng = np.random.default_rng(0)
         moved = b0.astype(np.float64) * (1 + 1e-7 * rng.standard_normal(

@@ -20,10 +20,13 @@ masking and algebra faults (ragged edges, the ring's slots, the table's
 placement, the staged observations); it says nothing about registers,
 races the barriers hide, or speed.  The K > 32 passes are run again with a
 small shared-memory limit, so that the table goes to device memory and the
-ring's tile shrinks; the wide filter runs at d 9-16 and at d <= 8 with
+ring's tile shrinks; the marginal kernel past 16 states runs at K 17-32
+(float4 rows at K % 4 == 0, scalar ones else, ragged tiles); the wide
+filter runs at d 9-16 and at d <= 8 with
 dy > 8 (ragged blocks of chains, a staged group and a ragged last one, a
 vague prior); the warp filter runs each of its tiers (the
-tensor-core tier at d 17-32, a vague prior included; the sweep with
+tensor-core tier at d 17-32, a vague prior included; the tier past 32 at
+d 33-64; the sweep with
 parameters and chain matrices in shared memory, parameters in device
 memory, both in device memory), forced at small d by a small limit, and
 at a d past the last tier against a float64 filter; the wide K1/K2 run at
@@ -31,8 +34,8 @@ d 9-16 (a ragged block of chains, T = 1 and 2 and a ragged last round, W
 and Q per chain, bf16 moments, a vague prior), K2 on K1's own outputs; K8
 runs with W whole and in row tiles (forced by a small limit) on both
 payloads, bit for bit.
-A minute or two with four cores (the libraries in ``--out``, a temporary
-directory by default).
+About ten minutes with four cores, the plain K3 at d = 64 most of it (the
+libraries in ``--out``, a temporary directory by default).
 """
 
 import argparse
@@ -92,6 +95,7 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fdividef(float a, float b) { return a / b; }
 inline int __float2int_rn(float x) { return static_cast<int>(rintf(x)); }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -561,6 +565,10 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
                                        i64, i64, ci, ci, vp]
     lib.rxt_warp_filter_tc_smem_bytes.argtypes = [ci]
     lib.rxt_warp_filter_tc_smem_bytes.restype = i64
+    lib.rxt_warp_filter_tc64.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                                         vp, i64, i64, ci, vp]
+    lib.rxt_warp_filter_tc64_smem_bytes.argtypes = [ci]
+    lib.rxt_warp_filter_tc64_smem_bytes.restype = i64
     ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
     (f, q, h, r, w_obs, hr), (m0, p0, ys) = _filter_inputs(
         b, t, d, dy, seed, p0_scale)
@@ -568,8 +576,10 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
     dp, stride, chains = (plan["padded_dim"], plan["stride"],
                           plan["chains_per_block"])
     tc = plan["tier"] == "tensor_cores"
+    tc64 = plan["tier"] == "tensor_cores_64"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
     assert (lib.rxt_warp_filter_tc_smem_bytes(chains) if tc else
+            lib.rxt_warp_filter_tc64_smem_bytes(d) if tc64 else
             lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs)) == \
         plan["smem_bytes"], plan
     fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
@@ -588,6 +598,12 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
                 d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
                 hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
                 t, b, stride, chains, None) == 0
+            return out
+        if tc64:
+            assert lib.rxt_warp_filter_tc64(
+                d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+                hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
+                t, b, stride, None) == 0
             return out
         scratch = None if cs else torch.full(
             (-(-b // chains) * chains * 2 * dp * stride,), nan)
@@ -747,7 +763,9 @@ def main(argv) -> int:
     for b, t, k, tile in [(5, 37, 9, 4), (6, 70, 16, 70), (3, 33, 16, 8),
                           (7, 45, 16, 6), (3, 20, 13, 3), (3, 150, 16, 8),
                           (2, 131, 11, 5), (5, 40, 32, 4), (2, 130, 32, 8),
-                          (2, 100, 33, 8),
+                          (2, 100, 33, 8), (3, 37, 17, 8), (5, 11, 20, 4),
+                          (2, 9, 24, 3), (3, 13, 31, 5), (3, 9, 28, 9),
+                          (2, 2, 32, 1), (1, 1, 18, 1),
                           (2, 11, 33, 4), (3, 17, 64, 4), (1, 1, 12, 1),
                           (1, 2, 16, 1), (2, 2, 40, 1)]:
         ok &= check_fb_wide(libs["fused_fb_wide"], b, t, k, tile)
@@ -793,14 +811,21 @@ def main(argv) -> int:
     ok &= check_warp_filter(warp, 5, 3, 24, 30, oracle=True, p0_scale=1e6)
     ok &= check_warp_filter(warp, 5, 3, 29, 29, p0_scale=1e6)
     ok &= check_warp_filter(warp, 5, 3, 32, 40, oracle=True, p0_scale=1e6)
-    for b, t, d, dy in [(11, 4, 17, 1), (9, 3, 32, 40)]:
+    for b, t, d, dy in [(11, 4, 17, 1), (9, 3, 32, 40), (5, 3, 33, 5),
+                        (3, 2, 40, 33), (2, 1, 64, 8)]:
         ok &= check_warp_filter(warp, b, t, d, dy, sweep=True)
-    for b, t, d, dy in [(5, 3, 33, 5), (3, 2, 40, 33), (2, 1, 64, 8)]:
+    # d 33-64 on the tensor-core tier past 32: a ragged block at each
+    # padding (48: 9 = 8 + 1 chains; 64: 5 = 4 + 1), dy = 1 and four staged
+    # chunks, a vague prior on a well-conditioned W (twice the
+    # observations) against the float64 filter
+    for b, t, d, dy in [(9, 2, 33, 5), (9, 2, 48, 7), (5, 2, 64, 1),
+                        (5, 1, 64, 100)]:
         ok &= check_warp_filter(warp, b, t, d, dy)
+    ok &= check_warp_filter(warp, 3, 2, 64, 100, oracle=True, p0_scale=1e6)
     # the tiers past the shared parameters, forced by a small limit, and
     # the device-memory scratch at its own d
     ok &= check_warp_filter(warp, 9, 3, 20, 3, smem=10_000, sweep=True)
-    ok &= check_warp_filter(warp, 5, 3, 33, 5, smem=2_000)
+    ok &= check_warp_filter(warp, 5, 3, 33, 5, smem=2_000, sweep=True)
     ok &= check_warp_filter(warp, 2, 2, 168, 3, oracle=True)
     # K8: W whole, whole past the default 48 KB, and in row tiles (forced by
     # a small limit; the last tile short; column tiles past dx; four rows a

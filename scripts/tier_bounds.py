@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Bounds of two kernel tiers that no ``chip_smoke.py`` path times:
+"""Bounds of the warp K3 and the wide K5 at the shapes of the kernel table:
 
     python3 scripts/tier_bounds.py
 
-- the warp K3's sweep tier past d = 32 (``warp_filter_kernel``) at
-  (B, T, d, dy) = (2000, 50, 64, 64), where its time was measured:
+- the warp K3 at d = 64 (the tensor-core tier past 32,
+  ``warp_filter_tc64_kernel``; before it the sweep tier,
+  ``warp_filter_kernel``) at (B, T, d, dy) = (2000, 200, 64, 64), phase
+  26 (a)'s cell, and (2000, 50, 64, 64), where the sweep tier was timed:
   ``chip_smoke.filter_bound`` (observations and state read once, means and
-  the final state written once, against the plain step's operations at the
-  float32 rate; no tensor cores in this tier);
-- the wide K5's marginal kernel above 16 states (``fb_wide_marg_kernel``,
-  a warp a tile and chain) at phase 16 (a)'s check shapes with K > 16:
+  the final state written once, against the plain step's operations),
+  ``bound_ms`` with the tier's tensor-core operations (F P F^T + Q and the
+  inverses' block products at the top three Schur levels) at the 3xTF32
+  rate, ``bound_ms_fp32`` with every operation at the float32 rate;
+- the wide K5's marginal kernel above 16 states at phase 16 (a)'s check
+  shapes with K > 16 and at (1024, 1000, 32), phase 26 (b)'s cell:
   ``chip_smoke.fb_wide_bounds``' ``fused_fb_marg_wide`` entry (the table,
   evidence, alphas and betas read, gammas, the per-step xi and xi_sum
   written, against the scores', softmax's and xi's operations).
 
-The rates are the H100 SXM's (3.35e12 B/s, 67e12 float32 op/s,
-``chip_smoke.HBM_BYTES_PER_S`` / ``FP32_FLOPS``); the counts run on the
-CPU."""
+The rates are the H100 SXM's (3.35e12 B/s, 67e12 float32 op/s, 495e12 / 3
+3xTF32 op/s: ``chip_smoke.HBM_BYTES_PER_S`` / ``FP32_FLOPS`` /
+``TF32X3_FLOPS``); the counts run on the CPU (about 10 s at d = 64)."""
 
 import os
 import sys
@@ -28,20 +32,25 @@ import chip_smoke as cs  # noqa: E402
 
 
 def main() -> None:
-    b = cs.filter_bound(2000, 50, 64, 64)
-    print(f"warp K3 sweep tier (2000, 50, 64, 64): bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bytes']} bytes, "
-          f"{b['ops']} operations")
+    for b, t, d in ((2000, 200, 64), (2000, 50, 64)):
+        bnd = cs.filter_bound(b, t, d, d)
+        print(f"warp K3 at (B, T, d, dy) = ({b}, {t}, {d}, {d}): bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; the tier's "
+              f"{bnd['ops_tensor_cores']} tensor-core operations at "
+              f"3xTF32), {bnd['bound_ms_fp32']:.4f} ms at float32 only; "
+              f"{bnd['bytes']} bytes, {bnd['ops']} operations")
     for bsz, t_len, k in cs.FB_WIDE_CHECK_SHAPES:
         if k <= 16:
             continue
         m = cs.fb_wide_bounds(bsz, t_len, k)["fused_fb_marg_wide"]
-        print(f"fb_wide_marg_kernel (B, T, K) = ({bsz}, {t_len}, {k}): "
+        print(f"wide K5 marginals (B, T, K) = ({bsz}, {t_len}, {k}): "
               f"bound {m['bound_ms']:.6f} ms ({m['bound_by']}), "
               f"{m['bytes']} bytes, {m['ops']} operations")
-    m = cs.fb_wide_bounds(1024, 1000, 32)["fused_fb_marg_wide"]
-    print(f"fb_wide_marg_kernel (1024, 1000, 32): bound "
-          f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+    for name, m in cs.fb_wide_bounds(cs.HMM32_B, cs.HMM32_T,
+                                     cs.HMM32_K).items():
+        print(f"{name} ({cs.HMM32_B}, {cs.HMM32_T}, {cs.HMM32_K}): bound "
+              f"{m['bound_ms']:.4f} ms ({m['bound_by']}), {m['bytes']} "
+              f"bytes, {m['ops']} operations")
 
 
 if __name__ == "__main__":

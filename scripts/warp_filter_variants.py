@@ -7,10 +7,11 @@ sweep tier at the same d, and the card's ``mma.sync`` TF32 issue rate.
 
 Run from the root of a checkout on a machine with a CUDA device and
 ``nvcc``.  Default shapes: 10000x200x32, 10000x200x17, 10000x200x24,
-10000x200x25 and 2000x50x64, dy = d, the system of ``chip_smoke._filter_system`` and P0 =
-9 I.  Each variant is the source with one part of the step replaced,
-built with the package's flags (all ``nvcc`` runs started together) and
-launched through its ``extern "C"`` launcher.
+10000x200x25, 2000x50x64 and 2000x200x64, dy = d, the system of
+``chip_smoke._filter_system`` and P0 = 9 I.  Each variant is the source
+with one part of the step replaced, built with the package's flags (all
+``nvcc`` runs started together) and launched through its ``extern "C"``
+launcher.
 
 At d <= 32, the tensor-core tier (``warp_filter_tc_kernel``, the plan of
 ``ops/fused_filter.py`` ``device_warp_plan``):
@@ -36,6 +37,18 @@ At d <= 32, the tensor-core tier (``warp_filter_tc_kernel``, the plan of
   ``sweep_warp_plan`` (the tier past d = 32, and at these d before the
   tensor-core tier; the max difference between the two tiers' outputs is
   printed).
+
+At 32 < d <= 64, the tensor-core tier past 32 (``warp_filter_tc64_kernel``,
+``tensor cores 64``: the source as it is, through its launcher), timed
+before and after the sweep tier at the same shape and inputs, with the
+ratio of the two and the largest difference of their outputs; and its
+variants (at DP = 64): ``64: one warp a chain`` / ``64: four warps a
+chain`` (the team's warps, two in the source), ``64: no 32 x 32
+inverses``, ``64: no F P F^T``, ``64: no Schur products`` (the inverses'
+X, S, Y and TL products taken out), ``64: pivot-pair leaves``, ``64:
+chained k tiles`` (each k tile's products added on the tensor cores to the
+running sum); then the tier and the variants that keep its arithmetic on
+one-observation chains over 200 steps, against the float64 filter.
 
 At every d, the sweep tier (``full`` past d = 32) and its variants: ``no
 pivot sweeps``, ``no inverses``, ``no products`` (the two pivot sweeps of
@@ -67,7 +80,7 @@ import numpy as np
 sys.path.insert(0, os.getcwd())
 
 DEFAULT_SHAPES = ["10000x200x32", "10000x200x17", "10000x200x24",
-                  "10000x200x25", "2000x50x64"]
+                  "10000x200x25", "2000x50x64", "2000x200x64"]
 INV_PM = "sym_inv_scaled(pm, cv, d, s, lane);"
 INV_XM = "sym_inv_scaled(xm, cv, d, s, lane);"
 MUL_FP = "mat_mul<false, false>(f, pm, nullptr, xm, d, d4, s, lane);"
@@ -128,7 +141,7 @@ LEAF16 = """__device__ __forceinline__ void leaf_inv(Blk& a, int g, int t, int l
 
 """
 PREDICT_CALL = "predict_cov<DP>(pm, fh, fl, q, park, g, t, lane);"
-PRODUCTS = re.compile(r"(?:blk_mul|mul8)<[^;]*;")
+PRODUCTS = re.compile(r"(?:tc::)?(?:blk_mul|mul8)<[^;]*;")
 MIN_BLOCKS = "constexpr int kMinBlocks = 2;"
 INT_RNA = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 # the high parts rounded by cvt.rna.tf32.f32 itself (the same bits)
@@ -140,6 +153,22 @@ IEEE_RCP = "1.0f / __shfl_sync(kFull, ke ? x1 : x0, 4 * k + kt)"
 TC_NAMES = ("tensor cores", "FMA products", "no split", "leaf inverses alone",
             "no leaf inverses", "16-pivot leaves", "3 blocks an SM",
             "cvt.rna rounding", "IEEE reciprocals")
+# the tier past 32's parts
+TC64_WARPS = "static constexpr int kWarps = NB == 4 ? 2 : 1;"
+TC64_INV32 = "    inv32(a, bt, dd, bu, g, t, tm.lane);"
+TC64_PREDICT = "    predict_cov<NB, W>(pm, wk, fh, fl, q, tm);"
+TC64_LEAF_A = "  tc::inv16<false>(a, g, t, lane);             // A^-1"
+TC64_LEAF_S = "  tc::inv16<false>(dd, g, t, lane);            // S^-1"
+TC64_PRODUCTS = re.compile(r"blk_prod<S, [^;]*;")
+# each k tile's three products added to the running sum on the tensor
+# cores, as the d <= 32 tier does, in place of on a zero accumulator
+TC64_TILE_SUM = ("  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+                 "  tc::mma3(part, ah, al, bh, bl);\n#pragma unroll\n"
+                 "  for (int r = 0; r < 4; ++r) acc[r] += part[r];")
+TC64_NAMES = ("tensor cores 64", "64: one warp a chain",
+              "64: four warps a chain", "64: no 32 x 32 inverses",
+              "64: no F P F^T", "64: no Schur products",
+              "64: pivot-pair leaves", "64: chained k tiles")
 
 MMA_PROBE = r"""
 #include <cuda_runtime.h>
@@ -181,7 +210,9 @@ def variants(src: str) -> dict:
     its launcher, the sweep tier's on the sweep launcher)."""
     for text in (INV_PM, INV_XM, MUL_FP, MUL_FPF, SWEEP_START, SWEEP_END,
                  *MMA_BODY, MMA3, *LEAF_CALLS, PREDICT_CALL, *INV16_CALLS,
-                 INV16_AT, MIN_BLOCKS, INT_RNA, FAST_RCP):
+                 INV16_AT, MIN_BLOCKS, INT_RNA, FAST_RCP, TC64_WARPS,
+                 TC64_INV32, TC64_PREDICT, TC64_LEAF_A, TC64_LEAF_S,
+                 TC64_TILE_SUM):
         if text not in src:
             raise SystemExit(f"csrc/fused_filter_warp.cu has no {text!r}")
     sweep = src[src.index(SWEEP_START):src.index(SWEEP_END)]
@@ -204,6 +235,18 @@ def variants(src: str) -> dict:
                                       "constexpr int kMinBlocks = 3;"),
         "cvt.rna rounding": src.replace(INT_RNA, CVT_RNA),
         "IEEE reciprocals": src.replace(FAST_RCP, IEEE_RCP),
+        "64: one warp a chain": src.replace(
+            TC64_WARPS, "static constexpr int kWarps = 1;"),
+        "64: four warps a chain": src.replace(
+            TC64_WARPS, "static constexpr int kWarps = NB == 4 ? 4 : 1;"),
+        "64: no 32 x 32 inverses": src.replace(TC64_INV32, ""),
+        "64: no F P F^T": src.replace(TC64_PREDICT, ""),
+        "64: no Schur products": TC64_PRODUCTS.sub("", src),
+        "64: pivot-pair leaves": src.replace(
+            TC64_LEAF_A, "  tc::inv16<false, true>(a, g, t, lane);").replace(
+            TC64_LEAF_S, "  tc::inv16<false, true>(dd, g, t, lane);"),
+        "64: chained k tiles": src.replace(
+            TC64_TILE_SUM, "  tc::mma3(acc, ah, al, bh, bl);"),
         "no pivot sweeps": src.replace(sweep, ""),
         "no inverses": src.replace(INV_PM, "").replace(
             INV_XM, "mirror_upper(xm, d, s, lane);"),
@@ -240,6 +283,8 @@ def build(texts: dict, out: str) -> dict:
             lib.rxt_warp_filter_tc.argtypes = [ci, ci, p, p, p, p, p, p, p,
                                                p, i64, i64, ci, ci, p]
             lib.rxt_warp_filter_tc_blocks_per_sm.argtypes = [ci, ci]
+            lib.rxt_warp_filter_tc64.argtypes = [ci, ci, p, p, p, p, p, p, p,
+                                                 p, i64, i64, ci, p]
         libs[name] = lib
         kernel = ""
         for line in log.splitlines():
@@ -316,6 +361,10 @@ def main(argv) -> int:
             runs = []     # (name, library, tier)
             if d <= ff.TC_DIM:
                 runs += [(n, n, "tc") for n in TC_NAMES]
+            tc64 = ff.TC_DIM < d <= ff.TC64_DIM
+            if tc64:
+                runs += [(n, "tensor cores" if n == "tensor cores 64" else n,
+                          "tc64") for n in TC64_NAMES]
             runs += [("sweep tier" if d <= ff.TC_DIM else "full",
                       "tensor cores", "sweep")]
             runs += [(n, n, "sweep") for n in
@@ -325,23 +374,39 @@ def main(argv) -> int:
             for k, a in enumerate((fh, fh.T, qh, wh)):
                 prm[k, :d, :d] = a
             params = torch.as_tensor(prm, device=dev)
-            tc_prm = np.zeros((4, ff.TC_DIM, ff.TC_DIM + 4), np.float32)
-            for k, a in enumerate((fh, fh.T, qh, wh)):
-                tc_prm[k, :d, :d] = a
-            tc_params = torch.as_tensor(tc_prm, device=dev)
+            tc_params = None
+            if d <= ff.TC_DIM:
+                tc_prm = np.zeros((4, ff.TC_DIM, ff.TC_DIM + 4), np.float32)
+                for k, a in enumerate((fh, fh.T, qh, wh)):
+                    tc_prm[k, :d, :d] = a
+                tc_params = torch.as_tensor(tc_prm, device=dev)
+            plan64 = ff.tc64_plan(d) if tc64 else None
+            if tc64:
+                prm64 = np.zeros((4, plan64["padded_dim"], plan64["stride"]),
+                                 np.float32)
+                for k, a in enumerate((fh, fh.T, qh, wh)):
+                    prm64[k, :d, :d] = a
+                params64 = torch.as_tensor(prm64, device=dev)
             ps = sweep["params"] == "shared"
             cs = sweep["chain_matrices"] == "shared"
             chains = sweep["chains_per_block"]
             scratch = None if cs else torch.empty(
                 (-(-b // chains) * chains * 2 * dp * stride,), device=dev)
-            outs = {}
+            outs, times = {}, {}
             for name, lib_name, tier in runs:
                 lib = libs[lib_name]
                 out = (torch.empty((t_len, d, b), device=dev),
                        torch.empty((d, b), device=dev), torch.empty_like(p0))
 
-                def launch():
-                    if tier == "tc":
+                def launch(lib=lib, out=out, tier=tier, name=name):
+                    if tier == "tc64":
+                        rc = lib.rxt_warp_filter_tc64(
+                            d, d, ys.data_ptr(), m0.data_ptr(),
+                            p0.data_ptr(), hr_t.data_ptr(),
+                            params64.data_ptr(),
+                            *(o.data_ptr() for o in out), t_len, b,
+                            plan64["stride"], stream)
+                    elif tier == "tc":
                         rc = lib.rxt_warp_filter_tc(
                             d, d, ys.data_ptr(), m0.data_ptr(),
                             p0.data_ptr(), hr_t.data_ptr(),
@@ -361,6 +426,8 @@ def main(argv) -> int:
                 launch()
                 torch.cuda.synchronize()
                 outs[name] = out
+                if tier == "tc64":
+                    lib64 = launch
                 extra = ""
                 if tier == "tc":
                     extra = (f", {lib.rxt_warp_filter_tc_blocks_per_sm(d, 8)} "
@@ -369,15 +436,75 @@ def main(argv) -> int:
                         diff = float((out[0] - outs["tensor cores"][0]).abs()
                                      .max())
                         extra += f", means differ by up to {diff:.3g}"
+                times[name] = _cuda_ms(launch, 3)
                 print(f"(B,T,d)=({b},{t_len},{d}) {name}: "
-                      f"{_cuda_ms(launch, 3):.3f} ms{extra}", flush=True)
+                      f"{times[name]:.3f} ms{extra}", flush=True)
             if d <= ff.TC_DIM:
                 diff = max(float((a - c).abs().max()) for a, c in zip(
                     outs["tensor cores"], outs["sweep tier"]))
                 print(f"(B,T,d)=({b},{t_len},{d}) tensor-core and sweep tiers"
                       f" differ by up to {diff:.3g}", flush=True)
+            if tc64:
+                again = _cuda_ms(lib64, 3)
+                diff = max(float((a - c).abs().max()) for a, c in zip(
+                    outs["tensor cores 64"], outs["full"]))
+                print(f"(B,T,d)=({b},{t_len},{d}) tensor cores 64 again "
+                      f"{again:.3f} ms (after the sweep tier): "
+                      f"{times['full'] / min(again, times[TC64_NAMES[0]]):.2f}x"
+                      f" the sweep tier; the two tiers differ by up to "
+                      f"{diff:.3g}", flush=True)
+        if tc64:
+            one_observation(libs, d, dev, stream)
     print(smi)
     return 0
+
+
+def one_observation(libs, d, dev, stream) -> None:
+    """The tier past 32 and its variants that keep its arithmetic (the
+    team's warps, pivot pairs, the k tiles chained) on ROADMAP C7's chains:
+    one observation a step over 200 steps, 37 chains (``chip_smoke.py``
+    phase 17 (a)'s system and seeds), the largest difference of the final
+    P from the float64 filter."""
+    import torch
+
+    from chip_smoke import ONE_OBS_B, ONE_OBS_T, _filter_system, \
+        _soa_state, _unfold_host, filter_float64
+    from rxinfer_tpu_torch.ops import fused_filter as ff
+
+    f, q, h, r = _filter_system(d, 1, seed=d + 1)
+    w_obs, hr = ff.evidence_operators(h, r)
+    fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, 1)
+    plan = ff.tc64_plan(d)
+    prm = np.zeros((4, plan["padded_dim"], plan["stride"]), np.float32)
+    for k, a in enumerate((fh, fh.T, qh, wh)):
+        prm[k, :d, :d] = a
+    params = torch.as_tensor(prm, device=dev)
+    hr_t = torch.as_tensor(np.ascontiguousarray(hrh.T), device=dev)
+    rng = np.random.default_rng(d)
+    ys = rng.standard_normal((ONE_OBS_T, 1, ONE_OBS_B)).astype(np.float32)
+    m = rng.standard_normal((ONE_OBS_B, d)).astype(np.float32)
+    p = np.broadcast_to(9.0 * np.eye(d, dtype=np.float32),
+                        (ONE_OBS_B, d, d)).copy()
+    m0, p0 = _soa_state(torch.as_tensor(m, device=dev),
+                        torch.as_tensor(p, device=dev))
+    ys_d = torch.as_tensor(ys, device=dev)
+    _, _, o_p = filter_float64(m, p, ys.transpose(0, 2, 1), f, q, h, r)
+    for name in ("tensor cores 64", "64: one warp a chain",
+                 "64: pivot-pair leaves", "64: chained k tiles"):
+        lib = libs["tensor cores" if name == "tensor cores 64" else name]
+        out = (torch.empty((ONE_OBS_T, d, ONE_OBS_B), device=dev),
+               torch.empty((d, ONE_OBS_B), device=dev), torch.empty_like(p0))
+        if lib.rxt_warp_filter_tc64(
+                d, 1, ys_d.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+                hr_t.data_ptr(), params.data_ptr(),
+                *(o.data_ptr() for o in out), ONE_OBS_T, ONE_OBS_B,
+                plan["stride"], stream):
+            raise RuntimeError(f"{name}: CUDA error")
+        torch.cuda.synchronize()
+        err = float(np.abs(_unfold_host(out[2], d) - o_p).max())
+        print(f"one observation, d = {d}, (B,T) = ({ONE_OBS_B},{ONE_OBS_T})"
+              f", {name}: final P {err:.3g} from the float64 filter",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ recursion step by step, then the marginals over all steps at once, with
 xi_sum summed in time tiles (``rxinfer_tpu_torch/ops/fused_fb.py``).  The
 tiled plain version is held against the one-recursion plain version it
 replaced and against the JAX package's Pallas forward-backward in interpret
-mode; xi_sum must not depend on the run; and the rule that picks the
-marginal tile is pinned at its edges.
+mode (its references from one call, the cases embedded into one chain
+batch: ``jax_refs``); xi_sum must not depend on the run; and the rule that
+picks the marginal tile is pinned at its edges.
 
 The CUDA kernels are held against the tiled plain version on the card by
 the ``gpu``-marked test below and by ``chip_smoke.py``."""
@@ -29,6 +30,9 @@ STEPWISE_TOL = dict(rtol=1e-5, atol=1e-6)
 H100_SMS = 132
 L = 4   # the marginal tile of the parity cases
 CPU = torch.device("cpu")
+# the parity cases' state counts and lengths (around the tile's edges)
+PARITY_KS = [1, 3, 8]
+PARITY_TS = [1, 2, L - 1, L, L + 1, 3 * L + 5]
 
 
 @pytest.fixture(autouse=True)
@@ -50,12 +54,85 @@ def _torch(*arrays):
     return tuple(torch.as_tensor(a) for a in arrays)
 
 
+# -- the JAX references, once a module ----------------------------------------------
+#
+# Each parity case (k, t) needs the JAX Pallas forward-backward in
+# interpret mode on its three chains: a trace of its own at every (K, T),
+# 2-20 s each on the CPU.  One call holds them all: each case's chains are
+# embedded into EMBED_K states and the longest T steps, the states past k
+# and the steps past t given a log-potential of NEG, so far below the
+# chain's that its exponential is an exact float32 zero, and an end state
+# (the last) that every state enters with log-potential 0 after step t - 1
+# and never leaves.  Every sum of the JAX kernels then adds exact zeros
+# after the case's own terms and every maximum finds the case's own; the
+# end state's backward messages are equal over the states, so the case's
+# betas restart from 0 at its last step as a chain of t steps does, and
+# its forward normalisers carry log Z.  ``test_embedded_references_are_the
+# _direct_calls`` holds the embedding's outputs equal, bit for bit, to
+# direct calls at a few cases (all 18 were equal when it was written).
+EMBED_K = max(PARITY_KS) + 1
+NEG = -1e4
+
+
+def _embed(lp, lt, le, t_out):
+    """One case's (B, k) prior, (B, k, k) table and (t, B, k) evidence
+    embedded into EMBED_K states and ``t_out`` steps."""
+    b, k = lp.shape
+    t = le.shape[0]
+    end = EMBED_K - 1
+    lp_e = np.full((b, EMBED_K), NEG, np.float32)
+    lp_e[:, :k] = lp
+    lt_e = np.full((b, EMBED_K, EMBED_K), NEG, np.float32)
+    lt_e[:, :k, :k] = lt
+    lt_e[:, end, :] = 0.0          # every state enters the end state
+    le_e = np.full((t_out, b, EMBED_K), NEG, np.float32)
+    le_e[:t, :, :k] = le
+    le_e[t:, :, end] = 0.0         # after step t - 1 only the end state
+    return lp_e, lt_e, le_e
+
+
+def _parity_inputs(k, t):
+    return _inputs(3, t, k, seed=10 * k + t)
+
+
+def _jax_direct(lp, lt, le):
+    return tuple(np.asarray(o) for o in jax_fused_fb(
+        jnp.asarray(lp), jnp.asarray(lt), jnp.asarray(le), chunk=8,
+        interpret=True, per_step_xi=True))
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """(k, t) -> the JAX kernels' (gammas, xi_sum, logz, xi_steps) of that
+    parity case, all cases from one embedded call."""
+    cases = [(k, t) for k in PARITY_KS for t in PARITY_TS]
+    t_out = max(PARITY_TS)
+    parts = [_embed(*_parity_inputs(k, t), t_out) for k, t in cases]
+    out = _jax_direct(*(np.concatenate([p[i] for p in parts],
+                                       axis=1 if i == 2 else 0)
+                        for i in range(3)))
+    refs = {}
+    for n, (k, t) in enumerate(cases):
+        rows = slice(3 * n, 3 * n + 3)
+        refs[(k, t)] = (out[0][:t, rows, :k], out[1][rows, :k, :k],
+                        out[2][rows], out[3][:t - 1, rows, :k, :k])
+    return refs
+
+
+@pytest.mark.parametrize("k,t", [(1, 1), (1, 3 * L + 5), (3, L + 1)])
+def test_embedded_references_are_the_direct_calls(k, t, jax_refs):
+    direct = _jax_direct(*_parity_inputs(k, t))
+    for name, e, d in zip(("gammas", "xi_sum", "logz", "xi_steps"),
+                          jax_refs[(k, t)], direct):
+        assert e.shape == d.shape and np.array_equal(e, d), name
+
+
 # -- the tiled plain version ------------------------------------------------------
 
-@pytest.mark.parametrize("t", [1, 2, L - 1, L, L + 1, 3 * L + 5])
-@pytest.mark.parametrize("k", [1, 3, 8])
-def test_tiled_backward_matches_stepwise_and_jax(k, t):
-    lp, lt, le = _inputs(3, t, k, seed=10 * k + t)
+@pytest.mark.parametrize("t", PARITY_TS)
+@pytest.mark.parametrize("k", PARITY_KS)
+def test_tiled_backward_matches_stepwise_and_jax(k, t, jax_refs):
+    lp, lt, le = _parity_inputs(k, t)
     tlp, tlt, tle = _torch(lp, lt, le)
     alphas, logz = ffb.fb_forward_reference(tlp, tlt, tle)
     got = ffb.fb_backward_reference(tlt, tle, alphas, True, tile=L)
@@ -64,8 +141,7 @@ def test_tiled_backward_matches_stepwise_and_jax(k, t):
         assert tuple(g.shape) == tuple(w.shape), name
         np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
                                    **STEPWISE_TOL)
-    jout = jax_fused_fb(jnp.asarray(lp), jnp.asarray(lt), jnp.asarray(le),
-                        chunk=8, interpret=True, per_step_xi=True)
+    jout = jax_refs[(k, t)]
     mine = (got[0], got[1], logz, got[2])
     for name, g, w in zip(("gammas", "xi_sum", "logz", "xi_steps"), mine,
                           jout):

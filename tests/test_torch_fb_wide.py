@@ -7,9 +7,9 @@ K = 9 (the trace grows with K^2, so one case), its scan solver
 (the half-warp order of sums), 33 and 64, and its ``batched_program`` on
 ``zoo.hmm(9, 3)`` and
 ``zoo.hmm(16, 4)``, whose plans fuse the chain as the JAX planner does.
-The rule that picks the wide marginal pass's tile is pinned, and the
-``gpu``-marked tests hold the wide kernels against their plain versions on
-the card."""
+The rule that picks the wide marginal pass's tile and its kernel past 16
+states (``marginal_plan``) are pinned, and the ``gpu``-marked tests hold
+the wide kernels against their plain versions on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,6 +164,64 @@ def test_pick_tile_wide_fills_the_card_in_warps(b, t):
     assert b * -(-t // tile) <= max(units, b)
     # a thread a (tile, chain) asks for 32 times the pairs: tiles as short
     assert ffb.pick_tile(b, t, H100_SMS) <= tile
+
+
+# -- past sixteen states: a warp a (tile, chain), one wave -------------------------
+
+@pytest.mark.parametrize("k", range(17, 33))
+def test_marginal_plan_past_sixteen_states(k):
+    """16 < K <= 32: the row kernel, a warp a unit, 16 warps an SM (four
+    CTAs of four warps, its launch bounds); the table's and the stage's
+    rows an odd number of float4s apart where K % 4 == 0 (16-byte stores of
+    the per-step xi), else an odd number of floats apart."""
+    plan = ffb.marginal_plan(k)
+    assert plan["kernel"] == "fb_wide_marg_rows_kernel"
+    assert plan["lanes_per_unit"] == 32
+    assert plan["warps_per_sm"] == plan["units_per_sm"] \
+        == ffb.MARGINAL_ROW_WARPS_PER_SM == 16
+    stride = plan["row_stride"]
+    assert k <= stride <= 36
+    assert plan["vector_stores"] == (k % 4 == 0)
+    if k % 4 == 0:
+        assert stride % 4 == 0 and (stride // 4) % 2 == 1
+    else:
+        assert stride % 2 == 1
+    # four CTAs an SM: each warp's table and stage (32 rows, 36 floats
+    # apart at most) and two vectors of 32 fit an H100 SM's 228 KB
+    assert 4 * 4 * (2 * 32 * 36 + 2 * 32) * 4 <= 228 * 1024
+
+
+@pytest.mark.parametrize("k,kernel", [(9, "fb_wide_marg_half_kernel"),
+                                      (16, "fb_wide_marg_half_kernel"),
+                                      (33, "fb_wide_marg_kernel"),
+                                      (240, "fb_wide_marg_kernel")])
+def test_marginal_plan_keeps_the_other_kernels(k, kernel):
+    plan = ffb.marginal_plan(k)
+    assert plan["kernel"] == kernel
+    assert plan["units_per_sm"] == 2 * ffb.MARGINAL_WARPS_PER_SM
+    with pytest.raises(ValueError, match="K > 8"):
+        ffb.marginal_plan(8)
+
+
+@pytest.mark.parametrize("b,t,k,want", [(1024, 1000, 32, 500),
+                                        (37, 1001, 17, 18), (33, 97, 32, 4),
+                                        (1024, 50, 32, 25), (8, 200, 20, 4),
+                                        (4096, 200, 24, 200)])
+def test_pick_tile_wide_past_sixteen_states(b, t, k, want):
+    """A warp a (tile, chain) at 16 warps an SM: ceil(T / n) for the most
+    tiles n whose B * n warps 132 SMs hold at once, at least MIN_TILE_STEPS
+    steps; at the 32-state cell two tiles of 500 steps (2048 warps of the
+    card's 2112)."""
+    tile = ffb.pick_tile_wide(b, t, H100_SMS, k)
+    assert tile == want
+    units = H100_SMS * ffb.MARGINAL_ROW_WARPS_PER_SM
+    fit = max(1, units // b)
+    assert -(-t // tile) <= fit
+    assert tile == min(t, ffb.MIN_TILE_STEPS) or -(-t // (tile - 1)) > fit
+    # the rule of K <= 16 (half-warps) still holds at 16 and past 32
+    assert ffb.pick_tile_wide(b, t, H100_SMS, 16) \
+        == ffb.pick_tile_wide(b, t, H100_SMS, 33) \
+        == ffb.pick_tile_wide(b, t, H100_SMS)
 
 
 # -- batched_program on more than eight states --------------------------------------

@@ -202,3 +202,30 @@ def test_serial_and_marginal_launches_match_their_plain_versions_on_the_card(
     rose = {key: ffb.LAUNCHES[key] - before[key] for key in before}
     assert rose == {**{key: 0 for key in before}, "fused_fb_serial_wide": 2,
                     "fused_fb_marg_wide": 3, "fused_fb_fwd_wide": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_step_xi", [False, True])
+@pytest.mark.parametrize("b,t,k", [(37, 1001, 17), (33, 97, 32), (9, 130, 20),
+                                   (5, 41, 31), (1024, 50, 32), (3, 1, 24)])
+def test_marginal_kernel_past_sixteen_states_matches_the_plain_version(
+        cuda_device, b, t, k, per_step_xi):
+    """The row kernel (16 < K <= 32) at ragged shapes: B past a CTA's four
+    warps, ragged tiles, K % 4 == 0 (16-byte stores) and not (17, 31), one
+    step; the same bits over two calls (no atomics)."""
+    lp, lt, le = _inputs(b, t, k, seed=b + t + k, device=cuda_device)
+    assert ffb.marginal_plan(k)["kernel"] == "fb_wide_marg_rows_kernel"
+    alphas, _, betas = ffb.fb_serial_wide(lp, lt, le)
+    before = ffb.LAUNCHES["fused_fb_marg_wide"]
+    got = ffb.fb_marginals_wide(lt, le, alphas, betas, per_step_xi)
+    again = ffb.fb_marginals_wide(lt, le, alphas, betas, per_step_xi)
+    ref = ffb.marginals_reference(
+        lt, le, alphas, betas, per_step_xi,
+        tile=ffb.device_tile(b, t, cuda_device, k))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        if r is not None:
+            torch.testing.assert_close(g, r, **FB_TOL)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+    assert ffb.LAUNCHES["fused_fb_marg_wide"] == before + 2

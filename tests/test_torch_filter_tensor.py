@@ -329,9 +329,18 @@ def test_warp_plan_routes_17_to_32_to_the_tensor_cores(d):
 
 @pytest.mark.parametrize("d", [33, 40, 64, 96, 97, 160, 161, 300])
 def test_warp_plan_keeps_the_sweep_tiers_past_32(d):
+    """Past 32 the sweep tiers' plan stands at every d (to d = 64 the
+    launcher takes the tensor-core tier past 32 instead, and the sweep tier
+    stays launchable there: ``scripts/warp_filter_variants.py`` and
+    ``chip_smoke.py`` time it beside the new tier); past 64 it is the
+    plan."""
     plan = ff.warp_plan(d, H100_SMEM)
-    assert plan["tier"] == "sweep"
-    assert plan == ff.sweep_warp_plan(d, H100_SMEM)
+    sweep = ff.sweep_warp_plan(d, H100_SMEM)
+    assert sweep["tier"] == "sweep"
+    if d <= ff.TC64_DIM:
+        assert plan["tier"] == "tensor_cores_64"
+    else:
+        assert plan == sweep
 
 
 # -- the bound ---------------------------------------------------------------
@@ -357,14 +366,16 @@ def test_filter_bound_prices_the_tiers_products_at_3xtf32(d):
     F P F^T + Q and both inverses' block products at the top two levels
     (the operations the tier runs on the tensor cores) at 495 / 3 TFLOP/s,
     the rest at 67; at d = 16 (the wide K3 on the tensor cores) the same at
-    the top level and the evidence HR y; past 32 every operation at 67."""
+    the top level and the evidence HR y; at the tier past 32 (d = 33) the
+    same at the top three levels."""
     import chip_smoke as cs
 
     b, t = 10_000, 200
     bnd = cs.filter_bound(b, t, d, d)
     nsym = d * (d + 1) // 2
     sandwich = d * d * (2 * d - 1) + nsym * 2 * d
-    levels = 2 if 16 < d <= 32 else 1 if d == 16 else 0
+    levels = (3 if 32 < d <= 64 else 2 if 16 < d <= 32 else 1 if d == 16
+              else 0)
     want_tc = sandwich + 2 * _block_product_ops(d, levels) if levels else 0
     if levels == 1:
         want_tc += d * (2 * d - 1)

@@ -31,6 +31,7 @@ KERNEL_TOL = dict(rtol=3e-4, atol=3e-4)
 H100_SMEM = 232_448   # shared bytes an H100 block may opt in to
 # (d, dy): the first warp d with one observation-chunk's worth, a square
 # model, two observation chunks, and the first d with two columns a lane
+# (on the card the tensor-core tier past 32)
 SHAPES = [(17, 4), (24, 24), (32, 40), (33, 5)]
 
 
@@ -125,9 +126,11 @@ def test_launch_key_routes_by_state_dim(d, dy, key):
 def test_warp_plan_fits_an_h100_block(d):
     plan = ff.warp_plan(d, H100_SMEM)
     assert plan["smem_bytes"] <= H100_SMEM
-    # to d = 32 the tensor-core tier (tests/test_torch_filter_tensor.py);
+    # to d = 32 the tensor-core tier (tests/test_torch_filter_tensor.py), to
+    # d = 64 the tensor-core tier past 32 (tests/test_torch_filter_tc64.py);
     # the sweep tiers' plan below still holds at those d
-    assert plan["tier"] == ("tensor_cores" if d <= 32 else "sweep")
+    assert plan["tier"] == ("tensor_cores" if d <= 32 else "tensor_cores_64"
+                            if d <= 64 else "sweep")
     plan = ff.sweep_warp_plan(d, H100_SMEM)
     dp, stride = plan["padded_dim"], plan["stride"]
     assert dp % 8 == 0 and d <= dp < d + 8
@@ -162,6 +165,20 @@ def test_warp_plan_bytes_and_tiers_follow_the_limit():
     assert (low["params"], low["chain_matrices"]) == ("device", "device")
     assert low["smem_bytes"] == low["chains_per_block"] * vec
     assert 1 <= low["chains_per_block"] <= 8
+    # the tier past 32 keeps F's two TF32 parts, Q and W a block and each
+    # chain's two matrices and vectors in shared memory, rows padded + 8
+    # floats apart: 8 chains of a warp at d <= 48, 4 of two warps past it,
+    # within an H100 block; it takes no smaller limit (the launcher
+    # refuses one)
+    for d, dp, chains, warps in ((33, 48, 8, 1), (48, 48, 8, 1),
+                                 (49, 64, 4, 2), (64, 64, 4, 2)):
+        plan = ff.warp_plan(d, H100_SMEM)
+        assert plan == ff.warp_plan(d, 48 * 1024)
+        mat = dp * (dp + 8) * 4
+        vec = (3 * dp + warps * ff.WARP_Y_CHUNK + 4) * 4
+        assert (plan["padded_dim"], plan["chains_per_block"]) == (dp, chains)
+        assert plan["smem_bytes"] == 4 * mat + chains * (2 * mat + vec)
+        assert plan["smem_bytes"] <= H100_SMEM
 
 
 @pytest.fixture
@@ -174,7 +191,8 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,t,dy", [(37, 17, 5, 1), (33, 32, 4, 40),
-                                      (10, 33, 3, 5), (9, 64, 2, 8)])
+                                      (10, 33, 3, 5), (9, 64, 2, 8),
+                                      (3, 65, 2, 4)])
 def test_warp_kernel_matches_plain_version_on_the_card(cuda_device, b, d, t,
                                                        dy):
     m, p, ys, f, q, h, r = _setup(b, d, t, dy, seed=9)
