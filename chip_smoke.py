@@ -421,7 +421,7 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
 26. The warp K3's tier past d = 32 and the wide K5's marginal kernel
    past 16 states at full width: (a) path A at
    (B, T, d, dy) = FILTER64 (2000, 200, 64, 64) through
-   ``make_sharded_filtering(fused=True)`` (``filter64_path``): one
+   ``make_sharded_filtering(fused=True)`` (``tier_filter_path``): one
    ``fused_filter_warp`` launch of ``warp_filter_tc64_kernel`` a call and
    none of the sweep tier's, sampled chains against the float64 filter
    (ORACLE_TOL), the kernel against its plain version on the host over
@@ -440,6 +440,29 @@ toolkit (``nvcc``).  Phases, each of which fails the run when it fails:
    each launch alone and in the program against ``fb_wide_bounds``.
    ``[filter64]`` / ``[hmm32]`` / ``[s26]`` lines, four more rows on the
    ``kernels`` line and ``launches_phase26`` on every row.
+27. The warp K3's tier past d = 64 and the wide K5's marginal kernel past
+   32 states at full width: (a) path A at (B, T, d, dy) = FILTER128
+   (1000, 200, 128, 128) through ``make_sharded_filtering(fused=True)``
+   (``tier_filter_path``): one ``fused_filter_warp`` launch of
+   ``warp_filter_tc128_kernel`` a call and none of the sweep tier's,
+   sampled chains against the float64 filter (ORACLE_TOL), the kernel
+   against its plain version on the host over one step of two chains
+   (RTOL / ATOL; computed in a check process, ``slice28_checks``), the
+   call over three calls after a warm-up, the kernel alone, then the sweep
+   tier at the same shape and inputs once between two timings of the new
+   tier (their outputs held to each other), registers, spills, warps an
+   SM, the bound (``filter_bound``, 3xTF32 at the top four Schur levels)
+   and its share; (b) a 64-state HMM (``hmm16_path`` at HMM64: 512 x 1000,
+   64 categories, 20 sweeps): 20 serial and 20 marginal launches a call,
+   the marginal kernel ``fb_wide_marg_rows2_kernel``, sampled chains
+   against the float64 VMP (HMM_ORACLE_TOL), the two calls against their
+   plain versions on the path's inputs (the marginals bit for bit; the
+   serial one on the host on the sampled chains), the free energy's gap to
+   the float64 one recorded, each launch alone and in the program against
+   ``fb_wide_bounds``, and ``fb_wide_marg_kernel`` on the same inputs
+   between two timings of the new kernel (their outputs equal).
+   ``[filter128]`` / ``[hmm64]`` / ``[s27]`` lines, three more rows on the
+   ``kernels`` line and ``launches_phase27`` on every row.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -582,7 +605,8 @@ QUANT_ITERATIONS = (1, 10)
 # kernel label -> the CUDA kernel's name, as the profiler reports it
 FILTER_KERNEL_NAMES = {"fused_filter": "filter_kernel",
                        "fused_filter_wide": "wide_filter_tc_kernel",
-                       "fused_filter_warp": "warp_filter(?:_tc|_tc64)?_kernel"}
+                       "fused_filter_warp":
+                           "warp_filter(?:_tc|_tc64|_tc128)?_kernel"}
 QUANT_KERNEL_NAMES = {
     "quantize_rows": r"quantize_(?:narrow|wide|general)_kernel<.*Int8Payload",
     "quantize_rows_fp8": r"quantize_(?:narrow|wide|general)_kernel<.*Fp8Payload",
@@ -605,6 +629,10 @@ FB_WIDE_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
 FB_ROWS_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
                         "fused_fb_marg_wide": ("fb_xisum_kernel",
                                                "fb_wide_marg_rows_kernel")}
+# ... and at 32 < K <= 64, two warps a unit
+FB_ROWS2_KERNEL_NAMES = {"fused_fb_serial_wide": ("fb_wide_serial_kernel",),
+                         "fused_fb_marg_wide": ("fb_xisum_kernel",
+                                                "fb_wide_marg_rows2_kernel")}
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
@@ -1197,16 +1225,17 @@ def check_fb_kernels(device, shapes, log=print, seed: int = 200) -> dict:
 
 
 def check_fb_path_inputs(lp, lt, le, log=print, tag: str = "hmm",
-                         serial_rows: list | None = None
-                         ) -> tuple[dict, dict]:
+                         serial_rows: list | None = None,
+                         marginal_bits: bool = False) -> tuple[dict, dict]:
     """K4/K5 against their plain versions on the inputs the HMM path hands
     them in its last sweep, at the path's own (B, T, K): above eight states
     the two calls the path makes (``fb_serial_wide``, ``fb_marginals_wide``,
     under their launch keys), else ``fb_forward`` / ``fb_backward``; with
     ``serial_rows`` the serial call's plain version runs on the host on
     those chains (its step is a few hundred launches on the card: 7.3 s
-    a call at 32 states).  Returns per-launch-key max abs error and the
-    plain versions' ms (their one call here)."""
+    a call at 32 states); with ``marginal_bits`` the marginal call's
+    outputs must be the plain version's bits.  Returns per-launch-key max
+    abs error and the plain versions' ms (their one call here)."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_fb as ffb
@@ -1262,13 +1291,17 @@ def check_fb_path_inputs(lp, lt, le, log=print, tag: str = "hmm",
             parts.append(f"{label} {ea:.3g}")
             if not ok:
                 failures.append(f"{label}: abs {ea:.3g}")
+            if marginal_bits and kname == second and not torch.equal(got,
+                                                                     want):
+                failures.append(f"{label}: not the plain version's bits")
     plain = {first: first_ms, second: second_ms}
     log(f"[{tag}] {first} / {second} vs plain versions on the path's "
         f"inputs, (B,T,K)=({bsz},{t_len},{k}) max abs: " + "; ".join(parts)
         + f" (rtol=atol={FB_RTOL}); the plain versions' one call "
         f"{first_ms:.1f} / {second_ms:.1f} ms"
         + ("" if serial_rows is None else
-           f" ({first} on the host, chains {list(serial_rows)})"))
+           f" ({first} on the host, chains {list(serial_rows)})")
+        + (f"; {second} bit for bit" if marginal_bits else ""))
     if failures:
         raise AssertionError("forward-backward kernels disagree on the HMM "
                              "path's inputs: " + "; ".join(failures))
@@ -1949,7 +1982,8 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
     and the evidence xi = HR y; at the warp K3's tensor-core tier (16 < d <=
     32) F P F^T + Q and the inverses' block products at the top two levels;
     at its tier past 32 (32 < d <= 64) the same at the top three levels
-    (the Schur blocks at 64 or 48, 32 and 16).  ``bound_ms_fp32`` prices
+    (the Schur blocks at 64 or 48, 32 and 16); at its tier past 64 (64 < d
+    <= 128) at the top four (128, 64, 32, 16).  ``bound_ms_fp32`` prices
     every operation at the float32 rate."""
     from rxinfer_tpu_torch.ops import entrywise as ew
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -1969,6 +2003,8 @@ def filter_bound(b: int, t: int, d: int, dy: int) -> dict:
         levels = 2
     elif ff.TC_DIM < d <= ff.TC64_DIM:
         levels = 3
+    elif ff.TC64_DIM < d <= ff.TC128_DIM:
+        levels = 4
     tc_ops = 0
     if levels:
         tc_ops = _count_ops(lambda: ew.sandwich_sym(
@@ -4176,15 +4212,19 @@ FILTER16_PLAIN_STEPS = 4
 # d = 33 and 48 at DP = 48 (eight chains a block) with ragged last blocks
 # (10 = 8 + 2, 17 = 2 * 8 + 1), d = 64 at DP = 64 (four chains a block)
 # with 8, with one observation (a ragged block of 9 = 2 * 4 + 1) and with
-# 100 (four staged chunks); d = 65, the first d past it, on the sweep tier.
+# 100 (four staged chunks); d = 65, the first d past it, on the tier past
+# 64 (a ragged 16-block: the state padded by 63).
 FILTER_WARP_CHECK_SHAPES = [(37, 5, 17, 1), (33, 4, 24, 12), (33, 4, 32, 40)]
 FILTER_TC64_CHECK_SHAPES = [(10, 3, 33, 5), (5, 2, 64, 8), (17, 2, 48, 7),
                             (9, 1, 64, 1), (5, 1, 64, 100), (3, 1, 65, 4)]
 # ... and the tiers past them, against the float64 filter (the plain step is
-# minutes there): d = 100 reads F, Q and W from device memory, d = 176 keeps
-# each chain's matrices in a device-memory scratch (``warp_plan`` on an
-# H100; the check holds the tiers it expects).
-FILTER_WARP_TIER_SHAPES = [(3, 3, 100, 7, ("device", "shared")),
+# minutes there): d = 100 on the tier past 64 (F in shared memory, Q and W
+# read from device memory, a padding of 28), d = 176 on the sweep tier, each
+# chain's matrices in a device-memory scratch (``warp_plan`` on an H100; the
+# check holds the placements it expects), so that both tiers past 64 stay
+# checked.
+FILTER_WARP_TIER_SHAPES = [(3, 3, 100, 7, ("F shared, Q and W device",
+                                           "shared")),
                            (2, 2, 176, 3, ("device", "device"))]
 # Phase 17 (b): path A at d = dy = 32 (B, T as phase 7); the plain version
 # over its first steps only, the kernel alone timed a launch at a time
@@ -4196,10 +4236,11 @@ FILTER32_PLAIN_STEPS = 2
 # gap between P's two triangles (a kernel that does not keep P symmetric
 # drifts to NaN), against the float64 filter / RTS on every chain at
 # ORACLE_TOL: the wide K1 and K2 at d = 16 with a rank-one W, the warp K3's
-# tensor-core tiers at each ONE_OBS_WARP_D (48 and 64: the tier past 32).
+# tensor-core tiers at each ONE_OBS_WARP_D (48 and 64: the tier past 32;
+# 128: the tier past 64).
 ONE_OBS_T, ONE_OBS_B = 200, 37
 ONE_OBS_WIDE_D = 16
-ONE_OBS_WARP_D = (17, 24, 32, 48, 64)
+ONE_OBS_WARP_D = (17, 24, 32, 48, 64, 128)
 # Phase 26 (a): path A at d = dy = 64 on the warp K3's tier past 32, the
 # sweep tier timed at the same shape in the same run; the kernel against
 # its plain version on the path's inputs over FILTER64_PLAIN_STEPS steps of
@@ -4215,6 +4256,33 @@ ONE_OBS_WARP_D = (17, 24, 32, 48, 64)
 FILTER64_B, FILTER64_T, FILTER64_D = 2000, 200, 64
 FILTER64_PLAIN_STEPS, FILTER64_PLAIN_CHAINS = 1, 4
 HMM32_B, HMM32_T, HMM32_IT, HMM32_K, HMM32_M = 1024, 1000, 20, 32, 32
+# Phase 27 (a): path A at d = dy = 128 on the warp K3's tier past 64 (a
+# fleet of trackers whose state joins many keypoints: 21 hand landmarks in
+# 3-D with their velocities is d = 126), the sweep tier timed at the same
+# shape in the same run; the kernel against its plain version on the
+# path's inputs over FILTER128_PLAIN_STEPS steps of FILTER128_PLAIN_CHAINS
+# sampled chains on the host (about 1e7 small torch operations a step: a
+# minute, in a check process).  (b) a 64-state HMM through batched_program
+# (a regime model of 64 states fitted per series), on the wide K4/K5 (the
+# marginal kernel past 32 states), over 64 categories, each state's most
+# likely its own (``hmm_k_emission``; ``scripts/hmm16_conditioning.py
+# --states 64 --categories 64 --chains 512``), ``fb_wide_marg_kernel``
+# timed beside the new marginal kernel.
+FILTER128_B, FILTER128_T, FILTER128_D = 1000, 200, 128
+FILTER128_PLAIN_STEPS, FILTER128_PLAIN_CHAINS = 1, 2
+HMM64_B, HMM64_T, HMM64_IT, HMM64_K, HMM64_M = 512, 1000, 20, 64, 64
+# The warp K3's tensor-core tiers past 32 on their paths (phases 26 (a), 27
+# (a)): d -> (B, T, plain steps, plain chains, the plan's tier, the device
+# kernel, its library, the sweep tier's timing (rounds, warm-ups; no rounds:
+# its one call, the one whose outputs are compared, timed))
+TIER_PATHS = {
+    FILTER64_D: (FILTER64_B, FILTER64_T, FILTER64_PLAIN_STEPS,
+                 FILTER64_PLAIN_CHAINS, "tensor_cores_64",
+                 "warp_filter_tc64_kernel", "fused_filter_warp", (2, 1)),
+    FILTER128_D: (FILTER128_B, FILTER128_T, FILTER128_PLAIN_STEPS,
+                  FILTER128_PLAIN_CHAINS, "tensor_cores_128",
+                  "warp_filter_tc128_kernel", "fused_filter_tc128", (0, 0)),
+}
 BF16_KERNEL_NAMES = {"fused_smoother_fwd_bf16": SMOOTHER_KERNEL_NAMES[
                          "fused_smoother_fwd"],
                      "fused_smoother_bwd_bf16": SMOOTHER_KERNEL_NAMES[
@@ -4762,7 +4830,8 @@ def hmm_k_init(k: int, m: int):
 
 
 def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
-               reps: int, smi: str, log=print) -> dict:
+               reps: int, smi: str, log=print,
+               beside_first_written: bool = False) -> dict:
     """Phase 16 (b) (and 26 (b) at 32 states; the log lines' tag "hmm{k}"):
     ``zoo.hmm(k, m)`` through ``batched_program`` at (B, T)
     with ``iterations`` sweeps, y from ``simulate_hmm_k``: the plan fused on
@@ -4777,7 +4846,10 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
     profiled call (device busy, idle share, each pass's ms), and on the
     last sweep's inputs each call alone, each recursion alone and the
     wrappers ``fb_forward`` / ``fb_backward`` (CUDA events, beside the SM
-    clock sampled meanwhile)."""
+    clock sampled meanwhile); with ``beside_first_written`` (phase 27 (b))
+    the marginal call held to the plain version's bits, and
+    ``fb_wide_marg_kernel`` on the same inputs, its outputs equal to the
+    marginal call's, timed between two timings of that call."""
     import torch
 
     import rxinfer_tpu_torch as rt
@@ -4787,7 +4859,8 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
 
     tag = f"hmm{k}"
     names = FB_ROWS_KERNEL_NAMES if ffb.HALF_WARP_STATES < k <= \
-        ffb.ROW_STATES else FB_WIDE_KERNEL_NAMES
+        ffb.ROW_STATES else FB_ROWS2_KERNEL_NAMES if ffb.ROW_STATES < k <= \
+        ffb.ROWS2_STATES else FB_WIDE_KERNEL_NAMES
     marks = [("start", time.perf_counter())]
     mark = lambda what: marks.append((what, time.perf_counter()))
     y_host = hmm16_y(b, t_len, k, m)
@@ -4839,7 +4912,8 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
                                      BatchContext(device, b, {}))
     out["kernel_errs"], out["plain_ms"] = check_fb_path_inputs(
         lp, elog_a, le_t, log=log, tag=tag,
-        serial_rows=rows if k > ffb.HALF_WARP_STATES else None)
+        serial_rows=rows if k > ffb.HALF_WARP_STATES else None,
+        marginal_bits=beside_first_written)
     mark("the two calls against the plain versions")
 
     # the free energy: one call, against the float64 structured VMP's
@@ -4889,6 +4963,23 @@ def hmm16_path(device, b: int, t_len: int, k: int, m: int, iterations: int,
         out["alone_ms"] = {n: _cuda_ms(fn, 5, inner=3)
                            for n, fn in alone.items()}
     out["sm_clock_mhz"] = clk.mhz
+    if beside_first_written:
+        new_marg = alone["fused_fb_marg_wide"]
+        old_marg = lambda: ffb._marginals_cuda(elog_a, le_t, alphas, betas,
+                                               True, first_written=True)
+        if not all(torch.equal(x, y) for x, y in zip(new_marg(),
+                                                      old_marg())):
+            raise AssertionError(f"the {k}-state marginal kernel and "
+                                 "fb_wide_marg_kernel differ")
+        with SmClock() as clk_old:
+            beside = [_cuda_ms(new_marg, 3, inner=3)]
+            out["first_written_marg_ms"] = _cuda_ms(old_marg, 3, inner=3)
+            beside.append(_cuda_ms(new_marg, 3, inner=3))
+        out["marg_ms_beside_first_written"] = beside
+        out["first_written_clock_mhz"] = clk_old.mhz
+        log(f"[{tag}] fb_wide_marg_kernel on the same inputs "
+            f"{out['first_written_marg_ms']:.4f} ms between the marginal "
+            f"call's {beside} ms at {clk_old.mhz:.0f} MHz (outputs equal)")
     out["alone_cycles_per_step"] = {
         n: _cycles_per_step(ms, clk.mhz, t_len)
         for n, ms in out["alone_ms"].items()}
@@ -4952,36 +5043,37 @@ def _ptxas_of(name: str, entry: str) -> dict:
             "spill_bytes": max(spills) if spills else None}
 
 
-def filter64_path(device, smi: str, log=print) -> dict:
-    """Phase 26 (a): path A at (B, T, d, dy) = (FILTER64_B, FILTER64_T, 64,
-    64) through ``make_sharded_filtering(fused=True)`` on the warp K3's tier
-    past 32 (``filter_path``: one ``fused_filter_warp`` launch a call, the
-    float64 filter on sampled chains, the plain version on the host over
-    FILTER64_PLAIN_STEPS steps of FILTER64_PLAIN_CHAINS chains, the call
-    over three calls after a warm-up, the kernel alone, the profile), its
-    device kernel ``warp_filter_tc64_kernel`` and never the sweep tier's
+def tier_filter_path(device, d: int, smi: str, log=print) -> dict:
+    """Phases 26 (a) and 27 (a): path A at d = dy = ``d`` (64 or 128, at
+    ``TIER_PATHS[d]``'s B, T) through ``make_sharded_filtering(fused=True)``
+    on the warp K3's tensor-core tier past 32 or past 64 (``filter_path``:
+    one ``fused_filter_warp`` launch a call, the float64 filter on sampled
+    chains, the plain version on the host over the first steps of a few
+    chains, the call over three calls after a warm-up, the kernel alone,
+    the profile), its device kernel and never the sweep tier's
     ``warp_filter_kernel`` in the call; then the sweep tier
-    (``warp_filter_kernel`` on ``sweep_warp_plan``, through the same
-    library's launcher) at the same shape and inputs, timed between two
-    timings of the new tier, and the two tiers' outputs against each other;
-    the new tier's ``ptxas`` registers and spills and its warps an SM."""
+    (``warp_filter_kernel`` on ``sweep_warp_plan``, through its library's
+    launcher) at the same shape and inputs, timed between two timings of
+    the tier, and the two tiers' outputs against each other; the tier's
+    ``ptxas`` registers and spills and its warps an SM."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
 
-    b, t_len, d = FILTER64_B, FILTER64_T, FILTER64_D
+    (b, t_len, plain_steps, plain_chains, tier, entry, lib_name,
+     (sweep_reps, sweep_warm)) = TIER_PATHS[d]
+    tag = f"filter{d}"
     plan = ff.device_warp_plan(d, device)
-    if plan["tier"] != "tensor_cores_64":
-        raise AssertionError(f"d = {d} plans {plan}, not the tier past 32")
-    out = filter_path(device, b, t_len, d, reps=3,
-                      plain_steps=FILTER64_PLAIN_STEPS,
-                      plain_chains=FILTER64_PLAIN_CHAINS, tag="filter64",
-                      inner=1, warm_sync=True, log=log)
+    if plan["tier"] != tier:
+        raise AssertionError(f"d = {d} plans {plan}, not the tier {tier}")
+    out = filter_path(device, b, t_len, d, reps=3, plain_steps=plain_steps,
+                      plain_chains=plain_chains, tag=tag, inner=1,
+                      warm_sync=True, log=log)
     top = out["profile"].get("top") or []
-    if not any("warp_filter_tc64_kernel" in row[0] for row in top) or any(
+    if not any(entry in row[0] for row in top) or any(
             "warp_filter_kernel" in row[0] for row in top):
-        raise AssertionError(f"path A at d = {d} reached the sweep tier: "
-                             f"{top}")
+        raise AssertionError(f"path A at d = {d} did not run {entry} alone:"
+                             f" {top}")
     # the sweep tier at the same shape, on the same inputs
     f, q, h, r, _, p0_host = lgssm_constants(d)
     w_obs, hr = ff.evidence_operators(h, r)
@@ -4996,6 +5088,10 @@ def filter64_path(device, smi: str, log=print) -> dict:
     sweep = ff.sweep_warp_plan(d, ff._smem_optin(device.index or 0))
     dp, stride, chains = (sweep["padded_dim"], sweep["stride"],
                           sweep["chains_per_block"])
+    ps = int(sweep["params"] == "shared")
+    cs = int(sweep["chain_matrices"] == "shared")
+    if not cs:
+        raise AssertionError(f"the sweep tier's plan at d = {d}: {sweep}")
     prm = np.zeros((4, dp, stride), np.float32)
     for i, a in enumerate((fh, fh.T, qh, wh)):
         prm[i, :d, :d] = a
@@ -5004,48 +5100,53 @@ def filter64_path(device, smi: str, log=print) -> dict:
     old_out = (torch.empty((t_len, d, b), device=device),
                torch.empty((d, b), device=device), torch.empty_like(p0))
     stream = torch.cuda.current_stream(device).cuda_stream
-    if (sweep["params"], sweep["chain_matrices"]) != ("shared", "shared"):
-        raise AssertionError(f"the sweep tier's plan at d = {d}: {sweep}")
 
     def old():
         rc = lib.rxt_warp_filter(
             d, d, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), params.data_ptr(),
             *(o.data_ptr() for o in old_out), None, t_len, b, dp, stride,
-            chains, 1, 1, stream)
+            chains, ps, cs, stream)
         if rc:
             raise AssertionError(f"the sweep tier at d = {d}: CUDA error {rc}")
 
     new = lambda: ff.fused_filter(m0, p0, ys, f, q, hr, w_obs)
     got = new()
-    old()
-    torch.cuda.synchronize()
+    with SmClock() as clk:
+        new_ms = [_cuda_ms(new, 3)]
+        if sweep_reps:
+            old()
+            out["sweep_ms"] = _cuda_ms(old, sweep_reps, warmup=sweep_warm)
+        else:
+            out["sweep_ms"] = _once_ms(old)[1]
+        new_ms.append(_cuda_ms(new, 3))
     out["tiers_diff"] = 0.0
     for label, a, c in zip(("means", "final m", "final P"), got, old_out):
         ea, er, ok = _max_err(a.cpu().numpy(), c.cpu().numpy())
         out["tiers_diff"] = max(out["tiers_diff"], ea)
         if not ok:
-            raise AssertionError(f"the tiers past 32 and the sweep tier "
+            raise AssertionError(f"the tier {tier} and the sweep tier "
                                  f"differ at d = {d}, {label}: abs {ea:.3g}")
-    with SmClock() as clk:
-        new_ms = [_cuda_ms(new, 3)]
-        out["sweep_ms"] = _cuda_ms(old, 2)
-        new_ms.append(_cuda_ms(new, 3))
     out["kernel_ms_beside_sweep"] = new_ms
     out["sweep_clock_mhz"] = clk.mhz
     out["speedup_over_sweep"] = out["sweep_ms"] / min(new_ms)
-    out["ptxas"] = _ptxas_of("fused_filter_warp", "warp_filter_tc64_kernel")
-    out["warps_per_sm"] = lib.rxt_warp_filter_tc64_blocks_per_sm(d) \
-        * plan["chains_per_block"]
+    out["sweep_plan"] = sweep
+    out["ptxas"] = _ptxas_of(lib_name, entry)
+    tier_lib = ff._library(lib_name)
+    out["warps_per_sm"] = (
+        tier_lib.rxt_warp_filter_tc128_blocks_per_sm()
+        if lib_name == "fused_filter_tc128"
+        else tier_lib.rxt_warp_filter_tc64_blocks_per_sm(d)) \
+        * plan["chains_per_block"] * plan["warps_per_chain"]
     out["plan"] = plan
     out["bound"] = _memo(("filter_bound", b, t_len, d, d),
                          lambda: filter_bound(b, t_len, d, d))
     bnd = out["bound"]
     in_call = out["profile"]["kernels"]["fused_filter_warp"]["ms_per_launch"]
-    log(f"[filter64] warp_filter_tc64_kernel alone {out['kernel_ms']:.3f} "
+    log(f"[{tag}] {entry} alone {out['kernel_ms']:.3f} "
         f"ms, in the call {in_call} ms ({out['cycles_per_step']} cycles a "
-        f"step at {out['sm_clock_mhz']:.0f} MHz); beside the sweep tier {new_ms} ms"
-        f" against warp_filter_kernel {out['sweep_ms']:.3f} ms at "
+        f"step at {out['sm_clock_mhz']:.0f} MHz); beside the sweep tier "
+        f"{new_ms} ms against warp_filter_kernel {out['sweep_ms']:.3f} ms at "
         f"{clk.mhz:.0f} MHz: {out['speedup_over_sweep']:.2f}x; the two "
         f"tiers' outputs differ by up to {out['tiers_diff']:.3g}; bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; float32 only "
@@ -5053,7 +5154,7 @@ def filter64_path(device, smi: str, log=print) -> dict:
         f"{100 * bnd['bound_ms'] / out['kernel_ms']:.2f}%; registers "
         f"{out['ptxas']['registers']}, spill bytes "
         f"{out['ptxas']['spill_bytes']}; {out['warps_per_sm']} warps an SM;"
-        f" plan {plan}; {smi}")
+        f" plan {plan}; the sweep's {sweep}; {smi}")
     return out
 
 
@@ -5178,7 +5279,8 @@ def slice14_checks(wall0: float) -> tuple[list, dict, dict]:
              for _, _, d, _ in FILTER_WARP_CHECK_SHAPES
              + FILTER_TC64_CHECK_SHAPES}
     if taken != {d: "tensor_cores" if d <= ff.TC_DIM else "tensor_cores_64"
-                 if d <= ff.TC64_DIM else "sweep" for d in taken}:
+                 if d <= ff.TC64_DIM else "tensor_cores_128"
+                 if d <= ff.TC128_DIM else "sweep" for d in taken}:
         raise AssertionError(f"the warp K3's check shapes took the tiers "
                              f"{taken}")
     lines.append(f"[check] K3 fused_filter_warp tiers by d: {taken}")
@@ -5239,6 +5341,25 @@ def slice27_checks(wall0: float) -> tuple[list, dict, dict]:
                       tuple(edge_rows(FILTER64_B)[:FILTER64_PLAIN_CHAINS]))
     _ended(lines, "warp K3 checks past d = 32", wall0)
     return lines, worst, dict(_MEMO)
+
+
+def slice28_checks(wall0: float) -> tuple[list, dict]:
+    """Phase 27's host results, in a check process fetched when the phase
+    runs: (a)'s plain version on its sampled chains (``filter_plain_rows``:
+    about 40 s a step at d = 128 on the host) and its bound (the counts of
+    ``filter_bound``, about 10 s), (b)'s float64 VMP (``hmm16_oracle``,
+    about 20 s).  Returns the log lines and the host results for
+    ``_MEMO``."""
+    lines: list = []
+    filter_plain_rows(FILTER128_B, FILTER128_T, FILTER128_D,
+                      FILTER128_PLAIN_STEPS,
+                      tuple(edge_rows(FILTER128_B)[:FILTER128_PLAIN_CHAINS]))
+    _memo(("filter_bound",) + (FILTER128_B, FILTER128_T) + (FILTER128_D,) * 2,
+          lambda: filter_bound(FILTER128_B, FILTER128_T, FILTER128_D,
+                               FILTER128_D))
+    hmm16_oracle(HMM64_B, HMM64_T, HMM64_K, HMM64_M, HMM64_IT)
+    _ended(lines, "phase 27's host results", wall0)
+    return lines, dict(_MEMO)
 
 
 def _ended(lines: list, what: str, wall0: float) -> None:
@@ -9750,6 +9871,7 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     prefetch = [pool.apply_async(host_prefetch, (wall0, part))
                 for part in (0, 1)]
     side27 = pool.apply_async(slice27_checks, (wall0,))
+    side28 = pool.apply_async(slice28_checks, (wall0,))
     side18 = pool.apply_async(shared_checks, (wall0,))
     side20 = pool.apply_async(slice20_checks, (wall0,))
     side21 = pool.apply_async(slice21_checks, (wall0,))
@@ -9967,12 +10089,27 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
     worst["fused_filter_warp"] = max(worst["fused_filter_warp"],
                                      s27_worst["fused_filter_warp"])
     t26 = time.perf_counter()
-    filt64 = filter64_path(device, smi=smi)
+    filt64 = tier_filter_path(device, FILTER64_D, smi=smi)
     hmm32 = hmm16_path(device, HMM32_B, HMM32_T, HMM32_K, HMM32_M, HMM32_IT,
                        reps=2, smi=smi)
     hmm32_bounds = fb_wide_bounds(HMM32_B, HMM32_T, HMM32_K)
     print(f"[s26] phase 26 took {time.perf_counter() - t26:.1f} s; {smi}")
     _elapsed("path A at d = 64 and the 32-state HMM", t_start)
+
+    # 27. the last two first-written tiers redesigned for the card: (a) path
+    # A at d = dy = 128 on the warp K3's tier past 64, the sweep tier beside
+    # it; (b) a 64-state HMM on the wide K4/K5, the marginal kernel past 32
+    # states beside fb_wide_marg_kernel
+    s28_lines, s28_memo = side28.get()
+    print("\n".join(s28_lines))
+    _MEMO.update(s28_memo)
+    t27 = time.perf_counter()
+    filt128 = tier_filter_path(device, FILTER128_D, smi=smi)
+    hmm64 = hmm16_path(device, HMM64_B, HMM64_T, HMM64_K, HMM64_M, HMM64_IT,
+                       reps=1, smi=smi, beside_first_written=True)
+    hmm64_bounds = fb_wide_bounds(HMM64_B, HMM64_T, HMM64_K)
+    print(f"[s27] phase 27 took {time.perf_counter() - t27:.1f} s; {smi}")
+    _elapsed("path A at d = 128 and the 64-state HMM", t_start)
     shared_launches = {"wtau_pooled": shared["launches"],
                        "wtau_pooled_chunked": shared["chunked_launches"],
                        "hier_pooled": hier["launches"]}
@@ -10680,6 +10817,136 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
           f"{hmm32['profile']['busy_ms']} ms a call, of it the engine's "
           f"other device kernels {hmm32['rest_ms']} ms; peak "
           f"{hmm32['peak_bytes'] / 1e9:.3f} GB; {smi}")
+    # phase 27: the warp K3's tier past 64 (path A at d = 128) and the wide
+    # K4/K5 at 64 states (the marginal kernel past 32 states)
+    bnd128 = filt128["bound"]
+    rows.append({
+        "name": "fused_filter_warp_d128", "route": "cuda",
+        "source": "rxinfer_tpu_torch/csrc/fused_filter_tc128.cu",
+        "replaces": "rxinfer_tpu/ops/pallas_filter.py:84",
+        "launch_key": "fused_filter_warp",
+        "device_kernel": "warp_filter_tc128_kernel",
+        "launches": filt128["launches"]["fused_filter_warp"],
+        "max_abs_err": max(worst["fused_filter_warp"], filt128["kernel_err"]),
+        "max_abs_err_on_path": filt128["kernel_err"],
+        "max_abs_err_vs_float64_on_path": max(filt128["errs"].values()),
+        "ms": filt128["kernel_ms"],
+        "ms_beside_sweep_tier": filt128["kernel_ms_beside_sweep"],
+        "ms_in_path": filt128["profile"]["kernels"]["fused_filter_warp"][
+            "ms_per_launch"],
+        "call_ms": filt128["call_ms"],
+        "call_busy_ms": filt128["profile"]["busy_ms"],
+        "sweep_tier_ms": filt128["sweep_ms"],
+        "sweep_tier_plan": filt128["sweep_plan"],
+        "speedup_over_sweep_tier": filt128["speedup_over_sweep"],
+        "max_abs_diff_from_sweep_tier": filt128["tiers_diff"],
+        "plain_ms": filt128["plain_kernel_ms"],
+        "plain_shape_BTddy": [filt128["plain_chains"], filt128["plain_steps"],
+                              FILTER128_D, FILTER128_D],
+        "plain_device": filt128["plain_device"],
+        "bound_ms": bnd128["bound_ms"], "bound_by": bnd128["bound_by"],
+        "bound_ms_fp32": bnd128["bound_ms_fp32"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a Kalman filter",
+        "shape_BTddy": [FILTER128_B, FILTER128_T, FILTER128_D, FILTER128_D],
+        "bytes": bnd128["bytes"], "ops": bnd128["ops"],
+        "ops_tensor_cores": bnd128["ops_tensor_cores"],
+        "bound_rates": "ops_tensor_cores at 3xTF32 (495e12 / 3 op/s), the "
+                       "other ops at 67e12 op/s, bytes at 3.35e12 B/s",
+        "cycles_per_step": filt128["cycles_per_step"],
+        "sm_clock_mhz": filt128["sm_clock_mhz"],
+        "share_of_bound": bnd128["bound_ms"] / filt128["kernel_ms"],
+        "registers": filt128["ptxas"]["registers"],
+        "spill_bytes": filt128["ptxas"]["spill_bytes"],
+        "ptxas": filt128["ptxas"]["lines"],
+        "warps_per_sm": filt128["warps_per_sm"], "plan": filt128["plan"],
+        "tier_by_d": s14_tiers["by_d"],
+        "one_observation_BT_d": [ONE_OBS_B, ONE_OBS_T, list(ONE_OBS_WARP_D)],
+        "max_abs_err_one_observation_vs_float64":
+            s14_tiers["one_observation"],
+        "shapes_checked": ["x".join(map(str, s[:4]))
+                           for s in FILTER_TC64_CHECK_SHAPES
+                           + FILTER_WARP_TIER_SHAPES if 64 < s[2] <= 128],
+    })
+    print(f"[filter128] fused_filter_warp (warp_filter_tc128_kernel): "
+          f"{filt128['kernel_ms']:.4f} ms alone, in the call "
+          f"{rows[-1]['ms_in_path']} ms, call {filt128['call_ms']:.4f} ms; "
+          f"bound {bnd128['bound_ms']:.4f} ms ({bnd128['bound_by']}), "
+          f"roofline share {100 * rows[-1]['share_of_bound']:.2f}%; the sweep"
+          f" tier {filt128['sweep_ms']:.3f} ms "
+          f"({filt128['speedup_over_sweep']:.2f}x); plain "
+          f"{filt128['plain_kernel_ms']:.1f} ms over "
+          f"{filt128['plain_steps']} step(s) of {filt128['plain_chains']} "
+          f"chains on the host; {smi}")
+    hmm64_shape = (HMM64_B, HMM64_T, HMM64_K)
+    tile64 = hmm64["tile"]
+    for name, replaces in (
+            ("fused_fb_serial_wide", "rxinfer_tpu/ops/pallas_discrete.py:48"),
+            ("fused_fb_marg_wide", "rxinfer_tpu/ops/pallas_discrete.py:87")):
+        prof = hmm64["profile"]["kernels"][name]
+        entry = ("fb_wide_serial_kernelILi0E" if "serial" in name
+                 else "fb_wide_marg_rows2_kernelILb1ELb1E")
+        px = _ptxas_of("fused_fb_wide", entry)
+        bnd = hmm64_bounds[name]
+        rows.append({
+            "name": name + "_k64", "route": "cuda",
+            "source": "rxinfer_tpu_torch/csrc/fused_fb_wide.cu",
+            "replaces": replaces, "launch_key": name,
+            "device_kernel": FB_ROWS2_KERNEL_NAMES[name],
+            "launches": hmm64["launches"][name],
+            "max_abs_err": max(worst[name], hmm64["kernel_errs"][name]),
+            "max_abs_err_on_path": hmm64["kernel_errs"][name],
+            "ms": hmm64["alone_ms"][name],
+            "ms_in_path": prof["ms_per_launch"],
+            "ms_in_path_by_pass": prof.get("parts"),
+            "program_ms": hmm64["program_ms"],
+            "program_busy_ms": hmm64["profile"]["busy_ms"],
+            "cycles_per_step": hmm64["cycles_per_step"][name],
+            "sm_clock_mhz": hmm64["sm_clock_mhz"],
+            "tile": {"marginal_steps": tile64,
+                     "marginal_tiles": -(-HMM64_T // tile64),
+                     "marginal_warps_per_sm": hmm64["marginal_warps_per_sm"]},
+            "registers": px["registers"], "spill_bytes": px["spill_bytes"],
+            "ptxas": px["lines"],
+            "plain_ms": hmm64["plain_ms"][name],
+            "plain_shape_BTK": [len(edge_rows(HMM64_B)), HMM64_T, HMM64_K]
+            if "serial" in name else list(hmm64_shape),
+            "plain_device": "host" if "serial" in name else "card",
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes an HMM "
+                            "forward-backward",
+            "share_of_bound": bnd["bound_ms"] / hmm64["alone_ms"][name],
+            "shape_BTK": list(hmm64_shape),
+            "bytes": bnd["bytes"], "ops": bnd["ops"],
+        })
+        if "marg" in name:
+            rows[-1].update({
+                "first_written_kernel": "fb_wide_marg_kernel",
+                "first_written_ms": hmm64["first_written_marg_ms"],
+                "ms_beside_first_written": hmm64[
+                    "marg_ms_beside_first_written"],
+                "speedup_over_first_written": hmm64["first_written_marg_ms"]
+                / min(hmm64["marg_ms_beside_first_written"]),
+                "first_written_share_of_bound": bnd["bound_ms"]
+                / hmm64["first_written_marg_ms"]})
+        print(f"[hmm64] {name}: {hmm64['alone_ms'][name]:.4f} ms alone, in "
+              f"the program {prof['ms_per_launch']} ms (passes "
+              f"{prof.get('parts')}), bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), share "
+              f"{100 * rows[-1]['share_of_bound']:.2f}%; registers "
+              f"{px['registers']}, spill bytes {px['spill_bytes']}; plain "
+              f"{hmm64['plain_ms'][name]:.1f} ms at (B,T,K)="
+              f"{tuple(rows[-1]['plain_shape_BTK'])} on the "
+              f"{rows[-1]['plain_device']}"
+              + (f"; fb_wide_marg_kernel {hmm64['first_written_marg_ms']:.4f}"
+                 f" ms ({rows[-1]['speedup_over_first_written']:.2f}x)"
+                 if "marg" in name else "") + f"; {smi}")
+    print(f"[hmm64] program_ms {hmm64['program_ms']:.4f} updates_per_s "
+          f"{hmm64['updates_per_s']:.6g} (B={HMM64_B}, T={HMM64_T}, "
+          f"K={HMM64_K}, iterations={HMM64_IT}), device busy "
+          f"{hmm64['profile']['busy_ms']} ms a call, of it the engine's "
+          f"other device kernels {hmm64['rest_ms']} ms; peak "
+          f"{hmm64['peak_bytes'] / 1e9:.3f} GB; {smi}")
     print(f"[filter32] call_ms {filt32['call_ms']:.4f} chain_updates_per_s "
           f"{filt32['updates_per_s']:.6g} (B={FILTER_B}, T={FILTER_T}, "
           f"d=dy={FILTER32_D}); {smi}")
@@ -10716,6 +10983,9 @@ def _main_with_pool(pool, device, smi: str, t_start: float, wall0: float,
         row["launches_phase26"] = {
             "filter64": filt64["launches"].get(key, 0),
             "hmm32": hmm32["launches"].get(key, 0)}
+        row["launches_phase27"] = {
+            "filter128": filt128["launches"].get(key, 0),
+            "hmm64": hmm64["launches"].get(key, 0)}
     print(f"[gmm] program_ms {gmm['program_ms']:.4f} updates_per_s "
           f"{gmm['updates_per_s']:.6g} with FE {gmm['fe_program_ms']:.4f} "
           f"({gmm['fe_updates_per_s']:.6g}) (B={GMM_B}, N={GMM_N}, "

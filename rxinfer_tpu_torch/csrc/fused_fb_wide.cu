@@ -89,7 +89,35 @@
 //     ahead; four CTAs of four warps an SM (`kMargRowsBlocksPerSM`, 128
 //     registers), and the tile rule puts every (tile, chain) on the card
 //     in one wave of them.
-//     K > 32 (`fb_wide_marg_kernel`): a warp a (tile, chain), rows lane,
+//     32 < K <= 64 (`fb_wide_marg_rows2_kernel`): the 16 < K <= 32
+//     design on a CTA of four warps a (tile, chain), two threads a row
+//     (lane l its first 32 columns, lane l ^ 16 the rest, the second
+//     half's row sum taken on from the first's by a shuffle, so the sum
+//     keeps its column order), the tile's partial of a half-row in its
+//     thread's registers, the table and each step's block in the CTA's
+//     shared memory at marg_row_stride(K) (17,408 bytes each at K = 64),
+//     the block out in contiguous 16-byte stores, the step's inputs a step
+//     ahead (alpha_{t+1} into a second vector, so that a step needs no
+//     barrier for it), the exponentials computed once and kept for the
+//     output.  The four warps meet at three barriers a step: their maxima,
+//     their exps' and row sums' vectors, the staged block.  A first design,
+//     two warps a unit and a thread a row, put two warps on a scheduler at
+//     the 512 units of the 64-state cell, too few to hide a step's latency.
+//     On an H100 80GB HBM3 at 700 W at (512, 1000, 64) with the per-step
+//     xi (scripts/marg_rows2_variants.py): this design 6.03 ms (128
+//     registers, 28 bytes of spill), without the quotients by a reciprocal
+//     and the split sums 6.69; each warp copying its own staged rows out
+//     without barrier C, 6.19; a block staged in two buffers and copied
+//     out a step later, 7.10; four threads a row, 7.15.  What held
+//     `fb_wide_marg_kernel` below a third of its bound at K = 32 held it
+//     past 32 too: each (i, j) exp computed
+//     three times (the maximum, the row sums, the output), the table read
+//     from device memory on each pass, the partial accumulated in place in
+//     device memory (a read and a write of K^2 floats a step), the per-step
+//     block stored a row a lane (K floats apart), the inputs loaded when
+//     needed.  Four CTAs an SM (`kMargRows2BlocksPerSM`: registers and
+//     shared memory), the tile rule one wave of them.
+//     K > 64 (`fb_wide_marg_kernel`): a warp a (tile, chain), rows lane,
 //     lane + 32, ..., the partial accumulated in the output `part` in
 //     place, the row sums summed in row order.
 //   * xi_sum: fused_fb.cuh's kernel sums the per-tile partials in tile order
@@ -112,6 +140,11 @@ constexpr int kMargBlocksPerSM = 5;  // K <= 16 marginal CTAs an SM holds
 constexpr int kMargRowsBlocksPerSM = 4;  // 16 < K <= 32 marginal CTAs an SM
 constexpr int kRowsMax = 32;            // 16 < K <= 32: a lane a row
 constexpr int kRowStrideMax = 36;       // the rows' largest stride
+constexpr int kRows2Max = 64;           // 32 < K <= 64: a thread a row
+constexpr int kRows2StrideMax = 68;     // the rows' largest stride there
+constexpr int kRows2Half = 32;          // columns a thread takes there
+constexpr int kRows2Threads = 4 * kWarp;  // a CTA: one (tile, chain)
+constexpr int kMargRows2BlocksPerSM = 4;  // 32 < K <= 64 marginal CTAs an SM
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -812,12 +845,13 @@ __host__ __device__ constexpr int marg_row_stride(int K) {
   return K % 4 != 0 ? (K | 1) : ((K / 4) % 2 == 0 ? K + 4 : K + 8);
 }
 
-// v[0] + v[1] + ... + v[n-1] in index order, n <= 32, v 16-byte aligned in
-// shared memory and read as float4s.
+// v[0] + v[1] + ... + v[n-1] in index order, n <= NMAX, v 16-byte aligned
+// in shared memory and read as float4s.
+template <int NMAX = kRowsMax>
 __device__ __forceinline__ float sum_vec(const float* v, int n) {
   float s = v[0];
 #pragma unroll
-  for (int q = 0; q < kRowsMax / 4; ++q) {
+  for (int q = 0; q < NMAX / 4; ++q) {
     const float4 x = reinterpret_cast<const float4*>(v)[q];
     const float e[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -1015,8 +1049,293 @@ __global__ void __launch_bounds__(kWarp * kChainWarps, kMargRowsBlocksPerSM)
   }
 }
 
-// K > 32: a warp a unit, rows lane, lane + 32, ... of xi_t, the tile's
-// partial accumulated in the output `part` in place.  The maxima are warp
+// x / s, the IEEE quotient, for x >= 2^-100 and a sum s >= 1 whose
+// reciprocal r = RN(1 / s) is known: q0 = x r, then q0 + (x - q0 s) r by
+// two fused multiply-adds is the correctly rounded quotient wherever it is
+// a normal float (Markstein's theorem; held against the division bit for
+// bit on the card and, exactly, on the CPU).  A multiply and two
+// multiply-adds a quotient in place of the division's reciprocal, four
+// multiply-adds and range check.
+__device__ __forceinline__ float quot_by_sum(float x, float s, float r) {
+  const float q0 = x * r;
+  return fmaf(fmaf(-q0, s, x), r, q0);
+}
+
+// The maximum and the minimum of a half-row's x[j], c0 + j < K, as trees
+// (both exact in any order).
+__device__ __forceinline__ float row_max(const float (&x)[kRows2Half], int c0,
+                                        int K) {
+  float m[kRows2Half / 4];
+#pragma unroll
+  for (int q = 0; q < kRows2Half / 4; ++q) {
+    m[q] = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c0 + 4 * q + k < K) m[q] = fmaxf(m[q], x[4 * q + k]);
+  }
+#pragma unroll
+  for (int w = kRows2Half / 8; w > 0; w /= 2)
+#pragma unroll
+    for (int q = 0; q < w; ++q) m[q] = fmaxf(m[q], m[q + w]);
+  return m[0];
+}
+
+__device__ __forceinline__ float row_min(const float (&x)[kRows2Half], int c0,
+                                        int K) {
+  float m[kRows2Half / 4];
+#pragma unroll
+  for (int q = 0; q < kRows2Half / 4; ++q) {
+    m[q] = INFINITY;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c0 + 4 * q + k < K) m[q] = fminf(m[q], x[4 * q + k]);
+  }
+#pragma unroll
+  for (int w = kRows2Half / 8; w > 0; w /= 2)
+#pragma unroll
+    for (int q = 0; q < w; ++q) m[q] = fminf(m[q], m[q + w]);
+  return m[0];
+}
+
+// 32 < K <= 64: a CTA of four warps a unit, two threads a row: warp w,
+// lane l takes row i = 16 w + l % 16 of xi_t and of the tile's partial, its
+// columns 32 h .. 32 h + 31 (h = l / 16) in registers.  The chain's table
+// and each step's xi sit in the CTA's shared memory at row stride
+// marg_row_stride(K); VEC (K % 4 == 0) reads rows as float4s and writes
+// the step's block as 16-byte stores.  The maxima are warp reductions met
+// through `red`; a row sum runs in column order, its first half in lane l
+// and its second half on it in lane l ^ 16 (one shuffle between), gamma's
+// sum (lanes l < 16) and the sum of the row sums (lanes l >= 16) over a
+// vector in shared memory in index order, as the plain version's, each
+// handed to the other half by a shuffle; a row's quotients by the sum's
+// reciprocal (quot_by_sum) unless one is below 2^-100, then by the
+// division.  Three barriers a step (two without the per-step xi): the
+// warps' maxima (A), the exps' and row sums' vectors and alpha_{t+1} (B),
+// the staged block (C).  A vector written at a step was last read before
+// the previous step's later barriers, so one barrier a vector suffices.
+template <bool VEC, bool STEPS>
+__global__ void __launch_bounds__(kRows2Threads, kMargRows2BlocksPerSM)
+    fb_wide_marg_rows2_kernel(const float* __restrict__ lt,
+                              const float* __restrict__ le,
+                              const float* __restrict__ alphas,
+                              const float* __restrict__ betas,
+                              float* __restrict__ gammas,
+                              float* __restrict__ part,
+                              float* __restrict__ xi_steps, int64_t T,
+                              int64_t B, int K, int64_t tile) {
+  constexpr int kRows = kRows2Max * kRows2StrideMax;
+  constexpr int kWarps = kRows2Threads / kWarp;
+  __shared__ __align__(16) float tab[kRows];
+  __shared__ __align__(16) float stage[STEPS ? kRows : 4];
+  __shared__ __align__(16) float a_s[2][kRows2Max];  // alpha_t by parity
+  __shared__ __align__(16) float vg[kRows2Max];      // gamma's exps
+  __shared__ __align__(16) float vr[kRows2Max];      // the row sums
+  __shared__ float red[kWarps][2];                   // each warp's maxima
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int half = lane / kHalf;
+  const int i = kHalf * warp + lane % kHalf;  // the thread's row (state)
+  const int c0 = kRows2Half * half;           // and its first column
+  const int64_t w = blockIdx.x;  // the unit: s * B + b
+  const int64_t b = w % B;
+  const int64_t t0 = (w / B) * tile;
+  const int64_t t_end = t0 + tile < T ? t0 + tile : T;
+  const int64_t step = B * K;
+  const int kk = K * K;
+  const int sk = marg_row_stride(K);
+  const bool own = i < K;                // a row of the block
+  const bool lead = own && half == 0;    // the row's state: gamma, alpha
+  for (int n = tid; n < kRows2Max; n += kRows2Threads) {
+    a_s[0][n] = 0.0f;
+    a_s[1][n] = 0.0f;
+    vg[n] = 0.0f;
+    vr[n] = 0.0f;
+  }
+  for (int idx = tid; idx < kk; idx += kRows2Threads)
+    tab[(idx / K) * sk + idx % K] = lt[b * kk + idx];
+  float acc[kRows2Half];
+#pragma unroll
+  for (int j = 0; j < kRows2Half; ++j) acc[j] = 0.0f;
+  // alpha_t, beta_t (the row's state), le_{t+1}, beta_{t+1} of the step to
+  // come (both halves)
+  int64_t at = t0 * step + b * K;
+  const bool first_xi = own && t0 + 1 < T;
+  float a_c = lead ? alphas[at + i] : 0.0f;
+  float b_c = lead ? betas[at + i] : 0.0f;
+  float le_n = first_xi ? le[at + step + i] : 0.0f;
+  float b_n = first_xi ? betas[at + step + i] : 0.0f;
+  __syncthreads();  // the vectors are zero (another thread zeroed row i's)
+  if (lead) a_s[0][i] = a_c;
+  // the copy-out: this thread's first (row, column) of the block in its
+  // contiguous order and the step to the next one (VEC: float4 tid + 128 n;
+  // else float tid + 128 n)
+  const int span = VEC ? 4 * kRows2Threads : kRows2Threads;
+  const int dr = span / K, dc = span % K;
+  const int e0 = VEC ? 4 * tid : tid;
+  const int r_first = e0 / K, c_first = e0 % K;
+  __syncthreads();
+  const float* row = tab + i * sk + c0;
+  int par = 0;
+  for (int64_t t = t0; t < t_end; ++t, at += step, par ^= 1) {
+    // the next step's inputs, in flight while this step computes
+    const bool next = own && t + 1 < t_end, next_xi = next && t + 2 < T;
+    const float a_x = lead && next ? alphas[at + step + i] : 0.0f;
+    const float le_x = next_xi ? le[at + 2 * step + i] : 0.0f;
+    const float b_x = next_xi ? betas[at + 2 * step + i] : 0.0f;
+    const bool xi_t = t + 1 < T;
+    // gamma_t: the row's state; x[j] = alpha_t[c0 + j] + ((logA[i][c0 + j]
+    // + le_{t+1}[i]) + beta_{t+1}[i])
+    const float g = a_c + b_c;
+    const float mg_w = warp_max(lead ? g : -INFINITY);
+    float x[kRows2Half];
+    float lm = -INFINITY;
+    if (xi_t) {
+#pragma unroll
+      for (int q = 0; q < kRows2Half / 4; ++q) {
+        const float4 av =
+            reinterpret_cast<const float4*>(a_s[par] + c0)[q];
+        float r4[4];
+        if (VEC) {
+          if (own && c0 + 4 * q < K) {
+            const float4 rv = *reinterpret_cast<const float4*>(row + 4 * q);
+            r4[0] = rv.x; r4[1] = rv.y; r4[2] = rv.z; r4[3] = rv.w;
+          } else {
+            r4[0] = r4[1] = r4[2] = r4[3] = 0.0f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            r4[k] = own && c0 + 4 * q + k < K ? row[4 * q + k] : 0.0f;
+        }
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * q + k;
+          x[j] = a4[k] + ((r4[k] + le_n) + b_n);
+        }
+      }
+      lm = row_max(x, c0, K);
+    }
+    const float mx_w = warp_max(own ? lm : -INFINITY);
+    if (lane == 0) {
+      red[warp][0] = mg_w;
+      red[warp][1] = mx_w;
+    }
+    __syncthreads();  // A
+    float mg = red[0][0];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) mg = fmaxf(mg, red[v][0]);
+    const float e = expf(g - mg);
+    if (lead) vg[i] = e;
+    if (xi_t) {
+      float mx = red[0][1];
+#pragma unroll
+      for (int v = 1; v < kWarps; ++v) mx = fmaxf(mx, red[v][1]);
+      // the row sum in column order: the first half from x[0], the second
+      // half on the first's sum
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kRows2Half; ++j) {
+        if (c0 + j < K) {
+          x[j] = expf(x[j] - mx);
+          rs = j == 0 ? x[j] : rs + x[j];
+        }
+      }
+      const float first = __shfl_xor_sync(kFullMask, rs, kHalf);
+      if (half == 1) {
+        rs = first;
+#pragma unroll
+        for (int j = 0; j < kRows2Half; ++j)
+          if (c0 + j < K) rs = rs + x[j];
+        if (own) vr[i] = rs;
+      }
+    }
+    if (lead && next) a_s[par ^ 1][i] = a_x;
+    __syncthreads();  // B
+    // gamma's sum in the first half-warp, the row sums' in the second
+    const float mine = sum_vec<kRows2Max>(half ? vr : vg, K);
+    const float other = __shfl_xor_sync(kFullMask, mine, kHalf);
+    const float gs = half ? other : mine;
+    if (lead) gammas[at + i] = e / gs;
+    if (xi_t) {
+      const float xs = half ? mine : other;
+      if (own) {
+        if (row_min(x, c0, K) >= 0x1p-100f) {
+          const float rx = __frcp_rn(xs);
+#pragma unroll
+          for (int j = 0; j < kRows2Half; ++j) {
+            if (c0 + j < K) {
+              x[j] = quot_by_sum(x[j], xs, rx);
+              acc[j] += x[j];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kRows2Half; ++j) {
+            if (c0 + j < K) {
+              x[j] = x[j] / xs;
+              acc[j] += x[j];
+            }
+          }
+        }
+      }
+      if constexpr (STEPS) {
+        if (own) {
+          float* dst = stage + i * sk + c0;
+          if (VEC) {
+#pragma unroll
+            for (int q = 0; q < kRows2Half / 4; ++q)
+              if (c0 + 4 * q < K)
+                reinterpret_cast<float4*>(dst)[q] = make_float4(
+                    x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kRows2Half; ++j)
+              if (c0 + j < K) dst[j] = x[j];
+          }
+        }
+        __syncthreads();  // C
+        float* out = xi_steps + at * K;  // (t, b)'s block: (t B + b) K K
+        int r = r_first, c = c_first;
+        if constexpr (VEC) {
+          for (int e4 = tid; 4 * e4 < kk; e4 += kRows2Threads) {
+            reinterpret_cast<float4*>(out)[e4] =
+                *reinterpret_cast<const float4*>(stage + r * sk + c);
+            r += dr;
+            c += dc;
+            if (c >= K) {
+              c -= K;
+              r += 1;
+            }
+          }
+        } else {
+          for (int el = tid; el < kk; el += kRows2Threads) {
+            out[el] = stage[r * sk + c];
+            r += dr;
+            c += dc;
+            if (c >= K) {
+              c -= K;
+              r += 1;
+            }
+          }
+        }
+      }
+    }
+    a_c = a_x;
+    b_c = b_n;
+    le_n = le_x;
+    b_n = b_x;
+  }
+  if (own) {
+    float* part_b = part + w * kk + i * K + c0;  // (tiles, B, K, K)
+#pragma unroll
+    for (int j = 0; j < kRows2Half; ++j)
+      if (c0 + j < K) part_b[j] = acc[j];
+  }
+}
+
+// K > 64 (it takes any K): a warp a unit, rows lane, lane + 32, ... of
+// xi_t, the tile's partial accumulated in the output `part` in place.  The maxima are warp
 // reductions; the row sums are gathered through shared memory and summed
 // in row order by every lane.
 template <bool STEPS>
@@ -1177,6 +1496,23 @@ int launch_marg_rows(const float* lt, const float* le, const float* alphas,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool VEC, bool STEPS>
+int launch_marg_rows2(const float* lt, const float* le, const float* alphas,
+                      const float* betas, float* gammas, float* part,
+                      float* xi_steps, int64_t T, int64_t B, int K,
+                      int64_t tile, int64_t tiles, cudaStream_t stream) {
+  // four CTAs of 35 KB an SM need more than the default shared carveout
+  const int rc = static_cast<int>(cudaFuncSetAttribute(
+      fb_wide_marg_rows2_kernel<VEC, STEPS>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
+  if (rc != 0) return rc;
+  fb_wide_marg_rows2_kernel<VEC, STEPS><<<grid_for(tiles * B, 1),
+                                          kRows2Threads, 0, stream>>>(
+      lt, le, alphas, betas, gammas, part, xi_steps, T, B, K, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool STEPS>
 int launch_marg_half(const float* lt, const float* le, const float* alphas,
                      const float* betas, float* gammas, float* part,
@@ -1242,12 +1578,45 @@ int rxt_fb_wide_marg(int k, int per_step, const float* lt, const float* le,
     rc = vec ? (st ? RXT_ROWS(true, true) : RXT_ROWS(true, false))
              : (st ? RXT_ROWS(false, true) : RXT_ROWS(false, false));
 #undef RXT_ROWS
+  } else if (k <= kRows2Max) {
+#define RXT_ROWS2(VEC, STEPS)                                                \
+  launch_marg_rows2<VEC, STEPS>(lt, le, alphas, betas, gammas, part,          \
+                                xi_steps, T, B, k, tile, tiles, s)
+    const bool vec = k % 4 == 0;
+    rc = vec ? (st ? RXT_ROWS2(true, true) : RXT_ROWS2(true, false))
+             : (st ? RXT_ROWS2(false, true) : RXT_ROWS2(false, false));
+#undef RXT_ROWS2
   } else {
     rc = st ? launch_marg_general<true>(lt, le, alphas, betas, gammas, part,
                                         xi_steps, T, B, k, tile, tiles, s)
             : launch_marg_general<false>(lt, le, alphas, betas, gammas, part,
                                          xi_steps, T, B, k, tile, tiles, s);
   }
+  if (rc != 0 || tiles == 1) return rc;
+  const int64_t n = B * static_cast<int64_t>(k) * k;
+  fb_xisum_kernel<<<grid_for(n, 256), 256, 0, s>>>(part, xi_sum, tiles, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with `fb_wide_marg_kernel` at any K (past 64 rxt_fb_wide_marg
+// takes it too): the first-written design, timed beside the row kernels.
+int rxt_fb_wide_marg_general(int k, int per_step, const float* lt,
+                             const float* le, const float* alphas,
+                             const float* betas, float* gammas, float* part,
+                             float* xi_sum, float* xi_steps, int64_t T,
+                             int64_t B, int64_t tile, int64_t tiles,
+                             void* stream) {
+  if (k < 1 || T < 1 || B < 1 || tile < 1 || tiles != (T + tile - 1) / tile ||
+      (per_step && T > 1 && !xi_steps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      per_step ? launch_marg_general<true>(lt, le, alphas, betas, gammas,
+                                           part, xi_steps, T, B, k, tile,
+                                           tiles, s)
+               : launch_marg_general<false>(lt, le, alphas, betas, gammas,
+                                            part, xi_steps, T, B, k, tile,
+                                            tiles, s);
   if (rc != 0 || tiles == 1) return rc;
   const int64_t n = B * static_cast<int64_t>(k) * k;
   fb_xisum_kernel<<<grid_for(n, 256), 256, 0, s>>>(part, xi_sum, tiles, n);
@@ -1283,6 +1652,24 @@ int rxt_fb_wide_marg_rows_blocks_per_sm() {
   int blocks = 0;
   const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, fb_wide_marg_rows_kernel<true, true>, kChainWarps * kWarp, 0);
+  return rc == cudaSuccess ? blocks : 0;
+}
+
+// The same for the 32 < K <= 64 marginal kernel (ops/fused_fb.py
+// MARGINAL_ROWS2_WARPS_PER_SM checks it), and its CTAs with the per-step xi
+// at K = 64 an SM holds on the current device (0 on an error).
+int rxt_fb_wide_marg_rows2_warps_per_sm() {
+  return kMargRows2BlocksPerSM * kRows2Threads / kWarp;
+}
+
+int rxt_fb_wide_marg_rows2_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(fb_wide_marg_rows2_kernel<true, true>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+    return 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fb_wide_marg_rows2_kernel<true, true>, kRows2Threads, 0);
   return rc == cudaSuccess ? blocks : 0;
 }
 

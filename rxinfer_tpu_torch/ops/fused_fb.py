@@ -83,6 +83,10 @@ MARGINAL_WARPS_PER_SM = 20
 # (``kMargRowsBlocksPerSM`` CTAs of four warps, a warp a (tile, chain)).
 ROW_STATES = 32
 MARGINAL_ROW_WARPS_PER_SM = 16
+# The same at ROW_STATES < K <= ROWS2_STATES (``kMargRows2BlocksPerSM`` CTAs
+# of four warps, a CTA a (tile, chain)); past it ``fb_wide_marg_kernel``.
+ROWS2_STATES = 64
+MARGINAL_ROWS2_WARPS_PER_SM = 16
 
 # wrapper calls that launched on CUDA tensors (the plain version on CPU
 # tensors counts none)
@@ -340,25 +344,30 @@ def marginal_plan(k: int) -> dict:
     """How the wide marginal pass runs at K > 8 states: its kernel, the
     lanes of a (tile, chain) unit, the warps an SM holds by the kernel's
     launch bounds (``units_per_sm`` units), and at HALF_WARP_STATES < K <=
-    ROW_STATES the row stride of the chain's table and of each step's stage
-    in shared memory (``marg_row_stride`` of the source: K % 4 == 0 whole
-    float4s, an odd number of them; else odd) and whether the per-step xi
-    goes out as 16-byte stores (K % 4 == 0)."""
+    ROWS2_STATES the row stride of the chain's table and of each step's
+    stage in shared memory (``marg_row_stride`` of the source: K % 4 == 0
+    whole float4s, an odd number of them; else odd) and whether the
+    per-step xi goes out as 16-byte stores (K % 4 == 0): a warp a unit to
+    ROW_STATES, four warps (a CTA, two threads a row) a unit past it."""
     if k <= REG_MAX_STATES:
         raise ValueError(f"the wide marginal pass takes K > {REG_MAX_STATES}")
     if k <= HALF_WARP_STATES:
         return {"kernel": "fb_wide_marg_half_kernel", "lanes_per_unit": 16,
                 "warps_per_sm": MARGINAL_WARPS_PER_SM,
                 "units_per_sm": 2 * MARGINAL_WARPS_PER_SM}
-    if k <= ROW_STATES:
+    if k <= ROWS2_STATES:
         if k % 4:
             stride = k | 1
         else:
             stride = k + 4 if (k // 4) % 2 == 0 else k + 8
-        return {"kernel": "fb_wide_marg_rows_kernel", "lanes_per_unit": 32,
-                "warps_per_sm": MARGINAL_ROW_WARPS_PER_SM,
-                "units_per_sm": MARGINAL_ROW_WARPS_PER_SM,
-                "row_stride": stride, "vector_stores": k % 4 == 0}
+        rows = {"row_stride": stride, "vector_stores": k % 4 == 0}
+        if k <= ROW_STATES:
+            return {"kernel": "fb_wide_marg_rows_kernel", "lanes_per_unit": 32,
+                    "warps_per_sm": MARGINAL_ROW_WARPS_PER_SM,
+                    "units_per_sm": MARGINAL_ROW_WARPS_PER_SM, **rows}
+        return {"kernel": "fb_wide_marg_rows2_kernel", "lanes_per_unit": 128,
+                "warps_per_sm": MARGINAL_ROWS2_WARPS_PER_SM,
+                "units_per_sm": MARGINAL_ROWS2_WARPS_PER_SM // 4, **rows}
     return {"kernel": "fb_wide_marg_kernel", "lanes_per_unit": 32,
             "warps_per_sm": MARGINAL_WARPS_PER_SM,
             "units_per_sm": 2 * MARGINAL_WARPS_PER_SM}
@@ -368,9 +377,9 @@ def pick_tile_wide(bsz: int, t_len: int, sm_count: int, k: int = 16) -> int:
     """Steps per tile of the wide kernels' marginal pass at K states: the
     fewest steps a tile, ceil(T / n), for the most tiles n whose B * n
     units the card holds at once (``marginal_plan(k)["units_per_sm"]`` an
-    SM, one wave: half-warps at K <= 16, warps at 16 < K <= 32), but at
-    least ``MIN_TILE_STEPS`` and at most T.  Past 32 states the rule of
-    K <= 16 stays."""
+    SM, one wave: half-warps at K <= 16, warps at 16 < K <= 32, CTAs of
+    four warps at 32 < K <= 64), but at least ``MIN_TILE_STEPS`` and at most T.
+    Past 64 states the rule of K <= 16 stays."""
     units = sm_count * marginal_plan(k)["units_per_sm"]
     n = max(1, units // max(bsz, 1))
     return max(1, min(t_len, max(MIN_TILE_STEPS, -(-t_len // n))))
@@ -474,20 +483,28 @@ def _library(wide: bool):
                                                i64, p]
             lib.rxt_fb_wide_marg.argtypes = [ci, ci, p, p, p, p, p, p, p, p,
                                              i64, i64, i64, i64, p]
+            lib.rxt_fb_wide_marg_general.argtypes = \
+                lib.rxt_fb_wide_marg.argtypes
             lib.rxt_fb_wide_serial_plan.argtypes = [ci, pi, pi]
             lib.rxt_fb_wide_marg_blocks_per_sm.argtypes = []
             lib.rxt_fb_wide_marg_rows_blocks_per_sm.argtypes = []
+            lib.rxt_fb_wide_marg_rows2_blocks_per_sm.argtypes = []
             for fn in (lib.rxt_fb_wide_serial, lib.rxt_fb_wide_marg,
+                       lib.rxt_fb_wide_marg_general,
                        lib.rxt_fb_wide_serial_plan,
                        lib.rxt_fb_wide_marg_warps_per_sm,
                        lib.rxt_fb_wide_marg_blocks_per_sm,
                        lib.rxt_fb_wide_marg_rows_warps_per_sm,
-                       lib.rxt_fb_wide_marg_rows_blocks_per_sm):
+                       lib.rxt_fb_wide_marg_rows_blocks_per_sm,
+                       lib.rxt_fb_wide_marg_rows2_warps_per_sm,
+                       lib.rxt_fb_wide_marg_rows2_blocks_per_sm):
                 fn.restype = ci
             for fn, want in ((lib.rxt_fb_wide_marg_warps_per_sm,
                               MARGINAL_WARPS_PER_SM),
                              (lib.rxt_fb_wide_marg_rows_warps_per_sm,
-                              MARGINAL_ROW_WARPS_PER_SM)):
+                              MARGINAL_ROW_WARPS_PER_SM),
+                             (lib.rxt_fb_wide_marg_rows2_warps_per_sm,
+                              MARGINAL_ROWS2_WARPS_PER_SM)):
                 if fn() != want:
                     raise RuntimeError(
                         f"csrc/fused_fb_wide.cu bounds a marginal kernel to "
@@ -526,15 +543,19 @@ def wide_serial_plan(k: int, device) -> dict:
 
 def wide_marginal_warps_per_sm(device, k: int = 16) -> int:
     """Warps an SM of ``device`` holds of the marginal kernel at K states
-    (K <= 16, or 16 < K <= 32 with the float4 stores) with the per-step xi,
-    as the CUDA occupancy calculator reads its registers and shared memory
-    (``pick_tile_wide`` assumes ``marginal_plan(k)["warps_per_sm"]``)."""
+    (K <= 16; 16 < K <= 32 or 32 < K <= 64 with the float4 stores) with the
+    per-step xi, as the CUDA occupancy calculator reads its registers and
+    shared memory (``pick_tile_wide`` assumes
+    ``marginal_plan(k)["warps_per_sm"]``)."""
     lib = _library(wide=True)
-    fn = (lib.rxt_fb_wide_marg_rows_blocks_per_sm
-          if HALF_WARP_STATES < k <= ROW_STATES
-          else lib.rxt_fb_wide_marg_blocks_per_sm)
+    if ROW_STATES < k <= ROWS2_STATES:
+        fn, warps = lib.rxt_fb_wide_marg_rows2_blocks_per_sm, 4
+    elif HALF_WARP_STATES < k <= ROW_STATES:
+        fn, warps = lib.rxt_fb_wide_marg_rows_blocks_per_sm, 4
+    else:
+        fn, warps = lib.rxt_fb_wide_marg_blocks_per_sm, 4
     with torch.cuda.device(device):
-        return 4 * fn()
+        return warps * fn()
 
 
 def _check_dims(t_len, k):
@@ -577,9 +598,11 @@ def _serial_cuda(log_prior, log_trans, log_evidence, forward: bool,
 
 
 def _marginals_cuda(log_trans, log_evidence, alphas, betas,
-                    per_step_xi: bool):
+                    per_step_xi: bool, first_written: bool = False):
     """The wide marginal kernel (and, with more than one tile, xi_sum's) on
-    CUDA tensors.  Counts nothing."""
+    CUDA tensors; ``first_written`` launches ``fb_wide_marg_kernel`` at any
+    K (the design the row kernels replaced, timed beside them) on the same
+    tile.  Counts nothing."""
     t_len, bsz, k = log_evidence.shape
     dev = log_evidence.device
     kernels.check_tensor("log_evidence", log_evidence, (t_len, bsz, k))
@@ -600,11 +623,12 @@ def _marginals_cuda(log_trans, log_evidence, alphas, betas,
             if tiles > 1 else xi_sum)
     lib = _library(wide=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rxt_fb_wide_marg(k, int(per_step_xi), log_trans.data_ptr(),
-                              log_evidence.data_ptr(), alphas.data_ptr(),
-                              betas.data_ptr(), gammas.data_ptr(),
-                              part.data_ptr(), xi_sum.data_ptr(),
-                              _ptr(xi_steps), t_len, bsz, tile, tiles, stream)
+    launch = lib.rxt_fb_wide_marg_general if first_written \
+        else lib.rxt_fb_wide_marg
+    rc = launch(k, int(per_step_xi), log_trans.data_ptr(),
+                log_evidence.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                gammas.data_ptr(), part.data_ptr(), xi_sum.data_ptr(),
+                _ptr(xi_steps), t_len, bsz, tile, tiles, stream)
     kernels.check(lib, rc, "fused_fb_wide marginal kernels")
     return gammas, xi_sum, xi_steps
 

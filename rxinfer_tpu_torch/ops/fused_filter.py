@@ -30,9 +30,10 @@ a warp; ``warp_plan`` picks the tier): to d = 32 ``warp_filter_tc_kernel``
 (the matrices in registers, the products and the Schur blocks of the
 inverses on the tensor cores in 3xTF32), to d = 64
 ``warp_filter_tc64_kernel`` (the same arithmetic on 16 x 16 blocks of
-matrices that sit in shared memory), past it ``warp_filter_kernel`` (the
-matrices in shared memory or, past what a block holds, in a device-memory
-scratch).  The
+matrices that sit in shared memory), to d = 128 ``warp_filter_tc128_kernel``
+of ``csrc/fused_filter_tc128.cu`` (the same, a chain on a block of eight
+warps), past it ``warp_filter_kernel`` (the matrices in shared memory or,
+past what a block holds, in a device-memory scratch).  The
 wrapper takes the plain version when its tensors lie on the CPU and launches
 a kernel when they lie on a CUDA device; there is no fallback from a kernel
 to the plain version.  ``LAUNCHES`` counts kernel launches under
@@ -104,6 +105,13 @@ TC64_DIM = 64
 TC64_SMALL_DIM = 48
 TC64_CHAINS = {48: 8, 64: 4}
 TC64_WARPS = {48: 1, 64: 2}    # warps a chain
+# The tensor-core tier past TC64_DIM, d up to TC128_DIM: the state padded to
+# TC128_DIM, a chain on a block of TC128_WARPS warps, its two matrices and F
+# in shared memory at rows TC128_STRIDE floats apart, Q and W read from
+# device memory (``csrc/fused_filter_tc128.cu``).
+TC128_DIM = 128
+TC128_STRIDE = TC128_DIM + 8
+TC128_WARPS = 8
 
 # kernel launches on CUDA tensors (the plain version on CPU tensors counts none)
 LAUNCHES = {"fused_filter": 0, "fused_filter_wide": 0, "fused_filter_warp": 0}
@@ -142,6 +150,28 @@ def tc64_plan(d: int) -> dict:
             "warps_per_sm": chains * warps}
 
 
+def tc128_plan(d: int) -> dict:
+    """How ``warp_filter_tc128_kernel`` (``tier`` "tensor_cores_128") runs
+    at state dim ``d`` (64 < d <= 128): a chain a block of
+    ``warps_per_chain`` = 8 warps (the block products of a step spread over
+    them, the 32 x 32 inverses on the first), the state padded to 128, the
+    chain's two matrices and F in shared memory at rows ``stride`` = 136
+    floats apart (8 modulo the 32 banks), Q and W read from device memory
+    (``params``: six matrices of 69,632 B do not fit a block's 232,448 on
+    an H100), the chain's m, m_pred, h, each warp's observation chunk and
+    partial sum beside them (``smem_bytes``), one block an SM; the products
+    and every Schur block of the inverses on the tensor cores in 3xTF32,
+    the second inverse refined by one Newton step."""
+    dp, stride, warps = TC128_DIM, TC128_STRIDE, TC128_WARPS
+    mat = dp * stride
+    vec = 3 * dp + warps * WARP_Y_CHUNK + warps
+    return {"tier": "tensor_cores_128", "lanes_per_chain": warps * WARP_LANES,
+            "warps_per_chain": warps, "padded_dim": dp, "stride": stride,
+            "chains_per_block": 1, "params": "F shared, Q and W device",
+            "chain_matrices": "shared", "tensor_dim": dp,
+            "smem_bytes": 4 * (3 * mat + vec), "warps_per_sm": warps}
+
+
 def warp_plan(d: int, smem_limit: int) -> dict:
     """How the warp kernels run at state dim ``d`` (> 16) on a device whose
     blocks may take ``smem_limit`` bytes of shared memory (232,448 on an
@@ -153,10 +183,13 @@ def warp_plan(d: int, smem_limit: int) -> dict:
     F, Q and W in shared memory (``smem_bytes``, within any sm_90 block's
     limit), at most ``max_registers`` a thread, so ``warps_per_sm`` warps
     an SM or more.  To d = ``TC64_DIM`` ``tc64_plan``'s tier, which needs
-    an H100's shared memory (the launcher refuses a smaller limit).  Past
-    it, ``sweep_warp_plan``'s tiers."""
-    if d > TC64_DIM:
+    an H100's shared memory (the launcher refuses a smaller limit); to d =
+    ``TC128_DIM`` ``tc128_plan``'s tier, the same.  Past it,
+    ``sweep_warp_plan``'s tiers."""
+    if d > TC128_DIM:
         return sweep_warp_plan(d, smem_limit)
+    if d > TC64_DIM:
+        return tc128_plan(d)
     if d > TC_DIM:
         return tc64_plan(d)
     return {"tier": "tensor_cores", "lanes_per_chain": WARP_LANES,
@@ -291,6 +324,12 @@ def _library(key: str):
             lib.rxt_warp_filter_tc64_blocks_per_sm.restype = ci
             lib.rxt_warp_filter_tc64_smem_bytes.argtypes = [ci]
             lib.rxt_warp_filter_tc64_smem_bytes.restype = i64
+        elif key == "fused_filter_tc128":
+            lib.rxt_warp_filter_tc128.argtypes = [
+                ci, ci, p, p, p, p, p, p, p, p, i64, i64, ci, p]
+            lib.rxt_warp_filter_tc128.restype = ci
+            lib.rxt_warp_filter_tc128_smem_bytes.restype = i64
+            lib.rxt_warp_filter_tc128_blocks_per_sm.restype = ci
         elif key == "fused_filter_wide":
             lib.rxt_wide_filter.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, p,
@@ -353,7 +392,9 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
     """A warp kernel on the plan of ``device_warp_plan``: F, F^T, Q and W as
     one padded (4, dp, stride) device tensor, HR^T (dy, d) on the device,
-    and the chains' scratch when their matrices sit in device memory."""
+    and the chains' scratch when their matrices sit in device memory.  The
+    tier to d = 128 is a library of its own (``fused_filter_tc128``).
+    Returns the library that launched and its CUDA error code."""
     t_len, dy, bsz = ys.shape
     d = m0.shape[0]
     plan = device_warp_plan(d, ys.device)
@@ -361,8 +402,12 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
                           plan["chains_per_block"])
     tc = plan["tier"] == "tensor_cores"
     tc64 = plan["tier"] == "tensor_cores_64"
+    tc128 = plan["tier"] == "tensor_cores_128"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
-    if tc:
+    if tc128:
+        lib = _library("fused_filter_tc128")
+        smem = lib.rxt_warp_filter_tc128_smem_bytes()
+    elif tc:
         smem = lib.rxt_warp_filter_tc_smem_bytes(chains)
     elif tc64:
         smem = lib.rxt_warp_filter_tc64_smem_bytes(d)
@@ -377,19 +422,20 @@ def _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf, stream):
     params = _to_device(prm, ys.device)
     hr_t = _to_device(hrh.T, ys.device)
     if tc:
-        return lib.rxt_warp_filter_tc(
+        return lib, lib.rxt_warp_filter_tc(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), params.data_ptr(), means.data_ptr(),
             mf.data_ptr(), pf.data_ptr(), t_len, bsz, stride, chains, stream)
-    if tc64:
-        return lib.rxt_warp_filter_tc64(
+    if tc64 or tc128:
+        fn = lib.rxt_warp_filter_tc128 if tc128 else lib.rxt_warp_filter_tc64
+        return lib, fn(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
             hr_t.data_ptr(), params.data_ptr(), means.data_ptr(),
             mf.data_ptr(), pf.data_ptr(), t_len, bsz, stride, stream)
     scratch = None if cs else torch.empty(
         (-(-bsz // chains) * chains * 2 * dp * stride,), dtype=torch.float32,
         device=ys.device)
-    return lib.rxt_warp_filter(
+    return lib, lib.rxt_warp_filter(
         d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(), hr_t.data_ptr(),
         params.data_ptr(), means.data_ptr(), mf.data_ptr(), pf.data_ptr(),
         None if scratch is None else scratch.data_ptr(), t_len, bsz, dp,
@@ -423,8 +469,8 @@ def fused_filter(m0, p0, ys, f, q, hr, w):
     lib = _library(key)
     stream = torch.cuda.current_stream(ys.device).cuda_stream
     if key == "fused_filter_warp":
-        rc = _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf, pf,
-                          stream)
+        lib, rc = _launch_warp(lib, m0, p0, ys, fh, qh, hrh, wh, means, mf,
+                               pf, stream)
     elif key == "fused_filter":
         rc = lib.rxt_fused_filter(
             d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),

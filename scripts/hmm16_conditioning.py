@@ -4,13 +4,14 @@ CPU: the data of ``chip_smoke.py`` phase 16 (b) against the same size with
 two states a category.
 
     python3 scripts/hmm16_conditioning.py [--iterations 1,5,20] [--states K]
-        [--categories M]
+        [--categories M] [--chains B]
 
 Run from the root of a checkout; needs no card (the port runs its plain
 versions with ``device="cpu"``; on the card the wide K4/K5 give the same
 bits as those plain versions).  For each emission model it takes the
 sampled rows of phase 16 (b) (B = 1024, T = 1000, K = 16, m = 8, seed 16;
-``--states 32 --categories 16``: phase 26 (b)'s K and m),
+``--states 32 --categories 32``: phase 26 (b)'s K and m; ``--states 64
+--categories 64 --chains 512``: phase 27 (b)'s K, m and B),
 runs ``batched_program`` on them in float32 and ``chip_smoke``'s float64
 structured VMP at each number of sweeps, and prints the largest difference
 of the state probabilities (absolute) and of the A and B concentrations
@@ -21,7 +22,7 @@ concentrations move by 1e-7 relative.  ``aliased``: state s
 emits category s % 8 with 0.8 (s and s + 8 alike), B's initial
 concentrations lean to it with a slope of 0.1 over the states;
 ``distinct``: ``chip_smoke.hmm_k_emission``.  About a minute (two at
-K = 32).
+K = 32, five at K = 64).
 """
 
 import argparse
@@ -64,8 +65,10 @@ def main(argv) -> int:
     parser.add_argument("--iterations", default="1,5,20")
     parser.add_argument("--states", type=int, default=K)
     parser.add_argument("--categories", type=int, default=M)
+    parser.add_argument("--chains", type=int, default=B)
     args = parser.parse_args(argv)
     globals()["K"], globals()["M"] = args.states, args.categories
+    globals()["B"] = args.chains
     import torch
 
     import rxinfer_tpu_torch as rt

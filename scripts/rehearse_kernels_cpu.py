@@ -2,9 +2,9 @@
 """Rehearse the wide forward-backward, filter and dequantize + product
 kernels on the CPU, with no card and no ``nvcc``: build
 ``csrc/fused_fb_wide.cu``, ``csrc/fused_fb.cu``, ``csrc/fused_filter_wide.cu``,
-``csrc/fused_filter_warp.cu``, ``csrc/fused_smoother_wide.cu`` and
-``csrc/quantized.cu`` with ``g++`` against a stub CUDA runtime and hold them
-against their plain versions.
+``csrc/fused_filter_warp.cu``, ``csrc/fused_filter_tc128.cu``,
+``csrc/fused_smoother_wide.cu`` and ``csrc/quantized.cu`` with ``g++``
+against a stub CUDA runtime and hold them against their plain versions.
 
     python3 scripts/rehearse_kernels_cpu.py [--out DIR]
 
@@ -20,13 +20,14 @@ masking and algebra faults (ragged edges, the ring's slots, the table's
 placement, the staged observations); it says nothing about registers,
 races the barriers hide, or speed.  The K > 32 passes are run again with a
 small shared-memory limit, so that the table goes to device memory and the
-ring's tile shrinks; the marginal kernel past 16 states runs at K 17-32
-(float4 rows at K % 4 == 0, scalar ones else, ragged tiles); the wide
+ring's tile shrinks; the marginal kernels past 16 states run at K 17-32
+and 33-64 (float4 rows at K % 4 == 0, scalar ones else, ragged tiles);
+the wide
 filter runs at d 9-16 and at d <= 8 with
 dy > 8 (ragged blocks of chains, a staged group and a ragged last one, a
 vague prior); the warp filter runs each of its tiers (the
 tensor-core tier at d 17-32, a vague prior included; the tier past 32 at
-d 33-64; the sweep with
+d 33-64; the tier past 64 at d 65-128; the sweep with
 parameters and chain matrices in shared memory, parameters in device
 memory, both in device memory), forced at small d by a small limit, and
 at a d past the last tier against a float64 filter; the wide K1/K2 run at
@@ -34,8 +35,9 @@ d 9-16 (a ragged block of chains, T = 1 and 2 and a ragged last round, W
 and Q per chain, bf16 moments, a vague prior), K2 on K1's own outputs; K8
 runs with W whole and in row tiles (forced by a small limit) on both
 payloads, bit for bit.
-About ten minutes with four cores, the plain K3 at d = 64 most of it (the
-libraries in ``--out``, a temporary directory by default).
+About four minutes on eight cores, the plain K3 at d = 64, 65 and 72
+most of it (the libraries in ``--out``, a temporary directory by
+default).
 """
 
 import argparse
@@ -93,12 +95,15 @@ template <class T> inline T __ldg(const T* p) {
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __frcp_rn(float x) { volatile float r = 1.0f / x; return r; }
 inline int __float2int_rn(float x) { return static_cast<int>(rintf(x)); }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+                         cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxShared = 100 };
 
 struct RxtCta {
   int nthreads;
@@ -385,6 +390,9 @@ def check_fb_wide(lib, b, t, k, tile, smem=None, seed=0) -> bool:
     tiles = -(-t // tile)
     g_r, x_r, s_r = ffb.marginals_reference(lt, le, alphas, betas, True,
                                             tile=tile)
+    # the marginal kernels at the card's limit (the small one is for the
+    # serial kernel's table)
+    ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = 232_448
     for steps in (1, 0):
         gammas, xi_sum = torch.full_like(le, nan), torch.full((b, k, k), nan)
         part = torch.full((tiles, b, k, k), nan) if tiles > 1 else xi_sum
@@ -547,11 +555,12 @@ def _filter64(m0, p0, ys, f, q, h, r):
 
 
 def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
-                      seed=0, sweep=False, p0_scale=9.0) -> bool:
+                      seed=0, sweep=False, p0_scale=9.0, lib128=None) -> bool:
     """One (B, T, d, dy) through the warp filter's launchers on the plan
     ``warp_plan(d, smem)`` (``sweep_warp_plan`` with ``sweep``; the stub's
-    shared-memory limit set to ``smem``) against the plain version, or the
-    float64 filter."""
+    shared-memory limit set to ``smem``; the tier past 64 through
+    ``lib128``, ``fused_filter_tc128``'s library) against the plain
+    version, or the float64 filter."""
     import torch
 
     from rxinfer_tpu_torch.ops import fused_filter as ff
@@ -570,6 +579,11 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
     lib.rxt_warp_filter_tc64_smem_bytes.argtypes = [ci]
     lib.rxt_warp_filter_tc64_smem_bytes.restype = i64
     ctypes.c_int.in_dll(lib, "rxt_smem_optin").value = smem
+    if lib128 is not None:
+        lib128.rxt_warp_filter_tc128.argtypes = [ci, ci, vp, vp, vp, vp, vp,
+                                                 vp, vp, vp, i64, i64, ci, vp]
+        lib128.rxt_warp_filter_tc128_smem_bytes.restype = i64
+        ctypes.c_int.in_dll(lib128, "rxt_smem_optin").value = smem
     (f, q, h, r, w_obs, hr), (m0, p0, ys) = _filter_inputs(
         b, t, d, dy, seed, p0_scale)
     plan = (ff.sweep_warp_plan if sweep else ff.warp_plan)(d, smem)
@@ -577,9 +591,11 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
                           plan["chains_per_block"])
     tc = plan["tier"] == "tensor_cores"
     tc64 = plan["tier"] == "tensor_cores_64"
+    tc128 = plan["tier"] == "tensor_cores_128"
     ps, cs = plan["params"] == "shared", plan["chain_matrices"] == "shared"
     assert (lib.rxt_warp_filter_tc_smem_bytes(chains) if tc else
             lib.rxt_warp_filter_tc64_smem_bytes(d) if tc64 else
+            lib128.rxt_warp_filter_tc128_smem_bytes() if tc128 else
             lib.rxt_warp_filter_smem_bytes(dp, stride, chains, ps, cs)) == \
         plan["smem_bytes"], plan
     fh, qh, hrh, wh = ff._host_params(f, q, hr, w_obs, d, dy)
@@ -598,6 +614,12 @@ def check_warp_filter(lib, b, t, d, dy, smem=232_448, oracle=False,
                 d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
                 hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
                 t, b, stride, chains, None) == 0
+            return out
+        if tc128:
+            assert lib128.rxt_warp_filter_tc128(
+                d, dy, ys.data_ptr(), m0.data_ptr(), p0.data_ptr(),
+                hr_t.data_ptr(), prm.data_ptr(), *(o.data_ptr() for o in out),
+                t, b, stride, None) == 0
             return out
         if tc64:
             assert lib.rxt_warp_filter_tc64(
@@ -752,14 +774,15 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     out = Path(args.out or tempfile.mkdtemp(prefix="rehearse_"))
     libs = build(out, ["fused_fb_wide", "fused_fb", "fused_filter_wide",
-                       "fused_filter_warp", "quantized",
-                       "fused_smoother_wide"])
+                       "fused_filter_warp", "fused_filter_tc128",
+                       "quantized", "fused_smoother_wide"])
     print(f"built with g++ into {out}", flush=True)
     ok = True
     # K = 9..16 on the half-warp design (odd B: a warp's two halves on two
     # tiles; ragged tiles; K = 16 the float4 stores; T past three staged
     # tiles: the ring refilled, its last tile short), then 32, 33, 64 (T
-    # past three tiles at 32 and 33 too)
+    # past three tiles at 32 and 33 too); past 32 states the two-thread
+    # rows at 33, 63 (scalar rows), 40, 48, 64 (float4 rows), ragged tiles
     for b, t, k, tile in [(5, 37, 9, 4), (6, 70, 16, 70), (3, 33, 16, 8),
                           (7, 45, 16, 6), (3, 20, 13, 3), (3, 150, 16, 8),
                           (2, 131, 11, 5), (5, 40, 32, 4), (2, 130, 32, 8),
@@ -767,6 +790,7 @@ def main(argv) -> int:
                           (2, 9, 24, 3), (3, 13, 31, 5), (3, 9, 28, 9),
                           (2, 2, 32, 1), (1, 1, 18, 1),
                           (2, 11, 33, 4), (3, 17, 64, 4), (1, 1, 12, 1),
+                          (3, 13, 48, 5), (2, 9, 63, 4),
                           (1, 2, 16, 1), (2, 2, 40, 1)]:
         ok &= check_fb_wide(libs["fused_fb_wide"], b, t, k, tile)
     ok &= check_fb_wide(libs["fused_fb_wide"], 3, 17, 64, 4, smem=20_000)
@@ -822,6 +846,18 @@ def main(argv) -> int:
                         (5, 1, 64, 100)]:
         ok &= check_warp_filter(warp, b, t, d, dy)
     ok &= check_warp_filter(warp, 3, 2, 64, 100, oracle=True, p0_scale=1e6)
+    # d 65-128 on the tier past 64 (a chain a block): d = 65 (a ragged
+    # 16-block, one observation), d = 72 over three staged chunks, d = 128
+    # against the float64 filter (the plain step is about a minute there)
+    # and a vague prior on a well-conditioned W
+    lib128 = libs["fused_filter_tc128"]
+    for b, t, d, dy in [(3, 1, 65, 1), (2, 1, 72, 70)]:
+        ok &= check_warp_filter(warp, b, t, d, dy, lib128=lib128)
+    ok &= check_warp_filter(warp, 2, 2, 128, 128, oracle=True, lib128=lib128)
+    ok &= check_warp_filter(warp, 2, 2, 100, 200, oracle=True, p0_scale=1e6,
+                            lib128=lib128)
+    # few observations (W of rank 7): the Newton step on the second inverse
+    ok &= check_warp_filter(warp, 3, 3, 100, 7, oracle=True, lib128=lib128)
     # the tiers past the shared parameters, forced by a small limit, and
     # the device-memory scratch at its own d
     ok &= check_warp_filter(warp, 9, 3, 20, 3, smem=10_000, sweep=True)

@@ -34,9 +34,12 @@ and events as above, the share of its bound (the larger of (DY + 4 + 4 DX)
 bytes a row over 3.35 TB/s and DY + 2 DY DX operations a row over 67
 TFLOP/s, as ``chip_smoke.dequant_bound``), the layout and the W tiles the
 wrapper's rules picked where the tree has them, and a device copy of the
-payload and of the (R, DX) output as GB/s (read and write counted); with
-``--evidence`` also the calls ``quantized_evidence`` and
-``quantized_evidence_fp8`` on such rows (CUDA events).  It checks nothing:
+payload and of the (R, DX) output as GB/s (read and write counted), and
+the library call on the same numbers: ``torch.matmul`` of the int8
+payload's matrix already dequantized to float32 by W (device time; the
+dequantization not counted); with ``--evidence`` also the calls
+``quantized_evidence`` and ``quantized_evidence_fp8`` on such rows (CUDA
+events).  It checks nothing:
 ``chip_smoke.py`` holds the kernels against their plain versions.
 """
 
@@ -183,6 +186,17 @@ def time_dequant(tq, dev, specs, evidence=False):
             parts.append(f"{label} device ms {dv:.4f} ({100 * bound / dv:.1f}%"
                          f" of the {bound:.4f} ms bound), between events "
                          f"{ev:.4f}, layout {layout}, W tiles {tiles}")
+            if label == "int8":
+                # the library call: the product alone, on the matrix
+                # already dequantized to float32
+                deq = vals.to(torch.float32) * scales
+                lib_dv = _device_ms(lambda: torch.matmul(deq, w))
+                lib_ev = _ms(lambda: torch.matmul(deq, w))
+                del deq
+                parts.append(f"torch.matmul on the dequantized float32 "
+                             f"matrix device ms {lib_dv:.4f}, between events "
+                             f"{lib_ev:.4f} (K8 int8 / library "
+                             f"{dv / lib_dv:.2f})")
         if evidence:
             for label, fn in (("int8", tq.quantized_evidence),
                               ("fp8", tq.quantized_evidence_fp8)):

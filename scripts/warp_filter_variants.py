@@ -337,9 +337,11 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"tree {os.getcwd()}; {smi}", flush=True)
-    # the tier's 16 x 16 primitives inlined: the variants patch them too
-    src = (kernels.CSRC / "fused_filter_warp.cu").read_text().replace(
-        '#include "tc16.cuh"', (kernels.CSRC / "tc16.cuh").read_text())
+    # the tiers' 16 x 16 primitives inlined: the variants patch them too
+    src = (kernels.CSRC / "fused_filter_warp.cu").read_text()
+    for header in ("tc16.cuh", "tc_blocks.cuh"):
+        src = src.replace(f'#include "{header}"',
+                          (kernels.CSRC / header).read_text())
     with tempfile.TemporaryDirectory() as out:
         libs = build(variants(src), out)
         mma_rate(libs.pop("mma probe"), dev)

@@ -5,11 +5,13 @@ file holds against the JAX package: its Pallas kernels in interpret mode at
 K = 9 (the trace grows with K^2, so one case), its scan solver
 (``rxinfer_tpu/ops/discrete_chain.py`` ``forward_backward``) at K = 12, 16
 (the half-warp order of sums), 33 and 64, and its ``batched_program`` on
-``zoo.hmm(9, 3)`` and
-``zoo.hmm(16, 4)``, whose plans fuse the chain as the JAX planner does.
-The rule that picks the wide marginal pass's tile and its kernel past 16
-states (``marginal_plan``) are pinned, and the ``gpu``-marked tests hold
-the wide kernels against their plain versions on the card."""
+``zoo.hmm(9, 3)``, ``zoo.hmm(16, 4)`` and ``zoo.hmm(64, 64)``, whose plans
+fuse the chain as the JAX planner does.  The rule that picks the wide
+marginal pass's tile and its kernels past 16 and 32 states
+(``marginal_plan``) are pinned, and the ``gpu``-marked tests hold the wide
+kernels against their plain versions on the card (those of the marginal
+kernels past 16 and 32 states sit in ``test_torch_fb_wide_serial.py``,
+which imports no JAX, so that they run on the card)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,7 +195,7 @@ def test_marginal_plan_past_sixteen_states(k):
 
 @pytest.mark.parametrize("k,kernel", [(9, "fb_wide_marg_half_kernel"),
                                       (16, "fb_wide_marg_half_kernel"),
-                                      (33, "fb_wide_marg_kernel"),
+                                      (65, "fb_wide_marg_kernel"),
                                       (240, "fb_wide_marg_kernel")])
 def test_marginal_plan_keeps_the_other_kernels(k, kernel):
     plan = ffb.marginal_plan(k)
@@ -201,6 +203,46 @@ def test_marginal_plan_keeps_the_other_kernels(k, kernel):
     assert plan["units_per_sm"] == 2 * ffb.MARGINAL_WARPS_PER_SM
     with pytest.raises(ValueError, match="K > 8"):
         ffb.marginal_plan(8)
+
+
+@pytest.mark.parametrize("k", range(33, 65))
+def test_marginal_plan_past_thirty_two_states(k):
+    """32 < K <= 64: the row kernel on a CTA of four warps a unit, two
+    threads a row, 16 warps an SM (four CTAs, its launch bounds); the rows'
+    stride by the rule past 16 states, at most 68 floats."""
+    plan = ffb.marginal_plan(k)
+    assert plan["kernel"] == "fb_wide_marg_rows2_kernel"
+    assert plan["lanes_per_unit"] == 128
+    assert plan["warps_per_sm"] == ffb.MARGINAL_ROWS2_WARPS_PER_SM == 16
+    assert plan["units_per_sm"] == 4
+    stride = plan["row_stride"]
+    assert k <= stride <= 68
+    assert plan["vector_stores"] == (k % 4 == 0)
+    if k % 4 == 0:
+        assert stride % 4 == 0 and (stride // 4) % 2 == 1
+    else:
+        assert stride % 2 == 1
+    # four CTAs an SM: each CTA's table and stage (64 rows, 68 floats apart
+    # at most), four vectors of 64 and the warps' maxima, with the 1 KB a
+    # CTA the card reserves, fit an H100 SM's 228 KB; 128 registers a
+    # thread fill its 65,536
+    assert 4 * ((2 * 64 * 68 + 4 * 64 + 8) * 4 + 1024) <= 228 * 1024
+    assert 4 * plan["lanes_per_unit"] * 128 == 65_536
+
+
+@pytest.mark.parametrize("b,t,k,want", [(512, 1000, 64, 1000),
+                                        (37, 1001, 33, 72), (5, 33, 33, 4),
+                                        (3, 17, 64, 4), (1024, 200, 48, 200),
+                                        (100, 999, 63, 200)])
+def test_pick_tile_wide_past_thirty_two_states(b, t, k, want):
+    """A CTA a (tile, chain) at four an SM: ceil(T / n) for the most tiles
+    n whose B * n units 132 SMs hold at once; the 64-state cell (512
+    chains) one tile of all 1000 steps, 512 of the card's 528 units."""
+    tile = ffb.pick_tile_wide(b, t, H100_SMS, k)
+    assert tile == want
+    fit = max(1, H100_SMS * 4 // b)
+    assert -(-t // tile) <= fit
+    assert tile == min(t, ffb.MIN_TILE_STEPS) or -(-t // (tile - 1)) > fit
 
 
 @pytest.mark.parametrize("b,t,k,want", [(1024, 1000, 32, 500),
@@ -218,9 +260,9 @@ def test_pick_tile_wide_past_sixteen_states(b, t, k, want):
     fit = max(1, units // b)
     assert -(-t // tile) <= fit
     assert tile == min(t, ffb.MIN_TILE_STEPS) or -(-t // (tile - 1)) > fit
-    # the rule of K <= 16 (half-warps) still holds at 16 and past 32
+    # the rule of K <= 16 (half-warps) still holds at 16 and past 64
     assert ffb.pick_tile_wide(b, t, H100_SMS, 16) \
-        == ffb.pick_tile_wide(b, t, H100_SMS, 33) \
+        == ffb.pick_tile_wide(b, t, H100_SMS, 65) \
         == ffb.pick_tile_wide(b, t, H100_SMS)
 
 
@@ -276,6 +318,27 @@ def test_batched_program_fuses_more_than_eight_states_and_matches_jax(
     before = dict(ffb.LAUNCHES)
     tstate, _, _ = tprog({"y": y})
     assert ffb.LAUNCHES == before
+    np.testing.assert_allclose(tstate["s"].probs().numpy(),
+                               np.asarray(jstate["s"].probs()), **S_TOL)
+    for n in ("A", "B"):
+        np.testing.assert_allclose(tstate[n].alpha.numpy(),
+                                   np.asarray(jstate[n].alpha), err_msg=n,
+                                   **CONC_TOL)
+
+
+def test_batched_program_at_sixty_four_states_matches_jax():
+    """The 64-state cell's model (``zoo.hmm(64, 64)``) on a short chain
+    against the JAX package's scan path: the plan fuses the chain, the
+    plain versions run on the CPU, posteriors and concentrations agree."""
+    y, init = _hmm(64, 64, 2, 6, seed=64)
+    _, jprog = _jax_hmm_program(64, 64, y, init, False)
+    jstate, _, _ = jprog({"y": jnp.asarray(y)})
+    tcomp, tprog = trx.batched_program(tzoo.hmm(64, 64), {"y": y},
+                                       iterations=3, initialization=init(trx),
+                                       device=CPU)
+    assert tcomp.plan_report() == {
+        "s": {"fused": True, "kernel": "fused_fb", "route": "plain"}}
+    tstate, _, _ = tprog({"y": y})
     np.testing.assert_allclose(tstate["s"].probs().numpy(),
                                np.asarray(jstate["s"].probs()), **S_TOL)
     for n in ("A", "B"):

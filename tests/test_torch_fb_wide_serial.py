@@ -229,3 +229,49 @@ def test_marginal_kernel_past_sixteen_states_matches_the_plain_version(
     assert all(x is None and y is None or torch.equal(x, y)
                for x, y in zip(got, again))
     assert ffb.LAUNCHES["fused_fb_marg_wide"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_step_xi", [False, True])
+@pytest.mark.parametrize("b,t,k", [(5, 101, 33), (3, 50, 48), (7, 37, 63),
+                                   (2, 999, 64), (1, 1, 40), (600, 9, 64)])
+def test_marginal_kernel_past_thirty_two_states_gives_the_plain_bits(
+        cuda_device, b, t, k, per_step_xi):
+    """The two-warp row kernel (32 < K <= 64) at ragged shapes: ragged
+    tiles, K % 4 == 0 (16-byte stores: 48, 64) and not (33, 63), one step,
+    more units than a wave; the plain version's bits, the same over two
+    calls (no atomics)."""
+    lp, lt, le = _inputs(b, t, k, seed=b + t + k, device=cuda_device)
+    assert ffb.marginal_plan(k)["kernel"] == "fb_wide_marg_rows2_kernel"
+    alphas, _, betas = ffb.fb_serial_wide(lp, lt, le)
+    before = ffb.LAUNCHES["fused_fb_marg_wide"]
+    got = ffb.fb_marginals_wide(lt, le, alphas, betas, per_step_xi)
+    again = ffb.fb_marginals_wide(lt, le, alphas, betas, per_step_xi)
+    ref = ffb.marginals_reference(
+        lt, le, alphas, betas, per_step_xi,
+        tile=ffb.device_tile(b, t, cuda_device, k))
+    torch.cuda.synchronize()
+    for x, y, r in zip(got, again, ref):
+        assert x is None and y is None and r is None or (
+            torch.equal(x, r) and torch.equal(x, y))
+    assert ffb.LAUNCHES["fused_fb_marg_wide"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [33, 64])
+def test_marginal_kernel_past_thirty_two_states_divides_tiny_quotients(
+        cuda_device, k):
+    """Log-potentials spread 20 times wider, so that most per-step xi
+    entries fall below 2^-100 or to zero: the rows whose quotients the
+    kernel forms by the IEEE division, the plain version's bits all the
+    same."""
+    lp, lt, le = _inputs(3, 40, k, seed=k, device=cuda_device)
+    lt, le = 20 * lt, 20 * le
+    alphas, _, betas = ffb.fb_serial_wide(lp, lt, le)
+    got = ffb.fb_marginals_wide(lt, le, alphas, betas, True)
+    ref = ffb.marginals_reference(
+        lt, le, alphas, betas, True, tile=ffb.device_tile(3, 40, cuda_device,
+                                                          k))
+    torch.cuda.synchronize()
+    assert float((ref[2] < 2.0 ** -100).float().mean()) > 0.5
+    assert all(torch.equal(x, r) for x, r in zip(got, ref))

@@ -323,8 +323,9 @@ def test_warp_plan_routes_33_to_64_to_the_tier_past_32(d):
 
 @pytest.mark.parametrize("d", [32, 65])
 def test_the_tier_past_32_stops_at_its_edges(d):
+    # past 64 the tier past 64 (tests/test_torch_filter_tc128.py)
     assert ff.warp_plan(d, H100_SMEM)["tier"] == (
-        "tensor_cores" if d == 32 else "sweep")
+        "tensor_cores" if d == 32 else "tensor_cores_128")
 
 
 # -- on the card -------------------------------------------------------------------

@@ -330,15 +330,17 @@ def test_warp_plan_routes_17_to_32_to_the_tensor_cores(d):
 @pytest.mark.parametrize("d", [33, 40, 64, 96, 97, 160, 161, 300])
 def test_warp_plan_keeps_the_sweep_tiers_past_32(d):
     """Past 32 the sweep tiers' plan stands at every d (to d = 64 the
-    launcher takes the tensor-core tier past 32 instead, and the sweep tier
-    stays launchable there: ``scripts/warp_filter_variants.py`` and
-    ``chip_smoke.py`` time it beside the new tier); past 64 it is the
-    plan."""
+    launcher takes the tensor-core tier past 32 instead, to d = 128 the one
+    past 64, and the sweep tier stays launchable there:
+    ``scripts/warp_filter_variants.py`` and ``chip_smoke.py`` time it
+    beside the new tiers); past 128 it is the plan."""
     plan = ff.warp_plan(d, H100_SMEM)
     sweep = ff.sweep_warp_plan(d, H100_SMEM)
     assert sweep["tier"] == "sweep"
     if d <= ff.TC64_DIM:
         assert plan["tier"] == "tensor_cores_64"
+    elif d <= ff.TC128_DIM:
+        assert plan["tier"] == "tensor_cores_128"
     else:
         assert plan == sweep
 

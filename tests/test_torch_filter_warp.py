@@ -127,10 +127,12 @@ def test_warp_plan_fits_an_h100_block(d):
     plan = ff.warp_plan(d, H100_SMEM)
     assert plan["smem_bytes"] <= H100_SMEM
     # to d = 32 the tensor-core tier (tests/test_torch_filter_tensor.py), to
-    # d = 64 the tensor-core tier past 32 (tests/test_torch_filter_tc64.py);
-    # the sweep tiers' plan below still holds at those d
+    # d = 64 the tensor-core tier past 32 (tests/test_torch_filter_tc64.py),
+    # to d = 128 the one past 64 (tests/test_torch_filter_tc128.py); the
+    # sweep tiers' plan below still holds at those d
     assert plan["tier"] == ("tensor_cores" if d <= 32 else "tensor_cores_64"
-                            if d <= 64 else "sweep")
+                            if d <= 64 else "tensor_cores_128" if d <= 128
+                            else "sweep")
     plan = ff.sweep_warp_plan(d, H100_SMEM)
     dp, stride = plan["padded_dim"], plan["stride"]
     assert dp % 8 == 0 and d <= dp < d + 8

@@ -93,7 +93,7 @@ def test_kernel_build_flags():
                                       "fused_smoother_wide", "fused_fb",
                                       "fused_fb_wide", "fused_filter",
                                       "fused_filter_wide", "fused_filter_warp",
-                                      "quantized"}
+                                      "fused_filter_tc128", "quantized"}
     # every source under csrc/ is one that sources() builds, and every header
     # there is reached from a source
     assert {p.stem for p in kernels.CSRC.glob("*.cu")} == set(kernels.sources())
@@ -117,7 +117,9 @@ def test_library_key_covers_the_headers_a_source_includes(tmp_path):
     assert [p.name for p in kernels.source_files("quantized")] == [
         "quantized.cu"]
     assert [p.name for p in kernels.source_files("fused_filter_warp")] == [
-        "fused_filter_warp.cu", "tc16.cuh"]
+        "fused_filter_warp.cu", "tc16.cuh", "tc_blocks.cuh"]
+    assert [p.name for p in kernels.source_files("fused_filter_tc128")] == [
+        "fused_filter_tc128.cu", "tc16.cuh", "tc_blocks.cuh"]
     assert [p.name for p in kernels.source_files("fused_smoother_wide")] == [
         "fused_smoother_wide.cu", "smallmat.cuh", "tc16.cuh", "wide_step.cuh"]
     assert [p.name for p in kernels.source_files("fused_filter_wide")] == [
